@@ -6,43 +6,50 @@
 Phases, each of which raises on a failed check (exit code != 0):
 
   1. the card: nvidia-smi name and power limit, torch device properties;
-  2. build both CUDA kernels from paddlebox_tpu_torch/csrc with nvcc
+  2. build all four CUDA kernels from paddlebox_tpu_torch/csrc with nvcc
      (sm_90a), one nvcc per source, in parallel;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes of the main path: push_adagrad over U = 131,072 rows mixing
+     shapes of its paths: push_adagrad over U = 131,072 rows mixing
      created, updated and inactive rows (integer columns and created embedx
      exact; the rest rtol 1e-6, and bit-equality is expected since both sum
      the embedx mean in the same order), blocked_write on a 2^20 x 17 slab
-     from a real batch's sorted uids (bit-equal); then kernel, plain and
-     library times from CUDA events with the L2 cache flushed before each
-     launch;
+     from a real batch's sorted uids (bit-equal), scale_copy over f32
+     [131072, 128] (bit-equal: both round x * 0.999 + 0.001 once),
+     gather_rows at the rate probe's shape (131,072 sorted unique ids from
+     a 2^20 x 128 slab) and at the pull's (a real batch's 131,072 ids into
+     a 2^20 x 17 slab), bit-equal; the push kernels' kernel, plain, library
+     and bound times;
   4. a small-input check: two train_passes of a narrow DeepFM on the card
      and the same on the CPU (plain versions) agree;
   5. the main path at full width: two BoxTrainer.train_pass calls of the
      flagship configuration (paddlebox_tpu_torch/train/flagship.py: DeepFM
      hidden 512-256-128, 32 slots, batch 1024, max_len 4, embedx 8, 2^20-row
      pass slab, push_write='scatter') over 16 batches of synthetic data;
-     loss and AUC finite, examples/s, and the push_adagrad launch count
-     equal to the step count;
+     loss and AUC finite and printed to 10 digits, examples/s, and the
+     push_adagrad and gather_rows (the pull) launch counts equal to the
+     step count;
   6. the blocked mode: one pass of 4 batches with push_write='blocked' and
      one with 'scatter' from the same seed give bit-identical rows, and
-     blocked_write launched on every step.
+     blocked_write launched on every step;
+  7. the rate probe (paddlebox_tpu_torch/rate_probe.py): its cases on the
+     kernels, their plain versions and the PyTorch ops, each line with ms,
+     GB/s and the share of 3.35 TB/s; scale_copy and gather_rows launched
+     in it. Its 64 MiB scale and its pull-shape gather are those two
+     kernels' times in the kernels line.
 
-Then one JSON line with every kernel's numbers, the card's name and power
-limit, and the last line {"ok": true, "device": {...}}.
+Every time is device time from rate_probe.time_chain (CUDA events around
+a chain of launches queued behind a spin of the card, inputs rotated over
+copies so that L2 does not hold them). Then one JSON line with every
+kernel's numbers, the card's name and power limit, and the last line
+{"ok": true, "device": {...}}.
 """
 
 import dataclasses
 import json
 import os
-import statistics
-import subprocess
 import sys
 import tempfile
 import time
-
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
-F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 
 
 def check(cond, msg):
@@ -54,33 +61,6 @@ def log(*parts):
     print(*parts, flush=True)
 
 
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(out.returncode == 0, "nvidia-smi failed: " + out.stderr)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(torch, fn, flush, reps=20):
-    """Median milliseconds of fn() from CUDA events, one warm-up call, the
-    L2 cache flushed (a buffer larger than it zeroed) before each launch."""
-    fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
 def run_pass(torch, trainer, ds):
     t0 = time.perf_counter()
     res = trainer.train_pass(ds)
@@ -90,18 +70,19 @@ def run_pass(torch, trainer, ds):
     return res, auc, secs
 
 
-def kernel_phase(torch, cfg, feed, files, flush, dev):
-    """Phase 3: both kernels against their plain versions at the main
-    path's shapes; returns the kernel records (launches filled later)."""
+def kernel_phase(torch, cfg, feed, files, dev):
+    """Phase 3, the push kernels against their plain versions at the main
+    path's shapes; returns their records (launches filled later)."""
     import numpy as np
 
     from paddlebox_tpu_torch.config.configs import SparseOptimizerConfig
-    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
     from paddlebox_tpu_torch.embedding import accessor as acc
     from paddlebox_tpu_torch.embedding import push_kernels as pk
     from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
     from paddlebox_tpu_torch.embedding.optimizers import blocked_layout
     from paddlebox_tpu_torch.embedding.pass_table import dedup_ids
+    from paddlebox_tpu_torch.rate_probe import time_chain
     from paddlebox_tpu_torch.train import flagship
 
     D = cfg.embedx
@@ -151,11 +132,12 @@ def kernel_phase(torch, cfg, feed, files, flush, dev):
     check(torch.allclose(got, want, rtol=1e-6, atol=0.0),
           "push_adagrad float columns beyond rtol 1e-6")
     ada_err = float((got - want).abs().max())
-    ada_ms = time_ms(torch, lambda: pk.push_adagrad(v, g, r, seed, layout,
-                                                    conf), flush)
-    ada_plain_ms = time_ms(torch, lambda: pk.push_adagrad_plain(
-        v, g, r, seed, layout, conf), flush)
     ada_bytes = U * (2 * W * 4 + G * 4 + 4)
+    ada_ms = time_chain(lambda *a: pk.push_adagrad(*a, seed, layout, conf),
+                        (v, g, r), ada_bytes)
+    ada_plain_ms = time_chain(
+        lambda *a: pk.push_adagrad_plain(*a, seed, layout, conf), (v, g, r),
+        ada_bytes)
     ada_ops = int(active.sum()) * (20 + 6 * D)
     ada_bound = 1e3 * max(ada_bytes / HBM_BYTES_PER_S, ada_ops / F32_FLOPS)
     log("push_adagrad U=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms "
@@ -165,14 +147,7 @@ def kernel_phase(torch, cfg, feed, files, flush, dev):
 
     # --- blocked_write: a real batch's sorted uids on a 2^20-row slab
     C = cfg.capacity
-    ds = BoxDataset(feed)
-    ds.set_filelist(files[:1])
-    keys = []
-    ds.load_into_memory(add_keys_fn=keys.append)
-    pass_keys = np.unique(np.concatenate(keys))
-    b = ds.split_batches(1)[0][0]
-    ids = np.where(b.valid, np.searchsorted(pass_keys, b.keys),
-                   C - 1).astype(np.int32)
+    ids = flagship.first_batch_ids(files, feed, cfg)
     uids_np, _, _, n_uniq = dedup_ids(ids, C)
     uids = torch.from_numpy(uids_np).to(dev)
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -191,15 +166,14 @@ def kernel_phase(torch, cfg, feed, files, flush, dev):
     check(torch.equal(s_k.view(torch.int32), s_l.view(torch.int32)),
           "blocked_write differs from the row scatter of the same uids")
     blk_err = float((s_k - s_p).abs().max())
-    blk_ms = time_ms(torch, lambda: pk.blocked_write(s_k, new_rows, row_map,
-                                                     blk_idx), flush)
-    blk_plain_ms = time_ms(torch, lambda: pk.blocked_write_plain(
-        s_p, new_rows, row_map, blk_idx), flush)
-    blk_lib_ms = time_ms(torch, lambda: s_l.index_copy_(
-        0, idx, new_rows[:n_uniq]), flush)
     placed = int((row_map >= 0).sum())
     NB, B = row_map.shape
     blk_bytes = NB * B * 4 + NB * 4 + placed * W * 4 * 2
+    blk_args = (s_k, new_rows, row_map, blk_idx)
+    blk_ms = time_chain(pk.blocked_write, blk_args, blk_bytes)
+    blk_plain_ms = time_chain(pk.blocked_write_plain, blk_args, blk_bytes)
+    blk_lib_ms = time_chain(lambda s, i, r: s.index_copy_(0, i, r),
+                            (s_l, idx, new_rows[:n_uniq]), blk_bytes)
     blk_bound = 1e3 * blk_bytes / HBM_BYTES_PER_S
     log("blocked_write NB=%d B=%d placed=%d: kernel %.4f ms, plain %.4f ms, "
         "index_copy_ %.4f ms, bound %.4f ms (%d B)"
@@ -221,6 +195,86 @@ def kernel_phase(torch, cfg, feed, files, flush, dev):
          "plain_ms": blk_plain_ms, "bound_ms": blk_bound,
          "bound_by": "bytes", "library_ms": blk_lib_ms},
     ]
+
+
+def row_kernel_phase(torch, cfg, feed, files, dev):
+    """Phase 3, the rate probe's kernels against their plain versions:
+    scale_copy at the probe's 64 MiB shape, gather_rows at the probe's
+    shape and at the pull's (a real batch's ids, the trash row included);
+    all bit-equal. Returns each kernel's max_abs_err; their times come from
+    the rate probe's phase."""
+    from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.train import flagship
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def bit_equal(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    # --- scale_copy over f32 [131072, 128] (64 MiB)
+    x = torch.rand((1 << 17, 128), generator=gen, device=dev)
+    got = rk.scale_copy(x)
+    torch.cuda.synchronize()
+    want = rk.scale_copy_plain(x)
+    check(bit_equal(got, want), "scale_copy differs from the plain version")
+    errs = {"scale_copy": float((got - want).abs().max())}
+    log("scale_copy %s: bit-equal to the plain version" % list(x.shape))
+    del x, got, want
+
+    # --- gather_rows at the probe's shape and at the pull's
+    C, K = cfg.capacity, 131072
+    pull_ids = flagship.first_batch_ids(files, feed, cfg)
+    shapes = {
+        "probe": (torch.rand((C, 128), generator=gen, device=dev),
+                  torch.randperm(C - 1, generator=gen, device=dev)[:K]
+                  .sort().values.to(torch.int32)),
+        "pull": (torch.rand((C, ValueLayout(cfg.embedx).width),
+                            generator=gen, device=dev),
+                 torch.from_numpy(pull_ids).to(dev)),
+    }
+    for label, (src, ids) in shapes.items():
+        got = rk.gather_rows(src, ids)
+        torch.cuda.synchronize()
+        want = rk.gather_rows_plain(src, ids)
+        lib = src.index_select(0, ids)
+        check(bit_equal(got, want) and bit_equal(got, lib),
+              "gather_rows at the %s shape differs from the plain version"
+              % label)
+        if label == "pull":
+            errs["gather_rows"] = float((got - want).abs().max())
+        log("gather_rows %s shape src %s, %d ids (%d distinct): bit-equal "
+            "to the plain version and index_select"
+            % (label, list(src.shape), ids.shape[0],
+               int(ids.unique().numel())))
+        del got, want, lib
+    return errs
+
+
+def row_kernel_records(probe, errs, cfg):
+    """The rate probe's kernels' records, from the probe's cases at the
+    shapes of their paths: scale_copy at 64 MiB (library: the one-call
+    torch_scale), gather_rows at the pull's (library: index_select)."""
+    from paddlebox_tpu_torch.device import HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+
+    by_op = {r["op"]: r for r in probe}
+    W = ValueLayout(cfg.embedx).width
+    out = []
+    for name, src, line, kcase, tcase in (
+            ("scale_copy", "scale_copy.cu", 54, "kernel_scale_64MB",
+             "torch_scale_64MB"),
+            ("gather_rows", "gather_rows.cu", 70, "kernel_gather_pull_W%d" % W,
+             "torch_gather_pull_W%d" % W)):
+        k, t = by_op[kcase], by_op[tcase]
+        out.append({"name": name, "route": "cuda",
+                    "source": "paddlebox_tpu_torch/csrc/" + src,
+                    "replaces": "tools/pallas_rate_probe.py:%d" % line,
+                    "launches": None, "max_abs_err": errs[name],
+                    "ms": k["ms_per_call"], "plain_ms": k["plain_ms"],
+                    "bound_ms": 1e3 * k["bytes"] / HBM_BYTES_PER_S,
+                    "bound_by": "bytes", "library_ms": t["ms_per_call"]})
+    return out
 
 
 def small_parity_phase(torch, tmp):
@@ -261,12 +315,22 @@ def main() -> int:
         return 2
     import numpy as np
 
+    from paddlebox_tpu_torch import rate_probe
+    from paddlebox_tpu_torch.device import card_line
     from paddlebox_tpu_torch.embedding import push_kernels as pk
     from paddlebox_tpu_torch.native.build import build_kernels
+    from paddlebox_tpu_torch.ops import row_kernels as rk
     from paddlebox_tpu_torch.train import flagship
 
+    def reset_counts():
+        pk.reset_launch_counts()
+        rk.reset_launch_counts()
+
+    def counts():
+        return {**pk.launch_counts(), **rk.launch_counts()}
+
     # 1. the card
-    smi = nvidia_smi_line()
+    smi = card_line()
     props = torch.cuda.get_device_properties(0)
     log("card:", smi)
     log("torch %s cuda %s device %s sm_%d%d, %d SMs, %.1f GiB"
@@ -279,7 +343,6 @@ def main() -> int:
     paths = build_kernels(verbose=True)
     log("built %s in %.2f s" % (sorted(paths), time.perf_counter() - t0))
 
-    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cfg = flagship.FLAGSHIP
         t0 = time.perf_counter()
@@ -288,9 +351,9 @@ def main() -> int:
             % (len(files), cfg.lines_per_file, time.perf_counter() - t0))
 
         # 3. kernels against their plain versions
-        kernels = kernel_phase(torch, cfg, feed, files, flush,
-                               torch.device("cuda"))
-        del flush
+        dev = torch.device("cuda")
+        kernels = kernel_phase(torch, cfg, feed, files, dev)
+        row_errs = row_kernel_phase(torch, cfg, feed, files, dev)
 
         # 4. small-input parity
         small_parity_phase(torch, tmp)
@@ -298,7 +361,7 @@ def main() -> int:
         # 5. the main path at full width
         trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter",
                                              "cuda")
-        pk.reset_launch_counts()
+        reset_counts()
         passes = []
         for p in range(2):
             res, auc, secs = run_pass(torch, trainer, ds)
@@ -311,14 +374,16 @@ def main() -> int:
                            "pass_s": secs,
                            "examples_per_s": res["instances"] / secs,
                            "phase_s": trainer.pass_times})
-            log("main path pass %d: %s" % (p, json.dumps(passes[-1])))
-        main_counts = pk.launch_counts()
+            log("main path pass %d: loss %.10f auc %.10f %s"
+                % (p, res["loss"], auc, json.dumps(passes[-1])))
+        main_counts = counts()
         steps = sum(p["batches"] for p in passes)
-        check(main_counts["push_adagrad"] == steps,
-              "push_adagrad launched %d times over %d steps"
-              % (main_counts["push_adagrad"], steps))
-        check(main_counts["blocked_write"] == 0,
-              "blocked_write launched on the scatter path")
+        for name in ("push_adagrad", "gather_rows"):
+            check(main_counts[name] == steps, "%s launched %d times over %d "
+                  "steps" % (name, main_counts[name], steps))
+        check(main_counts["blocked_write"] == 0
+              and main_counts["scale_copy"] == 0,
+              "blocked_write or scale_copy launched on the scatter path")
         log("main path launches %s over %d steps" % (main_counts, steps))
         del trainer, ds
 
@@ -329,30 +394,47 @@ def main() -> int:
             t, d = flagship.build_trainer(files[:1], feed, cfg, mode, "cuda")
             pk.reset_launch_counts()
             res, auc, _ = run_pass(torch, t, d)
-            counts = pk.launch_counts()
+            mode_counts = pk.launch_counts()
             if mode == "blocked":
-                blocked_counts = counts
-                check(counts["blocked_write"] == res["batches"]
-                      and counts["push_adagrad"] == res["batches"],
+                blocked_counts = mode_counts
+                check(mode_counts["blocked_write"] == res["batches"]
+                      and mode_counts["push_adagrad"] == res["batches"],
                       "blocked path launches %s over %d steps"
-                      % (counts, res["batches"]))
+                      % (mode_counts, res["batches"]))
             rows[mode] = t.table.store.lookup(t.table.pass_keys)
             log("%s pass over %d batches: loss %r auc %r launches %s"
-                % (mode, res["batches"], res["loss"], auc, counts))
+                % (mode, res["batches"], res["loss"], auc, mode_counts))
             del t, d
         check(np.array_equal(rows["blocked"].view(np.uint32),
                              rows["scatter"].view(np.uint32)),
               "blocked-mode rows differ from scatter-mode rows")
         log("blocked vs scatter rows bit-identical over %d rows"
             % rows["blocked"].shape[0])
+        del rows
 
-    kernels[0]["launches"] = main_counts["push_adagrad"]
-    kernels[1]["launches"] = blocked_counts["blocked_write"]
+    # 7. the rate probe
+    reset_counts()
+    probe = rate_probe.run("cuda")
+    probe_counts = counts()
+    check(probe_counts["scale_copy"] > 0 and probe_counts["gather_rows"] > 0
+          and probe_counts["push_adagrad"] == 0
+          and probe_counts["blocked_write"] == 0,
+          "rate probe launches %s" % probe_counts)
+    log("rate probe launches %s over %d cases" % (probe_counts, len(probe)))
+    kernels += row_kernel_records(probe, row_errs, cfg)
+
+    launches = {"push_adagrad": main_counts["push_adagrad"],
+                "blocked_write": blocked_counts["blocked_write"],
+                "scale_copy": probe_counts["scale_copy"],
+                "gather_rows": main_counts["gather_rows"]}
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
     log(json.dumps({"paths": {"scatter": main_counts,
-                              "blocked": blocked_counts},
+                              "blocked": blocked_counts,
+                              "rate_probe": probe_counts},
                     "passes": passes}))
     log(json.dumps({"kernels": kernels}))
-    log(nvidia_smi_line())
+    log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,37 +25,8 @@ import torch
 from paddlebox_tpu_torch.config.configs import SparseOptimizerConfig
 from paddlebox_tpu_torch.embedding import accessor as acc
 from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError("%s must be a tensor" % name)
-    if t.dtype != dtype:
-        raise TypeError("%s must be %s, got %s" % (name, dtype, t.dtype))
-    if t.dim() != ndim:
-        raise ValueError("%s must have %d dims, got shape %s"
-                         % (name, ndim, tuple(t.shape)))
-    if not t.is_contiguous():
-        raise ValueError("%s must be contiguous" % name)
-    if t.device != device:
-        raise ValueError("%s is on %s, expected %s" % (name, t.device, device))
-
-
-def _route(device: torch.device) -> bool:
-    """True: launch the CUDA kernel; False: the plain version (CPU only)."""
-    if device.type == "cuda":
-        return True
-    if device.type == "cpu":
-        return False
-    raise ValueError("push kernels run on cuda or cpu tensors, got %s"
-                     % device)
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError("%s kernel launch failed: CUDA error %d"
-                           % (what, rc))
+from paddlebox_tpu_torch.native.kernel_args import (check, raise_on,
+                                                    use_kernel)
 
 
 # ------------------------------------------------------------ push_adagrad
@@ -79,9 +50,9 @@ def push_adagrad(values: torch.Tensor, grads: torch.Tensor,
         raise ValueError("push_adagrad supports the adagrad layout only")
     dev = values.device
     U = values.shape[0] if values.dim() == 2 else -1
-    _check(values, "values", torch.float32, 2, dev)
-    _check(grads, "grads", torch.float32, 2, dev)
-    _check(row_ids, "row_ids", torch.int32, 1, dev)
+    check(values, "values", torch.float32, 2, dev)
+    check(grads, "grads", torch.float32, 2, dev)
+    check(row_ids, "row_ids", torch.int32, 1, dev)
     if values.shape[1] != layout.width:
         raise ValueError("values width %d != layout width %d"
                          % (values.shape[1], layout.width))
@@ -93,7 +64,7 @@ def push_adagrad(values: torch.Tensor, grads: torch.Tensor,
                          % (row_ids.shape[0], U))
     if not 0 <= int(seed) < 2**31:
         raise ValueError("seed must be a nonnegative int32, got %r" % seed)
-    if not _route(dev):
+    if not use_kernel(dev):
         return push_adagrad_plain(values, grads, row_ids, seed, layout, conf)
     from paddlebox_tpu_torch.native.build import load_kernel
     lib = load_kernel("push_adagrad")
@@ -105,7 +76,7 @@ def push_adagrad(values: torch.Tensor, grads: torch.Tensor,
             rc = lib.pbt_push_adagrad(
                 values.data_ptr(), grads.data_ptr(), row_ids.data_ptr(),
                 out.data_ptr(), U, layout.embedx_dim, int(seed), cf, stream)
-        _raise_on(rc, "push_adagrad")
+        raise_on(rc, "push_adagrad")
         push_adagrad.launches += 1
     return out
 
@@ -194,10 +165,10 @@ def blocked_write(slab: torch.Tensor, new_rows: torch.Tensor,
     new_rows [U, W] f32, row_map [NB, B] int32 (values < U), blk_idx [NB]
     int32 block ids in [0, C // B)."""
     dev = slab.device
-    _check(slab, "slab", torch.float32, 2, dev)
-    _check(new_rows, "new_rows", torch.float32, 2, dev)
-    _check(row_map, "row_map", torch.int32, 2, dev)
-    _check(blk_idx, "blk_idx", torch.int32, 1, dev)
+    check(slab, "slab", torch.float32, 2, dev)
+    check(new_rows, "new_rows", torch.float32, 2, dev)
+    check(row_map, "row_map", torch.int32, 2, dev)
+    check(blk_idx, "blk_idx", torch.int32, 1, dev)
     C, W = slab.shape
     NB, B = row_map.shape
     if new_rows.shape[1] != W:
@@ -208,7 +179,7 @@ def blocked_write(slab: torch.Tensor, new_rows: torch.Tensor,
                          % (blk_idx.shape[0], NB))
     if B <= 0 or C % B:
         raise ValueError("block rows %d must divide slab rows %d" % (B, C))
-    if not _route(dev):
+    if not use_kernel(dev):
         blocked_write_plain(slab, new_rows, row_map, blk_idx)
         return
     from paddlebox_tpu_torch.native.build import load_kernel
@@ -219,7 +190,7 @@ def blocked_write(slab: torch.Tensor, new_rows: torch.Tensor,
             rc = lib.pbt_blocked_write(
                 slab.data_ptr(), new_rows.data_ptr(), row_map.data_ptr(),
                 blk_idx.data_ptr(), NB, B, W, stream)
-        _raise_on(rc, "blocked_write")
+        raise_on(rc, "blocked_write")
         blocked_write.launches += 1
 
 

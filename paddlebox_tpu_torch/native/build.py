@@ -32,7 +32,8 @@ BUILD_DIR = os.path.join(_PKG, "native", "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-KERNEL_SOURCES = ("push_adagrad", "blocked_write")
+KERNEL_SOURCES = ("push_adagrad", "blocked_write", "scale_copy",
+                  "gather_rows")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -62,7 +63,7 @@ def _lib_path(name: str) -> str:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     """argtypes/restype of each C entry (pointers and the stream as
     c_void_p so ctypes never truncates them)."""
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     if name == "push_adagrad":
         fn = lib.pbt_push_adagrad
         fn.argtypes = [p, p, p, p, i, i, i, ctypes.POINTER(ctypes.c_float),
@@ -70,6 +71,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "blocked_write":
         fn = lib.pbt_blocked_write
         fn.argtypes = [p, p, p, p, i, i, i, p]
+    elif name == "scale_copy":
+        fn = lib.pbt_scale_copy
+        fn.argtypes = [p, p, i64, p]
+    elif name == "gather_rows":
+        fn = lib.pbt_gather_rows
+        fn.argtypes = [p, p, p, i64, i64, i, p]
     else:
         raise ValueError("unknown kernel %r" % name)
     fn.restype = ctypes.c_int

@@ -12,11 +12,14 @@ import torch
 
 from paddlebox_tpu_torch.embedding import accessor as acc
 from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+from paddlebox_tpu_torch.ops.row_kernels import gather_rows
 
 
 def gather_slab_rows(slab: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """[K, width] rows slab[ids] (padding ids address the trash row)."""
-    return slab.index_select(0, ids)
+    """[K, width] rows slab[ids] for int32 ids (padding ids address the
+    trash row; an id past the slab reads the last row, as JAX's gather
+    clamps). On the card this is the gather_rows kernel."""
+    return gather_rows(slab, ids)
 
 
 def pull_view_from_rows(rows: torch.Tensor,

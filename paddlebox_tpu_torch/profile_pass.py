@@ -9,7 +9,9 @@ activity) and prints:
 
   * one JSON line: the pass's host phase seconds (BoxTrainer.pass_times),
     the step loop's wall seconds, the device busy seconds inside it (the
-    union of all GPU kernel and copy intervals) and the idle share;
+    union of all GPU kernel and copy intervals), the idle share, and each
+    of the port's own kernels' calls, device seconds and share of the busy
+    time (the pull is gather_rows, the push push_adagrad);
   * the 25 device operators with the most GPU time (key_averages).
 
 Needs a CUDA device; writes the Chrome trace to DIR/pass_trace.json when
@@ -21,7 +23,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import tempfile
 import time
 
@@ -49,6 +50,8 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.native.build import KERNEL_SOURCES
     from paddlebox_tpu_torch.train import flagship
 
     if not torch.cuda.is_available():
@@ -72,11 +75,14 @@ def main() -> int:
     steps_s = trainer.pass_times.get("steps", 0.0)
     span_s = ((max(e for _, e in intervals) - min(s for s, _ in intervals))
               / 1e6 if intervals else 0.0)
+    ours = {}
+    for name in KERNEL_SOURCES:
+        mine = [e for e in dev if name + "_kernel" in e.name]
+        secs = sum(e.time_range.end - e.time_range.start for e in mine) / 1e6
+        ours[name] = {"calls": len(mine), "device_s": secs,
+                      "share_of_busy": secs / busy_s if busy_s else None}
     print(json.dumps({
-        "card": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()[0],
+        "card": card_line(),
         "batches": res["batches"], "pass_wall_s": wall,
         "phase_s": trainer.pass_times,
         "device_events": len(dev), "device_busy_s": busy_s,
@@ -85,6 +91,7 @@ def main() -> int:
         "idle_share_of_device_span": ((1.0 - busy_s / span_s)
                                       if span_s else None),
         "steps_per_s_host": (res["batches"] / steps_s) if steps_s else None,
+        "port_kernels": ours,
     }), flush=True)
     print(prof.key_averages().table(sort_by="device_time_total",
                                     row_limit=25), flush=True)

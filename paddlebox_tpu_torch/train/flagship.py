@@ -5,9 +5,10 @@ bench.py's flagship shape (bench.py:88-91,179-190): DeepFM with hidden
 in-table adagrad, a 2^20-row f32 pass slab, mf_create_thresholds 0,
 mf_initial_range 1e-3, f32 dense Adam at lr 1e-3; trained on synthetic
 files (4 files x 4096 lines = 16 batches a pass, 20,000 ids a slot,
-seed 0). chip_smoke.py drives its main path from here, and
-profile_pass.py profiles the same pass; a smaller configuration is a
-``dataclasses.replace`` of ``FLAGSHIP``.
+seed 0). chip_smoke.py drives its main path from here,
+profile_pass.py profiles the same pass, and rate_probe.py gathers at the
+pull's shape from one of its batches (``first_batch_ids``); a smaller
+configuration is a ``dataclasses.replace`` of ``FLAGSHIP``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from paddlebox_tpu_torch.config.configs import (DataFeedConfig,
@@ -64,6 +66,22 @@ def write_files(out_dir: str, cfg: Flagship = FLAGSHIP
         num_slots=cfg.num_slots, vocab_per_slot=cfg.vocab_per_slot,
         max_len=cfg.max_len, seed=cfg.data_seed)
     return files, dataclasses.replace(feed, batch_size=cfg.batch)
+
+
+def first_batch_ids(files: List[str], feed: DataFeedConfig,
+                    cfg: Flagship = FLAGSHIP) -> np.ndarray:
+    """int32 [batch * num_slots * max_len] slab ids of the first batch of
+    ``files[0]``, as the pass table of that file gives them: each key's
+    rank among the file's sorted unique keys, padding key slots on the
+    trash row (capacity - 1)."""
+    ds = BoxDataset(feed)
+    ds.set_filelist(files[:1])
+    keys: List[np.ndarray] = []
+    ds.load_into_memory(add_keys_fn=keys.append)
+    pass_keys = np.unique(np.concatenate(keys))
+    b = ds.split_batches(1)[0][0]
+    return np.where(b.valid, np.searchsorted(pass_keys, b.keys),
+                    cfg.capacity - 1).astype(np.int32)
 
 
 def build_trainer(files: List[str], feed: DataFeedConfig,

@@ -11,7 +11,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "paddlebox_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "chex", "paddlebox_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "chex", "paddlebox_tpu",
+             "tools")
 
 
 def _forbidden(module: str) -> bool:
