@@ -9,16 +9,18 @@ Phases, each of which raises on a failed check (exit code != 0):
   2. build all four CUDA kernels from paddlebox_tpu_torch/csrc with nvcc
      (sm_90a), one nvcc per source, in parallel;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes of its paths: push_adagrad over U = 131,072 rows mixing
-     created, updated and inactive rows (integer columns and created embedx
-     exact; the rest rtol 1e-6, and bit-equality is expected since both sum
-     the embedx mean in the same order), blocked_write on a 2^20 x 17 slab
-     from a real batch's sorted uids (bit-equal), scale_copy over f32
-     [131072, 128] (bit-equal: both round x * 0.999 + 0.001 once),
-     gather_rows at the rate probe's shape (131,072 sorted unique ids from
-     a 2^20 x 128 slab) and at the pull's (a real batch's 131,072 ids into
-     a 2^20 x 17 slab), bit-equal; the push kernels' kernel, plain, library
-     and bound times;
+     shapes of its paths, all bit-equal: the fused push_adagrad (merge,
+     update and row write in one kernel) over a real flagship batch's
+     dedup (131,072 key slots, 77,128 uniques) on a 2^20 x 17 slab whose
+     touched rows mix embedx creation, update and inactive rows, in both
+     write modes (in place, and rows out for the blocked path),
+     blocked_write on the same slab shape from that batch's sorted uids
+     and its n_uniq rows, scale_copy over f32 [131072, 128] (both round
+     x * 0.999 + 0.001 once), gather_rows at the rate probe's shape
+     (131,072 sorted unique ids from a 2^20 x 128 slab) and at the pull's
+     (a real batch's 131,072 ids into a 2^20 x 17 slab); the push kernels'
+     kernel, plain, library and bound times (the fused push timed rows out,
+     so that repeated launches do not compound the update);
   4. a small-input check: two train_passes of a narrow DeepFM on the card
      and the same on the CPU (plain versions) agree;
   5. the main path at full width: two BoxTrainer.train_pass calls of the
@@ -30,7 +32,7 @@ Phases, each of which raises on a failed check (exit code != 0):
      step count;
   6. the blocked mode: one pass of 4 batches with push_write='blocked' and
      one with 'scatter' from the same seed give bit-identical rows, and
-     blocked_write launched on every step;
+     push_adagrad and blocked_write each launched once a step;
   7. the rate probe (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
      GB/s and the share of 3.35 TB/s; scale_copy and gather_rows launched
@@ -75,84 +77,138 @@ def kernel_phase(torch, cfg, feed, files, dev):
     path's shapes; returns their records (launches filled later)."""
     import numpy as np
 
-    from paddlebox_tpu_torch.config.configs import SparseOptimizerConfig
     from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
     from paddlebox_tpu_torch.embedding import accessor as acc
     from paddlebox_tpu_torch.embedding import push_kernels as pk
     from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
     from paddlebox_tpu_torch.embedding.optimizers import blocked_layout
-    from paddlebox_tpu_torch.embedding.pass_table import dedup_ids
+    from paddlebox_tpu_torch.embedding.pass_table import (dedup_ids,
+                                                          segment_offsets)
+    from paddlebox_tpu_torch.push_probe import (SEED, fused_push_bytes,
+                                                push_inputs)
     from paddlebox_tpu_torch.rate_probe import time_chain
     from paddlebox_tpu_torch.train import flagship
 
     D = cfg.embedx
     layout, push = ValueLayout(D), PushLayout(D)
-    conf = SparseOptimizerConfig(mf_create_thresholds=0.0,
-                                 mf_initial_range=1e-3)
+    conf = cfg.table().optimizer
     W, G = layout.width, push.width
-
-    # --- push_adagrad: U rows, a third each created / updated / inactive
-    U = feed.key_capacity()
-    rng = np.random.RandomState(11)
-    rows = np.zeros((U, W), np.float32)
-    rows[:, acc.SLOT] = rng.randint(0, 32, U)
-    rows[:, acc.SHOW] = rng.randint(1, 50, U)
-    rows[:, acc.CLICK] = rng.randint(0, 5, U)
-    rows[:, acc.EMBED_W] = rng.randn(U) * 0.1
-    rows[:, layout.embed_state] = rng.rand(U)
-    kind = rng.randint(0, 3, U)          # 0 create, 1 update, 2 inactive
-    has_mf = kind != 0
-    rows[has_mf, acc.MF_SIZE] = D
-    xw = layout.embedx_w
-    rows[has_mf, xw:xw + D] = rng.randn(int(has_mf.sum()), D) * 0.01
-    rows[has_mf, layout.embedx_state] = rng.rand(int(has_mf.sum()))
-    grads = np.zeros((U, G), np.float32)
-    active = kind != 2
-    grads[:, push.SLOT] = rows[:, acc.SLOT]
-    grads[active, push.SHOW] = rng.randint(1, 4, int(active.sum()))
-    grads[:, push.CLICK] = np.minimum(grads[:, push.SHOW],
-                                      rng.randint(0, 2, U))
-    grads[:, push.EMBED_G] = rng.randn(U) * 0.2 * active
-    grads[:, push.embedx_g:] = (rng.randn(U, D) * 0.2
-                                * active[:, None]).astype(np.float32)
-    rids = rng.permutation(cfg.capacity)[:U].astype(np.int32)
-    v, g, r = (torch.from_numpy(x).to(dev) for x in (rows, grads, rids))
-    seed = 987654321
-    got = pk.push_adagrad(v, g, r, seed, layout, conf)
-    torch.cuda.synchronize()
-    want = pk.push_adagrad_plain(v, g, r, seed, layout, conf)
-    int_cols = [acc.SLOT, acc.SHOW, acc.CLICK, acc.UNSEEN_DAYS, acc.MF_SIZE]
-    check(torch.equal(got[:, int_cols], want[:, int_cols]),
-          "push_adagrad integer columns differ from the plain version")
-    created = torch.from_numpy(kind == 0).to(dev)
-    check(bool((got[created, acc.MF_SIZE] == D).all()),
-          "push_adagrad did not create embedx on every created row")
-    check(torch.equal(got[created, xw:xw + D], want[created, xw:xw + D]),
-          "push_adagrad created embedx differs from the plain version")
-    check(torch.allclose(got, want, rtol=1e-6, atol=0.0),
-          "push_adagrad float columns beyond rtol 1e-6")
-    ada_err = float((got - want).abs().max())
-    ada_bytes = U * (2 * W * 4 + G * 4 + 4)
-    ada_ms = time_chain(lambda *a: pk.push_adagrad(*a, seed, layout, conf),
-                        (v, g, r), ada_bytes)
-    ada_plain_ms = time_chain(
-        lambda *a: pk.push_adagrad_plain(*a, seed, layout, conf), (v, g, r),
-        ada_bytes)
-    ada_ops = int(active.sum()) * (20 + 6 * D)
-    ada_bound = 1e3 * max(ada_bytes / HBM_BYTES_PER_S, ada_ops / F32_FLOPS)
-    log("push_adagrad U=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms "
-        "(%d B), max_abs_err %g, bit-equal %s"
-        % (U, ada_ms, ada_plain_ms, ada_bound, ada_bytes, ada_err,
-           torch.equal(got, want)))
-
-    # --- blocked_write: a real batch's sorted uids on a 2^20-row slab
     C = cfg.capacity
-    ids = flagship.first_batch_ids(files, feed, cfg)
-    uids_np, _, _, n_uniq = dedup_ids(ids, C)
-    uids = torch.from_numpy(uids_np).to(dev)
+
+    def bit_equal(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    # --- push_adagrad, fused: a real flagship batch's dedup on a 2^20-row
+    # slab; its keys' rows a third each to create (mf_size 0), to update and
+    # inactive (all their push rows zero, as the padding's are)
+    inp = push_inputs(cfg, files, feed)
+    ids, live, kind = inp["ids"], inp["live"], inp["kind"]
+    K, n_uniq, n_valid = ids.shape[0], inp["n_uniq"], inp["n_valid"]
+    slab, g, p, o, u = (torch.from_numpy(x).to(dev) for x in (
+        inp["slab"], inp["grads"], inp["perm"],
+        segment_offsets(inp["inv"], n_valid), inp["uids"]))
+    del inp
+    seed = SEED
+
+    def push_check(slab, g, u, p, o, n_uniq, created, layout=layout):
+        """The kernel against its plain version in both write modes, from
+        the same slab; the rows of ``created`` uids must get embedx."""
+        D = layout.embedx_dim
+        err = 0.0
+        at = torch.searchsorted(u[:n_uniq], created)
+        for rows_out in (False, True):
+            s_k, s_p = slab.clone(), slab.clone()
+            got = pk.push_adagrad(s_k, g, p, o, u, n_uniq, seed, layout,
+                                  conf, rows_out)
+            torch.cuda.synchronize()
+            want = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n_uniq, seed,
+                                               layout, conf, rows_out)
+            check(bit_equal(s_k, s_p), "push_adagrad (rows_out=%s) slab "
+                  "differs from the plain version" % rows_out)
+            err = max(err, float((s_k - s_p).abs().max()))
+            if rows_out:
+                check(bit_equal(s_k, slab), "push_adagrad rows_out wrote "
+                      "the slab")
+                check(bit_equal(got, want), "push_adagrad rows out differ "
+                      "from the plain version")
+                err = max(err, float((got - want).abs().max()))
+                made = got[at, acc.MF_SIZE]
+            else:
+                made = s_k[created.long(), acc.MF_SIZE]
+            check(bool((made == D).all()), "push_adagrad did not create "
+                  "embedx on every created row")
+            del s_k, s_p, got, want
+        return err
+
+    created = torch.from_numpy(
+        np.unique(ids[live & (kind[ids] == 0)]).astype(np.int32)).to(dev)
+    push_err = push_check(slab, g, u, p, o, n_uniq, created)
+    # a hot key: one key in the batch's first 1,000 slots, a run longer
+    # than a tile's staged occurrences, summed from global memory
+    hot = ids.copy()
+    check(bool((hot[:1000] != C - 1).all()), "flagship batch padding first")
+    hot[:1000] = hot[0]
+    h_uids, h_perm, h_inv, h_n = dedup_ids(hot, C)
+    h_off = segment_offsets(h_inv, n_valid)
+    check(int(np.diff(h_off).max()) >= 1000, "no hot run")
+    push_err = max(push_err, push_check(
+        slab, g, *(torch.from_numpy(x).to(dev)
+                   for x in (h_uids, h_perm, h_off)), h_n, created[:0]))
+    # every embedx width the kernel is built for, on a small batch with a
+    # hot key and a padding tail; rows with mf_size 0 create embedx
+    for d in pk.KERNEL_EMBEDX_DIMS:
+        lay, rs = ValueLayout(d), np.random.RandomState(d)
+        cap, k = 4096, 3000
+        w_ids = rs.randint(0, 1500, k).astype(np.int32)
+        w_ids[:400] = 7
+        w_ids[k - 300:] = cap - 1
+        w_uids, w_perm, w_inv, w_n = dedup_ids(w_ids, cap)
+        w_slab = rs.rand(cap, lay.width).astype(np.float32)
+        w_slab[:, acc.MF_SIZE] = np.where(rs.rand(cap) < 0.5, d, 0)
+        w_grads = (rs.randn(k, PushLayout(d).width) * 0.2).astype(np.float32)
+        w_grads[:, push.SHOW] = rs.randint(0, 2, k)
+        w_grads[:, push.CLICK] = rs.randint(0, 2, k)
+        w_grads[k - 300:] = 0.0
+        made = np.unique(w_ids[(w_grads[:, push.SHOW] > 0)
+                               & (w_slab[w_ids, acc.MF_SIZE] == 0)])
+        push_err = max(push_err, push_check(
+            *(torch.from_numpy(x).to(dev) for x in (
+                w_slab, w_grads, w_uids, w_perm,
+                segment_offsets(w_inv, k - 300))), w_n,
+            torch.from_numpy(made.astype(np.int32)).to(dev), layout=lay))
+    log("push_adagrad fused: bit-equal to the plain version in both write "
+        "modes at the flagship batch, with a %d-occurrence hot key, and at "
+        "embedx widths %s" % (int(np.diff(h_off).max()),
+                              list(pk.KERNEL_EMBEDX_DIMS)))
+    push_bytes = fused_push_bytes(n_valid, n_uniq, W, G)
+    push_ops = n_valid * G + int(np.unique(ids[live]).size) * (20 + 6 * D)
+    push_bound = 1e3 * max(push_bytes / HBM_BYTES_PER_S,
+                           push_ops / F32_FLOPS)
+    args = (slab, g, p, o, u)
+    push_ms = time_chain(
+        lambda *a: pk.push_adagrad(*a, n_uniq, seed, layout, conf,
+                                   rows_out=True), args, push_bytes)
+    push_plain_ms = time_chain(
+        lambda *a: pk.push_adagrad_fused_plain(*a, n_uniq, seed, layout, conf,
+                                               rows_out=True), args,
+        push_bytes)
+    # in place the rows compound from launch to launch (created rows are
+    # updated by the next launch): the same bytes, other arithmetic
+    push_inplace_ms = time_chain(
+        lambda *a: pk.push_adagrad(*a, n_uniq, seed, layout, conf), args,
+        push_bytes)
+    log("push_adagrad fused, K=%d n_valid=%d n_uniq=%d: rows out %.4f ms "
+        "(in place %.4f ms), plain %.4f ms, bound %.4f ms (%d B)"
+        % (K, n_valid, n_uniq, push_ms, push_inplace_ms, push_plain_ms,
+           push_bound, push_bytes))
+    del slab, g, p, o, args
+
+    # --- blocked_write: the same batch's sorted uids on a 2^20-row slab,
+    # its n_uniq rows as the fused push returns them
+    uids = u
     gen = torch.Generator(device=dev).manual_seed(5)
     slab0 = torch.rand((C, W), generator=gen, device=dev)
-    new_rows = torch.rand((uids.shape[0], W), generator=gen, device=dev)
+    new_rows = torch.rand((n_uniq, W), generator=gen, device=dev)
     row_map, blk_idx = blocked_layout(uids, C, flagship.BLOCK_ROWS)
     s_k, s_p = slab0.clone(), slab0.clone()
     pk.blocked_write(s_k, new_rows, row_map, blk_idx)
@@ -162,7 +218,7 @@ def kernel_phase(torch, cfg, feed, files, dev):
           "blocked_write differs from the plain version")
     s_l = slab0.clone()
     idx = uids[:n_uniq].to(torch.int64)
-    s_l.index_copy_(0, idx, new_rows[:n_uniq])
+    s_l.index_copy_(0, idx, new_rows)
     check(torch.equal(s_k.view(torch.int32), s_l.view(torch.int32)),
           "blocked_write differs from the row scatter of the same uids")
     blk_err = float((s_k - s_p).abs().max())
@@ -173,7 +229,7 @@ def kernel_phase(torch, cfg, feed, files, dev):
     blk_ms = time_chain(pk.blocked_write, blk_args, blk_bytes)
     blk_plain_ms = time_chain(pk.blocked_write_plain, blk_args, blk_bytes)
     blk_lib_ms = time_chain(lambda s, i, r: s.index_copy_(0, i, r),
-                            (s_l, idx, new_rows[:n_uniq]), blk_bytes)
+                            (s_l, idx, new_rows), blk_bytes)
     blk_bound = 1e3 * blk_bytes / HBM_BYTES_PER_S
     log("blocked_write NB=%d B=%d placed=%d: kernel %.4f ms, plain %.4f ms, "
         "index_copy_ %.4f ms, bound %.4f ms (%d B)"
@@ -183,10 +239,10 @@ def kernel_phase(torch, cfg, feed, files, dev):
         {"name": "push_adagrad", "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/push_adagrad.cu",
          "replaces": "paddlebox_tpu/embedding/pallas_push.py:41",
-         "launches": None, "max_abs_err": ada_err, "ms": ada_ms,
-         "plain_ms": ada_plain_ms, "bound_ms": ada_bound,
-         "bound_by": ("bytes" if ada_bytes / HBM_BYTES_PER_S
-                      >= ada_ops / F32_FLOPS else "operations"),
+         "launches": None, "max_abs_err": push_err, "ms": push_ms,
+         "plain_ms": push_plain_ms, "bound_ms": push_bound,
+         "bound_by": ("bytes" if push_bytes / HBM_BYTES_PER_S
+                      >= push_ops / F32_FLOPS else "operations"),
          "library_ms": None},
         {"name": "blocked_write", "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/blocked_write.cu",

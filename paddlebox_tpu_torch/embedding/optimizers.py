@@ -1,14 +1,16 @@
-"""The sparse push of the train step: merge, in-table adagrad, slab write.
+"""The sparse push of the train step: one fused kernel, then the slab write.
 
 Counterpart of paddlebox_tpu/embedding/optimizers.py:275-345 (the host-dedup
 push, ``push_sparse_hostdedup`` with ``_merged_new_rows``) and 381-458
-(``push_blocked_write``), with the in-table update running the
-``push_adagrad`` kernel — the port follows the Pallas kernel's semantics
+(``push_blocked_write``). The merge, the row read, the in-table update and
+the scatter run as one ``push_adagrad`` kernel launch over the batch's real
+uniques; the port follows the Pallas kernel's semantics
 (``use_pallas_push``), not ``apply_push``'s threefry creation draws.
 
 The slab is updated IN PLACE (the JAX step donates it). Padding uids
-(capacity + i) never reach a write: the scatter writes only the first
-``n_uniq`` uids, and the blocked bucketize sends them to a dropped entry.
+(capacity + i) never reach a write: the push runs over the first
+``n_uniq`` uids only, and the blocked bucketize sends padding to a dropped
+entry.
 """
 
 from __future__ import annotations
@@ -21,57 +23,29 @@ from paddlebox_tpu_torch.embedding.push_kernels import (blocked_write,
                                                         push_adagrad)
 
 
-def merge_push_grads(grads: torch.Tensor, perm: torch.Tensor,
-                     inv: torch.Tensor, num_rows: int,
-                     n_valid: int) -> torch.Tensor:
-    """[num_rows, G] per-unique sums of the per-occurrence push rows.
-
-    perm groups occurrences by unique (ascending within a group) and inv is
-    nondecreasing, so each unique's occurrences form one contiguous run of
-    grads[perm]; a sorted segment reduction adds each run from its first
-    occurrence up, the order of the JAX sorted segment_sum. It is
-    deterministic on the card too (no atomics), which keeps a step's
-    result independent of the run. Empty segments (the padding tail)
-    merge to zero rows.
-
-    n_valid: how many occurrences are real keys. Padding occurrences all
-    address the trash row, the largest id, so they sort last and are left
-    out (their grads are zero, so the trash row's merged row is zero either
-    way) instead of being summed as one long sequential run on the card."""
-    perm, inv = perm[:n_valid], inv[:n_valid]
-    sorted_grads = grads.index_select(0, perm)
-    bounds = torch.arange(num_rows + 1, dtype=inv.dtype, device=inv.device)
-    offsets = torch.searchsorted(inv, bounds)
-    return torch.segment_reduce(sorted_grads, "sum", offsets=offsets,
-                                axis=0, unsafe=True)
-
-
 def push_sparse_hostdedup(slab: torch.Tensor, uids: torch.Tensor,
-                          perm: torch.Tensor, inv: torch.Tensor,
+                          perm: torch.Tensor, offsets: torch.Tensor,
                           n_uniq: int, grads: torch.Tensor, seed: int,
                           layout: ValueLayout, conf: SparseOptimizerConfig,
-                          pulled_rows: torch.Tensor, first_idx: torch.Tensor,
-                          n_valid: int, write: str = "scatter",
+                          write: str = "scatter",
                           block_rows: int = 1024) -> None:
-    """Push with the host dedup products (pass_table.dedup_ids), IN PLACE.
+    """Push with the host dedup products (pass_table.dedup_ids and
+    segment_offsets), IN PLACE.
 
-    uids [K] int32 ascending, the first n_uniq real; perm, inv [K] int32;
-    grads [K, 4+D] per-occurrence push rows (padding rows all zero).
-    pulled_rows [K, width] + first_idx [K]: the step's pull already holds
-    every occurrence's pre-update row, so each unique's row is
-    pulled_rows[first_idx[j]] instead of a second slab gather.
-    n_valid: the count of real (non-padding) occurrences, see
-    merge_push_grads.
-    write: 'scatter' (row write at each uid) or 'blocked'."""
-    U = uids.shape[0]
-    merged = merge_push_grads(grads, perm, inv, U, n_valid)
-    rows = pulled_rows.index_select(0, first_idx)
-    new_rows = push_adagrad(rows, merged, uids, seed, layout, conf)
-    if write == "blocked":
+    uids [K] int32 strictly ascending, the first n_uniq real; perm [K]
+    int32; offsets [K+1] int32 segment offsets into perm over the real
+    occurrences; grads [K, 4+D] per-occurrence push rows (padding rows all
+    zero). Each unique's row is read from the slab itself: nothing writes
+    the slab between the step's pull and its push.
+    write: 'scatter' (the kernel writes each row at its uid) or 'blocked'
+    (the kernel returns the rows, the blocked_write kernel places them)."""
+    if write == "scatter":
+        push_adagrad(slab, grads, perm, offsets, uids, n_uniq, seed, layout,
+                     conf)
+    elif write == "blocked":
+        new_rows = push_adagrad(slab, grads, perm, offsets, uids, n_uniq,
+                                seed, layout, conf, rows_out=True)
         push_blocked_write(slab, uids, new_rows, block_rows)
-    elif write == "scatter":
-        idx = uids[:n_uniq].to(torch.int64)
-        slab.index_copy_(0, idx, new_rows[:n_uniq])
     else:
         raise ValueError("push write %r (scatter or blocked)" % (write,))
 
@@ -83,7 +57,8 @@ def blocked_layout(uids: torch.Tensor, capacity: int, block_rows: int):
     min(U, capacity // B); row_map[i, r] is the new_rows index placed at
     row r of block blk_idx[i], -1 where the block keeps its bits. Slots fed
     only by padding uids keep row_map -1 and a block id clamped onto the
-    last block."""
+    last block. Only in-range uids are placed, so with n_uniq real uids
+    every row_map value is below n_uniq (new_rows may hold just those)."""
     B = int(block_rows)
     if B <= 0 or capacity % B:
         raise ValueError("push_blocked_write: block_rows=%d must be positive "

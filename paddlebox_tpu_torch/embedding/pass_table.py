@@ -7,7 +7,8 @@ Counterpart of paddlebox_tpu/embedding/pass_table.py (the full-build path):
         key array)
   begin_pass   host rows -> one [capacity, width] f32 slab on the device
   lookup_ids   keys -> ids (numpy searchsorted); padding -> trash row
-  dedup_for_push  the per-batch sorted dedup the push consumes
+  dedup_for_push  the per-batch sorted dedup the push consumes (with
+        segment_offsets, its runs over the real occurrences)
   end_pass     slab rows [0, n) -> host store
 
 The last slab row (capacity-1) is the trash row that padding key slots
@@ -62,20 +63,26 @@ def dedup_ids(ids: np.ndarray, pad_base: int):
     return uids, perm, inv, n_uniq
 
 
-def first_occurrence_idx(perm: np.ndarray, inv: np.ndarray) -> np.ndarray:
-    """[K] int32: an occurrence index of each unique (its first), so the
-    push can take each unique's row from the pull's gathered rows. Padding
-    tail entries point at occurrence 0; their merged g_show is 0, so that
-    row only passes through and is never written."""
-    K = perm.shape[0]
-    first = np.zeros(K, np.int32)
-    if K:
-        newseg = np.empty(K, bool)
+def segment_offsets(inv: np.ndarray, n_valid: int) -> np.ndarray:
+    """[K+1] int32 offsets of each unique's run among the first n_valid
+    sorted occurrences: unique j's real occurrences are perm[offsets[j]:
+    offsets[j+1]], i.e. offsets = searchsorted(inv[:n_valid], arange(K+1)).
+
+    The padding key slots all address the trash row, the largest id, so
+    they sort last: the first n_valid sorted occurrences are the real keys
+    and cover uniques 0..m-1. Each run starts where inv steps (the walk
+    dedup_ids made); the trash row and the padding tail get empty runs at
+    n_valid, so the push merges them to zero rows."""
+    K = inv.shape[0]
+    offsets = np.full(K + 1, n_valid, np.int32)
+    if n_valid:
+        live = inv[:n_valid]
+        newseg = np.empty(n_valid, bool)
         newseg[0] = True
-        np.not_equal(inv[1:], inv[:-1], out=newseg[1:])
-        starts = perm[newseg]
-        first[:starts.shape[0]] = starts
-    return first
+        np.not_equal(live[1:], live[:-1], out=newseg[1:])
+        starts = np.flatnonzero(newseg)
+        offsets[:starts.shape[0]] = starts
+    return offsets
 
 
 class PassTable:

@@ -1,14 +1,19 @@
 """The sparse push's two kernels: wrappers, plain versions, launch counts.
 
   push_adagrad   <- paddlebox_tpu/embedding/pallas_push.py:_push_kernel
-                    (pallas_apply_push), source csrc/push_adagrad.cu
+                    (pallas_apply_push) with the merge, row gather and row
+                    scatter of optimizers.py:275-345 fused around it, source
+                    csrc/push_adagrad.cu; plain version push_adagrad_fused_
+                    plain, which composes merge_push_grads, a slab row
+                    gather, push_adagrad_plain (the per-row update, the TPU
+                    kernel's exact counterpart) and the row write
   blocked_write  <- paddlebox_tpu/embedding/pallas_push.py:
                     _blocked_write_kernel (pallas_blocked_write), source
                     csrc/blocked_write.cu
 
 Each wrapper checks dtype, shape, contiguity and device, then:
-  * on CPU tensors runs its ``*_plain`` PyTorch version (that is what the
-    CPU tests exercise);
+  * on CPU tensors runs its plain PyTorch version (that is what the CPU
+    tests exercise);
   * on CUDA tensors launches its kernel on the current stream, raises if
     the launch reports an error, and adds one to ``<wrapper>.launches``.
 There is no fallback from the card to the plain version: a CUDA tensor
@@ -19,6 +24,7 @@ callable on the card, where chip_smoke.py holds each kernel against them.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -31,6 +37,11 @@ from paddlebox_tpu_torch.native.kernel_args import (check, raise_on,
 
 # ------------------------------------------------------------ push_adagrad
 
+# the embedx widths csrc/push_adagrad.cu is built for (its template
+# instantiations); the plain version takes any width
+KERNEL_EMBEDX_DIMS = (2, 4, 8, 16, 32, 64)
+
+
 def _conf_floats(conf: SparseOptimizerConfig):
     """PushConf order of csrc/push_adagrad.cu."""
     return (conf.nonclk_coeff, conf.clk_coeff, float(conf.nodeid_slot),
@@ -39,43 +50,70 @@ def _conf_floats(conf: SparseOptimizerConfig):
             conf.mf_create_thresholds, conf.mf_initial_range)
 
 
-def push_adagrad(values: torch.Tensor, grads: torch.Tensor,
-                 row_ids: torch.Tensor, seed: int, layout: ValueLayout,
-                 conf: SparseOptimizerConfig) -> torch.Tensor:
-    """Updated rows [U, width] for value rows ``values`` [U, width] f32,
-    merged push grads ``grads`` [U, 4+D] f32 and slab ids ``row_ids`` [U]
-    int32 (they key the creation randoms); ``seed`` is a nonnegative int32.
-    Returns a new tensor; the inputs are not modified."""
+def push_adagrad(slab: torch.Tensor, grads: torch.Tensor,
+                 perm: torch.Tensor, offsets: torch.Tensor,
+                 uids: torch.Tensor, n_uniq: int, seed: int,
+                 layout: ValueLayout, conf: SparseOptimizerConfig,
+                 rows_out: bool = False) -> Optional[torch.Tensor]:
+    """The fused push of one step over the batch's n_uniq uniques: merge
+    each unique's per-occurrence push rows, update its slab row with
+    in-table adagrad (creation randoms keyed by the uid and ``seed``, a
+    nonnegative int32) and write it.
+
+    slab [C, width] f32; grads [K, 4+D] f32 per-occurrence push rows; perm
+    [K] int32 occurrences grouped by unique; offsets [K+1] int32, unique j's
+    occurrences being perm[offsets[j]:offsets[j+1]]
+    (pass_table.segment_offsets); uids [K] int32 strictly ascending, the
+    first n_uniq of them distinct slab rows (not checked: that would cost
+    a device sync).
+
+    rows_out=False: the rows are written IN PLACE at slab[uids[j]], and
+    None is returned. rows_out=True: the slab is left as it is and the
+    new rows [n_uniq, width] are returned, row j for uids[j], pass-through
+    rows included."""
     if layout.optimizer != "adagrad":
         raise ValueError("push_adagrad supports the adagrad layout only")
-    dev = values.device
-    U = values.shape[0] if values.dim() == 2 else -1
-    check(values, "values", torch.float32, 2, dev)
+    dev = slab.device
+    check(slab, "slab", torch.float32, 2, dev)
     check(grads, "grads", torch.float32, 2, dev)
-    check(row_ids, "row_ids", torch.int32, 1, dev)
-    if values.shape[1] != layout.width:
-        raise ValueError("values width %d != layout width %d"
-                         % (values.shape[1], layout.width))
-    if grads.shape != (U, PushLayout(layout.embedx_dim).width):
-        raise ValueError("grads shape %s != (%d, %d)" % (
-            tuple(grads.shape), U, PushLayout(layout.embedx_dim).width))
-    if row_ids.shape[0] != U:
-        raise ValueError("row_ids length %d != rows %d"
-                         % (row_ids.shape[0], U))
+    for t, name in ((perm, "perm"), (offsets, "offsets"), (uids, "uids")):
+        check(t, name, torch.int32, 1, dev)
+    K = perm.shape[0]
+    if slab.shape[1] != layout.width:
+        raise ValueError("slab width %d != layout width %d"
+                         % (slab.shape[1], layout.width))
+    G = PushLayout(layout.embedx_dim).width
+    if grads.shape != (K, G):
+        raise ValueError("grads shape %s != (%d, %d)"
+                         % (tuple(grads.shape), K, G))
+    if offsets.shape[0] != K + 1 or uids.shape[0] != K:
+        raise ValueError("offsets length %d / uids length %d, expected %d / "
+                         "%d" % (offsets.shape[0], uids.shape[0], K + 1, K))
+    if not 0 <= int(n_uniq) <= min(K, slab.shape[0]):
+        raise ValueError("n_uniq %r outside [0, %d]"
+                         % (n_uniq, min(K, slab.shape[0])))
     if not 0 <= int(seed) < 2**31:
         raise ValueError("seed must be a nonnegative int32, got %r" % seed)
+    n_uniq = int(n_uniq)
     if not use_kernel(dev):
-        return push_adagrad_plain(values, grads, row_ids, seed, layout, conf)
+        return push_adagrad_fused_plain(slab, grads, perm, offsets, uids,
+                                        n_uniq, seed, layout, conf, rows_out)
+    if layout.embedx_dim not in KERNEL_EMBEDX_DIMS:
+        raise ValueError("push_adagrad kernel is built for embedx widths %s, "
+                         "got %d" % (KERNEL_EMBEDX_DIMS, layout.embedx_dim))
     from paddlebox_tpu_torch.native.build import load_kernel
     lib = load_kernel("push_adagrad")
-    out = torch.empty_like(values)
-    if U:
+    out = (torch.empty((n_uniq, layout.width), dtype=torch.float32,
+                       device=dev) if rows_out else None)
+    if n_uniq:
         cf = (ctypes.c_float * 10)(*_conf_floats(conf))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.pbt_push_adagrad(
-                values.data_ptr(), grads.data_ptr(), row_ids.data_ptr(),
-                out.data_ptr(), U, layout.embedx_dim, int(seed), cf, stream)
+                slab.data_ptr(), grads.data_ptr(), perm.data_ptr(),
+                offsets.data_ptr(), uids.data_ptr(),
+                None if out is None else out.data_ptr(), n_uniq,
+                layout.embedx_dim, int(seed), cf, stream)
         raise_on(rc, "push_adagrad")
         push_adagrad.launches += 1
     return out
@@ -84,10 +122,46 @@ def push_adagrad(values: torch.Tensor, grads: torch.Tensor,
 push_adagrad.launches = 0
 
 
+def merge_push_grads(grads: torch.Tensor, perm: torch.Tensor,
+                     offsets: torch.Tensor) -> torch.Tensor:
+    """[U, G] per-unique sums of the per-occurrence push rows, U =
+    len(offsets) - 1: unique j sums grads[perm[offsets[j]:offsets[j+1]]].
+
+    Each run is added from its first occurrence up, starting at 0 (the
+    order of the JAX sorted segment_sum; an empty run merges to a zero
+    row). Occurrences past offsets[-1] (the padding tail, whose rows are
+    zero and all address the trash row) are left out."""
+    return torch.segment_reduce(grads.index_select(0, perm), "sum",
+                                offsets=offsets.to(torch.int64), axis=0,
+                                unsafe=True)
+
+
+def push_adagrad_fused_plain(slab: torch.Tensor, grads: torch.Tensor,
+                             perm: torch.Tensor, offsets: torch.Tensor,
+                             uids: torch.Tensor, n_uniq: int, seed: int,
+                             layout: ValueLayout, conf: SparseOptimizerConfig,
+                             rows_out: bool = False
+                             ) -> Optional[torch.Tensor]:
+    """push_adagrad's function in PyTorch ops: merge_push_grads, the slab
+    rows of the n_uniq uids, push_adagrad_plain, then the rows written at
+    their uids (or returned, rows_out=True)."""
+    idx = uids[:n_uniq]
+    merged = merge_push_grads(grads, perm, offsets[:n_uniq + 1])
+    new_rows = push_adagrad_plain(slab.index_select(0, idx), merged, idx,
+                                  seed, layout, conf)
+    if rows_out:
+        return new_rows
+    slab.index_copy_(0, idx.to(torch.int64), new_rows)
+    return None
+
+
 def push_adagrad_plain(values: torch.Tensor, grads: torch.Tensor,
                        row_ids: torch.Tensor, seed: int, layout: ValueLayout,
                        conf: SparseOptimizerConfig) -> torch.Tensor:
-    """The kernel's function in PyTorch ops, in the kernel's f32 operation
+    """The in-table update of the TPU kernel (pallas_apply_push) in
+    PyTorch ops: updated rows [U, width] for value rows ``values``, merged
+    push grads ``grads`` [U, 4+D] and slab ids ``row_ids`` [U] int32 (they
+    key the creation randoms). It takes the fused kernel's f32 operation
     order (the mean of the D squared embedx grads summed from column 0 up),
     so on the card the two agree bit for bit."""
     D = layout.embedx_dim

@@ -66,8 +66,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     if name == "push_adagrad":
         fn = lib.pbt_push_adagrad
-        fn.argtypes = [p, p, p, p, i, i, i, ctypes.POINTER(ctypes.c_float),
-                       p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i,
+                       ctypes.POINTER(ctypes.c_float), p]
     elif name == "blocked_write":
         fn = lib.pbt_blocked_write
         fn.argtypes = [p, p, p, p, i, i, i, p]

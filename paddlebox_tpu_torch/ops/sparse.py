@@ -1,9 +1,9 @@
 """Sparse pull/push building blocks of the train step.
 
 Counterpart of paddlebox_tpu/ops/sparse.py:30-82. The pull gathers full slab
-rows by id and cuts the per-key pull view [show, click, embed_w, embedx...];
-the step keeps the full rows for the push's row reuse. The backward of the
-pull is not a slab gradient but the per-key push rows built here.
+rows by id and cuts the per-key pull view [show, click, embed_w, embedx...].
+The backward of the pull is not a slab gradient but the per-key push rows
+built here.
 """
 
 from __future__ import annotations

@@ -11,7 +11,13 @@ activity) and prints:
     the step loop's wall seconds, the device busy seconds inside it (the
     union of all GPU kernel and copy intervals), the idle share, and each
     of the port's own kernels' calls, device seconds and share of the busy
-    time (the pull is gather_rows, the push push_adagrad);
+    time (the pull is gather_rows, the push push_adagrad); inside the
+    step's push (run under a profiler span in this script only) the
+    device launches (``push_launches``, runtime calls by name) and the
+    PyTorch operators (``push_torch_ops``); and the pass's calls of the
+    PyTorch operators the unfused push ran (``torch_op_calls``: the click
+    lookup keeps one index_select a step, the pool one searchsorted and
+    one segment_reduce);
   * the 25 device operators with the most GPU time (key_averages).
 
 Needs a CUDA device; writes the Chrome trace to DIR/pass_trace.json when
@@ -42,6 +48,37 @@ def _busy_union(intervals):
     return total
 
 
+PUSH_SPAN = "push_sparse_hostdedup"
+# the PyTorch operators the unfused push ran
+PUSH_TORCH_OPS = ("aten::index_select", "aten::searchsorted",
+                  "aten::segment_reduce", "aten::index_copy_")
+
+
+def _push_ops(events):
+    """(spans, launches, ops) of the pass's push: its host-side PUSH_SPAN
+    spans; the runtime calls inside them that put work on the device
+    (cudaLaunchKernel, cudaMemcpyAsync, ...), by name; and the outermost
+    PyTorch operators called inside them, by name. Counts are over the
+    pass."""
+    launches, ops = {}, {}
+
+    def walk(e, in_op):
+        for ch in e.cpu_children:
+            n = ch.name
+            if n.startswith("cu") and any(w in n for w in ("Launch", "Memcpy",
+                                                           "Memset")):
+                launches[n] = launches.get(n, 0) + 1
+            elif n.startswith("aten::") and not in_op:
+                ops[n] = ops.get(n, 0) + 1
+            walk(ch, in_op or n.startswith("aten::"))
+
+    spans = [e for e in events if e.name == PUSH_SPAN
+             and str(e.device_type).endswith("CPU")]
+    for span in spans:
+        walk(span, False)
+    return len(spans), launches, ops
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="")
@@ -53,6 +90,16 @@ def main() -> int:
     from paddlebox_tpu_torch.device import card_line
     from paddlebox_tpu_torch.native.build import KERNEL_SOURCES
     from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.train import trainer as trainer_mod
+
+    push = trainer_mod.push_sparse_hostdedup
+
+    def traced_push(*a, **kw):
+        with torch.profiler.record_function(PUSH_SPAN):
+            push(*a, **kw)
+
+    # the train step looks the push up by name at each call
+    trainer_mod.push_sparse_hostdedup = traced_push
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_pass needs a CUDA device")
@@ -81,6 +128,9 @@ def main() -> int:
         secs = sum(e.time_range.end - e.time_range.start for e in mine) / 1e6
         ours[name] = {"calls": len(mine), "device_s": secs,
                       "share_of_busy": secs / busy_s if busy_s else None}
+    spans, push_launches, push_ops = _push_ops(prof.events())
+    op_calls = {a.key: a.count for a in prof.key_averages()
+                if a.key in PUSH_TORCH_OPS}
     print(json.dumps({
         "card": card_line(),
         "batches": res["batches"], "pass_wall_s": wall,
@@ -92,6 +142,9 @@ def main() -> int:
                                       if span_s else None),
         "steps_per_s_host": (res["batches"] / steps_s) if steps_s else None,
         "port_kernels": ours,
+        "push_spans": spans, "push_launches": push_launches,
+        "push_torch_ops": push_ops,
+        "torch_op_calls": {k: op_calls.get(k, 0) for k in PUSH_TORCH_OPS},
     }), flush=True)
     print(prof.key_averages().table(sort_by="device_time_total",
                                     row_limit=25), flush=True)

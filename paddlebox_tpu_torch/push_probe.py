@@ -1,0 +1,192 @@
+"""Device time of one train step's push at the flagship batch, on this tree
+or on another checkout of the port.
+
+    python3 paddlebox_tpu_torch/push_probe.py [--tree DIR]
+
+Builds one step's push inputs from seeds (``push_inputs``: the first
+flagship batch's ids and their host dedup, a 2^20 x 17 slab whose touched
+rows mix embedx creation, update and inactive rows, per-occurrence push
+rows with zero padding rows) and runs the tree's
+``embedding.optimizers.push_sparse_hostdedup`` on them as the train step
+calls it, in each write mode. It prints the card's name and power limit,
+then one JSON line with, for each mode:
+
+  * ``slab_sha256``: the digest of the slab after one push from the same
+    inputs; two trees that print the same digest wrote the same bits;
+  * ``ms``: the push's device time, ``rate_probe.time_chain`` over copies
+    of the inputs (the push writes the slab in place; where it reads its
+    rows from the slab, a launch updates what the one before it wrote:
+    the same bytes, other arithmetic);
+  * ``device_ops``: the device operations of one push by name
+    (torch.profiler).
+
+``--tree DIR`` imports ``paddlebox_tpu_torch`` from DIR (default: the
+checkout that holds this file), so the port's parent commit unpacked in a
+git-ignored directory can be measured in the same call, in turns (parent,
+change, change, parent). Both designs of the push are understood: the
+unfused one of the port's first slices (the pull's rows, first_idx,
+n_valid) and the fused one (segment offsets).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import inspect
+import json
+import os
+import sys
+import tempfile
+
+SEED = 987654321
+
+
+def push_inputs(cfg, files, feed):
+    """One step's push inputs as numpy arrays: ids [K], the slab [C, W],
+    per-occurrence push rows grads [K, G], the host dedup (uids, perm, inv,
+    n_uniq), n_valid, and per key slot ``live`` (a real key whose rows are
+    not zero) and per slab row ``kind`` (0 create: mf_size 0; 1 update; 2
+    inactive: every push row of the key is zero)."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
+    from paddlebox_tpu_torch.embedding.pass_table import dedup_ids
+    from paddlebox_tpu_torch.train import flagship
+
+    D, C = cfg.embedx, cfg.capacity
+    layout, push = ValueLayout(D), PushLayout(D)
+    W, G = layout.width, push.width
+    ids = flagship.first_batch_ids(files, feed, cfg)
+    K = ids.shape[0]
+    uids, perm, inv, n_uniq = dedup_ids(ids, C)
+    rng = np.random.RandomState(11)
+    slab = np.zeros((C, W), np.float32)
+    slab[:, acc.SLOT] = rng.randint(0, 32, C)
+    slab[:, acc.SHOW] = rng.randint(1, 50, C)
+    slab[:, acc.CLICK] = rng.randint(0, 5, C)
+    slab[:, acc.EMBED_W] = rng.randn(C) * 0.1
+    slab[:, layout.embed_state] = rng.rand(C)
+    kind = rng.randint(0, 3, C)
+    has_mf = kind != 0
+    slab[has_mf, acc.MF_SIZE] = D
+    xw = layout.embedx_w
+    slab[has_mf, xw:xw + D] = rng.randn(int(has_mf.sum()), D) * 0.01
+    slab[has_mf, layout.embedx_state] = rng.rand(int(has_mf.sum()))
+    live = (ids != C - 1) & (kind[ids] != 2)
+    grads = np.zeros((K, G), np.float32)
+    grads[:, push.SLOT] = slab[ids, acc.SLOT] * live
+    grads[:, push.SHOW] = live
+    grads[:, push.CLICK] = rng.randint(0, 2, K) * live
+    grads[:, push.EMBED_G] = rng.randn(K) * 0.2 * live
+    grads[:, push.embedx_g:] = rng.randn(K, D) * 0.2 * live[:, None]
+    return dict(ids=ids, slab=slab, grads=grads, uids=uids, perm=perm,
+                inv=inv, n_uniq=n_uniq, n_valid=int((ids != C - 1).sum()),
+                live=live, kind=kind)
+
+
+def fused_push_bytes(n_valid: int, n_uniq: int, W: int, G: int) -> int:
+    """What the fused push must move: each real occurrence's perm entry
+    and push row, each unique's uid, offset, slab row read and row
+    written."""
+    return n_valid * (4 + G * 4) + n_uniq * (8 + 2 * W * 4)
+
+
+def _push_fn(optimizers, pass_table, inp, dev, layout, conf):
+    """(design, fn, args): fn(*args, write) runs the tree's push on device
+    tensors, whichever of its two signatures the tree has."""
+    import torch
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+
+    push = optimizers.push_sparse_hostdedup
+    slab, uids, perm, grads = (t(inp[k]) for k in ("slab", "uids", "perm",
+                                                   "grads"))
+    n_uniq = inp["n_uniq"]
+    if "first_idx" in inspect.signature(push).parameters:
+        pulled = slab.index_select(0, t(inp["ids"]))
+        first = t(pass_table.first_occurrence_idx(inp["perm"], inp["inv"]))
+
+        def fn(slab, uids, perm, inv, grads, pulled, first, write):
+            push(slab, uids, perm, inv, n_uniq, grads, SEED, layout, conf,
+                 pulled_rows=pulled, first_idx=first,
+                 n_valid=inp["n_valid"], write=write, block_rows=1024)
+        return "unfused", fn, (slab, uids, perm, t(inp["inv"]), grads,
+                               pulled, first)
+    offsets = t(pass_table.segment_offsets(inp["inv"], inp["n_valid"]))
+
+    def fn(slab, uids, perm, offsets, grads, write):
+        push(slab, uids, perm, offsets, n_uniq, grads, SEED, layout, conf,
+             write=write, block_rows=1024)
+    return "fused", fn, (slab, uids, perm, offsets, grads)
+
+
+def main() -> int:
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", default=here)
+    tree = os.path.abspath(ap.parse_args().tree)
+    loaded = sys.modules.get("paddlebox_tpu_torch")
+    if loaded is not None and not os.path.abspath(
+            loaded.__file__).startswith(tree + os.sep):
+        raise SystemExit("push_probe: paddlebox_tpu_torch is already "
+                         "imported from %s; run this file by path to "
+                         "measure %s" % (loaded.__file__, tree))
+    sys.path.insert(0, tree)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.embedding import optimizers, pass_table
+    from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
+    from paddlebox_tpu_torch.rate_probe import time_chain
+    from paddlebox_tpu_torch.train import flagship
+
+    if not torch.cuda.is_available():
+        raise SystemExit("push_probe needs a CUDA device")
+    dev = torch.device("cuda")
+    cfg = flagship.FLAGSHIP
+    with tempfile.TemporaryDirectory(prefix="push_probe_") as tmp:
+        files, feed = flagship.write_files(
+            tmp, dataclasses.replace(cfg, num_files=1))
+        inp = push_inputs(cfg, files, feed)
+    layout, G = ValueLayout(cfg.embedx), PushLayout(cfg.embedx).width
+    nbytes = fused_push_bytes(inp["n_valid"], inp["n_uniq"], layout.width, G)
+    design, fn, args = _push_fn(optimizers, pass_table, inp, dev, layout,
+                                cfg.table().optimizer)
+    print(card_line(), flush=True)
+    out = {"tree": tree, "design": design,
+           "K": int(inp["ids"].shape[0]), "n_valid": inp["n_valid"],
+           "n_uniq": inp["n_uniq"], "fused_bytes": nbytes}
+    for write in ("scatter", "blocked"):
+        slab = args[0].clone()
+        fn(slab, *args[1:], write)
+        digest = hashlib.sha256(slab.cpu().numpy().tobytes()).hexdigest()
+        slab = args[0].clone()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(slab, *args[1:], write)
+            torch.cuda.synchronize()
+        ops = {}
+        for e in prof.events():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                ops[e.name[:90]] = ops.get(e.name[:90], 0) + 1
+        # timed on a copy: the pristine slab stays for the next mode
+        ms = time_chain(lambda *a: fn(*a, write),
+                        (args[0].clone(),) + args[1:], nbytes)
+        out[write] = {"ms": ms, "slab_sha256": digest, "device_ops": ops}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    # run by path, sys.path[0] is this package's directory, whose modules
+    # (config, data, ops, ...) must not shadow top-level ones
+    _pkg = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:] = [p for p in sys.path
+                   if os.path.abspath(p or os.curdir) != _pkg]
+    sys.exit(main())

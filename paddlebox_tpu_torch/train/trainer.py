@@ -6,7 +6,8 @@ GPU: a Python loop of steps, each
 
     pull (slab row gather) -> fused seqpool+CVM -> DeepFM forward/backward
     (autograd) -> masked BCE -> dense Adam -> build_push_grads -> push
-    (merge, push_adagrad kernel, scatter or blocked_write kernel)
+    (the fused push_adagrad kernel: merge, update, row write; in blocked
+    mode it returns the rows and the blocked_write kernel places them)
 
 around the pass lifecycle feed -> begin_pass -> train -> metrics ->
 end_pass. The slab is updated in place (the JAX step donates it). Losses
@@ -38,7 +39,7 @@ from paddlebox_tpu_torch.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 from paddlebox_tpu_torch.embedding.optimizers import push_sparse_hostdedup
 from paddlebox_tpu_torch.embedding.pass_table import (PassTable,
-                                                      first_occurrence_idx)
+                                                      segment_offsets)
 from paddlebox_tpu_torch.metrics.auc import MetricRegistry
 from paddlebox_tpu_torch.ops.seqpool import fused_seqpool_cvm
 from paddlebox_tpu_torch.ops.sparse import (build_push_grads,
@@ -91,10 +92,8 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
         push_grads = build_push_grads(emb.grad, segments % num_slots,
                                       clicks, valid)
         push_sparse_hostdedup(slab, batch["uids"], batch["perm"],
-                              batch["inv"], batch["n_uniq"], push_grads,
-                              seed, layout, conf, pulled_rows=rows,
-                              first_idx=batch["first_idx"],
-                              n_valid=batch["n_valid"], write=push_write,
+                              batch["offsets"], batch["n_uniq"], push_grads,
+                              seed, layout, conf, write=push_write,
                               block_rows=block_rows)
         return loss.detach(), preds.detach()
 
@@ -145,18 +144,19 @@ class BoxTrainer:
     # ---------------------------------------------------------- batch utils
     def device_batch(self, b: PackedBatch, ids: np.ndarray) -> Batch:
         """Host staging of one batch, then one copy per array to the
-        device: ids and the push's sorted dedup products (uids/perm/inv,
-        the pull-row reuse index first_idx), plus two ints: n_uniq (real
-        uids) and n_valid (real key slots; the packer puts them before its
-        padding tail)."""
+        device: ids and the push's sorted dedup products (uids, perm and
+        the segment offsets of each unique's real occurrences), plus two
+        ints: n_uniq (real uids) and n_valid (real key slots; the packer
+        puts them before its padding tail)."""
         uids, perm, inv, n_uniq = self.table.dedup_for_push(ids)
+        n_valid = int(b.valid.sum())
         host = {"ids": ids, "segments": b.segments,
                 "ins_valid": b.ins_valid, "labels": b.labels,
-                "uids": uids, "perm": perm, "inv": inv,
-                "first_idx": first_occurrence_idx(perm, inv)}
+                "uids": uids, "perm": perm,
+                "offsets": segment_offsets(inv, n_valid)}
         out: Batch = {k: torch.from_numpy(v).to(self.device)
                       for k, v in host.items()}
-        out.update(n_uniq=n_uniq, n_valid=int(b.valid.sum()))
+        out.update(n_uniq=n_uniq, n_valid=n_valid)
         return out
 
     def train_batch(self, b: PackedBatch):

@@ -41,9 +41,9 @@ from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.generator import write_synthetic_ctr_files
 from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 from paddlebox_tpu_torch.embedding.host_store import HostEmbeddingStore
-from paddlebox_tpu_torch.embedding.optimizers import merge_push_grads
 from paddlebox_tpu_torch.embedding.pass_table import (PassTable, dedup_ids,
-                                                      first_occurrence_idx)
+                                                      segment_offsets)
+from paddlebox_tpu_torch.embedding.push_kernels import merge_push_grads
 from paddlebox_tpu_torch.metrics.auc import BasicAucCalculator
 from paddlebox_tpu_torch.models.base import ModelSpec
 from paddlebox_tpu_torch.models.deepfm import DeepFM
@@ -157,8 +157,16 @@ def test_pass_table_ids_and_dedup_match_jax():
     for a, b in ((uids, ju), (perm, jp), (inv, ji)):
         np.testing.assert_array_equal(a, b)
     assert n_uniq == np.unique(ids).size and (np.diff(uids) > 0).all()
-    np.testing.assert_array_equal(first_occurrence_idx(perm, inv),
-                                  jax_first_idx(jp, ji))
+    # the push's runs over the real occurrences: searchsorted of each
+    # unique in inv[:n_valid], each run starting at the JAX first_idx
+    n_valid = int(valid.sum())
+    offsets = segment_offsets(inv, n_valid)
+    np.testing.assert_array_equal(
+        offsets, np.searchsorted(inv[:n_valid], np.arange(ids.size + 1)))
+    live = np.flatnonzero(np.diff(offsets) > 0)
+    assert live.size == np.unique(ids[valid]).size
+    np.testing.assert_array_equal(perm[offsets[live]],
+                                  jax_first_idx(jp, ji)[live])
 
 
 def _grads_case(pad_frac, seed=2, K=96, cap=1024):
@@ -181,9 +189,9 @@ def test_merge_matches_jax_segment_sum(pad_frac):
     want = np.asarray(jax.ops.segment_sum(
         jnp.asarray(grads)[jnp.asarray(perm)], jnp.asarray(inv),
         num_segments=uids.shape[0], indices_are_sorted=True))
+    offsets = segment_offsets(inv, int((ids != 1023).sum()))
     got = merge_push_grads(torch.from_numpy(grads), torch.from_numpy(perm),
-                           torch.from_numpy(inv), uids.shape[0],
-                           n_valid=int((ids != 1023).sum())).numpy()
+                           torch.from_numpy(offsets)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
     n_real = np.unique(ids[ids != 1023]).size
     assert not got[n_real:].any()  # trash row and padding tail: zero

@@ -5,9 +5,10 @@ version.
 The Pallas kernels run interpreted on the CPU, as the JAX package's own
 tests run them. Tolerances: integer-valued columns, created embedx and
 mf_size are exact (integer sums and a pure uint32 hash); the float columns
-of the adagrad update within rtol 1e-6 (the same f32 operations, but XLA
-may sum the 8-term embedx mean in another order than the port's
-column-0-up loop); the blocked write is pure placement and bit-exact.
+of the per-row adagrad update within rtol 1e-6 (the same f32 operations,
+but XLA may sum the 8-term embedx mean in another order than the port's
+column-0-up loop); the blocked write is pure placement and bit-exact. The
+fused push against the JAX push is tests/test_torch_push_fused.py.
 """
 
 import jax.numpy as jnp
@@ -28,7 +29,8 @@ from paddlebox_tpu_torch.embedding import push_kernels as pk
 from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
 from paddlebox_tpu_torch.embedding.optimizers import (blocked_layout,
                                                       push_blocked_write)
-from paddlebox_tpu_torch.embedding.pass_table import dedup_ids
+from paddlebox_tpu_torch.embedding.pass_table import (dedup_ids,
+                                                      segment_offsets)
 
 D = 8
 N = 300  # not a multiple of the Pallas kernel's 256-row tile
@@ -82,9 +84,10 @@ def test_plain_adagrad_matches_pallas(case):
         jnp.asarray(rows), jnp.asarray(grads), seed, JLayout(D, "adagrad"),
         JSparse(**_conf_kwargs(thres)), interpret=True,
         row_ids=jnp.asarray(rids)))
-    got = pk.push_adagrad(torch.from_numpy(rows), torch.from_numpy(grads),
-                          torch.from_numpy(rids), seed, layout,
-                          SparseOptimizerConfig(**_conf_kwargs(thres))).numpy()
+    got = pk.push_adagrad_plain(
+        torch.from_numpy(rows), torch.from_numpy(grads),
+        torch.from_numpy(rids), seed, layout,
+        SparseOptimizerConfig(**_conf_kwargs(thres))).numpy()
     active = grads[:, PushLayout(D).SHOW] > 0
     assert active.any() and (~active).any()
     np.testing.assert_array_equal(got[~active], rows[~active])
@@ -148,16 +151,39 @@ def test_blocked_layout_drops_padding_and_refuses_bad_blocks():
         blocked_layout(torch.from_numpy(uids), 512, 48)
 
 
+def _push_args(seed=1, K=120, n_pad=20, hot=1, n_keys=60, cap=256):
+    """Fused push arguments (slab, grads, perm, offsets, uids) and n_uniq:
+    a slab of _rows_and_grads rows, one step's ids with ``hot`` repeats of
+    key 5 and a padding tail on the trash row, per-occurrence push rows
+    (zero on the padding)."""
+    layout, slab, occ, _ = _rows_and_grads(max(cap, K), seed, with_mf=True)
+    rng = np.random.RandomState(seed)
+    ids = np.full(K, cap - 1, np.int32)
+    ids[:K - n_pad] = rng.permutation(np.concatenate(
+        [np.full(hot, 5), rng.randint(6, n_keys, K - n_pad - hot)]))
+    occ = occ[:K].copy()
+    occ[K - n_pad:] = 0.0
+    uids, perm, inv, n_uniq = dedup_ids(ids, cap)
+    args = (slab[:cap], occ, perm, segment_offsets(inv, K - n_pad), uids)
+    return layout, [torch.from_numpy(np.ascontiguousarray(a))
+                    for a in args], n_uniq
+
+
 def test_wrappers_run_plain_on_cpu_without_counting():
-    layout, rows, grads, rids = _rows_and_grads(40, seed=1, with_mf=True)
+    layout, (slab, g, p, o, u), n = _push_args()
     conf = SparseOptimizerConfig(**_conf_kwargs(0.0))
     pk.reset_launch_counts()
-    a = pk.push_adagrad(torch.from_numpy(rows), torch.from_numpy(grads),
-                        torch.from_numpy(rids), 5, layout, conf)
-    b = pk.push_adagrad_plain(torch.from_numpy(rows),
-                              torch.from_numpy(grads),
-                              torch.from_numpy(rids), 5, layout, conf)
-    assert torch.equal(a, b)
+    rows = pk.push_adagrad(slab, g, p, o, u, n, 5, layout, conf,
+                           rows_out=True)
+    assert rows.shape == (n, layout.width)
+    want = pk.push_adagrad_fused_plain(slab, g, p, o, u, n, 5, layout, conf,
+                                       rows_out=True)
+    assert torch.equal(rows, want)
+    a, b = slab.clone(), slab.clone()
+    assert pk.push_adagrad(a, g, p, o, u, n, 5, layout, conf) is None
+    pk.push_adagrad_fused_plain(b, g, p, o, u, n, 5, layout, conf)
+    assert torch.equal(a, b) and not torch.equal(a, slab)
+    assert torch.equal(a[u[:n].long()], rows)
     slab, uids, new_rows, B = _blocked_case()
     push_blocked_write(torch.from_numpy(slab), torch.from_numpy(uids),
                        torch.from_numpy(new_rows), B)
@@ -165,26 +191,34 @@ def test_wrappers_run_plain_on_cpu_without_counting():
 
 
 def test_wrappers_check_arguments():
-    layout, rows, grads, rids = _rows_and_grads(16, seed=2, with_mf=True)
+    layout, (s, g, p, o, u), n = _push_args(seed=2)
     conf = SparseOptimizerConfig()
-    r, g, i = (torch.from_numpy(rows), torch.from_numpy(grads),
-               torch.from_numpy(rids))
+
+    def push(*args, n_uniq=n, seed=0):
+        return pk.push_adagrad(*args, n_uniq, seed, layout, conf)
+
     with pytest.raises(TypeError):
-        pk.push_adagrad(r.double(), g, i, 0, layout, conf)
+        push(s.double(), g, p, o, u)
+    with pytest.raises(TypeError):
+        push(s, g, p.long(), o, u)
     with pytest.raises(ValueError):
-        pk.push_adagrad(r, g[:8], i, 0, layout, conf)
+        push(s, g[:8], p, o, u)
     with pytest.raises(ValueError):
-        pk.push_adagrad(r[:, :10], g, i, 0, layout, conf)
+        push(s[:, :10].contiguous(), g, p, o, u)
     with pytest.raises(ValueError):
-        pk.push_adagrad(r.t().contiguous().t(), g, i, 0, layout, conf)
+        push(s.t().contiguous().t(), g, p, o, u)
     with pytest.raises(ValueError):
-        pk.push_adagrad(r, g, i, -1, layout, conf)
+        push(s, g, p, o[:-1], u)
+    with pytest.raises(ValueError):
+        push(s, g, p, o, u, n_uniq=u.shape[0] + 1)
+    with pytest.raises(ValueError):
+        push(s, g, p, o, u, seed=-1)
     slab = torch.zeros(64, layout.width)
     with pytest.raises(TypeError):
-        pk.blocked_write(slab, r, torch.zeros(2, 32), torch.zeros(2,
-                                                                  dtype=torch.int32))
+        pk.blocked_write(slab, s, torch.zeros(2, 32),
+                         torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError):
-        pk.blocked_write(slab, r, torch.zeros(2, 48, dtype=torch.int32),
+        pk.blocked_write(slab, s, torch.zeros(2, 48, dtype=torch.int32),
                          torch.zeros(2, dtype=torch.int32))
 
 
@@ -200,16 +234,25 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_push_adagrad_matches_plain(cuda_device):
-    layout, rows, grads, rids = _rows_and_grads(N, seed=5, with_mf=True)
+@pytest.mark.parametrize("rows_out", [False, True])
+def test_cuda_push_adagrad_matches_plain(cuda_device, rows_out):
+    """The fused kernel over several tiles of uniques, one key's run
+    longer than a tile's staged occurrences, in both write modes:
+    bit-equal to its plain version."""
+    layout, args, n = _push_args(seed=5, K=3000, n_pad=200, hot=700,
+                                 n_keys=900, cap=1024)
     conf = SparseOptimizerConfig(**_conf_kwargs(3.0))
-    args = [torch.from_numpy(x).to(cuda_device) for x in (rows, grads, rids)]
+    s, g, p, o, u = [a.to(cuda_device) for a in args]
+    s_k, s_p = s.clone(), s.clone()
     before = pk.push_adagrad.launches
-    got = pk.push_adagrad(*args, 99, layout, conf)
+    got = pk.push_adagrad(s_k, g, p, o, u, n, 99, layout, conf, rows_out)
     torch.cuda.synchronize()
     assert pk.push_adagrad.launches == before + 1
-    want = pk.push_adagrad_plain(*args, 99, layout, conf)
-    assert torch.equal(got, want)
+    want = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n, 99, layout, conf,
+                                       rows_out)
+    assert torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+    if rows_out:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
