@@ -15,12 +15,18 @@ Phases, each of which raises on a failed check (exit code != 0):
      touched rows mix embedx creation, update and inactive rows, in both
      write modes (in place, and rows out for the blocked path),
      blocked_write on the same slab shape from that batch's sorted uids
-     and its n_uniq rows, scale_copy over f32 [131072, 128] (both round
-     x * 0.999 + 0.001 once), gather_rows at the rate probe's shape
+     and its n_uniq rows (copy_probe.blocked_case), scale_copy over f32
+     [131072, 128] (both round x * 0.999 + 0.001 once), gather_rows at the rate probe's shape
      (131,072 sorted unique ids from a 2^20 x 128 slab) and at the pull's
-     (a real batch's 131,072 ids into a 2^20 x 17 slab); the push kernels'
-     kernel, plain, library and bound times (the fused push timed rows out,
-     so that repeated launches do not compound the update);
+     (a real batch's 131,072 ids into a 2^20 x 17 slab), and both copy
+     kernels on their edge cases (paddlebox_tpu_torch/edge_cases.py:
+     gather_rows at K around its tile for W 1, 17, 32, 33 and 128 from
+     aligned and unaligned sources, blocked_write with permuted sources,
+     sentinel slots, a full slot, B 100 to 4096, NB 1, an unaligned row
+     map, in either slot order) and over many tiles a persistent block
+     (2^20 ids; 6,000 slots of 512 lanes); the push kernels' kernel, plain,
+     library and bound times (the fused push timed rows out, so that
+     repeated launches do not compound the update);
   4. a small-input check: two train_passes of a narrow DeepFM on the card
      and the same on the CPU (plain versions) agree;
   5. the main path at full width: two BoxTrainer.train_pass calls of the
@@ -77,17 +83,16 @@ def kernel_phase(torch, cfg, feed, files, dev):
     path's shapes; returns their records (launches filled later)."""
     import numpy as np
 
+    from paddlebox_tpu_torch.copy_probe import blocked_case
     from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
     from paddlebox_tpu_torch.embedding import accessor as acc
     from paddlebox_tpu_torch.embedding import push_kernels as pk
     from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
-    from paddlebox_tpu_torch.embedding.optimizers import blocked_layout
     from paddlebox_tpu_torch.embedding.pass_table import (dedup_ids,
                                                           segment_offsets)
     from paddlebox_tpu_torch.push_probe import (SEED, fused_push_bytes,
                                                 push_inputs)
     from paddlebox_tpu_torch.rate_probe import time_chain
-    from paddlebox_tpu_torch.train import flagship
 
     D = cfg.embedx
     layout, push = ValueLayout(D), PushLayout(D)
@@ -204,37 +209,26 @@ def kernel_phase(torch, cfg, feed, files, dev):
     del slab, g, p, o, args
 
     # --- blocked_write: the same batch's sorted uids on a 2^20-row slab,
-    # its n_uniq rows as the fused push returns them
-    uids = u
-    gen = torch.Generator(device=dev).manual_seed(5)
-    slab0 = torch.rand((C, W), generator=gen, device=dev)
-    new_rows = torch.rand((n_uniq, W), generator=gen, device=dev)
-    row_map, blk_idx = blocked_layout(uids, C, flagship.BLOCK_ROWS)
+    # its n_uniq rows as the fused push returns them; blocked_case holds
+    # the kernel bit-equal to index_copy_ of the same rows
+    blk = blocked_case(ids, C, W, dev)
+    slab0, new_rows, row_map, blk_idx = blk["args"]
     s_k, s_p = slab0.clone(), slab0.clone()
     pk.blocked_write(s_k, new_rows, row_map, blk_idx)
     torch.cuda.synchronize()
     pk.blocked_write_plain(s_p, new_rows, row_map, blk_idx)
-    check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32)),
-          "blocked_write differs from the plain version")
-    s_l = slab0.clone()
-    idx = uids[:n_uniq].to(torch.int64)
-    s_l.index_copy_(0, idx, new_rows)
-    check(torch.equal(s_k.view(torch.int32), s_l.view(torch.int32)),
-          "blocked_write differs from the row scatter of the same uids")
-    blk_err = float((s_k - s_p).abs().max())
-    placed = int((row_map >= 0).sum())
-    NB, B = row_map.shape
-    blk_bytes = NB * B * 4 + NB * 4 + placed * W * 4 * 2
+    check(bit_equal(s_k, s_p), "blocked_write differs from the plain version")
+    blk_err = max(float((s_k - s_p).abs().max()),
+                  blocked_edge_phase(torch, dev))
+    blk_bytes = blk["bytes"]
     blk_args = (s_k, new_rows, row_map, blk_idx)
     blk_ms = time_chain(pk.blocked_write, blk_args, blk_bytes)
     blk_plain_ms = time_chain(pk.blocked_write_plain, blk_args, blk_bytes)
-    blk_lib_ms = time_chain(lambda s, i, r: s.index_copy_(0, i, r),
-                            (s_l, idx, new_rows), blk_bytes)
+    blk_lib_ms = time_chain(blk["library"], blk["library_args"], blk_bytes)
     blk_bound = 1e3 * blk_bytes / HBM_BYTES_PER_S
-    log("blocked_write NB=%d B=%d placed=%d: kernel %.4f ms, plain %.4f ms, "
-        "index_copy_ %.4f ms, bound %.4f ms (%d B)"
-        % (NB, B, placed, blk_ms, blk_plain_ms, blk_lib_ms, blk_bound,
-           blk_bytes))
+    log("blocked_write NB=%(NB)d B=%(B)d placed=%(placed)d: " % blk["info"]
+        + "kernel %.4f ms, plain %.4f ms, index_copy_ %.4f ms, bound %.4f ms "
+        "(%d B)" % (blk_ms, blk_plain_ms, blk_lib_ms, blk_bound, blk_bytes))
     return [
         {"name": "push_adagrad", "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/push_adagrad.cu",
@@ -251,6 +245,99 @@ def kernel_phase(torch, cfg, feed, files, dev):
          "plain_ms": blk_plain_ms, "bound_ms": blk_bound,
          "bound_by": "bytes", "library_ms": blk_lib_ms},
     ]
+
+
+def on_card(torch, a, offset, dev):
+    """numpy ``a`` on the card, ``offset`` elements into a larger buffer
+    (offset 1: not 16-byte aligned)."""
+    t = torch.from_numpy(a.copy())
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def blocked_edge_phase(torch, dev):
+    """Phase 3, blocked_write on its edge cases (edge_cases.
+    blocked_edge_cases), in the cases' slot order and reversed (sentinel
+    slots after the real write of their block): bit-equal to the plain
+    version. Returns the largest difference."""
+    from paddlebox_tpu_torch.edge_cases import blocked_edge_cases
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+
+    err = 0.0
+    cases = blocked_edge_cases()
+    for label, (slab, new_rows, row_map, blk_idx, off) in cases.items():
+        s0, nr = (torch.from_numpy(x).to(dev) for x in (slab, new_rows))
+        for order in ("as given", "reversed"):
+            flip = slice(None, None, -1 if order == "reversed" else 1)
+            rm = on_card(torch, row_map[flip], off, dev)
+            bi = torch.from_numpy(blk_idx[flip].copy()).to(dev)
+            s_k, s_p = s0.clone(), s0.clone()
+            pk.blocked_write(s_k, nr, rm, bi)
+            torch.cuda.synchronize()
+            pk.blocked_write_plain(s_p, nr, rm, bi)
+            check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32)),
+                  "blocked_write differs from the plain version on %s "
+                  "(slots %s)" % (label, order))
+            err = max(err, float((s_k - s_p).abs().max()))
+    # many tiles a persistent block (3,072,000 lanes, about 3,000 tiles),
+    # sparse slots and sentinel slots among them
+    gen = torch.Generator(device=dev).manual_seed(10)
+    NB, B = 6000, 512
+    mask = torch.rand((NB, B), generator=gen, device=dev) < 0.02
+    mask[::7] = False
+    row_map = torch.full((NB, B), -1, dtype=torch.int32, device=dev)
+    n = int(mask.sum())
+    row_map[mask] = torch.randperm(n, generator=gen, device=dev).to(
+        torch.int32)
+    blk_idx = torch.randperm(NB + 100, generator=gen, device=dev)[:NB].to(
+        torch.int32)
+    s_k = torch.rand((NB + 100) * B, 17, generator=gen, device=dev)
+    s_p = s_k.clone()
+    nr = torch.rand(n, 17, generator=gen, device=dev)
+    pk.blocked_write(s_k, nr, row_map, blk_idx)
+    torch.cuda.synchronize()
+    pk.blocked_write_plain(s_p, nr, row_map, blk_idx)
+    check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32)),
+          "blocked_write differs from the plain version over many tiles")
+    log("blocked_write: bit-equal to the plain version on %d edge cases "
+        "%s, slots as given and reversed, and over %d slots of %d lanes"
+        % (len(cases), sorted(cases), NB, B))
+    return err
+
+
+def gather_edge_phase(torch, dev):
+    """Phase 3, gather_rows on its edge cases (edge_cases.
+    gather_edge_cases): bit-equal to the plain version."""
+    from paddlebox_tpu_torch.edge_cases import (gather_edge_cases,
+                                                gather_source)
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+
+    cases = gather_edge_cases()
+    for label, (flat, off, C, W, ids) in cases.items():
+        src = gather_source(torch.from_numpy(flat).to(dev), off, C, W)
+        i = torch.from_numpy(ids).to(dev)
+        got = rk.gather_rows(src, i)
+        torch.cuda.synchronize()
+        want = rk.gather_rows_plain(src, i)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              "gather_rows differs from the plain version on %s" % label)
+    # many tiles a persistent block: 2^20 ids, about 16,000 tiles
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for W in (17, 32):
+        src = torch.rand((3000, W), generator=gen, device=dev)
+        i = torch.randint(0, 3040, (1 << 20,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        got = rk.gather_rows(src, i)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32),
+                          rk.gather_rows_plain(src, i).view(torch.int32)),
+              "gather_rows differs from the plain version over many tiles "
+              "(W %d)" % W)
+    log("gather_rows: bit-equal to the plain version on %d edge cases "
+        "(K, W, source offset): %s, and on 2^20 ids at W 17 and 32"
+        % (len(cases), sorted(cases)))
 
 
 def row_kernel_phase(torch, cfg, feed, files, dev):
@@ -304,6 +391,7 @@ def row_kernel_phase(torch, cfg, feed, files, dev):
             % (label, list(src.shape), ids.shape[0],
                int(ids.unique().numel())))
         del got, want, lib
+    gather_edge_phase(torch, dev)
     return errs
 
 

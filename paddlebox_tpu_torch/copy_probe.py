@@ -1,0 +1,193 @@
+"""Device time of the port's two copy kernels at the flagship shapes, on
+this tree or on another checkout of the port.
+
+    python3 paddlebox_tpu_torch/copy_probe.py [--tree DIR]
+
+Cases (inputs made from seeds, the same on every tree):
+
+  blocked_write  the blocked path's placement of one flagship step
+                 (``blocked_case``): a 2^20 x 17 slab, the first flagship
+                 batch's sorted uids bucketized in blocks of
+                 flagship.BLOCK_ROWS (1024 slots of 1024 lanes, 77,128 rows
+                 placed), random new rows; library call: index_copy_ of the
+                 same rows at their uids
+  gather_pull    the pull (``rate_probe.pull_inputs``): the first flagship
+                 batch's 131,072 ids (77,128 distinct, padding on the trash
+                 row) into a 2^20 x 17 slab; library call: index_select
+  gather_probe   the rate probe's gather (``rate_probe.probe_inputs``):
+                 131,072 sorted unique ids from a 2^20 x 128 slab; library
+                 call: index_select
+
+It prints the card's name and power limit, then one JSON line: for each
+case the kernel's and the library call's device ms
+(``rate_probe.time_chain``), the bytes the function must move and the
+bound they give at 3.35 TB/s, and ``sha256``, the digest of the kernel's
+output (two trees that print the same digests wrote the same bits; each
+output is also held bit-equal to the library call's); and ``floors``, what
+the card gives at these sizes (``floors``).
+
+``--tree DIR`` imports ``paddlebox_tpu_torch`` from DIR (``probe_tree``),
+so the port's parent commit can be measured in the same call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
+
+import numpy as np
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def blocked_case(ids: np.ndarray, C: int, W: int, dev) -> dict:
+    """blocked_write at one step of the blocked path on ``dev``: the
+    sorted uids of ``ids`` (``pass_table.dedup_ids``) bucketized in blocks
+    of flagship.BLOCK_ROWS lanes (``optimizers.blocked_layout``) over a
+    random [C, W] slab, with n_uniq random new rows as the fused push
+    returns them. A dict: name, kernel, library (index_copy_ of the same
+    rows at their uids), args (the slab untouched), library_args, bytes
+    (what the function must move), info (shape facts). The kernel's result
+    is held bit-equal to the library call's here (raises if not)."""
+    import torch
+
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.optimizers import blocked_layout
+    from paddlebox_tpu_torch.embedding.pass_table import dedup_ids
+    from paddlebox_tpu_torch.train import flagship
+
+    uids, _, _, n_uniq = dedup_ids(ids, C)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    slab = torch.rand((C, W), generator=gen, device=dev)
+    new_rows = torch.rand((n_uniq, W), generator=gen, device=dev)
+    u = torch.from_numpy(uids).to(dev)
+    row_map, blk_idx = blocked_layout(u, C, flagship.BLOCK_ROWS)
+    idx = u[:n_uniq].to(torch.int64)
+    s_k, s_l = slab.clone(), slab.clone()
+    pk.blocked_write(s_k, new_rows, row_map, blk_idx)
+    s_l.index_copy_(0, idx, new_rows)
+    if not _bit_equal(s_k, s_l):
+        raise RuntimeError("blocked_write differs from index_copy_ of the "
+                           "same rows")
+    placed = int((row_map >= 0).sum())
+    NB, B = row_map.shape
+    return dict(name="blocked_write", kernel=pk.blocked_write,
+                library=lambda s, i, r: s.index_copy_(0, i, r),
+                args=(slab, new_rows, row_map, blk_idx),
+                library_args=(s_l, idx, new_rows),
+                bytes=NB * B * 4 + NB * 4 + placed * W * 4 * 2,
+                info=dict(NB=NB, B=B, placed=placed, W=W))
+
+
+def flagship_cases(dev) -> list:
+    """The three cases at the flagship shapes on ``dev``, each a dict as
+    ``blocked_case`` gives; each gather's output is held bit-equal to
+    index_select's (raises if not)."""
+    import torch
+
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.rate_probe import (gather_bytes, probe_inputs,
+                                                pull_inputs)
+
+    pull_slab, pull_ids = pull_inputs()
+    cases = [blocked_case(pull_ids, *pull_slab.shape, dev)]
+    _, p_slab, p_ids = probe_inputs()
+    for name, s_np, i_np in (("gather_pull", pull_slab, pull_ids),
+                             ("gather_probe", p_slab, p_ids)):
+        src = torch.from_numpy(s_np).to(dev)
+        i = torch.from_numpy(i_np).to(dev)
+        if not _bit_equal(rk.gather_rows(src, i), src.index_select(0, i)):
+            raise RuntimeError("%s differs from index_select" % name)
+        cases.append(dict(name=name, kernel=rk.gather_rows,
+                          library=lambda a, b: a.index_select(0, b),
+                          args=(src, i), library_args=(src, i),
+                          bytes=gather_bytes(i_np, *s_np.shape),
+                          info=dict(K=int(i_np.shape[0]),
+                                    W=int(s_np.shape[1]))))
+    return cases
+
+
+def floors(cases: list) -> dict:
+    """What the card gives at these sizes (device ms, ``time_chain``),
+    beside the cases of ``flagship_cases``: ``launch_ms``, gather_rows of
+    one id (a launch in the chain with next to no work);
+    ``sequential_copy_ms``, scale_copy streaming as many bytes as the pull
+    must move (``sequential_copy_bytes``); ``blocked_contiguous_ms``,
+    blocked_write of the same rows with each slot's placed lanes moved to
+    its first lanes (whole sectors written); ``index_copy_contiguous_ms``,
+    index_copy_ of the same rows at consecutive slab rows."""
+    import torch
+
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.rate_probe import time_chain
+
+    by = {c["name"]: c for c in cases}
+    src = by["gather_pull"]["args"][0]
+    slab, new_rows, row_map, blk_idx = by["blocked_write"]["args"]
+    idx = by["blocked_write"]["library_args"][1]
+    blk_bytes = by["blocked_write"]["bytes"]
+    dev = src.device
+    x = torch.rand((by["gather_pull"]["bytes"] // (8 * 128), 128),
+                   device=dev)
+    placed = row_map >= 0
+    lanes = torch.arange(row_map.shape[1], device=dev)
+    front = torch.full_like(row_map, -1)
+    front[lanes[None, :] < placed.sum(1, keepdim=True)] = row_map[placed]
+    return {
+        "launch_ms": time_chain(
+            rk.gather_rows, (src[:64].clone(),
+                             torch.zeros(1, dtype=torch.int32, device=dev)),
+            4 + 2 * 4 * src.shape[1]),
+        "sequential_copy_ms": time_chain(rk.scale_copy, (x,), x.numel() * 8),
+        "sequential_copy_bytes": x.numel() * 8,
+        "blocked_contiguous_ms": time_chain(
+            pk.blocked_write, (slab.clone(), new_rows, front, blk_idx),
+            blk_bytes),
+        "index_copy_contiguous_ms": time_chain(
+            lambda s, i, r: s.index_copy_(0, i, r),
+            (slab.clone(), torch.arange(idx.numel(), device=dev), new_rows),
+            blk_bytes)}
+
+
+def main(tree: str) -> int:
+    """Measure the copy kernels of the ``paddlebox_tpu_torch`` on sys.path,
+    which ``tree`` names."""
+    import torch
+
+    from paddlebox_tpu_torch.device import HBM_BYTES_PER_S, card_line
+    from paddlebox_tpu_torch.rate_probe import time_chain
+
+    if not torch.cuda.is_available():
+        raise SystemExit("copy_probe needs a CUDA device")
+    print(card_line(), flush=True)
+    out = {"tree": tree}
+    cases = flagship_cases(torch.device("cuda"))
+    for case in cases:
+        args = (case["args"][0].clone(),) + case["args"][1:]
+        got = case["kernel"](*args)
+        if got is None:   # blocked_write writes its slab in place
+            got = args[0]
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+        nbytes = case["bytes"]
+        out[case["name"]] = dict(
+            case["info"], bytes=nbytes,
+            bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+            ms=time_chain(case["kernel"], args, nbytes),
+            library_ms=time_chain(case["library"], case["library_args"],
+                                  nbytes),
+            sha256=digest)
+    out["floors"] = floors(cases)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    import probe_tree   # run by path: from this file's directory
+    sys.exit(main(probe_tree.parse_args(argparse.ArgumentParser(
+        description=__doc__.split("\n")[0])).tree))

@@ -20,10 +20,8 @@ then one JSON line with, for each mode:
   * ``device_ops``: the device operations of one push by name
     (torch.profiler).
 
-``--tree DIR`` imports ``paddlebox_tpu_torch`` from DIR (default: the
-checkout that holds this file), so the port's parent commit unpacked in a
-git-ignored directory can be measured in the same call, in turns (parent,
-change, change, parent). Both designs of the push are understood: the
+``--tree DIR`` imports ``paddlebox_tpu_torch`` from DIR (``probe_tree``),
+so the port's parent commit can be measured in the same call. Both designs of the push are understood: the
 unfused one of the port's first slices (the pull's rows, first_idx,
 n_valid) and the fused one (segment offsets).
 """
@@ -35,7 +33,6 @@ import dataclasses
 import hashlib
 import inspect
 import json
-import os
 import sys
 import tempfile
 
@@ -123,19 +120,9 @@ def _push_fn(optimizers, pass_table, inp, dev, layout, conf):
     return "fused", fn, (slab, uids, perm, offsets, grads)
 
 
-def main() -> int:
-    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tree", default=here)
-    tree = os.path.abspath(ap.parse_args().tree)
-    loaded = sys.modules.get("paddlebox_tpu_torch")
-    if loaded is not None and not os.path.abspath(
-            loaded.__file__).startswith(tree + os.sep):
-        raise SystemExit("push_probe: paddlebox_tpu_torch is already "
-                         "imported from %s; run this file by path to "
-                         "measure %s" % (loaded.__file__, tree))
-    sys.path.insert(0, tree)
-
+def main(tree: str) -> int:
+    """Measure the push of the ``paddlebox_tpu_torch`` on sys.path, which
+    ``tree`` names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -184,9 +171,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # run by path, sys.path[0] is this package's directory, whose modules
-    # (config, data, ops, ...) must not shadow top-level ones
-    _pkg = os.path.dirname(os.path.abspath(__file__))
-    sys.path[:] = [p for p in sys.path
-                   if os.path.abspath(p or os.curdir) != _pkg]
-    sys.exit(main())
+    import probe_tree   # run by path: from this file's directory
+    sys.exit(main(probe_tree.parse_args(argparse.ArgumentParser(
+        description=__doc__.split("\n")[0])).tree))

@@ -23,6 +23,7 @@ from paddlebox_tpu.embedding.optimizers import (
 from paddlebox_tpu.embedding.pallas_push import (pallas_apply_push,
                                                  pallas_blocked_write)
 
+from paddlebox_tpu_torch import edge_cases
 from paddlebox_tpu_torch.config.configs import SparseOptimizerConfig
 from paddlebox_tpu_torch.embedding import accessor as acc
 from paddlebox_tpu_torch.embedding import push_kernels as pk
@@ -138,6 +139,35 @@ def test_plain_blocked_write_matches_jax():
     push_blocked_write(again, torch.from_numpy(uids),
                        torch.from_numpy(new_rows), B)
     np.testing.assert_array_equal(again.numpy(), got.numpy())
+
+
+BLOCKED_CASES = edge_cases.blocked_edge_cases()
+
+
+@pytest.mark.parametrize("case", sorted(BLOCKED_CASES))
+def test_plain_blocked_write_edge_cases_match_pallas(case):
+    """Permuted sources, sentinel slots (ordered before the real write of
+    the block they share, as the Pallas grid needs), a fully placed slot,
+    B in {100, 256, 1024, 4096}, NB = 1, nothing placed: the plain version
+    (the wrapper on the CPU) is the interpreted Pallas kernel, bit for bit,
+    and places exactly the placed lanes."""
+    slab, new_rows, row_map, blk_idx, _ = BLOCKED_CASES[case]
+    NB, B = row_map.shape
+    tiles = new_rows[np.clip(row_map, 0, len(new_rows) - 1)]
+    want = np.asarray(pallas_blocked_write(
+        jnp.asarray(slab), jnp.asarray(tiles), jnp.asarray(row_map),
+        jnp.asarray(blk_idx), interpret=True))
+    expect = slab.copy()
+    slots, lanes = np.nonzero(row_map >= 0)
+    expect[blk_idx[slots].astype(np.int64) * B + lanes] = \
+        new_rows[row_map[slots, lanes]]
+    got = torch.from_numpy(slab.copy())
+    pk.blocked_write(got, torch.from_numpy(new_rows),
+                     torch.from_numpy(row_map), torch.from_numpy(blk_idx))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  expect.view(np.uint32))
 
 
 def test_blocked_layout_drops_padding_and_refuses_bad_blocks():
@@ -256,16 +286,31 @@ def test_cuda_push_adagrad_matches_plain(cuda_device, rows_out):
 
 
 @pytest.mark.cuda
-def test_cuda_blocked_write_matches_plain(cuda_device):
-    slab, uids, new_rows, B = _blocked_case()
-    s1 = torch.from_numpy(slab).to(cuda_device)
-    s2 = s1.clone()
-    u = torch.from_numpy(uids).to(cuda_device)
+@pytest.mark.parametrize("case", ["blocked_layout"] + sorted(BLOCKED_CASES))
+def test_cuda_blocked_write_matches_plain(cuda_device, case):
+    """The kernel on a bucketized batch and on the edge cases, the row map
+    one entry into its buffer where the case asks (not 16-byte aligned),
+    in the case's slot order and reversed: bit-equal to its plain
+    version."""
+    if case == "blocked_layout":
+        slab, uids, new_rows, B = _blocked_case()
+        row_map, blk_idx = blocked_layout(torch.from_numpy(uids),
+                                          slab.shape[0], B)
+        row_map, blk_idx, offset = row_map.numpy(), blk_idx.numpy(), 0
+    else:
+        slab, new_rows, row_map, blk_idx, offset = BLOCKED_CASES[case]
+    s0 = torch.from_numpy(slab).to(cuda_device)
     nr = torch.from_numpy(new_rows).to(cuda_device)
-    row_map, blk_idx = blocked_layout(u, slab.shape[0], B)
-    before = pk.blocked_write.launches
-    pk.blocked_write(s1, nr, row_map, blk_idx)
-    torch.cuda.synchronize()
-    assert pk.blocked_write.launches == before + 1
-    pk.blocked_write_plain(s2, nr, row_map, blk_idx)
-    assert torch.equal(s1, s2)
+    for flip in (slice(None), slice(None, None, -1)):
+        flat = torch.empty(row_map.size + offset, dtype=torch.int32,
+                           device=cuda_device)
+        rm = flat[offset:].view(row_map.shape)
+        rm.copy_(torch.from_numpy(row_map[flip].copy()))
+        bi = torch.from_numpy(blk_idx[flip].copy()).to(cuda_device)
+        s1, s2 = s0.clone(), s0.clone()
+        before = pk.blocked_write.launches
+        pk.blocked_write(s1, nr, rm, bi)
+        torch.cuda.synchronize()
+        assert pk.blocked_write.launches == before + 1
+        pk.blocked_write_plain(s2, nr, rm, bi)
+        assert torch.equal(s1.view(torch.int32), s2.view(torch.int32))

@@ -22,7 +22,7 @@ from jax.experimental import pallas as pl
 from paddlebox_tpu.embedding.accessor import ValueLayout as JLayout
 from paddlebox_tpu.ops import sparse as jsparse
 
-from paddlebox_tpu_torch import rate_probe
+from paddlebox_tpu_torch import edge_cases, rate_probe
 from paddlebox_tpu_torch.native.kernel_args import use_kernel
 from paddlebox_tpu_torch.ops import row_kernels as rk
 from paddlebox_tpu_torch.ops import sparse
@@ -129,6 +129,28 @@ def test_plain_gather_matches_jax_pull_with_clamp():
     np.testing.assert_array_equal(_bits(sparse.gather_slab_rows(s, i)
                                         .numpy()), _bits(want))
     np.testing.assert_array_equal(np.asarray(want)[3], slab[C - 1])
+
+
+GATHER_CASES = edge_cases.gather_edge_cases()
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_plain_gather_edge_cases_match_jax(case):
+    """K around the kernel's tile (1, R - 1, R + 1, 131071) for W in {1,
+    17, 33, 128}, ids past the source, a source one float into its buffer:
+    the plain version (and the wrapper on the CPU) is JAX's clamped
+    slab[ids], bit for bit."""
+    flat, offset, C, W, ids = GATHER_CASES[case]
+    src = edge_cases.gather_source(flat, offset, C, W)
+    want = np.asarray(jnp.asarray(src)[jnp.asarray(ids)])
+    s, i = torch.from_numpy(src), torch.from_numpy(ids)
+    got = rk.gather_rows_plain(s, i).numpy()
+    assert got.shape == (ids.shape[0], W)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    np.testing.assert_array_equal(_bits(rk.gather_rows(s, i).numpy()),
+                                  _bits(want))
+    np.testing.assert_array_equal(got[ids >= C], src[np.full(
+        int((ids >= C).sum()), C - 1)])
 
 
 def test_cpu_wrappers_run_plain_without_counting():
@@ -265,19 +287,18 @@ def test_cuda_scale_copy_matches_plain(cuda_device, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [17, 128])
-def test_cuda_gather_rows_matches_plain(cuda_device, W):
-    rng = np.random.RandomState(3)
-    C, K = 5000, 1000
-    flat = torch.from_numpy(rng.rand(C * W + 1).astype(np.float32)).to(
-        cuda_device)
-    ids = rng.randint(0, C, K).astype(np.int32)
-    ids[::5] = C - 1
-    ids[7] = C + 3
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_cuda_gather_rows_matches_plain(cuda_device, case):
+    """The kernel on the edge cases (its staged tiles, tails, the direct
+    path for wide rows, a source that is not 16-byte aligned): bit-equal
+    to its plain version."""
+    flat, offset, C, W, ids = GATHER_CASES[case]
+    src = edge_cases.gather_source(torch.from_numpy(flat).to(cuda_device),
+                                   offset, C, W)
     i = torch.from_numpy(ids).to(cuda_device)
-    for src in (flat[:C * W].view(C, W), flat[1:].view(C, W)):
-        before = rk.gather_rows.launches
-        got = rk.gather_rows(src, i)
-        torch.cuda.synchronize()
-        assert rk.gather_rows.launches == before + 1
-        assert torch.equal(got, rk.gather_rows_plain(src, i))
+    before = rk.gather_rows.launches
+    got = rk.gather_rows(src, i)
+    torch.cuda.synchronize()
+    assert rk.gather_rows.launches == before + 1
+    assert torch.equal(got.view(torch.int32),
+                       rk.gather_rows_plain(src, i).view(torch.int32))
