@@ -16,30 +16,44 @@ Phases, each of which raises on a failed check (exit code != 0):
      write modes (in place, and rows out for the blocked path),
      blocked_write on the same slab shape from that batch's sorted uids
      and its n_uniq rows (copy_probe.blocked_case), scale_copy over f32
-     [131072, 128] (both round x * 0.999 + 0.001 once), gather_rows at the rate probe's shape
-     (131,072 sorted unique ids from a 2^20 x 128 slab) and at the pull's
-     (a real batch's 131,072 ids into a 2^20 x 17 slab), and both copy
-     kernels on their edge cases (paddlebox_tpu_torch/edge_cases.py:
-     gather_rows at K around its tile for W 1, 17, 32, 33 and 128 from
-     aligned and unaligned sources, blocked_write with permuted sources,
-     sentinel slots, a full slot, B 100 to 4096, NB 1, an unaligned row
-     map, in either slot order) and over many tiles a persistent block
-     (2^20 ids; 6,000 slots of 512 lanes); the push kernels' kernel, plain,
-     library and bound times (the fused push timed rows out, so that
-     repeated launches do not compound the update);
+     [131072, 128] (both round x * 0.999 + 0.001 once), gather_rows at the
+     rate probe's shape (131,072 sorted unique ids from a 2^20 x 128 slab),
+     at the pull's (a real batch's 131,072 ids into a 2^20 x 17 slab), at
+     the cadence's delta promote (the second pass's 557,074 source rows in
+     the first pass's slab, 504,026 of them resident) and at the touched-row
+     write-back (557,083 rows), and both copy kernels on their edge cases
+     (paddlebox_tpu_torch/edge_cases.py: gather_rows at K around its tile
+     for W 1, 17, 32, 33 and 128 from aligned and unaligned sources,
+     blocked_write with permuted sources, sentinel slots, a full slot, B
+     100 to 4096, NB 1, an unaligned row map, in either slot order) and
+     over many tiles a persistent block (2^20 ids; 6,000 slots of 512
+     lanes); the push kernels' kernel, plain, library and bound times (the
+     fused push timed rows out, so that repeated launches do not compound
+     the update), and gather_rows' at the promote and write-back shapes;
   4. a small-input check: two train_passes of a narrow DeepFM on the card
      and the same on the CPU (plain versions) agree;
   5. the main path at full width: two BoxTrainer.train_pass calls of the
      flagship configuration (paddlebox_tpu_torch/train/flagship.py: DeepFM
      hidden 512-256-128, 32 slots, batch 1024, max_len 4, embedx 8, 2^20-row
-     pass slab, push_write='scatter') over 16 batches of synthetic data;
-     loss and AUC finite and printed to 10 digits, examples/s, and the
-     push_adagrad and gather_rows (the pull) launch counts equal to the
-     step count;
-  6. the blocked mode: one pass of 4 batches with push_write='blocked' and
+     pass slab, push_write='scatter', the incremental pass lifecycle) over
+     16 batches of synthetic data; loss and AUC finite and printed to 10
+     digits, examples/s; the second pass a delta promote of every row
+     (the table's counters); push_adagrad launched once a step and
+     gather_rows exactly once a step (the pull) plus once a delta promote
+     and once a touched-row write-back, by the table's counters: 35;
+  6. the incremental cadence at full width: three passes over sliding
+     windows of the flagship's files (train/flagship.py write_cadence) in
+     each of cadence_probe.MODES: (a) run_preloaded_passes with both pass
+     switches on, (b) sequential passes without the preload, (c)
+     sequential full rebuilds, (d) run_preloaded_passes without the
+     prefetcher; equal losses and AUC, bit-identical host stores, the
+     table's counters equal to the key sets' overlaps (and to the
+     flagship's numbers), and the launches; per pass and mode the phase
+     seconds and examples/s;
+  7. the blocked mode: one pass of 4 batches with push_write='blocked' and
      one with 'scatter' from the same seed give bit-identical rows, and
      push_adagrad and blocked_write each launched once a step;
-  7. the rate probe (paddlebox_tpu_torch/rate_probe.py): its cases on the
+  8. the rate probe (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
      GB/s and the share of 3.35 TB/s; scale_copy and gather_rows launched
      in it. Its 64 MiB scale and its pull-shape gather are those two
@@ -340,14 +354,21 @@ def gather_edge_phase(torch, dev):
         % (len(cases), sorted(cases)))
 
 
-def row_kernel_phase(torch, cfg, feed, files, dev):
+def row_kernel_phase(torch, cfg, feed, files, keys, dev):
     """Phase 3, the rate probe's kernels against their plain versions:
     scale_copy at the probe's 64 MiB shape, gather_rows at the probe's
-    shape and at the pull's (a real batch's ids, the trash row included);
-    all bit-equal. Returns each kernel's max_abs_err; their times come from
-    the rate probe's phase."""
+    shape, at the pull's (a real batch's ids, the trash row included) and
+    at the delta promote's and the touched-row write-back's (from the
+    cadence's key sets ``keys``); all bit-equal. Returns each kernel's
+    max_abs_err, and gather_rows' times at the promote and write-back
+    shapes; the other times come from the rate probe's phase."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.device import HBM_BYTES_PER_S
     from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+    from paddlebox_tpu_torch.embedding.pass_table import sorted_member
     from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.rate_probe import gather_bytes, time_chain
     from paddlebox_tpu_torch.train import flagship
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -391,14 +412,49 @@ def row_kernel_phase(torch, cfg, feed, files, dev):
             % (label, list(src.shape), ids.shape[0],
                int(ids.unique().numel())))
         del got, want, lib
+    del shapes, src, ids
+
+    # --- gather_rows at the cadence's second pass's delta promote (its
+    # keys' rows in the first pass's slab; a miss reads row 0, as
+    # pass_table.delta_promote gives it) and at the first pass's touched-row
+    # write-back (every pass row is touched)
+    W = ValueLayout(cfg.embedx).width
+    slab = torch.rand((C, W), generator=gen, device=dev)
+    pos, hit = sorted_member(keys[0], keys[1])
+    at_shapes = {}
+    for label, ids_np in (
+            ("promote", np.where(hit, pos, 0).astype(np.int32)),
+            ("writeback", np.arange(keys[0].size, dtype=np.int32))):
+        ids = torch.from_numpy(ids_np).to(dev)
+        got = rk.gather_rows(slab, ids)
+        torch.cuda.synchronize()
+        want = rk.gather_rows_plain(slab, ids)
+        check(bit_equal(got, want), "gather_rows at the %s shape differs "
+              "from the plain version" % label)
+        errs["gather_rows"] = max(errs["gather_rows"],
+                                  float((got - want).abs().max()))
+        del got, want
+        nbytes = gather_bytes(ids_np, C, W)
+        args = (slab, ids)
+        rec = {"ids": int(ids_np.size),
+               "distinct": int(np.unique(ids_np).size), "bytes": nbytes,
+               "ms": time_chain(rk.gather_rows, args, nbytes),
+               "plain_ms": time_chain(rk.gather_rows_plain, args, nbytes),
+               "library_ms": time_chain(lambda a, b: a.index_select(0, b),
+                                        args, nbytes),
+               "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+        at_shapes[label] = rec
+        log("gather_rows %s shape src %s: bit-equal to the plain version; "
+            "%s" % (label, list(slab.shape), json.dumps(rec)))
     gather_edge_phase(torch, dev)
-    return errs
+    return errs, at_shapes
 
 
-def row_kernel_records(probe, errs, cfg):
+def row_kernel_records(probe, errs, at_shapes, cfg):
     """The rate probe's kernels' records, from the probe's cases at the
     shapes of their paths: scale_copy at 64 MiB (library: the one-call
-    torch_scale), gather_rows at the pull's (library: index_select)."""
+    torch_scale), gather_rows at the pull's (library: index_select), with
+    its times at the promote and write-back shapes under ``at_shapes``."""
     from paddlebox_tpu_torch.device import HBM_BYTES_PER_S
     from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 
@@ -418,6 +474,7 @@ def row_kernel_records(probe, errs, cfg):
                     "ms": k["ms_per_call"], "plain_ms": k["plain_ms"],
                     "bound_ms": 1e3 * k["bytes"] / HBM_BYTES_PER_S,
                     "bound_by": "bytes", "library_ms": t["ms_per_call"]})
+    out[-1]["at_shapes"] = at_shapes
     return out
 
 
@@ -449,6 +506,132 @@ def small_parity_phase(torch, tmp):
     log("small-input parity cuda vs cpu: losses %s / %s"
         % ([r["loss"] for r, _ in out["cuda"][0]],
            [r["loss"] for r, _ in out["cpu"][0]]))
+
+
+# the flagship cadence's data at seed 0 (train/flagship.py write_cadence):
+# each pass's key count, and for passes 1 and 2 the keys resident from the
+# pass before, the new rows, and of those the rows the host store holds
+FLAGSHIP_CADENCE = {"n": (557083, 557074, 557451), "hit": (504026, 504467),
+                    "new": (53048, 52984), "prefetchable": (0, 33957)}
+
+
+def counter_delta(before, table):
+    """The table's row counters since ``before`` (a copy of them)."""
+    return {k: v - before[k] for k, v in table.counters.items()}
+
+
+def gather_launches_of(rows):
+    """gather_rows launches of a pass besides the pull, by the table's
+    counters: one delta promote where a row stayed resident, one
+    touched-row write-back where rows were written back."""
+    return (int(rows["pass_rows_promote_hit"] > 0)
+            + int(rows["pass_rows_written_back"] > 0))
+
+
+def expected_counters(keys):
+    """Each cadence pass's row counters in the incremental modes, from the
+    passes' key sets alone: resident hits, new rows, of those the rows a
+    store that saw the earlier passes holds (prefetched in (a) only), every
+    pass row written back."""
+    import numpy as np
+    out = [{"pass_rows_promote_hit": 0, "pass_rows_promote_new": 0,
+            "pass_rows_promote_prefetched": 0,
+            "pass_rows_written_back": int(keys[0].size),
+            "pass_rows_writeback_skipped": 0}]
+    for p in range(1, len(keys)):
+        resident = np.isin(keys[p], keys[p - 1])
+        new = keys[p][~resident]
+        seen = np.unique(np.concatenate(keys[:p - 1] or [new[:0]]))
+        out.append({"pass_rows_promote_hit": int(resident.sum()),
+                    "pass_rows_promote_new": int(new.size),
+                    "pass_rows_promote_prefetched": int(
+                        np.isin(new, seen).sum()),
+                    "pass_rows_written_back": int(keys[p].size),
+                    "pass_rows_writeback_skipped": 0})
+    return out
+
+
+def cadence_phase(torch, cfg, feed, windows, keys, reset_counts, counts):
+    """Phase 6: the three cadence passes (``windows``, their key sets
+    ``keys``) in each of cadence_probe.MODES. Checks equal losses and AUC
+    against (c), the full rebuild (rtol 1e-6; whether they are bit-equal
+    is printed), bit-identical host stores, the counters against
+    ``expected_counters`` (rows prefetched only in (a)) and the launches.
+    Returns each mode's run record."""
+    import numpy as np
+
+    from paddlebox_tpu_torch import cadence_probe
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.train import flagship
+
+    expect = expected_counters(keys)
+    if cfg == flagship.FLAGSHIP:
+        got = {"n": tuple(int(k.size) for k in keys),
+               "hit": tuple(e["pass_rows_promote_hit"] for e in expect[1:]),
+               "new": tuple(e["pass_rows_promote_new"] for e in expect[1:]),
+               "prefetchable": tuple(e["pass_rows_promote_prefetched"]
+                                     for e in expect[1:])}
+        check(got == FLAGSHIP_CADENCE, "cadence key sets %s, expected %s"
+              % (got, FLAGSHIP_CADENCE))
+    zero = dict.fromkeys(expect[0], 0)
+    out, stores = {}, {}
+    for mode in cadence_probe.MODES:
+        reset_counts()
+        trainer, run = cadence_probe.run_cadence(mode, windows, feed, cfg,
+                                                 "cuda")
+        run["launches"] = mode_counts = counts()
+        passes = run["passes"]
+        for p in passes:
+            log("cadence (%s) pass %d: %s" % (mode, p["pass"],
+                                              json.dumps(p)))
+        steps = sum(p["batches"] for p in passes)
+        check(len(passes) == len(windows), "cadence (%s) ran %d passes"
+              % (mode, len(passes)))
+        for i, p in enumerate(passes):
+            want = zero if mode == "c" else dict(
+                expect[i], pass_rows_promote_prefetched=(
+                    expect[i]["pass_rows_promote_prefetched"]
+                    if mode == "a" else 0))
+            check(p["counters"] == want, "cadence (%s) pass %d counters "
+                  "%s, expected %s" % (mode, i, p["counters"], want))
+            check(np.isfinite(p["loss"]) and 0.0 < p["auc"] <= 1.0,
+                  "cadence (%s) pass %d loss %r auc %r"
+                  % (mode, i, p["loss"], p["auc"]))
+        extra = sum(gather_launches_of(p["counters"]) for p in passes)
+        check(mode_counts["push_adagrad"] == steps
+              and mode_counts["gather_rows"] == steps + extra
+              and mode_counts["blocked_write"] == 0
+              and mode_counts["scale_copy"] == 0,
+              "cadence (%s) launches %s over %d steps, %d promotes and "
+              "write-backs" % (mode, mode_counts, steps, extra))
+        k, v = trainer.table.store.state_items()
+        order = np.argsort(k)
+        stores[mode] = (k[order], v[order])
+        out[mode] = run
+        log("cadence (%s) %s: %d passes in %.4f s, launches %s"
+            % (mode, run["label"], len(passes), run["wall_s"], mode_counts))
+        del trainer
+    ref_k, ref_v = stores["c"]
+    others = [m for m in cadence_probe.MODES if m != "c"]
+    for mode in others:
+        k, v = stores[mode]
+        check(np.array_equal(k, ref_k)
+              and np.array_equal(v.view(np.uint32), ref_v.view(np.uint32)),
+              "cadence (%s) host store differs from the full rebuild's"
+              % mode)
+        for p, q in zip(out[mode]["passes"], out["c"]["passes"]):
+            check(abs(p["loss"] - q["loss"]) <= 1e-6 * abs(q["loss"])
+                  and abs(p["auc"] - q["auc"]) <= 1e-6,
+                  "cadence (%s) pass %d loss %r auc %r, full rebuild %r %r"
+                  % (mode, p["pass"], p["loss"], p["auc"], q["loss"],
+                     q["auc"]))
+    bit_equal = all(p["loss"] == q["loss"] and p["auc"] == q["auc"]
+                    for m in others
+                    for p, q in zip(out[m]["passes"], out["c"]["passes"]))
+    log("cadence: host stores bit-identical over %d keys in every mode; "
+        "losses and AUC bit-equal: %s" % (ref_k.size, bit_equal))
+    log(card_line())
+    return out
 
 
 def main() -> int:
@@ -490,14 +673,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cfg = flagship.FLAGSHIP
         t0 = time.perf_counter()
-        files, feed = flagship.write_files(os.path.join(tmp, "full"), cfg)
-        log("synthetic data: %d files x %d lines in %.2f s"
-            % (len(files), cfg.lines_per_file, time.perf_counter() - t0))
+        # the cadence's files, written once; the main path's are the first
+        # pass's
+        windows, feed = flagship.write_cadence(os.path.join(tmp, "full"),
+                                               cfg)
+        files = windows[0]
+        keys = [flagship.sorted_pass_keys(w, feed) for w in windows]
+        log("synthetic data: %d files x %d lines, three passes of %d files "
+            "(%s keys), in %.2f s"
+            % (2 * cfg.num_files, cfg.lines_per_file, cfg.num_files,
+               [k.size for k in keys], time.perf_counter() - t0))
 
         # 3. kernels against their plain versions
         dev = torch.device("cuda")
         kernels = kernel_phase(torch, cfg, feed, files, dev)
-        row_errs = row_kernel_phase(torch, cfg, feed, files, dev)
+        row_errs, gather_shapes = row_kernel_phase(torch, cfg, feed, files,
+                                                   keys, dev)
 
         # 4. small-input parity
         small_parity_phase(torch, tmp)
@@ -508,6 +699,7 @@ def main() -> int:
         reset_counts()
         passes = []
         for p in range(2):
+            before = dict(trainer.table.counters)
             res, auc, secs = run_pass(torch, trainer, ds)
             check(np.isfinite(res["loss"]) and np.isfinite(auc)
                   and 0.0 < auc <= 1.0,
@@ -517,21 +709,39 @@ def main() -> int:
                            "instances": res["instances"],
                            "pass_s": secs,
                            "examples_per_s": res["instances"] / secs,
-                           "phase_s": trainer.pass_times})
+                           "phase_s": trainer.pass_times,
+                           "counters": counter_delta(before,
+                                                     trainer.table)})
             log("main path pass %d: loss %.10f auc %.10f %s"
                 % (p, res["loss"], auc, json.dumps(passes[-1])))
         main_counts = counts()
         steps = sum(p["batches"] for p in passes)
-        for name in ("push_adagrad", "gather_rows"):
-            check(main_counts[name] == steps, "%s launched %d times over %d "
-                  "steps" % (name, main_counts[name], steps))
+        # the first pass builds the slab in full, the second promotes every
+        # row on the device; both write back every row
+        n = int(keys[0].size)
+        want = expected_counters([keys[0], keys[0]])
+        for p, w in zip(passes, want):
+            check(p["counters"] == w, "main path pass %d counters %s, "
+                  "expected %s" % (p["pass"], p["counters"], w))
+        extra = sum(gather_launches_of(p["counters"]) for p in passes)
+        check(main_counts["push_adagrad"] == steps,
+              "push_adagrad launched %d times over %d steps"
+              % (main_counts["push_adagrad"], steps))
+        check(extra == 3 and main_counts["gather_rows"] == steps + extra,
+              "gather_rows launched %d times over %d steps, %d promotes and "
+              "write-backs" % (main_counts["gather_rows"], steps, extra))
         check(main_counts["blocked_write"] == 0
               and main_counts["scale_copy"] == 0,
               "blocked_write or scale_copy launched on the scatter path")
-        log("main path launches %s over %d steps" % (main_counts, steps))
+        log("main path launches %s over %d steps, 1 delta promote of %d "
+            "rows and 2 touched-row write-backs" % (main_counts, steps, n))
         del trainer, ds
 
-        # 6. blocked mode vs scatter, same seed, bit-identical rows
+        # 6. the incremental cadence at full width, in every mode
+        cadence = cadence_phase(torch, cfg, feed, windows, keys,
+                                reset_counts, counts)
+
+        # 7. blocked mode vs scatter, same seed, bit-identical rows
         rows = {}
         blocked_counts = None
         for mode in ("scatter", "blocked"):
@@ -556,7 +766,7 @@ def main() -> int:
             % rows["blocked"].shape[0])
         del rows
 
-    # 7. the rate probe
+    # 8. the rate probe
     reset_counts()
     probe = rate_probe.run("cuda")
     probe_counts = counts()
@@ -565,7 +775,8 @@ def main() -> int:
           and probe_counts["blocked_write"] == 0,
           "rate probe launches %s" % probe_counts)
     log("rate probe launches %s over %d cases" % (probe_counts, len(probe)))
-    kernels += row_kernel_records(probe, row_errs, cfg)
+    kernels += row_kernel_records(probe, row_errs, gather_shapes,
+                                  cfg)
 
     launches = {"push_adagrad": main_counts["push_adagrad"],
                 "blocked_write": blocked_counts["blocked_write"],
@@ -575,7 +786,9 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
-                              "rate_probe": probe_counts},
+                              "rate_probe": probe_counts,
+                              **{"cadence_" + m: c["launches"]
+                                 for m, c in cadence.items()}},
                     "passes": passes}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

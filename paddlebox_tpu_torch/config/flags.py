@@ -1,9 +1,10 @@
-"""The push-write switches the slice reads.
+"""The switches the port reads: the push write and the pass lifecycle.
 
 The JAX package keeps these in a process-wide flag registry
-(paddlebox_tpu/config/flags.py: ``push_write``, ``push_block_rows``). The port
-passes them as a value to the trainer instead, so two trainers in one
-process can run different write modes side by side.
+(paddlebox_tpu/config/flags.py: ``push_write``, ``push_block_rows``,
+``incremental_pass``, ``preload_promote``). The port passes them as values
+to the trainer and the pass table instead, so two trainers in one process
+can run different modes side by side.
 """
 
 from __future__ import annotations
@@ -38,3 +39,18 @@ class PushFlags:
                     "push_write=blocked: push_block_rows=%d must be positive "
                     "and divide the pass capacity %d" % (block, capacity))
         return self.push_write
+
+
+@dataclasses.dataclass(frozen=True)
+class PassFlags:
+    """incremental_pass: the slab stays resident on the device after
+    end_pass; the next begin_pass moves the rows of keys it keeps on the
+    device and reads only the new keys from the host store, and end_pass
+    writes back only the rows the pass touched. preload_promote: while a
+    pass trains, run_preloaded_passes' prefetcher reads the next pass's
+    non-resident rows that the host store already holds; it is read only
+    there, and only with incremental_pass (a pass trained on its own has
+    no next pass loading). Both default on, as in the JAX package."""
+
+    incremental_pass: bool = True
+    preload_promote: bool = True

@@ -1,15 +1,20 @@
 """Host-DRAM embedding store: every feature ever seen, as numpy f32 rows.
 
-Counterpart of paddlebox_tpu/embedding/host_store.py:37-170 without the SSD
-tier, locks and telemetry. Missing keys are created in the order the caller
-passes them (the pass table passes its sorted-unique key set) with
+Counterpart of paddlebox_tpu/embedding/host_store.py:37-259 and :399-406
+without the SSD tier and telemetry. Missing keys are created only by
+``lookup_or_create``, in the order the caller passes them (the pass table
+passes its sorted-unique key set, or the sorted keys it still misses), with
 ``ValueLayout.new_rows`` drawing from one ``RandomState(seed)``, which is the
 rule both JAX stores follow, so the two packages hold the same rows.
+
+The store has no lock of its own: growing replaces ``_values``. A caller
+that reads it from another thread (the preload's promote prefetcher) holds
+the pass table's ``store_lock``, as the table does around every store call.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -65,12 +70,28 @@ class HostEmbeddingStore:
     def lookup(self, keys: np.ndarray) -> np.ndarray:
         """Rows for keys; missing keys read as zero rows and are not
         created."""
+        return self.lookup_present(keys)[0]
+
+    def lookup_present(self, keys: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """(rows, found) for keys, creating nothing: missing keys read as
+        zero rows with found False. The promote prefetcher's read: new keys
+        are left for the pass boundary's sorted ``lookup_or_create``, so the
+        creation draws stay in the full path's order."""
         keys = np.asarray(keys, dtype=np.uint64)
         rows = self._rows_of(keys)
+        found = rows >= 0
         out = np.zeros((keys.size, self.layout.width), np.float32)
-        hit = rows >= 0
-        out[hit] = self._values[rows[hit]]
-        return out
+        out[found] = self._values[rows[found]]
+        return out, found
+
+    def state_items(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(keys, rows) of every feature in the store, in creation order."""
+        keys = np.fromiter(self._index.keys(), dtype=np.uint64,
+                           count=len(self._index))
+        rows = np.fromiter(self._index.values(), dtype=np.int64,
+                           count=len(self._index))
+        return keys, self._values[rows].copy()
 
     def write_back(self, keys: np.ndarray, values: np.ndarray) -> None:
         """Overwrite the rows of known keys (end-of-pass slab dump)."""

@@ -1,34 +1,101 @@
 """Pass-lifecycle sparse table on one device.
 
-Counterpart of paddlebox_tpu/embedding/pass_table.py (the full-build path):
+Counterpart of paddlebox_tpu/embedding/pass_table.py (single device, with
+the incremental lifecycle, :114-126, :345-360, :464-712, :767-785):
 
   begin_feed_pass / add_keys / end_feed_pass  collect the pass key set and
         give each key a dense pass-local id (its rank in the sorted-unique
         key array)
-  begin_pass   host rows -> one [capacity, width] f32 slab on the device
-  lookup_ids   keys -> ids (numpy searchsorted); padding -> trash row
+  begin_pass   the pass slab, one [capacity, width] f32 tensor on the device
+  lookup_ids   keys -> ids (numpy searchsorted); padding -> trash row; marks
+        the ids' rows touched
   dedup_for_push  the per-batch sorted dedup the push consumes (with
         segment_offsets, its runs over the real occurrences)
-  end_pass     slab rows [0, n) -> host store
+  end_pass     the pass's rows -> host store
+
+With ``PassFlags.incremental_pass`` (the default) the slab stays resident
+after end_pass. The next begin_pass diffs its key set against the resident
+one, moves the rows of the keys it keeps to their new sorted positions on
+the device (``delta_promote``, a row gather on the gather_rows kernel) and
+reads only the other keys' rows from the host store: rows the preload's
+prefetcher staged first, then one sorted ``lookup_or_create``, so new keys
+are created in the full path's order. end_pass gathers the rows that
+lookup_ids touched (the same kernel) and writes back only those. Both give
+the full path's bits: ids are the sorted-unique positions, rows move
+without arithmetic, and the tail beyond the pass keys is zero. With the
+flag off, begin_pass builds the slab from the host store and end_pass
+writes back [0, n) and drops it.
 
 The last slab row (capacity-1) is the trash row that padding key slots
 address; it never reaches the host store. The train step updates the slab
 IN PLACE (the JAX step donates it, trainer.py:715-742): there is one live
-slab per pass. The incremental (resident) pass and the native route index
-wait for a later slice.
+slab per pass, and two only while a delta promote runs. Every store call
+holds ``store_lock``, the lock the promote prefetcher reads under. The
+native route index (the reference's hash probe in ``_resident_pos`` and
+``lookup_ids``) waits for a later slice; both use searchsorted.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from paddlebox_tpu_torch.config.configs import TableConfig
+from paddlebox_tpu_torch.config.flags import PassFlags
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
 from paddlebox_tpu_torch.embedding.host_store import HostEmbeddingStore
+from paddlebox_tpu_torch.ops.row_kernels import gather_rows
+
+# the reference's row counters (stat names), kept per table
+COUNTERS = ("pass_rows_promote_hit", "pass_rows_promote_new",
+            "pass_rows_promote_prefetched", "pass_rows_written_back",
+            "pass_rows_writeback_skipped")
+
+
+def sorted_member(sorted_keys: np.ndarray, keys: np.ndarray):
+    """(pos, hit) of ``keys`` against a sorted unique key array: pos[i] is
+    the index of keys[i] in sorted_keys where hit[i], a clamped index
+    elsewhere. The one membership probe of the incremental lifecycle (the
+    resident diff, the staged rows, the prefetcher's known set)."""
+    if sorted_keys.size == 0:
+        return (np.zeros(keys.size, np.int64),
+                np.zeros(keys.size, bool))
+    pos = np.minimum(np.searchsorted(sorted_keys, keys),
+                     sorted_keys.size - 1)
+    return pos, sorted_keys[pos] == keys
+
+
+def delta_promote(old_slab: torch.Tensor, old_pos: np.ndarray,
+                  new_rows: np.ndarray) -> torch.Tensor:
+    """The next pass's slab from the resident one: row i < n is
+    old_slab[old_pos[i]] where old_pos[i] >= 0 (the key at new position i
+    was resident there), and the next of ``new_rows`` (host f32, one per
+    position with old_pos -1, in order) where it is -1; rows n and after
+    are zero. Returns a new tensor on old_slab's device.
+
+    The counterpart of _delta_promote_impl (paddlebox_tpu/embedding/
+    pass_table.py:73-84), bit for bit: the kept rows move by one row gather
+    (gather_rows: the kernel on a CUDA slab) over [0, n), the misses
+    reading any row since the promoted rows then overwrite every one of
+    them (index_copy_); nothing is padded."""
+    n = old_pos.shape[0]
+    dev = old_slab.device
+    hit = old_pos >= 0
+    new = torch.empty_like(old_slab)
+    if hit.any():
+        src = np.where(hit, old_pos, 0).astype(np.int32)
+        gather_rows(old_slab, torch.from_numpy(src).to(dev), out=new[:n])
+    new[n:].zero_()
+    miss = np.flatnonzero(~hit)
+    if miss.size:
+        new.index_copy_(0, torch.from_numpy(miss).to(dev),
+                        torch.from_numpy(new_rows).to(dev))
+    return new
 
 
 def dedup_ids(ids: np.ndarray, pad_base: int):
@@ -89,19 +156,36 @@ class PassTable:
     """Single-device sparse table with the BoxPS pass lifecycle."""
 
     def __init__(self, table: TableConfig, seed: int = 0,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None,
+                 flags: Optional[PassFlags] = None) -> None:
         self.device = resolve_device(device)
         self.config = table
+        self.flags = flags or PassFlags()
         self.layout = ValueLayout(table.embedx_dim,
                                   table.optimizer.optimizer)
         self.push_layout = PushLayout(table.embedx_dim)
         self.store = HostEmbeddingStore(self.layout, table, seed)
+        self.store_lock = threading.Lock()
         self.capacity = int(table.pass_capacity)
         self._feed_keys: List[np.ndarray] = []
         self._pass_keys: Optional[np.ndarray] = None
         self._slab: Optional[torch.Tensor] = None
         self._in_feed_pass = False
         self._in_pass = False
+        # the incremental lifecycle: the keys of the resident slab's rows
+        # [0, len), the pass's touched-row mirror (bool [capacity]) and
+        # whether any id marked it, a mid-pass invalidation, and the rows
+        # the promote prefetcher staged for the next begin_pass
+        self._resident_keys: Optional[np.ndarray] = None
+        self._touched: Optional[np.ndarray] = None
+        self._touch_seen = False
+        self._residency_poisoned = False
+        self._staged: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self.counters: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
+        # host-clock seconds in begin_pass and end_pass (the reference's
+        # build and end timers); begin_pass returns before the device work
+        # it queues has run
+        self.seconds: Dict[str, float] = {"begin_pass": 0.0, "end_pass": 0.0}
 
     # ------------------------------------------------------- pass lifecycle
     def begin_feed_pass(self) -> None:
@@ -131,33 +215,149 @@ class PassTable:
         self._feed_keys = []
         self._in_feed_pass = False
 
+    def _resident_pos(self, keys: np.ndarray) -> np.ndarray:
+        """[n] int32 resident slab row of each key, -1 where not resident
+        (the reference's sorted fallback, pass_table.py:473-475)."""
+        if self._resident_keys is None:
+            return np.full(keys.size, -1, np.int32)
+        pos, hit = sorted_member(self._resident_keys, keys)
+        return np.where(hit, pos, -1).astype(np.int32)
+
+    def _promote_missing_rows(self, missing_keys: np.ndarray) -> np.ndarray:
+        """Host rows of the sorted keys a delta promote brings in: the rows
+        the prefetcher staged first, the rest by one sorted
+        lookup_or_create, which creates new keys in the full path's
+        order."""
+        rows = np.empty((missing_keys.size, self.layout.width), np.float32)
+        need = np.ones(missing_keys.size, bool)
+        if self._staged is not None:
+            skeys, srows = self._staged
+            pos, hit = sorted_member(skeys, missing_keys)
+            rows[hit] = srows[pos[hit]]
+            need = ~hit
+            self.counters["pass_rows_promote_prefetched"] += int(hit.sum())
+        if need.any():
+            with self.store_lock:
+                rows[need] = self.store.lookup_or_create(missing_keys[need])
+        return rows
+
     def begin_pass(self) -> None:
-        """Build the slab: host rows of every pass key (created on first
+        """Make the pass slab. Incremental (a slab is resident): the delta
+        promote. Otherwise: host rows of every pass key (created on first
         sight) in [0, n), zeros after, one host-to-device copy."""
         if self._in_pass:
             raise RuntimeError("pass already open")
         if self._pass_keys is None:
             raise RuntimeError("begin_pass before feed pass completed")
-        n = self._pass_keys.size
-        slab = torch.zeros((self.capacity, self.layout.width),
-                           dtype=torch.float32, device=self.device)
-        if n:
-            rows = self.store.lookup_or_create(self._pass_keys)
-            slab[:n].copy_(torch.from_numpy(rows))
-        self._slab = slab
+        t0 = time.perf_counter()
+        keys = self._pass_keys
+        n = keys.size
+        if self.flags.incremental_pass and self._resident_keys is not None:
+            old_pos = self._resident_pos(keys)
+            hit = old_pos >= 0
+            new_rows = self._promote_missing_rows(keys[~hit])
+            # the resident slab is dropped here: two slabs live only while
+            # the promote runs
+            self._slab = delta_promote(self._slab, old_pos, new_rows)
+            self.counters["pass_rows_promote_hit"] += int(hit.sum())
+            self.counters["pass_rows_promote_new"] += int(n - hit.sum())
+        else:
+            slab = torch.zeros((self.capacity, self.layout.width),
+                               dtype=torch.float32, device=self.device)
+            if n:
+                with self.store_lock:
+                    rows = self.store.lookup_or_create(keys)
+                slab[:n].copy_(torch.from_numpy(rows))
+            self._slab = slab
+        self._resident_keys = None
+        self._staged = None
+        self._touch_seen = False
+        self._residency_poisoned = False
+        if self.flags.incremental_pass:
+            self._touched = np.zeros(self.capacity, bool)
         self._in_pass = True
+        self.seconds["begin_pass"] += time.perf_counter() - t0
+
+    def note_touched(self, ids: np.ndarray) -> None:
+        """Mark the rows of ``ids`` touched this pass (lookup_ids calls it
+        for every batch): end_pass writes back only those. No-op outside an
+        incremental pass."""
+        if self._touched is not None:
+            self._touched[ids] = True
+            self._touch_seen = True
 
     def end_pass(self) -> None:
-        """Write the slab's pass rows back to the host store; drop the
-        slab."""
+        """Write the pass's rows back to the host store. Incremental: only
+        the touched rows, gathered on the device and copied once (all of
+        [0, n) when no id marked the pass, as for a caller that bypassed
+        lookup_ids); the slab stays resident unless the residency was
+        invalidated during the pass. Otherwise: [0, n), and the slab is
+        dropped."""
         if not self._in_pass:
             raise RuntimeError("end_pass without begin_pass")
-        n = self._pass_keys.size
-        if n:
+        t0 = time.perf_counter()
+        keys = self._pass_keys
+        n = keys.size
+        if n and self._touched is not None and self._touch_seen:
+            self._touched[self.padding_id] = False
+            idx = np.flatnonzero(self._touched[:n])
+            if idx.size:
+                ids = torch.from_numpy(idx.astype(np.int32)).to(self.device)
+                rows = gather_rows(self._slab, ids).cpu().numpy()
+                with self.store_lock:
+                    self.store.write_back(keys[idx], rows)
+            self.counters["pass_rows_written_back"] += int(idx.size)
+            self.counters["pass_rows_writeback_skipped"] += n - int(idx.size)
+        elif n:
             rows = self._slab[:n].cpu().numpy()
-            self.store.write_back(self._pass_keys, rows)
-        self._slab = None
+            with self.store_lock:
+                self.store.write_back(keys, rows)
+        if self.flags.incremental_pass and not self._residency_poisoned:
+            self._resident_keys = keys
+        else:
+            self._slab = None
+        self._touched = None
+        self._residency_poisoned = False
         self._in_pass = False
+        self.seconds["end_pass"] += time.perf_counter() - t0
+
+    def invalidate_residency(self) -> None:
+        """Drop the resident state (slab, its key map, staged rows). Call it
+        after any change to the host store outside the pass cadence, or the
+        next delta promote would reuse stale rows; the next begin_pass then
+        builds in full. During a pass the live slab stays (the pass needs
+        it) and end_pass does not make it resident."""
+        if self._in_pass:
+            self._residency_poisoned = True
+        else:
+            self._slab = None
+        self._resident_keys = None
+        self._staged = None
+
+    # ------------------------------------------------- preload promote hooks
+    def promote_prefetch_ctx(self) -> Optional[
+            Tuple[Callable[[np.ndarray], np.ndarray], HostEmbeddingStore,
+                  threading.Lock]]:
+        """(known_fn, store, lock) for train.preload.PromotePrefetcher, or
+        None when the prefetch cannot run (a flag off, or no pass key set to
+        diff against). known_fn marks the keys of this pass's set: the set
+        that will be resident when the next begin_pass diffs."""
+        if (not self.flags.incremental_pass
+                or not self.flags.preload_promote
+                or self._pass_keys is None or self._pass_keys.size == 0):
+            return None
+        snapshot = self._pass_keys
+
+        def known(keys: np.ndarray) -> np.ndarray:
+            return sorted_member(snapshot, keys)[1]
+
+        return known, self.store, self.store_lock
+
+    def accept_staged_rows(self, keys: np.ndarray, rows: np.ndarray) -> None:
+        """Keep the prefetcher's (sorted unique keys, rows) for the next
+        begin_pass."""
+        if keys.size:
+            self._staged = (keys, rows)
 
     # ------------------------------------------------------------- id space
     @property
@@ -175,7 +375,8 @@ class PassTable:
     def lookup_ids(self, keys: np.ndarray,
                    valid: Optional[np.ndarray] = None) -> np.ndarray:
         """Feasign keys -> int32 pass-local ids; positions where ``valid``
-        is False map to the trash row. Unregistered keys raise."""
+        is False map to the trash row. Unregistered keys raise. Marks the
+        ids' rows touched."""
         keys = np.asarray(keys, dtype=np.uint64)
         if self._pass_keys is None:
             raise RuntimeError("no active pass key set")
@@ -190,7 +391,9 @@ class PassTable:
         if not hit.all():
             raise KeyError("keys not registered in feed pass (first few: "
                            "%s)" % keys[~hit][:5])
-        return ids.astype(np.int32)
+        ids = ids.astype(np.int32)
+        self.note_touched(ids)
+        return ids
 
     def dedup_for_push(self, ids: np.ndarray):
         """dedup_ids with padding uids starting at this table's capacity."""

@@ -4,7 +4,9 @@
                   source csrc/scale_copy.cu
   gather_rows  <- tools/pallas_rate_probe.py:gather_kernel (pgather),
                   source csrc/gather_rows.cu; also the train step's pull
-                  (ops/sparse.py:gather_slab_rows)
+                  (ops/sparse.py:gather_slab_rows), and the pass table's
+                  delta promote and touched-row write-back
+                  (embedding/pass_table.py)
 
 Each wrapper checks dtype, shape, contiguity and device, then:
   * on CPU tensors runs its ``*_plain`` PyTorch version;
@@ -16,6 +18,8 @@ against them.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -67,10 +71,12 @@ def scale_copy_plain(x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------ gather_rows
 
-def gather_rows(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather_rows(src: torch.Tensor, ids: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[K, W] rows src[min(ids, C - 1)] for src [C, W] f32 and ids [K]
     int32 >= 0 (an id of C or more reads the last row, as JAX's gather
-    clamps). Returns a new tensor."""
+    clamps). Returns a new tensor, or fills ``out`` (contiguous f32 [K, W]
+    on src's device, in storage of its own) and returns it."""
     dev = src.device
     check(src, "src", torch.float32, 2, dev)
     check(ids, "ids", torch.int32, 1, dev)
@@ -78,11 +84,20 @@ def gather_rows(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     K = ids.shape[0]
     if K and not C:
         raise ValueError("gather_rows from an empty source of %d ids" % K)
+    if out is not None:
+        check(out, "out", torch.float32, 2, dev)
+        if tuple(out.shape) != (K, W):
+            raise ValueError("out must be %s, got %s"
+                             % ((K, W), tuple(out.shape)))
+        if out.untyped_storage().data_ptr() == \
+                src.untyped_storage().data_ptr():
+            raise ValueError("gather_rows: out shares its storage with src")
     if not use_kernel(dev):
-        return gather_rows_plain(src, ids)
+        return gather_rows_plain(src, ids, out)
     from paddlebox_tpu_torch.native.build import load_kernel
     lib = load_kernel("gather_rows")
-    out = torch.empty((K, W), dtype=src.dtype, device=dev)
+    if out is None:
+        out = torch.empty((K, W), dtype=src.dtype, device=dev)
     if K and W:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -96,9 +111,12 @@ def gather_rows(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 gather_rows.launches = 0
 
 
-def gather_rows_plain(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in PyTorch ops: clamp, then index_select."""
-    return src.index_select(0, ids.clamp(max=src.shape[0] - 1))
+def gather_rows_plain(src: torch.Tensor, ids: torch.Tensor,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel's function in PyTorch ops: clamp, then index_select
+    (into ``out`` when given)."""
+    return torch.index_select(src, 0, ids.clamp(max=src.shape[0] - 1),
+                              out=out)
 
 
 def launch_counts() -> dict:

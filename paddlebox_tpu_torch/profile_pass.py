@@ -5,7 +5,9 @@
 Builds the flagship trainer and data (train/flagship.py, the configuration
 whose two passes chip_smoke.py drives as its main path), runs the first
 pass as a warm-up, then profiles the second with torch.profiler (CPU + CUDA
-activity) and prints:
+activity). With the incremental lifecycle (the default) the second pass is
+a delta promote that keeps every row on the device, and a touched-row
+write-back; its row counters are printed. It prints:
 
   * one JSON line: the pass's host phase seconds (BoxTrainer.pass_times),
     the step loop's wall seconds, the device busy seconds inside it (the
@@ -142,6 +144,7 @@ def main() -> int:
                                       if span_s else None),
         "steps_per_s_host": (res["batches"] / steps_s) if steps_s else None,
         "port_kernels": ours,
+        "table_counters": trainer.table.counters,
         "push_spans": spans, "push_launches": push_launches,
         "push_torch_ops": push_ops,
         "torch_op_calls": {k: op_calls.get(k, 0) for k in PUSH_TORCH_OPS},

@@ -9,6 +9,15 @@ seed 0). chip_smoke.py drives its main path from here,
 profile_pass.py profiles the same pass, and rate_probe.py gathers at the
 pull's shape from one of its batches (``first_batch_ids``); a smaller
 configuration is a ``dataclasses.replace`` of ``FLAGSHIP``.
+
+The incremental cadence (``write_cadence``): twice the files from the same
+seed, of which the first ``num_files`` are the main path's, byte for byte,
+and three passes over sliding windows of ``num_files`` files that advance
+by half a window. It is a synthetic stress of the pass lifecycle, not a
+model of any user's traffic: the generator draws every key uniformly from
+a fixed vocabulary that each pass nearly covers, so a pass keeps about 90%
+of the previous pass's keys, and would share nearly as many with any other
+window. cadence_probe.py holds its run modes.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ import torch
 from paddlebox_tpu_torch.config.configs import (DataFeedConfig,
                                                 SparseOptimizerConfig,
                                                 TableConfig, TrainerConfig)
-from paddlebox_tpu_torch.config.flags import PushFlags
+from paddlebox_tpu_torch.config.flags import PassFlags, PushFlags
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.generator import write_synthetic_ctr_files
 from paddlebox_tpu_torch.device import DeviceLike
@@ -68,17 +77,41 @@ def write_files(out_dir: str, cfg: Flagship = FLAGSHIP
     return files, dataclasses.replace(feed, batch_size=cfg.batch)
 
 
+def write_cadence(out_dir: str, cfg: Flagship = FLAGSHIP
+                  ) -> Tuple[List[List[str]], DataFeedConfig]:
+    """(the file lists of the cadence's three passes, feed config): writes
+    2 * cfg.num_files files once; pass p reads files [p * s, p * s +
+    num_files) with s = num_files // 2. The first pass's files are
+    ``write_files``' files."""
+    n = cfg.num_files
+    files, feed = write_files(out_dir, dataclasses.replace(cfg,
+                                                           num_files=2 * n))
+    step = n // 2
+    return [files[p * step:p * step + n] for p in range(3)], feed
+
+
+def _load(files: List[str], feed: DataFeedConfig
+          ) -> Tuple[BoxDataset, np.ndarray]:
+    """(dataset loaded from ``files``, its sorted unique keys)."""
+    ds = BoxDataset(feed)
+    ds.set_filelist(files)
+    keys: List[np.ndarray] = []
+    ds.load_into_memory(add_keys_fn=keys.append)
+    return ds, np.unique(np.concatenate(keys))
+
+
+def sorted_pass_keys(files: List[str], feed: DataFeedConfig) -> np.ndarray:
+    """The sorted unique feasign keys of a pass over ``files``."""
+    return _load(files, feed)[1]
+
+
 def first_batch_ids(files: List[str], feed: DataFeedConfig,
                     cfg: Flagship = FLAGSHIP) -> np.ndarray:
     """int32 [batch * num_slots * max_len] slab ids of the first batch of
     ``files[0]``, as the pass table of that file gives them: each key's
     rank among the file's sorted unique keys, padding key slots on the
     trash row (capacity - 1)."""
-    ds = BoxDataset(feed)
-    ds.set_filelist(files[:1])
-    keys: List[np.ndarray] = []
-    ds.load_into_memory(add_keys_fn=keys.append)
-    pass_keys = np.unique(np.concatenate(keys))
+    ds, pass_keys = _load(files[:1], feed)
     b = ds.split_batches(1)[0][0]
     return np.where(b.valid, np.searchsorted(pass_keys, b.keys),
                     cfg.capacity - 1).astype(np.int32)
@@ -86,7 +119,8 @@ def first_batch_ids(files: List[str], feed: DataFeedConfig,
 
 def build_trainer(files: List[str], feed: DataFeedConfig,
                   cfg: Flagship = FLAGSHIP, push_write: str = "scatter",
-                  device: DeviceLike = None, seed: int = 0
+                  device: DeviceLike = None, seed: int = 0,
+                  pass_flags: PassFlags = PassFlags()
                   ) -> Tuple[BoxTrainer, BoxDataset]:
     """(trainer with an 'auc' metric, dataset over ``files``): DeepFM with
     weights from ``seed``, ready for ``trainer.train_pass(dataset)``."""
@@ -97,7 +131,7 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
     trainer = BoxTrainer(model, cfg.table(), feed,
                          TrainerConfig(dense_lr=DENSE_LR), seed=seed,
                          flags=PushFlags(push_write, BLOCK_ROWS),
-                         device=device)
+                         device=device, pass_flags=pass_flags)
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
     ds = BoxDataset(feed)
     ds.set_filelist(files)

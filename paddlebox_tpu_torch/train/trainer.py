@@ -10,7 +10,9 @@ GPU: a Python loop of steps, each
     mode it returns the rows and the blocked_write kernel places them)
 
 around the pass lifecycle feed -> begin_pass -> train -> metrics ->
-end_pass. The slab is updated in place (the JAX step donates it). Losses
+end_pass (incremental by default: PassFlags, embedding/pass_table.py;
+train/preload.py overlaps the next pass's feed with this one's steps). The
+slab is updated in place (the JAX step donates it). Losses
 and predictions stay on the device until the pass ends, then come back in
 one copy each: no per-step host sync.
 
@@ -32,7 +34,7 @@ import torch.nn.functional as F
 
 from paddlebox_tpu_torch.config.configs import (DataFeedConfig, TableConfig,
                                                 TrainerConfig)
-from paddlebox_tpu_torch.config.flags import PushFlags
+from paddlebox_tpu_torch.config.flags import PassFlags, PushFlags
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.packer import PackedBatch
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
@@ -108,7 +110,8 @@ class BoxTrainer:
                  trainer_cfg: Optional[TrainerConfig] = None,
                  seed: int = 0,
                  flags: Optional[PushFlags] = None,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None,
+                 pass_flags: Optional[PassFlags] = None) -> None:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 stays f32: no TF32 in matmuls or convolutions
@@ -117,7 +120,8 @@ class BoxTrainer:
         self.cfg = trainer_cfg or TrainerConfig()
         self.flags = flags or PushFlags()
         self.feed = feed
-        self.table = PassTable(table_cfg, seed=seed, device=self.device)
+        self.table = PassTable(table_cfg, seed=seed, device=self.device,
+                               flags=pass_flags)
         self.model = model.to(self.device)
         self.metrics = MetricRegistry()
         self.num_slots = len(feed.used_sparse_slots())
@@ -169,13 +173,18 @@ class BoxTrainer:
         return loss, preds
 
     # ---------------------------------------------------------- pass cadence
-    def train_pass(self, dataset: BoxDataset) -> Dict[str, float]:
+    def train_pass(self, dataset: BoxDataset,
+                   preloaded: bool = False) -> Dict[str, float]:
         """One full pass: feed -> build -> train -> metrics -> end.
 
+        ``preloaded``: the dataset is loaded and the table's feed pass is
+        done (train.preload.PassPreloader.wait), so the feed is skipped.
+
         ``self.pass_times`` then holds the host-clock seconds of its phases:
-        feed (load + key registration), build (begin_pass + shuffle +
-        packing), steps (host staging + enqueue of every step) and end
-        (end_pass + metrics; it waits for the device work still queued)."""
+        feed (load + key registration; absent when preloaded), build
+        (begin_pass + shuffle + packing), steps (host staging + enqueue of
+        every step) and end (end_pass + metrics; it waits for the device
+        work still queued)."""
         clock = [time.perf_counter()]
         times: Dict[str, float] = {}
 
@@ -184,10 +193,11 @@ class BoxTrainer:
             times[name] = now - clock[0]
             clock[0] = now
 
-        self.table.begin_feed_pass()
-        dataset.load_into_memory(add_keys_fn=self.table.add_keys)
-        self.table.end_feed_pass()
-        lap("feed")
+        if not preloaded:
+            self.table.begin_feed_pass()
+            dataset.load_into_memory(add_keys_fn=self.table.add_keys)
+            self.table.end_feed_pass()
+            lap("feed")
         self.table.begin_pass()
         dataset.local_shuffle(self._shuffle_rng.randint(1 << 31))
         batches = dataset.split_batches(num_workers=1)[0]
