@@ -6,8 +6,10 @@
 Phases, each of which raises on a failed check (exit code != 0):
 
   1. the card: nvidia-smi name and power limit, torch device properties;
-  2. build all four CUDA kernels from paddlebox_tpu_torch/csrc with nvcc
-     (sm_90a), one nvcc per source, in parallel;
+  2. build the native host library (the slot parser, the host store and
+     the route index, paddlebox_tpu_torch/native/*.cc) with g++, then all
+     four CUDA kernels from paddlebox_tpu_torch/csrc with nvcc (sm_90a),
+     one nvcc per source, in parallel;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of its paths, all bit-equal: the fused push_adagrad (merge,
      update and row write in one kernel) over a real flagship batch's
@@ -36,11 +38,17 @@ Phases, each of which raises on a failed check (exit code != 0):
      flagship configuration (paddlebox_tpu_torch/train/flagship.py: DeepFM
      hidden 512-256-128, 32 slots, batch 1024, max_len 4, embedx 8, 2^20-row
      pass slab, push_write='scatter', the incremental pass lifecycle) over
-     16 batches of synthetic data; loss and AUC finite and printed to 10
-     digits, examples/s; the second pass a delta promote of every row
-     (the table's counters); push_adagrad launched once a step and
-     gather_rows exactly once a step (the pull) plus once a delta promote
-     and once a touched-row write-back, by the table's counters: 35;
+     16 batches of synthetic data, on the native host tier (the columnar
+     dataset, the C++ store, the route index: each checked); loss and AUC
+     printed to 10 digits and equal to the digits the port has given since
+     its first slice (FLAGSHIP_DIGITS), examples/s; the second pass a
+     delta promote of every row (the table's counters); push_adagrad
+     launched once a step and gather_rows exactly once a step (the pull)
+     plus once a delta promote and once a touched-row write-back, by the
+     table's counters: 35. Then the same two passes on the plain host
+     tier (the record-path dataset and the Python store): losses, AUC and
+     the sorted host store bit-equal to the native run; both tiers' pass
+     phases beside the card line;
   6. the incremental cadence at full width: three passes over sliding
      windows of the flagship's files (train/flagship.py write_cadence) in
      each of cadence_probe.MODES: (a) run_preloaded_passes with both pass
@@ -48,8 +56,8 @@ Phases, each of which raises on a failed check (exit code != 0):
      sequential full rebuilds, (d) run_preloaded_passes without the
      prefetcher; equal losses and AUC, bit-identical host stores, the
      table's counters equal to the key sets' overlaps (and to the
-     flagship's numbers), and the launches; per pass and mode the phase
-     seconds and examples/s;
+     flagship's numbers), and the launches, all on the native host tier;
+     per pass and mode the phase seconds and examples/s;
   7. the blocked mode: one pass of 4 batches with push_write='blocked' and
      one with 'scatter' from the same seed give bit-identical rows, and
      push_adagrad and blocked_write each launched once a step;
@@ -508,11 +516,84 @@ def small_parity_phase(torch, tmp):
            [r["loss"] for r, _ in out["cpu"][0]]))
 
 
+# the main path's losses and AUC (two passes, "%.10f"), unchanged since the
+# port's first slice
+FLAGSHIP_DIGITS = {"loss": ("0.6866484880", "0.5655780435"),
+                   "auc": ("0.4971680564", "0.7351465576")}
+
 # the flagship cadence's data at seed 0 (train/flagship.py write_cadence):
 # each pass's key count, and for passes 1 and 2 the keys resident from the
 # pass before, the new rows, and of those the rows the host store holds
 FLAGSHIP_CADENCE = {"n": (557083, 557074, 557451), "hit": (504026, 504467),
                     "new": (53048, 52984), "prefetchable": (0, 33957)}
+
+
+NATIVE_TIER = {"dataset": "columnar", "store": "NativeHostEmbeddingStore"}
+
+
+def sorted_store(table):
+    """The table's host store as (keys, rows), sorted by key."""
+    import numpy as np
+    k, v = table.store.state_items()
+    order = np.argsort(k)
+    return k[order], v[order]
+
+
+def two_passes(torch, trainer, ds):
+    """The main path's two train_passes: each pass's record, and the
+    table's counters of each."""
+    import numpy as np
+    passes = []
+    for p in range(2):
+        before = dict(trainer.table.counters)
+        res, auc, secs = run_pass(torch, trainer, ds)
+        check(np.isfinite(res["loss"]) and np.isfinite(auc)
+              and 0.0 < auc <= 1.0,
+              "pass %d loss %r auc %r" % (p, res["loss"], auc))
+        passes.append({"pass": p, "loss": res["loss"], "auc": auc,
+                       "batches": res["batches"],
+                       "instances": res["instances"], "pass_s": secs,
+                       "examples_per_s": res["instances"] / secs,
+                       "phase_s": trainer.pass_times,
+                       "counters": counter_delta(before, trainer.table)})
+    return passes
+
+
+def plain_tier_phase(torch, cfg, feed, files, native, native_store):
+    """Phase 5, the plain host tier: the main path's two passes with the
+    record-path dataset and the Python store (the route index stays),
+    held bit-equal to the native run's ``native`` passes and sorted store
+    ``native_store``. Logs both tiers' pass phases beside the card
+    line."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.embedding.host_store import HostEmbeddingStore
+    from paddlebox_tpu_torch.train import flagship
+
+    trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter", "cuda",
+                                         plain_host=True)
+    check(not ds.columnar and type(trainer.table.store) is
+          HostEmbeddingStore, "the plain tier ran native")
+    plain = two_passes(torch, trainer, ds)
+    for p, q in zip(plain, native):
+        check(p["loss"] == q["loss"] and p["auc"] == q["auc"],
+              "plain host tier pass %d loss %r auc %r, native %r %r"
+              % (p["pass"], p["loss"], p["auc"], q["loss"], q["auc"]))
+    k, v = sorted_store(trainer.table)
+    check(np.array_equal(k, native_store[0])
+          and np.array_equal(v.view(np.uint32),
+                             native_store[1].view(np.uint32)),
+          "plain host tier store differs from the native run's")
+    for tier, passes in (("native", native), ("plain", plain)):
+        for p in passes:
+            log("host tier %s pass %d: phase_s %s pass_s %.4f examples/s "
+                "%.1f" % (tier, p["pass"], json.dumps(p["phase_s"]),
+                          p["pass_s"], p["examples_per_s"]))
+    log("plain host tier: losses, AUC and %d store rows bit-equal to the "
+        "native run; %s" % (k.size, card_line()))
+    del trainer, ds
+    return plain
 
 
 def counter_delta(before, table):
@@ -580,6 +661,8 @@ def cadence_phase(torch, cfg, feed, windows, keys, reset_counts, counts):
         trainer, run = cadence_probe.run_cadence(mode, windows, feed, cfg,
                                                  "cuda")
         run["launches"] = mode_counts = counts()
+        check(run["host_tier"] == NATIVE_TIER, "cadence (%s) ran on the "
+              "host tier %s" % (mode, run["host_tier"]))
         passes = run["passes"]
         for p in passes:
             log("cadence (%s) pass %d: %s" % (mode, p["pass"],
@@ -604,9 +687,7 @@ def cadence_phase(torch, cfg, feed, windows, keys, reset_counts, counts):
               and mode_counts["scale_copy"] == 0,
               "cadence (%s) launches %s over %d steps, %d promotes and "
               "write-backs" % (mode, mode_counts, steps, extra))
-        k, v = trainer.table.store.state_items()
-        order = np.argsort(k)
-        stores[mode] = (k[order], v[order])
+        stores[mode] = sorted_store(trainer.table)
         out[mode] = run
         log("cadence (%s) %s: %d passes in %.4f s, launches %s"
             % (mode, run["label"], len(passes), run["wall_s"], mode_counts))
@@ -645,6 +726,9 @@ def main() -> int:
     from paddlebox_tpu_torch import rate_probe
     from paddlebox_tpu_torch.device import card_line
     from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.native_store import \
+        NativeHostEmbeddingStore
+    from paddlebox_tpu_torch.native import host_lib
     from paddlebox_tpu_torch.native.build import build_kernels
     from paddlebox_tpu_torch.ops import row_kernels as rk
     from paddlebox_tpu_torch.train import flagship
@@ -665,7 +749,12 @@ def main() -> int:
            props.minor, props.multi_processor_count,
            props.total_memory / 2**30))
 
-    # 2. build
+    # 2. build: the host library, then the kernels
+    t0 = time.perf_counter()
+    host_path = host_lib.build_host_lib()
+    host_lib.host_lib()
+    log("built the host library %s in %.2f s"
+        % (host_path, time.perf_counter() - t0))
     t0 = time.perf_counter()
     paths = build_kernels(verbose=True)
     log("built %s in %.2f s" % (sorted(paths), time.perf_counter() - t0))
@@ -697,24 +786,19 @@ def main() -> int:
         trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter",
                                              "cuda")
         reset_counts()
-        passes = []
-        for p in range(2):
-            before = dict(trainer.table.counters)
-            res, auc, secs = run_pass(torch, trainer, ds)
-            check(np.isfinite(res["loss"]) and np.isfinite(auc)
-                  and 0.0 < auc <= 1.0,
-                  "pass %d loss %r auc %r" % (p, res["loss"], auc))
-            passes.append({"pass": p, "loss": res["loss"], "auc": auc,
-                           "batches": res["batches"],
-                           "instances": res["instances"],
-                           "pass_s": secs,
-                           "examples_per_s": res["instances"] / secs,
-                           "phase_s": trainer.pass_times,
-                           "counters": counter_delta(before,
-                                                     trainer.table)})
-            log("main path pass %d: loss %.10f auc %.10f %s"
-                % (p, res["loss"], auc, json.dumps(passes[-1])))
+        passes = two_passes(torch, trainer, ds)
         main_counts = counts()
+        for p in passes:
+            log("main path pass %d: loss %.10f auc %.10f %s"
+                % (p["pass"], p["loss"], p["auc"], json.dumps(p)))
+        check(ds.columnar and isinstance(trainer.table.store,
+                                         NativeHostEmbeddingStore)
+              and trainer.table.route_index is not None,
+              "the main path did not run on the native host tier")
+        digits = {"loss": tuple("%.10f" % p["loss"] for p in passes),
+                  "auc": tuple("%.10f" % p["auc"] for p in passes)}
+        check(digits == FLAGSHIP_DIGITS, "main path digits %s, expected %s"
+              % (digits, FLAGSHIP_DIGITS))
         steps = sum(p["batches"] for p in passes)
         # the first pass builds the slab in full, the second promotes every
         # row on the device; both write back every row
@@ -734,8 +818,14 @@ def main() -> int:
               and main_counts["scale_copy"] == 0,
               "blocked_write or scale_copy launched on the scatter path")
         log("main path launches %s over %d steps, 1 delta promote of %d "
-            "rows and 2 touched-row write-backs" % (main_counts, steps, n))
+            "rows and 2 touched-row write-backs, on the native host tier "
+            "(columnar dataset, %s, route index)"
+            % (main_counts, steps, n, type(trainer.table.store).__name__))
+        native_store = sorted_store(trainer.table)
         del trainer, ds
+        plain_passes = plain_tier_phase(torch, cfg, feed, files, passes,
+                                        native_store)
+        del native_store
 
         # 6. the incremental cadence at full width, in every mode
         cadence = cadence_phase(torch, cfg, feed, windows, keys,
@@ -789,7 +879,7 @@ def main() -> int:
                               "rate_probe": probe_counts,
                               **{"cadence_" + m: c["launches"]
                                  for m, c in cadence.items()}},
-                    "passes": passes}))
+                    "passes": passes, "plain_host_passes": plain_passes}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

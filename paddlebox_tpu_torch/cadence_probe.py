@@ -2,6 +2,7 @@
 that times the modes against each other on one GPU.
 
     python3 -m paddlebox_tpu_torch.cadence_probe [--reps N]
+    python3 paddlebox_tpu_torch/cadence_probe.py [--reps N] [--tree DIR]
 
 The cadence (train/flagship.py write_cadence) trains three passes over
 sliding windows of the flagship's files. ``run_cadence`` trains them in one
@@ -18,7 +19,8 @@ of ``MODES``:
 
 and returns one record a pass: loss and AUC, the trainer's phase seconds,
 the table's begin_pass/end_pass seconds and row counters of that pass, and
-the seconds the garbage collector paused the pass. chip_smoke.py's
+the seconds the garbage collector paused the pass; and the host tier the
+run took (the dataset's path and the store's class). chip_smoke.py's
 cadence phase checks these records; this probe times them.
 
 The probe writes the files once, runs mode a once as a warm-up (not
@@ -29,6 +31,11 @@ mode follows every other mode exactly once. Every run starts settled
 then one JSON line with each mode's median and quartiles of every pass's
 phases and of the run's wall seconds, and each mode's first-phase seconds
 of pass 0 by the mode that ran before it.
+
+``--tree DIR`` (run by path; probe_tree.py) imports ``paddlebox_tpu_torch``
+from DIR, so the port's parent commit unpacked in a git-ignored directory
+runs the same protocol in the same chip call, in turns (parent, change,
+change, parent). Every line then carries the tree.
 
 Needs a CUDA device; the times are host-clock seconds of passes that end
 in a device sync (the end phase copies the losses back).
@@ -41,27 +48,26 @@ import gc
 import json
 import statistics
 import tempfile
+import sys
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 
-import torch
+# run by path with --tree, this file imports nothing but the standard
+# library before probe_tree has put the tree on sys.path: torch and the
+# package's modules are imported inside the functions
+if TYPE_CHECKING:
+    from paddlebox_tpu_torch.config.configs import DataFeedConfig
+    from paddlebox_tpu_torch.device import DeviceLike
+    from paddlebox_tpu_torch.train.flagship import Flagship
+    from paddlebox_tpu_torch.train.trainer import BoxTrainer
 
-from paddlebox_tpu_torch.config.configs import DataFeedConfig
-from paddlebox_tpu_torch.config.flags import PassFlags
-from paddlebox_tpu_torch.data.dataset import BoxDataset
-from paddlebox_tpu_torch.device import DeviceLike
-from paddlebox_tpu_torch.train import flagship
-from paddlebox_tpu_torch.train.preload import run_preloaded_passes
-from paddlebox_tpu_torch.train.trainer import BoxTrainer
-
-# mode: (label, the trainer's PassFlags, preloaded)
+# mode: (label, the trainer's PassFlags fields, preloaded)
 MODES = {
-    "a": ("preloaded, incremental, prefetch", PassFlags(), True),
-    "b": ("sequential, incremental", PassFlags(), False),
-    "c": ("sequential, full rebuild", PassFlags(incremental_pass=False),
-          False),
+    "a": ("preloaded, incremental, prefetch", {}, True),
+    "b": ("sequential, incremental", {}, False),
+    "c": ("sequential, full rebuild", {"incremental_pass": False}, False),
     "d": ("preloaded, incremental, no prefetch",
-          PassFlags(preload_promote=False), True),
+          {"preload_promote": False}, True),
 }
 # after a warm-up run of "a": each ordered pair of distinct modes once
 BALANCED = "bacadbcbdcda"
@@ -71,6 +77,8 @@ def settle() -> int:
     """Bring the process to the same state whatever ran before: collect
     the last run's objects and, with a card, wait for it and release the
     allocator's cached blocks. Returns the objects gc found unreachable."""
+    import torch
+
     collected = gc.collect()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -94,17 +102,26 @@ class _GcClock:
 
 
 def run_cadence(mode: str, windows: List[List[str]], feed: DataFeedConfig,
-                cfg: flagship.Flagship = flagship.FLAGSHIP,
+                cfg: Optional[Flagship] = None,
                 device: DeviceLike = None) -> Tuple[BoxTrainer, Dict]:
-    """Settle, build the flagship trainer (seed 0) with ``mode``'s flags
-    and train one pass over each of ``windows``. Returns (the trainer,
-    {"mode", "label", "collected", "wall_s", "passes": one record a
-    pass}); wall_s runs from the first pass's start to the last pass's
-    end, the device synchronised."""
-    label, flags, preloaded = MODES[mode]
+    """Settle, build the flagship trainer (seed 0; ``cfg`` defaults to
+    FLAGSHIP) with ``mode``'s flags and train one pass over each of
+    ``windows``. Returns (the trainer, {"mode", "label", "host_tier",
+    "collected", "wall_s", "passes": one record a pass}); wall_s runs from
+    the first pass's start to the last pass's end, the device
+    synchronised."""
+    import torch
+
+    from paddlebox_tpu_torch.config.flags import PassFlags
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.train.preload import run_preloaded_passes
+
+    label, flag_fields, preloaded = MODES[mode]
     collected = settle()
-    trainer, _ = flagship.build_trainer(windows[0], feed, cfg, "scatter",
-                                        device, pass_flags=flags)
+    trainer, _ = flagship.build_trainer(
+        windows[0], feed, flagship.FLAGSHIP if cfg is None else cfg,
+        "scatter", device, pass_flags=PassFlags(**flag_fields))
     table = trainer.table
     clock = _GcClock()
     passes: List[Dict] = []
@@ -130,6 +147,9 @@ def run_cadence(mode: str, windows: List[List[str]], feed: DataFeedConfig,
     for files in windows:
         datasets.append(BoxDataset(feed))
         datasets[-1].set_filelist(files)
+    host_tier = {"dataset": ("columnar" if getattr(datasets[0], "columnar",
+                                                   False) else "record"),
+                 "store": type(table.store).__name__}
     gc.callbacks.append(clock)
     try:
         t0 = time.perf_counter()
@@ -143,8 +163,9 @@ def run_cadence(mode: str, windows: List[List[str]], feed: DataFeedConfig,
         wall = time.perf_counter() - t0
     finally:
         gc.callbacks.remove(clock)
-    return trainer, {"mode": mode, "label": label, "collected": collected,
-                     "wall_s": wall, "passes": passes}
+    return trainer, {"mode": mode, "label": label, "host_tier": host_tier,
+                     "collected": collected, "wall_s": wall,
+                     "passes": passes}
 
 
 def _quartiles(xs):
@@ -181,19 +202,30 @@ def summarise(runs: List[Dict], n_passes: int) -> Dict:
     return out
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=2)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    return measure(_parser().parse_args(argv).reps)
+
+
+def measure(reps: int, tree: Optional[str] = None) -> int:
+    """The probe's protocol on the ``paddlebox_tpu_torch`` that is on
+    sys.path (``tree`` names it in the output)."""
+    import torch
 
     from paddlebox_tpu_torch.device import card_line
     from paddlebox_tpu_torch.native.build import build_kernels
+    from paddlebox_tpu_torch.train import flagship
 
     if not torch.cuda.is_available():
         raise SystemExit("cadence_probe needs a CUDA device")
     print(card_line(), flush=True)
     build_kernels()
-    order = "a" + BALANCED * args.reps
+    order = "a" + BALANCED * reps
     runs = []
     with tempfile.TemporaryDirectory(prefix="cadence_probe_") as tmp:
         windows, feed = flagship.write_cadence(tmp)
@@ -201,13 +233,19 @@ def main(argv: Optional[List[str]] = None) -> int:
             trainer, run = run_cadence(mode, windows, feed, device="cuda")
             del trainer
             run["after"] = order[i - 1] if i else None
+            run["tree"] = tree
             print(json.dumps(run), flush=True)
             if i:  # the first run is the warm-up
                 runs.append(run)
-    print(json.dumps({"card": card_line(),
+    print(json.dumps({"card": card_line(), "tree": tree,
+                      "host_tier": runs[-1]["host_tier"] if runs else None,
                       "summary": summarise(runs, len(windows))}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    if __package__:   # python3 -m paddlebox_tpu_torch.cadence_probe
+        sys.exit(main())
+    import probe_tree   # run by path: from this file's directory
+    _args = probe_tree.parse_args(_parser())
+    sys.exit(measure(_args.reps, _args.tree))

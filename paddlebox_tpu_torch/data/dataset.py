@@ -1,16 +1,26 @@
-"""Pass-scoped in-memory dataset (the record path).
+"""Pass-scoped in-memory dataset.
 
-Counterpart of paddlebox_tpu/data/dataset.py with ``columnar=False``: files
-are read in list order, every 512 parsed records register their keys with
-the table's feed pass (``add_keys_fn``, the MergeInsKeys -> AddKeys step),
-``local_shuffle`` permutes the records with ``RandomState(seed).shuffle`` as
-the JAX dataset does, and ``split_batches`` packs equal per-worker batch
-lists. One reader thread reads the files in list order
-(``preload_into_memory``; ``wait_preload_done`` joins it and raises its
-error, and ``load_into_memory`` is the two in a row): a JAX dataset built
-with ``read_threads=1, columnar=False`` yields the same records in the same
-order, whether or not the load overlaps a pass that trains
-(train/preload.py).
+Counterpart of paddlebox_tpu/data/dataset.py with one reader thread. Two
+paths, which give byte-identical batches and the same key stream:
+
+  columnar (the default, as in the reference)  the native parser
+        (data/native_parser.py) reads each file to one ColumnarBlock and
+        registers its keys with the table's feed pass (``add_keys_fn``, the
+        MergeInsKeys -> AddKeys step) once a file; the blocks are
+        concatenated when the load ends. ``local_shuffle`` draws
+        ``RandomState(seed).permutation(n)`` and ``split_batches`` packs in
+        that order with ``pack_columnar``.
+  record (``columnar=False``, the plain version)  the Python parser yields
+        SlotRecords, every 512 of which register their keys;
+        ``local_shuffle`` permutes them with ``RandomState(seed).shuffle``
+        and ``split_batches`` packs them with ``BatchPacker``.
+
+The reader reads the files in list order (``preload_into_memory``;
+``wait_preload_done`` joins it and raises ``RuntimeError("dataset load
+failed")`` from any error it hit, and ``load_into_memory`` is the two in a
+row), so a JAX dataset built with ``read_threads=1`` and the same
+``columnar`` yields the same records in the same order, whether or not the
+load overlaps a pass that trains (train/preload.py).
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 
 from paddlebox_tpu_torch.config.configs import DataFeedConfig
+from paddlebox_tpu_torch.data.columnar import ColumnarBlock, pack_columnar
 from paddlebox_tpu_torch.data.packer import BatchPacker, PackedBatch
 from paddlebox_tpu_torch.data.parser import MultiSlotParser
 from paddlebox_tpu_torch.data.slot_record import SlotRecord
@@ -31,14 +42,25 @@ _MERGE_CHUNK = 512
 
 
 class BoxDataset:
-    def __init__(self, feed: DataFeedConfig) -> None:
+    def __init__(self, feed: DataFeedConfig, columnar: bool = True) -> None:
         self.feed = feed
-        self.parser = MultiSlotParser(feed)
+        self.columnar = columnar
         self.packer = BatchPacker(feed)
+        if columnar:
+            # builds the native host library at its first use
+            from paddlebox_tpu_torch.data.native_parser import \
+                NativeMultiSlotParser
+            self.parser = NativeMultiSlotParser(feed)
+        else:
+            self.parser = MultiSlotParser(feed)
+        self._max_lens = np.array(
+            [s.max_len for s in self.packer.sparse_slots], np.int64)
         self._files: List[str] = []
         self._records: List[SlotRecord] = []
+        self._block: Optional[ColumnarBlock] = None
+        self._perm: Optional[np.ndarray] = None
         self._reader: Optional[threading.Thread] = None
-        self._load_error: Optional[Exception] = None
+        self._load_error: Optional[BaseException] = None
 
     def set_filelist(self, files: Sequence[str]) -> None:
         self._files = list(files)
@@ -53,40 +75,44 @@ class BoxDataset:
         ``add_keys_fn`` is called on that thread."""
         if self._reader is not None:
             raise RuntimeError("preload already running")
-        self._records = []
+        self.release_memory()
         self._load_error = None
-        files = list(self._files)
         self._reader = threading.Thread(
-            target=self._read, args=(files, add_keys_fn), daemon=True,
-            name="dataset-reader")
+            target=self._read, args=(list(self._files), add_keys_fn),
+            daemon=True, name="dataset-reader")
         self._reader.start()
 
     def _read(self, files: List[str],
               add_keys_fn: Optional[AddKeysFn]) -> None:
         try:
-            for path in files:
-                chunk: List[SlotRecord] = []
-                for rec in self.parser.parse_file(path):
-                    chunk.append(rec)
-                    if len(chunk) >= _MERGE_CHUNK:
-                        self._merge(chunk, add_keys_fn)
-                        chunk = []
-                if chunk:
-                    self._merge(chunk, add_keys_fn)
-        except Exception as e:  # raised again by wait_preload_done
+            if self.columnar:
+                self._read_columnar(files, add_keys_fn)
+            else:
+                self._read_records(files, add_keys_fn)
+        except BaseException as e:  # raised again by wait_preload_done
             self._load_error = e
 
-    def wait_preload_done(self) -> None:
-        """Join the reader; raise the error it hit, if any."""
-        reader, self._reader = self._reader, None
-        if reader is not None:
-            reader.join()
-        err, self._load_error = self._load_error, None
-        if err is not None:
-            raise err
+    def _read_columnar(self, files: List[str],
+                       add_keys_fn: Optional[AddKeysFn]) -> None:
+        blocks = []
+        for path in files:
+            block = self.parser.parse_file_columnar(path)
+            if add_keys_fn is not None and block.n_keys:
+                add_keys_fn(block.keys)
+            blocks.append(block)
+        self._block = ColumnarBlock.concat(blocks)
 
-    def release_memory(self) -> None:
-        self._records = []
+    def _read_records(self, files: List[str],
+                      add_keys_fn: Optional[AddKeysFn]) -> None:
+        for path in files:
+            chunk: List[SlotRecord] = []
+            for rec in self.parser.parse_file(path):
+                chunk.append(rec)
+                if len(chunk) >= _MERGE_CHUNK:
+                    self._merge(chunk, add_keys_fn)
+                    chunk = []
+            if chunk:
+                self._merge(chunk, add_keys_fn)
 
     def _merge(self, recs: List[SlotRecord],
                add_keys_fn: Optional[AddKeysFn]) -> None:
@@ -96,25 +122,67 @@ class BoxDataset:
                 add_keys_fn(np.concatenate(keys))
         self._records.extend(recs)
 
+    def wait_preload_done(self) -> None:
+        """Join the reader; raise RuntimeError from the error it hit, if
+        any (the reference's wait, paddlebox_tpu/data/dataset.py:355-358).
+        """
+        reader, self._reader = self._reader, None
+        if reader is not None:
+            reader.join()
+        err, self._load_error = self._load_error, None
+        if err is not None:
+            raise RuntimeError("dataset load failed") from err
+
+    def release_memory(self) -> None:
+        self._records = []
+        self._block = None
+        self._perm = None
+
     def local_shuffle(self, seed: Optional[int] = None) -> None:
-        np.random.RandomState(seed).shuffle(self._records)
+        rng = np.random.RandomState(seed)
+        if not self.columnar:
+            rng.shuffle(self._records)
+        elif len(self):
+            self._perm = rng.permutation(len(self))
+
+    def all_keys(self) -> np.ndarray:
+        """Every feasign of the loaded pass, in load order."""
+        if self.columnar:
+            return (self._block.keys if self._block is not None
+                    else np.empty(0, np.uint64))
+        if not self._records:
+            return np.empty(0, np.uint64)
+        return np.concatenate([r.all_keys() for r in self._records])
 
     def __len__(self) -> int:
+        if self.columnar:
+            return 0 if self._block is None else self._block.n_recs
         return len(self._records)
 
     def split_batches(self, num_workers: int = 1) -> List[List[PackedBatch]]:
         """Equal per-worker batch lists; short workers wrap around."""
         bs = self.feed.batch_size
-        n = len(self._records)
+        n = len(self)
         per_worker = (n + num_workers - 1) // num_workers
         target = (per_worker + bs - 1) // bs if n else 0
+        if self.columnar:
+            order = (self._perm if self._perm is not None
+                     else np.arange(n, dtype=np.int64))
+            pk = self.packer
+
+            def pack(idx):
+                return pack_columnar(self._block, idx, self.feed, pk.kcap,
+                                     pk.num_slots, self._max_lens)
+        else:
+            order, pack = self._records, self.packer.pack
         out: List[List[PackedBatch]] = []
         for w in range(num_workers):
-            recs = self._records[w * per_worker:min((w + 1) * per_worker, n)]
+            mine = order[w * per_worker:min((w + 1) * per_worker, n)]
             batches = []
             for b in range(target):
-                chunk = recs[b * bs:(b + 1) * bs] or recs[:bs] \
-                    or self._records[:bs]
-                batches.append(self.packer.pack(chunk))
+                chunk = mine[b * bs:(b + 1) * bs]
+                if len(chunk) == 0:
+                    chunk = mine[:bs] if len(mine) else order[:bs]
+                batches.append(pack(chunk))
             out.append(batches)
         return out

@@ -1,7 +1,10 @@
-"""Host-DRAM embedding store: every feature ever seen, as numpy f32 rows.
+"""Host-DRAM embedding store in Python: every feature ever seen, as numpy
+f32 rows.
 
 Counterpart of paddlebox_tpu/embedding/host_store.py:37-259 and :399-406
-without the SSD tier and telemetry. Missing keys are created only by
+without the SSD tier and telemetry. It is the plain version of
+native_store.py's NativeHostEmbeddingStore, which the pass table uses
+unless this store is passed in by name. Missing keys are created only by
 ``lookup_or_create``, in the order the caller passes them (the pass table
 passes its sorted-unique key set, or the sorted keys it still misses), with
 ``ValueLayout.new_rows`` drawing from one ``RandomState(seed)``, which is the
@@ -86,7 +89,9 @@ class HostEmbeddingStore:
         return out, found
 
     def state_items(self) -> Tuple[np.ndarray, np.ndarray]:
-        """(keys, rows) of every feature in the store, in creation order."""
+        """(keys, rows) of every feature in the store. The order is the
+        store's own (here creation order, hash order in the native store):
+        a caller that compares stores sorts by key."""
         keys = np.fromiter(self._index.keys(), dtype=np.uint64,
                            count=len(self._index))
         rows = np.fromiter(self._index.values(), dtype=np.int64,

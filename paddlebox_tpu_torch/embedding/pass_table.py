@@ -3,12 +3,13 @@
 Counterpart of paddlebox_tpu/embedding/pass_table.py (single device, with
 the incremental lifecycle, :114-126, :345-360, :464-712, :767-785):
 
-  begin_feed_pass / add_keys / end_feed_pass  collect the pass key set and
+  begin_feed_pass / add_keys / end_feed_pass  collect the pass key set,
         give each key a dense pass-local id (its rank in the sorted-unique
-        key array)
+        key array) and build the pass's route index (a native key -> id
+        hash index over that array)
   begin_pass   the pass slab, one [capacity, width] f32 tensor on the device
-  lookup_ids   keys -> ids (numpy searchsorted); padding -> trash row; marks
-        the ids' rows touched
+  lookup_ids   keys -> ids (one probe a key of the route index); padding ->
+        trash row; marks the ids' rows touched
   dedup_for_push  the per-batch sorted dedup the push consumes (with
         segment_offsets, its runs over the real occurrences)
   end_pass     the pass's rows -> host store
@@ -30,9 +31,19 @@ The last slab row (capacity-1) is the trash row that padding key slots
 address; it never reaches the host store. The train step updates the slab
 IN PLACE (the JAX step donates it, trainer.py:715-742): there is one live
 slab per pass, and two only while a delta promote runs. Every store call
-holds ``store_lock``, the lock the promote prefetcher reads under. The
-native route index (the reference's hash probe in ``_resident_pos`` and
-``lookup_ids``) waits for a later slice; both use searchsorted.
+holds ``store_lock``, the lock the promote prefetcher reads under.
+
+The host tier is native by default (native/host_lib.py): the store is
+``make_host_store``'s C++ store unless a caller passes one (the plain
+HostEmbeddingStore, by name), and ``lookup_ids`` and the resident diff
+probe route indexes (reference pass_table.py:419-475, 762-770). The ended
+pass's index is kept across the feed boundary while it covers the resident
+key set, so the next begin_pass diffs by one probe a key; both indexes are
+dropped in begin_pass, invalidate_residency and ``__del__``. The promote
+prefetcher diffs against a numpy snapshot of the key set, never an index.
+``lookup_ids_plain`` (searchsorted) is the plain version the tests hold the
+index against. The per-batch dedup stays the sorted numpy tier: the push
+kernel and the blocked write need ascending uids.
 """
 
 from __future__ import annotations
@@ -48,7 +59,8 @@ from paddlebox_tpu_torch.config.configs import TableConfig
 from paddlebox_tpu_torch.config.flags import PassFlags
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
-from paddlebox_tpu_torch.embedding.host_store import HostEmbeddingStore
+from paddlebox_tpu_torch.embedding.native_store import make_host_store
+from paddlebox_tpu_torch.native import host_lib
 from paddlebox_tpu_torch.ops.row_kernels import gather_rows
 
 # the reference's row counters (stat names), kept per table
@@ -68,6 +80,25 @@ def sorted_member(sorted_keys: np.ndarray, keys: np.ndarray):
     pos = np.minimum(np.searchsorted(sorted_keys, keys),
                      sorted_keys.size - 1)
     return pos, sorted_keys[pos] == keys
+
+
+def lookup_ids_plain(pass_keys: np.ndarray, keys: np.ndarray,
+                     valid: Optional[np.ndarray], padding_id: int
+                     ) -> np.ndarray:
+    """int32 ids of ``keys`` against a sorted unique ``pass_keys`` by
+    searchsorted, padding_id where ``valid`` is False; raises KeyError for
+    a valid key not in pass_keys. The plain version of
+    ``host_lib.route_lookup``."""
+    n = pass_keys.size
+    ids = np.minimum(np.searchsorted(pass_keys, keys), max(n - 1, 0))
+    hit = pass_keys[ids] == keys if n else np.zeros(keys.shape, bool)
+    if valid is not None:
+        ids = np.where(valid, ids, padding_id)
+        hit = hit | ~valid
+    if not hit.all():
+        raise KeyError("keys not registered in feed pass (first few: %s)"
+                       % keys[~hit][:5])
+    return ids.astype(np.int32)
 
 
 def delta_promote(old_slab: torch.Tensor, old_pos: np.ndarray,
@@ -157,19 +188,26 @@ class PassTable:
 
     def __init__(self, table: TableConfig, seed: int = 0,
                  device: DeviceLike = None,
-                 flags: Optional[PassFlags] = None) -> None:
+                 flags: Optional[PassFlags] = None,
+                 store=None) -> None:
         self.device = resolve_device(device)
         self.config = table
         self.flags = flags or PassFlags()
         self.layout = ValueLayout(table.embedx_dim,
                                   table.optimizer.optimizer)
         self.push_layout = PushLayout(table.embedx_dim)
-        self.store = HostEmbeddingStore(self.layout, table, seed)
+        self.store = (store if store is not None
+                      else make_host_store(self.layout, table, seed))
         self.store_lock = threading.Lock()
         self.capacity = int(table.pass_capacity)
         self._feed_keys: List[np.ndarray] = []
         self._pass_keys: Optional[np.ndarray] = None
         self._slab: Optional[torch.Tensor] = None
+        # the pass's route index and the key array it maps; the ended
+        # pass's index, kept for the next begin_pass's diff
+        self._route_index: Optional[int] = None
+        self._route_for: Optional[np.ndarray] = None
+        self._prev_route: Optional[int] = None
         self._in_feed_pass = False
         self._in_pass = False
         # the incremental lifecycle: the keys of the resident slab's rows
@@ -201,7 +239,9 @@ class PassTable:
 
     def end_feed_pass(self) -> None:
         """Freeze the pass key set; ids are positions in its sorted-unique
-        array."""
+        array, which the pass's route index maps. The outgoing index is
+        kept when it maps the resident key set (the identity check on the
+        array end_pass made resident)."""
         if not self._in_feed_pass:
             raise RuntimeError("end_feed_pass without begin_feed_pass")
         if self._feed_keys:
@@ -212,16 +252,49 @@ class PassTable:
             raise RuntimeError(
                 "pass working set %d exceeds table pass_capacity %d"
                 % (self._pass_keys.size, self.capacity))
+        self._drop_prev_route()
+        if (self._resident_keys is not None
+                and self._route_for is self._resident_keys):
+            self._prev_route, self._route_index = self._route_index, None
+        self._drop_route_index()
+        self._route_index = host_lib.create_route_index(self._pass_keys)
+        self._route_for = self._pass_keys
         self._feed_keys = []
         self._in_feed_pass = False
 
+    def _drop_route_index(self) -> None:
+        host_lib.destroy_route_index(self._route_index)
+        self._route_index = None
+        self._route_for = None
+
+    def _drop_prev_route(self) -> None:
+        host_lib.destroy_route_index(self._prev_route)
+        self._prev_route = None
+
+    def __del__(self) -> None:
+        try:
+            self._drop_route_index()
+            self._drop_prev_route()
+        except Exception:  # an interpreter that is shutting down
+            pass
+
+    @property
+    def route_index(self) -> Optional[int]:
+        """The native route index of the pass key set (an opaque handle),
+        None before the first end_feed_pass."""
+        return self._route_index
+
     def _resident_pos(self, keys: np.ndarray) -> np.ndarray:
-        """[n] int32 resident slab row of each key, -1 where not resident
-        (the reference's sorted fallback, pass_table.py:473-475)."""
+        """[n] int32 resident slab row of each key, -1 where not resident:
+        one probe a key of the ended pass's route index. Where that index
+        was not kept (a second feed pass before this begin_pass), an index
+        of the resident keys is built here."""
         if self._resident_keys is None:
             return np.full(keys.size, -1, np.int32)
-        pos, hit = sorted_member(self._resident_keys, keys)
-        return np.where(hit, pos, -1).astype(np.int32)
+        if self._prev_route is None:
+            self._prev_route = host_lib.create_route_index(
+                self._resident_keys)
+        return host_lib.route_lookup_serve(self._prev_route, keys, -1)
 
     def _promote_missing_rows(self, missing_keys: np.ndarray) -> np.ndarray:
         """Host rows of the sorted keys a delta promote brings in: the rows
@@ -269,6 +342,7 @@ class PassTable:
                     rows = self.store.lookup_or_create(keys)
                 slab[:n].copy_(torch.from_numpy(rows))
             self._slab = slab
+        self._drop_prev_route()
         self._resident_keys = None
         self._staged = None
         self._touch_seen = False
@@ -333,15 +407,18 @@ class PassTable:
             self._slab = None
         self._resident_keys = None
         self._staged = None
+        self._drop_prev_route()
 
     # ------------------------------------------------- preload promote hooks
     def promote_prefetch_ctx(self) -> Optional[
-            Tuple[Callable[[np.ndarray], np.ndarray], HostEmbeddingStore,
+            Tuple[Callable[[np.ndarray], np.ndarray], object,
                   threading.Lock]]:
         """(known_fn, store, lock) for train.preload.PromotePrefetcher, or
         None when the prefetch cannot run (a flag off, or no pass key set to
         diff against). known_fn marks the keys of this pass's set: the set
-        that will be resident when the next begin_pass diffs."""
+        that will be resident when the next begin_pass diffs. It reads a
+        numpy snapshot of the set, never the route index, which the main
+        thread may drop while the prefetcher runs."""
         if (not self.flags.incremental_pass
                 or not self.flags.preload_promote
                 or self._pass_keys is None or self._pass_keys.size == 0):
@@ -374,24 +451,13 @@ class PassTable:
 
     def lookup_ids(self, keys: np.ndarray,
                    valid: Optional[np.ndarray] = None) -> np.ndarray:
-        """Feasign keys -> int32 pass-local ids; positions where ``valid``
-        is False map to the trash row. Unregistered keys raise. Marks the
-        ids' rows touched."""
-        keys = np.asarray(keys, dtype=np.uint64)
+        """Feasign keys -> int32 pass-local ids by the route index;
+        positions where ``valid`` is False map to the trash row.
+        Unregistered keys raise KeyError. Marks the ids' rows touched."""
         if self._pass_keys is None:
             raise RuntimeError("no active pass key set")
-        n = self._pass_keys.size
-        ids = np.minimum(np.searchsorted(self._pass_keys, keys),
-                         max(n - 1, 0))
-        hit = (self._pass_keys[ids] == keys if n
-               else np.zeros(keys.shape, bool))
-        if valid is not None:
-            ids = np.where(valid, ids, self.padding_id)
-            hit = hit | ~valid
-        if not hit.all():
-            raise KeyError("keys not registered in feed pass (first few: "
-                           "%s)" % keys[~hit][:5])
-        ids = ids.astype(np.int32)
+        ids = host_lib.route_lookup(self._route_index, keys, valid,
+                                    self.padding_id)
         self.note_touched(ids)
         return ids
 

@@ -1,4 +1,5 @@
-"""``--tree DIR`` for the probes run by path (push_probe.py, copy_probe.py).
+"""``--tree DIR`` for the probes run by path (push_probe.py, copy_probe.py,
+cadence_probe.py).
 
     python3 paddlebox_tpu_torch/<probe>.py [--tree DIR]
 

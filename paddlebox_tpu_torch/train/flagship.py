@@ -8,7 +8,9 @@ files (4 files x 4096 lines = 16 batches a pass, 20,000 ids a slot,
 seed 0). chip_smoke.py drives its main path from here,
 profile_pass.py profiles the same pass, and rate_probe.py gathers at the
 pull's shape from one of its batches (``first_batch_ids``); a smaller
-configuration is a ``dataclasses.replace`` of ``FLAGSHIP``.
+configuration is a ``dataclasses.replace`` of ``FLAGSHIP``. The
+datasets and the trainer take the defaults, so all of them run on the
+native host tier (the columnar dataset, the C++ store, the route index).
 
 The incremental cadence (``write_cadence``): twice the files from the same
 seed, of which the first ``num_files`` are the main path's, byte for byte,
@@ -35,6 +37,8 @@ from paddlebox_tpu_torch.config.flags import PassFlags, PushFlags
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.generator import write_synthetic_ctr_files
 from paddlebox_tpu_torch.device import DeviceLike
+from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+from paddlebox_tpu_torch.embedding.host_store import HostEmbeddingStore
 from paddlebox_tpu_torch.models.base import ModelSpec
 from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.train.trainer import BoxTrainer
@@ -95,9 +99,8 @@ def _load(files: List[str], feed: DataFeedConfig
     """(dataset loaded from ``files``, its sorted unique keys)."""
     ds = BoxDataset(feed)
     ds.set_filelist(files)
-    keys: List[np.ndarray] = []
-    ds.load_into_memory(add_keys_fn=keys.append)
-    return ds, np.unique(np.concatenate(keys))
+    ds.load_into_memory()
+    return ds, np.unique(ds.all_keys())
 
 
 def sorted_pass_keys(files: List[str], feed: DataFeedConfig) -> np.ndarray:
@@ -120,10 +123,16 @@ def first_batch_ids(files: List[str], feed: DataFeedConfig,
 def build_trainer(files: List[str], feed: DataFeedConfig,
                   cfg: Flagship = FLAGSHIP, push_write: str = "scatter",
                   device: DeviceLike = None, seed: int = 0,
-                  pass_flags: PassFlags = PassFlags()
+                  pass_flags: PassFlags = PassFlags(),
+                  plain_host: bool = False
                   ) -> Tuple[BoxTrainer, BoxDataset]:
     """(trainer with an 'auc' metric, dataset over ``files``): DeepFM with
-    weights from ``seed``, ready for ``trainer.train_pass(dataset)``."""
+    weights from ``seed``, ready for ``trainer.train_pass(dataset)``.
+
+    The host tier is the native one (the columnar dataset, the C++ store,
+    the route index); ``plain_host`` puts the dataset on the record path
+    and the table on the Python store, the plain versions the native run
+    is held bit-equal to."""
     model = DeepFM(ModelSpec(num_slots=cfg.num_slots,
                              slot_dim=3 + cfg.embedx),
                    hidden=cfg.hidden,
@@ -131,8 +140,11 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
     trainer = BoxTrainer(model, cfg.table(), feed,
                          TrainerConfig(dense_lr=DENSE_LR), seed=seed,
                          flags=PushFlags(push_write, BLOCK_ROWS),
-                         device=device, pass_flags=pass_flags)
+                         device=device, pass_flags=pass_flags,
+                         store=(HostEmbeddingStore(ValueLayout(cfg.embedx),
+                                                   cfg.table(), seed)
+                                if plain_host else None))
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
-    ds = BoxDataset(feed)
+    ds = BoxDataset(feed, columnar=not plain_host)
     ds.set_filelist(files)
     return trainer, ds

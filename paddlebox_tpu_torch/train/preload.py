@@ -14,8 +14,10 @@ pass trains. It never creates a key: new keys are created at the pass
 boundary by one sorted lookup_or_create, so the creation draws, and with
 them every bit, match the full path.
 
-Both threads run Python (parsing, numpy diffs) beside the main thread's
-staging, so the interpreter lock bounds what the overlap can hide.
+The reader's parse is one native call a file on the default (columnar)
+dataset, which releases the interpreter lock; the prefetcher's numpy diffs
+and the record path's parsing run Python beside the main thread's staging,
+so the interpreter lock bounds what they can hide.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ class PromotePrefetcher:
         self._seen = np.empty(0, np.uint64)
         self._keys: List[np.ndarray] = []
         self._rows: List[np.ndarray] = []
-        self._err: Optional[Exception] = None
+        self._err: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="promote-prefetch")
         self._thread.start()
@@ -89,7 +91,7 @@ class PromotePrefetcher:
                 if found.any():
                     self._keys.append(cand[found])
                     self._rows.append(rows[found])
-        except Exception as e:  # raised again by finish()
+        except BaseException as e:  # raised again by finish()
             self._err = e
 
     def finish(self) -> Tuple[np.ndarray, np.ndarray]:

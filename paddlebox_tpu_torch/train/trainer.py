@@ -111,7 +111,10 @@ class BoxTrainer:
                  seed: int = 0,
                  flags: Optional[PushFlags] = None,
                  device: DeviceLike = None,
-                 pass_flags: Optional[PassFlags] = None) -> None:
+                 pass_flags: Optional[PassFlags] = None,
+                 store=None) -> None:
+        """``store``: the table's host store (PassTable's default, the
+        native one, when None)."""
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 stays f32: no TF32 in matmuls or convolutions
@@ -121,7 +124,7 @@ class BoxTrainer:
         self.flags = flags or PushFlags()
         self.feed = feed
         self.table = PassTable(table_cfg, seed=seed, device=self.device,
-                               flags=pass_flags)
+                               flags=pass_flags, store=store)
         self.model = model.to(self.device)
         self.metrics = MetricRegistry()
         self.num_slots = len(feed.used_sparse_slots())

@@ -1,5 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor any module of
-the JAX package, and no source of the port (nor chip_smoke.py) names them."""
+the JAX package, no source of the port (nor chip_smoke.py) names them, and
+the C++ it runs is compiled from the port's own copies in
+paddlebox_tpu_torch/native/."""
 
 import ast
 import json
@@ -30,7 +32,9 @@ def test_import_loads_no_jax_and_no_reference_module():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "paddlebox_tpu_torch.train.trainer" in loaded
+    for m in ("train.trainer", "native.host_lib", "data.columnar",
+              "data.native_parser", "embedding.native_store"):
+        assert "paddlebox_tpu_torch." + m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 
@@ -62,3 +66,39 @@ def test_source_imports_nothing_of_jax(path):
                 str(node.args[0].value)):
             bad.append(node.args[0].value)
     assert not bad, bad
+
+
+def test_host_library_builds_from_the_ports_own_sources(tmp_path,
+                                                       monkeypatch):
+    """The host library's compile command names exactly the port's copies
+    of the three sources, each of which says what it copies; its file name
+    follows the sources."""
+    from paddlebox_tpu_torch.native import host_lib
+
+    native = os.path.join(PKG, "native")
+    assert host_lib.SRC_DIR == native
+    for name in host_lib.SOURCES:
+        with open(os.path.join(native, name), encoding="utf-8") as fh:
+            assert fh.readline().startswith(
+                "// Copy of paddlebox_tpu/native/%s" % name)
+    assert sorted(n for n in os.listdir(native) if n.endswith(".cc")) == \
+        sorted(host_lib.SOURCES)
+    cmds = []
+
+    def run(cmd, **kw):
+        cmds.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        return subprocess.CompletedProcess(cmd, 0, "")
+
+    monkeypatch.setattr(host_lib.subprocess, "run", run)
+    path = host_lib.build_host_lib(build_dir=str(tmp_path))
+    assert os.path.exists(path) and len(cmds) == 1
+    sources = [a for a in cmds[0] if a.endswith(".cc")]
+    assert sources == [os.path.join(native, n) for n in host_lib.SOURCES]
+    assert cmds[0][0] == "g++" and all(
+        f in cmds[0] for f in ("-O3", "-shared", "-fPIC", "-std=c++17"))
+    # built once: the next call finds the library
+    assert host_lib.build_host_lib(build_dir=str(tmp_path)) == path
+    assert len(cmds) == 1
+    monkeypatch.setattr(host_lib, "CXX", "clang++")
+    assert host_lib.lib_path(str(tmp_path)) != path

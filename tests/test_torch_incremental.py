@@ -57,13 +57,17 @@ from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.embedding import accessor as acc
 from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 from paddlebox_tpu_torch.embedding.host_store import HostEmbeddingStore
+from paddlebox_tpu_torch.embedding.native_store import \
+    NativeHostEmbeddingStore
 from paddlebox_tpu_torch.embedding.optimizers import push_sparse_hostdedup
 from paddlebox_tpu_torch.embedding.pass_table import (PassTable,
                                                       delta_promote,
+                                                      lookup_ids_plain,
                                                       segment_offsets,
                                                       sorted_member)
 from paddlebox_tpu_torch.models.base import ModelSpec
 from paddlebox_tpu_torch.models.deepfm import DeepFM
+from paddlebox_tpu_torch.native import host_lib
 from paddlebox_tpu_torch.ops import row_kernels as rk
 from paddlebox_tpu_torch.train import flagship
 from paddlebox_tpu_torch.train.preload import (PassPreloader,
@@ -456,8 +460,15 @@ def cadence_files(tmp_path_factory):
     return cfg, windows, feed
 
 
+NATIVE_TIER = {"dataset": "columnar", "store": "NativeHostEmbeddingStore"}
+
+
 def _cadence_run(cfg, windows, feed, mode):
     t, run = cadence_probe.run_cadence(mode, windows, feed, cfg, "cpu")
+    # every mode runs on the native host tier, the route index included
+    assert run["host_tier"] == NATIVE_TIER
+    assert isinstance(t.table.store, NativeHostEmbeddingStore)
+    assert t.table.route_index is not None
     passes = run["passes"]
     counters = {k: sum(p["counters"][k] for p in passes)
                 for k in t.table.counters}
@@ -489,6 +500,30 @@ def test_cadence_matches_full_rebuild(cadence_files, mode):
     for p in got[4]:
         assert p["table_s"]["begin_pass"] > 0 and p["gc_s"] >= 0
         assert p["examples_per_s"] > 0
+
+
+def test_cadence_native_tier_matches_plain_tier(cadence_files):
+    """The cadence's sequential incremental mode (b) on the native host
+    tier against the same passes on the plain tier (the record-path
+    dataset, the Python store): losses, AUC, store and counters
+    bit-identical."""
+    cfg, windows, feed = cadence_files
+    got = _cadence_run(cfg, windows, feed, "b")
+    trainer, _ = flagship.build_trainer(windows[0], feed, cfg, "scatter",
+                                        "cpu", plain_host=True)
+    assert type(trainer.table.store) is HostEmbeddingStore
+    want = []
+    for files in windows:
+        ds = BoxDataset(feed, columnar=False)
+        ds.set_filelist(files)
+        res = trainer.train_pass(ds)
+        want.append((res["loss"], trainer.metrics.get_metric_msg("auc")[
+            "auc"]))
+    assert got[0] == want
+    k, v = sorted_items(trainer.table.store)
+    np.testing.assert_array_equal(got[2][0], k)
+    assert_bits_equal(got[2][1], v)
+    assert got[3] == trainer.table.counters
 
 
 def test_cadence_probe_order_is_balanced():
@@ -544,12 +579,14 @@ def test_preloader_guards(window_data):
     assert len(ds1) == 192 and tr.table.pass_size > 0
     tr.table.begin_pass()
     tr.table.end_pass()
-    # a reader error is raised at the wait, and the preloader resets
+    # a reader error is raised at the wait, from its cause, and the
+    # preloader resets
     bad = BoxDataset(pfeed)
     bad.set_filelist([windows[0][0], windows[0][0] + ".missing"])
     pre.preload(bad)
-    with pytest.raises(FileNotFoundError):
+    with pytest.raises(RuntimeError, match="dataset load failed") as err:
         pre.wait(bad)
+    assert isinstance(err.value.__cause__, FileNotFoundError)
     pre.preload(ds2)
     pre.wait(ds2)
     assert len(ds2) == 192
@@ -564,6 +601,140 @@ def test_prefetcher_error_surfaces_at_finish():
     pre.feed(np.uint64([1, 2, 3]))
     with pytest.raises(ValueError, match="known_fn failed"):
         pre.finish()
+
+
+def test_prefetcher_system_exit_surfaces_at_finish():
+    """A non-Exception error in the prefetcher is kept and raised at
+    finish(), not lost with the thread."""
+    def known(keys):
+        raise SystemExit(3)
+
+    pre = PromotePrefetcher(known, HostEmbeddingStore(ValueLayout(D),
+                                                      table_cfg()),
+                            threading.Lock())
+    pre.feed(np.uint64([1, 2, 3]))
+    with pytest.raises(SystemExit):
+        pre.finish()
+
+
+@pytest.mark.parametrize("columnar", [True, False])
+def test_reader_system_exit_fails_the_load(window_data, columnar,
+                                           monkeypatch):
+    """A parser that raises SystemExit partway through the second file: the
+    load raises RuntimeError("dataset load failed") from it at
+    wait_preload_done, on either path, and does not hand back a truncated
+    dataset."""
+    windows, _, pfeed = window_data
+    ds = BoxDataset(pfeed, columnar=columnar)
+    ds.set_filelist(windows[0])
+    second = windows[0][1]
+    if columnar:
+        parse = ds.parser.parse_file_columnar
+
+        def failing(path):
+            if path == second:
+                raise SystemExit("parser exit")
+            return parse(path)
+
+        monkeypatch.setattr(ds.parser, "parse_file_columnar", failing)
+    else:
+        parse = ds.parser.parse_file
+
+        def failing(path):
+            for i, rec in enumerate(parse(path)):
+                if path == second and i == 40:
+                    raise SystemExit("parser exit")
+                yield rec
+
+        monkeypatch.setattr(ds.parser, "parse_file", failing)
+    keys = []
+    ds.preload_into_memory(add_keys_fn=keys.append)
+    with pytest.raises(RuntimeError, match="dataset load failed") as err:
+        ds.wait_preload_done()
+    assert isinstance(err.value.__cause__, SystemExit)
+    with pytest.raises(RuntimeError, match="dataset load failed"):
+        ds.load_into_memory()
+    # the reader is joined: a new load may start
+    monkeypatch.undo()
+    ds.load_into_memory()
+    assert len(ds) == 192
+
+
+def _fed(t, keys):
+    t.begin_feed_pass()
+    t.add_keys(keys)
+    t.end_feed_pass()
+
+
+def test_route_index_lifetime():
+    """The route index of an ended pass is kept across the feed boundary
+    for the next begin_pass's diff and dropped there; invalidate_residency
+    drops it; a second feed pass before begin_pass rebuilds one of the
+    resident keys; lookup_ids reads the index, equal to searchsorted."""
+    passes = make_passes(np.random.RandomState(12), 4)
+    ref = run_table(passes, FULL, "plain")
+    t = PassTable(table_cfg(), seed=11, device="cpu")
+    assert t.route_index is None
+    _fed(t, passes[0])
+    first = t.route_index
+    assert first is not None and t._prev_route is None
+    t.begin_pass()
+    _push(t, np.concatenate([passes[0][:passes[0].size // 2],
+                             passes[0][:7]]), 0)
+    t.end_pass()
+    _fed(t, passes[1])
+    assert t._prev_route == first and t.route_index not in (None, first)
+    t.begin_pass()
+    assert t._prev_route is None
+    assert t.counters["pass_rows_promote_hit"] == np.isin(
+        passes[1], passes[0]).sum()
+    _push(t, np.concatenate([passes[1][:passes[1].size // 2],
+                             passes[1][:7]]), 1)
+    t.end_pass()
+    # an invalidation drops the kept index; the next pass builds in full
+    _fed(t, passes[2])
+    assert t._prev_route is not None
+    t.invalidate_residency()
+    assert t._prev_route is None
+    hits = t.counters["pass_rows_promote_hit"]
+    t.begin_pass()
+    assert t.counters["pass_rows_promote_hit"] == hits
+    assert_bits_equal(t.slab.numpy(), ref[2][0])
+    _push(t, np.concatenate([passes[2][:passes[2].size // 2],
+                             passes[2][:7]]), 2)
+    t.end_pass()
+    # two feed passes before a begin_pass: the kept index was dropped, and
+    # the diff builds one of the resident keys
+    _fed(t, passes[3])
+    _fed(t, passes[3])
+    assert t._prev_route is None
+    t.begin_pass()
+    assert t.counters["pass_rows_promote_hit"] - hits == np.isin(
+        passes[3], passes[2]).sum()
+    assert_bits_equal(t.slab.numpy(), ref[3][0])
+    q = passes[3][np.random.RandomState(1).randint(0, passes[3].size, 500)]
+    valid = np.arange(q.size) % 5 != 0
+    np.testing.assert_array_equal(
+        t.lookup_ids(q, valid), lookup_ids_plain(passes[3], q, valid,
+                                                  t.padding_id))
+    t.end_pass()
+
+
+def test_prefetcher_never_touches_the_route_index(cadence_files,
+                                                  monkeypatch):
+    """Mode (a), preloaded with the prefetcher: every route index call is
+    made on the main thread (the prefetcher diffs a numpy snapshot)."""
+    cfg, windows, feed = cadence_files
+    threads = []
+    for name in ("create_route_index", "destroy_route_index",
+                 "route_lookup", "route_lookup_serve"):
+        def spy(*a, _fn=getattr(host_lib, name), **k):
+            threads.append(threading.current_thread())
+            return _fn(*a, **k)
+        monkeypatch.setattr(host_lib, name, spy)
+    got = _cadence_run(cfg, windows, feed, "a")
+    assert got[3]["pass_rows_promote_prefetched"] > 0
+    assert threads and set(threads) == {threading.main_thread()}
 
 
 def test_prefetcher_reads_under_the_lock_while_the_store_grows():
