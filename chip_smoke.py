@@ -58,10 +58,27 @@ Phases, each of which raises on a failed check (exit code != 0):
      table's counters equal to the key sets' overlaps (and to the
      flagship's numbers), and the launches, all on the native host tier;
      per pass and mode the phase seconds and examples/s;
-  7. the blocked mode: one pass of 4 batches with push_write='blocked' and
+  7. the day at full width (train/checkpoint.py): the main path's two
+     passes again (digits checked), then a test pass
+     (BoxTrainer.predict_batches) over the cadence's third window, 16,384
+     instances: the host store bit-identical before and after, gather_rows
+     launched 1 + 16 times (the promote of the resident slab and the
+     pulls), no push, and its AUC held to TEST_PASS_DIGITS; then run_day
+     over the cadence's three windows with a delta save after each pass
+     (three deltas, the base, end_day(age=False)), whose first pass builds
+     in full (the test pass left nothing resident); load_base into a fresh
+     trainer: store and dense state bit-equal to the base's snapshot; the
+     xbox base and deltas read back (view files and XboxModelReader)
+     bit-equal to the snapshot rows each covers; resume equals continue:
+     one more pass from the loaded trainer (after the day boundary's stat
+     rewrite and shrink, replayed) and from the trainer that saved give
+     bit-identical losses, AUC and stores; the seconds of save_base (the
+     caller's part and the writer), save_delta, load_base and end_day, the
+     rows the shrink deleted and the base's bytes, beside the card line;
+  8. the blocked mode: one pass of 4 batches with push_write='blocked' and
      one with 'scatter' from the same seed give bit-identical rows, and
      push_adagrad and blocked_write each launched once a step;
-  8. the rate probe (paddlebox_tpu_torch/rate_probe.py): its cases on the
+  9. the rate probe (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
      GB/s and the share of 3.35 TB/s; scale_copy and gather_rows launched
      in it. Its 64 MiB scale and its pull-shape gather are those two
@@ -521,6 +538,10 @@ def small_parity_phase(torch, tmp):
 FLAGSHIP_DIGITS = {"loss": ("0.6866484880", "0.5655780435"),
                    "auc": ("0.4971680564", "0.7351465576")}
 
+# the test pass's AUC (the day phase: the main path's two passes, then
+# predict_batches over the cadence's third window), "%.10f"
+TEST_PASS_DIGITS = "0.5307661885"
+
 # the flagship cadence's data at seed 0 (train/flagship.py write_cadence):
 # each pass's key count, and for passes 1 and 2 the keys resident from the
 # pass before, the new rows, and of those the rows the host store holds
@@ -715,6 +736,278 @@ def cadence_phase(torch, cfg, feed, windows, keys, reset_counts, counts):
     return out
 
 
+def dir_bytes(path):
+    """Bytes of the files under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, names in os.walk(path) for f in names)
+
+
+def xbox_cols(values, layout):
+    """The [embed_w, embedx] columns of store rows: an xbox view's rows."""
+    import numpy as np
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    D = layout.embedx_dim
+    return np.concatenate([values[:, acc.EMBED_W:acc.EMBED_W + 1],
+                           values[:, layout.embedx_w:layout.embedx_w + D]],
+                          axis=1)
+
+
+def bits_equal(a, b):
+    import numpy as np
+    return a.shape == b.shape and np.array_equal(
+        np.ascontiguousarray(a).view(np.uint32),
+        np.ascontiguousarray(b).view(np.uint32))
+
+
+def eval_phase(torch, trainer, files, feed, reset_counts, counts):
+    """Phase 7, the test pass over ``files`` after the trainer's train
+    passes: store unchanged, 1 + batches gather_rows launches, no push.
+    Returns its record."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.metrics.auc import MetricRegistry
+
+    ds = BoxDataset(feed)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    n_batches = len(ds.split_batches(1)[0])
+    keys = np.unique(ds.all_keys())
+    resident = trainer.table.pass_keys
+    before = sorted_store(trainer.table)
+    c0 = dict(trainer.table.counters)
+    reset_counts()
+    t0 = time.perf_counter()
+    preds, labels = trainer.predict_batches(ds)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = counts()
+    rows = counter_delta(c0, trainer.table)
+    after = sorted_store(trainer.table)
+    check(np.array_equal(after[0], before[0])
+          and bits_equal(after[1], before[1]),
+          "the test pass changed the host store")
+    check(launches == {"push_adagrad": 0, "blocked_write": 0,
+                       "scale_copy": 0, "gather_rows": 1 + n_batches},
+          "test pass launches %s over %d batches" % (launches, n_batches))
+    hit = int(np.isin(keys, resident).sum())
+    check(rows["pass_rows_promote_hit"] == hit
+          and rows["pass_rows_promote_new"] == keys.size - hit
+          and rows["pass_rows_written_back"] == 0,
+          "test pass counters %s, %d keys, %d resident"
+          % (rows, keys.size, hit))
+    check(preds.shape == labels.shape == (len(ds),)
+          and bool(np.isfinite(preds).all()),
+          "test pass preds %s labels %s" % (preds.shape, labels.shape))
+    m = MetricRegistry()
+    m.init_metric("auc", "label", "pred", table_size=1 << 20)
+    m.add_batch({"label": labels, "pred": preds})
+    auc = m.get_metric_msg("auc")["auc"]
+    rec = {"instances": len(ds), "batches": n_batches, "keys": int(keys.size),
+           "resident": hit, "auc": auc, "seconds": secs,
+           "examples_per_s": len(ds) / secs, "launches": launches,
+           "counters": rows}
+    log("test pass: auc %.10f %s" % (auc, json.dumps(rec)))
+    if TEST_PASS_DIGITS is not None:
+        check("%.10f" % auc == TEST_PASS_DIGITS, "test pass AUC %.10f, "
+              "expected %s" % (auc, TEST_PASS_DIGITS))
+    return rec
+
+
+def day_phase(torch, cfg, feed, windows, tmp, passes, reset_counts, counts):
+    """Phase 7, the day: the main path's two passes (their records
+    ``passes`` to match), the test pass, run_day, load_base, the xbox
+    read-back and resume equals continue. Returns its record."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.config.configs import CheckpointConfig
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    from paddlebox_tpu_torch.embedding import ckpt_store as cks
+    from paddlebox_tpu_torch.embedding.native_store import \
+        NativeHostEmbeddingStore
+    from paddlebox_tpu_torch.serving.store import read_xbox_view
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                      XboxModelReader,
+                                                      run_day)
+
+    trainer, ds = flagship.build_trainer(windows[0], feed, cfg, "scatter",
+                                         "cuda")
+    again = two_passes(torch, trainer, ds)
+    check([(p["loss"], p["auc"]) for p in again]
+          == [(p["loss"], p["auc"]) for p in passes],
+          "the day's train passes differ from the main path's")
+    del ds
+    test = eval_phase(torch, trainer, windows[2], feed, reset_counts,
+                      counts)
+
+    # --- the day, each save's store snapshot kept to hold the files to
+    table = trainer.table
+    tcfg = table.config
+    root = os.path.join(tmp, "day")
+    ckpt = CheckpointConfig(batch_model_dir=os.path.join(root, "batch"),
+                            xbox_model_dir=os.path.join(root, "xbox"),
+                            save_delta_every_passes=1, async_save=True)
+    cm = CheckpointManager(ckpt, table)
+    snaps = {"deltas": [], "counters": []}
+    real_delta, real_base = cm.save_delta, cm.save_base
+    c_prev = [dict(table.counters)]
+
+    def save_delta(day, delta_id):
+        snaps["counters"].append(counter_delta(c_prev[0], table))
+        c_prev[0] = dict(table.counters)
+        snaps["deltas"].append((delta_id, sorted_store(table)))
+        return real_delta(day, delta_id)
+
+    def save_base(params, opt_state, day, **kw):
+        snaps["base"] = sorted_store(table)
+        snaps["dense"] = (params, opt_state)
+        return real_base(params, opt_state, day, **kw)
+
+    real_end_day = table.end_day
+    end_day_rec = {}
+
+    def end_day(age=True):
+        t0 = time.perf_counter()
+        deleted = real_end_day(age)
+        end_day_rec.update(s=time.perf_counter() - t0, deleted=deleted)
+        return deleted
+
+    cm.save_delta, cm.save_base = save_delta, save_base
+    table.end_day = end_day
+    datasets = []
+    for files in windows:
+        datasets.append(BoxDataset(feed))
+        datasets[-1].set_filelist(files)
+    reset_counts()
+    t0 = time.perf_counter()
+    stats, dirs = run_day(trainer, datasets, cm, "day0")
+    day_s = time.perf_counter() - t0
+    day_launches = counts()
+    steps = sum(s["batches"] for s in stats)
+    check(len(stats) == 3 and len(snaps["deltas"]) == 3,
+          "run_day ran %d passes, %d delta saves"
+          % (len(stats), len(snaps["deltas"])))
+    # every pass builds in full: the test pass left nothing resident, and
+    # each delta save's stat rewrite drops the residency
+    for i, rows in enumerate(snaps["counters"]):
+        check(rows["pass_rows_promote_hit"] == 0
+              and rows["pass_rows_promote_new"] == 0
+              and rows["pass_rows_written_back"] > 0,
+              "run_day pass %d counters %s: not a full build" % (i, rows))
+    check(day_launches["push_adagrad"] == steps
+          and day_launches["gather_rows"] == steps + len(stats)
+          and day_launches["blocked_write"] == 0
+          and day_launches["scale_copy"] == 0,
+          "run_day launches %s over %d steps" % (day_launches, steps))
+    base_k, base_v = snaps["base"]
+    deleted = end_day_rec["deleted"]
+    check(deleted == int(base_k.size) - len(table.store),
+          "end_day deleted %d rows, the store lost %d"
+          % (deleted, int(base_k.size) - len(table.store)))
+
+    # --- load_base into a fresh trainer
+    fresh, _ = flagship.build_trainer(windows[0], feed, cfg, "scatter",
+                                      "cuda", seed=1)
+    cm2 = CheckpointManager(ckpt, fresh.table)
+    params, opt_state, _ = cm2.load_base("day0")
+    fresh.restore_dense(params, opt_state)
+    k, v = sorted_store(fresh.table)
+    check(np.array_equal(k, base_k) and bits_equal(v, base_v),
+          "load_base: the store differs from the base's snapshot")
+    # load_base's parts again, each timed: dense.pkl, the sparse tier's
+    # read, the C++ store's install
+    split = {}
+    t0 = time.perf_counter()
+    with open(os.path.join(dirs[0], "dense.pkl"), "rb") as f:
+        cks.safe_load(f)
+    split["dense_read"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blob = cks.load_sparse_any(os.path.join(dirs[0], "sparse.xman"))
+    split["sparse_read"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    NativeHostEmbeddingStore(table.layout, tcfg).load_blob(blob)
+    split["store_install"] = time.perf_counter() - t0
+    del blob
+    want_p, want_o = snaps["dense"]
+    got_p, got_o = fresh.params, fresh.opt_state
+    check(all(bits_equal(got_p[n], want_p[n]) for n in want_p)
+          and got_o["count"] == want_o["count"]
+          and all(bits_equal(got_o[m][n], want_o[m][n])
+                  for m in ("mu", "nu") for n in want_o[m]),
+          "load_base: the dense state differs from the saved one")
+
+    # --- the xbox views against the snapshot rows each covers
+    layout = table.layout
+    xbox_day = os.path.join(ckpt.xbox_model_dir, "day0")
+    covered = {}
+    for delta_id, (dk, dv) in snaps["deltas"]:
+        keep = dv[:, acc.DELTA_SCORE] >= tcfg.delta_threshold
+        vk, vrows = read_xbox_view(os.path.join(xbox_day,
+                                                "delta-%d" % delta_id))
+        check(np.array_equal(vk, dk[keep])
+              and bits_equal(vrows, xbox_cols(dv[keep], layout)),
+              "xbox delta-%d differs from its snapshot" % delta_id)
+        covered["delta-%d" % delta_id] = int(keep.sum())
+    vk, vrows = read_xbox_view(xbox_day)
+    want_rows = xbox_cols(base_v, layout)
+    check(np.array_equal(vk, base_k) and bits_equal(vrows, want_rows),
+          "xbox base differs from the base's snapshot")
+    reader = XboxModelReader(ckpt.xbox_model_dir, "day0")
+    check(reader.deltas_applied == 3 and len(reader) == base_k.size
+          and bits_equal(reader.lookup(base_k), want_rows),
+          "XboxModelReader's composed view differs from the base")
+    covered["base"] = int(base_k.size)
+
+    # --- resume equals continue: the loaded trainer replays the day's
+    # boundary (the stat rewrite after the base save, then the shrink),
+    # both restart their random streams and metrics, and train one pass
+    with fresh.table.store_lock:
+        fresh.table.store.update_stat_after_save(tcfg, 1)
+        fresh.table.store.update_stat_after_save(tcfg, 3)
+    fresh.table.end_day(age=False)
+    k, v = sorted_store(fresh.table)
+    live = sorted_store(table)
+    check(np.array_equal(k, live[0]) and bits_equal(v, live[1]),
+          "the replayed day boundary differs from the saver's store")
+    resumed = []
+    for t in (trainer, fresh):
+        t.reseed(7)
+        t.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
+        d = BoxDataset(feed)
+        d.set_filelist(windows[0])
+        res, auc, _ = run_pass(torch, t, d)
+        resumed.append((res["loss"], auc, sorted_store(t.table)))
+    (la, aa, (ka, va)), (lb, ab, (kb, vb)) = resumed
+    check(la == lb and aa == ab and np.array_equal(ka, kb)
+          and bits_equal(va, vb),
+          "resume %r %r differs from continue %r %r" % (lb, ab, la, aa))
+
+    rec = {"test_pass": test, "day_passes": [
+               {"loss": s["loss"], "batches": s["batches"],
+                "instances": s["instances"]} for s in stats],
+           "day_s": day_s, "launches": day_launches,
+           "save_base_s": cm.seconds["save_base"],
+           "save_base_writer_s": cm.seconds["save_base_writer"],
+           "save_delta_s": cm.seconds["save_delta"],
+           "save_delta_writer_s": cm.seconds["save_delta_writer"],
+           "load_base_s": cm2.seconds["load_base"],
+           "load_base_again_s": split, "end_day_s": end_day_rec["s"],
+           "rows_deleted": deleted, "rows_saved": int(base_k.size),
+           "view_rows": covered,
+           "base_bytes": dir_bytes(dirs[0]),
+           "xbox_base_bytes": os.path.getsize(
+               os.path.join(xbox_day, "view.xcol")),
+           "resume": {"loss": la, "auc": aa, "rows": int(ka.size)}}
+    log("day: %s" % json.dumps(rec))
+    log("day: %d delta views and the base bit-equal to their snapshots, "
+        "the loaded base bit-equal, resume equals continue (loss %r auc "
+        "%r); %s" % (len(snaps["deltas"]), la, aa, card_line()))
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -831,7 +1124,11 @@ def main() -> int:
         cadence = cadence_phase(torch, cfg, feed, windows, keys,
                                 reset_counts, counts)
 
-        # 7. blocked mode vs scatter, same seed, bit-identical rows
+        # 7. the day: test pass, run_day, load_base, xbox, resume
+        day = day_phase(torch, cfg, feed, windows, tmp, passes,
+                        reset_counts, counts)
+
+        # 8. blocked mode vs scatter, same seed, bit-identical rows
         rows = {}
         blocked_counts = None
         for mode in ("scatter", "blocked"):
@@ -856,7 +1153,7 @@ def main() -> int:
             % rows["blocked"].shape[0])
         del rows
 
-    # 8. the rate probe
+    # 9. the rate probe
     reset_counts()
     probe = rate_probe.run("cuda")
     probe_counts = counts()
@@ -878,7 +1175,9 @@ def main() -> int:
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
                               **{"cadence_" + m: c["launches"]
-                                 for m, c in cadence.items()}},
+                                 for m, c in cadence.items()},
+                              "test_pass": day["test_pass"]["launches"],
+                              "day": day["launches"]},
                     "passes": passes, "plain_host_passes": plain_passes}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

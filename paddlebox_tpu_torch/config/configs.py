@@ -33,10 +33,18 @@ class SparseOptimizerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TableConfig:
-    """Sparse table shape: embedx width and pass slab rows."""
+    """Sparse table shape (embedx width, pass slab rows) and the day
+    lifecycle's thresholds (CtrCommonAccessor's decay, delete and save
+    rules, ctr_accessor.cc:63-128)."""
 
     embedx_dim: int = 8
     pass_capacity: int = 1 << 20
+    show_click_decay_rate: float = 0.98
+    delete_threshold: float = 0.8
+    delete_after_unseen_days: float = 30.0
+    base_threshold: float = 1.5
+    delta_threshold: float = 0.25
+    delta_keep_days: float = 16.0
     optimizer: SparseOptimizerConfig = dataclasses.field(
         default_factory=SparseOptimizerConfig)
 
@@ -69,6 +77,19 @@ class DataFeedConfig:
         """Static key slots per batch: batch * sum(min(max_len, 16))."""
         per_ins = sum(min(s.max_len, 16) for s in self.used_sparse_slots())
         return max(128, self.batch_size * max(per_ins, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    """Two-tier, pass-cadenced checkpoints (SaveBase/SaveDelta semantics,
+    box_wrapper.cc:1286-1318): where the batch and xbox models go, the
+    delta cadence of run_day, and whether the file writes run on a
+    thread."""
+
+    batch_model_dir: str = "ckpt/batch"
+    xbox_model_dir: str = "ckpt/xbox"
+    save_delta_every_passes: int = 1
+    async_save: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

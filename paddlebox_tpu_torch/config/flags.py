@@ -1,10 +1,12 @@
-"""The switches the port reads: the push write and the pass lifecycle.
+"""The switches the port reads: the push write, the pass lifecycle and the
+checkpoint plane.
 
 The JAX package keeps these in a process-wide flag registry
 (paddlebox_tpu/config/flags.py: ``push_write``, ``push_block_rows``,
-``incremental_pass``, ``preload_promote``). The port passes them as values
-to the trainer and the pass table instead, so two trainers in one process
-can run different modes side by side.
+``incremental_pass``, ``preload_promote``, ``ckpt_*``). The port passes
+them as values to the trainer, the pass table and the checkpoint manager
+instead, so two trainers in one process can run different modes side by
+side.
 """
 
 from __future__ import annotations
@@ -54,3 +56,37 @@ class PassFlags:
 
     incremental_pass: bool = True
     preload_promote: bool = True
+
+
+CKPT_FORMATS = ("columnar", "pickle")
+
+
+@dataclasses.dataclass(frozen=True)
+class CkptFlags:
+    """The checkpoint plane's switches (the JAX package's ckpt_* flags,
+    paddlebox_tpu/config/flags.py:455-500), passed by value to the stores'
+    save, PassTable.save and CheckpointManager.
+
+    ckpt_format: the sparse batch tier as a 'columnar' manifest with
+    ``ckpt_parts`` striped part files, written and read by a pool of
+    ``ckpt_io_threads`` threads (0: one a part, up to the cores and 16), or
+    as one legacy 'pickle'; either loads whatever this says.
+    ckpt_xbox_columnar: xbox views as the serving columnar file
+    (view.xcol), else the legacy embedding.pkl. ckpt_journal: the
+    touched-row journal, which the port does not have yet."""
+
+    ckpt_format: str = "columnar"
+    ckpt_parts: int = 8
+    ckpt_io_threads: int = 0
+    ckpt_xbox_columnar: bool = True
+    ckpt_journal: bool = False
+
+    def __post_init__(self):
+        if self.ckpt_format not in CKPT_FORMATS:
+            raise ValueError("ckpt_format must be one of %s, got %r"
+                             % (CKPT_FORMATS, self.ckpt_format))
+        if self.ckpt_journal:
+            raise NotImplementedError(
+                "ckpt_journal: the touched-row journal and "
+                "save_base(mode='touched') are not ported yet (ROADMAP.md "
+                "A4, the journal follow-up)")

@@ -1,10 +1,14 @@
-"""Carry dense weights between the JAX package and the port.
+"""Carry dense weights and the dense Adam state between the JAX package and
+the port.
 
 JAX models keep params as a flat dict of arrays; the port's modules register
 parameters under the same names (DeepFM: deep_w{i} [din, dout], deep_b{i},
 fm_out_w [3], fm_out_b []), so a conversion is a dtype/ownership copy by
 name. Slab and host-store rows are numpy f32 in both packages and go across
-as they are; the dense Adam state starts at zero in both.
+as they are. The dense Adam state crosses as numpy under optax's names:
+``{"mu": {name: array}, "nu": {name: array}, "count": int}``, where the
+port's torch.optim.Adam keeps ``exp_avg``, ``exp_avg_sq`` and ``step`` per
+parameter; both start at zero with count 0.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+AdamState = Dict[str, object]
 
 
 def params_from_jax(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -26,3 +32,66 @@ def params_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     """The model's parameters by JAX name, as float32 numpy arrays."""
     return {name: p.detach().cpu().numpy().astype(np.float32)
             for name, p in model.named_parameters()}
+
+
+def adam_state_to_numpy(model: torch.nn.Module,
+                        opt: torch.optim.Optimizer) -> AdamState:
+    """The Adam state of ``model``'s parameters under optax's names, as
+    numpy: zeros and count 0 before the first step, as optax.adam's init
+    gives them."""
+    mu, nu, count = {}, {}, 0
+    for name, p in model.named_parameters():
+        st = opt.state.get(p)
+        if st:
+            mu[name] = st["exp_avg"].detach().cpu().numpy().copy()
+            nu[name] = st["exp_avg_sq"].detach().cpu().numpy().copy()
+            count = int(st["step"])
+        else:
+            mu[name] = np.zeros(tuple(p.shape), np.float32)
+            nu[name] = np.zeros(tuple(p.shape), np.float32)
+    return {"mu": mu, "nu": nu, "count": count}
+
+
+def adam_state_from_numpy(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                          state: Mapping) -> None:
+    """Set ``opt``'s Adam state from ``adam_state_to_numpy``'s form, bit
+    for bit; count 0 leaves the optimizer as a fresh one."""
+    opt.state.clear()
+    count = int(state["count"])
+    if count == 0:
+        return
+    for name, p in model.named_parameters():
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": torch.from_numpy(np.array(
+                state["mu"][name], np.float32)).to(p.device),
+            "exp_avg_sq": torch.from_numpy(np.array(
+                state["nu"][name], np.float32)).to(p.device)}
+
+
+def adam_state_from_optax(opt_state, params: Mapping[str, np.ndarray]
+                          ) -> AdamState:
+    """An optax.adam state (a tuple holding a state with ``count``, ``mu``
+    and ``nu``; per-parameter dicts, or one vector under optax.flatten,
+    raveled in sorted-name order) -> ``adam_state_to_numpy``'s form, for
+    the parameters ``params`` names."""
+    adam = next(s for s in opt_state if hasattr(s, "mu"))
+    shapes = {k: np.shape(v) for k, v in params.items()}
+
+    def split(tree) -> Dict[str, np.ndarray]:
+        if isinstance(tree, Mapping):
+            return {k: np.asarray(tree[k], np.float32).copy()
+                    for k in shapes}
+        flat = np.asarray(tree, np.float32)
+        out, at = {}, 0
+        for k in sorted(shapes):
+            size = int(np.prod(shapes[k], dtype=np.int64))
+            out[k] = flat[at:at + size].reshape(shapes[k]).copy()
+            at += size
+        if at != flat.size:
+            raise ValueError("flat Adam state of %d values for %d "
+                             "parameters" % (flat.size, at))
+        return out
+
+    return {"mu": split(adam.mu), "nu": split(adam.nu),
+            "count": int(np.asarray(adam.count))}

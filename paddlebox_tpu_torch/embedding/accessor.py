@@ -1,6 +1,6 @@
 """Feature-value row layout (the "accessor") of the f32 adagrad table.
 
-Counterpart of paddlebox_tpu/embedding/accessor.py:35-181, 344-367. A row of
+Counterpart of paddlebox_tpu/embedding/accessor.py:35-215, 344-367. A row of
 the [capacity, width] float32 slab is
 
     [slot, show, click, delta_score, unseen_days, mf_size,
@@ -8,7 +8,10 @@ the [capacity, width] float32 slab is
 
 and a per-key push row is [slot, show, click, embed_g, embedx_g[D]]. Only
 the adagrad layout on an f32 slab is ported; the bf16 slab codec and the
-adam layouts wait for later slices.
+adam layouts wait for later slices. The day lifecycle's row arithmetic
+(decay, delete decision, stat rewrite after a save) is numpy f32 with
+Python-float weights in the reference's order, so the two packages agree
+bit for bit.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import dataclasses
 
 import numpy as np
 
-from paddlebox_tpu_torch.config.configs import SparseOptimizerConfig
+from paddlebox_tpu_torch.config.configs import (SparseOptimizerConfig,
+                                                TableConfig)
 
 SLOT = 0
 SHOW = 1
@@ -69,6 +73,40 @@ class ValueLayout:
             rows[:, EMBED_W] = rng.uniform(
                 -conf.initial_range, conf.initial_range, n)
         return rows
+
+    # ----------------------------------------------------------- lifecycle
+    def show_click_score(self, show, click, conf: SparseOptimizerConfig):
+        """CtrCommonAccessor::ShowClickScore: nonclk_coeff*(show-click) +
+        clk_coeff*click."""
+        return conf.nonclk_coeff * (show - click) + conf.clk_coeff * click
+
+    def shrink_mask(self, values: np.ndarray, table: TableConfig
+                    ) -> np.ndarray:
+        """Day-cadence decay and delete decision (ctr_accessor.cc:63-79):
+        decays show/click of ``values`` IN PLACE and returns the bool mask
+        of rows to delete."""
+        conf = table.optimizer
+        values[:, SHOW] *= table.show_click_decay_rate
+        values[:, CLICK] *= table.show_click_decay_rate
+        score = self.show_click_score(values[:, SHOW], values[:, CLICK], conf)
+        return ((score < table.delete_threshold)
+                | (values[:, UNSEEN_DAYS] > table.delete_after_unseen_days))
+
+    def update_stat_after_save(self, values: np.ndarray, table: TableConfig,
+                               param: int) -> None:
+        """UpdateStatAfterSave (ctr_accessor.cc:101-128), in place: param 1
+        clears the delta score of the rows a delta save covers, 3 ages
+        unseen_days."""
+        conf = table.optimizer
+        if param == 1:
+            score = self.show_click_score(values[:, SHOW], values[:, CLICK],
+                                          conf)
+            covered = ((score >= table.base_threshold)
+                       & (values[:, DELTA_SCORE] >= table.delta_threshold)
+                       & (values[:, UNSEEN_DAYS] <= table.delta_keep_days))
+            values[covered, DELTA_SCORE] = 0.0
+        elif param == 3:
+            values[:, UNSEEN_DAYS] += 1.0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,14 +1,19 @@
 """Host-DRAM embedding store in Python: every feature ever seen, as numpy
 f32 rows.
 
-Counterpart of paddlebox_tpu/embedding/host_store.py:37-259 and :399-406
-without the SSD tier and telemetry. It is the plain version of
-native_store.py's NativeHostEmbeddingStore, which the pass table uses
-unless this store is passed in by name. Missing keys are created only by
-``lookup_or_create``, in the order the caller passes them (the pass table
-passes its sorted-unique key set, or the sorted keys it still misses), with
-``ValueLayout.new_rows`` drawing from one ``RandomState(seed)``, which is the
-rule both JAX stores follow, so the two packages hold the same rows.
+Counterpart of paddlebox_tpu/embedding/host_store.py:37-295 and :399-505
+without the SSD tier and telemetry (so the tier sweep of shrink, the tier
+tick of age_unseen_days and the spilled rows of save are absent). It is
+the plain version of native_store.py's NativeHostEmbeddingStore, which the
+pass table uses unless this store is passed in by name. Missing keys are
+created only by ``lookup_or_create``, in the order the caller passes them
+(the pass table passes its sorted-unique key set, or the sorted keys it
+still misses), with ``ValueLayout.new_rows`` drawing from one
+``RandomState(seed)``, which is the rule both JAX stores follow, so the two
+packages hold the same rows.
+Live rows fill [0, len) of the row array: shrink compacts in place of a
+free list, so a sorted ``state_items`` matches the JAX store's after any
+sequence of calls.
 
 The store has no lock of its own: growing replaces ``_values``. A caller
 that reads it from another thread (the preload's promote prefetcher) holds
@@ -17,12 +22,15 @@ the pass table's ``store_lock``, as the table does around every store call.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from paddlebox_tpu_torch.config.configs import TableConfig
-from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+from paddlebox_tpu_torch.config.flags import CkptFlags
+from paddlebox_tpu_torch.embedding import ckpt_store
+from paddlebox_tpu_torch.embedding.accessor import UNSEEN_DAYS, ValueLayout
 
 _GROW = 1 << 16
 
@@ -105,3 +113,65 @@ class HostEmbeddingStore:
         if (rows < 0).any():
             raise KeyError("write_back of keys the store never created")
         self._values[rows] = values
+
+    # ------------------------------------------------------------ lifecycle
+    def shrink(self) -> int:
+        """ShrinkTable: decay show/click of every row and delete the dead
+        features (ctr_accessor.cc:63-79 via layout.shrink_mask), keeping
+        the live rows in [0, len). Returns the deletions."""
+        if not self._index:
+            return 0
+        keys, view = self.state_items()
+        dead = self.layout.shrink_mask(view, self.table)
+        keep = ~dead
+        n = int(keep.sum())
+        values = np.zeros_like(self._values)
+        values[:n] = view[keep]
+        self._values = values
+        self._index = dict(zip(keys[keep].tolist(), range(n)))
+        return int(dead.sum())
+
+    def age_unseen_days(self) -> None:
+        """Add one day to every feature's unseen_days."""
+        self._values[:len(self._index), UNSEEN_DAYS] += 1.0
+
+    def update_stat_after_save(self, table: TableConfig, param: int
+                               ) -> None:
+        """UpdateStatAfterSave over every row, in place: param 1 clears the
+        delta score of the rows a delta save covers, 3 ages unseen_days
+        (layout.update_stat_after_save's arithmetic)."""
+        # [0, len) is a view: the rewrite lands in place
+        self.layout.update_stat_after_save(self._values[:len(self._index)],
+                                           table, param)
+
+    def save(self, path: str, flags: Optional[CkptFlags] = None) -> None:
+        """Checkpoint every feature at ``path`` in ``flags``' format (the
+        columnar manifest and parts by default, or the legacy pickle)."""
+        flags = flags or CkptFlags()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        keys, values = self.state_items()
+        ckpt_store.save_sparse_auto(
+            path, keys, values, {"embedx_dim": self.layout.embedx_dim,
+                                 "optimizer": self.layout.optimizer},
+            fmt=flags.ckpt_format, parts=flags.ckpt_parts,
+            threads=flags.ckpt_io_threads)
+
+    def load(self, path: str, threads: int = 0) -> None:
+        """Restore from either checkpoint format (sniffed)."""
+        self.load_blob(ckpt_store.load_sparse_any(path, threads))
+
+    def load_blob(self, blob: Dict) -> None:
+        """Restore from a checkpoint dict ({"keys", "values", "embedx_dim",
+        "optimizer"}), replacing every row; the creation randoms go on from
+        where they were."""
+        if blob["embedx_dim"] != self.layout.embedx_dim or \
+                blob["optimizer"] != self.layout.optimizer:
+            raise ValueError("checkpoint layout mismatch")
+        keys = np.asarray(blob["keys"], np.uint64).ravel()
+        n = int(keys.size)
+        values = np.zeros((max(n, _GROW), self.layout.width), np.float32)
+        values[:n] = blob["values"]
+        self._values = values
+        self._index = dict(zip(keys.tolist(), range(n)))
+        if len(self._index) != n:
+            raise ValueError("checkpoint holds a key twice")

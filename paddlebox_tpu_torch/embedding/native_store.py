@@ -1,14 +1,18 @@
 """The native host embedding store: a C++ open-addressing hash table over a
 growable row arena (native/host_store.cc).
 
-Counterpart of paddlebox_tpu/embedding/native_store.py:40-200 and :454-475
-without the SSD tier and telemetry, with the API of host_store.py's
-HostEmbeddingStore, its plain version. Each call is one bulk C call (or
-two) in place of a Python dict loop. A key is created only by
+Counterpart of paddlebox_tpu/embedding/native_store.py:40-265, :360-451 and
+:454-475 without the SSD tier and telemetry (no tier sweep, tier tick or
+spilled rows), with the API of host_store.py's HostEmbeddingStore, its
+plain version. Each call is one bulk C call (or two) in place of a Python
+dict loop. A key is created only by
 ``lookup_or_create``; the rows of the keys it creates are drawn in Python by
 ``ValueLayout.new_rows`` from one ``RandomState(seed)`` in the order the
 caller passes the keys, as the plain store draws them, so the two stores
-hold the same bits. ``state_items`` returns hash order.
+hold the same bits. ``state_items`` returns hash order. The day
+lifecycle's arithmetic runs in numpy (the accessor's), on rows gathered from
+and scattered back to the C++ arena; the one column add in C++ adds 1.0,
+which no contraction changes.
 
 Like the plain store it has no lock of its own: the pass table holds its
 ``store_lock`` around every call. The key 2**64 - 1 is the table's empty
@@ -17,12 +21,16 @@ sentinel and cannot be stored.
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from paddlebox_tpu_torch.config.configs import TableConfig
-from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+from paddlebox_tpu_torch.config.flags import CkptFlags
+from paddlebox_tpu_torch.embedding import ckpt_store
+from paddlebox_tpu_torch.embedding.accessor import (DELTA_SCORE, UNSEEN_DAYS,
+                                                    ValueLayout)
 from paddlebox_tpu_torch.native import host_lib
 from paddlebox_tpu_torch.native.host_lib import F32P, I64P, U8P, U64P, ptr
 
@@ -119,6 +127,95 @@ class NativeHostEmbeddingStore:
             raise KeyError("write_back of keys the store never created")
         self._lib.hs_scatter(self._h, ptr(rows, I64P), keys.size,
                              ptr(values, F32P))
+
+    # ------------------------------------------------------------ lifecycle
+    def shrink(self) -> int:
+        """ShrinkTable: decay show/click of every row and erase the dead
+        features (layout.shrink_mask). Returns the deletions."""
+        keys, values = self.state_items()
+        if not keys.size:
+            return 0
+        dead = self.layout.shrink_mask(values, self.table)
+        self.write_back(keys, values)  # the decay
+        gone = np.ascontiguousarray(keys[dead])
+        if gone.size:
+            self._lib.hs_erase(self._h, ptr(gone, U64P), gone.size)
+        return int(gone.size)
+
+    def _add_col(self, col: int, delta: float) -> None:
+        if int(self._lib.hs_add_col(self._h, col, delta)) < 0:
+            raise RuntimeError("hs_add_col(col=%d) refused by the native "
+                               "store: its rows are narrower" % col)
+
+    def age_unseen_days(self) -> None:
+        """Add one day to every feature's unseen_days, in place in C++."""
+        self._add_col(UNSEEN_DAYS, 1.0)
+
+    def update_stat_after_save(self, table: TableConfig, param: int
+                               ) -> None:
+        """UpdateStatAfterSave over every row: param 3 is the column add;
+        param 1 gathers every row once and writes back the covered rows
+        with their delta score cleared (layout.update_stat_after_save's
+        arithmetic)."""
+        if param == 3:
+            self._add_col(UNSEEN_DAYS, 1.0)
+        elif param == 1:
+            keys, values = self.state_items()
+            if not keys.size:
+                return
+            before = values[:, DELTA_SCORE].view(np.uint32).copy()
+            self.layout.update_stat_after_save(values, table, 1)
+            covered = values[:, DELTA_SCORE].view(np.uint32) != before
+            if covered.any():
+                self.write_back(keys[covered], values[covered])
+
+    def save(self, path: str, flags: Optional[CkptFlags] = None) -> None:
+        """Checkpoint every feature at ``path`` in ``flags``' format (the
+        columnar manifest and parts by default, or the legacy pickle)."""
+        flags = flags or CkptFlags()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        keys, values = self.state_items()
+        ckpt_store.save_sparse_auto(
+            path, keys, values, {"embedx_dim": self.layout.embedx_dim,
+                                 "optimizer": self.layout.optimizer},
+            fmt=flags.ckpt_format, parts=flags.ckpt_parts,
+            threads=flags.ckpt_io_threads)
+
+    def load(self, path: str, threads: int = 0) -> None:
+        """Restore from either checkpoint format (sniffed)."""
+        self.load_blob(ckpt_store.load_sparse_any(path, threads))
+
+    def load_blob(self, blob: Dict) -> None:
+        """Restore from a checkpoint dict ({"keys", "values", "embedx_dim",
+        "optimizer"}) into a new C++ store; the creation randoms go on from
+        where they were."""
+        if blob["embedx_dim"] != self.layout.embedx_dim or \
+                blob["optimizer"] != self.layout.optimizer:
+            raise ValueError("checkpoint layout mismatch")
+        keys = np.ascontiguousarray(blob["keys"], np.uint64).ravel()
+        values = np.ascontiguousarray(blob["values"], np.float32)
+        if values.shape != (keys.size, self.layout.width):
+            raise ValueError("checkpoint values %s for %d keys of width %d"
+                             % (values.shape, keys.size, self.layout.width))
+        h = self._lib.hs_create(self.layout.width, LOAD_FACTOR)
+        self._lib.hs_destroy(self._h)
+        self._h = h
+        if keys.size:
+            # insert in key order: a blob in a store's hash order (what
+            # state_items gives) fills the growing table's probe chains in
+            # runs, which made a 629k-row install 20x slower
+            order = np.argsort(keys)
+            keys = np.ascontiguousarray(keys[order])
+            values = np.ascontiguousarray(values[order])
+            rows = np.empty(keys.size, np.int64)
+            created = np.empty(keys.size, np.uint8)
+            self._lib.hs_lookup_or_create(self._h, ptr(keys, U64P),
+                                          keys.size, ptr(rows, I64P),
+                                          ptr(created, U8P))
+            if not created.all():
+                raise ValueError("checkpoint holds a key twice")
+            self._lib.hs_scatter(self._h, ptr(rows, I64P), keys.size,
+                                 ptr(values, F32P))
 
 
 def make_host_store(layout: ValueLayout, table: TableConfig,

@@ -1,7 +1,8 @@
 """Pass-lifecycle sparse table on one device.
 
 Counterpart of paddlebox_tpu/embedding/pass_table.py (single device, with
-the incremental lifecycle, :114-126, :345-360, :464-712, :767-785):
+the incremental lifecycle, test mode and the day boundary, :114-126,
+:345-360, :464-712, :735-785, :846-902):
 
   begin_feed_pass / add_keys / end_feed_pass  collect the pass key set,
         give each key a dense pass-local id (its rank in the sorted-unique
@@ -13,6 +14,7 @@ the incremental lifecycle, :114-126, :345-360, :464-712, :767-785):
   dedup_for_push  the per-batch sorted dedup the push consumes (with
         segment_offsets, its runs over the real occurrences)
   end_pass     the pass's rows -> host store
+  shrink_table / end_day / save / load   the day boundary on the store
 
 With ``PassFlags.incremental_pass`` (the default) the slab stays resident
 after end_pass. The next begin_pass diffs its key set against the resident
@@ -44,6 +46,16 @@ prefetcher diffs against a numpy snapshot of the key set, never an index.
 ``lookup_ids_plain`` (searchsorted) is the plain version the tests hold the
 index against. The per-batch dedup stays the sorted numpy tier: the push
 kernel and the blocked write need ascending uids.
+
+Test mode (SetTestMode, ``set_test_mode``) makes a pass an eval pass: its
+begin_pass creates nothing (missing keys read as zero rows through
+``store.lookup``) and consumes a resident slab as a train pass would, with
+no second copy kept; it neither uses nor clears the prefetcher's staged
+rows and keeps no touched rows; its end_pass writes nothing back and drops
+the residency (the eval slab holds zero rows for keys the store lacks), so
+the next train pass builds in full. The day boundary's store changes
+(shrink, aging, a load) go around the pass cadence, so each first drops the
+residency.
 """
 
 from __future__ import annotations
@@ -56,7 +68,7 @@ import numpy as np
 import torch
 
 from paddlebox_tpu_torch.config.configs import TableConfig
-from paddlebox_tpu_torch.config.flags import PassFlags
+from paddlebox_tpu_torch.config.flags import CkptFlags, PassFlags
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
 from paddlebox_tpu_torch.embedding.native_store import make_host_store
@@ -219,6 +231,7 @@ class PassTable:
         self._touch_seen = False
         self._residency_poisoned = False
         self._staged: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self._test_mode = False
         self.counters: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
         # host-clock seconds in begin_pass and end_pass (the reference's
         # build and end timers); begin_pass returns before the device work
@@ -299,11 +312,12 @@ class PassTable:
     def _promote_missing_rows(self, missing_keys: np.ndarray) -> np.ndarray:
         """Host rows of the sorted keys a delta promote brings in: the rows
         the prefetcher staged first, the rest by one sorted
-        lookup_or_create, which creates new keys in the full path's
-        order."""
+        lookup_or_create, which creates new keys in the full path's order.
+        In test mode: all of them by store.lookup, which creates
+        nothing."""
         rows = np.empty((missing_keys.size, self.layout.width), np.float32)
         need = np.ones(missing_keys.size, bool)
-        if self._staged is not None:
+        if self._staged is not None and not self._test_mode:
             skeys, srows = self._staged
             pos, hit = sorted_member(skeys, missing_keys)
             rows[hit] = srows[pos[hit]]
@@ -311,13 +325,21 @@ class PassTable:
             self.counters["pass_rows_promote_prefetched"] += int(hit.sum())
         if need.any():
             with self.store_lock:
-                rows[need] = self.store.lookup_or_create(missing_keys[need])
+                rows[need] = self._store_rows(missing_keys[need])
         return rows
+
+    def _store_rows(self, keys: np.ndarray) -> np.ndarray:
+        """The store's rows of sorted ``keys``: created where missing, or in
+        test mode zero rows where missing. The caller holds store_lock."""
+        if self._test_mode:
+            return self.store.lookup(keys)
+        return self.store.lookup_or_create(keys)
 
     def begin_pass(self) -> None:
         """Make the pass slab. Incremental (a slab is resident): the delta
         promote. Otherwise: host rows of every pass key (created on first
-        sight) in [0, n), zeros after, one host-to-device copy."""
+        sight; in test mode zero rows where the store lacks the key) in
+        [0, n), zeros after, one host-to-device copy."""
         if self._in_pass:
             raise RuntimeError("pass already open")
         if self._pass_keys is None:
@@ -339,16 +361,17 @@ class PassTable:
                                dtype=torch.float32, device=self.device)
             if n:
                 with self.store_lock:
-                    rows = self.store.lookup_or_create(keys)
+                    rows = self._store_rows(keys)
                 slab[:n].copy_(torch.from_numpy(rows))
             self._slab = slab
         self._drop_prev_route()
         self._resident_keys = None
-        self._staged = None
         self._touch_seen = False
         self._residency_poisoned = False
-        if self.flags.incremental_pass:
-            self._touched = np.zeros(self.capacity, bool)
+        if not self._test_mode:
+            self._staged = None
+            if self.flags.incremental_pass:
+                self._touched = np.zeros(self.capacity, bool)
         self._in_pass = True
         self.seconds["begin_pass"] += time.perf_counter() - t0
 
@@ -366,27 +389,32 @@ class PassTable:
         [0, n) when no id marked the pass, as for a caller that bypassed
         lookup_ids); the slab stays resident unless the residency was
         invalidated during the pass. Otherwise: [0, n), and the slab is
+        dropped. Test mode: nothing is written back and the slab is
         dropped."""
         if not self._in_pass:
             raise RuntimeError("end_pass without begin_pass")
         t0 = time.perf_counter()
         keys = self._pass_keys
         n = keys.size
-        if n and self._touched is not None and self._touch_seen:
-            self._touched[self.padding_id] = False
-            idx = np.flatnonzero(self._touched[:n])
-            if idx.size:
-                ids = torch.from_numpy(idx.astype(np.int32)).to(self.device)
-                rows = gather_rows(self._slab, ids).cpu().numpy()
+        if n and not self._test_mode:
+            if self._touched is not None and self._touch_seen:
+                self._touched[self.padding_id] = False
+                idx = np.flatnonzero(self._touched[:n])
+                if idx.size:
+                    ids = torch.from_numpy(idx.astype(np.int32)).to(
+                        self.device)
+                    rows = gather_rows(self._slab, ids).cpu().numpy()
+                    with self.store_lock:
+                        self.store.write_back(keys[idx], rows)
+                self.counters["pass_rows_written_back"] += int(idx.size)
+                self.counters["pass_rows_writeback_skipped"] += \
+                    n - int(idx.size)
+            else:
+                rows = self._slab[:n].cpu().numpy()
                 with self.store_lock:
-                    self.store.write_back(keys[idx], rows)
-            self.counters["pass_rows_written_back"] += int(idx.size)
-            self.counters["pass_rows_writeback_skipped"] += n - int(idx.size)
-        elif n:
-            rows = self._slab[:n].cpu().numpy()
-            with self.store_lock:
-                self.store.write_back(keys, rows)
-        if self.flags.incremental_pass and not self._residency_poisoned:
+                    self.store.write_back(keys, rows)
+        if (self.flags.incremental_pass and not self._residency_poisoned
+                and not self._test_mode):
             self._resident_keys = keys
         else:
             self._slab = None
@@ -418,9 +446,11 @@ class PassTable:
         diff against). known_fn marks the keys of this pass's set: the set
         that will be resident when the next begin_pass diffs. It reads a
         numpy snapshot of the set, never the route index, which the main
-        thread may drop while the prefetcher runs."""
+        thread may drop while the prefetcher runs. None in test mode: an
+        eval pass leaves nothing resident to diff against."""
         if (not self.flags.incremental_pass
                 or not self.flags.preload_promote
+                or self._test_mode
                 or self._pass_keys is None or self._pass_keys.size == 0):
             return None
         snapshot = self._pass_keys
@@ -435,6 +465,15 @@ class PassTable:
         begin_pass."""
         if keys.size:
             self._staged = (keys, rows)
+
+    def set_test_mode(self, test: bool) -> None:
+        """SetTestMode (box_wrapper.cc:183): eval passes, which create no
+        feature and write nothing back."""
+        self._test_mode = bool(test)
+
+    @property
+    def test_mode(self) -> bool:
+        return self._test_mode
 
     # ------------------------------------------------------------- id space
     @property
@@ -471,3 +510,40 @@ class PassTable:
         if self._slab is None:
             raise RuntimeError("no slab outside begin_pass/end_pass")
         return self._slab
+
+    # ------------------------------------------------------------ lifecycle
+    def shrink_table(self) -> int:
+        """ShrinkTable (box_wrapper.h:627): decay and delete on the host
+        store. Returns the rows deleted."""
+        self.invalidate_residency()
+        with self.store_lock:
+            return self.store.shrink()
+
+    def end_day(self, age: bool = True) -> int:
+        """The day boundary: age every feature's unseen_days (shrink's
+        delete_after_unseen_days rule reads it), then shrink. Returns the
+        rows deleted. age=False where CheckpointManager.save_base already
+        aged the rows at this boundary (aging twice a day would halve every
+        feature's lifetime)."""
+        self.invalidate_residency()
+        if age:
+            with self.store_lock:
+                self.store.age_unseen_days()
+        return self.shrink_table()
+
+    def save(self, path: str, flags: Optional[CkptFlags] = None) -> None:
+        """The host store's checkpoint at ``path`` (store.save)."""
+        with self.store_lock:
+            self.store.save(path, flags)
+
+    def load(self, path: str, threads: int = 0) -> None:
+        """Replace the host store's rows with the checkpoint at ``path``."""
+        self.invalidate_residency()
+        with self.store_lock:
+            self.store.load(path, threads)
+
+    def load_ssd_to_mem(self) -> int:
+        """LoadSSD2Mem (box_wrapper.cc:1319): the port's stores have no SSD
+        tier, so no row is spilled, none is promoted and the store is
+        unchanged. Returns 0."""
+        return 0

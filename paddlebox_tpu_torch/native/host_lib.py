@@ -120,6 +120,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hs_items.argtypes = [p, U64P, I64P]
     lib.hs_lookup_gather.restype = c.c_int64
     lib.hs_lookup_gather.argtypes = [p, U64P, c.c_int64, F32P, U8P]
+    lib.hs_erase.restype = c.c_int64
+    lib.hs_erase.argtypes = [p, U64P, c.c_int64]
+    lib.hs_add_col.restype = c.c_int64
+    lib.hs_add_col.argtypes = [p, c.c_int32, c.c_float]
 
     lib.rt_index_create.restype = p
     lib.rt_index_create.argtypes = [U64P, I64P, c.c_int32]

@@ -1,8 +1,9 @@
 """Pass-cadenced single-device trainer.
 
 Counterpart of paddlebox_tpu/train/trainer.py (make_train_step :543-742,
-BoxTrainer :914-1000, host_batch :1149-1208, train_pass :1220-1402) for one
-GPU: a Python loop of steps, each
+eval_step :887-893, BoxTrainer :914-1000, host_batch :1149-1208, train_pass
+:1220-1402, predict_batches :1527-1549) for one GPU: a Python loop of steps,
+each
 
     pull (slab row gather) -> fused seqpool+CVM -> DeepFM forward/backward
     (autograd) -> masked BCE -> dense Adam -> build_push_grads -> push
@@ -21,12 +22,18 @@ draws it from its own ``torch.Generator(seed)`` through ``seed_fn``; a caller
 may replace ``seed_fn`` (any zero-argument callable returning a nonnegative
 int32), which is how the parity tests replay the JAX trainer's per-step
 seeds.
+
+An eval step (``make_eval_step``, ``predict_batches``) is the pull, the
+fused seqpool+CVM and the forward under ``torch.no_grad()``: no backward,
+no dense update, no push. The dense state reads and restores as numpy under
+the JAX package's names (``params``, ``opt_state``, ``restore_dense``;
+convert.py).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +42,9 @@ import torch.nn.functional as F
 from paddlebox_tpu_torch.config.configs import (DataFeedConfig, TableConfig,
                                                 TrainerConfig)
 from paddlebox_tpu_torch.config.flags import PassFlags, PushFlags
+from paddlebox_tpu_torch.convert import (adam_state_from_numpy,
+                                         adam_state_to_numpy,
+                                         params_from_jax, params_to_numpy)
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.packer import PackedBatch
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
@@ -102,6 +112,25 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
     return step
 
 
+def make_eval_step(model: torch.nn.Module, layout: ValueLayout,
+                   table: TableConfig, batch_size: int,
+                   num_slots: int) -> Callable:
+    """eval_step(slab, batch) -> preds [batch_size] on the device: the
+    pull, fused seqpool+CVM and the forward, and nothing that writes."""
+    padding_id = table.pass_capacity - 1
+
+    def eval_step(slab: torch.Tensor, batch: Batch) -> torch.Tensor:
+        ids = batch["ids"]
+        with torch.no_grad():
+            emb = pull_view_from_rows(gather_slab_rows(slab, ids), layout)
+            pooled = fused_seqpool_cvm(emb, batch["segments"],
+                                       ids != padding_id, batch_size,
+                                       num_slots, batch["n_valid"])
+            return torch.sigmoid(model(pooled))
+
+    return eval_step
+
+
 class BoxTrainer:
     """Single-device trainer over one PassTable + model."""
 
@@ -139,6 +168,9 @@ class BoxTrainer:
             self.model, self.table.layout, table_cfg, self.dense_opt,
             feed.batch_size, self.num_slots, push_write=self.push_write,
             block_rows=self.flags.push_block_rows)
+        self.eval_fn = make_eval_step(self.model, self.table.layout,
+                                      table_cfg, feed.batch_size,
+                                      self.num_slots)
         self._shuffle_rng = np.random.RandomState(seed + 1)
         self._seed_gen = torch.Generator().manual_seed(seed)
         self.seed_fn: Callable[[], int] = self._draw_seed
@@ -148,22 +180,56 @@ class BoxTrainer:
     def _draw_seed(self) -> int:
         return int(torch.randint(0, 2**31 - 1, (), generator=self._seed_gen))
 
+    def reseed(self, seed: int) -> None:
+        """Restart the trainer's two random streams (the pass shuffle and
+        the push seeds) as a trainer built with ``seed`` starts them: a
+        trainer resumed from a checkpoint and the one that wrote it then
+        draw alike."""
+        self._shuffle_rng = np.random.RandomState(seed + 1)
+        self._seed_gen = torch.Generator().manual_seed(seed)
+        self.seed_fn = self._draw_seed
+
+    # ---------------------------------------------------------- dense state
+    @property
+    def params(self) -> Dict[str, np.ndarray]:
+        """The dense parameters by the JAX package's names, as numpy."""
+        return params_to_numpy(self.model)
+
+    @property
+    def opt_state(self) -> Dict[str, object]:
+        """The dense Adam state under optax's names, as numpy
+        (convert.adam_state_to_numpy)."""
+        return adam_state_to_numpy(self.model, self.dense_opt)
+
+    def restore_dense(self, params: Mapping[str, np.ndarray],
+                      opt_state: Mapping) -> None:
+        """Set the dense parameters and Adam state from ``params`` and
+        ``opt_state`` (the forms of the two properties), bit for bit."""
+        state = params_from_jax(params)
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                p.copy_(state[name])
+        adam_state_from_numpy(self.model, self.dense_opt, opt_state)
+
     # ---------------------------------------------------------- batch utils
     def device_batch(self, b: PackedBatch, ids: np.ndarray) -> Batch:
         """Host staging of one batch, then one copy per array to the
         device: ids and the push's sorted dedup products (uids, perm and
         the segment offsets of each unique's real occurrences), plus two
         ints: n_uniq (real uids) and n_valid (real key slots; the packer
-        puts them before its padding tail)."""
-        uids, perm, inv, n_uniq = self.table.dedup_for_push(ids)
+        puts them before its padding tail). In test mode the batch never
+        pushes, so it carries no dedup products and no n_uniq."""
         n_valid = int(b.valid.sum())
         host = {"ids": ids, "segments": b.segments,
-                "ins_valid": b.ins_valid, "labels": b.labels,
-                "uids": uids, "perm": perm,
-                "offsets": segment_offsets(inv, n_valid)}
+                "ins_valid": b.ins_valid, "labels": b.labels}
+        ints = {"n_valid": n_valid}
+        if not self.table.test_mode:
+            uids, perm, inv, ints["n_uniq"] = self.table.dedup_for_push(ids)
+            host.update(uids=uids, perm=perm,
+                        offsets=segment_offsets(inv, n_valid))
         out: Batch = {k: torch.from_numpy(v).to(self.device)
                       for k, v in host.items()}
-        out.update(n_uniq=n_uniq, n_valid=n_valid)
+        out.update(ints)
         return out
 
     def train_batch(self, b: PackedBatch):
@@ -225,6 +291,34 @@ class BoxTrainer:
         self.pass_times = times
         return {"loss": mean_loss, "batches": len(batches),
                 "instances": len(dataset)}
+
+    # ------------------------------------------------------------------ eval
+    def eval_batch(self, b: PackedBatch) -> torch.Tensor:
+        """Predictions of one packed batch inside an open test-mode pass,
+        on the device."""
+        ids = self.table.lookup_ids(b.keys, b.valid)
+        return self.eval_fn(self.table.slab, self.device_batch(b, ids))
+
+    def predict_batches(self, dataset: BoxDataset
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """Test-mode inference over a loaded dataset (SetTestMode pulls):
+        (preds, labels) of its valid instances, on the host. The pass
+        creates no feature and writes nothing back."""
+        self.table.set_test_mode(True)
+        self.table.begin_feed_pass()
+        self.table.add_keys(dataset.all_keys())
+        self.table.end_feed_pass()
+        self.table.begin_pass()
+        batches = dataset.split_batches(num_workers=1)[0]
+        preds = [self.eval_batch(b) for b in batches]
+        self.table.end_pass()
+        self.table.set_test_mode(False)
+        if not batches:
+            return np.empty(0, np.float32), np.empty(0, np.int32)
+        preds_host = torch.stack(preds).cpu().numpy()
+        return (np.concatenate([p[b.ins_valid]
+                                for p, b in zip(preds_host, batches)]),
+                np.concatenate([b.labels[b.ins_valid] for b in batches]))
 
     def _add_metrics(self, pred: np.ndarray, b: PackedBatch) -> None:
         self.metrics.add_batch({"label": b.labels, "mask": b.ins_valid,

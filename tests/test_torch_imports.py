@@ -1,6 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor any module of
-the JAX package, no source of the port (nor chip_smoke.py) names them, and
-the C++ it runs is compiled from the port's own copies in
+the JAX package, no source of the port (nor chip_smoke.py) names them,
+reading a JAX-written checkpoint does not load them either, and the C++ it
+runs is compiled from the port's own copies in
 paddlebox_tpu_torch/native/."""
 
 import ast
@@ -33,8 +34,58 @@ def test_import_loads_no_jax_and_no_reference_module():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for m in ("train.trainer", "native.host_lib", "data.columnar",
-              "data.native_parser", "embedding.native_store"):
+              "data.native_parser", "embedding.native_store",
+              "embedding.ckpt_store", "serving.store", "train.checkpoint",
+              "train.eval_driver"):
         assert "paddlebox_tpu_torch." + m in loaded, m
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_reading_a_jax_checkpoint_loads_no_jax(tmp_path):
+    """A JAX-written day directory (its dense.pkl pickles jax arrays): the
+    port's load_base raises, its sparse tier loads, and neither jax nor any
+    module of the JAX package is imported."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from paddlebox_tpu.config import flags
+    from paddlebox_tpu.config.configs import (CheckpointConfig,
+                                              SparseOptimizerConfig,
+                                              TableConfig)
+    from paddlebox_tpu.embedding.pass_table import PassTable
+    from paddlebox_tpu.train.checkpoint import CheckpointManager
+
+    flags.set_flag("ckpt_journal", False)
+    table = PassTable(TableConfig(embedx_dim=4, pass_capacity=1024,
+                                  optimizer=SparseOptimizerConfig()))
+    table.store.lookup_or_create(np.arange(1, 100, dtype=np.uint64))
+    cfg = CheckpointConfig(batch_model_dir=str(tmp_path / "batch"),
+                           xbox_model_dir=str(tmp_path / "xbox"),
+                           async_save=False)
+    CheckpointManager(cfg, table).save_base({"w": jnp.ones(3)}, {}, "d0")
+    code = (
+        "import json, os, pickle, sys\n"
+        "from paddlebox_tpu_torch.config.configs import (CheckpointConfig,\n"
+        "    TableConfig)\n"
+        "from paddlebox_tpu_torch.embedding.pass_table import PassTable\n"
+        "from paddlebox_tpu_torch.train.checkpoint import "
+        "CheckpointManager\n"
+        "t = PassTable(TableConfig(embedx_dim=4, pass_capacity=1024),\n"
+        "              device='cpu')\n"
+        "cm = CheckpointManager(CheckpointConfig(%r, %r), t)\n"
+        "try:\n"
+        "    cm.load_base('d0')\n"
+        "except pickle.UnpicklingError as e:\n"
+        "    raised = str(e)\n"
+        "t.load(os.path.join(%r, 'd0', 'sparse.xman'))\n"
+        "print(json.dumps([raised, len(t.store), sorted(sys.modules)]))\n"
+        % (cfg.batch_model_dir, cfg.xbox_model_dir, cfg.batch_model_dir))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    raised, rows, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "jax" in raised and rows == 99
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 
