@@ -6,11 +6,15 @@
 Phases, each of which raises on a failed check (exit code != 0):
 
   1. the card: nvidia-smi name and power limit, torch device properties;
-  2. build the native host library (the slot parser, the host store and
-     the route index, paddlebox_tpu_torch/native/*.cc) with g++, then all
-     four CUDA kernels from paddlebox_tpu_torch/csrc with nvcc (sm_90a),
-     one nvcc per source, in parallel;
-  3. each kernel against its plain PyTorch version on the card, at the
+  2. build all four CUDA kernels from paddlebox_tpu_torch/csrc with nvcc
+     (sm_90a), one nvcc per source, in parallel, and meanwhile the native
+     host library (the slot parser, the host store and the route index,
+     paddlebox_tpu_torch/native/*.cc) with g++; the synthetic files are
+     written in a process of their own meanwhile and through phases 3 and
+     10, which need none of them and run next;
+  3. a small-input check: two train_passes of a narrow DeepFM on the card
+     and the same on the CPU (plain versions) agree;
+  4. each kernel against its plain PyTorch version on the card, at the
      shapes of its paths, all bit-equal: the fused push_adagrad (merge,
      update and row write in one kernel) over a real flagship batch's
      dedup (131,072 key slots, 77,128 uniques) on a 2^20 x 17 slab whose
@@ -32,13 +36,13 @@ Phases, each of which raises on a failed check (exit code != 0):
      lanes); the push kernels' kernel, plain, library and bound times (the
      fused push timed rows out, so that repeated launches do not compound
      the update), and gather_rows' at the promote and write-back shapes;
-  4. a small-input check: two train_passes of a narrow DeepFM on the card
-     and the same on the CPU (plain versions) agree;
   5. the main path at full width: two BoxTrainer.train_pass calls of the
      flagship configuration (paddlebox_tpu_torch/train/flagship.py: DeepFM
      hidden 512-256-128, 32 slots, batch 1024, max_len 4, embedx 8, 2^20-row
      pass slab, push_write='scatter', the incremental pass lifecycle) over
-     16 batches of synthetic data, on the native host tier (the columnar
+     16 batches of synthetic data, through the chunk driver (two chunks of
+     8 a pass: the staging pool, the staged-ahead producer, pinned copies
+     on a copy stream), on the native host tier (the columnar
      dataset, the C++ store, the route index: each checked); loss and AUC
      printed to 10 digits and equal to the digits the port has given since
      its first slice (FLAGSHIP_DIGITS), examples/s; the second pass a
@@ -58,8 +62,8 @@ Phases, each of which raises on a failed check (exit code != 0):
      table's counters equal to the key sets' overlaps (and to the
      flagship's numbers), and the launches, all on the native host tier;
      per pass and mode the phase seconds and examples/s;
-  7. the day at full width (train/checkpoint.py): the main path's two
-     passes again (digits checked), then a test pass
+  7. the day at full width (train/checkpoint.py), on the main path's
+     trainer after its two passes: a test pass
      (BoxTrainer.predict_batches) over the cadence's third window, 16,384
      instances: the host store bit-identical before and after, gather_rows
      launched 1 + 16 times (the promote of the resident slab and the
@@ -78,7 +82,21 @@ Phases, each of which raises on a failed check (exit code != 0):
   8. the blocked mode: one pass of 4 batches with push_write='blocked' and
      one with 'scatter' from the same seed give bit-identical rows, and
      push_adagrad and blocked_write each launched once a step;
-  9. the rate probe (paddlebox_tpu_torch/rate_probe.py): its cases on the
+  9. the chunk driver: the main path's two passes one step at a time (A)
+     and in chunks of 8 (B) in the order A, B, B, A (CHUNK_RUNS: the B runs
+     with two chunks a pinned copy, h2d_stack_chunks=2, and with two
+     chunks staged ahead, chunk_prefetch_depth=2), each bit-identical to
+     phase 5's run (losses, AUC, launches, sorted stores), with each run's
+     pass phases; one sparse_chunk_sync pass (chunks of 8: push_adagrad
+     and gather_rows once a chunk, and one write-back), its digits held to
+     SYNC_DIGITS; the host-to-device copies of a chunked pass (a third
+     pass of the run staging two chunks ahead) by kind, 7 pinned a chunk
+     (profile_pass.py); gather_rows and the fused push_adagrad at the
+     chunk's shape (the first 8 batches' 1,048,576 ids flat, and their
+     merged dedup) bit-equal to their plain versions, with kernel, plain,
+     index_select and bound times;
+ 10. (run after phase 3) the rate probe
+     (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
      GB/s and the share of 3.35 TB/s; scale_copy and gather_rows launched
      in it. Its 64 MiB scale and its pull-shape gather are those two
@@ -93,10 +111,26 @@ kernel's numbers, the card's name and power limit, and the last line
 
 import dataclasses
 import json
+import multiprocessing
 import os
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
+
+
+class PhaseClock:
+    """Host-clock seconds of the script's phases, in order."""
+
+    def __init__(self):
+        self.laps = {}
+        self._t0 = time.perf_counter()
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self.laps[name] = now - self._t0
+        self._t0 = now
 
 
 def check(cond, msg):
@@ -118,7 +152,7 @@ def run_pass(torch, trainer, ds):
 
 
 def kernel_phase(torch, cfg, feed, files, dev):
-    """Phase 3, the push kernels against their plain versions at the main
+    """Phase 4, the push kernels against their plain versions at the main
     path's shapes; returns their records (launches filled later)."""
     import numpy as np
 
@@ -297,7 +331,7 @@ def on_card(torch, a, offset, dev):
 
 
 def blocked_edge_phase(torch, dev):
-    """Phase 3, blocked_write on its edge cases (edge_cases.
+    """Phase 4, blocked_write on its edge cases (edge_cases.
     blocked_edge_cases), in the cases' slot order and reversed (sentinel
     slots after the real write of their block): bit-equal to the plain
     version. Returns the largest difference."""
@@ -347,7 +381,7 @@ def blocked_edge_phase(torch, dev):
 
 
 def gather_edge_phase(torch, dev):
-    """Phase 3, gather_rows on its edge cases (edge_cases.
+    """Phase 4, gather_rows on its edge cases (edge_cases.
     gather_edge_cases): bit-equal to the plain version."""
     from paddlebox_tpu_torch.edge_cases import (gather_edge_cases,
                                                 gather_source)
@@ -380,7 +414,7 @@ def gather_edge_phase(torch, dev):
 
 
 def row_kernel_phase(torch, cfg, feed, files, keys, dev):
-    """Phase 3, the rate probe's kernels against their plain versions:
+    """Phase 4, the rate probe's kernels against their plain versions:
     scale_copy at the probe's 64 MiB shape, gather_rows at the probe's
     shape, at the pull's (a real batch's ids, the trash row included) and
     at the delta promote's and the touched-row write-back's (from the
@@ -504,7 +538,7 @@ def row_kernel_records(probe, errs, at_shapes, cfg):
 
 
 def small_parity_phase(torch, tmp):
-    """Phase 4: the port on the card against the port on the CPU (plain
+    """Phase 3: the port on the card against the port on the CPU (plain
     versions) at a narrow size; loss rtol 1e-4, AUC 1e-4 absolute, host
     rows rtol 1e-4 (float32 sums in another order on the two devices)."""
     import numpy as np
@@ -560,9 +594,9 @@ def sorted_store(table):
     return k[order], v[order]
 
 
-def two_passes(torch, trainer, ds):
-    """The main path's two train_passes: each pass's record, and the
-    table's counters of each."""
+def main_passes(torch, trainer, ds):
+    """The main path's two train_passes: each pass's record with the
+    table's counters of the pass."""
     import numpy as np
     passes = []
     for p in range(2):
@@ -596,15 +630,14 @@ def plain_tier_phase(torch, cfg, feed, files, native, native_store):
                                          plain_host=True)
     check(not ds.columnar and type(trainer.table.store) is
           HostEmbeddingStore, "the plain tier ran native")
-    plain = two_passes(torch, trainer, ds)
+    plain = main_passes(torch, trainer, ds)
     for p, q in zip(plain, native):
         check(p["loss"] == q["loss"] and p["auc"] == q["auc"],
               "plain host tier pass %d loss %r auc %r, native %r %r"
               % (p["pass"], p["loss"], p["auc"], q["loss"], q["auc"]))
     k, v = sorted_store(trainer.table)
     check(np.array_equal(k, native_store[0])
-          and np.array_equal(v.view(np.uint32),
-                             native_store[1].view(np.uint32)),
+          and bits_equal(v, native_store[1]),
           "plain host tier store differs from the native run's")
     for tier, passes in (("native", native), ("plain", plain)):
         for p in passes:
@@ -613,6 +646,7 @@ def plain_tier_phase(torch, cfg, feed, files, native, native_store):
                           p["pass_s"], p["examples_per_s"]))
     log("plain host tier: losses, AUC and %d store rows bit-equal to the "
         "native run; %s" % (k.size, card_line()))
+    trainer.close()
     del trainer, ds
     return plain
 
@@ -814,10 +848,11 @@ def eval_phase(torch, trainer, files, feed, reset_counts, counts):
     return rec
 
 
-def day_phase(torch, cfg, feed, windows, tmp, passes, reset_counts, counts):
-    """Phase 7, the day: the main path's two passes (their records
-    ``passes`` to match), the test pass, run_day, load_base, the xbox
-    read-back and resume equals continue. Returns its record."""
+def day_phase(torch, trainer, cfg, feed, windows, tmp, reset_counts,
+              counts):
+    """Phase 7, the day, on ``trainer``, the main path's trainer after its
+    two passes: the test pass, run_day, load_base, the xbox read-back and
+    resume equals continue. Returns its record."""
     import numpy as np
 
     from paddlebox_tpu_torch.config.configs import CheckpointConfig
@@ -833,13 +868,6 @@ def day_phase(torch, cfg, feed, windows, tmp, passes, reset_counts, counts):
                                                       XboxModelReader,
                                                       run_day)
 
-    trainer, ds = flagship.build_trainer(windows[0], feed, cfg, "scatter",
-                                         "cuda")
-    again = two_passes(torch, trainer, ds)
-    check([(p["loss"], p["auc"]) for p in again]
-          == [(p["loss"], p["auc"]) for p in passes],
-          "the day's train passes differ from the main path's")
-    del ds
     test = eval_phase(torch, trainer, windows[2], feed, reset_counts,
                       counts)
 
@@ -1008,6 +1036,203 @@ def day_phase(torch, cfg, feed, windows, tmp, passes, reset_counts, counts):
     return rec
 
 
+# the chunk-synchronous pass's loss and AUC (phase 9: one pass of the
+# flagship with sparse_chunk_sync, chunks of 8), "%.10f"
+SYNC_DIGITS = ("0.6911818385", "0.4983831116")
+
+# phase 9's runs of the main path's two passes, in this order: one step at
+# a time (A) and in chunks of 8 (B), as (scan_chunk, StageFlags fields
+# stack_threads, chunk_prefetch_depth, h2d_stack_chunks); the B runs group
+# two chunks a copy and stage two chunks ahead. Each is held bit-equal to
+# phase 5's run (chunks of 8, the default StageFlags(4, 1, 1)).
+CHUNK_RUNS = ((1, (4, 1, 1)), (8, (4, 1, 2)), (8, (4, 2, 1)), (1, (4, 1, 1)))
+# the run whose trainer makes the profiled third pass
+PROFILED_RUN = 2
+
+
+def chunk_kernel_phase(torch, cfg, feed, files, dev):
+    """Phase 9, the path's two kernels at a chunk-synchronous chunk's shape
+    (the first 8 flagship batches' 1,048,576 ids, flat): gather_rows
+    into the 2^20 x 17 slab and the fused push_adagrad over the chunk's
+    dedup, each bit-equal to its plain version; kernel, plain, library
+    (index_select for the gather) and bound times. Returns {kernel:
+    record}."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
+    from paddlebox_tpu_torch.embedding.pass_table import segment_offsets
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.push_probe import (SEED, fused_push_bytes,
+                                                push_inputs)
+    from paddlebox_tpu_torch.rate_probe import gather_bytes, time_chain
+    from paddlebox_tpu_torch.train import flagship
+
+    D = cfg.embedx
+    layout = ValueLayout(D)
+    conf = cfg.table().optimizer
+    W, G = layout.width, PushLayout(D).width
+    ids = flagship.first_chunk_ids(files, feed, cfg, 8)
+    inp = push_inputs(cfg, files, feed, ids=ids)
+    K, n_uniq, n_valid = ids.shape[0], inp["n_uniq"], inp["n_valid"]
+    slab, g, p, o, u = (torch.from_numpy(x).to(dev) for x in (
+        inp["slab"], inp["grads"], inp["perm"],
+        segment_offsets(inp["inv"], n_valid), inp["uids"]))
+    check(int(o[-1]) == n_valid and K == 8 * 131072,
+          "chunk push inputs: %d ids, offsets end %d, n_valid %d"
+          % (K, int(o[-1]), n_valid))
+    out = {}
+
+    # --- gather_rows, the chunk's pull
+    i = torch.from_numpy(ids).to(dev)
+    got = rk.gather_rows(slab, i)
+    torch.cuda.synchronize()
+    want = rk.gather_rows_plain(slab, i)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+          and torch.equal(got, slab.index_select(0, i)),
+          "gather_rows at the chunk shape differs from the plain version")
+    nbytes = gather_bytes(ids, cfg.capacity, W)
+    args = (slab, i)
+    out["gather_rows"] = {
+        "ids": K, "distinct": int(np.unique(ids).size), "bytes": nbytes,
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": time_chain(rk.gather_rows, args, nbytes),
+        "plain_ms": time_chain(rk.gather_rows_plain, args, nbytes),
+        "library_ms": time_chain(lambda a, b: a.index_select(0, b), args,
+                                 nbytes),
+        "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
+    del got, want, i, args
+
+    # --- push_adagrad over the chunk's merged dedup, both write modes
+    err = 0.0
+    for rows_out in (False, True):
+        s_k, s_p = slab.clone(), slab.clone()
+        r_k = pk.push_adagrad(s_k, g, p, o, u, n_uniq, SEED, layout, conf,
+                              rows_out)
+        torch.cuda.synchronize()
+        r_p = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n_uniq, SEED,
+                                          layout, conf, rows_out)
+        check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32)),
+              "push_adagrad (rows_out=%s) at the chunk shape differs from "
+              "the plain version" % rows_out)
+        if rows_out:
+            check(torch.equal(r_k.view(torch.int32), r_p.view(torch.int32)),
+                  "push_adagrad rows out at the chunk shape differ")
+            err = max(err, float((r_k - r_p).abs().max()))
+        err = max(err, float((s_k - s_p).abs().max()))
+        del s_k, s_p, r_k, r_p
+    live = inp["live"]
+    nbytes = fused_push_bytes(n_valid, n_uniq, W, G)
+    ops = n_valid * G + int(np.unique(ids[live]).size) * (20 + 6 * D)
+    args = (slab, g, p, o, u)
+    out["push_adagrad"] = {
+        "occurrences": n_valid, "n_uniq": n_uniq, "bytes": nbytes,
+        "max_abs_err": err,
+        "ms": time_chain(lambda *a: pk.push_adagrad(
+            *a, n_uniq, SEED, layout, conf, rows_out=True), args, nbytes),
+        "plain_ms": time_chain(lambda *a: pk.push_adagrad_fused_plain(
+            *a, n_uniq, SEED, layout, conf, rows_out=True), args, nbytes),
+        "library_ms": None,
+        "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS),
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS
+                     else "operations")}
+    for name, rec in out.items():
+        log("%s at the chunk shape: bit-equal to the plain version; %s"
+            % (name, json.dumps(rec)))
+    return out
+
+
+def chunk_phase(torch, cfg, feed, files, ref, reset_counts, counts):
+    """Phase 9, the chunk driver: the main path's two passes in CHUNK_RUNS,
+    each run's losses, AUC, launches and sorted store bit-identical to
+    phase 5's run ``ref`` (its passes, launches and sorted store); one
+    sparse_chunk_sync pass (one pull and one push a chunk, a write-back;
+    its digits held to SYNC_DIGITS); the host-to-device copies of a
+    chunked pass by kind (profile_pass.py). Returns its record."""
+    import numpy as np
+
+    from paddlebox_tpu_torch import profile_pass
+    from paddlebox_tpu_torch.config.flags import StageFlags
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.train import flagship
+
+    runs, profiled = [], None
+    for i, (chunk, stage) in enumerate(CHUNK_RUNS):
+        trainer, ds = flagship.build_trainer(
+            files, feed, cfg, "scatter", "cuda",
+            stage_flags=StageFlags(*stage), scan_chunk=chunk)
+        reset_counts()
+        passes = main_passes(torch, trainer, ds)
+        launches = counts()
+        store = sorted_store(trainer.table)
+        if i == PROFILED_RUN:
+            profiled = (trainer, ds)
+        else:
+            trainer.close()
+        del trainer, ds
+        check([(p["loss"], p["auc"]) for p in passes]
+              == [(p["loss"], p["auc"]) for p in ref["passes"]]
+              and launches == ref["launches"]
+              and np.array_equal(store[0], ref["store"][0])
+              and bits_equal(store[1], ref["store"][1]),
+              "scan_chunk=%d StageFlags%s differs from the main path's run: "
+              "launches %s against %s" % (chunk, stage, launches,
+                                          ref["launches"]))
+        runs.append({"scan_chunk": chunk, "stage_flags": stage,
+                     "launches": launches,
+                     "phase_s": [p["phase_s"] for p in passes],
+                     "pass_s": [p["pass_s"] for p in passes],
+                     "examples_per_s": [p["examples_per_s"]
+                                        for p in passes]})
+        log("chunk driver scan_chunk=%d StageFlags%s: %s"
+            % (chunk, stage, json.dumps(runs[-1])))
+    log("chunk driver: per step, chunks of 8 with grouped copies and two "
+        "chunks staged ahead bit-identical to the main path's run (losses, "
+        "AUC, launches, stores) over %d runs; %s" % (len(runs), card_line()))
+
+    # --- one chunk-synchronous pass
+    trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter", "cuda",
+                                         sparse_chunk_sync=True)
+    reset_counts()
+    res, auc, secs = run_pass(torch, trainer, ds)
+    sync_launches = counts()
+    n_chunks = res["batches"] // trainer.cfg.scan_chunk
+    tail = res["batches"] - n_chunks * trainer.cfg.scan_chunk
+    check(sync_launches == {"push_adagrad": n_chunks + tail,
+                            "gather_rows": n_chunks + tail + 1,
+                            "blocked_write": 0, "scale_copy": 0},
+          "sparse_chunk_sync launches %s over %d chunks and %d tail steps"
+          % (sync_launches, n_chunks, tail))
+    sync = {"loss": res["loss"], "auc": auc, "batches": res["batches"],
+            "chunks": n_chunks, "pass_s": secs,
+            "phase_s": trainer.pass_times, "launches": sync_launches,
+            "digits": ("%.10f" % res["loss"], "%.10f" % auc)}
+    log("sparse_chunk_sync pass: loss %.10f auc %.10f %s"
+        % (res["loss"], auc, json.dumps(sync)))
+    check(sync["digits"] == SYNC_DIGITS, "sparse_chunk_sync digits %s, "
+          "expected %s" % (sync["digits"], SYNC_DIGITS))
+    trainer.close()
+    del trainer, ds
+
+    # --- the host-to-device copies of a chunked pass, by kind: a third
+    # pass of the profiled run, a delta promote and a write-back of every
+    # row as the main path's second pass is
+    trainer, ds = profiled
+    del profiled
+    prof_rec, _ = profile_pass.profile_pass(trainer, ds, warmup=False)
+    h2d = prof_rec["h2d_copies"]
+    n_chunks = prof_rec["batches"] // trainer.cfg.scan_chunk
+    check(h2d["pinned"]["copies"] == 7 * n_chunks,
+          "a chunked pass made %s host-to-device copies, expected 7 pinned "
+          "a chunk" % h2d)
+    trainer.close()
+    del trainer, ds
+    prof_rec["stage_flags"] = CHUNK_RUNS[PROFILED_RUN][1]
+    log("profile_pass, chunked pass: %s" % json.dumps(prof_rec))
+    return {"runs": runs, "sync": sync, "profile": prof_rec}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1042,44 +1267,83 @@ def main() -> int:
            props.minor, props.multi_processor_count,
            props.total_memory / 2**30))
 
-    # 2. build: the host library, then the kernels
-    t0 = time.perf_counter()
-    host_path = host_lib.build_host_lib()
-    host_lib.host_lib()
-    log("built the host library %s in %.2f s"
-        % (host_path, time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    paths = build_kernels(verbose=True)
-    log("built %s in %.2f s" % (sorted(paths), time.perf_counter() - t0))
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    # 2. build: the kernels (one nvcc a source, in parallel) while a thread
+    # builds the host library (g++) and a process of its own writes the
+    # synthetic files (the generator is bound to the interpreter); phases 3
+    # and 10 need none of them and run before they are waited for
+    clock = PhaseClock()
+    spawn = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, \
+            ProcessPoolExecutor(1, mp_context=spawn) as writer:
         cfg = flagship.FLAGSHIP
-        t0 = time.perf_counter()
         # the cadence's files, written once; the main path's are the first
         # pass's
-        windows, feed = flagship.write_cadence(os.path.join(tmp, "full"),
-                                               cfg)
+        t_data = time.perf_counter()
+        written = writer.submit(flagship.write_cadence,
+                                os.path.join(tmp, "full"), cfg)
+        host = {}
+
+        def build_host():
+            try:
+                t0 = time.perf_counter()
+                host["path"] = host_lib.build_host_lib()
+                host_lib.host_lib()
+                host["s"] = time.perf_counter() - t0
+            except BaseException as e:   # raised on the main thread
+                host["error"] = e
+
+        host_build = threading.Thread(target=build_host, name="smoke-g++")
+        host_build.start()
+        t0 = time.perf_counter()
+        paths = build_kernels(verbose=True)
+        log("built %s in %.2f s" % (sorted(paths), time.perf_counter() - t0))
+        host_build.join()
+        if "error" in host:
+            raise host["error"]
+        log("built the host library %s in %.2f s" % (host["path"], host["s"]))
+        clock.lap("build")
+
+        # 3. small-input parity, on small files of its own
+        small_parity_phase(torch, tmp)
+        clock.lap("small_parity")
+
+        # 10. the rate probe, which needs none of the flagship's files
+        reset_counts()
+        probe = rate_probe.run("cuda")
+        probe_counts = counts()
+        check(probe_counts["scale_copy"] > 0
+              and probe_counts["gather_rows"] > 0
+              and probe_counts["push_adagrad"] == 0
+              and probe_counts["blocked_write"] == 0,
+              "rate probe launches %s" % probe_counts)
+        log("rate probe launches %s over %d cases"
+            % (probe_counts, len(probe)))
+        clock.lap("rate_probe")
+
+        t0 = time.perf_counter()
+        windows, feed = written.result()
+        waited = time.perf_counter() - t0
         files = windows[0]
         keys = [flagship.sorted_pass_keys(w, feed) for w in windows]
         log("synthetic data: %d files x %d lines, three passes of %d files "
-            "(%s keys), in %.2f s"
-            % (2 * cfg.num_files, cfg.lines_per_file, cfg.num_files,
-               [k.size for k in keys], time.perf_counter() - t0))
+            "(%s keys), %.2f s after they were started, %.2f s of it waited "
+            "for after phase 10" % (2 * cfg.num_files, cfg.lines_per_file,
+                                    cfg.num_files, [k.size for k in keys],
+                                    time.perf_counter() - t_data, waited))
+        clock.lap("data")
 
-        # 3. kernels against their plain versions
+        # 4. kernels against their plain versions
         dev = torch.device("cuda")
         kernels = kernel_phase(torch, cfg, feed, files, dev)
         row_errs, gather_shapes = row_kernel_phase(torch, cfg, feed, files,
                                                    keys, dev)
-
-        # 4. small-input parity
-        small_parity_phase(torch, tmp)
+        clock.lap("kernels")
 
         # 5. the main path at full width
         trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter",
                                              "cuda")
         reset_counts()
-        passes = two_passes(torch, trainer, ds)
+        passes = main_passes(torch, trainer, ds)
         main_counts = counts()
         for p in passes:
             log("main path pass %d: loss %.10f auc %.10f %s"
@@ -1114,19 +1378,26 @@ def main() -> int:
             "rows and 2 touched-row write-backs, on the native host tier "
             "(columnar dataset, %s, route index)"
             % (main_counts, steps, n, type(trainer.table.store).__name__))
-        native_store = sorted_store(trainer.table)
+        # phase 9 holds its runs to this one; the day phase goes on from
+        # this trainer
+        main_run = {"passes": passes, "launches": main_counts,
+                    "store": sorted_store(trainer.table)}
+        main_trainer = trainer
         del trainer, ds
         plain_passes = plain_tier_phase(torch, cfg, feed, files, passes,
-                                        native_store)
-        del native_store
+                                        main_run["store"])
 
+        clock.lap("main_path")
         # 6. the incremental cadence at full width, in every mode
         cadence = cadence_phase(torch, cfg, feed, windows, keys,
                                 reset_counts, counts)
+        clock.lap("cadence")
 
         # 7. the day: test pass, run_day, load_base, xbox, resume
-        day = day_phase(torch, cfg, feed, windows, tmp, passes,
+        day = day_phase(torch, main_trainer, cfg, feed, windows, tmp,
                         reset_counts, counts)
+        del main_trainer
+        clock.lap("day")
 
         # 8. blocked mode vs scatter, same seed, bit-identical rows
         rows = {}
@@ -1153,15 +1424,15 @@ def main() -> int:
             % rows["blocked"].shape[0])
         del rows
 
-    # 9. the rate probe
-    reset_counts()
-    probe = rate_probe.run("cuda")
-    probe_counts = counts()
-    check(probe_counts["scale_copy"] > 0 and probe_counts["gather_rows"] > 0
-          and probe_counts["push_adagrad"] == 0
-          and probe_counts["blocked_write"] == 0,
-          "rate probe launches %s" % probe_counts)
-    log("rate probe launches %s over %d cases" % (probe_counts, len(probe)))
+        clock.lap("blocked")
+        # 9. the chunk driver: per step against chunked, chunk sync, the
+        # kernels at the chunk shape, the pass's copies by kind
+        chunks = chunk_phase(torch, cfg, feed, files, main_run, reset_counts,
+                             counts)
+        del main_run
+        chunk_shapes = chunk_kernel_phase(torch, cfg, feed, files, dev)
+        clock.lap("chunk_driver")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -1171,14 +1442,20 @@ def main() -> int:
                 "gather_rows": main_counts["gather_rows"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] in chunk_shapes:
+            k.setdefault("at_shapes", {})["chunk"] = chunk_shapes[k["name"]]
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
                               **{"cadence_" + m: c["launches"]
                                  for m, c in cadence.items()},
                               "test_pass": day["test_pass"]["launches"],
-                              "day": day["launches"]},
+                              "day": day["launches"],
+                              "chunk_sync": chunks["sync"]["launches"]},
+                    "h2d_copies_chunked_pass": chunks["profile"][
+                        "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))
+    log("phase seconds: %s" % json.dumps(clock.laps))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

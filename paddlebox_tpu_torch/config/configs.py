@@ -94,7 +94,19 @@ class CheckpointConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """Dense optimizer settings of the trainer: Adam (the only dense
-    optimizer of this slice) at dense_lr."""
+    """The trainer's settings: dense Adam (the only dense optimizer of the
+    port) at dense_lr, and the chunk driver.
+
+    scan_chunk: batches run back to back as one chunk (the JAX package's
+    lax.scan megastep); 1 runs each batch as its own step. A pass with at
+    least one full chunk goes through the chunk driver; its tail batches
+    step one by one. sparse_chunk_sync: one pull and one merged push a
+    chunk (pulls read the chunk-start rows), dense Adam per batch; chunks
+    of one batch, and chunks whose batches share no key, give exactly the
+    per-batch results. check_nan_inf: a pass raises FloatingPointError at
+    the first chunk (or tail step) with a non-finite loss."""
 
     dense_lr: float = 1e-3
+    check_nan_inf: bool = False
+    scan_chunk: int = 8
+    sparse_chunk_sync: bool = False

@@ -1,9 +1,10 @@
-"""The switches the port reads: the push write, the pass lifecycle and the
-checkpoint plane.
+"""The switches the port reads: the push write, the pass lifecycle, the
+chunk driver's staging and the checkpoint plane.
 
 The JAX package keeps these in a process-wide flag registry
 (paddlebox_tpu/config/flags.py: ``push_write``, ``push_block_rows``,
-``incremental_pass``, ``preload_promote``, ``ckpt_*``). The port passes
+``incremental_pass``, ``preload_promote``, ``stack_threads``,
+``chunk_prefetch_depth``, ``h2d_stack_chunks``, ``ckpt_*``). The port passes
 them as values to the trainer, the pass table and the checkpoint manager
 instead, so two trainers in one process can run different modes side by
 side.
@@ -56,6 +57,34 @@ class PassFlags:
 
     incremental_pass: bool = True
     preload_promote: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class StageFlags:
+    """The chunk driver's host staging (paddlebox_tpu/config/flags.py:
+    137-177). stack_threads: threads that stage the batches of a chunk
+    (route lookup and dedup), in batch order; 1 or less stages on the
+    calling thread. chunk_prefetch_depth: chunks staged ahead on a producer
+    thread while the device trains; 0 stages each chunk between two
+    dispatches. h2d_stack_chunks: chunks whose staged arrays share one
+    host-to-device copy a leaf. The trainer reads them at the start of
+    every pass."""
+
+    stack_threads: int = 4
+    chunk_prefetch_depth: int = 1
+    h2d_stack_chunks: int = 1
+
+    def __post_init__(self):
+        for name in ("stack_threads", "chunk_prefetch_depth",
+                     "h2d_stack_chunks"):
+            if not isinstance(getattr(self, name), int):
+                raise TypeError("%s must be an int, got %r"
+                                % (name, getattr(self, name)))
+        if self.chunk_prefetch_depth < 0 or self.h2d_stack_chunks < 1:
+            raise ValueError("chunk_prefetch_depth must be >= 0 and "
+                             "h2d_stack_chunks >= 1, got %d and %d"
+                             % (self.chunk_prefetch_depth,
+                                self.h2d_stack_chunks))
 
 
 CKPT_FORMATS = ("columnar", "pickle")

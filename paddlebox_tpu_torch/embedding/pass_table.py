@@ -378,7 +378,10 @@ class PassTable:
     def note_touched(self, ids: np.ndarray) -> None:
         """Mark the rows of ``ids`` touched this pass (lookup_ids calls it
         for every batch): end_pass writes back only those. No-op outside an
-        incremental pass."""
+        incremental pass. The chunk driver's staging threads call it at
+        once: each writes True into its own rows' bytes of one bool array,
+        and nothing reads the array before end_pass, so the writes need no
+        lock."""
         if self._touched is not None:
             self._touched[ids] = True
             self._touch_seen = True

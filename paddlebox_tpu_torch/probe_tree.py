@@ -1,5 +1,5 @@
 """``--tree DIR`` for the probes run by path (push_probe.py, copy_probe.py,
-cadence_probe.py).
+cadence_probe.py, profile_pass.py).
 
     python3 paddlebox_tpu_torch/<probe>.py [--tree DIR]
 

@@ -1,13 +1,17 @@
 """Where a full-width train pass spends its time on the GPU.
 
     python3 -m paddlebox_tpu_torch.profile_pass [--out DIR]
+    python3 paddlebox_tpu_torch/profile_pass.py [--out DIR] [--tree DIR]
 
 Builds the flagship trainer and data (train/flagship.py, the configuration
 whose two passes chip_smoke.py drives as its main path), runs the first
 pass as a warm-up, then profiles the second with torch.profiler (CPU + CUDA
 activity). With the incremental lifecycle (the default) the second pass is
 a delta promote that keeps every row on the device, and a touched-row
-write-back; its row counters are printed. It prints:
+write-back; its row counters are printed. ``--tree DIR`` (run by path;
+probe_tree.py) profiles the ``paddlebox_tpu_torch`` of DIR, so the
+parent's port (one step at a time) and this one (chunks of 8 through the
+chunk driver) run in the same call. It prints:
 
   * one JSON line: the pass's host phase seconds (BoxTrainer.pass_times),
     the step loop's wall seconds, the device busy seconds inside it (the
@@ -19,7 +23,9 @@ write-back; its row counters are printed. It prints:
     PyTorch operators (``push_torch_ops``); and the pass's calls of the
     PyTorch operators the unfused push ran (``torch_op_calls``: the click
     lookup keeps one index_select a step, the pool one searchsorted and
-    one segment_reduce);
+    one segment_reduce); and the pass's host-to-device copies by kind
+    (``h2d_copies``: pinned or pageable source, count and device
+    seconds);
   * the 25 device operators with the most GPU time (key_averages).
 
 Needs a CUDA device; writes the Chrome trace to DIR/pass_trace.json when
@@ -31,8 +37,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import tempfile
 import time
+from typing import Dict, Optional
 
 
 def _busy_union(intervals):
@@ -81,17 +89,32 @@ def _push_ops(events):
     return len(spans), launches, ops
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default="")
-    args = ap.parse_args()
+def h2d_copies(device_events) -> Dict[str, Dict[str, float]]:
+    """The host-to-device copies among ``device_events`` (the profiler's
+    CUDA events), by the kind of their host memory: {"pinned": {"copies",
+    "device_s"}, "pageable": {...}}."""
+    out = {kind: {"copies": 0, "device_s": 0.0}
+           for kind in ("pinned", "pageable")}
+    for e in device_events:
+        name = e.name
+        if "HtoD" not in name:
+            continue
+        kind = "pinned" if "Pinned" in name else "pageable"
+        out[kind]["copies"] += 1
+        out[kind]["device_s"] += (e.time_range.end
+                                  - e.time_range.start) / 1e6
+    return out
 
+
+def profile_pass(trainer, ds, out_dir: str = "", warmup: bool = True):
+    """Warm the trainer up with one pass (unless ``warmup`` is False: it
+    has trained already), then profile its next one: (the record printed
+    as this script's JSON line, the profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from paddlebox_tpu_torch.device import card_line
     from paddlebox_tpu_torch.native.build import KERNEL_SOURCES
-    from paddlebox_tpu_torch.train import flagship
     from paddlebox_tpu_torch.train import trainer as trainer_mod
 
     push = trainer_mod.push_sparse_hostdedup
@@ -102,13 +125,9 @@ def main() -> int:
 
     # the train step looks the push up by name at each call
     trainer_mod.push_sparse_hostdedup = traced_push
-
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_pass needs a CUDA device")
-    with tempfile.TemporaryDirectory(prefix="profile_pass_") as tmp:
-        files, feed = flagship.write_files(tmp)
-        trainer, ds = flagship.build_trainer(files, feed, device="cuda")
-        trainer.train_pass(ds)  # warm-up: allocator, cuBLAS handles, build
+    try:
+        if warmup:
+            trainer.train_pass(ds)  # allocator, cuBLAS, kernels
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -116,6 +135,8 @@ def main() -> int:
             res = trainer.train_pass(ds)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+    finally:
+        trainer_mod.push_sparse_hostdedup = push
     dev = [e for e in prof.events()
            if getattr(e, "device_type", None) is not None
            and str(e.device_type).endswith("CUDA")]
@@ -133,8 +154,13 @@ def main() -> int:
     spans, push_launches, push_ops = _push_ops(prof.events())
     op_calls = {a.key: a.count for a in prof.key_averages()
                 if a.key in PUSH_TORCH_OPS}
-    print(json.dumps({
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "pass_trace.json"))
+    return {
         "card": card_line(),
+        "scan_chunk": getattr(getattr(trainer, "cfg", None), "scan_chunk",
+                              None),
         "batches": res["batches"], "pass_wall_s": wall,
         "phase_s": trainer.pass_times,
         "device_events": len(dev), "device_busy_s": busy_s,
@@ -148,14 +174,43 @@ def main() -> int:
         "push_spans": spans, "push_launches": push_launches,
         "push_torch_ops": push_ops,
         "torch_op_calls": {k: op_calls.get(k, 0) for k in PUSH_TORCH_OPS},
-    }), flush=True)
+        "h2d_copies": h2d_copies(dev),
+    }, prof
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default="")
+    return ap
+
+
+def main(argv=None) -> int:
+    return measure(_parser().parse_args(argv).out)
+
+
+def measure(out_dir: str, tree: Optional[str] = None) -> int:
+    """Profile the flagship's second pass on the ``paddlebox_tpu_torch``
+    that is on sys.path (``tree`` names it in the output)."""
+    import torch
+
+    from paddlebox_tpu_torch.train import flagship
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_pass needs a CUDA device")
+    with tempfile.TemporaryDirectory(prefix="profile_pass_") as tmp:
+        files, feed = flagship.write_files(tmp)
+        trainer, ds = flagship.build_trainer(files, feed, device="cuda")
+        rec, prof = profile_pass(trainer, ds, out_dir)
+    rec["tree"] = tree
+    print(json.dumps(rec), flush=True)
     print(prof.key_averages().table(sort_by="device_time_total",
                                     row_limit=25), flush=True)
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.out, "pass_trace.json"))
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    if __package__:   # python3 -m paddlebox_tpu_torch.profile_pass
+        raise SystemExit(main())
+    import probe_tree   # run by path: from this file's directory
+    _args = probe_tree.parse_args(_parser())
+    sys.exit(measure(_args.out, _args.tree))

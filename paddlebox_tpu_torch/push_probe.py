@@ -39,8 +39,9 @@ import tempfile
 SEED = 987654321
 
 
-def push_inputs(cfg, files, feed):
-    """One step's push inputs as numpy arrays: ids [K], the slab [C, W],
+def push_inputs(cfg, files, feed, ids=None):
+    """One step's push inputs as numpy arrays (of the first flagship batch,
+    or of the slab ids ``ids`` when given): ids [K], the slab [C, W],
     per-occurrence push rows grads [K, G], the host dedup (uids, perm, inv,
     n_uniq), n_valid, and per key slot ``live`` (a real key whose rows are
     not zero) and per slab row ``kind`` (0 create: mf_size 0; 1 update; 2
@@ -55,7 +56,8 @@ def push_inputs(cfg, files, feed):
     D, C = cfg.embedx, cfg.capacity
     layout, push = ValueLayout(D), PushLayout(D)
     W, G = layout.width, push.width
-    ids = flagship.first_batch_ids(files, feed, cfg)
+    if ids is None:
+        ids = flagship.first_batch_ids(files, feed, cfg)
     K = ids.shape[0]
     uids, perm, inv, n_uniq = dedup_ids(ids, C)
     rng = np.random.RandomState(11)

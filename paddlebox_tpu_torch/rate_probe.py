@@ -1,6 +1,6 @@
 """How close the port's hand-written kernels come to the card's memory rate.
 
-    python3 -m paddlebox_tpu_torch.rate_probe
+    python3 -m paddlebox_tpu_torch.rate_probe [--scale-balanced N]
 
 Port of tools/pallas_rate_probe.py, which asked on the TPU whether a
 hand-written streaming kernel, and a row gather at the pull's shape, run at
@@ -29,6 +29,11 @@ share of the H100's 3.35 TB/s, and for a kernel case its plain version's ms.
 
 ``time_chain`` is the one device timer of the port's kernel measurements:
 chip_smoke.py times every kernel, plain version and library call with it.
+
+``--scale-balanced N`` times only the 64 MiB scale: scale_copy (A) against
+the one-call ``torch_scale`` (B), N rounds of A, B, B, A in one process, one
+JSON line a timing, then each side's median, quartiles and the median of
+the per-round ratios A / B (``scale_balanced``).
 
 Runs on the card by default and raises without one. ``run(device="cpu",
 sizes=...)`` runs the plain versions at the sizes given, once each and
@@ -246,5 +251,47 @@ def run(device: DeviceLike = None, sizes: ProbeSizes = PROBE) -> List[dict]:
     return records
 
 
+def scale_balanced(rounds: int, device: DeviceLike = None) -> dict:
+    """scale_copy against torch_scale at 64 MiB, ``rounds`` rounds of A, B,
+    B, A on the same inputs; prints one line a timing and returns the
+    summary."""
+    dev = resolve_device(device)
+    x = torch.from_numpy(probe_inputs()[0][0]).to(dev)
+    nbytes = 2 * x.numel() * 4
+    sides = {"A": ("scale_copy", scale_copy), "B": ("torch_scale",
+                                                    torch_scale)}
+    times = {"A": [], "B": []}
+    ratios = []
+    for r in range(rounds):
+        got = {}
+        for pos, side in enumerate("ABBA"):
+            ms = time_chain(sides[side][1], (x,), nbytes)
+            times[side].append(ms)
+            got.setdefault(side, []).append(ms)
+            print(json.dumps({"round": r, "pos": pos, "op": sides[side][0],
+                              "ms": ms}), flush=True)
+        ratios.append(statistics.mean(got["A"]) / statistics.mean(got["B"]))
+
+    def quart(xs):
+        q = statistics.quantiles(xs, n=4, method="inclusive")
+        return {"median": q[1], "q1": q[0], "q3": q[2], "min": min(xs),
+                "max": max(xs), "n": len(xs)}
+
+    out = {"scale_balanced": {
+        "card": card_line(), "bytes": nbytes,
+        "scale_copy_ms": quart(times["A"]),
+        "torch_scale_ms": quart(times["B"]),
+        "ratio_a_over_b": quart(ratios)}}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 if __name__ == "__main__":
-    run()
+    import argparse
+    _ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    _ap.add_argument("--scale-balanced", type=int, default=0)
+    _args = _ap.parse_args()
+    if _args.scale_balanced:
+        scale_balanced(_args.scale_balanced)
+    else:
+        run()

@@ -33,7 +33,7 @@ import torch
 from paddlebox_tpu_torch.config.configs import (DataFeedConfig,
                                                 SparseOptimizerConfig,
                                                 TableConfig, TrainerConfig)
-from paddlebox_tpu_torch.config.flags import PassFlags, PushFlags
+from paddlebox_tpu_torch.config.flags import PassFlags, PushFlags, StageFlags
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.generator import write_synthetic_ctr_files
 from paddlebox_tpu_torch.device import DeviceLike
@@ -120,30 +120,50 @@ def first_batch_ids(files: List[str], feed: DataFeedConfig,
                     cfg.capacity - 1).astype(np.int32)
 
 
+def first_chunk_ids(files: List[str], feed: DataFeedConfig,
+                    cfg: Flagship = FLAGSHIP, chunk: int = 8) -> np.ndarray:
+    """int32 [chunk * batch * num_slots * max_len] slab ids of the first
+    ``chunk`` batches of ``files`` (unshuffled), one after another as a
+    chunk-synchronous chunk flattens them, against the pass table of
+    ``files``; padding key slots on the trash row."""
+    ds, pass_keys = _load(files, feed)
+    group = ds.split_batches(1)[0][:chunk]
+    if len(group) < chunk:
+        raise ValueError("%d batches, fewer than a chunk of %d"
+                         % (len(group), chunk))
+    return np.concatenate([
+        np.where(b.valid, np.searchsorted(pass_keys, b.keys),
+                 cfg.capacity - 1).astype(np.int32) for b in group])
+
+
 def build_trainer(files: List[str], feed: DataFeedConfig,
                   cfg: Flagship = FLAGSHIP, push_write: str = "scatter",
                   device: DeviceLike = None, seed: int = 0,
                   pass_flags: PassFlags = PassFlags(),
-                  plain_host: bool = False
-                  ) -> Tuple[BoxTrainer, BoxDataset]:
+                  plain_host: bool = False,
+                  stage_flags: StageFlags = StageFlags(),
+                  **trainer_fields) -> Tuple[BoxTrainer, BoxDataset]:
     """(trainer with an 'auc' metric, dataset over ``files``): DeepFM with
     weights from ``seed``, ready for ``trainer.train_pass(dataset)``.
 
     The host tier is the native one (the columnar dataset, the C++ store,
     the route index); ``plain_host`` puts the dataset on the record path
     and the table on the Python store, the plain versions the native run
-    is held bit-equal to."""
+    is held bit-equal to. ``trainer_fields`` are TrainerConfig fields
+    (scan_chunk, sparse_chunk_sync, check_nan_inf) beside dense_lr: by
+    default the pass runs through the chunk driver in chunks of 8."""
     model = DeepFM(ModelSpec(num_slots=cfg.num_slots,
                              slot_dim=3 + cfg.embedx),
                    hidden=cfg.hidden,
                    generator=torch.Generator().manual_seed(seed))
     trainer = BoxTrainer(model, cfg.table(), feed,
-                         TrainerConfig(dense_lr=DENSE_LR), seed=seed,
-                         flags=PushFlags(push_write, BLOCK_ROWS),
+                         TrainerConfig(dense_lr=DENSE_LR, **trainer_fields),
+                         seed=seed, flags=PushFlags(push_write, BLOCK_ROWS),
                          device=device, pass_flags=pass_flags,
                          store=(HostEmbeddingStore(ValueLayout(cfg.embedx),
                                                    cfg.table(), seed)
-                                if plain_host else None))
+                                if plain_host else None),
+                         stage_flags=stage_flags)
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
     ds = BoxDataset(feed, columnar=not plain_host)
     ds.set_filelist(files)

@@ -1,9 +1,10 @@
-"""Pass-cadenced single-device trainer.
+"""Pass-cadenced single-device trainer and its chunk driver.
 
-Counterpart of paddlebox_tpu/train/trainer.py (make_train_step :543-742,
-eval_step :887-893, BoxTrainer :914-1000, host_batch :1149-1208, train_pass
-:1220-1402, predict_batches :1527-1549) for one GPU: a Python loop of steps,
-each
+Counterpart of paddlebox_tpu/train/trainer.py (make_scan :93-118,
+run_scan_chunks :120-303, make_train_step :543-742 with scan_chunk_fn
+:747-855, eval_step :887-893, BoxTrainer :914-1000, the staging pool and
+host_batch :1041-1208, train_pass :1220-1402, predict_batches :1527-1549)
+for one GPU. A step is
 
     pull (slab row gather) -> fused seqpool+CVM -> DeepFM forward/backward
     (autograd) -> masked BCE -> dense Adam -> build_push_grads -> push
@@ -13,15 +14,28 @@ each
 around the pass lifecycle feed -> begin_pass -> train -> metrics ->
 end_pass (incremental by default: PassFlags, embedding/pass_table.py;
 train/preload.py overlaps the next pass's feed with this one's steps). The
-slab is updated in place (the JAX step donates it). Losses
-and predictions stay on the device until the pass ends, then come back in
-one copy each: no per-step host sync.
+slab is updated in place (the JAX step donates it).
 
-Every step's push takes an int32 seed for the creation hash. The trainer
-draws it from its own ``torch.Generator(seed)`` through ``seed_fn``; a caller
-may replace ``seed_fn`` (any zero-argument callable returning a nonnegative
-int32), which is how the parity tests replay the JAX trainer's per-step
-seeds.
+A pass with at least one full chunk of ``TrainerConfig.scan_chunk``
+batches goes through ``run_scan_chunks``, the reference's default driver:
+a pool of ``StageFlags.stack_threads`` threads stages each chunk's batches
+(route lookup and dedup) in batch order, a producer thread stages
+``chunk_prefetch_depth`` chunks ahead, and on the card each group of
+``h2d_stack_chunks`` chunks rides pinned buffers and one copy a leaf on a
+copy stream (train/staging.py). ``scan_steps`` then queues the chunk's
+steps back to back with no host sync, and chunk i's losses (and
+predictions, when a metric reads them) come back after chunk i+1 is
+queued. The tail batches step one by one, their losses and predictions
+copied back once at the end of the pass. With ``sparse_chunk_sync`` a
+chunk is one pull, one seqpool over the chunk's C * batch instances, dense
+Adam per batch, and one merged push (``make_chunk_step``).
+
+Every push takes an int32 seed for the creation hash. The trainer draws it
+from its own ``torch.Generator(seed)`` through ``seed_fn``, on the thread
+that queues the steps, one a step in step order (one a chunk under
+``sparse_chunk_sync``), as the JAX scan splits its key; a caller may
+replace ``seed_fn`` (any zero-argument callable returning a nonnegative
+int32), which is how the parity tests replay the JAX trainer's seeds.
 
 An eval step (``make_eval_step``, ``predict_batches``) is the pull, the
 fused seqpool+CVM and the forward under ``torch.no_grad()``: no backward,
@@ -32,8 +46,12 @@ convert.py).
 
 from __future__ import annotations
 
+import queue
+import sys
+import threading
 import time
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +59,8 @@ import torch.nn.functional as F
 
 from paddlebox_tpu_torch.config.configs import (DataFeedConfig, TableConfig,
                                                 TrainerConfig)
-from paddlebox_tpu_torch.config.flags import PassFlags, PushFlags
+from paddlebox_tpu_torch.config.flags import (PassFlags, PushFlags,
+                                              StageFlags)
 from paddlebox_tpu_torch.convert import (adam_state_from_numpy,
                                          adam_state_to_numpy,
                                          params_from_jax, params_to_numpy)
@@ -57,8 +76,12 @@ from paddlebox_tpu_torch.ops.seqpool import fused_seqpool_cvm
 from paddlebox_tpu_torch.ops.sparse import (build_push_grads,
                                             gather_slab_rows,
                                             pull_view_from_rows)
+from paddlebox_tpu_torch.train.staging import (DeviceChunk, HostChunk,
+                                               PinnedRing, to_cpu)
 
 Batch = Dict[str, object]
+# a stager still alive this long after the consumer stopped raises
+STAGER_GRACE_S = 60.0
 
 
 def masked_bce(logits: torch.Tensor, labels: torch.Tensor,
@@ -131,6 +154,249 @@ def make_eval_step(model: torch.nn.Module, layout: ValueLayout,
     return eval_step
 
 
+def make_scan(step_fn: Callable) -> Callable:
+    """scan_steps(slab, stacked, seeds) -> (losses [C], preds [C, batch]):
+    the chunk's C steps queued back to back through ``step_fn``, batch c
+    from row c of each [C, ...] leaf of ``stacked`` (a DeviceChunk's
+    ``stacked``) with seed ``seeds[c]``, and no host sync between them (the
+    counterpart of the JAX lax.scan megastep)."""
+
+    def scan_steps(slab: torch.Tensor, stacked: Dict, seeds: Sequence[int]):
+        losses, preds = [], []
+        for c, seed in enumerate(seeds):
+            loss, p = step_fn(slab, {k: v[c] for k, v in stacked.items()},
+                              seed)
+            losses.append(loss)
+            preds.append(p)
+        return torch.stack(losses), torch.stack(preds)
+
+    return scan_steps
+
+
+def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
+                    table: TableConfig, dense_opt: torch.optim.Optimizer,
+                    batch_size: int, num_slots: int,
+                    push_write: str = "scatter",
+                    block_rows: int = 1024) -> Callable:
+    """chunk_step(slab, stacked, cpush, seed) -> (losses [C], preds [C,
+    batch]): the chunk-synchronous sparse megastep (scan_chunk_fn,
+    paddlebox_tpu/train/trainer.py:755-845). ONE pull of the chunk's C*K
+    ids at the chunk-start slab, ONE seqpool over its C * batch instances
+    (batch c's segments offset by c * batch * num_slots; each batch's real
+    key slots, its first n_valid, cut out and joined), the dense model per
+    batch in order, each with its own Adam step on its pooled input as a
+    detached leaf, then one vector-Jacobian product through the pool from
+    the collected pooled-space grads to per-key grads, and ONE merged push
+    over the chunk's dedup ``cpush`` (uids, perm, offsets over the flat
+    C*K occurrences, n_uniq) with one seed. Updates ``slab`` and the
+    model IN PLACE."""
+    conf = table.optimizer
+    padding_id = table.pass_capacity - 1
+    instances = batch_size * num_slots
+
+    def chunk_step(slab: torch.Tensor, stacked: Dict, cpush: Dict,
+                   seed: int):
+        ids = stacked["ids"]
+        C, K = ids.shape
+        ids_flat = ids.reshape(C * K)
+        valid = ids_flat != padding_id
+        seg = (stacked["segments"]
+               + (torch.arange(C, dtype=stacked["segments"].dtype,
+                               device=ids.device) * instances)[:, None]
+               ).reshape(C * K)
+        emb = pull_view_from_rows(gather_slab_rows(slab, ids_flat),
+                                  layout).requires_grad_(True)
+        # batch c's real key slots are its first n_valid[c]: the pool
+        # skips the padding tails instead of summing their zeros
+        live = [slice(c * K, c * K + n)
+                for c, n in enumerate(stacked["n_valid"])]
+        emb_live = torch.cat([emb[s] for s in live])
+        pooled = fused_seqpool_cvm(
+            emb_live, torch.cat([seg[s] for s in live]),
+            torch.cat([valid[s] for s in live]), C * batch_size, num_slots,
+            emb_live.shape[0])
+        pooled_c = pooled.detach().view((C, batch_size) + pooled.shape[1:])
+        losses, preds, dpooled = [], [], []
+        for c in range(C):
+            x = pooled_c[c].requires_grad_(True)
+            loss, p = masked_bce(model(x), stacked["labels"][c],
+                                 stacked["ins_valid"][c])
+            dense_opt.zero_grad(set_to_none=True)
+            loss.backward()
+            dense_opt.step()
+            losses.append(loss.detach())
+            preds.append(p.detach())
+            dpooled.append(x.grad)
+        (d_emb,) = torch.autograd.grad(
+            pooled, emb, torch.stack(dpooled).view_as(pooled))
+        clicks = stacked["labels"].reshape(C * batch_size).index_select(
+            0, seg // num_slots)
+        push_grads = build_push_grads(d_emb, seg % num_slots, clicks, valid)
+        push_sparse_hostdedup(slab, cpush["uids"], cpush["perm"],
+                              cpush["offsets"], cpush["n_uniq"], push_grads,
+                              seed, layout, conf, write=push_write,
+                              block_rows=block_rows)
+        return torch.stack(losses), torch.stack(preds)
+
+    return chunk_step
+
+
+def run_scan_chunks(scan_call: Callable, items, chunk: int,
+                    stack_fn: Callable, carry,
+                    on_chunk: Callable,
+                    n_items: Optional[int] = None,
+                    chunk1_ok: bool = False,
+                    prefetch_depth: int = 0,
+                    transfer_group: int = 1,
+                    group_fn: Optional[Callable] = None):
+    """Drive ``scan_call`` over the full chunks of ``items``, double
+    buffered: chunk i+1 is staged and queued BEFORE chunk i's results come
+    back to the host, so staging and the drain of results overlap device
+    work (paddlebox_tpu/train/trainer.py:120-303, without its timer: the
+    trainer times its phases in pass_times).
+
+    items: a list, or a bounded iterator with ``n_items`` given. Exactly
+    n_consumed items are pulled either way, so the caller's per-step loop
+    continues from items[n_consumed:]. chunk=1 drives nothing unless
+    ``chunk1_ok`` (the chunk-synchronous mode runs its one-batch chunks
+    through its chunk step).
+
+    scan_call(carry, staged) -> (carry, losses_dev, preds_dev) queues one
+    chunk; the carry is opaque here. stack_fn(group) stages one chunk;
+    on_chunk(lo, group, losses_np, preds_dev) takes a chunk's results
+    (metrics, the nan guard) once its losses are on the host.
+
+    prefetch_depth > 0 stages up to that many chunks ahead on a producer
+    thread (``stack_fn`` must be safe to call off the calling thread). Its
+    queue is bounded; an error of the producer, any BaseException, is
+    raised at the consumer's get. On any exit of the consumer the stop
+    event is set and the producer is drained and joined; a producer still
+    alive after STAGER_GRACE_S raises (or, while another error unwinds,
+    is reported on stderr) rather than being left running.
+
+    With ``group_fn``, stack_fn stages on the host and group_fn(list of
+    staged) moves ``transfer_group`` chunks (fewer at the end) to the
+    device at once.
+
+    Returns (carry, losses, n_consumed); losses are the chunks' per-step
+    losses as host numpy scalars, in order."""
+    losses_all: List = []
+    if n_items is None:
+        n_items = len(items)
+    it = iter(items)
+    n_full = ((n_items // chunk) * chunk
+              if (chunk > 1 or chunk1_ok) else 0)
+    pending = None  # (lo, group, losses_dev, preds_dev)
+    stop: Optional[threading.Event] = None
+
+    def drain(p) -> None:
+        lo, group, losses_dev, preds_dev = p
+        losses_np = (losses_dev.cpu().numpy()
+                     if isinstance(losses_dev, torch.Tensor)
+                     else np.asarray(losses_dev))
+        losses_all.extend(losses_np)
+        on_chunk(lo, group, losses_np, preds_dev)
+
+    def chunks():
+        # the one definition of chunk grouping and staging, shared by the
+        # inline and the producer paths
+        for lo in range(0, n_full, chunk):
+            if stop is not None and stop.is_set():
+                return
+            group = [next(it) for _ in range(chunk)]
+            yield lo, group, stack_fn(group)
+
+    def transfer(src):
+        if group_fn is None:
+            yield from src
+            return
+        buf: List = []
+
+        def emit(b):
+            for (lo, group, _), dev in zip(b, group_fn([x[2] for x in b])):
+                yield lo, group, dev
+
+        for item in src:
+            buf.append(item)
+            if len(buf) >= transfer_group:
+                yield from emit(buf)
+                buf = []
+        if buf:
+            yield from emit(buf)
+
+    producer: Optional[threading.Thread] = None
+    if prefetch_depth > 0 and n_full:
+        q: "queue.Queue" = queue.Queue(maxsize=prefetch_depth)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce() -> None:
+            try:
+                for item in transfer(chunks()):
+                    if not put(item):
+                        return
+            except BaseException as e:   # raised at the consumer's get
+                put(e)
+
+        producer = threading.Thread(target=produce, daemon=True,
+                                    name="chunk-stager")
+        producer.start()
+
+        def staged_chunks():
+            for _ in range(0, n_full, chunk):
+                item = q.get()
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        source = staged_chunks()
+    else:
+        source = transfer(chunks())
+
+    try:
+        for lo, group, staged in source:
+            carry, losses, preds = scan_call(carry, staged)
+            if pending is not None:
+                drain(pending)
+            pending = (lo, group, losses, preds)
+        if pending is not None:
+            drain(pending)
+    finally:
+        if producer is not None:
+            # the consumer left (done or raising): stop the stager so it
+            # cannot go on reading the table into the caller's next pass,
+            # then unblock and join it; one mid-stack_fn finishes that
+            # chunk, sees the flag and exits
+            stop.set()
+            deadline = time.monotonic() + STAGER_GRACE_S
+            while producer.is_alive():
+                try:
+                    while True:
+                        q.get_nowait()
+                except queue.Empty:
+                    pass
+                producer.join(timeout=1.0)
+                if producer.is_alive() and time.monotonic() > deadline:
+                    if sys.exc_info()[1] is not None:
+                        # keep the root cause that is unwinding
+                        print("chunk-stager did not stop within %.0f s "
+                              "while %r unwound" % (STAGER_GRACE_S,
+                                                    sys.exc_info()[1]),
+                              file=sys.stderr)
+                        break
+                    raise RuntimeError(
+                        "chunk-stager did not stop within %.0f s; not "
+                        "returning with a live stager" % STAGER_GRACE_S)
+    return carry, losses_all, n_full
+
+
 class BoxTrainer:
     """Single-device trainer over one PassTable + model."""
 
@@ -141,16 +407,23 @@ class BoxTrainer:
                  flags: Optional[PushFlags] = None,
                  device: DeviceLike = None,
                  pass_flags: Optional[PassFlags] = None,
-                 store=None) -> None:
+                 store=None,
+                 stage_flags: Optional[StageFlags] = None) -> None:
         """``store``: the table's host store (PassTable's default, the
-        native one, when None)."""
+        native one, when None). ``stage_flags``: the chunk driver's
+        staging, read at the start of every pass (``self.stage_flags`` may
+        be replaced between passes)."""
+        self.cfg = trainer_cfg or TrainerConfig()
+        if self.cfg.scan_chunk < 1:
+            raise ValueError("scan_chunk must be >= 1, got %r"
+                             % (self.cfg.scan_chunk,))
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 stays f32: no TF32 in matmuls or convolutions
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.cfg = trainer_cfg or TrainerConfig()
         self.flags = flags or PushFlags()
+        self.stage_flags = stage_flags or StageFlags()
         self.feed = feed
         self.table = PassTable(table_cfg, seed=seed, device=self.device,
                                flags=pass_flags, store=store)
@@ -168,9 +441,20 @@ class BoxTrainer:
             self.model, self.table.layout, table_cfg, self.dense_opt,
             feed.batch_size, self.num_slots, push_write=self.push_write,
             block_rows=self.flags.push_block_rows)
+        self.scan_steps = make_scan(self.step_fn)
+        self.chunk_fn = (make_chunk_step(
+            self.model, self.table.layout, table_cfg, self.dense_opt,
+            feed.batch_size, self.num_slots, push_write=self.push_write,
+            block_rows=self.flags.push_block_rows)
+            if self.cfg.sparse_chunk_sync else None)
         self.eval_fn = make_eval_step(self.model, self.table.layout,
                                       table_cfg, feed.batch_size,
                                       self.num_slots)
+        # the staging pool (threads, executor) and the pinned ring, made at
+        # first use
+        self._stage_pool: Tuple[int, Optional[ThreadPoolExecutor]] = (0,
+                                                                      None)
+        self._ring: Optional[PinnedRing] = None
         self._shuffle_rng = np.random.RandomState(seed + 1)
         self._seed_gen = torch.Generator().manual_seed(seed)
         self.seed_fn: Callable[[], int] = self._draw_seed
@@ -212,34 +496,110 @@ class BoxTrainer:
         adam_state_from_numpy(self.model, self.dense_opt, opt_state)
 
     # ---------------------------------------------------------- batch utils
-    def device_batch(self, b: PackedBatch, ids: np.ndarray) -> Batch:
-        """Host staging of one batch, then one copy per array to the
-        device: ids and the push's sorted dedup products (uids, perm and
-        the segment offsets of each unique's real occurrences), plus two
-        ints: n_uniq (real uids) and n_valid (real key slots; the packer
-        puts them before its padding tail). In test mode the batch never
-        pushes, so it carries no dedup products and no n_uniq."""
+    def host_batch(self, b: PackedBatch, ids: np.ndarray,
+                   skip_push_dedup: bool = False) -> Dict[str, object]:
+        """Host staging of one batch: ids and the packed arrays, and the
+        push's sorted dedup products (uids, perm and the segment offsets
+        of each unique's run of real occurrences), plus two host ints:
+        n_uniq (real uids) and n_valid (real key slots; the packer puts
+        them before its padding tail). Test mode, or ``skip_push_dedup``
+        (a chunk-synchronous chunk dedups once over the whole chunk),
+        leaves out the dedup products and n_uniq."""
         n_valid = int(b.valid.sum())
-        host = {"ids": ids, "segments": b.segments,
-                "ins_valid": b.ins_valid, "labels": b.labels}
-        ints = {"n_valid": n_valid}
-        if not self.table.test_mode:
-            uids, perm, inv, ints["n_uniq"] = self.table.dedup_for_push(ids)
-            host.update(uids=uids, perm=perm,
-                        offsets=segment_offsets(inv, n_valid))
-        out: Batch = {k: torch.from_numpy(v).to(self.device)
-                      for k, v in host.items()}
-        out.update(ints)
+        out: Dict[str, object] = {"ids": ids, "segments": b.segments,
+                                  "ins_valid": b.ins_valid,
+                                  "labels": b.labels, "n_valid": n_valid}
+        if not self.table.test_mode and not skip_push_dedup:
+            uids, perm, inv, out["n_uniq"] = self.table.dedup_for_push(ids)
+            out.update(uids=uids, perm=perm,
+                       offsets=segment_offsets(inv, n_valid))
         return out
 
-    def train_batch(self, b: PackedBatch):
-        """One step on one packed batch inside an open pass: (loss, preds)
-        as device tensors."""
-        ids = self.table.lookup_ids(b.keys, b.valid)
-        batch = self.device_batch(b, ids)
-        loss, preds = self.step_fn(self.table.slab, batch, self.seed_fn())
-        self._step_count += 1
-        return loss, preds
+    def device_batch(self, b: PackedBatch, ids: np.ndarray) -> Batch:
+        """host_batch, then one copy per array to the device (the per-step
+        path's pageable copies)."""
+        return {k: (torch.from_numpy(v).to(self.device)
+                    if isinstance(v, np.ndarray) else v)
+                for k, v in self.host_batch(b, ids).items()}
+
+    def _host_pool(self) -> Optional[ThreadPoolExecutor]:
+        """The staging pool of ``stage_flags.stack_threads`` threads (None:
+        stage on the calling thread), remade when the flag changed. Route
+        lookups (native, thread-local scratch) and the numpy dedup release
+        the interpreter lock, so a chunk's batches stage in parallel."""
+        n = self.stage_flags.stack_threads
+        cur, pool = self._stage_pool
+        if n != cur:
+            if pool is not None:
+                pool.shutdown(wait=False)
+            pool = (ThreadPoolExecutor(n, thread_name_prefix="pbt-stage")
+                    if n > 1 else None)
+            self._stage_pool = (n, pool)
+        return pool
+
+    def _stage_one(self, b: PackedBatch) -> Dict[str, object]:
+        return self.host_batch(b, self.table.lookup_ids(b.keys, b.valid),
+                               skip_push_dedup=self.cfg.sparse_chunk_sync)
+
+    def _stack_batches_host(self, group: List[PackedBatch]) -> HostChunk:
+        """One chunk's host staging, each batch on the pool in batch order;
+        in the chunk-synchronous mode also ONE dedup over the chunk's flat
+        C*K occurrences (its padding, the trash row, sorts last)."""
+        pool = self._host_pool()
+        if pool is not None and len(group) > 1:
+            hosts = list(pool.map(self._stage_one, group))
+        else:
+            hosts = [self._stage_one(b) for b in group]
+        if not self.cfg.sparse_chunk_sync:
+            return HostChunk(hosts)
+        uids, perm, inv, n_uniq = self.table.dedup_for_push(
+            np.concatenate([h["ids"] for h in hosts]))
+        offsets = segment_offsets(inv, sum(h["n_valid"] for h in hosts))
+        return HostChunk(hosts, {"uids": uids, "perm": perm,
+                                 "offsets": offsets, "n_uniq": n_uniq})
+
+    def _group_to_device(self, hosts: List[HostChunk]) -> List[DeviceChunk]:
+        """Host-staged chunks on the device: on the card through the pinned
+        ring, one copy a leaf for the whole group; on the CPU as tensors,
+        with no copy."""
+        if self.device.type != "cuda":
+            return [to_cpu(h) for h in hosts]
+        ring = self._ring
+        if ring is None or ring.group < len(hosts):
+            ring = self._staging_ring()
+        return ring.to_device(hosts)
+
+    def _staging_ring(self) -> PinnedRing:
+        """The pinned ring for groups of ``stage_flags.h2d_stack_chunks``
+        chunks, with a slot for each group that can be in use at once
+        (chunk_prefetch_depth staged ahead, one being consumed, one being
+        staged), for steps on the calling thread's current stream."""
+        slots = self.stage_flags.chunk_prefetch_depth + 2
+        group = self.stage_flags.h2d_stack_chunks
+        compute = torch.cuda.current_stream(self.device)
+        ring = self._ring
+        if ring is None or not ring.matches(group, slots, compute):
+            if ring is not None:
+                ring.close()
+            ring = self._ring = PinnedRing(group, slots, self.device,
+                                           compute)
+        return ring
+
+    def close(self) -> None:
+        """Stop the staging pool and drop the pinned ring."""
+        pool = self._stage_pool[1]
+        if pool is not None:
+            pool.shutdown(wait=False)
+        self._stage_pool = (0, None)
+        if self._ring is not None:
+            self._ring.close()
+            self._ring = None
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:  # an interpreter that is shutting down
+            pass
 
     # ---------------------------------------------------------- pass cadence
     def train_pass(self, dataset: BoxDataset,
@@ -251,9 +611,10 @@ class BoxTrainer:
 
         ``self.pass_times`` then holds the host-clock seconds of its phases:
         feed (load + key registration; absent when preloaded), build
-        (begin_pass + shuffle + packing), steps (host staging + enqueue of
-        every step) and end (end_pass + metrics; it waits for the device
-        work still queued)."""
+        (begin_pass + shuffle + packing), steps (the chunk driver: staging,
+        queueing every chunk and draining each chunk's results; then the
+        tail's steps) and end (end_pass + the tail's metrics; it waits for
+        the device work still queued)."""
         clock = [time.perf_counter()]
         times: Dict[str, float] = {}
 
@@ -271,26 +632,98 @@ class BoxTrainer:
         dataset.local_shuffle(self._shuffle_rng.randint(1 << 31))
         batches = dataset.split_batches(num_workers=1)[0]
         lap("build")
+        chunk_losses, tail = self._train_chunks(batches)
         losses: List[torch.Tensor] = []
         preds: List[torch.Tensor] = []
-        for b in batches:
+        for b in tail:
             loss, p = self.train_batch(b)
+            if self.cfg.check_nan_inf and not bool(torch.isfinite(loss)):
+                # the guard syncs every tail step: it must see this step's
+                # loss before the next step is queued
+                raise FloatingPointError("nan/inf loss at step %d"
+                                         % self._step_count)
             losses.append(loss)
             preds.append(p)
         lap("steps")
         self.table.end_pass()
         mean_loss = 0.0
         if batches:
-            loss_host = torch.stack(losses).cpu().numpy()
+            loss_host = np.asarray(chunk_losses, np.float32)
+            if losses:
+                loss_host = np.concatenate(
+                    [loss_host, torch.stack(losses).cpu().numpy()])
             mean_loss = float(np.mean(loss_host))
-            if self.metrics.metric_names():
+            if losses and self.metrics.metric_names():
                 preds_host = torch.stack(preds).cpu().numpy()
-                for b, p in zip(batches, preds_host):
+                for b, p in zip(tail, preds_host):
                     self._add_metrics(p, b)
         lap("end")
         self.pass_times = times
         return {"loss": mean_loss, "batches": len(batches),
                 "instances": len(dataset)}
+
+    def _train_chunks(self, batches: List[PackedBatch]
+                      ) -> Tuple[List, List[PackedBatch]]:
+        """The pass's full chunks through run_scan_chunks: (their losses,
+        as host float32 in step order, and the tail batches left). Each
+        chunk's metrics are added once its results are drained, in batch
+        order. Runs nothing when scan_chunk is 1 (outside the
+        chunk-synchronous mode) or the pass is shorter than a chunk."""
+        chunk = self.cfg.scan_chunk
+        sync = self.cfg.sparse_chunk_sync
+        if not (chunk > 1 or sync) or len(batches) < chunk:
+            return [], batches
+        flags = self.stage_flags
+        ring = self._staging_ring() if self.device.type == "cuda" else None
+        metrics_on = bool(self.metrics.metric_names())
+        slab = self.table.slab
+
+        def scan_call(carry, dc: DeviceChunk):
+            if dc.ready is not None:
+                torch.cuda.current_stream(self.device).wait_event(dc.ready)
+            try:
+                if sync:
+                    out = self.chunk_fn(slab, dc.stacked, dc.cpush,
+                                        self.seed_fn())
+                else:
+                    out = self.scan_steps(
+                        slab, dc.stacked,
+                        [self.seed_fn() for _ in range(chunk)])
+            finally:
+                if dc.release is not None:
+                    dc.release()
+            return carry, out[0], out[1]
+
+        def on_chunk(lo, group_b, losses_np, preds_dev) -> None:
+            self._step_count += len(group_b)
+            if self.cfg.check_nan_inf and not np.isfinite(losses_np).all():
+                raise FloatingPointError("nan/inf loss by step %d"
+                                         % self._step_count)
+            if metrics_on:
+                # one copy of the chunk's predictions, sliced on the host
+                for p, b in zip(preds_dev.cpu().numpy(), group_b):
+                    self._add_metrics(p, b)
+
+        try:
+            _, losses, n_done = run_scan_chunks(
+                scan_call, batches, chunk, self._stack_batches_host, None,
+                on_chunk, chunk1_ok=sync,
+                prefetch_depth=flags.chunk_prefetch_depth,
+                transfer_group=flags.h2d_stack_chunks,
+                group_fn=self._group_to_device)
+        finally:
+            if ring is not None:
+                ring.reset()
+        return losses, batches[n_done:]
+
+    def train_batch(self, b: PackedBatch):
+        """One step on one packed batch inside an open pass: (loss, preds)
+        as device tensors."""
+        ids = self.table.lookup_ids(b.keys, b.valid)
+        batch = self.device_batch(b, ids)
+        loss, preds = self.step_fn(self.table.slab, batch, self.seed_fn())
+        self._step_count += 1
+        return loss, preds
 
     # ------------------------------------------------------------------ eval
     def eval_batch(self, b: PackedBatch) -> torch.Tensor:

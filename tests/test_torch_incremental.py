@@ -722,19 +722,27 @@ def test_route_index_lifetime():
 
 def test_prefetcher_never_touches_the_route_index(cadence_files,
                                                   monkeypatch):
-    """Mode (a), preloaded with the prefetcher: every route index call is
-    made on the main thread (the prefetcher diffs a numpy snapshot)."""
+    """Mode (a), preloaded with the prefetcher: the prefetcher makes no
+    route index call (it diffs a numpy snapshot). The index is made,
+    dropped and probed for the resident diff on the main thread; batches
+    look their ids up on the main thread or on the chunk driver's
+    staging threads, which run only while the pass holds its index."""
     cfg, windows, feed = cadence_files
-    threads = []
+    calls = []
     for name in ("create_route_index", "destroy_route_index",
                  "route_lookup", "route_lookup_serve"):
-        def spy(*a, _fn=getattr(host_lib, name), **k):
-            threads.append(threading.current_thread())
+        def spy(*a, _fn=getattr(host_lib, name), _name=name, **k):
+            calls.append((_name, threading.current_thread()))
             return _fn(*a, **k)
         monkeypatch.setattr(host_lib, name, spy)
     got = _cadence_run(cfg, windows, feed, "a")
     assert got[3]["pass_rows_promote_prefetched"] > 0
-    assert threads and set(threads) == {threading.main_thread()}
+    main = threading.main_thread()
+    assert calls and all(
+        t is main or (name == "route_lookup"
+                      and t.name.startswith(("pbt-stage", "chunk-stager")))
+        for name, t in calls), {(n, t.name) for n, t in calls}
+    assert any(t is not main for _, t in calls)
 
 
 def test_prefetcher_reads_under_the_lock_while_the_store_grows():

@@ -82,6 +82,25 @@ def test_generator_writes_the_jax_files(files):
         assert filecmp.cmp(a, b, shallow=False)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(num_slots=32, vocab_per_slot=20000, max_len=4, seed=0),
+    dict(num_slots=5, vocab_per_slot=3, max_len=1, seed=2),
+    dict(num_slots=3, vocab_per_slot=70000, max_len=9, seed=3),
+], ids=["flagship-widths", "one-key-slots", "wide-vocab-long-slots"])
+def test_generator_writes_the_jax_files_at_other_shapes(tmp_path, kw):
+    """The port's generator is byte-equal to the JAX generator beyond the
+    default shape: at the flagship's widths, where a vocabulary or slot
+    length is off a power of two, where a slot holds one key, and across
+    files."""
+    jfiles, _ = jax_write_files(str(tmp_path / "jax"), num_files=2,
+                                lines_per_file=150, **kw)
+    pfiles, _ = write_synthetic_ctr_files(str(tmp_path / "port"),
+                                          num_files=2, lines_per_file=150,
+                                          **kw)
+    for a, b in zip(jfiles, pfiles, strict=True):
+        assert filecmp.cmp(a, b, shallow=False)
+
+
 def test_dataset_batches_equal_jax(files):
     jfiles, _, jfeed = files
     jds = JDataset(jfeed, read_threads=1, columnar=False)
