@@ -22,7 +22,9 @@ Phases, each of which raises on a failed check (exit code != 0):
      write modes (in place, and rows out for the blocked path),
      blocked_write on the same slab shape from that batch's sorted uids
      and its n_uniq rows (copy_probe.blocked_case), scale_copy over f32
-     [131072, 128] (both round x * 0.999 + 0.001 once), gather_rows at the
+     [131072, 128] and [524288, 128] and on its edge cases (x 0-12 bytes
+     into its buffer, n from 1 to a second wave of blocks; one launch
+     a call; both round x * 0.999 + 0.001 once), gather_rows at the
      rate probe's shape (131,072 sorted unique ids from a 2^20 x 128 slab),
      at the pull's (a real batch's 131,072 ids into a 2^20 x 17 slab), at
      the cadence's delta promote (the second pass's 557,074 source rows in
@@ -99,8 +101,9 @@ Phases, each of which raises on a failed check (exit code != 0):
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
      GB/s and the share of 3.35 TB/s; scale_copy and gather_rows launched
-     in it. Its 64 MiB scale and its pull-shape gather are those two
-     kernels' times in the kernels line.
+     in it. Its 64 MiB scale (with the 256 MiB one under at_shapes) and
+     its pull-shape gather are those two kernels' times in the kernels
+     line.
 
 Every time is device time from rate_probe.time_chain (CUDA events around
 a chain of launches queued behind a spin of the card, inputs rotated over
@@ -413,9 +416,40 @@ def gather_edge_phase(torch, dev):
         % (len(cases), sorted(cases)))
 
 
+def scale_once(torch, rk, x):
+    """scale_copy(x), synchronized; checks that it launched once."""
+    before = rk.scale_copy.launches
+    got = rk.scale_copy(x)
+    torch.cuda.synchronize()
+    check(rk.scale_copy.launches == before + 1,
+          "scale_copy launched %d times in one call"
+          % (rk.scale_copy.launches - before))
+    return got
+
+
+def scale_edge_phase(torch, dev):
+    """Phase 4, scale_copy on its edge cases (edge_cases.scale_edge_cases:
+    x 0, 4, 8 and 12 bytes into its buffer, n around the kernel's block
+    and into a second wave of blocks): one launch each, bit-equal to the
+    plain version."""
+    from paddlebox_tpu_torch.edge_cases import gather_source, scale_edge_cases
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+
+    cases = scale_edge_cases()
+    for label, (flat, off, rows, W) in cases.items():
+        x = gather_source(torch.from_numpy(flat).to(dev), off, rows, W)
+        got = scale_once(torch, rk, x)
+        check(torch.equal(got.view(torch.int32),
+                          rk.scale_copy_plain(x).view(torch.int32)),
+              "scale_copy differs from the plain version on %s" % label)
+    log("scale_copy: one launch each, bit-equal to the plain version on %d "
+        "edge cases (n, byte offset): %s" % (len(cases), sorted(cases)))
+
+
 def row_kernel_phase(torch, cfg, feed, files, keys, dev):
     """Phase 4, the rate probe's kernels against their plain versions:
-    scale_copy at the probe's 64 MiB shape, gather_rows at the probe's
+    scale_copy at the probe's 64 and 256 MiB shapes and on its edge cases
+    (one launch a call), gather_rows at the probe's
     shape, at the pull's (a real batch's ids, the trash row included) and
     at the delta promote's and the touched-row write-back's (from the
     cadence's key sets ``keys``); all bit-equal. Returns each kernel's
@@ -435,15 +469,22 @@ def row_kernel_phase(torch, cfg, feed, files, keys, dev):
     def bit_equal(a, b):
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
-    # --- scale_copy over f32 [131072, 128] (64 MiB)
-    x = torch.rand((1 << 17, 128), generator=gen, device=dev)
-    got = rk.scale_copy(x)
-    torch.cuda.synchronize()
-    want = rk.scale_copy_plain(x)
-    check(bit_equal(got, want), "scale_copy differs from the plain version")
-    errs = {"scale_copy": float((got - want).abs().max())}
-    log("scale_copy %s: bit-equal to the plain version" % list(x.shape))
-    del x, got, want
+    # --- scale_copy over f32 [131072, 128] and [524288, 128] (64 and 256
+    # MiB), then on its edge cases
+    errs = {"scale_copy": 0.0}
+    gen_256 = torch.Generator(device=dev).manual_seed(13)
+    for rows, g in ((1 << 17, gen), (1 << 19, gen_256)):
+        x = torch.rand((rows, 128), generator=g, device=dev)
+        got = scale_once(torch, rk, x)
+        want = rk.scale_copy_plain(x)
+        check(bit_equal(got, want), "scale_copy %s differs from the plain "
+              "version" % list(x.shape))
+        errs["scale_copy"] = max(errs["scale_copy"],
+                                 float((got - want).abs().max()))
+        log("scale_copy %s: one launch, bit-equal to the plain version"
+            % list(x.shape))
+        del x, got, want
+    scale_edge_phase(torch, dev)
 
     # --- gather_rows at the probe's shape and at the pull's
     C, K = cfg.capacity, 131072
@@ -512,8 +553,9 @@ def row_kernel_phase(torch, cfg, feed, files, keys, dev):
 def row_kernel_records(probe, errs, at_shapes, cfg):
     """The rate probe's kernels' records, from the probe's cases at the
     shapes of their paths: scale_copy at 64 MiB (library: the one-call
-    torch_scale), gather_rows at the pull's (library: index_select), with
-    its times at the promote and write-back shapes under ``at_shapes``."""
+    torch_scale), with its times at 256 MiB under ``at_shapes``,
+    gather_rows at the pull's (library: index_select), with its times at
+    the promote and write-back shapes under ``at_shapes``."""
     from paddlebox_tpu_torch.device import HBM_BYTES_PER_S
     from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 
@@ -533,6 +575,11 @@ def row_kernel_records(probe, errs, at_shapes, cfg):
                     "ms": k["ms_per_call"], "plain_ms": k["plain_ms"],
                     "bound_ms": 1e3 * k["bytes"] / HBM_BYTES_PER_S,
                     "bound_by": "bytes", "library_ms": t["ms_per_call"]})
+    k, t = by_op["kernel_scale_256MB"], by_op["torch_scale_256MB"]
+    out[0]["at_shapes"] = {"256MB": {
+        "shape": k["shape"][0], "bytes": k["bytes"], "ms": k["ms_per_call"],
+        "plain_ms": k["plain_ms"], "library_ms": t["ms_per_call"],
+        "bound_ms": 1e3 * k["bytes"] / HBM_BYTES_PER_S}}
     out[-1]["at_shapes"] = at_shapes
     return out
 

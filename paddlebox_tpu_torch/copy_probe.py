@@ -1,5 +1,6 @@
-"""Device time of the port's two copy kernels at the flagship shapes, on
-this tree or on another checkout of the port.
+"""Device time of the port's copy kernels at the flagship shapes and of the
+streaming scale at the rate probe's, on this tree or on another checkout of
+the port.
 
     python3 paddlebox_tpu_torch/copy_probe.py [--tree DIR]
 
@@ -17,14 +18,21 @@ Cases (inputs made from seeds, the same on every tree):
   gather_probe   the rate probe's gather (``rate_probe.probe_inputs``):
                  131,072 sorted unique ids from a 2^20 x 128 slab; library
                  call: index_select
+  scale_64MB, scale_256MB    scale_copy over the rate probe's
+                 [131072, 128] and [524288, 128] f32 (``probe_inputs``);
+                 library call: ``rate_probe.torch_scale``, torch.add in one
+                 pass
+  scale_64MB_unaligned       the same 64 MiB one float into its buffer
+                 (x not 16-byte aligned, the output aligned)
 
 It prints the card's name and power limit, then one JSON line: for each
 case the kernel's and the library call's device ms
 (``rate_probe.time_chain``), the bytes the function must move and the
-bound they give at 3.35 TB/s, and ``sha256``, the digest of the kernel's
-output (two trees that print the same digests wrote the same bits; each
-output is also held bit-equal to the library call's); and ``floors``, what
-the card gives at these sizes (``floors``).
+bound they give at 3.35 TB/s (a scale moves 2 x 4 x n bytes), and
+``sha256``, the digest of the kernel's output (two trees that print the
+same digests wrote the same bits; each copy's output is also held bit-equal
+to the library call's, each scale's to its plain version); and ``floors``,
+what the card gives at these sizes (``floors``).
 
 ``--tree DIR`` imports ``paddlebox_tpu_torch`` from DIR (``probe_tree``),
 so the port's parent commit can be measured in the same call.
@@ -112,12 +120,42 @@ def flagship_cases(dev) -> list:
     return cases
 
 
+def scale_cases(dev) -> list:
+    """scale_copy at the rate probe's two sizes and at 64 MiB one float
+    into its buffer, on ``dev``, each a dict as ``blocked_case`` gives;
+    each output is held bit-equal to the plain version (raises if not)."""
+    import torch
+
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.rate_probe import probe_inputs, torch_scale
+
+    xs = probe_inputs()[0]
+    flat = torch.empty(xs[0].size + 1, device=dev)
+    views = [("scale_64MB", torch.from_numpy(xs[0]).to(dev)),
+             ("scale_256MB", torch.from_numpy(xs[1]).to(dev)),
+             ("scale_64MB_unaligned", flat[1:].view(xs[0].shape))]
+    views[2][1].copy_(views[0][1])
+    cases = []
+    for name, x in views:
+        if not _bit_equal(rk.scale_copy(x), rk.scale_copy_plain(x)):
+            raise RuntimeError("%s differs from the plain version" % name)
+        cases.append(dict(name=name, kernel=rk.scale_copy,
+                          library=torch_scale, args=(x,), library_args=(x,),
+                          bytes=2 * 4 * x.numel(),
+                          info=dict(shape=list(x.shape),
+                                    byte_offset=x.data_ptr() % 16)))
+    return cases
+
+
 def floors(cases: list) -> dict:
     """What the card gives at these sizes (device ms, ``time_chain``),
     beside the cases of ``flagship_cases``: ``launch_ms``, gather_rows of
     one id (a launch in the chain with next to no work);
     ``sequential_copy_ms``, scale_copy streaming as many bytes as the pull
-    must move (``sequential_copy_bytes``); ``blocked_contiguous_ms``,
+    must move (``sequential_copy_bytes``), and ``device_copy_ms``,
+    ``dst.copy_(src)`` of those bytes (the card's own device-to-device
+    copy: the floor, which does not move with the kernel under
+    redesign); ``blocked_contiguous_ms``,
     blocked_write of the same rows with each slot's placed lanes moved to
     its first lanes (whole sectors written); ``index_copy_contiguous_ms``,
     index_copy_ of the same rows at consecutive slab rows."""
@@ -146,6 +184,9 @@ def floors(cases: list) -> dict:
             4 + 2 * 4 * src.shape[1]),
         "sequential_copy_ms": time_chain(rk.scale_copy, (x,), x.numel() * 8),
         "sequential_copy_bytes": x.numel() * 8,
+        "device_copy_ms": time_chain(lambda s, d: d.copy_(s),
+                                     (x, torch.empty_like(x)),
+                                     x.numel() * 8),
         "blocked_contiguous_ms": time_chain(
             pk.blocked_write, (slab.clone(), new_rows, front, blk_idx),
             blk_bytes),
@@ -167,11 +208,14 @@ def main(tree: str) -> int:
         raise SystemExit("copy_probe needs a CUDA device")
     print(card_line(), flush=True)
     out = {"tree": tree}
-    cases = flagship_cases(torch.device("cuda"))
-    for case in cases:
-        args = (case["args"][0].clone(),) + case["args"][1:]
+    dev = torch.device("cuda")
+    cases = flagship_cases(dev)
+    for case in cases + scale_cases(dev):
+        args = case["args"]
+        if case["name"] == "blocked_write":   # writes its slab in place
+            args = (args[0].clone(),) + args[1:]
         got = case["kernel"](*args)
-        if got is None:   # blocked_write writes its slab in place
+        if got is None:
             got = args[0]
         digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
         nbytes = case["bytes"]

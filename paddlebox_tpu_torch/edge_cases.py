@@ -1,8 +1,9 @@
-"""The shapes past the flagship's that the two copy kernels are held to.
+"""The shapes past the flagship's that the copy kernels are held to.
 
-``gather_edge_cases`` (``ops/row_kernels.gather_rows``) and
-``blocked_edge_cases`` (``embedding/push_kernels.blocked_write``):
-chip_smoke.py holds each kernel bit-equal to its plain version on them, and
+``gather_edge_cases`` (``ops/row_kernels.gather_rows``),
+``blocked_edge_cases`` (``embedding/push_kernels.blocked_write``) and
+``scale_edge_cases`` (``ops/row_kernels.scale_copy``): chip_smoke.py holds
+each kernel bit-equal to its plain version on them, and
 tests/test_torch_row_kernels.py and tests/test_torch_push_kernels.py hold
 the plain versions to the JAX functions on the same cases. Inputs are numpy
 arrays made from seeds.
@@ -15,6 +16,11 @@ import numpy as np
 # rows a tile of the gather kernel (csrc/gather_rows.cu R; DIRECT_ROWS, a
 # block of its direct path for wide rows, is the same)
 GATHER_TILE_ROWS = 64
+# floats a block of the scale kernel's aligned path (csrc/scale_copy.cu:
+# THREADS float4s), and its blocks resident at once on an H100 (132 SMs, 8
+# blocks of 256 threads an SM)
+SCALE_BLOCK_FLOATS = 256 * 4
+SCALE_WAVE_H100 = 132 * 8
 
 
 def gather_edge_cases() -> dict:
@@ -41,6 +47,29 @@ def gather_edge_cases() -> dict:
 def gather_source(flat, offset: int, C: int, W: int):
     """The [C, W] source view of a case's (numpy or torch) buffer."""
     return flat[offset:offset + C * W].reshape(C, W)
+
+
+def scale_edge_cases() -> dict:
+    """The streaming scale's edge cases, name -> (flat, offset, rows, W):
+    x is ``gather_source(flat, offset, rows, W)``, n = rows * W floats at
+    byte offset 4 * offset in {0, 4, 8, 12} of the buffer (on the card, 0
+    is 16-byte aligned; the others leave the 0-3 floats before the first
+    aligned one to the threads, or, against the wrapper's aligned output,
+    take the shifted path); n in {1, 3, 4, 5}, a block of the kernel and
+    one float either side of it, one block more than an H100 holds at once
+    (a second wave), plus 7, and 2^22 + 3. A case is [n // 128, 128] where
+    128 divides n, else one row."""
+    rng = np.random.RandomState(12)
+    T = SCALE_BLOCK_FLOATS
+    waves = (SCALE_WAVE_H100 + 1) * T + 7
+    cases = {}
+    for n in (1, 3, 4, 5, T - 1, T, T + 1, waves, (1 << 22) + 3):
+        flat = rng.rand(n + 3).astype(np.float32) * 200 - 100
+        W = 128 if n % 128 == 0 else n
+        for offset in range(4):
+            cases["n%d_byte%d" % (n, 4 * offset)] = (flat, offset, n // W,
+                                                     W)
+    return cases
 
 
 def blocked_edge_cases() -> dict:

@@ -30,10 +30,11 @@ share of the H100's 3.35 TB/s, and for a kernel case its plain version's ms.
 ``time_chain`` is the one device timer of the port's kernel measurements:
 chip_smoke.py times every kernel, plain version and library call with it.
 
-``--scale-balanced N`` times only the 64 MiB scale: scale_copy (A) against
-the one-call ``torch_scale`` (B), N rounds of A, B, B, A in one process, one
-JSON line a timing, then each side's median, quartiles and the median of
-the per-round ratios A / B (``scale_balanced``).
+``--scale-balanced N`` times only the scale, at 64 and 256 MiB: scale_copy
+(A) against the one-call ``torch_scale`` (B), N rounds in one process, each
+round A, B, B, A at each size in turn, one JSON line a timing, then for
+each size each side's median, quartiles and the median of the per-round
+ratios A / B (``scale_balanced``).
 
 Runs on the card by default and raises without one. ``run(device="cpu",
 sizes=...)`` runs the plain versions at the sizes given, once each and
@@ -251,37 +252,45 @@ def run(device: DeviceLike = None, sizes: ProbeSizes = PROBE) -> List[dict]:
     return records
 
 
-def scale_balanced(rounds: int, device: DeviceLike = None) -> dict:
-    """scale_copy against torch_scale at 64 MiB, ``rounds`` rounds of A, B,
-    B, A on the same inputs; prints one line a timing and returns the
-    summary."""
+def scale_balanced(rounds: int, device: DeviceLike = None,
+                   sizes: ProbeSizes = PROBE) -> dict:
+    """scale_copy against torch_scale at each of the probe's scale sizes,
+    ``rounds`` rounds of A, B, B, A a size on the same inputs; prints one
+    line a timing and returns the summary, by size."""
     dev = resolve_device(device)
-    x = torch.from_numpy(probe_inputs()[0][0]).to(dev)
-    nbytes = 2 * x.numel() * 4
+    xs = {_mb(x.size * 4): torch.from_numpy(x).to(dev)
+          for x in probe_inputs(sizes)[0]}
     sides = {"A": ("scale_copy", scale_copy), "B": ("torch_scale",
                                                     torch_scale)}
-    times = {"A": [], "B": []}
-    ratios = []
+    times = {mb: {"A": [], "B": []} for mb in xs}
+    ratios = {mb: [] for mb in xs}
     for r in range(rounds):
-        got = {}
-        for pos, side in enumerate("ABBA"):
-            ms = time_chain(sides[side][1], (x,), nbytes)
-            times[side].append(ms)
-            got.setdefault(side, []).append(ms)
-            print(json.dumps({"round": r, "pos": pos, "op": sides[side][0],
-                              "ms": ms}), flush=True)
-        ratios.append(statistics.mean(got["A"]) / statistics.mean(got["B"]))
+        for mb, x in xs.items():
+            got = {}
+            for pos, side in enumerate("ABBA"):
+                ms = time_chain(sides[side][1], (x,), 2 * x.numel() * 4)
+                times[mb][side].append(ms)
+                got.setdefault(side, []).append(ms)
+                print(json.dumps({"round": r, "size": mb, "pos": pos,
+                                  "op": sides[side][0], "ms": ms}),
+                      flush=True)
+            ratios[mb].append(statistics.mean(got["A"])
+                              / statistics.mean(got["B"]))
 
     def quart(xs):
+        if len(xs) < 2:
+            return {"median": xs[0], "q1": xs[0], "q3": xs[0],
+                    "min": xs[0], "max": xs[0], "n": len(xs)}
         q = statistics.quantiles(xs, n=4, method="inclusive")
         return {"median": q[1], "q1": q[0], "q3": q[2], "min": min(xs),
                 "max": max(xs), "n": len(xs)}
 
-    out = {"scale_balanced": {
-        "card": card_line(), "bytes": nbytes,
-        "scale_copy_ms": quart(times["A"]),
-        "torch_scale_ms": quart(times["B"]),
-        "ratio_a_over_b": quart(ratios)}}
+    out = {"scale_balanced": {"card": card_line(), **{
+        mb: {"bytes": 2 * x.numel() * 4,
+             "scale_copy_ms": quart(times[mb]["A"]),
+             "torch_scale_ms": quart(times[mb]["B"]),
+             "ratio_a_over_b": quart(ratios[mb])}
+        for mb, x in xs.items()}}}
     print(json.dumps(out), flush=True)
     return out
 

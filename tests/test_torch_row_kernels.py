@@ -10,6 +10,7 @@ once to f32 on both sides (a fused multiply-add).
 
 import functools
 import json
+import math
 import sys
 
 import jax
@@ -92,6 +93,44 @@ def test_plain_scale_rounds_once_over_every_binade():
     x = np.concatenate([x[np.isfinite(x)], ties, -ties])
     got = rk.scale_copy_plain(torch.from_numpy(x)[None, :]).numpy()[0]
     np.testing.assert_array_equal(_bits(got), _bits(_fma_round_to_odd(x)))
+
+
+SCALE_CASES = edge_cases.scale_edge_cases()
+
+
+@pytest.mark.parametrize("case", sorted(SCALE_CASES))
+def test_plain_scale_edge_cases_round_once(case):
+    """n in {1, 3, 4, 5}, around the kernel's block, into a second wave of
+    blocks and 2^22 + 3, x 0-12 bytes into its buffer: the wrapper on the
+    CPU (the plain version) is the exact single rounding, bit for bit."""
+    flat, offset, rows, W = SCALE_CASES[case]
+    x = edge_cases.gather_source(flat, offset, rows, W)
+    t = torch.from_numpy(x)
+    assert t.data_ptr() - torch.from_numpy(flat).data_ptr() == 4 * offset
+    got = rk.scale_copy(t).numpy()
+    assert got.shape == (rows, W)
+    want = _bits(_fma_round_to_odd(x))
+    np.testing.assert_array_equal(_bits(got), want)
+    np.testing.assert_array_equal(_bits(rk.scale_copy_plain(t).numpy()),
+                                  want)
+
+
+@pytest.mark.parametrize("case", sorted(SCALE_CASES))
+def test_plain_scale_edge_cases_match_pallas_copy_kernel(probe, case):
+    """The same cases through the Pallas copy_kernel, interpreted, in
+    blocks of gcd(rows, 8) rows (every case's row count is a multiple)."""
+    flat, offset, rows, W = SCALE_CASES[case]
+    x = edge_cases.gather_source(flat, offset, rows, W)
+    block_rows = math.gcd(rows, 8)
+    want = pl.pallas_call(
+        probe.copy_kernel,
+        out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype),
+        grid=(rows // block_rows,),
+        in_specs=[pl.BlockSpec((block_rows, W), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((block_rows, W), lambda i: (i, 0)),
+        interpret=True)(jnp.asarray(x))
+    np.testing.assert_array_equal(
+        _bits(rk.scale_copy(torch.from_numpy(x)).numpy()), _bits(want))
 
 
 # --------------------------------------------------------------- gather_rows
@@ -262,6 +301,13 @@ def test_rate_probe_refuses_to_measure_without_a_card():
         rate_probe.run(sizes=TINY)
 
 
+def test_scale_balanced_refuses_to_measure_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError):
+        rate_probe.scale_balanced(1, sizes=TINY)
+
+
 # ------------------------------------------------- on the card (cuda mark)
 
 @pytest.fixture
@@ -274,16 +320,21 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2048 * 128, 4 * 1000 + 3])
-def test_cuda_scale_copy_matches_plain(cuda_device, n):
-    x = torch.from_numpy(np.random.RandomState(2).randn(n).astype(
-        np.float32)).to(cuda_device)
-    for v in (x.view(1, n), x[1:].view(1, n - 1)):   # aligned, unaligned
-        before = rk.scale_copy.launches
-        got = rk.scale_copy(v)
-        torch.cuda.synchronize()
-        assert rk.scale_copy.launches == before + 1
-        assert torch.equal(got, rk.scale_copy_plain(v))
+@pytest.mark.parametrize("case", sorted(SCALE_CASES))
+def test_cuda_scale_copy_matches_plain(cuda_device, case):
+    """The kernel on the edge cases (a part block, a second wave of
+    blocks, the threads' head and tail floats, the shifted path for an x
+    that is not 16-byte aligned against the aligned output): one launch,
+    bit-equal to its plain version."""
+    flat, offset, rows, W = SCALE_CASES[case]
+    x = edge_cases.gather_source(torch.from_numpy(flat).to(cuda_device),
+                                 offset, rows, W)
+    before = rk.scale_copy.launches
+    got = rk.scale_copy(x)
+    torch.cuda.synchronize()
+    assert rk.scale_copy.launches == before + 1
+    assert torch.equal(got.view(torch.int32),
+                       rk.scale_copy_plain(x).view(torch.int32))
 
 
 @pytest.mark.cuda
