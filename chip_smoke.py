@@ -80,7 +80,9 @@ Phases, each of which raises on a failed check (exit code != 0):
      rewrite and shrink, replayed) and from the trainer that saved give
      bit-identical losses, AUC and stores; the seconds of save_base (the
      caller's part and the writer), save_delta, load_base and end_day, the
-     rows the shrink deleted and the base's bytes, beside the card line;
+     rows the shrink deleted, the base's bytes and the touched-row
+     journal's bytes and rows at the base save (the journal is on, the
+     default), beside the card line;
   8. the blocked mode: one pass of 4 batches with push_write='blocked' and
      one with 'scatter' from the same seed give bit-identical rows, and
      push_adagrad and blocked_write each launched once a step;
@@ -97,6 +99,23 @@ Phases, each of which raises on a failed check (exit code != 0):
      chunk's shape (the first 8 batches' 1,048,576 ids flat, and their
      merged dedup) bit-equal to their plain versions, with kernel, plain,
      index_select and bound times;
+ 11. recovery at full width (train/recovery.py): RecoverableRunner over
+     the cadence's three windows, saving every pass in mode 'auto', in
+     the runs RECOVERY_RUNS (the journal on, A, and off, B, in the order
+     A, B, B, A, each settled): in A pass-0 is a full base and the
+     journal's anchor, pass-1 and pass-2 journal-mode snapshots whose
+     base links are the anchor's parts; the write-back ROWS records of
+     passes 1 and 2, read from pass-2's segments, hold the pass keys and
+     the rows gather_rows returned, bit for bit; load_base of each pass
+     into a fresh trainer gives the store its save snapshotted; every
+     run launches push_adagrad once a step and gather_rows once a step
+     and once a write-back, and gives run 0's losses, AUC and store bit
+     for bit (the journal changes no result); a run over two windows,
+     then a fresh trainer and runner over all three, which resumes at
+     pass 2 with run 0's pass-2 loss and AUC and its store; per pass the
+     table's begin_pass/end_pass seconds, the save's seconds (the
+     caller's part and the writer's), the bytes written (a hard link
+     counted once), each run's wall, beside the card line;
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -903,6 +922,7 @@ def day_phase(torch, trainer, cfg, feed, windows, tmp, reset_counts,
     import numpy as np
 
     from paddlebox_tpu_torch.config.configs import CheckpointConfig
+    from paddlebox_tpu_torch.config.flags import CkptFlags
     from paddlebox_tpu_torch.data.dataset import BoxDataset
     from paddlebox_tpu_torch.device import card_line
     from paddlebox_tpu_torch.embedding import accessor as acc
@@ -939,6 +959,9 @@ def day_phase(torch, trainer, cfg, feed, windows, tmp, reset_counts,
     def save_base(params, opt_state, day, **kw):
         snaps["base"] = sorted_store(table)
         snaps["dense"] = (params, opt_state)
+        # the journal's epoch so far: the day's three passes and deltas
+        snaps["journal"] = {"bytes": dir_bytes(cm.journal.dir),
+                            "rows": cm.journal.dirty_rows}
         return real_base(params, opt_state, day, **kw)
 
     real_end_day = table.end_day
@@ -986,7 +1009,9 @@ def day_phase(torch, trainer, cfg, feed, windows, tmp, reset_counts,
     # --- load_base into a fresh trainer
     fresh, _ = flagship.build_trainer(windows[0], feed, cfg, "scatter",
                                       "cuda", seed=1)
-    cm2 = CheckpointManager(ckpt, fresh.table)
+    # without a journal of its own: a second journal over the saver's
+    # directory would sweep the segments the saver still writes
+    cm2 = CheckpointManager(ckpt, fresh.table, CkptFlags(ckpt_journal=False))
     params, opt_state, _ = cm2.load_base("day0")
     fresh.restore_dense(params, opt_state)
     k, v = sorted_store(fresh.table)
@@ -1068,6 +1093,8 @@ def day_phase(torch, trainer, cfg, feed, windows, tmp, reset_counts,
            "save_base_writer_s": cm.seconds["save_base_writer"],
            "save_delta_s": cm.seconds["save_delta"],
            "save_delta_writer_s": cm.seconds["save_delta_writer"],
+           "journal_bytes": snaps["journal"]["bytes"],
+           "journal_rows": snaps["journal"]["rows"],
            "load_base_s": cm2.seconds["load_base"],
            "load_base_again_s": split, "end_day_s": end_day_rec["s"],
            "rows_deleted": deleted, "rows_saved": int(base_k.size),
@@ -1280,6 +1307,252 @@ def chunk_phase(torch, cfg, feed, files, ref, reset_counts, counts):
     return {"runs": runs, "sync": sync, "profile": prof_rec}
 
 
+# phase 11's runs of RecoverableRunner over the cadence's three windows, in
+# this order: the journal on (A: every save after the first a journal-mode
+# snapshot) and off (B: every save full), each from a settled process; the
+# first is the one whose files are checked
+RECOVERY_RUNS = ("A", "B", "B", "A")
+
+
+def new_bytes(paths, seen):
+    """Bytes of the files under ``paths`` whose inode is not in ``seen``,
+    which then holds them: what a save wrote, a hard link counted once."""
+    total = 0
+    for path in paths:
+        for d, _, names in os.walk(path):
+            for name in names:
+                st = os.stat(os.path.join(d, name))
+                if st.st_ino not in seen:
+                    seen.add(st.st_ino)
+                    total += st.st_size
+    return total
+
+
+def recovery_run(torch, cfg, feed, windows, root, journal, keep=False):
+    """One RecoverableRunner run (keep_last 3) over ``windows`` at ``root``
+    with the journal on or off, from a settled process, on a flagship
+    trainer built from seed 0 (which resumes where ``root`` holds completed
+    passes). Returns (the run's record: a record a pass trained, its
+    wall, the sorted store at its end; with ``keep``, also each save's
+    store snapshot and each write-back's gather_rows rows; the manager's
+    config)."""
+    from paddlebox_tpu_torch import cadence_probe
+    from paddlebox_tpu_torch.config.configs import CheckpointConfig
+    from paddlebox_tpu_torch.config.flags import CkptFlags
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.embedding import ckpt_store as cks
+    from paddlebox_tpu_torch.embedding import pass_table as pt_mod
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.train.checkpoint import CheckpointManager
+    from paddlebox_tpu_torch.train.recovery import RecoverableRunner
+
+    cadence_probe.settle()
+    trainer, _ = flagship.build_trainer(windows[0], feed, cfg, "scatter",
+                                        "cuda")
+    table = trainer.table
+    ckpt = CheckpointConfig(batch_model_dir=os.path.join(root, "batch"),
+                            xbox_model_dir=os.path.join(root, "xbox"),
+                            async_save=True)
+    cm = CheckpointManager(ckpt, table, CkptFlags(ckpt_journal=journal))
+    runner = RecoverableRunner(trainer, cm, "day", keep_last=3)
+    rec = {"resumed_at": runner.completed_passes(), "passes": [],
+           "snaps": {}, "gathers": []}
+    real_pass, real_save = trainer.train_pass, cm.save_base
+    real_gather = pt_mod.gather_rows
+    seen = set()
+    new_bytes([root], seen)   # what an earlier run left here is not ours
+
+    def gather_rows(slab, ids, out=None):
+        rows = real_gather(slab, ids, out=out)
+        if out is None and keep:     # the touched-row write-back
+            rec["gathers"].append(rows.cpu().numpy())
+        return rows
+
+    def train_pass(ds):
+        trainer.metrics.init_metric("auc", "label", "pred",
+                                    table_size=1 << 20)
+        s0 = dict(table.seconds)
+        t0 = time.perf_counter()
+        res = real_pass(ds)
+        torch.cuda.synchronize()
+        rec["passes"].append({
+            "loss": res["loss"], "batches": res["batches"],
+            "auc": trainer.metrics.get_metric_msg("auc")["auc"],
+            "pass_s": time.perf_counter() - t0,
+            "begin_pass_s": table.seconds["begin_pass"] - s0["begin_pass"],
+            "end_pass_s": table.seconds["end_pass"] - s0["end_pass"]})
+        return res
+
+    def save_base(params, opt_state, day, **kw):
+        if keep:
+            rec["snaps"][day] = sorted_store(table)
+        c0 = dict(cm.seconds)
+        t0 = time.perf_counter()
+        dirs = real_save(params, opt_state, day, **kw)
+        cm.wait()
+        p = rec["passes"][-1]
+        p["save_s"] = time.perf_counter() - t0
+        p["save_caller_s"] = cm.seconds["save_base"] - c0["save_base"]
+        p["save_writer_s"] = (cm.seconds["save_base_writer"]
+                              - c0["save_base_writer"])
+        p["mode"] = cks.read_manifest(os.path.join(
+            dirs[0], "sparse.xman"))["mode"]
+        p["bytes_written"] = new_bytes([d for d in dirs if d], seen)
+        return dirs
+
+    datasets = []
+    for files in windows:
+        datasets.append(BoxDataset(feed))
+        datasets[-1].set_filelist(files)
+    trainer.train_pass, cm.save_base = train_pass, save_base
+    pt_mod.gather_rows = gather_rows
+    try:
+        t0 = time.perf_counter()
+        runner.run(datasets)
+        rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        pt_mod.gather_rows = real_gather
+        if cm.journal is not None:
+            cm.journal.close()
+    rec["store"] = sorted_store(table)
+    trainer.close()
+    return rec, ckpt
+
+
+def check_recovery_files(torch, cfg, feed, windows, keys, ckpt, rec):
+    """Run 0's files: pass-0 a full base and the anchor; pass-1 and pass-2
+    journal-mode snapshots whose base links are the anchor's parts (same
+    inodes); the build and write-back ROWS records of passes 1 and 2, read
+    from pass-2's segments, hold the pass keys, the write-back's rows
+    bit-equal to what gather_rows returned; load_base of each pass into a
+    fresh trainer gives the store its save snapshotted. Returns each
+    load's seconds."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.config.flags import CkptFlags
+    from paddlebox_tpu_torch.embedding import ckpt_store as cks
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.train.checkpoint import CheckpointManager
+    from paddlebox_tpu_torch.utils import journal_format as jf
+
+    day = os.path.join(ckpt.batch_model_dir, "day")
+    dirs = [os.path.join(day, "pass-%d" % i) for i in range(3)]
+    mans = [cks.read_manifest(os.path.join(d, "sparse.xman")) for d in dirs]
+    check([m["mode"] for m in mans] == ["full", "journal", "journal"],
+          "recovery save modes %s" % [m["mode"] for m in mans])
+    anchor = [os.stat(p).st_ino for p in cks.manifest_part_paths(
+        os.path.join(dirs[0], "sparse.xman"))]
+    for d, m in zip(dirs[1:], mans[1:]):
+        check([os.stat(os.path.join(d, n)).st_ino for n in m["base"]]
+              == anchor, "%s: base links are not the anchor's parts" % d)
+    rows = [jf.decode_rows_payload(p) for n in mans[2]["segments"]
+            for k, p in jf.iter_segment(os.path.join(dirs[2], n))
+            if k == jf.KIND_ROWS]
+    # every save drops the residency: each pass builds in full, and writes
+    # back every pass row it touched (all of them)
+    check(len(rows) == 4 and len(rec["gathers"]) == 3,
+          "pass-2's segments hold %d ROWS records, %d write-backs seen"
+          % (len(rows), len(rec["gathers"])))
+    for j, p in enumerate((1, 2)):
+        (bk, _), (wk, wv) = rows[2 * j], rows[2 * j + 1]
+        check(np.array_equal(bk, keys[p]) and np.array_equal(wk, keys[p])
+              and bits_equal(wv, rec["gathers"][p]),
+              "pass %d's journal ROWS differ from its pass keys or from "
+              "gather_rows' rows" % p)
+    fresh, _ = flagship.build_trainer(windows[0], feed, cfg, "scatter",
+                                      "cuda", seed=1)
+    cm = CheckpointManager(ckpt, fresh.table, CkptFlags(ckpt_journal=False))
+    load_s = []
+    for i in range(3):
+        t0 = cm.seconds["load_base"]
+        cm.load_base("day/pass-%d" % i)
+        load_s.append(cm.seconds["load_base"] - t0)
+        k, v = sorted_store(fresh.table)
+        want = rec["snaps"]["day/pass-%d" % i]
+        check(np.array_equal(k, want[0]) and bits_equal(v, want[1]),
+              "load_base of pass-%d differs from its save's snapshot" % i)
+    fresh.close()
+    return load_s
+
+
+def recovery_phase(torch, cfg, feed, windows, keys, tmp, reset_counts,
+                   counts):
+    """Phase 11: RecoverableRunner over the cadence's three windows at full
+    width, saving every pass in mode 'auto', in the runs of RECOVERY_RUNS:
+    run 0's files checked (check_recovery_files), each run's launches, and
+    every run's losses, AUC and store bit-identical to run 0's (the
+    journal changes no training result); then interrupted after two
+    windows and resumed by a fresh trainer and runner, whose pass 2 and
+    store are bit-identical to run 0's. Logs per pass begin_pass/end_pass
+    seconds, the save's seconds (the caller's part and the writer's),
+    bytes written (a link counted once) and each run's wall beside the
+    card line. Returns its record."""
+    import shutil
+
+    import numpy as np
+
+    from paddlebox_tpu_torch.device import card_line
+
+    out = {"runs": []}
+    ref = None
+    for i, tag in enumerate(RECOVERY_RUNS):
+        root = os.path.join(tmp, "recovery-%d" % i)
+        reset_counts()
+        rec, ckpt = recovery_run(torch, cfg, feed, windows, root, tag == "A",
+                                 keep=i == 0)
+        launches = counts()
+        passes = rec["passes"]
+        steps = sum(p["batches"] for p in passes)
+        modes = [p["mode"] for p in passes]
+        check(modes == (["full", "journal", "journal"] if tag == "A"
+                        else ["full"] * 3),
+              "recovery run %d (%s) save modes %s" % (i, tag, modes))
+        check(launches == {"push_adagrad": steps, "blocked_write": 0,
+                           "scale_copy": 0, "gather_rows": steps + 3},
+              "recovery run %d launches %s over %d steps and 3 "
+              "write-backs" % (i, launches, steps))
+        summary = {"run": i, "journal": tag == "A", "wall_s": rec["wall_s"],
+                   "launches": launches, "passes": passes}
+        if ref is None:
+            summary["load_base_s"] = check_recovery_files(
+                torch, cfg, feed, windows, keys, ckpt, rec)
+            ref = rec
+        for p, q in zip(passes, ref["passes"]):
+            check((p["loss"], p["auc"]) == (q["loss"], q["auc"]),
+                  "recovery run %d (%s) loss %r auc %r, run 0 %r %r"
+                  % (i, tag, p["loss"], p["auc"], q["loss"], q["auc"]))
+        k, v = rec["store"]
+        check(np.array_equal(k, ref["store"][0])
+              and bits_equal(v, ref["store"][1]),
+              "recovery run %d (%s) store differs from run 0's" % (i, tag))
+        out["runs"].append(summary)
+        log("recovery run %d (%s): %s" % (i, tag, json.dumps(summary)))
+        shutil.rmtree(root, ignore_errors=True)
+
+    # --- interrupted after two windows, resumed by a fresh trainer
+    root = os.path.join(tmp, "recovery-resume")
+    first, _ = recovery_run(torch, cfg, feed, windows[:2], root, True)
+    second, _ = recovery_run(torch, cfg, feed, windows, root, True)
+    p2, q2 = second["passes"], ref["passes"][2]
+    k, v = second["store"]
+    check(second["resumed_at"] == 2 and len(p2) == 1
+          and (p2[0]["loss"], p2[0]["auc"]) == (q2["loss"], q2["auc"])
+          and np.array_equal(k, ref["store"][0])
+          and bits_equal(v, ref["store"][1]),
+          "resumed at pass %r over %d passes (%s), uninterrupted pass 2 "
+          "loss %r auc %r" % (second["resumed_at"], len(p2), p2,
+                              q2["loss"], q2["auc"]))
+    out["resume"] = {"resumed_at": second["resumed_at"],
+                     "interrupted_wall_s": first["wall_s"],
+                     "resumed_wall_s": second["wall_s"], "pass": p2[0]}
+    log("recovery resume: %s" % json.dumps(out["resume"]))
+    shutil.rmtree(root, ignore_errors=True)
+    log("recovery: snapshots load bit-equal, resume equals the "
+        "uninterrupted run, the journal off changes no result; %s"
+        % card_line())
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1480,6 +1753,12 @@ def main() -> int:
         chunk_shapes = chunk_kernel_phase(torch, cfg, feed, files, dev)
         clock.lap("chunk_driver")
 
+        # 11. recovery: RecoverableRunner with the journal on and off,
+        # interrupted and resumed
+        recovery = recovery_phase(torch, cfg, feed, windows, keys, tmp,
+                                  reset_counts, counts)
+        clock.lap("recovery")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -1498,7 +1777,9 @@ def main() -> int:
                                  for m, c in cadence.items()},
                               "test_pass": day["test_pass"]["launches"],
                               "day": day["launches"],
-                              "chunk_sync": chunks["sync"]["launches"]},
+                              "chunk_sync": chunks["sync"]["launches"],
+                              **{"recovery_%d" % r["run"]: r["launches"]
+                                 for r in recovery["runs"]}},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

@@ -102,20 +102,22 @@ class CkptFlags:
     as one legacy 'pickle'; either loads whatever this says.
     ckpt_xbox_columnar: xbox views as the serving columnar file
     (view.xcol), else the legacy embedding.pkl. ckpt_journal: the
-    touched-row journal, which the port does not have yet."""
+    touched-row journal (train/journal.py) under
+    ``<batch_model_dir>/_journal/rank0``, which save_base(mode='touched' or
+    'auto') and per-pass recovery ride; its segments rotate at
+    ``ckpt_journal_segment_bytes`` and at most ``ckpt_journal_segments``
+    stay, past which the oldest is dropped and touched saves fall back to
+    full until the next full base."""
 
     ckpt_format: str = "columnar"
     ckpt_parts: int = 8
     ckpt_io_threads: int = 0
     ckpt_xbox_columnar: bool = True
-    ckpt_journal: bool = False
+    ckpt_journal: bool = True
+    ckpt_journal_segment_bytes: int = 64 << 20
+    ckpt_journal_segments: int = 32
 
     def __post_init__(self):
         if self.ckpt_format not in CKPT_FORMATS:
             raise ValueError("ckpt_format must be one of %s, got %r"
                              % (CKPT_FORMATS, self.ckpt_format))
-        if self.ckpt_journal:
-            raise NotImplementedError(
-                "ckpt_journal: the touched-row journal and "
-                "save_base(mode='touched') are not ported yet (ROADMAP.md "
-                "A4, the journal follow-up)")

@@ -30,6 +30,7 @@ import glob
 import json
 import os
 import pickle
+import shutil
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import BinaryIO, Dict, List, Optional, Tuple
@@ -227,7 +228,8 @@ def load_sparse_columnar(manifest_path: str, threads: int = 0) -> Dict:
     if doc.get("mode") != "full":
         raise ValueError(
             f"{manifest_path}: mode={doc.get('mode')!r} manifests (journal"
-            " over base) are not loaded by the port")
+            "-over-base) reconstruct through CheckpointManager.load_base, "
+            "not a raw store load")
     n, width = int(doc["n"]), int(doc["width"])
     dirpath = os.path.dirname(manifest_path) or "."
     keys = np.empty(n, np.uint64)
@@ -306,3 +308,15 @@ def manifest_part_paths(manifest_path: str) -> List[str]:
         raise ValueError(f"{manifest_path}: expected a full-mode manifest")
     d = os.path.dirname(manifest_path) or "."
     return [os.path.join(d, p["file"]) for p in doc["parts"]]
+
+
+def link_or_copy(src: str, dst: str) -> None:
+    """Hard-link src to dst (one filesystem: how a journal-mode snapshot
+    holds its base without copying it), or copy it where the link fails
+    (across filesystems)."""
+    if os.path.exists(dst):
+        os.remove(dst)
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copyfile(src, dst)

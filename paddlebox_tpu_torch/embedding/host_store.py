@@ -6,11 +6,12 @@ without the SSD tier and telemetry (so the tier sweep of shrink, the tier
 tick of age_unseen_days and the spilled rows of save are absent). It is
 the plain version of native_store.py's NativeHostEmbeddingStore, which the
 pass table uses unless this store is passed in by name. Missing keys are
-created only by ``lookup_or_create``, in the order the caller passes them
+created by ``lookup_or_create``, in the order the caller passes them
 (the pass table passes its sorted-unique key set, or the sorted keys it
 still misses), with ``ValueLayout.new_rows`` drawing from one
 ``RandomState(seed)``, which is the rule both JAX stores follow, so the two
-packages hold the same rows.
+packages hold the same rows; ``assign`` (a journal replay) installs given
+rows and draws nothing.
 Live rows fill [0, len) of the row array: shrink compacts in place of a
 free list, so a sorted ``state_items`` matches the JAX store's after any
 sequence of calls.
@@ -63,18 +64,24 @@ class HostEmbeddingStore:
             grown[:cap] = self._values
             self._values = grown
 
+    def _add(self, keys: np.ndarray) -> np.ndarray:
+        """Index new unique keys at rows [len, len + n), in order; returns
+        those rows."""
+        self._reserve(keys.size)
+        base = len(self._index)
+        new = np.arange(base, base + keys.size, dtype=np.int64)
+        self._index.update(zip(keys.tolist(), new.tolist()))
+        return new
+
     def lookup_or_create(self, keys: np.ndarray) -> np.ndarray:
         """Rows for unique keys, creating missing features in key order."""
         keys = np.asarray(keys, dtype=np.uint64)
         rows = self._rows_of(keys)
         miss = np.nonzero(rows < 0)[0]
         if miss.size:
-            self._reserve(miss.size)
-            base = len(self._index)
-            new = np.arange(base, base + miss.size, dtype=np.int64)
+            new = self._add(keys[miss])
             self._values[new] = self.layout.new_rows(
                 miss.size, self._rng, self.table.optimizer)
-            self._index.update(zip(keys[miss].tolist(), new.tolist()))
             rows[miss] = new
         return self._values[rows].copy()
 
@@ -112,6 +119,17 @@ class HostEmbeddingStore:
         rows = self._rows_of(keys)
         if (rows < 0).any():
             raise KeyError("write_back of keys the store never created")
+        self._values[rows] = values
+
+    def assign(self, keys: np.ndarray, values: np.ndarray) -> None:
+        """Create or overwrite the rows of unique keys verbatim, with no
+        creation draw (a journal replay's ROWS record); new keys take rows
+        [len, len + m) in the order given."""
+        keys = np.asarray(keys, dtype=np.uint64)
+        rows = self._rows_of(keys)
+        miss = np.nonzero(rows < 0)[0]
+        if miss.size:
+            rows[miss] = self._add(keys[miss])
         self._values[rows] = values
 
     # ------------------------------------------------------------ lifecycle

@@ -5,11 +5,11 @@ Counterpart of paddlebox_tpu/embedding/native_store.py:40-265, :360-451 and
 :454-475 without the SSD tier and telemetry (no tier sweep, tier tick or
 spilled rows), with the API of host_store.py's HostEmbeddingStore, its
 plain version. Each call is one bulk C call (or two) in place of a Python
-dict loop. A key is created only by
-``lookup_or_create``; the rows of the keys it creates are drawn in Python by
-``ValueLayout.new_rows`` from one ``RandomState(seed)`` in the order the
-caller passes the keys, as the plain store draws them, so the two stores
-hold the same bits. ``state_items`` returns hash order. The day
+dict loop. A key is created by ``lookup_or_create`` (or installed
+verbatim by ``assign``, a journal replay, which draws nothing); the rows of
+the keys it creates are drawn in Python by ``ValueLayout.new_rows`` from one
+``RandomState(seed)`` in the order the caller passes the keys, as the plain
+store draws them, so the two stores hold the same bits. ``state_items`` returns hash order. The day
 lifecycle's arithmetic runs in numpy (the accessor's), on rows gathered from
 and scattered back to the C++ arena; the one column add in C++ adds 1.0,
 which no contraction changes.
@@ -125,6 +125,21 @@ class NativeHostEmbeddingStore:
         rows = self._rows(keys)
         if (rows < 0).any():
             raise KeyError("write_back of keys the store never created")
+        self._lib.hs_scatter(self._h, ptr(rows, I64P), keys.size,
+                             ptr(values, F32P))
+
+    def assign(self, keys: np.ndarray, values: np.ndarray) -> None:
+        """Create or overwrite the rows of unique keys verbatim, with no
+        creation draw (a journal replay's ROWS record)."""
+        keys = np.ascontiguousarray(keys, dtype=np.uint64)
+        values = np.ascontiguousarray(values, dtype=np.float32)
+        if values.shape != (keys.size, self.layout.width):
+            raise ValueError("assign of %s values for %d keys of width %d"
+                             % (values.shape, keys.size, self.layout.width))
+        rows = np.empty(keys.size, np.int64)
+        created = np.empty(keys.size, np.uint8)
+        self._lib.hs_lookup_or_create(self._h, ptr(keys, U64P), keys.size,
+                                      ptr(rows, I64P), ptr(created, U8P))
         self._lib.hs_scatter(self._h, ptr(rows, I64P), keys.size,
                              ptr(values, F32P))
 

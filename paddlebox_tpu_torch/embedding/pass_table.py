@@ -56,6 +56,15 @@ the residency (the eval slab holds zero rows for keys the store lacks), so
 the next train pass builds in full. The day boundary's store changes
 (shrink, aging, a load) go around the pass cadence, so each first drops the
 residency.
+
+With a touched-row journal attached (``attach_journal``; the checkpoint
+manager attaches one under ckpt_journal), every train pass records the rows
+it hands to the store: a delta promote's misses (which lookup_or_create may
+have just created), a full build's rows and the write-back's rows, the
+exact arrays the store gets; shrink and aging record an event, and a load
+outside the checkpoint plane taints the journal's epoch (reference
+pass_table.py:362-386, :530-535, :570-572, :627-643, :846-891). Test-mode
+passes record nothing.
 """
 
 from __future__ import annotations
@@ -74,6 +83,7 @@ from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
 from paddlebox_tpu_torch.embedding.native_store import make_host_store
 from paddlebox_tpu_torch.native import host_lib
 from paddlebox_tpu_torch.ops.row_kernels import gather_rows
+from paddlebox_tpu_torch.utils.journal_format import EV_AGE_DAYS, EV_SHRINK
 
 # the reference's row counters (stat names), kept per table
 COUNTERS = ("pass_rows_promote_hit", "pass_rows_promote_new",
@@ -237,6 +247,23 @@ class PassTable:
         # build and end timers); begin_pass returns before the device work
         # it queues has run
         self.seconds: Dict[str, float] = {"begin_pass": 0.0, "end_pass": 0.0}
+        # the touched-row journal (train/journal.py), when one is attached
+        self._journal = None
+
+    # --------------------------------------------------------------- journal
+    def attach_journal(self, journal) -> None:
+        """Attach a train.journal.TouchedRowJournal (None detaches): the
+        pass records its store rows, the day boundary its events. The
+        port's stores have no SSD tier, so no MOVE sink is installed."""
+        self._journal = journal
+
+    def _journal_rows(self, keys: np.ndarray, rows: np.ndarray) -> None:
+        if self._journal is not None and not self._test_mode:
+            self._journal.append_rows(keys, rows)
+
+    def _journal_event(self, code: int) -> None:
+        if self._journal is not None:
+            self._journal.append_event(code)
 
     # ------------------------------------------------------- pass lifecycle
     def begin_feed_pass(self) -> None:
@@ -351,6 +378,10 @@ class PassTable:
             old_pos = self._resident_pos(keys)
             hit = old_pos >= 0
             new_rows = self._promote_missing_rows(keys[~hit])
+            # lookup_or_create may have created these rows just now, and
+            # the write-back need not revisit them; store-present rows
+            # record an upsert of equal bits
+            self._journal_rows(keys[~hit], new_rows)
             # the resident slab is dropped here: two slabs live only while
             # the promote runs
             self._slab = delta_promote(self._slab, old_pos, new_rows)
@@ -362,6 +393,7 @@ class PassTable:
             if n:
                 with self.store_lock:
                     rows = self._store_rows(keys)
+                self._journal_rows(keys, rows)
                 slab[:n].copy_(torch.from_numpy(rows))
             self._slab = slab
         self._drop_prev_route()
@@ -407,6 +439,7 @@ class PassTable:
                     ids = torch.from_numpy(idx.astype(np.int32)).to(
                         self.device)
                     rows = gather_rows(self._slab, ids).cpu().numpy()
+                    self._journal_rows(keys[idx], rows)
                     with self.store_lock:
                         self.store.write_back(keys[idx], rows)
                 self.counters["pass_rows_written_back"] += int(idx.size)
@@ -414,6 +447,7 @@ class PassTable:
                     n - int(idx.size)
             else:
                 rows = self._slab[:n].cpu().numpy()
+                self._journal_rows(keys, rows)
                 with self.store_lock:
                     self.store.write_back(keys, rows)
         if (self.flags.incremental_pass and not self._residency_poisoned
@@ -520,18 +554,23 @@ class PassTable:
         store. Returns the rows deleted."""
         self.invalidate_residency()
         with self.store_lock:
-            return self.store.shrink()
+            n = self.store.shrink()
+        self._journal_event(EV_SHRINK)
+        return n
 
     def end_day(self, age: bool = True) -> int:
         """The day boundary: age every feature's unseen_days (shrink's
         delete_after_unseen_days rule reads it), then shrink. Returns the
         rows deleted. age=False where CheckpointManager.save_base already
         aged the rows at this boundary (aging twice a day would halve every
-        feature's lifetime)."""
+        feature's lifetime). The reference journals its SSD tier's day
+        tick at age=False; the port's stores have no tier, so nothing is
+        recorded then."""
         self.invalidate_residency()
         if age:
             with self.store_lock:
                 self.store.age_unseen_days()
+                self._journal_event(EV_AGE_DAYS)
         return self.shrink_table()
 
     def save(self, path: str, flags: Optional[CkptFlags] = None) -> None:
@@ -540,8 +579,12 @@ class PassTable:
             self.store.save(path, flags)
 
     def load(self, path: str, threads: int = 0) -> None:
-        """Replace the host store's rows with the checkpoint at ``path``."""
+        """Replace the host store's rows with the checkpoint at ``path``.
+        An attached journal's epoch is tainted: CheckpointManager.load_base
+        is the load that re-anchors it."""
         self.invalidate_residency()
+        if self._journal is not None:
+            self._journal.taint("store loaded outside the checkpoint plane")
         with self.store_lock:
             self.store.load(path, threads)
 

@@ -473,6 +473,24 @@ class BoxTrainer:
         self._seed_gen = torch.Generator().manual_seed(seed)
         self.seed_fn = self._draw_seed
 
+    def random_state(self) -> Dict[str, object]:
+        """The trainer's random streams as numpy and Python values (what
+        dense.pkl's ``extra`` may hold): the pass shuffle's RandomState,
+        the push seeds' torch.Generator (its state as uint8) and the host
+        store's creation RandomState. Taken at a pass boundary and given
+        to ``set_random_state``, a resumed trainer draws as this one goes
+        on to draw."""
+        return {"shuffle_rng_state": self._shuffle_rng.get_state(),
+                "seed_gen_state": self._seed_gen.get_state().numpy().copy(),
+                "store_rng_state": self.table.store._rng.get_state()}
+
+    def set_random_state(self, state: Mapping[str, object]) -> None:
+        """Restore the streams ``random_state`` returned."""
+        self._shuffle_rng.set_state(state["shuffle_rng_state"])
+        self._seed_gen.set_state(torch.from_numpy(
+            np.ascontiguousarray(state["seed_gen_state"], np.uint8)))
+        self.table.store._rng.set_state(state["store_rng_state"])
+
     # ---------------------------------------------------------- dense state
     @property
     def params(self) -> Dict[str, np.ndarray]:

@@ -842,10 +842,13 @@ def _cm(tmp_path, table, async_save=True, **flags):
 def test_touched_mode_without_journal_falls_back_full(mode, tmp_path,
                                                       caplog):
     t = _small_table_with_rows()
-    cm = _cm(tmp_path, t)
+    cm = _cm(tmp_path, t, ckpt_journal=False)
+    assert cm.journal is None
     with caplog.at_level(logging.WARNING):
         bdir, xdir = cm.save_base({}, {}, day="d0", mode=mode)
-    assert "falling back to FULL" in caplog.text
+    # an explicit 'touched' warns; 'auto' picks full without a journal,
+    # as the reference does, and says nothing
+    assert ("falling back to FULL" in caplog.text) == (mode == "touched")
     cm.wait()
     with open(os.path.join(bdir, "sparse.xman")) as f:
         assert json.load(f)["mode"] == "full"
@@ -961,11 +964,10 @@ def test_jax_base_dense_refused_and_port_base_loads_in_jax(tmp_path):
 
 
 def test_ckpt_flags_refuse_what_the_port_lacks():
-    with pytest.raises(NotImplementedError, match="journal"):
-        CkptFlags(ckpt_journal=True)
     with pytest.raises(ValueError, match="ckpt_format"):
         CkptFlags(ckpt_format="parquet")
-    assert CkptFlags() == CkptFlags("columnar", 8, 0, True, False)
+    assert CkptFlags() == CkptFlags("columnar", 8, 0, True, True, 64 << 20,
+                                    32)
 
 
 def test_legacy_formats_round_trip(tmp_path):

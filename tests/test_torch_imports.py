@@ -36,7 +36,8 @@ def test_import_loads_no_jax_and_no_reference_module():
     for m in ("train.trainer", "native.host_lib", "data.columnar",
               "data.native_parser", "embedding.native_store",
               "embedding.ckpt_store", "serving.store", "train.checkpoint",
-              "train.eval_driver", "train.staging"):
+              "train.eval_driver", "train.staging", "train.journal",
+              "train.recovery", "utils.journal_format"):
         assert "paddlebox_tpu_torch." + m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
