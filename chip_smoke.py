@@ -116,6 +116,26 @@ Phases, each of which raises on a failed check (exit code != 0):
      table's begin_pass/end_pass seconds, the save's seconds (the
      caller's part and the writer's), the bytes written (a hard link
      counted once), each run's wall, beside the card line;
+ 12. the bf16 slab diet at full width (slab_embed_dtype="bfloat16",
+     train/flagship.py FLAGSHIP_BF16: a 2^20 x 25 int16 slab, 50 B a row
+     against 68 B): the three kernels' 2-byte forms against their plain
+     versions, all bit-equal, at the main path's shapes (the fused push
+     decoding and encoding rows in both write modes on phase 4's batch,
+     with a hot key and at every embedx width; the placement of its rows;
+     the pull raw and decoding; the delta promote and the write-back) and
+     on their 2-byte edge cases (edge_cases.py: odd row widths 19, 25 and
+     81, odd row starts, B odd and even), with kernel, plain, library and
+     bound times, the pull's decode timed both fused in the gather and as
+     a separate op; then FLAGSHIP_BF16's two passes (scatter, incremental,
+     chunks of 8): digits held to BF16_DIGITS, push_adagrad's bf16 form
+     launched once a step, gather_rows' decoding form once a step and its
+     raw 2-byte form at the promote and the two write-backs (35), no f32
+     form; the slab's bytes and the write-backs' D2H bytes beside the f32
+     ones, |dAUC| against phase 5's passes within BF16_AUC_GATE, the pass
+     phases beside phase 5's; a 4-batch blocked pass bit-identical to
+     scatter on the 2-byte blocked write; one dense bf16 pass
+     (compute_dtype and matmul_dtype bfloat16), its digits held to
+     DENSE_BF16_DIGITS;
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -173,6 +193,97 @@ def run_pass(torch, trainer, ds):
     return res, auc, secs
 
 
+def push_check(torch, slab, g, u, p, o, n_uniq, created, layout, conf,
+               seed):
+    """The fused push kernel against its plain version in both write
+    modes, from the same slab (f32, or the bf16 slab's int16 under a bf16
+    ``layout``); the rows of ``created`` uids must get embedx. Returns the
+    largest difference of the (decoded) rows."""
+    from paddlebox_tpu_torch.copy_probe import bit_equal
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+
+    D = layout.embedx_dim
+
+    def dec(t):
+        return acc.decode_slab_rows(t, layout)
+
+    err = 0.0
+    at = torch.searchsorted(u[:n_uniq], created)
+    for rows_out in (False, True):
+        s_k, s_p = slab.clone(), slab.clone()
+        got = pk.push_adagrad(s_k, g, p, o, u, n_uniq, seed, layout, conf,
+                              rows_out)
+        torch.cuda.synchronize()
+        want = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n_uniq, seed,
+                                           layout, conf, rows_out)
+        check(bit_equal(s_k, s_p), "push_adagrad (rows_out=%s, %s) slab "
+              "differs from the plain version"
+              % (rows_out, layout.embed_dtype))
+        err = max(err, float((dec(s_k) - dec(s_p)).abs().max()))
+        if rows_out:
+            check(bit_equal(s_k, slab), "push_adagrad rows_out wrote the "
+                  "slab")
+            check(bit_equal(got, want), "push_adagrad rows out differ from "
+                  "the plain version")
+            err = max(err, float((dec(got) - dec(want)).abs().max()))
+            made = dec(got[at])[:, acc.MF_SIZE]
+        else:
+            made = dec(s_k[created.long()])[:, acc.MF_SIZE]
+        check(bool((made == D).all()), "push_adagrad did not create "
+              "embedx on every created row")
+        del s_k, s_p, got, want
+    return err
+
+
+def push_width_cases(torch, dev, embed_dtype):
+    """push_check at every embedx width the kernel is built for, on a
+    small batch with a hot key and a padding tail (rows with mf_size 0
+    create embedx); returns the largest difference."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
+    from paddlebox_tpu_torch.embedding.pass_table import (dedup_ids,
+                                                          segment_offsets)
+    from paddlebox_tpu_torch.push_probe import SEED
+    from paddlebox_tpu_torch.train import flagship
+
+    conf = flagship.FLAGSHIP.table().optimizer
+    err = 0.0
+    for d in pk.KERNEL_EMBEDX_DIMS:
+        lay, rs = ValueLayout(d, embed_dtype=embed_dtype), \
+            np.random.RandomState(d)
+        push = PushLayout(d)
+        cap, k = 4096, 3000
+        w_ids = rs.randint(0, 1500, k).astype(np.int32)
+        w_ids[:400] = 7
+        w_ids[k - 300:] = cap - 1
+        w_uids, w_perm, w_inv, w_n = dedup_ids(w_ids, cap)
+        w_slab = rs.rand(cap, lay.width).astype(np.float32)
+        w_slab[:, acc.MF_SIZE] = np.where(rs.rand(cap) < 0.5, d, 0)
+        w_grads = (rs.randn(k, push.width) * 0.2).astype(np.float32)
+        w_grads[:, push.SHOW] = rs.randint(0, 2, k)
+        w_grads[:, push.CLICK] = rs.randint(0, 2, k)
+        w_grads[k - 300:] = 0.0
+        made = np.unique(w_ids[(w_grads[:, push.SHOW] > 0)
+                               & (w_slab[w_ids, acc.MF_SIZE] == 0)])
+        err = max(err, push_check(
+            torch, device_slab(torch, w_slab, lay, dev),
+            *(torch.from_numpy(x).to(dev) for x in (
+                w_grads, w_uids, w_perm, segment_offsets(w_inv, k - 300))),
+            w_n, torch.from_numpy(made.astype(np.int32)).to(dev), lay, conf,
+            SEED))
+    return err
+
+
+def device_slab(torch, rows, layout, dev):
+    """Host f32 rows as ``layout``'s slab on ``dev``."""
+    from paddlebox_tpu_torch.embedding.accessor import slab_rows_np
+    return torch.from_numpy(slab_rows_np(rows, layout)).to(dev)
+
+
 def kernel_phase(torch, cfg, feed, files, dev):
     """Phase 4, the push kernels against their plain versions at the main
     path's shapes; returns their records (launches filled later)."""
@@ -180,7 +291,6 @@ def kernel_phase(torch, cfg, feed, files, dev):
 
     from paddlebox_tpu_torch.copy_probe import blocked_case
     from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
-    from paddlebox_tpu_torch.embedding import accessor as acc
     from paddlebox_tpu_torch.embedding import push_kernels as pk
     from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
     from paddlebox_tpu_torch.embedding.pass_table import (dedup_ids,
@@ -210,39 +320,10 @@ def kernel_phase(torch, cfg, feed, files, dev):
     del inp
     seed = SEED
 
-    def push_check(slab, g, u, p, o, n_uniq, created, layout=layout):
-        """The kernel against its plain version in both write modes, from
-        the same slab; the rows of ``created`` uids must get embedx."""
-        D = layout.embedx_dim
-        err = 0.0
-        at = torch.searchsorted(u[:n_uniq], created)
-        for rows_out in (False, True):
-            s_k, s_p = slab.clone(), slab.clone()
-            got = pk.push_adagrad(s_k, g, p, o, u, n_uniq, seed, layout,
-                                  conf, rows_out)
-            torch.cuda.synchronize()
-            want = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n_uniq, seed,
-                                               layout, conf, rows_out)
-            check(bit_equal(s_k, s_p), "push_adagrad (rows_out=%s) slab "
-                  "differs from the plain version" % rows_out)
-            err = max(err, float((s_k - s_p).abs().max()))
-            if rows_out:
-                check(bit_equal(s_k, slab), "push_adagrad rows_out wrote "
-                      "the slab")
-                check(bit_equal(got, want), "push_adagrad rows out differ "
-                      "from the plain version")
-                err = max(err, float((got - want).abs().max()))
-                made = got[at, acc.MF_SIZE]
-            else:
-                made = s_k[created.long(), acc.MF_SIZE]
-            check(bool((made == D).all()), "push_adagrad did not create "
-                  "embedx on every created row")
-            del s_k, s_p, got, want
-        return err
-
     created = torch.from_numpy(
         np.unique(ids[live & (kind[ids] == 0)]).astype(np.int32)).to(dev)
-    push_err = push_check(slab, g, u, p, o, n_uniq, created)
+    push_err = push_check(torch, slab, g, u, p, o, n_uniq, created, layout,
+                          conf, seed)
     # a hot key: one key in the batch's first 1,000 slots, a run longer
     # than a tile's staged occurrences, summed from global memory
     hot = ids.copy()
@@ -252,30 +333,10 @@ def kernel_phase(torch, cfg, feed, files, dev):
     h_off = segment_offsets(h_inv, n_valid)
     check(int(np.diff(h_off).max()) >= 1000, "no hot run")
     push_err = max(push_err, push_check(
-        slab, g, *(torch.from_numpy(x).to(dev)
-                   for x in (h_uids, h_perm, h_off)), h_n, created[:0]))
-    # every embedx width the kernel is built for, on a small batch with a
-    # hot key and a padding tail; rows with mf_size 0 create embedx
-    for d in pk.KERNEL_EMBEDX_DIMS:
-        lay, rs = ValueLayout(d), np.random.RandomState(d)
-        cap, k = 4096, 3000
-        w_ids = rs.randint(0, 1500, k).astype(np.int32)
-        w_ids[:400] = 7
-        w_ids[k - 300:] = cap - 1
-        w_uids, w_perm, w_inv, w_n = dedup_ids(w_ids, cap)
-        w_slab = rs.rand(cap, lay.width).astype(np.float32)
-        w_slab[:, acc.MF_SIZE] = np.where(rs.rand(cap) < 0.5, d, 0)
-        w_grads = (rs.randn(k, PushLayout(d).width) * 0.2).astype(np.float32)
-        w_grads[:, push.SHOW] = rs.randint(0, 2, k)
-        w_grads[:, push.CLICK] = rs.randint(0, 2, k)
-        w_grads[k - 300:] = 0.0
-        made = np.unique(w_ids[(w_grads[:, push.SHOW] > 0)
-                               & (w_slab[w_ids, acc.MF_SIZE] == 0)])
-        push_err = max(push_err, push_check(
-            *(torch.from_numpy(x).to(dev) for x in (
-                w_slab, w_grads, w_uids, w_perm,
-                segment_offsets(w_inv, k - 300))), w_n,
-            torch.from_numpy(made.astype(np.int32)).to(dev), layout=lay))
+        torch, slab, g, *(torch.from_numpy(x).to(dev)
+                          for x in (h_uids, h_perm, h_off)), h_n,
+        created[:0], layout, conf, seed))
+    push_err = max(push_err, push_width_cases(torch, dev, "float32"))
     log("push_adagrad fused: bit-equal to the plain version in both write "
         "modes at the flagship batch, with a %d-occurrence hot key, and at "
         "embedx widths %s" % (int(np.diff(h_off).max()),
@@ -717,6 +778,52 @@ def plain_tier_phase(torch, cfg, feed, files, native, native_store):
     return plain
 
 
+def blocked_phase(torch, cfg, feed, files):
+    """One pass over ``files[0]`` (4 batches) with push_write='scatter' and
+    one with 'blocked' from the same seed: bit-identical host rows; the
+    push and the placement each launched once a step in the forms of
+    ``cfg``'s slab, no other form. Returns the blocked pass's push kernel
+    launch counts."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.train import flagship
+
+    two = cfg.slab_embed_dtype == "bfloat16"
+    push, place = (("push_adagrad_bf16", "blocked_write_2byte") if two
+                   else ("push_adagrad", "blocked_write"))
+    tag = "bf16 " if two else ""
+    rows, blocked = {}, None
+    for mode in ("scatter", "blocked"):
+        t, d = flagship.build_trainer(files[:1], feed, cfg, mode, "cuda")
+        pk.reset_launch_counts()
+        res, auc, _ = run_pass(torch, t, d)
+        c = pk.launch_counts()
+        if mode == "blocked":
+            blocked = c
+            check(c[place] == res["batches"] and c[push] == res["batches"]
+                  and sum(c.values()) == 2 * res["batches"],
+                  "%sblocked path launches %s over %d steps"
+                  % (tag, c, res["batches"]))
+        rows[mode] = t.table.store.lookup(t.table.pass_keys)
+        log("%s%s pass over %d batches: loss %r auc %r launches %s"
+            % (tag, mode, res["batches"], res["loss"], auc, c))
+        del t, d
+    check(np.array_equal(rows["blocked"].view(np.uint32),
+                         rows["scatter"].view(np.uint32)),
+          "%sblocked-mode rows differ from scatter-mode rows" % tag)
+    log("%sblocked vs scatter rows bit-identical over %d rows"
+        % (tag, rows["blocked"].shape[0]))
+    return blocked
+
+
+def f32_launches(**launches):
+    """The launch counts of a run on the f32 slab: the f32 forms'
+    ``launches`` and every 2-byte form's 0."""
+    return {"push_adagrad_bf16": 0, "blocked_write_2byte": 0,
+            "gather_rows_2byte": 0, "gather_rows_decode": 0, **launches}
+
+
 def counter_delta(before, table):
     """The table's row counters since ``before`` (a copy of them)."""
     return {k: v - before[k] for k, v in table.counters.items()}
@@ -887,8 +994,9 @@ def eval_phase(torch, trainer, files, feed, reset_counts, counts):
     check(np.array_equal(after[0], before[0])
           and bits_equal(after[1], before[1]),
           "the test pass changed the host store")
-    check(launches == {"push_adagrad": 0, "blocked_write": 0,
-                       "scale_copy": 0, "gather_rows": 1 + n_batches},
+    check(launches == f32_launches(push_adagrad=0, blocked_write=0,
+                                   scale_copy=0,
+                                   gather_rows=1 + n_batches),
           "test pass launches %s over %d batches" % (launches, n_batches))
     hit = int(np.isin(keys, resident).sum())
     check(rows["pass_rows_promote_hit"] == hit
@@ -1273,9 +1381,9 @@ def chunk_phase(torch, cfg, feed, files, ref, reset_counts, counts):
     sync_launches = counts()
     n_chunks = res["batches"] // trainer.cfg.scan_chunk
     tail = res["batches"] - n_chunks * trainer.cfg.scan_chunk
-    check(sync_launches == {"push_adagrad": n_chunks + tail,
-                            "gather_rows": n_chunks + tail + 1,
-                            "blocked_write": 0, "scale_copy": 0},
+    check(sync_launches == f32_launches(push_adagrad=n_chunks + tail,
+                                        gather_rows=n_chunks + tail + 1,
+                                        blocked_write=0, scale_copy=0),
           "sparse_chunk_sync launches %s over %d chunks and %d tail steps"
           % (sync_launches, n_chunks, tail))
     sync = {"loss": res["loss"], "auc": auc, "batches": res["batches"],
@@ -1507,8 +1615,8 @@ def recovery_phase(torch, cfg, feed, windows, keys, tmp, reset_counts,
         check(modes == (["full", "journal", "journal"] if tag == "A"
                         else ["full"] * 3),
               "recovery run %d (%s) save modes %s" % (i, tag, modes))
-        check(launches == {"push_adagrad": steps, "blocked_write": 0,
-                           "scale_copy": 0, "gather_rows": steps + 3},
+        check(launches == f32_launches(push_adagrad=steps, blocked_write=0,
+                                       scale_copy=0, gather_rows=steps + 3),
               "recovery run %d launches %s over %d steps and 3 "
               "write-backs" % (i, launches, steps))
         summary = {"run": i, "journal": tag == "A", "wall_s": rec["wall_s"],
@@ -1553,13 +1661,419 @@ def recovery_phase(torch, cfg, feed, windows, keys, tmp, reset_counts,
     return out
 
 
+# the bf16 main path's losses and AUC (phase 12: two passes of
+# FLAGSHIP_BF16), "%.10f"
+BF16_DIGITS = {"loss": ("0.6866459250", "0.5646136999"),
+               "auc": ("0.4971533802", "0.7344624652")}
+# phase 12's dense bf16 pass (compute_dtype and matmul_dtype bfloat16 on
+# the bf16 slab, one pass), "%.10f"
+DENSE_BF16_DIGITS = ("0.6866628528", "0.4972733763")
+# the main path's AUC gap the reference allows between the f32 and the
+# bf16 slab (tests/test_push_blocked.py:491, its parity gate)
+BF16_AUC_GATE = 0.01
+
+
+def gather16_edge_phase(torch, dev):
+    """Phase 12, the 2-byte gather, raw and decoding, on its edge cases
+    (edge_cases.gather_edge_cases_2byte; the decoding form at the widths
+    of a bf16 layout) and over many tiles: bit-equal to the plain
+    versions."""
+    from paddlebox_tpu_torch.copy_probe import bit_equal
+    from paddlebox_tpu_torch.edge_cases import (gather_edge_cases_2byte,
+                                                gather_source)
+    from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+    from paddlebox_tpu_torch.embedding.push_kernels import KERNEL_EMBEDX_DIMS
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+
+    def both(src, i, label):
+        got = rk.gather_rows(src, i)
+        torch.cuda.synchronize()
+        check(torch.equal(got, rk.gather_rows_plain(src, i)), "gather_rows "
+              "(2-byte) differs from the plain version on %s" % label)
+        d = src.shape[1] - 17
+        if d not in KERNEL_EMBEDX_DIMS:
+            return 0
+        lay = ValueLayout(d, embed_dtype="bfloat16")
+        got = rk.gather_rows_decode(src, i, lay)
+        torch.cuda.synchronize()
+        check(bit_equal(got, rk.gather_rows_decode_plain(src, i, lay)),
+              "gather_rows_decode differs from the plain version on %s"
+              % label)
+        return 1
+
+    cases = gather_edge_cases_2byte()
+    decoded = 0
+    for label, (flat, off, C, W, ids) in cases.items():
+        src = gather_source(torch.from_numpy(flat.view("int16")).to(dev),
+                            off, C, W)
+        decoded += both(src, torch.from_numpy(ids).to(dev), label)
+    # many tiles a persistent block: 2^20 ids, about 16,000 tiles
+    gen = torch.Generator(device=dev).manual_seed(14)
+    src = torch.randint(-1 << 15, 1 << 15, (3000, 25), generator=gen,
+                        device=dev, dtype=torch.int16)
+    both(src, torch.randint(0, 3040, (1 << 20,), generator=gen, device=dev,
+                            dtype=torch.int32), "2^20 ids")
+    log("gather_rows (2-byte): bit-equal to the plain version on %d edge "
+        "cases (K, W, source offset; %d of them decoded too): %s, and on "
+        "2^20 ids at W 25, raw and decoded" % (len(cases), decoded,
+                                               sorted(cases)))
+
+
+def blocked16_edge_phase(torch, dev):
+    """Phase 12, the 2-byte blocked write on its edge cases
+    (edge_cases.blocked_edge_cases_2byte: W 19, 25 and 81, B odd and
+    even), in the cases' slot order and reversed, and over many tiles:
+    bit-equal to the plain version."""
+    from paddlebox_tpu_torch.edge_cases import blocked_edge_cases_2byte
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+
+    cases = blocked_edge_cases_2byte()
+    for label, (slab, new_rows, row_map, blk_idx, off) in cases.items():
+        s0, nr = (torch.from_numpy(x.view("int16")).to(dev)
+                  for x in (slab, new_rows))
+        for order in ("as given", "reversed"):
+            flip = slice(None, None, -1 if order == "reversed" else 1)
+            rm = on_card(torch, row_map[flip], off, dev)
+            bi = torch.from_numpy(blk_idx[flip].copy()).to(dev)
+            s_k, s_p = s0.clone(), s0.clone()
+            pk.blocked_write(s_k, nr, rm, bi)
+            torch.cuda.synchronize()
+            pk.blocked_write_plain(s_p, nr, rm, bi)
+            check(torch.equal(s_k, s_p), "blocked_write (2-byte) differs "
+                  "from the plain version on %s (slots %s)" % (label, order))
+    gen = torch.Generator(device=dev).manual_seed(15)
+    NB, B = 6000, 511
+    mask = torch.rand((NB, B), generator=gen, device=dev) < 0.02
+    mask[::7] = False
+    row_map = torch.full((NB, B), -1, dtype=torch.int32, device=dev)
+    n = int(mask.sum())
+    row_map[mask] = torch.randperm(n, generator=gen, device=dev).to(
+        torch.int32)
+    blk_idx = torch.randperm(NB + 100, generator=gen, device=dev)[:NB].to(
+        torch.int32)
+    s_k = torch.randint(-1 << 15, 1 << 15, ((NB + 100) * B, 25),
+                        generator=gen, device=dev, dtype=torch.int16)
+    s_p = s_k.clone()
+    nr = torch.randint(-1 << 15, 1 << 15, (n, 25), generator=gen,
+                       device=dev, dtype=torch.int16)
+    pk.blocked_write(s_k, nr, row_map, blk_idx)
+    torch.cuda.synchronize()
+    pk.blocked_write_plain(s_p, nr, row_map, blk_idx)
+    check(torch.equal(s_k, s_p), "blocked_write (2-byte) differs from the "
+          "plain version over many tiles")
+    log("blocked_write (2-byte): bit-equal to the plain version on %d edge "
+        "cases %s, slots as given and reversed, and over %d slots of %d "
+        "lanes" % (len(cases), sorted(cases), NB, B))
+
+
+def bf16_kernel_phase(torch, cfg, feed, files, keys, dev):
+    """Phase 12, the three kernels' 2-byte forms at the bf16 main path's
+    shapes (the fused push on a flagship batch's dedup over a 2^20 x 25
+    int16 slab, the placement of its rows, the pull raw and decoding, the
+    delta promote and the write-back) and on their 2-byte edge cases, each
+    bit-equal to its plain version; with kernel, plain, library and bound
+    times, and at the pull the decode as a separate op beside the decoding
+    gather. Returns the kernel records (launches filled later)."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.copy_probe import bit_equal, blocked_case
+    from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.accessor import (PushLayout,
+                                                        ValueLayout,
+                                                        decode_slab_rows)
+    from paddlebox_tpu_torch.embedding.pass_table import (dedup_ids,
+                                                          segment_offsets,
+                                                          sorted_member)
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.push_probe import (SEED, fused_push_bytes,
+                                                push_inputs)
+    from paddlebox_tpu_torch.rate_probe import (gather_bytes,
+                                                pull_inputs_bf16, time_chain)
+
+    D, C = cfg.embedx, cfg.capacity
+    layout = ValueLayout(D, embed_dtype="bfloat16")
+    W, DW, G = layout.width, layout.device_width, PushLayout(D).width
+    conf = cfg.table().optimizer
+
+    # --- push_adagrad, bf16: phase 4's flagship batch on the slab encoded
+    inp = push_inputs(cfg, files, feed)
+    ids, live, kind = inp["ids"], inp["live"], inp["kind"]
+    K, n_uniq, n_valid = ids.shape[0], inp["n_uniq"], inp["n_valid"]
+    slab = device_slab(torch, inp["slab"], layout, dev)
+    g, p, o, u = (torch.from_numpy(x).to(dev) for x in (
+        inp["grads"], inp["perm"], segment_offsets(inp["inv"], n_valid),
+        inp["uids"]))
+    del inp
+    created = torch.from_numpy(
+        np.unique(ids[live & (kind[ids] == 0)]).astype(np.int32)).to(dev)
+    push_err = push_check(torch, slab, g, u, p, o, n_uniq, created, layout,
+                          conf, SEED)
+    hot = ids.copy()
+    hot[:1000] = hot[0]
+    h_uids, h_perm, h_inv, h_n = dedup_ids(hot, C)
+    push_err = max(push_err, push_check(
+        torch, slab, g, *(torch.from_numpy(x).to(dev) for x in (
+            h_uids, h_perm, segment_offsets(h_inv, n_valid))), h_n,
+        created[:0], layout, conf, SEED))
+    push_err = max(push_err, push_width_cases(torch, dev, "bfloat16"))
+    log("push_adagrad (bf16): bit-equal to the plain version in both write "
+        "modes at the flagship batch on a [%d, %d] int16 slab, with a hot "
+        "key, and at embedx widths %s" % (C, DW,
+                                          list(pk.KERNEL_EMBEDX_DIMS)))
+    push_bytes = fused_push_bytes(n_valid, n_uniq, DW, G, 2)
+    push_ops = (n_valid * G + int(np.unique(ids[live]).size) * (20 + 6 * D)
+                + n_uniq * 4 * W)
+    push_bound = 1e3 * max(push_bytes / HBM_BYTES_PER_S,
+                           push_ops / F32_FLOPS)
+    args = (slab, g, p, o, u)
+    push_ms = time_chain(
+        lambda *a: pk.push_adagrad(*a, n_uniq, SEED, layout, conf,
+                                   rows_out=True), args, push_bytes)
+    push_plain_ms = time_chain(
+        lambda *a: pk.push_adagrad_fused_plain(*a, n_uniq, SEED, layout,
+                                               conf, rows_out=True), args,
+        push_bytes)
+    push_inplace_ms = time_chain(
+        lambda *a: pk.push_adagrad(*a, n_uniq, SEED, layout, conf), args,
+        push_bytes)
+    log("push_adagrad (bf16), K=%d n_valid=%d n_uniq=%d: rows out %.4f ms "
+        "(in place %.4f ms), plain %.4f ms, bound %.4f ms (%d B)"
+        % (K, n_valid, n_uniq, push_ms, push_inplace_ms, push_plain_ms,
+           push_bound, push_bytes))
+    del slab, g, p, o, u, args
+
+    # --- blocked_write, 2-byte: the same batch's rows placed
+    blk = blocked_case(ids, C, DW, dev, two_byte=True)
+    slab0, new_rows, row_map, blk_idx = blk["args"]
+    s_k, s_p = slab0.clone(), slab0.clone()
+    pk.blocked_write(s_k, new_rows, row_map, blk_idx)
+    torch.cuda.synchronize()
+    pk.blocked_write_plain(s_p, new_rows, row_map, blk_idx)
+    check(torch.equal(s_k, s_p), "blocked_write (2-byte) differs from the "
+          "plain version")
+    blocked16_edge_phase(torch, dev)
+    blk_bytes = blk["bytes"]
+    blk_args = (s_k, new_rows, row_map, blk_idx)
+    blk_ms = time_chain(pk.blocked_write, blk_args, blk_bytes)
+    blk_plain_ms = time_chain(pk.blocked_write_plain, blk_args, blk_bytes)
+    blk_lib_ms = time_chain(blk["library"], blk["library_args"], blk_bytes)
+    blk_bound = 1e3 * blk_bytes / HBM_BYTES_PER_S
+    log("blocked_write (2-byte) NB=%(NB)d B=%(B)d placed=%(placed)d W=%(W)d"
+        ": " % blk["info"] + "kernel %.4f ms, plain %.4f ms, index_copy_ "
+        "%.4f ms, bound %.4f ms (%d B)" % (blk_ms, blk_plain_ms, blk_lib_ms,
+                                          blk_bound, blk_bytes))
+    del blk, blk_args, slab0, new_rows, s_k, s_p
+
+    # --- gather_rows, 2-byte: the pull, raw and decoded (fused, and the
+    # raw gather followed by the codec's decode in PyTorch ops)
+    s_np, pull_ids = pull_inputs_bf16(dataclasses.replace(
+        cfg, slab_embed_dtype="bfloat16"))
+    src = torch.from_numpy(s_np.view("int16")).to(dev)
+    i = torch.from_numpy(pull_ids).to(dev)
+    raw = rk.gather_rows(src, i)
+    dec = rk.gather_rows_decode(src, i, layout)
+    torch.cuda.synchronize()
+    check(torch.equal(raw, rk.gather_rows_plain(src, i))
+          and torch.equal(raw, src.index_select(0, i)),
+          "gather_rows (2-byte) at the pull differs from the plain version")
+    dec_plain = rk.gather_rows_decode_plain(src, i, layout)
+    check(bit_equal(dec, dec_plain), "gather_rows_decode at the pull "
+          "differs from the plain version")
+    dec_err = float((dec - dec_plain).abs().max())
+    distinct = int(np.unique(pull_ids).size)
+    raw_bytes = gather_bytes(pull_ids, C, DW, 2)
+    dec_bytes = K * 4 + distinct * DW * 2 + K * W * 4
+
+    def separate(s, ids_):
+        return decode_slab_rows(rk.gather_rows(s, ids_), layout)
+
+    check(bit_equal(separate(src, i), dec), "the separate decode differs "
+          "from the decoding gather")
+    pull = {"ids": K, "distinct": distinct,
+            "raw": {"bytes": raw_bytes,
+                    "ms": time_chain(rk.gather_rows, (src, i), raw_bytes),
+                    "plain_ms": time_chain(rk.gather_rows_plain, (src, i),
+                                           raw_bytes),
+                    "library_ms": time_chain(
+                        lambda a, b: a.index_select(0, b), (src, i),
+                        raw_bytes),
+                    "bound_ms": 1e3 * raw_bytes / HBM_BYTES_PER_S},
+            "decode": {"bytes": dec_bytes,
+                       "fused_ms": time_chain(
+                           lambda a, b: rk.gather_rows_decode(a, b, layout),
+                           (src, i), dec_bytes),
+                       "separate_ms": time_chain(separate, (src, i),
+                                                 dec_bytes),
+                       "plain_ms": time_chain(
+                           lambda a, b: rk.gather_rows_decode_plain(
+                               a, b, layout), (src, i), dec_bytes),
+                       "bound_ms": 1e3 * dec_bytes / HBM_BYTES_PER_S}}
+    log("gather_rows (2-byte) at the pull, src %s, %d ids (%d distinct): "
+        "%s" % (list(src.shape), K, distinct, json.dumps(pull)))
+    del src, i, raw, dec, dec_plain
+
+    # --- the delta promote and the write-back (raw), as phase 4's
+    gen = torch.Generator(device=dev).manual_seed(16)
+    slab = torch.randint(-1 << 15, 1 << 15, (C, DW), generator=gen,
+                         device=dev, dtype=torch.int16)
+    pos, hit = sorted_member(keys[0], keys[1])
+    at_shapes = {}
+    for label, ids_np in (
+            ("promote", np.where(hit, pos, 0).astype(np.int32)),
+            ("writeback", np.arange(keys[0].size, dtype=np.int32))):
+        ii = torch.from_numpy(ids_np).to(dev)
+        got = rk.gather_rows(slab, ii)
+        torch.cuda.synchronize()
+        check(torch.equal(got, rk.gather_rows_plain(slab, ii)),
+              "gather_rows (2-byte) at the %s shape differs from the plain "
+              "version" % label)
+        del got
+        nbytes = gather_bytes(ids_np, C, DW, 2)
+        args = (slab, ii)
+        at_shapes[label] = {
+            "ids": int(ids_np.size),
+            "distinct": int(np.unique(ids_np).size), "bytes": nbytes,
+            "ms": time_chain(rk.gather_rows, args, nbytes),
+            "plain_ms": time_chain(rk.gather_rows_plain, args, nbytes),
+            "library_ms": time_chain(lambda a, b: a.index_select(0, b),
+                                     args, nbytes),
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+        log("gather_rows (2-byte) %s shape src %s: bit-equal to the plain "
+            "version; %s" % (label, list(slab.shape),
+                             json.dumps(at_shapes[label])))
+    del slab
+    gather16_edge_phase(torch, dev)
+
+    def rec(name, src_file, line, ms, plain_ms, bound_ms, bound_by, lib_ms,
+            err, **extra):
+        return {"name": name, "route": "cuda",
+                "source": "paddlebox_tpu_torch/csrc/" + src_file,
+                "replaces": line, "launches": None, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms, **extra}
+
+    push_line = "paddlebox_tpu/embedding/pallas_push.py:"
+    return [
+        rec("push_adagrad_bf16", "push_adagrad.cu", push_line + "41",
+            push_ms, push_plain_ms, push_bound,
+            "bytes" if push_bytes / HBM_BYTES_PER_S >= push_ops / F32_FLOPS
+            else "operations", None, push_err,
+            in_place_ms=push_inplace_ms),
+        rec("blocked_write_2byte", "blocked_write.cu", push_line + "111",
+            blk_ms, blk_plain_ms, blk_bound, "bytes", blk_lib_ms, 0.0),
+        rec("gather_rows_2byte", "gather_rows.cu",
+            "tools/pallas_rate_probe.py:70", pull["raw"]["ms"],
+            pull["raw"]["plain_ms"], pull["raw"]["bound_ms"], "bytes",
+            pull["raw"]["library_ms"], 0.0, at_shapes=at_shapes),
+        rec("gather_rows_decode", "gather_rows.cu",
+            "tools/pallas_rate_probe.py:70", pull["decode"]["fused_ms"],
+            pull["decode"]["plain_ms"], pull["decode"]["bound_ms"], "bytes",
+            None, dec_err, separate_decode_ms=pull["decode"]["separate_ms"]),
+    ]
+
+
+def bf16_phase(torch, feed, files, f32_passes, reset_counts, counts):
+    """Phase 12, the bf16 main path at full width: FLAGSHIP_BF16's two
+    passes (its digits, launches, slab and write-back bytes, |dAUC|
+    against phase 5's f32 passes), a 4-batch blocked pass bit-identical to
+    scatter, and one dense bf16 pass (compute_dtype and matmul_dtype
+    bfloat16). Returns its records."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.train import flagship
+
+    cfg = flagship.FLAGSHIP_BF16
+    trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter", "cuda")
+    layout = trainer.table.layout
+    check(layout.bf16 and layout.device_width == 17 + cfg.embedx,
+          "FLAGSHIP_BF16 built layout %s" % (layout,))
+    reset_counts()
+    passes = main_passes(torch, trainer, ds)
+    launches = counts()
+    slab = trainer.table.slab
+    check(slab.dtype == torch.int16
+          and tuple(slab.shape) == (cfg.capacity, layout.device_width),
+          "bf16 slab %s %s" % (slab.dtype, tuple(slab.shape)))
+    for p in passes:
+        log("bf16 main path pass %d: loss %.10f auc %.10f %s"
+            % (p["pass"], p["loss"], p["auc"], json.dumps(p)))
+    digits = {"loss": tuple("%.10f" % p["loss"] for p in passes),
+              "auc": tuple("%.10f" % p["auc"] for p in passes)}
+    check(digits == BF16_DIGITS, "bf16 main path digits %s, expected %s"
+          % (digits, BF16_DIGITS))
+    steps = sum(p["batches"] for p in passes)
+    extra = sum(gather_launches_of(p["counters"]) for p in passes)
+    check(launches["push_adagrad_bf16"] == steps
+          and launches["gather_rows_decode"] == steps
+          and extra == 3 and launches["gather_rows_2byte"] == extra,
+          "bf16 main path launches %s over %d steps and %d promotes and "
+          "write-backs" % (launches, steps, extra))
+    check(all(launches[k] == 0 for k in ("push_adagrad", "gather_rows",
+                                         "blocked_write",
+                                         "blocked_write_2byte",
+                                         "scale_copy")),
+          "an f32 form or another kernel launched on the bf16 main path: %s"
+          % launches)
+    d_auc = [abs(p["auc"] - q["auc"]) for p, q in zip(passes, f32_passes)]
+    check(max(d_auc) <= BF16_AUC_GATE, "bf16 |dAUC| %s against f32 over "
+          "the gate %s" % (d_auc, BF16_AUC_GATE))
+    written = [p["counters"]["pass_rows_written_back"] for p in passes]
+    sizes = {"slab_bytes": slab.numel() * slab.element_size(),
+             "f32_slab_bytes": cfg.capacity * layout.width * 4,
+             "writeback_d2h_bytes": [n * layout.device_bytes_per_row
+                                     for n in written],
+             "f32_writeback_d2h_bytes": [n * layout.width * 4
+                                         for n in written]}
+    k, v = sorted_store(trainer.table)
+    check(np.isfinite(v).all() and k.size > 0, "bf16 host store not finite")
+    log("bf16 main path launches %s over %d steps; |dAUC| against f32 %s "
+        "(gate %s); %s; pass phases bf16 %s, f32 %s; %s"
+        % (launches, steps, d_auc, BF16_AUC_GATE, json.dumps(sizes),
+           [p["phase_s"] for p in passes],
+           [p["phase_s"] for p in f32_passes], card_line()))
+    del trainer, ds, slab
+
+    blocked = blocked_phase(torch, cfg, feed, files)
+
+    # dense bf16: one pass with bf16 compute and bf16 matmul operands
+    dense_cfg = dataclasses.replace(cfg, compute_dtype="bfloat16",
+                                    matmul_dtype="bfloat16")
+    t, d = flagship.build_trainer(files, feed, dense_cfg, "scatter", "cuda")
+    check(t.cfg.compute_dtype == "bfloat16"
+          and t.model.matmul_dtype == "bfloat16", "dense bf16 not set")
+    before = dict(t.table.counters)
+    reset_counts()
+    res, auc, secs = run_pass(torch, t, d)
+    dense_launches = counts()
+    dense_extra = gather_launches_of(counter_delta(before, t.table))
+    dense = {"loss": res["loss"], "auc": auc, "pass_s": secs,
+             "phase_s": t.pass_times, "launches": dense_launches}
+    dense_digits = ("%.10f" % res["loss"], "%.10f" % auc)
+    log("dense bf16 pass: loss %.10f auc %.10f %s"
+        % (res["loss"], auc, json.dumps(dense)))
+    check(dense_digits == DENSE_BF16_DIGITS, "dense bf16 digits %s, "
+          "expected %s" % (dense_digits, DENSE_BF16_DIGITS))
+    check(dense_launches == {
+              "push_adagrad": 0, "gather_rows": 0, "blocked_write": 0,
+              "blocked_write_2byte": 0, "scale_copy": 0,
+              "push_adagrad_bf16": res["batches"],
+              "gather_rows_decode": res["batches"],
+              "gather_rows_2byte": dense_extra} and dense_extra == 1,
+          "dense bf16 launches %s over %d steps and %d promotes and "
+          "write-backs" % (dense_launches, res["batches"], dense_extra))
+    del t, d
+    return {"passes": passes, "launches": launches, "blocked": blocked,
+            "sizes": sizes, "d_auc": d_auc, "dense": dense}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device; this script "
               "measures the port on an NVIDIA GPU", file=sys.stderr)
         return 2
-    import numpy as np
 
     from paddlebox_tpu_torch import rate_probe
     from paddlebox_tpu_torch.device import card_line
@@ -1720,30 +2234,7 @@ def main() -> int:
         clock.lap("day")
 
         # 8. blocked mode vs scatter, same seed, bit-identical rows
-        rows = {}
-        blocked_counts = None
-        for mode in ("scatter", "blocked"):
-            t, d = flagship.build_trainer(files[:1], feed, cfg, mode, "cuda")
-            pk.reset_launch_counts()
-            res, auc, _ = run_pass(torch, t, d)
-            mode_counts = pk.launch_counts()
-            if mode == "blocked":
-                blocked_counts = mode_counts
-                check(mode_counts["blocked_write"] == res["batches"]
-                      and mode_counts["push_adagrad"] == res["batches"],
-                      "blocked path launches %s over %d steps"
-                      % (mode_counts, res["batches"]))
-            rows[mode] = t.table.store.lookup(t.table.pass_keys)
-            log("%s pass over %d batches: loss %r auc %r launches %s"
-                % (mode, res["batches"], res["loss"], auc, mode_counts))
-            del t, d
-        check(np.array_equal(rows["blocked"].view(np.uint32),
-                             rows["scatter"].view(np.uint32)),
-              "blocked-mode rows differ from scatter-mode rows")
-        log("blocked vs scatter rows bit-identical over %d rows"
-            % rows["blocked"].shape[0])
-        del rows
-
+        blocked_counts = blocked_phase(torch, cfg, feed, files)
         clock.lap("blocked")
         # 9. the chunk driver: per step against chunked, chunk sync, the
         # kernels at the chunk shape, the pass's copies by kind
@@ -1759,6 +2250,12 @@ def main() -> int:
                                   reset_counts, counts)
         clock.lap("recovery")
 
+        # 12. the bf16 slab diet: the 2-byte kernel forms, the bf16 main
+        # path, its blocked pass and dense bf16
+        kernels16 = bf16_kernel_phase(torch, cfg, feed, files, keys, dev)
+        bf16 = bf16_phase(torch, feed, files, passes, reset_counts, counts)
+        clock.lap("bf16")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -1770,6 +2267,12 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         if k["name"] in chunk_shapes:
             k.setdefault("at_shapes", {})["chunk"] = chunk_shapes[k["name"]]
+    # the 2-byte forms: the bf16 main path's launches (the placement's from
+    # its blocked pass)
+    for k in kernels16:
+        k["launches"] = (bf16["blocked"] if k["name"] == "blocked_write_2byte"
+                         else bf16["launches"])[k["name"]]
+    kernels += kernels16
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -1779,7 +2282,10 @@ def main() -> int:
                               "day": day["launches"],
                               "chunk_sync": chunks["sync"]["launches"],
                               **{"recovery_%d" % r["run"]: r["launches"]
-                                 for r in recovery["runs"]}},
+                                 for r in recovery["runs"]},
+                              "bf16": bf16["launches"],
+                              "bf16_blocked": bf16["blocked"],
+                              "dense_bf16": bf16["dense"]["launches"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

@@ -104,9 +104,21 @@ class TrainerConfig:
     chunk (pulls read the chunk-start rows), dense Adam per batch; chunks
     of one batch, and chunks whose batches share no key, give exactly the
     per-batch results. check_nan_inf: a pass raises FloatingPointError at
-    the first chunk (or tail step) with a non-finite loss."""
+    the first chunk (or tail step) with a non-finite loss. compute_dtype:
+    the dense forward's dtype, 'float32' or 'bfloat16' (the pooled input
+    and a bf16 copy of every parameter; the parameters and Adam's state
+    stay f32 masters, gradients flow back through the cast, the logits
+    return to f32 for the loss)."""
 
     dense_lr: float = 1e-3
     check_nan_inf: bool = False
     scan_chunk: int = 8
     sparse_chunk_sync: bool = False
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        # resolve_compute_dtype (paddlebox_tpu/train/trainer.py:501-510):
+        # f32 or bf16 only, whose f32-sized exponent needs no loss scaling
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError("compute_dtype must be float32 or bfloat16, "
+                             "got %r" % (self.compute_dtype,))

@@ -1,10 +1,11 @@
 """The switches the port reads: the push write, the pass lifecycle, the
-chunk driver's staging and the checkpoint plane.
+chunk driver's staging, the checkpoint plane and the dtype diet.
 
 The JAX package keeps these in a process-wide flag registry
 (paddlebox_tpu/config/flags.py: ``push_write``, ``push_block_rows``,
 ``incremental_pass``, ``preload_promote``, ``stack_threads``,
-``chunk_prefetch_depth``, ``h2d_stack_chunks``, ``ckpt_*``). The port passes
+``chunk_prefetch_depth``, ``h2d_stack_chunks``, ``ckpt_*``,
+``slab_embed_dtype``, ``matmul_dtype``). The port passes
 them as values to the trainer, the pass table and the checkpoint manager
 instead, so two trainers in one process can run different modes side by
 side.
@@ -15,6 +16,27 @@ from __future__ import annotations
 import dataclasses
 
 PUSH_WRITES = ("scatter", "blocked")
+DTYPES = ("float32", "bfloat16")
+
+
+@dataclasses.dataclass(frozen=True)
+class DtypeFlags:
+    """The dtype diet (paddlebox_tpu/config/flags.py:229, 257).
+    slab_embed_dtype: the device slab's storage, 'float32' or 'bfloat16'
+    (embedding/accessor.py: bf16 weights, the other columns as lossless
+    (hi, lo) halves; host stores, checkpoints and the push and pull math
+    stay f32). matmul_dtype: the dense matmuls' operands, 'bfloat16'
+    (rounded to bf16, products summed in f32, an f32 result) or
+    'float32'. The trainer reads both at construction."""
+
+    slab_embed_dtype: str = "float32"
+    matmul_dtype: str = "float32"
+
+    def __post_init__(self):
+        for name in ("slab_embed_dtype", "matmul_dtype"):
+            if getattr(self, name) not in DTYPES:
+                raise ValueError("%s must be one of %s, got %r"
+                                 % (name, DTYPES, getattr(self, name)))
 
 
 @dataclasses.dataclass(frozen=True)

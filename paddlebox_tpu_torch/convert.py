@@ -4,8 +4,11 @@ the port.
 JAX models keep params as a flat dict of arrays; the port's modules register
 parameters under the same names (DeepFM: deep_w{i} [din, dout], deep_b{i},
 fm_out_w [3], fm_out_b []), so a conversion is a dtype/ownership copy by
-name. Slab and host-store rows are numpy f32 in both packages and go across
-as they are. The dense Adam state crosses as numpy under optax's names:
+name. Host-store rows are numpy f32 in both packages and go across as they
+are; so does an f32 slab. A bf16 slab (the slab_embed_dtype diet) is numpy
+uint16 [C, device_width] in the reference and the same bits as an int16
+tensor in the port (``slab_from_jax`` / ``slab_to_jax``). The dense Adam
+state crosses as numpy under optax's names:
 ``{"mu": {name: array}, "nu": {name: array}, "count": int}``, where the
 port's torch.optim.Adam keeps ``exp_avg``, ``exp_avg_sq`` and ``step`` per
 parameter; both start at zero with count 0.
@@ -32,6 +35,29 @@ def params_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     """The model's parameters by JAX name, as float32 numpy arrays."""
     return {name: p.detach().cpu().numpy().astype(np.float32)
             for name, p in model.named_parameters()}
+
+
+def slab_from_jax(slab) -> torch.Tensor:
+    """A reference pass slab (a jax or numpy array: f32 [C, width], or the
+    bf16 diet's uint16 [C, device_width]) -> the port's slab on the CPU,
+    f32 or the same bits as int16; a copy, bit for bit."""
+    a = np.asarray(slab)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16).copy())
+    if a.dtype != np.float32:
+        raise TypeError("a pass slab is float32 or uint16, got %s" % a.dtype)
+    return torch.from_numpy(a.copy())
+
+
+def slab_to_jax(slab: torch.Tensor) -> np.ndarray:
+    """The port's slab (f32, or int16 bf16 diet rows, on any device) -> the
+    reference's numpy form: f32, or the same bits as uint16."""
+    a = slab.detach().cpu().numpy()
+    if a.dtype == np.int16:
+        return a.view(np.uint16)
+    if a.dtype != np.float32:
+        raise TypeError("a pass slab is float32 or int16, got %s" % a.dtype)
+    return a
 
 
 def adam_state_to_numpy(model: torch.nn.Module,

@@ -48,20 +48,26 @@ import sys
 import numpy as np
 
 
-def _bit_equal(a, b) -> bool:
+def bit_equal(a, b) -> bool:
+    """Two tensors of one dtype (f32, or the bf16 slab's int16) hold the
+    same bits."""
     import torch
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
 
 
-def blocked_case(ids: np.ndarray, C: int, W: int, dev) -> dict:
+def blocked_case(ids: np.ndarray, C: int, W: int, dev,
+                 two_byte: bool = False) -> dict:
     """blocked_write at one step of the blocked path on ``dev``: the
     sorted uids of ``ids`` (``pass_table.dedup_ids``) bucketized in blocks
     of flagship.BLOCK_ROWS lanes (``optimizers.blocked_layout``) over a
-    random [C, W] slab, with n_uniq random new rows as the fused push
-    returns them. A dict: name, kernel, library (index_copy_ of the same
-    rows at their uids), args (the slab untouched), library_args, bytes
-    (what the function must move), info (shape facts). The kernel's result
-    is held bit-equal to the library call's here (raises if not)."""
+    random [C, W] slab (f32, or with ``two_byte`` random int16 bits, the
+    bf16 slab's), with n_uniq random new rows as the fused push returns
+    them. A dict: name, kernel, library (index_copy_ of the same rows at
+    their uids), args (the slab untouched), library_args, bytes (what the
+    function must move), info (shape facts). The kernel's result is held
+    bit-equal to the library call's here (raises if not)."""
     import torch
 
     from paddlebox_tpu_torch.embedding import push_kernels as pk
@@ -71,15 +77,21 @@ def blocked_case(ids: np.ndarray, C: int, W: int, dev) -> dict:
 
     uids, _, _, n_uniq = dedup_ids(ids, C)
     gen = torch.Generator(device=dev).manual_seed(5)
-    slab = torch.rand((C, W), generator=gen, device=dev)
-    new_rows = torch.rand((n_uniq, W), generator=gen, device=dev)
+    if two_byte:
+        def rows(n):
+            return torch.randint(-1 << 15, 1 << 15, (n, W), generator=gen,
+                                 device=dev, dtype=torch.int16)
+    else:
+        def rows(n):
+            return torch.rand((n, W), generator=gen, device=dev)
+    slab, new_rows = rows(C), rows(n_uniq)
     u = torch.from_numpy(uids).to(dev)
     row_map, blk_idx = blocked_layout(u, C, flagship.BLOCK_ROWS)
     idx = u[:n_uniq].to(torch.int64)
     s_k, s_l = slab.clone(), slab.clone()
     pk.blocked_write(s_k, new_rows, row_map, blk_idx)
     s_l.index_copy_(0, idx, new_rows)
-    if not _bit_equal(s_k, s_l):
+    if not bit_equal(s_k, s_l):
         raise RuntimeError("blocked_write differs from index_copy_ of the "
                            "same rows")
     placed = int((row_map >= 0).sum())
@@ -88,7 +100,8 @@ def blocked_case(ids: np.ndarray, C: int, W: int, dev) -> dict:
                 library=lambda s, i, r: s.index_copy_(0, i, r),
                 args=(slab, new_rows, row_map, blk_idx),
                 library_args=(s_l, idx, new_rows),
-                bytes=NB * B * 4 + NB * 4 + placed * W * 4 * 2,
+                bytes=NB * B * 4 + NB * 4
+                + placed * W * slab.element_size() * 2,
                 info=dict(NB=NB, B=B, placed=placed, W=W))
 
 
@@ -109,7 +122,7 @@ def flagship_cases(dev) -> list:
                              ("gather_probe", p_slab, p_ids)):
         src = torch.from_numpy(s_np).to(dev)
         i = torch.from_numpy(i_np).to(dev)
-        if not _bit_equal(rk.gather_rows(src, i), src.index_select(0, i)):
+        if not bit_equal(rk.gather_rows(src, i), src.index_select(0, i)):
             raise RuntimeError("%s differs from index_select" % name)
         cases.append(dict(name=name, kernel=rk.gather_rows,
                           library=lambda a, b: a.index_select(0, b),
@@ -137,7 +150,7 @@ def scale_cases(dev) -> list:
     views[2][1].copy_(views[0][1])
     cases = []
     for name, x in views:
-        if not _bit_equal(rk.scale_copy(x), rk.scale_copy_plain(x)):
+        if not bit_equal(rk.scale_copy(x), rk.scale_copy_plain(x)):
             raise RuntimeError("%s differs from the plain version" % name)
         cases.append(dict(name=name, kernel=rk.scale_copy,
                           library=torch_scale, args=(x,), library_args=(x,),

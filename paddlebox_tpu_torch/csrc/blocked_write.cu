@@ -46,6 +46,15 @@
 // loading the old value before each store, 128 threads a block, 4 or 16
 // loads in flight, or two blocks an SM.
 //
+// The 2-byte form (the bf16 slab diet's int16 slab; the TPU kernel takes a
+// slab of any dtype, pallas_push.py:137) is the same kernel over 2-byte
+// elements: it moves bits and reads nothing back, so the width of an
+// element changes no step. At the flagship shape (device width 25) it
+// moves 11.9 MB (4.2 MB of row_map, 3.86 MB of rows read and as many
+// written), 3.6 us at 3.35 TB/s. A 50-byte row starts 4-byte aligned only
+// on even rows: the copy is element-wise, 2-byte loads and stores, and the
+// partly written sectors at a row's edges are 2-byte granular.
+//
 // The Pallas grid ran its blocks in sequence and re-read each aliased block
 // before overlaying it, so a sentinel slot clamped onto the last block had
 // to be ordered before that block's real write (optimizers.py:443-456,
@@ -86,7 +95,7 @@ __device__ __forceinline__ void cp_async16(int* s, const int* g) {
                : "memory");
 }
 
-__device__ __forceinline__ void prefetch_l2(const float* g) {
+__device__ __forceinline__ void prefetch_l2(const void* g) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(g));
 }
 
@@ -121,9 +130,11 @@ __device__ __forceinline__ void stage_tile(Stage& st, const int* row_map,
     cp_async4(st.blk + s, blk_idx + first + s);
 }
 
+// T: float (the f32 slab) or uint16_t (the 2-byte slab).
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-blocked_write_kernel(float* __restrict__ slab,
-                     const float* __restrict__ new_rows,
+blocked_write_kernel(T* __restrict__ slab,
+                     const T* __restrict__ new_rows,
                      const int* __restrict__ row_map,
                      const int* __restrict__ blk_idx, int64_t n_lanes, int B,
                      int W, int64_t n_tiles, bool vec_map) {
@@ -198,7 +209,7 @@ blocked_write_kernel(float* __restrict__ slab,
     const int total = p * W;
     int r = r0, c = c0;
     for (int f0 = t; f0 < total; f0 += UNROLL * THREADS) {
-      float v[UNROLL];
+      T v[UNROLL];
       int64_t at[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
@@ -222,9 +233,10 @@ blocked_write_kernel(float* __restrict__ slab,
   }
 }
 
-// Blocks of blocked_write_kernel that fit on device `dev` at once (SM
+// Blocks of blocked_write_kernel<T> that fit on device `dev` at once (SM
 // count times blocks an SM), into *fit: worked out on the device's first
 // launch and kept, so a launch then costs no query.
+template <typename T>
 cudaError_t kernel_fit(int dev, int64_t* fit) {
   static std::mutex mu;
   static std::map<int, int64_t> known;
@@ -239,10 +251,28 @@ cudaError_t kernel_fit(int dev, int64_t* fit) {
                                          dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, blocked_write_kernel, THREADS, 0);
+        &per_sm, blocked_write_kernel<T>, THREADS, 0);
   if (e != cudaSuccess) return e;
   *fit = known[dev] = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   return cudaSuccess;
+}
+
+template <typename T>
+int launch(T* slab, const T* new_rows, const int* row_map, const int* blk_idx,
+           int NB, int B, int W, cudaStream_t stream) {
+  const int64_t n_lanes = (int64_t)NB * B;
+  if (n_lanes <= 0 || W <= 0) return 0;
+  const int64_t n_tiles = (n_lanes + TILE - 1) / TILE;
+  int dev = 0;
+  int64_t fit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = kernel_fit<T>(dev, &fit);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t grid = n_tiles < fit ? n_tiles : fit;
+  const bool vec_map = (reinterpret_cast<uintptr_t>(row_map) & 15) == 0;
+  blocked_write_kernel<T><<<(unsigned)grid, THREADS, 0, stream>>>(
+      slab, new_rows, row_map, blk_idx, n_lanes, B, W, n_tiles, vec_map);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -254,17 +284,17 @@ cudaError_t kernel_fit(int dev, int64_t* fit) {
 extern "C" int pbt_blocked_write(float* slab, const float* new_rows,
                                  const int* row_map, const int* blk_idx,
                                  int NB, int B, int W, void* stream) {
-  const int64_t n_lanes = (int64_t)NB * B;
-  if (n_lanes <= 0 || W <= 0) return 0;
-  const int64_t n_tiles = (n_lanes + TILE - 1) / TILE;
-  int dev = 0;
-  int64_t fit = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = kernel_fit(dev, &fit);
-  if (e != cudaSuccess) return (int)e;
-  const int64_t grid = n_tiles < fit ? n_tiles : fit;
-  const bool vec_map = (reinterpret_cast<uintptr_t>(row_map) & 15) == 0;
-  blocked_write_kernel<<<(unsigned)grid, THREADS, 0, (cudaStream_t)stream>>>(
-      slab, new_rows, row_map, blk_idx, n_lanes, B, W, n_tiles, vec_map);
-  return (int)cudaGetLastError();
+  return launch<float>(slab, new_rows, row_map, blk_idx, NB, B, W,
+                       (cudaStream_t)stream);
+}
+
+// The same placement on a slab of 2-byte elements (the bf16 slab's int16
+// bits): slab [C, W], new_rows [U, W] 2-byte, the rest as above.
+extern "C" int pbt_blocked_write_2byte(uint16_t* slab,
+                                       const uint16_t* new_rows,
+                                       const int* row_map,
+                                       const int* blk_idx, int NB, int B,
+                                       int W, void* stream) {
+  return launch<uint16_t>(slab, new_rows, row_map, blk_idx, NB, B, W,
+                          (cudaStream_t)stream);
 }

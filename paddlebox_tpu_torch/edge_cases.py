@@ -5,8 +5,12 @@
 ``scale_edge_cases`` (``ops/row_kernels.scale_copy``): chip_smoke.py holds
 each kernel bit-equal to its plain version on them, and
 tests/test_torch_row_kernels.py and tests/test_torch_push_kernels.py hold
-the plain versions to the JAX functions on the same cases. Inputs are numpy
-arrays made from seeds.
+the plain versions to the JAX functions on the same cases. The 2-byte
+forms of the bf16 slab diet have their own (``gather_edge_cases_2byte``,
+``blocked_edge_cases_2byte``: odd row widths, whose rows start 4-byte
+aligned only on every other row), which tests/test_torch_bf16.py and
+chip_smoke.py use alike. Inputs are numpy arrays made from seeds; 2-byte
+sources are uint16 bits (as int16 on the card).
 """
 
 from __future__ import annotations
@@ -113,3 +117,75 @@ def blocked_edge_cases() -> dict:
         "B100_offset": make(100, 40, 64, 0.2, sentinels=3, offset=1),
         "none_placed": make(1024, 4, 8, 0.0, sentinels=4),
     }
+
+
+# the bf16 slab's device widths at embedx 2, 8 and 64 (17 + D), and two
+# more widths of the same staged kernel: an even one and one wider than a
+# block's 128 threads
+WIDTHS_2BYTE = (19, 25, 26, 81, 256)
+
+
+def gather_edge_cases_2byte() -> dict:
+    """The 2-byte row gather's edge cases, name -> (flat, offset, C, W,
+    ids): the source is ``flat[offset:offset + C * W]`` as [C, W] uint16
+    bits, offset 0 or 1 (one 2-byte element into the buffer: not 4-byte
+    aligned); ids int32 [K], K in {1, R - 1, R + 1, 4097} for the kernel's
+    tile of R rows, with duplicates, odd ids (odd row starts) and ids past
+    the source (they read row C - 1), for W in WIDTHS_2BYTE."""
+    rng = np.random.RandomState(18)
+    C, R = 3001, GATHER_TILE_ROWS
+    cases = {}
+    for W in WIDTHS_2BYTE:
+        flat = rng.randint(0, 1 << 16, C * W + 1).astype(np.uint16)
+        for K in (1, R - 1, R + 1, 4097):
+            ids = rng.randint(0, C + 40, K).astype(np.int32)
+            ids[0] = C + 1000
+            for offset in (0, 1):
+                cases["K%d_W%d%s" % (K, W, "_offset" if offset else "")] = (
+                    flat, offset, C, W, ids)
+    return cases
+
+
+def blocked_edge_cases_2byte() -> dict:
+    """The 2-byte blocked write's edge cases, name -> (slab [C, W], new_rows
+    [U, W] uint16 bits, row_map [NB, B], blk_idx [NB], offset), for W 19,
+    25 and 81 and blocks of B rows odd and even (an odd B puts every other
+    block's first row on a 2-byte boundary): permuted sources, sentinel
+    slots clamped onto the last block and ordered before its real slot, a
+    fully placed slot, NB = 1, nothing placed; ``offset`` 1 asks for the
+    row map one entry into a larger buffer on the card."""
+    rng = np.random.RandomState(19)
+
+    def make(W, B, NB, n_blocks, density, sentinels=0, full=False,
+             offset=0):
+        real = NB - sentinels
+        blocks = rng.choice(n_blocks - 1, real, replace=False)
+        if sentinels and real:
+            blocks[0] = n_blocks - 1
+        mask = rng.rand(real, B) < density
+        if full:
+            mask[-1] = True
+        placed = int(mask.sum())
+        U = placed + 50
+        real_map = np.full((real, B), -1, np.int32)
+        real_map[mask] = rng.permutation(U)[:placed]
+        row_map = np.concatenate(
+            [np.full((sentinels, B), -1, np.int32), real_map])
+        blk_idx = np.concatenate(
+            [np.full(sentinels, n_blocks - 1), blocks]).astype(np.int32)
+        slab = rng.randint(0, 1 << 16, (n_blocks * B, W)).astype(np.uint16)
+        new_rows = rng.randint(0, 1 << 16, (U, W)).astype(np.uint16)
+        return slab, new_rows, row_map, blk_idx, offset
+
+    cases = {}
+    for W in (19, 25, 81):
+        cases.update({
+            "W%d_B1024_permuted_sentinels" % W: make(W, 1024, 24, 64, 0.07,
+                                                     sentinels=6),
+            "W%d_B101_full_slot" % W: make(W, 101, 12, 32, 0.1, full=True),
+            "W%d_B100_offset" % W: make(W, 100, 40, 64, 0.2, sentinels=3,
+                                        offset=1),
+            "W%d_B257_NB1" % W: make(W, 257, 1, 8, 0.3),
+            "W%d_none_placed" % W: make(W, 128, 4, 8, 0.0, sentinels=4),
+        })
+    return cases

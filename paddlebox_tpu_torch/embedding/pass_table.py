@@ -9,6 +9,8 @@ the incremental lifecycle, test mode and the day boundary, :114-126,
         key array) and build the pass's route index (a native key -> id
         hash index over that array)
   begin_pass   the pass slab, one [capacity, width] f32 tensor on the device
+        (under the bf16 diet [capacity, device_width] int16, the codec's
+        rows: embedding/accessor.py)
   lookup_ids   keys -> ids (one probe a key of the route index); padding ->
         trash row; marks the ids' rows touched
   dedup_for_push  the per-batch sorted dedup the push consumes (with
@@ -28,6 +30,14 @@ the full path's bits: ids are the sorted-unique positions, rows move
 without arithmetic, and the tail beyond the pass keys is zero. With the
 flag off, begin_pass builds the slab from the host store and end_pass
 writes back [0, n) and drops it.
+
+Under ``embed_dtype="bfloat16"`` (the flag ``slab_embed_dtype``, resolved
+once at construction; reference pass_table.py:98-104, 325, 544-580,
+627-645) the store's f32 rows are encoded with the numpy codec where they
+enter the slab (the full build, a promote's misses), resident rows move as
+raw 2-byte bits through the 2-byte gather, and the write-back decodes the
+gathered rows with the numpy codec before it journals and stores them:
+host stores, checkpoints and the journal stay f32.
 
 The last slab row (capacity-1) is the trash row that padding key slots
 address; it never reaches the host store. The train step updates the slab
@@ -79,11 +89,14 @@ import torch
 from paddlebox_tpu_torch.config.configs import TableConfig
 from paddlebox_tpu_torch.config.flags import CkptFlags, PassFlags
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
-from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
+from paddlebox_tpu_torch.embedding.accessor import (PushLayout, ValueLayout,
+                                                    decode_slab_rows_np,
+                                                    slab_rows_np)
 from paddlebox_tpu_torch.embedding.native_store import make_host_store
 from paddlebox_tpu_torch.native import host_lib
 from paddlebox_tpu_torch.ops.row_kernels import gather_rows
-from paddlebox_tpu_torch.utils.journal_format import EV_AGE_DAYS, EV_SHRINK
+from paddlebox_tpu_torch.utils.journal_format import (EV_AGE_DAYS, EV_SHRINK,
+                                                     EV_TICK_SPILL_AGE)
 
 # the reference's row counters (stat names), kept per table
 COUNTERS = ("pass_rows_promote_hit", "pass_rows_promote_new",
@@ -127,9 +140,10 @@ def delta_promote(old_slab: torch.Tensor, old_pos: np.ndarray,
                   new_rows: np.ndarray) -> torch.Tensor:
     """The next pass's slab from the resident one: row i < n is
     old_slab[old_pos[i]] where old_pos[i] >= 0 (the key at new position i
-    was resident there), and the next of ``new_rows`` (host f32, one per
-    position with old_pos -1, in order) where it is -1; rows n and after
-    are zero. Returns a new tensor on old_slab's device.
+    was resident there), and the next of ``new_rows`` (host device rows of
+    old_slab's dtype, one per position with old_pos -1, in order) where it
+    is -1; rows n and after are zero. Returns a new tensor on old_slab's
+    device.
 
     The counterpart of _delta_promote_impl (paddlebox_tpu/embedding/
     pass_table.py:73-84), bit for bit: the kept rows move by one row gather
@@ -211,12 +225,15 @@ class PassTable:
     def __init__(self, table: TableConfig, seed: int = 0,
                  device: DeviceLike = None,
                  flags: Optional[PassFlags] = None,
-                 store=None) -> None:
+                 store=None, embed_dtype: str = "float32") -> None:
+        """``embed_dtype``: the device slab's storage (DtypeFlags.
+        slab_embed_dtype), 'float32' or 'bfloat16'."""
         self.device = resolve_device(device)
         self.config = table
         self.flags = flags or PassFlags()
         self.layout = ValueLayout(table.embedx_dim,
-                                  table.optimizer.optimizer)
+                                  table.optimizer.optimizer,
+                                  embed_dtype=embed_dtype)
         self.push_layout = PushLayout(table.embedx_dim)
         self.store = (store if store is not None
                       else make_host_store(self.layout, table, seed))
@@ -260,6 +277,11 @@ class PassTable:
     def _journal_rows(self, keys: np.ndarray, rows: np.ndarray) -> None:
         if self._journal is not None and not self._test_mode:
             self._journal.append_rows(keys, rows)
+
+    def _host_rows(self, dev_rows: torch.Tensor) -> np.ndarray:
+        """Slab rows as host f32 rows: one copy to the host, then the
+        numpy codec's decoding under bf16."""
+        return decode_slab_rows_np(dev_rows.cpu().numpy(), self.layout)
 
     def _journal_event(self, code: int) -> None:
         if self._journal is not None:
@@ -384,17 +406,20 @@ class PassTable:
             self._journal_rows(keys[~hit], new_rows)
             # the resident slab is dropped here: two slabs live only while
             # the promote runs
-            self._slab = delta_promote(self._slab, old_pos, new_rows)
+            self._slab = delta_promote(self._slab, old_pos,
+                                       slab_rows_np(new_rows, self.layout))
             self.counters["pass_rows_promote_hit"] += int(hit.sum())
             self.counters["pass_rows_promote_new"] += int(n - hit.sum())
         else:
-            slab = torch.zeros((self.capacity, self.layout.width),
-                               dtype=torch.float32, device=self.device)
+            slab = torch.zeros((self.capacity, self.layout.device_width),
+                               dtype=self.layout.device_dtype,
+                               device=self.device)
             if n:
                 with self.store_lock:
                     rows = self._store_rows(keys)
                 self._journal_rows(keys, rows)
-                slab[:n].copy_(torch.from_numpy(rows))
+                slab[:n].copy_(torch.from_numpy(slab_rows_np(rows,
+                                                             self.layout)))
             self._slab = slab
         self._drop_prev_route()
         self._resident_keys = None
@@ -438,7 +463,7 @@ class PassTable:
                 if idx.size:
                     ids = torch.from_numpy(idx.astype(np.int32)).to(
                         self.device)
-                    rows = gather_rows(self._slab, ids).cpu().numpy()
+                    rows = self._host_rows(gather_rows(self._slab, ids))
                     self._journal_rows(keys[idx], rows)
                     with self.store_lock:
                         self.store.write_back(keys[idx], rows)
@@ -446,7 +471,7 @@ class PassTable:
                 self.counters["pass_rows_writeback_skipped"] += \
                     n - int(idx.size)
             else:
-                rows = self._slab[:n].cpu().numpy()
+                rows = self._host_rows(self._slab[:n])
                 self._journal_rows(keys, rows)
                 with self.store_lock:
                     self.store.write_back(keys, rows)
@@ -563,14 +588,17 @@ class PassTable:
         delete_after_unseen_days rule reads it), then shrink. Returns the
         rows deleted. age=False where CheckpointManager.save_base already
         aged the rows at this boundary (aging twice a day would halve every
-        feature's lifetime). The reference journals its SSD tier's day
-        tick at age=False; the port's stores have no tier, so nothing is
-        recorded then."""
+        feature's lifetime). At age=False the journal records the SSD
+        tier's day tick, as the reference records it: the port's stores
+        have no tier, so the tick changes no row and replays as a
+        no-op."""
         self.invalidate_residency()
-        if age:
-            with self.store_lock:
+        with self.store_lock:
+            if age:
                 self.store.age_unseen_days()
                 self._journal_event(EV_AGE_DAYS)
+            else:
+                self._journal_event(EV_TICK_SPILL_AGE)
         return self.shrink_table()
 
     def save(self, path: str, flags: Optional[CkptFlags] = None) -> None:

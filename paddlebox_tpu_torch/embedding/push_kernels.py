@@ -11,6 +11,13 @@
                     _blocked_write_kernel (pallas_blocked_write), source
                     csrc/blocked_write.cu
 
+Both take the f32 slab or the bf16 slab diet's int16 one
+(embedding/accessor.py): push_adagrad then decodes each row on read and
+encodes it on write (the reference's decode and encode around the TPU
+kernel, optimizers.py:259-262, 306-316, 342-343), blocked_write moves the
+2-byte bits. Each form counts its launches apart (``launches_bf16``,
+``launches_2byte``).
+
 Each wrapper checks dtype, shape, contiguity and device, then:
   * on CPU tensors runs its plain PyTorch version (that is what the CPU
     tests exercise);
@@ -30,7 +37,10 @@ import torch
 
 from paddlebox_tpu_torch.config.configs import SparseOptimizerConfig
 from paddlebox_tpu_torch.embedding import accessor as acc
-from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
+from paddlebox_tpu_torch.embedding.accessor import (PushLayout, ValueLayout,
+                                                    decode_slab_rows,
+                                                    encode_slab_rows,
+                                                    slab_codec_columns)
 from paddlebox_tpu_torch.native.kernel_args import (check, raise_on,
                                                     use_kernel)
 
@@ -60,7 +70,9 @@ def push_adagrad(slab: torch.Tensor, grads: torch.Tensor,
     in-table adagrad (creation randoms keyed by the uid and ``seed``, a
     nonnegative int32) and write it.
 
-    slab [C, width] f32; grads [K, 4+D] f32 per-occurrence push rows; perm
+    slab [C, width] f32, or under a bf16 layout [C, device_width] int16
+    (each row decoded, updated in f32 and encoded back; rows out are then
+    encoded int16 rows [n_uniq, device_width]); grads [K, 4+D] f32 per-occurrence push rows; perm
     [K] int32 occurrences grouped by unique; offsets [K+1] int32, unique j's
     occurrences being perm[offsets[j]:offsets[j+1]]
     (pass_table.segment_offsets); uids [K] int32 strictly ascending, the
@@ -74,14 +86,14 @@ def push_adagrad(slab: torch.Tensor, grads: torch.Tensor,
     if layout.optimizer != "adagrad":
         raise ValueError("push_adagrad supports the adagrad layout only")
     dev = slab.device
-    check(slab, "slab", torch.float32, 2, dev)
+    check(slab, "slab", layout.device_dtype, 2, dev)
     check(grads, "grads", torch.float32, 2, dev)
     for t, name in ((perm, "perm"), (offsets, "offsets"), (uids, "uids")):
         check(t, name, torch.int32, 1, dev)
     K = perm.shape[0]
-    if slab.shape[1] != layout.width:
-        raise ValueError("slab width %d != layout width %d"
-                         % (slab.shape[1], layout.width))
+    if slab.shape[1] != layout.device_width:
+        raise ValueError("slab width %d != layout device width %d"
+                         % (slab.shape[1], layout.device_width))
     G = PushLayout(layout.embedx_dim).width
     if grads.shape != (K, G):
         raise ValueError("grads shape %s != (%d, %d)"
@@ -103,23 +115,34 @@ def push_adagrad(slab: torch.Tensor, grads: torch.Tensor,
                          "got %d" % (KERNEL_EMBEDX_DIMS, layout.embedx_dim))
     from paddlebox_tpu_torch.native.build import load_kernel
     lib = load_kernel("push_adagrad")
-    out = (torch.empty((n_uniq, layout.width), dtype=torch.float32,
-                       device=dev) if rows_out else None)
+    out = (torch.empty((n_uniq, layout.device_width),
+                       dtype=layout.device_dtype, device=dev)
+           if rows_out else None)
     if n_uniq:
         cf = (ctypes.c_float * 10)(*_conf_floats(conf))
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.pbt_push_adagrad(
-                slab.data_ptr(), grads.data_ptr(), perm.data_ptr(),
+        args = (slab.data_ptr(), grads.data_ptr(), perm.data_ptr(),
                 offsets.data_ptr(), uids.data_ptr(),
                 None if out is None else out.data_ptr(), n_uniq,
-                layout.embedx_dim, int(seed), cf, stream)
+                layout.embedx_dim, int(seed), cf)
+        if layout.bf16:
+            cols = slab_codec_columns(layout)
+            fn = lib.pbt_push_adagrad_bf16
+            args += ((ctypes.c_int * len(cols))(*cols),)
+        else:
+            fn = lib.pbt_push_adagrad
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(*args, stream)
         raise_on(rc, "push_adagrad")
-        push_adagrad.launches += 1
+        if layout.bf16:
+            push_adagrad.launches_bf16 += 1
+        else:
+            push_adagrad.launches += 1
     return out
 
 
 push_adagrad.launches = 0
+push_adagrad.launches_bf16 = 0
 
 
 def merge_push_grads(grads: torch.Tensor, perm: torch.Tensor,
@@ -143,12 +166,14 @@ def push_adagrad_fused_plain(slab: torch.Tensor, grads: torch.Tensor,
                              rows_out: bool = False
                              ) -> Optional[torch.Tensor]:
     """push_adagrad's function in PyTorch ops: merge_push_grads, the slab
-    rows of the n_uniq uids, push_adagrad_plain, then the rows written at
-    their uids (or returned, rows_out=True)."""
+    rows of the n_uniq uids (decoded under a bf16 layout),
+    push_adagrad_plain, then the rows (encoded under a bf16 layout)
+    written at their uids (or returned, rows_out=True)."""
     idx = uids[:n_uniq]
     merged = merge_push_grads(grads, perm, offsets[:n_uniq + 1])
-    new_rows = push_adagrad_plain(slab.index_select(0, idx), merged, idx,
-                                  seed, layout, conf)
+    new_rows = encode_slab_rows(push_adagrad_plain(
+        decode_slab_rows(slab.index_select(0, idx), layout), merged, idx,
+        seed, layout, conf), layout)
     if rows_out:
         return new_rows
     slab.index_copy_(0, idx.to(torch.int64), new_rows)
@@ -235,12 +260,16 @@ def push_adagrad_plain(values: torch.Tensor, grads: torch.Tensor,
 def blocked_write(slab: torch.Tensor, new_rows: torch.Tensor,
                   row_map: torch.Tensor, blk_idx: torch.Tensor) -> None:
     """IN PLACE: for each slot i and lane r with row_map[i, r] >= 0,
-    slab[blk_idx[i] * B + r] = new_rows[row_map[i, r]]. slab [C, W] f32,
-    new_rows [U, W] f32, row_map [NB, B] int32 (values < U), blk_idx [NB]
-    int32 block ids in [0, C // B)."""
+    slab[blk_idx[i] * B + r] = new_rows[row_map[i, r]]. slab [C, W] and
+    new_rows [U, W] both f32, or both int16 (the bf16 slab's bits),
+    row_map [NB, B] int32 (values < U), blk_idx [NB] int32 block ids in
+    [0, C // B)."""
     dev = slab.device
-    check(slab, "slab", torch.float32, 2, dev)
-    check(new_rows, "new_rows", torch.float32, 2, dev)
+    if slab.dtype not in (torch.float32, torch.int16):
+        raise TypeError("slab must be torch.float32 or torch.int16, got %s"
+                        % slab.dtype)
+    check(slab, "slab", slab.dtype, 2, dev)
+    check(new_rows, "new_rows", slab.dtype, 2, dev)
     check(row_map, "row_map", torch.int32, 2, dev)
     check(blk_idx, "blk_idx", torch.int32, 1, dev)
     C, W = slab.shape
@@ -259,16 +288,21 @@ def blocked_write(slab: torch.Tensor, new_rows: torch.Tensor,
     from paddlebox_tpu_torch.native.build import load_kernel
     lib = load_kernel("blocked_write")
     if NB:
+        two = slab.dtype == torch.int16
+        fn = lib.pbt_blocked_write_2byte if two else lib.pbt_blocked_write
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.pbt_blocked_write(
-                slab.data_ptr(), new_rows.data_ptr(), row_map.data_ptr(),
-                blk_idx.data_ptr(), NB, B, W, stream)
+            rc = fn(slab.data_ptr(), new_rows.data_ptr(), row_map.data_ptr(),
+                    blk_idx.data_ptr(), NB, B, W, stream)
         raise_on(rc, "blocked_write")
-        blocked_write.launches += 1
+        if two:
+            blocked_write.launches_2byte += 1
+        else:
+            blocked_write.launches += 1
 
 
 blocked_write.launches = 0
+blocked_write.launches_2byte = 0
 
 
 def blocked_write_plain(slab: torch.Tensor, new_rows: torch.Tensor,
@@ -283,11 +317,16 @@ def blocked_write_plain(slab: torch.Tensor, new_rows: torch.Tensor,
 
 
 def launch_counts() -> dict:
-    """Launch counts of both kernels, by kernel name."""
+    """Launch counts of both kernels, by kernel form (f32, and the bf16
+    slab's)."""
     return {"push_adagrad": push_adagrad.launches,
-            "blocked_write": blocked_write.launches}
+            "push_adagrad_bf16": push_adagrad.launches_bf16,
+            "blocked_write": blocked_write.launches,
+            "blocked_write_2byte": blocked_write.launches_2byte}
 
 
 def reset_launch_counts() -> None:
     push_adagrad.launches = 0
+    push_adagrad.launches_bf16 = 0
     blocked_write.launches = 0
+    blocked_write.launches_2byte = 0

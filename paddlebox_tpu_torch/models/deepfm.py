@@ -5,6 +5,9 @@ term is (sum^2 - sum of squares)/2 over the per-slot embedx vectors; the
 first order is the sum of the pooled embed_w column; a [3] output layer
 mixes (first order, FM, deep). Parameter names match the JAX params dict:
 deep_w{i} [din, dout], deep_b{i}, fm_out_w [3], fm_out_b [].
+``matmul_dtype`` is the deep tower's product (models/layers.py; the
+trainer sets it from DtypeFlags); mixed dtypes under a bf16 compute dtype
+promote as in the JAX model.
 """
 
 from __future__ import annotations
@@ -15,12 +18,14 @@ import torch
 from torch import nn
 
 from paddlebox_tpu_torch.models.base import ModelSpec
-from paddlebox_tpu_torch.models.layers import mlp_apply, mlp_init
+from paddlebox_tpu_torch.models.layers import (mlp_apply, mlp_init,
+                                               promoted_matmul)
 
 
 class DeepFM(nn.Module):
     name = "deepfm"
     task_names = ("ctr",)
+    matmul_dtype = "float32"
 
     def __init__(self, spec: ModelSpec,
                  hidden: Sequence[int] = (400, 400, 400),
@@ -43,6 +48,7 @@ class DeepFM(nn.Module):
         v = pooled[:, :, 3:3 + D]
         sum_v = v.sum(dim=1)
         fm2 = 0.5 * (sum_v * sum_v - (v * v).sum(dim=1)).sum(dim=-1)
-        deep = mlp_apply(self, pooled.reshape(B, -1), "deep")[:, 0]
+        deep = mlp_apply(self, pooled.reshape(B, -1), "deep",
+                         matmul_dtype=self.matmul_dtype)[:, 0]
         stack = torch.stack([first_order, fm2, deep], dim=-1)
-        return torch.matmul(stack, self.fm_out_w) + self.fm_out_b
+        return promoted_matmul(stack, self.fm_out_w) + self.fm_out_b

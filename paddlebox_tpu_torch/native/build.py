@@ -65,21 +65,27 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     c_void_p so ctypes never truncates them)."""
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     if name == "push_adagrad":
-        fn = lib.pbt_push_adagrad
-        fn.argtypes = [p, p, p, p, p, p, i, i, i,
-                       ctypes.POINTER(ctypes.c_float), p]
+        # the bf16 slab's entry takes the layout's column plan too
+        args = [p, p, p, p, p, p, i, i, i, ctypes.POINTER(ctypes.c_float)]
+        fns = {"pbt_push_adagrad": args + [p],
+               "pbt_push_adagrad_bf16":
+                   args + [ctypes.POINTER(ctypes.c_int), p]}
     elif name == "blocked_write":
-        fn = lib.pbt_blocked_write
-        fn.argtypes = [p, p, p, p, i, i, i, p]
+        fns = {"pbt_blocked_write": [p, p, p, p, i, i, i, p],
+               "pbt_blocked_write_2byte": [p, p, p, p, i, i, i, p]}
     elif name == "scale_copy":
-        fn = lib.pbt_scale_copy
-        fn.argtypes = [p, p, i64, p]
+        fns = {"pbt_scale_copy": [p, p, i64, p]}
     elif name == "gather_rows":
-        fn = lib.pbt_gather_rows
-        fn.argtypes = [p, p, p, i64, i64, i, p]
+        fns = {"pbt_gather_rows": [p, p, p, i64, i64, i, p],
+               "pbt_gather_rows_2byte": [p, p, p, i64, i64, i, p],
+               "pbt_gather_rows_decode": [p, p, p, i64, i64, i, i,
+                                          ctypes.POINTER(ctypes.c_int), p]}
     else:
         raise ValueError("unknown kernel %r" % name)
-    fn.restype = ctypes.c_int
+    for entry, argtypes in fns.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
 
 
 def build_kernels(names: Optional[Iterable[str]] = None,

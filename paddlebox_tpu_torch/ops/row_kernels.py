@@ -6,7 +6,12 @@
                   source csrc/gather_rows.cu; also the train step's pull
                   (ops/sparse.py:gather_slab_rows), and the pass table's
                   delta promote and touched-row write-back
-                  (embedding/pass_table.py)
+                  (embedding/pass_table.py). It takes an f32 source or
+                  the bf16 slab's int16 bits (its 2-byte form, counted
+                  apart as ``launches_2byte``)
+  gather_rows_decode  the 2-byte gather with the slab codec's decode
+                  fused, f32 rows out (the same source; the pull of a
+                  bf16 slab)
 
 Each wrapper checks dtype, shape, contiguity and device, then:
   * on CPU tensors runs its ``*_plain`` PyTorch version;
@@ -19,11 +24,15 @@ against them.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
 import torch
 
+from paddlebox_tpu_torch.embedding.accessor import (ValueLayout,
+                                                    decode_slab_rows,
+                                                    slab_codec_columns)
 from paddlebox_tpu_torch.native.kernel_args import (check, raise_on,
                                                     use_kernel)
 
@@ -71,21 +80,31 @@ def scale_copy_plain(x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------ gather_rows
 
+def _check_gather(src: torch.Tensor, ids: torch.Tensor) -> None:
+    dev = src.device
+    if src.dtype not in (torch.float32, torch.int16):
+        raise TypeError("src must be torch.float32 or torch.int16, got %s"
+                        % src.dtype)
+    check(src, "src", src.dtype, 2, dev)
+    check(ids, "ids", torch.int32, 1, dev)
+    if ids.shape[0] and not src.shape[0]:
+        raise ValueError("gather_rows from an empty source of %d ids"
+                         % ids.shape[0])
+
+
 def gather_rows(src: torch.Tensor, ids: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[K, W] rows src[min(ids, C - 1)] for src [C, W] f32 and ids [K]
-    int32 >= 0 (an id of C or more reads the last row, as JAX's gather
-    clamps). Returns a new tensor, or fills ``out`` (contiguous f32 [K, W]
-    on src's device, in storage of its own) and returns it."""
+    """[K, W] rows src[min(ids, C - 1)] for src [C, W] f32, or int16 (the
+    bf16 slab's bits, moved as they are), and ids [K] int32 >= 0 (an id
+    of C or more reads the last row, as JAX's gather clamps). Returns a
+    new tensor, or fills ``out`` (contiguous [K, W] of src's dtype on its
+    device, in storage of its own) and returns it."""
+    _check_gather(src, ids)
     dev = src.device
-    check(src, "src", torch.float32, 2, dev)
-    check(ids, "ids", torch.int32, 1, dev)
     C, W = src.shape
     K = ids.shape[0]
-    if K and not C:
-        raise ValueError("gather_rows from an empty source of %d ids" % K)
     if out is not None:
-        check(out, "out", torch.float32, 2, dev)
+        check(out, "out", src.dtype, 2, dev)
         if tuple(out.shape) != (K, W):
             raise ValueError("out must be %s, got %s"
                              % ((K, W), tuple(out.shape)))
@@ -99,16 +118,22 @@ def gather_rows(src: torch.Tensor, ids: torch.Tensor,
     if out is None:
         out = torch.empty((K, W), dtype=src.dtype, device=dev)
     if K and W:
+        two = src.dtype == torch.int16
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.pbt_gather_rows(src.data_ptr(), ids.data_ptr(),
-                                     out.data_ptr(), C, K, W, stream)
+            fn = lib.pbt_gather_rows_2byte if two else lib.pbt_gather_rows
+            rc = fn(src.data_ptr(), ids.data_ptr(), out.data_ptr(), C, K, W,
+                    stream)
         raise_on(rc, "gather_rows")
-        gather_rows.launches += 1
+        if two:
+            gather_rows.launches_2byte += 1
+        else:
+            gather_rows.launches += 1
     return out
 
 
 gather_rows.launches = 0
+gather_rows.launches_2byte = 0
 
 
 def gather_rows_plain(src: torch.Tensor, ids: torch.Tensor,
@@ -119,12 +144,60 @@ def gather_rows_plain(src: torch.Tensor, ids: torch.Tensor,
                               out=out)
 
 
+def gather_rows_decode(src: torch.Tensor, ids: torch.Tensor,
+                       layout: ValueLayout) -> torch.Tensor:
+    """[K, layout.width] f32 rows decode_slab_rows(src[min(ids, C - 1)])
+    for the bf16 slab ``src`` [C, layout.device_width] int16 and ids [K]
+    int32 >= 0: the 2-byte gather with the codec's decode fused into its
+    output."""
+    _check_gather(src, ids)
+    if not layout.bf16 or src.dtype != torch.int16 or \
+            src.shape[1] != layout.device_width:
+        raise ValueError("gather_rows_decode takes a bf16 layout's int16 "
+                         "slab of %d columns, got %s %s"
+                         % (layout.device_width, src.dtype,
+                            tuple(src.shape)))
+    dev = src.device
+    if not use_kernel(dev):
+        return gather_rows_decode_plain(src, ids, layout)
+    from paddlebox_tpu_torch.native.build import load_kernel
+    lib = load_kernel("gather_rows")
+    C, W = src.shape
+    K, WL = ids.shape[0], layout.width
+    out = torch.empty((K, WL), dtype=torch.float32, device=dev)
+    if K:
+        cols = (ctypes.c_int * (2 * WL))(*slab_codec_columns(layout))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.pbt_gather_rows_decode(src.data_ptr(), ids.data_ptr(),
+                                            out.data_ptr(), C, K, W, WL,
+                                            cols, stream)
+        raise_on(rc, "gather_rows_decode")
+        gather_rows_decode.launches += 1
+    return out
+
+
+gather_rows_decode.launches = 0
+
+
+def gather_rows_decode_plain(src: torch.Tensor, ids: torch.Tensor,
+                             layout: ValueLayout) -> torch.Tensor:
+    """The decoding gather's function in PyTorch ops: the plain gather,
+    then the codec's decode."""
+    return decode_slab_rows(gather_rows_plain(src, ids), layout)
+
+
 def launch_counts() -> dict:
-    """Launch counts of both kernels, by kernel name."""
+    """Launch counts of the kernels, by kernel form: each copy kernel on
+    f32 rows, the 2-byte gather, and the decoding gather."""
     return {"scale_copy": scale_copy.launches,
-            "gather_rows": gather_rows.launches}
+            "gather_rows": gather_rows.launches,
+            "gather_rows_2byte": gather_rows.launches_2byte,
+            "gather_rows_decode": gather_rows_decode.launches}
 
 
 def reset_launch_counts() -> None:
     scale_copy.launches = 0
     gather_rows.launches = 0
+    gather_rows.launches_2byte = 0
+    gather_rows_decode.launches = 0

@@ -10,16 +10,25 @@ from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
 from paddlebox_tpu_torch.embedding import accessor as acc
 from paddlebox_tpu_torch.embedding.accessor import ValueLayout
-from paddlebox_tpu_torch.ops.row_kernels import gather_rows
+from paddlebox_tpu_torch.ops.row_kernels import (gather_rows,
+                                                 gather_rows_decode)
 
 
-def gather_slab_rows(slab: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """[K, width] rows slab[ids] for int32 ids (padding ids address the
+def gather_slab_rows(slab: torch.Tensor, ids: torch.Tensor,
+                     layout: Optional[ValueLayout] = None) -> torch.Tensor:
+    """[K, width] f32 rows slab[ids] for int32 ids (padding ids address the
     trash row; an id past the slab reads the last row, as JAX's gather
-    clamps). On the card this is the gather_rows kernel."""
-    return gather_rows(slab, ids)
+    clamps), DECODED under a bf16 ``layout`` (reference ops/sparse.py:
+    46-54; None or an f32 layout: the f32 slab's rows as they are). On
+    the card this is the gather_rows kernel; on a bf16 slab its decoding
+    form, the raw gather and the codec's decode in one kernel."""
+    if layout is None or not layout.bf16:
+        return gather_rows(slab, ids)
+    return gather_rows_decode(slab, ids, layout)
 
 
 def pull_view_from_rows(rows: torch.Tensor,

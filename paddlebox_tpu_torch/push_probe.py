@@ -85,11 +85,13 @@ def push_inputs(cfg, files, feed, ids=None):
                 live=live, kind=kind)
 
 
-def fused_push_bytes(n_valid: int, n_uniq: int, W: int, G: int) -> int:
+def fused_push_bytes(n_valid: int, n_uniq: int, W: int, G: int,
+                     elem_bytes: int = 4) -> int:
     """What the fused push must move: each real occurrence's perm entry
     and push row, each unique's uid, offset, slab row read and row
-    written."""
-    return n_valid * (4 + G * 4) + n_uniq * (8 + 2 * W * 4)
+    written (W slab columns of ``elem_bytes``: 4 for f32, 2 for the bf16
+    slab's)."""
+    return n_valid * (4 + G * 4) + n_uniq * (8 + 2 * W * elem_bytes)
 
 
 def _push_fn(optimizers, pass_table, inp, dev, layout, conf):

@@ -56,7 +56,8 @@ import torch
 
 from paddlebox_tpu_torch.device import (HBM_BYTES_PER_S, DeviceLike,
                                         card_line, resolve_device)
-from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+from paddlebox_tpu_torch.embedding.accessor import (ValueLayout,
+                                                    encode_slab_rows_np)
 from paddlebox_tpu_torch.ops.row_kernels import (SCALE, SHIFT, gather_rows,
                                                  gather_rows_plain,
                                                  scale_copy, scale_copy_plain)
@@ -102,11 +103,13 @@ def torch_scale(x: torch.Tensor) -> torch.Tensor:
                      alpha=SCALE)
 
 
-def gather_bytes(ids: np.ndarray, src_rows: int, width: int) -> int:
+def gather_bytes(ids: np.ndarray, src_rows: int, width: int,
+                 elem_bytes: int = 4) -> int:
     """Bytes a row gather must move: the ids, each distinct source row read
-    once, each output row written once (f32 rows, int32 ids)."""
+    once, each output row written once (rows of ``width`` elements of
+    ``elem_bytes``: 4 for f32, 2 for the bf16 slab's; int32 ids)."""
     distinct = np.unique(np.minimum(ids, src_rows - 1)).size
-    return ids.shape[0] * 4 + (distinct + ids.shape[0]) * width * 4
+    return ids.shape[0] * 4 + (distinct + ids.shape[0]) * width * elem_bytes
 
 
 def _mb(nbytes: int) -> str:
@@ -141,6 +144,15 @@ def pull_inputs(cfg: flagship.Flagship = flagship.FLAGSHIP):
     slab = np.random.RandomState(1).rand(cfg.capacity, width).astype(
         np.float32)
     return slab, ids
+
+
+def pull_inputs_bf16(cfg: flagship.Flagship = flagship.FLAGSHIP_BF16):
+    """(slab [capacity, device_width] uint16, ids): ``pull_inputs``' slab
+    and ids with the slab's rows encoded by the bf16 diet's codec (the bits
+    of an int16 slab on the card)."""
+    slab, ids = pull_inputs(cfg)
+    layout = ValueLayout(cfg.embedx, embed_dtype=cfg.slab_embed_dtype)
+    return encode_slab_rows_np(slab, layout), ids
 
 
 def cases(sizes: ProbeSizes, device: torch.device) -> List[Case]:

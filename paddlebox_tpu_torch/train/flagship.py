@@ -5,9 +5,13 @@ bench.py's flagship shape (bench.py:88-91,179-190): DeepFM with hidden
 in-table adagrad, a 2^20-row f32 pass slab, mf_create_thresholds 0,
 mf_initial_range 1e-3, f32 dense Adam at lr 1e-3; trained on synthetic
 files (4 files x 4096 lines = 16 batches a pass, 20,000 ids a slot,
-seed 0). chip_smoke.py drives its main path from here,
-profile_pass.py profiles the same pass, and rate_probe.py gathers at the
-pull's shape from one of its batches (``first_batch_ids``); a smaller
+seed 0). ``FLAGSHIP_BF16`` is the same with the reference's bf16 slab
+diet (``slab_embed_dtype="bfloat16"``: 25 two-byte columns a row, 50 B,
+against 17 f32 columns, 68 B); the dense model stays f32 unless
+``compute_dtype`` or ``matmul_dtype`` says otherwise. chip_smoke.py drives
+its main path from here, profile_pass.py profiles the same pass, and
+rate_probe.py gathers at the pull's shape from one of its batches
+(``first_batch_ids``); a smaller
 configuration is a ``dataclasses.replace`` of ``FLAGSHIP``. The
 datasets and the trainer take the defaults, so all of them run on the
 native host tier (the columnar dataset, the C++ store, the route index).
@@ -33,7 +37,8 @@ import torch
 from paddlebox_tpu_torch.config.configs import (DataFeedConfig,
                                                 SparseOptimizerConfig,
                                                 TableConfig, TrainerConfig)
-from paddlebox_tpu_torch.config.flags import PassFlags, PushFlags, StageFlags
+from paddlebox_tpu_torch.config.flags import (DtypeFlags, PassFlags,
+                                              PushFlags, StageFlags)
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.generator import write_synthetic_ctr_files
 from paddlebox_tpu_torch.device import DeviceLike
@@ -57,6 +62,10 @@ class Flagship:
     lines_per_file: int = 4096
     vocab_per_slot: int = 20000
     data_seed: int = 0
+    # the dtype diet (DtypeFlags, TrainerConfig.compute_dtype)
+    slab_embed_dtype: str = "float32"
+    matmul_dtype: str = "float32"
+    compute_dtype: str = "float32"
 
     def table(self) -> TableConfig:
         return TableConfig(embedx_dim=self.embedx,
@@ -67,6 +76,7 @@ class Flagship:
 
 
 FLAGSHIP = Flagship()
+FLAGSHIP_BF16 = dataclasses.replace(FLAGSHIP, slab_embed_dtype="bfloat16")
 DENSE_LR = 1e-3
 BLOCK_ROWS = 1024  # push_block_rows of push_write='blocked'
 
@@ -157,13 +167,17 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
                    hidden=cfg.hidden,
                    generator=torch.Generator().manual_seed(seed))
     trainer = BoxTrainer(model, cfg.table(), feed,
-                         TrainerConfig(dense_lr=DENSE_LR, **trainer_fields),
+                         TrainerConfig(dense_lr=DENSE_LR,
+                                       compute_dtype=cfg.compute_dtype,
+                                       **trainer_fields),
                          seed=seed, flags=PushFlags(push_write, BLOCK_ROWS),
                          device=device, pass_flags=pass_flags,
                          store=(HostEmbeddingStore(ValueLayout(cfg.embedx),
                                                    cfg.table(), seed)
                                 if plain_host else None),
-                         stage_flags=stage_flags)
+                         stage_flags=stage_flags,
+                         dtype_flags=DtypeFlags(cfg.slab_embed_dtype,
+                                                cfg.matmul_dtype))
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
     ds = BoxDataset(feed, columnar=not plain_host)
     ds.set_filelist(files)

@@ -27,11 +27,15 @@ What makes replay bit-exact, and when it refuses:
     replay refuses) by segment loss to the rotation bound and by a store
     load that bypasses the checkpoint plane.
 
-Not ported: the SSD tier's MOVE records and EV_TICK_SPILL_AGE (the port's
-stores have no tier; the port writes neither, and its replay of a segment
-that holds one raises JournalIncompleteError), and ``publish`` with its
-watermark records (the streaming runner's; replay skips watermarks as the
-reference does).
+Not ported: the SSD tier's MOVE records (the port's stores have no tier;
+the port writes none, and its replay of a segment that holds one raises
+JournalIncompleteError), and ``publish`` with its watermark records (the
+streaming runner's; replay skips watermarks as the reference does). The
+tier's day tick, EV_TICK_SPILL_AGE, is written at ``end_day(age=False)`` as
+the reference writes it and replays as a no-op: without tier rows it only
+advances the tier's epoch, and a tier row in an epoch shows as a MOVE
+record (a full save's anchor opens the epoch with MV_SPILL of every spilled
+key), which replay refuses.
 
 Records are flushed per append (a killed process leaves a parseable
 prefix); segments fsync when sealed. Appends come from the trainer's
@@ -57,7 +61,7 @@ from paddlebox_tpu_torch.utils.journal_format import (
     KIND_WATERMARK, SEG_MAGIC, decode_rows_payload, iter_segment)
 
 _NO_TIER = ("the port's stores have no SSD tier, so its journal cannot "
-            "replay the tier's %s (ROADMAP.md A11)")
+            "replay the tier's MOVE records (ROADMAP.md A11)")
 
 
 class JournalIncompleteError(RuntimeError):
@@ -96,7 +100,7 @@ def replay_record(store, table_cfg, kind: int, payload: bytes) -> None:
         elif code == EV_SHRINK:
             store.shrink()
         elif code == EV_TICK_SPILL_AGE:
-            raise JournalIncompleteError(_NO_TIER % "day tick")
+            pass  # the tier's day tick: nothing to age on a tier-less store
         elif code == EV_TAINT:
             raise JournalIncompleteError(
                 "journal epoch tainted (a store mutation outside the "
@@ -105,7 +109,7 @@ def replay_record(store, table_cfg, kind: int, payload: bytes) -> None:
         else:
             raise ValueError(f"unknown journal event code {code}")
     elif kind == KIND_MOVE:
-        raise JournalIncompleteError(_NO_TIER % "MOVE records")
+        raise JournalIncompleteError(_NO_TIER)
 
 
 def replay_segments(store, table_cfg, segment_paths,

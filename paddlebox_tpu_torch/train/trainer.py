@@ -11,6 +11,11 @@ for one GPU. A step is
     (the fused push_adagrad kernel: merge, update, row write; in blocked
     mode it returns the rows and the blocked_write kernel places them)
 
+On a bf16 slab (DtypeFlags.slab_embed_dtype) the pull gathers DECODED f32
+rows and the push decodes and encodes inside its kernel; the dense forward
+runs in TrainerConfig.compute_dtype with DtypeFlags.matmul_dtype products
+(``model_logits``, models/layers.py).
+
 around the pass lifecycle feed -> begin_pass -> train -> metrics ->
 end_pass (incremental by default: PassFlags, embedding/pass_table.py;
 train/preload.py overlaps the next pass's feed with this one's steps). The
@@ -59,8 +64,8 @@ import torch.nn.functional as F
 
 from paddlebox_tpu_torch.config.configs import (DataFeedConfig, TableConfig,
                                                 TrainerConfig)
-from paddlebox_tpu_torch.config.flags import (PassFlags, PushFlags,
-                                              StageFlags)
+from paddlebox_tpu_torch.config.flags import (DtypeFlags, PassFlags,
+                                              PushFlags, StageFlags)
 from paddlebox_tpu_torch.convert import (adam_state_from_numpy,
                                          adam_state_to_numpy,
                                          params_from_jax, params_to_numpy)
@@ -96,11 +101,28 @@ def masked_bce(logits: torch.Tensor, labels: torch.Tensor,
     return loss, torch.sigmoid(logits)
 
 
+def model_logits(model: torch.nn.Module, pooled: torch.Tensor,
+                 compute_dtype: str = "float32") -> torch.Tensor:
+    """The model's f32 logits of ``pooled``. Under compute_dtype
+    'bfloat16' the forward runs on bf16 copies of the pooled input and of
+    every parameter, and the logits return to f32 (apply_mixed_precision
+    and mixed_logits_to_f32, paddlebox_tpu/train/trainer.py:512-541): the
+    parameters stay the f32 masters Adam updates, and their gradients flow
+    back through the casts."""
+    if compute_dtype == "float32":
+        return model(pooled)
+    dt = torch.bfloat16
+    params = {n: p.to(dt) for n, p in model.named_parameters()}
+    return torch.func.functional_call(model, params,
+                                      (pooled.to(dt),)).to(torch.float32)
+
+
 def make_train_step(model: torch.nn.Module, layout: ValueLayout,
                     table: TableConfig, dense_opt: torch.optim.Optimizer,
                     batch_size: int, num_slots: int,
                     push_write: str = "scatter",
-                    block_rows: int = 1024) -> Callable:
+                    block_rows: int = 1024,
+                    compute_dtype: str = "float32") -> Callable:
     """step(slab, batch, seed) -> (loss, preds), device tensors. Updates
     ``slab`` and the model's parameters IN PLACE. ``batch`` is a
     device_batch dict."""
@@ -113,11 +135,11 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
         # per-key validity is derived: padding key slots (and only those)
         # address the trash row
         valid = ids != padding_id
-        rows = gather_slab_rows(slab, ids)
+        rows = gather_slab_rows(slab, ids, layout)
         emb = pull_view_from_rows(rows, layout).requires_grad_(True)
         pooled = fused_seqpool_cvm(emb, segments, valid, batch_size,
                                    num_slots, batch["n_valid"])
-        logits = model(pooled)
+        logits = model_logits(model, pooled, compute_dtype)
         loss, preds = masked_bce(logits, batch["labels"], batch["ins_valid"])
         dense_opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -137,7 +159,8 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
 
 def make_eval_step(model: torch.nn.Module, layout: ValueLayout,
                    table: TableConfig, batch_size: int,
-                   num_slots: int) -> Callable:
+                   num_slots: int, compute_dtype: str = "float32"
+                   ) -> Callable:
     """eval_step(slab, batch) -> preds [batch_size] on the device: the
     pull, fused seqpool+CVM and the forward, and nothing that writes."""
     padding_id = table.pass_capacity - 1
@@ -145,11 +168,13 @@ def make_eval_step(model: torch.nn.Module, layout: ValueLayout,
     def eval_step(slab: torch.Tensor, batch: Batch) -> torch.Tensor:
         ids = batch["ids"]
         with torch.no_grad():
-            emb = pull_view_from_rows(gather_slab_rows(slab, ids), layout)
+            emb = pull_view_from_rows(gather_slab_rows(slab, ids, layout),
+                                      layout)
             pooled = fused_seqpool_cvm(emb, batch["segments"],
                                        ids != padding_id, batch_size,
                                        num_slots, batch["n_valid"])
-            return torch.sigmoid(model(pooled))
+            return torch.sigmoid(model_logits(model, pooled,
+                                              compute_dtype))
 
     return eval_step
 
@@ -177,7 +202,8 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
                     table: TableConfig, dense_opt: torch.optim.Optimizer,
                     batch_size: int, num_slots: int,
                     push_write: str = "scatter",
-                    block_rows: int = 1024) -> Callable:
+                    block_rows: int = 1024,
+                    compute_dtype: str = "float32") -> Callable:
     """chunk_step(slab, stacked, cpush, seed) -> (losses [C], preds [C,
     batch]): the chunk-synchronous sparse megastep (scan_chunk_fn,
     paddlebox_tpu/train/trainer.py:755-845). ONE pull of the chunk's C*K
@@ -204,7 +230,7 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
                + (torch.arange(C, dtype=stacked["segments"].dtype,
                                device=ids.device) * instances)[:, None]
                ).reshape(C * K)
-        emb = pull_view_from_rows(gather_slab_rows(slab, ids_flat),
+        emb = pull_view_from_rows(gather_slab_rows(slab, ids_flat, layout),
                                   layout).requires_grad_(True)
         # batch c's real key slots are its first n_valid[c]: the pool
         # skips the padding tails instead of summing their zeros
@@ -219,7 +245,8 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
         losses, preds, dpooled = [], [], []
         for c in range(C):
             x = pooled_c[c].requires_grad_(True)
-            loss, p = masked_bce(model(x), stacked["labels"][c],
+            loss, p = masked_bce(model_logits(model, x, compute_dtype),
+                                 stacked["labels"][c],
                                  stacked["ins_valid"][c])
             dense_opt.zero_grad(set_to_none=True)
             loss.backward()
@@ -408,11 +435,14 @@ class BoxTrainer:
                  device: DeviceLike = None,
                  pass_flags: Optional[PassFlags] = None,
                  store=None,
-                 stage_flags: Optional[StageFlags] = None) -> None:
+                 stage_flags: Optional[StageFlags] = None,
+                 dtype_flags: Optional[DtypeFlags] = None) -> None:
         """``store``: the table's host store (PassTable's default, the
         native one, when None). ``stage_flags``: the chunk driver's
         staging, read at the start of every pass (``self.stage_flags`` may
-        be replaced between passes)."""
+        be replaced between passes). ``dtype_flags``: the slab's storage
+        (the table's layout) and the dense matmuls' operand dtype (set on
+        the model as its ``matmul_dtype``), read here."""
         self.cfg = trainer_cfg or TrainerConfig()
         if self.cfg.scan_chunk < 1:
             raise ValueError("scan_chunk must be >= 1, got %r"
@@ -424,9 +454,17 @@ class BoxTrainer:
             torch.backends.cudnn.allow_tf32 = False
         self.flags = flags or PushFlags()
         self.stage_flags = stage_flags or StageFlags()
+        self.dtype_flags = dtype_flags or DtypeFlags()
         self.feed = feed
         self.table = PassTable(table_cfg, seed=seed, device=self.device,
-                               flags=pass_flags, store=store)
+                               flags=pass_flags, store=store,
+                               embed_dtype=self.dtype_flags.slab_embed_dtype)
+        if hasattr(model, "matmul_dtype"):
+            model.matmul_dtype = self.dtype_flags.matmul_dtype
+        elif self.dtype_flags.matmul_dtype != "float32":
+            raise ValueError("matmul_dtype=%r: the model has no "
+                             "matmul_dtype to set"
+                             % self.dtype_flags.matmul_dtype)
         self.model = model.to(self.device)
         self.metrics = MetricRegistry()
         self.num_slots = len(feed.used_sparse_slots())
@@ -437,19 +475,20 @@ class BoxTrainer:
         self.dense_opt = torch.optim.Adam(self.model.parameters(),
                                           lr=self.cfg.dense_lr,
                                           betas=(0.9, 0.999), eps=1e-8)
+        cdtype = self.cfg.compute_dtype
         self.step_fn = make_train_step(
             self.model, self.table.layout, table_cfg, self.dense_opt,
             feed.batch_size, self.num_slots, push_write=self.push_write,
-            block_rows=self.flags.push_block_rows)
+            block_rows=self.flags.push_block_rows, compute_dtype=cdtype)
         self.scan_steps = make_scan(self.step_fn)
         self.chunk_fn = (make_chunk_step(
             self.model, self.table.layout, table_cfg, self.dense_opt,
             feed.batch_size, self.num_slots, push_write=self.push_write,
-            block_rows=self.flags.push_block_rows)
+            block_rows=self.flags.push_block_rows, compute_dtype=cdtype)
             if self.cfg.sparse_chunk_sync else None)
         self.eval_fn = make_eval_step(self.model, self.table.layout,
                                       table_cfg, feed.batch_size,
-                                      self.num_slots)
+                                      self.num_slots, compute_dtype=cdtype)
         # the staging pool (threads, executor) and the pinned ring, made at
         # first use
         self._stage_pool: Tuple[int, Optional[ThreadPoolExecutor]] = (0,

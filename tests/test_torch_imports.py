@@ -37,7 +37,10 @@ def test_import_loads_no_jax_and_no_reference_module():
               "data.native_parser", "embedding.native_store",
               "embedding.ckpt_store", "serving.store", "train.checkpoint",
               "train.eval_driver", "train.staging", "train.journal",
-              "train.recovery", "utils.journal_format"):
+              "train.recovery", "utils.journal_format",
+              "embedding.accessor", "embedding.push_kernels",
+              "ops.row_kernels", "models.layers", "convert", "edge_cases",
+              "rate_probe", "copy_probe", "train.flagship"):
         assert "paddlebox_tpu_torch." + m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad

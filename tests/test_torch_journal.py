@@ -345,9 +345,10 @@ def test_cross_replay_bit_identical(tmp_path):
 
 @pytest.mark.parametrize("record", ["move", "tick_spill_age", "taint"])
 def test_port_replay_refuses_what_it_cannot_reproduce(record, tmp_path):
-    """A reference segment holding an SSD-tier record (a MOVE, the tier's
-    day tick) or a taint: the port's replay raises JournalIncompleteError;
-    a watermark record is skipped, as the reference skips it."""
+    """A reference segment holding an SSD-tier MOVE record or a taint: the
+    port's replay raises JournalIncompleteError; a watermark record is
+    skipped, as the reference skips it. The tier's day tick is no such
+    record: it replays as a no-op, and the rows after it apply."""
     d = str(tmp_path / "j")
     j = jjr.TouchedRowJournal(d, JLayout(D), jtable_cfg())
     keys = np.arange(1, 33, dtype=np.uint64)
@@ -361,8 +362,14 @@ def test_port_replay_refuses_what_it_cannot_reproduce(record, tmp_path):
         j.append_event(jf.EV_TICK_SPILL_AGE)
     else:
         j.taint("external load")
+    j.append_rows(keys + np.uint64(100),
+                  np.ones((32, JLayout(D).width), np.float32))
     j.close()
     st = HostEmbeddingStore(ValueLayout(D), table_cfg())
+    if record == "tick_spill_age":
+        assert jr.replay_segments(st, table_cfg(), _segments(d)) == 3
+        assert len(st) == 64       # the tick changed nothing, rows applied
+        return
     match = "tainted" if record == "taint" else "SSD tier"
     with pytest.raises(jr.JournalIncompleteError, match=match):
         jr.replay_segments(st, table_cfg(), _segments(d))
@@ -373,8 +380,9 @@ def test_port_replay_refuses_what_it_cannot_reproduce(record, tmp_path):
 
 def test_pass_table_journals_what_it_hands_the_store(tmp_path):
     """A full build, a delta promote's misses and each write-back appear
-    as ROWS records holding the exact rows; shrink and aging as events; a
-    test-mode pass records nothing; a load outside the plane taints."""
+    as ROWS records holding the exact rows; shrink, aging and
+    end_day(age=False)'s tier tick as events; a test-mode pass records
+    nothing; a load outside the plane taints."""
     t = PassTable(table_cfg(), device="cpu")
     cm = mk_cm(tmp_path, t)
     seen = []
@@ -418,7 +426,9 @@ def test_pass_table_journals_what_it_hands_the_store(tmp_path):
     t.end_day(age=False)
     assert [(k, struct.unpack("<I", p)[0]) for k, p in seen] == [
         (jf.KIND_EVENT, jf.EV_AGE_DAYS), (jf.KIND_EVENT, jf.EV_SHRINK),
-        (jf.KIND_EVENT, jf.EV_SHRINK), (jf.KIND_EVENT, jf.EV_SHRINK)]
+        (jf.KIND_EVENT, jf.EV_SHRINK),
+        (jf.KIND_EVENT, jf.EV_TICK_SPILL_AGE),
+        (jf.KIND_EVENT, jf.EV_SHRINK)]
     cm.save_base({}, {}, day="d0")
     assert cm.journal.snapshot_ready()
     t.save(str(tmp_path / "side.xman"))
@@ -594,6 +604,71 @@ def test_reference_snapshot_loads_in_the_port(tmp_path):
                          xbox_model_dir=cfg.xbox_model_dir), pt).load_base(
         "d1")
     assert_stores_equal(sorted_items(pt.store), sorted_items(jt2.store))
+    np.testing.assert_array_equal(params["w"], np.ones(2, np.float32))
+
+
+def test_reference_snapshot_across_the_day_tick_loads_in_the_port(
+        tmp_path):
+    """A reference journal-mode snapshot whose epoch spans
+    end_day(age=False), which journals the SSD tier's day tick: a full
+    base at d0, the day tick and shrink, one pass, an 'auto' save at d1.
+    The port's load_base gives the store of the reference's own load, bit
+    for bit. A port table fed the same calls writes the same journal
+    segments, byte for byte, tick included."""
+    jflags.set_flag("ckpt_journal", True)
+    jflags.set_flag("flatten_dense_opt", False)
+    rng = np.random.RandomState(12)
+    keys = rand_keys(rng, 300)
+    blob = {"keys": keys, "values": rand_rows(rng, keys.size), **META}
+    upd = np.unique(np.concatenate([keys[::3], rand_keys(rng, 40)]))
+    jt = JPassTable(jtable_cfg())
+    pt = PassTable(table_cfg(), device="cpu")
+    dirs = {}
+    for tag, t, mk in (
+            ("jax", jt, lambda d, t: jckpt.CheckpointManager(
+                JCkptCfg(batch_model_dir=d + "/batch",
+                         xbox_model_dir=d + "/xbox", async_save=False), t)),
+            ("port", pt, lambda d, t: pckpt.CheckpointManager(
+                CheckpointConfig(batch_model_dir=d + "/batch",
+                                 xbox_model_dir=d + "/xbox",
+                                 async_save=False), t))):
+        t.store.load_blob(blob)
+        d = str(tmp_path / tag)
+        cm = mk(d, t)
+        cm.save_base({"w": np.ones(2, np.float32)}, {}, day="d0")
+        t.end_day(age=False)
+        t.begin_feed_pass()
+        t.add_keys(upd)
+        t.end_feed_pass()
+        t.begin_pass()
+        t.lookup_ids(upd[::2])
+        t.end_pass()
+        bdir, xdir = cm.save_base({"w": np.ones(2, np.float32)}, {},
+                                  day="d1", mode="auto")
+        assert xdir is None
+        assert cks.read_manifest(os.path.join(bdir, "sparse.xman"))[
+            "mode"] == "journal"
+        dirs[tag] = bdir
+    # the snapshot's segments (hard links of the sealed journal files)
+    got, want = ({n: b for n, b in _dir_bytes(dirs[tag]).items()
+                  if n.endswith(".jrnl")} for tag in ("port", "jax"))
+    assert list(got) == list(want) and got == want
+    tick = struct.pack("<I", jf.EV_TICK_SPILL_AGE)
+    assert any((k, p) == (jf.KIND_EVENT, tick)
+               for seg in _segments(dirs["jax"])
+               for k, p in jf.iter_segment(seg))
+    jt2 = JPassTable(jtable_cfg())
+    jckpt.CheckpointManager(
+        JCkptCfg(batch_model_dir=str(tmp_path / "jax/batch"),
+                 xbox_model_dir=str(tmp_path / "jax/xbox"),
+                 async_save=False), jt2).load_base("d1")
+    loaded = PassTable(table_cfg(), device="cpu")
+    params, _, _ = pckpt.CheckpointManager(
+        CheckpointConfig(batch_model_dir=str(tmp_path / "jax/batch"),
+                         xbox_model_dir=str(tmp_path / "jax/xbox")),
+        loaded, CkptFlags(ckpt_journal=False)).load_base("d1")
+    assert_stores_equal(sorted_items(loaded.store), sorted_items(jt2.store))
+    assert_stores_equal(sorted_items(pt.store), sorted_items(jt.store))
     np.testing.assert_array_equal(params["w"], np.ones(2, np.float32))
 
 

@@ -217,7 +217,9 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     slab, uids, new_rows, B = _blocked_case()
     push_blocked_write(torch.from_numpy(slab), torch.from_numpy(uids),
                        torch.from_numpy(new_rows), B)
-    assert pk.launch_counts() == {"push_adagrad": 0, "blocked_write": 0}
+    assert pk.launch_counts() == {"push_adagrad": 0, "push_adagrad_bf16": 0,
+                                  "blocked_write": 0,
+                                  "blocked_write_2byte": 0}
 
 
 def test_wrappers_check_arguments():

@@ -10,9 +10,8 @@ package's RecoverableRunner. Tolerances, as in tests/test_torch_day.py:
     the same keys in each ROWS record, exactly; their rows rtol 1e-4 with
     the integer columns exact (float32 sums taken in another order by XLA
     and ATen); loss rtol 1e-4;
-  * the reference journals its SSD tier's day tick (EV_TICK_SPILL_AGE) at
-    end_day(age=False), which the port, without a tier, does not: that one
-    event is left out of the reference's sequence;
+  * both journal the SSD tier's day tick (EV_TICK_SPILL_AGE) at
+    end_day(age=False); the port, without a tier, replays it as a no-op;
   * the port alone: a resumed runner equals an uninterrupted one, each
     per-pass snapshot loads to the store its save saw, and the journal
     changes no training result, bit for bit.
@@ -182,10 +181,10 @@ def _spy(journal):
 
 
 def _assert_records_match(port, ref):
-    """The port's records against the reference's, without the
-    reference's SSD-tier day tick."""
+    """The port's records against the reference's, the SSD tier's day tick
+    included."""
     tick = (jf.KIND_EVENT, struct.pack("<I", jf.EV_TICK_SPILL_AGE))
-    ref = [r for r in ref if r != tick]
+    assert (tick in port) == (tick in ref)
     assert [k for k, _ in port] == [k for k, _ in ref]
     assert jf.KIND_ROWS in [k for k, _ in port]
     for (kind, pp), (_, jp) in zip(port, ref):
@@ -226,12 +225,14 @@ def test_run_day_journal_matches_jax(data, jax_journal_flags, tmp_path):
         np.testing.assert_allclose(p["loss"], j["loss"], rtol=1e-4)
     _assert_records_match(pseen, jseen)
     # three passes of a full build and a write-back (each delta save drops
-    # the residency), every save's events, the shrink
+    # the residency), every save's events, end_day(age=False)'s tier tick,
+    # the shrink
     events = [struct.unpack("<I", p)[0] for k, p in pseen
               if k == jf.KIND_EVENT]
     assert [k for k, _ in pseen].count(jf.KIND_ROWS) == 6
     assert events == [jf.EV_STAT_SAVE_DELTA] * 3 + [
-        jf.EV_STAT_SAVE_DELTA, jf.EV_STAT_SAVE_AGE, jf.EV_SHRINK]
+        jf.EV_STAT_SAVE_DELTA, jf.EV_STAT_SAVE_AGE, jf.EV_TICK_SPILL_AGE,
+        jf.EV_SHRINK]
 
 
 def test_runner_journal_matches_jax(data, jax_journal_flags, tmp_path):

@@ -201,7 +201,9 @@ def test_cpu_wrappers_run_plain_without_counting():
     assert torch.equal(sparse.gather_slab_rows(src, ids),
                        rk.gather_rows_plain(src, ids))
     assert rk.gather_rows(src, ids[:0]).shape == (0, 17)
-    assert rk.launch_counts() == {"scale_copy": 0, "gather_rows": 0}
+    assert rk.launch_counts() == {"scale_copy": 0, "gather_rows": 0,
+                                  "gather_rows_2byte": 0,
+                                  "gather_rows_decode": 0}
 
 
 def test_wrappers_check_arguments():
