@@ -123,10 +123,13 @@ Phases, each of which raises on a failed check (exit code != 0):
      decoding and encoding rows in both write modes on phase 4's batch,
      with a hot key and at every embedx width; the placement of its rows;
      the pull raw and decoding; the delta promote and the write-back) and
-     on their 2-byte edge cases (edge_cases.py: odd row widths 19, 25 and
-     81, odd row starts, B odd and even), with kernel, plain, library and
-     bound times, the pull's decode timed both fused in the gather and as
-     a separate op; then FLAGSHIP_BF16's two passes (scatter, incremental,
+     on their 2-byte edge cases (edge_cases.py: row widths 19, 25, 26 and
+     81, odd row starts, B odd and even, the placement's permuted and
+     consecutive sources and its tensors one element into their
+     buffers), with kernel, plain, library and bound times (the placement
+     and index_copy_ in BLOCKED16_ROUNDS rounds of A, B, B, A, their
+     ratio a round), the pull's decode timed both fused in the gather and
+     as a separate op; then FLAGSHIP_BF16's two passes (scatter, incremental,
      chunks of 8): digits held to BF16_DIGITS, push_adagrad's bf16 form
      launched once a step, gather_rows' decoding form once a step and its
      raw 2-byte form at the promote and the two write-backs (35), no f32
@@ -1671,6 +1674,8 @@ DENSE_BF16_DIGITS = ("0.6866628528", "0.4972733763")
 # the main path's AUC gap the reference allows between the f32 and the
 # bf16 slab (tests/test_push_blocked.py:491, its parity gate)
 BF16_AUC_GATE = 0.01
+# rounds of the 2-byte placement against index_copy_ at the flagship shape
+BLOCKED16_ROUNDS = 2
 
 
 def gather16_edge_phase(torch, dev):
@@ -1721,26 +1726,33 @@ def gather16_edge_phase(torch, dev):
 
 def blocked16_edge_phase(torch, dev):
     """Phase 12, the 2-byte blocked write on its edge cases
-    (edge_cases.blocked_edge_cases_2byte: W 19, 25 and 81, B odd and
-    even), in the cases' slot order and reversed, and over many tiles:
-    bit-equal to the plain version."""
+    (edge_cases.blocked_edge_cases_2byte: W 19, 25, 26 and 81, B odd and
+    even, permuted and consecutive sources, the slab and new_rows at the
+    cases' data offsets), in the cases' slot order and reversed, and over
+    many tiles, with permuted sources and with the consecutive run that
+    blocked_layout builds: bit-equal to the plain version."""
     from paddlebox_tpu_torch.edge_cases import blocked_edge_cases_2byte
     from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.optimizers import blocked_layout
+
+    def both(s_k, nr, rm, bi, label):
+        s_p = s_k.clone()
+        pk.blocked_write(s_k, nr, rm, bi)
+        torch.cuda.synchronize()
+        pk.blocked_write_plain(s_p, nr, rm, bi)
+        check(torch.equal(s_k, s_p), "blocked_write (2-byte) differs from "
+              "the plain version on %s" % label)
 
     cases = blocked_edge_cases_2byte()
-    for label, (slab, new_rows, row_map, blk_idx, off) in cases.items():
-        s0, nr = (torch.from_numpy(x.view("int16")).to(dev)
-                  for x in (slab, new_rows))
+    for label, (slab, new_rows, row_map, blk_idx, off,
+                (so, ro)) in cases.items():
+        nr = on_card(torch, new_rows.view("int16"), ro, dev)
         for order in ("as given", "reversed"):
             flip = slice(None, None, -1 if order == "reversed" else 1)
-            rm = on_card(torch, row_map[flip], off, dev)
-            bi = torch.from_numpy(blk_idx[flip].copy()).to(dev)
-            s_k, s_p = s0.clone(), s0.clone()
-            pk.blocked_write(s_k, nr, rm, bi)
-            torch.cuda.synchronize()
-            pk.blocked_write_plain(s_p, nr, rm, bi)
-            check(torch.equal(s_k, s_p), "blocked_write (2-byte) differs "
-                  "from the plain version on %s (slots %s)" % (label, order))
+            both(on_card(torch, slab.view("int16"), so, dev), nr,
+                 on_card(torch, row_map[flip], off, dev),
+                 torch.from_numpy(blk_idx[flip].copy()).to(dev),
+                 "%s (slots %s)" % (label, order))
     gen = torch.Generator(device=dev).manual_seed(15)
     NB, B = 6000, 511
     mask = torch.rand((NB, B), generator=gen, device=dev) < 0.02
@@ -1751,19 +1763,21 @@ def blocked16_edge_phase(torch, dev):
         torch.int32)
     blk_idx = torch.randperm(NB + 100, generator=gen, device=dev)[:NB].to(
         torch.int32)
-    s_k = torch.randint(-1 << 15, 1 << 15, ((NB + 100) * B, 25),
-                        generator=gen, device=dev, dtype=torch.int16)
-    s_p = s_k.clone()
+    slab = torch.randint(-1 << 15, 1 << 15, ((NB + 100) * B, 25),
+                         generator=gen, device=dev, dtype=torch.int16)
     nr = torch.randint(-1 << 15, 1 << 15, (n, 25), generator=gen,
                        device=dev, dtype=torch.int16)
-    pk.blocked_write(s_k, nr, row_map, blk_idx)
-    torch.cuda.synchronize()
-    pk.blocked_write_plain(s_p, nr, row_map, blk_idx)
-    check(torch.equal(s_k, s_p), "blocked_write (2-byte) differs from the "
-          "plain version over many tiles")
+    both(slab, nr, row_map, blk_idx, "many tiles")
+    # the consecutive run over many tiles: sorted uids over the same slab,
+    # bucketized as the blocked path does
+    uids = torch.sort(torch.randperm(slab.shape[0], generator=gen,
+                                     device=dev)[:n]).values
+    row_map, blk_idx = blocked_layout(uids, slab.shape[0], B)
+    both(slab, nr, row_map, blk_idx, "many tiles, consecutive sources")
     log("blocked_write (2-byte): bit-equal to the plain version on %d edge "
         "cases %s, slots as given and reversed, and over %d slots of %d "
-        "lanes" % (len(cases), sorted(cases), NB, B))
+        "lanes, permuted and consecutive sources"
+        % (len(cases), sorted(cases), NB, B))
 
 
 def bf16_kernel_phase(torch, cfg, feed, files, keys, dev):
@@ -1788,8 +1802,10 @@ def bf16_kernel_phase(torch, cfg, feed, files, keys, dev):
     from paddlebox_tpu_torch.ops import row_kernels as rk
     from paddlebox_tpu_torch.push_probe import (SEED, fused_push_bytes,
                                                 push_inputs)
-    from paddlebox_tpu_torch.rate_probe import (gather_bytes,
-                                                pull_inputs_bf16, time_chain)
+    from paddlebox_tpu_torch.rate_probe import (balanced_rounds,
+                                                gather_bytes,
+                                                pull_inputs_bf16, quartiles,
+                                                time_chain)
 
     D, C = cfg.embedx, cfg.capacity
     layout = ValueLayout(D, embed_dtype="bfloat16")
@@ -1855,14 +1871,22 @@ def bf16_kernel_phase(torch, cfg, feed, files, keys, dev):
     blocked16_edge_phase(torch, dev)
     blk_bytes = blk["bytes"]
     blk_args = (s_k, new_rows, row_map, blk_idx)
-    blk_ms = time_chain(pk.blocked_write, blk_args, blk_bytes)
+    # the kernel (A) and index_copy_ (B) in turns, A, B, B, A a round
+    blk_turns = balanced_rounds({"blocked_write_2byte": (
+        ("blocked_write_2byte", pk.blocked_write, blk_args, blk_bytes),
+        ("index_copy_", blk["library"], blk["library_args"], blk_bytes))},
+        BLOCKED16_ROUNDS, "case")["blocked_write_2byte"]
+    blk_ms = quartiles(blk_turns["A"])["median"]
+    blk_lib_ms = quartiles(blk_turns["B"])["median"]
     blk_plain_ms = time_chain(pk.blocked_write_plain, blk_args, blk_bytes)
-    blk_lib_ms = time_chain(blk["library"], blk["library_args"], blk_bytes)
     blk_bound = 1e3 * blk_bytes / HBM_BYTES_PER_S
     log("blocked_write (2-byte) NB=%(NB)d B=%(B)d placed=%(placed)d W=%(W)d"
-        ": " % blk["info"] + "kernel %.4f ms, plain %.4f ms, index_copy_ "
-        "%.4f ms, bound %.4f ms (%d B)" % (blk_ms, blk_plain_ms, blk_lib_ms,
-                                          blk_bound, blk_bytes))
+        ": " % blk["info"] + "kernel %.5f ms, index_copy_ %.5f ms (medians "
+        "of %d rounds A, B, B, A; kernel / index_copy_ a round: %s), plain "
+        "%.4f ms, bound %.5f ms (%d B)"
+        % (blk_ms, blk_lib_ms, BLOCKED16_ROUNDS,
+           ", ".join("%.4f" % r for r in blk_turns["ratios"]), blk_plain_ms,
+           blk_bound, blk_bytes))
     del blk, blk_args, slab0, new_rows, s_k, s_p
 
     # --- gather_rows, 2-byte: the pull, raw and decoded (fused, and the
@@ -1961,7 +1985,8 @@ def bf16_kernel_phase(torch, cfg, feed, files, keys, dev):
             else "operations", None, push_err,
             in_place_ms=push_inplace_ms),
         rec("blocked_write_2byte", "blocked_write.cu", push_line + "111",
-            blk_ms, blk_plain_ms, blk_bound, "bytes", blk_lib_ms, 0.0),
+            blk_ms, blk_plain_ms, blk_bound, "bytes", blk_lib_ms, 0.0,
+            library_ratios=blk_turns["ratios"]),
         rec("gather_rows_2byte", "gather_rows.cu",
             "tools/pallas_rate_probe.py:70", pull["raw"]["ms"],
             pull["raw"]["plain_ms"], pull["raw"]["bound_ms"], "bytes",

@@ -2,7 +2,8 @@
 streaming scale at the rate probe's, on this tree or on another checkout of
 the port.
 
-    python3 paddlebox_tpu_torch/copy_probe.py [--tree DIR]
+    python3 paddlebox_tpu_torch/copy_probe.py [--tree DIR] [--cases A,B]
+    python3 paddlebox_tpu_torch/copy_probe.py --balanced N
 
 Cases (inputs made from seeds, the same on every tree):
 
@@ -12,6 +13,9 @@ Cases (inputs made from seeds, the same on every tree):
                  flagship.BLOCK_ROWS (1024 slots of 1024 lanes, 77,128 rows
                  placed), random new rows; library call: index_copy_ of the
                  same rows at their uids
+  blocked_write_2byte    the same placement on the bf16 slab: a 2^20 x 25
+                 int16 slab (flagship.FLAGSHIP_BF16's device width), random
+                 int16 rows; library call: index_copy_ of the int16 rows
   gather_pull    the pull (``rate_probe.pull_inputs``): the first flagship
                  batch's 131,072 ids (77,128 distinct, padding on the trash
                  row) into a 2^20 x 17 slab; library call: index_select
@@ -32,10 +36,17 @@ bound they give at 3.35 TB/s (a scale moves 2 x 4 x n bytes), and
 ``sha256``, the digest of the kernel's output (two trees that print the
 same digests wrote the same bits; each copy's output is also held bit-equal
 to the library call's, each scale's to its plain version); and ``floors``,
-what the card gives at these sizes (``floors``).
+what the card gives at these sizes (``floors``, those of the cases run).
+``--cases`` runs only the cases named (comma-separated).
 
 ``--tree DIR`` imports ``paddlebox_tpu_torch`` from DIR (``probe_tree``),
 so the port's parent commit can be measured in the same call.
+
+``--balanced N`` times only the two placements, each kernel (A) against
+its ``index_copy_`` (B), N rounds of A, B, B, A in one process
+(``rate_probe.balanced_rounds``, which the tree must have): one JSON
+line a timing, then for each form each side's median and quartiles, the
+per-round ratios A / B and the kernel's share of its bound.
 """
 
 from __future__ import annotations
@@ -63,11 +74,12 @@ def blocked_case(ids: np.ndarray, C: int, W: int, dev,
     sorted uids of ``ids`` (``pass_table.dedup_ids``) bucketized in blocks
     of flagship.BLOCK_ROWS lanes (``optimizers.blocked_layout``) over a
     random [C, W] slab (f32, or with ``two_byte`` random int16 bits, the
-    bf16 slab's), with n_uniq random new rows as the fused push returns
-    them. A dict: name, kernel, library (index_copy_ of the same rows at
-    their uids), args (the slab untouched), library_args, bytes (what the
-    function must move), info (shape facts). The kernel's result is held
-    bit-equal to the library call's here (raises if not)."""
+    bf16 slab's: case ``blocked_write_2byte``), with n_uniq random new
+    rows as the fused push returns them. A dict: name, kernel, library
+    (index_copy_ of the same rows at their uids), args (the slab
+    untouched), library_args, bytes (what the function must move), info
+    (shape facts). The kernel's result is held bit-equal to the library
+    call's here (raises if not)."""
     import torch
 
     from paddlebox_tpu_torch.embedding import push_kernels as pk
@@ -96,7 +108,8 @@ def blocked_case(ids: np.ndarray, C: int, W: int, dev,
                            "same rows")
     placed = int((row_map >= 0).sum())
     NB, B = row_map.shape
-    return dict(name="blocked_write", kernel=pk.blocked_write,
+    return dict(name="blocked_write_2byte" if two_byte else "blocked_write",
+                kernel=pk.blocked_write,
                 library=lambda s, i, r: s.index_copy_(0, i, r),
                 args=(slab, new_rows, row_map, blk_idx),
                 library_args=(s_l, idx, new_rows),
@@ -105,8 +118,27 @@ def blocked_case(ids: np.ndarray, C: int, W: int, dev,
                 info=dict(NB=NB, B=B, placed=placed, W=W))
 
 
-def flagship_cases(dev) -> list:
-    """The three cases at the flagship shapes on ``dev``, each a dict as
+def placement_cases(dev, pull=None) -> list:
+    """The two placements at the flagship shapes on ``dev`` (f32, and
+    ``blocked_write_2byte`` at the bf16 slab's device width), each a dict
+    as ``blocked_case`` gives; ``pull``: ``rate_probe.pull_inputs()``,
+    made here when not given."""
+    from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+    from paddlebox_tpu_torch.rate_probe import pull_inputs
+    from paddlebox_tpu_torch.train import flagship
+
+    pull_slab, pull_ids = pull if pull is not None else pull_inputs()
+    cfg = flagship.FLAGSHIP_BF16
+    W16 = ValueLayout(cfg.embedx,
+                      embed_dtype=cfg.slab_embed_dtype).device_width
+    return [blocked_case(pull_ids, *pull_slab.shape, dev),
+            blocked_case(pull_ids, pull_slab.shape[0], W16, dev,
+                         two_byte=True)]
+
+
+def flagship_cases(dev, names=None) -> list:
+    """The cases at the flagship shapes on ``dev`` (the two placements and
+    the two gathers; ``names``: only those), each a dict as
     ``blocked_case`` gives; each gather's output is held bit-equal to
     index_select's (raises if not)."""
     import torch
@@ -115,11 +147,17 @@ def flagship_cases(dev) -> list:
     from paddlebox_tpu_torch.rate_probe import (gather_bytes, probe_inputs,
                                                 pull_inputs)
 
+    def wanted(name):
+        return names is None or name in names
+
     pull_slab, pull_ids = pull_inputs()
-    cases = [blocked_case(pull_ids, *pull_slab.shape, dev)]
+    cases = [c for c in placement_cases(dev, (pull_slab, pull_ids))
+             if wanted(c["name"])]
     _, p_slab, p_ids = probe_inputs()
     for name, s_np, i_np in (("gather_pull", pull_slab, pull_ids),
                              ("gather_probe", p_slab, p_ids)):
+        if not wanted(name):
+            continue
         src = torch.from_numpy(s_np).to(dev)
         i = torch.from_numpy(i_np).to(dev)
         if not bit_equal(rk.gather_rows(src, i), src.index_select(0, i)):
@@ -133,10 +171,11 @@ def flagship_cases(dev) -> list:
     return cases
 
 
-def scale_cases(dev) -> list:
+def scale_cases(dev, names=None) -> list:
     """scale_copy at the rate probe's two sizes and at 64 MiB one float
-    into its buffer, on ``dev``, each a dict as ``blocked_case`` gives;
-    each output is held bit-equal to the plain version (raises if not)."""
+    into its buffer, on ``dev`` (``names``: only those), each a dict as
+    ``blocked_case`` gives; each output is held bit-equal to the plain
+    version (raises if not)."""
     import torch
 
     from paddlebox_tpu_torch.ops import row_kernels as rk
@@ -150,6 +189,8 @@ def scale_cases(dev) -> list:
     views[2][1].copy_(views[0][1])
     cases = []
     for name, x in views:
+        if names is not None and name not in names:
+            continue
         if not bit_equal(rk.scale_copy(x), rk.scale_copy_plain(x)):
             raise RuntimeError("%s differs from the plain version" % name)
         cases.append(dict(name=name, kernel=rk.scale_copy,
@@ -162,16 +203,17 @@ def scale_cases(dev) -> list:
 
 def floors(cases: list) -> dict:
     """What the card gives at these sizes (device ms, ``time_chain``),
-    beside the cases of ``flagship_cases``: ``launch_ms``, gather_rows of
-    one id (a launch in the chain with next to no work);
-    ``sequential_copy_ms``, scale_copy streaming as many bytes as the pull
-    must move (``sequential_copy_bytes``), and ``device_copy_ms``,
-    ``dst.copy_(src)`` of those bytes (the card's own device-to-device
-    copy: the floor, which does not move with the kernel under
-    redesign); ``blocked_contiguous_ms``,
-    blocked_write of the same rows with each slot's placed lanes moved to
-    its first lanes (whole sectors written); ``index_copy_contiguous_ms``,
-    index_copy_ of the same rows at consecutive slab rows."""
+    beside the cases of ``flagship_cases`` that ran. With the pull:
+    ``launch_ms``, gather_rows of one id (a launch in the chain with next
+    to no work); ``sequential_copy_ms``, scale_copy streaming as many bytes
+    as the pull must move (``sequential_copy_bytes``), and
+    ``device_copy_ms``, ``dst.copy_(src)`` of those bytes (the card's own
+    device-to-device copy: the floor, which does not move with the kernel
+    under redesign). With each placement (keys with ``_2byte`` for the
+    2-byte one): ``blocked_contiguous_ms``, blocked_write of the same rows
+    with each slot's placed lanes moved to its first lanes (whole sectors
+    written); ``index_copy_contiguous_ms``, index_copy_ of the same rows at
+    consecutive slab rows."""
     import torch
 
     from paddlebox_tpu_torch.embedding import push_kernels as pk
@@ -179,39 +221,81 @@ def floors(cases: list) -> dict:
     from paddlebox_tpu_torch.rate_probe import time_chain
 
     by = {c["name"]: c for c in cases}
-    src = by["gather_pull"]["args"][0]
-    slab, new_rows, row_map, blk_idx = by["blocked_write"]["args"]
-    idx = by["blocked_write"]["library_args"][1]
-    blk_bytes = by["blocked_write"]["bytes"]
-    dev = src.device
-    x = torch.rand((by["gather_pull"]["bytes"] // (8 * 128), 128),
-                   device=dev)
-    placed = row_map >= 0
-    lanes = torch.arange(row_map.shape[1], device=dev)
-    front = torch.full_like(row_map, -1)
-    front[lanes[None, :] < placed.sum(1, keepdim=True)] = row_map[placed]
-    return {
-        "launch_ms": time_chain(
-            rk.gather_rows, (src[:64].clone(),
-                             torch.zeros(1, dtype=torch.int32, device=dev)),
-            4 + 2 * 4 * src.shape[1]),
-        "sequential_copy_ms": time_chain(rk.scale_copy, (x,), x.numel() * 8),
-        "sequential_copy_bytes": x.numel() * 8,
-        "device_copy_ms": time_chain(lambda s, d: d.copy_(s),
-                                     (x, torch.empty_like(x)),
-                                     x.numel() * 8),
-        "blocked_contiguous_ms": time_chain(
+    out = {}
+    if "gather_pull" in by:
+        src = by["gather_pull"]["args"][0]
+        dev = src.device
+        x = torch.rand((by["gather_pull"]["bytes"] // (8 * 128), 128),
+                       device=dev)
+        out.update({
+            "launch_ms": time_chain(
+                rk.gather_rows,
+                (src[:64].clone(),
+                 torch.zeros(1, dtype=torch.int32, device=dev)),
+                4 + 2 * 4 * src.shape[1]),
+            "sequential_copy_ms": time_chain(rk.scale_copy, (x,),
+                                             x.numel() * 8),
+            "sequential_copy_bytes": x.numel() * 8,
+            "device_copy_ms": time_chain(lambda s, d: d.copy_(s),
+                                         (x, torch.empty_like(x)),
+                                         x.numel() * 8)})
+    for name, suffix in (("blocked_write", ""),
+                         ("blocked_write_2byte", "_2byte")):
+        if name not in by:
+            continue
+        slab, new_rows, row_map, blk_idx = by[name]["args"]
+        idx = by[name]["library_args"][1]
+        nbytes = by[name]["bytes"]
+        dev = slab.device
+        placed = row_map >= 0
+        lanes = torch.arange(row_map.shape[1], device=dev)
+        front = torch.full_like(row_map, -1)
+        front[lanes[None, :] < placed.sum(1, keepdim=True)] = \
+            row_map[placed]
+        out["blocked_contiguous%s_ms" % suffix] = time_chain(
             pk.blocked_write, (slab.clone(), new_rows, front, blk_idx),
-            blk_bytes),
-        "index_copy_contiguous_ms": time_chain(
+            nbytes)
+        out["index_copy_contiguous%s_ms" % suffix] = time_chain(
             lambda s, i, r: s.index_copy_(0, i, r),
-            (slab.clone(), torch.arange(idx.numel(), device=dev), new_rows),
-            blk_bytes)}
+            (slab.clone(), torch.arange(idx.numel(), device=dev),
+             new_rows), nbytes)
+    return out
 
 
-def main(tree: str) -> int:
+def balanced(rounds: int) -> dict:
+    """The two placements against their index_copy_, ``rounds`` rounds of
+    A, B, B, A (``rate_probe.balanced_rounds``); prints one line a timing
+    and the summary, and returns the summary, by form."""
+    import torch
+
+    from paddlebox_tpu_torch.device import HBM_BYTES_PER_S, card_line
+    from paddlebox_tpu_torch.rate_probe import balanced_rounds, quartiles
+
+    cases = placement_cases(torch.device("cuda"))
+    got = balanced_rounds(
+        {c["name"]: ((c["name"], c["kernel"], c["args"], c["bytes"]),
+                     ("index_copy_", c["library"], c["library_args"],
+                      c["bytes"]))
+         for c in cases}, rounds, "case")
+    summary = {"card": card_line()}
+    for c in cases:
+        g = got[c["name"]]
+        bound = 1e3 * c["bytes"] / HBM_BYTES_PER_S
+        kernel = quartiles(g["A"])
+        summary[c["name"]] = dict(
+            c["info"], bytes=c["bytes"], bound_ms=bound, kernel_ms=kernel,
+            index_copy_ms=quartiles(g["B"]), ratios=g["ratios"],
+            ratio_median=quartiles(g["ratios"])["median"],
+            bound_share=bound / kernel["median"],
+            faster_every_round=max(g["ratios"]) < 1.0)
+    out = {"blocked_balanced": summary}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def main(tree: str, names=None) -> int:
     """Measure the copy kernels of the ``paddlebox_tpu_torch`` on sys.path,
-    which ``tree`` names."""
+    which ``tree`` names (``names``: only those cases)."""
     import torch
 
     from paddlebox_tpu_torch.device import HBM_BYTES_PER_S, card_line
@@ -222,10 +306,10 @@ def main(tree: str) -> int:
     print(card_line(), flush=True)
     out = {"tree": tree}
     dev = torch.device("cuda")
-    cases = flagship_cases(dev)
-    for case in cases + scale_cases(dev):
+    cases = flagship_cases(dev, names)
+    for case in cases + scale_cases(dev, names):
         args = case["args"]
-        if case["name"] == "blocked_write":   # writes its slab in place
+        if case["name"].startswith("blocked_write"):   # writes in place
             args = (args[0].clone(),) + args[1:]
         got = case["kernel"](*args)
         if got is None:
@@ -246,5 +330,16 @@ def main(tree: str) -> int:
 
 if __name__ == "__main__":
     import probe_tree   # run by path: from this file's directory
-    sys.exit(main(probe_tree.parse_args(argparse.ArgumentParser(
-        description=__doc__.split("\n")[0])).tree))
+    _ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    _ap.add_argument("--cases", default=None,
+                     help="comma-separated case names (default: all)")
+    _ap.add_argument("--balanced", type=int, default=0,
+                     help="rounds of the placements against index_copy_")
+    _args = probe_tree.parse_args(_ap)
+    if _args.balanced:
+        import torch
+        if not torch.cuda.is_available():
+            raise SystemExit("copy_probe needs a CUDA device")
+        balanced(_args.balanced)
+        sys.exit(0)
+    sys.exit(main(_args.tree, _args.cases and _args.cases.split(",")))

@@ -47,13 +47,57 @@
 // loads in flight, or two blocks an SM.
 //
 // The 2-byte form (the bf16 slab diet's int16 slab; the TPU kernel takes a
-// slab of any dtype, pallas_push.py:137) is the same kernel over 2-byte
-// elements: it moves bits and reads nothing back, so the width of an
-// element changes no step. At the flagship shape (device width 25) it
-// moves 11.9 MB (4.2 MB of row_map, 3.86 MB of rows read and as many
-// written), 3.6 us at 3.35 TB/s. A 50-byte row starts 4-byte aligned only
-// on even rows: the copy is element-wise, 2-byte loads and stores, and the
-// partly written sectors at a row's edges are 2-byte granular.
+// slab of any dtype, pallas_push.py:137) has a kernel of its own,
+// blocked_write_kernel_2byte. Bound on an H100: memory. At the flagship
+// shape (device width 25, 77,128 rows placed) it moves 11,911,200 B (4.2
+// MB of row_map, 3.86 MB of rows read and as many written), 3.56 us at
+// 3.35 TB/s. A 50-byte row starts 4-byte aligned only on even rows, and
+// the slab and new_rows need only be 2-byte aligned.
+// Design: tiles of TILE2 = 512 lanes, one a block of 128 threads, the
+// blocks (2,048 at the flagship) left to the hardware's scheduler; the 12
+// KB run buffer holds the residents to 13 blocks an SM. (1) A thread loads
+// its 4 row map entries (one int4 where aligned) and their slots' block
+// ids straight to registers. (2) A warp scan and the warps' totals in
+// shared memory rank the placed lanes, and the same pass tells whether
+// their sources form one consecutive run: source - rank is then one value.
+// blocked_layout writes row_map[tgt] = arange(U) with tgt ascending
+// (optimizers.py), so every tile of the blocked path is one run. (3) The
+// run is staged in shared memory by 16-byte cp.async from the 16-byte
+// boundary at or before its first element (chunks of the buffer where it
+// is longer), while the threads write the placed lanes' slab rows in rank
+// order. (4) The threads copy the tile's rows as one flattened run of
+// 2-byte elements, thread l taking elements l, l + 128, ...: a warp's
+// stores cover 64 contiguous bytes of one or two rows. A tile whose
+// sources are not one run, or rows too wide to stage, read each element
+// from new_rows. The slab is never read and the L2 is not prefetched.
+//
+// On an H100 80GB HBM3 at 700 W (copy_probe.py --tree, each design beside
+// the earlier 2-byte form or this one in one call, ms; PERF.md §6):
+// 0.0122-0.0125, against 0.0148-0.0152 for the earlier 2-byte form (the
+// f32 kernel over 2-byte elements) and 0.0138-0.0142 for index_copy_ of
+// the same rows. Designs tried:
+// - 4-byte word stores, a row as 12 or 13 aligned words and a 2-byte head
+//   or tail by its parity, over 1,024-lane tiles of 256 threads: 0.0157-
+//   0.0161; persistent blocks with the next tile's entries in registers
+//   0.0165-0.0167; that without the L2 prefetch 0.0159, with 32
+//   registers (all tiles resident) 0.0162-0.0164; sources read
+//   straight from new_rows, two 2-byte loads a word, 0.01905-0.01915;
+//   one store path for both half words 0.0157-0.0158. A warp's word
+//   stores and its edge stores are separate instructions over the same
+//   sectors.
+// - 2-byte element stores from the staged run over 1,024-lane tiles of 256
+//   threads: 0.0147-0.0148 with the L2 prefetch, 0.0135-0.0138 without
+//   it (the earlier form without it: 0.0146-0.0147); 8 loads in flight a
+//   thread (74 registers, 3 blocks an SM) 0.0142-0.0143; streaming stores
+//   0.01435; 32 registers 0.0135-0.0136.
+// - This design over 512-lane tiles of 128 threads at 9 (56 registers),
+//   10, 12, 13, 14 and 16 blocks an SM: 0.0130-0.0131, 0.0130-0.0131,
+//   0.0124, 0.0122-0.0125, 0.0124, 0.0140-0.0141; at 16 with the L2
+//   prefetch 0.0148-0.0149; at 13 with evict-first row map loads
+//   0.0126-0.0128, as a persistent grid walking the tiles in turn
+//   0.0146-0.0147. 256-lane tiles of 64 threads at 32 and 26 blocks an
+//   SM: 0.0149-0.0150, 0.0127-0.0129; 384-lane tiles of 96 threads at 17:
+//   0.0121-0.0122.
 //
 // The Pallas grid ran its blocks in sequence and re-read each aliased block
 // before overlaying it, so a sentinel slot clamped onto the last block had
@@ -64,6 +108,7 @@
 // rows. The ordering invariant has nothing left to protect here.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <map>
@@ -130,7 +175,7 @@ __device__ __forceinline__ void stage_tile(Stage& st, const int* row_map,
     cp_async4(st.blk + s, blk_idx + first + s);
 }
 
-// T: float (the f32 slab) or uint16_t (the 2-byte slab).
+// T: float, the f32 slab (the 2-byte slab has its own kernel below).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 blocked_write_kernel(T* __restrict__ slab,
@@ -275,6 +320,199 @@ int launch(T* slab, const T* new_rows, const int* row_map, const int* blk_idx,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------- the 2-byte form
+
+constexpr int THREADS2 = 128;                  // threads of the 2-byte kernel
+constexpr int WARPS2 = THREADS2 / 32;
+constexpr int TILE2 = THREADS2 * PER_THREAD;   // row map entries a tile
+constexpr int RUN_BYTES = 12288;   // a staged chunk of a consecutive run
+// 2-byte elements a staged chunk holds: its first element may sit up to 14
+// bytes past the 16-byte boundary its load starts at
+constexpr int RUN_ELEMS = (RUN_BYTES - 16) / 2;
+
+__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += u;
+  }
+  return v;
+}
+
+// slab[blk_idx[i] * B + r, :] = new_rows[row_map[i, r], :] on 2-byte
+// elements, a tile of TILE2 lanes a block (see the header).
+__global__ void __launch_bounds__(THREADS2, 16)
+blocked_write_kernel_2byte(uint16_t* __restrict__ slab,
+                           const uint16_t* __restrict__ new_rows,
+                           const int* __restrict__ row_map,
+                           const int* __restrict__ blk_idx, int64_t n_lanes,
+                           int NB, int B, int W, int64_t n_tiles,
+                           bool vec_map) {
+  __shared__ int64_t s_dst[TILE2];   // placed lanes' slab rows, in order
+  __shared__ __align__(16) union {
+    uint16_t run[RUN_BYTES / 2];     // a consecutive run's chunk, staged
+    int src[TILE2];                  // or the placed lanes' source rows
+  } s_u;
+  __shared__ int s_cnt[WARPS2], s_dmin[WARPS2], s_dmax[WARPS2];
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  // a thread's copy elements step by THREADS2 = q rows and m columns
+  const int q = THREADS2 / W, m = THREADS2 - q * W;
+  const int r0 = t / W, c0 = t - r0 * W;
+  const int chunk_rows = RUN_ELEMS / W;   // 0: rows too wide to stage
+
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    // (1) the thread's row map entries and their slots' block ids, all
+    // loads in flight at once
+    const int64_t e = tile * TILE2 + t * PER_THREAD;
+    int mk[PER_THREAD], bk[PER_THREAD];
+    if (vec_map && e + PER_THREAD <= n_lanes) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(row_map + e));
+      mk[0] = v.x;
+      mk[1] = v.y;
+      mk[2] = v.z;
+      mk[3] = v.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < PER_THREAD; ++k)
+        mk[k] = e + k < n_lanes ? __ldg(row_map + e + k) : -1;
+    }
+    const int64_t slot0 = e / B;
+    const int rr0 = (int)(e - slot0 * B);
+    {
+      int64_t slot = slot0;
+      int r = rr0;
+#pragma unroll
+      for (int k = 0; k < PER_THREAD; ++k) {
+        bk[k] = __ldg(blk_idx + (slot < NB ? slot : NB - 1));
+        if (++r == B) {
+          r = 0;
+          ++slot;
+        }
+      }
+    }
+
+    // (2) rank the placed lanes (warp scan, the warps' totals in shared
+    // memory), and find whether their sources are one consecutive run:
+    // source - rank is then one value, the run's first row
+    int cnt = 0;
+#pragma unroll
+    for (int k = 0; k < PER_THREAD; ++k) cnt += mk[k] >= 0;
+    const int incl = warp_incl_scan(cnt, lane);
+    int dmin = INT_MAX, dmax = INT_MIN;
+    {
+      int rank = incl - cnt;
+#pragma unroll
+      for (int k = 0; k < PER_THREAD; ++k)
+        if (mk[k] >= 0) {
+          dmin = min(dmin, mk[k] - rank);
+          dmax = max(dmax, mk[k] - rank);
+          ++rank;
+        }
+    }
+    dmin = __reduce_min_sync(0xffffffffu, dmin);
+    dmax = __reduce_max_sync(0xffffffffu, dmax);
+    if (lane == 31) s_cnt[w] = incl;
+    if (lane == 0) {
+      s_dmin[w] = dmin;
+      s_dmax[w] = dmax;
+    }
+    __syncthreads();
+    int pos = incl - cnt, p = 0, first = 0;
+    bool run = true, seen = false;
+#pragma unroll
+    for (int k = 0; k < WARPS2; ++k) {
+      const int v = s_cnt[k];
+      if (v) {
+        const int d = s_dmin[k] - p;
+        run = run && s_dmin[k] == s_dmax[k] && (!seen || d == first);
+        if (!seen) first = d;
+        seen = true;
+      }
+      pos += k < w ? v : 0;
+      p += v;
+    }
+    if (p == 0) {   // no lane of the tile placed (the block agrees)
+      __syncthreads();   // the warps' totals are rewritten next
+      continue;
+    }
+    run = run && chunk_rows > 0;
+
+    // the staged chunk of rows [cb, cb + n) of the run, by 16-byte
+    // cp.async from the 16-byte boundary at or before its first element;
+    // returns that element's index in s_u.run
+    auto stage = [&](int cb, int n) {
+      const uintptr_t a = reinterpret_cast<uintptr_t>(
+          new_rows + ((int64_t)first + cb) * W);
+      const uintptr_t a0 = a & ~(uintptr_t)15;
+      const int chunks = (int)((a + (uintptr_t)n * W * 2 - a0 + 15) >> 4);
+      for (int c = t; c < chunks; c += THREADS2)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         smem_u32(s_u.run + c * 8)),
+                     "l"(a0 + (uintptr_t)c * 16)
+                     : "memory");
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      return (int)((a - a0) >> 1);
+    };
+    int head = 0;
+    if (run) head = stage(0, min(p, chunk_rows));
+
+    // (3) the placed lanes' slab rows (and, off a run, their source rows)
+    // in rank order, while the run loads
+    {
+      int r = rr0;
+#pragma unroll
+      for (int k = 0; k < PER_THREAD; ++k) {
+        if (mk[k] >= 0) {
+          s_dst[pos] = (int64_t)bk[k] * B + r;
+          if (!run) s_u.src[pos] = mk[k];
+          ++pos;
+        }
+        if (++r == B) r = 0;
+      }
+    }
+
+    // (4) the rows as one run of n * W elements a chunk, thread l taking
+    // elements l, l + THREADS2, ...: from the staged run, or straight from
+    // new_rows (any other row map, or rows too wide to stage)
+    for (int cb = 0; cb < p; cb += run ? chunk_rows : p) {
+      const int n = run ? min(p - cb, chunk_rows) : p;
+      if (run) {
+        if (cb) head = stage(cb, n);
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      __syncthreads();
+      const int total = n * W;
+      int i = r0, c = c0;
+      for (int f = t; f < total; f += THREADS2) {
+        slab[s_dst[cb + i] * W + c] =
+            run ? s_u.run[head + f]
+                : __ldg(new_rows + (int64_t)s_u.src[cb + i] * W + c);
+        i += q;
+        c += m;
+        if (c >= W) {
+          c -= W;
+          ++i;
+        }
+      }
+      // the chunk and the pairs are rewritten next
+      __syncthreads();
+    }
+  }
+}
+
+int launch_2byte(uint16_t* slab, const uint16_t* new_rows, const int* row_map,
+                 const int* blk_idx, int NB, int B, int W,
+                 cudaStream_t stream) {
+  const int64_t n_lanes = (int64_t)NB * B;
+  if (n_lanes <= 0 || W <= 0) return 0;
+  const int64_t n_tiles = (n_lanes + TILE2 - 1) / TILE2;
+  const int64_t grid = n_tiles < INT_MAX ? n_tiles : INT_MAX;
+  const bool vec_map = (reinterpret_cast<uintptr_t>(row_map) & 15) == 0;
+  blocked_write_kernel_2byte<<<(unsigned)grid, THREADS2, 0, stream>>>(
+      slab, new_rows, row_map, blk_idx, n_lanes, NB, B, W, n_tiles, vec_map);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // slab [C, W] f32 (written in place), new_rows [U, W] f32, row_map [NB, B]
@@ -295,6 +533,6 @@ extern "C" int pbt_blocked_write_2byte(uint16_t* slab,
                                        const int* row_map,
                                        const int* blk_idx, int NB, int B,
                                        int W, void* stream) {
-  return launch<uint16_t>(slab, new_rows, row_map, blk_idx, NB, B, W,
-                          (cudaStream_t)stream);
+  return launch_2byte(slab, new_rows, row_map, blk_idx, NB, B, W,
+                      (cudaStream_t)stream);
 }

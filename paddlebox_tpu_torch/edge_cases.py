@@ -8,9 +8,11 @@ tests/test_torch_row_kernels.py and tests/test_torch_push_kernels.py hold
 the plain versions to the JAX functions on the same cases. The 2-byte
 forms of the bf16 slab diet have their own (``gather_edge_cases_2byte``,
 ``blocked_edge_cases_2byte``: odd row widths, whose rows start 4-byte
-aligned only on every other row), which tests/test_torch_bf16.py and
-chip_smoke.py use alike. Inputs are numpy arrays made from seeds; 2-byte
-sources are uint16 bits (as int16 on the card).
+aligned only on every other row; the placement's consecutive source runs
+and tensors one element into their buffers), which
+tests/test_torch_bf16.py and chip_smoke.py use alike. Inputs are numpy
+arrays made from seeds; 2-byte sources are uint16 bits (as int16 on the
+card).
 """
 
 from __future__ import annotations
@@ -146,18 +148,40 @@ def gather_edge_cases_2byte() -> dict:
     return cases
 
 
+# the blocked write's 2-byte widths: the bf16 device widths at embedx 2, 8
+# and 64, and an even one (every row starts at the slab's own parity)
+BLOCKED_WIDTHS_2BYTE = (19, 25, 81)
+BLOCKED_EVEN_WIDTH_2BYTE = 26
+# the first source row of the consecutive runs that start at an odd row
+RUN_ODD_START = 7
+
+
 def blocked_edge_cases_2byte() -> dict:
-    """The 2-byte blocked write's edge cases, name -> (slab [C, W], new_rows
-    [U, W] uint16 bits, row_map [NB, B], blk_idx [NB], offset), for W 19,
-    25 and 81 and blocks of B rows odd and even (an odd B puts every other
-    block's first row on a 2-byte boundary): permuted sources, sentinel
+    """The 2-byte blocked write's edge cases, name -> (slab [C, W],
+    new_rows [U, W] uint16 bits, row_map [NB, B], blk_idx [NB], offset,
+    data_offsets), for W 19, 25, 26 and 81 and blocks of B rows odd and even
+    (an odd B puts every other block's first row on a 2-byte boundary).
+
+    Permuted sources (any row map: the kernel's general path): sentinel
     slots clamped onto the last block and ordered before its real slot, a
-    fully placed slot, NB = 1, nothing placed; ``offset`` 1 asks for the
-    row map one entry into a larger buffer on the card."""
+    fully placed slot, NB = 1, nothing placed. Consecutive sources, as
+    ``optimizers.blocked_layout`` builds them from sorted uids (the
+    kernel's staged run; every flagship tile is one): runs that start at an
+    odd source row, that cross slot boundaries inside a tile (B 100 and
+    257), a last tile shorter than a tile, a run with one break (a skipped
+    source row) and one with two sources swapped (both take the general
+    path), and, at W 25 and 26, every pairing of the parities of the
+    source and slab rows' first elements: placed lanes on even or on odd
+    slab rows only, under each pair of data offsets.
+
+    ``offset`` 1 asks for the row map one entry into a larger buffer on
+    the card (not 16-byte aligned); ``data_offsets`` (slab, new_rows) ask
+    the same of the slab and of new_rows, 1 placing a tensor one 2-byte
+    element into a larger buffer (not 4-byte aligned)."""
     rng = np.random.RandomState(19)
 
     def make(W, B, NB, n_blocks, density, sentinels=0, full=False,
-             offset=0):
+             offset=0, data_offsets=(0, 0)):
         real = NB - sentinels
         blocks = rng.choice(n_blocks - 1, real, replace=False)
         if sentinels and real:
@@ -175,11 +199,36 @@ def blocked_edge_cases_2byte() -> dict:
             [np.full(sentinels, n_blocks - 1), blocks]).astype(np.int32)
         slab = rng.randint(0, 1 << 16, (n_blocks * B, W)).astype(np.uint16)
         new_rows = rng.randint(0, 1 << 16, (U, W)).astype(np.uint16)
-        return slab, new_rows, row_map, blk_idx, offset
+        return slab, new_rows, row_map, blk_idx, offset, data_offsets
 
-    cases = {}
-    for W in (19, 25, 81):
-        cases.update({
+    def run(W, B, NB, n_blocks, density, start=0, rows=None, fault=None,
+            data_offsets=(0, 0)):
+        """Ascending blocks, their placed lanes carrying the sources start,
+        start + 1, ... in lane order; ``rows`` 0 or 1 keeps only lanes on
+        slab rows of that parity (B even); ``fault`` "skip" or "swap"
+        breaks the run in the middle of the first tile."""
+        blocks = np.sort(rng.choice(n_blocks, NB, replace=False))
+        mask = rng.rand(NB, B) < density
+        if rows is not None:
+            mask[:, 1 - rows::2] = False
+        placed = int(mask.sum())
+        src = start + np.arange(placed)
+        first_tile = int(mask.reshape(-1)[:1024].sum())
+        mid = max(first_tile // 2, 1)
+        if fault == "skip":
+            src[mid:] += 1
+        elif fault == "swap":
+            src[mid - 1], src[mid] = src[mid], src[mid - 1]
+        row_map = np.full((NB, B), -1, np.int32)
+        row_map[mask] = src
+        U = int(src.max(initial=start)) + 4
+        slab = rng.randint(0, 1 << 16, (n_blocks * B, W)).astype(np.uint16)
+        new_rows = rng.randint(0, 1 << 16, (U, W)).astype(np.uint16)
+        return slab, new_rows, row_map, blocks.astype(np.int32), 0, \
+            data_offsets
+
+    def permuted(W):
+        return {
             "W%d_B1024_permuted_sentinels" % W: make(W, 1024, 24, 64, 0.07,
                                                      sentinels=6),
             "W%d_B101_full_slot" % W: make(W, 101, 12, 32, 0.1, full=True),
@@ -187,5 +236,30 @@ def blocked_edge_cases_2byte() -> dict:
                                         offset=1),
             "W%d_B257_NB1" % W: make(W, 257, 1, 8, 0.3),
             "W%d_none_placed" % W: make(W, 128, 4, 8, 0.0, sentinels=4),
+        }
+
+    cases = {}
+    for W in BLOCKED_WIDTHS_2BYTE:
+        cases.update(permuted(W))
+    W2 = BLOCKED_EVEN_WIDTH_2BYTE
+    cases.update(permuted(W2))
+    for W in BLOCKED_WIDTHS_2BYTE + (W2,):
+        cases.update({
+            "W%d_permuted_data_offsets" % W: make(W, 100, 30, 64, 0.2,
+                                                  data_offsets=(0, 1)),
+            "W%d_run_B1024_odd_start" % W: run(W, 1024, 6, 16, 0.07,
+                                               start=RUN_ODD_START),
+            "W%d_run_B100_data_offsets" % W: run(W, 100, 40, 64, 0.2,
+                                                 data_offsets=(1, 1)),
+            "W%d_run_B257_tail" % W: run(W, 257, 5, 8, 0.3, start=3),
+            "W%d_run_skip" % W: run(W, 1024, 4, 8, 0.1, fault="skip"),
+            "W%d_run_swap" % W: run(W, 1024, 4, 8, 0.1, fault="swap"),
         })
+    for W in (25, W2):
+        for rows in (0, 1):
+            for offs in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                cases["W%d_run_%s_rows_offsets_%d_%d" % (
+                    (W, ("even", "odd")[rows]) + offs)] = run(
+                        W, 1024, 3, 8, 0.15, start=RUN_ODD_START * rows,
+                        rows=rows, data_offsets=offs)
     return cases

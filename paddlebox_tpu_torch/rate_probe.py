@@ -264,6 +264,39 @@ def run(device: DeviceLike = None, sizes: ProbeSizes = PROBE) -> List[dict]:
     return records
 
 
+def quartiles(xs: Sequence[float]) -> dict:
+    """Median, quartiles (inclusive), min, max and count of ``xs``."""
+    if len(xs) < 2:
+        return {"median": xs[0], "q1": xs[0], "q3": xs[0], "min": xs[0],
+                "max": xs[0], "n": len(xs)}
+    q = statistics.quantiles(xs, n=4, method="inclusive")
+    return {"median": q[1], "q1": q[0], "q3": q[2], "min": min(xs),
+            "max": max(xs), "n": len(xs)}
+
+
+def balanced_rounds(pairs: dict, rounds: int, key: str) -> dict:
+    """Time two sides against each other, ``rounds`` rounds of A, B, B, A
+    with ``time_chain``, the pairs in turn within a round. ``pairs``:
+    label -> (A, B), each side (name, fn, args, nbytes). Prints one JSON
+    line a timing (``key``: the label); returns label -> {"A": [ms],
+    "B": [ms], "ratios": [the mean A / mean B of each round]}."""
+    out = {label: {"A": [], "B": [], "ratios": []} for label in pairs}
+    for r in range(rounds):
+        for label, sides in pairs.items():
+            got = {"A": [], "B": []}
+            for pos, side in enumerate("ABBA"):
+                name, fn, args, nbytes = sides["AB".index(side)]
+                ms = time_chain(fn, args, nbytes)
+                got[side].append(ms)
+                print(json.dumps({"round": r, key: label, "pos": pos,
+                                  "op": name, "ms": ms}), flush=True)
+            for side in "AB":
+                out[label][side] += got[side]
+            out[label]["ratios"].append(statistics.mean(got["A"])
+                                        / statistics.mean(got["B"]))
+    return out
+
+
 def scale_balanced(rounds: int, device: DeviceLike = None,
                    sizes: ProbeSizes = PROBE) -> dict:
     """scale_copy against torch_scale at each of the probe's scale sizes,
@@ -272,36 +305,15 @@ def scale_balanced(rounds: int, device: DeviceLike = None,
     dev = resolve_device(device)
     xs = {_mb(x.size * 4): torch.from_numpy(x).to(dev)
           for x in probe_inputs(sizes)[0]}
-    sides = {"A": ("scale_copy", scale_copy), "B": ("torch_scale",
-                                                    torch_scale)}
-    times = {mb: {"A": [], "B": []} for mb in xs}
-    ratios = {mb: [] for mb in xs}
-    for r in range(rounds):
-        for mb, x in xs.items():
-            got = {}
-            for pos, side in enumerate("ABBA"):
-                ms = time_chain(sides[side][1], (x,), 2 * x.numel() * 4)
-                times[mb][side].append(ms)
-                got.setdefault(side, []).append(ms)
-                print(json.dumps({"round": r, "size": mb, "pos": pos,
-                                  "op": sides[side][0], "ms": ms}),
-                      flush=True)
-            ratios[mb].append(statistics.mean(got["A"])
-                              / statistics.mean(got["B"]))
-
-    def quart(xs):
-        if len(xs) < 2:
-            return {"median": xs[0], "q1": xs[0], "q3": xs[0],
-                    "min": xs[0], "max": xs[0], "n": len(xs)}
-        q = statistics.quantiles(xs, n=4, method="inclusive")
-        return {"median": q[1], "q1": q[0], "q3": q[2], "min": min(xs),
-                "max": max(xs), "n": len(xs)}
-
+    got = balanced_rounds(
+        {mb: (("scale_copy", scale_copy, (x,), 2 * x.numel() * 4),
+              ("torch_scale", torch_scale, (x,), 2 * x.numel() * 4))
+         for mb, x in xs.items()}, rounds, "size")
     out = {"scale_balanced": {"card": card_line(), **{
         mb: {"bytes": 2 * x.numel() * 4,
-             "scale_copy_ms": quart(times[mb]["A"]),
-             "torch_scale_ms": quart(times[mb]["B"]),
-             "ratio_a_over_b": quart(ratios[mb])}
+             "scale_copy_ms": quartiles(got[mb]["A"]),
+             "torch_scale_ms": quartiles(got[mb]["B"]),
+             "ratio_a_over_b": quartiles(got[mb]["ratios"])}
         for mb, x in xs.items()}}}
     print(json.dumps(out), flush=True)
     return out

@@ -328,12 +328,23 @@ def test_plain_gather_2byte_edge_cases_match_jax(case):
 BLOCKED_CASES_2 = edge_cases.blocked_edge_cases_2byte()
 
 
+def _offset_view(a: np.ndarray, offset: int, device="cpu") -> torch.Tensor:
+    """``a`` (as int16 bits where it is uint16) on ``device``, ``offset``
+    elements into a larger buffer: a contiguous view the wrappers take."""
+    t = _i16(a) if a.dtype == np.uint16 else torch.from_numpy(a.copy())
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=device)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.parametrize("case", sorted(BLOCKED_CASES_2))
 def test_plain_blocked_write_2byte_edge_cases_match_pallas(case):
     """The interpreted Pallas blocked write on the uint16 slab (sentinel
     slots ordered before their block's real write, as its grid needs):
-    the plain version and the wrapper on the CPU place the same bits."""
-    slab, new_rows, row_map, blk_idx, _ = BLOCKED_CASES_2[case]
+    the plain version and the wrapper on the CPU place the same bits, on
+    the slab and new_rows at the case's data offsets too."""
+    slab, new_rows, row_map, blk_idx, _, offs = BLOCKED_CASES_2[case]
     NB, B = row_map.shape
     tiles = new_rows[np.clip(row_map, 0, len(new_rows) - 1)]
     want = np.asarray(pallas_blocked_write(
@@ -345,11 +356,12 @@ def test_plain_blocked_write_2byte_edge_cases_match_pallas(case):
     expect[blk_idx[slots].astype(np.int64) * B + lanes] = \
         new_rows[row_map[slots, lanes]]
     for fn in (pk.blocked_write_plain, pk.blocked_write):
-        got = _i16(slab.copy())
-        fn(got, _i16(new_rows), torch.from_numpy(row_map),
-           torch.from_numpy(blk_idx))
-        np.testing.assert_array_equal(_u16(got), want)
-        np.testing.assert_array_equal(_u16(got), expect)
+        for so, ro in {(0, 0), offs}:
+            got = _offset_view(slab, so)
+            fn(got, _offset_view(new_rows, ro), torch.from_numpy(row_map),
+               torch.from_numpy(blk_idx))
+            np.testing.assert_array_equal(_u16(got), want)
+            np.testing.assert_array_equal(_u16(got), expect)
 
 
 # ------------------------------------------------------- the bf16 push
@@ -991,17 +1003,18 @@ def test_cuda_gather_rows_2byte_matches_plain(cuda_device, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(BLOCKED_CASES_2))
 def test_cuda_blocked_write_2byte_matches_plain(cuda_device, case):
-    slab, new_rows, row_map, blk_idx, offset = BLOCKED_CASES_2[case]
-    s0, nr = _i16(slab).to(cuda_device), _i16(new_rows).to(cuda_device)
+    slab, new_rows, row_map, blk_idx, offset, (so, ro) = \
+        BLOCKED_CASES_2[case]
+    nr = _offset_view(new_rows, ro, cuda_device)
     for flip in (slice(None), slice(None, None, -1)):
-        flat = torch.empty(row_map.size + offset, dtype=torch.int32,
-                           device=cuda_device)
-        rm = flat[offset:].view(row_map.shape)
-        rm.copy_(torch.from_numpy(row_map[flip].copy()))
+        rm = _offset_view(row_map[flip], offset, cuda_device)
         bi = torch.from_numpy(blk_idx[flip].copy()).to(cuda_device)
-        s1, s2 = s0.clone(), s0.clone()
+        s1 = _offset_view(slab, so, cuda_device)
+        s2 = s1.clone()
+        before = pk.blocked_write.launches_2byte
         pk.blocked_write(s1, nr, rm, bi)
         torch.cuda.synchronize()
+        assert pk.blocked_write.launches_2byte == before + 1
         pk.blocked_write_plain(s2, nr, rm, bi)
         assert torch.equal(s1, s2)
 
