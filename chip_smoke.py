@@ -139,6 +139,20 @@ Phases, each of which raises on a failed check (exit code != 0):
      scatter on the 2-byte blocked write; one dense bf16 pass
      (compute_dtype and matmul_dtype bfloat16), its digits held to
      DENSE_BF16_DIGITS;
+ 13. the trainer's host planes (ObsFlags: the StatRegistry counters, the
+     span tracer, the StepReporter, the tagged quality plane and the drift
+     monitor, all on by default as in the reference, so phases 3-12 run
+     with them): the main path's two passes with every plane on and every
+     plane off, in the order on, off, off, on, twice (PLANE_RUNS), each
+     run settled, each bit-identical to phase 5's run (losses, AUC, launches,
+     sorted store); each on run's pass_end records (one a pass; the stats
+     deltas of a pass's records equal to the table's counters of the
+     pass; the quality 'all' AUC within the quality table's resolution of
+     the trainer's AUC; the drift window present) and its chrome trace
+     with the spans PLANE_SPANS; an off run writes no record and no span;
+     each run's pass phases, walls and examples/s, the on and off means
+     and the planes' own host work over one pass timed alone, beside the
+     card line;
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -2093,6 +2107,218 @@ def bf16_phase(torch, feed, files, f32_passes, reset_counts, counts):
             "sizes": sizes, "d_auc": d_auc, "dense": dense}
 
 
+# phase 13's runs of the main path's two passes: the trainer's host planes
+# all on (ObsFlags(), the default) and all off (ObsFlags.off()), in this
+# order, each from a settled process
+PLANE_RUNS = ("on", "off", "off", "on") * 2
+# the spans a planes-on run of the main path records (the chunk driver's,
+# the table's, the ingest's)
+PLANE_SPANS = ("host_stage", "scan_dispatch", "chunk_drain", "pass_begin",
+               "pass_end", "ingest_parse", "ingest_merge", "ingest_shuffle",
+               "ingest_quality")
+
+
+def quality_auc_slack(q):
+    """How far the quality plane's 'all' AUC may sit from the trainer's
+    metric AUC over the same predictions: the share of positive-negative
+    pairs that share a quality bucket (counted 1/2 there, 0 or 1 in the
+    metric's finer table), plus the report's rounding to 6 digits. No
+    BLAS call: a threaded one leaves its threads spinning on the host
+    cores the next pass runs on."""
+    neg, pos = q._tables["all"]
+    return 0.5 * float((neg * pos).sum()) / (neg.sum() * pos.sum()) + 1e-6
+
+
+def planes_cost(trainer, ds):
+    """Host seconds of the planes' own work over one pass of ``ds``
+    (loaded, 16 batches), timed on the host alone: a fresh quality plane
+    and drift monitor fed the pass's batches with random predictions (the
+    consumer's add_batch, add_slot_batch and observe_preds), the merged
+    block's observe_block, and the pass end (the quality report, the roll
+    and one forced report)."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.metrics import drift, quality
+    from paddlebox_tpu_torch.obs.report import ListSink, StepReporter
+
+    q = quality.TaggedQuality(trainer.obs_flags.quality_table_size)
+    m = drift.SlotDriftMonitor(drift_warn=trainer.obs_flags.data_quality_warn)
+    batches = ds.split_batches(1)[0]
+    rng = np.random.RandomState(0)
+    preds = [rng.rand(b.labels.size).astype(np.float32) for b in batches]
+    t0 = time.perf_counter()
+    for p, b in zip(preds, batches):
+        q.add_batch({"label": b.labels, "mask": b.ins_valid, "pred": p})
+        q.add_slot_batch(p, b.labels, b.slots, b.segments, b.valid,
+                         trainer.num_slots)
+        m.observe_preds(p, mask=b.ins_valid)
+    t1 = time.perf_counter()
+    m.observe_block(ds._block)
+    t2 = time.perf_counter()
+    extra = quality.attach_pass_extras({"event": "pass_end"}, q, m)
+    StepReporter(every=20, sink=ListSink()).maybe_report(16, extra, True)
+    t3 = time.perf_counter()
+    return {"feed_s": t1 - t0, "observe_block_s": t2 - t1,
+            "pass_end_s": t3 - t2, "total_s": t3 - t0}
+
+
+def planes_phase(torch, cfg, feed, files, ref, reset_counts, counts, tmp):
+    """Phase 13: the main path's two passes with the host planes on and
+    off (PLANE_RUNS), each run settled, the garbage collector's pauses
+    timed a pass; every run bit-identical to phase 5's ``ref`` (losses,
+    AUC, launches, sorted store). In each on run: the
+    pass_end records (one a pass, the stats deltas of every record of a
+    pass equal to the table's counters of the pass, the quality 'all' AUC
+    within quality_auc_slack of the trainer's, the drift window present),
+    the chrome trace with PLANE_SPANS; in each off run: no record, no
+    span, no quality plane. Logs each run's pass phases, walls,
+    examples/s and gc seconds (and an on run's span seconds by name), the
+    on/off means and the planes' own host seconds a pass. Returns its
+    records."""
+    import gc
+
+    import numpy as np
+
+    from paddlebox_tpu_torch import cadence_probe
+    from paddlebox_tpu_torch.config.flags import ObsFlags
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.embedding.pass_table import COUNTERS
+    from paddlebox_tpu_torch.metrics import drift
+    from paddlebox_tpu_torch.obs import ListSink, export_chrome_trace
+    from paddlebox_tpu_torch.obs import tracer
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.utils.stats import stat_reset
+
+    runs = []
+    for i, mode in enumerate(PLANE_RUNS):
+        cadence_probe.settle()
+        stat_reset()
+        tracer.get_tracer().clear()
+        trainer, ds = flagship.build_trainer(
+            files, feed, cfg, "scatter", "cuda",
+            obs_flags=ObsFlags() if mode == "on" else ObsFlags.off())
+        trainer.reporter.sink = sink = ListSink()
+        reset_counts()
+        t0 = time.perf_counter()
+        passes = []
+        for p in range(2):
+            before = dict(trainer.table.counters)
+            n0 = len(sink.records)
+            gc_clock = cadence_probe.GcClock()
+            gc.callbacks.append(gc_clock)
+            t_pass = time.perf_counter()
+            try:
+                res, auc, secs = run_pass(torch, trainer, ds)
+            finally:
+                gc.callbacks.remove(gc_clock)
+            spans_s = {}
+            for s in tracer.get_tracer().all_spans():
+                if s[3] >= t_pass:
+                    spans_s[s[0]] = spans_s.get(s[0], 0.0) + s[4] - s[3]
+            passes.append({"pass": p, "loss": res["loss"], "auc": auc,
+                           "pass_s": secs,
+                           "examples_per_s": res["instances"] / secs,
+                           "gc_s": gc_clock.seconds, "spans_s": spans_s,
+                           "phase_s": trainer.pass_times,
+                           "counters": counter_delta(before, trainer.table),
+                           "records": sink.records[n0:],
+                           "slack": (quality_auc_slack(trainer.quality)
+                                     if trainer.quality is not None
+                                     else None)})
+        wall = time.perf_counter() - t0
+        launches = counts()
+        for p, q in zip(passes, ref["passes"]):
+            check(p["loss"] == q["loss"] and p["auc"] == q["auc"],
+                  "planes %s run %d pass %d loss %r auc %r, phase 5 %r %r"
+                  % (mode, i, p["pass"], p["loss"], p["auc"], q["loss"],
+                     q["auc"]))
+        check(launches == ref["launches"], "planes %s run %d launches %s, "
+              "phase 5 %s" % (mode, i, launches, ref["launches"]))
+        k, v = sorted_store(trainer.table)
+        check(np.array_equal(k, ref["store"][0])
+              and bits_equal(v, ref["store"][1]),
+              "planes %s run %d store differs from phase 5's" % (mode, i))
+        spans = {s[0] for s in tracer.get_tracer().all_spans()}
+        if mode == "off":
+            check(trainer.quality is None and drift.active() is None
+                  and not sink.records and not spans,
+                  "planes off run %d: quality %r, %d records, spans %s"
+                  % (i, trainer.quality, len(sink.records), sorted(spans)))
+        else:
+            for p in passes:
+                ends = [r for r in p["records"]
+                        if r.get("event") == "pass_end"]
+                check(len(ends) == 1, "planes on run %d pass %d: %d "
+                      "pass_end records" % (i, p["pass"], len(ends)))
+                end = ends[0]
+                stats = {c: sum(r["stats"].get(c, 0) for r in p["records"])
+                         for c in COUNTERS}
+                check(stats == p["counters"], "planes on run %d pass %d "
+                      "stats %s, table counters %s"
+                      % (i, p["pass"], stats, p["counters"]))
+                qa = end["quality"]["tags"]["all"]["auc"]
+                slack = p["slack"]
+                check(abs(qa - p["auc"]) <= slack, "planes on run %d pass "
+                      "%d quality AUC %r, trainer %r, slack %r"
+                      % (i, p["pass"], qa, p["auc"], slack))
+                dq = end.get("data_quality") or {}
+                check(dq.get("window") == p["pass"] + 1
+                      and dq.get("n_slots") == cfg.num_slots
+                      and dq.get("n_recs") == min(
+                          drift.SAMPLE_RECS,
+                          cfg.num_files * cfg.lines_per_file),
+                      "planes on run %d pass %d drift bundle %s"
+                      % (i, p["pass"], dq))
+                p["pass_end"] = {"quality_all": end["quality"]["tags"][
+                    "all"], "quality_auc_slack": slack,
+                    "data_quality": dq, "stats": end["stats"],
+                    "timers": end["timers"], "gauges": end["gauges"]}
+            path = os.path.join(tmp, "planes_trace_%d.json" % i)
+            doc = export_chrome_trace(path)
+            names = {e["name"] for e in doc["traceEvents"]
+                     if e["ph"] == "X"}
+            check(set(PLANE_SPANS) <= names, "planes on run %d trace "
+                  "lacks spans %s" % (i, sorted(set(PLANE_SPANS) - names)))
+        for p in passes:
+            p.pop("records")
+            p.pop("slack")
+            log("planes %s run %d pass %d: pass_s %.4f examples/s %.1f "
+                "gc_s %.4f phase_s %s spans_s %s"
+                % (mode, i, p["pass"], p["pass_s"], p["examples_per_s"],
+                   p["gc_s"], json.dumps(p["phase_s"]),
+                   json.dumps(p["spans_s"])))
+            if "pass_end" in p:
+                log("planes %s run %d pass %d pass_end: %s"
+                    % (mode, i, p["pass"], json.dumps(p["pass_end"])))
+        log("planes %s run %d: two passes in %.4f s, %d spans, launches %s"
+            % (mode, i, wall, len(spans), launches))
+        runs.append({"mode": mode, "wall_s": wall, "passes": passes,
+                     "launches": launches})
+        if i == len(PLANE_RUNS) - 1:
+            cost = planes_cost(trainer, ds)
+        trainer.close()
+        del trainer, ds
+    summary = {}
+    for mode in ("on", "off"):
+        mine = [r for r in runs if r["mode"] == mode]
+        summary[mode] = [{
+            **{k: float(np.mean([r["passes"][p][k] for r in mine]))
+               for k in ("pass_s", "gc_s")},
+            **{k: float(np.mean([r["passes"][p]["phase_s"][k]
+                                 for r in mine]))
+               for k in mine[0]["passes"][p]["phase_s"]}}
+            for p in range(2)]
+    delta = [summary["on"][p]["pass_s"] - summary["off"][p]["pass_s"]
+             for p in range(2)]
+    log("planes on vs off, means of %d runs each (host clock, s): %s; "
+        "on - off a pass %s; the planes' own host work on one pass "
+        "timed alone %s; %s"
+        % (len(PLANE_RUNS) // 2, json.dumps(summary), delta,
+           json.dumps(cost), card_line()))
+    return {"runs": runs, "summary": summary, "delta_s": delta,
+            "cost": cost}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2265,7 +2491,6 @@ def main() -> int:
         # kernels at the chunk shape, the pass's copies by kind
         chunks = chunk_phase(torch, cfg, feed, files, main_run, reset_counts,
                              counts)
-        del main_run
         chunk_shapes = chunk_kernel_phase(torch, cfg, feed, files, dev)
         clock.lap("chunk_driver")
 
@@ -2280,6 +2505,12 @@ def main() -> int:
         kernels16 = bf16_kernel_phase(torch, cfg, feed, files, keys, dev)
         bf16 = bf16_phase(torch, feed, files, passes, reset_counts, counts)
         clock.lap("bf16")
+
+        # 13. the host planes on and off, the main path bit-identical
+        planes = planes_phase(torch, cfg, feed, files, main_run,
+                              reset_counts, counts, tmp)
+        del main_run
+        clock.lap("planes")
 
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
@@ -2310,7 +2541,10 @@ def main() -> int:
                                  for r in recovery["runs"]},
                               "bf16": bf16["launches"],
                               "bf16_blocked": bf16["blocked"],
-                              "dense_bf16": bf16["dense"]["launches"]},
+                              "dense_bf16": bf16["dense"]["launches"],
+                              **{"planes_%s_%d" % (r["mode"], i):
+                                 r["launches"]
+                                 for i, r in enumerate(planes["runs"])}},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

@@ -86,7 +86,7 @@ def settle() -> int:
     return collected
 
 
-class _GcClock:
+class GcClock:
     """Seconds the garbage collector has paused the process while
     installed (gc.callbacks)."""
 
@@ -123,7 +123,7 @@ def run_cadence(mode: str, windows: List[List[str]], feed: DataFeedConfig,
         windows[0], feed, flagship.FLAGSHIP if cfg is None else cfg,
         "scatter", device, pass_flags=PassFlags(**flag_fields))
     table = trainer.table
-    clock = _GcClock()
+    clock = GcClock()
     passes: List[Dict] = []
     before = [dict(table.counters), dict(table.seconds), 0.0]
 

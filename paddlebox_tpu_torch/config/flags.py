@@ -1,11 +1,13 @@
 """The switches the port reads: the push write, the pass lifecycle, the
-chunk driver's staging, the checkpoint plane and the dtype diet.
+chunk driver's staging, the checkpoint plane, the dtype diet and the
+trainer's host planes (telemetry, quality, drift).
 
 The JAX package keeps these in a process-wide flag registry
 (paddlebox_tpu/config/flags.py: ``push_write``, ``push_block_rows``,
 ``incremental_pass``, ``preload_promote``, ``stack_threads``,
 ``chunk_prefetch_depth``, ``h2d_stack_chunks``, ``ckpt_*``,
-``slab_embed_dtype``, ``matmul_dtype``). The port passes
+``slab_embed_dtype``, ``matmul_dtype``, ``obs_*``, ``quality_*``,
+``data_quality*``). The port passes
 them as values to the trainer, the pass table and the checkpoint manager
 instead, so two trainers in one process can run different modes side by
 side.
@@ -143,3 +145,39 @@ class CkptFlags:
         if self.ckpt_format not in CKPT_FORMATS:
             raise ValueError("ckpt_format must be one of %s, got %r"
                              % (CKPT_FORMATS, self.ckpt_format))
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsFlags:
+    """The trainer's host planes, all on by default as in the reference;
+    BoxTrainer reads them at construction.
+
+    obs_trace: record named spans into the per-thread rings
+    (obs/tracer.py; paddlebox_tpu/config/flags.py:324).
+    obs_trace_capacity: spans kept a thread before the ring wraps (:330).
+    obs_report_every: the StepReport cadence in steps; <= 0 is off, the
+    forced pass_end record included (:333).
+    obs_report_path: the sink: '' keeps the last record only, 'stderr' one
+    JSON line a record there, else a JSONL file appended to (:341).
+    quality_metrics: the tagged quality plane (metrics/quality.py: per-tag
+    AUC, COPC, actual and predicted CTR, per-slot CTR) (:519).
+    quality_table_size: buckets of each tag's AUC table (:531).
+    data_quality: the slot-level drift monitor (metrics/drift.py) over
+    the ingest blocks and the predictions (:538).
+    data_quality_warn: the drift score at which a rolled window logs a
+    warning (:550)."""
+
+    obs_trace: bool = True
+    obs_trace_capacity: int = 4096
+    obs_report_every: int = 20
+    obs_report_path: str = ""
+    quality_metrics: bool = True
+    quality_table_size: int = 65536
+    data_quality: bool = True
+    data_quality_warn: float = 0.5
+
+    @classmethod
+    def off(cls) -> "ObsFlags":
+        """Every plane off: no spans, no reports, no quality, no drift."""
+        return cls(obs_trace=False, obs_report_every=0,
+                   quality_metrics=False, data_quality=False)

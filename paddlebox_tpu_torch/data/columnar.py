@@ -1,7 +1,7 @@
 """Columnar record blocks and their vectorized batch packing.
 
-Counterpart of paddlebox_tpu/data/columnar.py:24-213 (without the stats,
-dense columns and task labels, which the port's feed does not carry): the
+Counterpart of paddlebox_tpu/data/columnar.py:24-213 (without the dense
+columns and task labels, which the port's feed does not carry): the
 native parser (data/native_parser.py) returns each file as flat arrays
 (keys with their slot ordinals, per-record key offsets, labels), and a batch
 is packed by numpy indexing, with no per-record Python object.
@@ -18,6 +18,7 @@ import numpy as np
 
 from paddlebox_tpu_torch.config.configs import DataFeedConfig
 from paddlebox_tpu_torch.data.packer import PackedBatch
+from paddlebox_tpu_torch.utils.stats import stat_add
 
 
 @dataclasses.dataclass
@@ -101,6 +102,7 @@ def pack_columnar(block: ColumnarBlock, rec_idx: np.ndarray,
     labels[:n] = block.labels[rec_idx]
     ins_valid = np.zeros(B, dtype=bool)
     ins_valid[:n] = True
+    stat_add("ingest_ins_packed", n)
     keys = np.zeros(kcap, dtype=np.uint64)
     slots = np.zeros(kcap, dtype=np.int32)
     segments = np.full(kcap, B * num_slots - 1, dtype=np.int32)
@@ -116,6 +118,9 @@ def pack_columnar(block: ColumnarBlock, rec_idx: np.ndarray,
         keep = _group_cumcount(brec * num_slots + bslots) < max_lens[bslots]
         bkeys, bslots, brec = bkeys[keep], bslots[keep], brec[keep]
         w = min(bkeys.shape[0], kcap)
+        dropped = int((~keep).sum()) + bkeys.shape[0] - w
+        if dropped:
+            stat_add("packer_keys_dropped", dropped)
         keys[:w] = bkeys[:w]
         slots[:w] = bslots[:w]
         segments[:w] = (brec[:w] * num_slots + bslots[:w]).astype(np.int32)

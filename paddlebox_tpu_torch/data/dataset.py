@@ -21,6 +21,14 @@ failed")`` from any error it hit, and ``load_into_memory`` is the two in a
 row), so a JAX dataset built with ``read_threads=1`` and the same
 ``columnar`` yields the same records in the same order, whether or not the
 load overlaps a pass that trains (train/preload.py).
+
+The host planes (under the reference's names): the counters
+ingest_ins_parsed, ingest_keys_parsed (columnar) and dataset_ins_merged, the
+spans ingest_parse (columnar), ingest_merge and ingest_quality, and the drift
+monitor's ``observe_block`` on the merged block (metrics/drift.py; it feeds
+the active monitor, if any). The reference's ingest_shuffle span times its
+cross-host shuffle, which the port does not have; here it times
+``local_shuffle``.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ from paddlebox_tpu_torch.data.columnar import ColumnarBlock, pack_columnar
 from paddlebox_tpu_torch.data.packer import BatchPacker, PackedBatch
 from paddlebox_tpu_torch.data.parser import MultiSlotParser
 from paddlebox_tpu_torch.data.slot_record import SlotRecord
+from paddlebox_tpu_torch.metrics import drift
+from paddlebox_tpu_torch.obs.tracer import span
+from paddlebox_tpu_torch.utils.stats import stat_add
 
 AddKeysFn = Callable[[np.ndarray], None]
 
@@ -96,11 +107,19 @@ class BoxDataset:
                        add_keys_fn: Optional[AddKeysFn]) -> None:
         blocks = []
         for path in files:
-            block = self.parser.parse_file_columnar(path)
-            if add_keys_fn is not None and block.n_keys:
-                add_keys_fn(block.keys)
-            blocks.append(block)
+            with span("ingest_parse"):
+                block = self.parser.parse_file_columnar(path)
+            stat_add("ingest_ins_parsed", block.n_recs)
+            stat_add("ingest_keys_parsed", block.n_keys)
+            with span("ingest_merge"):
+                if add_keys_fn is not None and block.n_keys:
+                    add_keys_fn(block.keys)
+                blocks.append(block)
+            stat_add("dataset_ins_merged", block.n_recs)
         self._block = ColumnarBlock.concat(blocks)
+        if self._block.n_recs:
+            with span("ingest_quality"):
+                drift.observe_block(self._block)
 
     def _read_records(self, files: List[str],
                       add_keys_fn: Optional[AddKeysFn]) -> None:
@@ -116,11 +135,14 @@ class BoxDataset:
 
     def _merge(self, recs: List[SlotRecord],
                add_keys_fn: Optional[AddKeysFn]) -> None:
-        if add_keys_fn is not None:
-            keys = [k for k in (r.all_keys() for r in recs) if k.size]
-            if keys:
-                add_keys_fn(np.concatenate(keys))
-        self._records.extend(recs)
+        stat_add("ingest_ins_parsed", len(recs))
+        with span("ingest_merge"):
+            if add_keys_fn is not None:
+                keys = [k for k in (r.all_keys() for r in recs) if k.size]
+                if keys:
+                    add_keys_fn(np.concatenate(keys))
+            self._records.extend(recs)
+        stat_add("dataset_ins_merged", len(recs))
 
     def wait_preload_done(self) -> None:
         """Join the reader; raise RuntimeError from the error it hit, if
@@ -140,10 +162,11 @@ class BoxDataset:
 
     def local_shuffle(self, seed: Optional[int] = None) -> None:
         rng = np.random.RandomState(seed)
-        if not self.columnar:
-            rng.shuffle(self._records)
-        elif len(self):
-            self._perm = rng.permutation(len(self))
+        with span("ingest_shuffle"):
+            if not self.columnar:
+                rng.shuffle(self._records)
+            elif len(self):
+                self._perm = rng.permutation(len(self))
 
     def all_keys(self) -> np.ndarray:
         """Every feasign of the loaded pass, in load order."""

@@ -5,7 +5,9 @@ into ONE fixed-capacity key vector with a segment id per key
 (instance * num_slots + slot), written instance-major and slot-ascending, so
 the segment vector is nondecreasing; the padding tail is pinned to the last
 segment and marked invalid. Keys beyond a slot's max_len (or the batch's key
-capacity) are dropped, as in the reference.
+capacity) are dropped, as in the reference, and counted
+(``packer_keys_dropped``; ``ingest_ins_packed`` counts the packed
+instances).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 
 from paddlebox_tpu_torch.config.configs import DataFeedConfig
 from paddlebox_tpu_torch.data.slot_record import SlotRecord
+from paddlebox_tpu_torch.utils.stats import stat_add
 
 
 @dataclasses.dataclass
@@ -55,6 +58,7 @@ class BatchPacker:
         labels = np.zeros(B, dtype=np.int32)
         ins_valid = np.zeros(B, dtype=bool)
         w = 0
+        dropped = 0
         for i in range(n):
             rec = records[i]
             labels[i] = rec.label
@@ -64,6 +68,7 @@ class BatchPacker:
                 if vals is None or vals.size == 0:
                     continue
                 take = min(vals.size, slot_cfg.max_len, self.kcap - w)
+                dropped += vals.size - take
                 if take <= 0:
                     continue
                 keys[w:w + take] = vals[:take]
@@ -71,6 +76,9 @@ class BatchPacker:
                 segments[w:w + take] = i * self.num_slots + si
                 valid[w:w + take] = True
                 w += take
+        if dropped:
+            stat_add("packer_keys_dropped", dropped)
+        stat_add("ingest_ins_packed", n)
         return PackedBatch(keys=keys, slots=slots, segments=segments,
                            valid=valid, labels=labels, ins_valid=ins_valid,
                            n_ins=n)

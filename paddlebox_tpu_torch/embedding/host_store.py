@@ -2,8 +2,9 @@
 f32 rows.
 
 Counterpart of paddlebox_tpu/embedding/host_store.py:37-295 and :399-505
-without the SSD tier and telemetry (so the tier sweep of shrink, the tier
-tick of age_unseen_days and the spilled rows of save are absent). It is
+without the SSD tier (so the tier sweep of shrink, the tier tick of
+age_unseen_days, the spilled rows of save and the fault-in and spill
+counters are absent). It is
 the plain version of native_store.py's NativeHostEmbeddingStore, which the
 pass table uses unless this store is passed in by name. Missing keys are
 created by ``lookup_or_create``, in the order the caller passes them
@@ -19,6 +20,10 @@ sequence of calls.
 The store has no lock of its own: growing replaces ``_values``. A caller
 that reads it from another thread (the preload's promote prefetcher) holds
 the pass table's ``store_lock``, as the table does around every store call.
+
+Telemetry, under the reference's names (host_store.py:110-158, 285):
+lookup_or_create counts sparse_keys_resident_hit and sparse_keys_created
+and sets the gauges of ``tier_gauges``; shrink counts sparse_keys_shrunk.
 """
 
 from __future__ import annotations
@@ -32,8 +37,24 @@ from paddlebox_tpu_torch.config.configs import TableConfig
 from paddlebox_tpu_torch.config.flags import CkptFlags
 from paddlebox_tpu_torch.embedding import ckpt_store
 from paddlebox_tpu_torch.embedding.accessor import UNSEEN_DAYS, ValueLayout
+from paddlebox_tpu_torch.utils.stats import gauge_set, stat_add
 
 _GROW = 1 << 16
+# the resident hit rate under which tier_hit_burn exceeds 1 (the
+# reference's flag tier_hit_rate_warn, paddlebox_tpu/config/flags.py:683)
+TIER_HIT_RATE_WARN = 0.05
+
+
+def tier_gauges(resident_rows: int, hit_rate: float, cold: bool) -> None:
+    """The tier ladder's gauges after a lookup_or_create that found keys
+    the store knew (reference host_store.py:141-158): host_store_resident_rows,
+    tier_hit_rate and, unless the store was empty before the call,
+    tier_hit_burn = TIER_HIT_RATE_WARN / rate."""
+    gauge_set("host_store_resident_rows", float(resident_rows))
+    gauge_set("tier_hit_rate", float(hit_rate))
+    if not cold:
+        burn = TIER_HIT_RATE_WARN / max(float(hit_rate), 1e-9)
+        gauge_set("tier_hit_burn", round(burn, 4))
 
 
 class HostEmbeddingStore:
@@ -76,13 +97,21 @@ class HostEmbeddingStore:
     def lookup_or_create(self, keys: np.ndarray) -> np.ndarray:
         """Rows for unique keys, creating missing features in key order."""
         keys = np.asarray(keys, dtype=np.uint64)
+        cold = not self._index
         rows = self._rows_of(keys)
         miss = np.nonzero(rows < 0)[0]
+        n_res = int(keys.size) - int(miss.size)
+        if keys.size:
+            stat_add("sparse_keys_resident_hit", n_res)
         if miss.size:
             new = self._add(keys[miss])
             self._values[new] = self.layout.new_rows(
                 miss.size, self._rng, self.table.optimizer)
             rows[miss] = new
+            stat_add("sparse_keys_created", int(miss.size))
+        if n_res > 0:
+            # no tier: every key the store knew was resident
+            tier_gauges(len(self._index), 1.0, cold)
         return self._values[rows].copy()
 
     def lookup(self, keys: np.ndarray) -> np.ndarray:
@@ -147,7 +176,10 @@ class HostEmbeddingStore:
         values[:n] = view[keep]
         self._values = values
         self._index = dict(zip(keys[keep].tolist(), range(n)))
-        return int(dead.sum())
+        n_dead = int(dead.sum())
+        if n_dead:
+            stat_add("sparse_keys_shrunk", n_dead)
+        return n_dead
 
     def age_unseen_days(self) -> None:
         """Add one day to every feature's unseen_days."""

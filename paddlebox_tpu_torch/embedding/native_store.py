@@ -2,8 +2,9 @@
 growable row arena (native/host_store.cc).
 
 Counterpart of paddlebox_tpu/embedding/native_store.py:40-265, :360-451 and
-:454-475 without the SSD tier and telemetry (no tier sweep, tier tick or
-spilled rows), with the API of host_store.py's HostEmbeddingStore, its
+:454-475 without the SSD tier (no tier sweep, tier tick, spilled rows or
+fault-in and spill counters), with the API of host_store.py's
+HostEmbeddingStore, its
 plain version. Each call is one bulk C call (or two) in place of a Python
 dict loop. A key is created by ``lookup_or_create`` (or installed
 verbatim by ``assign``, a journal replay, which draws nothing); the rows of
@@ -17,6 +18,11 @@ which no contraction changes.
 Like the plain store it has no lock of its own: the pass table holds its
 ``store_lock`` around every call. The key 2**64 - 1 is the table's empty
 sentinel and cannot be stored.
+
+Telemetry, under the reference's names (native_store.py:121-264):
+sparse_keys_resident_hit, sparse_keys_created and the tier gauges
+(host_store.tier_gauges) at lookup_or_create, sparse_keys_shrunk and
+sparse_rows_aged at the day boundary.
 """
 
 from __future__ import annotations
@@ -31,8 +37,10 @@ from paddlebox_tpu_torch.config.flags import CkptFlags
 from paddlebox_tpu_torch.embedding import ckpt_store
 from paddlebox_tpu_torch.embedding.accessor import (DELTA_SCORE, UNSEEN_DAYS,
                                                     ValueLayout)
+from paddlebox_tpu_torch.embedding.host_store import tier_gauges
 from paddlebox_tpu_torch.native import host_lib
 from paddlebox_tpu_torch.native.host_lib import F32P, I64P, U8P, U64P, ptr
+from paddlebox_tpu_torch.utils.stats import stat_add
 
 # the hash table grows past this load (the reference's
 # sparse_table_load_factor default)
@@ -70,6 +78,7 @@ class NativeHostEmbeddingStore:
         """Rows for unique keys, creating missing features in key order."""
         keys = np.ascontiguousarray(keys, dtype=np.uint64)
         n = keys.size
+        cold = not len(self)
         rows = np.empty(n, np.int64)
         created = np.empty(n, np.uint8)
         self._lib.hs_lookup_or_create(self._h, ptr(keys, U64P), n,
@@ -85,6 +94,13 @@ class NativeHostEmbeddingStore:
             self._lib.hs_scatter(self._h, ptr(new_rows, I64P), n_new,
                                  ptr(fresh, F32P))
             out[new] = fresh
+            stat_add("sparse_keys_created", n_new)
+        n_res = n - n_new
+        if n:
+            stat_add("sparse_keys_resident_hit", n_res)
+        if n_res > 0:
+            # no tier: every key the store knew was resident
+            tier_gauges(len(self), 1.0, cold)
         return out
 
     def lookup(self, keys: np.ndarray) -> np.ndarray:
@@ -155,16 +171,20 @@ class NativeHostEmbeddingStore:
         gone = np.ascontiguousarray(keys[dead])
         if gone.size:
             self._lib.hs_erase(self._h, ptr(gone, U64P), gone.size)
+            stat_add("sparse_keys_shrunk", int(gone.size))
         return int(gone.size)
 
-    def _add_col(self, col: int, delta: float) -> None:
-        if int(self._lib.hs_add_col(self._h, col, delta)) < 0:
+    def _add_col(self, col: int, delta: float) -> int:
+        """Add ``delta`` to column ``col`` of every row; returns the rows."""
+        touched = int(self._lib.hs_add_col(self._h, col, delta))
+        if touched < 0:
             raise RuntimeError("hs_add_col(col=%d) refused by the native "
                                "store: its rows are narrower" % col)
+        return touched
 
     def age_unseen_days(self) -> None:
         """Add one day to every feature's unseen_days, in place in C++."""
-        self._add_col(UNSEEN_DAYS, 1.0)
+        stat_add("sparse_rows_aged", self._add_col(UNSEEN_DAYS, 1.0))
 
     def update_stat_after_save(self, table: TableConfig, param: int
                                ) -> None:

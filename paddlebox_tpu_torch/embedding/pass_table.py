@@ -75,6 +75,11 @@ exact arrays the store gets; shrink and aging record an event, and a load
 outside the checkpoint plane taints the journal's epoch (reference
 pass_table.py:362-386, :530-535, :570-572, :627-643, :846-891). Test-mode
 passes record nothing.
+
+Telemetry (reference pass_table.py:492-660): the row counters ``COUNTERS``
+go to the process-wide stat registry and to the table's own ``counters``;
+begin_pass sets the gauge pass_rows and records the span pass_begin,
+end_pass the span pass_end.
 """
 
 from __future__ import annotations
@@ -94,11 +99,14 @@ from paddlebox_tpu_torch.embedding.accessor import (PushLayout, ValueLayout,
                                                     slab_rows_np)
 from paddlebox_tpu_torch.embedding.native_store import make_host_store
 from paddlebox_tpu_torch.native import host_lib
+from paddlebox_tpu_torch.obs.tracer import record_span
 from paddlebox_tpu_torch.ops.row_kernels import gather_rows
 from paddlebox_tpu_torch.utils.journal_format import (EV_AGE_DAYS, EV_SHRINK,
                                                      EV_TICK_SPILL_AGE)
+from paddlebox_tpu_torch.utils.stats import gauge_set, stat_add
 
-# the reference's row counters (stat names), kept per table
+# the reference's row counters (stat names): counted in the process-wide
+# stat registry, as the reference counts them, and per table
 COUNTERS = ("pass_rows_promote_hit", "pass_rows_promote_new",
             "pass_rows_promote_prefetched", "pass_rows_written_back",
             "pass_rows_writeback_skipped")
@@ -371,7 +379,7 @@ class PassTable:
             pos, hit = sorted_member(skeys, missing_keys)
             rows[hit] = srows[pos[hit]]
             need = ~hit
-            self.counters["pass_rows_promote_prefetched"] += int(hit.sum())
+            self._count("pass_rows_promote_prefetched", int(hit.sum()))
         if need.any():
             with self.store_lock:
                 rows[need] = self._store_rows(missing_keys[need])
@@ -396,6 +404,7 @@ class PassTable:
         t0 = time.perf_counter()
         keys = self._pass_keys
         n = keys.size
+        gauge_set("pass_rows", n)
         if self.flags.incremental_pass and self._resident_keys is not None:
             old_pos = self._resident_pos(keys)
             hit = old_pos >= 0
@@ -408,8 +417,8 @@ class PassTable:
             # the promote runs
             self._slab = delta_promote(self._slab, old_pos,
                                        slab_rows_np(new_rows, self.layout))
-            self.counters["pass_rows_promote_hit"] += int(hit.sum())
-            self.counters["pass_rows_promote_new"] += int(n - hit.sum())
+            self._count("pass_rows_promote_hit", int(hit.sum()))
+            self._count("pass_rows_promote_new", int(n - hit.sum()))
         else:
             slab = torch.zeros((self.capacity, self.layout.device_width),
                                dtype=self.layout.device_dtype,
@@ -430,7 +439,13 @@ class PassTable:
             if self.flags.incremental_pass:
                 self._touched = np.zeros(self.capacity, bool)
         self._in_pass = True
-        self.seconds["begin_pass"] += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        record_span("pass_begin", t0, t1)
+        self.seconds["begin_pass"] += t1 - t0
+
+    def _count(self, name: str, n: int) -> None:
+        self.counters[name] += n
+        stat_add(name, n)
 
     def note_touched(self, ids: np.ndarray) -> None:
         """Mark the rows of ``ids`` touched this pass (lookup_ids calls it
@@ -467,9 +482,8 @@ class PassTable:
                     self._journal_rows(keys[idx], rows)
                     with self.store_lock:
                         self.store.write_back(keys[idx], rows)
-                self.counters["pass_rows_written_back"] += int(idx.size)
-                self.counters["pass_rows_writeback_skipped"] += \
-                    n - int(idx.size)
+                self._count("pass_rows_written_back", int(idx.size))
+                self._count("pass_rows_writeback_skipped", n - int(idx.size))
             else:
                 rows = self._host_rows(self._slab[:n])
                 self._journal_rows(keys, rows)
@@ -483,7 +497,9 @@ class PassTable:
         self._touched = None
         self._residency_poisoned = False
         self._in_pass = False
-        self.seconds["end_pass"] += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        record_span("pass_end", t0, t1)
+        self.seconds["end_pass"] += t1 - t0
 
     def invalidate_residency(self) -> None:
         """Drop the resident state (slab, its key map, staged rows). Call it

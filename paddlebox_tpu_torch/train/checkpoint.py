@@ -33,7 +33,8 @@ to the journal's segments since; it has no xbox view. load_base replays
 such a snapshot over its base, and every load re-anchors the journal on
 what it loaded. A touched save the journal cannot serve (no full base
 anchored yet, segments dropped past the rotation bound, a tainted epoch, a
-file that will not link) falls back to a full save with a warning.
+file that will not link) falls back to a full save with a warning, and
+counts ckpt_touched_fallback_full in the stat registry.
 
 Snapshots and the stat rewrite run on the caller's thread; only the file
 writes go to a writer thread (async_save). ``wait`` joins every writer and
@@ -65,6 +66,7 @@ from paddlebox_tpu_torch.serving.store import (VIEW_COLUMNAR_NAME,
                                                write_xbox_columnar)
 from paddlebox_tpu_torch.train import journal as jr
 from paddlebox_tpu_torch.train.preload import run_preloaded_passes
+from paddlebox_tpu_torch.utils.stats import stat_add
 
 log = logging.getLogger(__name__)
 
@@ -327,6 +329,7 @@ class CheckpointManager:
         except (jr.JournalIncompleteError, OSError) as e:
             # stray base.b*/journal-* links of the attempt are ignored by
             # the full save's manifest
+            stat_add("ckpt_touched_fallback_full")
             log.warning("touched base save falling back to FULL: %r", e)
             return self.save_base(params, opt_state, day, extra,
                                   mode="full")

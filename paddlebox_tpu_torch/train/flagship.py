@@ -37,8 +37,9 @@ import torch
 from paddlebox_tpu_torch.config.configs import (DataFeedConfig,
                                                 SparseOptimizerConfig,
                                                 TableConfig, TrainerConfig)
-from paddlebox_tpu_torch.config.flags import (DtypeFlags, PassFlags,
-                                              PushFlags, StageFlags)
+from paddlebox_tpu_torch.config.flags import (DtypeFlags, ObsFlags,
+                                              PassFlags, PushFlags,
+                                              StageFlags)
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.generator import write_synthetic_ctr_files
 from paddlebox_tpu_torch.device import DeviceLike
@@ -152,6 +153,7 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
                   pass_flags: PassFlags = PassFlags(),
                   plain_host: bool = False,
                   stage_flags: StageFlags = StageFlags(),
+                  obs_flags: ObsFlags = ObsFlags(),
                   **trainer_fields) -> Tuple[BoxTrainer, BoxDataset]:
     """(trainer with an 'auc' metric, dataset over ``files``): DeepFM with
     weights from ``seed``, ready for ``trainer.train_pass(dataset)``.
@@ -161,7 +163,8 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
     and the table on the Python store, the plain versions the native run
     is held bit-equal to. ``trainer_fields`` are TrainerConfig fields
     (scan_chunk, sparse_chunk_sync, check_nan_inf) beside dense_lr: by
-    default the pass runs through the chunk driver in chunks of 8."""
+    default the pass runs through the chunk driver in chunks of 8.
+    ``obs_flags``: the trainer's host planes, all on by default."""
     model = DeepFM(ModelSpec(num_slots=cfg.num_slots,
                              slot_dim=3 + cfg.embedx),
                    hidden=cfg.hidden,
@@ -177,7 +180,8 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
                                 if plain_host else None),
                          stage_flags=stage_flags,
                          dtype_flags=DtypeFlags(cfg.slab_embed_dtype,
-                                                cfg.matmul_dtype))
+                                                cfg.matmul_dtype),
+                         obs_flags=obs_flags)
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
     ds = BoxDataset(feed, columnar=not plain_host)
     ds.set_filelist(files)

@@ -30,6 +30,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 
 from paddlebox_tpu_torch.embedding.pass_table import sorted_member
+from paddlebox_tpu_torch.obs.tracer import span
 
 
 class PromotePrefetcher:
@@ -164,21 +165,25 @@ class PassPreloader:
 
     def wait(self, dataset) -> None:
         """Join the load, hand the prefetched rows to the table and run its
-        feed pass over the buffered keys (WaitFeedPassDone). On any error
-        the preloader resets, so a caller may preload again."""
+        feed pass over the buffered keys (WaitFeedPassDone), under the
+        spans ingest_wait_preload (what of the load the overlap did not
+        hide) and ingest_feed_pass. On any error the preloader resets, so a
+        caller may preload again."""
         if dataset is not self._dataset:
             raise RuntimeError("wait() for a dataset that was not preloaded")
         t0 = time.perf_counter()
         try:
-            dataset.wait_preload_done()
+            with span("ingest_wait_preload"):
+                dataset.wait_preload_done()
             pre, self._prefetch = self._prefetch, None
             if pre is not None:
                 keys, rows = pre.finish()
                 self.table.accept_staged_rows(keys, rows)
-            self.table.begin_feed_pass()
-            for ks in self._buffer:
-                self.table.add_keys(ks)
-            self.table.end_feed_pass()
+            with span("ingest_feed_pass"):
+                self.table.begin_feed_pass()
+                for ks in self._buffer:
+                    self.table.add_keys(ks)
+                self.table.end_feed_pass()
         except BaseException:
             self._reset()
             raise

@@ -47,6 +47,21 @@ fused seqpool+CVM and the forward under ``torch.no_grad()``: no backward,
 no dense update, no push. The dense state reads and restores as numpy under
 the JAX package's names (``params``, ``opt_state``, ``restore_dense``;
 convert.py).
+
+The host planes the reference's trainer runs by default (``ObsFlags``, all
+on unless the caller turns them off; reference trainer.py:940-984,
+1277-1297, 1357-1359, 1388-1428): the tagged quality plane
+(``self.quality``, metrics/quality.py) and the drift monitor
+(``self.drift``, metrics/drift.py) are fed every batch's predictions, so
+predictions come back once a chunk when either a metric or quality reads
+them; the dataset's ingest hook feeds the drift monitor the trainer made
+active at construction and at every train_pass. A StepReporter
+(``self.reporter``, obs/report.py) over the ``step`` and ``pass`` timers
+reports every ``obs_report_every`` steps and once at every pass end: the
+forced pass_end record carries the loss, the metrics' AUC, the quality
+report and the drift window. The chunk driver records the spans
+host_stage, scan_dispatch and chunk_drain; a tail step's spans carry its
+step trace id.
 """
 
 from __future__ import annotations
@@ -64,8 +79,9 @@ import torch.nn.functional as F
 
 from paddlebox_tpu_torch.config.configs import (DataFeedConfig, TableConfig,
                                                 TrainerConfig)
-from paddlebox_tpu_torch.config.flags import (DtypeFlags, PassFlags,
-                                              PushFlags, StageFlags)
+from paddlebox_tpu_torch.config.flags import (DtypeFlags, ObsFlags,
+                                              PassFlags, PushFlags,
+                                              StageFlags)
 from paddlebox_tpu_torch.convert import (adam_state_from_numpy,
                                          adam_state_to_numpy,
                                          params_from_jax, params_to_numpy)
@@ -76,13 +92,17 @@ from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 from paddlebox_tpu_torch.embedding.optimizers import push_sparse_hostdedup
 from paddlebox_tpu_torch.embedding.pass_table import (PassTable,
                                                       segment_offsets)
+from paddlebox_tpu_torch.metrics import drift, quality
 from paddlebox_tpu_torch.metrics.auc import MetricRegistry
+from paddlebox_tpu_torch.obs import make_step_reporter
+from paddlebox_tpu_torch.obs.tracer import set_trace, span, step_trace_id
 from paddlebox_tpu_torch.ops.seqpool import fused_seqpool_cvm
 from paddlebox_tpu_torch.ops.sparse import (build_push_grads,
                                             gather_slab_rows,
                                             pull_view_from_rows)
 from paddlebox_tpu_torch.train.staging import (DeviceChunk, HostChunk,
                                                PinnedRing, to_cpu)
+from paddlebox_tpu_torch.utils.timer import Timer
 
 Batch = Dict[str, object]
 # a stager still alive this long after the consumer stopped raises
@@ -275,12 +295,14 @@ def run_scan_chunks(scan_call: Callable, items, chunk: int,
                     chunk1_ok: bool = False,
                     prefetch_depth: int = 0,
                     transfer_group: int = 1,
-                    group_fn: Optional[Callable] = None):
+                    group_fn: Optional[Callable] = None,
+                    timer: Optional[Timer] = None):
     """Drive ``scan_call`` over the full chunks of ``items``, double
     buffered: chunk i+1 is staged and queued BEFORE chunk i's results come
     back to the host, so staging and the drain of results overlap device
-    work (paddlebox_tpu/train/trainer.py:120-303, without its timer: the
-    trainer times its phases in pass_times).
+    work (paddlebox_tpu/train/trainer.py:120-303). Staging runs under the
+    span host_stage, each scan_call under scan_dispatch (and ``timer``,
+    when given), each drain under chunk_drain.
 
     items: a list, or a bounded iterator with ``n_items`` given. Exactly
     n_consumed items are pulled either way, so the caller's per-step loop
@@ -331,7 +353,9 @@ def run_scan_chunks(scan_call: Callable, items, chunk: int,
             if stop is not None and stop.is_set():
                 return
             group = [next(it) for _ in range(chunk)]
-            yield lo, group, stack_fn(group)
+            with span("host_stage"):
+                staged = stack_fn(group)
+            yield lo, group, staged
 
     def transfer(src):
         if group_fn is None:
@@ -389,12 +413,19 @@ def run_scan_chunks(scan_call: Callable, items, chunk: int,
 
     try:
         for lo, group, staged in source:
-            carry, losses, preds = scan_call(carry, staged)
+            if timer is not None:
+                timer.start()
+            with span("scan_dispatch"):
+                carry, losses, preds = scan_call(carry, staged)
+            if timer is not None:
+                timer.pause()
             if pending is not None:
-                drain(pending)
+                with span("chunk_drain"):
+                    drain(pending)
             pending = (lo, group, losses, preds)
         if pending is not None:
-            drain(pending)
+            with span("chunk_drain"):
+                drain(pending)
     finally:
         if producer is not None:
             # the consumer left (done or raising): stop the stager so it
@@ -436,13 +467,15 @@ class BoxTrainer:
                  pass_flags: Optional[PassFlags] = None,
                  store=None,
                  stage_flags: Optional[StageFlags] = None,
-                 dtype_flags: Optional[DtypeFlags] = None) -> None:
+                 dtype_flags: Optional[DtypeFlags] = None,
+                 obs_flags: Optional[ObsFlags] = None) -> None:
         """``store``: the table's host store (PassTable's default, the
         native one, when None). ``stage_flags``: the chunk driver's
         staging, read at the start of every pass (``self.stage_flags`` may
         be replaced between passes). ``dtype_flags``: the slab's storage
         (the table's layout) and the dense matmuls' operand dtype (set on
-        the model as its ``matmul_dtype``), read here."""
+        the model as its ``matmul_dtype``), read here. ``obs_flags``: the
+        host planes (ObsFlags(): all on), read here."""
         self.cfg = trainer_cfg or TrainerConfig()
         if self.cfg.scan_chunk < 1:
             raise ValueError("scan_chunk must be >= 1, got %r"
@@ -499,6 +532,14 @@ class BoxTrainer:
         self.seed_fn: Callable[[], int] = self._draw_seed
         self._step_count = 0
         self.pass_times: Dict[str, float] = {}
+        # the host planes: quality and drift (each None when off, and the
+        # active one of its module), the reporter over the stage timers
+        self.obs_flags = obs_flags or ObsFlags()
+        self.quality = quality.make_from_flags(self.obs_flags)
+        self.drift = drift.make_from_flags(self.obs_flags)
+        self.timers = {n: Timer() for n in ("step", "pass")}
+        self.reporter = make_step_reporter(timers=self.timers,
+                                           flags=self.obs_flags)
 
     def _draw_seed(self) -> int:
         return int(torch.randint(0, 2**31 - 1, (), generator=self._seed_gen))
@@ -643,7 +684,9 @@ class BoxTrainer:
         return ring
 
     def close(self) -> None:
-        """Stop the staging pool and drop the pinned ring."""
+        """Stop the staging pool, drop the pinned ring and close the
+        reporter's sink."""
+        self.reporter.close()
         pool = self._stage_pool[1]
         if pool is not None:
             pool.shutdown(wait=False)
@@ -670,8 +713,8 @@ class BoxTrainer:
         feed (load + key registration; absent when preloaded), build
         (begin_pass + shuffle + packing), steps (the chunk driver: staging,
         queueing every chunk and draining each chunk's results; then the
-        tail's steps) and end (end_pass + the tail's metrics; it waits for
-        the device work still queued)."""
+        tail's steps) and end (end_pass, the tail's metrics and the
+        pass_end report; it waits for the device work still queued)."""
         clock = [time.perf_counter()]
         times: Dict[str, float] = {}
 
@@ -680,6 +723,11 @@ class BoxTrainer:
             times[name] = now - clock[0]
             clock[0] = now
 
+        t_pass = self.timers["pass"]
+        t_pass.start()
+        # this pass's blocks (and the next pass's, preloaded meanwhile) feed
+        # this trainer's drift monitor
+        drift.set_active(self.drift)
         if not preloaded:
             self.table.begin_feed_pass()
             dataset.load_into_memory(add_keys_fn=self.table.add_keys)
@@ -692,15 +740,22 @@ class BoxTrainer:
         chunk_losses, tail = self._train_chunks(batches)
         losses: List[torch.Tensor] = []
         preds: List[torch.Tensor] = []
-        for b in tail:
-            loss, p = self.train_batch(b)
-            if self.cfg.check_nan_inf and not bool(torch.isfinite(loss)):
-                # the guard syncs every tail step: it must see this step's
-                # loss before the next step is queued
-                raise FloatingPointError("nan/inf loss at step %d"
-                                         % self._step_count)
-            losses.append(loss)
-            preds.append(p)
+        try:
+            for b in tail:
+                # the step's spans carry its trace id
+                set_trace(step_trace_id(0, self._step_count + 1))
+                loss, p = self.train_batch(b)
+                self.reporter.note_examples(self.feed.batch_size)
+                self.reporter.maybe_report(self._step_count)
+                if self.cfg.check_nan_inf and not bool(torch.isfinite(loss)):
+                    # the guard syncs every tail step: it must see this
+                    # step's loss before the next step is queued
+                    raise FloatingPointError("nan/inf loss at step %d"
+                                             % self._step_count)
+                losses.append(loss)
+                preds.append(p)
+        finally:
+            set_trace(None)
         lap("steps")
         self.table.end_pass()
         mean_loss = 0.0
@@ -710,14 +765,25 @@ class BoxTrainer:
                 loss_host = np.concatenate(
                     [loss_host, torch.stack(losses).cpu().numpy()])
             mean_loss = float(np.mean(loss_host))
-            if losses and self.metrics.metric_names():
+            if losses and self._preds_consumed():
                 preds_host = torch.stack(preds).cpu().numpy()
                 for b, p in zip(tail, preds_host):
                     self._add_metrics(p, b)
+        t_pass.pause()
+        # every pass end is a report boundary
+        extra = {"event": "pass_end", "loss": round(mean_loss, 6),
+                 "auc": {m.name: float(m.calculator.auc())
+                         for m in self.metrics.messages()}}
+        quality.attach_pass_extras(extra, self.quality, self.drift)
+        self.reporter.maybe_report(self._step_count, force=True, extra=extra)
         lap("end")
         self.pass_times = times
         return {"loss": mean_loss, "batches": len(batches),
                 "instances": len(dataset)}
+
+    def _preds_consumed(self) -> bool:
+        """Whether a metric or the quality plane reads predictions."""
+        return bool(self.metrics.metric_names()) or self.quality is not None
 
     def _train_chunks(self, batches: List[PackedBatch]
                       ) -> Tuple[List, List[PackedBatch]]:
@@ -732,7 +798,7 @@ class BoxTrainer:
             return [], batches
         flags = self.stage_flags
         ring = self._staging_ring() if self.device.type == "cuda" else None
-        metrics_on = bool(self.metrics.metric_names())
+        preds_on = self._preds_consumed()
         slab = self.table.slab
 
         def scan_call(carry, dc: DeviceChunk):
@@ -753,10 +819,12 @@ class BoxTrainer:
 
         def on_chunk(lo, group_b, losses_np, preds_dev) -> None:
             self._step_count += len(group_b)
+            self.reporter.note_examples(len(group_b) * self.feed.batch_size)
+            self.reporter.maybe_report(self._step_count)
             if self.cfg.check_nan_inf and not np.isfinite(losses_np).all():
                 raise FloatingPointError("nan/inf loss by step %d"
                                          % self._step_count)
-            if metrics_on:
+            if preds_on:
                 # one copy of the chunk's predictions, sliced on the host
                 for p, b in zip(preds_dev.cpu().numpy(), group_b):
                     self._add_metrics(p, b)
@@ -767,7 +835,7 @@ class BoxTrainer:
                 on_chunk, chunk1_ok=sync,
                 prefetch_depth=flags.chunk_prefetch_depth,
                 transfer_group=flags.h2d_stack_chunks,
-                group_fn=self._group_to_device)
+                group_fn=self._group_to_device, timer=self.timers["step"])
         finally:
             if ring is not None:
                 ring.reset()
@@ -776,9 +844,13 @@ class BoxTrainer:
     def train_batch(self, b: PackedBatch):
         """One step on one packed batch inside an open pass: (loss, preds)
         as device tensors."""
-        ids = self.table.lookup_ids(b.keys, b.valid)
-        batch = self.device_batch(b, ids)
+        with span("host_stage"):
+            ids = self.table.lookup_ids(b.keys, b.valid)
+            batch = self.device_batch(b, ids)
+        t_step = self.timers["step"]
+        t_step.start()
         loss, preds = self.step_fn(self.table.slab, batch, self.seed_fn())
+        t_step.pause()
         self._step_count += 1
         return loss, preds
 
@@ -811,5 +883,14 @@ class BoxTrainer:
                 np.concatenate([b.labels[b.ins_valid] for b in batches]))
 
     def _add_metrics(self, pred: np.ndarray, b: PackedBatch) -> None:
-        self.metrics.add_batch({"label": b.labels, "mask": b.ins_valid,
-                                "pred": pred})
+        """One batch's predictions into the metrics and, when on, the
+        quality plane (the tagged streams, the per-slot CTR) and the drift
+        monitor's pred histogram (reference trainer.py:1404-1428)."""
+        tensors = {"label": b.labels, "mask": b.ins_valid, "pred": pred}
+        self.metrics.add_batch(tensors)
+        if self.quality is not None:
+            self.quality.add_batch(tensors)
+            self.quality.add_slot_batch(pred, b.labels, b.slots, b.segments,
+                                        b.valid, self.num_slots)
+            if self.drift is not None:
+                self.drift.observe_preds(pred, mask=b.ins_valid)

@@ -40,7 +40,10 @@ def test_import_loads_no_jax_and_no_reference_module():
               "train.recovery", "utils.journal_format",
               "embedding.accessor", "embedding.push_kernels",
               "ops.row_kernels", "models.layers", "convert", "edge_cases",
-              "rate_probe", "copy_probe", "train.flagship"):
+              "rate_probe", "copy_probe", "train.flagship",
+              "utils.stats", "utils.timer", "utils.channel", "obs",
+              "obs.log", "obs.tracer", "obs.report", "metrics.quality",
+              "metrics.drift"):
         assert "paddlebox_tpu_torch." + m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
