@@ -153,6 +153,26 @@ Phases, each of which raises on a failed check (exit code != 0):
      each run's pass phases, walls and examples/s, the on and off means
      and the planes' own host work over one pass timed alone, beside the
      card line;
+ 14. the other in-table rules and the expand block (flagship.py
+     RULE_FLAGSHIPS): the fused push's forms of adam, adam_shared, naive,
+     adagrad with a 64-wide expand block and naive with one on the f32
+     slab, and of adam and adagrad + expand on the bf16 slab (RULE_FORMS),
+     each bit-equal to its plain version in both write modes at the
+     flagship batch (phase 4's dedup on a 2^20-row slab of the form's
+     width), with kernel, in-place, plain and bound times; every other
+     instantiation of those rules on a small batch with a hot key; the
+     pull's gather_rows at 37 and 82 f32 columns against index_select,
+     bit-equal, with kernel, plain, index_select and bound times; then two
+     full-width passes of FLAGSHIP_ADAM, FLAGSHIP_ADAM_SHARED,
+     FLAGSHIP_NAIVE and FLAGSHIP_EXPAND (CtrDnnExpand over an adagrad
+     table with expand_embed_dim 64), each launching its push form once a
+     step and gather_rows once a step and at the promote and the two
+     write-backs (35), its digits held to RULE_DIGITS, its slab bytes
+     logged; FLAGSHIP_EXPAND's test pass after its two (predict_batches
+     over the cadence's third window, held to EXPAND_TEST_PASS_DIGITS); a
+     4-batch FLAGSHIP_ADAM pass blocked and scatter, bit-identical; and a
+     4-batch pass of each form no configuration runs (naive + expand, the
+     two bf16 forms), each launching its form once a step;
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -253,15 +273,15 @@ def push_check(torch, slab, g, u, p, o, n_uniq, created, layout, conf,
     return err
 
 
-def push_width_cases(torch, dev, embed_dtype):
-    """push_check at every embedx width the kernel is built for, on a
-    small batch with a hot key and a padding tail (rows with mf_size 0
+def push_width_cases(torch, dev, layouts):
+    """push_check of each of ``layouts`` (the adagrad table at every embedx
+    width the kernel is built for, or the other rules' instantiations) on
+    a small batch with a hot key and a padding tail (rows with mf_size 0
     create embedx); returns the largest difference."""
     import numpy as np
 
     from paddlebox_tpu_torch.embedding import accessor as acc
-    from paddlebox_tpu_torch.embedding import push_kernels as pk
-    from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
+    from paddlebox_tpu_torch.embedding.accessor import PushLayout
     from paddlebox_tpu_torch.embedding.pass_table import (dedup_ids,
                                                           segment_offsets)
     from paddlebox_tpu_torch.push_probe import SEED
@@ -269,10 +289,12 @@ def push_width_cases(torch, dev, embed_dtype):
 
     conf = flagship.FLAGSHIP.table().optimizer
     err = 0.0
-    for d in pk.KERNEL_EMBEDX_DIMS:
-        lay, rs = ValueLayout(d, embed_dtype=embed_dtype), \
-            np.random.RandomState(d)
-        push = PushLayout(d)
+    for lay in layouts:
+        # rows uniform in [0, 1): every rule's state is in its range (adam
+        # powers below 1, second moments positive)
+        d, rs = lay.embedx_dim, np.random.RandomState(lay.embedx_dim
+                                                      + lay.expand_dim)
+        push = PushLayout.of(lay)
         cap, k = 4096, 3000
         w_ids = rs.randint(0, 1500, k).astype(np.int32)
         w_ids[:400] = 7
@@ -353,7 +375,8 @@ def kernel_phase(torch, cfg, feed, files, dev):
         torch, slab, g, *(torch.from_numpy(x).to(dev)
                           for x in (h_uids, h_perm, h_off)), h_n,
         created[:0], layout, conf, seed))
-    push_err = max(push_err, push_width_cases(torch, dev, "float32"))
+    push_err = max(push_err, push_width_cases(
+        torch, dev, [ValueLayout(d) for d in pk.KERNEL_EMBEDX_DIMS]))
     log("push_adagrad fused: bit-equal to the plain version in both write "
         "modes at the flagship batch, with a %d-occurrence hot key, and at "
         "embedx widths %s" % (int(np.diff(h_off).max()),
@@ -807,9 +830,10 @@ def blocked_phase(torch, cfg, feed, files):
     from paddlebox_tpu_torch.train import flagship
 
     two = cfg.slab_embed_dtype == "bfloat16"
-    push, place = (("push_adagrad_bf16", "blocked_write_2byte") if two
-                   else ("push_adagrad", "blocked_write"))
-    tag = "bf16 " if two else ""
+    push = pk.push_form(cfg.layout())
+    place = "blocked_write_2byte" if two else "blocked_write"
+    tag = ("bf16 " if two else "") + (
+        "" if push in ("push_adagrad", "push_adagrad_bf16") else push + " ")
     rows, blocked = {}, None
     for mode in ("scatter", "blocked"):
         t, d = flagship.build_trainer(files[:1], feed, cfg, mode, "cuda")
@@ -835,10 +859,13 @@ def blocked_phase(torch, cfg, feed, files):
 
 
 def f32_launches(**launches):
-    """The launch counts of a run on the f32 slab: the f32 forms'
-    ``launches`` and every 2-byte form's 0."""
-    return {"push_adagrad_bf16": 0, "blocked_write_2byte": 0,
-            "gather_rows_2byte": 0, "gather_rows_decode": 0, **launches}
+    """The launch counts of a run: those given, and 0 for every other
+    kernel form (the 2-byte forms, and the push forms of the other rules
+    and of the expand block)."""
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    return {**{k: 0 for k in (*pk.launch_counts(), *rk.launch_counts())},
+            **launches}
 
 
 def counter_delta(before, table):
@@ -983,10 +1010,11 @@ def bits_equal(a, b):
         np.ascontiguousarray(b).view(np.uint32))
 
 
-def eval_phase(torch, trainer, files, feed, reset_counts, counts):
+def eval_phase(torch, trainer, files, feed, reset_counts, counts,
+               digits=TEST_PASS_DIGITS, tag="test pass"):
     """Phase 7, the test pass over ``files`` after the trainer's train
-    passes: store unchanged, 1 + batches gather_rows launches, no push.
-    Returns its record."""
+    passes: store unchanged, 1 + batches gather_rows launches, no push,
+    its AUC held to ``digits``. Returns its record."""
     import numpy as np
 
     from paddlebox_tpu_torch.data.dataset import BoxDataset
@@ -1032,10 +1060,11 @@ def eval_phase(torch, trainer, files, feed, reset_counts, counts):
            "resident": hit, "auc": auc, "seconds": secs,
            "examples_per_s": len(ds) / secs, "launches": launches,
            "counters": rows}
-    log("test pass: auc %.10f %s" % (auc, json.dumps(rec)))
-    if TEST_PASS_DIGITS is not None:
-        check("%.10f" % auc == TEST_PASS_DIGITS, "test pass AUC %.10f, "
-              "expected %s" % (auc, TEST_PASS_DIGITS))
+    log("%s: auc %.10f %s" % (tag, auc, json.dumps(rec)))
+    check(0.0 < auc <= 1.0, "%s AUC %r" % (tag, auc))
+    if digits is not None:
+        check("%.10f" % auc == digits, "%s AUC %.10f, expected %s"
+              % (tag, auc, digits))
     return rec
 
 
@@ -1846,7 +1875,9 @@ def bf16_kernel_phase(torch, cfg, feed, files, keys, dev):
         torch, slab, g, *(torch.from_numpy(x).to(dev) for x in (
             h_uids, h_perm, segment_offsets(h_inv, n_valid))), h_n,
         created[:0], layout, conf, SEED))
-    push_err = max(push_err, push_width_cases(torch, dev, "bfloat16"))
+    push_err = max(push_err, push_width_cases(
+        torch, dev, [ValueLayout(d, embed_dtype="bfloat16")
+                     for d in pk.KERNEL_EMBEDX_DIMS]))
     log("push_adagrad (bf16): bit-equal to the plain version in both write "
         "modes at the flagship batch on a [%d, %d] int16 slab, with a hot "
         "key, and at embedx widths %s" % (C, DW,
@@ -2094,12 +2125,12 @@ def bf16_phase(torch, feed, files, f32_passes, reset_counts, counts):
         % (res["loss"], auc, json.dumps(dense)))
     check(dense_digits == DENSE_BF16_DIGITS, "dense bf16 digits %s, "
           "expected %s" % (dense_digits, DENSE_BF16_DIGITS))
-    check(dense_launches == {
-              "push_adagrad": 0, "gather_rows": 0, "blocked_write": 0,
-              "blocked_write_2byte": 0, "scale_copy": 0,
-              "push_adagrad_bf16": res["batches"],
-              "gather_rows_decode": res["batches"],
-              "gather_rows_2byte": dense_extra} and dense_extra == 1,
+    check(dense_launches == f32_launches(
+              push_adagrad=0, gather_rows=0, blocked_write=0,
+              blocked_write_2byte=0, scale_copy=0,
+              push_adagrad_bf16=res["batches"],
+              gather_rows_decode=res["batches"],
+              gather_rows_2byte=dense_extra) and dense_extra == 1,
           "dense bf16 launches %s over %d steps and %d promotes and "
           "write-backs" % (dense_launches, res["batches"], dense_extra))
     del t, d
@@ -2319,6 +2350,283 @@ def planes_phase(torch, cfg, feed, files, ref, reset_counts, counts, tmp):
             "cost": cost}
 
 
+# phase 14's push forms held against their plain versions at the flagship
+# batch: (rule, expand width, slab dtype), embedx 8
+RULE_FORMS = (("adam", 0, "float32"), ("adam_shared", 0, "float32"),
+              ("naive", 0, "float32"), ("adagrad", 64, "float32"),
+              ("naive", 64, "float32"), ("adam", 0, "bfloat16"),
+              ("adagrad", 64, "bfloat16"))
+# the pull's row widths phase 14 adds (adam's 37 f32 columns, adagrad with
+# the 64-wide expand block's 82)
+RULE_PULL_WIDTHS = (37, 82)
+
+
+def rule_rows(layout, base, conf):
+    """f32 rows [C, width] of ``layout`` over the adagrad rows ``base``
+    (push_probe.push_inputs' slab): the header columns, embed_w and embedx
+    of ``base``, every state column set (g2sums positive, adam moments
+    small, beta powers one to five steps in) and the expand block on the
+    rows that have embedx."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+
+    C, D, E = base.shape[0], layout.embedx_dim, layout.expand_dim
+    rng = np.random.RandomState(13)
+    rows = layout.new_rows(C, rng, conf)
+    for c in (acc.SLOT, acc.SHOW, acc.CLICK, acc.EMBED_W, acc.MF_SIZE):
+        rows[:, c] = base[:, c]
+    bw = ValueLayout(D).embedx_w
+    xw, es, xs = layout.embedx_w, layout.embed_state, layout.embedx_state
+    rows[:, xw:xw + D] = base[:, bw:bw + D]
+
+    def adam_state(at, moments):
+        rows[:, at:at + moments] = rng.randn(C, moments) * 0.01
+        rows[:, at + moments:at + 2 * moments] = rng.rand(C, moments) * 0.01
+        rows[:, at + 2 * moments] = 0.9 ** rng.randint(1, 6, C)
+        rows[:, at + 2 * moments + 1] = 0.999 ** rng.randint(1, 6, C)
+
+    if layout.optimizer == "adagrad":
+        rows[:, es] = rng.rand(C)
+        rows[:, xs] = rng.rand(C)
+    elif layout.optimizer != "naive":
+        adam_state(es, 1)
+        adam_state(xs, D if layout.optimizer == "adam" else 1)
+    if E:
+        has_mf = rows[:, acc.MF_SIZE] > 0
+        rows[has_mf, layout.expand_w:layout.expand_w + E] = \
+            rng.randn(int(has_mf.sum()), E) * 0.01
+        if layout.expand_state_dim:
+            rows[:, layout.expand_state] = rng.rand(C)
+    return rows.astype(np.float32)
+
+
+def rule_push_ops(layout, n_valid, n_active):
+    """f32 operations of the fused push of ``layout``: the merge's adds,
+    then per active unique the bookkeeping and its rule's update."""
+    D, E = layout.embedx_dim, layout.expand_dim
+    per_col = {"adagrad": 6, "adam": 12, "adam_shared": 4, "naive": 3}
+    row = 20 + per_col[layout.optimizer] * D + (12 if layout.optimizer
+                                                in ("adam",
+                                                    "adam_shared") else 8)
+    row += (6 if layout.optimizer == "adagrad" else 3) * E
+    if layout.bf16:
+        row += 4 * layout.width   # the decode and the encode
+    return n_valid * (4 + D + E) + n_active * row
+
+
+def rules_kernel_phase(torch, cfg, feed, files, dev):
+    """Phase 14, the fused push's forms of the other in-table rules and
+    of the expand block (RULE_FORMS) against their plain versions at the
+    flagship batch in both write modes, all bit-equal, and every other
+    instantiation on a small batch; the pull's gather_rows at the new row
+    widths (RULE_PULL_WIDTHS) against index_select, bit-equal. Returns
+    (the push records, launches filled later; the pull's at_shapes)."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
+    from paddlebox_tpu_torch.embedding.pass_table import segment_offsets
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.push_probe import (SEED, fused_push_bytes,
+                                                push_inputs)
+    from paddlebox_tpu_torch.rate_probe import gather_bytes, time_chain
+
+    D, C = cfg.embedx, cfg.capacity
+    conf = cfg.table().optimizer
+    inp = push_inputs(cfg, files, feed)
+    ids, live, kind = inp["ids"], inp["live"], inp["kind"]
+    K, n_uniq, n_valid = ids.shape[0], inp["n_uniq"], inp["n_valid"]
+    n_active = int(np.unique(ids[live]).size)
+    p, o, u = (torch.from_numpy(x).to(dev) for x in (
+        inp["perm"], segment_offsets(inp["inv"], n_valid), inp["uids"]))
+    created = torch.from_numpy(
+        np.unique(ids[live & (kind[ids] == 0)]).astype(np.int32)).to(dev)
+    rng = np.random.RandomState(14)
+    records = []
+    for rule, e, dt in RULE_FORMS:
+        layout = ValueLayout(D, rule, e, dt)
+        push = PushLayout.of(layout)
+        grads = np.zeros((K, push.width), np.float32)
+        grads[:, :4 + D] = inp["grads"]
+        grads[:, push.expand_g:] = rng.randn(K, e) * 0.2 * live[:, None]
+        g = torch.from_numpy(grads).to(dev)
+        slab = device_slab(torch, rule_rows(layout, inp["slab"], conf),
+                           layout, dev)
+        err = push_check(torch, slab, g, u, p, o, n_uniq, created, layout,
+                         conf, SEED)
+        nbytes = fused_push_bytes(n_valid, n_uniq, layout.device_width,
+                                  push.width, 2 if layout.bf16 else 4)
+        ops = rule_push_ops(layout, n_valid, n_active)
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS)
+        args = (slab, g, p, o, u)
+        ms = time_chain(lambda *a: pk.push_adagrad(
+            *a, n_uniq, SEED, layout, conf, rows_out=True), args, nbytes)
+        plain_ms = time_chain(lambda *a: pk.push_adagrad_fused_plain(
+            *a, n_uniq, SEED, layout, conf, rows_out=True), args, nbytes)
+        inplace_ms = time_chain(lambda *a: pk.push_adagrad(
+            *a, n_uniq, SEED, layout, conf), args, nbytes)
+        name = pk.push_form(layout)
+        log("%s (W=%d, device row %d x %d B, G=%d): bit-equal to the plain "
+            "version in both write modes at the flagship batch (K=%d "
+            "n_valid=%d n_uniq=%d); rows out %.5f ms (in place %.5f ms), "
+            "plain %.4f ms, bound %.5f ms (%d B, %d ops)"
+            % (name, layout.width, layout.device_width,
+               2 if layout.bf16 else 4, push.width, K, n_valid, n_uniq, ms,
+               inplace_ms, plain_ms, bound, nbytes, ops))
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "paddlebox_tpu_torch/csrc/push_adagrad.cu",
+            "replaces": "paddlebox_tpu/embedding/pallas_push.py:41",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / F32_FLOPS else "operations"),
+            "library_ms": None, "in_place_ms": inplace_ms,
+            "bytes": nbytes})
+        del slab, g, args
+    forms = ([(r, d, 0) for r in ("adam", "adam_shared", "naive")
+              for d in pk.KERNEL_RULE_DIMS]
+             + [(r, d, e) for r in ("adagrad", "naive")
+                for d, e in pk.KERNEL_EXPAND_DIMS])
+    err = push_width_cases(torch, dev, [
+        ValueLayout(d, r, e, dt) for r, d, e in forms
+        for dt in ("float32", "bfloat16")])
+    log("push forms of the other rules and the expand block: bit-equal to "
+        "their plain versions in both write modes on a small batch with a "
+        "hot key, at (rule, embedx, expand) %s, f32 and bf16 slab"
+        % (forms,))
+    for r in records:
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+    del p, o, u, created
+
+    # the pull at the new row widths: gather_rows against index_select
+    pull = {}
+    i = torch.from_numpy(ids).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    for W in RULE_PULL_WIDTHS:
+        src = torch.rand((C, W), generator=gen, device=dev)
+        got = rk.gather_rows(src, i)
+        torch.cuda.synchronize()
+        check(torch.equal(got, src.index_select(0, i))
+              and torch.equal(got, rk.gather_rows_plain(src, i)),
+              "gather_rows at the pull, W=%d, differs from index_select"
+              % W)
+        nbytes = gather_bytes(ids, C, W)
+        pull["pull_w%d" % W] = {
+            "ids": K, "distinct": int(np.unique(ids).size), "bytes": nbytes,
+            "ms": time_chain(rk.gather_rows, (src, i), nbytes),
+            "plain_ms": time_chain(rk.gather_rows_plain, (src, i), nbytes),
+            "library_ms": time_chain(lambda a, b: a.index_select(0, b),
+                                     (src, i), nbytes),
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+        log("gather_rows at the pull, src [%d, %d] f32: bit-equal to "
+            "index_select; %s" % (C, W, json.dumps(pull["pull_w%d" % W])))
+        del src, got
+    return records, pull
+
+
+def rules_phase(torch, feed, files, windows, reset_counts, counts):
+    """Phase 14, the other in-table rules and the expand block at full
+    width: two passes of each of flagship.RULE_FLAGSHIPS (launches of its
+    push form and gather_rows as the main path's, its digits held to
+    RULE_DIGITS), a test pass of FLAGSHIP_EXPAND after its two (held to
+    EXPAND_TEST_PASS_DIGITS), a 4-batch FLAGSHIP_ADAM pass blocked and
+    scatter bit-identical, and a 4-batch pass of each bf16 form of
+    RULE_FORMS. Returns its records."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.train import flagship
+
+    out = {"passes": {}, "launches": {}}
+    for name, cfg in flagship.RULE_FLAGSHIPS.items():
+        trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter",
+                                             "cuda")
+        layout = trainer.table.layout
+        check(layout == cfg.layout(), "%s built layout %s" % (name, layout))
+        form = pk.push_form(layout)
+        reset_counts()
+        passes = main_passes(torch, trainer, ds)
+        launches = counts()
+        steps = sum(p["batches"] for p in passes)
+        extra = sum(gather_launches_of(p["counters"]) for p in passes)
+        check(extra == 3 and launches == f32_launches(
+                  **{form: steps}, gather_rows=steps + extra),
+              "%s launches %s over %d steps and %d promotes and write-backs"
+              % (name, launches, steps, extra))
+        slab = trainer.table.slab
+        check(tuple(slab.shape) == (cfg.capacity, layout.width),
+              "%s slab %s" % (name, tuple(slab.shape)))
+        k, v = sorted_store(trainer.table)
+        check(np.isfinite(v).all() and v.shape[1] == layout.width,
+              "%s host store not finite or of width %d" % (name, v.shape[1]))
+        for p in passes:
+            log("%s pass %d: loss %.10f auc %.10f %s"
+                % (name, p["pass"], p["loss"], p["auc"], json.dumps(p)))
+        digits = {"loss": tuple("%.10f" % p["loss"] for p in passes),
+                  "auc": tuple("%.10f" % p["auc"] for p in passes)}
+        want = flagship.RULE_DIGITS[name]
+        log("%s digits %s; launches %s; slab %d B (W=%d); %s"
+            % (name, json.dumps(digits), launches,
+               slab.numel() * slab.element_size(), layout.width,
+               card_line()))
+        if want is not None:
+            check(digits == want, "%s digits %s, expected %s"
+                  % (name, digits, want))
+        out["passes"][name] = passes
+        out["launches"][name] = launches
+        del slab
+        if name == "expand":
+            out["test_pass"] = eval_phase(
+                torch, trainer, windows[2], feed, reset_counts, counts,
+                digits=flagship.EXPAND_TEST_PASS_DIGITS,
+                tag="expand test pass")
+        trainer.close()
+        del trainer, ds
+    out["blocked"] = blocked_phase(torch, flagship.FLAGSHIP_ADAM, feed,
+                                   files)
+    out["forms"] = {pk.push_form(flagship.RULE_FLAGSHIPS[n].layout()):
+                    c[pk.push_form(flagship.RULE_FLAGSHIPS[n].layout())]
+                    for n, c in out["launches"].items()}
+    # the forms of RULE_FORMS no configuration above runs, on the trainer's
+    # path: 4 batches each
+    for cfg in (dataclasses.replace(flagship.FLAGSHIP_EXPAND,
+                                    optimizer="naive"),
+                dataclasses.replace(flagship.FLAGSHIP_ADAM,
+                                    slab_embed_dtype="bfloat16"),
+                dataclasses.replace(flagship.FLAGSHIP_EXPAND,
+                                    slab_embed_dtype="bfloat16")):
+        t, d = flagship.build_trainer(files[:1], feed, cfg, "scatter",
+                                      "cuda")
+        form = pk.push_form(t.table.layout)
+        two = cfg.slab_embed_dtype == "bfloat16"
+        before = dict(t.table.counters)
+        reset_counts()
+        res, auc, _ = run_pass(torch, t, d)
+        c = counts()
+        # the pull once a step; the write-back on gather_rows (its raw
+        # 2-byte form on the bf16 slab)
+        extra = gather_launches_of(counter_delta(before, t.table))
+        n = res["batches"]
+        check(c == f32_launches(**{form: n}, **(
+                  {"gather_rows_decode": n, "gather_rows_2byte": extra}
+                  if two else {"gather_rows": n + extra}))
+              and np.isfinite(res["loss"]) and 0.0 < auc <= 1.0,
+              "%s pass launches %s over %d steps and %d write-backs, loss "
+              "%r auc %r" % (form, c, n, extra, res["loss"], auc))
+        log("%s pass over %d batches: loss %.10f auc %.10f launches %s"
+            % (form, res["batches"], res["loss"], auc, c))
+        out["launches"][form] = c
+        out["forms"][form] = c[form]
+        t.close()
+        del t, d
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2512,6 +2820,14 @@ def main() -> int:
         del main_run
         clock.lap("planes")
 
+        # 14. the other in-table rules and the expand block: their push
+        # forms and the pull at their widths, their passes at full width
+        rule_kernels, rule_pull = rules_kernel_phase(torch, cfg, feed,
+                                                     files, dev)
+        rules = rules_phase(torch, feed, files, windows, reset_counts,
+                            counts)
+        clock.lap("rules")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -2529,6 +2845,14 @@ def main() -> int:
         k["launches"] = (bf16["blocked"] if k["name"] == "blocked_write_2byte"
                          else bf16["launches"])[k["name"]]
     kernels += kernels16
+    # the forms of the other rules and the expand block: their passes'
+    # launches (phase 14); the pull's new widths beside gather_rows' shapes
+    for k in rule_kernels:
+        k["launches"] = rules["forms"][k["name"]]
+    kernels += rule_kernels
+    for k in kernels:
+        if k["name"] == "gather_rows":
+            k.setdefault("at_shapes", {}).update(rule_pull)
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -2544,7 +2868,12 @@ def main() -> int:
                               "dense_bf16": bf16["dense"]["launches"],
                               **{"planes_%s_%d" % (r["mode"], i):
                                  r["launches"]
-                                 for i, r in enumerate(planes["runs"])}},
+                                 for i, r in enumerate(planes["runs"])},
+                              **{"rules_" + n: c
+                                 for n, c in rules["launches"].items()},
+                              "rules_blocked": rules["blocked"],
+                              "expand_test_pass":
+                                  rules["test_pass"]["launches"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

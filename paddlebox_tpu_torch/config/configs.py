@@ -15,29 +15,47 @@ from typing import List, Tuple
 @dataclasses.dataclass(frozen=True)
 class SparseOptimizerConfig:
     """Hyperparameters of the in-table sparse optimizer (heter_ps
-    optimizer_conf.h:20-45 names). The port implements adagrad only."""
+    optimizer_conf.h:20-45 names and defaults). ``optimizer`` is the
+    table's rule: adagrad, adam, adam_shared or naive."""
 
+    # embed_w (the 1-d "lr" weight)
     nonclk_coeff: float = 0.1
     clk_coeff: float = 1.0
+    min_bound: float = -10.0
+    max_bound: float = 10.0
+    learning_rate: float = 0.05
+    initial_g2sum: float = 3.0
     initial_range: float = 0.0
+    beta1_decay_rate: float = 0.9
+    beta2_decay_rate: float = 0.999
+    ada_epsilon: float = 1e-8
+    # embedx (the mf_dim-wide factor vector) and the expand block
     mf_create_thresholds: float = 10.0
     mf_learning_rate: float = 0.05
     mf_initial_g2sum: float = 3.0
     mf_initial_range: float = 1e-4
+    mf_beta1_decay_rate: float = 0.9
+    mf_beta2_decay_rate: float = 0.999
     mf_min_bound: float = -10.0
     mf_max_bound: float = 10.0
+    mf_ada_epsilon: float = 1e-8
     nodeid_slot: int = 9008
     feature_learning_rate: float = 0.05
-    optimizer: str = "adagrad"
+    optimizer: str = "adagrad"  # adagrad | adam | adam_shared | naive
 
 
 @dataclasses.dataclass(frozen=True)
 class TableConfig:
-    """Sparse table shape (embedx width, pass slab rows) and the day
-    lifecycle's thresholds (CtrCommonAccessor's decay, delete and save
-    rules, ctr_accessor.cc:63-128)."""
+    """Sparse table shape (embedx width, the expand block's width, pass
+    slab rows) and the day lifecycle's thresholds (CtrCommonAccessor's
+    decay, delete and save rules, ctr_accessor.cc:63-128).
+    ``expand_embed_dim`` > 0 gives every row a second embedding block, the
+    NN-cross features of pull_box_extended_sparse (BoxPS GetInsEx(
+    embedx_dim, expand_embed_dim)); only adagrad and naive tables take
+    one."""
 
     embedx_dim: int = 8
+    expand_embed_dim: int = 0
     pass_capacity: int = 1 << 20
     show_click_decay_rate: float = 0.98
     delete_threshold: float = 0.8

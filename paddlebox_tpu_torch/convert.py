@@ -1,11 +1,15 @@
 """Carry dense weights and the dense Adam state between the JAX package and
 the port.
 
-JAX models keep params as a flat dict of arrays; the port's modules register
+JAX models keep params as a dict of arrays; the port's modules register
 parameters under the same names (DeepFM: deep_w{i} [din, dout], deep_b{i},
 fm_out_w [3], fm_out_b []), so a conversion is a dtype/ownership copy by
-name. Host-store rows are numpy f32 in both packages and go across as they
-are; so does an f32 slab. A bf16 slab (the slab_embed_dtype diet) is numpy
+name. A nested dict of the JAX params (CtrDnnExpand's ``params["cross"]``:
+lin_w, lin_b, fm_scale) is registered flat, its name and the key joined by
+an underscore (cross_lin_w, cross_lin_b, cross_fm_scale): params_from_jax
+flattens it, params_to_numpy nests the names of ``NESTED_PARAMS`` back.
+Host-store rows are numpy f32 in both packages and go across as they are;
+so does an f32 slab. A bf16 slab (the slab_embed_dtype diet) is numpy
 uint16 [C, device_width] in the reference and the same bits as an int16
 tensor in the port (``slab_from_jax`` / ``slab_to_jax``). The dense Adam
 state crosses as numpy under optax's names:
@@ -23,18 +27,39 @@ import torch
 
 AdamState = Dict[str, object]
 
-
-def params_from_jax(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """A JAX params dict (arrays or numpy) -> a state_dict for
-    ``model.load_state_dict(..., strict=True)``."""
-    return {name: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
-            for name, v in params.items()}
+# the nested dicts of the JAX params dicts, by name: their keys
+NESTED_PARAMS = {"cross": ("lin_w", "lin_b", "fm_scale")}
 
 
-def params_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
-    """The model's parameters by JAX name, as float32 numpy arrays."""
-    return {name: p.detach().cpu().numpy().astype(np.float32)
-            for name, p in model.named_parameters()}
+def params_from_jax(params: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """A JAX params dict (arrays or numpy; a nested dict flattened to
+    ``{name}_{key}``) -> a state_dict for ``model.load_state_dict(...,
+    strict=True)``."""
+    out = {}
+    for name, v in params.items():
+        if isinstance(v, Mapping):
+            out.update(params_from_jax({"%s_%s" % (name, k): x
+                                        for k, x in v.items()}))
+        else:
+            out[name] = torch.from_numpy(np.array(v, dtype=np.float32,
+                                                  copy=True))
+    return out
+
+
+def params_to_numpy(model: torch.nn.Module) -> Dict[str, object]:
+    """The model's parameters by JAX name, as float32 numpy arrays; the
+    flat names of a NESTED_PARAMS dict nested back under it."""
+    out: Dict[str, object] = {}
+    for name, p in model.named_parameters():
+        a = p.detach().cpu().numpy().astype(np.float32)
+        for outer, keys in NESTED_PARAMS.items():
+            key = name[len(outer) + 1:]
+            if name.startswith(outer + "_") and key in keys:
+                out.setdefault(outer, {})[key] = a
+                break
+        else:
+            out[name] = a
+    return out
 
 
 def slab_from_jax(slab) -> torch.Tensor:

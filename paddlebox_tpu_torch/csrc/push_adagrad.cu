@@ -1,102 +1,147 @@
 // The sparse push of one train step, fused: merge the per-occurrence push
-// rows of each unique key, read its slab row, apply the in-table adagrad
+// rows of each unique key, read its slab row, apply the table's in-table
 // update (with lazy embedx creation) and write the row back.
 //
 // Replaces the TPU kernel paddlebox_tpu/embedding/pallas_push.py:_push_kernel
 // (wrapper pallas_apply_push) together with the XLA work around it in
 // paddlebox_tpu/embedding/optimizers.py:275-345 (push_sparse_hostdedup:
 // the occurrence gather, the sorted segment_sum merge, the row gather and
-// the row scatter). The update is the TPU kernel's: show/click/delta_score/
-// unseen bookkeeping, per-feature-lr adagrad on embed_w (the lr is picked by
-// the UPDATED slot), shared-g2sum adagrad on embedx, and lazy embedx creation
-// from an integer hash of (slab row id, column, seed). Rows whose merged
-// g_show is 0 pass through.
+// the row scatter), and for the rules the TPU kernel does not carry, the
+// XLA apply_push (optimizers.py:73-225). The rule is a template argument:
+//   adagrad      the TPU kernel's: per-feature-lr adagrad on embed_w (the lr
+//                picked by the UPDATED slot), shared-g2sum adagrad on embedx;
+//   adam         per-column adam on embed_w (learning_rate, beta*_decay_rate,
+//                ada_epsilon) and on embedx (learning_rate too, with
+//                mf_beta*_decay_rate and mf_ada_epsilon), both clipped to
+//                the mf bounds, with their beta power columns;
+//   adam_shared  embed_w as adam; embedx with scalar moments of the mean over
+//                D of the scaled grads and of their squares;
+//   naive        SGD: embed_w at learning_rate within min/max_bound, embedx at
+//                mf_learning_rate within the mf bounds; no state.
+// Every rule keeps show/click/delta_score/unseen bookkeeping and lazy embedx
+// creation from an integer hash of (slab row id, column, seed); the embed_w
+// state changes on every active row, the embedx state only where embedx
+// exists. The expand block (E > 0, with adagrad or naive) shares the embedx
+// gate: created with embedx (expand column e hashes column D + e, so its
+// draws differ from embedx's), else stepped at mf_learning_rate (adagrad
+// with one shared g2sum column, or naive). Rows whose merged g_show is 0
+// pass through.
 //
-// Inputs: the slab [C, W] (W = 9 + D), the per-occurrence push rows grads
-// [K, G] (G = 4 + D), perm [K] (occurrences grouped by unique, ascending in
-// each group), offsets [K + 1] (unique j's occurrences are perm[offsets[j] ..
-// offsets[j + 1]), padding occurrences left out) and the strictly ascending
-// uids [K], of which the first n_uniq are slab rows. Only those n_uniq are
-// launched; the padding uids (>= C) never are. Two write modes: in place,
-// slab[uids[j]] = new row (the scatter path), or rows out, out[j] = new row
-// for every j < n_uniq, pass-through rows included (the blocked path, whose
-// blocked_write places them).
+// Inputs: the slab [C, W] (W by the rule, accessor.py: 9 + D for adagrad,
+// 11 + 3D + 2 adam, 15 + D adam_shared, 7 + D naive, and E + 1 (adagrad) or
+// E (naive) more with the expand block), the per-occurrence push rows grads
+// [K, G] (G = 4 + D + E), perm [K] (occurrences grouped by unique,
+// ascending in each group), offsets [K + 1] (unique j's occurrences are
+// perm[offsets[j] .. offsets[j + 1]), padding occurrences left out) and the
+// strictly ascending uids [K], of which the first n_uniq are slab rows. Only
+// those n_uniq are launched; the padding uids (>= C) never are. Two write
+// modes: in place, slab[uids[j]] = new row (the scatter path), or rows out,
+// out[j] = new row for every j < n_uniq, pass-through rows included (the
+// blocked path, whose blocked_write places them).
 //
 // Bound on an H100: memory. Each valid occurrence moves its perm entry and
 // its push row (4 + G * 4 B), each unique its uid and offset, its slab row
 // read and its new row written (8 + 2 * W * 4 B): at the flagship batch
-// (82,167 occurrences, 77,128 uniques, D = 8) 15.4 MB, 4.6 us at 3.35 TB/s.
-// The arithmetic is ~60 flops a unique, far below the card's rate.
+// (82,167 occurrences, 77,128 uniques, D = 8) 15.4 MB for adagrad, 4.6 us at
+// 3.35 TB/s; adam (W = 37) 27.7 MB, adagrad with a 64-wide expand block
+// (W = 82, G = 76) 76.5 MB. The arithmetic is tens of flops a column, far
+// below the card's rate.
 //
-// Design: a block of THREADS threads takes a tile of TILE consecutive
-// uniques. (1) It loads the tile's uids and offsets, and the perm entries of
-// the tile's occurrences (up to OCC of them), coalesced, into shared memory.
-// (2) It copies the tile's slab rows and occurrence push rows into shared
-// memory with 4-byte cp.async: thread l takes flattened elements l, l +
-// THREADS, ..., so a warp's 32 loads cover about two contiguous 68-byte rows
-// instead of 32 rows 68 bytes apart, and every load of the tile is in flight
-// before the block waits for any. (3) One thread per unique merges its
-// occurrences in registers and updates its row in shared memory; the embedx
-// width D is a template argument (2, 4, 8, 16, 32 or 64), so the column
-// loops unroll and their divisions overlap. (4) The tile writes its
-// rows back, 68 contiguous bytes a row (in place) or the whole tile as one
-// contiguous run (rows out). A unique's occurrences past the tile's OCC
-// budget (a hot key) are read from global memory in the same loop, so a
-// segment of any length is summed exactly. Each uid is distinct, so the
-// rows one block reads and writes are its own.
+// Design: a block of TILE threads takes a tile of TILE consecutive uniques.
+// (1) It loads the tile's uids and offsets, and the perm entries of the
+// tile's occurrences (up to OCC = 2 TILE of them), coalesced, into shared
+// memory. (2) It copies the tile's slab rows and occurrence push rows into
+// shared memory with 4-byte cp.async: thread l takes flattened elements l,
+// l + TILE, ..., so a warp's 32 loads cover a few contiguous rows instead
+// of 32 rows a row apart, and every load of the tile is in flight before
+// the block waits for any. (3) One thread per unique merges its occurrences
+// in registers and updates its row in shared memory; D and E are template
+// arguments, so the column loops unroll. (4) The tile writes its rows back,
+// contiguous a row (in place) or the whole tile as one contiguous run (rows
+// out). A unique's occurrences past the tile's OCC budget (a hot key) are
+// read from global memory in the same loop, so a segment of any length is
+// summed exactly. Each uid is distinct, so the rows one block reads and
+// writes are its own. TILE is 128 uniques where the tile's shared memory
+// fits in 64 KiB, else 64 or 32 (a wide row: adagrad with D = 64, the
+// expand block), so that several blocks stay resident an SM; the first
+// launch of each instantiation on a device checks that one fits at all.
 //
 // Numerics: build WITHOUT --use_fast_math and with --fmad=false, so sqrtf and
 // the divisions are IEEE and no multiply-add is contracted. Each unique's
 // push rows are summed from 0.0f in ascending occurrence order, as
 // torch.segment_reduce and JAX's sorted segment_sum add them; the update
 // then takes exactly the f32 operations of its plain PyTorch version
-// (push_kernels.push_adagrad_plain): the mean of the D squared embedx grads
-// is summed from column 0 up and divided by D. The creation hash is uint32
-// arithmetic exactly as in the TPU kernel, including its >>8 -> int32 -> f32
-// step, so created embedx is bit-identical to the JAX package's.
+// (push_kernels.push_adagrad_plain): each mean over columns is summed from
+// column 0 up and divided by the width; adam's ratio is a true division; each
+// 1 - beta comes from the host as the double rounded to f32. The creation
+// hash is uint32 arithmetic exactly as in the TPU kernel, including its >>8
+// -> int32 -> f32 step, so created columns are bit-identical to the JAX
+// package's.
 
 // The bf16 slab (embedding/accessor.py, slab_embed_dtype="bfloat16"): the
-// slab rows are DW = 17 + D 2-byte columns, bf16 weights and (hi, lo)
-// halves of every other column. The reference decodes the rows, runs the
-// TPU kernel on f32 and encodes the result (optimizers.py:259-262,
-// 306-316, 342-343); this form does the same inside the kernel: each
-// unique's device row is staged in shared memory (2-byte loads through
-// registers: cp.async takes no 2-byte copy and an odd-width row starts
-// 4-byte aligned only on every other row), decoded exactly to f32, updated
-// by the same code as the f32 form, and encoded with the integer round to
-// nearest even and the NaN quieting of the reference's numpy encoder
-// (never __float2bfloat16_rn, whose NaN is canonical). The column plan
-// (which device columns hold each logical column) comes from the host,
-// accessor.slab_codec_plan, as the decoding gather's does. Every unique's row
-// is decoded and encoded, as in the reference; for a row written by the
-// codec the round trip is the identity, so a pass-through row keeps its
-// bits. At the flagship batch it moves 12.6 MB (occurrences 82,167 x 52 B;
-// uniques 77,128 x (8 + 2 x 50) B), 3.8 us at 3.35 TB/s.
+// slab rows are DW = 2 W - (1 + D + E) 2-byte columns, bf16 weights
+// (embed_w, embedx, expand) and (hi, lo) halves of every other column. The
+// reference decodes the rows, runs the update on f32 and encodes the result
+// (optimizers.py:259-262, 306-316, 342-343); this form does the same inside
+// the kernel: each unique's device row is staged in shared memory (2-byte
+// loads through registers, 32 a thread in flight: cp.async takes no 2-byte
+// copy and an odd-width row starts 4-byte aligned only on every other row),
+// decoded exactly to f32, updated by the same code as the f32 form, and
+// encoded with the integer round to nearest even and the NaN quieting of
+// the reference's numpy encoder (never __float2bfloat16_rn, whose NaN is
+// canonical). The column plan (which device columns hold each logical
+// column) comes from the host, accessor.slab_codec_plan, as the decoding
+// gather's does. Every unique's row is decoded and encoded, as in the
+// reference; for a row written by the codec the round trip is the identity,
+// so a pass-through row keeps its bits. At the flagship batch the adagrad
+// form moves 12.6 MB (occurrences 82,167 x 52 B; uniques 77,128 x (8 + 2 x
+// 50) B), 3.8 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int TILE = THREADS;  // one thread per unique in the update
-constexpr int OCC = 2 * TILE;  // occurrences staged in shared memory a tile
+enum Rule { kAdagrad = 0, kAdam = 1, kAdamShared = 2, kNaive = 3 };
 
-// value row columns (accessor.py, adagrad layout)
+// header columns of a value row and of a push row (accessor.py)
 constexpr int kSlot = 0, kShow = 1, kClick = 2, kDelta = 3, kUnseen = 4,
-              kMfSize = 5, kEmbedW = 6, kEmbedG2 = 7, kEmbedx = 8;
-// push row columns
+              kMfSize = 5, kEmbedW = 6, kEmbedState = 7;
 constexpr int gSlot = 0, gShow = 1, gClick = 2, gEmbed = 3, gEmbedx = 4;
+
+// The column map of a layout (accessor.ValueLayout): state widths by rule.
+template <int RULE, int D, int E>
+struct Layout {
+  static constexpr int ES = RULE == kAdagrad ? 1 : RULE == kNaive ? 0 : 4;
+  static constexpr int XS =
+      RULE == kAdagrad ? 1 : RULE == kAdam ? 2 * D + 2
+                                           : RULE == kAdamShared ? 4 : 0;
+  static constexpr int EMBEDX = kEmbedState + ES;
+  static constexpr int XSTATE = EMBEDX + D;
+  static constexpr int EXPAND = XSTATE + XS;
+  static constexpr int ESTATE = EXPAND + E;
+  static constexpr int W = ESTATE + ((E > 0 && RULE == kAdagrad) ? 1 : 0);
+  static constexpr int G = 4 + D + E;
+  static constexpr int DW = 2 * W - (1 + D + E);  // the bf16 slab's row
+};
 
 struct PushConf {
   float nonclk_coeff, clk_coeff, nodeid_slot, mf_learning_rate,
       feature_learning_rate, mf_initial_g2sum, mf_min_bound, mf_max_bound,
-      mf_create_thresholds, mf_initial_range;
+      mf_create_thresholds, mf_initial_range, learning_rate, min_bound,
+      max_bound, beta1, beta2, one_minus_beta1, one_minus_beta2, ada_epsilon,
+      mf_beta1, mf_beta2, one_minus_mf_beta1, one_minus_mf_beta2,
+      mf_ada_epsilon;
 };
-constexpr int kConfFloats = 10;
+constexpr int kConfFloats = 23;
 
+// a NaN stays NaN, as jnp.clip and torch.clamp keep it (fmaxf alone would
+// return the bound)
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
+  return x != x ? x : fminf(fmaxf(x, lo), hi);
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
@@ -116,16 +161,24 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // under the bf16 slab the raw device rows [TILE][DW] (2-byte). GP = G | 1:
 // an odd stride, so the threads of the merge, each reading its own
 // unique's rows, hit distinct banks.
-constexpr int stage_bytes(int W, int G, int DW) {
-  return (TILE + TILE + 1 + OCC) * 4 + (TILE * W + OCC * (G | 1)) * 4 +
-         TILE * DW * 2;
+__host__ __device__ constexpr int stage_bytes(int tile, int W, int G, int DW) {
+  return (tile + tile + 1 + 2 * tile) * 4 +
+         (tile * W + 2 * tile * (G | 1)) * 4 + tile * DW * 2;
+}
+
+// uniques a tile: 128 where the tile's shared memory fits in 64 KiB, else
+// 64, else 32
+__host__ __device__ constexpr int tile_for(int W, int G, int DW) {
+  return stage_bytes(128, W, G, DW) <= 64 * 1024   ? 128
+         : stage_bytes(64, W, G, DW) <= 64 * 1024 ? 64
+                                                   : 32;
 }
 
 // The bf16 slab's column plan (embedding/accessor.py slab_codec_plan),
 // passed as a kernel parameter: logical column c is the f32 bits (hi[c] <<
 // 16 | lo[c]) of device columns hi[c] and lo[c], or a bf16 at hi[c] when
 // lo[c] is -1. The threads of a warp read the same entry at once.
-constexpr int MAX_PLAN_COLS = 9 + 64;
+constexpr int MAX_PLAN_COLS = 96;
 struct RowPlan {
   short hi[MAX_PLAN_COLS];
   short lo[MAX_PLAN_COLS];
@@ -141,10 +194,9 @@ __device__ __forceinline__ uint16_t bf16_rne(uint32_t u) {
 }
 
 // decode device row `raw` [DW] into f32 `v` [W]
-template <int D>
+template <int W>
 __device__ __forceinline__ void decode_row(const uint16_t* raw, float* v,
                                            const RowPlan& plan) {
-  constexpr int W = 9 + D;
 #pragma unroll
   for (int c = 0; c < W; ++c) {
     const int lo = plan.lo[c];
@@ -154,10 +206,9 @@ __device__ __forceinline__ void decode_row(const uint16_t* raw, float* v,
 }
 
 // encode f32 `v` [W] into device row `raw` [DW]
-template <int D>
+template <int W>
 __device__ __forceinline__ void encode_row(const float* v, uint16_t* raw,
                                            const RowPlan& plan) {
-  constexpr int W = 9 + D;
 #pragma unroll
   for (int c = 0; c < W; ++c) {
     const uint32_t u = __float_as_uint(v[c]);
@@ -171,13 +222,38 @@ __device__ __forceinline__ void encode_row(const float* v, uint16_t* raw,
   }
 }
 
+// uniform [0, mf_initial_range) of column `col` of slab row `uid`: the TPU
+// kernel's hash (pallas_push.py:86-98)
+__device__ __forceinline__ float fresh(uint32_t uid, uint32_t col,
+                                       uint32_t seed, float range) {
+  uint32_t bits = (uid * 2654435761u) ^ (col * 40503u + seed);
+  bits = bits * 747796405u + 2891336453u;
+  bits ^= bits >> 16;
+  const float u01 = (float)(int32_t)(bits >> 8) * (1.0f / 16777216.0f);
+  return u01 * range;
+}
+
+// adam on one column (optimizers.py _adam_step): w, m, v in place, with the
+// row's ratio lr * sqrt(1 - b2p) / (1 - b1p)
+__device__ __forceinline__ void adam_col(float* w, float* m, float* v,
+                                         float s, float ratio, float b1,
+                                         float b2, float omb1, float omb2,
+                                         float eps, float lo, float hi) {
+  const float nm = b1 * *m + omb1 * s;
+  const float nv = b2 * *v + omb2 * s * s;
+  *w = clip(*w + ratio * (nm / (sqrtf(nv) + eps)), lo, hi);
+  *m = nm;
+  *v = nv;
+}
+
 // The in-table update of one unique's row v [W] (shared memory) from its
-// merged push row m [G], as the TPU kernel computes it; the caller skips
-// rows whose merged g_show is not positive (they pass through).
-template <int D>
+// merged push row m [G]; the caller skips rows whose merged g_show is not
+// positive (they pass through).
+template <int RULE, int D, int E>
 __device__ __forceinline__ void update_row(float* v, const float* m,
                                            uint32_t uid, uint32_t seed,
                                            const PushConf& conf) {
+  using L = Layout<RULE, D, E>;
   const float g_show = m[gShow];
   const float g_click = m[gClick];
   const float slot = m[gSlot];
@@ -186,51 +262,128 @@ __device__ __forceinline__ void update_row(float* v, const float* m,
   const float delta =
       (v[kDelta] + conf.nonclk_coeff * (g_show - g_click)) +
       conf.clk_coeff * g_click;
-
-  // embed_w: per-feature-lr adagrad
-  const float lr = (slot == conf.nodeid_slot) ? conf.mf_learning_rate
-                                              : conf.feature_learning_rate;
-  const float g2 = v[kEmbedG2];
-  const float sw = m[gEmbed] / g_show;
-  const float ratio =
-      lr * sqrtf(conf.mf_initial_g2sum / (conf.mf_initial_g2sum + g2));
-  const float neww =
-      clip(v[kEmbedW] + ratio * sw, conf.mf_min_bound, conf.mf_max_bound);
-  const float newg2 = g2 + sw * sw;
-
-  // embedx: lazy creation, else shared-g2sum adagrad once it exists
   const float mf_size = v[kMfSize];
-  const float xg2 = v[kEmbedx + D];
   const float score =
       conf.nonclk_coeff * (show - click) + conf.clk_coeff * click;
   const bool create =
       (mf_size == 0.0f) && (score >= conf.mf_create_thresholds);
-  float out_xg2 = xg2;
+  const bool has_mf = mf_size > 0.0f;
+  const float lo = conf.mf_min_bound, hi = conf.mf_max_bound;
+
+  // embed_w and its state, on every active row
+  const float sw = m[gEmbed] / g_show;
+  if (RULE == kAdagrad) {
+    const float lr = (slot == conf.nodeid_slot) ? conf.mf_learning_rate
+                                                : conf.feature_learning_rate;
+    const float g2 = v[kEmbedState];
+    const float ratio =
+        lr * sqrtf(conf.mf_initial_g2sum / (conf.mf_initial_g2sum + g2));
+    v[kEmbedW] = clip(v[kEmbedW] + ratio * sw, lo, hi);
+    v[kEmbedState] = g2 + sw * sw;
+  } else if (RULE == kAdam || RULE == kAdamShared) {
+    float* st = v + kEmbedState;  // m, v, b1p, b2p
+    const float ratio =
+        conf.learning_rate * sqrtf(1.0f - st[3]) / (1.0f - st[2]);
+    adam_col(v + kEmbedW, st, st + 1, sw, ratio, conf.beta1, conf.beta2,
+             conf.one_minus_beta1, conf.one_minus_beta2, conf.ada_epsilon,
+             lo, hi);
+    st[2] = st[2] * conf.beta1;
+    st[3] = st[3] * conf.beta2;
+  } else {
+    v[kEmbedW] = clip(v[kEmbedW] + conf.learning_rate * sw, conf.min_bound,
+                      conf.max_bound);
+  }
+
+  // embedx and the expand block: created, else updated once they exist
+  float* x = v + L::EMBEDX;
+  float* xs = v + L::XSTATE;
+  float* e = v + L::EXPAND;
   if (create) {
 #pragma unroll
-    for (int c = 0; c < D; ++c) {
-      uint32_t bits = (uid * 2654435761u) ^ ((uint32_t)c * 40503u + seed);
-      bits = bits * 747796405u + 2891336453u;
-      bits ^= bits >> 16;
-      const float u01 = (float)(int32_t)(bits >> 8) * (1.0f / 16777216.0f);
-      v[kEmbedx + c] = u01 * conf.mf_initial_range;
-    }
-  } else if (mf_size > 0.0f) {
-    float sx[D];  // the scaled embedx grads
-    float sq = 0.0f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) {
-      sx[c] = m[gEmbedx + c] / g_show;
-      sq = sq + sx[c] * sx[c];
-    }
-    const float xratio =
-        conf.mf_learning_rate *
-        sqrtf(conf.mf_initial_g2sum / (conf.mf_initial_g2sum + xg2));
-#pragma unroll
     for (int c = 0; c < D; ++c)
-      v[kEmbedx + c] = clip(v[kEmbedx + c] + xratio * sx[c],
-                            conf.mf_min_bound, conf.mf_max_bound);
-    out_xg2 = xg2 + sq / (float)D;
+      x[c] = fresh(uid, (uint32_t)c, seed, conf.mf_initial_range);
+#pragma unroll
+    for (int c = 0; c < E; ++c)
+      e[c] = fresh(uid, (uint32_t)(D + c), seed, conf.mf_initial_range);
+  } else if (has_mf) {
+    if (RULE == kAdagrad) {
+      float sx[D];  // the scaled embedx grads
+      float sq = 0.0f;
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        sx[c] = m[gEmbedx + c] / g_show;
+        sq = sq + sx[c] * sx[c];
+      }
+      const float xg2 = xs[0];
+      const float xratio =
+          conf.mf_learning_rate *
+          sqrtf(conf.mf_initial_g2sum / (conf.mf_initial_g2sum + xg2));
+#pragma unroll
+      for (int c = 0; c < D; ++c) x[c] = clip(x[c] + xratio * sx[c], lo, hi);
+      xs[0] = xg2 + sq / (float)D;
+    } else if (RULE == kAdam) {
+      // xs: m [D], v [D], b1p, b2p
+      const float ratio = conf.learning_rate * sqrtf(1.0f - xs[2 * D + 1]) /
+                          (1.0f - xs[2 * D]);
+#pragma unroll
+      for (int c = 0; c < D; ++c)
+        adam_col(x + c, xs + c, xs + D + c, m[gEmbedx + c] / g_show, ratio,
+                 conf.mf_beta1, conf.mf_beta2, conf.one_minus_mf_beta1,
+                 conf.one_minus_mf_beta2, conf.mf_ada_epsilon, lo, hi);
+      xs[2 * D] = xs[2 * D] * conf.mf_beta1;
+      xs[2 * D + 1] = xs[2 * D + 1] * conf.mf_beta2;
+    } else if (RULE == kAdamShared) {
+      // xs: m, v, b1p, b2p, scalars over the row
+      float sx[D];
+      float sum = 0.0f, sq = 0.0f;
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        sx[c] = m[gEmbedx + c] / g_show;
+        sum = sum + sx[c];
+      }
+#pragma unroll
+      for (int c = 0; c < D; ++c) sq = sq + sx[c] * sx[c];
+      const float gm = sum / (float)D;
+      const float gsq = sq / (float)D;
+      const float ratio =
+          conf.learning_rate * sqrtf(1.0f - xs[3]) / (1.0f - xs[2]);
+      const float nm = conf.mf_beta1 * xs[0] + conf.one_minus_mf_beta1 * gm;
+      const float nv = conf.mf_beta2 * xs[1] + conf.one_minus_mf_beta2 * gsq;
+      const float step = ratio * (nm / (sqrtf(nv) + conf.mf_ada_epsilon));
+#pragma unroll
+      for (int c = 0; c < D; ++c) x[c] = clip(x[c] + step, lo, hi);
+      xs[0] = nm;
+      xs[1] = nv;
+      xs[2] = xs[2] * conf.mf_beta1;
+      xs[3] = xs[3] * conf.mf_beta2;
+    } else {
+#pragma unroll
+      for (int c = 0; c < D; ++c)
+        x[c] = clip(x[c] + conf.mf_learning_rate * (m[gEmbedx + c] / g_show),
+                    lo, hi);
+    }
+    if constexpr (E > 0) {
+      const float* eg = m + gEmbedx + D;
+      if (RULE == kAdagrad) {
+        float* eg2 = v + L::ESTATE;
+        const float old = eg2[0];
+        const float eratio =
+            conf.mf_learning_rate *
+            sqrtf(conf.mf_initial_g2sum / (conf.mf_initial_g2sum + old));
+        float sq = 0.0f;
+#pragma unroll
+        for (int c = 0; c < E; ++c) {
+          const float s = eg[c] / g_show;
+          sq = sq + s * s;
+          e[c] = clip(e[c] + eratio * s, lo, hi);
+        }
+        eg2[0] = old + sq / (float)E;
+      } else {
+#pragma unroll
+        for (int c = 0; c < E; ++c)
+          e[c] = clip(e[c] + conf.mf_learning_rate * (eg[c] / g_show), lo, hi);
+      }
+    }
   }
   v[kSlot] = slot;
   v[kShow] = show;
@@ -238,18 +391,15 @@ __device__ __forceinline__ void update_row(float* v, const float* m,
   v[kDelta] = delta;
   v[kUnseen] = 0.0f;
   v[kMfSize] = create ? (float)D : mf_size;
-  v[kEmbedW] = neww;
-  v[kEmbedG2] = newg2;
-  v[kEmbedx + D] = out_xg2;
 }
 
-// D, the embedx width, is a template argument: the column loops unroll and
-// each unique's merged push row and scaled embedx grads live in registers.
-// BF16: the slab (and out) hold the bf16 slab's 2-byte device rows of DW =
-// 17 + D columns, decoded on read and encoded on write by `plan`; else
-// f32 rows of W columns (plan unused).
-template <int D, bool BF16>
-__global__ void __launch_bounds__(THREADS)
+// BF16: the slab (and out) hold the bf16 slab's 2-byte device rows of DW
+// columns, decoded on read and encoded on write by `plan`; else f32 rows of
+// W columns (plan unused).
+template <int RULE, int D, int E, bool BF16>
+__global__ void __launch_bounds__(tile_for(Layout<RULE, D, E>::W,
+                                           Layout<RULE, D, E>::G,
+                                           BF16 ? Layout<RULE, D, E>::DW : 0))
 push_adagrad_kernel(void* __restrict__ slab_v,
                     const float* __restrict__ grads,
                     const int* __restrict__ perm,
@@ -257,7 +407,10 @@ push_adagrad_kernel(void* __restrict__ slab_v,
                     const int* __restrict__ uids, void* __restrict__ out_v,
                     int n_uniq, uint32_t seed, PushConf conf,
                     const __grid_constant__ RowPlan plan) {
-  constexpr int W = 9 + D, G = 4 + D, GP = G | 1, DW = 17 + D;
+  using L = Layout<RULE, D, E>;
+  constexpr int W = L::W, G = L::G, GP = G | 1, DW = L::DW;
+  constexpr int TILE = tile_for(W, G, BF16 ? DW : 0);
+  constexpr int OCC = 2 * TILE;
   extern __shared__ int smem[];
   int* s_uid = smem;
   int* s_off = s_uid + TILE;
@@ -279,36 +432,42 @@ push_adagrad_kernel(void* __restrict__ slab_v,
     s_off[t] = offsets[j0 + t] - occ0;
   }
   if (t == 0) s_off[rows] = occ_end - occ0;
-  for (int o = t; o < n_occ; o += THREADS) s_perm[o] = perm[occ0 + o];
+  for (int o = t; o < n_occ; o += TILE) s_perm[o] = perm[occ0 + o];
   __syncthreads();
 
   // (2) push rows and slab rows into shared memory: the push rows and f32
   // slab rows by cp.async, all in flight before the block waits; the bf16
   // slab's 2-byte rows through registers (cp.async takes no 2-byte copy,
   // and a row of odd width starts 4-byte aligned only on every other row)
-  for (int f = t; f < n_occ * G; f += THREADS) {
+  for (int f = t; f < n_occ * G; f += TILE) {
     const int o = f / G;
     const int c = f - o * G;
     cp_async4(s_occ + o * GP + c, grads + (int64_t)s_perm[o] * G + c);
   }
   if (BF16) {
-    // a thread's DW elements t, t + THREADS, ... (TILE == THREADS rows of
-    // DW), every load issued before the first store
+    // a thread's elements t, t + TILE, ... of the tile's rows * DW, 32 at
+    // a time, each chunk's loads issued before its first store
     const uint16_t* slab = reinterpret_cast<const uint16_t*>(slab_v);
-    uint16_t v[DW];
+    constexpr int CH = 32;
 #pragma unroll
-    for (int k = 0; k < DW; ++k) {
-      const int f = t + k * THREADS;
-      const int r = f / DW;
-      if (r < rows)
-        v[k] = __ldg(slab + (int64_t)s_uid[r] * DW + (f - r * DW));
+    for (int k0 = 0; k0 < DW; k0 += CH) {
+      uint16_t r16[CH];
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        const int f = t + (k0 + k) * TILE;
+        const int r = f / DW;
+        if (k0 + k < DW && r < rows)
+          r16[k] = __ldg(slab + (int64_t)s_uid[r] * DW + (f - r * DW));
+      }
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        const int f = t + (k0 + k) * TILE;
+        if (k0 + k < DW && f < rows * DW) s_raw[f] = r16[k];
+      }
     }
-#pragma unroll
-    for (int k = 0; k < DW; ++k)
-      if (t + k * THREADS < rows * DW) s_raw[t + k * THREADS] = v[k];
   } else {
     const float* slab = reinterpret_cast<const float*>(slab_v);
-    for (int f = t; f < rows * W; f += THREADS) {
+    for (int f = t; f < rows * W; f += TILE) {
       const int r = f / W;
       cp_async4(s_row + f, slab + (int64_t)s_uid[r] * W + (f - r * W));
     }
@@ -322,7 +481,7 @@ push_adagrad_kernel(void* __restrict__ slab_v,
   // every unique's row)
   if (t < rows) {
     float* v = s_row + t * W;
-    if (BF16) decode_row<D>(s_raw + t * DW, v, plan);
+    if (BF16) decode_row<W>(s_raw + t * DW, v, plan);
     float m[G];  // the merged push row
 #pragma unroll
     for (int c = 0; c < G; ++c) m[c] = 0.0f;
@@ -333,8 +492,9 @@ push_adagrad_kernel(void* __restrict__ slab_v,
       for (int c = 0; c < G; ++c) m[c] += x[c];
     }
     // else: an inactive row passes through unchanged
-    if (m[gShow] > 0.0f) update_row<D>(v, m, (uint32_t)s_uid[t], seed, conf);
-    if (BF16) encode_row<D>(v, s_raw + t * DW, plan);
+    if (m[gShow] > 0.0f)
+      update_row<RULE, D, E>(v, m, (uint32_t)s_uid[t], seed, conf);
+    if (BF16) encode_row<W>(v, s_raw + t * DW, plan);
   }
   __syncthreads();
 
@@ -342,10 +502,10 @@ push_adagrad_kernel(void* __restrict__ slab_v,
   if (BF16) {
     if (out_v != nullptr) {
       uint16_t* o = reinterpret_cast<uint16_t*>(out_v) + (int64_t)j0 * DW;
-      for (int f = t; f < rows * DW; f += THREADS) o[f] = s_raw[f];
+      for (int f = t; f < rows * DW; f += TILE) o[f] = s_raw[f];
     } else {
       uint16_t* slab = reinterpret_cast<uint16_t*>(slab_v);
-      for (int f = t; f < rows * DW; f += THREADS) {
+      for (int f = t; f < rows * DW; f += TILE) {
         const int r = f / DW;
         slab[(int64_t)s_uid[r] * DW + (f - r * DW)] = s_raw[f];
       }
@@ -353,10 +513,10 @@ push_adagrad_kernel(void* __restrict__ slab_v,
   } else {
     if (out_v != nullptr) {
       float* o = reinterpret_cast<float*>(out_v) + (int64_t)j0 * W;
-      for (int f = t; f < rows * W; f += THREADS) o[f] = s_row[f];
+      for (int f = t; f < rows * W; f += TILE) o[f] = s_row[f];
     } else {
       float* slab = reinterpret_cast<float*>(slab_v);
-      for (int f = t; f < rows * W; f += THREADS) {
+      for (int f = t; f < rows * W; f += TILE) {
         const int r = f / W;
         slab[(int64_t)s_uid[r] * W + (f - r * W)] = s_row[f];
       }
@@ -364,20 +524,47 @@ push_adagrad_kernel(void* __restrict__ slab_v,
   }
 }
 
-template <int D, bool BF16>
+// On a device's first launch of an instantiation: raise its shared-memory
+// limit where the tile needs more than 48 KiB, and check that at least one
+// block fits an SM (the resident blocks an SM, as gather_rows.cu works
+// them out). Kept: a later launch costs no query.
+template <int RULE, int D, int E, bool BF16>
+cudaError_t prepare(int smem, int tile) {
+  static std::mutex mu;
+  static std::map<int, int> known;  // device -> resident blocks an SM
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  if (known.count(dev)) return cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(push_adagrad_kernel<RULE, D, E, BF16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, push_adagrad_kernel<RULE, D, E, BF16>, tile, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  known[dev] = per_sm;
+  return cudaSuccess;
+}
+
+template <int RULE, int D, int E, bool BF16>
 int launch(void* slab, const float* grads, const int* perm,
            const int* offsets, const int* uids, void* out, int n_uniq,
            uint32_t seed, const PushConf& conf, const RowPlan& plan,
            cudaStream_t stream) {
-  constexpr int smem = stage_bytes(9 + D, 4 + D, BF16 ? 17 + D : 0);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        push_adagrad_kernel<D, BF16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (n_uniq + TILE - 1) / TILE;
-  push_adagrad_kernel<D, BF16><<<blocks, THREADS, smem, stream>>>(
+  using L = Layout<RULE, D, E>;
+  constexpr int DWs = BF16 ? L::DW : 0;
+  constexpr int tile = tile_for(L::W, L::G, DWs);
+  constexpr int smem = stage_bytes(tile, L::W, L::G, DWs);
+  if (BF16 && L::W > MAX_PLAN_COLS) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = prepare<RULE, D, E, BF16>(smem, tile);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (n_uniq + tile - 1) / tile;
+  push_adagrad_kernel<RULE, D, E, BF16><<<blocks, tile, smem, stream>>>(
       slab, grads, perm, offsets, uids, out, n_uniq, seed, conf, plan);
   return (int)cudaGetLastError();
 }
@@ -385,69 +572,75 @@ int launch(void* slab, const float* grads, const int* perm,
 template <bool BF16>
 int dispatch(void* slab, const float* grads, const int* perm,
              const int* offsets, const int* uids, void* out, int n_uniq,
-             int D, int seed, const float* conf_host, const int* plan_host,
-             void* stream) {
+             int rule, int D, int E, uint32_t seed, const PushConf& conf,
+             const RowPlan& plan, cudaStream_t s) {
+#define PBT_PUSH_CASE(r, d, e)                                              \
+  if (rule == r && D == d && E == e)                                        \
+  return launch<r, d, e, BF16>(slab, grads, perm, offsets, uids, out,       \
+                               n_uniq, seed, conf, plan, s)
+  // adagrad at every embedx width of push_kernels.KERNEL_EMBEDX_DIMS
+  PBT_PUSH_CASE(kAdagrad, 2, 0);
+  PBT_PUSH_CASE(kAdagrad, 4, 0);
+  PBT_PUSH_CASE(kAdagrad, 8, 0);
+  PBT_PUSH_CASE(kAdagrad, 16, 0);
+  PBT_PUSH_CASE(kAdagrad, 32, 0);
+  PBT_PUSH_CASE(kAdagrad, 64, 0);
+  // the other rules at KERNEL_RULE_DIMS
+  PBT_PUSH_CASE(kAdam, 8, 0);
+  PBT_PUSH_CASE(kAdamShared, 8, 0);
+  PBT_PUSH_CASE(kNaive, 8, 0);
+  // the expand block at KERNEL_EXPAND_DIMS
+  PBT_PUSH_CASE(kAdagrad, 8, 64);
+  PBT_PUSH_CASE(kNaive, 8, 64);
+#undef PBT_PUSH_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// slab [C, W] f32 (written in place when out is null), or under bf16 != 0
+// the bf16 slab's 2-byte rows [C, DW], each decoded to f32, updated and
+// encoded back; grads [K, 4 + D + E] f32, perm [K] i32, offsets [K + 1]
+// i32, uids [K] i32 with uids[0 .. n_uniq) distinct rows of the slab, out
+// null or [n_uniq, W] f32 ([n_uniq, DW] 2-byte under bf16); all contiguous
+// on the current device. rule: 0 adagrad, 1 adam, 2 adam_shared, 3 naive
+// (push_kernels.KERNEL_RULES); (rule, D, E) must be an instantiation above
+// (push_kernels.kernel_built_for; any other gives cudaErrorInvalidValue).
+// conf points at 23 host floats in PushConf order; plan_host (bf16 only)
+// at 2 * W host ints, the layout's column plan: hi positions, then lo
+// positions (-1 for a bf16 column), each below DW. Launches on `stream`;
+// returns cudaGetLastError() (or the error of preparing the launch).
+extern "C" int pbt_push(void* slab, const float* grads, const int* perm,
+                        const int* offsets, const int* uids, void* out,
+                        int n_uniq, int rule, int D, int E, int bf16,
+                        int seed, const float* conf_host,
+                        const int* plan_host, void* stream) {
   if (n_uniq <= 0) return 0;
   PushConf conf;
   float* dst = &conf.nonclk_coeff;
   for (int k = 0; k < kConfFloats; ++k) dst[k] = conf_host[k];
   RowPlan plan = {};
-  if (BF16) {
-    if (9 + D > MAX_PLAN_COLS) return (int)cudaErrorInvalidValue;
-    for (int c = 0; c < 9 + D; ++c) {
-      plan.hi[c] = (short)plan_host[c];
-      plan.lo[c] = (short)plan_host[9 + D + c];
-    }
-  }
   const cudaStream_t s = (cudaStream_t)stream;
   const uint32_t sd = (uint32_t)seed;
-#define PBT_PUSH_CASE(d)                                                    \
-  case d:                                                                   \
-    return launch<d, BF16>(slab, grads, perm, offsets, uids, out, n_uniq, \
-                           sd, conf, plan, s)
-  switch (D) {
-    PBT_PUSH_CASE(2);
-    PBT_PUSH_CASE(4);
-    PBT_PUSH_CASE(8);
-    PBT_PUSH_CASE(16);
-    PBT_PUSH_CASE(32);
-    PBT_PUSH_CASE(64);
-    default:
+  if (bf16) {
+    // W of the layout from the plan's length: the host passes 2 * W ints
+    int W = 0;
+    switch (rule) {
+      case kAdagrad: W = 9 + D + (E ? E + 1 : 0); break;
+      case kAdam: W = 13 + 3 * D; break;
+      case kAdamShared: W = 15 + D; break;
+      case kNaive: W = 7 + D + E; break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    if (W > MAX_PLAN_COLS || plan_host == nullptr)
       return (int)cudaErrorInvalidValue;
+    for (int c = 0; c < W; ++c) {
+      plan.hi[c] = (short)plan_host[c];
+      plan.lo[c] = (short)plan_host[W + c];
+    }
+    return dispatch<true>(slab, grads, perm, offsets, uids, out, n_uniq, rule,
+                          D, E, sd, conf, plan, s);
   }
-#undef PBT_PUSH_CASE
-}
-
-}  // namespace
-
-// slab [C, W] f32 (W = 9 + D; written in place when out is null), grads
-// [K, 4 + D] f32, perm [K] i32, offsets [K + 1] i32, uids [K] i32 with
-// uids[0 .. n_uniq) distinct rows of the slab, out null or [n_uniq, W] f32;
-// all contiguous on the current device. D is one of 2, 4, 8, 16, 32, 64
-// (push_kernels.KERNEL_EMBEDX_DIMS; any other gives cudaErrorInvalidValue).
-// conf points at 10 host floats in PushConf order. Launches on `stream`;
-// returns cudaGetLastError() (or the error of raising the shared-memory
-// limit).
-extern "C" int pbt_push_adagrad(float* slab, const float* grads,
-                                const int* perm, const int* offsets,
-                                const int* uids, float* out, int n_uniq,
-                                int D, int seed, const float* conf_host,
-                                void* stream) {
-  return dispatch<false>(slab, grads, perm, offsets, uids, out, n_uniq, D,
-                         seed, conf_host, nullptr, stream);
-}
-
-// The same push on the bf16 slab: slab [C, 17 + D] and out null or
-// [n_uniq, 17 + D] hold 2-byte device rows; each unique's row is decoded
-// to f32, updated as above and encoded back. plan_host points at 2 * (9 +
-// D) host ints, the layout's column plan: hi positions, then lo positions
-// (-1 for a bf16 column), each below 17 + D.
-extern "C" int pbt_push_adagrad_bf16(uint16_t* slab, const float* grads,
-                                     const int* perm, const int* offsets,
-                                     const int* uids, uint16_t* out,
-                                     int n_uniq, int D, int seed,
-                                     const float* conf_host,
-                                     const int* plan_host, void* stream) {
-  return dispatch<true>(slab, grads, perm, offsets, uids, out, n_uniq, D,
-                        seed, conf_host, plan_host, stream);
+  return dispatch<false>(slab, grads, perm, offsets, uids, out, n_uniq, rule,
+                         D, E, sd, conf, plan, s);
 }

@@ -1,24 +1,34 @@
-"""Feature-value row layout (the "accessor") of the adagrad table, and the
-slab codec of the bf16 diet.
+"""Feature-value row layout (the "accessor") of the in-table optimizers,
+and the slab codec of the bf16 diet.
 
 Counterpart of paddlebox_tpu/embedding/accessor.py:35-215, 217-340,
 344-367. A logical row (host stores, checkpoints, the push and pull math)
 is ``width`` f32 columns
 
     [slot, show, click, delta_score, unseen_days, mf_size,
-     embed_w, embed_g2sum, embedx_w[D], embedx_g2sum]
+     embed_w, embed_state..., embedx_w[D], embedx_state...,
+     expand_w[E], expand_state...]
 
-and a per-key push row is [slot, show, click, embed_g, embedx_g[D]]. Only
-the adagrad layout is ported; the adam layouts wait for a later slice. The
-day lifecycle's row arithmetic (decay, delete decision, stat rewrite after
-a save) is numpy f32 with Python-float weights in the reference's order,
-so the two packages agree bit for bit.
+whose state widths follow the table's rule (optimizer.cuh.h):
+
+    adagrad:     embed_state 1 (g2sum),       embedx_state 1 (shared g2sum)
+    adam:        embed_state 4 (m, v, b1p, b2p), embedx_state 2D + 2
+    adam_shared: embed_state 4,               embedx_state 4
+    naive:       embed_state 0,               embedx_state 0
+
+and a per-key push row is [slot, show, click, embed_g, embedx_g[D],
+expand_g[E]]. The expand block (E = expand_dim > 0, the NN-cross features
+of pull_box_extended_sparse) is allowed with adagrad (one shared g2sum
+column after it) and naive (no state). The day lifecycle's row arithmetic
+(decay, delete decision, stat rewrite after a save) is numpy f32 with
+Python-float weights in the reference's order, so the two packages agree
+bit for bit.
 
 ``embed_dtype`` is the DEVICE slab's storage (flag ``slab_embed_dtype``):
 'float32', the [capacity, width] f32 slab; or 'bfloat16', one 2-byte
-[capacity, device_width] slab whose weight columns (embed_w, embedx) hold
-their bf16 and every other column its f32 bits as (hi, lo) halves,
-losslessly. On the device those 2-byte columns are a ``torch.int16``
+[capacity, device_width] slab whose weight columns (embed_w, embedx,
+expand) hold their bf16 and every other column its f32 bits as (hi, lo)
+halves, losslessly. On the device those 2-byte columns are a ``torch.int16``
 tensor holding the reference's uint16 bits (torch.uint16 has no
 index_copy_, shifts or comparisons on the CPU); numpy views the same
 bytes as uint16. The codec (``encode_slab_rows`` / ``decode_slab_rows``
@@ -51,26 +61,53 @@ _HEADER = 7  # embed_state starts here
 
 
 EMBED_DTYPES = ("float32", "bfloat16")
+OPTIMIZERS = ("adagrad", "adam", "adam_shared", "naive")
+
+
+def _state_widths(optimizer: str, embedx_dim: int):
+    """(embed_state, embedx_state) widths of a rule (reference
+    accessor.py:46-56)."""
+    if optimizer == "adagrad":
+        return 1, 1
+    if optimizer == "adam":
+        return 4, 2 * embedx_dim + 2
+    if optimizer == "adam_shared":
+        return 4, 4
+    if optimizer == "naive":
+        return 0, 0
+    raise ValueError("unknown sparse optimizer %r" % (optimizer,))
 
 
 @dataclasses.dataclass(frozen=True)
 class ValueLayout:
-    """Column map of one adagrad table (embed_state and embedx_state are one
-    g2sum column each), and the device slab's storage ``embed_dtype``."""
+    """Column map of one table (its rule's state widths, the expand
+    block) and the device slab's storage ``embed_dtype``."""
 
     embedx_dim: int
     optimizer: str = "adagrad"
+    expand_dim: int = 0
     embed_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.optimizer != "adagrad":
-            raise ValueError("the port implements the adagrad table layout "
-                             "only, got %r" % (self.optimizer,))
+        _state_widths(self.optimizer, self.embedx_dim)
         if self.embedx_dim <= 0:
             raise ValueError("embedx_dim must be positive")
+        if self.expand_dim < 0:
+            raise ValueError("expand_dim must be >= 0")
+        if self.expand_dim and self.optimizer not in ("adagrad", "naive"):
+            raise ValueError(
+                "expand_dim requires adagrad/naive sparse optimizer")
         if self.embed_dtype not in EMBED_DTYPES:
             raise ValueError("embed_dtype must be float32 or bfloat16, got "
                              "%r" % (self.embed_dtype,))
+
+    @property
+    def embed_state_dim(self) -> int:
+        return _state_widths(self.optimizer, self.embedx_dim)[0]
+
+    @property
+    def embedx_state_dim(self) -> int:
+        return _state_widths(self.optimizer, self.embedx_dim)[1]
 
     @property
     def embed_state(self) -> int:
@@ -78,15 +115,27 @@ class ValueLayout:
 
     @property
     def embedx_w(self) -> int:
-        return _HEADER + 1
+        return _HEADER + self.embed_state_dim
 
     @property
     def embedx_state(self) -> int:
         return self.embedx_w + self.embedx_dim
 
     @property
+    def expand_w(self) -> int:
+        return self.embedx_state + self.embedx_state_dim
+
+    @property
+    def expand_state_dim(self) -> int:
+        return 1 if (self.expand_dim and self.optimizer == "adagrad") else 0
+
+    @property
+    def expand_state(self) -> int:
+        return self.expand_w + self.expand_dim
+
+    @property
     def width(self) -> int:
-        return self.embedx_state + 1
+        return self.expand_state + self.expand_state_dim
 
     @property
     def bf16(self) -> bool:
@@ -110,15 +159,25 @@ class ValueLayout:
         diet's uint16 bits."""
         return torch.int16 if self.bf16 else torch.float32
 
-
     def new_rows(self, n: int, rng: np.random.RandomState,
                  conf: SparseOptimizerConfig) -> np.ndarray:
-        """Fresh feature rows: zeros, embed_w uniform in +-initial_range when
-        that is set (embedx is created lazily by the push)."""
+        """Fresh feature rows (reference accessor.py:159-182): zeros,
+        embed_w uniform in +-initial_range when that is set (embedx and
+        the expand block are created lazily by the push); the adam rules'
+        beta power columns start at the decay rates (beta1_decay_rate and
+        beta2_decay_rate, for embedx too)."""
         rows = np.zeros((n, self.width), dtype=np.float32)
         if conf.initial_range:
             rows[:, EMBED_W] = rng.uniform(
                 -conf.initial_range, conf.initial_range, n)
+        if self.optimizer in ("adam", "adam_shared"):
+            es, xs = self.embed_state, self.embedx_state
+            rows[:, es + 2] = conf.beta1_decay_rate
+            rows[:, es + 3] = conf.beta2_decay_rate
+            xp = xs + (2 * self.embedx_dim if self.optimizer == "adam"
+                       else 2)
+            rows[:, xp] = conf.beta1_decay_rate
+            rows[:, xp + 1] = conf.beta2_decay_rate
         return rows
 
     # ----------------------------------------------------------- lifecycle
@@ -158,9 +217,11 @@ class ValueLayout:
 
 @dataclasses.dataclass(frozen=True)
 class PushLayout:
-    """Per-key gradient row: [slot, show, click, embed_g, embedx_g[D]]."""
+    """Per-key gradient row: [slot, show, click, embed_g, embedx_g[D],
+    expand_g[E]]."""
 
     embedx_dim: int
+    expand_dim: int = 0
 
     SLOT = 0
     SHOW = 1
@@ -172,8 +233,16 @@ class PushLayout:
         return 4
 
     @property
-    def width(self) -> int:
+    def expand_g(self) -> int:
         return 4 + self.embedx_dim
+
+    @property
+    def width(self) -> int:
+        return 4 + self.embedx_dim + self.expand_dim
+
+    @classmethod
+    def of(cls, layout: ValueLayout) -> "PushLayout":
+        return cls(layout.embedx_dim, layout.expand_dim)
 
 
 # --------------------------------------------------------------- slab codec
@@ -204,6 +273,7 @@ def slab_codec_plan(layout: ValueLayout) -> SlabCodecPlan:
     bf = np.zeros(W, bool)
     bf[EMBED_W] = True
     bf[layout.embedx_w:layout.embedx_w + layout.embedx_dim] = True
+    bf[layout.expand_w:layout.expand_w + layout.expand_dim] = True
     kinds, srcs = [], []
     hi_pos = np.zeros(W, np.int32)
     lo_pos = np.zeros(W, np.int32)

@@ -4,8 +4,11 @@ Counterpart of paddlebox_tpu/embedding/optimizers.py:275-345 (the host-dedup
 push, ``push_sparse_hostdedup`` with ``_merged_new_rows``) and 381-458
 (``push_blocked_write``). The merge, the row read, the in-table update and
 the scatter run as one ``push_adagrad`` kernel launch over the batch's real
-uniques; the port follows the Pallas kernel's semantics
-(``use_pallas_push``), not ``apply_push``'s threefry creation draws.
+uniques, for every rule of the table's layout (adagrad, adam, adam_shared,
+naive, with or without the expand block); the port follows the Pallas
+kernel's semantics (``use_pallas_push``: its creation hash and
+updated-slot learning rate), not ``apply_push``'s threefry creation
+draws.
 
 The slab is updated IN PLACE (the JAX step donates it). Padding uids
 (capacity + i) never reach a write: the push runs over the first
@@ -34,8 +37,8 @@ def push_sparse_hostdedup(slab: torch.Tensor, uids: torch.Tensor,
 
     uids [K] int32 strictly ascending, the first n_uniq real; perm [K]
     int32; offsets [K+1] int32 segment offsets into perm over the real
-    occurrences; grads [K, 4+D] per-occurrence push rows (padding rows all
-    zero). Each unique's row is read from the slab itself: nothing writes
+    occurrences; grads [K, 4+D+E] per-occurrence push rows (padding rows
+    all zero), E the layout's expand width. Each unique's row is read from the slab itself: nothing writes
     the slab between the step's pull and its push.
     write: 'scatter' (the kernel writes each row at its uid) or 'blocked'
     (the kernel returns the rows, the blocked_write kernel places them)."""

@@ -239,10 +239,13 @@ class PassTable:
         self.device = resolve_device(device)
         self.config = table
         self.flags = flags or PassFlags()
+        # the table's rule and expand block (reference pass_table.py:
+        # 322-327); the rows of every width take the same lifecycle
         self.layout = ValueLayout(table.embedx_dim,
                                   table.optimizer.optimizer,
+                                  expand_dim=table.expand_embed_dim,
                                   embed_dtype=embed_dtype)
-        self.push_layout = PushLayout(table.embedx_dim)
+        self.push_layout = PushLayout.of(self.layout)
         self.store = (store if store is not None
                       else make_host_store(self.layout, table, seed))
         self.store_lock = threading.Lock()

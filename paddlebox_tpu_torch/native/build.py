@@ -65,11 +65,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     c_void_p so ctypes never truncates them)."""
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     if name == "push_adagrad":
-        # the bf16 slab's entry takes the layout's column plan too
-        args = [p, p, p, p, p, p, i, i, i, ctypes.POINTER(ctypes.c_float)]
-        fns = {"pbt_push_adagrad": args + [p],
-               "pbt_push_adagrad_bf16":
-                   args + [ctypes.POINTER(ctypes.c_int), p]}
+        # one entry for every rule, expand width and slab form; the plan
+        # (the bf16 slab's column plan) may be NULL
+        fns = {"pbt_push": [p, p, p, p, p, p, i, i, i, i, i, i,
+                            ctypes.POINTER(ctypes.c_float),
+                            ctypes.POINTER(ctypes.c_int), p]}
     elif name == "blocked_write":
         fns = {"pbt_blocked_write": [p, p, p, p, i, i, i, p],
                "pbt_blocked_write_2byte": [p, p, p, p, i, i, i, p]}

@@ -1,6 +1,7 @@
 """Fused per-slot sequence pooling + CVM transform.
 
-Counterpart of paddlebox_tpu/ops/seqpool.py:21-57. The packer's segment ids
+Counterpart of paddlebox_tpu/ops/seqpool.py:21-57 and 80-89 (seqpool_sum,
+the plain sum pool of the expand block). The packer's segment ids
 (instance * num_slots + slot) are nondecreasing, so the pool is a sorted
 segment sum: each segment's keys are added in occurrence order, as the JAX
 sorted segment_sum does, and without atomics, so the result does not vary
@@ -35,6 +36,19 @@ def fused_seqpool_cvm(emb: torch.Tensor, segments: torch.Tensor,
     pinned to the last segment) and are left out of the sum instead of
     being added as zeros — one sequential run of tens of thousands of
     zeros would otherwise dominate the reduction's time on the card."""
+    pooled = seqpool_sum(emb, segments, valid, batch_size, num_slots,
+                         n_valid)
+    return cvm_transform(pooled, use_cvm)
+
+
+def seqpool_sum(emb: torch.Tensor, segments: torch.Tensor,
+                valid: torch.Tensor, batch_size: int, num_slots: int,
+                n_valid: int) -> torch.Tensor:
+    """Per-slot sum pooling with no CVM columns (reference ops/seqpool.py:
+    80-89), the pool the expand (NN-cross) embedding feeds: emb [K, E],
+    segments [K] NONDECREASING, valid [K] bool -> [batch_size, num_slots,
+    E], a sorted segment sum as fused_seqpool_cvm's (no atomics; keys from
+    ``n_valid`` on, the padding tail, left out). Differentiable in emb."""
     emb, segments, valid = emb[:n_valid], segments[:n_valid], valid[:n_valid]
     masked = torch.where(valid[:, None], emb, torch.zeros_like(emb))
     bounds = torch.arange(batch_size * num_slots + 1, dtype=segments.dtype,
@@ -42,5 +56,4 @@ def fused_seqpool_cvm(emb: torch.Tensor, segments: torch.Tensor,
     offsets = torch.searchsorted(segments, bounds)
     pooled = torch.segment_reduce(masked, "sum", offsets=offsets, axis=0,
                                   unsafe=True)
-    pooled = pooled.reshape(batch_size, num_slots, emb.shape[-1])
-    return cvm_transform(pooled, use_cvm)
+    return pooled.reshape(batch_size, num_slots, emb.shape[-1])

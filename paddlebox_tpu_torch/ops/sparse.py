@@ -1,9 +1,10 @@
 """Sparse pull/push building blocks of the train step.
 
-Counterpart of paddlebox_tpu/ops/sparse.py:30-82. The pull gathers full slab
-rows by id and cuts the per-key pull view [show, click, embed_w, embedx...].
-The backward of the pull is not a slab gradient but the per-key push rows
-built here.
+Counterpart of paddlebox_tpu/ops/sparse.py:30-121. The pull gathers full
+slab rows by id and cuts the per-key pull view [show, click, embed_w,
+embedx...]; the extended pull (pull_box_extended_sparse) cuts the expand
+block's [expand_w...] beside it. The backward of the pull is not a slab
+gradient but the per-key push rows built here.
 """
 
 from __future__ import annotations
@@ -52,3 +53,27 @@ def build_push_grads(d_emb: torch.Tensor, slots: torch.Tensor,
     return torch.cat([slots.to(d_emb.dtype)[:, None], v,
                       clicks.to(d_emb.dtype)[:, None] * v,
                       d_emb[:, 2:] * v], dim=1)
+
+
+def pull_sparse_extended(slab: torch.Tensor, ids: torch.Tensor,
+                         layout: ValueLayout):
+    """pull_box_extended_sparse (reference ops/sparse.py:85-101): the pull
+    view [K, 3+D] and the expand (NN-cross) embedding [K, E] of the same
+    gathered rows. The layout must have an expand block."""
+    if not layout.expand_dim:
+        raise ValueError("layout has no expand block (expand_dim == 0)")
+    rows = gather_slab_rows(slab, ids, layout)
+    ew = layout.expand_w
+    return (pull_view_from_rows(rows, layout),
+            rows[:, ew:ew + layout.expand_dim])
+
+
+def build_push_grads_extended(d_emb: torch.Tensor, d_expand: torch.Tensor,
+                              slots: torch.Tensor, clicks: torch.Tensor,
+                              valid: torch.Tensor) -> torch.Tensor:
+    """Push rows [K, 4+D+E] with the expand block's gradient d_expand
+    [K, E] after the embedx grads (reference ops/sparse.py:104-121, the
+    push_box_extended_sparse backward)."""
+    v = valid.to(d_emb.dtype)[:, None]
+    return torch.cat([build_push_grads(d_emb, slots, clicks, valid),
+                      d_expand * v], dim=1)

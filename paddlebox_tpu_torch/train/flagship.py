@@ -8,7 +8,14 @@ files (4 files x 4096 lines = 16 batches a pass, 20,000 ids a slot,
 seed 0). ``FLAGSHIP_BF16`` is the same with the reference's bf16 slab
 diet (``slab_embed_dtype="bfloat16"``: 25 two-byte columns a row, 50 B,
 against 17 f32 columns, 68 B); the dense model stays f32 unless
-``compute_dtype`` or ``matmul_dtype`` says otherwise. chip_smoke.py drives
+``compute_dtype`` or ``matmul_dtype`` says otherwise. ``FLAGSHIP_ADAM``,
+``FLAGSHIP_ADAM_SHARED`` and ``FLAGSHIP_NAIVE`` are the same DeepFM and
+data with the reference's other in-table rules (37, 23 and 15 f32 columns
+a row); ``FLAGSHIP_EXPAND`` is CtrDnnExpand with hidden (256, 128), as
+examples/train_ctr.py:76-78 builds it, over an adagrad table with
+``expand_embed_dim=64`` (the default extend_size of the reference user
+API _pull_box_extended_sparse, Paddle contrib/layers/nn.py:1678): 82 f32
+columns a row, the same files. chip_smoke.py drives
 its main path from here, profile_pass.py profiles the same pass, and
 rate_probe.py gathers at the pull's shape from one of its batches
 (``first_batch_ids``); a smaller
@@ -47,6 +54,7 @@ from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 from paddlebox_tpu_torch.embedding.host_store import HostEmbeddingStore
 from paddlebox_tpu_torch.models.base import ModelSpec
 from paddlebox_tpu_torch.models.deepfm import DeepFM
+from paddlebox_tpu_torch.models.nn_cross import CtrDnnExpand
 from paddlebox_tpu_torch.train.trainer import BoxTrainer
 
 
@@ -67,17 +75,52 @@ class Flagship:
     slab_embed_dtype: str = "float32"
     matmul_dtype: str = "float32"
     compute_dtype: str = "float32"
+    # the table's in-table rule and expand block; the model, "deepfm" or
+    # "ctr_dnn_expand" (CtrDnnExpand, which needs expand_dim > 0)
+    optimizer: str = "adagrad"
+    expand_dim: int = 0
+    model: str = "deepfm"
 
     def table(self) -> TableConfig:
         return TableConfig(embedx_dim=self.embedx,
+                           expand_embed_dim=self.expand_dim,
                            pass_capacity=self.capacity,
                            optimizer=SparseOptimizerConfig(
                                mf_create_thresholds=0.0,
-                               mf_initial_range=1e-3))
+                               mf_initial_range=1e-3,
+                               optimizer=self.optimizer))
+
+    def layout(self) -> ValueLayout:
+        return ValueLayout(self.embedx, self.optimizer, self.expand_dim,
+                           self.slab_embed_dtype)
 
 
 FLAGSHIP = Flagship()
 FLAGSHIP_BF16 = dataclasses.replace(FLAGSHIP, slab_embed_dtype="bfloat16")
+FLAGSHIP_ADAM = dataclasses.replace(FLAGSHIP, optimizer="adam")
+FLAGSHIP_ADAM_SHARED = dataclasses.replace(FLAGSHIP, optimizer="adam_shared")
+FLAGSHIP_NAIVE = dataclasses.replace(FLAGSHIP, optimizer="naive")
+FLAGSHIP_EXPAND = dataclasses.replace(FLAGSHIP, model="ctr_dnn_expand",
+                                      hidden=(256, 128), expand_dim=64)
+# the configurations of the other in-table rules and of the expand block,
+# by name
+RULE_FLAGSHIPS = {"adam": FLAGSHIP_ADAM, "adam_shared": FLAGSHIP_ADAM_SHARED,
+                  "naive": FLAGSHIP_NAIVE, "expand": FLAGSHIP_EXPAND}
+# their two full-width passes on the card (chip_smoke.py phase 14, seed 0,
+# push_write "scatter", chunks of 8): loss and AUC a pass, "%.10f"; the
+# values later slices hold
+RULE_DIGITS = {
+    "adam": {"loss": ("0.6876237988", "1.5722794533"),
+             "auc": ("0.4925770353", "0.4029702913")},
+    "adam_shared": {"loss": ("0.6877167821", "1.7637530565"),
+                    "auc": ("0.4935985159", "0.4417368807")},
+    "naive": {"loss": ("0.6866484880", "0.5655780435"),
+              "auc": ("0.4971680564", "0.7351465576")},
+    "expand": {"loss": ("0.6908681393", "0.3923527598"),
+               "auc": ("0.5067039926", "0.8265387528")}}
+# the expand configuration's test pass after them (predict_batches over
+# the cadence's third window), its AUC, "%.10f"
+EXPAND_TEST_PASS_DIGITS = "0.5233778979"
 DENSE_LR = 1e-3
 BLOCK_ROWS = 1024  # push_block_rows of push_write='blocked'
 
@@ -155,8 +198,9 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
                   stage_flags: StageFlags = StageFlags(),
                   obs_flags: ObsFlags = ObsFlags(),
                   **trainer_fields) -> Tuple[BoxTrainer, BoxDataset]:
-    """(trainer with an 'auc' metric, dataset over ``files``): DeepFM with
-    weights from ``seed``, ready for ``trainer.train_pass(dataset)``.
+    """(trainer with an 'auc' metric, dataset over ``files``): the
+    configuration's model (DeepFM, or CtrDnnExpand) with weights from
+    ``seed``, ready for ``trainer.train_pass(dataset)``.
 
     The host tier is the native one (the columnar dataset, the C++ store,
     the route index); ``plain_host`` puts the dataset on the record path
@@ -165,18 +209,24 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
     (scan_chunk, sparse_chunk_sync, check_nan_inf) beside dense_lr: by
     default the pass runs through the chunk driver in chunks of 8.
     ``obs_flags``: the trainer's host planes, all on by default."""
-    model = DeepFM(ModelSpec(num_slots=cfg.num_slots,
-                             slot_dim=3 + cfg.embedx),
-                   hidden=cfg.hidden,
-                   generator=torch.Generator().manual_seed(seed))
+    spec = ModelSpec(num_slots=cfg.num_slots, slot_dim=3 + cfg.embedx)
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.model == "deepfm":
+        model = DeepFM(spec, hidden=cfg.hidden, generator=gen)
+    elif cfg.model == "ctr_dnn_expand":
+        model = CtrDnnExpand(spec, cfg.expand_dim, hidden=cfg.hidden,
+                             generator=gen)
+    else:
+        raise ValueError("unknown flagship model %r" % (cfg.model,))
     trainer = BoxTrainer(model, cfg.table(), feed,
                          TrainerConfig(dense_lr=DENSE_LR,
                                        compute_dtype=cfg.compute_dtype,
                                        **trainer_fields),
                          seed=seed, flags=PushFlags(push_write, BLOCK_ROWS),
                          device=device, pass_flags=pass_flags,
-                         store=(HostEmbeddingStore(ValueLayout(cfg.embedx),
-                                                   cfg.table(), seed)
+                         store=(HostEmbeddingStore(
+                             ValueLayout(cfg.embedx, cfg.optimizer,
+                                         cfg.expand_dim), cfg.table(), seed)
                                 if plain_host else None),
                          stage_flags=stage_flags,
                          dtype_flags=DtypeFlags(cfg.slab_embed_dtype,

@@ -6,10 +6,18 @@ run_scan_chunks :120-303, make_train_step :543-742 with scan_chunk_fn
 host_batch :1041-1208, train_pass :1220-1402, predict_batches :1527-1549)
 for one GPU. A step is
 
-    pull (slab row gather) -> fused seqpool+CVM -> DeepFM forward/backward
+    pull (slab row gather) -> fused seqpool+CVM -> model forward/backward
     (autograd) -> masked BCE -> dense Adam -> build_push_grads -> push
-    (the fused push_adagrad kernel: merge, update, row write; in blocked
-    mode it returns the rows and the blocked_write kernel places them)
+    (the fused push_adagrad kernel: merge, the table's in-table rule, row
+    write; in blocked mode it returns the rows and the blocked_write
+    kernel places them)
+
+A ``use_expand`` model (CtrDnnExpand, models/nn_cross.py; reference
+trainer.py:305-325, 557-605, 635-660) pulls the extended view: the
+expand block's columns are sum-pooled (``seqpool_sum``) into its second
+input, and their gradients ride the push after the embedx grads. The
+model and the table's expand_embed_dim are checked against each other at
+construction, and ``sparse_chunk_sync`` is refused with such a model.
 
 On a bf16 slab (DtypeFlags.slab_embed_dtype) the pull gathers DECODED f32
 rows and the push decodes and encodes inside its kernel; the dense forward
@@ -96,9 +104,11 @@ from paddlebox_tpu_torch.metrics import drift, quality
 from paddlebox_tpu_torch.metrics.auc import MetricRegistry
 from paddlebox_tpu_torch.obs import make_step_reporter
 from paddlebox_tpu_torch.obs.tracer import set_trace, span, step_trace_id
-from paddlebox_tpu_torch.ops.seqpool import fused_seqpool_cvm
+from paddlebox_tpu_torch.ops.seqpool import fused_seqpool_cvm, seqpool_sum
 from paddlebox_tpu_torch.ops.sparse import (build_push_grads,
+                                            build_push_grads_extended,
                                             gather_slab_rows,
+                                            pull_sparse_extended,
                                             pull_view_from_rows)
 from paddlebox_tpu_torch.train.staging import (DeviceChunk, HostChunk,
                                                PinnedRing, to_cpu)
@@ -122,19 +132,62 @@ def masked_bce(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def model_logits(model: torch.nn.Module, pooled: torch.Tensor,
-                 compute_dtype: str = "float32") -> torch.Tensor:
-    """The model's f32 logits of ``pooled``. Under compute_dtype
-    'bfloat16' the forward runs on bf16 copies of the pooled input and of
-    every parameter, and the logits return to f32 (apply_mixed_precision
-    and mixed_logits_to_f32, paddlebox_tpu/train/trainer.py:512-541): the
-    parameters stay the f32 masters Adam updates, and their gradients flow
-    back through the casts."""
+                 compute_dtype: str = "float32",
+                 expand: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The model's f32 logits of ``pooled`` (and of the sum-pooled expand
+    vectors ``expand`` for a ``use_expand`` model). Under compute_dtype
+    'bfloat16' the forward runs on bf16 copies of the inputs and of every
+    parameter, and the logits return to f32 (apply_mixed_precision and
+    mixed_logits_to_f32, paddlebox_tpu/train/trainer.py:512-541, 598-603):
+    the parameters stay the f32 masters Adam updates, and their gradients
+    flow back through the casts."""
+    args = (pooled,) if expand is None else (pooled, expand)
     if compute_dtype == "float32":
-        return model(pooled)
+        return model(*args)
     dt = torch.bfloat16
     params = {n: p.to(dt) for n, p in model.named_parameters()}
-    return torch.func.functional_call(model, params,
-                                      (pooled.to(dt),)).to(torch.float32)
+    return torch.func.functional_call(
+        model, params, tuple(a.to(dt) for a in args)).to(torch.float32)
+
+
+def uses_expand(model: torch.nn.Module) -> bool:
+    """Whether ``model`` consumes the expand embedding (the use_expand
+    contract, models/nn_cross.py)."""
+    return bool(getattr(model, "use_expand", False))
+
+
+def check_expand_config(model: torch.nn.Module, layout: ValueLayout,
+                        use_expand: bool) -> None:
+    """Both directions of the expand contract fail at build time
+    (reference trainer.py:305-325): a model that pulls the expand
+    embedding needs a table whose expand_embed_dim is its expand_dim, and
+    a table with an expand block needs such a model."""
+    if use_expand:
+        if not layout.expand_dim:
+            raise ValueError(
+                "model pulls the expand embedding but the table has "
+                "expand_embed_dim == 0 (set TableConfig.expand_embed_dim)")
+        mdim = getattr(model, "expand_dim", layout.expand_dim)
+        if mdim != layout.expand_dim:
+            raise ValueError(
+                f"model.expand_dim={mdim} != "
+                f"TableConfig.expand_embed_dim={layout.expand_dim}")
+    elif layout.expand_dim:
+        raise ValueError(
+            "table has expand_embed_dim="
+            f"{layout.expand_dim} but the model does not consume the "
+            "expand embedding (use an use_expand model, e.g. "
+            "CtrDnnExpand, or set expand_embed_dim=0)")
+
+
+def _pull(slab: torch.Tensor, ids: torch.Tensor, layout: ValueLayout,
+          use_expand: bool):
+    """(pull view [K, 3+D], expand embedding [K, E] or None) of ``ids``:
+    the extended pull on the expand path (reference trainer.py:635-643)."""
+    if use_expand:
+        return pull_sparse_extended(slab, ids, layout)
+    return pull_view_from_rows(gather_slab_rows(slab, ids, layout),
+                               layout), None
 
 
 def make_train_step(model: torch.nn.Module, layout: ValueLayout,
@@ -145,29 +198,44 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
                     compute_dtype: str = "float32") -> Callable:
     """step(slab, batch, seed) -> (loss, preds), device tensors. Updates
     ``slab`` and the model's parameters IN PLACE. ``batch`` is a
-    device_batch dict."""
+    device_batch dict. A ``use_expand`` model (models/nn_cross.py) gets the
+    extended pull: its expand block sum-pooled beside the pull view, its
+    gradient pushed after the embedx grads (check_expand_config holds the
+    model and the table to each other)."""
     conf = table.optimizer
     padding_id = table.pass_capacity - 1
+    use_expand = uses_expand(model)
+    check_expand_config(model, layout, use_expand)
 
     def step(slab: torch.Tensor, batch: Batch, seed: int):
         ids = batch["ids"]
         segments = batch["segments"]
+        n_valid = batch["n_valid"]
         # per-key validity is derived: padding key slots (and only those)
         # address the trash row
         valid = ids != padding_id
-        rows = gather_slab_rows(slab, ids, layout)
-        emb = pull_view_from_rows(rows, layout).requires_grad_(True)
+        emb, exp = _pull(slab, ids, layout, use_expand)
+        emb.requires_grad_(True)
         pooled = fused_seqpool_cvm(emb, segments, valid, batch_size,
-                                   num_slots, batch["n_valid"])
-        logits = model_logits(model, pooled, compute_dtype)
+                                   num_slots, n_valid)
+        pooled_exp = None
+        if use_expand:
+            exp = exp.clone().requires_grad_(True)
+            pooled_exp = seqpool_sum(exp, segments, valid, batch_size,
+                                     num_slots, n_valid)
+        logits = model_logits(model, pooled, compute_dtype, pooled_exp)
         loss, preds = masked_bce(logits, batch["labels"], batch["ins_valid"])
         dense_opt.zero_grad(set_to_none=True)
         loss.backward()
         dense_opt.step()
         # per-key click = its instance's label
         clicks = batch["labels"].index_select(0, segments // num_slots)
-        push_grads = build_push_grads(emb.grad, segments % num_slots,
-                                      clicks, valid)
+        if use_expand:
+            push_grads = build_push_grads_extended(
+                emb.grad, exp.grad, segments % num_slots, clicks, valid)
+        else:
+            push_grads = build_push_grads(emb.grad, segments % num_slots,
+                                          clicks, valid)
         push_sparse_hostdedup(slab, batch["uids"], batch["perm"],
                               batch["offsets"], batch["n_uniq"], push_grads,
                               seed, layout, conf, write=push_write,
@@ -184,17 +252,22 @@ def make_eval_step(model: torch.nn.Module, layout: ValueLayout,
     """eval_step(slab, batch) -> preds [batch_size] on the device: the
     pull, fused seqpool+CVM and the forward, and nothing that writes."""
     padding_id = table.pass_capacity - 1
+    use_expand = uses_expand(model)
+    check_expand_config(model, layout, use_expand)
 
     def eval_step(slab: torch.Tensor, batch: Batch) -> torch.Tensor:
         ids = batch["ids"]
+        segments, n_valid = batch["segments"], batch["n_valid"]
+        valid = ids != padding_id
         with torch.no_grad():
-            emb = pull_view_from_rows(gather_slab_rows(slab, ids, layout),
-                                      layout)
-            pooled = fused_seqpool_cvm(emb, batch["segments"],
-                                       ids != padding_id, batch_size,
-                                       num_slots, batch["n_valid"])
-            return torch.sigmoid(model_logits(model, pooled,
-                                              compute_dtype))
+            emb, exp = _pull(slab, ids, layout, use_expand)
+            pooled = fused_seqpool_cvm(emb, segments, valid, batch_size,
+                                       num_slots, n_valid)
+            pooled_exp = (seqpool_sum(exp, segments, valid, batch_size,
+                                      num_slots, n_valid)
+                          if use_expand else None)
+            return torch.sigmoid(model_logits(model, pooled, compute_dtype,
+                                              pooled_exp))
 
     return eval_step
 
@@ -236,6 +309,13 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
     over the chunk's dedup ``cpush`` (uids, perm, offsets over the flat
     C*K occurrences, n_uniq) with one seed. Updates ``slab`` and the
     model IN PLACE."""
+    if uses_expand(model):
+        # reference trainer.py:747-753 (its TrainerConfig.sparse_chunk_sync
+        # note, configs.py:197-208): the expand block needs per-batch
+        # table state
+        raise ValueError(
+            "sparse_chunk_sync is unsupported with expand embeddings: they "
+            "need per-batch table/emb state")
     conf = table.optimizer
     padding_id = table.pass_capacity - 1
     instances = batch_size * num_slots

@@ -126,8 +126,8 @@ XBOX_HEADER_W = 7
 #: column of the 1-d embed weight (accessor.EMBED_W)
 EMBED_W_COL = 6
 
-#: embed optimizer state width per sparse optimizer, as the reference's
-#: ValueLayout gives it (the port's layout is adagrad only)
+#: embed optimizer state width per sparse optimizer, as ValueLayout gives
+#: it (embedding/accessor.py _state_widths)
 _EMBED_STATE_DIM = {"adagrad": 1, "adam": 4, "adam_shared": 4, "naive": 0}
 
 

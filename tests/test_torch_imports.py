@@ -43,7 +43,9 @@ def test_import_loads_no_jax_and_no_reference_module():
               "rate_probe", "copy_probe", "train.flagship",
               "utils.stats", "utils.timer", "utils.channel", "obs",
               "obs.log", "obs.tracer", "obs.report", "metrics.quality",
-              "metrics.drift"):
+              "metrics.drift", "models.nn_cross", "models.deepfm",
+              "ops.sparse", "ops.seqpool", "embedding.optimizers",
+              "embedding.pass_table"):
         assert "paddlebox_tpu_torch." + m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad

@@ -217,9 +217,10 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     slab, uids, new_rows, B = _blocked_case()
     push_blocked_write(torch.from_numpy(slab), torch.from_numpy(uids),
                        torch.from_numpy(new_rows), B)
-    assert pk.launch_counts() == {"push_adagrad": 0, "push_adagrad_bf16": 0,
-                                  "blocked_write": 0,
-                                  "blocked_write_2byte": 0}
+    counts = pk.launch_counts()
+    assert {"push_adagrad", "push_adagrad_bf16", "blocked_write",
+            "blocked_write_2byte"} <= set(counts)
+    assert not any(counts.values()), counts
 
 
 def test_wrappers_check_arguments():
@@ -276,10 +277,10 @@ def test_cuda_push_adagrad_matches_plain(cuda_device, rows_out):
     conf = SparseOptimizerConfig(**_conf_kwargs(3.0))
     s, g, p, o, u = [a.to(cuda_device) for a in args]
     s_k, s_p = s.clone(), s.clone()
-    before = pk.push_adagrad.launches
+    before = pk.launch_counts()["push_adagrad"]
     got = pk.push_adagrad(s_k, g, p, o, u, n, 99, layout, conf, rows_out)
     torch.cuda.synchronize()
-    assert pk.push_adagrad.launches == before + 1
+    assert pk.launch_counts()["push_adagrad"] == before + 1
     want = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n, 99, layout, conf,
                                        rows_out)
     assert torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
