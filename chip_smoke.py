@@ -173,6 +173,30 @@ Phases, each of which raises on a failed check (exit code != 0):
      4-batch FLAGSHIP_ADAM pass blocked and scatter, bit-identical; and a
      4-batch pass of each form no configuration runs (naive + expand, the
      two bf16 forms), each launching its form once a step;
+ 15. the model zoo's dense and multi-task heads (flagship.py
+     ZOO_FLAGSHIPS: CtrDnn with data_norm, Wide&Deep, DLRM, MMoE, ESMM at
+     the JAX package's default widths) over one hybrid file set (13 dense
+     columns and a conversion label, written by the spawned writer after
+     the cadence's files, as write_cadence lays them out: the passes
+     train on its first window): each configuration's two full-width passes
+     (FLAGSHIP's table and run settings), each launching push_adagrad once
+     a step and gather_rows once a step and at the promote and the two
+     write-backs (35), its loss and AUC (and ESMM's ctcvr_auc) held to
+     ZOO_DIGITS; CtrDnn's summaries f32 buffers whose dense tail equals a
+     host replay of the decay rule over the passes' batches in order
+     (batch_size bit for bit, batch_sum and batch_square_sum within
+     DN_SUM_RTOL) and whose slot blocks each move as one; the staging
+     ring's 9 leaves for MMoE (the dense and labels_cvr leaves beside the
+     main path's 7, f32 and int32), and the second of two MMoE passes
+     profiled in the writer's spawned process, its first profiler session
+     (profile_pass.py: 9 pinned copies a chunk, the idle share); a
+     4-batch MMoE pass blocked and scatter, bit-identical; one
+     sparse_chunk_sync pass of ESMM (one pull and one push a chunk); a test
+     pass of ESMM (predict_batches over held-out files, the third window
+     of the zoo's cadence-style file set, held to ZOO_TEST_PASS_DIGITS);
+     one compute_dtype="bfloat16" pass of
+     FLAGSHIP_CTR_DNN whose summaries stay f32; each pass's wall and
+     examples/s beside the DeepFM main path's, with the card line;
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -761,9 +785,10 @@ def sorted_store(table):
     return k[order], v[order]
 
 
-def main_passes(torch, trainer, ds):
+def main_passes(torch, trainer, ds, after_pass=None):
     """The main path's two train_passes: each pass's record with the
-    table's counters of the pass."""
+    table's counters of the pass; ``after_pass(record)``, when given, runs
+    after each pass and may add to its record."""
     import numpy as np
     passes = []
     for p in range(2):
@@ -778,6 +803,8 @@ def main_passes(torch, trainer, ds):
                        "examples_per_s": res["instances"] / secs,
                        "phase_s": trainer.pass_times,
                        "counters": counter_delta(before, trainer.table)})
+        if after_pass is not None:
+            after_pass(passes[-1])
     return passes
 
 
@@ -2627,6 +2654,233 @@ def rules_phase(torch, feed, files, windows, reset_counts, counts):
     return out
 
 
+# phase 15's ESMM test pass (predict_batches over the zoo's third window
+# after FLAGSHIP_ESMM's two passes on its first), its AUC, "%.10f"
+ZOO_TEST_PASS_DIGITS = "0.5307489483"
+
+
+# the relative gap allowed between the card's data_norm sums of the dense
+# tail and their host replay (both f32 sums of the same rows over two
+# passes, reduced in different orders)
+DN_SUM_RTOL = 1e-5
+
+
+def dn_replay(batches, cols, decay, state=None):
+    """The data_norm summaries (batch_size, batch_sum, batch_square_sum)
+    of the dense columns ``cols``, one show-skip block whose show is the
+    first of them, after ``batches`` (in step order) from ``state`` (the
+    init: 1e4, 0, 1e4), replayed on the host as the device applies the rule
+    (ops/data_norm.py data_norm_summary_update): each decays, then adds the
+    block's live rows (show at least 1e-7 in magnitude): their count,
+    their sum and their squared distances from the summaries' mean. The
+    count in f32 as the device keeps it; the sums in f64."""
+    import numpy as np
+    n = len(cols)
+    if state is None:
+        state = (np.full(n, 1e4, np.float32), np.zeros(n),
+                 np.full(n, 1e4))
+    size, total, square = state
+    d = np.float32(decay)
+    for b in batches:
+        x = b.dense[:, cols].astype(np.float64)
+        live = np.abs(b.dense[:, cols[0]]) >= np.float32(1e-7)
+        mean = total / size.astype(np.float64)
+        size = np.float32(size * d) + np.float32(live.sum())
+        total = total * float(d) + x[live].sum(axis=0)
+        square = square * float(d) + ((x[live] - mean) ** 2).sum(axis=0)
+    return size, total, square
+
+
+def zoo_passes(torch, trainer, ds):
+    """main_passes for a zoo configuration: ESMM's ctcvr_auc in each
+    pass's record and, for a data_norm model, the dense tail's summaries
+    checked against dn_replay after each pass: batch_size bit for bit,
+    batch_sum and batch_square_sum within DN_SUM_RTOL."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.train.trainer import uses_data_norm
+    replay = {}
+    metrics = trainer.metrics
+    m = trainer.model
+
+    def after_pass(rec):
+        if "ctcvr_auc" in metrics.metric_names():
+            rec["ctcvr_auc"] = metrics.get_metric_msg("ctcvr_auc")["auc"]
+        if not uses_data_norm(m):
+            return
+        check(all(b.dtype == torch.float32 for b in m.buffers()),
+              "ctr_dnn summaries not f32")
+        size, total, square = (t.cpu().numpy() for t in m.dn_state())
+        # this pass's batches in step order (the pass's shuffle)
+        order = ds.split_batches(1)[0]
+        S, W = m.spec.num_slots, m.dn_slot_dim
+        gaps = {}
+        for start in range(S * W, size.size, W):
+            col = start - S * W
+            cols = list(range(col, min(col + W, size.size - S * W)))
+            at = slice(start, start + len(cols))
+            replay[col] = dn_replay(order, cols, m.dn_decay,
+                                    replay.get(col))
+            r_size, r_total, r_square = replay[col]
+            gaps[col] = [float(np.max(np.abs(dev - rep) / np.abs(rep)))
+                         for dev, rep in ((total[at], r_total),
+                                          (square[at], r_square))]
+            check(np.array_equal(size[at], r_size)
+                  and max(gaps[col]) <= DN_SUM_RTOL,
+                  "ctr_dnn pass %d summaries of columns %d..%d: batch_size "
+                  "%s, replay %s; sum and square-sum gaps %s (rtol %g)"
+                  % (rec["pass"], at.start, at.stop, size[at], r_size,
+                     gaps[col], DN_SUM_RTOL))
+        blocks = size[:S * W].reshape(S, W)
+        check((blocks == blocks[:, :1]).all()
+              and (blocks > 1e4 * m.dn_decay ** (2 * 16)).all(),
+              "ctr_dnn slot blocks' batch_size %s" % blocks[:, 0])
+        rec["dn_summary"] = {
+            "dense_tail_batch_size": {str(k): float(v[0][0])
+                                      for k, v in replay.items()},
+            "dense_tail_rel_gaps": {str(k): v for k, v in gaps.items()},
+            "slot_blocks_batch_size": blocks[:, 0].tolist()}
+
+    return main_passes(torch, trainer, ds, after_pass)
+
+
+def zoo_phase(torch, windows, feed, main, reset_counts, counts, spawned):
+    """Phase 15, the model zoo at full width over the hybrid files
+    (``windows``, flagship.write_cadence's: the passes train on the first,
+    ESMM's test pass reads the third, files none of them trained on): two
+    passes of each of flagship.ZOO_FLAGSHIPS (launches as the main path's,
+    digits held to ZOO_DIGITS, CtrDnn's summaries replayed), MMoE's
+    second pass profiled in the ``spawned`` process (a
+    ProcessPoolExecutor of one spawned worker that has not yet used the
+    card), a 4-batch MMoE pass blocked and scatter, one
+    sparse_chunk_sync pass and a test pass of ESMM, one bf16 pass of
+    FLAGSHIP_CTR_DNN; walls beside the DeepFM main path's ``main`` passes.
+    Returns its records."""
+    import numpy as np
+
+    from paddlebox_tpu_torch import profile_pass
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.train import flagship
+
+    files = windows[0]
+    out = {"passes": {}, "launches": {}}
+    check(feed.task_label_slots == (("cvr", "label_cvr"),)
+          and sum(s.dim for s in feed.used_dense_slots()) == 13,
+          "zoo feed %s" % (feed,))
+    for name, cfg in flagship.ZOO_FLAGSHIPS.items():
+        trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter",
+                                             "cuda")
+        reset_counts()
+        passes = zoo_passes(torch, trainer, ds)
+        launches = counts()
+        steps = sum(p["batches"] for p in passes)
+        extra = sum(gather_launches_of(p["counters"]) for p in passes)
+        check(extra == 3 and launches == f32_launches(
+                  push_adagrad=steps, gather_rows=steps + extra),
+              "%s launches %s over %d steps and %d promotes and write-backs"
+              % (name, launches, steps, extra))
+        digits = {"loss": tuple("%.10f" % p["loss"] for p in passes),
+                  "auc": tuple("%.10f" % p["auc"] for p in passes)}
+        if name == "esmm":
+            digits["ctcvr_auc"] = tuple("%.10f" % p["ctcvr_auc"]
+                                        for p in passes)
+        for p in passes:
+            log("zoo %s pass %d: loss %.10f auc %.10f %s"
+                % (name, p["pass"], p["loss"], p["auc"], json.dumps(p)))
+        log("zoo %s digits %s; launches %s; %s"
+            % (name, json.dumps(digits), launches, card_line()))
+        want = flagship.ZOO_DIGITS[name]
+        if want is not None:
+            check(digits == want, "zoo %s digits %s, expected %s"
+                  % (name, digits, want))
+        out["passes"][name] = passes
+        out["launches"][name] = launches
+        if name == "mmoe":
+            # the pinned ring's leaves: the dense and labels_cvr leaves
+            # beside the main path's 7, in their own dtypes
+            spec = trainer._ring._spec
+            C, B = trainer.cfg.scan_chunk, cfg.batch
+            check(len(spec) == 9
+                  and spec["dense"] == ((C, B, 13), np.dtype(np.float32))
+                  and spec["labels_cvr"] == ((C, B), np.dtype(np.int32)),
+                  "MMoE staging ring spec %s" % spec)
+            # the second of two passes, profiled in the spawned process
+            # (its first torch.profiler session: a second one in a process
+            # has come back short of device events) while this one waits:
+            # 9 pinned copies a chunk
+            prof = spawned.submit(profile_pass.profile_config, cfg, files,
+                                  feed).result()
+            n_chunks = prof["batches"] // C
+            check(prof["h2d_copies"]["pinned"]["copies"] == 9 * n_chunks,
+                  "an MMoE chunked pass made %s host-to-device copies, "
+                  "expected 9 pinned a chunk" % prof["h2d_copies"])
+            log("profile_pass, MMoE chunked pass (ring leaves %s): %s"
+                % (sorted(spec), json.dumps(prof)))
+            out["profile"] = prof
+        if name == "esmm":
+            out["test_pass"] = eval_phase(
+                torch, trainer, windows[2], feed, reset_counts, counts,
+                digits=ZOO_TEST_PASS_DIGITS, tag="esmm test pass")
+        trainer.close()
+        del trainer, ds
+    out["mmoe_blocked"] = blocked_phase(torch, flagship.FLAGSHIP_MMOE, feed,
+                                        files)
+
+    # --- one chunk-synchronous ESMM pass: one pull and one push a chunk
+    trainer, ds = flagship.build_trainer(files, feed, flagship.FLAGSHIP_ESMM,
+                                         "scatter", "cuda",
+                                         sparse_chunk_sync=True)
+    reset_counts()
+    res, auc, secs = run_pass(torch, trainer, ds)
+    c = counts()
+    n_chunks = res["batches"] // trainer.cfg.scan_chunk
+    check(c == f32_launches(push_adagrad=n_chunks, gather_rows=n_chunks + 1)
+          and np.isfinite(res["loss"]) and 0.0 < auc <= 1.0,
+          "esmm sparse_chunk_sync launches %s over %d chunks, loss %r auc "
+          "%r" % (c, n_chunks, res["loss"], auc))
+    out["esmm_sync"] = {"loss": res["loss"], "auc": auc,
+                        "ctcvr_auc": trainer.metrics.get_metric_msg(
+                            "ctcvr_auc")["auc"],
+                        "pass_s": secs, "launches": c}
+    log("zoo esmm sparse_chunk_sync pass: %s" % json.dumps(out["esmm_sync"]))
+    trainer.close()
+    del trainer, ds
+
+    # --- one bf16 CtrDnn pass: the summaries stay f32 and move
+    cfg = dataclasses.replace(flagship.FLAGSHIP_CTR_DNN,
+                              compute_dtype="bfloat16")
+    trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter", "cuda")
+    before = {k: b.clone() for k, b in trainer.model.named_buffers()}
+    reset_counts()
+    res, auc, secs = run_pass(torch, trainer, ds)
+    c = counts()
+    bufs = dict(trainer.model.named_buffers())
+    check(all(b.dtype == torch.float32 and not torch.equal(b, before[k])
+              for k, b in bufs.items())
+          and np.isfinite(res["loss"]) and 0.0 < auc <= 1.0
+          and c == f32_launches(push_adagrad=res["batches"],
+                                gather_rows=res["batches"] + 1),
+          "bf16 ctr_dnn pass: buffers %s, loss %r auc %r launches %s"
+          % ({k: str(b.dtype) for k, b in bufs.items()}, res["loss"], auc,
+             c))
+    out["ctr_dnn_bf16"] = {"loss": res["loss"], "auc": auc, "pass_s": secs,
+                           "launches": c,
+                           "summary_dtypes": sorted(
+                               {str(b.dtype) for b in bufs.values()})}
+    log("zoo ctr_dnn bf16 pass: %s" % json.dumps(out["ctr_dnn_bf16"]))
+    trainer.close()
+    del trainer, ds
+
+    walls = {"deepfm_main_path": [(p["pass_s"], p["examples_per_s"])
+                                  for p in main]}
+    walls.update({n: [(p["pass_s"], p["examples_per_s"]) for p in ps]
+                  for n, ps in out["passes"].items()})
+    log("zoo pass walls (s, examples/s): %s; %s"
+        % (json.dumps(walls), card_line()))
+    out["walls"] = walls
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2674,6 +2928,11 @@ def main() -> int:
         t_data = time.perf_counter()
         written = writer.submit(flagship.write_cadence,
                                 os.path.join(tmp, "full"), cfg)
+        # the zoo's hybrid files (phase 15: it trains on the first window
+        # and tests on the third), after the cadence's
+        zoo_written = writer.submit(flagship.write_cadence,
+                                    os.path.join(tmp, "zoo"),
+                                    flagship.FLAGSHIP_CTR_DNN)
         host = {}
 
         def build_host():
@@ -2828,6 +3087,12 @@ def main() -> int:
                             counts)
         clock.lap("rules")
 
+        # 15. the model zoo's dense and multi-task heads at full width
+        zoo_windows, zoo_feed = zoo_written.result()
+        zoo = zoo_phase(torch, zoo_windows, zoo_feed, passes, reset_counts,
+                        counts, writer)
+        clock.lap("zoo")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -2873,7 +3138,15 @@ def main() -> int:
                                  for n, c in rules["launches"].items()},
                               "rules_blocked": rules["blocked"],
                               "expand_test_pass":
-                                  rules["test_pass"]["launches"]},
+                                  rules["test_pass"]["launches"],
+                              **{"zoo_" + n: c
+                                 for n, c in zoo["launches"].items()},
+                              "zoo_mmoe_blocked": zoo["mmoe_blocked"],
+                              "zoo_esmm_sync": zoo["esmm_sync"]["launches"],
+                              "zoo_esmm_test_pass":
+                                  zoo["test_pass"]["launches"],
+                              "zoo_ctr_dnn_bf16":
+                                  zoo["ctr_dnn_bf16"]["launches"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

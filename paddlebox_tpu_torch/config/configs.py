@@ -69,21 +69,29 @@ class TableConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SlotConfig:
-    """One feature slot of the MultiSlot text format."""
+    """One feature slot of the MultiSlot text format. A used float slot is
+    a dense input of ``dim`` columns (the reference's fields, in another
+    order: ``dim`` comes last, so the port's positional calls keep their
+    meaning)."""
 
     name: str
-    type: str = "uint64"     # uint64 (sparse feasign) | float (label)
+    type: str = "uint64"     # uint64 (sparse feasign) | float (dense)
     is_used: bool = True
     max_len: int = 64        # per-instance key cap of the static packing
+    dim: int = 1             # dense columns of a float slot
 
 
 @dataclasses.dataclass(frozen=True)
 class DataFeedConfig:
     """Slots and batch size; the packer's key capacity follows from
-    them."""
+    them. ``task_label_slots``: (task, slot name) pairs whose slot's first
+    value is that task's label (a multi-task model trains each head on its
+    own label); a task not listed, or a record without that value, falls
+    back to the click label."""
 
     slots: Tuple[SlotConfig, ...] = ()
     batch_size: int = 512
+    task_label_slots: Tuple[Tuple[str, str], ...] = ()
 
     def used_sparse_slots(self) -> List[SlotConfig]:
         return [s for s in self.slots if s.is_used and s.type == "uint64"]

@@ -1,10 +1,10 @@
 """Columnar record blocks and their vectorized batch packing.
 
-Counterpart of paddlebox_tpu/data/columnar.py:24-213 (without the dense
-columns and task labels, which the port's feed does not carry): the
-native parser (data/native_parser.py) returns each file as flat arrays
-(keys with their slot ordinals, per-record key offsets, labels), and a batch
-is packed by numpy indexing, with no per-record Python object.
+Counterpart of paddlebox_tpu/data/columnar.py:24-213: the native parser
+(data/native_parser.py) returns each file as flat arrays (keys with their
+slot ordinals, per-record key offsets, labels, the dense columns and the
+task labels), and a batch is packed by numpy indexing, with no per-record
+Python object.
 ``pack_columnar`` gives the bytes ``BatchPacker.pack`` gives for the same
 records in the same order.
 """
@@ -12,7 +12,7 @@ records in the same order.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -30,6 +30,8 @@ class ColumnarBlock:
     key_slot: np.ndarray     # [K] int32 used sparse slot ordinal
     labels: np.ndarray       # [N] int32
     rec_offsets: np.ndarray  # [N+1] int64
+    dense: Optional[np.ndarray] = None   # [N, dense_dim] float32
+    task_labels: Optional[Dict[str, np.ndarray]] = None  # task -> [N] int32
 
     @property
     def n_recs(self) -> int:
@@ -41,8 +43,10 @@ class ColumnarBlock:
 
     @staticmethod
     def from_key_rec(keys: np.ndarray, key_slot: np.ndarray,
-                     key_rec: np.ndarray,
-                     labels: np.ndarray) -> "ColumnarBlock":
+                     key_rec: np.ndarray, labels: np.ndarray,
+                     dense: Optional[np.ndarray] = None,
+                     task_labels: Optional[Dict[str, np.ndarray]] = None
+                     ) -> "ColumnarBlock":
         """From parser output where key_rec[i] is key i's record index
         (keys grouped by record)."""
         n = labels.shape[0]
@@ -50,7 +54,8 @@ class ColumnarBlock:
                   else np.zeros(n, np.int64))
         offsets = np.zeros(n + 1, dtype=np.int64)
         np.cumsum(counts, out=offsets[1:])
-        return ColumnarBlock(keys, key_slot, labels, offsets)
+        return ColumnarBlock(keys, key_slot, labels, offsets, dense,
+                             task_labels)
 
     def select(self, rec_idx: np.ndarray) -> "ColumnarBlock":
         """The block of the given records, in that order (fresh
@@ -61,8 +66,11 @@ class ColumnarBlock:
         flat = np.repeat(starts, counts) + _run_aranges(counts)
         offsets = np.zeros(rec_idx.size + 1, dtype=np.int64)
         np.cumsum(counts, out=offsets[1:])
-        return ColumnarBlock(self.keys[flat], self.key_slot[flat],
-                             self.labels[rec_idx], offsets)
+        return ColumnarBlock(
+            self.keys[flat], self.key_slot[flat], self.labels[rec_idx],
+            offsets, None if self.dense is None else self.dense[rec_idx],
+            None if self.task_labels is None else
+            {t: c[rec_idx] for t, c in self.task_labels.items()})
 
     @staticmethod
     def concat(blocks: Sequence["ColumnarBlock"]) -> "ColumnarBlock":
@@ -77,10 +85,17 @@ class ColumnarBlock:
         for b in blocks[1:]:
             offs.append(b.rec_offsets[1:] + shift)
             shift += b.rec_offsets[-1]
-        return ColumnarBlock(np.concatenate([b.keys for b in blocks]),
-                             np.concatenate([b.key_slot for b in blocks]),
-                             np.concatenate([b.labels for b in blocks]),
-                             np.concatenate(offs))
+        b0 = blocks[0]
+        return ColumnarBlock(
+            np.concatenate([b.keys for b in blocks]),
+            np.concatenate([b.key_slot for b in blocks]),
+            np.concatenate([b.labels for b in blocks]),
+            np.concatenate(offs),
+            None if b0.dense is None else
+            np.concatenate([b.dense for b in blocks]),
+            None if b0.task_labels is None else
+            {t: np.concatenate([b.task_labels[t] for b in blocks])
+             for t in b0.task_labels})
 
 
 def pack_columnar(block: ColumnarBlock, rec_idx: np.ndarray,
@@ -91,7 +106,9 @@ def pack_columnar(block: ColumnarBlock, rec_idx: np.ndarray,
     to the slot's max_len and the batch to ``kcap`` keys, as BatchPacker
     does. The parser emits each record's keys in used-slot order, so the
     segment vector comes out nondecreasing; the padding tail is pinned to
-    the last segment and marked invalid."""
+    the last segment and marked invalid. The dense columns and the task
+    labels follow the feed config, not the block, so a block of no record
+    packs the schema the record path packs."""
     B = feed.batch_size
     n = min(rec_idx.shape[0], B)
     rec_idx = rec_idx[:n]
@@ -102,6 +119,20 @@ def pack_columnar(block: ColumnarBlock, rec_idx: np.ndarray,
     labels[:n] = block.labels[rec_idx]
     ins_valid = np.zeros(B, dtype=bool)
     ins_valid[:n] = True
+    dense_dim = sum(s.dim for s in feed.used_dense_slots())
+    dense = None
+    if dense_dim:
+        dense = np.zeros((B, dense_dim), np.float32)
+        if block.dense is not None:
+            dense[:n] = block.dense[rec_idx]
+    task_labels = None
+    if feed.task_label_slots:
+        task_labels = {}
+        for t, _ in feed.task_label_slots:
+            col = np.zeros(B, dtype=np.int32)
+            have = (block.task_labels or {}).get(t)
+            col[:n] = have[rec_idx] if have is not None else labels[:n]
+            task_labels[t] = col
     stat_add("ingest_ins_packed", n)
     keys = np.zeros(kcap, dtype=np.uint64)
     slots = np.zeros(kcap, dtype=np.int32)
@@ -127,7 +158,7 @@ def pack_columnar(block: ColumnarBlock, rec_idx: np.ndarray,
         valid[:w] = True
     return PackedBatch(keys=keys, slots=slots, segments=segments,
                        valid=valid, labels=labels, ins_valid=ins_valid,
-                       n_ins=n)
+                       n_ins=n, dense=dense, task_labels=task_labels)
 
 
 def _run_aranges(counts: np.ndarray) -> np.ndarray:

@@ -54,6 +54,14 @@ _MERGE_CHUNK = 512
 
 class BoxDataset:
     def __init__(self, feed: DataFeedConfig, columnar: bool = True) -> None:
+        # a task label slot the feed lacks fails on both paths (the record
+        # path would quietly train the task on the click label)
+        names = {s.name for s in feed.slots}
+        for task, slot_name in feed.task_label_slots:
+            if slot_name not in names:
+                raise ValueError(
+                    "task_label_slots: slot %r (task %r) not in the feed "
+                    "config" % (slot_name, task))
         self.feed = feed
         self.columnar = columnar
         self.packer = BatchPacker(feed)

@@ -1,0 +1,21 @@
+from paddlebox_tpu_torch.models.ctr_dnn import CtrDnn
+from paddlebox_tpu_torch.models.deepfm import DeepFM
+from paddlebox_tpu_torch.models.dlrm import DLRM
+from paddlebox_tpu_torch.models.esmm import ESMM
+from paddlebox_tpu_torch.models.mmoe import MMoE
+from paddlebox_tpu_torch.models.nn_cross import CtrDnnExpand
+from paddlebox_tpu_torch.models.wide_deep import WideDeep
+
+# the port's models by the JAX package's MODEL_ZOO names
+MODEL_ZOO = {
+    "ctr_dnn": CtrDnn,
+    "deepfm": DeepFM,
+    "wide_deep": WideDeep,
+    "dlrm": DLRM,
+    "mmoe": MMoE,
+    "esmm": ESMM,
+    "ctr_dnn_expand": CtrDnnExpand,
+}
+
+__all__ = ["CtrDnn", "DeepFM", "WideDeep", "DLRM", "MMoE", "ESMM",
+           "CtrDnnExpand", "MODEL_ZOO"]

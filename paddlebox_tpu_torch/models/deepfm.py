@@ -7,7 +7,8 @@ mixes (first order, FM, deep). Parameter names match the JAX params dict:
 deep_w{i} [din, dout], deep_b{i}, fm_out_w [3], fm_out_b [].
 ``matmul_dtype`` is the deep tower's product (models/layers.py; the
 trainer sets it from DtypeFlags); mixed dtypes under a bf16 compute dtype
-promote as in the JAX model.
+promote as in the JAX model. The dense columns, when the feed has them, are
+appended to the deep tower's input (its width is the spec's total_in).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from torch import nn
 
 from paddlebox_tpu_torch.models.base import ModelSpec
 from paddlebox_tpu_torch.models.layers import (mlp_apply, mlp_init,
-                                               promoted_matmul)
+                                               promoted_matmul, with_dense)
 
 
 class DeepFM(nn.Module):
@@ -41,14 +42,15 @@ class DeepFM(nn.Module):
         self.fm_out_w = nn.Parameter(torch.randn(3, generator=generator) * 0.1)
         self.fm_out_b = nn.Parameter(torch.zeros(()))
 
-    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+    def forward(self, pooled: torch.Tensor,
+                dense: Optional[torch.Tensor] = None) -> torch.Tensor:
         B = pooled.shape[0]
         D = self.embedx_dim
         first_order = pooled[:, :, 2].sum(dim=1)
         v = pooled[:, :, 3:3 + D]
         sum_v = v.sum(dim=1)
         fm2 = 0.5 * (sum_v * sum_v - (v * v).sum(dim=1)).sum(dim=-1)
-        deep = mlp_apply(self, pooled.reshape(B, -1), "deep",
-                         matmul_dtype=self.matmul_dtype)[:, 0]
+        deep = mlp_apply(self, with_dense(pooled.reshape(B, -1), dense),
+                         "deep", matmul_dtype=self.matmul_dtype)[:, 0]
         stack = torch.stack([first_order, fm2, deep], dim=-1)
         return promoted_matmul(stack, self.fm_out_w) + self.fm_out_b

@@ -50,13 +50,24 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
 
 def mlp_apply(module: nn.Module, x: torch.Tensor, name: str,
               act: Callable = torch.relu,
-              matmul_dtype: str = "float32") -> torch.Tensor:
-    """Dense layers in order, ``act`` between them, none after the last."""
+              matmul_dtype: str = "float32",
+              final_act: bool = False) -> torch.Tensor:
+    """Dense layers in order, ``act`` between them, and after the last one
+    too with ``final_act``."""
     i = 0
     while hasattr(module, f"{name}_w{i}"):
         x = matmul(x, getattr(module, f"{name}_w{i}"), matmul_dtype) \
             + getattr(module, f"{name}_b{i}")
-        if hasattr(module, f"{name}_w{i + 1}"):
+        if final_act or hasattr(module, f"{name}_w{i + 1}"):
             x = act(x)
         i += 1
     return x
+
+
+def with_dense(x: torch.Tensor, dense: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    """x [B, F] with the dense columns appended, when there are any (in
+    the promoted dtype, as jnp.concatenate gives it)."""
+    if dense is None:
+        return x
+    return torch.cat([x, dense], dim=-1)

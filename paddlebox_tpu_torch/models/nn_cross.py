@@ -25,7 +25,7 @@ from torch import nn
 
 from paddlebox_tpu_torch.models.base import ModelSpec
 from paddlebox_tpu_torch.models.layers import (mlp_apply, mlp_init,
-                                               promoted_matmul)
+                                               promoted_matmul, with_dense)
 
 
 class CtrDnnExpand(nn.Module):
@@ -53,15 +53,17 @@ class CtrDnnExpand(nn.Module):
         self.cross_fm_scale = nn.Parameter(torch.ones(()))
 
     def forward(self, pooled: torch.Tensor,
-                expand: Optional[torch.Tensor] = None) -> torch.Tensor:
+                expand: Optional[torch.Tensor] = None,
+                dense: Optional[torch.Tensor] = None) -> torch.Tensor:
         """pooled [B, S, slot_dim] base view; expand [B, S, E] the
         sum-pooled expand vectors (required: the trainer's extended pull
-        supplies them)."""
+        supplies them); dense [B, dense_dim] appended to the tower's
+        input, when the feed has it."""
         if expand is None:
             raise ValueError("CtrDnnExpand needs the expand input")
         B = pooled.shape[0]
-        deep = mlp_apply(self, pooled.reshape(B, -1), "dnn",
-                         matmul_dtype=self.matmul_dtype)[:, 0]
+        deep = mlp_apply(self, with_dense(pooled.reshape(B, -1), dense),
+                         "dnn", matmul_dtype=self.matmul_dtype)[:, 0]
         # 0.5 * sum_e ((sum_s v_se)^2 - sum_s v_se^2), the pairwise slot
         # inner products
         s_sum = expand.sum(dim=1)

@@ -89,13 +89,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """argtypes/restype of every entry the port calls."""
     c = ctypes
     p = c.c_void_p
-    lib.psr_parse_file.restype = p
-    lib.psr_parse_file.argtypes = [c.c_char_p, I32P, I32P, I32P,
-                                   c.c_int32, c.c_int32]
+    lib.psr_parse_file2.restype = p
+    lib.psr_parse_file2.argtypes = [c.c_char_p, I32P, I32P, I32P,
+                                    c.c_int32, c.c_int32, I32P, c.c_int32]
     for name, res in (("psr_n_keys", c.c_int64), ("psr_n_recs", c.c_int64),
                       ("psr_n_bad", c.c_int64), ("psr_keys", U64P),
                       ("psr_key_slot", I32P), ("psr_key_rec", I64P),
-                      ("psr_labels", I32P)):
+                      ("psr_labels", I32P), ("psr_dense_dim", c.c_int32),
+                      ("psr_dense", F32P), ("psr_task_labels", I32P)):
         fn = getattr(lib, name)
         fn.restype = res
         fn.argtypes = [p]

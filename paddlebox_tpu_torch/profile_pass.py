@@ -178,6 +178,21 @@ def profile_pass(trainer, ds, out_dir: str = "", warmup: bool = True):
     }, prof
 
 
+def profile_config(cfg, files, feed) -> Dict[str, object]:
+    """The record of ``profile_pass`` for flagship configuration ``cfg``
+    over ``files`` (``feed``'s), its first pass the warm-up, made in the
+    calling process. Run it as a process's first torch.profiler session:
+    a later session in the same process has come back short of device
+    events."""
+    from paddlebox_tpu_torch.train import flagship
+
+    trainer, ds = flagship.build_trainer(files, feed, cfg, device="cuda")
+    try:
+        return profile_pass(trainer, ds)[0]
+    finally:
+        trainer.close()
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="")

@@ -15,7 +15,21 @@ a row); ``FLAGSHIP_EXPAND`` is CtrDnnExpand with hidden (256, 128), as
 examples/train_ctr.py:76-78 builds it, over an adagrad table with
 ``expand_embed_dim=64`` (the default extend_size of the reference user
 API _pull_box_extended_sparse, Paddle contrib/layers/nn.py:1678): 82 f32
-columns a row, the same files. chip_smoke.py drives
+columns a row, the same files.
+
+The model zoo's dense and multi-task heads (``ZOO_FLAGSHIPS``) keep
+FLAGSHIP's table, batch and run settings and read one hybrid file set,
+the same generator with ``dense_dim=13`` (the integer-feature count of
+Criteo and of the MLPerf-rec DLRM) and ``conversion=True`` (a label_cvr
+slot, the "cvr" task's label), each model at the JAX package's default
+widths: ``FLAGSHIP_CTR_DNN`` CtrDnn hidden (512, 256, 128) with data_norm
+at dn_slot_dim 11 (the pooled slot width; BASELINE.json config 1),
+``FLAGSHIP_WIDE_DEEP`` WideDeep hidden (256, 128, 64) and
+``FLAGSHIP_DLRM`` DLRM bottom (128, 64) + embedx, top (256, 128) (config
+3, the dense+sparse hybrid), ``FLAGSHIP_MMOE`` MMoE with 4 experts of 64
+and towers (32,) for tasks (ctr, cvr) and ``FLAGSHIP_ESMM`` ESMM towers
+(256, 128, 64) with loss_mode "esmm" (config 4, multi-task ranking).
+chip_smoke.py drives
 its main path from here, profile_pass.py profiles the same pass, and
 rate_probe.py gathers at the pull's shape from one of its batches
 (``first_batch_ids``); a smaller
@@ -52,9 +66,8 @@ from paddlebox_tpu_torch.data.generator import write_synthetic_ctr_files
 from paddlebox_tpu_torch.device import DeviceLike
 from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 from paddlebox_tpu_torch.embedding.host_store import HostEmbeddingStore
+from paddlebox_tpu_torch.models import MODEL_ZOO
 from paddlebox_tpu_torch.models.base import ModelSpec
-from paddlebox_tpu_torch.models.deepfm import DeepFM
-from paddlebox_tpu_torch.models.nn_cross import CtrDnnExpand
 from paddlebox_tpu_torch.train.trainer import BoxTrainer
 
 
@@ -75,11 +88,14 @@ class Flagship:
     slab_embed_dtype: str = "float32"
     matmul_dtype: str = "float32"
     compute_dtype: str = "float32"
-    # the table's in-table rule and expand block; the model, "deepfm" or
-    # "ctr_dnn_expand" (CtrDnnExpand, which needs expand_dim > 0)
+    # the table's in-table rule and expand block; the model, a MODEL_ZOO
+    # name ("ctr_dnn_expand", CtrDnnExpand, needs expand_dim > 0)
     optimizer: str = "adagrad"
     expand_dim: int = 0
     model: str = "deepfm"
+    # the zoo's feed: dense columns and the conversion label
+    dense_dim: int = 0
+    conversion: bool = False
 
     def table(self) -> TableConfig:
         return TableConfig(embedx_dim=self.embedx,
@@ -118,10 +134,43 @@ RULE_DIGITS = {
               "auc": ("0.4971680564", "0.7351465576")},
     "expand": {"loss": ("0.6908681393", "0.3923527598"),
                "auc": ("0.5067039926", "0.8265387528")}}
+# the zoo over the hybrid files (dense columns and a conversion label)
+ZOO_DATA = dict(dense_dim=13, conversion=True)
+FLAGSHIP_CTR_DNN = dataclasses.replace(FLAGSHIP, model="ctr_dnn",
+                                       **ZOO_DATA)
+FLAGSHIP_WIDE_DEEP = dataclasses.replace(FLAGSHIP, model="wide_deep",
+                                         hidden=(256, 128, 64), **ZOO_DATA)
+FLAGSHIP_DLRM = dataclasses.replace(FLAGSHIP, model="dlrm",
+                                    hidden=(256, 128), **ZOO_DATA)
+FLAGSHIP_MMOE = dataclasses.replace(FLAGSHIP, model="mmoe", hidden=(32,),
+                                    **ZOO_DATA)
+FLAGSHIP_ESMM = dataclasses.replace(FLAGSHIP, model="esmm",
+                                    hidden=(256, 128, 64), **ZOO_DATA)
+ZOO_FLAGSHIPS = {"ctr_dnn": FLAGSHIP_CTR_DNN,
+                 "wide_deep": FLAGSHIP_WIDE_DEEP, "dlrm": FLAGSHIP_DLRM,
+                 "mmoe": FLAGSHIP_MMOE, "esmm": FLAGSHIP_ESMM}
+# their two full-width passes on the card (chip_smoke.py phase 15, seed 0,
+# push_write "scatter", chunks of 8): loss and AUC a pass, "%.10f" (ESMM's
+# ctcvr_auc too); the values later slices hold
+ZOO_DIGITS = {
+    "ctr_dnn": {"loss": ("0.6910443902", "0.2504966259"),
+                "auc": ("0.5016594996", "0.8400277333")},
+    "wide_deep": {"loss": ("0.6913253069", "0.4287662506"),
+                  "auc": ("0.5045334118", "0.7885313656")},
+    "dlrm": {"loss": ("0.6853043437", "0.6822754741"),
+             "auc": ("0.5021083694", "0.5051073115")},
+    "mmoe": {"loss": ("1.2568528652", "0.9889304042"),
+             "auc": ("0.4937408910", "0.7726104023")},
+    "esmm": {"loss": ("1.2378480434", "0.8536358476"),
+             "auc": ("0.5061925378", "0.7749946241"),
+             "ctcvr_auc": ("0.4974737686", "0.7128110137")}}
 # the expand configuration's test pass after them (predict_batches over
 # the cadence's third window), its AUC, "%.10f"
 EXPAND_TEST_PASS_DIGITS = "0.5233778979"
 DENSE_LR = 1e-3
+# the constructor argument ``Flagship.hidden`` sets, where it is not
+# ``hidden``
+_HIDDEN_ARG = {"dlrm": "top", "mmoe": "tower", "esmm": "tower"}
 BLOCK_ROWS = 1024  # push_block_rows of push_write='blocked'
 
 
@@ -131,7 +180,8 @@ def write_files(out_dir: str, cfg: Flagship = FLAGSHIP
     files, feed = write_synthetic_ctr_files(
         out_dir, num_files=cfg.num_files, lines_per_file=cfg.lines_per_file,
         num_slots=cfg.num_slots, vocab_per_slot=cfg.vocab_per_slot,
-        max_len=cfg.max_len, seed=cfg.data_seed)
+        max_len=cfg.max_len, dense_dim=cfg.dense_dim, seed=cfg.data_seed,
+        conversion=cfg.conversion)
     return files, dataclasses.replace(feed, batch_size=cfg.batch)
 
 
@@ -190,6 +240,25 @@ def first_chunk_ids(files: List[str], feed: DataFeedConfig,
                  cfg.capacity - 1).astype(np.int32) for b in group])
 
 
+def build_model(cfg: Flagship = FLAGSHIP, seed: int = 0) -> torch.nn.Module:
+    """The configuration's model, MODEL_ZOO[cfg.model], its weights drawn
+    on the CPU from ``torch.Generator().manual_seed(seed)``: ``hidden`` is
+    the MLP, DLRM's top MLP or the towers, every other width is the
+    constructor's default; CtrDnn runs data_norm at the pooled slot
+    width."""
+    if cfg.model not in MODEL_ZOO:
+        raise ValueError("unknown flagship model %r" % (cfg.model,))
+    spec = ModelSpec(num_slots=cfg.num_slots, slot_dim=3 + cfg.embedx,
+                     dense_dim=cfg.dense_dim)
+    kw = {_HIDDEN_ARG.get(cfg.model, "hidden"): cfg.hidden}
+    if cfg.model == "ctr_dnn_expand":
+        kw["expand_dim"] = cfg.expand_dim
+    if cfg.model == "ctr_dnn":
+        kw.update(use_data_norm=True, dn_slot_dim=spec.slot_dim)
+    return MODEL_ZOO[cfg.model](spec, generator=torch.Generator()
+                                .manual_seed(seed), **kw)
+
+
 def build_trainer(files: List[str], feed: DataFeedConfig,
                   cfg: Flagship = FLAGSHIP, push_write: str = "scatter",
                   device: DeviceLike = None, seed: int = 0,
@@ -199,8 +268,9 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
                   obs_flags: ObsFlags = ObsFlags(),
                   **trainer_fields) -> Tuple[BoxTrainer, BoxDataset]:
     """(trainer with an 'auc' metric, dataset over ``files``): the
-    configuration's model (DeepFM, or CtrDnnExpand) with weights from
-    ``seed``, ready for ``trainer.train_pass(dataset)``.
+    configuration's model (``build_model``) with weights from ``seed``,
+    ready for ``trainer.train_pass(dataset)``. ESMM's trainer also has a
+    'ctcvr_auc' metric on (label_cvr, pred_ctcvr).
 
     The host tier is the native one (the columnar dataset, the C++ store,
     the route index); ``plain_host`` puts the dataset on the record path
@@ -209,15 +279,7 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
     (scan_chunk, sparse_chunk_sync, check_nan_inf) beside dense_lr: by
     default the pass runs through the chunk driver in chunks of 8.
     ``obs_flags``: the trainer's host planes, all on by default."""
-    spec = ModelSpec(num_slots=cfg.num_slots, slot_dim=3 + cfg.embedx)
-    gen = torch.Generator().manual_seed(seed)
-    if cfg.model == "deepfm":
-        model = DeepFM(spec, hidden=cfg.hidden, generator=gen)
-    elif cfg.model == "ctr_dnn_expand":
-        model = CtrDnnExpand(spec, cfg.expand_dim, hidden=cfg.hidden,
-                             generator=gen)
-    else:
-        raise ValueError("unknown flagship model %r" % (cfg.model,))
+    model = build_model(cfg, seed)
     trainer = BoxTrainer(model, cfg.table(), feed,
                          TrainerConfig(dense_lr=DENSE_LR,
                                        compute_dtype=cfg.compute_dtype,
@@ -233,6 +295,9 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
                                                 cfg.matmul_dtype),
                          obs_flags=obs_flags)
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
+    if getattr(model, "loss_mode", "") == "esmm":
+        trainer.metrics.init_metric("ctcvr_auc", "label_cvr", "pred_ctcvr",
+                                    table_size=1 << 20)
     ds = BoxDataset(feed, columnar=not plain_host)
     ds.set_filelist(files)
     return trainer, ds

@@ -12,6 +12,26 @@ for one GPU. A step is
     write; in blocked mode it returns the rows and the blocked_write
     kernel places them)
 
+The model zoo (models/__init__.py MODEL_ZOO) rides the same step. A feed
+with dense float slots adds the batch's ``dense`` [B, dense_dim] leaf, which
+every model call takes beside the pooled input (the model's spec must have
+that dense_dim). A multi-task model (MMoE, ESMM: more than one task name,
+the main task first) returns logits by task and trains on
+``multi_task_loss`` (reference trainer.py:437-464): the sum of each task's
+masked mean BCE, or with ``loss_mode = "esmm"`` BCE(click, pCTR) +
+BCE(conversion, pCTCVR), which adds a 'ctcvr' prediction. Each task's label
+is the batch's ``labels_<task>`` leaf where the feed has one
+(``task_label_slots``), the click label otherwise; the push's per-key
+clicks come from the main task's label. Its predictions are a dict by task
+at every level (step, chunk stack, host), and the metrics see
+``pred_<task>`` and ``label_<task>`` with ``pred`` the main task's; eval
+and predict_batches return the main task's. A ``use_data_norm`` model
+(CtrDnn) normalizes its input by running summaries, buffers that the step
+moves after the dense Adam step and before the push with the model's
+``update_summary`` on the step's f32 pooled input and dense columns (every
+row of the batch counts, padding rows too, as in the reference);
+``sparse_chunk_sync`` refuses such a model.
+
 A ``use_expand`` model (CtrDnnExpand, models/nn_cross.py; reference
 trainer.py:305-325, 557-605, 635-660) pulls the extended view: the
 expand block's columns are sum-pooled (``seqpool_sum``) into its second
@@ -79,7 +99,8 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -91,7 +112,7 @@ from paddlebox_tpu_torch.config.flags import (DtypeFlags, ObsFlags,
                                               PassFlags, PushFlags,
                                               StageFlags)
 from paddlebox_tpu_torch.convert import (adam_state_from_numpy,
-                                         adam_state_to_numpy,
+                                         adam_state_to_numpy, dense_state,
                                          params_from_jax, params_to_numpy)
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.packer import PackedBatch
@@ -115,6 +136,8 @@ from paddlebox_tpu_torch.train.staging import (DeviceChunk, HostChunk,
 from paddlebox_tpu_torch.utils.timer import Timer
 
 Batch = Dict[str, object]
+# a step's predictions: [B] (single task) or by task (multi-task)
+Preds = Union[torch.Tensor, Dict[str, torch.Tensor]]
 # a stager still alive this long after the consumer stopped raises
 STAGER_GRACE_S = 60.0
 
@@ -131,23 +154,123 @@ def masked_bce(logits: torch.Tensor, labels: torch.Tensor,
     return loss, torch.sigmoid(logits)
 
 
+def multi_task_loss(logits: Dict[str, torch.Tensor],
+                    labels: Dict[str, torch.Tensor], ins_valid: torch.Tensor,
+                    loss_mode: str = "sum"):
+    """(loss, preds by task) of a multi-task model (_multi_task_loss,
+    paddlebox_tpu/train/trainer.py:437-464). 'sum': each task's masked mean
+    sigmoid BCE, added in the logits' task order. 'esmm': the entire-space
+    loss BCE(click, pCTR) + BCE(conversion, pCTCVR) over the valid
+    instances, pCTCVR = pCTR * pCVR clipped to [1e-7, 1 - 1e-7], and the
+    predictions gain 'ctcvr'."""
+    if loss_mode == "esmm":
+        preds = {t: torch.sigmoid(lg) for t, lg in logits.items()}
+        pctcvr = torch.clamp(preds["ctr"] * preds["cvr"], 1e-7, 1.0 - 1e-7)
+        click = labels["ctr"].to(torch.float32)
+        conv = labels["cvr"].to(torch.float32)
+        lg = logits["ctr"]
+        bce_ctr = (-click * F.logsigmoid(lg)
+                   - (1.0 - click) * F.logsigmoid(-lg))
+        bce_ctcvr = -(conv * torch.log(pctcvr)
+                      + (1.0 - conv) * torch.log1p(-pctcvr))
+        per = bce_ctr + bce_ctcvr
+        denom = torch.clamp(ins_valid.sum().to(per.dtype), min=1.0)
+        loss = torch.where(ins_valid, per, torch.zeros_like(per)).sum() \
+            / denom
+        return loss, dict(preds, ctcvr=pctcvr)
+    if loss_mode != "sum":
+        raise ValueError("loss_mode must be 'sum' or 'esmm', got %r"
+                         % (loss_mode,))
+    total, preds = None, {}
+    for t, lg in logits.items():
+        loss, preds[t] = masked_bce(lg, labels[t], ins_valid)
+        total = loss if total is None else total + loss
+    return total, preds
+
+
 def model_logits(model: torch.nn.Module, pooled: torch.Tensor,
                  compute_dtype: str = "float32",
-                 expand: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The model's f32 logits of ``pooled`` (and of the sum-pooled expand
-    vectors ``expand`` for a ``use_expand`` model). Under compute_dtype
-    'bfloat16' the forward runs on bf16 copies of the inputs and of every
-    parameter, and the logits return to f32 (apply_mixed_precision and
-    mixed_logits_to_f32, paddlebox_tpu/train/trainer.py:512-541, 598-603):
-    the parameters stay the f32 masters Adam updates, and their gradients
-    flow back through the casts."""
-    args = (pooled,) if expand is None else (pooled, expand)
+                 expand: Optional[torch.Tensor] = None,
+                 dense: Optional[torch.Tensor] = None):
+    """The model's f32 logits ([B], or a dict of [B] by task) of
+    ``pooled`` and, when given, the batch's dense columns ``dense`` and the
+    sum-pooled expand vectors ``expand`` (a ``use_expand`` model). Under
+    compute_dtype 'bfloat16' the forward runs on bf16 copies of the inputs
+    and of every parameter, and the logits return to f32
+    (apply_mixed_precision and mixed_logits_to_f32,
+    paddlebox_tpu/train/trainer.py:512-541, 598-603): the parameters stay
+    the f32 masters Adam updates, and their gradients flow back through the
+    casts. Buffers (CtrDnn's data_norm summaries) are not cast: they stay
+    f32, as the reference's cast_for_compute preserves dn_summary."""
+    kwargs = {k: v for k, v in (("expand", expand), ("dense", dense))
+              if v is not None}
     if compute_dtype == "float32":
-        return model(*args)
+        return model(pooled, **kwargs)
     dt = torch.bfloat16
     params = {n: p.to(dt) for n, p in model.named_parameters()}
-    return torch.func.functional_call(
-        model, params, tuple(a.to(dt) for a in args)).to(torch.float32)
+    out = torch.func.functional_call(
+        model, params, (pooled.to(dt),),
+        {k: v.to(dt) for k, v in kwargs.items()})
+    if isinstance(out, dict):
+        return {t: v.to(torch.float32) for t, v in out.items()}
+    return out.to(torch.float32)
+
+
+def task_names(model: torch.nn.Module) -> Tuple[str, ...]:
+    """The model's tasks, the main one first."""
+    return tuple(getattr(model, "task_names", ("ctr",)))
+
+
+def is_multi_task(model: torch.nn.Module) -> bool:
+    return len(task_names(model)) > 1
+
+
+def uses_data_norm(model: torch.nn.Module) -> bool:
+    """Whether ``model`` carries data_norm summaries the step moves
+    (reference trainer.py:563-567)."""
+    return bool(getattr(model, "use_data_norm", False)) and hasattr(
+        model, "update_summary")
+
+
+def task_label(batch: Batch, task: str) -> torch.Tensor:
+    """The task's label leaf, the click label where the feed has none."""
+    return batch.get("labels_" + task, batch["labels"])
+
+
+def forward_loss(model: torch.nn.Module, pooled: torch.Tensor, batch: Batch,
+                 compute_dtype: str = "float32",
+                 expand: Optional[torch.Tensor] = None):
+    """(loss, preds) of one batch: the forward on ``pooled`` (and the
+    batch's dense leaf), then masked BCE, or multi_task_loss with each
+    task's label for a multi-task model (preds by task)."""
+    logits = model_logits(model, pooled, compute_dtype, expand,
+                          batch.get("dense"))
+    if is_multi_task(model):
+        labels = {t: task_label(batch, t) for t in task_names(model)}
+        return multi_task_loss(logits, labels, batch["ins_valid"],
+                               getattr(model, "loss_mode", "sum"))
+    return masked_bce(logits, batch["labels"], batch["ins_valid"])
+
+
+def stack_preds(preds: Sequence[Preds]) -> Preds:
+    """The steps' predictions stacked [C, B] (one stack a task)."""
+    if isinstance(preds[0], dict):
+        return {t: torch.stack([p[t] for p in preds]) for t in preds[0]}
+    return torch.stack(preds)
+
+
+def preds_to_host(preds: Preds):
+    """Predictions as numpy (a dict of them for a multi-task model)."""
+    if isinstance(preds, dict):
+        return {t: v.cpu().numpy() for t, v in preds.items()}
+    return preds.cpu().numpy()
+
+
+def preds_row(preds, j: int):
+    """Row ``j`` of stacked predictions (of each task's stack)."""
+    if isinstance(preds, dict):
+        return {t: v[j] for t, v in preds.items()}
+    return preds[j]
 
 
 def uses_expand(model: torch.nn.Module) -> bool:
@@ -206,6 +329,11 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
     padding_id = table.pass_capacity - 1
     use_expand = uses_expand(model)
     check_expand_config(model, layout, use_expand)
+    has_summary = uses_data_norm(model)
+    if use_expand and has_summary:
+        raise ValueError("expand embedding + data_norm summary is not "
+                         "supported in one model")
+    main_task = task_names(model)[0]
 
     def step(slab: torch.Tensor, batch: Batch, seed: int):
         ids = batch["ids"]
@@ -223,13 +351,16 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
             exp = exp.clone().requires_grad_(True)
             pooled_exp = seqpool_sum(exp, segments, valid, batch_size,
                                      num_slots, n_valid)
-        logits = model_logits(model, pooled, compute_dtype, pooled_exp)
-        loss, preds = masked_bce(logits, batch["labels"], batch["ins_valid"])
+        loss, preds = forward_loss(model, pooled, batch, compute_dtype,
+                                   pooled_exp)
         dense_opt.zero_grad(set_to_none=True)
         loss.backward()
         dense_opt.step()
-        # per-key click = its instance's label
-        clicks = batch["labels"].index_select(0, segments // num_slots)
+        if has_summary:
+            model.update_summary(pooled.detach(), batch.get("dense"))
+        # per-key click = its instance's (main task's) label
+        clicks = task_label(batch, main_task).index_select(
+            0, segments // num_slots)
         if use_expand:
             push_grads = build_push_grads_extended(
                 emb.grad, exp.grad, segments % num_slots, clicks, valid)
@@ -240,20 +371,28 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
                               batch["offsets"], batch["n_uniq"], push_grads,
                               seed, layout, conf, write=push_write,
                               block_rows=block_rows)
-        return loss.detach(), preds.detach()
+        return loss.detach(), _detach(preds)
 
     return step
+
+
+def _detach(preds: Preds) -> Preds:
+    if isinstance(preds, dict):
+        return {t: v.detach() for t, v in preds.items()}
+    return preds.detach()
 
 
 def make_eval_step(model: torch.nn.Module, layout: ValueLayout,
                    table: TableConfig, batch_size: int,
                    num_slots: int, compute_dtype: str = "float32"
                    ) -> Callable:
-    """eval_step(slab, batch) -> preds [batch_size] on the device: the
-    pull, fused seqpool+CVM and the forward, and nothing that writes."""
+    """eval_step(slab, batch) -> the main task's preds [batch_size] on the
+    device: the pull, fused seqpool+CVM, the forward and the sigmoid of
+    its (main task's) logits, and nothing that writes."""
     padding_id = table.pass_capacity - 1
     use_expand = uses_expand(model)
     check_expand_config(model, layout, use_expand)
+    main_task = task_names(model)[0]
 
     def eval_step(slab: torch.Tensor, batch: Batch) -> torch.Tensor:
         ids = batch["ids"]
@@ -266,14 +405,18 @@ def make_eval_step(model: torch.nn.Module, layout: ValueLayout,
             pooled_exp = (seqpool_sum(exp, segments, valid, batch_size,
                                       num_slots, n_valid)
                           if use_expand else None)
-            return torch.sigmoid(model_logits(model, pooled, compute_dtype,
-                                              pooled_exp))
+            logits = model_logits(model, pooled, compute_dtype,
+                                  pooled_exp, batch.get("dense"))
+            if isinstance(logits, dict):
+                logits = logits[main_task]
+            return torch.sigmoid(logits)
 
     return eval_step
 
 
 def make_scan(step_fn: Callable) -> Callable:
-    """scan_steps(slab, stacked, seeds) -> (losses [C], preds [C, batch]):
+    """scan_steps(slab, stacked, seeds) -> (losses [C], preds [C, batch],
+    a dict of them by task for a multi-task model):
     the chunk's C steps queued back to back through ``step_fn``, batch c
     from row c of each [C, ...] leaf of ``stacked`` (a DeviceChunk's
     ``stacked``) with seed ``seeds[c]``, and no host sync between them (the
@@ -286,7 +429,7 @@ def make_scan(step_fn: Callable) -> Callable:
                               seed)
             losses.append(loss)
             preds.append(p)
-        return torch.stack(losses), torch.stack(preds)
+        return torch.stack(losses), stack_preds(preds)
 
     return scan_steps
 
@@ -308,7 +451,14 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
     the collected pooled-space grads to per-key grads, and ONE merged push
     over the chunk's dedup ``cpush`` (uids, perm, offsets over the flat
     C*K occurrences, n_uniq) with one seed. Updates ``slab`` and the
-    model IN PLACE."""
+    model IN PLACE. A multi-task model's predictions stack by task; the
+    merged push's clicks are the main task's labels."""
+    if uses_data_norm(model):
+        # reference trainer.py:748-752: the summaries move per batch on
+        # the batch's pooled input
+        raise ValueError(
+            "sparse_chunk_sync is unsupported with data_norm summary "
+            "params: they need per-batch table/emb state")
     if uses_expand(model):
         # reference trainer.py:747-753 (its TrainerConfig.sparse_chunk_sync
         # note, configs.py:197-208): the expand block needs per-batch
@@ -319,6 +469,7 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
     conf = table.optimizer
     padding_id = table.pass_capacity - 1
     instances = batch_size * num_slots
+    main_task = task_names(model)[0]
 
     def chunk_step(slab: torch.Tensor, stacked: Dict, cpush: Dict,
                    seed: int):
@@ -343,27 +494,31 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
             emb_live.shape[0])
         pooled_c = pooled.detach().view((C, batch_size) + pooled.shape[1:])
         losses, preds, dpooled = [], [], []
+        # the dense model's per-batch leaves
+        dense_keys = [k for k in stacked
+                      if k in ("labels", "ins_valid", "dense")
+                      or k.startswith("labels_")]
         for c in range(C):
             x = pooled_c[c].requires_grad_(True)
-            loss, p = masked_bce(model_logits(model, x, compute_dtype),
-                                 stacked["labels"][c],
-                                 stacked["ins_valid"][c])
+            loss, p = forward_loss(model, x,
+                                   {k: stacked[k][c] for k in dense_keys},
+                                   compute_dtype)
             dense_opt.zero_grad(set_to_none=True)
             loss.backward()
             dense_opt.step()
             losses.append(loss.detach())
-            preds.append(p.detach())
+            preds.append(_detach(p))
             dpooled.append(x.grad)
         (d_emb,) = torch.autograd.grad(
             pooled, emb, torch.stack(dpooled).view_as(pooled))
-        clicks = stacked["labels"].reshape(C * batch_size).index_select(
-            0, seg // num_slots)
+        clicks = task_label(stacked, main_task).reshape(
+            C * batch_size).index_select(0, seg // num_slots)
         push_grads = build_push_grads(d_emb, seg % num_slots, clicks, valid)
         push_sparse_hostdedup(slab, cpush["uids"], cpush["perm"],
                               cpush["offsets"], cpush["n_uniq"], push_grads,
                               seed, layout, conf, write=push_write,
                               block_rows=block_rows)
-        return torch.stack(losses), torch.stack(preds)
+        return torch.stack(losses), stack_preds(preds)
 
     return chunk_step
 
@@ -578,7 +733,15 @@ class BoxTrainer:
             raise ValueError("matmul_dtype=%r: the model has no "
                              "matmul_dtype to set"
                              % self.dtype_flags.matmul_dtype)
+        dense_dim = sum(s.dim for s in feed.used_dense_slots())
+        spec = getattr(model, "spec", None)
+        if spec is not None and spec.dense_dim != dense_dim:
+            raise ValueError(
+                "the model's spec has dense_dim=%d but the feed's dense "
+                "slots give %d columns" % (spec.dense_dim, dense_dim))
         self.model = model.to(self.device)
+        self.task_names = task_names(model)
+        self.multi_task = is_multi_task(model)
         self.metrics = MetricRegistry()
         self.num_slots = len(feed.used_sparse_slots())
         self.push_write = self.flags.resolve_push_write(
@@ -654,7 +817,8 @@ class BoxTrainer:
     # ---------------------------------------------------------- dense state
     @property
     def params(self) -> Dict[str, np.ndarray]:
-        """The dense parameters by the JAX package's names, as numpy."""
+        """The dense parameters (and CtrDnn's data_norm summaries, nested
+        under dn_summary) by the JAX package's names, as numpy."""
         return params_to_numpy(self.model)
 
     @property
@@ -665,11 +829,12 @@ class BoxTrainer:
 
     def restore_dense(self, params: Mapping[str, np.ndarray],
                       opt_state: Mapping) -> None:
-        """Set the dense parameters and Adam state from ``params`` and
-        ``opt_state`` (the forms of the two properties), bit for bit."""
+        """Set the dense parameters (and the data_norm summaries) and Adam
+        state from ``params`` and ``opt_state`` (the forms of the two
+        properties), bit for bit."""
         state = params_from_jax(params)
         with torch.no_grad():
-            for name, p in self.model.named_parameters():
+            for name, p in dense_state(self.model):
                 p.copy_(state[name])
         adam_state_from_numpy(self.model, self.dense_opt, opt_state)
 
@@ -682,11 +847,20 @@ class BoxTrainer:
         n_uniq (real uids) and n_valid (real key slots; the packer puts
         them before its padding tail). Test mode, or ``skip_push_dedup``
         (a chunk-synchronous chunk dedups once over the whole chunk),
-        leaves out the dedup products and n_uniq."""
+        leaves out the dedup products and n_uniq. The batch's dense
+        columns ride as ``dense``; a multi-task model's tasks with a label
+        of their own in the feed as ``labels_<task>`` (the others train on
+        ``labels``)."""
         n_valid = int(b.valid.sum())
         out: Dict[str, object] = {"ids": ids, "segments": b.segments,
                                   "ins_valid": b.ins_valid,
                                   "labels": b.labels, "n_valid": n_valid}
+        if b.dense is not None:
+            out["dense"] = b.dense
+        if self.multi_task and b.task_labels:
+            for t in self.task_names:
+                if t in b.task_labels:
+                    out["labels_" + t] = b.task_labels[t]
         if not self.table.test_mode and not skip_push_dedup:
             uids, perm, inv, out["n_uniq"] = self.table.dedup_for_push(ids)
             out.update(uids=uids, perm=perm,
@@ -846,9 +1020,9 @@ class BoxTrainer:
                     [loss_host, torch.stack(losses).cpu().numpy()])
             mean_loss = float(np.mean(loss_host))
             if losses and self._preds_consumed():
-                preds_host = torch.stack(preds).cpu().numpy()
-                for b, p in zip(tail, preds_host):
-                    self._add_metrics(p, b)
+                preds_host = preds_to_host(stack_preds(preds))
+                for j, b in enumerate(tail):
+                    self._add_metrics(preds_row(preds_host, j), b)
         t_pass.pause()
         # every pass end is a report boundary
         extra = {"event": "pass_end", "loss": round(mean_loss, 6),
@@ -905,9 +1079,11 @@ class BoxTrainer:
                 raise FloatingPointError("nan/inf loss by step %d"
                                          % self._step_count)
             if preds_on:
-                # one copy of the chunk's predictions, sliced on the host
-                for p, b in zip(preds_dev.cpu().numpy(), group_b):
-                    self._add_metrics(p, b)
+                # one copy of the chunk's predictions (a task), sliced on
+                # the host
+                preds_host = preds_to_host(preds_dev)
+                for j, b in enumerate(group_b):
+                    self._add_metrics(preds_row(preds_host, j), b)
 
         try:
             _, losses, n_done = run_scan_chunks(
@@ -923,7 +1099,7 @@ class BoxTrainer:
 
     def train_batch(self, b: PackedBatch):
         """One step on one packed batch inside an open pass: (loss, preds)
-        as device tensors."""
+        as device tensors (preds by task for a multi-task model)."""
         with span("host_stage"):
             ids = self.table.lookup_ids(b.keys, b.valid)
             batch = self.device_batch(b, ids)
@@ -936,16 +1112,16 @@ class BoxTrainer:
 
     # ------------------------------------------------------------------ eval
     def eval_batch(self, b: PackedBatch) -> torch.Tensor:
-        """Predictions of one packed batch inside an open test-mode pass,
-        on the device."""
+        """The main task's predictions of one packed batch inside an open
+        test-mode pass, on the device."""
         ids = self.table.lookup_ids(b.keys, b.valid)
         return self.eval_fn(self.table.slab, self.device_batch(b, ids))
 
     def predict_batches(self, dataset: BoxDataset
                         ) -> Tuple[np.ndarray, np.ndarray]:
         """Test-mode inference over a loaded dataset (SetTestMode pulls):
-        (preds, labels) of its valid instances, on the host. The pass
-        creates no feature and writes nothing back."""
+        (the main task's preds, click labels) of its valid instances, on
+        the host. The pass creates no feature and writes nothing back."""
         self.table.set_test_mode(True)
         self.table.begin_feed_pass()
         self.table.add_keys(dataset.all_keys())
@@ -962,15 +1138,25 @@ class BoxTrainer:
                                 for p, b in zip(preds_host, batches)]),
                 np.concatenate([b.labels[b.ins_valid] for b in batches]))
 
-    def _add_metrics(self, pred: np.ndarray, b: PackedBatch) -> None:
-        """One batch's predictions into the metrics and, when on, the
-        quality plane (the tagged streams, the per-slot CTR) and the drift
-        monitor's pred histogram (reference trainer.py:1404-1428)."""
-        tensors = {"label": b.labels, "mask": b.ins_valid, "pred": pred}
+    def _add_metrics(self, pred, b: PackedBatch) -> None:
+        """One batch's predictions ([B], or by task) into the metrics and,
+        when on, the quality plane (the tagged streams, the per-slot CTR)
+        and the drift monitor's pred histogram (reference
+        trainer.py:1404-1428): ``label_<task>`` for each of the feed's task
+        labels, ``pred_<task>`` for each prediction, ``pred`` the main
+        task's."""
+        by_task = pred if isinstance(pred, dict) else {
+            self.task_names[0]: pred}
+        main = by_task[self.task_names[0]]
+        tensors = {"label": b.labels, "mask": b.ins_valid, "pred": main}
+        for t, lab in (b.task_labels or {}).items():
+            tensors["label_" + t] = lab
+        for t, p in by_task.items():
+            tensors["pred_" + t] = p
         self.metrics.add_batch(tensors)
         if self.quality is not None:
             self.quality.add_batch(tensors)
-            self.quality.add_slot_batch(pred, b.labels, b.slots, b.segments,
+            self.quality.add_slot_batch(main, b.labels, b.slots, b.segments,
                                         b.valid, self.num_slots)
             if self.drift is not None:
-                self.drift.observe_preds(pred, mask=b.ins_valid)
+                self.drift.observe_preds(main, mask=b.ins_valid)

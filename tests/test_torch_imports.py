@@ -45,7 +45,10 @@ def test_import_loads_no_jax_and_no_reference_module():
               "obs.log", "obs.tracer", "obs.report", "metrics.quality",
               "metrics.drift", "models.nn_cross", "models.deepfm",
               "ops.sparse", "ops.seqpool", "embedding.optimizers",
-              "embedding.pass_table"):
+              "embedding.pass_table", "ops.data_norm", "models",
+              "models.ctr_dnn", "models.wide_deep", "models.dlrm",
+              "models.mmoe", "models.esmm", "data.generator",
+              "data.parser", "data.packer"):
         assert "paddlebox_tpu_torch." + m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
