@@ -197,6 +197,26 @@ Phases, each of which raises on a failed check (exit code != 0):
      one compute_dtype="bfloat16" pass of
      FLAGSHIP_CTR_DNN whose summaries stay f32; each pass's wall and
      examples/s beside the DeepFM main path's, with the card line;
+ 16. the join phase's record-path feeds (flagship.py FLAGSHIP_JOIN_PV,
+     FLAGSHIP_AUX), each pass flagship.load_pass (the feed, then the
+     records' fields) and train_pass(preloaded=True): a narrow JoinPvDnn
+     on the card against the CPU (as phase 3); two full-width passes of
+     JoinPvDnn (rank_param [3168, 64], MLP 416-512-256-128-1) over the
+     main path's files with the pv rank-offset feed (assign_pv), 32
+     push_adagrad and 35 gather_rows launches, its digits held to
+     JOIN_DIGITS, rank_param moved, the ring's 8 leaves (rank_offset int32
+     [C, 1024, 7]), a cmatch-rank AUC (JOIN_GROUP) whose instance count
+     equals a count of the records' (cmatch, rank) pairs (JOIN_PAIRS),
+     the quality plane's cmatch:222 and cmatch:223 streams, each pass's
+     rows split by their pv fields into not joined, joined alone and
+     joined with a peer in the batch; two
+     full-width passes of CtrDnnAux (512-256-128, aux rows 8 wide, 4096 of
+     them) over ins_id files through flagship.input_table (the same
+     launches, digits held to AUX_DIGITS, aux_rows bit-equal to the
+     table's to_device(4096), its misses equal to a host count, the ring's
+     aux_offset leaf); a 4-batch pass through flagship.replica_cache by
+     cache_idx; each pass's wall and examples/s beside the DeepFM main
+     path's, with the card line;
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -212,6 +232,7 @@ kernel's numbers, the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import dataclasses
 import json
 import multiprocessing
@@ -245,9 +266,18 @@ def log(*parts):
     print(*parts, flush=True)
 
 
-def run_pass(torch, trainer, ds):
+def run_pass(torch, trainer, ds, load=False):
+    """One train_pass, timed to the card's end; with ``load`` (phase 16's
+    record-path feeds) the pass is flagship.load_pass (the feed, then the
+    records' pv fields or cache indices) and train_pass(preloaded=True),
+    timed together."""
     t0 = time.perf_counter()
-    res = trainer.train_pass(ds)
+    if not load:
+        res = trainer.train_pass(ds)
+    else:
+        from paddlebox_tpu_torch.train import flagship
+        flagship.load_pass(trainer, ds)
+        res = trainer.train_pass(ds, preloaded=True)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     auc = trainer.metrics.get_metric_msg("auc")["auc"]
@@ -785,15 +815,16 @@ def sorted_store(table):
     return k[order], v[order]
 
 
-def main_passes(torch, trainer, ds, after_pass=None):
-    """The main path's two train_passes: each pass's record with the
-    table's counters of the pass; ``after_pass(record)``, when given, runs
-    after each pass and may add to its record."""
+def main_passes(torch, trainer, ds, after_pass=None, load=False):
+    """The main path's two train_passes (run_pass, ``load`` as there): each
+    pass's record with the table's counters of the pass;
+    ``after_pass(record)``, when given, runs after each pass and may add
+    to its record."""
     import numpy as np
     passes = []
     for p in range(2):
         before = dict(trainer.table.counters)
-        res, auc, secs = run_pass(torch, trainer, ds)
+        res, auc, secs = run_pass(torch, trainer, ds, load)
         check(np.isfinite(res["loss"]) and np.isfinite(auc)
               and 0.0 < auc <= 1.0,
               "pass %d loss %r auc %r" % (p, res["loss"], auc))
@@ -2881,6 +2912,247 @@ def zoo_phase(torch, windows, feed, main, reset_counts, counts, spawned):
     return out
 
 
+# phase 16's cmatch-rank metric: the join channels' first ranks, as
+# (cmatch, rank) pairs and as the metric's group string
+JOIN_PAIRS = {(222, 1), (222, 2), (222, 3), (223, 1)}
+JOIN_GROUP = ",".join("%d_%d" % p for p in sorted(JOIN_PAIRS))
+
+
+def join_small_parity(torch, tmp):
+    """Phase 16's small-input check: two passes of a narrow JoinPvDnn
+    over the rank-offset feed on the card and on the CPU (plain
+    versions); loss rtol 1e-4, AUC 1e-4 absolute, host rows rtol 1e-4, as
+    phase 3 holds DeepFM."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.train import flagship
+    small = dataclasses.replace(
+        flagship.FLAGSHIP_JOIN_PV, num_slots=4, batch=32, max_len=3,
+        hidden=(16, 8), capacity=1024, num_files=2, lines_per_file=96,
+        vocab_per_slot=60, data_seed=7)
+    files, feed = flagship.write_files(os.path.join(tmp, "join_small"),
+                                       small)
+    out = {}
+    for device in ("cuda", "cpu"):
+        t, ds = flagship.build_trainer(files, feed, small, "scatter", device)
+        res = []
+        for _ in range(2):
+            r, auc, _ = run_pass(torch, t, ds, load=True)
+            res.append((r["loss"], auc))
+        out[device] = (res, t.table.store.lookup(t.table.pass_keys),
+                       t.params["rank_param"])
+        t.close()
+    for (lc, ac), (lp, ap) in zip(out["cuda"][0], out["cpu"][0]):
+        check(np.isfinite(lc) and abs(lc - lp) <= 1e-4 * abs(lp)
+              and abs(ac - ap) <= 1e-4,
+              "join small-input cuda (%r, %r) vs cpu (%r, %r)"
+              % (lc, ac, lp, ap))
+    check(np.allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4, atol=1e-6)
+          and np.allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4,
+                          atol=1e-6),
+          "join small-input host rows or rank_param differ between cuda "
+          "and cpu")
+    log("join small-input parity cuda vs cpu: %s / %s"
+        % (out["cuda"][0], out["cpu"][0]))
+
+
+def pv_split(records, batch, max_rank=3):
+    """A pass's rows by their pv fields alone, ``records`` in step order
+    (train_pass shuffles them in place and packs ``batch`` at a time): not
+    in the join (a channel other than 222 and 223, or a rank outside
+    1..max_rank), in it with no other joined ad of its pv in its batch,
+    and with at least one."""
+    split = [0, 0, 0]
+    for s in range(0, len(records), batch):
+        chunk = records[s:s + batch]
+        joined = [r for r in chunk
+                  if r.cmatch in (222, 223) and 0 < r.rank <= max_rank]
+        per_pv = collections.Counter(r.search_id for r in joined)
+        split[0] += len(chunk) - len(joined)
+        for r in joined:
+            split[1 if per_pv[r.search_id] == 1 else 2] += 1
+    return split
+
+
+def check_launches(name, passes, launches):
+    """A configuration's two passes launched push_adagrad once a step and
+    gather_rows once a step, once a promote and once a write-back (35)."""
+    steps = sum(p["batches"] for p in passes)
+    extra = sum(gather_launches_of(p["counters"]) for p in passes)
+    check(steps == 32 and extra == 3 and launches == f32_launches(
+              push_adagrad=steps, gather_rows=steps + extra),
+          "%s launches %s over %d steps and %d promotes and write-backs"
+          % (name, launches, steps, extra))
+
+
+def held_digits(name, passes, want):
+    digits = {"loss": tuple("%.10f" % p["loss"] for p in passes),
+              "auc": tuple("%.10f" % p["auc"] for p in passes)}
+    log("%s digits %s" % (name, json.dumps(digits)))
+    if want is not None:
+        check(digits == want, "%s digits %s, expected %s"
+              % (name, digits, want))
+    return digits
+
+
+def join_phase(torch, files, feed, aux_files, aux_feed, main, reset_counts,
+               counts, tmp):
+    """Phase 16, the join phase's record-path feeds at full width:
+    FLAGSHIP_JOIN_PV's two passes over the main path's files with the pv
+    rank-offset feed (flagship.assign_pv's pvs), FLAGSHIP_AUX's two over
+    ``aux_files`` (ins_id lines) through an InputTable and a 4-batch pass
+    through a ReplicaCache, a narrow JoinPvDnn on the card against the
+    CPU; walls beside the DeepFM main path's ``main`` passes. Returns its
+    records."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.train import flagship
+
+    out = {}
+    join_small_parity(torch, tmp)
+
+    # --- JoinPvDnn over the pv rank-offset feed
+    cfg = flagship.FLAGSHIP_JOIN_PV
+    jfeed = flagship.feed_for(cfg, feed)
+    trainer, ds = flagship.build_trainer(files, jfeed, cfg, "scatter",
+                                         "cuda")
+    check(jfeed.rank_offset and not ds.columnar,
+          "the rank-offset feed ran columnar")
+    trainer.metrics.init_cmatch_rank_metric(
+        "cmatch_auc", "label", "pred", JOIN_GROUP, table_size=1 << 20)
+    param0 = trainer.model.rank_param.detach().clone()
+    host = {"cmatch_n": 0}
+
+    def after_join(rec):
+        # counted from the records' pv fields, past the packer and the
+        # metric
+        host["cmatch_n"] += sum((r.cmatch, r.rank) in JOIN_PAIRS
+                                for r in ds.records)
+        rec["pv_split"] = pv_split(ds.records, cfg.batch)
+        rec["cmatch_auc"] = trainer.metrics.get_metric_msg(
+            "cmatch_auc")["auc"]
+        rec["cmatch_counts"] = {str(k): v for k, v in sorted(
+            collections.Counter(r.cmatch for r in ds.records).items())}
+
+    reset_counts()
+    passes = main_passes(torch, trainer, ds, after_join, load=True)
+    launches = counts()
+    check_launches("join_pv", passes, launches)
+    for p in passes:
+        log("join_pv pass %d: loss %.10f auc %.10f cmatch_auc %.10f %s"
+            % (p["pass"], p["loss"], p["auc"], p["cmatch_auc"],
+               json.dumps(p)))
+    digits = held_digits("join_pv", passes, flagship.JOIN_DIGITS)
+    size = trainer.metrics.get_metric_msg("cmatch_auc")["size"]
+    check(size == host["cmatch_n"] > 0,
+          "cmatch_rank metric counted %r instances, the host %d"
+          % (size, host["cmatch_n"]))
+    moved = float((trainer.model.rank_param.detach() - param0).abs().max())
+    check(moved > 0, "rank_param did not move")
+    spec = trainer._ring._spec
+    C, B = trainer.cfg.scan_chunk, cfg.batch
+    check(len(spec) == 8
+          and spec["rank_offset"] == ((C, B, 7), np.dtype(np.int32)),
+          "JoinPvDnn staging ring spec %s" % spec)
+    tags = trainer.quality.report()["tags"]
+    check({"cmatch:222", "cmatch:223"} <= set(tags),
+          "quality plane tags %s" % sorted(tags))
+    split = [p["pv_split"] for p in passes]
+    check(all(sum(s) == p["instances"] and min(s) > 0
+              for s, p in zip(split, passes)),
+          "pv split %s" % split)
+    out["join_pv"] = {"passes": passes, "launches": launches,
+                      "digits": digits, "cmatch_instances": size,
+                      "rank_param_max_move": moved,
+                      "ring_leaves": sorted(spec),
+                      "quality_cmatch": {t: tags[t] for t in tags
+                                         if t.startswith("cmatch:")}}
+    log("join_pv: cmatch_auc %.10f over %d instances (host %d), rank_param "
+        "moved by up to %.6g, ring leaves %s, pv split (no join, self only, "
+        "with a peer) %s, quality %s; launches %s; %s"
+        % (passes[-1]["cmatch_auc"], size, host["cmatch_n"], moved,
+           sorted(spec), split, json.dumps(out["join_pv"]["quality_cmatch"]),
+           launches, card_line()))
+    trainer.close()
+    del trainer, ds
+
+    # --- CtrDnnAux through an InputTable
+    cfg = flagship.FLAGSHIP_AUX
+    table = flagship.input_table(cfg)
+    trainer, ds = flagship.build_trainer(aux_files, aux_feed, cfg,
+                                         "scatter", "cuda",
+                                         aux_source=table)
+    check(not ds.columnar and ds.packer.input_table is table,
+          "the aux feed ran columnar or without its table")
+    host_miss = [0]
+
+    def after_aux(rec):
+        host_miss[0] += sum(r.ins_id not in table for r in ds.records)
+
+    reset_counts()
+    passes = main_passes(torch, trainer, ds, after_aux, load=True)
+    launches = counts()
+    check_launches("aux", passes, launches)
+    for p in passes:
+        log("aux pass %d: loss %.10f auc %.10f %s"
+            % (p["pass"], p["loss"], p["auc"], json.dumps(p)))
+    digits = held_digits("aux", passes, flagship.AUX_DIGITS)
+    cap = trainer.model.aux_capacity
+    check(cap == 4096
+          and torch.equal(trainer.model.aux_rows,
+                          table.to_device(cap, "cuda"))
+          and trainer.model.aux_rows.dtype == torch.float32,
+          "aux_rows differ from the table's to_device(%d)" % cap)
+    check(table.miss == host_miss[0] > 0, "InputTable missed %d, the host "
+          "counts %d" % (table.miss, host_miss[0]))
+    spec = trainer._ring._spec
+    C, B = trainer.cfg.scan_chunk, cfg.batch
+    check(len(spec) == 8
+          and spec["aux_offset"] == ((C, B), np.dtype(np.int32)),
+          "CtrDnnAux staging ring spec %s" % spec)
+    out["aux"] = {"passes": passes, "launches": launches, "digits": digits,
+                  "miss": table.miss, "table_rows": table.size(),
+                  "ring_leaves": sorted(spec)}
+    log("aux: %d table rows, %d misses over %d lookups (host %d), aux_rows "
+        "bit-equal to the table, ring leaves %s; launches %s; %s"
+        % (table.size(), table.miss, sum(p["instances"] for p in passes),
+           host_miss[0], sorted(spec), launches, card_line()))
+    trainer.close()
+    del trainer, ds
+
+    # --- a 4-batch CtrDnnAux pass through a ReplicaCache by cache_idx
+    cache = flagship.replica_cache(cfg)
+    trainer, ds = flagship.build_trainer(aux_files[:1], aux_feed, cfg,
+                                         "scatter", "cuda",
+                                         aux_source=cache)
+    check(ds.packer.use_cache_idx, "the replica pass has no cache_idx")
+    reset_counts()
+    res, auc, secs = run_pass(torch, trainer, ds, load=True)
+    c = counts()
+    check(res["batches"] == 4 and np.isfinite(res["loss"])
+          and 0.0 < auc <= 1.0
+          and c == f32_launches(push_adagrad=4, gather_rows=5)
+          and torch.equal(trainer.model.aux_rows,
+                          cache.to_device(cap, "cuda")),
+          "replica-cache pass: loss %r auc %r launches %s"
+          % (res["loss"], auc, c))
+    out["aux_replica"] = {"loss": res["loss"], "auc": auc, "pass_s": secs,
+                          "launches": c, "cache_rows": len(cache)}
+    log("aux replica-cache pass: %s" % json.dumps(out["aux_replica"]))
+    trainer.close()
+    del trainer, ds
+
+    walls = {"deepfm_main_path": [(p["pass_s"], p["examples_per_s"])
+                                  for p in main]}
+    walls.update({n: [(p["pass_s"], p["examples_per_s"])
+                      for p in out[n]["passes"]] for n in ("join_pv", "aux")})
+    log("join pass walls (s, examples/s): %s; %s"
+        % (json.dumps(walls), card_line()))
+    out["walls"] = walls
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2933,6 +3205,10 @@ def main() -> int:
         zoo_written = writer.submit(flagship.write_cadence,
                                     os.path.join(tmp, "zoo"),
                                     flagship.FLAGSHIP_CTR_DNN)
+        # the aux configuration's ins_id files (phase 16)
+        aux_written = writer.submit(flagship.write_files,
+                                    os.path.join(tmp, "aux"),
+                                    flagship.FLAGSHIP_AUX)
         host = {}
 
         def build_host():
@@ -3093,6 +3369,12 @@ def main() -> int:
                         counts, writer)
         clock.lap("zoo")
 
+        # 16. the join phase's record-path feeds at full width
+        aux_files, aux_feed = aux_written.result()
+        join = join_phase(torch, files, feed, aux_files, aux_feed, passes,
+                          reset_counts, counts, tmp)
+        clock.lap("join")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -3146,7 +3428,10 @@ def main() -> int:
                               "zoo_esmm_test_pass":
                                   zoo["test_pass"]["launches"],
                               "zoo_ctr_dnn_bf16":
-                                  zoo["ctr_dnn_bf16"]["launches"]},
+                                  zoo["ctr_dnn_bf16"]["launches"],
+                              **{"join_" + n: join[n]["launches"]
+                                 for n in ("join_pv", "aux",
+                                           "aux_replica")}},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

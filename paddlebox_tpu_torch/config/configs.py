@@ -87,11 +87,16 @@ class DataFeedConfig:
     them. ``task_label_slots``: (task, slot name) pairs whose slot's first
     value is that task's label (a multi-task model trains each head on its
     own label); a task not listed, or a record without that value, falls
-    back to the click label."""
+    back to the click label. ``rank_offset``: the packer builds each
+    batch's pv rank-offset matrix (the join phase). ``parse_ins_id``: each
+    line leads with the instance id (the InputTable's key). Either puts
+    the dataset on the record path, as in the reference."""
 
     slots: Tuple[SlotConfig, ...] = ()
     batch_size: int = 512
     task_label_slots: Tuple[Tuple[str, str], ...] = ()
+    rank_offset: bool = False
+    parse_ins_id: bool = False
 
     def used_sparse_slots(self) -> List[SlotConfig]:
         return [s for s in self.slots if s.is_used and s.type == "uint64"]

@@ -13,7 +13,9 @@ batch_size, batch_sum, batch_square_sum) are the module's BUFFERS
 dn_summary_*, which the dense optimizer does not see: params_to_numpy reads
 them with the parameters, and the Adam state carries zeros at them, as
 optax's moments hold zeros where the JAX model's stop_gradient leaves a zero
-gradient.
+gradient. CtrDnnAux's side-table rows (the JAX params' ``aux_rows``) are
+a buffer of the same kind; JoinPvDnn's ``rank_param`` and every MLP are
+parameters by their JAX names.
 Host-store rows are numpy f32 in both packages and go across as they are;
 so does an f32 slab. A bf16 slab (the slab_embed_dtype diet) is numpy
 uint16 [C, device_width] in the reference and the same bits as an int16

@@ -156,9 +156,13 @@ def pack_columnar(block: ColumnarBlock, rec_idx: np.ndarray,
         slots[:w] = bslots[:w]
         segments[:w] = (brec[:w] * num_slots + bslots[:w]).astype(np.int32)
         valid[:w] = True
+    # the blocks carry no pv field or q-value: zero columns, as the
+    # reference's columnar packer gives them
     return PackedBatch(keys=keys, slots=slots, segments=segments,
                        valid=valid, labels=labels, ins_valid=ins_valid,
-                       n_ins=n, dense=dense, task_labels=task_labels)
+                       n_ins=n, dense=dense, task_labels=task_labels,
+                       qvalues=np.zeros(B, dtype=np.float32),
+                       cmatch_rank=np.zeros(B, dtype=np.uint64))
 
 
 def _run_aranges(counts: np.ndarray) -> np.ndarray:

@@ -15,6 +15,14 @@ paths, which give byte-identical batches and the same key stream:
         ``local_shuffle`` permutes them with ``RandomState(seed).shuffle``
         and ``split_batches`` packs them with ``BatchPacker``.
 
+The join phase's feeds take the record path whatever ``columnar`` says,
+where the reference's dataset does (paddlebox_tpu/data/dataset.py:84-93):
+a feed with ``rank_offset`` or ``parse_ins_id``, or an ``input_table`` or
+``use_cache_idx`` (the packer's aux-offset sources); the pv fields, the
+ins_id and the cache index live on SlotRecords, which the columnar blocks
+do not carry. ``columnar`` then reads False. ``records`` are the loaded
+records of the record path, in load order until ``local_shuffle``.
+
 The reader reads the files in list order (``preload_into_memory``;
 ``wait_preload_done`` joins it and raises ``RuntimeError("dataset load
 failed")`` from any error it hit, and ``load_into_memory`` is the two in a
@@ -53,7 +61,8 @@ _MERGE_CHUNK = 512
 
 
 class BoxDataset:
-    def __init__(self, feed: DataFeedConfig, columnar: bool = True) -> None:
+    def __init__(self, feed: DataFeedConfig, columnar: bool = True,
+                 input_table=None, use_cache_idx: bool = False) -> None:
         # a task label slot the feed lacks fails on both paths (the record
         # path would quietly train the task on the click label)
         names = {s.name for s in feed.slots}
@@ -63,9 +72,12 @@ class BoxDataset:
                     "task_label_slots: slot %r (task %r) not in the feed "
                     "config" % (slot_name, task))
         self.feed = feed
-        self.columnar = columnar
-        self.packer = BatchPacker(feed)
-        if columnar:
+        self.columnar = columnar and not (
+            feed.rank_offset or feed.parse_ins_id
+            or input_table is not None or use_cache_idx)
+        self.packer = BatchPacker(feed, input_table=input_table,
+                                  use_cache_idx=use_cache_idx)
+        if self.columnar:
             # builds the native host library at its first use
             from paddlebox_tpu_torch.data.native_parser import \
                 NativeMultiSlotParser
@@ -175,6 +187,10 @@ class BoxDataset:
                 rng.shuffle(self._records)
             elif len(self):
                 self._perm = rng.permutation(len(self))
+
+    @property
+    def records(self) -> List[SlotRecord]:
+        return self._records
 
     def all_keys(self) -> np.ndarray:
         """Every feasign of the loaded pass, in load order."""

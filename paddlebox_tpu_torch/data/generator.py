@@ -8,10 +8,15 @@ slot of that many columns (drawn after the sparse slots, written "%.4f");
 ``conversion`` adds a ``label_cvr`` slot after the click: a post-click
 conversion label with hidden weights of its own, drawn only for clicked
 lines, which the feed config names as the "cvr" task's label.
+``ins_id_vocab`` (the port's own option) leads each line with an instance
+id ``item<k>``, k uniform below ``ins_id_vocab``, drawn from a generator of
+its own, so the rest of each line is the line the same arguments write
+without ids; the feed config then has ``parse_ins_id``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import List, Tuple
 
@@ -40,9 +45,11 @@ def write_synthetic_ctr_files(
         out_dir: str, num_files: int = 4, lines_per_file: int = 1024,
         num_slots: int = 8, vocab_per_slot: int = 1000, max_len: int = 4,
         dense_dim: int = 0, seed: int = 0,
-        conversion: bool = False) -> Tuple[List[str], DataFeedConfig]:
+        conversion: bool = False,
+        ins_id_vocab: int = 0) -> Tuple[List[str], DataFeedConfig]:
     """Returns (file list, matching DataFeedConfig with batch_size 256)."""
     rng = np.random.RandomState(seed)
+    id_rng = np.random.RandomState([seed, 1]) if ins_id_vocab else None
     os.makedirs(out_dir, exist_ok=True)
     hidden = [rng.randn(vocab_per_slot) * 0.7 for _ in range(num_slots)]
     hidden_cvr = [rng.randn(vocab_per_slot) * 0.7 for _ in range(num_slots)]
@@ -54,6 +61,8 @@ def write_synthetic_ctr_files(
                 logit = -0.7
                 logit_cvr = 0.3
                 toks: List[str] = []
+                if id_rng is not None:
+                    toks.append("item%d" % id_rng.randint(ins_id_vocab))
                 line_feas = []
                 for si in range(num_slots):
                     n = rng.randint(1, max_len + 1)
@@ -77,6 +86,6 @@ def write_synthetic_ctr_files(
                                 + " ".join(f"{v:.4f}" for v in dvals))
                 f.write(" ".join(toks) + "\n")
         files.append(path)
-    return files, default_feed_config(num_slots, max_len=max_len,
-                                      dense_dim=dense_dim,
-                                      conversion=conversion)
+    feed = default_feed_config(num_slots, max_len=max_len,
+                               dense_dim=dense_dim, conversion=conversion)
+    return files, dataclasses.replace(feed, parse_ins_id=bool(ins_id_vocab))

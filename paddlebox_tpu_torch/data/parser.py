@@ -4,7 +4,8 @@ Counterpart of paddlebox_tpu/data/parser.py (the record path): one instance
 per line, slots in feed-config order, each ``<count> <v_1> ... <v_count>``;
 the float slot named "click" is the label, a used float slot's values are
 float32 dense inputs, and the first value of a ``task_label_slots`` slot is
-that task's label. Malformed lines are dropped, as in the reference parser.
+that task's label. Under the feed's ``parse_ins_id`` a line leads with the
+instance id. Malformed lines are dropped, as in the reference parser.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ class MultiSlotParser:
             return None
         rec = SlotRecord()
         pos = 0
+        if self.feed.parse_ins_id:
+            rec.ins_id = toks[0]
+            pos = 1
         u_idx = 0
         f_idx = 0
         try:

@@ -1,16 +1,24 @@
-"""Streaming bucketed AUC (the ``init_metric("auc", ...)`` subset).
+"""Streaming bucketed AUC: the plain AUC and the cmatch-rank kinds.
 
-Counterpart of paddlebox_tpu/metrics/auc.py:29-303, 466-522, 621-685: the
-box BasicAucCalculator (double-precision neg/pos bucket tables, trapezoid
-from the top bucket down, bucket error with kRelativeErrorBound=0.05 and
-kMaxSpan=0.01), MetricMsg for the plain AUC kind, and MetricRegistry. Host
-numpy, as in the JAX package; the trainer feeds it once per pass.
+Counterpart of paddlebox_tpu/metrics/auc.py:29-303, 466-685: the box
+BasicAucCalculator (double-precision neg/pos bucket tables, trapezoid from
+the top bucket down, bucket error with kRelativeErrorBound=0.05 and
+kMaxSpan=0.01), MetricMsg for the plain AUC kind, the join phase's
+CmatchRankMetricMsg (the AUC of the instances whose (cmatch, rank) is in a
+group, or whose cmatch is, with ``ignore_rank``) and MultiTaskMetricMsg
+(each group pair's instances read their own prediction), over the batch's
+``cmatch_rank`` column ((cmatch << 32) | (rank & 0xff), data/packer.py),
+and MetricRegistry. Host numpy, as in the JAX package; the trainer feeds it
+once per pass.
+
+A metric's ``metric_phase`` other than -1 (all phases) is refused: the
+join/update phase filter comes with the trainer's phases.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -180,6 +188,107 @@ class MetricMsg:
                 "predicted_ctr": c.predicted_ctr(), "size": c.size()}
 
 
+def parse_cmatch_rank(x) -> Tuple[np.ndarray, np.ndarray]:
+    """(cmatch, rank) as int64 of a cmatch_rank column: the high 32 bits
+    and the low 8."""
+    x = np.asarray(x, np.uint64)
+    return ((x >> np.uint64(32)).astype(np.int64),
+            (x & np.uint64(0xFF)).astype(np.int64))
+
+
+def _parse_group(cmatch_rank_group: str,
+                 ignore_rank: bool) -> List[Tuple[int, int]]:
+    """'222_1,223_2' -> [(222, 1), (223, 2)], comma or space separated;
+    with ``ignore_rank`` a bare cmatch '222' is (222, 0)."""
+    pairs = []
+    for tok in cmatch_rank_group.replace(",", " ").split():
+        if ignore_rank and "_" not in tok:
+            pairs.append((int(tok), 0))
+            continue
+        parts = tok.split("_")
+        if len(parts) != 2:
+            raise ValueError("illegal cmatch_rank spec: %r" % (tok,))
+        pairs.append((int(parts[0]), int(parts[1])))
+    return pairs
+
+
+def _check_phase(metric_phase: int) -> None:
+    if metric_phase != -1:
+        raise ValueError("metric_phase %r: the port's metrics run in every "
+                         "phase (-1) until the trainer has phases"
+                         % (metric_phase,))
+
+
+class CmatchRankMetricMsg(MetricMsg):
+    """The AUC of the instances whose (cmatch, rank) is one of the group's
+    pairs (whose cmatch is, with ``ignore_rank``), and valid under
+    ``mask_var``."""
+
+    def __init__(self, label_var: str, pred_var: str, name: str,
+                 cmatch_rank_group: str, cmatch_rank_var: str = "cmatch_rank",
+                 ignore_rank: bool = False, metric_phase: int = -1,
+                 table_size: int = 1 << 20, mask_var: str = "") -> None:
+        _check_phase(metric_phase)
+        super().__init__(label_var, pred_var, name, table_size, mask_var)
+        self.cmatch_rank_var = cmatch_rank_var
+        self.ignore_rank = ignore_rank
+        self.pairs = _parse_group(cmatch_rank_group, ignore_rank)
+
+    def match_mask(self, tensors: Dict[str, np.ndarray]) -> np.ndarray:
+        """The instances of the group, before the mask."""
+        cmatch, rank = parse_cmatch_rank(tensors[self.cmatch_rank_var])
+        sel = np.zeros(cmatch.shape, bool)
+        for cm, rk in self.pairs:
+            if self.ignore_rank:
+                sel |= cmatch == cm
+            else:
+                sel |= (cmatch == cm) & (rank == rk)
+        return sel
+
+    def add_from(self, tensors: Dict[str, np.ndarray]) -> None:
+        sel = self.match_mask(tensors)
+        if self.mask_var:
+            sel &= np.asarray(tensors[self.mask_var]) != 0
+        if sel.any():
+            self.calculator.add_data(np.asarray(tensors[self.pred_var])[sel],
+                                     np.asarray(tensors[self.label_var])[sel])
+
+
+class MultiTaskMetricMsg(MetricMsg):
+    """One AUC fed from another prediction for each group pair: an
+    instance matching pairs[j] (the first pair it matches) adds
+    pred_list[j] at it."""
+
+    def __init__(self, label_var: str,
+                 pred_var_list: Union[str, Sequence[str]], name: str,
+                 cmatch_rank_group: str, cmatch_rank_var: str = "cmatch_rank",
+                 metric_phase: int = -1, table_size: int = 1 << 20,
+                 mask_var: str = "") -> None:
+        _check_phase(metric_phase)
+        preds = (pred_var_list.split() if isinstance(pred_var_list, str)
+                 else list(pred_var_list))
+        super().__init__(label_var, preds[0], name, table_size, mask_var)
+        self.pred_list = preds
+        self.cmatch_rank_var = cmatch_rank_var
+        self.pairs = _parse_group(cmatch_rank_group, ignore_rank=False)
+        if len(self.pairs) != len(self.pred_list):
+            raise ValueError("cmatch_rank group size %d != pred list size %d"
+                             % (len(self.pairs), len(self.pred_list)))
+
+    def add_from(self, tensors: Dict[str, np.ndarray]) -> None:
+        cmatch, rank = parse_cmatch_rank(tensors[self.cmatch_rank_var])
+        label = np.asarray(tensors[self.label_var])
+        base = (np.asarray(tensors[self.mask_var]) != 0 if self.mask_var
+                else np.ones(label.shape, bool))
+        taken = np.zeros(label.shape, bool)
+        for (cm, rk), pv in zip(self.pairs, self.pred_list):
+            sel = (cmatch == cm) & (rank == rk) & base & ~taken
+            taken |= sel
+            if sel.any():
+                self.calculator.add_data(np.asarray(tensors[pv])[sel],
+                                         label[sel])
+
+
 class MetricRegistry:
     """Name -> MetricMsg (the join/update phase filter waits for the
     slices that train in phases)."""
@@ -191,6 +300,32 @@ class MetricRegistry:
                     table_size: int = 1 << 20,
                     mask_var: str = "") -> MetricMsg:
         msg = MetricMsg(label_var, pred_var, name, table_size, mask_var)
+        self._metrics[name] = msg
+        return msg
+
+    def init_cmatch_rank_metric(self, name: str, label_var: str,
+                                pred_var: str, cmatch_rank_group: str,
+                                cmatch_rank_var: str = "cmatch_rank",
+                                ignore_rank: bool = False,
+                                metric_phase: int = -1,
+                                table_size: int = 1 << 20,
+                                mask_var: str = "") -> MetricMsg:
+        msg = CmatchRankMetricMsg(label_var, pred_var, name,
+                                  cmatch_rank_group, cmatch_rank_var,
+                                  ignore_rank, metric_phase, table_size,
+                                  mask_var)
+        self._metrics[name] = msg
+        return msg
+
+    def init_multi_task_metric(self, name: str, label_var: str,
+                               pred_var_list, cmatch_rank_group: str,
+                               cmatch_rank_var: str = "cmatch_rank",
+                               metric_phase: int = -1,
+                               table_size: int = 1 << 20,
+                               mask_var: str = "") -> MetricMsg:
+        msg = MultiTaskMetricMsg(label_var, pred_var_list, name,
+                                 cmatch_rank_group, cmatch_rank_var,
+                                 metric_phase, table_size, mask_var)
         self._metrics[name] = msg
         return msg
 

@@ -1,7 +1,9 @@
+from paddlebox_tpu_torch.models.aux_input import CtrDnnAux
 from paddlebox_tpu_torch.models.ctr_dnn import CtrDnn
 from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.models.dlrm import DLRM
 from paddlebox_tpu_torch.models.esmm import ESMM
+from paddlebox_tpu_torch.models.join_pv import JoinPvDnn
 from paddlebox_tpu_torch.models.mmoe import MMoE
 from paddlebox_tpu_torch.models.nn_cross import CtrDnnExpand
 from paddlebox_tpu_torch.models.wide_deep import WideDeep
@@ -15,7 +17,9 @@ MODEL_ZOO = {
     "mmoe": MMoE,
     "esmm": ESMM,
     "ctr_dnn_expand": CtrDnnExpand,
+    "join_pv_dnn": JoinPvDnn,
+    "ctr_dnn_aux": CtrDnnAux,
 }
 
 __all__ = ["CtrDnn", "DeepFM", "WideDeep", "DLRM", "MMoE", "ESMM",
-           "CtrDnnExpand", "MODEL_ZOO"]
+           "CtrDnnExpand", "JoinPvDnn", "CtrDnnAux", "MODEL_ZOO"]

@@ -29,6 +29,23 @@ at dn_slot_dim 11 (the pooled slot width; BASELINE.json config 1),
 3, the dense+sparse hybrid), ``FLAGSHIP_MMOE`` MMoE with 4 experts of 64
 and towers (32,) for tasks (ctr, cvr) and ``FLAGSHIP_ESMM`` ESMM towers
 (256, 128, 64) with loss_mode "esmm" (config 4, multi-task ranking).
+
+The join phase's record-path feeds keep FLAGSHIP's table, batch and run
+settings and its files' slots: ``FLAGSHIP_JOIN_PV`` is JoinPvDnn at its
+defaults (max_rank 3, att_dim 64: rank_param [9 * 352, 64]; MLP
+416-512-256-128-1) over the pv rank-offset feed. The reference reads no pv
+field from a file (its records carry them), so ``assign_pv`` gives a
+loaded pass's records seeded pvs of 1-4 ads in load order, ranks 1..size
+and cmatch 222 or 223 for 90% of the ads, channel 100 for the rest: rows
+of rank 4 > max_rank and rows of another channel take no part in the join.
+``FLAGSHIP_AUX`` is CtrDnnAux 512-256-128 with aux rows 8 wide (an embedx
+row, the GpuReplicaCache use) at aux_capacity 4096, over the same files
+with instance ids (``item<k>``, k below 4096) through an InputTable
+(``input_table``: 3/4 of the vocabulary, so a quarter of the lookups miss
+to the zero row), or a ReplicaCache of the whole vocabulary read by
+cache_idx (``replica_cache``, ``assign_cache_idx``). ``load_pass`` feeds a
+pass of either and gives its records those fields; ``train_pass(ds,
+preloaded=True)`` then trains it.
 chip_smoke.py drives
 its main path from here, profile_pass.py profiles the same pass, and
 rate_probe.py gathers at the pull's shape from one of its batches
@@ -66,9 +83,12 @@ from paddlebox_tpu_torch.data.generator import write_synthetic_ctr_files
 from paddlebox_tpu_torch.device import DeviceLike
 from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 from paddlebox_tpu_torch.embedding.host_store import HostEmbeddingStore
+from paddlebox_tpu_torch.embedding.side_tables import (InputTable,
+                                                       ReplicaCache)
 from paddlebox_tpu_torch.models import MODEL_ZOO
 from paddlebox_tpu_torch.models.base import ModelSpec
-from paddlebox_tpu_torch.train.trainer import BoxTrainer
+from paddlebox_tpu_torch.train.trainer import (BoxTrainer,
+                                               model_accepts_rank_offset)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +116,12 @@ class Flagship:
     # the zoo's feed: dense columns and the conversion label
     dense_dim: int = 0
     conversion: bool = False
+    # the join phase's feeds: instance ids from a vocabulary of
+    # ins_id_vocab items, the side table's row width (the model keeps
+    # CtrDnnAux's default of 4096 aux rows); the pv rank-offset matrix goes
+    # with the model (``feed_for``)
+    ins_id_vocab: int = 0
+    aux_dim: int = 0
 
     def table(self) -> TableConfig:
         return TableConfig(embedx_dim=self.embedx,
@@ -164,6 +190,21 @@ ZOO_DIGITS = {
     "esmm": {"loss": ("1.2378480434", "0.8536358476"),
              "auc": ("0.5061925378", "0.7749946241"),
              "ctcvr_auc": ("0.4974737686", "0.7128110137")}}
+# the join phase's record-path feeds
+FLAGSHIP_JOIN_PV = dataclasses.replace(FLAGSHIP, model="join_pv_dnn")
+FLAGSHIP_AUX = dataclasses.replace(FLAGSHIP, model="ctr_dnn_aux",
+                                   ins_id_vocab=4096, aux_dim=8)
+# their two full-width passes on the card (chip_smoke.py phase 16, seed 0,
+# push_write "scatter", chunks of 8; FLAGSHIP_AUX through input_table):
+# loss and AUC a pass, "%.10f"; the values later slices hold
+JOIN_DIGITS = {"loss": ("0.6929405928", "0.2596362829"),
+               "auc": ("0.4983157869", "0.8381600904")}
+AUX_DIGITS = {"loss": ("0.6899062395", "0.2910517156"),
+              "auc": ("0.4997193346", "0.8436635384")}
+# the share of a pass's ads in a join channel (assign_pv)
+JOIN_SHARE = 0.9
+# the share of the instance-id vocabulary the InputTable holds
+INPUT_TABLE_SHARE = 0.75
 # the expand configuration's test pass after them (predict_batches over
 # the cadence's third window), its AUC, "%.10f"
 EXPAND_TEST_PASS_DIGITS = "0.5233778979"
@@ -181,8 +222,16 @@ def write_files(out_dir: str, cfg: Flagship = FLAGSHIP
         out_dir, num_files=cfg.num_files, lines_per_file=cfg.lines_per_file,
         num_slots=cfg.num_slots, vocab_per_slot=cfg.vocab_per_slot,
         max_len=cfg.max_len, dense_dim=cfg.dense_dim, seed=cfg.data_seed,
-        conversion=cfg.conversion)
-    return files, dataclasses.replace(feed, batch_size=cfg.batch)
+        conversion=cfg.conversion, ins_id_vocab=cfg.ins_id_vocab)
+    return files, feed_for(cfg, feed)
+
+
+def feed_for(cfg: Flagship, feed: DataFeedConfig) -> DataFeedConfig:
+    """``feed`` as the configuration reads it: its batch, and the pv
+    rank-offset matrix where its model takes one (``use_rank_offset``)."""
+    return dataclasses.replace(
+        feed, batch_size=cfg.batch,
+        rank_offset=model_accepts_rank_offset(MODEL_ZOO[cfg.model]))
 
 
 def write_cadence(out_dir: str, cfg: Flagship = FLAGSHIP
@@ -240,6 +289,83 @@ def first_chunk_ids(files: List[str], feed: DataFeedConfig,
                  cfg.capacity - 1).astype(np.int32) for b in group])
 
 
+def assign_pv(records, seed: int = 0, max_ads: int = 4) -> None:
+    """Seeded pv fields on a pass's records, in place: consecutive records
+    (load order) form pvs of 1..max_ads ads, search_id the pv's ordinal
+    from 1, rank an ad's place in its pv from 1, cmatch 222 or 223 for a
+    JOIN_SHARE of the ads and 100 (another channel) for the rest."""
+    rng = np.random.RandomState(seed)
+    n = len(records)
+    sizes = rng.randint(1, max_ads + 1, size=max(n, 1))
+    ends = np.cumsum(sizes)
+    k = int(np.searchsorted(ends, n)) + 1
+    sizes = sizes[:k].copy()
+    sizes[-1] -= int(ends[k - 1]) - n
+    pv = np.repeat(np.arange(k), sizes)
+    starts = np.repeat(np.cumsum(sizes) - sizes, sizes)
+    rank = np.arange(n) - starts + 1
+    cmatch = np.where(rng.rand(n) < JOIN_SHARE,
+                      rng.choice(np.array([222, 223]), size=n), 100)
+    for rec, p, r, c in zip(records, pv.tolist(), rank.tolist(),
+                            cmatch.tolist()):
+        rec.search_id = p + 1
+        rec.rank = r
+        rec.cmatch = c
+
+
+def _ins_vocab_rows(cfg: Flagship, seed: int) -> np.ndarray:
+    """[ins_id_vocab, aux_dim] float32: the side tables' seeded rows, one
+    an item."""
+    return np.random.RandomState([seed, 2]).randn(
+        cfg.ins_id_vocab, cfg.aux_dim).astype(np.float32)
+
+
+def input_table(cfg: Flagship = FLAGSHIP_AUX, seed: int = 0) -> InputTable:
+    """An InputTable of aux_dim rows keyed ``item<k>``, holding a seeded
+    INPUT_TABLE_SHARE of the ins_id vocabulary (in ascending k); the other
+    ids miss to its zero row."""
+    rows = _ins_vocab_rows(cfg, seed)
+    held = np.sort(np.random.RandomState([seed, 3]).choice(
+        cfg.ins_id_vocab, int(cfg.ins_id_vocab * INPUT_TABLE_SHARE),
+        replace=False))
+    table = InputTable(cfg.aux_dim)
+    for k in held.tolist():
+        table.add_index_data("item%d" % k, rows[k])
+    return table
+
+
+def replica_cache(cfg: Flagship = FLAGSHIP_AUX, seed: int = 0
+                  ) -> ReplicaCache:
+    """A ReplicaCache with a row for every item of the ins_id vocabulary,
+    row k the item ``item<k>``'s (the rows ``input_table`` holds)."""
+    cache = ReplicaCache(cfg.aux_dim)
+    for row in _ins_vocab_rows(cfg, seed):
+        cache.add_items(row)
+    return cache
+
+
+def assign_cache_idx(records) -> None:
+    """Each record's cache_idx from its ins_id: ``item<k>`` reads row k of
+    ``replica_cache``."""
+    for rec in records:
+        rec.cache_idx = int(rec.ins_id[len("item"):])
+
+
+def load_pass(trainer: BoxTrainer, ds: BoxDataset, seed: int = 0) -> None:
+    """Feed a pass of ``ds`` into the trainer's table (what train_pass
+    does when not preloaded) and give its records the fields its feed
+    reads: the pv fields (``assign_pv``) of a rank-offset feed, the cache
+    index of a use_cache_idx dataset. Train it with
+    ``trainer.train_pass(ds, preloaded=True)``."""
+    trainer.table.begin_feed_pass()
+    ds.load_into_memory(add_keys_fn=trainer.table.add_keys)
+    trainer.table.end_feed_pass()
+    if ds.feed.rank_offset:
+        assign_pv(ds.records, seed)
+    if ds.packer.use_cache_idx:
+        assign_cache_idx(ds.records)
+
+
 def build_model(cfg: Flagship = FLAGSHIP, seed: int = 0) -> torch.nn.Module:
     """The configuration's model, MODEL_ZOO[cfg.model], its weights drawn
     on the CPU from ``torch.Generator().manual_seed(seed)``: ``hidden`` is
@@ -255,6 +381,8 @@ def build_model(cfg: Flagship = FLAGSHIP, seed: int = 0) -> torch.nn.Module:
         kw["expand_dim"] = cfg.expand_dim
     if cfg.model == "ctr_dnn":
         kw.update(use_data_norm=True, dn_slot_dim=spec.slot_dim)
+    if cfg.model == "ctr_dnn_aux":
+        kw["aux_dim"] = cfg.aux_dim
     return MODEL_ZOO[cfg.model](spec, generator=torch.Generator()
                                 .manual_seed(seed), **kw)
 
@@ -266,6 +394,7 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
                   plain_host: bool = False,
                   stage_flags: StageFlags = StageFlags(),
                   obs_flags: ObsFlags = ObsFlags(),
+                  aux_source=None,
                   **trainer_fields) -> Tuple[BoxTrainer, BoxDataset]:
     """(trainer with an 'auc' metric, dataset over ``files``): the
     configuration's model (``build_model``) with weights from ``seed``,
@@ -275,7 +404,11 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
     The host tier is the native one (the columnar dataset, the C++ store,
     the route index); ``plain_host`` puts the dataset on the record path
     and the table on the Python store, the plain versions the native run
-    is held bit-equal to. ``trainer_fields`` are TrainerConfig fields
+    is held bit-equal to. ``aux_source`` (``input_table`` or
+    ``replica_cache``) is the trainer's aux source and the dataset's
+    aux-offset source: an InputTable translates the ins_ids, a ReplicaCache
+    is read by cache_idx (``use_cache_idx``). A rank-offset or ins_id feed
+    or an aux source puts the dataset on the record path. ``trainer_fields`` are TrainerConfig fields
     (scan_chunk, sparse_chunk_sync, check_nan_inf) beside dense_lr: by
     default the pass runs through the chunk driver in chunks of 8.
     ``obs_flags``: the trainer's host planes, all on by default."""
@@ -293,11 +426,15 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
                          stage_flags=stage_flags,
                          dtype_flags=DtypeFlags(cfg.slab_embed_dtype,
                                                 cfg.matmul_dtype),
-                         obs_flags=obs_flags)
+                         obs_flags=obs_flags, aux_source=aux_source)
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
     if getattr(model, "loss_mode", "") == "esmm":
         trainer.metrics.init_metric("ctcvr_auc", "label_cvr", "pred_ctcvr",
                                     table_size=1 << 20)
-    ds = BoxDataset(feed, columnar=not plain_host)
+    ds = BoxDataset(feed, columnar=not plain_host,
+                    input_table=(aux_source if isinstance(aux_source,
+                                                          InputTable)
+                                 else None),
+                    use_cache_idx=isinstance(aux_source, ReplicaCache))
     ds.set_filelist(files)
     return trainer, ds

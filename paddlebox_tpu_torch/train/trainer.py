@@ -39,6 +39,18 @@ input, and their gradients ride the push after the embedx grads. The
 model and the table's expand_embed_dim are checked against each other at
 construction, and ``sparse_chunk_sync`` is refused with such a model.
 
+The join phase's feeds (reference trainer.py:492-498, 606-614, 921-932,
+1192-1195, 1210-1217, 1410-1411): a batch's ``rank_offset`` and
+``aux_offset`` ride as leaves after ``dense`` (int32; the pinned ring
+carries them like any leaf), a ``use_rank_offset`` model (JoinPvDnn)
+gets the batch's matrix (each batch its own rows, also under
+``sparse_chunk_sync``), and a ``use_aux_input`` model (CtrDnnAux) gets the
+batch's ``aux_offset`` (its forward raises without one). The trainer's
+``aux_source`` (an InputTable or ReplicaCache) is frozen into the model's
+``aux_rows`` buffer at the start of every train_pass and predict_batches.
+The batch's ``cmatch_rank`` reaches the metrics and the quality plane (its
+``cmatch:<id>`` streams); it, ``ins_ids`` and ``qvalues`` stay on the host.
+
 On a bf16 slab (DtypeFlags.slab_embed_dtype) the pull gathers DECODED f32
 rows and the push decodes and encodes inside its kernel; the dense forward
 runs in TrainerConfig.compute_dtype with DtypeFlags.matmul_dtype products
@@ -188,29 +200,63 @@ def multi_task_loss(logits: Dict[str, torch.Tensor],
     return total, preds
 
 
+def model_accepts_rank_offset(model) -> bool:
+    """Whether the model (or model class) takes the pv rank matrix as its
+    forward's ``rank_offset`` (the join phase's models, which set
+    ``use_rank_offset``; reference trainer.py:492-498 reads the
+    signature)."""
+    return bool(getattr(model, "use_rank_offset", False))
+
+
+def uses_aux_input(model: torch.nn.Module) -> bool:
+    """Whether the model gathers side-table rows by ``aux_offset``."""
+    return bool(getattr(model, "use_aux_input", False))
+
+
+def feed_inputs(model: torch.nn.Module, batch: Batch) -> Dict[str, object]:
+    """The batch's join-phase inputs the model takes, as the reference's
+    forward picks them (trainer.py:599-614): the expand path none, a model
+    taking ``rank_offset`` the batch's matrix where it has one, a
+    ``use_aux_input`` model the batch's ``aux_offset`` (None where it has
+    none, which its forward refuses)."""
+    if uses_expand(model):
+        return {}
+    if "rank_offset" in batch and model_accepts_rank_offset(model):
+        return {"rank_offset": batch["rank_offset"]}
+    if uses_aux_input(model):
+        return {"aux_offset": batch.get("aux_offset")}
+    return {}
+
+
 def model_logits(model: torch.nn.Module, pooled: torch.Tensor,
                  compute_dtype: str = "float32",
                  expand: Optional[torch.Tensor] = None,
-                 dense: Optional[torch.Tensor] = None):
+                 dense: Optional[torch.Tensor] = None,
+                 feed: Optional[Mapping[str, object]] = None):
     """The model's f32 logits ([B], or a dict of [B] by task) of
-    ``pooled`` and, when given, the batch's dense columns ``dense`` and the
-    sum-pooled expand vectors ``expand`` (a ``use_expand`` model). Under
-    compute_dtype 'bfloat16' the forward runs on bf16 copies of the inputs
-    and of every parameter, and the logits return to f32
-    (apply_mixed_precision and mixed_logits_to_f32,
-    paddlebox_tpu/train/trainer.py:512-541, 598-603): the parameters stay
-    the f32 masters Adam updates, and their gradients flow back through the
-    casts. Buffers (CtrDnn's data_norm summaries) are not cast: they stay
-    f32, as the reference's cast_for_compute preserves dn_summary."""
+    ``pooled`` and, when given, the batch's dense columns ``dense``, the
+    sum-pooled expand vectors ``expand`` (a ``use_expand`` model) and the
+    keyword inputs ``feed`` (``feed_inputs``). Under compute_dtype
+    'bfloat16' the forward runs on bf16 copies of the float inputs and of
+    every parameter, and the logits return to f32 (apply_mixed_precision
+    and mixed_logits_to_f32, paddlebox_tpu/train/trainer.py:512-541,
+    598-603): the parameters stay the f32 masters Adam updates, and their
+    gradients flow back through the casts. Integer inputs (rank_offset,
+    aux_offset) are not cast, nor are buffers (CtrDnn's data_norm
+    summaries, CtrDnnAux's aux_rows): they stay f32, as the reference's
+    cast_for_compute preserves dn_summary."""
     kwargs = {k: v for k, v in (("expand", expand), ("dense", dense))
               if v is not None}
+    kwargs.update(feed or {})
     if compute_dtype == "float32":
         return model(pooled, **kwargs)
     dt = torch.bfloat16
     params = {n: p.to(dt) for n, p in model.named_parameters()}
     out = torch.func.functional_call(
         model, params, (pooled.to(dt),),
-        {k: v.to(dt) for k, v in kwargs.items()})
+        {k: (v.to(dt) if isinstance(v, torch.Tensor)
+             and v.is_floating_point() else v)
+         for k, v in kwargs.items()})
     if isinstance(out, dict):
         return {t: v.to(torch.float32) for t, v in out.items()}
     return out.to(torch.float32)
@@ -244,7 +290,7 @@ def forward_loss(model: torch.nn.Module, pooled: torch.Tensor, batch: Batch,
     batch's dense leaf), then masked BCE, or multi_task_loss with each
     task's label for a multi-task model (preds by task)."""
     logits = model_logits(model, pooled, compute_dtype, expand,
-                          batch.get("dense"))
+                          batch.get("dense"), feed_inputs(model, batch))
     if is_multi_task(model):
         labels = {t: task_label(batch, t) for t in task_names(model)}
         return multi_task_loss(logits, labels, batch["ins_valid"],
@@ -406,7 +452,8 @@ def make_eval_step(model: torch.nn.Module, layout: ValueLayout,
                                       num_slots, n_valid)
                           if use_expand else None)
             logits = model_logits(model, pooled, compute_dtype,
-                                  pooled_exp, batch.get("dense"))
+                                  pooled_exp, batch.get("dense"),
+                                  feed_inputs(model, batch))
             if isinstance(logits, dict):
                 logits = logits[main_task]
             return torch.sigmoid(logits)
@@ -496,7 +543,8 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
         losses, preds, dpooled = [], [], []
         # the dense model's per-batch leaves
         dense_keys = [k for k in stacked
-                      if k in ("labels", "ins_valid", "dense")
+                      if k in ("labels", "ins_valid", "dense",
+                               "rank_offset", "aux_offset")
                       or k.startswith("labels_")]
         for c in range(C):
             x = pooled_c[c].requires_grad_(True)
@@ -703,14 +751,23 @@ class BoxTrainer:
                  store=None,
                  stage_flags: Optional[StageFlags] = None,
                  dtype_flags: Optional[DtypeFlags] = None,
-                 obs_flags: Optional[ObsFlags] = None) -> None:
+                 obs_flags: Optional[ObsFlags] = None,
+                 aux_source=None) -> None:
         """``store``: the table's host store (PassTable's default, the
         native one, when None). ``stage_flags``: the chunk driver's
         staging, read at the start of every pass (``self.stage_flags`` may
         be replaced between passes). ``dtype_flags``: the slab's storage
         (the table's layout) and the dense matmuls' operand dtype (set on
         the model as its ``matmul_dtype``), read here. ``obs_flags``: the
-        host planes (ObsFlags(): all on), read here."""
+        host planes (ObsFlags(): all on), read here. ``aux_source``: an
+        InputTable or ReplicaCache (embedding/side_tables.py) whose rows a
+        ``use_aux_input`` model gathers; frozen into the model's
+        ``aux_rows`` at its ``aux_capacity`` at the start of every pass
+        (a model that takes no aux rows refuses one)."""
+        if aux_source is not None and not uses_aux_input(model):
+            raise ValueError("aux_source given but the model does not "
+                             "consume aux rows (use_aux_input)")
+        self.aux_source = aux_source
         self.cfg = trainer_cfg or TrainerConfig()
         if self.cfg.scan_chunk < 1:
             raise ValueError("scan_chunk must be >= 1, got %r"
@@ -848,15 +905,20 @@ class BoxTrainer:
         them before its padding tail). Test mode, or ``skip_push_dedup``
         (a chunk-synchronous chunk dedups once over the whole chunk),
         leaves out the dedup products and n_uniq. The batch's dense
-        columns ride as ``dense``; a multi-task model's tasks with a label
-        of their own in the feed as ``labels_<task>`` (the others train on
-        ``labels``)."""
+        columns ride as ``dense``, then the join phase's ``rank_offset``
+        and ``aux_offset`` where the batch has them; a multi-task model's
+        tasks with a label of their own in the feed as ``labels_<task>``
+        (the others train on ``labels``)."""
         n_valid = int(b.valid.sum())
         out: Dict[str, object] = {"ids": ids, "segments": b.segments,
                                   "ins_valid": b.ins_valid,
                                   "labels": b.labels, "n_valid": n_valid}
         if b.dense is not None:
             out["dense"] = b.dense
+        if b.rank_offset is not None:
+            out["rank_offset"] = b.rank_offset
+        if b.aux_offset is not None:
+            out["aux_offset"] = b.aux_offset
         if self.multi_task and b.task_labels:
             for t in self.task_names:
                 if t in b.task_labels:
@@ -873,6 +935,15 @@ class BoxTrainer:
         return {k: (torch.from_numpy(v).to(self.device)
                     if isinstance(v, np.ndarray) else v)
                 for k, v in self.host_batch(b, ids).items()}
+
+    def _refresh_aux(self) -> None:
+        """The aux source's current rows into the model's ``aux_rows``
+        (the reference's ToHBM cadence), before a train or test pass runs a
+        step."""
+        if self.aux_source is not None:
+            with torch.no_grad():
+                self.model.aux_rows.copy_(self.aux_source.to_device(
+                    self.model.aux_capacity, self.device))
 
     def _host_pool(self) -> Optional[ThreadPoolExecutor]:
         """The staging pool of ``stage_flags.stack_threads`` threads (None:
@@ -987,6 +1058,7 @@ class BoxTrainer:
             dataset.load_into_memory(add_keys_fn=self.table.add_keys)
             self.table.end_feed_pass()
             lap("feed")
+        self._refresh_aux()
         self.table.begin_pass()
         dataset.local_shuffle(self._shuffle_rng.randint(1 << 31))
         batches = dataset.split_batches(num_workers=1)[0]
@@ -1126,6 +1198,7 @@ class BoxTrainer:
         self.table.begin_feed_pass()
         self.table.add_keys(dataset.all_keys())
         self.table.end_feed_pass()
+        self._refresh_aux()
         self.table.begin_pass()
         batches = dataset.split_batches(num_workers=1)[0]
         preds = [self.eval_batch(b) for b in batches]
@@ -1149,6 +1222,8 @@ class BoxTrainer:
             self.task_names[0]: pred}
         main = by_task[self.task_names[0]]
         tensors = {"label": b.labels, "mask": b.ins_valid, "pred": main}
+        if b.cmatch_rank is not None:
+            tensors["cmatch_rank"] = b.cmatch_rank
         for t, lab in (b.task_labels or {}).items():
             tensors["label_" + t] = lab
         for t, p in by_task.items():

@@ -260,7 +260,8 @@ def test_model_forward_and_grads_match_jax(name, dense):
 
 def test_model_zoo_names():
     assert set(MODEL_ZOO) == {"deepfm", "ctr_dnn_expand", "ctr_dnn",
-                              "wide_deep", "dlrm", "mmoe", "esmm"}
+                              "wide_deep", "dlrm", "mmoe", "esmm",
+                              "join_pv_dnn", "ctr_dnn_aux"}
     for name, cls in MODEL_ZOO.items():
         assert cls.name == name
 
