@@ -217,6 +217,29 @@ Phases, each of which raises on a failed check (exit code != 0):
      aux_offset leaf); a 4-batch pass through flagship.replica_cache by
      cache_idx; each pass's wall and examples/s beside the DeepFM main
      path's, with the card line;
+ 17. the behavior-sequence model, the seqpool variants and the dense
+     optimizers sgd and adagrad: a narrow BstSeqCtr through SeqCtrTrainer
+     on the card against the CPU (as phase 3); two full-width passes of
+     flagship.FLAGSHIP_BST (BstSeqCtr at the JAX defaults, heads 4, d_head
+     8, d_seq 16, MLP 368-64-32-1, over FLAGSHIP's table and batch, slot 0
+     the history with up to 20 keys: files of their own, written by the
+     spawned writer), each step launching gather_rows twice (the pooled
+     pull, the sequence pull) and push_adagrad once over the pooled and
+     sequence rows, plus the promote and the two write-backs (32 and 67),
+     its digits held to BST_DIGITS, pos_emb and wq moved, the store's show
+     column after pass 1 equal to the pooled key occurrences counted from
+     the files' text; gather_rows at the sequence pull ([1024, 20] ids)
+     and push_adagrad over the concatenated push rows (143,360 + 20,480)
+     bit-equal to their plain versions with kernel, plain, index_select
+     and bound times; each seqpool variant at a flagship batch on the card
+     against the CPU within VARIANT_RTOL; two passes each of FLAGSHIP_SGD
+     and FLAGSHIP_DENSE_ADAGRAD (the main path under the dense optimizers
+     sgd and adagrad: 32 push_adagrad and 35 gather_rows, digits held to
+     SGD_DIGITS and DENSE_ADAGRAD_DIGITS) and the adagrad resume (a
+     RecoverableRunner resumed after pass 1 equals one run through: pass 2's
+     loss and AUC, dense parameters, accumulators and store bit-equal);
+     each pass's wall and examples/s beside the DeepFM main path's, with
+     the card line;
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -3153,6 +3176,413 @@ def join_phase(torch, files, feed, aux_files, aux_feed, main, reset_counts,
     return out
 
 
+# phase 17's two full-width passes of FLAGSHIP_BST (SeqCtrTrainer, seed
+# 0, the main path's incremental lifecycle, one step a batch) and of the
+# DeepFM main path under the dense optimizers sgd and adagrad (scatter,
+# chunks of 8): loss and AUC a pass, "%.10f"; the values later slices hold
+BST_DIGITS = {"loss": ("0.6859792247", "0.5731987171"),
+              "auc": ("0.4945789856", "0.7145192494")}
+SGD_DIGITS = {"loss": ("0.7063000202", "0.7277045250"),
+              "auc": ("0.4997957130", "0.4812856946")}
+DENSE_ADAGRAD_DIGITS = {"loss": ("0.7057331800", "0.7203068137"),
+                        "auc": ("0.4995931987", "0.4982919981")}
+# the seqpool variants on the card against the CPU at a flagship batch
+# (sorted segment sums of the same f32 values, reduced in another order)
+VARIANT_RTOL = 1e-5
+
+
+def file_key_occurrences(files, feed):
+    """The sparse key occurrences of ``files`` counted from the text
+    itself (MultiSlot lines: the click, then each slot's count and keys),
+    each slot's run cut at its max_len: what the pooled path packs, past
+    the parser and the packer."""
+    lens = [s.max_len for s in feed.used_sparse_slots()]
+    total = 0
+    for path in files:
+        with open(path) as f:
+            for line in f:
+                tok = line.split()
+                at = 2
+                for cap in lens:
+                    n = int(tok[at])
+                    total += min(n, cap)
+                    at += 1 + n
+    return total
+
+
+def seq_small_parity(torch, tmp):
+    """Phase 17's small-input check: two passes of a narrow BstSeqCtr (4
+    slots, history slot 0 of up to 8 keys, T 8) through SeqCtrTrainer on
+    the card and on the CPU (plain versions); loss rtol 1e-4, AUC 1e-4
+    absolute, host rows and pos_emb rtol 1e-4, as phase 3 holds DeepFM."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.train import flagship
+    small = dataclasses.replace(
+        flagship.FLAGSHIP_BST, num_slots=4, batch=32, max_len=3,
+        hidden=(16, 8), capacity=1024, num_files=2, lines_per_file=96,
+        vocab_per_slot=60, data_seed=7, seq_len=8)
+    files, feed = flagship.write_files(os.path.join(tmp, "seq_small"),
+                                       small)
+    out = {}
+    for device in ("cuda", "cpu"):
+        t, ds = flagship.build_seq_trainer(files, feed, small, device)
+        res = [run_pass(torch, t, ds)[:2] for _ in range(2)]
+        out[device] = ([(r["loss"], a) for r, a in res],
+                       t.table.store.lookup(t.table.pass_keys),
+                       t.params["pos_emb"])
+    for (lc, ac), (lp, ap) in zip(out["cuda"][0], out["cpu"][0]):
+        check(np.isfinite(lc) and abs(lc - lp) <= 1e-4 * abs(lp)
+              and abs(ac - ap) <= 1e-4,
+              "seq small-input cuda (%r, %r) vs cpu (%r, %r)"
+              % (lc, ac, lp, ap))
+    check(np.allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4, atol=1e-6)
+          and np.allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4,
+                          atol=1e-6),
+          "seq small-input host rows or pos_emb differ between cuda and "
+          "cpu")
+    log("seq small-input parity cuda vs cpu: %s / %s"
+        % (out["cuda"][0], out["cpu"][0]))
+
+
+def seq_kernel_phase(torch, files, feed, dev):
+    """Phase 17, the path's two kernels at BST's shapes: gather_rows at
+    the sequence pull (the first BST batch's [1024, 20] history ids from a
+    2^20 x 17 slab) and the fused push_adagrad over the concatenated push
+    rows (the batch's pooled key slots, then its 20,480 sequence
+    positions, the sequence rows' show and click 0), each bit-equal to its
+    plain version; kernel, plain, library (index_select for the gather)
+    and bound times. Returns {kernel: record}."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
+    from paddlebox_tpu_torch.embedding.pass_table import segment_offsets
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.push_probe import (SEED, fused_push_bytes,
+                                                push_inputs)
+    from paddlebox_tpu_torch.rate_probe import gather_bytes, time_chain
+    from paddlebox_tpu_torch.train import flagship
+
+    cfg = flagship.FLAGSHIP_BST
+    D = cfg.embedx
+    layout = ValueLayout(D)
+    conf = cfg.table().optimizer
+    push = PushLayout(D)
+    W, G = layout.width, push.width
+    pool_ids, seq = flagship.first_seq_batch_ids(files, feed, cfg)
+    seq_ids = seq.reshape(-1)
+    ids = np.concatenate([pool_ids, seq_ids])
+    inp = push_inputs(cfg, files, feed, ids=ids)
+    # the sequence rows carry gradient only
+    inp["grads"][pool_ids.size:, push.SHOW:push.CLICK + 1] = 0.0
+    K, n_uniq, n_valid = ids.shape[0], inp["n_uniq"], inp["n_valid"]
+    slab, g, p, o, u = (torch.from_numpy(x).to(dev) for x in (
+        inp["slab"], inp["grads"], inp["perm"],
+        segment_offsets(inp["inv"], n_valid), inp["uids"]))
+    check(K == pool_ids.size + cfg.batch * cfg.seq_len
+          and int(o[-1]) == n_valid,
+          "BST push inputs: %d ids, offsets end %d, n_valid %d"
+          % (K, int(o[-1]), n_valid))
+    out = {}
+
+    # --- gather_rows, the sequence pull
+    i = torch.from_numpy(seq_ids).to(dev)
+    got = rk.gather_rows(slab, i)
+    torch.cuda.synchronize()
+    want = rk.gather_rows_plain(slab, i)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+          and torch.equal(got, slab.index_select(0, i)),
+          "gather_rows at the sequence pull differs from the plain version")
+    nbytes = gather_bytes(seq_ids, cfg.capacity, W)
+    args = (slab, i)
+    out["gather_rows"] = {
+        "ids": int(seq_ids.size),
+        "valid": int((seq_ids != cfg.capacity - 1).sum()),
+        "distinct": int(np.unique(seq_ids).size), "bytes": nbytes,
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": time_chain(rk.gather_rows, args, nbytes),
+        "plain_ms": time_chain(rk.gather_rows_plain, args, nbytes),
+        "library_ms": time_chain(lambda a, b: a.index_select(0, b), args,
+                                 nbytes),
+        "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
+    del got, want, i, args
+
+    # --- push_adagrad over the concatenated push rows, both write modes
+    err = 0.0
+    for rows_out in (False, True):
+        s_k, s_p = slab.clone(), slab.clone()
+        r_k = pk.push_adagrad(s_k, g, p, o, u, n_uniq, SEED, layout, conf,
+                              rows_out)
+        torch.cuda.synchronize()
+        r_p = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n_uniq, SEED,
+                                          layout, conf, rows_out)
+        check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32)),
+              "push_adagrad (rows_out=%s) at BST's push differs from the "
+              "plain version" % rows_out)
+        if rows_out:
+            check(torch.equal(r_k.view(torch.int32), r_p.view(torch.int32)),
+                  "push_adagrad rows out at BST's push differ")
+            err = max(err, float((r_k - r_p).abs().max()))
+        err = max(err, float((s_k - s_p).abs().max()))
+        del s_k, s_p, r_k, r_p
+    live = inp["live"]
+    nbytes = fused_push_bytes(n_valid, n_uniq, W, G)
+    ops = n_valid * G + int(np.unique(ids[live]).size) * (20 + 6 * D)
+    args = (slab, g, p, o, u)
+    out["push_adagrad"] = {
+        "push_rows": K, "occurrences": n_valid, "n_uniq": n_uniq,
+        "bytes": nbytes, "max_abs_err": err,
+        "ms": time_chain(lambda *a: pk.push_adagrad(
+            *a, n_uniq, SEED, layout, conf, rows_out=True), args, nbytes),
+        "plain_ms": time_chain(lambda *a: pk.push_adagrad_fused_plain(
+            *a, n_uniq, SEED, layout, conf, rows_out=True), args, nbytes),
+        "library_ms": None,
+        "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS),
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS
+                     else "operations")}
+    for name, rec in out.items():
+        log("%s at BST's shape: bit-equal to the plain version; %s"
+            % (name, json.dumps(rec)))
+    return out
+
+
+def variants_phase(torch, files, feed, dev):
+    """Phase 17, the seqpool variants at a flagship batch's shape (the
+    first batch's 131,072 key slots and segments, seeded counter and
+    embedding columns) on the card against the CPU, each flag set once
+    beside the defaults, within VARIANT_RTOL (relative, and absolute
+    near 0, where a log difference cancels). Returns the largest absolute
+    gap by variant."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.ops import seqpool as sp
+    from paddlebox_tpu_torch.train import flagship
+
+    cfg = flagship.FLAGSHIP
+    ds, _ = flagship._load(files[:1], feed)
+    b = ds.split_batches(1)[0][0]
+    B, S, E = cfg.batch, cfg.num_slots, cfg.embedx
+    rng = np.random.RandomState(17)
+    K = b.keys.shape[0]
+
+    def emb(width):
+        e = (rng.rand(K, width) * 3).astype(np.float32)
+        e[~b.valid] = 0.0
+        return e
+
+    thres = rng.rand(S).astype(np.float32) + 0.8
+    # (name, variant, emb, its positional arguments after num_slots, the
+    # flags set beside the defaults); the diff_thres variant takes each
+    # key's slot after ``valid``
+    cases = [
+        ("with_conv", sp.fused_seqpool_cvm_with_conv, emb(3 + E), (),
+         dict(need_filter=True, show_filter=True)),
+        ("with_credit", sp.fused_seqpool_cvm_with_credit, emb(4 + E), (),
+         dict(show_filter=True)),
+        ("tradew", sp.fused_seqpool_cvm_tradew, emb(2 + 3 + E), (3,),
+         dict(trade_id=1)),
+        ("with_diff_thres", sp.fused_seqpool_cvm_with_diff_thres,
+         emb(2 + E), (thres,), dict(xbox_diff_thres_filter=False)),
+        ("with_pcoc", sp.fused_seqpool_cvm_with_pcoc, emb(4 + 3 + E), (3,),
+         dict(use_cvm=False))]
+    gaps = {}
+    for name, fn, e, extra, flags in cases:
+        gap = 0.0
+        for kw in ({}, flags):
+            outs = []
+            for d in (dev, torch.device("cpu")):
+                head = [torch.from_numpy(x).to(d)
+                        for x in (e, b.segments, b.valid)]
+                if name == "with_diff_thres":
+                    head.append(torch.from_numpy(b.slots).to(d))
+                outs.append(fn(*head, B, S, *extra, **kw).cpu())
+            got, want = outs
+            check(got.shape == want.shape and torch.isfinite(got).all()
+                  and torch.allclose(got, want, rtol=VARIANT_RTOL,
+                                     atol=VARIANT_RTOL),
+                  "seqpool %s %s on the card differs from the CPU"
+                  % (name, kw))
+            gap = max(gap, float((got - want).abs().max()))
+        gaps[name] = gap
+    log("seqpool variants at a flagship batch (K=%d, [%d, %d, w]): card = "
+        "cpu within rtol %g; largest absolute gaps %s"
+        % (K, B, S, VARIANT_RTOL, json.dumps(gaps)))
+    return gaps
+
+
+def dense_adagrad_resume(torch, files, feed, root):
+    """Phase 17, resume = continue under the dense adagrad:
+    RecoverableRunner over two passes of FLAGSHIP_DENSE_ADAGRAD (a save
+    after each) against a runner that saves after pass 1 and a fresh
+    trainer and runner that resume there and train pass 2; the second
+    pass's loss and AUC, the dense parameters, the accumulators and the
+    sorted store bit-equal."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.config.configs import CheckpointConfig
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.train.checkpoint import CheckpointManager
+    from paddlebox_tpu_torch.train.recovery import RecoverableRunner
+
+    cfg = flagship.FLAGSHIP_DENSE_ADAGRAD
+
+    def run(sub, n):
+        trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter",
+                                             "cuda")
+        cm = CheckpointManager(
+            CheckpointConfig(batch_model_dir=os.path.join(root, sub, "b"),
+                             xbox_model_dir=os.path.join(root, sub, "x")),
+            trainer.table)
+        runner = RecoverableRunner(trainer, cm, "day")
+        at = runner.completed_passes()
+        real = trainer.train_pass
+
+        def train_pass(d):
+            trainer.metrics.init_metric("auc", "label", "pred",
+                                        table_size=1 << 20)
+            res = real(d)
+            return dict(res, auc=trainer.metrics.get_metric_msg("auc")[
+                "auc"])
+
+        trainer.train_pass = train_pass
+        stats = runner.run([ds] * n)
+        torch.cuda.synchronize()
+        out = {"resumed_at": at, "stats": stats, "params": trainer.params,
+               "acc": trainer.opt_state["sum_of_squares"],
+               "store": sorted_store(trainer.table)}
+        trainer.close()
+        return out
+
+    t0 = time.perf_counter()
+    cont = run("continue", 2)
+    run("resume", 1)
+    res = run("resume", 2)
+    check(cont["resumed_at"] == 0 and res["resumed_at"] == 1
+          and len(res["stats"]) == 1
+          and (res["stats"][0]["loss"], res["stats"][0]["auc"])
+          == (cont["stats"][1]["loss"], cont["stats"][1]["auc"]),
+          "dense adagrad resume: resumed at %d, %s against %s"
+          % (res["resumed_at"], res["stats"], cont["stats"]))
+    for k, v in cont["params"].items():
+        check(np.array_equal(res["params"][k], v), "resumed param %s" % k)
+    for k, v in cont["acc"].items():
+        check(np.array_equal(res["acc"][k], v),
+              "resumed adagrad accumulator %s" % k)
+    (rk, rv), (ck, cv) = res["store"], cont["store"]
+    check(np.array_equal(rk, ck)
+          and np.array_equal(rv.view(np.uint32), cv.view(np.uint32)),
+          "resumed store differs from the continued run's")
+    log("dense adagrad resume = continue: pass 2 loss %.10f auc %.10f, "
+        "params, accumulators and store bit-equal (%.2f s)"
+        % (res["stats"][0]["loss"], res["stats"][0]["auc"],
+           time.perf_counter() - t0))
+    return {"loss": res["stats"][0]["loss"], "auc": res["stats"][0]["auc"]}
+
+
+def seq_phase(torch, files, feed, bst_files, bst_feed, main, reset_counts,
+              counts, tmp):
+    """Phase 17: FLAGSHIP_BST's two full-width passes through
+    SeqCtrTrainer over ``bst_files`` (slot 0 the history, up to 20 keys),
+    a narrow BST on the card against the CPU, the two kernels at BST's
+    shapes, the seqpool variants at a flagship batch, FLAGSHIP_SGD's and
+    FLAGSHIP_DENSE_ADAGRAD's two passes over the main path's files with
+    the adagrad resume; walls beside the DeepFM main path's ``main``
+    passes. Returns its records."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    from paddlebox_tpu_torch.train import flagship
+
+    out = {}
+    dev = torch.device("cuda")
+    seq_small_parity(torch, tmp)
+
+    # --- BST through SeqCtrTrainer at full width
+    cfg = flagship.FLAGSHIP_BST
+    check([s.max_len for s in bst_feed.used_sparse_slots()][:2]
+          == [cfg.seq_len, cfg.max_len]
+          and bst_feed.key_capacity() == cfg.batch * (
+              min(cfg.seq_len, 16) + (cfg.num_slots - 1) * cfg.max_len),
+          "BST feed slots %s"
+          % [s.max_len for s in bst_feed.used_sparse_slots()])
+    trainer, ds = flagship.build_seq_trainer(bst_files, bst_feed, cfg,
+                                             "cuda")
+    moved0 = {n: getattr(trainer.model, n).detach().clone()
+              for n in ("pos_emb", "wq")}
+    host = {}
+
+    def after_bst(rec):
+        if rec["pass"] == 0:
+            _, vals = trainer.table.store.state_items()
+            host["show"] = float(vals[:, acc.SHOW].astype(np.float64).sum())
+
+    reset_counts()
+    passes = main_passes(torch, trainer, ds, after_bst)
+    launches = counts()
+    steps = sum(p["batches"] for p in passes)
+    extra = sum(gather_launches_of(p["counters"]) for p in passes)
+    check(steps == 32 and extra == 3 and launches == f32_launches(
+              push_adagrad=steps, gather_rows=2 * steps + extra),
+          "bst launches %s over %d steps and %d promotes and write-backs"
+          % (launches, steps, extra))
+    for p in passes:
+        log("bst pass %d: loss %.10f auc %.10f %s"
+            % (p["pass"], p["loss"], p["auc"], json.dumps(p)))
+    digits = held_digits("bst", passes, BST_DIGITS)
+    occ = file_key_occurrences(bst_files, bst_feed)
+    check(host["show"] == occ,
+          "after pass 1 the store's shows sum to %r, the files hold %d "
+          "pooled key occurrences" % (host["show"], occ))
+    moved = {n: float((getattr(trainer.model, n).detach() - v).abs().max())
+             for n, v in moved0.items()}
+    check(all(m > 0 for m in moved.values()), "BST params moved %s" % moved)
+    out["bst"] = {"passes": passes, "launches": launches, "digits": digits,
+                  "show_sum": host["show"], "file_occurrences": occ,
+                  "moved": moved}
+    log("bst: shows after pass 1 %.0f = the files' pooled key occurrences "
+        "%d; pos_emb / wq moved by up to %s; launches %s; %s"
+        % (host["show"], occ, json.dumps(moved), launches, card_line()))
+    del trainer, ds
+
+    out["kernels"] = seq_kernel_phase(torch, bst_files, bst_feed, dev)
+    out["variants"] = variants_phase(torch, files, feed, dev)
+
+    # --- the dense optimizers on the main path
+    for name, cfg, want in (("sgd", flagship.FLAGSHIP_SGD, SGD_DIGITS),
+                            ("dense_adagrad", flagship.FLAGSHIP_DENSE_ADAGRAD,
+                             DENSE_ADAGRAD_DIGITS)):
+        trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter",
+                                             "cuda")
+        check(trainer.cfg.dense_optimizer == cfg.dense_optimizer,
+              "%s trainer runs %s" % (name, trainer.cfg.dense_optimizer))
+        reset_counts()
+        passes = main_passes(torch, trainer, ds)
+        launches = counts()
+        check_launches(name, passes, launches)
+        for p in passes:
+            log("%s pass %d: loss %.10f auc %.10f %s"
+                % (name, p["pass"], p["loss"], p["auc"], json.dumps(p)))
+        out[name] = {"passes": passes, "launches": launches,
+                     "digits": held_digits(name, passes, want)}
+        trainer.close()
+        del trainer, ds
+    out["dense_adagrad"]["resume"] = dense_adagrad_resume(
+        torch, files, feed, os.path.join(tmp, "dense_adagrad_resume"))
+
+    walls = {"deepfm_main_path": [(p["pass_s"], p["examples_per_s"])
+                                  for p in main]}
+    walls.update({n: [(p["pass_s"], p["examples_per_s"])
+                      for p in out[n]["passes"]]
+                  for n in ("bst", "sgd", "dense_adagrad")})
+    log("seq and dense-optimizer pass walls (s, examples/s): %s; %s"
+        % (json.dumps(walls), card_line()))
+    out["walls"] = walls
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3209,6 +3639,10 @@ def main() -> int:
         aux_written = writer.submit(flagship.write_files,
                                     os.path.join(tmp, "aux"),
                                     flagship.FLAGSHIP_AUX)
+        # the behavior-sequence configuration's files (phase 17)
+        bst_written = writer.submit(flagship.write_files,
+                                    os.path.join(tmp, "bst"),
+                                    flagship.FLAGSHIP_BST)
         host = {}
 
         def build_host():
@@ -3375,6 +3809,13 @@ def main() -> int:
                           reset_counts, counts, tmp)
         clock.lap("join")
 
+        # 17. the behavior-sequence model, the seqpool variants and the
+        # dense optimizers sgd and adagrad at full width
+        bst_files, bst_feed = bst_written.result()
+        seq = seq_phase(torch, files, feed, bst_files, bst_feed, passes,
+                        reset_counts, counts, tmp)
+        clock.lap("seq")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -3400,6 +3841,13 @@ def main() -> int:
     for k in kernels:
         if k["name"] == "gather_rows":
             k.setdefault("at_shapes", {}).update(rule_pull)
+    # BST's shapes (phase 17): the sequence pull and the concatenated push,
+    # with the BST passes' launches
+    for k in kernels:
+        if k["name"] in seq["kernels"]:
+            k.setdefault("at_shapes", {})["bst"] = dict(
+                seq["kernels"][k["name"]],
+                launches=seq["bst"]["launches"][k["name"]])
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -3431,7 +3879,9 @@ def main() -> int:
                                   zoo["ctr_dnn_bf16"]["launches"],
                               **{"join_" + n: join[n]["launches"]
                                  for n in ("join_pv", "aux",
-                                           "aux_replica")}},
+                                           "aux_replica")},
+                              **{"seq_" + n: seq[n]["launches"]
+                                 for n in ("bst", "sgd", "dense_adagrad")}},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

@@ -125,20 +125,25 @@ class CheckpointConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The trainer's settings: dense Adam (the only dense optimizer of the
-    port) at dense_lr, and the chunk driver.
+    """The trainer's settings: the dense optimizer at dense_lr, and the
+    chunk driver.
+
+    dense_optimizer: "adam" (the default), "sgd" or "adagrad", optax's
+    updates (train/dense_optim.py make_dense_optimizer); anything else
+    raises.
 
     scan_chunk: batches run back to back as one chunk (the JAX package's
     lax.scan megastep); 1 runs each batch as its own step. A pass with at
     least one full chunk goes through the chunk driver; its tail batches
     step one by one. sparse_chunk_sync: one pull and one merged push a
-    chunk (pulls read the chunk-start rows), dense Adam per batch; chunks
+    chunk (pulls read the chunk-start rows), the dense update per batch;
+    chunks
     of one batch, and chunks whose batches share no key, give exactly the
     per-batch results. check_nan_inf: a pass raises FloatingPointError at
     the first chunk (or tail step) with a non-finite loss. compute_dtype:
     the dense forward's dtype, 'float32' or 'bfloat16' (the pooled input
-    and a bf16 copy of every parameter; the parameters and Adam's state
-    stay f32 masters, gradients flow back through the cast, the logits
+    and a bf16 copy of every parameter; the parameters and the
+    optimizer's state stay f32 masters, gradients flow back through the cast, the logits
     return to f32 for the loss)."""
 
     dense_lr: float = 1e-3
@@ -146,8 +151,12 @@ class TrainerConfig:
     scan_chunk: int = 8
     sparse_chunk_sync: bool = False
     compute_dtype: str = "float32"
+    dense_optimizer: str = "adam"
 
     def __post_init__(self):
+        if self.dense_optimizer not in ("adam", "sgd", "adagrad"):
+            raise ValueError("dense_optimizer must be adam, sgd or adagrad, "
+                             "got %r" % (self.dense_optimizer,))
         # resolve_compute_dtype (paddlebox_tpu/train/trainer.py:501-510):
         # f32 or bf16 only, whose f32-sized exponent needs no loss scaling
         if self.compute_dtype not in ("float32", "bfloat16"):

@@ -19,11 +19,14 @@ parameters by their JAX names.
 Host-store rows are numpy f32 in both packages and go across as they are;
 so does an f32 slab. A bf16 slab (the slab_embed_dtype diet) is numpy
 uint16 [C, device_width] in the reference and the same bits as an int16
-tensor in the port (``slab_from_jax`` / ``slab_to_jax``). The dense Adam
-state crosses as numpy under optax's names:
+tensor in the port (``slab_from_jax`` / ``slab_to_jax``). The dense
+optimizer's state crosses as numpy under optax's names: Adam's
 ``{"mu": {name: array}, "nu": {name: array}, "count": int}``, where the
 port's torch.optim.Adam keeps ``exp_avg``, ``exp_avg_sq`` and ``step`` per
-parameter; both start at zero with count 0.
+parameter (both start at zero with count 0); adagrad's
+``{"sum_of_squares": {name: array}}`` (train/dense_optim.py's OptaxAdagrad,
+every accumulator starting at ADAGRAD_INITIAL_ACC, 0.1, as optax's does);
+sgd's ``{}`` (optax.sgd keeps no state).
 """
 
 from __future__ import annotations
@@ -162,6 +165,76 @@ def _leaf_paths(tree: Mapping, prefix=()) -> list:
     return out
 
 
+# optax.adagrad's defaults, which the reference's optax.adagrad(lr) takes
+# (train/dense_optim.py OptaxAdagrad): the accumulator's initial value and
+# the eps inside the root
+ADAGRAD_INITIAL_ACC = 0.1
+ADAGRAD_EPS = 1e-7
+
+
+def adagrad_state_to_numpy(model: torch.nn.Module,
+                           opt: torch.optim.Optimizer) -> AdamState:
+    """The adagrad accumulators of ``model``'s parameters under optax's
+    name, as numpy; the buffers at ADAGRAD_INITIAL_ACC (their gradient is
+    zero, so optax's accumulator never moves there), nested as
+    params_to_numpy nests them."""
+    acc = {name: opt.state[p]["sum_of_squares"].detach().cpu().numpy().copy()
+           for name, p in model.named_parameters()}
+    acc.update(_nest({name: np.full(tuple(b.shape), ADAGRAD_INITIAL_ACC,
+                                    np.float32)
+                      for name, b in model.named_buffers()}))
+    return {"sum_of_squares": acc}
+
+
+def adagrad_state_from_numpy(model: torch.nn.Module,
+                             opt: torch.optim.Optimizer,
+                             state: Mapping) -> None:
+    """Set ``opt``'s accumulators from ``adagrad_state_to_numpy``'s form,
+    bit for bit (the entries at buffers are not read)."""
+    acc = state["sum_of_squares"]
+    for name, p in model.named_parameters():
+        opt.state[p]["sum_of_squares"].copy_(torch.from_numpy(
+            np.array(acc[name], np.float32)))
+
+
+def _optax_tree(tree, leaves) -> Dict[str, object]:
+    """A per-parameter optax tree (nested dicts, or one vector under
+    optax.flatten, raveled in jax.tree order) -> numpy arrays nested as
+    the params are, for the (path, shape) ``leaves``."""
+    out: Dict[str, object] = {}
+    at = 0
+    flat = None if isinstance(tree, Mapping) else np.asarray(tree,
+                                                             np.float32)
+    for path, shape in leaves:
+        if flat is None:
+            v = tree
+            for k in path:
+                v = v[k]
+            a = np.asarray(v, np.float32).copy()
+        else:
+            size = int(np.prod(shape, dtype=np.int64))
+            a = flat[at:at + size].reshape(shape).copy()
+            at += size
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = a
+    if flat is not None and at != flat.size:
+        raise ValueError("flat optimizer state of %d values for %d "
+                         "parameters" % (flat.size, at))
+    return out
+
+
+def adagrad_state_from_optax(opt_state, params: Mapping[str, object]
+                             ) -> AdamState:
+    """An optax.adagrad state (a tuple holding a state with
+    ``sum_of_squares``, per parameter or flattened) ->
+    ``adagrad_state_to_numpy``'s form."""
+    rss = next(s for s in opt_state if hasattr(s, "sum_of_squares"))
+    return {"sum_of_squares": _optax_tree(rss.sum_of_squares,
+                                          _leaf_paths(params))}
+
+
 def adam_state_from_optax(opt_state, params: Mapping[str, object]
                           ) -> AdamState:
     """An optax.adam state (a tuple holding a state with ``count``, ``mu``
@@ -170,30 +243,6 @@ def adam_state_from_optax(opt_state, params: Mapping[str, object]
     the parameters ``params`` names (nested dicts stay nested)."""
     adam = next(s for s in opt_state if hasattr(s, "mu"))
     leaves = _leaf_paths(params)
-
-    def split(tree) -> Dict[str, object]:
-        out: Dict[str, object] = {}
-        at = 0
-        flat = None if isinstance(tree, Mapping) else np.asarray(tree,
-                                                                 np.float32)
-        for path, shape in leaves:
-            if flat is None:
-                v = tree
-                for k in path:
-                    v = v[k]
-                a = np.asarray(v, np.float32).copy()
-            else:
-                size = int(np.prod(shape, dtype=np.int64))
-                a = flat[at:at + size].reshape(shape).copy()
-                at += size
-            d = out
-            for k in path[:-1]:
-                d = d.setdefault(k, {})
-            d[path[-1]] = a
-        if flat is not None and at != flat.size:
-            raise ValueError("flat Adam state of %d values for %d "
-                             "parameters" % (flat.size, at))
-        return out
-
-    return {"mu": split(adam.mu), "nu": split(adam.nu),
+    return {"mu": _optax_tree(adam.mu, leaves),
+            "nu": _optax_tree(adam.nu, leaves),
             "count": int(np.asarray(adam.count))}

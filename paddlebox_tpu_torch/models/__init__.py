@@ -1,4 +1,5 @@
 from paddlebox_tpu_torch.models.aux_input import CtrDnnAux
+from paddlebox_tpu_torch.models.bst import BstSeqCtr
 from paddlebox_tpu_torch.models.ctr_dnn import CtrDnn
 from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.models.dlrm import DLRM
@@ -19,7 +20,9 @@ MODEL_ZOO = {
     "ctr_dnn_expand": CtrDnnExpand,
     "join_pv_dnn": JoinPvDnn,
     "ctr_dnn_aux": CtrDnnAux,
+    "bst_seq_ctr": BstSeqCtr,
 }
 
 __all__ = ["CtrDnn", "DeepFM", "WideDeep", "DLRM", "MMoE", "ESMM",
-           "CtrDnnExpand", "JoinPvDnn", "CtrDnnAux", "MODEL_ZOO"]
+           "CtrDnnExpand", "JoinPvDnn", "CtrDnnAux", "BstSeqCtr",
+           "MODEL_ZOO"]

@@ -46,6 +46,23 @@ to the zero row), or a ReplicaCache of the whole vocabulary read by
 cache_idx (``replica_cache``, ``assign_cache_idx``). ``load_pass`` feeds a
 pass of either and gives its records those fields; ``train_pass(ds,
 preloaded=True)`` then trains it.
+
+The behavior-sequence model, ``FLAGSHIP_BST``: BstSeqCtr at the JAX
+package's defaults (heads 4, d_head 8, d_seq 16, MLP 368-64-32-1) on
+FLAGSHIP's table and batch, trained by parallel/seq_trainer.py
+SeqCtrTrainer (``build_seq_trainer``) with slot 0 as the history,
+``seq_len`` 20 (the behavior sequence length of the BST paper, Chen et
+al., "Behavior Sequence Transformer for E-commerce Recommendation in
+Alibaba", DLP-KDD 2019, its table of hyperparameters). Its files come from
+the same generator and seed with slot 0 carrying 1-20 keys a line
+(``slot_max_lens``) and the other 31 slots 1-4, so a batch holds up to
+1024 x (20 + 31 x 4) keys, its key capacity 1024 x (16 + 31 x 4) = 143,360
+key slots (the reference's key_capacity caps each slot's share at 16), and
+20,480 sequence positions. ``FLAGSHIP_SGD`` and ``FLAGSHIP_DENSE_ADAGRAD``
+are FLAGSHIP's DeepFM main path with the dense optimizer sgd or adagrad
+(TrainerConfig.dense_optimizer), on the main path's files and chunk
+driver.
+
 chip_smoke.py drives
 its main path from here, profile_pass.py profiles the same pass, and
 rate_probe.py gathers at the pull's shape from one of its batches
@@ -87,6 +104,8 @@ from paddlebox_tpu_torch.embedding.side_tables import (InputTable,
                                                        ReplicaCache)
 from paddlebox_tpu_torch.models import MODEL_ZOO
 from paddlebox_tpu_torch.models.base import ModelSpec
+from paddlebox_tpu_torch.parallel.seq_trainer import (SeqCtrTrainer,
+                                                      seq_ids_of)
 from paddlebox_tpu_torch.train.trainer import (BoxTrainer,
                                                model_accepts_rank_offset)
 
@@ -122,6 +141,11 @@ class Flagship:
     # with the model (``feed_for``)
     ins_id_vocab: int = 0
     aux_dim: int = 0
+    # the dense optimizer (TrainerConfig.dense_optimizer)
+    dense_optimizer: str = "adam"
+    # the behavior sequence: slot 0's key bound in the files and BST's
+    # history length (0: every slot is bounded by max_len)
+    seq_len: int = 0
 
     def table(self) -> TableConfig:
         return TableConfig(embedx_dim=self.embedx,
@@ -190,6 +214,14 @@ ZOO_DIGITS = {
     "esmm": {"loss": ("1.2378480434", "0.8536358476"),
              "auc": ("0.5061925378", "0.7749946241"),
              "ctcvr_auc": ("0.4974737686", "0.7128110137")}}
+# the dense optimizers on the main path
+FLAGSHIP_SGD = dataclasses.replace(FLAGSHIP, dense_optimizer="sgd")
+FLAGSHIP_DENSE_ADAGRAD = dataclasses.replace(FLAGSHIP,
+                                             dense_optimizer="adagrad")
+# the behavior-sequence model (SeqCtrTrainer, history slot SEQ_SLOT)
+FLAGSHIP_BST = dataclasses.replace(FLAGSHIP, model="bst_seq_ctr",
+                                   hidden=(64, 32), seq_len=20)
+SEQ_SLOT = 0
 # the join phase's record-path feeds
 FLAGSHIP_JOIN_PV = dataclasses.replace(FLAGSHIP, model="join_pv_dnn")
 FLAGSHIP_AUX = dataclasses.replace(FLAGSHIP, model="ctr_dnn_aux",
@@ -222,8 +254,19 @@ def write_files(out_dir: str, cfg: Flagship = FLAGSHIP
         out_dir, num_files=cfg.num_files, lines_per_file=cfg.lines_per_file,
         num_slots=cfg.num_slots, vocab_per_slot=cfg.vocab_per_slot,
         max_len=cfg.max_len, dense_dim=cfg.dense_dim, seed=cfg.data_seed,
-        conversion=cfg.conversion, ins_id_vocab=cfg.ins_id_vocab)
+        conversion=cfg.conversion, ins_id_vocab=cfg.ins_id_vocab,
+        slot_max_lens=slot_max_lens(cfg))
     return files, feed_for(cfg, feed)
+
+
+def slot_max_lens(cfg: Flagship) -> List[int]:
+    """Each slot's key bound in the configuration's files: slot SEQ_SLOT's
+    is ``seq_len`` where the configuration has a sequence, every other
+    slot's ``max_len``."""
+    lens = [cfg.max_len] * cfg.num_slots
+    if cfg.seq_len:
+        lens[SEQ_SLOT] = cfg.seq_len
+    return lens
 
 
 def feed_for(cfg: Flagship, feed: DataFeedConfig) -> DataFeedConfig:
@@ -271,6 +314,22 @@ def first_batch_ids(files: List[str], feed: DataFeedConfig,
     b = ds.split_batches(1)[0][0]
     return np.where(b.valid, np.searchsorted(pass_keys, b.keys),
                     cfg.capacity - 1).astype(np.int32)
+
+
+def first_seq_batch_ids(files: List[str], feed: DataFeedConfig,
+                        cfg: Flagship = FLAGSHIP_BST
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """(pooled ids [key capacity], sequence ids [batch, seq_len]), int32,
+    of the first batch of ``files[0]`` under a sequence configuration, as
+    ``first_batch_ids`` gives the pooled ids and SeqCtrTrainer's
+    seq_ids_of the history (padding on the trash row)."""
+    ds, pass_keys = _load(files[:1], feed)
+    b = ds.split_batches(1)[0][0]
+    ids = np.where(b.valid, np.searchsorted(pass_keys, b.keys),
+                   cfg.capacity - 1).astype(np.int32)
+    seq, _ = seq_ids_of(b, ids, SEQ_SLOT, cfg.batch, cfg.num_slots,
+                        cfg.seq_len, cfg.capacity - 1)
+    return ids, seq
 
 
 def first_chunk_ids(files: List[str], feed: DataFeedConfig,
@@ -383,6 +442,8 @@ def build_model(cfg: Flagship = FLAGSHIP, seed: int = 0) -> torch.nn.Module:
         kw.update(use_data_norm=True, dn_slot_dim=spec.slot_dim)
     if cfg.model == "ctr_dnn_aux":
         kw["aux_dim"] = cfg.aux_dim
+    if cfg.model == "bst_seq_ctr":
+        kw["seq_len"] = cfg.seq_len
     return MODEL_ZOO[cfg.model](spec, generator=torch.Generator()
                                 .manual_seed(seed), **kw)
 
@@ -416,6 +477,7 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
     trainer = BoxTrainer(model, cfg.table(), feed,
                          TrainerConfig(dense_lr=DENSE_LR,
                                        compute_dtype=cfg.compute_dtype,
+                                       dense_optimizer=cfg.dense_optimizer,
                                        **trainer_fields),
                          seed=seed, flags=PushFlags(push_write, BLOCK_ROWS),
                          device=device, pass_flags=pass_flags,
@@ -436,5 +498,21 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
                                                           InputTable)
                                  else None),
                     use_cache_idx=isinstance(aux_source, ReplicaCache))
+    ds.set_filelist(files)
+    return trainer, ds
+
+
+def build_seq_trainer(files: List[str], feed: DataFeedConfig,
+                      cfg: Flagship = FLAGSHIP_BST,
+                      device: DeviceLike = None, seed: int = 0
+                      ) -> Tuple[SeqCtrTrainer, BoxDataset]:
+    """(SeqCtrTrainer with an 'auc' metric, dataset over ``files``) of a
+    sequence configuration: ``build_model``'s BstSeqCtr with history slot
+    SEQ_SLOT, dense Adam at DENSE_LR, on the native host tier."""
+    trainer = SeqCtrTrainer(build_model(cfg, seed), cfg.table(), feed,
+                            TrainerConfig(dense_lr=DENSE_LR),
+                            seq_slot=SEQ_SLOT, seed=seed, device=device)
+    trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
+    ds = BoxDataset(feed)
     ds.set_filelist(files)
     return trainer, ds

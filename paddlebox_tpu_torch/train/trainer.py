@@ -7,7 +7,7 @@ host_batch :1041-1208, train_pass :1220-1402, predict_batches :1527-1549)
 for one GPU. A step is
 
     pull (slab row gather) -> fused seqpool+CVM -> model forward/backward
-    (autograd) -> masked BCE -> dense Adam -> build_push_grads -> push
+    (autograd) -> masked BCE -> the dense step -> build_push_grads -> push
     (the fused push_adagrad kernel: merge, the table's in-table rule, row
     write; in blocked mode it returns the rows and the blocked_write
     kernel places them)
@@ -27,7 +27,7 @@ at every level (step, chunk stack, host), and the metrics see
 ``pred_<task>`` and ``label_<task>`` with ``pred`` the main task's; eval
 and predict_batches return the main task's. A ``use_data_norm`` model
 (CtrDnn) normalizes its input by running summaries, buffers that the step
-moves after the dense Adam step and before the push with the model's
+moves after the dense step and before the push with the model's
 ``update_summary`` on the step's f32 pooled input and dense columns (every
 row of the batch counts, padding rows too, as in the reference);
 ``sparse_chunk_sync`` refuses such a model.
@@ -72,8 +72,11 @@ steps back to back with no host sync, and chunk i's losses (and
 predictions, when a metric reads them) come back after chunk i+1 is
 queued. The tail batches step one by one, their losses and predictions
 copied back once at the end of the pass. With ``sparse_chunk_sync`` a
-chunk is one pull, one seqpool over the chunk's C * batch instances, dense
-Adam per batch, and one merged push (``make_chunk_step``).
+chunk is one pull, one seqpool over the chunk's C * batch instances, the
+dense step per batch, and one merged push (``make_chunk_step``).
+
+The dense step is TrainerConfig.dense_optimizer's: optax's adam (the
+default), sgd or adagrad (train/dense_optim.py).
 
 Every push takes an int32 seed for the creation hash. The trainer draws it
 from its own ``torch.Generator(seed)`` through ``seed_fn``, on the thread
@@ -123,9 +126,8 @@ from paddlebox_tpu_torch.config.configs import (DataFeedConfig, TableConfig,
 from paddlebox_tpu_torch.config.flags import (DtypeFlags, ObsFlags,
                                               PassFlags, PushFlags,
                                               StageFlags)
-from paddlebox_tpu_torch.convert import (adam_state_from_numpy,
-                                         adam_state_to_numpy, dense_state,
-                                         params_from_jax, params_to_numpy)
+from paddlebox_tpu_torch.convert import (dense_state, params_from_jax,
+                                         params_to_numpy)
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.packer import PackedBatch
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
@@ -143,6 +145,10 @@ from paddlebox_tpu_torch.ops.sparse import (build_push_grads,
                                             gather_slab_rows,
                                             pull_sparse_extended,
                                             pull_view_from_rows)
+from paddlebox_tpu_torch.train.dense_optim import (check_opt_state,
+                                                   make_dense_optimizer,
+                                                   opt_state_from_numpy,
+                                                   opt_state_to_numpy)
 from paddlebox_tpu_torch.train.staging import (DeviceChunk, HostChunk,
                                                PinnedRing, to_cpu)
 from paddlebox_tpu_torch.utils.timer import Timer
@@ -790,6 +796,10 @@ class BoxTrainer:
             raise ValueError("matmul_dtype=%r: the model has no "
                              "matmul_dtype to set"
                              % self.dtype_flags.matmul_dtype)
+        if getattr(model, "use_sequence", False):
+            raise ValueError("%s attends a behavior sequence: train it on "
+                             "parallel/seq_trainer.py SeqCtrTrainer"
+                             % type(model).__name__)
         dense_dim = sum(s.dim for s in feed.used_dense_slots())
         spec = getattr(model, "spec", None)
         if spec is not None and spec.dense_dim != dense_dim:
@@ -803,11 +813,9 @@ class BoxTrainer:
         self.num_slots = len(feed.used_sparse_slots())
         self.push_write = self.flags.resolve_push_write(
             table_cfg.pass_capacity)
-        # the same update as optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8);
-        # its state starts at zero, as optax's does
-        self.dense_opt = torch.optim.Adam(self.model.parameters(),
-                                          lr=self.cfg.dense_lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        # optax's adam, sgd or adagrad (TrainerConfig.dense_optimizer)
+        self.dense_opt = make_dense_optimizer(self.cfg,
+                                              self.model.parameters())
         cdtype = self.cfg.compute_dtype
         self.step_fn = make_train_step(
             self.model, self.table.layout, table_cfg, self.dense_opt,
@@ -880,20 +888,25 @@ class BoxTrainer:
 
     @property
     def opt_state(self) -> Dict[str, object]:
-        """The dense Adam state under optax's names, as numpy
-        (convert.adam_state_to_numpy)."""
-        return adam_state_to_numpy(self.model, self.dense_opt)
+        """The dense optimizer's state under optax's names, as numpy
+        (train/dense_optim.py opt_state_to_numpy: Adam's mu, nu and count,
+        adagrad's sum_of_squares, sgd's nothing)."""
+        return opt_state_to_numpy(self.cfg.dense_optimizer, self.model,
+                                  self.dense_opt)
 
     def restore_dense(self, params: Mapping[str, np.ndarray],
                       opt_state: Mapping) -> None:
-        """Set the dense parameters (and the data_norm summaries) and Adam
-        state from ``params`` and ``opt_state`` (the forms of the two
-        properties), bit for bit."""
+        """Set the dense parameters (and the data_norm summaries) and the
+        dense optimizer's state from ``params`` and ``opt_state`` (the forms
+        of the two properties), bit for bit. A state written under another
+        dense_optimizer raises ValueError before anything is set."""
+        check_opt_state(self.cfg.dense_optimizer, opt_state)
         state = params_from_jax(params)
         with torch.no_grad():
             for name, p in dense_state(self.model):
                 p.copy_(state[name])
-        adam_state_from_numpy(self.model, self.dense_opt, opt_state)
+        opt_state_from_numpy(self.cfg.dense_optimizer, self.model,
+                             self.dense_opt, opt_state)
 
     # ---------------------------------------------------------- batch utils
     def host_batch(self, b: PackedBatch, ids: np.ndarray,

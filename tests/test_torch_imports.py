@@ -48,7 +48,9 @@ def test_import_loads_no_jax_and_no_reference_module():
               "embedding.pass_table", "ops.data_norm", "models",
               "models.ctr_dnn", "models.wide_deep", "models.dlrm",
               "models.mmoe", "models.esmm", "data.generator",
-              "data.parser", "data.packer"):
+              "data.parser", "data.packer", "parallel",
+              "parallel.ring_attention", "parallel.seq_trainer",
+              "models.bst", "train.dense_optim"):
         assert "paddlebox_tpu_torch." + m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
