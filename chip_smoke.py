@@ -240,6 +240,24 @@ Phases, each of which raises on a failed check (exit code != 0):
      loss and AUC, dense parameters, accumulators and store bit-equal);
      each pass's wall and examples/s beside the DeepFM main path's, with
      the card line;
+ 18. the push write modes and the wires: two full-width passes of
+     FLAGSHIP through the chunk driver under each of WIRE_RUNS (the full
+     wire by scatter, then by rebuild; the uid wire by scatter, rebuild
+     and blocked; the delta wire; the ids-only wire; push_write='auto'),
+     each held to the first run bit for bit (losses, AUC, the slab's
+     sha256 after each pass, the sorted store) and to FLAGSHIP_DIGITS,
+     its launches counted (rebuild: one more gather_rows a step; blocked:
+     one blocked_write a step) and its host-to-device bytes by leaf
+     (profile_pass.count_h2d_bytes); the nan_inf and continue metrics on
+     the first run (nan_inf_rate 0, the continue kind's sums equal to the
+     AUC kind's within METRIC_RTOL); a sparse_chunk_sync pass on the uid
+     wire held to one on the full wire (SYNC_DIGITS, slab, launches);
+     gather_rows at the rebuild shape (a batch's new rows spread over the
+     2^20-row slab) bit-equal to its plain version with kernel, plain,
+     index_select and bound times; the three writes timed against each
+     other at the flagship batch and at a chunk of 8 batches
+     (push_probe.balanced_write_times), the rule for 'auto' logged and
+     held to flags.AUTO_REBUILD_MAX_RATIO;
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -3583,6 +3601,266 @@ def seq_phase(torch, files, feed, bst_files, bst_feed, main, reset_counts,
     return out
 
 
+# phase 18's runs of FLAGSHIP's two passes through the chunk driver, as
+# (label, push_write, StageFlags wire fields); the first, the full wire's
+# scatter run, is the one the others are held to, bit for bit
+WIRE_RUNS = (
+    ("full scatter", "scatter", {}),
+    ("full rebuild", "rebuild", {}),
+    ("uid scatter", "scatter", {"h2d_lean": True}),
+    ("uid rebuild", "rebuild", {"h2d_lean": True}),
+    ("uid blocked", "blocked", {"h2d_lean": True}),
+    ("delta scatter", "scatter", {"h2d_lean": True, "wire_delta_ids": True}),
+    ("ids_only", "scatter", {"h2d_lean": True, "h2d_uid_wire": False}),
+    ("auto", "auto", {}),
+)
+# the continue kind's sums against the AUC kind's (the same f64 sums over
+# the same predictions, divided by the same count)
+METRIC_RTOL = 1e-12
+
+
+def slab_sha(trainer):
+    """sha256 of the table's slab (resident after end_pass)."""
+    import hashlib
+    return hashlib.sha256(
+        trainer.table.resident_slab.cpu().numpy().tobytes()).hexdigest()
+
+
+def write_launches(write, steps, extra):
+    """A two-pass run's launches under ``write``: one push a step, the
+    pulls, promote and write-backs on gather_rows, and one more
+    gather_rows a step under 'rebuild' (the new rows spread over the slab)
+    or one blocked_write a step under 'blocked'."""
+    return f32_launches(
+        push_adagrad=steps,
+        gather_rows=steps + extra + (steps if write == "rebuild" else 0),
+        blocked_write=steps if write == "blocked" else 0)
+
+
+def rebuild_gather_phase(torch, cfg, files, feed, dev):
+    """Phase 18, gather_rows at the rebuild write's shape: the new rows of
+    the first flagship batch's push ([n_uniq, 17], push_adagrad rows out)
+    spread by its clamped [2^20] position map, bit-equal to
+    gather_rows_plain; kernel, plain, index_select and bound times."""
+    from paddlebox_tpu_torch.device import HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+    from paddlebox_tpu_torch.embedding.pass_table import (pos_for_rebuild,
+                                                          segment_offsets)
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.push_probe import SEED, push_inputs
+    from paddlebox_tpu_torch.rate_probe import gather_bytes, time_chain
+
+    layout = ValueLayout(cfg.embedx)
+    inp = push_inputs(cfg, files, feed)
+    n_uniq = inp["n_uniq"]
+    slab, g, p, o, u = (torch.from_numpy(x).to(dev) for x in (
+        inp["slab"], inp["grads"], inp["perm"],
+        segment_offsets(inp["inv"], inp["n_valid"]), inp["uids"]))
+    rows = pk.push_adagrad(slab, g, p, o, u, n_uniq, SEED, layout,
+                           cfg.table().optimizer, rows_out=True)
+    pos = pos_for_rebuild(inp["uids"], cfg.capacity)
+    ids_np = pos.clip(0, n_uniq - 1)
+    ids = torch.from_numpy(ids_np).to(dev)
+    got = rk.gather_rows(rows, ids)
+    torch.cuda.synchronize()
+    want = rk.gather_rows_plain(rows, ids)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "gather_rows at the rebuild shape differs from the plain version")
+    nbytes = gather_bytes(ids_np, n_uniq, layout.width)
+    args = (rows, ids)
+    rec = {"src": [n_uniq, layout.width], "ids": int(ids_np.size),
+           "placed": int((pos >= 0).sum()), "bytes": nbytes,
+           "max_abs_err": float((got - want).abs().max()),
+           "ms": time_chain(rk.gather_rows, args, nbytes),
+           "plain_ms": time_chain(rk.gather_rows_plain, args, nbytes),
+           "library_ms": time_chain(lambda a, b: a.index_select(0, b), args,
+                                    nbytes),
+           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
+    log("gather_rows at the rebuild shape: bit-equal to the plain version; "
+        "%s" % json.dumps(rec))
+    return rec
+
+
+def auto_phase(torch, cfg, files, feed, dev):
+    """Phase 18, push_write='auto''s measurement: the fused push under
+    'scatter', 'rebuild' and 'blocked' (push_probe.balanced_write_times,
+    each ordered pair of writes once) at the first flagship batch (131,072
+    key slots) and at the first chunk of 8 batches (1,048,576), both on
+    the 2^20-row slab; the three writes leave the same slab bits. Logs the
+    medians and the rule they give, and checks that flags'
+    AUTO_REBUILD_MAX_RATIO picks the faster of scatter and rebuild at each
+    shape wherever one beats the other by more than 20%."""
+    import statistics
+
+    from paddlebox_tpu_torch.config import flags
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+    from paddlebox_tpu_torch.push_probe import (balanced_write_times,
+                                                push_inputs)
+    from paddlebox_tpu_torch.train import flagship
+
+    layout = ValueLayout(cfg.embedx)
+    conf = cfg.table().optimizer
+    out = {}
+    for shape, ids in (("batch", None),
+                       ("chunk", flagship.first_chunk_ids(files, feed, cfg,
+                                                          8))):
+        inp = push_inputs(cfg, files, feed, ids=ids)
+        K = int(inp["ids"].shape[0])
+        times, digests = balanced_write_times(inp, dev, layout, conf)
+        check(len(set(digests.values())) == 1,
+              "the writes left different slabs at the %s shape: %s"
+              % (shape, digests))
+        med = {w: statistics.median(v) for w, v in times.items()}
+        ratio = cfg.capacity / K
+        faster = "rebuild" if med["rebuild"] < med["scatter"] else "scatter"
+        margin = max(med["rebuild"], med["scatter"]) / min(
+            med["rebuild"], med["scatter"])
+        chosen = flags.PushFlags("auto").resolve_push_write(
+            cfg.capacity, K, "cuda")
+        out[shape] = {"K": K, "n_uniq": inp["n_uniq"],
+                      "capacity_over_keys": ratio, "times_ms": times,
+                      "median_ms": med, "faster": faster, "margin": margin,
+                      "auto": chosen}
+        log("auto at the %s shape (capacity/keys %.3f): %s" % (
+            shape, ratio, json.dumps(out[shape])))
+        check(chosen == faster or margin <= 1.2,
+              "push_write='auto' picks %r at capacity/keys %.3f, but %r "
+              "was faster by %.3fx" % (chosen, ratio, faster, margin))
+    wins = [o["capacity_over_keys"] for o in out.values()
+            if o["faster"] == "rebuild"]
+    rule = ("rebuild where capacity <= %g * batch keys" % max(wins)
+            if wins else "scatter at every measured ratio")
+    log("auto rule: %s (flags.AUTO_REBUILD_MAX_RATIO = %r); %s"
+        % (rule, flags.AUTO_REBUILD_MAX_RATIO, card_line()))
+    out["rule"] = rule
+    return out
+
+
+def wires_phase(torch, files, feed, reset_counts, counts):
+    """Phase 18: FLAGSHIP's two passes under each of WIRE_RUNS, each held
+    to the first (the full wire's scatter) and to FLAGSHIP_DIGITS: losses,
+    AUC, the slab's digest after each pass and the sorted store, and its
+    launches (write_launches); the bytes each run copied host to device by
+    leaf (profile_pass.count_h2d_bytes); the nan_inf and continue metrics
+    beside the AUC one on the first run; a sparse_chunk_sync pass on the
+    uid wire held to one on the full wire; gather_rows at the rebuild
+    shape; the auto measurement. Returns its records."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.config.flags import StageFlags
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.profile_pass import count_h2d_bytes
+    from paddlebox_tpu_torch.train import flagship
+
+    cfg = flagship.FLAGSHIP
+    dev = torch.device("cuda")
+    out = {"runs": {}}
+    ref = None
+    for label, write, fields in WIRE_RUNS:
+        stage = StageFlags(**fields)
+        trainer, ds = flagship.build_trainer(files, feed, cfg, write, "cuda",
+                                             stage_flags=stage)
+        if ref is None:
+            for kind in ("nan_inf", "continue"):
+                trainer.metrics.init_metric(kind, "label", "pred",
+                                            table_size=1 << 20, kind=kind)
+        digests = []
+        reset_counts()
+        with count_h2d_bytes(trainer) as h2d:
+            passes = main_passes(
+                torch, trainer, ds,
+                lambda rec: digests.append(slab_sha(trainer)))
+        launches = counts()
+        steps = sum(p["batches"] for p in passes)
+        extra = sum(gather_launches_of(p["counters"]) for p in passes)
+        want = write_launches(trainer.push_write, steps, extra)
+        check(steps == 32 and extra == 3 and launches == want,
+              "wires %s launches %s, expected %s" % (label, launches, want))
+        digits = held_digits("wires " + label, passes, FLAGSHIP_DIGITS)
+        store = sorted_store(trainer.table)
+        run = {"wire": stage.wire, "push_write": trainer.push_write,
+               "launches": launches, "slab_sha256": digests,
+               "h2d_bytes": h2d.bytes,
+               "h2d_bytes_a_pass": sum(h2d.bytes.values()) // 2,
+               "pass_s": [p["pass_s"] for p in passes],
+               "phase_s": [p["phase_s"] for p in passes]}
+        if ref is None:
+            ref = {"passes": passes, "digests": digests, "store": store}
+            msg = {k: trainer.metrics.get_metric_msg(k)
+                   for k in ("auc", "nan_inf", "continue")}
+            a, c = msg["auc"], msg["continue"]
+            pairs = {"mae": (c["mae"], a["mae"]),
+                     "rmse": (c["rmse"], a["rmse"]),
+                     "size": (c["size"], a["size"]),
+                     "predicted": (c["predicted_value"],
+                                   a["predicted_ctr"])}
+            check(msg["nan_inf"]["nan_inf_rate"] == 0.0
+                  and a["size"] > 0 and all(
+                      abs(x - y) <= METRIC_RTOL * abs(y)
+                      for x, y in pairs.values()),
+                  "wires metrics: nan_inf %s, continue %s against auc %s"
+                  % (msg["nan_inf"], c, a))
+            out["metrics"] = msg
+            log("wires metrics: nan_inf_rate 0; the continue kind's mae, "
+                "rmse, size and predicted_value equal the AUC kind's "
+                "within %g: %s" % (METRIC_RTOL, json.dumps(msg)))
+        else:
+            check([(p["loss"], p["auc"]) for p in passes]
+                  == [(p["loss"], p["auc"]) for p in ref["passes"]]
+                  and digests == ref["digests"]
+                  and np.array_equal(store[0], ref["store"][0])
+                  and bits_equal(store[1], ref["store"][1]),
+                  "wires %s differs from the full wire's scatter run "
+                  "(slabs %s against %s)" % (label, digests, ref["digests"]))
+        out["runs"][label] = run
+        log("wires %s pass: %s; %s" % (label, json.dumps(run), json.dumps(
+            [{k: p[k] for k in ("loss", "auc", "batches", "pass_s",
+                                "examples_per_s")} for p in passes])))
+        trainer.close()
+        del trainer, ds
+    log("wires: %d runs bit-identical to the full wire's scatter run (losses, "
+        "AUC, slab after each pass, store), auto resolved to %r; H2D bytes a "
+        "pass by wire %s; %s"
+        % (len(WIRE_RUNS), out["runs"]["auto"]["push_write"],
+           json.dumps({k: r["h2d_bytes_a_pass"]
+                       for k, r in out["runs"].items()}), card_line()))
+
+    # --- the chunk shape: one sparse_chunk_sync pass on each wire
+    sync = {}
+    for wire, fields in (("full", {}), ("uid", {"h2d_lean": True})):
+        trainer, ds = flagship.build_trainer(
+            files, feed, cfg, "scatter", "cuda",
+            stage_flags=StageFlags(**fields), sparse_chunk_sync=True)
+        reset_counts()
+        with count_h2d_bytes(trainer) as h2d:
+            res, auc, secs = run_pass(torch, trainer, ds)
+        launches = counts()
+        sync[wire] = {"digits": ("%.10f" % res["loss"], "%.10f" % auc),
+                      "slab_sha256": slab_sha(trainer),
+                      "launches": launches, "pass_s": secs,
+                      "h2d_bytes": h2d.bytes}
+        log("wires sparse_chunk_sync pass, %s wire: %s"
+            % (wire, json.dumps(sync[wire])))
+        trainer.close()
+        del trainer, ds
+    check(sync["full"]["digits"] == SYNC_DIGITS
+          and all(sync["uid"][k] == sync["full"][k]
+                  for k in ("digits", "slab_sha256", "launches")),
+          "the uid wire's sparse_chunk_sync pass differs from the full "
+          "wire's: %s" % json.dumps(sync))
+    out["sync"] = sync
+
+    out["gather_rebuild"] = rebuild_gather_phase(torch, cfg, files, feed,
+                                                 dev)
+    out["gather_rebuild"]["launches"] = (
+        out["runs"]["full rebuild"]["launches"]["gather_rows"]
+        - out["runs"]["full scatter"]["launches"]["gather_rows"])
+    out["auto"] = auto_phase(torch, cfg, files, feed, dev)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3816,6 +4094,11 @@ def main() -> int:
                         reset_counts, counts, tmp)
         clock.lap("seq")
 
+        # 18. the push write modes rebuild and auto, the uid, delta and
+        # ids-only wires, the metric kinds nan_inf and continue
+        wires = wires_phase(torch, files, feed, reset_counts, counts)
+        clock.lap("wires")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -3848,6 +4131,10 @@ def main() -> int:
             k.setdefault("at_shapes", {})["bst"] = dict(
                 seq["kernels"][k["name"]],
                 launches=seq["bst"]["launches"][k["name"]])
+    # the rebuild write's gather (phase 18), with its runs' launches
+    for k in kernels:
+        if k["name"] == "gather_rows":
+            k["at_shapes"]["rebuild"] = wires["gather_rebuild"]
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -3881,7 +4168,12 @@ def main() -> int:
                                  for n in ("join_pv", "aux",
                                            "aux_replica")},
                               **{"seq_" + n: seq[n]["launches"]
-                                 for n in ("bst", "sgd", "dense_adagrad")}},
+                                 for n in ("bst", "sgd", "dense_adagrad")},
+                              **{"wires_" + n.replace(" ", "_"):
+                                 r["launches"]
+                                 for n, r in wires["runs"].items()},
+                              **{"wires_sync_" + n: r["launches"]
+                                 for n, r in wires["sync"].items()}},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

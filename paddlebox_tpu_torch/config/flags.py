@@ -5,7 +5,8 @@ trainer's host planes (telemetry, quality, drift).
 The JAX package keeps these in a process-wide flag registry
 (paddlebox_tpu/config/flags.py: ``push_write``, ``push_block_rows``,
 ``incremental_pass``, ``preload_promote``, ``stack_threads``,
-``chunk_prefetch_depth``, ``h2d_stack_chunks``, ``ckpt_*``,
+``chunk_prefetch_depth``, ``h2d_stack_chunks``, ``h2d_lean``,
+``h2d_uid_wire``, ``wire_delta_ids``, ``ckpt_*``,
 ``slab_embed_dtype``, ``matmul_dtype``, ``obs_*``, ``quality_*``,
 ``data_quality*``). The port passes
 them as values to the trainer, the pass table and the checkpoint manager
@@ -16,9 +17,17 @@ side.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
-PUSH_WRITES = ("scatter", "blocked")
+PUSH_WRITES = ("auto", "scatter", "rebuild", "blocked")
 DTYPES = ("float32", "bfloat16")
+# push_write='auto' on the card picks 'rebuild' where the slab has at most
+# this many rows a batch key slot (capacity <= ratio * batch_keys), else
+# 'scatter'. 0: never. Taken from chip_smoke.py phase 18's timing of the
+# three writes at the flagship batch (capacity/keys 8) and at a chunk of
+# 8 batches (capacity/keys 1) on the 2^20-row slab: scatter won at both
+# (PERF.md section 6, PR 18). The reference's 16 was measured on a TPU.
+AUTO_REBUILD_MAX_RATIO = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,11 +52,16 @@ class DtypeFlags:
 
 @dataclasses.dataclass(frozen=True)
 class PushFlags:
-    """push_write: 'scatter' writes each updated row at its slab id;
-    'blocked' buckets the sorted uids into ``push_block_rows``-row blocks
-    and places them with the blocked-write kernel."""
+    """push_write (paddlebox_tpu/config/flags.py:190-206): 'scatter'
+    writes each updated row at its slab id; 'rebuild' gathers the new
+    rows over the whole slab by a [capacity] position map and selects them
+    where the map is set (its cost follows the slab's bytes, not the
+    touched rows); 'blocked' buckets the sorted uids into
+    ``push_block_rows``-row blocks and places them with the blocked-write
+    kernel; 'auto' (the default, as in the reference) is
+    ``resolve_push_write``'s choice."""
 
-    push_write: str = "scatter"
+    push_write: str = "auto"
     push_block_rows: int = 1024
 
     def __post_init__(self):
@@ -55,17 +69,44 @@ class PushFlags:
             raise ValueError("push_write must be one of %s, got %r"
                              % (PUSH_WRITES, self.push_write))
 
-    def resolve_push_write(self, capacity: int) -> str:
-        """The write mode for a slab of ``capacity`` rows; refuses a block
-        size that does not divide the slab (a partial tail block would
-        shift its rows' local offsets)."""
-        if self.push_write == "blocked":
+    def resolve_push_write(self, capacity: int,
+                           batch_keys: Optional[int] = None,
+                           device="cpu",
+                           stage: Optional["StageFlags"] = None) -> str:
+        """The write ('scatter', 'rebuild' or 'blocked') for a slab of
+        ``capacity`` rows, ``batch_keys`` key slots a push and the
+        trainer's ``device`` (a torch.device or its type), on ``stage``'s
+        wire (reference trainer.py:327-401):
+
+          * the ids-only lean wire ships nothing to derive a map from: it
+            pushes by 'scatter', and refuses 'rebuild' and 'blocked';
+          * 'blocked' needs a positive block size that divides the slab (a
+            partial tail block would shift its rows' local offsets);
+          * 'auto' is 'scatter' off the card, as the reference's is off
+            the TPU; on the card 'rebuild' where capacity <=
+            AUTO_REBUILD_MAX_RATIO * batch_keys, else 'scatter'."""
+        mode = self.push_write
+        if stage is not None and stage.wire == "ids_only":
+            if mode not in ("auto", "scatter"):
+                raise ValueError(
+                    "h2d_lean without h2d_uid_wire stages no push products; "
+                    "push_write=%r needs them: use 'auto' or 'scatter'"
+                    % (mode,))
+            return "scatter"
+        if mode == "auto":
+            if getattr(device, "type", device) != "cuda":
+                return "scatter"
+            if capacity and batch_keys and \
+                    capacity <= AUTO_REBUILD_MAX_RATIO * batch_keys:
+                return "rebuild"
+            return "scatter"
+        if mode == "blocked":
             block = int(self.push_block_rows)
             if block <= 0 or capacity % block:
                 raise ValueError(
                     "push_write=blocked: push_block_rows=%d must be positive "
                     "and divide the pass capacity %d" % (block, capacity))
-        return self.push_write
+        return mode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,17 +133,43 @@ class StageFlags:
     thread while the device trains; 0 stages each chunk between two
     dispatches. h2d_stack_chunks: chunks whose staged arrays share one
     host-to-device copy a leaf. The trainer reads them at the start of
-    every pass."""
+    every pass.
+
+    The wire a train batch's push products ride (flags.py:142-168):
+    h2d_lean off is the full wire (the host's sorted dedup: uids, perm,
+    the segment offsets, and under 'rebuild' the [capacity] position
+    map). h2d_lean with h2d_uid_wire (its default) is the uid wire: the
+    sorted [K] uid vector only, the rest derived on the device; with
+    wire_delta_ids as well, the uids ride as an int32 base and int16
+    deltas (the delta wire). h2d_lean without h2d_uid_wire is the
+    ids-only wire: no product, the step dedups on the device (and pushes
+    by 'scatter'). Test passes stage no product on any wire."""
 
     stack_threads: int = 4
     chunk_prefetch_depth: int = 1
     h2d_stack_chunks: int = 1
+    h2d_lean: bool = False
+    h2d_uid_wire: bool = True
+    wire_delta_ids: bool = False
+
+    @property
+    def wire(self) -> str:
+        """'full', 'uid', 'delta' or 'ids_only'."""
+        if not self.h2d_lean:
+            return "full"
+        if not self.h2d_uid_wire:
+            return "ids_only"
+        return "delta" if self.wire_delta_ids else "uid"
 
     def __post_init__(self):
         for name in ("stack_threads", "chunk_prefetch_depth",
                      "h2d_stack_chunks"):
             if not isinstance(getattr(self, name), int):
                 raise TypeError("%s must be an int, got %r"
+                                % (name, getattr(self, name)))
+        for name in ("h2d_lean", "h2d_uid_wire", "wire_delta_ids"):
+            if not isinstance(getattr(self, name), bool):
+                raise TypeError("%s must be a bool, got %r"
                                 % (name, getattr(self, name)))
         if self.chunk_prefetch_depth < 0 or self.h2d_stack_chunks < 1:
             raise ValueError("chunk_prefetch_depth must be >= 0 and "

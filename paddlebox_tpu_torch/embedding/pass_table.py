@@ -15,6 +15,8 @@ the incremental lifecycle, test mode and the day boundary, :114-126,
         trash row; marks the ids' rows touched
   dedup_for_push  the per-batch sorted dedup the push consumes (with
         segment_offsets, its runs over the real occurrences)
+  uids_for_push / pos_for_rebuild  the uid wire's sorted uid vector
+        (native first) and the rebuild write's position map
   end_pass     the pass's rows -> host store
   shrink_table / end_day / save / load   the day boundary on the store
 
@@ -225,6 +227,74 @@ def segment_offsets(inv: np.ndarray, n_valid: int) -> np.ndarray:
         starts = np.flatnonzero(newseg)
         offsets[:starts.shape[0]] = starts
     return offsets
+
+
+def dedup_uids_sorted(ids: np.ndarray, pad_base: int) -> np.ndarray:
+    """[K] int32 SORTED unique ids of ``ids``, the tail padded with
+    pad_base + i: the uid wire's one host product (reference
+    pass_table.py:192-248). The native tier (host_lib.dedup_sorted) runs
+    where its span screen lets it engage (the largest id below pad_base,
+    and either twice the live span at most K or the trash id pad_base - 1
+    on top, which the kernel tracks apart); where it declines, the numpy
+    tier (np.unique) runs. Both give the same array."""
+    ids = np.ascontiguousarray(np.asarray(ids), np.int32)
+    K = ids.shape[0]
+    if K and ids.min() < 0:
+        raise ValueError("dedup_uids_sorted expects nonnegative int32 "
+                         "pass-local ids")
+    if K:
+        m = int(ids.max())
+        if m < pad_base and (2 * (m + 1) <= K or m == pad_base - 1):
+            out = host_lib.dedup_sorted(ids, pad_base)
+            if out is not None:
+                return out
+    uniq = np.unique(ids)
+    out = np.empty(K, np.int32)
+    n = uniq.shape[0]
+    out[:n] = uniq
+    out[n:] = pad_base + np.arange(K - n, dtype=np.int32)
+    return out
+
+
+def delta_encode_uids(uids: np.ndarray, pad_base: int):
+    """(base, d16, cut) of a sorted uid vector: the delta wire
+    (wire_delta_ids; reference pass_table.py:251-285). The data ids, those
+    below the trash id pad_base - 1, are uids[i] = base + cumsum(d16)[i]
+    for i < cut (d16[0] = 0); from cut on nothing is coded, and the device
+    decodes position i as (pad_base - 1) + (i - cut), which is the uid
+    vector's tail when the trash id is in it. When it is not, position cut
+    decodes to the trash id, which no occurrence maps to: the push's
+    n_uniq leaves it out. A data gap above int16 raises."""
+    uids = np.asarray(uids, np.int32)
+    cut = int(np.searchsorted(uids, pad_base - 1))
+    d = np.zeros(uids.shape[0], np.int32)
+    if cut:
+        d[1:cut] = np.diff(uids[:cut])
+    if d.size and int(d.max(initial=0)) > np.iinfo(np.int16).max:
+        raise ValueError(
+            "wire_delta_ids: inter-uid gap %d exceeds int16 — this pass "
+            "shape is too sparse for the delta wire (unset the flag)"
+            % int(d.max()))
+    base = uids[0] if cut else np.int32(0)
+    return np.int32(base), d.astype(np.int16), np.int32(cut)
+
+
+def pos_for_rebuild(uids: np.ndarray, capacity: int) -> np.ndarray:
+    """[capacity] int32 position map of the rebuild write: pos[r] is the
+    index into the push's new rows of slab row r where a uid names it, -1
+    elsewhere (reference pass_table.py:305-315). The port's uids below
+    capacity are exactly its push's n_uniq (the trash row among them when
+    the batch has padding), so the map covers the rows 'scatter' writes."""
+    pos = np.full(capacity, -1, np.int32)
+    m = uids < capacity
+    pos[uids[m]] = np.arange(uids.shape[0], dtype=np.int32)[m]
+    return pos
+
+
+def uniq_count(uids: np.ndarray, capacity: int) -> int:
+    """The push's n_uniq of a sorted uid vector: its uids below the slab's
+    capacity (the padding tail starts at capacity)."""
+    return int(np.searchsorted(uids, capacity))
 
 
 class PassTable:
@@ -584,6 +654,21 @@ class PassTable:
     def dedup_for_push(self, ids: np.ndarray):
         """dedup_ids with padding uids starting at this table's capacity."""
         return dedup_ids(ids, self.capacity)
+
+    def uids_for_push(self, ids: np.ndarray) -> np.ndarray:
+        """dedup_uids_sorted with padding uids starting at this table's
+        capacity: the uid wire's product."""
+        return dedup_uids_sorted(ids, self.capacity)
+
+    def pos_for_rebuild(self, uids: np.ndarray) -> np.ndarray:
+        """The rebuild write's [capacity] position map of ``uids``."""
+        return pos_for_rebuild(uids, self.capacity)
+
+    @property
+    def resident_slab(self) -> Optional[torch.Tensor]:
+        """The slab on the device, in a pass or kept after it under the
+        incremental lifecycle; None where there is none."""
+        return self._slab
 
     @property
     def slab(self) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Build and load the port's native host library: the slot parser, the host
-store and the route index (``paddlebox_tpu_torch/native/*.cc``).
+store, the route index and the uid wire's sorted dedup
+(``paddlebox_tpu_torch/native/*.cc``).
 
 Counterpart of paddlebox_tpu/native/build.py. The three sources compile
 with ``g++ -O3 -shared -fPIC -std=c++17`` into one shared library in
@@ -135,6 +136,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                               U64P]
     lib.rt_lookup_serve.restype = c.c_int64
     lib.rt_lookup_serve.argtypes = [p, U64P, c.c_int64, c.c_int32, I32P]
+    lib.rt_dedup_sorted.restype = c.c_int64
+    lib.rt_dedup_sorted.argtypes = [I32P, c.c_int64, c.c_int32, I32P, I64P]
     return lib
 
 
@@ -213,4 +216,26 @@ def route_lookup_serve(handle: int, keys: np.ndarray,
     out = np.empty(keys.size, np.int32)
     host_lib().rt_lookup_serve(handle, ptr(keys, U64P), keys.size, miss_id,
                                ptr(out, I32P))
+    return out
+
+
+# ------------------------------------------------------------ uid dedup
+
+def dedup_sorted(ids: np.ndarray, pad_base: int) -> Optional[np.ndarray]:
+    """[K] int32 sorted unique ids of ``ids`` (int32, contiguous), the
+    tail padded with pad_base + i (rt_dedup_sorted: a presence mark over
+    the occurrences, then a radix sort of the uniques), or None where the
+    kernel declines (-1): an id outside [0, pad_base), or a live id span
+    (the trash id pad_base - 1 aside) above K / 2. Raises MemoryError
+    where its scratch could not be allocated."""
+    K = ids.shape[0]
+    out = np.empty(K, np.int32)
+    scratch = np.empty(K, np.int64)
+    n_u = host_lib().rt_dedup_sorted(ptr(ids, I32P), K, pad_base,
+                                     ptr(out, I32P), ptr(scratch, I64P))
+    if n_u == -1:
+        return None
+    if n_u < 0:
+        raise MemoryError("rt_dedup_sorted could not allocate its presence "
+                          "table for %d ids" % K)
     return out

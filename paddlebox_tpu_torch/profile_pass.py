@@ -14,6 +14,9 @@ parent's port (one step at a time) and this one (chunks of 8 through the
 chunk driver) run in the same call. It prints:
 
   * one JSON line: the pass's host phase seconds (BoxTrainer.pass_times),
+    the bytes it copied host to device by leaf (``h2d_bytes``: the
+    chunks' stacked and chunk leaves and the tail batches' arrays, as
+    ``count_h2d_bytes`` tallies them; the push's products differ by wire),
     the step loop's wall seconds, the device busy seconds inside it (the
     union of all GPU kernel and copy intervals), the idle share, and each
     of the port's own kernels' calls, device seconds and share of the busy
@@ -58,7 +61,7 @@ def _busy_union(intervals):
     return total
 
 
-PUSH_SPAN = "push_sparse_hostdedup"
+PUSH_SPAN = "sparse_push"
 # the PyTorch operators the unfused push ran
 PUSH_TORCH_OPS = ("aten::index_select", "aten::searchsorted",
                   "aten::segment_reduce", "aten::index_copy_")
@@ -106,6 +109,50 @@ def h2d_copies(device_events) -> Dict[str, Dict[str, float]]:
     return out
 
 
+class count_h2d_bytes:
+    """Within the block, tally the bytes ``trainer`` moves host to device,
+    by leaf name (``self.bytes``): each array of the host chunks its
+    chunk driver copies (``_group_to_device``: a batch's leaves and a
+    chunk's push products) and of the batches it steps one at a time
+    (``device_batch``). Host ints (n_valid, n_uniq, uid_base, uid_cut)
+    ride as kernel arguments and are not counted."""
+
+    def __init__(self, trainer) -> None:
+        self.trainer = trainer
+        self.bytes: Dict[str, int] = {}
+
+    def _add(self, k: str, n: int) -> None:
+        self.bytes[k] = self.bytes.get(k, 0) + int(n)
+
+    def __enter__(self) -> "count_h2d_bytes":
+        import numpy as np
+        import torch
+
+        t = self.trainer
+        group, single = t._group_to_device, t.device_batch
+
+        def group_to_device(hosts):
+            for h in hosts:
+                for leaves in (*h.batches, h.cpush):
+                    for k, v in leaves.items():
+                        if isinstance(v, np.ndarray):
+                            self._add(k, v.nbytes)
+            return group(hosts)
+
+        def device_batch(b, ids):
+            out = single(b, ids)
+            for k, v in out.items():
+                if isinstance(v, torch.Tensor):
+                    self._add(k, v.element_size() * v.numel())
+            return out
+
+        t._group_to_device, t.device_batch = group_to_device, device_batch
+        return self
+
+    def __exit__(self, *exc) -> None:
+        del self.trainer._group_to_device, self.trainer.device_batch
+
+
 def profile_pass(trainer, ds, out_dir: str = "", warmup: bool = True):
     """Warm the trainer up with one pass (unless ``warmup`` is False: it
     has trained already), then profile its next one: (the record printed
@@ -117,26 +164,30 @@ def profile_pass(trainer, ds, out_dir: str = "", warmup: bool = True):
     from paddlebox_tpu_torch.native.build import KERNEL_SOURCES
     from paddlebox_tpu_torch.train import trainer as trainer_mod
 
-    push = trainer_mod.push_sparse_hostdedup
+    # the train step looks its push up by name at each call: the
+    # dispatch by wire, or an earlier tree's one push
+    name = ("sparse_push" if hasattr(trainer_mod, "sparse_push")
+            else "push_sparse_hostdedup")
+    push = getattr(trainer_mod, name)
 
     def traced_push(*a, **kw):
         with torch.profiler.record_function(PUSH_SPAN):
             push(*a, **kw)
 
-    # the train step looks the push up by name at each call
-    trainer_mod.push_sparse_hostdedup = traced_push
+    setattr(trainer_mod, name, traced_push)
     try:
         if warmup:
             trainer.train_pass(ds)  # allocator, cuBLAS, kernels
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with count_h2d_bytes(trainer) as h2d_bytes, \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             res = trainer.train_pass(ds)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        trainer_mod.push_sparse_hostdedup = push
+        setattr(trainer_mod, name, push)
     dev = [e for e in prof.events()
            if getattr(e, "device_type", None) is not None
            and str(e.device_type).endswith("CUDA")]
@@ -175,6 +226,7 @@ def profile_pass(trainer, ds, out_dir: str = "", warmup: bool = True):
         "push_torch_ops": push_ops,
         "torch_op_calls": {k: op_calls.get(k, 0) for k in PUSH_TORCH_OPS},
         "h2d_copies": h2d_copies(dev),
+        "h2d_bytes": h2d_bytes.bytes,
     }, prof
 
 

@@ -8,8 +8,10 @@ flagship batch's ids and their host dedup, a 2^20 x 17 slab whose touched
 rows mix embedx creation, update and inactive rows, per-occurrence push
 rows with zero padding rows) and runs the tree's
 ``embedding.optimizers.push_sparse_hostdedup`` on them as the train step
-calls it, in each write mode. It prints the card's name and power limit,
-then one JSON line with, for each mode:
+calls it, in each write mode (``WRITES``: 'scatter', 'blocked', and
+'rebuild', ``push_sparse_rebuild`` with the host's position map, where the
+tree has it). It prints the card's name and power limit, then one JSON
+line with, for each mode:
 
   * ``slab_sha256``: the digest of the slab after one push from the same
     inputs; two trees that print the same digest wrote the same bits;
@@ -24,6 +26,12 @@ then one JSON line with, for each mode:
 so the port's parent commit can be measured in the same call. Both designs of the push are understood: the
 unfused one of the port's first slices (the pull's rows, first_idx,
 n_valid) and the fused one (segment offsets).
+
+``balanced_write_times`` times the three writes against each other in
+rounds of BALANCED_WRITES (each ordered pair of distinct writes follows
+once, as cadence_probe.BALANCED orders its four modes): chip_smoke.py's
+phase 18 takes push_write='auto''s rule on the card from it, at the
+flagship batch and at a chunk of 8 batches.
 """
 
 from __future__ import annotations
@@ -37,6 +45,10 @@ import sys
 import tempfile
 
 SEED = 987654321
+WRITES = ("scatter", "rebuild", "blocked")
+# scatter (a), rebuild (b), blocked (c): each ordered pair of distinct
+# writes follows once
+BALANCED_WRITES = "abcacba"
 
 
 def push_inputs(cfg, files, feed, ids=None):
@@ -94,9 +106,22 @@ def fused_push_bytes(n_valid: int, n_uniq: int, W: int, G: int,
     return n_valid * (4 + G * 4) + n_uniq * (8 + 2 * W * elem_bytes)
 
 
+def rebuild_write_bytes(capacity: int, n_uniq: int, W: int,
+                        elem_bytes: int = 4) -> int:
+    """What the rebuild write moves beyond the push: the gather of the new
+    rows by the clamped position map (the map, each new row read once,
+    each slab row written) and the select (the map, the gathered rows and
+    the slab read, the slab written)."""
+    row = W * elem_bytes
+    return (capacity * 4 + (n_uniq + capacity) * row
+            + capacity * 4 + 3 * capacity * row)
+
+
 def _push_fn(optimizers, pass_table, inp, dev, layout, conf):
     """(design, fn, args): fn(*args, write) runs the tree's push on device
-    tensors, whichever of its two signatures the tree has."""
+    tensors, whichever of its two signatures the tree has; 'rebuild' runs
+    push_sparse_rebuild with the host's position map (fused trees that
+    have it)."""
     import torch
 
     def t(x):
@@ -117,11 +142,51 @@ def _push_fn(optimizers, pass_table, inp, dev, layout, conf):
         return "unfused", fn, (slab, uids, perm, t(inp["inv"]), grads,
                                pulled, first)
     offsets = t(pass_table.segment_offsets(inp["inv"], inp["n_valid"]))
+    rebuild = getattr(optimizers, "push_sparse_rebuild", None)
+    pos = (t(pass_table.pos_for_rebuild(inp["uids"], slab.shape[0]))
+           if rebuild is not None else None)
 
     def fn(slab, uids, perm, offsets, grads, write):
-        push(slab, uids, perm, offsets, n_uniq, grads, SEED, layout, conf,
-             write=write, block_rows=1024)
+        if write == "rebuild":
+            rebuild(slab, uids, pos, perm, offsets, n_uniq, grads, SEED,
+                    layout, conf)
+        else:
+            push(slab, uids, perm, offsets, n_uniq, grads, SEED, layout,
+                 conf, write=write, block_rows=1024)
     return "fused", fn, (slab, uids, perm, offsets, grads)
+
+
+def balanced_write_times(inp, dev, layout, conf, rounds: int = 1):
+    """{write: [ms of each timing]} of the fused push on ``inp``
+    (push_inputs) under each of WRITES, timed by ``rate_probe.time_chain``
+    in ``rounds`` rounds of BALANCED_WRITES (each write 2 or 3 times a
+    round), and {write: slab sha256 after one push}: the three writes
+    leave the same bits."""
+    from paddlebox_tpu_torch.embedding import optimizers, pass_table
+    from paddlebox_tpu_torch.embedding.accessor import PushLayout
+    from paddlebox_tpu_torch.rate_probe import time_chain
+
+    _, fn, args = _push_fn(optimizers, pass_table, inp, dev, layout, conf)
+    W, G = layout.width, PushLayout.of(layout).width
+    push_bytes = fused_push_bytes(inp["n_valid"], inp["n_uniq"], W, G)
+    nbytes = {"scatter": push_bytes, "blocked": 2 * push_bytes,
+              "rebuild": push_bytes + rebuild_write_bytes(
+                  args[0].shape[0], inp["n_uniq"], W)}
+    digests = {}
+    for write in WRITES:
+        slab = args[0].clone()
+        fn(slab, *args[1:], write)
+        digests[write] = hashlib.sha256(
+            slab.cpu().numpy().tobytes()).hexdigest()
+        del slab
+    times = {w: [] for w in WRITES}
+    for _ in range(rounds):
+        for c in BALANCED_WRITES:
+            write = WRITES["abc".index(c)]
+            times[write].append(time_chain(
+                lambda *a: fn(*a, write), (args[0].clone(),) + args[1:],
+                nbytes[write]))
+    return times, digests
 
 
 def main(tree: str) -> int:
@@ -152,7 +217,9 @@ def main(tree: str) -> int:
     out = {"tree": tree, "design": design,
            "K": int(inp["ids"].shape[0]), "n_valid": inp["n_valid"],
            "n_uniq": inp["n_uniq"], "fused_bytes": nbytes}
-    for write in ("scatter", "blocked"):
+    writes = [w for w in WRITES
+              if w != "rebuild" or hasattr(optimizers, "push_sparse_rebuild")]
+    for write in writes:
         slab = args[0].clone()
         fn(slab, *args[1:], write)
         digest = hashlib.sha256(slab.cpu().numpy().tobytes()).hexdigest()

@@ -10,7 +10,20 @@ for one GPU. A step is
     (autograd) -> masked BCE -> the dense step -> build_push_grads -> push
     (the fused push_adagrad kernel: merge, the table's in-table rule, row
     write; in blocked mode it returns the rows and the blocked_write
-    kernel places them)
+    kernel places them, in rebuild mode gather_rows spreads them over the
+    slab by a position map and one select keeps the other rows)
+
+The push's write (PushFlags.push_write: 'auto', the default, 'scatter',
+'rebuild' or 'blocked') is resolved once, at construction
+(``PushFlags.resolve_push_write``: 'auto' is 'scatter' off the card and
+flags.AUTO_REBUILD_MAX_RATIO's rule on it). Its products ride the wire
+``StageFlags`` names, read at every pass (reference trainer.py:644-712,
+1081-1103, 1132-1185): the full wire (the host's sorted dedup, with the
+[capacity] position map under 'rebuild'), the uid wire (the sorted uid
+vector; the rest derived on the device), the delta wire (that vector as
+an int32 base and int16 deltas) or the ids-only wire (nothing; the step
+dedups on the device). ``sparse_push`` picks the push by the products a
+batch carries. Every wire and write leaves the same slab bits.
 
 The model zoo (models/__init__.py MODEL_ZOO) rides the same step. A feed
 with dense float slots adds the batch's ``dense`` [B, dense_dim] leaf, which
@@ -132,9 +145,15 @@ from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.packer import PackedBatch
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.embedding.accessor import ValueLayout
-from paddlebox_tpu_torch.embedding.optimizers import push_sparse_hostdedup
+from paddlebox_tpu_torch.embedding.optimizers import (decode_delta_uids,
+                                                     push_sparse_dedup,
+                                                     push_sparse_hostdedup,
+                                                     push_sparse_rebuild,
+                                                     push_sparse_uidwire)
 from paddlebox_tpu_torch.embedding.pass_table import (PassTable,
-                                                      segment_offsets)
+                                                      delta_encode_uids,
+                                                      segment_offsets,
+                                                      uniq_count)
 from paddlebox_tpu_torch.metrics import drift, quality
 from paddlebox_tpu_torch.metrics.auc import MetricRegistry
 from paddlebox_tpu_torch.obs import make_step_reporter
@@ -365,19 +384,58 @@ def _pull(slab: torch.Tensor, ids: torch.Tensor, layout: ValueLayout,
                                layout), None
 
 
+def sparse_push(slab: torch.Tensor, leaves: Mapping[str, object],
+                ids: torch.Tensor, n_valid: int, grads: torch.Tensor,
+                seed: int, layout: ValueLayout, table: TableConfig,
+                write: str, block_rows: int, wire: str) -> None:
+    """The step's push, IN PLACE, by the products its batch (or chunk,
+    ``leaves``) carries (reference trainer.py:650-712): the full wire's
+    perm and offsets (with ``push_pos`` under 'rebuild'), the delta wire's
+    uid_base, uid_d16 and uid_cut, or the uid wire's uids, each with the
+    host's n_uniq; on the ids-only ``wire`` none, and the step dedups on
+    the device. A batch with no product on another wire raises: the
+    device dedup never runs in its place silently."""
+    conf = table.optimizer
+    if "perm" in leaves:
+        if "push_pos" in leaves:
+            push_sparse_rebuild(slab, leaves["uids"], leaves["push_pos"],
+                                leaves["perm"], leaves["offsets"],
+                                leaves["n_uniq"], grads, seed, layout, conf)
+        else:
+            push_sparse_hostdedup(slab, leaves["uids"], leaves["perm"],
+                                  leaves["offsets"], leaves["n_uniq"],
+                                  grads, seed, layout, conf, write=write,
+                                  block_rows=block_rows)
+    elif "uid_d16" in leaves or "uids" in leaves:
+        uids = (decode_delta_uids(leaves["uid_base"], leaves["uid_d16"],
+                                  leaves["uid_cut"], table.pass_capacity)
+                if "uid_d16" in leaves else leaves["uids"])
+        push_sparse_uidwire(slab, uids, ids, n_valid, leaves["n_uniq"],
+                            grads, seed, layout, conf, write=write,
+                            block_rows=block_rows)
+    elif wire == "ids_only":
+        push_sparse_dedup(slab, ids, n_valid, grads, seed, layout, conf)
+    else:
+        raise KeyError("train batch lacks the push's dedup products "
+                       "(the %s wire): host_batch stages them for every "
+                       "train batch" % wire)
+
+
 def make_train_step(model: torch.nn.Module, layout: ValueLayout,
                     table: TableConfig, dense_opt: torch.optim.Optimizer,
                     batch_size: int, num_slots: int,
                     push_write: str = "scatter",
                     block_rows: int = 1024,
-                    compute_dtype: str = "float32") -> Callable:
+                    compute_dtype: str = "float32",
+                    wire: Callable[[], str] = lambda: "full") -> Callable:
     """step(slab, batch, seed) -> (loss, preds), device tensors. Updates
     ``slab`` and the model's parameters IN PLACE. ``batch`` is a
-    device_batch dict. A ``use_expand`` model (models/nn_cross.py) gets the
-    extended pull: its expand block sum-pooled beside the pull view, its
-    gradient pushed after the embedx grads (check_expand_config holds the
-    model and the table to each other)."""
-    conf = table.optimizer
+    device_batch dict; its push products pick the push (``sparse_push``,
+    ``wire()`` the trainer's current wire). A ``use_expand`` model
+    (models/nn_cross.py) gets the extended pull: its expand block
+    sum-pooled beside the pull view, its gradient pushed after the embedx
+    grads (check_expand_config holds the model and the table to each
+    other)."""
     padding_id = table.pass_capacity - 1
     use_expand = uses_expand(model)
     check_expand_config(model, layout, use_expand)
@@ -419,10 +477,8 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
         else:
             push_grads = build_push_grads(emb.grad, segments % num_slots,
                                           clicks, valid)
-        push_sparse_hostdedup(slab, batch["uids"], batch["perm"],
-                              batch["offsets"], batch["n_uniq"], push_grads,
-                              seed, layout, conf, write=push_write,
-                              block_rows=block_rows)
+        sparse_push(slab, batch, ids, n_valid, push_grads, seed, layout,
+                    table, push_write, block_rows, wire())
         return loss.detach(), _detach(preds)
 
     return step
@@ -492,7 +548,8 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
                     batch_size: int, num_slots: int,
                     push_write: str = "scatter",
                     block_rows: int = 1024,
-                    compute_dtype: str = "float32") -> Callable:
+                    compute_dtype: str = "float32",
+                    wire: Callable[[], str] = lambda: "full") -> Callable:
     """chunk_step(slab, stacked, cpush, seed) -> (losses [C], preds [C,
     batch]): the chunk-synchronous sparse megastep (scan_chunk_fn,
     paddlebox_tpu/train/trainer.py:755-845). ONE pull of the chunk's C*K
@@ -502,10 +559,11 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
     batch in order, each with its own Adam step on its pooled input as a
     detached leaf, then one vector-Jacobian product through the pool from
     the collected pooled-space grads to per-key grads, and ONE merged push
-    over the chunk's dedup ``cpush`` (uids, perm, offsets over the flat
-    C*K occurrences, n_uniq) with one seed. Updates ``slab`` and the
-    model IN PLACE. A multi-task model's predictions stack by task; the
-    merged push's clicks are the main task's labels."""
+    over the chunk's dedup ``cpush`` (the flat C*K occurrences' products
+    by the wire, as ``sparse_push`` reads them, and n_uniq) with one
+    seed. Updates ``slab`` and the model IN PLACE. A multi-task model's
+    predictions stack by task; the merged push's clicks are the main
+    task's labels."""
     if uses_data_norm(model):
         # reference trainer.py:748-752: the summaries move per batch on
         # the batch's pooled input
@@ -519,7 +577,6 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
         raise ValueError(
             "sparse_chunk_sync is unsupported with expand embeddings: they "
             "need per-batch table/emb state")
-    conf = table.optimizer
     padding_id = table.pass_capacity - 1
     instances = batch_size * num_slots
     main_task = task_names(model)[0]
@@ -568,10 +625,9 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
         clicks = task_label(stacked, main_task).reshape(
             C * batch_size).index_select(0, seg // num_slots)
         push_grads = build_push_grads(d_emb, seg % num_slots, clicks, valid)
-        push_sparse_hostdedup(slab, cpush["uids"], cpush["perm"],
-                              cpush["offsets"], cpush["n_uniq"], push_grads,
-                              seed, layout, conf, write=push_write,
-                              block_rows=block_rows)
+        sparse_push(slab, cpush, ids_flat, sum(stacked["n_valid"]),
+                    push_grads, seed, layout, table, push_write, block_rows,
+                    wire())
         return torch.stack(losses), stack_preds(preds)
 
     return chunk_step
@@ -811,21 +867,32 @@ class BoxTrainer:
         self.multi_task = is_multi_task(model)
         self.metrics = MetricRegistry()
         self.num_slots = len(feed.used_sparse_slots())
+        # resolved once, here: the keys of one push are a batch's key
+        # slots, or a chunk's under sparse_chunk_sync
         self.push_write = self.flags.resolve_push_write(
-            table_cfg.pass_capacity)
+            table_cfg.pass_capacity,
+            feed.key_capacity() * (self.cfg.scan_chunk
+                                   if self.cfg.sparse_chunk_sync else 1),
+            self.device, self.stage_flags)
         # optax's adam, sgd or adagrad (TrainerConfig.dense_optimizer)
         self.dense_opt = make_dense_optimizer(self.cfg,
                                               self.model.parameters())
         cdtype = self.cfg.compute_dtype
+
+        def wire() -> str:
+            return self.stage_flags.wire
+
         self.step_fn = make_train_step(
             self.model, self.table.layout, table_cfg, self.dense_opt,
             feed.batch_size, self.num_slots, push_write=self.push_write,
-            block_rows=self.flags.push_block_rows, compute_dtype=cdtype)
+            block_rows=self.flags.push_block_rows, compute_dtype=cdtype,
+            wire=wire)
         self.scan_steps = make_scan(self.step_fn)
         self.chunk_fn = (make_chunk_step(
             self.model, self.table.layout, table_cfg, self.dense_opt,
             feed.batch_size, self.num_slots, push_write=self.push_write,
-            block_rows=self.flags.push_block_rows, compute_dtype=cdtype)
+            block_rows=self.flags.push_block_rows, compute_dtype=cdtype,
+            wire=wire)
             if self.cfg.sparse_chunk_sync else None)
         self.eval_fn = make_eval_step(self.model, self.table.layout,
                                       table_cfg, feed.batch_size,
@@ -911,17 +978,16 @@ class BoxTrainer:
     # ---------------------------------------------------------- batch utils
     def host_batch(self, b: PackedBatch, ids: np.ndarray,
                    skip_push_dedup: bool = False) -> Dict[str, object]:
-        """Host staging of one batch: ids and the packed arrays, and the
-        push's sorted dedup products (uids, perm and the segment offsets
-        of each unique's run of real occurrences), plus two host ints:
-        n_uniq (real uids) and n_valid (real key slots; the packer puts
-        them before its padding tail). Test mode, or ``skip_push_dedup``
-        (a chunk-synchronous chunk dedups once over the whole chunk),
-        leaves out the dedup products and n_uniq. The batch's dense
-        columns ride as ``dense``, then the join phase's ``rank_offset``
-        and ``aux_offset`` where the batch has them; a multi-task model's
-        tasks with a label of their own in the feed as ``labels_<task>``
-        (the others train on ``labels``)."""
+        """Host staging of one batch: ids and the packed arrays, the push's
+        products by ``stage_flags.wire`` (``_stage_push``), and the host
+        int n_valid (real key slots; the packer puts them before its
+        padding tail). Test mode, or ``skip_push_dedup`` (a
+        chunk-synchronous chunk dedups once over the whole chunk), leaves
+        out the push's products. The batch's dense columns ride as
+        ``dense``, then the join phase's ``rank_offset`` and
+        ``aux_offset`` where the batch has them; a multi-task model's tasks
+        with a label of their own in the feed as ``labels_<task>`` (the
+        others train on ``labels``)."""
         n_valid = int(b.valid.sum())
         out: Dict[str, object] = {"ids": ids, "segments": b.segments,
                                   "ins_valid": b.ins_valid,
@@ -937,10 +1003,44 @@ class BoxTrainer:
                 if t in b.task_labels:
                     out["labels_" + t] = b.task_labels[t]
         if not self.table.test_mode and not skip_push_dedup:
-            uids, perm, inv, out["n_uniq"] = self.table.dedup_for_push(ids)
-            out.update(uids=uids, perm=perm,
-                       offsets=segment_offsets(inv, n_valid))
+            self._stage_push(out, ids, n_valid, self.stage_flags.wire)
         return out
+
+    def _stage_push(self, out: Dict[str, object], ids: np.ndarray,
+                    n_valid: int, wire: str) -> None:
+        """The push's products of the occurrences ``ids`` (n_valid of them
+        real) into ``out``, by ``wire`` (reference trainer.py:1081-1103,
+        1132-1185): on the full wire the sorted dedup (uids, perm, the
+        segment offsets) and n_uniq, with the [capacity] ``push_pos`` map
+        under 'rebuild'; on the uid and delta wires ``_stage_uid_wire``;
+        on the ids-only wire nothing. One definition for a batch and a
+        chunk."""
+        if wire == "ids_only":
+            return
+        if wire != "full":
+            self._stage_uid_wire(out, ids)
+            return
+        uids, perm, inv, out["n_uniq"] = self.table.dedup_for_push(ids)
+        out.update(uids=uids, perm=perm,
+                   offsets=segment_offsets(inv, n_valid))
+        if self.push_write == "rebuild":
+            out["push_pos"] = self.table.pos_for_rebuild(uids)
+
+    def _stage_uid_wire(self, out: Dict[str, object],
+                        ids: np.ndarray) -> None:
+        """The uid wire's products into ``out``: the sorted [K] uid vector
+        (``uids``), or under wire_delta_ids its int32 base and cut (host
+        ints, as n_valid) and int16 deltas (``uid_base``, ``uid_cut``,
+        ``uid_d16``); and n_uniq, its uids below the slab's capacity (a
+        host int that sets the push's grid)."""
+        capacity = self.table.capacity
+        uids = self.table.uids_for_push(ids)
+        out["n_uniq"] = uniq_count(uids, capacity)
+        if self.stage_flags.wire == "delta":
+            base, d16, cut = delta_encode_uids(uids, capacity)
+            out.update(uid_base=int(base), uid_d16=d16, uid_cut=int(cut))
+        else:
+            out["uids"] = uids
 
     def device_batch(self, b: PackedBatch, ids: np.ndarray) -> Batch:
         """host_batch, then one copy per array to the device (the per-step
@@ -979,8 +1079,9 @@ class BoxTrainer:
 
     def _stack_batches_host(self, group: List[PackedBatch]) -> HostChunk:
         """One chunk's host staging, each batch on the pool in batch order;
-        in the chunk-synchronous mode also ONE dedup over the chunk's flat
-        C*K occurrences (its padding, the trash row, sorts last)."""
+        in the chunk-synchronous mode also ONE staging of the push's
+        products over the chunk's flat C*K occurrences (its padding, the
+        trash row, sorts last), by the wire."""
         pool = self._host_pool()
         if pool is not None and len(group) > 1:
             hosts = list(pool.map(self._stage_one, group))
@@ -988,11 +1089,14 @@ class BoxTrainer:
             hosts = [self._stage_one(b) for b in group]
         if not self.cfg.sparse_chunk_sync:
             return HostChunk(hosts)
-        uids, perm, inv, n_uniq = self.table.dedup_for_push(
-            np.concatenate([h["ids"] for h in hosts]))
-        offsets = segment_offsets(inv, sum(h["n_valid"] for h in hosts))
-        return HostChunk(hosts, {"uids": uids, "perm": perm,
-                                 "offsets": offsets, "n_uniq": n_uniq})
+        cpush: Dict[str, object] = {}
+        # as the reference's chunk, the ids-only wire stages a chunk's full
+        # products (its write is 'scatter')
+        wire = self.stage_flags.wire
+        self._stage_push(cpush, np.concatenate([h["ids"] for h in hosts]),
+                         sum(h["n_valid"] for h in hosts),
+                         "full" if wire == "ids_only" else wire)
+        return HostChunk(hosts, cpush)
 
     def _group_to_device(self, hosts: List[HostChunk]) -> List[DeviceChunk]:
         """Host-staged chunks on the device: on the card through the pinned
@@ -1061,6 +1165,12 @@ class BoxTrainer:
             times[name] = now - clock[0]
             clock[0] = now
 
+        if self.stage_flags.wire == "ids_only" and \
+                self.push_write != "scatter":
+            raise ValueError(
+                "the ids-only wire (h2d_lean without h2d_uid_wire) stages no "
+                "push products; the trainer's write %r needs them"
+                % (self.push_write,))
         t_pass = self.timers["pass"]
         t_pass.start()
         # this pass's blocks (and the next pass's, preloaded meanwhile) feed

@@ -675,20 +675,34 @@ def test_multi_task_metric_over_mmoe_preds_matches_jax():
 
 
 def test_registry_inits_the_join_metrics_and_refuses_a_phase():
-    reg = pauc.MetricRegistry()
-    reg.init_cmatch_rank_metric("cm", "label", "pred", GROUP)
-    reg.init_multi_task_metric("mt", "label", "pred pred", "222_1 223_1")
-    assert reg.metric_names() == ["cm", "mt"]
-    t = _metric_tensors()
-    reg.add_batch(t)
-    assert reg.get_metric_msg("cm")["size"] > 0
-    for init in (lambda: reg.init_cmatch_rank_metric(
-            "x", "label", "pred", GROUP, metric_phase=0),
-            lambda: reg.init_multi_task_metric(
-                "y", "label", "pred", "222_1", metric_phase=1)):
-        with pytest.raises(ValueError, match="metric_phase"):
-            init()
-    assert reg.metric_names() == ["cm", "mt"]
+    """The cmatch-rank and multi-task kinds take metric_phase 0 and 1 (the
+    refusal of any phase but -1 is gone), and add_batch feeds them by the
+    reference's join/update filter: the same counts as the JAX registry's
+    at each phase."""
+    regs = [pauc.MetricRegistry(), jauc.MetricRegistry()]
+    for reg in regs:
+        reg.init_cmatch_rank_metric("cm", "label", "pred", GROUP)
+        reg.init_multi_task_metric("mt", "label", "pred pred", "222_1 223_1")
+        reg.init_cmatch_rank_metric("cm_join", "label", "pred", GROUP,
+                                    metric_phase=0)
+        reg.init_multi_task_metric("mt_update", "label", "pred pred",
+                                   "222_1 223_1", metric_phase=1)
+    assert regs[0].metric_names() == ["cm", "mt", "cm_join", "mt_update"]
+    assert [regs[0].get(n).metric_phase for n in regs[0].metric_names()] \
+        == [-1, -1, 0, 1]
+    for step, phase in enumerate((-1, 0, 1, 0)):
+        t = _metric_tensors(seed=step)
+        for reg in regs:
+            reg.phase = phase
+            reg.add_batch(t)
+    sizes = {}
+    for name in regs[0].metric_names():
+        got, want = (r.get_metric_msg(name) for r in regs)
+        assert got == want, name
+        sizes[name] = got["size"]
+    # steps at phase -1 and 0 fed the join metric, -1 and 1 the update one
+    assert 0 < sizes["cm_join"] < sizes["cm"]
+    assert 0 < sizes["mt_update"] < sizes["mt"]
 
 
 # --------------------------------------------------------- the flagship
