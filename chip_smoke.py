@@ -258,6 +258,31 @@ Phases, each of which raises on a failed check (exit code != 0):
      other at the flagship batch and at a chunk of 8 batches
      (push_probe.balanced_write_times), the rule for 'auto' logged and
      held to flags.AUTO_REBUILD_MAX_RATIO;
+ 19. the SSD tier and the async dense table: FLAGSHIP_SSD (FLAGSHIP's
+     table with a 16 MiB host budget in a temporary ssd_dir) through the
+     cadence's three passes sequentially (b) and preloaded with the
+     prefetcher (a), each against the untiered full rebuild (c) run in the
+     same call, in the order c, b, a, a, b, c: losses and AUC equal
+     (bit-equality printed), the store after every pass (resident and
+     tier rows at their effective values, sorted by key) bit-identical,
+     sparse_keys_spilled above 0 every pass, sparse_keys_faulted_in from
+     pass 2, sparse_keys_prefetch_faulted in (a), block files on disk, the
+     launches of push_adagrad (one a step) and gather_rows (one a step
+     and a write-back a pass: every spill drops the residency); the spill
+     seconds of each end_pass, the fault-in seconds, each pass's wall
+     beside the untiered one's; a test pass over the third window with
+     predictions bit-equal to the untiered trainer's; end_day(age=True)
+     and load_ssd_to_mem against the untiered day (every row it keeps bit
+     for bit; the rows it deleted by their score, which the tier's sweep
+     does not read, are the only others); a journaled full save, two
+     passes that spill and fault in, a touched save and its load_base by
+     journal replay bit-identical to the live store. Then FLAGSHIP_ASYNC
+     (sync_mode="async") for two passes: 32 push_adagrad and 35
+     gather_rows, the table's steps_applied in [8, 32], the module equal
+     to the table's pull after the drain, its AUC within ASYNC_AUC_BAND of
+     the main path's; two runs whose pushes wait for the drain, bit-
+     identical losses, slab sha256 and table; the async passes' steps
+     seconds beside FLAGSHIP's at scan_chunk=1 (the same per-step loop);
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -3861,6 +3886,384 @@ def wires_phase(torch, files, feed, reset_counts, counts):
     return out
 
 
+# phase 19: the async run's second-pass AUC against the main path's
+# (FLAGSHIP_DIGITS), stated in PERF.md before the first run on the card
+ASYNC_AUC_BAND = 0.01
+# the order of phase 19's cadence runs: every run of a mode follows each
+# other mode once (the first run of each mode is the one held bit for bit)
+TIER_ORDER = "cbaabc"
+TIER_STATS = ("sparse_keys_spilled", "sparse_keys_faulted_in",
+              "sparse_keys_prefetch_faulted")
+
+
+def union_of(store):
+    """(keys, rows) of a host store's resident and SSD-tier rows (the
+    tier's at their effective values), sorted by key."""
+    import numpy as np
+    k, v = store.state_items()
+    sk, sv = store.spilled_snapshot()
+    k, v = np.concatenate([k, sk]), np.vstack([v, sv])
+    order = np.argsort(k)
+    return k[order], v[order]
+
+
+def unions_equal(a, b):
+    import numpy as np
+    return (np.array_equal(a[0], b[0])
+            and np.array_equal(a[1].view(np.uint32), b[1].view(np.uint32)))
+
+
+class FaultInClock:
+    """While entered, times every SSD-tier read that moves rows in
+    (SpillTier.read with pop=True, on any thread: the pass table's
+    store_lock serializes them): seconds and rows since the last
+    ``take``."""
+
+    def __init__(self):
+        self.s, self.rows = 0.0, 0
+
+    def __enter__(self):
+        from paddlebox_tpu_torch.embedding.ssd_tier import SpillTier
+        self._read = read = SpillTier.read
+        clock = self
+
+        def timed(tier, keys, pop):
+            t0 = time.perf_counter()
+            out = read(tier, keys, pop)
+            if pop:
+                clock.s += time.perf_counter() - t0
+                clock.rows += int(len(keys))
+            return out
+
+        SpillTier.read = timed
+        return self
+
+    def __exit__(self, *exc):
+        from paddlebox_tpu_torch.embedding.ssd_tier import SpillTier
+        SpillTier.read = self._read
+
+    def take(self):
+        out = (self.s, self.rows)
+        self.s, self.rows = 0.0, 0
+        return out
+
+
+def tier_run(torch, mode, windows, feed, cfg, keep, reset_counts, counts):
+    """One cadence run of phase 19 in ``mode``: per pass its loss, AUC,
+    wall (the phases' sum), spill and fault-in seconds and the tier's stat
+    deltas; with ``keep`` the store after each pass. Returns (trainer,
+    record with the run's launches)."""
+    from paddlebox_tpu_torch import cadence_probe
+    from paddlebox_tpu_torch.utils.stats import stat_get
+
+    last = {n: stat_get(n) for n in TIER_STATS}
+
+    def on_pass(trainer, rec):
+        rec["stats"] = {n: stat_get(n) - last[n] for n in TIER_STATS}
+        last.update({n: stat_get(n) for n in TIER_STATS})
+        rec["fault_in_s"], rec["fault_in_rows"] = clock.take()
+        rec["spill_s"] = rec["table_s"]["spill"]
+        rec["wall_s"] = sum(rec["phase_s"].values())
+        if keep:
+            rec["store"] = union_of(trainer.table.store)
+
+    reset_counts()
+    with FaultInClock() as clock:
+        trainer, run = cadence_probe.run_cadence(mode, windows, feed, cfg,
+                                                 "cuda", on_pass=on_pass)
+    run["launches"] = counts()
+    return trainer, run
+
+
+def tier_phase(torch, windows, feed, tmp, reset_counts, counts):
+    """Phase 19, the SSD tier at full width (see the module docstring).
+    Returns the runs' records, the launches by run and the seconds."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.config.configs import CheckpointConfig
+    from paddlebox_tpu_torch.config.flags import CkptFlags
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    from paddlebox_tpu_torch.embedding import ckpt_store as cks
+    from paddlebox_tpu_torch.embedding.pass_table import PassTable
+    from paddlebox_tpu_torch.train import checkpoint as ckpt
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.utils.stats import stat_get
+
+    untiered = flagship.FLAGSHIP
+    budget = dataclasses.replace(flagship.FLAGSHIP_SSD, ssd_dir="x").table() \
+        .ssd_max_resident_rows(untiered.layout().width)
+    check(budget == 246723, "FLAGSHIP_SSD's budget is %r rows" % budget)
+    runs, kept, trainers = [], {}, {}
+    for i, mode in enumerate(TIER_ORDER):
+        keep = mode not in kept
+        cfg = (untiered if mode == "c" else dataclasses.replace(
+            flagship.FLAGSHIP_SSD,
+            ssd_dir=os.path.join(tmp, "ssd_%s_%d" % (mode, i))))
+        trainer, run = tier_run(torch, mode, windows, feed, cfg, keep,
+                                reset_counts, counts)
+        run["tiered"] = mode != "c"
+        runs.append(run)
+        passes = run["passes"]
+        steps = sum(p["batches"] for p in passes)
+        writebacks = sum(int(p["counters"]["pass_rows_written_back"] > 0)
+                         for p in passes)
+        promotes = sum(int(p["counters"]["pass_rows_promote_hit"] > 0)
+                       for p in passes)
+        want = f32_launches(push_adagrad=steps,
+                            gather_rows=steps + writebacks + promotes)
+        check(run["launches"] == want, "tier run (%s) launches %s, expected "
+              "%s" % (mode, run["launches"], want))
+        if run["tiered"]:
+            check(promotes == 0, "a tiered pass promoted resident rows "
+                  "after a spill")
+            for j, p in enumerate(passes):
+                st = p["stats"]
+                check(st["sparse_keys_spilled"] > 0
+                      and (st["sparse_keys_faulted_in"] > 0) == (j > 0),
+                      "tier run (%s) pass %d stats %s" % (mode, j, st))
+            pre = sum(p["stats"]["sparse_keys_prefetch_faulted"]
+                      for p in passes)
+            check((pre > 0) == (mode == "a"), "tier run (%s) prefetched %d "
+                  "rows from the tier" % (mode, pre))
+            check(any(n.endswith(".part") for n in os.listdir(cfg.ssd_dir)),
+                  "no block file in %s" % cfg.ssd_dir)
+            check(len(trainer.table.store) <= budget, "the store holds %d "
+                  "rows over its budget" % len(trainer.table.store))
+        else:
+            check(not any(v for p in passes for v in p["stats"].values()),
+                  "the untiered run moved rows to a tier")
+        for p in passes:
+            log("tier run %d (%s) pass %d: loss %.10f auc %.10f wall_s %.4f "
+                "spill_s %.4f fault_in_s %.4f fault_in_rows %d stats %s "
+                "phase_s %s counters %s"
+                % (i, mode, p["pass"], p["loss"], p["auc"], p["wall_s"],
+                   p["spill_s"], p["fault_in_s"], p["fault_in_rows"],
+                   json.dumps(p["stats"]), json.dumps(p["phase_s"]),
+                   json.dumps(p["counters"])))
+        log("tier run %d (%s): launches %s, wall %.4f s"
+            % (i, mode, run["launches"], run["wall_s"]))
+        if keep:
+            kept[mode] = run
+            trainers[mode] = trainer
+        else:
+            trainer.close()
+        del trainer
+    for mode in "ba":
+        bit_equal = True
+        for p, q in zip(kept[mode]["passes"], kept["c"]["passes"]):
+            check(abs(p["loss"] - q["loss"]) <= 1e-6 * abs(q["loss"])
+                  and abs(p["auc"] - q["auc"]) <= 1e-6,
+                  "tier run (%s) pass %d loss %r auc %r, untiered %r %r"
+                  % (mode, p["pass"], p["loss"], p["auc"], q["loss"],
+                     q["auc"]))
+            bit_equal &= p["loss"] == q["loss"] and p["auc"] == q["auc"]
+            check(unions_equal(p["store"], q["store"]), "tier run (%s) "
+                  "store after pass %d differs from the untiered run's"
+                  % (mode, p["pass"]))
+        log("tier (%s): the store after each of %d passes bit-identical to "
+            "the untiered full rebuild's (%d keys after the last); losses "
+            "and AUC bit-equal: %s" % (mode, len(kept[mode]["passes"]),
+                                       kept["c"]["passes"][-1]["store"][0]
+                                       .size, bit_equal))
+    walls = {m: [[p["wall_s"] for p in r["passes"]] for r in runs
+                 if r["mode"] == m] for m in "cba"}
+    log("tier pass walls (order %s) %s; %s"
+        % (TIER_ORDER, json.dumps(walls), card_line()))
+    for r in runs:
+        for p in r["passes"]:
+            p.pop("store", None)
+
+    # the test pass over the third window, on the tiered (b) and the
+    # untiered trainer
+    t_tier, t_full = trainers.pop("b"), trainers.pop("c")
+    trainers.pop("a").close()
+    preds = []
+    for t in (t_tier, t_full):
+        ds = BoxDataset(feed)
+        ds.set_filelist(windows[2])
+        ds.load_into_memory()
+        reset_counts()
+        preds.append(t.predict_batches(ds))
+        c = counts()
+        check(c == f32_launches(gather_rows=16), "tier test pass launches "
+              "%s" % c)
+    check(bits_equal(preds[0][0], preds[1][0])
+          and np.array_equal(preds[0][1], preds[1][1]),
+          "the tiered test pass's predictions differ from the untiered")
+    spilled = t_tier.table.store.spilled_count()
+    log("tier test pass: %d predictions bit-equal to the untiered "
+        "trainer's, %d rows peeked from the tier" % (preds[0][0].size,
+                                                     spilled))
+    # the day tick, then LoadSSD2Mem
+    t0 = time.perf_counter()
+    for t in (t_tier, t_full):
+        t.table.end_day(age=True)
+    day_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = t_tier.table.load_ssd_to_mem()
+    load_s = time.perf_counter() - t0
+    check(loaded == spilled and t_tier.table.store.spilled_count() == 0,
+          "load_ssd_to_mem moved %d of %d rows" % (loaded, spilled))
+    (tk, tv), (fk, fv) = union_of(t_tier.table.store), union_of(
+        t_full.table.store)
+    pos = np.minimum(np.searchsorted(tk, fk), max(tk.size - 1, 0))
+    check(tk.size >= fk.size and np.array_equal(tk[pos], fk)
+          and bits_equal(tv[pos], fv), "after the day tick the tiered "
+          "store differs on the untiered store's rows")
+    extra = np.ones(tk.size, bool)
+    extra[pos] = False
+    table = untiered.table()
+    score = untiered.layout().show_click_score(
+        tv[extra, acc.SHOW], tv[extra, acc.CLICK], table.optimizer)
+    check(bool((score < table.delete_threshold).all())
+          and int(extra.sum()) <= spilled,
+          "the tiered day kept %d rows the untiered one did not, not all "
+          "below the delete threshold" % int(extra.sum()))
+    log("tier day: end_day(age=True) %.4f s (both tables), "
+        "load_ssd_to_mem %.4f s for %d rows; %d rows bit-equal to the "
+        "untiered day's, %d more: tier rows the untiered shrink deleted by "
+        "their score (the tier's sweep reads unseen days only)"
+        % (day_s, load_s, loaded, fk.size, int(extra.sum())))
+    t_full.close()
+    del t_full
+
+    # a journaled full save, two passes that spill, a touched save and its
+    # load by journal replay
+    cfg = CheckpointConfig(batch_model_dir=os.path.join(tmp, "tier_ck", "b"),
+                           xbox_model_dir=os.path.join(tmp, "tier_ck", "x"),
+                           async_save=False)
+    cm = ckpt.CheckpointManager(cfg, t_tier.table, CkptFlags())
+    t0 = time.perf_counter()
+    cm.save_base(t_tier.params, t_tier.opt_state, "d0")
+    full_s = time.perf_counter() - t0
+    last = {n: stat_get(n) for n in TIER_STATS}
+    for w in windows[:2]:
+        ds = BoxDataset(feed)
+        ds.set_filelist(w)
+        t_tier.train_pass(ds)
+    moved = {n: stat_get(n) - last[n] for n in TIER_STATS}
+    check(moved["sparse_keys_spilled"] > 0
+          and moved["sparse_keys_faulted_in"] > 0,
+          "the journaled passes moved %s" % moved)
+    live = union_of(t_tier.table.store)
+    t0 = time.perf_counter()
+    bdir, _ = cm.save_base(t_tier.params, t_tier.opt_state, "d1",
+                           mode="touched")
+    touched_s = time.perf_counter() - t0
+    check(cks.read_manifest(os.path.join(bdir, ckpt.SPARSE_MANIFEST))
+          .get("mode") == "journal", "the touched save fell back to full")
+    t2 = PassTable(untiered.table(), device="cuda")
+    t0 = time.perf_counter()
+    ckpt.CheckpointManager(cfg, t2, CkptFlags(ckpt_journal=False)) \
+        .load_base("d1")
+    replay_s = time.perf_counter() - t0
+    check(unions_equal(union_of(t2.store), live), "the journal replay's "
+          "store differs from the live tiered store")
+    log("tier journal: full save %.4f s, two passes moving %s, touched "
+        "save %.4f s, load_base by replay %.4f s: %d rows bit-identical to "
+        "the live store (resident and tier)"
+        % (full_s, json.dumps(moved), touched_s, replay_s, live[0].size))
+    t_tier.close()
+    del t_tier, t2
+    return {"runs": runs,
+            "launches": {"%s_%d" % (r["mode"], i): r["launches"]
+                         for i, r in enumerate(runs)},
+            "seconds": {"day": day_s, "load_ssd_to_mem": load_s,
+                        "full_save": full_s, "touched_save": touched_s,
+                        "replay_load": replay_s}}
+
+
+def async_runs(torch, files, feed, reset_counts, counts):
+    """Phase 19, the async dense table at full width (see the module
+    docstring): the free run, FLAGSHIP at scan_chunk=1, two drained runs.
+    Returns the runs' records."""
+    import hashlib
+
+    from paddlebox_tpu_torch.convert import flatten_params
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.train import flagship
+
+    out = {}
+    for name in ("async", "scan_chunk_1", "drained_0", "drained_1"):
+        cfg = (flagship.FLAGSHIP if name == "scan_chunk_1"
+               else flagship.FLAGSHIP_ASYNC)
+        kw = {"scan_chunk": 1} if name == "scan_chunk_1" else {}
+        trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter",
+                                             "cuda", **kw)
+        table = trainer.async_table
+        check((table is not None) == (name != "scan_chunk_1"),
+              "%s: async table %r" % (name, table))
+        if name.startswith("drained"):
+            push = table.push
+
+            def push_and_drain(g, push=push, table=table):
+                push(g)
+                table.wait_drained()
+
+            table.push = push_and_drain
+        reset_counts()
+        passes, shas = [], []
+        for p in range(2):
+            res, auc, secs = run_pass(torch, trainer, ds)
+            passes.append({"pass": p, "loss": res["loss"], "auc": auc,
+                           "pass_s": secs,
+                           "steps_s": trainer.pass_times["steps"],
+                           "phase_s": trainer.pass_times})
+            shas.append(slab_sha(trainer))
+        c = counts()
+        check(c == f32_launches(push_adagrad=32, gather_rows=35),
+              "%s launches %s" % (name, c))
+        rec = {"passes": passes, "launches": c, "slab_sha256": shas}
+        if table is not None:
+            applied = table.steps_applied
+            check(8 <= applied <= 32, "%s: %d applies of 32 pushes"
+                  % (name, applied))
+            check(bits_equal(flatten_params(trainer.model), table.pull()),
+                  "%s: the module differs from the table after the drain"
+                  % name)
+            rec["applies"] = applied
+            rec["table_sha256"] = hashlib.sha256(
+                table.pull().tobytes()).hexdigest()
+        for p in passes:
+            log("%s pass %d: loss %.10f auc %.10f pass_s %.4f steps_s %.4f "
+                "phase_s %s" % (name, p["pass"], p["loss"], p["auc"],
+                                p["pass_s"], p["steps_s"],
+                                json.dumps(p["phase_s"])))
+        log("%s: launches %s, applies %s" % (name, c, rec.get("applies")))
+        trainer.close()
+        del trainer, ds
+        out[name] = rec
+    a, b = out["drained_0"], out["drained_1"]
+    check([p["loss"] for p in a["passes"]] == [p["loss"] for p in b["passes"]]
+          and a["slab_sha256"] == b["slab_sha256"]
+          and a["table_sha256"] == b["table_sha256"]
+          and a["applies"] == b["applies"] == 32,
+          "the drained async runs differ: %s / %s" % (
+              [(p["loss"], p["auc"]) for p in a["passes"]],
+              [(p["loss"], p["auc"]) for p in b["passes"]]))
+    log("async drained runs: losses, AUC, slab sha256 and table bit-identical "
+        "over two runs, 32 applies of one grad each")
+    out["auc_vs_main"] = out["async"]["passes"][1]["auc"] - float(
+        FLAGSHIP_DIGITS["auc"][1])
+    check(abs(out["auc_vs_main"]) <= ASYNC_AUC_BAND,
+          "async AUC %.10f, main path %s: outside the band %g"
+          % (out["async"]["passes"][1]["auc"], FLAGSHIP_DIGITS["auc"][1],
+             ASYNC_AUC_BAND))
+    log("async: second-pass AUC %.10f, main path %s (difference %+.6f, band "
+        "%g); steps seconds by pass, async %s, drained %s and %s, FLAGSHIP "
+        "at scan_chunk=1 %s; %s"
+        % (out["async"]["passes"][1]["auc"], FLAGSHIP_DIGITS["auc"][1],
+           out["auc_vs_main"], ASYNC_AUC_BAND,
+           [round(p["steps_s"], 4) for p in out["async"]["passes"]],
+           [round(p["steps_s"], 4) for p in a["passes"]],
+           [round(p["steps_s"], 4) for p in b["passes"]],
+           [round(p["steps_s"], 4) for p in out["scan_chunk_1"]["passes"]],
+           card_line()))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4099,6 +4502,12 @@ def main() -> int:
         wires = wires_phase(torch, files, feed, reset_counts, counts)
         clock.lap("wires")
 
+        # 19. the SSD tier (FLAGSHIP_SSD over the cadence, against the
+        # untiered full rebuild) and the async dense table (FLAGSHIP_ASYNC)
+        tier = tier_phase(torch, windows, feed, tmp, reset_counts, counts)
+        async_dense = async_runs(torch, files, feed, reset_counts, counts)
+        clock.lap("tier_async")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -4173,7 +4582,12 @@ def main() -> int:
                                  r["launches"]
                                  for n, r in wires["runs"].items()},
                               **{"wires_sync_" + n: r["launches"]
-                                 for n, r in wires["sync"].items()}},
+                                 for n, r in wires["sync"].items()},
+                              **{"tier_" + n: c
+                                 for n, c in tier["launches"].items()},
+                              **{"async_" + n: async_dense[n]["launches"]
+                                 for n in ("async", "scan_chunk_1",
+                                           "drained_0", "drained_1")}},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

@@ -50,7 +50,7 @@ import statistics
 import tempfile
 import sys
 import time
-from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
 # run by path with --tree, this file imports nothing but the standard
 # library before probe_tree has put the tree on sys.path: torch and the
@@ -103,13 +103,16 @@ class GcClock:
 
 def run_cadence(mode: str, windows: List[List[str]], feed: DataFeedConfig,
                 cfg: Optional[Flagship] = None,
-                device: DeviceLike = None) -> Tuple[BoxTrainer, Dict]:
+                device: DeviceLike = None,
+                on_pass: Optional[Callable[[BoxTrainer, Dict], None]] = None
+                ) -> Tuple[BoxTrainer, Dict]:
     """Settle, build the flagship trainer (seed 0; ``cfg`` defaults to
     FLAGSHIP) with ``mode``'s flags and train one pass over each of
     ``windows``. Returns (the trainer, {"mode", "label", "host_tier",
     "collected", "wall_s", "passes": one record a pass}); wall_s runs from
     the first pass's start to the last pass's end, the device
-    synchronised."""
+    synchronised. ``on_pass(trainer, record)``, when given, runs after
+    each pass's record is made (inside the wall) and may add to it."""
     import torch
 
     from paddlebox_tpu_torch.config.flags import PassFlags
@@ -142,6 +145,8 @@ def run_cadence(mode: str, windows: List[List[str]], feed: DataFeedConfig,
             "examples_per_s": res["instances"] / sum(times.values())})
         before[:] = [dict(table.counters), dict(table.seconds),
                      clock.seconds]
+        if on_pass is not None:
+            on_pass(trainer, passes[-1])
 
     datasets = []
     for files in windows:

@@ -9,7 +9,7 @@ that read them.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +52,14 @@ class TableConfig:
     ``expand_embed_dim`` > 0 gives every row a second embedding block, the
     NN-cross features of pull_box_extended_sparse (BoxPS GetInsEx(
     embedx_dim, expand_embed_dim)); only adagrad and naive tables take
-    one."""
+    one.
+
+    The host/SSD tiering (reference configs.py:73-86): rows beyond
+    ``ssd_threshold_mb`` of host store spill to block files in ``ssd_dir``
+    at the end of a pass (embedding/ssd_tier.py); with either unset
+    nothing spills. ``host_shard_bits`` is accepted and read by nothing,
+    as in the reference (the striped store's stripe count is
+    PassFlags.host_store_stripes)."""
 
     embedx_dim: int = 8
     expand_embed_dim: int = 0
@@ -65,6 +72,18 @@ class TableConfig:
     delta_keep_days: float = 16.0
     optimizer: SparseOptimizerConfig = dataclasses.field(
         default_factory=SparseOptimizerConfig)
+    host_shard_bits: int = 6
+    ssd_dir: Optional[str] = None
+    ssd_threshold_mb: float = 0
+
+    def ssd_max_resident_rows(self, row_width: int) -> Optional[int]:
+        """The host store's row budget of the pass-end limiter
+        (CheckNeedLimitMem, box_wrapper.h:627-629) for rows of
+        ``row_width`` f32 columns; None (no limit) without ``ssd_dir`` and
+        ``ssd_threshold_mb``. Fractional budgets are honoured."""
+        if not self.ssd_dir or not self.ssd_threshold_mb:
+            return None
+        return int(self.ssd_threshold_mb * (1 << 20)) // (row_width * 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +142,10 @@ class CheckpointConfig:
     async_save: bool = True
 
 
+# TrainerConfig.sync_mode (reference configs.py:168)
+SYNC_MODES = ("step", "k_step", "async", "sharding")
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     """The trainer's settings: the dense optimizer at dense_lr, and the
@@ -152,8 +175,14 @@ class TrainerConfig:
     sparse_chunk_sync: bool = False
     compute_dtype: str = "float32"
     dense_optimizer: str = "adam"
+    sync_mode: str = "step"
+    async_mode: bool = False
+    sharding: bool = False
 
     def __post_init__(self):
+        if self.sync_mode not in SYNC_MODES:
+            raise ValueError("sync_mode must be one of %s, got %r"
+                             % (SYNC_MODES, self.sync_mode))
         if self.dense_optimizer not in ("adam", "sgd", "adagrad"):
             raise ValueError("dense_optimizer must be adam, sgd or adagrad, "
                              "got %r" % (self.dense_optimizer,))

@@ -4,8 +4,9 @@ trainer's host planes (telemetry, quality, drift).
 
 The JAX package keeps these in a process-wide flag registry
 (paddlebox_tpu/config/flags.py: ``push_write``, ``push_block_rows``,
-``incremental_pass``, ``preload_promote``, ``stack_threads``,
-``chunk_prefetch_depth``, ``h2d_stack_chunks``, ``h2d_lean``,
+``incremental_pass``, ``preload_promote``, ``host_store_stripes``,
+``stack_threads``, ``chunk_prefetch_depth``, ``h2d_stack_chunks``,
+``h2d_lean``,
 ``h2d_uid_wire``, ``wire_delta_ids``, ``ckpt_*``,
 ``slab_embed_dtype``, ``matmul_dtype``, ``obs_*``, ``quality_*``,
 ``data_quality*``). The port passes
@@ -118,10 +119,23 @@ class PassFlags:
     pass trains, run_preloaded_passes' prefetcher reads the next pass's
     non-resident rows that the host store already holds; it is read only
     there, and only with incremental_pass (a pass trained on its own has
-    no next pass loading). Both default on, as in the JAX package."""
+    no next pass loading). Both default on, as in the JAX package.
+
+    host_store_stripes (paddlebox_tpu/config/flags.py:612-622, read by
+    native_store.make_host_store when the table makes its store): shard
+    the host embedding store's hash index into N stripes
+    (embedding/striped_store.py): keys route by splitmix64(key) mod N,
+    each stripe owns an independent inner store (+ rng seeded
+    seed+stripe) so lookups gather per-stripe in parallel threads and the
+    single global index stops being the billion-key bottleneck. 0
+    (default) = the flat single-index store, bit-compatible with every
+    existing checkpoint/journal; striped stores draw a DIFFERENT init
+    stream (per-stripe rngs), so flip it only on fresh runs or
+    restored-from-checkpoint runs."""
 
     incremental_pass: bool = True
     preload_promote: bool = True
+    host_store_stripes: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

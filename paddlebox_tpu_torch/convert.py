@@ -27,11 +27,20 @@ parameter (both start at zero with count 0); adagrad's
 ``{"sum_of_squares": {name: array}}`` (train/dense_optim.py's OptaxAdagrad,
 every accumulator starting at ADAGRAD_INITIAL_ACC, 0.1, as optax's does);
 sgd's ``{}`` (optax.sgd keeps no state).
+
+The async dense table (train/async_dense.py) keeps the dense state as one
+flat f32 vector in the order of ``jax.flatten_util.ravel_pytree`` over the
+JAX params dict: keys sorted at every level (a nested dict, ``cross`` or
+``dn_summary``, in its place among them), each leaf in C order at its JAX
+shape. ``flat_names`` gives the module's tensors in that order,
+``flatten_params`` the vector and ``unflatten_params`` writes one back;
+the vector carries the buffers (data_norm's summaries, CtrDnnAux's
+aux_rows) as the reference's carries those leaves.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -87,6 +96,58 @@ def params_to_numpy(model: torch.nn.Module) -> Dict[str, object]:
     it."""
     return _nest({name: p.detach().cpu().numpy().astype(np.float32)
                   for name, p in dense_state(model)})
+
+
+def flat_names(model: torch.nn.Module) -> List[str]:
+    """The names of the model's parameters and buffers in the order
+    ravel_pytree flattens the JAX params dict (keys sorted at every level,
+    a NESTED_PARAMS dict's keys in its place)."""
+    nested = _nest({name: name for name, _ in dense_state(model)})
+    out: List[str] = []
+
+    def walk(tree: Mapping) -> None:
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, Mapping):
+                walk(v)
+            else:
+                out.append(v)
+
+    walk(nested)
+    return out
+
+
+def flatten_params(model: torch.nn.Module) -> np.ndarray:
+    """The model's parameters and buffers as one f32 numpy vector in
+    ``flat_names`` order: ravel_pytree of the JAX params dict (one copy
+    to the host)."""
+    tensors = dict(dense_state(model))
+    with torch.no_grad():
+        flat = torch.cat([tensors[n].detach().reshape(-1).float()
+                          for n in flat_names(model)])
+    return flat.cpu().numpy()
+
+
+def unflatten_params(model: torch.nn.Module,
+                     flat: Union[np.ndarray, torch.Tensor],
+                     names: Optional[Sequence[str]] = None) -> None:
+    """Write ``flatten_params``' vector back into the model's tensors, in
+    place (one copy to their device); ``names``: only these tensors, the
+    others left as they are."""
+    tensors = dict(dense_state(model))
+    order = flat_names(model)
+    sizes = [tensors[n].numel() for n in order]
+    if int(np.prod(np.shape(flat))) != sum(sizes):
+        raise ValueError("a flat vector of %d values for %d dense values"
+                         % (int(np.prod(np.shape(flat))), sum(sizes)))
+    first = tensors[order[0]]
+    src = torch.as_tensor(flat).to(first.device, torch.float32).reshape(-1)
+    want = set(order if names is None else names)
+    with torch.no_grad():
+        for name, part in zip(order, torch.split(src, sizes)):
+            if name in want:
+                t = tensors[name]
+                t.copy_(part.view(t.shape))
 
 
 def slab_from_jax(slab) -> torch.Tensor:

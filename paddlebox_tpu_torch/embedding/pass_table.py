@@ -69,6 +69,15 @@ the next train pass builds in full. The day boundary's store changes
 (shrink, aging, a load) go around the pass cadence, so each first drops the
 residency.
 
+The SSD tier (TableConfig.ssd_dir and ssd_threshold_mb; reference
+pass_table.py:659, 714-735, 847-901): every end_pass ends with
+``check_need_limit_mem``, which spills the host store's coldest rows down
+to its row budget under store_lock and, where it spilled, drops the
+residency, so the next begin_pass builds in full and the rows it needs
+fault back in from the tier. ``end_day(age=False)`` ticks the tier's day
+clock, shrink sweeps it, and ``load_ssd_to_mem`` brings every spilled row
+back.
+
 With a touched-row journal attached (``attach_journal``; the checkpoint
 manager attaches one under ckpt_journal), every train pass records the rows
 it hands to the store: a delta promote's misses (which lookup_or_create may
@@ -317,7 +326,8 @@ class PassTable:
                                   embed_dtype=embed_dtype)
         self.push_layout = PushLayout.of(self.layout)
         self.store = (store if store is not None
-                      else make_host_store(self.layout, table, seed))
+                      else make_host_store(self.layout, table, seed,
+                                           self.flags.host_store_stripes))
         self.store_lock = threading.Lock()
         self.capacity = int(table.pass_capacity)
         self._feed_keys: List[np.ndarray] = []
@@ -342,18 +352,22 @@ class PassTable:
         self._test_mode = False
         self.counters: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
         # host-clock seconds in begin_pass and end_pass (the reference's
-        # build and end timers); begin_pass returns before the device work
-        # it queues has run
-        self.seconds: Dict[str, float] = {"begin_pass": 0.0, "end_pass": 0.0}
+        # build and end timers; begin_pass returns before the device work
+        # it queues has run), and of end_pass the SSD tier's spill
+        self.seconds: Dict[str, float] = {"begin_pass": 0.0, "end_pass": 0.0,
+                                          "spill": 0.0}
         # the touched-row journal (train/journal.py), when one is attached
         self._journal = None
 
     # --------------------------------------------------------------- journal
     def attach_journal(self, journal) -> None:
         """Attach a train.journal.TouchedRowJournal (None detaches): the
-        pass records its store rows, the day boundary its events. The
-        port's stores have no SSD tier, so no MOVE sink is installed."""
+        pass records its store rows, the day boundary its events, and the
+        store's SSD-tier moves (spill, fault-in) their MOVE records
+        through the sink installed here."""
         self._journal = journal
+        self.store.set_journal_sink(None if journal is None
+                                    else journal.append_move)
 
     def _journal_rows(self, keys: np.ndarray, rows: np.ndarray) -> None:
         if self._journal is not None and not self._test_mode:
@@ -570,9 +584,30 @@ class PassTable:
         self._touched = None
         self._residency_poisoned = False
         self._in_pass = False
+        t_spill = time.perf_counter()
+        self.check_need_limit_mem()
         t1 = time.perf_counter()
+        self.seconds["spill"] += t1 - t_spill
         record_span("pass_end", t0, t1)
         self.seconds["end_pass"] += t1 - t0
+
+    def check_need_limit_mem(self) -> int:
+        """The pass-end memory limiter (CheckNeedLimitMem /
+        ShrinkResource, box_wrapper.h:627-629): where the host store holds
+        more rows than ``TableConfig.ssd_max_resident_rows`` allows, spill
+        the coldest down to it, under ``store_lock`` (the promote
+        prefetcher must not see a spill half done); a spill drops the
+        residency, so the next begin_pass builds in full. No-op without
+        ``ssd_dir`` and ``ssd_threshold_mb``. Returns the rows
+        spilled."""
+        max_resident = self.config.ssd_max_resident_rows(self.layout.width)
+        if max_resident is None:
+            return 0
+        with self.store_lock:
+            n = self.store.spill(max_resident)
+        if n:
+            self.invalidate_residency()
+        return n
 
     def invalidate_residency(self) -> None:
         """Drop the resident state (slab, its key map, staged rows). Call it
@@ -689,19 +724,21 @@ class PassTable:
 
     def end_day(self, age: bool = True) -> int:
         """The day boundary: age every feature's unseen_days (shrink's
-        delete_after_unseen_days rule reads it), then shrink. Returns the
-        rows deleted. age=False where CheckpointManager.save_base already
-        aged the rows at this boundary (aging twice a day would halve every
-        feature's lifetime). At age=False the journal records the SSD
-        tier's day tick, as the reference records it: the port's stores
-        have no tier, so the tick changes no row and replays as a
-        no-op."""
+        delete_after_unseen_days rule reads it; the SSD tier's rows by its
+        day clock), then shrink. Returns the rows deleted. age=False where
+        CheckpointManager.save_base already aged the resident rows at this
+        boundary (aging twice a day would halve every feature's lifetime):
+        then only the tier's day clock ticks, since the save's rewrite
+        touches resident rows only. Each event is journaled inside the
+        store_lock hold, so that a prefetcher's fault-in journals before
+        or after it as it happened."""
         self.invalidate_residency()
         with self.store_lock:
             if age:
                 self.store.age_unseen_days()
                 self._journal_event(EV_AGE_DAYS)
             else:
+                self.store.tick_spill_age()
                 self._journal_event(EV_TICK_SPILL_AGE)
         return self.shrink_table()
 
@@ -721,7 +758,10 @@ class PassTable:
             self.store.load(path, threads)
 
     def load_ssd_to_mem(self) -> int:
-        """LoadSSD2Mem (box_wrapper.cc:1319): the port's stores have no SSD
-        tier, so no row is spilled, none is promoted and the store is
-        unchanged. Returns 0."""
-        return 0
+        """LoadSSD2Mem (box_wrapper.cc:1319): fault every row of the SSD
+        tier back into the host store (with its missed days applied), the
+        warm-up after a load before the day's first pass. Drops the
+        residency. Returns the rows moved."""
+        self.invalidate_residency()
+        with self.store_lock:
+            return self.store.load_spilled()

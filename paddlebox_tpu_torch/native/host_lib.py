@@ -126,6 +126,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hs_erase.argtypes = [p, U64P, c.c_int64]
     lib.hs_add_col.restype = c.c_int64
     lib.hs_add_col.argtypes = [p, c.c_int32, c.c_float]
+    lib.hs_coldest.restype = c.c_int64
+    lib.hs_coldest.argtypes = [p, c.c_int64, c.c_int32, U64P, I64P]
 
     lib.rt_index_create.restype = p
     lib.rt_index_create.argtypes = [U64P, I64P, c.c_int32]

@@ -8,8 +8,9 @@ Counterpart of paddlebox_tpu/train/checkpoint.py (CheckpointManager
 dense Adam state), for resume; an **xbox model** is the serving view (per
 key: embed_w and embedx). save_delta writes the features whose delta score
 crossed delta_threshold since the last save and then clears those scores
-(UpdateStatAfterSave param 1); save_base writes everything and also ages
-every row (param 3). Both rewrite store rows outside the pass cadence, so
+(UpdateStatAfterSave param 1); save_base writes everything, the SSD tier's
+rows at their effective values included, and also ages every resident row
+(param 3; the tier's rows age by its day clock). Both rewrite store rows outside the pass cadence, so
 both drop the table's residency.
 
 A day directory holds, for day ``d``:
@@ -257,13 +258,27 @@ class CheckpointManager:
         os.makedirs(xbox_dir, exist_ok=True)
         with self.table.store_lock:
             keys, values = self.store.state_items()  # a copy
+            # the SSD tier's rows, at their effective values: a base covers
+            # them (a load empties the tier); the stat rewrite below
+            # touches resident rows only, as in the reference
+            skeys, svals = self.store.spilled_snapshot()
+            if skeys.size:
+                keys = np.concatenate([keys, skeys])
+                values = np.vstack([values, svals])
             # the new epoch starts at this snapshot, before the stat
             # rewrite below; its parts exist once the writer is done, and
-            # every save and load waits for it first
+            # every save and load waits for it first. The base holds the
+            # tier's rows as resident ones, so the epoch opens by spilling
+            # them again (a replay re-spills them from the loaded base), and
+            # the live tier pins a span boundary of its lazy aging here:
+            # from now on the live and the replayed tier apply the same
+            # missed-day spans
             sparse_path, n_parts, part_paths = self._plan_sparse(
                 batch_dir, int(keys.size))
             if self.journal is not None:
                 self.journal.anchor_full(part_paths)
+                self.journal.append_move(jr.MV_SPILL, skeys)
+            self.store.rebase_spill_ages()
         xbox_blob = self._xbox_view(keys, values, base=True)
         meta = self._meta()
         self._stat_after_save(base=True)
@@ -501,6 +516,8 @@ class CheckpointManager:
         self._invalidate_residency()
         with self.table.store_lock:
             self.store.load_blob(sparse)
+        # load_blob emptied the SSD tier (the base holds its rows), so the
+        # anchor starts with nothing spilled
         if self.journal is not None:
             parts, segs = self._artifact_refs(batch_dir)
             self.journal.anchor_full(parts, segments=segs)

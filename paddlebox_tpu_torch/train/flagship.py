@@ -63,6 +63,13 @@ are FLAGSHIP's DeepFM main path with the dense optimizer sgd or adagrad
 (TrainerConfig.dense_optimizer), on the main path's files and chunk
 driver.
 
+``FLAGSHIP_SSD`` is FLAGSHIP with the SSD tier: a 16 MiB host budget
+(``ssd_threshold_mb``; 246,723 rows of 68 B) against the cadence's 557,083
+pass keys, so every end_pass spills about 310,000 rows to block files in
+the run's ``ssd_dir`` (``dataclasses.replace``); ``FLAGSHIP_ASYNC`` is
+FLAGSHIP with the host async dense table (``sync_mode="async"``), which
+steps one batch at a time.
+
 chip_smoke.py drives
 its main path from here, profile_pass.py profiles the same pass, and
 rate_probe.py gathers at the pull's shape from one of its batches
@@ -84,7 +91,7 @@ window. cadence_probe.py holds its run modes.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -146,6 +153,12 @@ class Flagship:
     # the behavior sequence: slot 0's key bound in the files and BST's
     # history length (0: every slot is bounded by max_len)
     seq_len: int = 0
+    # the SSD tier: its directory (set by the run, a temporary one) and the
+    # host store's budget in MiB (TableConfig.ssd_threshold_mb)
+    ssd_dir: Optional[str] = None
+    ssd_threshold_mb: float = 0
+    # the dense sync (TrainerConfig.sync_mode; "async": the host table)
+    sync_mode: str = "step"
 
     def table(self) -> TableConfig:
         return TableConfig(embedx_dim=self.embedx,
@@ -154,7 +167,9 @@ class Flagship:
                            optimizer=SparseOptimizerConfig(
                                mf_create_thresholds=0.0,
                                mf_initial_range=1e-3,
-                               optimizer=self.optimizer))
+                               optimizer=self.optimizer),
+                           ssd_dir=self.ssd_dir,
+                           ssd_threshold_mb=self.ssd_threshold_mb)
 
     def layout(self) -> ValueLayout:
         return ValueLayout(self.embedx, self.optimizer, self.expand_dim,
@@ -223,6 +238,10 @@ FLAGSHIP_BST = dataclasses.replace(FLAGSHIP, model="bst_seq_ctr",
                                    hidden=(64, 32), seq_len=20)
 SEQ_SLOT = 0
 # the join phase's record-path feeds
+# the SSD tier: a 16 MiB host budget, 246,723 rows of 68 B against the
+# cadence's 557,083 pass keys (the run gives ssd_dir)
+FLAGSHIP_SSD = dataclasses.replace(FLAGSHIP, ssd_threshold_mb=16)
+FLAGSHIP_ASYNC = dataclasses.replace(FLAGSHIP, sync_mode="async")
 FLAGSHIP_JOIN_PV = dataclasses.replace(FLAGSHIP, model="join_pv_dnn")
 FLAGSHIP_AUX = dataclasses.replace(FLAGSHIP, model="ctr_dnn_aux",
                                    ins_id_vocab=4096, aux_dim=8)
@@ -478,6 +497,7 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
                          TrainerConfig(dense_lr=DENSE_LR,
                                        compute_dtype=cfg.compute_dtype,
                                        dense_optimizer=cfg.dense_optimizer,
+                                       sync_mode=cfg.sync_mode,
                                        **trainer_fields),
                          seed=seed, flags=PushFlags(push_write, BLOCK_ROWS),
                          device=device, pass_flags=pass_flags,

@@ -23,19 +23,20 @@ What makes replay bit-exact, and when it refuses:
   * EVENT records cover ``update_stat_after_save`` (params 1 and 3),
     ``age_unseen_days`` and ``shrink``: deterministic functions of the
     rows and the table config, replayed through the same accessor code;
+  * MOVE records carry the exact keys that crossed between the resident
+    rows and the SSD tier (``append_move``, the store's journal sink): a
+    replay runs the same spill (``spill_exact``) and fault-in
+    (``fault_in_keys``) cadence on its scratch store's memory-mode tier,
+    so every stat rewrite, shrink and aging event sees the resident set
+    the live store saw; EV_TICK_SPILL_AGE is the tier's own day tick
+    (``tick_spill_age``). A full save's anchor opens the epoch with one
+    MV_SPILL of every spilled key;
   * the epoch is TAINTED (touched saves fall back to full, loudly, and
     replay refuses) by segment loss to the rotation bound and by a store
     load that bypasses the checkpoint plane.
 
-Not ported: the SSD tier's MOVE records (the port's stores have no tier;
-the port writes none, and its replay of a segment that holds one raises
-JournalIncompleteError), and ``publish`` with its watermark records (the
-streaming runner's; replay skips watermarks as the reference does). The
-tier's day tick, EV_TICK_SPILL_AGE, is written at ``end_day(age=False)`` as
-the reference writes it and replays as a no-op: without tier rows it only
-advances the tier's epoch, and a tier row in an epoch shows as a MOVE
-record (a full save's anchor opens the epoch with MV_SPILL of every spilled
-key), which replay refuses.
+Not ported: ``publish`` with its watermark records (the streaming
+runner's; replay skips watermarks as the reference does).
 
 Records are flushed per append (a killed process leaves a parseable
 prefix); segments fsync when sealed. Appends come from the trainer's
@@ -46,6 +47,7 @@ the snapshot that names the sealed file.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import struct
@@ -58,16 +60,13 @@ from paddlebox_tpu_torch.config.flags import CkptFlags
 from paddlebox_tpu_torch.utils.journal_format import (
     EV_AGE_DAYS, EV_SHRINK, EV_STAT_SAVE_AGE, EV_STAT_SAVE_DELTA, EV_TAINT,
     EV_TICK_SPILL_AGE, FRAME, KIND_EVENT, KIND_HEADER, KIND_MOVE, KIND_ROWS,
-    KIND_WATERMARK, SEG_MAGIC, decode_rows_payload, iter_segment)
-
-_NO_TIER = ("the port's stores have no SSD tier, so its journal cannot "
-            "replay the tier's MOVE records (ROADMAP.md A11)")
+    KIND_WATERMARK, MOVE_HEAD, MV_FAULT_IN, MV_SPILL, SEG_MAGIC,
+    decode_rows_payload, iter_segment)
 
 
 class JournalIncompleteError(RuntimeError):
     """Replay or a snapshot refused: the journal cannot reconstruct the
-    store (a tainted epoch, dropped segments, no base anchor, or a record
-    of the SSD tier)."""
+    store (a tainted epoch, dropped segments, or no base anchor)."""
 
 
 def apply_stat_after_save(store, table_cfg, param: int) -> None:
@@ -86,8 +85,9 @@ def apply_stat_after_save(store, table_cfg, param: int) -> None:
 
 def replay_record(store, table_cfg, kind: int, payload: bytes) -> None:
     """Apply one journal record to a store (the assign / state_items /
-    write_back / age_unseen_days / shrink protocol). Kinds replay does not
-    know (the watermark) apply nothing."""
+    write_back / age_unseen_days / shrink / tick_spill_age / spill_exact /
+    fault_in_keys protocol). Kinds replay does not know (the watermark)
+    apply nothing."""
     if kind == KIND_ROWS:
         keys, vals = decode_rows_payload(payload)
         store.assign(keys, vals)
@@ -100,7 +100,7 @@ def replay_record(store, table_cfg, kind: int, payload: bytes) -> None:
         elif code == EV_SHRINK:
             store.shrink()
         elif code == EV_TICK_SPILL_AGE:
-            pass  # the tier's day tick: nothing to age on a tier-less store
+            store.tick_spill_age()
         elif code == EV_TAINT:
             raise JournalIncompleteError(
                 "journal epoch tainted (a store mutation outside the "
@@ -109,14 +109,20 @@ def replay_record(store, table_cfg, kind: int, payload: bytes) -> None:
         else:
             raise ValueError(f"unknown journal event code {code}")
     elif kind == KIND_MOVE:
-        raise JournalIncompleteError(_NO_TIER)
+        op, _pad, n = MOVE_HEAD.unpack_from(payload)
+        keys = np.frombuffer(payload, np.uint64, n, MOVE_HEAD.size)
+        if op == MV_SPILL:
+            store.spill_exact(keys)
+        elif op == MV_FAULT_IN:
+            store.fault_in_keys(keys)
+        else:
+            raise ValueError(f"unknown journal move op {op}")
 
 
 def replay_segments(store, table_cfg, segment_paths,
                     expect_width: Optional[int] = None) -> int:
     """Apply segments in order onto ``store``; returns the records applied.
-    Raises JournalIncompleteError on a taint or a record of the SSD
-    tier."""
+    Raises JournalIncompleteError on a taint."""
     applied = 0
     for path in segment_paths:
         for kind, payload in iter_segment(path):
@@ -138,14 +144,23 @@ def reconstruct_blob(base_blob: Dict, segment_paths, layout,
                      table_cfg) -> Dict:
     """base blob + journal segments -> the blob a full save at the
     journal's head would have written (in another row order: compare as
-    key -> row maps). Replays onto a scratch plain store, so every event
-    runs the accessor code the live store ran; no creation draw is made
-    (the base install and the ROWS upserts are verbatim assigns)."""
+    key -> row maps), resident and tier rows. Replays onto a scratch plain
+    store, so every event runs the accessor code the live store ran; no
+    creation draw is made (the base install and the ROWS upserts are
+    verbatim assigns). The scratch store's tier is in memory (its
+    ``ssd_dir`` stripped): replay never writes into, or reads, the live
+    store's spill directory."""
     from paddlebox_tpu_torch.embedding.host_store import HostEmbeddingStore
-    st = HostEmbeddingStore(layout, table_cfg)
+    scratch_cfg = dataclasses.replace(table_cfg, ssd_dir=None)
+    st = HostEmbeddingStore(layout, scratch_cfg)
     st.load_blob(base_blob)
-    replay_segments(st, table_cfg, segment_paths, expect_width=layout.width)
+    replay_segments(st, scratch_cfg, segment_paths,
+                    expect_width=layout.width)
     keys, values = st.state_items()
+    skeys, svalues = st.spilled_snapshot()
+    if skeys.size:
+        keys = np.concatenate([keys, skeys])
+        values = np.vstack([values, svalues])
     return {"keys": keys, "values": values,
             "embedx_dim": layout.embedx_dim, "optimizer": layout.optimizer}
 
@@ -259,6 +274,18 @@ class TouchedRowJournal:
     def append_event(self, code: int) -> None:
         with self._lock:
             self._append_locked(KIND_EVENT, struct.pack("<I", code))
+
+    def append_move(self, op: int, keys: np.ndarray) -> None:
+        """One move between the resident rows and the SSD tier (MV_SPILL,
+        MV_FAULT_IN) with the exact keys that crossed: the store's journal
+        sink, called where the move happens, so that records keep the
+        order of the mutations."""
+        keys = np.ascontiguousarray(keys, np.uint64)
+        if keys.size == 0:
+            return
+        head = MOVE_HEAD.pack(op, 0, keys.size)
+        with self._lock:
+            self._append_locked(KIND_MOVE, head + keys.tobytes())
 
     def taint(self, reason: str) -> None:
         """Mark the epoch unsound (a store load outside the checkpoint

@@ -10,8 +10,11 @@ whose cost follows the rows the passes touched. Snapshots are
 self-contained (links), so pruning to ``keep_last`` passes stays safe. A
 restarted job makes a fresh trainer and runner over the same directories;
 ``run`` resumes after the newest completed pass, and the checkpoint
-carries the trainer's random streams (BoxTrainer.random_state), so the
-resumed run is bit-identical to one that never stopped.
+carries the trainer's random streams (BoxTrainer.random_state), and in
+async mode the host dense table's state (``async_dense_state``, reference
+recovery.py:87-96, 140-143), so the resumed run is bit-identical to one
+that never stopped (in async mode, where the table's bursts repeat: each
+push drained before the next).
 
 ``elastic`` is any object with ``check()``, called at every pass boundary
 (the reference's fleet.elastic.ElasticManager raises DeadRankError there);
@@ -81,6 +84,14 @@ class RecoverableRunner:
         # days then differ from a run that never stopped
         self.ckpt.replay_base_rewrite()
         self.trainer.restore_dense(params, opt_state)
+        if getattr(self.trainer, "async_table", None) is not None:
+            # async mode reads its dense state from the host table, not
+            # from params: a resume that skipped it would diverge
+            state = extra.get("async_dense_state")
+            if state is None:
+                raise ValueError("checkpoint has no async dense state but "
+                                 "the trainer runs in async mode")
+            self.trainer.load_async_state(state)
         self.trainer.set_random_state(extra)
         return done
 
@@ -110,6 +121,10 @@ class RecoverableRunner:
             stats.append(self.trainer.train_pass(ds))
             extra = {"completed_passes": i + 1,
                      **self.trainer.random_state()}
+            table = getattr(self.trainer, "async_table", None)
+            if table is not None:
+                table.wait_drained()
+                extra["async_dense_state"] = table.state()
             self.ckpt.save_base(self.trainer.params, self.trainer.opt_state,
                                 day=os.path.join(self.day, f"pass-{i}"),
                                 extra=extra, mode="auto")

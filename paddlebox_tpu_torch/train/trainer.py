@@ -89,7 +89,15 @@ chunk is one pull, one seqpool over the chunk's C * batch instances, the
 dense step per batch, and one merged push (``make_chunk_step``).
 
 The dense step is TrainerConfig.dense_optimizer's: optax's adam (the
-default), sgd or adagrad (train/dense_optim.py).
+default), sgd or adagrad (train/dense_optim.py). Under
+``TrainerConfig(sync_mode="async")`` (or ``async_mode``; reference
+trainer.py:945-981, 1339-1385) the dense state lives in the host
+AsyncDenseTable (train/async_dense.py, adam only): a pass steps one batch
+at a time with no chunk driver, each step copies the table's parameters
+into the module, runs the step with no dense update (``make_train_step(...,
+async_dense=True)``: the sparse push runs on the card) and queues its flat
+dense grad, copied to the host, for the table's thread; the pass end waits
+for the thread and copies the table's parameters into the module.
 
 Every push takes an int32 seed for the creation hash. The trainer draws it
 from its own ``torch.Generator(seed)`` through ``seed_fn``, on the thread
@@ -139,8 +147,10 @@ from paddlebox_tpu_torch.config.configs import (DataFeedConfig, TableConfig,
 from paddlebox_tpu_torch.config.flags import (DtypeFlags, ObsFlags,
                                               PassFlags, PushFlags,
                                               StageFlags)
-from paddlebox_tpu_torch.convert import (dense_state, params_from_jax,
-                                         params_to_numpy)
+from paddlebox_tpu_torch.convert import (NESTED_PARAMS, dense_state,
+                                         flat_names, flatten_params,
+                                         params_from_jax, params_to_numpy,
+                                         unflatten_params)
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.packer import PackedBatch
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
@@ -164,6 +174,7 @@ from paddlebox_tpu_torch.ops.sparse import (build_push_grads,
                                             gather_slab_rows,
                                             pull_sparse_extended,
                                             pull_view_from_rows)
+from paddlebox_tpu_torch.train.async_dense import AsyncDenseTable
 from paddlebox_tpu_torch.train.dense_optim import (check_opt_state,
                                                    make_dense_optimizer,
                                                    opt_state_from_numpy,
@@ -427,7 +438,8 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
                     push_write: str = "scatter",
                     block_rows: int = 1024,
                     compute_dtype: str = "float32",
-                    wire: Callable[[], str] = lambda: "full") -> Callable:
+                    wire: Callable[[], str] = lambda: "full",
+                    async_dense: bool = False) -> Callable:
     """step(slab, batch, seed) -> (loss, preds), device tensors. Updates
     ``slab`` and the model's parameters IN PLACE. ``batch`` is a
     device_batch dict; its push products pick the push (``sparse_push``,
@@ -435,7 +447,14 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
     (models/nn_cross.py) gets the extended pull: its expand block
     sum-pooled beside the pull view, its gradient pushed after the embedx
     grads (check_expand_config holds the model and the table to each
-    other)."""
+    other).
+
+    ``async_dense`` (the reference's step_async, trainer.py:855-881):
+    step(slab, batch, seed) -> (loss, preds, flat dense grad [P] on the
+    device, in convert.flat_names order); no dense step runs, the sparse
+    push does. Under data_norm the summaries move as in the sync step and
+    their entries of the grad are that move, new minus old (the async
+    table adds them raw). Other buffers' entries are zero."""
     padding_id = table.pass_capacity - 1
     use_expand = uses_expand(model)
     check_expand_config(model, layout, use_expand)
@@ -444,6 +463,18 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
         raise ValueError("expand embedding + data_norm summary is not "
                          "supported in one model")
     main_task = task_names(model)[0]
+    names = flat_names(model)
+    tensors = dict(dense_state(model))
+    summary = [n for n in names if is_summary_name(n)]
+
+    def flat_grad(delta: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        parts = []
+        for n in names:
+            t = tensors[n]
+            g = delta.get(n, t.grad)
+            parts.append((torch.zeros_like(t) if g is None else g)
+                         .reshape(-1))
+        return torch.cat(parts)
 
     def step(slab: torch.Tensor, batch: Batch, seed: int):
         ids = batch["ids"]
@@ -465,9 +496,14 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
                                    pooled_exp)
         dense_opt.zero_grad(set_to_none=True)
         loss.backward()
-        dense_opt.step()
+        if not async_dense:
+            dense_opt.step()
+        delta: Dict[str, torch.Tensor] = {}
         if has_summary:
+            old = ({n: tensors[n].clone() for n in summary} if async_dense
+                   else {})
             model.update_summary(pooled.detach(), batch.get("dense"))
+            delta = {n: tensors[n] - was for n, was in old.items()}
         # per-key click = its instance's (main task's) label
         clicks = task_label(batch, main_task).index_select(
             0, segments // num_slots)
@@ -479,9 +515,29 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
                                           clicks, valid)
         sparse_push(slab, batch, ids, n_valid, push_grads, seed, layout,
                     table, push_write, block_rows, wire())
+        if async_dense:
+            return loss.detach(), _detach(preds), flat_grad(delta)
         return loss.detach(), _detach(preds)
 
     return step
+
+
+def is_summary_name(name: str) -> bool:
+    """Whether a dense tensor name is one of data_norm's summaries (the
+    JAX params' ``dn_summary`` leaves)."""
+    return any(name == "dn_summary_" + k for k in NESTED_PARAMS["dn_summary"])
+
+
+def summary_mask(model: torch.nn.Module) -> Optional[np.ndarray]:
+    """The flat bool mask of data_norm's summary entries in
+    convert.flatten_params' vector (the reference's _flat_summary_mask,
+    trainer.py:478-489), or None where the model has none."""
+    tensors = dict(dense_state(model))
+    names = flat_names(model)
+    if not any(is_summary_name(n) for n in names):
+        return None
+    return np.concatenate([np.full(tensors[n].numel(), is_summary_name(n))
+                           for n in names])
 
 
 def _detach(preds: Preds) -> Preds:
@@ -834,6 +890,19 @@ class BoxTrainer:
         if self.cfg.scan_chunk < 1:
             raise ValueError("scan_chunk must be >= 1, got %r"
                              % (self.cfg.scan_chunk,))
+        if self.cfg.sync_mode in ("k_step", "sharding") or self.cfg.sharding:
+            raise ValueError(
+                "sync_mode=%r / sharding=%r need the multi-device trainer"
+                % (self.cfg.sync_mode, self.cfg.sharding))
+        # the host async dense table (reference trainer.py:945-946)
+        self.async_mode = (self.cfg.async_mode
+                           or self.cfg.sync_mode == "async")
+        if self.async_mode and self.cfg.dense_optimizer != "adam":
+            raise ValueError("async dense table implements adam only; got "
+                             + self.cfg.dense_optimizer)
+        if self.async_mode and self.cfg.sparse_chunk_sync:
+            raise ValueError("sparse_chunk_sync is unsupported with async "
+                             "dense: it needs per-batch dense state")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 stays f32: no TF32 in matmuls or convolutions
@@ -886,7 +955,18 @@ class BoxTrainer:
             self.model, self.table.layout, table_cfg, self.dense_opt,
             feed.batch_size, self.num_slots, push_write=self.push_write,
             block_rows=self.flags.push_block_rows, compute_dtype=cdtype,
-            wire=wire)
+            wire=wire, async_dense=self.async_mode)
+        # async mode: the dense state lives in the host table; each step
+        # pulls the parameters and data_norm's summaries from it (the
+        # other buffers, CtrDnnAux's aux_rows, stay the trainer's)
+        self.async_table: Optional[AsyncDenseTable] = None
+        if self.async_mode:
+            params = dict(self.model.named_parameters())
+            self._pulled = [n for n in flat_names(self.model)
+                            if n in params or is_summary_name(n)]
+            self.async_table = AsyncDenseTable(
+                flatten_params(self.model), lr=self.cfg.dense_lr,
+                summary_mask=summary_mask(self.model))
         self.scan_steps = make_scan(self.step_fn)
         self.chunk_fn = (make_chunk_step(
             self.model, self.table.layout, table_cfg, self.dense_opt,
@@ -1126,8 +1206,11 @@ class BoxTrainer:
         return ring
 
     def close(self) -> None:
-        """Stop the staging pool, drop the pinned ring and close the
-        reporter's sink."""
+        """Stop the async dense table's thread and the staging pool, drop
+        the pinned ring and close the reporter's sink."""
+        if getattr(self, "async_table", None) is not None:
+            self.async_table.stop()
+            self.async_table = None
         self.reporter.close()
         pool = self._stage_pool[1]
         if pool is not None:
@@ -1207,6 +1290,11 @@ class BoxTrainer:
             set_trace(None)
         lap("steps")
         self.table.end_pass()
+        if self.async_table is not None:
+            # the pass end is a sync point: the queued grads applied, the
+            # module holds the table's parameters for eval and checkpoints
+            self.async_table.wait_drained()
+            self.pull_async_dense()
         mean_loss = 0.0
         if batches:
             loss_host = np.asarray(chunk_losses, np.float32)
@@ -1243,7 +1331,10 @@ class BoxTrainer:
         chunk-synchronous mode) or the pass is shorter than a chunk."""
         chunk = self.cfg.scan_chunk
         sync = self.cfg.sparse_chunk_sync
-        if not (chunk > 1 or sync) or len(batches) < chunk:
+        if (not (chunk > 1 or sync) or len(batches) < chunk
+                or self.async_table is not None):
+            # async mode steps one batch at a time, as the reference's
+            # (its scan_steps is None)
             return [], batches
         flags = self.stage_flags
         ring = self._staging_ring() if self.device.type == "cuda" else None
@@ -1300,10 +1391,32 @@ class BoxTrainer:
             batch = self.device_batch(b, ids)
         t_step = self.timers["step"]
         t_step.start()
-        loss, preds = self.step_fn(self.table.slab, batch, self.seed_fn())
+        if self.async_table is None:
+            loss, preds = self.step_fn(self.table.slab, batch,
+                                       self.seed_fn())
+        else:
+            # PullDense / PushDense around the step (boxps_worker.cc:
+            # 1278-1296): one copy of the table's parameters to the
+            # device, and one of the grad to the host, which waits for
+            # the step, as the reference's does
+            self.pull_async_dense()
+            loss, preds, flat_g = self.step_fn(self.table.slab, batch,
+                                               self.seed_fn())
+            self.async_table.push(flat_g.cpu().numpy())
         t_step.pause()
         self._step_count += 1
         return loss, preds
+
+    def pull_async_dense(self) -> None:
+        """Copy the async table's parameters (and data_norm's summaries)
+        into the module."""
+        unflatten_params(self.model, self.async_table.pull(), self._pulled)
+
+    def load_async_state(self, state: Mapping[str, object]) -> None:
+        """Restore the async table from its ``state()`` (a checkpoint's
+        ``async_dense_state``) and the module from it."""
+        self.async_table.load_state(state)
+        self.pull_async_dense()
 
     # ------------------------------------------------------------------ eval
     def eval_batch(self, b: PackedBatch) -> torch.Tensor:

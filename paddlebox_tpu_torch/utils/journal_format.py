@@ -15,9 +15,9 @@ append: a reader that hits a torn tail (a crash or a write in progress)
 sees a clean end of the segment, never garbage; re-reading later picks up
 the completed frames.
 
-The port writes no MOVE record (they journal the SSD tier's key moves,
-which the port does not have) and no watermark record (the streaming
-runner's publish); the codes stay here so that both parse.
+The port writes MOVE records (the SSD tier's key moves, train/journal.py
+``append_move``) as the reference does, and no watermark record (the
+streaming runner's publish); its code stays here so that both parse.
 """
 
 from __future__ import annotations

@@ -24,6 +24,8 @@ from paddlebox_tpu.config.configs import (CheckpointConfig as JCkptCfg,
                                           SparseOptimizerConfig as JSparse,
                                           TableConfig as JTable)
 from paddlebox_tpu.embedding.accessor import ValueLayout as JLayout
+from paddlebox_tpu.embedding.host_store import (
+    HostEmbeddingStore as JHostStore)
 from paddlebox_tpu.embedding.pass_table import PassTable as JPassTable
 from paddlebox_tpu.serving.refresh import JournalDeltaSource
 from paddlebox_tpu.serving.store import MmapViewStack
@@ -343,37 +345,102 @@ def test_cross_replay_bit_identical(tmp_path):
     assert_stores_equal(sorted_items(t.store), ref)
 
 
+def _union(store):
+    """(keys, rows) of a store's resident and SSD-tier rows (the tier's at
+    their effective values), sorted by key."""
+    keys, rows = store.state_items()
+    skeys, srows = store.spilled_snapshot()
+    return sorted_blob({"keys": np.concatenate([keys, skeys]),
+                        "values": np.vstack([rows, srows])})
+
+
 @pytest.mark.parametrize("record", ["move", "tick_spill_age", "taint"])
 def test_port_replay_refuses_what_it_cannot_reproduce(record, tmp_path):
-    """A reference segment holding an SSD-tier MOVE record or a taint: the
-    port's replay raises JournalIncompleteError; a watermark record is
-    skipped, as the reference skips it. The tier's day tick is no such
-    record: it replays as a no-op, and the rows after it apply."""
+    """A reference segment holding SSD-tier MOVE records (a spill, then a
+    fault-in of part of it) or the tier's day tick after a spill: the
+    port's replay gives the reference replay's store, resident and tier
+    rows bit for bit; a watermark record is skipped, as the reference
+    skips it. A taint is what the port cannot reproduce: its replay raises
+    JournalIncompleteError after the rows before it."""
     d = str(tmp_path / "j")
     j = jjr.TouchedRowJournal(d, JLayout(D), jtable_cfg())
     keys = np.arange(1, 33, dtype=np.uint64)
-    j.append_rows(keys, np.ones((32, JLayout(D).width), np.float32))
+    rows = rand_rows(np.random.RandomState(3), 32)
+    j.append_rows(keys, rows)
     with j._lock:
         j._append_locked(jf.KIND_WATERMARK,
                          jf.pack_watermark(1.0, 2.0, 3.0, 4))
-    if record == "move":
-        j.append_move(jjr.MV_SPILL, keys[:10])
-    elif record == "tick_spill_age":
-        j.append_event(jf.EV_TICK_SPILL_AGE)
-    else:
+    if record == "taint":
         j.taint("external load")
-    j.append_rows(keys + np.uint64(100),
-                  np.ones((32, JLayout(D).width), np.float32))
+    else:
+        j.append_move(jjr.MV_SPILL, keys[:10])
+        j.append_event(jf.EV_TICK_SPILL_AGE)
+        if record == "move":
+            j.append_move(jjr.MV_FAULT_IN, keys[2:6])
+    j.append_rows(keys + np.uint64(100), rows)
     j.close()
     st = HostEmbeddingStore(ValueLayout(D), table_cfg())
-    if record == "tick_spill_age":
-        assert jr.replay_segments(st, table_cfg(), _segments(d)) == 3
-        assert len(st) == 64       # the tick changed nothing, rows applied
+    if record == "taint":
+        with pytest.raises(jr.JournalIncompleteError, match="tainted"):
+            jr.replay_segments(st, table_cfg(), _segments(d))
+        assert len(st) == 32           # the rows before the record applied
         return
-    match = "tainted" if record == "taint" else "SSD tier"
-    with pytest.raises(jr.JournalIncompleteError, match=match):
-        jr.replay_segments(st, table_cfg(), _segments(d))
-    assert len(st) == 32           # the rows before the record applied
+    ref = JHostStore(JLayout(D), jtable_cfg())
+    n = jr.replay_segments(st, table_cfg(), _segments(d))
+    assert n == jjr.replay_segments(ref, jtable_cfg(), _segments(d))
+    assert n == (5 if record == "move" else 4)
+    assert st.spilled_count() == ref.spilled_count() == (
+        6 if record == "move" else 10)
+    assert len(st) == 64 - st.spilled_count()
+    got, want = _union(st), _union(ref)
+    assert_stores_equal(got, want)
+    # the sleeping rows aged a day: one more unseen day, show decayed
+    slept = np.isin(got[0], st.spilled_keys())
+    np.testing.assert_array_equal(
+        got[1][slept, acc.UNSEEN_DAYS],
+        rows[np.isin(keys, st.spilled_keys()), acc.UNSEEN_DAYS] + 1)
+
+
+def test_cross_replay_with_moves_bit_identical(tmp_path):
+    """Journals of both packages holding MOVE records (spill, tier tick,
+    fault-in, more rows, a shrink): byte-identical segments, and each
+    package's reconstruct_blob over either's segments the same resident
+    and tier rows."""
+    rng = np.random.RandomState(8)
+    keys = rand_keys(rng, 300)
+    base = {"keys": keys, "values": rand_rows(rng, keys.size), **META}
+    upd = rand_rows(rng, keys.size // 2)
+    fresh = rand_keys(rng, 40)
+    fresh_rows = rand_rows(rng, fresh.size)
+    segs = {}
+    for writer, mod, layout, cfg in (
+            ("port", jr, ValueLayout(D), table_cfg()),
+            ("jax", jjr, JLayout(D), jtable_cfg())):
+        d = str(tmp_path / writer)
+        j = mod.TouchedRowJournal(d, layout, cfg, segment_bytes=4096)
+        j.anchor_full(["/nonexistent/base.p0000"])
+        j.append_move(jf.MV_SPILL, keys[::3])
+        j.append_event(jf.EV_TICK_SPILL_AGE)
+        j.append_rows(keys[1::2], upd)
+        j.append_move(jf.MV_FAULT_IN, keys[::9])
+        j.append_event(jf.EV_AGE_DAYS)
+        j.append_rows(fresh, fresh_rows)
+        j.append_move(jf.MV_SPILL, fresh[::2])
+        j.append_event(jf.EV_SHRINK)
+        j.close()
+        segs[writer] = _segments(d)
+    assert len(segs["port"]) == len(segs["jax"]) > 1
+    for a, b in zip(segs["port"], segs["jax"]):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read()
+    blobs = [mod.reconstruct_blob(base, segs[w], layout, cfg)
+             for w in ("port", "jax")
+             for mod, layout, cfg in ((jr, ValueLayout(D), table_cfg()),
+                                      (jjr, JLayout(D), jtable_cfg()))]
+    ref = sorted_blob(blobs[-1])
+    assert ref[0].size > 0
+    for b in blobs:
+        assert_stores_equal(sorted_blob(b), ref)
 
 
 # ------------------------------------------------- the checkpoint plane
