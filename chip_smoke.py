@@ -283,6 +283,35 @@ Phases, each of which raises on a failed check (exit code != 0):
      the main path's; two runs whose pushes wait for the drain, bit-
      identical losses, slab sha256 and table; the async passes' steps
      seconds beside FLAGSHIP's at scan_chunk=1 (the same per-step loop);
+ 20. the streaming runner and the single-process obs tiers at full width
+     (train/streaming_runner.py, data/streaming.py, obs/device.py,
+     obs/flight.py, obs/watchdog.py, obs/exporter.py): the cadence's 8
+     files of 4,096 lines and a poisoned window (the first two files with
+     slot 2's ids all replaced by one id) in a watched directory, in the
+     order clean, clean, poisoned, clean, clean, tailed by a
+     StreamingRunner with streaming_micro_pass_instances=8192 (five
+     windows of 8 batches, one chunk each), push_write 'auto' (scatter on
+     the card), a CheckpointManager with the journal on and
+     save_base(mode='auto') at the first and the fourth admitted pass.
+     Run A has every plane on (the device plane, the watermark, a flight
+     recorder, a watchdog at STREAM_WATCHDOG_S, an exporter on an
+     ephemeral port scraped after the second boundary): the admit/refuse
+     sequence and drift scores (the poisoned one >= 0.8, the others
+     below), the refused window's boundary seeing the store and slab
+     sha256 of the boundary before it, 32 push_adagrad and 38 gather_rows
+     (a pull a step, a write-back a pass, a promote where rows stayed
+     resident), each pass's H2D staging bytes in the transfer ledger equal
+     to profile_pass.count_h2d_bytes, the ledger's slab owner 71,303,168
+     bytes, the scrape's streaming and device series, a watermark record
+     a published window (the last born_max the newest file's mtime), the
+     last micro-checkpoint's load_base (journal replay) bit-identical to
+     the live store, then one injected stall on which the watchdog fires
+     once and seals the flight recorder. Run B trains the same four
+     windows one PassPreloader + train_pass(preloaded=True) at a time with
+     the same micro-checkpoints; run C streams with ObsFlags.off(): losses,
+     AUC, stores and slabs bit-identical to A at every boundary. Printed:
+     each pass's record, the micro-pass walls, ingest_wait_secs, the
+     publish lag, examples/s and the planes' cost (A against C);
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -4264,6 +4293,434 @@ def async_runs(torch, files, feed, reset_counts, counts):
     return out
 
 
+STREAM_WINDOW = 8192          # streaming_micro_pass_instances: 8 batches
+STREAM_POISON_SLOT = 2        # the slot whose ids the poisoned window loses
+STREAM_POISON_ID = 999999999  # the one id it carries there instead
+STREAM_BASE_EVERY = 4         # micro-checkpoints at admitted 1 and 4
+STREAM_WATCHDOG_S = 4.0       # the run's stall threshold
+STREAM_STALL_S = 6.0          # the injected stall
+# the watched directory in its order: two clean windows, the poisoned one,
+# two clean windows (the names sort in this order, the mtimes too)
+STREAM_NAMES = ("drop-0000.txt", "drop-0001.txt", "drop-0002.txt",
+                "drop-0003.txt", "drop-0004-poison.txt", "drop-0005.txt",
+                "drop-0006.txt", "drop-0007.txt", "drop-0008.txt")
+# the micro-checkpoints' days: the first admitted window and the fourth
+STREAM_DAYS = ("stream-000000", "stream-000004")
+# /metrics series the scrape during the run carries
+STREAM_SERIES = ("pbtpu_streaming_micro_passes",
+                 "pbtpu_streaming_ingest_lag_secs",
+                 "pbtpu_streaming_publish_lag_secs",
+                 "pbtpu_streaming_window_instances",
+                 "pbtpu_streaming_admission_score",
+                 "pbtpu_device_transfer_bytes_h2d",
+                 "pbtpu_device_transfer_bytes_d2h",
+                 "pbtpu_device_live_bytes_slab",
+                 'pbtpu_device_h2d_bytes_bucket{le="+Inf"}')
+
+
+def poison_line(line, feed, slot):
+    """``line`` with every id of used sparse slot ``slot`` replaced by
+    STREAM_POISON_ID (the slot's cardinality collapses to one)."""
+    tok = line.split()
+    pos = used = 0
+    for s in feed.slots:
+        n = int(tok[pos])
+        if s.type == "uint64" and s.is_used:
+            if used == slot:
+                tok[pos + 1:pos + 1 + n] = [str(STREAM_POISON_ID)] * n
+            used += 1
+        pos += 1 + n
+    return " ".join(tok)
+
+
+def write_stream(files, feed, watch):
+    """The watched directory: the 8 ``files`` by write-temp-then-rename
+    and the poisoned window (the first two files' lines, slot
+    STREAM_POISON_SLOT's ids replaced) between the fourth and the fifth,
+    their mtimes a millisecond apart in STREAM_NAMES' order, the last one
+    now (the drop lands at once)."""
+    import shutil
+    os.makedirs(watch)
+    srcs = list(files[:4]) + [None] + list(files[4:8])
+    t0 = time.time() - 1e-3 * len(STREAM_NAMES)
+    for i, (name, src) in enumerate(zip(STREAM_NAMES, srcs)):
+        dst = os.path.join(watch, name)
+        if src is None:
+            with open(dst + ".tmp", "w") as fh:
+                for f in files[:2]:
+                    for line in open(f):
+                        fh.write(poison_line(line, feed, STREAM_POISON_SLOT)
+                                 + "\n")
+        else:
+            shutil.copy(src, dst + ".tmp")
+        os.replace(dst + ".tmp", dst)
+        os.utime(dst, (t0 + 1e-3 * i, t0 + 1e-3 * i))
+
+
+def store_sha(table):
+    import hashlib
+    k, v = sorted_store(table)
+    return hashlib.sha256(k.tobytes() + v.tobytes()).hexdigest()
+
+
+def slab_sha_or_none(table):
+    import hashlib
+    slab = table.resident_slab
+    return (None if slab is None
+            else hashlib.sha256(slab.cpu().numpy().tobytes()).hexdigest())
+
+
+def stream_cm(trainer, root):
+    from paddlebox_tpu_torch.config.configs import CheckpointConfig
+    from paddlebox_tpu_torch.train.checkpoint import CheckpointManager
+    return CheckpointManager(CheckpointConfig(
+        batch_model_dir=os.path.join(root, "batch"),
+        xbox_model_dir=os.path.join(root, "xbox"), async_save=False),
+        trainer.table)
+
+
+def stream_run(torch, cfg, feed, watch, root, flags, device, on_built=None,
+               spy=None):
+    """One StreamingRunner over ``watch`` (its ledger and micro-checkpoints
+    under ``root``), its trainer built from ``cfg`` with push_write 'auto'
+    and ObsFlags ``flags``; ``on_built(trainer)`` runs before the run. Each
+    boundary records the store's and the slab's sha256 before the
+    boundary's save, then calls ``spy(window, trainer)``; each admitted
+    pass records its loss, AUC, counters, phases, the H2D bytes
+    count_h2d_bytes tallied and the transfer ledger's staging bytes.
+    Returns (trainer, cm, the run's result, boundaries, passes)."""
+    from paddlebox_tpu_torch.config.flags import StreamFlags
+    from paddlebox_tpu_torch.data.streaming import StreamingDataset
+    from paddlebox_tpu_torch.obs import device as device_obs
+    from paddlebox_tpu_torch.profile_pass import count_h2d_bytes
+    from paddlebox_tpu_torch.train import StreamingRunner, flagship
+
+    trainer, _ = flagship.build_trainer([], feed, cfg, "auto", device,
+                                        obs_flags=flags)
+    check(device != "cuda" or trainer.push_write == "scatter",
+          "push_write 'auto' resolved to %r on the card" % trainer.push_write)
+    cm = stream_cm(trainer, root)
+    sf = StreamFlags(streaming_poll_secs=0.02)
+    stream = StreamingDataset(feed, watch, ledger_dir=root,
+                              micro_pass_instances=STREAM_WINDOW, flags=sf)
+    runner = StreamingRunner(trainer, stream, cm=cm,
+                             base_every=STREAM_BASE_EVERY, flags=sf)
+    bounds, passes = [], []
+    inner_pass, inner_boundary = trainer.train_pass, runner._boundary
+
+    def train_pass(ds, preloaded=False):
+        before = dict(trainer.table.counters)
+        staged0 = device_obs.transfer_kinds()["h2d"].get("staging", 0)
+        t0 = time.perf_counter()
+        with count_h2d_bytes(trainer) as counted:
+            res = inner_pass(ds, preloaded=preloaded)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        passes.append({
+            "loss": res["loss"],
+            "auc": trainer.metrics.get_metric_msg("auc")["auc"],
+            "batches": res["batches"], "pass_s": secs,
+            "counters": counter_delta(before, trainer.table),
+            "phase_s": trainer.pass_times,
+            "h2d_counted": sum(counted.bytes.values()),
+            "h2d_ledger_staging": device_obs.transfer_kinds()["h2d"].get(
+                "staging", 0) - staged0})
+        return res
+
+    def boundary(win, admitted):
+        bounds.append({"window": win.index, "admitted": admitted,
+                       "store": store_sha(trainer.table),
+                       "slab": slab_sha_or_none(trainer.table)})
+        inner_boundary(win, admitted)
+        if spy is not None:
+            spy(win.index, trainer)
+
+    trainer.train_pass, runner._boundary = train_pass, boundary
+    if on_built is not None:
+        on_built(trainer)
+    res = runner.run(idle_timeout=0.5)
+    del trainer.train_pass
+    return trainer, cm, res, bounds, passes
+
+
+def stream_sequential(torch, cfg, feed, files, root, device):
+    """The stream's four clean windows through PassPreloader and
+    train_pass(preloaded=True) one at a time, with the stream's
+    micro-checkpoints (save_base(mode='auto') after the first and the
+    fourth pass, in a directory of their own). Returns (trainer, passes)."""
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.train.preload import PassPreloader
+
+    trainer, _ = flagship.build_trainer([], feed, cfg, "auto", device)
+    cm = stream_cm(trainer, root)
+    pre = PassPreloader(trainer.table)
+    passes = []
+    for i in range(4):
+        ds = BoxDataset(feed)
+        ds.set_filelist(files[2 * i:2 * i + 2])
+        pre.preload(ds)
+        pre.wait(ds)
+        res = trainer.train_pass(ds, preloaded=True)
+        passes.append({"loss": res["loss"],
+                       "auc": trainer.metrics.get_metric_msg("auc")["auc"],
+                       "store": store_sha(trainer.table),
+                       "slab": slab_sha_or_none(trainer.table)})
+        if i + 1 in (1, STREAM_BASE_EVERY):
+            cm.save_base(trainer.params, trainer.opt_state,
+                         day="seq-%d" % i, mode="auto")
+        ds.release_memory()
+    return trainer, passes
+
+
+def stream_phase(torch, files, feed, tmp, reset_counts, counts, cfg=None,
+                 device="cuda", stall_s=STREAM_STALL_S,
+                 watchdog_s=STREAM_WATCHDOG_S):
+    """Phase 20, the streaming runner and the single-process obs tiers at
+    full width (see the module docstring). Returns its record."""
+    import urllib.request
+
+    from paddlebox_tpu_torch.config.configs import CheckpointConfig
+    from paddlebox_tpu_torch.config.flags import CkptFlags, ObsFlags
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.embedding.pass_table import PassTable
+    from paddlebox_tpu_torch.obs import device as device_obs
+    from paddlebox_tpu_torch.obs import exporter, flight, watchdog
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.train import journal as jr
+    from paddlebox_tpu_torch.train.checkpoint import CheckpointManager
+    from paddlebox_tpu_torch.utils import journal_format as jf
+    from paddlebox_tpu_torch.utils import stats
+
+    cfg = cfg or flagship.FLAGSHIP
+    root = os.path.join(tmp, "stream")
+    watch = os.path.join(root, "watch")
+    write_stream(files, feed, watch)
+    width = cfg.layout().device_width
+    steps = 4 * STREAM_WINDOW // cfg.batch
+
+    # A: every plane on (the device plane, the watermark, a flight
+    # recorder, the watchdog, and an exporter on an ephemeral port, bound
+    # to the run's reporter and scraped after the second boundary)
+    on = ObsFlags(obs_flight_dir=os.path.join(root, "flight"),
+                  obs_watchdog_secs=watchdog_s)
+    scraped = {}
+
+    def serve(trainer):
+        exporter.set_active(exporter.ObsExporter(0).bind(trainer.reporter))
+
+    def scrape(window, trainer):
+        if window == 1:
+            url = "http://127.0.0.1:%d/metrics" % exporter.active().port
+            with urllib.request.urlopen(url, timeout=10) as r:
+                scraped["ctype"] = r.headers.get("Content-Type")
+                scraped["text"] = r.read().decode()
+            # the HBM ledger while the slab is resident (no save here)
+            scraped["ledger"] = device_obs.sample_ledger()
+
+    stats.stat_reset()
+    device_obs.monitor().reset()
+    reset_counts()
+    ta, cm_a, run_a, bounds_a, passes_a = stream_run(
+        torch, cfg, feed, watch, os.path.join(root, "a"), on, device,
+        on_built=serve, spy=scrape)
+    launches = counts()
+    watchdog.beat("stream_checks")
+    dog = watchdog.active()
+    check(dog is not None and dog.fires == 0,
+          "the watchdog fired %s times in the run"
+          % (dog.fires if dog else None))
+    publish_lag = stats.gauge_get("streaming_publish_lag_secs")
+    # the sequence: admitted, admitted, refused, admitted, admitted
+    seq = [(p["window"], p["admitted"], p["instances"])
+           for p in run_a["passes"]]
+    check(seq == [(0, True, STREAM_WINDOW), (1, True, STREAM_WINDOW),
+                  (2, False, STREAM_WINDOW), (3, True, STREAM_WINDOW),
+                  (4, True, STREAM_WINDOW)],
+          "stream windows %s" % seq)
+    scores = [p["drift_score"] for p in run_a["passes"]]
+    check(scores[2] >= 0.8 and max(scores[:2] + scores[3:]) < 0.8,
+          "admission scores %s" % scores)
+    check(stats.stat_get("streaming_windows_refused") == 1
+          and stats.stat_get("streaming_micro_passes") == 5,
+          "streaming stats %s" % {k: stats.stat_get(k) for k in (
+              "streaming_windows_refused", "streaming_micro_passes")})
+    # the refused window changed nothing: its boundary sees the store and
+    # the slab of the boundary before it (no save between them)
+    check(bounds_a[2]["store"] == bounds_a[1]["store"]
+          and bounds_a[2]["slab"] == bounds_a[1]["slab"] is not None,
+          "the refused window changed the store or the slab")
+    # launches: one push a step; a pull a step, a write-back a pass and a
+    # promote where a row stayed resident (the micro-checkpoint after the
+    # first pass drops the residency)
+    extra = sum(gather_launches_of(p["counters"]) for p in passes_a)
+    check(launches == f32_launches(push_adagrad=steps,
+                                   gather_rows=steps + extra)
+          and extra == 6,
+          "stream launches %s, %d promotes and write-backs" % (launches,
+                                                               extra))
+    # the transfer ledger: each pass's staging bytes are count_h2d_bytes'
+    for i, p in enumerate(passes_a):
+        check(p["h2d_ledger_staging"] == p["h2d_counted"] > 0,
+              "pass %d: ledger staging %d B, count_h2d_bytes %d B"
+              % (i, p["h2d_ledger_staging"], p["h2d_counted"]))
+    kinds = device_obs.transfer_kinds()
+    check(stats.stat_get("device_transfer_bytes_h2d")
+          == sum(kinds["h2d"].values())
+          and stats.stat_get("device_transfer_bytes_d2h")
+          == sum(kinds["d2h"].values()),
+          "transfer counters and sites disagree: %s" % kinds)
+    ledger = scraped["ledger"]
+    slab_bytes = cfg.capacity * width * 4
+    check(ledger["owners"]["slab"] == slab_bytes,
+          "the slab owner reads %d B, expected %d" % (
+              ledger["owners"]["slab"], slab_bytes))
+    snap = device_obs.snapshot()
+    check(snap["recompiles"] == 0 and snap["donation_miss"] == 0
+          and snap["entries"]["scan_steps"]["donation"]["checks"] == 4
+          and snap["entries"]["scan_steps"]["signatures"] == 1,
+          "device plane %s" % json.dumps(snap["entries"]))
+    # the scrape during the run
+    check(scraped.get("ctype") == exporter.PROM_CONTENT_TYPE
+          and all(("\n" + s) in scraped["text"] for s in STREAM_SERIES),
+          "/metrics during the run lacks %s" % [
+              s for s in STREAM_SERIES
+              if ("\n" + s) not in scraped.get("text", "")])
+    # the injected stall: the watchdog fires once, naming the beat, and
+    # seals the flight recorder with its dump
+    watchdog.beat("stream_stall_probe")
+    time.sleep(stall_s)
+    check(dog.fires == 1, "the watchdog fired %d times on one stall"
+          % dog.fires)
+    sealed = json.load(open(os.path.join(root, "flight", "SEALED_r0.json")))
+    check(sealed["reason"] == "watchdog_stall:stream_stall_probe"
+          and sealed["device"]["type"] == "device_plane",
+          "flight seal %s" % sealed["reason"])
+    watchdog.set_active(None).stop()
+    flight.set_active(None).close()
+    exporter.close_active()
+    # the last micro-checkpoint's segments are the windows published since
+    # the first: a watermark each, the newest born_max the last window's
+    # newest file's mtime
+    day_dir = os.path.join(root, "a", "batch", STREAM_DAYS[1])
+    marks = [jf.unpack_watermark(pl)
+             for f in sorted(os.listdir(day_dir)) if f.endswith(".jrnl")
+             for k, pl in jf.iter_segment(os.path.join(day_dir, f))
+             if k == jf.KIND_WATERMARK]
+    newest = os.path.getmtime(os.path.join(watch, STREAM_NAMES[-1]))
+    check(len(marks) == 3 and marks[-1][1] == newest,
+          "watermarks %s, newest file %r" % (marks, newest))
+    # the published journal replays to the live store
+    t0 = time.perf_counter()
+    table = PassTable(cfg.table(), device=device)
+    CheckpointManager(CheckpointConfig(
+        batch_model_dir=os.path.join(root, "a", "batch"),
+        xbox_model_dir=os.path.join(root, "a", "xbox"), async_save=False),
+        table, CkptFlags(ckpt_journal=False)).load_base(STREAM_DAYS[1])
+    for param in (1, 3):
+        jr.apply_stat_after_save(table.store, table.config, param)
+    replay_s = time.perf_counter() - t0
+    check(store_sha(table) == store_sha(ta.table),
+          "the replayed journal differs from the live store")
+    man = json.load(open(os.path.join(day_dir, "sparse.xman")))
+    check(man["mode"] == "journal", "the last micro-checkpoint is %s"
+          % man["mode"])
+    check(sorted(d for d in os.listdir(os.path.join(root, "a", "batch"))
+                 if d.startswith("stream-")) == list(STREAM_DAYS),
+          "micro-checkpoints %s" % os.listdir(os.path.join(root, "a",
+                                                           "batch")))
+    store_a = store_sha(ta.table)
+    ta.close()
+    del ta, table
+
+    # B: the same four windows one train_pass(preloaded=True) at a time
+    tb, passes_b = stream_sequential(torch, cfg, feed, [
+        os.path.join(watch, n) for n in STREAM_NAMES
+        if "poison" not in n], os.path.join(root, "b"), device)
+    store_b = store_sha(tb.table)
+    tb.close()
+    del tb
+    got = [(p["loss"], p["auc"]) for p in passes_a]
+    check(got == [(p["loss"], p["auc"]) for p in passes_b]
+          and [b["store"] for b in bounds_a if b["admitted"]]
+          == [p["store"] for p in passes_b]
+          and [b["slab"] for b in bounds_a if b["admitted"]]
+          == [p["slab"] for p in passes_b] and store_a == store_b,
+          "the stream differs from the sequential passes: %s / %s"
+          % (got, [(p["loss"], p["auc"]) for p in passes_b]))
+
+    # C: every plane off
+    reset_counts()
+    tc, _, run_c, bounds_c, passes_c = stream_run(
+        torch, cfg, feed, watch, os.path.join(root, "c"), ObsFlags.off(),
+        device)
+    check(counts() == launches, "planes-off launches %s" % counts())
+    check([(p["loss"], p["auc"]) for p in passes_c] == got
+          and [(b["store"], b["slab"]) for b in bounds_c]
+          == [(b["store"], b["slab"]) for b in bounds_a]
+          and store_sha(tc.table) == store_a,
+          "planes on and off differ")
+    check(all(p["h2d_ledger_staging"] == 0 for p in passes_c),
+          "the transfer ledger counted with the planes off")
+    tc.close()
+    del tc
+    device_obs.configure(ObsFlags())
+
+    def walls(passes):
+        return [round(p["pass_s"], 4) for p in passes]
+
+    rec = {"sequence": seq, "drift_scores": scores,
+           "publish_lag_s": publish_lag,
+           "passes": [{k: p[k] for k in ("loss", "auc", "batches",
+                                         "pass_s", "h2d_counted")}
+                      for p in passes_a],
+           "launches": launches, "ledger": ledger, "replay_s": replay_s,
+           "transfers": kinds, "run_on": {k: v for k, v in run_a.items()
+                                          if k != "passes"},
+           "run_off": {k: v for k, v in run_c.items() if k != "passes"},
+           "ingest_wait_s": [p["ingest_wait_secs"]
+                             for p in run_a["passes"]],
+           "train_s_on": [p.get("train_secs") for p in run_a["passes"]],
+           "train_s_off": [p.get("train_secs") for p in run_c["passes"]]}
+    for i, p in enumerate(passes_a):
+        log("stream pass %d: loss %.10f auc %.10f pass_s %.4f phase_s %s "
+            "h2d staging %d B (count_h2d_bytes %d B) counters %s"
+            % (i, p["loss"], p["auc"], p["pass_s"], json.dumps(p["phase_s"]),
+               p["h2d_ledger_staging"], p["h2d_counted"],
+               json.dumps(p["counters"])))
+    log("stream windows %s, drift scores %s; launches %s; examples/s on %.1f "
+        "off %.1f; ingest_wait_secs %s; max ingest wait on %.4f off %.4f"
+        % (seq, scores, launches, run_a["examples_per_sec"],
+           run_c["examples_per_sec"],
+           [round(x, 4) for x in rec["ingest_wait_s"]],
+           run_a["max_ingest_wait_secs"], run_c["max_ingest_wait_secs"]))
+    train_on = [x for x in rec["train_s_on"] if x]
+    train_off = [x for x in rec["train_s_off"] if x]
+    rec["train_examples_per_s"] = {
+        "on": 4 * STREAM_WINDOW / sum(train_on),
+        "off": 4 * STREAM_WINDOW / sum(train_off)}
+    log("stream planes on vs off: pass walls %s / %s, train_secs %s / %s "
+        "(examples/s over them %.1f / %.1f), run walls %.4f / %.4f s; the "
+        "stream = the sequential passes and the planes-off run bit for bit "
+        "(losses, AUC, stores, slabs)"
+        % (walls(passes_a), walls(passes_c),
+           [round(x, 4) for x in train_on], [round(x, 4) for x in train_off],
+           rec["train_examples_per_s"]["on"],
+           rec["train_examples_per_s"]["off"], run_a["wall_secs"],
+           run_c["wall_secs"]))
+    log("stream obs: transfers %s; ledger owners %s (slab %d B), total %d "
+        "B, peak %s B; publish lag %.4f s; %d watermarks; journal replay of "
+        "%s %.3f s = the live store; /metrics scraped on port 0 during the "
+        "run (%d B); watchdog fired once on a %.1f s stall; %s"
+        % (json.dumps(kinds), json.dumps(ledger["owners"]),
+           ledger["owners"]["slab"], ledger["total_bytes"],
+           ledger.get("peak_bytes"), publish_lag, len(marks),
+           STREAM_DAYS[1], replay_s, len(scraped["text"]), stall_s,
+           card_line()))
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4508,6 +4965,12 @@ def main() -> int:
         async_dense = async_runs(torch, files, feed, reset_counts, counts)
         clock.lap("tier_async")
 
+        # 20. the streaming runner over the cadence's 8 files and a
+        # poisoned window, the single-process obs tiers
+        stream = stream_phase(torch, windows[0] + windows[2], feed, tmp,
+                              reset_counts, counts)
+        clock.lap("stream")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -4587,7 +5050,8 @@ def main() -> int:
                                  for n, c in tier["launches"].items()},
                               **{"async_" + n: async_dense[n]["launches"]
                                  for n in ("async", "scan_chunk_1",
-                                           "drained_0", "drained_1")}},
+                                           "drained_0", "drained_1")},
+                              "stream": stream["launches"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

@@ -9,16 +9,47 @@ The JAX package keeps these in a process-wide flag registry
 ``h2d_lean``,
 ``h2d_uid_wire``, ``wire_delta_ids``, ``ckpt_*``,
 ``slab_embed_dtype``, ``matmul_dtype``, ``obs_*``, ``quality_*``,
-``data_quality*``). The port passes
+``data_quality*``, ``device_*``, ``freshness_slo_secs``,
+``tier_hit_rate_warn``, ``streaming_*``). The port passes
 them as values to the trainer, the pass table and the checkpoint manager
 instead, so two trainers in one process can run different modes side by
-side.
+side. The fields the streaming runner and the obs tiers added (ObsFlags'
+watchdog, flight, exporter, device and watermark fields, and StreamFlags)
+also take the reference's environment override: ``PBTPU_<NAME>`` set when
+the dataclass is made replaces the default, parsed by the default's type.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import os
+from typing import Any, Optional
+
+_ENV_PREFIX = "PBTPU_"
+
+
+def _parse_env(default: Any, raw: str) -> Any:
+    """``raw`` as the type of ``default`` (the reference's flag parsers,
+    paddlebox_tpu/config/flags.py:44-56)."""
+    if isinstance(default, bool):
+        return raw.strip().lower() in ("1", "true", "yes", "on")
+    return type(default)(raw)
+
+
+def _env(name: str, default: Any):
+    """A field whose default is ``default``, or PBTPU_<NAME> from the
+    environment when it is set."""
+    def make() -> Any:
+        var = _ENV_PREFIX + name.upper()
+        raw = os.environ.get(var)
+        if raw is None:
+            return default
+        try:
+            return _parse_env(default, raw)
+        except ValueError as e:
+            raise ValueError("invalid value %r for flag %r (from env %s): %s"
+                             % (raw, name, var, e)) from e
+    return dataclasses.field(default_factory=make)
 
 PUSH_WRITES = ("auto", "scatter", "rebuild", "blocked")
 DTYPES = ("float32", "bfloat16")
@@ -246,7 +277,25 @@ class ObsFlags:
     data_quality: the slot-level drift monitor (metrics/drift.py) over
     the ingest blocks and the predictions (:538).
     data_quality_warn: the drift score at which a rolled window logs a
-    warning (:550)."""
+    warning (:550).
+
+    The single-process obs tiers (each with the env override):
+    obs_watchdog_secs: the stall watchdog's silence threshold, <= 0 off
+    (obs/watchdog.py; :347); obs_watchdog_action: 'dump' or 'raise'
+    (:372). obs_flight_dir: the flight recorder's directory, '' off
+    (obs/flight.py; :353); obs_flight_segment_bytes and
+    obs_flight_segments: its rotation bound (:365, :368). obs_http_port:
+    the ops endpoint's port (+ rank), 0 off (obs/exporter.py; :506).
+    device_obs: the device plane (obs/device.py: the step entry points'
+    signature sentinel and donation audit, the HBM ledger; :575);
+    device_recompile_warmup: signatures a step entry point may take before
+    a new one counts as device_recompiles (:589); device_donation_min_bytes:
+    slabs smaller than this are not audited (:598);
+    device_leak_windows and device_leak_min_bytes: the leak detector's
+    growth streak and floor (:603, :607). obs_watermark: the journal
+    publish's watermark record and the freshness samples
+    (obs/watermark.py; :666); freshness_slo_secs (:676) and
+    tier_hit_rate_warn (:683): the burn gauges' bounds, <= 0 off."""
 
     obs_trace: bool = True
     obs_trace_capacity: int = 4096
@@ -256,9 +305,59 @@ class ObsFlags:
     quality_table_size: int = 65536
     data_quality: bool = True
     data_quality_warn: float = 0.5
+    obs_watchdog_secs: float = _env("obs_watchdog_secs", 0.0)
+    obs_watchdog_action: str = _env("obs_watchdog_action", "dump")
+    obs_flight_dir: str = _env("obs_flight_dir", "")
+    obs_flight_segment_bytes: int = _env("obs_flight_segment_bytes", 4 << 20)
+    obs_flight_segments: int = _env("obs_flight_segments", 4)
+    obs_http_port: int = _env("obs_http_port", 0)
+    device_obs: bool = _env("device_obs", True)
+    device_recompile_warmup: int = _env("device_recompile_warmup", 3)
+    device_donation_min_bytes: int = _env("device_donation_min_bytes",
+                                          65536)
+    device_leak_windows: int = _env("device_leak_windows", 3)
+    device_leak_min_bytes: int = _env("device_leak_min_bytes", 1 << 20)
+    obs_watermark: bool = _env("obs_watermark", True)
+    freshness_slo_secs: float = _env("freshness_slo_secs", 30.0)
+    tier_hit_rate_warn: float = _env("tier_hit_rate_warn", 0.05)
+
+    def __post_init__(self):
+        if self.obs_watchdog_action not in ("dump", "raise"):
+            raise ValueError("obs_watchdog_action must be 'dump' or "
+                             "'raise', got %r" % (self.obs_watchdog_action,))
 
     @classmethod
     def off(cls) -> "ObsFlags":
-        """Every plane off: no spans, no reports, no quality, no drift."""
+        """Every plane off: no spans, no reports, no quality, no drift, no
+        device plane, no watermark; no watchdog, flight recorder or
+        exporter."""
         return cls(obs_trace=False, obs_report_every=0,
-                   quality_metrics=False, data_quality=False)
+                   quality_metrics=False, data_quality=False,
+                   obs_watchdog_secs=0.0, obs_flight_dir="",
+                   obs_http_port=0, device_obs=False, obs_watermark=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamFlags:
+    """The streaming runner's switches (paddlebox_tpu/config/flags.py:
+    626-658), each with the env override.
+
+    streaming_micro_pass_instances: instances a micro-pass window fills
+    before it is cut (data/streaming.py). streaming_poll_secs: the
+    watcher's poll interval. streaming_stable_polls: polls a bare file's
+    size must hold before it counts as sealed. streaming_base_every:
+    save_base(mode='auto') every K admitted micro-passes (and on the first),
+    0 none. streaming_admission_max_drift: the drift preview score at which
+    a loaded window is refused before it trains, 0 no gate.
+    streaming_idle_timeout_secs: the runner stops after this many seconds
+    with no new window, 0 never."""
+
+    streaming_micro_pass_instances: int = _env(
+        "streaming_micro_pass_instances", 4096)
+    streaming_poll_secs: float = _env("streaming_poll_secs", 0.2)
+    streaming_stable_polls: int = _env("streaming_stable_polls", 2)
+    streaming_base_every: int = _env("streaming_base_every", 8)
+    streaming_admission_max_drift: float = _env(
+        "streaming_admission_max_drift", 0.8)
+    streaming_idle_timeout_secs: float = _env(
+        "streaming_idle_timeout_secs", 0.0)

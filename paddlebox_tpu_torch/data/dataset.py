@@ -192,6 +192,13 @@ class BoxDataset:
     def records(self) -> List[SlotRecord]:
         return self._records
 
+    @property
+    def block(self) -> Optional[ColumnarBlock]:
+        """The loaded pass's merged ColumnarBlock (None on the record path
+        or before a load): what the streaming runner's admission gate
+        scores."""
+        return self._block
+
     def all_keys(self) -> np.ndarray:
         """Every feasign of the loaded pass, in load order."""
         if self.columnar:

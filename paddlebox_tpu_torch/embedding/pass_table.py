@@ -110,6 +110,7 @@ from paddlebox_tpu_torch.embedding.accessor import (PushLayout, ValueLayout,
                                                     slab_rows_np)
 from paddlebox_tpu_torch.embedding.native_store import make_host_store
 from paddlebox_tpu_torch.native import host_lib
+from paddlebox_tpu_torch.obs.device import account_d2h, account_h2d
 from paddlebox_tpu_torch.obs.tracer import record_span
 from paddlebox_tpu_torch.ops.row_kernels import gather_rows
 from paddlebox_tpu_torch.utils.journal_format import (EV_AGE_DAYS, EV_SHRINK,
@@ -175,10 +176,12 @@ def delta_promote(old_slab: torch.Tensor, old_pos: np.ndarray,
     new = torch.empty_like(old_slab)
     if hit.any():
         src = np.where(hit, old_pos, 0).astype(np.int32)
+        account_h2d(src.nbytes, "promote")
         gather_rows(old_slab, torch.from_numpy(src).to(dev), out=new[:n])
     new[n:].zero_()
     miss = np.flatnonzero(~hit)
     if miss.size:
+        account_h2d(miss.nbytes + new_rows.nbytes, "promote")
         new.index_copy_(0, torch.from_numpy(miss).to(dev),
                         torch.from_numpy(new_rows).to(dev))
     return new
@@ -374,9 +377,12 @@ class PassTable:
             self._journal.append_rows(keys, rows)
 
     def _host_rows(self, dev_rows: torch.Tensor) -> np.ndarray:
-        """Slab rows as host f32 rows: one copy to the host, then the
-        numpy codec's decoding under bf16."""
-        return decode_slab_rows_np(dev_rows.cpu().numpy(), self.layout)
+        """Slab rows as host f32 rows: one copy to the host (the transfer
+        ledger's write-back), then the numpy codec's decoding under
+        bf16."""
+        host = dev_rows.cpu().numpy()
+        account_d2h(host.nbytes, "writeback")
+        return decode_slab_rows_np(host, self.layout)
 
     def _journal_event(self, code: int) -> None:
         if self._journal is not None:
@@ -514,8 +520,9 @@ class PassTable:
                 with self.store_lock:
                     rows = self._store_rows(keys)
                 self._journal_rows(keys, rows)
-                slab[:n].copy_(torch.from_numpy(slab_rows_np(rows,
-                                                             self.layout)))
+                host = slab_rows_np(rows, self.layout)
+                account_h2d(host.nbytes, "build")
+                slab[:n].copy_(torch.from_numpy(host))
             self._slab = slab
         self._drop_prev_route()
         self._resident_keys = None
@@ -563,8 +570,9 @@ class PassTable:
                 self._touched[self.padding_id] = False
                 idx = np.flatnonzero(self._touched[:n])
                 if idx.size:
-                    ids = torch.from_numpy(idx.astype(np.int32)).to(
-                        self.device)
+                    ids32 = idx.astype(np.int32)
+                    account_h2d(ids32.nbytes, "writeback_ids")
+                    ids = torch.from_numpy(ids32).to(self.device)
                     rows = self._host_rows(gather_rows(self._slab, ids))
                     self._journal_rows(keys[idx], rows)
                     with self.store_lock:

@@ -1,8 +1,6 @@
 """Slot-level data-quality drift monitor over the columnar ingest blocks.
 
-Counterpart of paddlebox_tpu/metrics/drift.py:45-407 (without the
-streaming runner's preview_block / admit_block and the exporter's
-snapshot). A window is one pass: the dataset observes each merged
+Counterpart of paddlebox_tpu/metrics/drift.py:45-407. A window is one pass: the dataset observes each merged
 ColumnarBlock (a strided sample of at most SAMPLE_RECS records, taken with
 ``ColumnarBlock.select``) and the trainer each batch's predictions; at
 pass end ``roll()`` closes the window. Per slot it keeps the coverage
@@ -15,11 +13,17 @@ fell below a tenth of it are ``dropped_slots``. ``roll`` publishes the
 gauges data_drift_score and data_dropped_slots and logs a warning at
 ``drift_warn``.
 
+The streaming runner's admission gate (train/streaming_runner.py) scores a
+loaded micro-pass window with ``preview_block`` (no reference advance) and
+folds an admitted one in with ``admit_block``; the exporter's /quality and
+/metrics read ``snapshot``.
+
 numpy and the standard library; one threading.Lock.
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 import time
 from typing import Dict, List, Optional
@@ -103,6 +107,7 @@ class SlotDriftMonitor:
         self._cur = _Window()
         self._ref: List[dict] = []
         self.windows = 0
+        self.last_roll: Optional[dict] = None
 
     # ------------------------------------------------------------- observe
     def observe_block(self, block) -> None:
@@ -259,6 +264,7 @@ class SlotDriftMonitor:
             self._ref.append(cur)
             if len(self._ref) > self.history:
                 self._ref.pop(0)
+            self.last_roll = rec
         gauge_set("data_drift_score", drift["score"])
         gauge_set("data_dropped_slots", float(len(drift["dropped_slots"])))
         if drift["score"] >= self.drift_warn:
@@ -268,6 +274,40 @@ class SlotDriftMonitor:
                 dropped_slots=str(drift["dropped_slots"][:8]),
                 worst_slot=drift["worst_slot"])
         return rec
+
+    def preview_block(self, block) -> float:
+        """The drift score of ``block`` against the reference, without
+        admitting it: no reference advance, no window count, no gauge. 0.0
+        until a reference exists. The caller owns this monitor (the
+        streaming runner's private one): the live window is swapped out
+        while the block is scored."""
+        with self._lock:
+            saved, self._cur = self._cur, _Window()
+        try:
+            self.observe_block(block)
+            with self._lock:
+                cur = self._cur.summary() if self._cur.n_recs else None
+                refs = list(self._ref)
+        finally:
+            with self._lock:
+                self._cur = saved
+        if cur is None or not refs:
+            return 0.0
+        return float(self._drift_against(cur, self._ref_mean(refs))["score"])
+
+    def admit_block(self, block) -> None:
+        """Fold an admitted window's block into the reference (observe,
+        then roll): the commit that pairs with preview_block."""
+        self.observe_block(block)
+        self.roll()
+
+    def snapshot(self) -> dict:
+        """The exporter's view: windows rolled, the live window's records
+        and a copy of the last rolled record."""
+        with self._lock:
+            return {"windows": self.windows,
+                    "live_recs": int(self._cur.n_recs),
+                    "last": copy.deepcopy(self.last_roll)}
 
 
 # ------------------------------------------------------------- module API

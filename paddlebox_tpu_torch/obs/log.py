@@ -4,9 +4,8 @@ Every line gets a ``[pbtpu rN HH:MM:SS]`` prefix and sorted ``key=value``
 fields, lands on stderr (resolved at emit time, so a swapped sys.stderr
 captures it) through the logger "paddlebox_tpu_torch.obs", and each
 warning or error line counts into the stat registry
-(``log_warning_lines`` / ``log_error_lines``). The reference's tap also
-forwards those lines to its flight recorder, which the port does not have
-yet.
+(``log_warning_lines`` / ``log_error_lines``) and goes to the active
+flight recorder (obs/flight.py), if any.
 """
 
 from __future__ import annotations
@@ -40,12 +39,21 @@ class _StderrHandler(logging.StreamHandler):
 
 
 class _StatTapHandler(logging.Handler):
-    """Counts warning and error lines into the stat registry."""
+    """Counts warning and error lines into the stat registry and forwards
+    them to the active flight recorder."""
 
     def emit(self, record: logging.LogRecord) -> None:
-        if record.levelno >= logging.WARNING:
+        if record.levelno < logging.WARNING:
+            return
+        try:
+            from paddlebox_tpu_torch.obs import flight
             stat_add("log_error_lines" if record.levelno >= logging.ERROR
                      else "log_warning_lines")
+            fr = flight.active()
+            if fr is not None:
+                fr.on_log(record.levelname, record.getMessage())
+        except Exception:  # noqa: BLE001 (the tap never breaks logging)
+            pass
 
 
 class _RankFormatter(logging.Formatter):

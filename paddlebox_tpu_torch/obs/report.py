@@ -12,10 +12,18 @@ last record is kept either way (``last_report``).
 A record describes its window: deltas since the reporter's previous record
 (the first one since the registry was last reset or the process began, as
 in the reference).
+
+Each assembly also writes the stall watchdog's beat age (``beat_age_s``,
+obs/watchdog.py) and samples the device plane's HBM ledger
+(obs/device.py ``on_report``) into the gauges it reads, and hands the
+record to the active flight recorder (obs/flight.py). The reference's
+cluster aggregator, which would take it next, waits for ROADMAP A10:
+``aggregator`` stays None here.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import sys
 import time
@@ -97,6 +105,7 @@ class StepReporter:
         self.every = int(every)
         self.sink = sink if sink is not None else NullSink()
         self.timers = timers or {}
+        self.aggregator = None
         self._clock = clock
         self._registry = StatRegistry.instance()
         self._prev_counters: Dict[str, int] = {}
@@ -124,13 +133,22 @@ class StepReporter:
             return None
         return self._report(step, extra)
 
+    def peek(self) -> Optional[dict]:
+        """A deep copy of the last record (the watchdog's dump and the
+        exporter's /report); never assembles one."""
+        rep = self.last_report
+        return copy.deepcopy(rep) if rep is not None else None
+
     # ----------------------------------------------------------- assembly
     def _report(self, step: int, extra: Optional[dict]) -> dict:
         now = self._clock()
         interval = max(now - self._last_t, 1e-9)
         poll_depth_gauges()
-        # the reference also writes the watchdog's beat age and samples its
-        # device plane (the HBM ledger) here: ROADMAP A14
+        from paddlebox_tpu_torch.obs import device, flight, watchdog
+        w = watchdog.active()
+        if w is not None:
+            self._registry.set_gauge("beat_age_s", w.beat_age())
+        device.on_report()
         snap = self._registry.snapshot_all()
 
         stats_delta = {}
@@ -186,8 +204,9 @@ class StepReporter:
         self._last_t = now
         self.last_report = record
         self.sink.emit(record)
-        # the reference hands the record to its flight recorder and its
-        # cluster aggregator here: ROADMAP A14 and A10
+        fr = flight.active()
+        if fr is not None:
+            fr.on_report(record)
         return record
 
     def close(self) -> None:

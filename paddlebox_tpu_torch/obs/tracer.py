@@ -218,6 +218,11 @@ class SpanTracer:
         out.sort(key=lambda s: s[3])
         return out
 
+    def last_spans(self, k: int = 64) -> List[Tuple[str, int, str, float,
+                                                    float, Optional[int]]]:
+        """The ``k`` spans that started last, oldest first."""
+        return self.all_spans()[-k:]
+
     def export_chrome(self, path: Optional[str] = None, pid: int = 0,
                       meta: Optional[Dict] = None) -> dict:
         """The chrome-tracing document (Perfetto, chrome://tracing); also

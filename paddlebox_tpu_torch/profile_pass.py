@@ -31,6 +31,11 @@ chunk driver) run in the same call. It prints:
     seconds);
   * the 25 device operators with the most GPU time (key_averages).
 
+While the pass is profiled, the span tracer opens a
+``torch.profiler.record_function`` beside each span (``annotated_spans``),
+so the trainer's spans (host_stage, scan_dispatch, chunk_drain, the ingest
+spans) land in the profiler's trace.
+
 Needs a CUDA device; writes the Chrome trace to DIR/pass_trace.json when
 --out is given.
 """
@@ -109,6 +114,23 @@ def h2d_copies(device_events) -> Dict[str, Dict[str, float]]:
     return out
 
 
+class annotated_spans:
+    """Within the block, every span of the tracer also opens a
+    ``torch.profiler.record_function`` of its name (obs/tracer.py
+    ``set_annotation``); the annotation is off again after it."""
+
+    def __enter__(self) -> "annotated_spans":
+        import torch
+
+        from paddlebox_tpu_torch.obs import tracer
+        tracer.set_annotation(torch.profiler.record_function)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from paddlebox_tpu_torch.obs import tracer
+        tracer.set_annotation(None)
+
+
 class count_h2d_bytes:
     """Within the block, tally the bytes ``trainer`` moves host to device,
     by leaf name (``self.bytes``): each array of the host chunks its
@@ -179,7 +201,7 @@ def profile_pass(trainer, ds, out_dir: str = "", warmup: bool = True):
         if warmup:
             trainer.train_pass(ds)  # allocator, cuBLAS, kernels
         torch.cuda.synchronize()
-        with count_h2d_bytes(trainer) as h2d_bytes, \
+        with count_h2d_bytes(trainer) as h2d_bytes, annotated_spans(), \
                 profile(activities=[ProfilerActivity.CPU,
                                     ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()

@@ -35,8 +35,10 @@ What makes replay bit-exact, and when it refuses:
     replay refuses) by segment loss to the rotation bound and by a store
     load that bypasses the checkpoint plane.
 
-Not ported: ``publish`` with its watermark records (the streaming
-runner's; replay skips watermarks as the reference does).
+``publish`` (the streaming runner's micro-pass boundary) seals the active
+segment, so a serving-side tailer picks the window's rows up as durable
+bytes; given the window's born span it first writes a KIND_WATERMARK record
+under the same lock (replay skips watermarks, as the reference's does).
 
 Records are flushed per append (a killed process leaves a parseable
 prefix); segments fsync when sealed. Appends come from the trainer's
@@ -52,6 +54,7 @@ import json
 import os
 import struct
 import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -61,7 +64,7 @@ from paddlebox_tpu_torch.utils.journal_format import (
     EV_AGE_DAYS, EV_SHRINK, EV_STAT_SAVE_AGE, EV_STAT_SAVE_DELTA, EV_TAINT,
     EV_TICK_SPILL_AGE, FRAME, KIND_EVENT, KIND_HEADER, KIND_MOVE, KIND_ROWS,
     KIND_WATERMARK, MOVE_HEAD, MV_FAULT_IN, MV_SPILL, SEG_MAGIC,
-    decode_rows_payload, iter_segment)
+    decode_rows_payload, iter_segment, pack_watermark)
 
 
 class JournalIncompleteError(RuntimeError):
@@ -368,6 +371,26 @@ class TouchedRowJournal:
                     "segments": (list(self._anchor["segments"])
                                  + list(self._sealed)),
                     "dirty_rows": self._dirty_rows}
+
+    def publish(self, born_min: Optional[float] = None,
+                born_max: Optional[float] = None,
+                trace: Optional[int] = None) -> Optional[str]:
+        """Seal the active segment and return its sealed path (None when
+        nothing is pending) (reference journal.py:411-440). Given
+        ``born_min`` (and ``born_max``, else born_min), a KIND_WATERMARK
+        record of the window's source-file mtime span, the publish time
+        and ``trace`` lands just before the seal, in the same fsync.
+        Sealing is the rotation path, so the segment bound applies."""
+        with self._lock:
+            if self._f is None:
+                return None
+            if born_min is not None:
+                bmax = born_max if born_max is not None else born_min
+                self._append_locked(
+                    KIND_WATERMARK,
+                    pack_watermark(born_min, bmax, time.time(), trace or 0))
+            self._seal_locked()
+            return self._sealed[-1] if self._sealed else None
 
     @property
     def dirty_rows(self) -> int:

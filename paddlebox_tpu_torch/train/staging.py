@@ -30,6 +30,10 @@ silently). Device buffers are allocated once, on the compute stream, and
 reused, so no allocation crosses streams. Pinned buffers are allocated once
 a ring (never a ``pin_memory()`` a batch); an allocation that fails raises.
 On the CPU the staged arrays become tensors with no copy.
+
+Each group's copies go into the device plane's transfer ledger
+(obs/device.py ``account_h2d``, kind "staging"); on the CPU the stacked
+leaves are counted as the card's copies would be.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from paddlebox_tpu_torch.obs.device import account_h2d
 
 Host = Dict[str, Union[np.ndarray, int]]
 Leaves = Dict[str, Union[torch.Tensor, List[int], int]]
@@ -98,6 +104,9 @@ def to_cpu(host: HostChunk) -> DeviceChunk:
     stacked.update(per)
     cpush: Leaves = {k: torch.from_numpy(v) for k, v in host.cpush.items()
                      if isinstance(v, np.ndarray)}
+    account_h2d(sum(t.element_size() * t.numel()
+                    for t in (*stacked.values(), *cpush.values())
+                    if isinstance(t, torch.Tensor)), "staging")
     cpush.update(cints)
     return DeviceChunk(stacked, cpush)
 
@@ -186,9 +195,13 @@ class PinnedRing:
         with torch.cuda.device(self.device), \
                 torch.cuda.stream(self.copy_stream):
             self.copy_stream.wait_event(slot.released)
+            nbytes = 0
             for k, d in slot.dev.items():
-                d[:n].copy_(slot.host[k][:n], non_blocking=True)
+                src = slot.host[k][:n]
+                d[:n].copy_(src, non_blocking=True)
+                nbytes += src.element_size() * src.numel()
             slot.copied.record(self.copy_stream)
+        account_h2d(nbytes, "staging")
         left = [n]
 
         def release() -> None:

@@ -134,6 +134,7 @@ import queue
 import sys
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import (Callable, Dict, List, Mapping, Optional, Sequence, Tuple,
                     Union)
@@ -166,8 +167,10 @@ from paddlebox_tpu_torch.embedding.pass_table import (PassTable,
                                                       uniq_count)
 from paddlebox_tpu_torch.metrics import drift, quality
 from paddlebox_tpu_torch.metrics.auc import MetricRegistry
+from paddlebox_tpu_torch.obs import device as device_obs
 from paddlebox_tpu_torch.obs import make_step_reporter
 from paddlebox_tpu_torch.obs.tracer import set_trace, span, step_trace_id
+from paddlebox_tpu_torch.obs.watchdog import beat
 from paddlebox_tpu_torch.ops.seqpool import fused_seqpool_cvm, seqpool_sum
 from paddlebox_tpu_torch.ops.sparse import (build_push_grads,
                                             build_push_grads_extended,
@@ -703,7 +706,8 @@ def run_scan_chunks(scan_call: Callable, items, chunk: int,
     back to the host, so staging and the drain of results overlap device
     work (paddlebox_tpu/train/trainer.py:120-303). Staging runs under the
     span host_stage, each scan_call under scan_dispatch (and ``timer``,
-    when given), each drain under chunk_drain.
+    when given), each drain under chunk_drain; each dispatched chunk beats
+    the stall watchdog ("scan_chunk").
 
     items: a list, or a bounded iterator with ``n_items`` given. Exactly
     n_consumed items are pulled either way, so the caller's per-step loop
@@ -820,6 +824,7 @@ def run_scan_chunks(scan_call: Callable, items, chunk: int,
                 carry, losses, preds = scan_call(carry, staged)
             if timer is not None:
                 timer.pause()
+            beat("scan_chunk")
             if pending is not None:
                 with span("chunk_drain"):
                     drain(pending)
@@ -995,6 +1000,35 @@ class BoxTrainer:
         self.timers = {n: Timer() for n in ("step", "pass")}
         self.reporter = make_step_reporter(timers=self.timers,
                                            flags=self.obs_flags)
+        self._instrument_steps()
+
+    def _instrument_steps(self) -> None:
+        """The device plane (obs/device.py) on the step entry points, under
+        the reference's names, each audited against the table's slab; and
+        the HBM ledger's owners. The getters hold the trainer weakly, so
+        the ledger never keeps it alive."""
+        me = weakref.ref(self)
+
+        def slab_of() -> Optional[torch.Tensor]:
+            t = me()
+            return t.table.resident_slab if t is not None else None
+
+        def wrap(fn, name):
+            return device_obs.instrument_step(fn, name, slab_of=slab_of,
+                                              flags=self.obs_flags)
+
+        self.step_fn = wrap(self.step_fn, "train_step_async"
+                            if self.async_mode else "train_step")
+        self.scan_steps = wrap(self.scan_steps, "scan_steps")
+        if self.chunk_fn is not None:
+            self.chunk_fn = wrap(self.chunk_fn, "scan_chunk")
+        self.eval_fn = wrap(self.eval_fn, "eval_step")
+        if self.obs_flags.device_obs:
+            device_obs.register_owner("slab", slab_of)
+            device_obs.register_owner("dense_params", lambda: (
+                list(me().model.parameters()) if me() is not None else None))
+            device_obs.register_owner("opt_state", lambda: (
+                me().dense_opt.state if me() is not None else None))
 
     def _draw_seed(self) -> int:
         return int(torch.randint(0, 2**31 - 1, (), generator=self._seed_gen))
@@ -1124,10 +1158,12 @@ class BoxTrainer:
 
     def device_batch(self, b: PackedBatch, ids: np.ndarray) -> Batch:
         """host_batch, then one copy per array to the device (the per-step
-        path's pageable copies)."""
+        path's pageable copies, kind "staging" in the transfer ledger)."""
+        host = self.host_batch(b, ids)
+        device_obs.account_h2d(device_obs.tree_nbytes(host), "staging")
         return {k: (torch.from_numpy(v).to(self.device)
                     if isinstance(v, np.ndarray) else v)
-                for k, v in self.host_batch(b, ids).items()}
+                for k, v in host.items()}
 
     def _refresh_aux(self) -> None:
         """The aux source's current rows into the model's ``aux_rows``

@@ -16,8 +16,8 @@ sees a clean end of the segment, never garbage; re-reading later picks up
 the completed frames.
 
 The port writes MOVE records (the SSD tier's key moves, train/journal.py
-``append_move``) as the reference does, and no watermark record (the
-streaming runner's publish); its code stays here so that both parse.
+``append_move``) and WATERMARK records (the streaming runner's publish,
+``TouchedRowJournal.publish``) as the reference does.
 """
 
 from __future__ import annotations

@@ -50,7 +50,10 @@ def test_import_loads_no_jax_and_no_reference_module():
               "models.mmoe", "models.esmm", "data.generator",
               "data.parser", "data.packer", "parallel",
               "parallel.ring_attention", "parallel.seq_trainer",
-              "models.bst", "train.dense_optim"):
+              "models.bst", "train.dense_optim", "data.streaming",
+              "train.streaming_runner", "obs.device", "obs.flight",
+              "obs.watchdog", "obs.exporter", "obs.watermark",
+              "profile_pass"):
         assert "paddlebox_tpu_torch." + m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad

@@ -95,13 +95,18 @@ HIDDEN = (16, 8)
 OPT = dict(mf_create_thresholds=0.0, mf_initial_range=1e-3)
 T = 4096
 # the reference's device plane (obs/device.py: transfer bytes, compiles,
-# donation audit, leak detector; ROADMAP A14): counters the port does not
-# write yet
+# donation audit, leak detector), which the port's obs/device.py writes
+# under the same names where its own sites see the event
 DEVICE_PLANE = ("device_transfer_bytes_h2d", "device_transfer_bytes_d2h",
                 "device_recompiles", "donation_miss", "device_leak_suspect",
                 "device_compiles")
-# gauges of the reference's device plane and of the depth of its parallel
-# reader's channel (ROADMAP A14, A2a)
+# the transfer counters: the write-back's D2H is the reference's; the H2D
+# is the port's own leaves (tests/test_torch_obs_tiers.py holds each site
+# against the reference's)
+TRANSFER_STATS = ("device_transfer_bytes_h2d", "device_transfer_bytes_d2h")
+# gauges of the device plane (the HBM ledger: the port's owners' tensors,
+# the reference's jax.live_arrays) and of the depth of the reference's
+# parallel reader's channel (ROADMAP A2a)
 DEVICE_GAUGES = ("device_", "chan_dataset_blocks_depth")
 # the chunk driver's, the tail's, the table's and the ingest spans
 TRAINER_SPANS = {"host_stage", "scan_dispatch", "chunk_drain", "pass_begin",
@@ -739,7 +744,11 @@ def test_trainer_pass_end_matches_jax(files, pallas_interpret, jax_registry):
         only_jax = set(w["stats"]) - set(g["stats"])
         assert only_jax <= set(DEVICE_PLANE), only_jax
         assert set(g["stats"]) <= set(w["stats"])
-        assert {k: w["stats"][k] for k in g["stats"]} == g["stats"]
+        assert g["stats"]["device_transfer_bytes_d2h"] == \
+            w["stats"]["device_transfer_bytes_d2h"]
+        same = {k: v for k, v in g["stats"].items()
+                if k not in TRANSFER_STATS}
+        assert {k: w["stats"][k] for k in same} == same
         assert set(COUNTERS) & set(g["stats"])
         assert g["timers"].keys() == w["timers"].keys() == {"step", "pass"}
         assert g["timers"]["step"]["calls"] == w["timers"]["step"]["calls"]
@@ -768,6 +777,8 @@ def test_trainer_pass_end_matches_jax(files, pallas_interpret, jax_registry):
         only_jax = set(w["gauges"]) - set(g["gauges"])
         assert all(k.startswith(DEVICE_GAUGES) for k in only_jax), only_jax
         for k, v in g["gauges"].items():
+            if k.startswith(DEVICE_GAUGES):
+                continue    # the HBM ledger: its owners differ by package
             if k in ("quality_auc", "data_drift_score"):
                 assert abs(v - w["gauges"][k]) <= 2.0 / 192, k
             elif k == "quality_copc":
