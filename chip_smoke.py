@@ -312,6 +312,22 @@ Phases, each of which raises on a failed check (exit code != 0):
      AUC, stores and slabs bit-identical to A at every boundary. Printed:
      each pass's record, the micro-pass walls, ingest_wait_secs, the
      publish lag, examples/s and the planes' cost (A against C);
+ 21. the single-process host modules at full width: PBTPU_PUSH_WRITE=
+     blocked set while PushFlags is made reaches the trainer (one
+     blocked_write a step over files[0], rows bit-equal to scatter, the
+     environment restored); FLAGSHIP passes, each a fresh trainer's first
+     and held to FLAGSHIP_DIGITS' first pass with 16 push_adagrad and 17
+     gather_rows: the text files on the record path, the same pass fed
+     from load_into_disk's archive shards and through pipe_command='cat'
+     (equal slab sha256), an undumped and a dumped pass (the dump's
+     16,384 lines, its extra seconds), train_pass at scan_chunk=1 and
+     train_pass_profiled (bit-identical; the stage ms on the card);
+     PassTable.pull and push at the flagship batch against their plain
+     versions on the same device inputs; the AUC runner on slots 0-3 over
+     the text pass's records; lockwatch on and off (on, off, off, on: no
+     inversion, the walls); then one pass inside utils/profiler.trace in a
+     child process of its own (profile_pass.traced_pass: its first
+     torch.profiler session), its kernel events and spans;
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -4721,6 +4737,363 @@ def stream_phase(torch, files, feed, tmp, reset_counts, counts, cfg=None,
     return rec
 
 
+# phase 21: the single-process host modules at full width
+LOCK_RUNS = ("on", "off", "off", "on")
+AUC_RUNNER_SLOTS = (0, 1, 2, 3)
+SPILL_SHARD_BYTES = 8 << 20   # the archive spill's rotation in phase 21
+PUSH_CHECK_SEED = 2021        # the standalone push's creation seed
+
+
+def flagship_pass0(tag, rec):
+    """Check a fresh FLAGSHIP trainer's first pass against FLAGSHIP_DIGITS'
+    first pass."""
+    got = ("%.10f" % rec["loss"], "%.10f" % rec["auc"])
+    want = (FLAGSHIP_DIGITS["loss"][0], FLAGSHIP_DIGITS["auc"][0])
+    check(got == want, "%s digits %s, expected %s" % (tag, got, want))
+
+
+def slice21_pass(torch, trainer, ds, tag, reset_counts, counts,
+                 profiled=False):
+    """One pass (train_pass, or train_pass_profiled) of a fresh trainer:
+    its record (loss, AUC, wall, slab sha256, launches), held to
+    FLAGSHIP_DIGITS' first pass, with the push once a step and
+    gather_rows once a step and once at the write-back."""
+    reset_counts()
+    t0 = time.perf_counter()
+    res = (trainer.train_pass_profiled(ds) if profiled
+           else trainer.train_pass(ds))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = counts()
+    rec = {"loss": res["loss"],
+           "auc": trainer.metrics.get_metric_msg("auc")["auc"],
+           "batches": res["batches"], "instances": res["instances"],
+           "pass_s": secs, "slab_sha256": slab_sha(trainer),
+           "launches": {k: v for k, v in c.items() if v}}
+    flagship_pass0(tag, rec)
+    steps = res["batches"]
+    check(c["push_adagrad"] == steps and c["gather_rows"] == steps + 1,
+          "%s launches %s over %d steps" % (tag, rec["launches"], steps))
+    log("slice21 %s: %s" % (tag, json.dumps(rec)))
+    return rec
+
+
+def same_pass(tag, rec, ref):
+    check(rec["loss"] == ref["loss"] and rec["auc"] == ref["auc"]
+          and rec["slab_sha256"] == ref["slab_sha256"],
+          "%s differs from the text pass: %s vs %s" % (tag, rec, ref))
+
+
+def env_blocked_check(torch, cfg, feed, files, reset_counts, counts):
+    """PBTPU_PUSH_WRITE=blocked set while PushFlags is made reaches the
+    trainer (restored after): one pass over files[0], a blocked_write a
+    step, rows bit-equal to a scatter pass's."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.config.flags import PushFlags
+    from paddlebox_tpu_torch.train import flagship
+
+    old = os.environ.get("PBTPU_PUSH_WRITE")
+    os.environ["PBTPU_PUSH_WRITE"] = "blocked"
+    try:
+        flags = PushFlags()
+    finally:
+        if old is None:
+            del os.environ["PBTPU_PUSH_WRITE"]
+        else:
+            os.environ["PBTPU_PUSH_WRITE"] = old
+    check(flags.push_write == "blocked" and PushFlags().push_write == (
+        old or "auto"), "PBTPU_PUSH_WRITE did not reach PushFlags")
+    rows = {}
+    for mode in ("env", "scatter"):
+        t, d = flagship.build_trainer(
+            files[:1], feed, cfg, "scatter", "cuda",
+            push_flags=flags if mode == "env" else None)
+        check(t.push_write == ("blocked" if mode == "env" else "scatter"),
+              "trainer write %r" % t.push_write)
+        reset_counts()
+        res, auc, _ = run_pass(torch, t, d)
+        c = counts()
+        if mode == "env":
+            check(c["blocked_write"] == res["batches"]
+                  and c["push_adagrad"] == res["batches"],
+                  "env-set blocked pass launches %s over %d steps"
+                  % (c, res["batches"]))
+            launches = {k: v for k, v in c.items() if v}
+        rows[mode] = t.table.store.lookup(t.table.pass_keys)
+        t.close()
+        del t, d
+    check(np.array_equal(rows["env"].view(np.uint32),
+                         rows["scatter"].view(np.uint32)),
+          "the env-set blocked pass's rows differ from scatter's")
+    log("slice21 env PBTPU_PUSH_WRITE=blocked -> trainer write 'blocked': "
+        "launches %s over %d steps, %d rows bit-equal to scatter"
+        % (launches, res["batches"], rows["env"].shape[0]))
+    return launches
+
+
+def table_pull_push_check(torch, trainer, ds, reset_counts, counts):
+    """PassTable.pull and push at the flagship batch inside a pass of
+    ``trainer``'s table (its second), each held bit-equal to its plain
+    version on the same device inputs; each launches its kernel once."""
+    from paddlebox_tpu_torch.embedding.optimizers import device_push_maps
+    from paddlebox_tpu_torch.embedding.push_kernels import \
+        push_adagrad_fused_plain
+    from paddlebox_tpu_torch.ops.row_kernels import gather_rows_plain
+    from paddlebox_tpu_torch.ops.sparse import pull_view_from_rows
+
+    tab = trainer.table
+    tab.begin_feed_pass()
+    tab.add_keys(ds.all_keys())
+    tab.end_feed_pass()
+    tab.begin_pass()
+    b = ds.split_batches(1)[0][0]
+    ids = torch.from_numpy(tab.lookup_ids(b.keys, b.valid)).to(tab.device)
+    K, D = ids.shape[0], tab.layout.embedx_dim
+    slab = tab.slab
+    reset_counts()
+    view = tab.pull(ids)
+    c_pull = counts()
+    plain = pull_view_from_rows(gather_rows_plain(slab, ids), tab.layout)
+    check(c_pull["gather_rows"] == 1 and torch.equal(view, plain),
+          "PassTable.pull differs from its plain version (launches %s)"
+          % c_pull)
+    gen = torch.Generator(device=tab.device).manual_seed(PUSH_CHECK_SEED)
+    valid = (ids != tab.padding_id).to(torch.float32)[:, None]
+    g = torch.cat([torch.randint(0, 32, (K, 1), generator=gen,
+                                 device=tab.device).float(),
+                   torch.ones(K, 1, device=tab.device),
+                   torch.randint(0, 2, (K, 1), generator=gen,
+                                 device=tab.device).float(),
+                   0.1 * torch.randn(K, 1 + D, generator=gen,
+                                     device=tab.device)], 1) * valid
+    want = slab.clone()
+    tab.seed_fn = lambda: PUSH_CHECK_SEED
+    reset_counts()
+    tab.push(ids, g)
+    torch.cuda.synchronize()
+    c_push = counts()
+    n_valid = int(valid.sum())
+    uniq, inv = torch.unique(ids, sorted=True, return_inverse=True)
+    n_uniq = int(uniq.shape[0])
+    uids = torch.cat([uniq.to(torch.int32),
+                      want.shape[0] + torch.arange(K - n_uniq,
+                                                   dtype=torch.int32,
+                                                   device=tab.device)])
+    perm, offsets = device_push_maps(inv.to(torch.int32), n_valid)
+    push_adagrad_fused_plain(want, g, perm, offsets, uids, n_uniq,
+                             PUSH_CHECK_SEED, tab.layout,
+                             tab.config.optimizer)
+    check(c_push["push_adagrad"] == 1 and c_push["gather_rows"] == 0
+          and torch.equal(slab.view(torch.int32), want.view(torch.int32)),
+          "PassTable.push differs from its plain version (launches %s)"
+          % c_push)
+    tab.end_pass()
+    rec = {"ids": K, "uniques": n_uniq, "pull_launches": c_pull,
+           "push_launches": {k: v for k, v in c_push.items() if v}}
+    log("slice21 PassTable.pull and push at the flagship batch (%d ids, %d "
+        "uniques): bit-equal to their plain versions, one gather_rows and "
+        "one push_adagrad" % (K, n_uniq))
+    return rec
+
+
+def lockwatch_runs(torch, cfg, feed, files, reset_counts, counts):
+    """Fresh FLAGSHIP passes with lockwatch's switch on and off in the
+    order LOCK_RUNS, each held to FLAGSHIP_DIGITS' first pass; the on runs
+    record no inversion and no cycle. Walls a run and the means."""
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.utils import lockwatch
+
+    runs = []
+    for mode in LOCK_RUNS:
+        prev = lockwatch.set_enabled(mode == "on")
+        lockwatch.reset()
+        try:
+            t, d = flagship.build_trainer(files, feed, cfg, "scatter",
+                                          "cuda")
+        finally:
+            lockwatch.set_enabled(prev)
+        watched = type(t.table.store_lock).__name__ == "_WatchedLock"
+        check(watched == (mode == "on"), "lockwatch %s: store_lock %r"
+              % (mode, t.table.store_lock))
+        rec = slice21_pass(torch, t, d, "lockwatch %s pass" % mode,
+                           reset_counts, counts)
+        t.close()
+        del t, d
+        rec["mode"] = mode
+        if mode == "on":
+            check(lockwatch.inversions() == [],
+                  "lockwatch recorded inversions %s" % lockwatch.inversions())
+            lockwatch.assert_consistent()
+            rec["edges"] = len(lockwatch.edges())
+        runs.append(rec)
+    lockwatch.reset()
+    walls = {m: [r["pass_s"] for r in runs if r["mode"] == m]
+             for m in ("on", "off")}
+    means = {m: sum(w) / len(w) for m, w in walls.items()}
+    log("slice21 lockwatch on vs off (order %s): pass walls %s, means on "
+        "%.4f off %.4f s; no inversion, %s nesting edges"
+        % (", ".join(LOCK_RUNS), json.dumps(walls), means["on"],
+           means["off"], [r.get("edges") for r in runs]))
+    return {"runs": runs, "means": means}
+
+
+def slice21_phase(torch, cfg, feed, files, tmp, reset_counts, counts):
+    """Phase 21 at FLAGSHIP's full width: the environment's push write
+    reaching the trainer; a record-path pass over the text files, the same
+    pass fed from load_into_disk's archive shards and through
+    pipe_command='cat' (equal losses, AUC, slab sha256); a dumped pass
+    against an undumped one; train_pass_profiled against train_pass at
+    scan_chunk=1; PassTable.pull and push against their plain versions;
+    the AUC runner on AUC_RUNNER_SLOTS; lockwatch on and off; then one pass
+    inside utils/profiler.trace in a child process of its own (its first
+    torch.profiler session)."""
+    import glob
+
+    from paddlebox_tpu_torch import profile_pass
+    from paddlebox_tpu_torch.data.archive import is_archive
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.train.auc_runner import AucRunner
+
+    out = {"env_blocked": env_blocked_check(torch, cfg, feed, files,
+                                            reset_counts, counts)}
+
+    def fresh(feed_=feed, **fields):
+        return flagship.build_trainer(files, feed_, cfg, "scatter", "cuda",
+                                      **fields)
+
+    # the text files on the record path: what the archive and pipe
+    # passes equal; its trainer and records then feed the AUC runner
+    text_t, _ = fresh()
+    text_ds = BoxDataset(feed, columnar=False)
+    text_ds.set_filelist(files)
+    text = out["text"] = slice21_pass(torch, text_t, text_ds,
+                                      "text record-path pass", reset_counts,
+                                      counts)
+    spill = BoxDataset(feed)
+    spill.set_filelist(files)
+    t0 = time.perf_counter()
+    spill.load_into_disk(os.path.join(tmp, "slice21_spill", "pass0"),
+                         SPILL_SHARD_BYTES)
+    spill_s = time.perf_counter() - t0
+    shards = spill.disk_files
+    check(len(shards) > 1 and all(is_archive(f) for f in shards),
+          "load_into_disk wrote %s" % shards)
+    t, _ = fresh()
+    ads = BoxDataset(feed)
+    ads.set_filelist(shards)
+    out["archive"] = slice21_pass(torch, t, ads, "archive pass",
+                                  reset_counts, counts)
+    check(not ads._load_columnar, "the archive load ran columnar")
+    same_pass("archive pass", out["archive"], text)
+    t.close()
+    t, pds = fresh(dataclasses.replace(feed, pipe_command="cat"))
+    out["pipe"] = slice21_pass(torch, t, pds, "pipe_command=cat pass",
+                               reset_counts, counts)
+    check(pds.columnar and not pds._load_columnar,
+          "the piped load did not take the record path")
+    same_pass("pipe pass", out["pipe"], text)
+    t.close()
+    log("slice21 archive spill: %d shards, %d bytes, load_into_disk %.4f s;"
+        " archive and pipe passes = the text record-path pass (loss, AUC, "
+        "slab sha256)" % (len(shards), sum(os.path.getsize(f)
+                                           for f in shards), spill_s))
+
+    # the dump: the undumped (columnar) pass, then a dumped one
+    t, d = fresh()
+    undumped = out["undumped"] = slice21_pass(torch, t, d, "undumped pass",
+                                              reset_counts, counts)
+    same_pass("undumped columnar pass", undumped, text)
+    t.close()
+    dump_dir = os.path.join(tmp, "slice21_dump")
+    t, d = fresh(dump_fields=("label", "pred"), dump_fields_path=dump_dir,
+                 dump_thread_num=2)
+    dumped = out["dumped"] = slice21_pass(torch, t, d, "dumped pass",
+                                          reset_counts, counts)
+    same_pass("dumped pass", dumped, undumped)
+    t.close()
+    lines = 0
+    for path in glob.glob(os.path.join(dump_dir, "dump-*.txt")):
+        with open(path) as fh:
+            lines += sum(1 for _ in fh)
+    check(lines == dumped["instances"], "the dump holds %d lines for %d "
+          "instances" % (lines, dumped["instances"]))
+    out["dump"] = {"lines": lines,
+                   "extra_s": dumped["pass_s"] - undumped["pass_s"]}
+    log("slice21 dump: %d lines for %d instances, pass %.4f s against %.4f "
+        "s undumped (%+.4f s)" % (lines, dumped["instances"],
+                                  dumped["pass_s"], undumped["pass_s"],
+                                  out["dump"]["extra_s"]))
+
+    # the profiled pass against train_pass at scan_chunk=1
+    t1, d1 = fresh(scan_chunk=1)
+    per_step = out["scan_chunk_1"] = slice21_pass(
+        torch, t1, d1, "scan_chunk=1 pass", reset_counts, counts)
+    tp, dp = fresh(scan_chunk=1)
+    prof = out["profiled"] = slice21_pass(torch, tp, dp, "profiled pass",
+                                          reset_counts, counts,
+                                          profiled=True)
+    same_pass("profiled pass", prof, per_step)
+    prof["stage_ms"] = {k: v.elapsed_ms() for k, v in tp.stage_timers.items()}
+    check(all(v.count == prof["batches"] for v in tp.stage_timers.values()),
+          "profiled stage timers %s" % tp.stage_timers)
+    tp.close()
+    log("slice21 profiled pass = train_pass at scan_chunk=1 bit for bit; "
+        "stage ms %s over %d steps (pass %.4f s, scan_chunk=1 %.4f s); "
+        "launches %s; %s"
+        % (json.dumps(prof["stage_ms"]), prof["batches"], prof["pass_s"],
+           per_step["pass_s"], prof["launches"], card_line()))
+
+    # the standalone table surface, in a second pass of t1's table
+    out["table"] = table_pull_push_check(torch, t1, d1, reset_counts,
+                                         counts)
+    t1.close()
+
+    # the AUC runner over the text pass's records
+    reset_counts()
+    t0 = time.perf_counter()
+    auc = AucRunner(text_t, seed=0).run(text_ds, slots=AUC_RUNNER_SLOTS)
+    auc_s = time.perf_counter() - t0
+    c = counts()
+    check(0.0 < auc["base_auc"] <= 1.0
+          and all(abs(v) < 1.0 for v in auc.values())
+          and c["push_adagrad"] == 0
+          and c["gather_rows"] >= (len(AUC_RUNNER_SLOTS) + 1)
+          * text["batches"],
+          "AUC runner %s launches %s" % (auc, c))
+    out["auc_runner"] = dict(auc, secs=auc_s,
+                             launches={k: v for k, v in c.items() if v})
+    log("slice21 AUC runner on slots %s: %s in %.4f s, launches %s"
+        % (list(AUC_RUNNER_SLOTS), json.dumps(auc), auc_s,
+           out["auc_runner"]["launches"]))
+    text_t.close()
+    del text_t, text_ds
+
+    out["lockwatch"] = lockwatch_runs(torch, cfg, feed, files, reset_counts,
+                                      counts)
+
+    # utils/profiler.trace last, in a process of its own
+    logdir = os.path.join(tmp, "slice21_trace")
+    spawn = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(1, mp_context=spawn) as child:
+        tr = child.submit(profile_pass.traced_pass, cfg, files, feed,
+                          logdir).result()
+    tr["secs"] = time.perf_counter() - t0
+    flagship_pass0("traced pass", tr)
+    k = tr["kernel_calls"]
+    check(k["push_adagrad"] >= tr["batches"]
+          and k["gather_rows"] >= tr["batches"]
+          and set(profile_pass.TRACE_SPANS) <= set(tr["spans"]),
+          "utils/profiler.trace's chrome trace: %s" % tr)
+    out["trace"] = tr
+    log("slice21 utils/profiler.trace in a child process: %s"
+        % json.dumps(tr))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4971,6 +5344,13 @@ def main() -> int:
                               reset_counts, counts)
         clock.lap("stream")
 
+        # 21. the single-process host modules: the env flags, the archive
+        # spill, the pipe, the dump, the profiled pass, the table's pull
+        # and push, the AUC runner, lockwatch, and a trace in a child
+        slice21 = slice21_phase(torch, cfg, feed, files, tmp, reset_counts,
+                                counts)
+        clock.lap("slice21")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -5051,7 +5431,12 @@ def main() -> int:
                               **{"async_" + n: async_dense[n]["launches"]
                                  for n in ("async", "scan_chunk_1",
                                            "drained_0", "drained_1")},
-                              "stream": stream["launches"]},
+                              "stream": stream["launches"],
+                              **{"slice21_" + n: slice21[n]["launches"]
+                                 for n in ("text", "archive", "pipe",
+                                           "dumped", "profiled")},
+                              "slice21_env_blocked":
+                                  slice21["env_blocked"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

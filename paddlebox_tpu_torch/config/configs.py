@@ -1,15 +1,28 @@
-"""Typed configs of the training slice.
+"""Typed configs of the port.
 
-Field names and defaults follow paddlebox_tpu/config/configs.py, so a config
-written for the JAX package carries over by keyword. Only the fields this
-slice reads are kept; the rest of the JAX dataclasses wait for the slices
-that read them.
+Field names and defaults follow paddlebox_tpu/config/configs.py, and every
+dataclass there has the same field set here, so a config written for the
+JAX package constructs in the port by keyword. The fields that belong to
+the multi-device trainers (TrainerConfig's sync_weight_step,
+sync_one_ring and a2a_dtype, MeshConfig's sizes) are accepted at their
+defaults and refused otherwise, naming ROADMAP.md A10; a few are read by
+nothing here, as in the reference (each says so).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional, Tuple
+
+from paddlebox_tpu_torch.config.flags import HostFlags
+
+
+def _a10(name: str, value, default) -> None:
+    """Refuse a multi-device field away from its default."""
+    if value != default:
+        raise ValueError("%s=%r needs the multi-device trainer (ROADMAP.md "
+                         "A10); the port takes %r only" % (name, value,
+                                                            default))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,11 +72,14 @@ class TableConfig:
     at the end of a pass (embedding/ssd_tier.py); with either unset
     nothing spills. ``host_shard_bits`` is accepted and read by nothing,
     as in the reference (the striped store's stripe count is
-    PassFlags.host_store_stripes)."""
+    PassFlags.host_store_stripes). ``value_dtype`` is accepted and read by
+    nothing, as in the reference (the slab's storage is
+    DtypeFlags.slab_embed_dtype)."""
 
     embedx_dim: int = 8
     expand_embed_dim: int = 0
     pass_capacity: int = 1 << 20
+    value_dtype: str = "float32"
     show_click_decay_rate: float = 0.98
     delete_threshold: float = 0.8
     delete_after_unseen_days: float = 30.0
@@ -109,11 +125,23 @@ class DataFeedConfig:
     back to the click label. ``rank_offset``: the packer builds each
     batch's pv rank-offset matrix (the join phase). ``parse_ins_id``: each
     line leads with the instance id (the InputTable's key). Either puts
-    the dataset on the record path, as in the reference."""
+    the dataset on the record path, as in the reference.
+
+    ``pipe_command``: a shell command every input file is piped through
+    before it is parsed (a ``.gz`` file is piped from ``zcat``); a ``.gz``
+    file without one is read through gzip. Either puts the load on the
+    record path (data/dataset.py). ``parser`` is accepted and read by
+    nothing, as in the reference (an archive input is known by its magic;
+    a plugin parser is BoxDataset's ``parser`` argument).
+    ``batch_key_capacity``: the packer's static key slots a batch, 0 for
+    ``key_capacity``'s other rules."""
 
     slots: Tuple[SlotConfig, ...] = ()
     batch_size: int = 512
+    pipe_command: str = ""
+    parser: str = "multislot"
     task_label_slots: Tuple[Tuple[str, str], ...] = ()
+    batch_key_capacity: int = 0
     rank_offset: bool = False
     parse_ins_id: bool = False
 
@@ -123,10 +151,34 @@ class DataFeedConfig:
     def used_dense_slots(self) -> List[SlotConfig]:
         return [s for s in self.slots if s.is_used and s.type == "float"]
 
-    def key_capacity(self) -> int:
-        """Static key slots per batch: batch * sum(min(max_len, 16))."""
+    def key_capacity(self, batch_size: Optional[int] = None) -> int:
+        """Static key slots per batch (reference configs.py:125-133): the
+        feed's ``batch_key_capacity``, else HostFlags' (the environment's)
+        ``padbox_max_batch_keys``, else batch * sum(min(max_len, 16)) with
+        ``batch_size`` (the feed's by default)."""
+        if self.batch_key_capacity:
+            return self.batch_key_capacity
+        override = int(HostFlags().padbox_max_batch_keys)
+        if override:
+            return override
+        bs = batch_size or self.batch_size
         per_ins = sum(min(s.max_len, 16) for s in self.used_sparse_slots())
-        return max(128, self.batch_size * max(per_ins, 1))
+        return max(128, bs * max(per_ins, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh's layout (reference configs.py:136-143). The port
+    trains on one device: sizes above 1 are A10's."""
+
+    data: int = 1
+    model: int = 1
+    pipeline: int = 1
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    def __post_init__(self):
+        for name in ("data", "model", "pipeline"):
+            _a10("MeshConfig." + name, getattr(self, name), 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +191,7 @@ class CheckpointConfig:
     batch_model_dir: str = "ckpt/batch"
     xbox_model_dir: str = "ckpt/xbox"
     save_delta_every_passes: int = 1
+    save_base_every_days: int = 1
     async_save: bool = True
 
 
@@ -167,22 +220,42 @@ class TrainerConfig:
     the dense forward's dtype, 'float32' or 'bfloat16' (the pooled input
     and a bf16 copy of every parameter; the parameters and the
     optimizer's state stay f32 masters, gradients flow back through the cast, the logits
-    return to f32 for the loss)."""
+    return to f32 for the loss). check_nan_inf's default is HostFlags'
+    (PBTPU_CHECK_NAN_INF), read when the config is made.
+
+    dump_fields, dump_fields_path, dump_thread_num: with fields and a path
+    the trainer writes one line a real instance of each batch through
+    train/dump.py's DumpWriter on that many threads. profile: each pass
+    logs its stage timers at its end. thread_num is accepted and read by
+    nothing, as in the reference. sync_weight_step, sync_one_ring and
+    a2a_dtype are A10's, taken at their defaults only."""
 
     dense_lr: float = 1e-3
-    check_nan_inf: bool = False
+    check_nan_inf: bool = dataclasses.field(
+        default_factory=lambda: bool(HostFlags().check_nan_inf))
     scan_chunk: int = 8
     sparse_chunk_sync: bool = False
     compute_dtype: str = "float32"
     dense_optimizer: str = "adam"
     sync_mode: str = "step"
+    sync_weight_step: int = 1
+    sync_one_ring: bool = False
     async_mode: bool = False
     sharding: bool = False
+    thread_num: int = 1
+    dump_fields: Tuple[str, ...] = ()
+    dump_fields_path: str = ""
+    dump_thread_num: int = 1
+    profile: bool = False
+    a2a_dtype: str = "float32"
 
     def __post_init__(self):
         if self.sync_mode not in SYNC_MODES:
             raise ValueError("sync_mode must be one of %s, got %r"
                              % (SYNC_MODES, self.sync_mode))
+        _a10("sync_weight_step", self.sync_weight_step, 1)
+        _a10("sync_one_ring", self.sync_one_ring, False)
+        _a10("a2a_dtype", self.a2a_dtype, "float32")
         if self.dense_optimizer not in ("adam", "sgd", "adagrad"):
             raise ValueError("dense_optimizer must be adam, sgd or adagrad, "
                              "got %r" % (self.dense_optimizer,))

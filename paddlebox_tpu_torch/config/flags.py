@@ -1,22 +1,29 @@
 """The switches the port reads: the push write, the pass lifecycle, the
-chunk driver's staging, the checkpoint plane, the dtype diet and the
-trainer's host planes (telemetry, quality, drift).
+chunk driver's staging, the checkpoint plane, the dtype diet, the
+trainer's host planes (telemetry, quality, drift), the streaming runner
+and the single-process host switches (HostFlags: the feed's shuffle and
+key cap, the dump and archive rotation, the profiled pass, the AUC
+runner, the nan guard's default, the lock-order watch, the host hash
+table's load factor).
 
 The JAX package keeps these in a process-wide flag registry
-(paddlebox_tpu/config/flags.py: ``push_write``, ``push_block_rows``,
-``incremental_pass``, ``preload_promote``, ``host_store_stripes``,
-``stack_threads``, ``chunk_prefetch_depth``, ``h2d_stack_chunks``,
-``h2d_lean``,
-``h2d_uid_wire``, ``wire_delta_ids``, ``ckpt_*``,
-``slab_embed_dtype``, ``matmul_dtype``, ``obs_*``, ``quality_*``,
-``data_quality*``, ``device_*``, ``freshness_slo_secs``,
-``tier_hit_rate_warn``, ``streaming_*``). The port passes
-them as values to the trainer, the pass table and the checkpoint manager
-instead, so two trainers in one process can run different modes side by
-side. The fields the streaming runner and the obs tiers added (ObsFlags'
-watchdog, flight, exporter, device and watermark fields, and StreamFlags)
-also take the reference's environment override: ``PBTPU_<NAME>`` set when
-the dataclass is made replaces the default, parsed by the default's type.
+(paddlebox_tpu/config/flags.py), each read when the flag is defined. The
+port passes them as values to the trainer, the pass table, the dataset
+and the checkpoint manager instead, so two trainers in one process can
+run different modes side by side.
+
+When the port reads the environment: every field here takes the
+reference's override, ``PBTPU_<NAME>`` (the field's name upper-cased),
+parsed by the default's type, and reads it each time its dataclass is
+made, not when this module is imported. An explicit constructor argument
+wins over the environment (``ObsFlags.off()`` passes its fields
+explicitly, so it stays off). A value made once and kept (a trainer's
+``stage_flags``, the device plane's settings made at the import of
+obs/device.py, lockwatch's switch made at its import) keeps the
+environment of that moment: a variable set later reaches only objects
+made later, and never part of one object. Defaults of function
+arguments are None and made in the body for that reason
+(train/flagship.py ``build_trainer``).
 """
 
 from __future__ import annotations
@@ -72,8 +79,8 @@ class DtypeFlags:
     (rounded to bf16, products summed in f32, an f32 result) or
     'float32'. The trainer reads both at construction."""
 
-    slab_embed_dtype: str = "float32"
-    matmul_dtype: str = "float32"
+    slab_embed_dtype: str = _env("slab_embed_dtype", "float32")
+    matmul_dtype: str = _env("matmul_dtype", "float32")
 
     def __post_init__(self):
         for name in ("slab_embed_dtype", "matmul_dtype"):
@@ -93,8 +100,8 @@ class PushFlags:
     kernel; 'auto' (the default, as in the reference) is
     ``resolve_push_write``'s choice."""
 
-    push_write: str = "auto"
-    push_block_rows: int = 1024
+    push_write: str = _env("push_write", "auto")
+    push_block_rows: int = _env("push_block_rows", 1024)
 
     def __post_init__(self):
         if self.push_write not in PUSH_WRITES:
@@ -164,9 +171,9 @@ class PassFlags:
     stream (per-stripe rngs), so flip it only on fresh runs or
     restored-from-checkpoint runs."""
 
-    incremental_pass: bool = True
-    preload_promote: bool = True
-    host_store_stripes: int = 0
+    incremental_pass: bool = _env("incremental_pass", True)
+    preload_promote: bool = _env("preload_promote", True)
+    host_store_stripes: int = _env("host_store_stripes", 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,12 +197,12 @@ class StageFlags:
     ids-only wire: no product, the step dedups on the device (and pushes
     by 'scatter'). Test passes stage no product on any wire."""
 
-    stack_threads: int = 4
-    chunk_prefetch_depth: int = 1
-    h2d_stack_chunks: int = 1
-    h2d_lean: bool = False
-    h2d_uid_wire: bool = True
-    wire_delta_ids: bool = False
+    stack_threads: int = _env("stack_threads", 4)
+    chunk_prefetch_depth: int = _env("chunk_prefetch_depth", 1)
+    h2d_stack_chunks: int = _env("h2d_stack_chunks", 1)
+    h2d_lean: bool = _env("h2d_lean", False)
+    h2d_uid_wire: bool = _env("h2d_uid_wire", True)
+    wire_delta_ids: bool = _env("wire_delta_ids", False)
 
     @property
     def wire(self) -> str:
@@ -245,13 +252,14 @@ class CkptFlags:
     stay, past which the oldest is dropped and touched saves fall back to
     full until the next full base."""
 
-    ckpt_format: str = "columnar"
-    ckpt_parts: int = 8
-    ckpt_io_threads: int = 0
-    ckpt_xbox_columnar: bool = True
-    ckpt_journal: bool = True
-    ckpt_journal_segment_bytes: int = 64 << 20
-    ckpt_journal_segments: int = 32
+    ckpt_format: str = _env("ckpt_format", "columnar")
+    ckpt_parts: int = _env("ckpt_parts", 8)
+    ckpt_io_threads: int = _env("ckpt_io_threads", 0)
+    ckpt_xbox_columnar: bool = _env("ckpt_xbox_columnar", True)
+    ckpt_journal: bool = _env("ckpt_journal", True)
+    ckpt_journal_segment_bytes: int = _env(
+        "ckpt_journal_segment_bytes", 64 << 20)
+    ckpt_journal_segments: int = _env("ckpt_journal_segments", 32)
 
     def __post_init__(self):
         if self.ckpt_format not in CKPT_FORMATS:
@@ -297,14 +305,14 @@ class ObsFlags:
     (obs/watermark.py; :666); freshness_slo_secs (:676) and
     tier_hit_rate_warn (:683): the burn gauges' bounds, <= 0 off."""
 
-    obs_trace: bool = True
-    obs_trace_capacity: int = 4096
-    obs_report_every: int = 20
-    obs_report_path: str = ""
-    quality_metrics: bool = True
-    quality_table_size: int = 65536
-    data_quality: bool = True
-    data_quality_warn: float = 0.5
+    obs_trace: bool = _env("obs_trace", True)
+    obs_trace_capacity: int = _env("obs_trace_capacity", 4096)
+    obs_report_every: int = _env("obs_report_every", 20)
+    obs_report_path: str = _env("obs_report_path", "")
+    quality_metrics: bool = _env("quality_metrics", True)
+    quality_table_size: int = _env("quality_table_size", 65536)
+    data_quality: bool = _env("data_quality", True)
+    data_quality_warn: float = _env("data_quality_warn", 0.5)
     obs_watchdog_secs: float = _env("obs_watchdog_secs", 0.0)
     obs_watchdog_action: str = _env("obs_watchdog_action", "dump")
     obs_flight_dir: str = _env("obs_flight_dir", "")
@@ -361,3 +369,36 @@ class StreamFlags:
         "streaming_admission_max_drift", 0.8)
     streaming_idle_timeout_secs: float = _env(
         "streaming_idle_timeout_secs", 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class HostFlags:
+    """The single-process host switches (paddlebox_tpu/config/flags.py:
+    122-135, 188, 566), each with the env override.
+
+    dataset_disable_shuffle: BoxDataset.local_shuffle keeps the load order
+    (:122). auc_runner_mode: train/auc_runner.py maybe_run_auc_runner runs
+    (:125). check_nan_inf: TrainerConfig.check_nan_inf's default (:127).
+    padbox_max_batch_keys: DataFeedConfig.key_capacity's override after
+    the feed's own batch_key_capacity, 0 none (:130).
+    sparse_table_load_factor: the native host store's hash table grows
+    past this load (:133). dump_file_max_bytes: the rotation size of the
+    dump writer's and the archive spill's files (:135). profile_per_op:
+    BoxTrainer.train_pass runs train_pass_profiled (:188).
+    debug_lock_order: the default of lockwatch's process-wide switch,
+    read once when utils/lockwatch.py is imported (:566)."""
+
+    dataset_disable_shuffle: bool = _env("dataset_disable_shuffle", False)
+    auc_runner_mode: bool = _env("auc_runner_mode", False)
+    check_nan_inf: bool = _env("check_nan_inf", False)
+    padbox_max_batch_keys: int = _env("padbox_max_batch_keys", 0)
+    sparse_table_load_factor: float = _env("sparse_table_load_factor", 0.75)
+    dump_file_max_bytes: int = _env("dump_file_max_bytes", 2 << 30)
+    profile_per_op: bool = _env("profile_per_op", False)
+    debug_lock_order: bool = _env("debug_lock_order", False)
+
+
+# every dataclass of switches; their fields are the reference flags the
+# port reads (tests/test_torch_flags.py holds them to the registry)
+FLAG_CLASSES = (DtypeFlags, PushFlags, PassFlags, StageFlags, CkptFlags,
+                ObsFlags, StreamFlags, HostFlags)

@@ -14,6 +14,8 @@ call, which releases the interpreter lock.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 
 from paddlebox_tpu_torch.config.configs import DataFeedConfig
@@ -25,8 +27,11 @@ from paddlebox_tpu_torch.native.host_lib import I32P, ptr
 class NativeMultiSlotParser:
     label_slot = "click"
 
-    def __init__(self, feed: DataFeedConfig) -> None:
-        self._lib = host_lib.host_lib()
+    def __init__(self, feed: DataFeedConfig, lib_path: str = None) -> None:
+        """``lib_path``: a parser plugin's shared object with the psr_*
+        entries (data/plugin.py) instead of the port's host library."""
+        self._lib = (host_lib.bind_parser(ctypes.CDLL(lib_path))
+                     if lib_path is not None else host_lib.host_lib())
         self.feed = feed
         slots = list(feed.slots)
         self._slot_types = np.array(

@@ -6,10 +6,20 @@ the float slot named "click" is the label, a used float slot's values are
 float32 dense inputs, and the first value of a ``task_label_slots`` slot is
 that task's label. Under the feed's ``parse_ins_id`` a line leads with the
 instance id. Malformed lines are dropped, as in the reference parser.
+
+``parse_file`` reads plain text, a ``.gz`` file through gzip, or, under the
+feed's ``pipe_command``, the command's output with the file on its stdin
+(a ``.gz`` file piped from ``zcat``), as the reference does
+(paddlebox_tpu/data/parser.py:83-115). A command that ends with 141 or
+-13 (SIGPIPE: the reader stopped early) is not an error; any other
+non-zero code raises IOError naming the command and the file.
 """
 
 from __future__ import annotations
 
+import gzip
+import shlex
+import subprocess
 from typing import Iterator, Optional
 
 import numpy as np
@@ -73,8 +83,36 @@ class MultiSlotParser:
         return rec
 
     def parse_file(self, path: str) -> Iterator[SlotRecord]:
+        for line in open_lines(path, self.feed.pipe_command):
+            rec = self.parse_line(line)
+            if rec is not None:
+                yield rec
+
+
+def open_lines(path: str, pipe_command: str = "") -> Iterator[str]:
+    """The text lines of one input file: through ``pipe_command`` when it
+    is set, else the file itself (gunzipped when it ends in .gz)."""
+    if pipe_command:
+        gz = path.endswith(".gz")
+        src = None if gz else open(path, "rb")
+        cmd = ("zcat %s | %s" % (shlex.quote(path), pipe_command) if gz
+               else pipe_command)
+        proc = subprocess.Popen(cmd, shell=True, stdin=src,
+                                stdout=subprocess.PIPE, text=True)
+        try:
+            yield from proc.stdout
+        finally:
+            if src is not None:
+                src.close()
+            proc.stdout.close()
+            rc = proc.wait()
+            if rc not in (0, 141, -13):
+                raise IOError("pipe_command %r failed (rc=%d) on %s"
+                              % (pipe_command, rc, path))
+        return
+    if path.endswith(".gz"):
+        with gzip.open(path, "rt") as fh:
+            yield from fh
+    else:
         with open(path, "r") as fh:
-            for line in fh:
-                rec = self.parse_line(line)
-                if rec is not None:
-                    yield rec
+            yield from fh

@@ -35,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from paddlebox_tpu_torch.config.flags import StreamFlags
 from paddlebox_tpu_torch.data.dataset import BoxDataset
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 from paddlebox_tpu_torch.utils.stats import gauge_set, stat_add
 
 #: suffixes of a file a writer has not finished
@@ -180,7 +181,7 @@ class SocketFeedServer:
         self._srv = socket.create_server((host, port))
         self._srv.settimeout(0.2)
         self.port = self._srv.getsockname()[1]
-        self._seq_lock = threading.Lock()
+        self._seq_lock = make_lock("SocketFeedServer._seq_lock")
         self._seq = 0
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
@@ -320,7 +321,7 @@ class StreamingDataset:
         self.server: Optional[SocketFeedServer] = None
         if socket_port is not None:
             self.server = SocketFeedServer(source_dir, port=socket_port)
-        self._lock = threading.Lock()
+        self._lock = make_lock("StreamingDataset._lock")
         self._pending: List[Tuple[str, int]] = []   # (path, lines)
         self._pending_since: Optional[float] = None
         self._windows = 0

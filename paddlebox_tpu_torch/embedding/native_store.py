@@ -41,7 +41,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from paddlebox_tpu_torch.config.configs import TableConfig
-from paddlebox_tpu_torch.config.flags import CkptFlags
+from paddlebox_tpu_torch.config.flags import CkptFlags, HostFlags
 from paddlebox_tpu_torch.embedding import ckpt_store
 from paddlebox_tpu_torch.embedding.accessor import (DELTA_SCORE, UNSEEN_DAYS,
                                                     ValueLayout)
@@ -52,9 +52,6 @@ from paddlebox_tpu_torch.native import host_lib
 from paddlebox_tpu_torch.native.host_lib import F32P, I64P, U8P, U64P, ptr
 from paddlebox_tpu_torch.utils.stats import stat_add
 
-# the hash table grows past this load (the reference's
-# sparse_table_load_factor default)
-LOAD_FACTOR = 0.75
 
 
 class NativeHostEmbeddingStore:
@@ -66,7 +63,10 @@ class NativeHostEmbeddingStore:
         self.layout = layout
         self.table = table
         self._rng = np.random.RandomState(seed)
-        self._h = self._lib.hs_create(layout.width, LOAD_FACTOR)
+        # the hash table grows past this load (HostFlags'
+        # sparse_table_load_factor when the store is made)
+        self._load_factor = float(HostFlags().sparse_table_load_factor)
+        self._h = self._lib.hs_create(layout.width, self._load_factor)
         # the block tag is the store's own (see HostEmbeddingStore)
         self._spill_dir = table.ssd_dir
         self._tier = SpillTier(layout.width, table.ssd_dir,
@@ -415,7 +415,7 @@ class NativeHostEmbeddingStore:
         if values.shape != (keys.size, self.layout.width):
             raise ValueError("checkpoint values %s for %d keys of width %d"
                              % (values.shape, keys.size, self.layout.width))
-        h = self._lib.hs_create(self.layout.width, LOAD_FACTOR)
+        h = self._lib.hs_create(self.layout.width, self._load_factor)
         self._lib.hs_destroy(self._h)
         self._h = h
         # a stale tier entry must not come back over a restored row

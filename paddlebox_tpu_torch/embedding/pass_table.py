@@ -109,12 +109,16 @@ from paddlebox_tpu_torch.embedding.accessor import (PushLayout, ValueLayout,
                                                     decode_slab_rows_np,
                                                     slab_rows_np)
 from paddlebox_tpu_torch.embedding.native_store import make_host_store
+from paddlebox_tpu_torch.embedding.optimizers import push_sparse_dedup
 from paddlebox_tpu_torch.native import host_lib
 from paddlebox_tpu_torch.obs.device import account_d2h, account_h2d
 from paddlebox_tpu_torch.obs.tracer import record_span
 from paddlebox_tpu_torch.ops.row_kernels import gather_rows
+from paddlebox_tpu_torch.ops.sparse import (gather_slab_rows,
+                                            pull_view_from_rows)
 from paddlebox_tpu_torch.utils.journal_format import (EV_AGE_DAYS, EV_SHRINK,
                                                      EV_TICK_SPILL_AGE)
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 from paddlebox_tpu_torch.utils.stats import gauge_set, stat_add
 
 # the reference's row counters (stat names): counted in the process-wide
@@ -331,7 +335,7 @@ class PassTable:
         self.store = (store if store is not None
                       else make_host_store(self.layout, table, seed,
                                            self.flags.host_store_stripes))
-        self.store_lock = threading.Lock()
+        self.store_lock = make_lock("PassTable.store_lock")
         self.capacity = int(table.pass_capacity)
         self._feed_keys: List[np.ndarray] = []
         self._pass_keys: Optional[np.ndarray] = None
@@ -361,6 +365,11 @@ class PassTable:
                                           "spill": 0.0}
         # the touched-row journal (train/journal.py), when one is attached
         self._journal = None
+        # the standalone push's seeds (``push``): a host int a call from
+        # the table's own generator, as the trainer draws its steps'
+        # (``seed_fn`` may be replaced, as the trainer's)
+        self._seed_gen = torch.Generator().manual_seed(seed)
+        self.seed_fn: Callable[[], int] = self._draw_seed
 
     # --------------------------------------------------------------- journal
     def attach_journal(self, journal) -> None:
@@ -659,6 +668,38 @@ class PassTable:
         begin_pass."""
         if keys.size:
             self._staged = (keys, rows)
+
+    def _draw_seed(self) -> int:
+        return int(torch.randint(0, 2**31 - 1, (), generator=self._seed_gen))
+
+    # ---------------------------------------------------------- pull / push
+    def pull(self, ids: torch.Tensor) -> torch.Tensor:
+        """PullSparseGPU (reference pass_table.py:806-814): the pull view
+        [K, 3+D] (show, click, embed_w, embedx) of the slab's rows ``ids``
+        (int32 on the table's device; padding ids read the trash row),
+        through gather_slab_rows: the gather_rows kernel on the card, its
+        decoding form on the bf16 slab."""
+        if not self._in_pass:
+            raise RuntimeError("pull outside pass")
+        return pull_view_from_rows(gather_slab_rows(self.slab, ids,
+                                                    self.layout), self.layout)
+
+    def push(self, ids: torch.Tensor, grads: torch.Tensor) -> None:
+        """PushSparseGPU (reference pass_table.py:816-830): ``grads`` [K,
+        push width] of the occurrences ``ids`` [K] merged by id and applied
+        through the table's in-table rule, IN PLACE: push_sparse_dedup
+        (the fused push_adagrad kernel on the card) with a seed from
+        ``seed_fn``. Padding occurrences address the trash row and must
+        carry zero grads. The rows are marked touched first; a test-mode
+        pass pushes nothing."""
+        if not self._in_pass:
+            raise RuntimeError("push outside pass")
+        if self._test_mode:
+            return
+        self.note_touched(ids.cpu().numpy())
+        n_valid = int((ids != self.padding_id).sum())
+        push_sparse_dedup(self.slab, ids, n_valid, grads, self.seed_fn(),
+                          self.layout, self.config.optimizer)
 
     def set_test_mode(self, test: bool) -> None:
         """SetTestMode (box_wrapper.cc:183): eval passes, which create no

@@ -18,13 +18,13 @@ InputTable    string key -> row; row 0 is the zero row, the row of every
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 
 
 def _frozen(host: np.ndarray, dim: int, capacity: Optional[int],
@@ -51,7 +51,7 @@ class ReplicaCache:
     def __init__(self, dim: int) -> None:
         self.dim = dim
         self._rows: List[np.ndarray] = []
-        self._lock = threading.Lock()
+        self._lock = make_lock("ReplicaCache._lock")
 
     def add_items(self, emb) -> int:
         """Append one row; returns its index."""
@@ -85,7 +85,7 @@ class InputTable:
         self.dim = dim
         self._offsets: Dict[str, int] = {}
         self._rows: List[np.ndarray] = []
-        self._lock = threading.Lock()
+        self._lock = make_lock("InputTable._lock")
         self.miss = 0
         self.add_index_data("-", np.zeros(dim, np.float32))
 

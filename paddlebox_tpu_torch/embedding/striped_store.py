@@ -39,6 +39,7 @@ from paddlebox_tpu_torch.embedding import ckpt_store
 from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 from paddlebox_tpu_torch.embedding.native_store import \
     NativeHostEmbeddingStore
+from paddlebox_tpu_torch.utils.lockwatch import make_rlock
 
 
 def stripe_of(keys: np.ndarray, n_stripes: int) -> np.ndarray:
@@ -66,7 +67,8 @@ class StripedHostStore:
         self._spill_dir = table.ssd_dir
         self.stores = [NativeHostEmbeddingStore(layout, table, seed + s)
                        for s in range(self.n_stripes)]
-        self._locks = [threading.RLock() for _ in range(self.n_stripes)]
+        self._locks = [make_rlock("StripedHostStore.stripe%d" % s)
+                       for s in range(self.n_stripes)]
         workers = min(self.n_stripes, max(1, (os.cpu_count() or 1)))
         self._pool: Optional[ThreadPoolExecutor] = (
             ThreadPoolExecutor(max_workers=workers,

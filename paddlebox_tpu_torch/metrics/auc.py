@@ -22,10 +22,11 @@ trainer: every compute here is one process's.
 from __future__ import annotations
 
 import math
-import threading
 from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
+
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 
 _RELATIVE_ERROR_BOUND = 0.05  # kRelativeErrorBound
 _MAX_SPAN = 0.01              # kMaxSpan
@@ -60,7 +61,7 @@ class BasicAucCalculator:
     def __init__(self, table_size: int = 1 << 20,
                  mode_collect_in_device: bool = False) -> None:
         self._mode_collect_in_device = bool(mode_collect_in_device)
-        self._lock = threading.Lock()
+        self._lock = make_lock("BasicAucCalculator._lock")
         self._table_size = int(table_size)
         self.reset()
 

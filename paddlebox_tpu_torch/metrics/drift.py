@@ -31,6 +31,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from paddlebox_tpu_torch.obs import log as obs_log
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 from paddlebox_tpu_torch.utils.stats import gauge_set
 
 #: per-slot linear-counting sketch bits
@@ -103,7 +104,7 @@ class SlotDriftMonitor:
         self.drift_warn = float(drift_warn)
         self.history = int(history)
         self.min_coverage = float(min_coverage)
-        self._lock = threading.Lock()
+        self._lock = make_lock("SlotDriftMonitor._lock")
         self._cur = _Window()
         self._ref: List[dict] = []
         self.windows = 0

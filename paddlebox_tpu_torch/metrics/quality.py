@@ -19,7 +19,6 @@ record (``attach_pass_extras``).
 from __future__ import annotations
 
 import math
-import threading
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -27,6 +26,7 @@ import numpy as np
 from paddlebox_tpu_torch.metrics import drift as _drift
 from paddlebox_tpu_torch.metrics.auc import trapezoid_auc
 from paddlebox_tpu_torch.obs import log as obs_log
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 from paddlebox_tpu_torch.utils.stats import gauge_set, stat_add
 
 STATE_VERSION = 1
@@ -50,7 +50,7 @@ class TaggedQuality:
 
     def __init__(self, table_size: int = 65536) -> None:
         self.table_size = int(table_size)
-        self._lock = threading.Lock()
+        self._lock = make_lock("TaggedQuality._lock")
         self._tables: Dict[str, np.ndarray] = {}
         self._scalars: Dict[str, np.ndarray] = {}
         # per-slot ctr accumulators [n_slots], grown on demand

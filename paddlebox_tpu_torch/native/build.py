@@ -19,8 +19,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from typing import Dict, Iterable, List, Optional
+
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -35,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_SOURCES = ("push_adagrad", "blocked_write", "scale_copy",
                   "gather_rows")
 
-_lock = threading.Lock()
+_lock = make_lock("build._lock")
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 

@@ -26,19 +26,19 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import threading
 from typing import Optional
 
 import numpy as np
 
 from paddlebox_tpu_torch.native.build import BUILD_DIR
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 
 SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("slot_parser.cc", "host_store.cc", "route.cc")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
-_lock = threading.Lock()
+_lock = make_lock("host_lib._lock")
 _lib: Optional[ctypes.CDLL] = None
 
 U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -86,8 +86,9 @@ def build_host_lib(build_dir: Optional[str] = None) -> str:
     return path
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """argtypes/restype of every entry the port calls."""
+def bind_parser(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """argtypes/restype of the slot parser's entries (psr_*): all a
+    parser plugin's library must export (data/plugin.py)."""
     c = ctypes
     p = c.c_void_p
     lib.psr_parse_file2.restype = p
@@ -103,7 +104,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [p]
     lib.psr_free.restype = None
     lib.psr_free.argtypes = [p]
+    return lib
 
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """argtypes/restype of every entry the port calls."""
+    c = ctypes
+    p = c.c_void_p
+    bind_parser(lib)
     lib.hs_create.restype = p
     lib.hs_create.argtypes = [c.c_int32, c.c_double]
     lib.hs_destroy.restype = None

@@ -49,7 +49,6 @@ nothing.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -58,6 +57,7 @@ import numpy as np
 import torch
 
 from paddlebox_tpu_torch.config.flags import ObsFlags
+from paddlebox_tpu_torch.utils.lockwatch import make_lock, make_rlock
 from paddlebox_tpu_torch.utils.stats import (gauge_set, hist_observe,
                                              stat_add, stat_peek)
 
@@ -160,7 +160,7 @@ class DeviceMonitor:
     ``snapshot`` from a handler that interrupted this thread in here."""
 
     def __init__(self) -> None:
-        self._lock = threading.RLock()
+        self._lock = make_rlock("DeviceMonitor._lock")
         self._entries: Dict[str, _StepEntry] = {}
         self._owners: Dict[str, Callable[[], Any]] = {}
         self._ledger: Optional[dict] = None
@@ -407,7 +407,7 @@ class InstrumentedStep:
         self._slab_argnum = int(slab_argnum)
         self._warmup = recompile_warmup
         self._entry = _StepEntry(self.name, slab_of is not None)
-        self._lock = threading.Lock()
+        self._lock = make_lock("InstrumentedJit._lock")
         self._cache: "OrderedDict[Any, bool]" = OrderedDict()
         self._last_missed: Dict[Any, bool] = {}
         _MONITOR.register(self._entry)

@@ -34,6 +34,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from paddlebox_tpu_torch.config.flags import ObsFlags
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 
 SCHEMA_VERSION = 1
 
@@ -142,7 +143,7 @@ class ObsExporter:
         self.rank = int(rank)
         self.host = host
         self._reporter = None
-        self._lock = threading.Lock()
+        self._lock = make_lock("ObsExporter._lock")
         exporter = self
 
         class _Handler(BaseHTTPRequestHandler):

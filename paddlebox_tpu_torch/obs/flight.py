@@ -33,6 +33,7 @@ from collections import deque
 from typing import IO, List, Optional
 
 from paddlebox_tpu_torch.config.flags import ObsFlags
+from paddlebox_tpu_torch.utils.lockwatch import make_rlock
 
 SCHEMA_VERSION = 1
 
@@ -99,7 +100,7 @@ class FlightRecorder:
         self.beat_secs = float(beat_secs)
         self.last_k_spans = int(last_k_spans)
         self._flags = dataclasses.asdict(flags or ObsFlags())
-        self._lock = threading.RLock()
+        self._lock = make_rlock("FlightRecorder._lock")
         self._fh: Optional[IO[str]] = None
         self._seg_idx = 0
         self._seg_bytes = 0

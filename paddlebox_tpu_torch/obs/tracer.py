@@ -28,6 +28,8 @@ import time
 import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
+from paddlebox_tpu_torch.utils.lockwatch import make_rlock
+
 # chrome ts fields are microseconds since _EPOCH; _EPOCH_UNIX is the same
 # instant on the wall clock
 _EPOCH = time.perf_counter()
@@ -164,7 +166,7 @@ class SpanTracer:
         self.capacity = int(capacity)
         self.enabled = True
         self._rings: List[_ThreadRing] = []
-        self._reg_lock = threading.RLock()
+        self._reg_lock = make_rlock("SpanTracer._reg_lock")
         self._local = threading.local()
 
     def _ring(self) -> _ThreadRing:

@@ -178,10 +178,11 @@ class SeqCtrTrainer:
         self.cfg = trainer_cfg or TrainerConfig()
         # the reference's trainer reads dense_lr alone (its dense optimizer
         # is adam, seq_trainer.py:83): any other field set is refused
+        default = TrainerConfig()
         changed = {f.name: getattr(self.cfg, f.name)
                    for f in dataclasses.fields(self.cfg)
                    if f.name != "dense_lr"
-                   and getattr(self.cfg, f.name) != f.default}
+                   and getattr(self.cfg, f.name) != getattr(default, f.name)}
         if changed:
             raise ValueError(
                 "SeqCtrTrainer runs dense adam at dense_lr and reads no "

@@ -67,6 +67,8 @@ def _busy_union(intervals):
 
 
 PUSH_SPAN = "sparse_push"
+# tracer spans a chunked pass opens on the calling thread (traced_pass)
+TRACE_SPANS = ("scan_dispatch", "chunk_drain")
 # the PyTorch operators the unfused push ran
 PUSH_TORCH_OPS = ("aten::index_select", "aten::searchsorted",
                   "aten::segment_reduce", "aten::index_copy_")
@@ -265,6 +267,36 @@ def profile_config(cfg, files, feed) -> Dict[str, object]:
         return profile_pass(trainer, ds)[0]
     finally:
         trainer.close()
+
+
+def traced_pass(cfg, files, feed, logdir: str) -> Dict[str, object]:
+    """One pass of flagship configuration ``cfg`` over ``files`` inside
+    utils/profiler.trace(``logdir``), made in the calling process (run it
+    as the process's first torch.profiler session): the pass's loss and
+    AUC, and of the chrome trace it wrote the event count, the calls of
+    each port kernel and the tracer spans it holds."""
+    import torch
+
+    from paddlebox_tpu_torch.native.build import KERNEL_SOURCES
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.utils import profiler
+
+    trainer, ds = flagship.build_trainer(files, feed, cfg, device="cuda")
+    try:
+        with profiler.trace(logdir):
+            res = trainer.train_pass(ds)
+            torch.cuda.synchronize()
+        auc = trainer.metrics.get_metric_msg("auc")["auc"]
+    finally:
+        trainer.close()
+    with open(os.path.join(logdir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    return {"loss": res["loss"], "auc": auc, "batches": res["batches"],
+            "events": len(events),
+            "kernel_calls": {k: sum(k + "_kernel" in n for n in names)
+                             for k in KERNEL_SOURCES},
+            "spans": sorted({n for n in names if n in TRACE_SPANS})}
 
 
 def _parser() -> argparse.ArgumentParser:

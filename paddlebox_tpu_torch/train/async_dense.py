@@ -28,6 +28,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 from paddlebox_tpu_torch.utils.stats import stat_add
 
 log = logging.getLogger(__name__)
@@ -50,7 +51,7 @@ class AsyncDenseTable:
                          if summary_mask is not None else None)
         self.merge_limit = merge_limit
         self._t = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("AsyncDenseTable._lock")
         self._queue: "queue.Queue[Optional[np.ndarray]]" = queue.Queue()
         self._thread = threading.Thread(target=self._update_loop, daemon=True,
                                         name="async-dense")

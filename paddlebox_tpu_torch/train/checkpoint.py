@@ -67,6 +67,7 @@ from paddlebox_tpu_torch.serving.store import (VIEW_COLUMNAR_NAME,
                                                write_xbox_columnar)
 from paddlebox_tpu_torch.train import journal as jr
 from paddlebox_tpu_torch.train.preload import run_preloaded_passes
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 from paddlebox_tpu_torch.utils.stats import stat_add
 
 log = logging.getLogger(__name__)
@@ -122,7 +123,7 @@ class CheckpointManager:
         self.flags = flags or CkptFlags()
         self._writers: List[threading.Thread] = []
         self._errors: List[BaseException] = []
-        self._writers_lock = threading.Lock()
+        self._writers_lock = make_lock("CheckpointManager._writers_lock")
         self.seconds: Dict[str, float] = dict.fromkeys(SECONDS, 0.0)
         self.journal: Optional[jr.TouchedRowJournal] = None
         if self.flags.ckpt_journal:

@@ -470,11 +470,12 @@ def build_model(cfg: Flagship = FLAGSHIP, seed: int = 0) -> torch.nn.Module:
 def build_trainer(files: List[str], feed: DataFeedConfig,
                   cfg: Flagship = FLAGSHIP, push_write: str = "scatter",
                   device: DeviceLike = None, seed: int = 0,
-                  pass_flags: PassFlags = PassFlags(),
+                  pass_flags: Optional[PassFlags] = None,
                   plain_host: bool = False,
-                  stage_flags: StageFlags = StageFlags(),
-                  obs_flags: ObsFlags = ObsFlags(),
+                  stage_flags: Optional[StageFlags] = None,
+                  obs_flags: Optional[ObsFlags] = None,
                   aux_source=None,
+                  push_flags: Optional[PushFlags] = None,
                   **trainer_fields) -> Tuple[BoxTrainer, BoxDataset]:
     """(trainer with an 'auc' metric, dataset over ``files``): the
     configuration's model (``build_model``) with weights from ``seed``,
@@ -491,7 +492,10 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
     or an aux source puts the dataset on the record path. ``trainer_fields`` are TrainerConfig fields
     (scan_chunk, sparse_chunk_sync, check_nan_inf) beside dense_lr: by
     default the pass runs through the chunk driver in chunks of 8.
-    ``obs_flags``: the trainer's host planes, all on by default."""
+    ``obs_flags``: the trainer's host planes, all on by default. The
+    flags left None are made here, at the call (their PBTPU_<NAME>
+    environment then, config/flags.py); ``push_flags``, when given,
+    replaces ``push_write`` and the blocked write's BLOCK_ROWS."""
     model = build_model(cfg, seed)
     trainer = BoxTrainer(model, cfg.table(), feed,
                          TrainerConfig(dense_lr=DENSE_LR,
@@ -499,16 +503,20 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
                                        dense_optimizer=cfg.dense_optimizer,
                                        sync_mode=cfg.sync_mode,
                                        **trainer_fields),
-                         seed=seed, flags=PushFlags(push_write, BLOCK_ROWS),
-                         device=device, pass_flags=pass_flags,
+                         seed=seed,
+                         flags=push_flags or PushFlags(push_write,
+                                                       BLOCK_ROWS),
+                         device=device,
+                         pass_flags=pass_flags or PassFlags(),
                          store=(HostEmbeddingStore(
                              ValueLayout(cfg.embedx, cfg.optimizer,
                                          cfg.expand_dim), cfg.table(), seed)
                                 if plain_host else None),
-                         stage_flags=stage_flags,
+                         stage_flags=stage_flags or StageFlags(),
                          dtype_flags=DtypeFlags(cfg.slab_embed_dtype,
                                                 cfg.matmul_dtype),
-                         obs_flags=obs_flags, aux_source=aux_source)
+                         obs_flags=obs_flags or ObsFlags(),
+                         aux_source=aux_source)
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
     if getattr(model, "loss_mode", "") == "esmm":
         trainer.metrics.init_metric("ctcvr_auc", "label_cvr", "pred_ctcvr",

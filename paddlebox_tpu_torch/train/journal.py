@@ -53,7 +53,6 @@ import dataclasses
 import json
 import os
 import struct
-import threading
 import time
 from typing import Dict, List, Optional
 
@@ -65,6 +64,7 @@ from paddlebox_tpu_torch.utils.journal_format import (
     EV_TICK_SPILL_AGE, FRAME, KIND_EVENT, KIND_HEADER, KIND_MOVE, KIND_ROWS,
     KIND_WATERMARK, MOVE_HEAD, MV_FAULT_IN, MV_SPILL, SEG_MAGIC,
     decode_rows_payload, iter_segment, pack_watermark)
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 
 
 class JournalIncompleteError(RuntimeError):
@@ -197,7 +197,7 @@ class TouchedRowJournal:
                     os.remove(os.path.join(dirpath, name))
                 except OSError:
                     pass
-        self._lock = threading.Lock()
+        self._lock = make_lock("TouchedRowJournal._lock")
         self._epoch = 0
         self._seq = 0
         # all below guarded by _lock

@@ -40,13 +40,13 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import threading
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from paddlebox_tpu_torch.obs.device import account_h2d
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 
 Host = Dict[str, Union[np.ndarray, int]]
 Leaves = Dict[str, Union[torch.Tensor, List[int], int]]
@@ -148,7 +148,7 @@ class PinnedRing:
         self.device = device
         self.compute = compute
         self.copy_stream = torch.cuda.Stream(device)
-        self._lock = threading.Lock()
+        self._lock = make_lock("PinnedRing._lock")
         self._spec: Optional[Spec] = None
         self._slots: List[_Slot] = []
         self._free: "collections.deque[int]" = collections.deque()

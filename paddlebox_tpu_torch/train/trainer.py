@@ -145,9 +145,8 @@ import torch.nn.functional as F
 
 from paddlebox_tpu_torch.config.configs import (DataFeedConfig, TableConfig,
                                                 TrainerConfig)
-from paddlebox_tpu_torch.config.flags import (DtypeFlags, ObsFlags,
-                                              PassFlags, PushFlags,
-                                              StageFlags)
+from paddlebox_tpu_torch.config.flags import (DtypeFlags, HostFlags, ObsFlags,
+                                              PassFlags, PushFlags, StageFlags)
 from paddlebox_tpu_torch.convert import (NESTED_PARAMS, dense_state,
                                          flat_names, flatten_params,
                                          params_from_jax, params_to_numpy,
@@ -168,6 +167,7 @@ from paddlebox_tpu_torch.embedding.pass_table import (PassTable,
 from paddlebox_tpu_torch.metrics import drift, quality
 from paddlebox_tpu_torch.metrics.auc import MetricRegistry
 from paddlebox_tpu_torch.obs import device as device_obs
+from paddlebox_tpu_torch.obs import log as obs_log
 from paddlebox_tpu_torch.obs import make_step_reporter
 from paddlebox_tpu_torch.obs.tracer import set_trace, span, step_trace_id
 from paddlebox_tpu_torch.obs.watchdog import beat
@@ -182,8 +182,10 @@ from paddlebox_tpu_torch.train.dense_optim import (check_opt_state,
                                                    make_dense_optimizer,
                                                    opt_state_from_numpy,
                                                    opt_state_to_numpy)
+from paddlebox_tpu_torch.train.dump import DumpWriter, build_dump_tensors
 from paddlebox_tpu_torch.train.staging import (DeviceChunk, HostChunk,
                                                PinnedRing, to_cpu)
+from paddlebox_tpu_torch.utils.profiler import timer_report
 from paddlebox_tpu_torch.utils.timer import Timer
 
 Batch = Dict[str, object]
@@ -457,7 +459,12 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
     device, in convert.flat_names order); no dense step runs, the sparse
     push does. Under data_norm the summaries move as in the sync step and
     their entries of the grad are that move, new minus old (the async
-    table adds them raw). Other buffers' entries are zero."""
+    table adds them raw). Other buffers' entries are zero.
+
+    ``step.stages`` are its four stages in order, (pull(slab, batch) ->
+    st, fwd_bwd(st, batch), dense_opt(st, batch), push(slab, st, batch,
+    seed)), which the step runs back to back and BoxTrainer.
+    train_pass_profiled runs one at a time."""
     padding_id = table.pass_capacity - 1
     use_expand = uses_expand(model)
     check_expand_config(model, layout, use_expand)
@@ -479,49 +486,72 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
                          .reshape(-1))
         return torch.cat(parts)
 
-    def step(slab: torch.Tensor, batch: Batch, seed: int):
+    # the step's four stages, which train_pass_profiled also runs one by
+    # one; ``st`` carries a step's tensors from one stage to the next
+    def stage_pull(slab: torch.Tensor, batch: Batch) -> Dict[str, object]:
         ids = batch["ids"]
-        segments = batch["segments"]
-        n_valid = batch["n_valid"]
         # per-key validity is derived: padding key slots (and only those)
         # address the trash row
         valid = ids != padding_id
         emb, exp = _pull(slab, ids, layout, use_expand)
+        return {"emb": emb, "exp": exp, "valid": valid}
+
+    def stage_fwd_bwd(st: Dict[str, object], batch: Batch) -> None:
+        segments = batch["segments"]
+        emb, valid = st["emb"], st["valid"]
         emb.requires_grad_(True)
         pooled = fused_seqpool_cvm(emb, segments, valid, batch_size,
-                                   num_slots, n_valid)
+                                   num_slots, batch["n_valid"])
         pooled_exp = None
         if use_expand:
-            exp = exp.clone().requires_grad_(True)
+            st["exp"] = exp = st["exp"].clone().requires_grad_(True)
             pooled_exp = seqpool_sum(exp, segments, valid, batch_size,
-                                     num_slots, n_valid)
+                                     num_slots, batch["n_valid"])
         loss, preds = forward_loss(model, pooled, batch, compute_dtype,
                                    pooled_exp)
         dense_opt.zero_grad(set_to_none=True)
         loss.backward()
+        st.update(pooled=pooled, loss=loss, preds=preds)
+
+    def stage_dense_opt(st: Dict[str, object], batch: Batch) -> None:
         if not async_dense:
             dense_opt.step()
         delta: Dict[str, torch.Tensor] = {}
         if has_summary:
             old = ({n: tensors[n].clone() for n in summary} if async_dense
                    else {})
-            model.update_summary(pooled.detach(), batch.get("dense"))
+            model.update_summary(st["pooled"].detach(), batch.get("dense"))
             delta = {n: tensors[n] - was for n, was in old.items()}
+        st["delta"] = delta
+
+    def stage_push(slab: torch.Tensor, st: Dict[str, object], batch: Batch,
+                   seed: int) -> None:
+        segments, valid = batch["segments"], st["valid"]
         # per-key click = its instance's (main task's) label
         clicks = task_label(batch, main_task).index_select(
             0, segments // num_slots)
         if use_expand:
             push_grads = build_push_grads_extended(
-                emb.grad, exp.grad, segments % num_slots, clicks, valid)
+                st["emb"].grad, st["exp"].grad, segments % num_slots,
+                clicks, valid)
         else:
-            push_grads = build_push_grads(emb.grad, segments % num_slots,
-                                          clicks, valid)
-        sparse_push(slab, batch, ids, n_valid, push_grads, seed, layout,
-                    table, push_write, block_rows, wire())
-        if async_dense:
-            return loss.detach(), _detach(preds), flat_grad(delta)
-        return loss.detach(), _detach(preds)
+            push_grads = build_push_grads(st["emb"].grad,
+                                          segments % num_slots, clicks,
+                                          valid)
+        sparse_push(slab, batch, batch["ids"], batch["n_valid"], push_grads,
+                    seed, layout, table, push_write, block_rows, wire())
 
+    def step(slab: torch.Tensor, batch: Batch, seed: int):
+        st = stage_pull(slab, batch)
+        stage_fwd_bwd(st, batch)
+        stage_dense_opt(st, batch)
+        stage_push(slab, st, batch, seed)
+        if async_dense:
+            return (st["loss"].detach(), _detach(st["preds"]),
+                    flat_grad(st["delta"]))
+        return st["loss"].detach(), _detach(st["preds"])
+
+    step.stages = (stage_pull, stage_fwd_bwd, stage_dense_opt, stage_push)
     return step
 
 
@@ -875,7 +905,8 @@ class BoxTrainer:
                  stage_flags: Optional[StageFlags] = None,
                  dtype_flags: Optional[DtypeFlags] = None,
                  obs_flags: Optional[ObsFlags] = None,
-                 aux_source=None) -> None:
+                 aux_source=None,
+                 host_flags: Optional[HostFlags] = None) -> None:
         """``store``: the table's host store (PassTable's default, the
         native one, when None). ``stage_flags``: the chunk driver's
         staging, read at the start of every pass (``self.stage_flags`` may
@@ -886,7 +917,13 @@ class BoxTrainer:
         InputTable or ReplicaCache (embedding/side_tables.py) whose rows a
         ``use_aux_input`` model gathers; frozen into the model's
         ``aux_rows`` at its ``aux_capacity`` at the start of every pass
-        (a model that takes no aux rows refuses one)."""
+        (a model that takes no aux rows refuses one). ``host_flags``
+        (HostFlags(), read here): under ``profile_per_op`` train_pass runs
+        train_pass_profiled.
+
+        With TrainerConfig ``dump_fields`` and ``dump_fields_path`` the
+        trainer keeps a DumpWriter (train/dump.py) and dumps each batch's
+        fields after its metrics; ``close()`` closes it."""
         if aux_source is not None and not uses_aux_input(model):
             raise ValueError("aux_source given but the model does not "
                              "consume aux rows (use_aux_input)")
@@ -914,6 +951,7 @@ class BoxTrainer:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.flags = flags or PushFlags()
+        self.host_flags = host_flags or HostFlags()
         self.stage_flags = stage_flags or StageFlags()
         self.dtype_flags = dtype_flags or DtypeFlags()
         self.feed = feed
@@ -961,6 +999,7 @@ class BoxTrainer:
             feed.batch_size, self.num_slots, push_write=self.push_write,
             block_rows=self.flags.push_block_rows, compute_dtype=cdtype,
             wire=wire, async_dense=self.async_mode)
+        self.step_stages = self.step_fn.stages
         # async mode: the dense state lives in the host table; each step
         # pulls the parameters and data_norm's summaries from it (the
         # other buffers, CtrDnnAux's aux_rows, stay the trainer's)
@@ -1000,6 +1039,12 @@ class BoxTrainer:
         self.timers = {n: Timer() for n in ("step", "pass")}
         self.reporter = make_step_reporter(timers=self.timers,
                                            flags=self.obs_flags)
+        # the last profiled pass's stage timers
+        self.stage_timers: Dict[str, Timer] = {}
+        self.dump_writer: Optional[DumpWriter] = None
+        if self.cfg.dump_fields and self.cfg.dump_fields_path:
+            self.dump_writer = DumpWriter(self.cfg.dump_fields_path,
+                                          self.cfg.dump_thread_num)
         self._instrument_steps()
 
     def _instrument_steps(self) -> None:
@@ -1242,11 +1287,14 @@ class BoxTrainer:
         return ring
 
     def close(self) -> None:
-        """Stop the async dense table's thread and the staging pool, drop
-        the pinned ring and close the reporter's sink."""
+        """Stop the async dense table's thread, the dump writer and the
+        staging pool, drop the pinned ring and close the reporter's sink."""
         if getattr(self, "async_table", None) is not None:
             self.async_table.stop()
             self.async_table = None
+        if getattr(self, "dump_writer", None) is not None:
+            self.dump_writer.close()
+            self.dump_writer = None
         self.reporter.close()
         pool = self._stage_pool[1]
         if pool is not None:
@@ -1290,6 +1338,9 @@ class BoxTrainer:
                 "the ids-only wire (h2d_lean without h2d_uid_wire) stages no "
                 "push products; the trainer's write %r needs them"
                 % (self.push_write,))
+        if (self.host_flags.profile_per_op and not preloaded
+                and not self.multi_task and self.async_table is None):
+            return self.train_pass_profiled(dataset)
         t_pass = self.timers["pass"]
         t_pass.start()
         # this pass's blocks (and the next pass's, preloaded meanwhile) feed
@@ -1342,6 +1393,7 @@ class BoxTrainer:
                 preds_host = preds_to_host(stack_preds(preds))
                 for j, b in enumerate(tail):
                     self._add_metrics(preds_row(preds_host, j), b)
+                    self._dump_batch(preds_row(preds_host, j), b)
         t_pass.pause()
         # every pass end is a report boundary
         extra = {"event": "pass_end", "loss": round(mean_loss, 6),
@@ -1349,14 +1401,32 @@ class BoxTrainer:
                          for m in self.metrics.messages()}}
         quality.attach_pass_extras(extra, self.quality, self.drift)
         self.reporter.maybe_report(self._step_count, force=True, extra=extra)
+        if self.cfg.profile:
+            obs_log.info(timer_report(self.timers, prefix="trainer."))
         lap("end")
         self.pass_times = times
         return {"loss": mean_loss, "batches": len(batches),
                 "instances": len(dataset)}
 
     def _preds_consumed(self) -> bool:
-        """Whether a metric or the quality plane reads predictions."""
-        return bool(self.metrics.metric_names()) or self.quality is not None
+        """Whether a metric, the quality plane or the dump writer reads
+        predictions."""
+        return (bool(self.metrics.metric_names()) or self.quality is not None
+                or self.dump_writer is not None)
+
+    def _dump_batch(self, pred, b: PackedBatch) -> None:
+        """DumpField of one batch (boxps_worker.cc DumpField): a line per
+        real instance with the requested fields; nothing without a dump
+        writer."""
+        if self.dump_writer is None:
+            return
+        by_task = pred if isinstance(pred, dict) else {
+            self.task_names[0]: pred}
+        tensors = build_dump_tensors(self.cfg.dump_fields, b.labels,
+                                     by_task, self.task_names[0])
+        if tensors:
+            self.dump_writer.dump_batch(tensors, ins_ids=b.ins_ids,
+                                        mask=b.ins_valid)
 
     def _train_chunks(self, batches: List[PackedBatch]
                       ) -> Tuple[List, List[PackedBatch]]:
@@ -1406,6 +1476,7 @@ class BoxTrainer:
                 preds_host = preds_to_host(preds_dev)
                 for j, b in enumerate(group_b):
                     self._add_metrics(preds_row(preds_host, j), b)
+                    self._dump_batch(preds_row(preds_host, j), b)
 
         try:
             _, losses, n_done = run_scan_chunks(
@@ -1442,6 +1513,69 @@ class BoxTrainer:
         t_step.pause()
         self._step_count += 1
         return loss, preds
+
+    def train_pass_profiled(self, dataset: BoxDataset) -> Dict[str, float]:
+        """One pass with each step split into its stages, each timed to a
+        synchronize of the device (TrainFilesWithProfiler,
+        boxps_worker.cc:1336; reference trainer.py:1465-1524): host_stage
+        (lookup_ids and the batch's copies to the device), pull (the
+        gather_rows kernel on the card), fwd_bwd, dense_opt and push (the
+        fused push_adagrad kernel on the card). The stages are the step's
+        own (make_train_step's ``stages``) and draw the same seeds, so the
+        pass gives train_pass's at scan_chunk=1 bit for bit; it is slower
+        by design. Logs the stage report at its end and keeps the timers
+        in ``stage_timers``. Refuses async dense (its step is not these
+        stages)."""
+        if self.async_table is not None:
+            raise ValueError("train_pass_profiled: the async dense table's "
+                             "step has no stages")
+        pull, fwd_bwd, dense_opt, push = self.step_stages
+        timers = {n: Timer() for n in ("host_stage", "pull", "fwd_bwd",
+                                       "dense_opt", "push")}
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else lambda device: None)
+
+        def timed(name: str, fn, *args):
+            t = timers[name]
+            t.start()
+            out = fn(*args)
+            sync(self.device)
+            t.pause()
+            return out
+
+        drift.set_active(self.drift)
+        self.table.begin_feed_pass()
+        dataset.load_into_memory(add_keys_fn=self.table.add_keys)
+        self.table.end_feed_pass()
+        self._refresh_aux()
+        self.table.begin_pass()
+        dataset.local_shuffle(self._shuffle_rng.randint(1 << 31))
+        losses: List[torch.Tensor] = []
+        for b in dataset.split_batches(num_workers=1)[0]:
+            batch = timed("host_stage", lambda b=b: self.device_batch(
+                b, self.table.lookup_ids(b.keys, b.valid)))
+            slab = self.table.slab
+            st = timed("pull", pull, slab, batch)
+            timed("fwd_bwd", fwd_bwd, st, batch)
+            timed("dense_opt", dense_opt, st, batch)
+            timed("push", push, slab, st, batch, self.seed_fn())
+            self._step_count += 1
+            loss = st["loss"].detach()
+            if self.cfg.check_nan_inf and not bool(torch.isfinite(loss)):
+                raise FloatingPointError("nan/inf loss at step %d"
+                                         % self._step_count)
+            losses.append(loss)
+            if self._preds_consumed():
+                p = preds_to_host(_detach(st["preds"]))
+                self._add_metrics(p, b)
+                self._dump_batch(p, b)
+        self.table.end_pass()
+        self.stage_timers = timers
+        obs_log.info(timer_report(timers, prefix="stage."))
+        mean_loss = (float(np.mean(torch.stack(losses).cpu().numpy()))
+                     if losses else 0.0)
+        return {"loss": mean_loss, "batches": len(losses),
+                "instances": len(dataset)}
 
     def pull_async_dense(self) -> None:
         """Copy the async table's parameters (and data_norm's summaries)
@@ -1490,6 +1624,8 @@ class BoxTrainer:
         trainer.py:1404-1428): ``label_<task>`` for each of the feed's task
         labels, ``pred_<task>`` for each prediction, ``pred`` the main
         task's."""
+        if not (self.metrics.metric_names() or self.quality is not None):
+            return
         by_task = pred if isinstance(pred, dict) else {
             self.task_names[0]: pred}
         main = by_task[self.task_names[0]]

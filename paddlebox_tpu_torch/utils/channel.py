@@ -10,13 +10,13 @@ reader and plain queues, so nothing registers yet.
 
 from __future__ import annotations
 
-import threading
 import weakref
 
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 from paddlebox_tpu_torch.utils.stats import gauge_set
 
 _named: dict = {}           # gauge name -> weakref.WeakSet of queues
-_named_lock = threading.Lock()
+_named_lock = make_lock("channel._named_lock")
 
 
 def register_depth_gauge(name: str, obj) -> None:
