@@ -328,6 +328,25 @@ Phases, each of which raises on a failed check (exit code != 0):
      inversion, the walls); then one pass inside utils/profiler.trace in a
      child process of its own (profile_pass.traced_pass: its first
      torch.profiler session), its kernel events and spans;
+ 22. the sharded trainer (parallel/sharded_trainer.py) in a child process
+     of the spawn context, so that NCCL and the process group never touch
+     phases 1-21: world 1 on cuda:0 over NCCL, its rendezvous a TCPStore
+     of the child's own on an ephemeral port; flagship.
+     build_sharded_trainer at FLAGSHIP's full width (the shard slab 2^20
+     rows, KB = 262,144) over the main path's files, two passes through
+     the chunk driver in chunks of 8, its seed_fn replaying the main
+     path's trainer's seeds: both passes' digits equal to
+     FLAGSHIP_DIGITS, the written-back store's sha256 equal to phase 5's,
+     SHARDED_LAUNCHES (32 push_adagrad, 35 gather_rows) and 32 each of the
+     pull's values a2a, the push rows' a2a and the dense all_reduce, a host
+     exchange a step; each pass's wall beside phase 5's; gather_rows over a
+     staged batch's 262,144 incoming ids and the fused push_adagrad over
+     its 262,144 received push rows, bit-equal to their plain versions,
+     with kernel, plain, library and bound times; the three collectives'
+     device ms at the step's shapes (time_chain); then FLAGSHIP_BF16 the
+     same way on the same mesh (the bf16 slab): its digits equal to
+     BF16_DIGITS (phase 12's) and SHARDED_BF16_LAUNCHES (32
+     push_adagrad_bf16, 32 gather_rows_decode, 3 gather_rows_2byte);
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -5094,6 +5113,360 @@ def slice21_phase(torch, cfg, feed, files, tmp, reset_counts, counts):
     return out
 
 
+# phase 22: the sharded trainer at world 1 over NCCL, in a spawned child
+# the launches the two passes must make: a pull a step (16 a pass), a
+# promote (the second pass) and a touched-row write-back a pass on
+# gather_rows; one fused push a step
+SHARDED_LAUNCHES = {"push_adagrad": 32, "gather_rows": 35,
+                    "blocked_write": 0, "scale_copy": 0}
+# its bf16 leg's (FLAGSHIP_BF16): the 2-byte forms, as phase 12's
+SHARDED_BF16_LAUNCHES = {"push_adagrad_bf16": 32, "gather_rows_decode": 32,
+                         "gather_rows_2byte": 3}
+SHARDED_CHILD_S = 420.0       # the child's wall limit
+SHARDED_GROUP_S = 120.0       # its process groups' timeout
+SHARDED_SEED = 0              # the main path's trainer seed
+
+
+def sharded_kernels(torch, trainer, ds, cfg):
+    """Phase 22's kernels at the world-1 shard shapes, bit-equal to their
+    plain versions: gather_rows over the staged first batch's incoming ids
+    (P * KB = 262,144, padding on the trash row) from the shard's
+    2^20 x 17 slab, and the fused push_adagrad over that batch's received
+    push rows [262,144, 12] (its pull, forward, backward, bucket merge and
+    push a2a, nothing applied) with the host-staged dedup; kernel, plain,
+    library (index_select for the gather) and bound times. Then the
+    step's three collectives timed on their inputs (device ms, CUDA
+    events): the pull's values a2a, the push rows' a2a and the dense
+    all_reduce (grads and the loss)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.accessor import PushLayout
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.ops.sparse import build_push_grads
+    from paddlebox_tpu_torch.push_probe import SEED, fused_push_bytes
+    from paddlebox_tpu_torch.rate_probe import gather_bytes, time_chain
+    from paddlebox_tpu_torch.train.trainer import task_label
+
+    layout = trainer.layout
+    conf = cfg.table().optimizer
+    D = cfg.embedx
+    W, G = layout.width, PushLayout(D).width
+    b = ds.split_batches(1)[0][0]
+    st = trainer._to_device(trainer.stage_host(b))
+    trainer._wait_ready(st)
+    slab = trainer.table.resident_slab
+    ids = st["req"]
+    ids_np = ids.cpu().numpy()
+    out = {}
+    # --- gather_rows, the shard's pull
+    got = rk.gather_rows(slab, ids)
+    torch.cuda.synchronize()
+    want = rk.gather_rows_plain(slab, ids)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+          and torch.equal(got, slab.index_select(0, ids)),
+          "gather_rows at the shard shape differs from the plain version")
+    nbytes = gather_bytes(ids_np, slab.shape[0], W)
+    args = (slab, ids)
+    out["gather_rows"] = {
+        "ids": int(ids_np.size), "distinct": int(np.unique(ids_np).size),
+        "slab": list(slab.shape), "bytes": nbytes,
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": time_chain(rk.gather_rows, args, nbytes),
+        "plain_ms": time_chain(rk.gather_rows_plain, args, nbytes),
+        "library_ms": time_chain(lambda a, i: a.index_select(0, i), args,
+                                 nbytes),
+        "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
+    from paddlebox_tpu_torch.ops.sparse import (gather_slab_rows,
+                                                pull_view_from_rows)
+    # the pull's values before their a2a, and the restored embeddings
+    pview = pull_view_from_rows(gather_slab_rows(slab, ids, layout), layout)
+    del got, want
+    # --- the step's push rows, nothing applied
+    emb = trainer._pull(st).detach().requires_grad_(True)
+    _, loss, _ = trainer._forward(emb, st)
+    loss.backward()
+    S = trainer.num_slots
+    seg, valid = st["segments"], st["valid"]
+    clicks = task_label(st, trainer.task_names[0]).index_select(0, seg // S)
+    pg = build_push_grads(emb.grad, seg % S, clicks, valid)
+    bucket = pk.merge_push_grads(pg, st["bperm"], st["boffsets"])
+    g = torch.empty_like(bucket)
+    dist.all_to_all_single(g, bucket, group=trainer.mesh.group)
+    trainer.dense_opt.zero_grad(set_to_none=True)
+    u, p, o, n_uniq = st["uids"], st["perm"], st["offsets"], st["n_uniq"]
+    n_valid = int(o[-1])
+    check(g.shape == (ids_np.size, G) and n_valid == int(
+        (ids_np != slab.shape[0] - 1).sum()),
+        "push inputs at the shard shape: rows %s, %d real of %d"
+        % (tuple(g.shape), n_valid, ids_np.size))
+    err = 0.0
+    for rows_out in (False, True):
+        s_k, s_p = slab.clone(), slab.clone()
+        r_k = pk.push_adagrad(s_k, g, p, o, u, n_uniq, SEED, layout, conf,
+                              rows_out)
+        torch.cuda.synchronize()
+        r_p = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n_uniq, SEED,
+                                          layout, conf, rows_out)
+        check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32)),
+              "push_adagrad (rows_out=%s) at the shard shape differs from "
+              "the plain version" % rows_out)
+        if rows_out:
+            check(torch.equal(r_k.view(torch.int32), r_p.view(torch.int32)),
+                  "push_adagrad rows out at the shard shape differ")
+            err = max(err, float((r_k - r_p).abs().max()))
+        err = max(err, float((s_k - s_p).abs().max()))
+        del s_k, s_p, r_k, r_p
+    nbytes = fused_push_bytes(n_valid, n_uniq, W, G)
+    # the update's work: the real uniques, the trash row left out
+    n_real = int((u[:n_uniq] < slab.shape[0] - 1).sum())
+    ops = n_valid * G + n_real * (20 + 6 * D)
+    args = (slab, g, p, o, u)
+    out["push_adagrad"] = {
+        "rows": int(g.shape[0]), "occurrences": n_valid, "n_uniq": n_uniq,
+        "bytes": nbytes, "max_abs_err": err,
+        "ms": time_chain(lambda *a: pk.push_adagrad(
+            *a, n_uniq, SEED, layout, conf, rows_out=True), args, nbytes),
+        "plain_ms": time_chain(lambda *a: pk.push_adagrad_fused_plain(
+            *a, n_uniq, SEED, layout, conf, rows_out=True), args, nbytes),
+        "library_ms": None,
+        "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS),
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS
+                     else "operations")}
+    # --- the step's three collectives on their inputs
+    group = trainer.mesh.group
+
+    def a2a(x):
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, group=group)
+        return y
+
+    def all_reduce(x):
+        dist.all_reduce(x, group=group)
+        return x
+
+    flat = torch.cat([q.detach().reshape(-1)
+                      for q in trainer.model.parameters()]
+                     + [loss.detach().reshape(1)])
+    colls = {}
+    for name, fn, x in (("a2a_pull", a2a, pview.contiguous()),
+                        ("a2a_push", a2a, bucket),
+                        ("all_reduce", all_reduce, flat)):
+        colls[name] = {"shape": list(x.shape), "bytes": x.nbytes,
+                       "ms": time_chain(fn, (x,), x.nbytes)}
+    return out, colls
+
+
+def sharded_run(torch, files, feed):
+    """Phase 22's body in the child: world 1 on cuda:0 over NCCL (a port-0
+    TCPStore of the child's own), the sharded trainer at FLAGSHIP's full
+    width, two passes through the chunk driver, then the kernels and the
+    collectives at the shard shapes."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.fleet.fleet import Fleet
+    from paddlebox_tpu_torch.fleet.role_maker import RoleMaker
+    from paddlebox_tpu_torch.native.build import build_kernels
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.utils.stats import stat_peek
+
+    build_kernels()
+    cfg = flagship.FLAGSHIP
+    store = dist.TCPStore("127.0.0.1", 0, None, is_master=True,
+                          wait_for_workers=False)
+    fl = Fleet().init(RoleMaker(0, 1), store=dist.PrefixStore("phase22",
+                                                              store))
+    mesh = fl.init_distributed("cuda", timeout=SHARDED_GROUP_S)
+    check(mesh.backend == "nccl" and mesh.device.type == "cuda"
+          and mesh.world == 1, "phase 22's mesh: %s on %s, world %d"
+          % (mesh.backend, mesh.device, mesh.world))
+    trainer, ds = flagship.build_sharded_trainer(files, feed, cfg, fleet=fl,
+                                                 seed=SHARDED_SEED)
+    try:
+        check(trainer.bucket_cap == 2 * feed.key_capacity()
+              and trainer.table.shard_cap == cfg.capacity,
+              "phase 22's shapes: KB %d, shard_cap %d"
+              % (trainer.bucket_cap, trainer.table.shard_cap))
+        # the single-GPU trainer's seed sequence (BoxTrainer._draw_seed)
+        gen = torch.Generator().manual_seed(SHARDED_SEED)
+        trainer.seed_fn = lambda: int(torch.randint(0, 2**31 - 1, (),
+                                                    generator=gen))
+        stats0 = {k: stat_peek(k) for k in (
+            "hostplane_exchange_bytes", "hostplane_exchange_us",
+            "hostplane_exchange_steps")}
+        pk.reset_launch_counts()
+        rk.reset_launch_counts()
+        passes = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            res = trainer.train_pass(ds)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            auc = trainer.metrics.get_metric_msg(
+                "auc", allreduce=fl.metric_allreduce())["auc"]
+            passes.append({"pass": i, "loss": res["loss"], "auc": auc,
+                           "batches": res["batches"],
+                           "instances": res["instances"], "pass_s": secs,
+                           "examples_per_s": res["instances"] / secs,
+                           "phase_s": trainer.pass_times,
+                           "stream_high_water": trainer.stream_high_water})
+        launches = {**pk.launch_counts(), **rk.launch_counts()}
+        stats = {k: stat_peek(k) - v for k, v in stats0.items()}
+        k, v = trainer.table.shard.store.state_items()
+        order = k.argsort()
+        sha = hashlib.sha256(k[order].tobytes()
+                             + v[order].tobytes()).hexdigest()
+        out = {"passes": passes, "launches": launches,
+               "collectives": dict(trainer.collective_counts),
+               "exchange": dict(stats, **trainer.host_mesh.stats()),
+               "store_sha": sha, "backend": mesh.backend,
+               "device": str(mesh.device),
+               "bucket_cap": trainer.bucket_cap,
+               "shard_cap": trainer.table.shard_cap}
+        out["kernels"], out["collective_ms"] = sharded_kernels(
+            torch, trainer, ds, cfg)
+        out["bf16"] = sharded_bf16_run(torch, files, feed, fl)
+        return out
+    finally:
+        trainer.close()
+
+
+def sharded_bf16_run(torch, files, feed, fl):
+    """Phase 22's bf16 leg: FLAGSHIP_BF16 through the sharded trainer on
+    the same world-1 mesh, two passes with the main path's seeds: its
+    digits (BF16_DIGITS, phase 12's) and its launches (the kernels' 2-byte
+    forms: the fused push and the decoding pull once a step, the raw
+    2-byte gather at the promote and the two write-backs)."""
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.train import flagship
+
+    trainer, ds = flagship.build_sharded_trainer(
+        files, feed, flagship.FLAGSHIP_BF16, fleet=fl, seed=SHARDED_SEED)
+    check(trainer.table.resident_slab is None and trainer.layout.bf16,
+          "phase 22's bf16 trainer: layout %s" % trainer.layout)
+    gen = torch.Generator().manual_seed(SHARDED_SEED)
+    trainer.seed_fn = lambda: int(torch.randint(0, 2**31 - 1, (),
+                                                generator=gen))
+    try:
+        pk.reset_launch_counts()
+        rk.reset_launch_counts()
+        passes = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            res = trainer.train_pass(ds)
+            torch.cuda.synchronize()
+            auc = trainer.metrics.get_metric_msg(
+                "auc", allreduce=fl.metric_allreduce())["auc"]
+            passes.append({"pass": i, "loss": res["loss"], "auc": auc,
+                           "pass_s": time.perf_counter() - t0,
+                           "slab_dtype": str(
+                               trainer.table.resident_slab.dtype)})
+        return {"passes": passes,
+                "launches": {**pk.launch_counts(), **rk.launch_counts()}}
+    finally:
+        trainer.close()
+
+
+def sharded_child(files, feed, out_path):
+    """Phase 22's spawned process: its NCCL and process-group state never
+    touch phases 1-21. Writes its result (pickle) or its traceback."""
+    import pickle
+    import traceback
+
+    import torch
+    try:
+        res = sharded_run(torch, files, feed)
+        with open(out_path, "wb") as fh:
+            pickle.dump(res, fh)
+    except BaseException:
+        with open(out_path + ".err", "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def sharded_phase(torch, files, feed, main, main_sha, tmp, spawn):
+    """Phase 22: ShardedBoxTrainer at world 1 over NCCL in a child, held to
+    the main path's run (phase 5): the digits of both passes
+    (FLAGSHIP_DIGITS), the written-back store's sha256, the launches
+    (SHARDED_LAUNCHES) and three collectives a step; its pass walls beside
+    the main path's; its bf16 leg held to phase 12's digits and the 2-byte
+    forms' launches. Returns the child's record."""
+    import pickle
+
+    out_path = os.path.join(tmp, "phase22.pkl")
+    t0 = time.perf_counter()
+    child = spawn.Process(target=sharded_child, args=(files, feed, out_path),
+                          name="phase22")
+    child.start()
+    child.join(SHARDED_CHILD_S)
+    if child.is_alive():
+        child.kill()
+        child.join()
+        check(False, "phase 22's child passed its %.0f s wall limit"
+              % SHARDED_CHILD_S)
+    err = (open(out_path + ".err").read()
+           if os.path.exists(out_path + ".err") else "")
+    check(child.exitcode == 0 and not err and os.path.exists(out_path),
+          "phase 22's child failed (exit %s):\n%s" % (child.exitcode, err))
+    with open(out_path, "rb") as fh:
+        res = pickle.load(fh)
+    res["child_s"] = time.perf_counter() - t0
+    passes = res["passes"]
+    for p in passes:
+        log("sharded pass %d (world 1, %s on %s): loss %.10f auc %.10f %s"
+            % (p["pass"], res["backend"], res["device"], p["loss"], p["auc"],
+               json.dumps(p)))
+    digits = {"loss": tuple("%.10f" % p["loss"] for p in passes),
+              "auc": tuple("%.10f" % p["auc"] for p in passes)}
+    check(digits == FLAGSHIP_DIGITS, "sharded digits %s, expected the main "
+          "path's %s" % (digits, FLAGSHIP_DIGITS))
+    check(res["store_sha"] == main_sha, "the sharded run's store sha256 %s "
+          "differs from the main path's %s" % (res["store_sha"], main_sha))
+    launches = {k: res["launches"][k] for k in SHARDED_LAUNCHES}
+    check(launches == SHARDED_LAUNCHES, "sharded launches %s, expected %s"
+          % (res["launches"], SHARDED_LAUNCHES))
+    steps = sum(p["batches"] for p in passes)
+    c = res["collectives"]
+    check((c.get("a2a_pull"), c.get("a2a_push"), c.get("all_reduce"))
+          == (steps, steps, steps) and res["exchange"]["exchanges"]
+          >= steps, "sharded collectives %s and exchanges %s over %d "
+          "steps" % (c, res["exchange"], steps))
+    log("sharded launches %s over %d steps (a pull a step, 1 promote, 2 "
+        "write-backs; a push a step), collectives %s, host exchange %s; "
+        "the store's sha256 equals the main path's: %s"
+        % (res["launches"], steps, c, res["exchange"], main_sha))
+    log("sharded vs main path pass walls: %s"
+        % json.dumps({"sharded_s": [p["pass_s"] for p in passes],
+                      "main_s": [p["pass_s"] for p in main],
+                      "ratio": [s["pass_s"] / m["pass_s"]
+                                for s, m in zip(passes, main)],
+                      "child_s": res["child_s"]}))
+    bf = res["bf16"]
+    digits = {"loss": tuple("%.10f" % p["loss"] for p in bf["passes"]),
+              "auc": tuple("%.10f" % p["auc"] for p in bf["passes"])}
+    want = dict(SHARDED_BF16_LAUNCHES, push_adagrad=0, gather_rows=0)
+    check(digits == BF16_DIGITS and {k: bf["launches"][k] for k in want}
+          == want and bf["passes"][0]["slab_dtype"] == "torch.int16",
+          "sharded bf16 passes %s, launches %s; expected %s and %s"
+          % (bf["passes"], bf["launches"], BF16_DIGITS, want))
+    log("sharded bf16 passes (FLAGSHIP_BF16, world 1): digits %s = "
+        "BF16_DIGITS, launches %s, %s"
+        % (json.dumps(digits), json.dumps(want), json.dumps(bf["passes"])))
+    log("sharded collectives' device ms a call at the step's shapes: %s"
+        % json.dumps(res["collective_ms"]))
+    for name, rec in res["kernels"].items():
+        log("%s at the shard shape (world 1): bit-equal to the plain "
+            "version; %s" % (name, json.dumps(rec)))
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5255,6 +5628,8 @@ def main() -> int:
         # this trainer
         main_run = {"passes": passes, "launches": main_counts,
                     "store": sorted_store(trainer.table)}
+        # phase 22 holds its world-1 sharded run to this store
+        main_sha = store_sha(trainer.table)
         main_trainer = trainer
         del trainer, ds
         plain_passes = plain_tier_phase(torch, cfg, feed, files, passes,
@@ -5351,6 +5726,12 @@ def main() -> int:
                                 counts)
         clock.lap("slice21")
 
+        # 22. the sharded trainer at world 1 over NCCL in a child process,
+        # held to the main path's run
+        sharded = sharded_phase(torch, files, feed, passes, main_sha, tmp,
+                                spawn)
+        clock.lap("sharded")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -5387,6 +5768,12 @@ def main() -> int:
     for k in kernels:
         if k["name"] == "gather_rows":
             k["at_shapes"]["rebuild"] = wires["gather_rebuild"]
+    # the world-1 shard shapes (phase 22), with its passes' launches
+    for k in kernels:
+        if k["name"] in sharded["kernels"]:
+            k.setdefault("at_shapes", {})["shard_world1"] = dict(
+                sharded["kernels"][k["name"]],
+                launches=sharded["launches"][k["name"]])
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -5436,7 +5823,8 @@ def main() -> int:
                                  for n in ("text", "archive", "pipe",
                                            "dumped", "profiled")},
                               "slice21_env_blocked":
-                                  slice21["env_blocked"]},
+                                  slice21["env_blocked"],
+                              "sharded_world1": sharded["launches"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

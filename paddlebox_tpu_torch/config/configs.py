@@ -2,11 +2,12 @@
 
 Field names and defaults follow paddlebox_tpu/config/configs.py, and every
 dataclass there has the same field set here, so a config written for the
-JAX package constructs in the port by keyword. The fields that belong to
-the multi-device trainers (TrainerConfig's sync_weight_step,
-sync_one_ring and a2a_dtype, MeshConfig's sizes) are accepted at their
-defaults and refused otherwise, naming ROADMAP.md A10; a few are read by
-nothing here, as in the reference (each says so).
+JAX package constructs in the port by keyword. TrainerConfig's
+multi-device fields (sync_weight_step, sync_one_ring, a2a_dtype) are
+checked here and refused by the trainer that cannot run them, naming
+ROADMAP.md A10; MeshConfig's sizes are accepted at their defaults and
+refused otherwise, naming it too; a few are read by nothing here, as in
+the reference (each says so).
 """
 
 from __future__ import annotations
@@ -227,8 +228,12 @@ class TrainerConfig:
     the trainer writes one line a real instance of each batch through
     train/dump.py's DumpWriter on that many threads. profile: each pass
     logs its stage timers at its end. thread_num is accepted and read by
-    nothing, as in the reference. sync_weight_step, sync_one_ring and
-    a2a_dtype are A10's, taken at their defaults only."""
+    nothing, as in the reference. sync_weight_step (a positive int),
+    sync_one_ring and a2a_dtype ('float32' or 'bfloat16') are the
+    multi-device trainer's: BoxTrainer refuses them away from their
+    defaults, and parallel/sharded_trainer.py ShardedBoxTrainer refuses
+    sync_one_ring and a bf16 a2a (ROADMAP.md A10) and reads
+    sync_weight_step only under sync_mode 'k_step', which it refuses."""
 
     dense_lr: float = 1e-3
     check_nan_inf: bool = dataclasses.field(
@@ -253,9 +258,13 @@ class TrainerConfig:
         if self.sync_mode not in SYNC_MODES:
             raise ValueError("sync_mode must be one of %s, got %r"
                              % (SYNC_MODES, self.sync_mode))
-        _a10("sync_weight_step", self.sync_weight_step, 1)
-        _a10("sync_one_ring", self.sync_one_ring, False)
-        _a10("a2a_dtype", self.a2a_dtype, "float32")
+        if not isinstance(self.sync_weight_step, int) or \
+                self.sync_weight_step < 1:
+            raise ValueError("sync_weight_step must be a positive int, got "
+                             "%r" % (self.sync_weight_step,))
+        if self.a2a_dtype not in ("float32", "bfloat16"):
+            raise ValueError("a2a_dtype must be float32 or bfloat16, got %r"
+                             % (self.a2a_dtype,))
         if self.dense_optimizer not in ("adam", "sgd", "adagrad"):
             raise ValueError("dense_optimizer must be adam, sgd or adagrad, "
                              "got %r" % (self.dense_optimizer,))

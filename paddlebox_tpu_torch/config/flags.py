@@ -398,7 +398,46 @@ class HostFlags:
     debug_lock_order: bool = _env("debug_lock_order", False)
 
 
+HOSTPLANES = ("p2p", "store")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardFlags:
+    """The sharded trainer's switches (paddlebox_tpu/config/flags.py:
+    178-186, 252-280), read when ShardedBoxTrainer is made.
+
+    stager_threads: the routing pool's threads; each step's bucketize
+    runs on it up to this many steps ahead of the stager thread, which
+    exchanges and dedups in step order. stream_depth: staged steps queued
+    ahead of the consumer (peak live staged steps is this + 2).
+    strict_bucket_overflow: a bucket overflow raises instead of dropping
+    the overflowed keys' gradients with a warning (the
+    sharded_bucket_overflow stat counts the drops either way).
+    sharding_policy: the key -> shard rule (parallel/sharding.py); the
+    port routes by 'key-mod' and raises NotImplementedError for the
+    reference's other policies. hostplane: the per-step host exchange.
+    Its two values, 'p2p' and 'store', both name the port's one host
+    plane, all-to-all over a gloo group of its own
+    (fleet/mesh_comm.py MeshComm); the value is validated and otherwise
+    unread."""
+
+    stager_threads: int = _env("stager_threads", 4)
+    stream_depth: int = _env("stream_depth", 2)
+    strict_bucket_overflow: bool = _env("strict_bucket_overflow", False)
+    sharding_policy: str = _env("sharding_policy", "key-mod")
+    hostplane: str = _env("hostplane", "p2p")
+
+    def __post_init__(self):
+        for name in ("stager_threads", "stream_depth"):
+            if not isinstance(getattr(self, name), int):
+                raise TypeError("%s must be an int, got %r"
+                                % (name, getattr(self, name)))
+        if str(self.hostplane).strip().lower() not in HOSTPLANES:
+            raise ValueError("hostplane must be 'p2p' or 'store', got %r"
+                             % (self.hostplane,))
+
+
 # every dataclass of switches; their fields are the reference flags the
 # port reads (tests/test_torch_flags.py holds them to the registry)
 FLAG_CLASSES = (DtypeFlags, PushFlags, PassFlags, StageFlags, CkptFlags,
-                ObsFlags, StreamFlags, HostFlags)
+                ObsFlags, StreamFlags, HostFlags, ShardFlags)

@@ -141,6 +141,11 @@ class BoxDataset:
     def set_filelist(self, files: Sequence[str]) -> None:
         self._files = list(files)
 
+    def my_shard_files(self, rank: int, world: int) -> List[str]:
+        """This rank's files of the list, those at i % world == rank
+        (data_set.cc:1961-1973; reference dataset.py:115-117)."""
+        return [f for i, f in enumerate(self._files) if i % world == rank]
+
     def load_into_memory(self, add_keys_fn: Optional[AddKeysFn] = None) -> None:
         self.preload_into_memory(add_keys_fn)
         self.wait_preload_done()
@@ -319,12 +324,20 @@ class BoxDataset:
             return 0 if self._block is None else self._block.n_recs
         return len(self._records)
 
-    def split_batches(self, num_workers: int = 1) -> List[List[PackedBatch]]:
-        """Equal per-worker batch lists; short workers wrap around."""
+    def split_batches(self, num_workers: int = 1,
+                      equalize: Optional[Callable[[int], int]] = None
+                      ) -> List[List[PackedBatch]]:
+        """Equal per-worker batch lists; short workers wrap around
+        (compute_paddlebox_thread_batch, data_set.cc:2690-2755; reference
+        dataset.py:447-480). ``equalize`` (fleet.equalize_batches()) takes
+        the local batch count and returns the cluster's largest, so every
+        rank steps the same number of times."""
         bs = self.feed.batch_size
         n = len(self)
         per_worker = (n + num_workers - 1) // num_workers
         target = (per_worker + bs - 1) // bs if n else 0
+        if equalize is not None:
+            target = int(equalize(target))
         if self._load_columnar:
             order = (self._perm if self._perm is not None
                      else np.arange(n, dtype=np.int64))

@@ -1,0 +1,190 @@
+"""Fleet: the multi-process control plane on torch.distributed.
+
+Counterpart of paddlebox_tpu/fleet/fleet.py:42-186 (fleet.init and the
+GlooWrapper host collectives, gloo_wrapper.h:185-244). The reference
+rendezvouses through its own TCP key-value store and runs its host
+collectives over it; the port rendezvouses at a torch.distributed
+TCPStore at the role's endpoint (parallel/mesh.py connect_store) and runs
+them on the gloo host group of its ShardMesh. They move small host data:
+the feed pass's key union, batch-count equalization, metric partials.
+
+Method names and results are the reference's: ``all_gather`` returns
+every rank's array in rank order (any length and dtype: the headers go
+first), ``all_reduce`` reduces those with numpy in rank order (sum, max,
+min), ``metric_allreduce`` and ``equalize_batches`` are the adapters the
+metrics and BoxDataset.split_batches take. Every rank calls the same
+collectives in the same order. A world of one still runs them through
+its group. make_shuffler, obs_namespace and store_client wait for the
+slices that use them (ROADMAP.md A10).
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from paddlebox_tpu_torch.device import DeviceLike
+from paddlebox_tpu_torch.fleet.mesh_comm import (DTYPES, MeshComm,
+                                                 MeshPolicyMismatch, header)
+from paddlebox_tpu_torch.fleet.role_maker import RoleMaker
+from paddlebox_tpu_torch.parallel.mesh import (DEFAULT_TIMEOUT_S, ShardMesh,
+                                               connect_store,
+                                               init_distributed)
+
+_OPS = {
+    "sum": lambda arrs: np.sum(arrs, axis=0),
+    "max": lambda arrs: np.max(arrs, axis=0),
+    "min": lambda arrs: np.min(arrs, axis=0),
+}
+
+
+class Fleet:
+    def __init__(self) -> None:
+        self.role: Optional[RoleMaker] = None
+        self.mesh: Optional[ShardMesh] = None
+        self._store = None
+        self._comm: Optional[MeshComm] = None
+        self._comm_policy: Optional[str] = None
+        self._timeout = DEFAULT_TIMEOUT_S
+
+    # ----------------------------------------------------------------- init
+    def init(self, role: Optional[RoleMaker] = None, store=None) -> "Fleet":
+        """The role (the environment's unless given) and, optionally, the
+        rendezvous store init_distributed joins (a FileStore or TCPStore;
+        default: the role's endpoint)."""
+        self.role = role or RoleMaker()
+        self._store = store
+        return self
+
+    @property
+    def initialized(self) -> bool:
+        return self.role is not None
+
+    def init_distributed(self, device: DeviceLike = None,
+                         timeout: float = DEFAULT_TIMEOUT_S) -> ShardMesh:
+        """Join the process group for ``device`` (parallel/mesh.py
+        init_distributed: NCCL on CUDA, gloo on the CPU, a gloo host
+        group); once, the mesh is kept. Call after init()."""
+        if self.role is None:
+            raise RuntimeError("Fleet.init_distributed before init()")
+        if self.mesh is None:
+            self._timeout = float(timeout)
+            store = self._store or connect_store(self.role, timeout)
+            self.mesh = init_distributed(device, self.role.rank,
+                                         self.role.world, store=store,
+                                         timeout=timeout)
+        return self.mesh
+
+    def worker_index(self) -> int:
+        return self.role.rank
+
+    def worker_num(self) -> int:
+        return self.role.world
+
+    def is_first_worker(self) -> bool:
+        return self.role.is_first_worker()
+
+    def _group(self):
+        if self.mesh is None:
+            raise RuntimeError("fleet collectives need init_distributed() "
+                               "first")
+        return self.mesh.host_group
+
+    # ---------------------------------------------------------- collectives
+    def barrier_worker(self) -> None:
+        """All ranks reach this point (GlooWrapper::Barrier)."""
+        dist.barrier(group=self._group())
+
+    def all_gather(self, arr) -> List[np.ndarray]:
+        """[rank0_arr, rank1_arr, ...] on every rank
+        (GlooWrapper::AllGather): each rank's header (bytes, dtype, shape)
+        first, then the payloads padded to the largest."""
+        group = self._group()
+        world = self.role.world
+        a = np.ascontiguousarray(np.asarray(arr))
+        head = torch.tensor(header(a), dtype=torch.int64)
+        heads = [torch.empty_like(head) for _ in range(world)]
+        dist.all_gather(heads, head, group=group)
+        heads = [h.numpy() for h in heads]
+        width = max(int(h[0]) for h in heads)
+        buf = np.zeros(width, np.uint8)
+        buf[:a.nbytes] = a.reshape(-1).view(np.uint8)
+        bufs = [torch.empty(width, dtype=torch.uint8) for _ in range(world)]
+        dist.all_gather(bufs, torch.from_numpy(buf), group=group)
+        out = []
+        for h, b in zip(heads, bufs):
+            n, code, ndim = int(h[0]), int(h[1]), int(h[2])
+            shape = tuple(int(d) for d in h[3:3 + ndim])
+            out.append(b.numpy()[:n].view(DTYPES[code]).reshape(shape))
+        return out
+
+    def all_reduce(self, arr, op: str = "sum") -> np.ndarray:
+        """Elementwise reduce across ranks (GlooWrapper::AllReduce), in
+        rank order on every rank, so every rank gets the same bits."""
+        if op not in _OPS:
+            raise ValueError("allreduce op must be one of %s" % list(_OPS))
+        return _OPS[op](np.stack(self.all_gather(np.asarray(arr))))
+
+    def metric_allreduce(self) -> Callable[[np.ndarray], np.ndarray]:
+        """Adapter matching MetricRegistry.get_metric_msg's
+        ``allreduce(vec) -> vec``."""
+        return lambda v: self.all_reduce(np.asarray(v, np.float64), "sum")
+
+    def equalize_batches(self) -> Callable[[int], int]:
+        """Adapter for BoxDataset.split_batches(equalize=...): the max of
+        the ranks' local batch counts (compute_paddlebox_thread_batch_nccl,
+        data_set.cc:2690-2755)."""
+        return lambda n: int(self.all_reduce(
+            np.asarray([n], np.int64), "max")[0])
+
+    # ------------------------------------------------------------ transports
+    def make_mesh_comm(self, positions=(), policy_id: Optional[str] = None
+                       ) -> MeshComm:
+        """This rank's per-step exchange (fleet/mesh_comm.py), made once
+        and kept, on a gloo group of its own. Collective: every rank calls
+        it in the same order. The ranks' mesh positions and sharding
+        policy identities are gathered first; different identities raise
+        MeshPolicyMismatch on every rank."""
+        if self._comm is not None:
+            if policy_id is not None and policy_id != self._comm_policy:
+                raise ValueError(
+                    "make_mesh_comm: the exchange was made under policy "
+                    "%r; requested %r — one policy a fleet lifetime"
+                    % (self._comm_policy, policy_id))
+            return self._comm
+        pos = self.all_gather(np.asarray(list(positions), np.int64))
+        ident = (policy_id or "").encode("utf-8")
+        seen = sorted({bytes(p).decode("utf-8") for p in self.all_gather(
+            np.frombuffer(ident, np.uint8).copy())})
+        if policy_id is not None and seen != [policy_id]:
+            raise MeshPolicyMismatch(
+                "sharding-policy mismatch across ranks: the cluster "
+                "published %s — set sharding_policy identically on every "
+                "rank" % seen)
+        group = dist.new_group(
+            backend="gloo", timeout=datetime.timedelta(seconds=self._timeout))
+        self._comm = MeshComm(self.role.rank, self.role.world, group,
+                              {r: p.tolist() for r, p in enumerate(pos)})
+        self._comm_policy = policy_id
+        return self._comm
+
+    # ------------------------------------------------------------- lifecycle
+    def stop(self) -> None:
+        """Close the exchange and destroy the process group."""
+        if self._comm is not None:
+            self._comm.close()
+            self._comm = None
+            self._comm_policy = None
+        if self.mesh is not None:
+            self.mesh.close()
+            self.mesh = None
+        self._store = None
+        self.role = None
+
+
+# module-level singleton, like `from paddle.distributed import fleet`
+fleet = Fleet()

@@ -15,18 +15,25 @@ their own prediction), over the batch's ``cmatch_rank`` column
 the join/update phase filter (``phase``, ``flip_phase``). Host numpy, as in
 the JAX package; the trainer feeds it once a batch.
 
-The reference's cross-worker ``allreduce`` argument waits for the sharded
-trainer: every compute here is one process's.
+The cross-worker ``allreduce`` argument (reference auc.py:212-230,
+390-410, 680-682; the sharded trainer's ranks pass
+``fleet.metric_allreduce()``): the bucket tables and error sums are summed
+across ranks before the AUC, nan_inf and continue computes read them, so
+the metrics come out cluster-wide; wuauc stays each rank's own, as in the
+reference. Without it every compute is one process's.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from paddlebox_tpu_torch.utils.lockwatch import make_lock
+
+# allreduce(np.ndarray) -> np.ndarray summed across workers
+AllreduceFn = Callable[[np.ndarray], np.ndarray]
 
 _RELATIVE_ERROR_BOUND = 0.05  # kRelativeErrorBound
 _MAX_SPAN = 0.01              # kMaxSpan
@@ -195,20 +202,25 @@ class BasicAucCalculator:
             self._wuauc_preds.append(pred)
 
     # -------------------------------------------------------------- compute
-    def compute(self) -> None:
+    def compute(self, allreduce: Optional[AllreduceFn] = None) -> None:
+        """The AUC and error sums of the table, summed across workers by
+        ``allreduce`` first where given (outside the add path's lock)."""
         with self._lock:
             table = self._table.copy()
-            local = (self._local_abserr, self._local_sqrerr,
-                     self._local_pred)
+            local = np.array([self._local_abserr, self._local_sqrerr,
+                              self._local_pred], np.float64)
+        if allreduce is not None:
+            table = allreduce(table)
+            local = allreduce(local)
         auc, fp, tp = trapezoid_auc(table)
         bucket_error = self._calculate_bucket_error(table[0], table[1])
         total = fp + tp
         with self._lock:
             self._auc = auc
             if total > 0:
-                self._mae = local[0] / total
-                self._rmse = math.sqrt(local[1] / total)
-                self._predicted_ctr = local[2] / total
+                self._mae = float(local[0]) / total
+                self._rmse = math.sqrt(float(local[1]) / total)
+                self._predicted_ctr = float(local[2]) / total
                 self._actual_ctr = tp / total
             self._size = total
             self._bucket_error = bucket_error
@@ -309,28 +321,38 @@ class BasicAucCalculator:
             return tp, fp, area / (fp * tp + 1e-9)
         return tp, fp, -1
 
-    def compute_nan_inf(self) -> None:
-        """computeNanInfMsg: the share of NaN and inf predictions."""
+    def compute_nan_inf(self, allreduce: Optional[AllreduceFn] = None
+                        ) -> None:
+        """computeNanInfMsg: the share of NaN and inf predictions (the
+        counts summed across workers by ``allreduce`` where given)."""
         with self._lock:
-            nan_cnt, inf_cnt, total = (self._nan_cnt, self._inf_cnt,
-                                       self._nan_total)
+            v = np.array([self._nan_cnt, self._inf_cnt, self._nan_total],
+                         np.float64)
+        if allreduce is not None:
+            v = allreduce(v)
+        nan_cnt, inf_cnt, total = float(v[0]), float(v[1]), float(v[2])
         rate = (nan_cnt + inf_cnt) / total if total else 0.0
         with self._lock:
             self._nan_inf_rate = rate
 
-    def compute_continue_msg(self) -> None:
+    def compute_continue_msg(self, allreduce: Optional[AllreduceFn] = None
+                             ) -> None:
         """computeContinueMsg: the error sums over the record count, not
-        the buckets' mass."""
+        the buckets' mass (summed across workers by ``allreduce`` where
+        given)."""
         with self._lock:
-            v = (self._local_abserr, self._local_sqrerr, self._local_pred,
-                 self._local_label, self._local_total_num)
-        total = v[4]
+            v = np.array([self._local_abserr, self._local_sqrerr,
+                          self._local_pred, self._local_label,
+                          self._local_total_num], np.float64)
+        if allreduce is not None:
+            v = allreduce(v)
+        total = float(v[4])
         with self._lock:
             if total > 0:
-                self._mae = v[0] / total
-                self._rmse = math.sqrt(v[1] / total)
-                self._predicted_value = v[2] / total
-                self._actual_value = v[3] / total
+                self._mae = float(v[0]) / total
+                self._rmse = math.sqrt(float(v[1]) / total)
+                self._predicted_value = float(v[2]) / total
+                self._actual_value = float(v[3]) / total
             self._size = total
 
     # ------------------------------------------------------------ accessors
@@ -420,21 +442,22 @@ class MetricMsg:
         else:
             c.add_data(pred, label, mask)
 
-    def get_msg(self) -> Dict[str, float]:
+    def get_msg(self, allreduce: Optional[AllreduceFn] = None
+                ) -> Dict[str, float]:
         c = self.calculator
         if self.kind == "wuauc":
             c.compute_wuauc()
             return {"user_cnt": c.user_cnt(), "size": c.size(),
                     "uauc": c.uauc(), "wuauc": c.wuauc()}
         if self.kind == "nan_inf":
-            c.compute_nan_inf()
+            c.compute_nan_inf(allreduce)
             return {"nan_inf_rate": c.nan_inf_rate()}
         if self.kind == "continue":
-            c.compute_continue_msg()
+            c.compute_continue_msg(allreduce)
             return {"mae": c.mae(), "rmse": c.rmse(), "size": c.size(),
                     "actual_value": c.actual_value(),
                     "predicted_value": c.predicted_value()}
-        c.compute()
+        c.compute(allreduce)
         return {"auc": c.auc(), "bucket_error": c.bucket_error(),
                 "mae": c.mae(), "rmse": c.rmse(),
                 "actual_ctr": c.actual_ctr(),
@@ -594,8 +617,12 @@ class MetricRegistry:
             if m.metric_phase in (-1, self.phase) or self.phase == -1:
                 m.add_from(tensors)
 
-    def get_metric_msg(self, name: str) -> Dict[str, float]:
-        return self._metrics[name].get_msg()
+    def get_metric_msg(self, name: str,
+                       allreduce: Optional[AllreduceFn] = None
+                       ) -> Dict[str, float]:
+        """The metric's message; ``allreduce`` (fleet.metric_allreduce())
+        makes it cluster-wide."""
+        return self._metrics[name].get_msg(allreduce)
 
     def flip_phase(self) -> None:
         """Join <-> update: phase 0 becomes 1 and 1 becomes 0; any other

@@ -1,6 +1,6 @@
 """Build and load the port's native host library: the slot parser, the host
-store, the route index and the uid wire's sorted dedup
-(``paddlebox_tpu_torch/native/*.cc``).
+store, the route index, the sharded table's batch router and the uid wire's
+sorted dedup (``paddlebox_tpu_torch/native/*.cc``).
 
 Counterpart of paddlebox_tpu/native/build.py. The three sources compile
 with ``g++ -O3 -shared -fPIC -std=c++17`` into one shared library in
@@ -146,6 +146,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                               U64P]
     lib.rt_lookup_serve.restype = c.c_int64
     lib.rt_lookup_serve.argtypes = [p, U64P, c.c_int64, c.c_int32, I32P]
+    lib.rt_bucketize.restype = c.c_int64
+    lib.rt_bucketize.argtypes = [p, U64P, U8P, c.c_int64, c.c_int32,
+                                 c.c_int32, I32P, I32P, U64P]
+    lib.rt_bucketize_sharded.restype = c.c_int64
+    lib.rt_bucketize_sharded.argtypes = [p, U64P, I32P, U8P, c.c_int64,
+                                         c.c_int32, c.c_int32, I32P, I32P,
+                                         U64P]
     lib.rt_dedup_sorted.restype = c.c_int64
     lib.rt_dedup_sorted.argtypes = [I32P, c.c_int64, c.c_int32, I32P, I64P]
     return lib
@@ -173,18 +180,23 @@ def ptr(a: np.ndarray, ptr_t):
 
 # ------------------------------------------------------------ route index
 
-def create_route_index(sorted_keys: np.ndarray) -> int:
-    """A native key -> pass-local id hash index over one pass's sorted
-    unique keys (rt_index_create with one shard; the index copies the
-    keys). Id i is the key's position in ``sorted_keys``. Free it with
+def create_route_index(sorted_keys) -> int:
+    """A native key -> pass-local id hash index (rt_index_create; the
+    index copies the keys) over one pass's sorted unique keys, or over a
+    list of shards' sorted unique key arrays (the sharded table's global
+    routing). Id i is the key's position in its array. Free it with
     destroy_route_index."""
-    keys = np.ascontiguousarray(sorted_keys, dtype=np.uint64)
-    if keys.size > 2**31 - 1:
-        raise ValueError("route index: %d keys overflow its int32 ids"
-                         % keys.size)
-    off = np.array([0, keys.size], np.int64)
+    shards = ([sorted_keys] if isinstance(sorted_keys, np.ndarray)
+              else list(sorted_keys))
+    keys = np.ascontiguousarray(
+        np.concatenate(shards) if shards else np.empty(0), dtype=np.uint64)
+    if max((s.size for s in shards), default=0) > 2**31 - 1:
+        raise ValueError("route index: a shard of %d keys overflows its "
+                         "int32 ids" % max(s.size for s in shards))
+    off = np.concatenate([[0], np.cumsum([s.size for s in shards])]
+                         ).astype(np.int64)
     handle = host_lib().rt_index_create(ptr(keys, U64P), ptr(off, I64P),
-                                        1)
+                                        len(shards))
     if not handle:
         raise MemoryError("rt_index_create could not allocate an index of "
                           "%d keys" % keys.size)
@@ -227,6 +239,49 @@ def route_lookup_serve(handle: int, keys: np.ndarray,
     host_lib().rt_lookup_serve(handle, ptr(keys, U64P), keys.size, miss_id,
                                ptr(out, I32P))
     return out
+
+
+def bucketize(handle: int, keys: np.ndarray, valid: np.ndarray,
+              num_shards: int, bucket_cap: int, trash_id: int,
+              shard: Optional[np.ndarray] = None):
+    """Route one batch over a sharded route index (rt_bucketize: shard =
+    key % num_shards; with ``shard``, the per-key owner array,
+    rt_bucketize_sharded): (buckets [num_shards, bucket_cap] int32 local
+    ids in first-occurrence order, padding ``trash_id``; restore [K]
+    int32 bucket slot of each valid key position, 0 elsewhere; overflow,
+    the valid occurrences dropped because their shard's bucket was full).
+    ``valid`` (contiguous bool) loses the dropped occurrences IN PLACE.
+    Raises KeyError for a kept key the index does not hold, ValueError
+    for a shard outside [0, num_shards)."""
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    if valid.dtype != np.bool_ or not valid.flags.c_contiguous \
+            or valid.shape != keys.shape:
+        raise TypeError("valid must be a contiguous bool array of the keys' "
+                        "shape")
+    buckets = np.full((num_shards, bucket_cap), trash_id, np.int32)
+    restore = np.zeros(keys.size, np.int32)
+    missing = np.zeros(1, np.uint64)
+    v = valid.view(np.uint8)
+    lib = host_lib()
+    if shard is None:
+        rc = lib.rt_bucketize(handle, ptr(keys, U64P), ptr(v, U8P),
+                              keys.size, num_shards, bucket_cap,
+                              ptr(buckets, I32P), ptr(restore, I32P),
+                              ptr(missing, U64P))
+    else:
+        sh = np.ascontiguousarray(shard, dtype=np.int32)
+        rc = lib.rt_bucketize_sharded(handle, ptr(keys, U64P), ptr(sh, I32P),
+                                      ptr(v, U8P), keys.size, num_shards,
+                                      bucket_cap, ptr(buckets, I32P),
+                                      ptr(restore, I32P), ptr(missing, U64P))
+    if rc == -1:
+        raise KeyError("key %d not registered in feed pass" % int(missing[0]))
+    if rc == -3:
+        raise ValueError("shard out of range [0, %d) for key %d"
+                         % (num_shards, int(missing[0])))
+    if rc < 0:
+        raise MemoryError("rt_bucketize could not allocate its scratch")
+    return buckets, restore, int(rc)
 
 
 # ------------------------------------------------------------ uid dedup

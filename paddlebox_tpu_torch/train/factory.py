@@ -6,8 +6,9 @@ executor.cc:163): ``create_trainer`` resolves a reference trainer class
 name, so a TrainerDesc written for the reference names its trainer here;
 ``Executor`` drives one pass of a trainer over a dataset.
 
-BoxPSTrainer, MultiTrainer and DistMultiTrainer are the port's BoxTrainer.
-The multi-device and parameter-server trainers (the sharded, PS, heter,
+BoxPSTrainer, MultiTrainer and DistMultiTrainer are the port's BoxTrainer;
+ShardedBoxTrainer is parallel/sharded_trainer.py's (one process a GPU).
+The other multi-device and parameter-server trainers (the PS, heter,
 Downpour, pipeline and mesh-tower ones) belong to ROADMAP.md A10: their
 names raise NotImplementedError saying so. An unknown name raises
 KeyError. ``register_trainer`` adds or overrides a name.
@@ -21,12 +22,13 @@ _REGISTRY: Dict[str, Callable] = {}
 
 # the reference's names whose trainers are multi-device or parameter-server
 # ones (reference factory.py:54-96)
-A10_TRAINERS = ("ShardedBoxTrainer", "HeterXpuTrainer", "PSGPUTrainer",
+A10_TRAINERS = ("HeterXpuTrainer", "PSGPUTrainer",
                 "HeterTrainer", "HeterCpuWorker", "DownpourTrainer",
                 "PipelineTrainer", "CtrPipelineTrainer",
                 "HeterPipelineTrainer", "ShardedCtrPipelineTrainer",
                 "SectionPSTrainer", "MeshTowerTrainer")
 BOX_TRAINERS = ("BoxPSTrainer", "MultiTrainer", "DistMultiTrainer")
+SHARDED_TRAINERS = ("ShardedBoxTrainer",)
 
 
 def register_trainer(name: str, ctor: Callable) -> None:
@@ -37,6 +39,10 @@ def _builtin(name: str) -> Optional[Callable]:
     if name in BOX_TRAINERS:
         from paddlebox_tpu_torch.train.trainer import BoxTrainer
         return BoxTrainer
+    if name in SHARDED_TRAINERS:
+        from paddlebox_tpu_torch.parallel.sharded_trainer import \
+            ShardedBoxTrainer
+        return ShardedBoxTrainer
     if name in A10_TRAINERS:
         raise NotImplementedError(
             "trainer %r is multi-device or parameter-server work, not "

@@ -544,3 +544,29 @@ def build_seq_trainer(files: List[str], feed: DataFeedConfig,
     ds = BoxDataset(feed)
     ds.set_filelist(files)
     return trainer, ds
+
+
+def build_sharded_trainer(files: List[str], feed: DataFeedConfig,
+                          cfg: Flagship = FLAGSHIP, fleet=None,
+                          device: DeviceLike = None, seed: int = 0,
+                          **trainer_fields):
+    """(parallel/sharded_trainer.py ShardedBoxTrainer with an 'auc' metric,
+    dataset over this rank's files: ``files``' i % world == rank) of a
+    configuration: ``build_model``'s weights from ``seed`` (every rank
+    the same), its table sharded over the fleet's ranks (its slab
+    dtype), its TrainerConfig with ``trainer_fields`` (by default chunks
+    of 8). ``fleet``: the rank's initialized Fleet (default the
+    module's, from the environment's role)."""
+    from paddlebox_tpu_torch.parallel.sharded_trainer import \
+        ShardedBoxTrainer
+    trainer = ShardedBoxTrainer(
+        build_model(cfg, seed), cfg.table(), feed,
+        TrainerConfig(dense_lr=DENSE_LR, compute_dtype=cfg.compute_dtype,
+                      dense_optimizer=cfg.dense_optimizer, **trainer_fields),
+        seed=seed, fleet=fleet, device=device,
+        dtype_flags=DtypeFlags(cfg.slab_embed_dtype, cfg.matmul_dtype))
+    trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
+    ds = BoxDataset(feed)
+    ds.set_filelist(files)
+    ds.set_filelist(ds.my_shard_files(trainer.rank, trainer.P))
+    return trainer, ds

@@ -891,7 +891,61 @@ def run_scan_chunks(scan_call: Callable, items, chunk: int,
     return carry, losses_all, n_full
 
 
-class BoxTrainer:
+class BatchOutputs:
+    """A trainer's per-batch outputs: the metrics, the quality and drift
+    planes and the dump writer, fed one batch's predictions at a time.
+    The trainer holds ``metrics``, ``quality``, ``drift``, ``dump_writer``,
+    ``cfg``, ``task_names`` and ``num_slots``."""
+
+    def _preds_consumed(self) -> bool:
+        """Whether a metric, the quality plane or the dump writer reads
+        predictions."""
+        return (bool(self.metrics.metric_names()) or self.quality is not None
+                or self.dump_writer is not None)
+
+    def _dump_batch(self, pred, b: PackedBatch) -> None:
+        """DumpField of one batch (boxps_worker.cc DumpField): a line per
+        real instance with the requested fields; nothing without a dump
+        writer."""
+        if self.dump_writer is None:
+            return
+        by_task = pred if isinstance(pred, dict) else {
+            self.task_names[0]: pred}
+        tensors = build_dump_tensors(self.cfg.dump_fields, b.labels,
+                                     by_task, self.task_names[0])
+        if tensors:
+            self.dump_writer.dump_batch(tensors, ins_ids=b.ins_ids,
+                                        mask=b.ins_valid)
+
+    def _add_metrics(self, pred, b: PackedBatch) -> None:
+        """One batch's predictions ([B], or by task) into the metrics and,
+        when on, the quality plane (the tagged streams, the per-slot CTR)
+        and the drift monitor's pred histogram (reference
+        trainer.py:1404-1428): ``label_<task>`` for each of the feed's task
+        labels, ``pred_<task>`` for each prediction, ``pred`` the main
+        task's."""
+        if not (self.metrics.metric_names() or self.quality is not None):
+            return
+        by_task = pred if isinstance(pred, dict) else {
+            self.task_names[0]: pred}
+        main = by_task[self.task_names[0]]
+        tensors = {"label": b.labels, "mask": b.ins_valid, "pred": main}
+        if b.cmatch_rank is not None:
+            tensors["cmatch_rank"] = b.cmatch_rank
+        for t, lab in (b.task_labels or {}).items():
+            tensors["label_" + t] = lab
+        for t, p in by_task.items():
+            tensors["pred_" + t] = p
+        self.metrics.add_batch(tensors)
+        if self.quality is not None:
+            self.quality.add_batch(tensors)
+            self.quality.add_slot_batch(main, b.labels, b.slots, b.segments,
+                                        b.valid, self.num_slots)
+            if self.drift is not None:
+                self.drift.observe_preds(main, mask=b.ins_valid)
+
+
+class BoxTrainer(BatchOutputs):
     """Single-device trainer over one PassTable + model."""
 
     def __init__(self, model: torch.nn.Module, table_cfg: TableConfig,
@@ -936,6 +990,14 @@ class BoxTrainer:
             raise ValueError(
                 "sync_mode=%r / sharding=%r need the multi-device trainer"
                 % (self.cfg.sync_mode, self.cfg.sharding))
+        for name, default in (("sync_weight_step", 1),
+                              ("sync_one_ring", False),
+                              ("a2a_dtype", "float32")):
+            if getattr(self.cfg, name) != default:
+                raise ValueError(
+                    "%s=%r needs the multi-device trainer (ROADMAP.md A10); "
+                    "BoxTrainer takes %r only"
+                    % (name, getattr(self.cfg, name), default))
         # the host async dense table (reference trainer.py:945-946)
         self.async_mode = (self.cfg.async_mode
                            or self.cfg.sync_mode == "async")
@@ -1408,26 +1470,6 @@ class BoxTrainer:
         return {"loss": mean_loss, "batches": len(batches),
                 "instances": len(dataset)}
 
-    def _preds_consumed(self) -> bool:
-        """Whether a metric, the quality plane or the dump writer reads
-        predictions."""
-        return (bool(self.metrics.metric_names()) or self.quality is not None
-                or self.dump_writer is not None)
-
-    def _dump_batch(self, pred, b: PackedBatch) -> None:
-        """DumpField of one batch (boxps_worker.cc DumpField): a line per
-        real instance with the requested fields; nothing without a dump
-        writer."""
-        if self.dump_writer is None:
-            return
-        by_task = pred if isinstance(pred, dict) else {
-            self.task_names[0]: pred}
-        tensors = build_dump_tensors(self.cfg.dump_fields, b.labels,
-                                     by_task, self.task_names[0])
-        if tensors:
-            self.dump_writer.dump_batch(tensors, ins_ids=b.ins_ids,
-                                        mask=b.ins_valid)
-
     def _train_chunks(self, batches: List[PackedBatch]
                       ) -> Tuple[List, List[PackedBatch]]:
         """The pass's full chunks through run_scan_chunks: (their losses,
@@ -1616,30 +1658,3 @@ class BoxTrainer:
         return (np.concatenate([p[b.ins_valid]
                                 for p, b in zip(preds_host, batches)]),
                 np.concatenate([b.labels[b.ins_valid] for b in batches]))
-
-    def _add_metrics(self, pred, b: PackedBatch) -> None:
-        """One batch's predictions ([B], or by task) into the metrics and,
-        when on, the quality plane (the tagged streams, the per-slot CTR)
-        and the drift monitor's pred histogram (reference
-        trainer.py:1404-1428): ``label_<task>`` for each of the feed's task
-        labels, ``pred_<task>`` for each prediction, ``pred`` the main
-        task's."""
-        if not (self.metrics.metric_names() or self.quality is not None):
-            return
-        by_task = pred if isinstance(pred, dict) else {
-            self.task_names[0]: pred}
-        main = by_task[self.task_names[0]]
-        tensors = {"label": b.labels, "mask": b.ins_valid, "pred": main}
-        if b.cmatch_rank is not None:
-            tensors["cmatch_rank"] = b.cmatch_rank
-        for t, lab in (b.task_labels or {}).items():
-            tensors["label_" + t] = lab
-        for t, p in by_task.items():
-            tensors["pred_" + t] = p
-        self.metrics.add_batch(tensors)
-        if self.quality is not None:
-            self.quality.add_batch(tensors)
-            self.quality.add_slot_batch(main, b.labels, b.slots, b.segments,
-                                        b.valid, self.num_slots)
-            if self.drift is not None:
-                self.drift.observe_preds(main, mask=b.ins_valid)

@@ -294,7 +294,8 @@ def test_factory_names_resolve_as_the_reference(data):
     builtin = src[src.index("def _builtin"):src.index("def create_trainer")]
     ref_names = set(re.findall(r'"([A-Za-z]+Trainer|HeterCpuWorker)"',
                                builtin))
-    assert ref_names == set(factory.A10_TRAINERS) | set(factory.BOX_TRAINERS)
+    assert ref_names == (set(factory.A10_TRAINERS) | set(factory.BOX_TRAINERS)
+                         | set(factory.SHARDED_TRAINERS))
     for name in factory.A10_TRAINERS:
         with pytest.raises(NotImplementedError, match="A10"):
             factory.create_trainer(name)

@@ -36,9 +36,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the reference flags the port does not read, by where they go
 LEFT_TO = {
-    "A10": ("shuffle_block_codec", "shuffle_connect_secs", "stager_threads",
-            "stream_depth", "strict_bucket_overflow", "hostplane",
-            "sharding_policy", "sharding_num_tables", "sharding_table_shift",
+    "A10": ("shuffle_block_codec", "shuffle_connect_secs",
+            "sharding_num_tables", "sharding_table_shift",
             "sharding_grid_rows", "sharding_hot_threshold",
             "sharding_hot_cap"),
     "serving": ("serving_cache_rows", "serving_cache_admit",
@@ -56,7 +55,8 @@ STR_VALUES = {"push_write": "blocked", "slab_embed_dtype": "bfloat16",
               "matmul_dtype": "bfloat16", "ckpt_format": "pickle",
               "obs_watchdog_action": "raise",
               "obs_report_path": "/nonexistent/report.jsonl",
-              "obs_flight_dir": "/nonexistent/flight"}
+              "obs_flight_dir": "/nonexistent/flight",
+              "sharding_policy": "table-wise", "hostplane": "store"}
 
 
 def port_fields():
@@ -174,11 +174,25 @@ def test_config_field_sets_equal():
     ("sync_weight_step", 4), ("sync_one_ring", True),
     ("a2a_dtype", "bfloat16")])
 def test_a10_trainer_fields_refused(field, value):
+    """The config takes the multi-device fields (as the reference's does);
+    the single-device trainer refuses them, naming A10 (the sharded
+    trainer's refusals: tests/test_torch_sharded.py)."""
+    from paddlebox_tpu_torch.models.base import ModelSpec
+    from paddlebox_tpu_torch.models.deepfm import DeepFM
+    from paddlebox_tpu_torch.train.trainer import BoxTrainer
     assert getattr(configs.TrainerConfig(), field) == getattr(
         jconfigs.TrainerConfig(), field)
-    with pytest.raises(ValueError, match="A10"):
-        configs.TrainerConfig(**{field: value})
+    cfg = configs.TrainerConfig(**{field: value})
     jconfigs.TrainerConfig(**{field: value})
+    feed = configs.DataFeedConfig(slots=(configs.SlotConfig("s0"),),
+                                  batch_size=4)
+    with pytest.raises(ValueError, match="A10"):
+        BoxTrainer(DeepFM(ModelSpec(1, 3 + 8), hidden=(4,)),
+                   configs.TableConfig(embedx_dim=8, pass_capacity=64),
+                   feed, cfg, device="cpu")
+    for bad in ({"sync_weight_step": 0}, {"a2a_dtype": "float16"}):
+        with pytest.raises(ValueError):
+            configs.TrainerConfig(**bad)
 
 
 def test_mesh_sizes_refused():
