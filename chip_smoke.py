@@ -347,6 +347,25 @@ Phases, each of which raises on a failed check (exit code != 0):
      same way on the same mesh (the bf16 slab): its digits equal to
      BF16_DIGITS (phase 12's) and SHARDED_BF16_LAUNCHES (32
      push_adagrad_bf16, 32 gather_rows_decode, 3 gather_rows_2byte);
+ 23. the sharded trainer's remaining modes, in phase 22's child on the
+     same world-1 NCCL mesh after its runs, each a fresh trainer at
+     FLAGSHIP's width with the main path's seeds (PHASE23_EXACT): the
+     blocked and rebuild writes, the uid, delta and ids-only wires, a 1 x
+     1 device_mesh_2d and sync_one_ring one pass each, bit-identical to
+     phase 22's first pass (FLAGSHIP_DIGITS, its store sha256), and
+     k_step (K = 4) two passes bit-identical to phase 22's run, each with
+     its launches (phase23_launches) and collectives; ZeRO-1 and the bf16
+     a2a within ZERO1_GATE and BF16_A2A_GATE of FLAGSHIP_DIGITS' first
+     pass, the a2as' bytes a step; FLAGSHIP_EXPAND sharded = the
+     single-GPU FLAGSHIP_EXPAND pass bit for bit (push_adagrad_expand
+     launches); device-collect AUC against the host mode at
+     COLLECT_GATES, its two metric reads a pass; a two-pass run_day over
+     the sharded trainer (its store_view) = the single-GPU run_day (the
+     base's rows and the store, sha256); blocked_write at the shard slab,
+     the rebuild gather at the shard's position map, the expand push over
+     [262144, 76] and gather_rows at width 82 over 262,144 ids, each
+     bit-equal to its plain version (and blocked_write to index_copy_),
+     with kernel, plain, library and bound times ("sharded23" lines);
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -5122,7 +5141,7 @@ SHARDED_LAUNCHES = {"push_adagrad": 32, "gather_rows": 35,
 # its bf16 leg's (FLAGSHIP_BF16): the 2-byte forms, as phase 12's
 SHARDED_BF16_LAUNCHES = {"push_adagrad_bf16": 32, "gather_rows_decode": 32,
                          "gather_rows_2byte": 3}
-SHARDED_CHILD_S = 420.0       # the child's wall limit
+SHARDED_CHILD_S = 720.0       # the child's wall limit (phases 22 and 23)
 SHARDED_GROUP_S = 120.0       # its process groups' timeout
 SHARDED_SEED = 0              # the main path's trainer seed
 
@@ -5185,8 +5204,8 @@ def sharded_kernels(torch, trainer, ds, cfg):
     pview = pull_view_from_rows(gather_slab_rows(slab, ids, layout), layout)
     del got, want
     # --- the step's push rows, nothing applied
-    emb = trainer._pull(st).detach().requires_grad_(True)
-    _, loss, _ = trainer._forward(emb, st)
+    emb = trainer._pull(st)[0].detach().requires_grad_(True)
+    _, loss, _ = trainer._forward(emb, None, st)
     loss.backward()
     S = trainer.num_slots
     seg, valid = st["segments"], st["valid"]
@@ -5259,13 +5278,20 @@ def sharded_kernels(torch, trainer, ds, cfg):
     return out, colls
 
 
-def sharded_run(torch, files, feed):
+def shard_store_sha(trainer):
+    """sha256 of the sharded trainer's owned store, sorted by key."""
+    import hashlib
+    k, v = trainer.table.shard.store.state_items()
+    order = k.argsort()
+    return hashlib.sha256(k[order].tobytes() + v[order].tobytes()).hexdigest()
+
+
+def sharded_run(torch, files, feed, out_path):
     """Phase 22's body in the child: world 1 on cuda:0 over NCCL (a port-0
     TCPStore of the child's own), the sharded trainer at FLAGSHIP's full
     width, two passes through the chunk driver, then the kernels and the
-    collectives at the shard shapes."""
-    import hashlib
-
+    collectives at the shard shapes; then phase 23 on the same mesh (its
+    files beside ``out_path``)."""
     import torch.distributed as dist
 
     from paddlebox_tpu_torch.embedding import push_kernels as pk
@@ -5316,13 +5342,13 @@ def sharded_run(torch, files, feed):
                            "examples_per_s": res["instances"] / secs,
                            "phase_s": trainer.pass_times,
                            "stream_high_water": trainer.stream_high_water})
+            if i == 0:
+                # phase 23's one-pass runs are held to this store
+                sha0 = shard_store_sha(trainer)
         launches = {**pk.launch_counts(), **rk.launch_counts()}
         stats = {k: stat_peek(k) - v for k, v in stats0.items()}
-        k, v = trainer.table.shard.store.state_items()
-        order = k.argsort()
-        sha = hashlib.sha256(k[order].tobytes()
-                             + v[order].tobytes()).hexdigest()
-        out = {"passes": passes, "launches": launches,
+        sha = shard_store_sha(trainer)
+        out = {"passes": passes, "launches": launches, "store_sha0": sha0,
                "collectives": dict(trainer.collective_counts),
                "exchange": dict(stats, **trainer.host_mesh.stats()),
                "store_sha": sha, "backend": mesh.backend,
@@ -5332,9 +5358,13 @@ def sharded_run(torch, files, feed):
         out["kernels"], out["collective_ms"] = sharded_kernels(
             torch, trainer, ds, cfg)
         out["bf16"] = sharded_bf16_run(torch, files, feed, fl)
+        # 23. the remaining modes on the same mesh
+        out["phase23"] = phase23_child(torch, files, feed, fl,
+                                       os.path.dirname(out_path))
         return out
     finally:
         trainer.close()
+        fl.stop()
 
 
 def sharded_bf16_run(torch, files, feed, fl):
@@ -5374,6 +5404,487 @@ def sharded_bf16_run(torch, files, feed, fl):
         trainer.close()
 
 
+# phase 23: the sharded trainer's remaining modes at world 1 over NCCL, in
+# phase 22's child after its runs, each a fresh trainer at FLAGSHIP's full
+# width with the main path's seeds. The runs held bit for bit to phase
+# 22's scatter run: (label, build keywords, passes); one pass where the
+# first shows the mode, two for k_step (its syncs cross the pass end)
+PHASE23_EXACT = (
+    ("blocked", dict(push="blocked"), 1),
+    ("rebuild", dict(push="rebuild"), 1),
+    ("uid wire", dict(stage=dict(h2d_lean=True)), 1),
+    ("delta wire", dict(stage=dict(h2d_lean=True, wire_delta_ids=True)), 1),
+    ("ids-only wire", dict(stage=dict(h2d_lean=True, h2d_uid_wire=False)),
+     1),
+    ("k_step", dict(fields=dict(sync_mode="k_step", sync_weight_step=4)), 2),
+    ("mesh 1x1", dict(mesh2d=True), 1),
+    ("sync_one_ring", dict(mesh2d=True, fields=dict(sync_one_ring=True)), 1),
+)
+# the gates stated in PERF.md before the first run on the card, against
+# FLAGSHIP_DIGITS' first pass: ZeRO-1's hand-written Adam (loss rtol,
+# |dAUC|), the bf16 a2a's (loss rtol, |dAUC|)
+ZERO1_GATE = (1e-4, 1e-3)
+BF16_A2A_GATE = (3e-2, 0.01)
+# device-collect AUC against the host mode: the reference's own gates
+# (tests/test_sharded.py:429-471), (rtol, atol) a key
+COLLECT_GATES = {"auc": (2e-3, 0.0), "mae": (1e-4, 0.0), "rmse": (1e-4, 0.0),
+                 "actual_ctr": (1e-4, 0.0), "predicted_ctr": (1e-4, 0.0),
+                 "bucket_error": (0.0, 5e-3)}
+MSG_KEYS = ("auc", "bucket_error", "mae", "rmse", "actual_ctr",
+            "predicted_ctr", "size")
+
+
+def main_path_seeds(torch):
+    """The single-GPU trainer's seed sequence (BoxTrainer._draw_seed)."""
+    gen = torch.Generator().manual_seed(SHARDED_SEED)
+    return lambda: int(torch.randint(0, 2**31 - 1, (), generator=gen))
+
+
+def phase23_run(torch, files, feed, fl, label, cfg=None, push="scatter",
+                stage=None, fields=None, mesh2d=False, metric=None,
+                passes=1, keep=False):
+    """One phase 23 run: flagship.build_sharded_trainer on the fleet's
+    world-1 mesh (a 1 x 1 device_mesh_2d with ``mesh2d``) with the write
+    ``push``, the StageFlags fields ``stage``, the TrainerConfig fields
+    ``fields`` and the metric's keywords ``metric``; ``passes`` passes
+    with the main path's seeds. A record: each pass's loss, AUC, metric
+    message and wall, the launches, the collectives, the a2as' bytes,
+    the metric reads, the store's sha256. With ``keep`` also (trainer,
+    dataset), left open."""
+    from paddlebox_tpu_torch.config.flags import PushFlags, StageFlags
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.parallel.mesh import device_mesh_2d
+    from paddlebox_tpu_torch.train import flagship
+
+    mesh = (device_mesh_2d(fl.mesh, 1, 1, timeout=SHARDED_GROUP_S)
+            if mesh2d else None)
+    trainer, ds = flagship.build_sharded_trainer(
+        files, feed, cfg or flagship.FLAGSHIP, fleet=fl, seed=SHARDED_SEED,
+        mesh=mesh, push_flags=PushFlags(push, flagship.BLOCK_ROWS),
+        stage_flags=StageFlags(**(stage or {})), metric=metric,
+        **(fields or {}))
+    trainer.seed_fn = main_path_seeds(torch)
+    pk.reset_launch_counts()
+    rk.reset_launch_counts()
+    out = []
+    for i in range(passes):
+        t0 = time.perf_counter()
+        res = trainer.train_pass(ds)
+        torch.cuda.synchronize()
+        msg = trainer.metrics.get_metric_msg(
+            "auc", allreduce=fl.metric_allreduce())
+        out.append({"pass": i, "loss": res["loss"], "auc": msg["auc"],
+                    "batches": res["batches"],
+                    "pass_s": time.perf_counter() - t0,
+                    "msg": {k: float(msg[k]) for k in MSG_KEYS if k in msg}})
+    rec = {"label": label, "passes": out,
+           "launches": {**pk.launch_counts(), **rk.launch_counts()},
+           "collectives": dict(trainer.collective_counts),
+           "a2a_bytes": dict(trainer.a2a_bytes),
+           "d2h_reads": trainer.d2h_reads, "store_sha": shard_store_sha(trainer),
+           "push_write": trainer.push_write,
+           "wire": trainer.stage_flags.wire}
+    if keep:
+        return rec, trainer, ds
+    trainer.close()
+    return rec
+
+
+def shard_step_rows(torch, trainer, ds):
+    """The first batch of ``ds`` staged on the trainer and its step's
+    received push rows (the pull, forward, backward, bucket merge and push
+    a2a; nothing applied): (staged, rows)."""
+    import torch.distributed as dist
+
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.ops.sparse import (build_push_grads,
+                                                build_push_grads_extended)
+    from paddlebox_tpu_torch.train.trainer import task_label
+
+    b = ds.split_batches(1)[0][0]
+    st = trainer._to_device(trainer.stage_host(b))
+    trainer._wait_ready(st)
+    emb, exp, _ = trainer._pull(st)
+    emb = emb.detach().requires_grad_(True)
+    if exp is not None:
+        exp = exp.detach().requires_grad_(True)
+    _, loss, _ = trainer._forward(emb, exp, st)
+    loss.backward()
+    S = trainer.num_slots
+    seg, valid = st["segments"], st["valid"]
+    clicks = task_label(st, trainer.task_names[0]).index_select(0, seg // S)
+    if exp is not None:
+        pg = build_push_grads_extended(emb.grad, exp.grad, seg % S, clicks,
+                                       valid)
+    else:
+        pg = build_push_grads(emb.grad, seg % S, clicks, valid)
+    bucket = pk.merge_push_grads(pg, st["bperm"], st["boffsets"])
+    g = torch.empty_like(bucket)
+    dist.all_to_all_single(g, bucket, group=trainer.mesh.group)
+    trainer.dense_opt.zero_grad(set_to_none=True)
+    return st, g
+
+
+def bits_of(torch, t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def gather_record(torch, src, ids, what):
+    """gather_rows of ``ids`` from ``src`` bit-equal to its plain version
+    and to index_select; kernel, plain, library and bound times."""
+    from paddlebox_tpu_torch.device import HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.rate_probe import gather_bytes, time_chain
+
+    got = rk.gather_rows(src, ids)
+    torch.cuda.synchronize()
+    want = rk.gather_rows_plain(src, ids)
+    check(torch.equal(bits_of(torch, got), bits_of(torch, want))
+          and torch.equal(got, src.index_select(0, ids.long())),
+          "gather_rows %s differs from the plain version" % what)
+    ids_np = ids.cpu().numpy()
+    nbytes = gather_bytes(ids_np, src.shape[0], src.shape[1])
+    args = (src, ids)
+    return {"src": list(src.shape), "ids": int(ids_np.size),
+            "distinct": int(len(set(ids_np.tolist()))), "bytes": nbytes,
+            "max_abs_err": float((got - want).abs().max()),
+            "ms": time_chain(rk.gather_rows, args, nbytes),
+            "plain_ms": time_chain(rk.gather_rows_plain, args, nbytes),
+            "library_ms": time_chain(lambda a, i: a.index_select(0, i),
+                                     args, nbytes),
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
+
+
+def phase23_write_kernels(torch, trainer, ds):
+    """The blocked placement and the rebuild gather at the shard shapes,
+    from the blocked run's trainer: its first batch's push rows
+    (push_adagrad rows out over the shard's 2^20 x 17 slab) placed by
+    blocked_write in BLOCK_ROWS blocks (against its plain version and
+    index_copy_ of the same rows), and spread by gather_rows over the
+    clamped [2^20] position map (against its plain version and
+    index_select); kernel, plain, library and bound times."""
+    from paddlebox_tpu_torch.device import HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.optimizers import (blocked_layout,
+                                                          rebuild_pos)
+    from paddlebox_tpu_torch.push_probe import SEED
+    from paddlebox_tpu_torch.rate_probe import time_chain
+    from paddlebox_tpu_torch.train import flagship
+
+    layout, conf = trainer.layout, trainer.table.config.optimizer
+    st, g = shard_step_rows(torch, trainer, ds)
+    slab = trainer.table.resident_slab
+    cap, W = slab.shape
+    u, p, o, n_uniq = st["uids"], st["perm"], st["offsets"], st["n_uniq"]
+    rows = pk.push_adagrad(slab.clone(), g, p, o, u, n_uniq, SEED, layout,
+                           conf, rows_out=True)
+    row_map, blk_idx = blocked_layout(u, cap, flagship.BLOCK_ROWS)
+    s_k, s_p, s_l = slab.clone(), slab.clone(), slab.clone()
+    pk.blocked_write(s_k, rows, row_map, blk_idx)
+    torch.cuda.synchronize()
+    pk.blocked_write_plain(s_p, rows, row_map, blk_idx)
+    idx = u[:n_uniq].long()
+    s_l.index_copy_(0, idx, rows)
+    check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+          and torch.equal(s_k.view(torch.int32), s_l.view(torch.int32)),
+          "blocked_write at the shard shape differs from its plain version "
+          "or index_copy_")
+    NB, B = row_map.shape
+    placed = int((row_map >= 0).sum())
+    nbytes = NB * B * 4 + NB * 4 + placed * W * 4 * 2
+    args = (s_k, rows, row_map, blk_idx)
+    blocked = {"slab": [cap, W], "rows": [n_uniq, W], "NB": NB, "B": B,
+               "placed": placed, "bytes": nbytes,
+               "max_abs_err": float((s_k - s_p).abs().max()),
+               "ms": time_chain(pk.blocked_write, args, nbytes),
+               "plain_ms": time_chain(pk.blocked_write_plain, args, nbytes),
+               "library_ms": time_chain(lambda s, i, r: s.index_copy_(0, i, r),
+                                        (s_l, idx, rows), nbytes),
+               "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+               "bound_by": "bytes"}
+    del s_k, s_p, s_l
+    pos = rebuild_pos(u, n_uniq, cap).clamp(0, n_uniq - 1)
+    gather = gather_record(torch, rows, pos, "at the shard's rebuild map")
+    return {"blocked_write": blocked, "rebuild_gather": gather}
+
+
+def phase23_expand_kernels(torch, trainer, ds):
+    """The expand block's kernels at the shard shapes, from the sharded
+    FLAGSHIP_EXPAND trainer: gather_rows of the first batch's 262,144
+    incoming ids from the 2^20 x 82 slab (the extended pull), and the
+    fused push's expand form over its 262,144 received push rows of
+    width 76 (scatter and rows out), each bit-equal to its plain
+    version; kernel, plain, library (index_select for the gather) and
+    bound times."""
+    from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.push_probe import SEED, fused_push_bytes
+    from paddlebox_tpu_torch.rate_probe import time_chain
+
+    layout, conf = trainer.layout, trainer.table.config.optimizer
+    st, g = shard_step_rows(torch, trainer, ds)
+    slab = trainer.table.resident_slab
+    cap, W = slab.shape
+    pull = gather_record(torch, slab, st["req"], "at width %d" % W)
+    u, p, o, n_uniq = st["uids"], st["perm"], st["offsets"], st["n_uniq"]
+    n_valid = int(o[-1])
+    G = g.shape[1]
+    err = 0.0
+    for rows_out in (False, True):
+        s_k, s_p = slab.clone(), slab.clone()
+        r_k = pk.push_adagrad(s_k, g, p, o, u, n_uniq, SEED, layout, conf,
+                              rows_out)
+        torch.cuda.synchronize()
+        r_p = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n_uniq, SEED,
+                                          layout, conf, rows_out)
+        check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+              and (not rows_out or torch.equal(r_k.view(torch.int32),
+                                               r_p.view(torch.int32))),
+              "push_adagrad_expand (rows_out=%s) at the shard shape differs "
+              "from the plain version" % rows_out)
+        err = max(err, float((s_k - s_p).abs().max()))
+        del s_k, s_p, r_k, r_p
+    nbytes = fused_push_bytes(n_valid, n_uniq, W, G)
+    n_real = int((u[:n_uniq] < cap - 1).sum())
+    ops = n_valid * G + n_real * (20 + 6 * (layout.embedx_dim
+                                            + layout.expand_dim))
+    args = (slab, g, p, o, u)
+    push = {"slab": [cap, W], "rows": [int(g.shape[0]), G],
+            "occurrences": n_valid, "n_uniq": n_uniq, "bytes": nbytes,
+            "max_abs_err": err,
+            "ms": time_chain(lambda *a: pk.push_adagrad(
+                *a, n_uniq, SEED, layout, conf, rows_out=True), args, nbytes),
+            "plain_ms": time_chain(lambda *a: pk.push_adagrad_fused_plain(
+                *a, n_uniq, SEED, layout, conf, rows_out=True), args, nbytes),
+            "library_ms": None,
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / F32_FLOPS else "operations")}
+    return {"expand_pull": pull, "expand_push": push}
+
+
+def phase23_day(torch, files, feed, fl, tmp):
+    """A two-pass run_day (a delta save after each pass, the base at the
+    day's end) over the sharded trainer, its CheckpointManager driving
+    the table's store_view, and over the single-GPU trainer,
+    each into a temp dir of its own: the base's sparse rows (sorted)
+    sha256, the store's sha256, the passes' digits and walls."""
+    import hashlib
+
+    from paddlebox_tpu_torch.config.configs import CheckpointConfig
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.train import checkpoint as ck
+    from paddlebox_tpu_torch.train import flagship
+
+    out = {}
+    for name in ("sharded", "single"):
+        if name == "sharded":
+            trainer, _ = flagship.build_sharded_trainer(
+                files, feed, flagship.FLAGSHIP, fleet=fl, seed=SHARDED_SEED)
+            trainer.seed_fn = main_path_seeds(torch)
+            store = lambda: trainer.table.shard.store  # noqa: E731
+        else:
+            trainer, _ = flagship.build_trainer(
+                files, feed, flagship.FLAGSHIP, "scatter", "cuda",
+                seed=SHARDED_SEED)
+            store = lambda: trainer.table.store  # noqa: E731
+        root = os.path.join(tmp, "phase23_day_" + name)
+        cm = ck.CheckpointManager(
+            CheckpointConfig(batch_model_dir=os.path.join(root, "batch"),
+                             xbox_model_dir=os.path.join(root, "xbox")),
+            trainer.table)
+        days = []
+        for _ in range(2):
+            d = BoxDataset(feed)
+            d.set_filelist(files)
+            days.append(d)
+        t0 = time.perf_counter()
+        stats, dirs = ck.run_day(trainer, days, cm, "d23")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        blob = ck.read_batch_sparse(dirs[0])
+        order = blob["keys"].argsort()
+        k, v = store().state_items()
+        o2 = k.argsort()
+        out[name] = {
+            "losses": [s["loss"] for s in stats], "day_s": wall,
+            "base_rows": int(order.size),
+            "base_sha": hashlib.sha256(
+                blob["keys"][order].tobytes()
+                + blob["values"][order].tobytes()).hexdigest(),
+            "store_sha": hashlib.sha256(k[o2].tobytes()
+                                        + v[o2].tobytes()).hexdigest(),
+            "view_is_store": cm.store is store()}
+        trainer.close()
+    return out
+
+
+def phase23_child(torch, files, feed, fl, tmp):
+    """Phase 23 in the child: the exact runs, ZeRO-1, the bf16 a2a, the
+    expand block (sharded and single-GPU), device-collect AUC and its
+    host-mode run, the kernels at the shard shapes, the day. A record of
+    each, and the phase's host seconds."""
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.train import flagship
+
+    t0 = time.perf_counter()
+    out = {"exact": {}, "kernels": {}}
+    for label, kw, passes in PHASE23_EXACT:
+        if label == "blocked":
+            rec, trainer, ds = phase23_run(torch, files, feed, fl, label,
+                                           passes=passes, keep=True, **kw)
+            out["kernels"].update(phase23_write_kernels(torch, trainer, ds))
+            trainer.close()
+            del trainer, ds
+        else:
+            rec = phase23_run(torch, files, feed, fl, label, passes=passes,
+                              **kw)
+        out["exact"][label] = rec
+    out["zero1"] = phase23_run(torch, files, feed, fl, "zero1",
+                               fields=dict(sync_mode="sharding"))
+    out["bf16_a2a"] = phase23_run(torch, files, feed, fl, "bf16 a2a",
+                                  fields=dict(a2a_dtype="bfloat16"))
+    rec, trainer, ds = phase23_run(torch, files, feed, fl, "expand",
+                                   cfg=flagship.FLAGSHIP_EXPAND, keep=True)
+    out["kernels"].update(phase23_expand_kernels(torch, trainer, ds))
+    trainer.close()
+    del trainer, ds
+    out["expand"] = rec
+    single, sds = flagship.build_trainer(files, feed, flagship.FLAGSHIP_EXPAND,
+                                         "scatter", "cuda", seed=SHARDED_SEED)
+    pk.reset_launch_counts()
+    rk.reset_launch_counts()
+    res = single.train_pass(sds)
+    torch.cuda.synchronize()
+    out["expand_single"] = {
+        "loss": res["loss"],
+        "auc": single.metrics.get_metric_msg("auc")["auc"],
+        "launches": {**pk.launch_counts(), **rk.launch_counts()},
+        "store_sha": store_sha(single.table)}
+    single.close()
+    del single, sds
+    out["collect_host"] = phase23_run(torch, files, feed, fl, "collect host",
+                                      metric=dict(mask_var="mask"))
+    out["collect_device"] = phase23_run(
+        torch, files, feed, fl, "collect device",
+        metric=dict(mask_var="mask", mode_collect_in_device=True))
+    out["day"] = phase23_day(torch, files, feed, fl, tmp)
+    out["child_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase23_launches(label, steps, passes):
+    """The launches a phase 23 run must make over ``steps`` steps of
+    ``passes`` passes: a pull and a push a step, a write-back a pass, a
+    promote each pass after the first; the blocked write's placement a
+    step, the rebuild write's gather a step."""
+    out = {"push_adagrad": steps,
+           "gather_rows": steps + passes + (passes - 1)
+           + (steps if label == "rebuild" else 0),
+           "blocked_write": steps if label == "blocked" else 0}
+    return out
+
+
+def phase23_report(res, p22):
+    """Phase 23's checks and lines in the parent, against phase 22's run
+    ``p22`` (FLAGSHIP_DIGITS, its stores' sha256 after each pass)."""
+    steps = lambda r: sum(p["batches"] for p in r["passes"])  # noqa: E731
+    for label, r in res["exact"].items():
+        n = len(r["passes"])
+        digits = {"loss": tuple("%.10f" % p["loss"] for p in r["passes"]),
+                  "auc": tuple("%.10f" % p["auc"] for p in r["passes"])}
+        want = {k: v[:n] for k, v in FLAGSHIP_DIGITS.items()}
+        sha = p22["store_sha0"] if n == 1 else p22["store_sha"]
+        launches = {k: r["launches"][k] for k in ("push_adagrad",
+                                                  "gather_rows",
+                                                  "blocked_write")}
+        check(digits == want and r["store_sha"] == sha
+              and launches == phase23_launches(label, steps(r), n),
+              "phase 23 %s: digits %s (want %s), store %s (want %s), "
+              "launches %s (want %s)"
+              % (label, digits, want, r["store_sha"], sha, launches,
+                 phase23_launches(label, steps(r), n)))
+        log("sharded23 %s: %d pass(es) bit-identical to phase 22's scatter "
+            "run (digits %s, store sha256 %s); write %s, wire %s; launches "
+            "%s; collectives %s; walls %s"
+            % (label, n, json.dumps(digits), sha, r["push_write"], r["wire"],
+               json.dumps(r["launches"]), json.dumps(r["collectives"]),
+               [p["pass_s"] for p in r["passes"]]))
+    ref_loss = float(FLAGSHIP_DIGITS["loss"][0])
+    ref_auc = float(FLAGSHIP_DIGITS["auc"][0])
+    for key, gate in (("zero1", ZERO1_GATE), ("bf16_a2a", BF16_A2A_GATE)):
+        r = res[key]
+        p = r["passes"][0]
+        dl = abs(p["loss"] - ref_loss) / ref_loss
+        da = abs(p["auc"] - ref_auc)
+        check(dl <= gate[0] and da <= gate[1],
+              "phase 23 %s: loss %.10f auc %.10f against %.10f %.10f "
+              "(rel %.3g, |dAUC| %.3g; gate %s)"
+              % (key, p["loss"], p["auc"], ref_loss, ref_auc, dl, da, gate))
+        log("sharded23 %s pass: loss %.10f auc %.10f; rel dloss %.3g, |dAUC| "
+            "%.3g against FLAGSHIP_DIGITS' first pass (gate %s); launches "
+            "%s; collectives %s; a2a bytes %s; wall %.3f s"
+            % (key, p["loss"], p["auc"], dl, da, gate,
+               json.dumps(r["launches"]), json.dumps(r["collectives"]),
+               json.dumps(r["a2a_bytes"]), p["pass_s"]))
+    st = steps(res["bf16_a2a"])
+    b16 = res["bf16_a2a"]["a2a_bytes"]
+    b32 = res["exact"]["rebuild"]["a2a_bytes"]
+    per_step = {"pull_f32": b32["a2a_pull"] / st,
+                "pull_bf16": b16["a2a_pull"] / st,
+                "push_f32": b32["a2a_push"] / st,
+                "push_bf16": (b16["a2a_push"] + b16["a2a_push_meta"]) / st}
+    # the push row: slot, show and click (f32 on their own a2a), then the
+    # gradient columns as bf16
+    from paddlebox_tpu_torch.train import flagship
+    G = 4 + flagship.FLAGSHIP.embedx
+    check(2 * b16["a2a_pull"] == b32["a2a_pull"]
+          and G * b16["a2a_push_meta"] == 3 * b32["a2a_push"]
+          and 2 * G * b16["a2a_push"] == (G - 3) * b32["a2a_push"],
+          "phase 23 bf16 a2a bytes %s against f32's %s" % (b16, b32))
+    log("sharded23 bf16 a2a bytes a step: %s" % json.dumps(per_step))
+    e, s = res["expand"], res["expand_single"]
+    p = e["passes"][0]
+    check(p["loss"] == s["loss"] and p["auc"] == s["auc"]
+          and e["store_sha"] == s["store_sha"]
+          and e["launches"]["push_adagrad_expand"]
+          == s["launches"]["push_adagrad_expand"] == steps(e),
+          "phase 23 expand: sharded %s, single %s" % (e, s))
+    log("sharded23 expand (FLAGSHIP_EXPAND, world 1) = the single-GPU run "
+        "bit for bit: loss %.10f auc %.10f, store sha256 %s, launches %s "
+        "(single %s); wall %.3f s"
+        % (p["loss"], p["auc"], s["store_sha"], json.dumps(e["launches"]),
+           json.dumps(s["launches"]), p["pass_s"]))
+    h, d = res["collect_host"], res["collect_device"]
+    mh, md = h["passes"][0]["msg"], d["passes"][0]["msg"]
+    ok = h["passes"][0]["loss"] == d["passes"][0]["loss"] \
+        and d["d2h_reads"] == 2 and mh["size"] == md["size"]
+    diffs = {}
+    for k, (rtol, atol) in COLLECT_GATES.items():
+        diffs[k] = abs(md[k] - mh[k])
+        ok = ok and diffs[k] <= atol + rtol * abs(mh[k])
+    check(ok, "phase 23 device-collect AUC %s against the host mode %s "
+          "(reads %d)" % (md, mh, d["d2h_reads"]))
+    log("sharded23 device-collect AUC: device %s, host %s, |diff| %s "
+        "(gates %s); metric reads to the host: device %d a pass, host %d"
+        % (json.dumps(md), json.dumps(mh), json.dumps(diffs),
+           json.dumps(COLLECT_GATES), d["d2h_reads"], h["d2h_reads"]))
+    day = res["day"]
+    check(day["sharded"]["base_sha"] == day["single"]["base_sha"]
+          and day["sharded"]["store_sha"] == day["single"]["store_sha"]
+          and day["sharded"]["losses"] == day["single"]["losses"]
+          and day["sharded"]["view_is_store"],
+          "phase 23 day: %s" % day)
+    log("sharded23 day (run_day, two passes, world 1) = the single-GPU day: "
+        "%s" % json.dumps(day))
+    for name, rec in res["kernels"].items():
+        log("sharded23 %s at the shard shape: bit-equal to the plain "
+            "version; %s" % (name, json.dumps(rec)))
+    log("sharded23 phase seconds in the child: %.3f" % res["child_s"])
+
+
 def sharded_child(files, feed, out_path):
     """Phase 22's spawned process: its NCCL and process-group state never
     touch phases 1-21. Writes its result (pickle) or its traceback."""
@@ -5382,7 +5893,7 @@ def sharded_child(files, feed, out_path):
 
     import torch
     try:
-        res = sharded_run(torch, files, feed)
+        res = sharded_run(torch, files, feed, out_path)
         with open(out_path, "wb") as fh:
             pickle.dump(res, fh)
     except BaseException:
@@ -5464,6 +5975,8 @@ def sharded_phase(torch, files, feed, main, main_sha, tmp, spawn):
     for name, rec in res["kernels"].items():
         log("%s at the shard shape (world 1): bit-equal to the plain "
             "version; %s" % (name, json.dumps(rec)))
+    # 23. the remaining modes, run in the same child
+    phase23_report(res["phase23"], res)
     return res
 
 
@@ -5774,6 +6287,21 @@ def main() -> int:
             k.setdefault("at_shapes", {})["shard_world1"] = dict(
                 sharded["kernels"][k["name"]],
                 launches=sharded["launches"][k["name"]])
+    # phase 23's shard shapes, with its runs' launches
+    p23 = sharded["phase23"]
+    k23 = p23["kernels"]
+    at23 = {"blocked_write": [("shard_blocked", k23["blocked_write"],
+                               p23["exact"]["blocked"])],
+            "gather_rows": [("shard_rebuild_gather", k23["rebuild_gather"],
+                             p23["exact"]["rebuild"]),
+                            ("shard_pull_w82", k23["expand_pull"],
+                             p23["expand"])],
+            "push_adagrad_expand": [("shard_expand", k23["expand_push"],
+                                     p23["expand"])]}
+    for k in kernels:
+        for shape, rec, run in at23.get(k["name"], ()):
+            k.setdefault("at_shapes", {})[shape] = dict(
+                rec, launches=run["launches"][k["name"]])
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -5824,7 +6352,14 @@ def main() -> int:
                                            "dumped", "profiled")},
                               "slice21_env_blocked":
                                   slice21["env_blocked"],
-                              "sharded_world1": sharded["launches"]},
+                              "sharded_world1": sharded["launches"],
+                              **{"sharded23_" + n.replace(" ", "_"):
+                                 r["launches"]
+                                 for n, r in p23["exact"].items()},
+                              **{"sharded23_" + n: p23[n]["launches"]
+                                 for n in ("zero1", "bf16_a2a", "expand",
+                                           "collect_host",
+                                           "collect_device")}},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

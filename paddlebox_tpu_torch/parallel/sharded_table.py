@@ -29,22 +29,35 @@ shard only (the reference's ``owned_shards`` with one entry):
 The host plane's per-step products (reference :155-417):
 ``exchange_incoming_p2p`` ships each owner only its column of the
 buckets over the fleet's MeshComm, so this rank learns the ids every
-source sends its shard; ``stage_push_dedup`` turns them into the push's
-sorted dedup (uids, perm, offsets, n_uniq) and marks the touched rows.
+source sends its shard (the full wire); ``exchange_push_uids_p2p``
+dedups each column before the wire and the owner unions the vectors (the
+lean wires, whose ids ride the device a2a); ``stage_push_dedup`` turns
+either into the push's products (the sorted dedup: uids, perm, offsets,
+n_uniq, and the rebuild write's position map; or the sorted uids alone)
+and marks the touched rows.
+
+The checkpoint plane (reference :498-520, 1131-1304): ``attach_journal``
+hands the owned shard's PassTable the touched-row journal; ``save`` and
+``load`` write and read the owned shard at ``{prefix}.shard{s:03d}`` in
+the stores' own format; ``store_view`` (and ``store``) is what the
+CheckpointManager drives at world 1, where the one shard is every shard:
+the owned shard's store itself. Above world 1 it raises the reference's
+TypeError: every such job is multi-process in the port, and checkpoints
+per owned shard.
 
 The router is native (native/route.cc rt_bucketize) and nothing falls
 back; ``bucketize_plain`` is its numpy twin, bit for bit (the same
 buckets, restore and overflow: first occurrences fill a shard's bucket in
-order, and the late ones overflow), which the tests hold it to.
-``save``, ``load``, ``store_view``, the SSD tier under sharding, the
-journal hooks and the PS store wait for their slice (ROADMAP.md A10).
+order, and the late ones overflow), which the tests hold it to. The SSD
+tier under sharding and the PS store wait for their slice (ROADMAP.md
+A10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -52,7 +65,10 @@ from paddlebox_tpu_torch.config.configs import TableConfig
 from paddlebox_tpu_torch.config.flags import PassFlags, ShardFlags
 from paddlebox_tpu_torch.device import DeviceLike
 from paddlebox_tpu_torch.embedding.pass_table import (PassTable, dedup_ids,
-                                                      segment_offsets)
+                                                      dedup_uids_sorted,
+                                                      pos_for_rebuild,
+                                                      segment_offsets,
+                                                      uniq_count)
 from paddlebox_tpu_torch.native import host_lib
 from paddlebox_tpu_torch.obs import log as obs_log
 from paddlebox_tpu_torch.obs.tracer import record_span
@@ -199,32 +215,139 @@ def exchange_incoming_p2p(buckets_local: np.ndarray,
     return out
 
 
+def exchange_push_uids_p2p(buckets_local: np.ndarray,
+                           local_positions: List[int], num_devices: int,
+                           shard_cap: int, mesh,
+                           policy: Optional[ShardingPolicy] = None
+                           ) -> Tuple[Dict[int, np.ndarray], Dict[int, int]]:
+    """Dedup before the wire (reference :218-318): for every destination
+    shard this rank sorts the uniques of its own column and ships the
+    owner only that vector over ``mesh``; the owner unions the sources'
+    vectors: the same id set, so the same sorted uids as deduping the full
+    concatenation after exchange_incoming_p2p, at a fraction of the bytes.
+    Returns ({d: uids [num_devices * KB] int32, tail-padded with
+    shard_cap + i as dedup_uids_sorted pads}, {d: the real occurrences
+    the device a2a will carry there}) for this rank's owned destinations.
+    The second dict is the port's: a source's column holds each id once,
+    so its real occurrences are its uniques other than the trash id
+    shard_cap - 1, and the header carries their count (the push's device
+    maps take it as their n_valid). Counts the hostplane_exchange_*
+    stats."""
+    bl = np.ascontiguousarray(buckets_local, np.int32)
+    n_local, P, KB = bl.shape
+    K = num_devices * KB
+    if bl.size and int(bl.min()) < 0:
+        raise ValueError("exchange_push_uids_p2p expects nonnegative int32 "
+                         "pass-local ids")
+    dest_of_rank = _dest_plan(mesh, local_positions, num_devices, policy)
+    t0 = time.perf_counter()
+    uniq_of = [np.unique(bl[:, d, :]) for d in range(num_devices)]
+    trash = shard_cap - 1
+    real_of = [int(u.size - (u.size and u[-1] == trash)) for u in uniq_of]
+    parts = {}
+    for r, dests in enumerate(dest_of_rank):
+        header = np.array([KB, len(dests)] + list(dests)
+                          + [uniq_of[d].size for d in dests]
+                          + [real_of[d] for d in dests], np.int32)
+        parts[r] = np.concatenate([header] + [uniq_of[d] for d in dests])
+    got = mesh.exchange(parts)
+    mine = dest_of_rank[mesh.rank]
+    vecs: Dict[int, List[np.ndarray]] = {d: [] for d in mine}
+    n_valid = dict.fromkeys(mine, 0)
+    for part in got.values():
+        part = np.asarray(part, np.int32)
+        kb2, nd = int(part[0]), int(part[1])
+        if kb2 != KB:
+            raise ValueError("uid exchange KB mismatch: peer sent KB=%d, "
+                             "local is KB=%d" % (kb2, KB))
+        dests = part[2:2 + nd].tolist()
+        lens = part[2 + nd:2 + 2 * nd]
+        reals = part[2 + 2 * nd:2 + 3 * nd]
+        offs = np.concatenate([[0], np.cumsum(lens)]) + 2 + 3 * nd
+        for j, d in enumerate(dests):
+            vecs[d].append(part[offs[j]:offs[j + 1]])
+            n_valid[d] += int(reals[j])
+    out = {}
+    for d in mine:
+        uniq = np.unique(np.concatenate(vecs[d]))
+        n = uniq.size
+        if n > K:
+            raise RuntimeError("uid exchange: %d ids for dest %d exceed the "
+                               "staged vector length %d" % (n, d, K))
+        uids = np.empty(K, np.int32)
+        uids[:n] = uniq
+        uids[n:] = shard_cap + np.arange(K - n, dtype=np.int32)
+        out[d] = uids
+    wire = sum(int(p.nbytes) for r, p in parts.items() if r != mesh.rank) \
+        + sum(int(p.nbytes) for r, p in got.items() if r != mesh.rank)
+    t1 = time.perf_counter()
+    stat_add("hostplane_exchange_bytes", wire)
+    stat_add("hostplane_exchange_us", int((t1 - t0) * 1e6))
+    stat_add("hostplane_exchange_steps")
+    hist_observe("hostplane_exchange_us", (t1 - t0) * 1e6)
+    record_span("hostplane_uid_exchange", t0, t1)
+    return out, n_valid
+
+
 def stage_push_dedup(incoming: Mapping[int, np.ndarray], shard_cap: int,
-                     note_touched: Optional[Callable] = None
+                     note_touched: Optional[Callable] = None,
+                     rebuild: bool = False, uid_only: bool = False,
+                     uids_by_dest: Optional[Mapping[int, np.ndarray]] = None
                      ) -> Dict[str, list]:
-    """The push's host products of each owned destination shard d from the
-    ids it receives (``incoming[d]``, [num_devices, KB] in source order,
-    flattened): the sorted dedup (dedup_ids over the padding base
-    shard_cap: ``push_uids``, ``push_perm``, ``push_inv``), ``n_uniq`` and
-    the segment ``push_offsets`` over the real occurrences (padding slots
-    hold the trash id shard_cap - 1, the largest, so they sort last and
-    merge to a zero row). ``note_touched(d, uids)`` marks the rows the
-    push will write (reference :321-415, its sorted tier). Lists in
-    destination order."""
+    """The push's host products of each owned destination shard d
+    (reference :321-416), lists in destination order:
+
+      * the full wire, from the ids it receives (``incoming[d]``,
+        [num_devices, KB] in source order, flattened): the sorted dedup
+        (dedup_ids over the padding base shard_cap: ``push_uids``,
+        ``push_perm``, ``push_inv``), ``n_uniq`` and the segment
+        ``push_offsets`` over the real occurrences (padding slots hold the
+        trash id shard_cap - 1, the largest, so they sort last and merge
+        to a zero row); with ``rebuild`` the write's [shard_cap]
+        ``push_pos`` map (pos_for_rebuild);
+      * ``uid_only`` (the uid, delta and ids-only wires): the sorted uid
+        vector alone (``push_uids``, dedup_uids_sorted of ``incoming[d]``,
+        or ``uids_by_dest[d]`` as exchange_push_uids_p2p unioned it) and
+        its ``n_uniq``; the device derives perm and offsets from the ids
+        its a2a carries.
+
+    The reference's ``sort_uids`` arm (the blocked write's bucketize
+    trusts sorted uids) is the port's only behaviour: its dedup always
+    sorts. ``note_touched(d, uids)`` marks the rows the push will
+    write."""
     def dedup_dest(d):
-        ids = np.ascontiguousarray(incoming[d], np.int32).reshape(-1)
-        uids, perm, inv, n_uniq = dedup_ids(ids, shard_cap)
-        offsets = segment_offsets(inv, int((ids != shard_cap - 1).sum()))
+        perm = inv = offsets = pos = None
+        if uids_by_dest is not None:
+            uids = uids_by_dest[d]
+        else:
+            ids = np.ascontiguousarray(incoming[d], np.int32).reshape(-1)
+            if uid_only:
+                uids = dedup_uids_sorted(ids, shard_cap)
+            else:
+                uids, perm, inv, _ = dedup_ids(ids, shard_cap)
+                offsets = segment_offsets(
+                    inv, int((ids != shard_cap - 1).sum()))
         if note_touched is not None:
             note_touched(d, uids)
-        return uids, perm, inv, offsets, n_uniq
+        if rebuild and not uid_only:
+            pos = pos_for_rebuild(uids, shard_cap)
+        return uids, perm, inv, offsets, uniq_count(uids, shard_cap), pos
 
-    out: Dict[str, list] = {"push_uids": [], "push_perm": [], "push_inv": [],
-                            "push_offsets": [], "n_uniq": []}
-    for prod in map(dedup_dest, sorted(incoming)):
-        for k, v in zip(("push_uids", "push_perm", "push_inv",
-                         "push_offsets", "n_uniq"), prod):
-            out[k].append(v)
+    dests = sorted(uids_by_dest if uids_by_dest is not None else incoming)
+    out: Dict[str, list] = {"push_uids": [], "n_uniq": []}
+    if not uid_only:
+        out.update(push_perm=[], push_inv=[], push_offsets=[])
+    if rebuild and not uid_only:
+        out["push_pos"] = []
+    for uids, perm, inv, offsets, n_uniq, pos in map(dedup_dest, dests):
+        out["push_uids"].append(uids)
+        out["n_uniq"].append(n_uniq)
+        if not uid_only:
+            out["push_perm"].append(perm)
+            out["push_inv"].append(inv)
+            out["push_offsets"].append(offsets)
+        if pos is not None:
+            out["push_pos"].append(pos)
     return out
 
 
@@ -260,7 +383,9 @@ class ShardedPassTable:
             owned_shards = [0]
         self.owned_shards = [int(s) for s in owned_shards]
         if len(self.owned_shards) != 1:
-            raise NotImplementedError(
+            # the port's topology, not a missing mode (ROADMAP.md,
+            # deliberate differences)
+            raise ValueError(
                 "the port hosts one shard a process (owned_shards=[rank]); "
                 "got %s" % self.owned_shards)
         self.rank = self.owned_shards[0]
@@ -412,6 +537,72 @@ class ShardedPassTable:
     def end_day(self, age: bool = True) -> int:
         return self.shard.end_day(age)
 
+    # ------------------------------------------------- checkpoint plane
+    @property
+    def store_lock(self):
+        """The owned shard's store lock: every store call holds it."""
+        return self.shard.store_lock
+
+    def attach_journal(self, journal) -> None:
+        """Attach a train.journal.TouchedRowJournal (None detaches) to the
+        owned shard (reference :498-520): its write-backs, day events and
+        the store's tier moves record there, as the single-device
+        table's do."""
+        self.shard.attach_journal(journal)
+
+    def save(self, path_prefix: str) -> None:
+        """The owned shard's store at ``{path_prefix}.shard{s:03d}``, in the
+        stores' own format (reference :1133-1136): a multi-process job's
+        checkpoint, one file set a rank."""
+        with self.store_lock:
+            self.shard.store.save("%s.shard%03d" % (path_prefix, self.rank))
+
+    def load(self, path_prefix: str) -> None:
+        """Read the owned shard back from ``save``'s files (or the JAX
+        package's, the same format); the residency drops, and an attached
+        journal is tainted: the load is outside the checkpoint plane
+        (reference :1138-1145)."""
+        self.invalidate_residency()
+        journal = self.shard._journal
+        if journal is not None:
+            journal.taint("per-shard store load outside the checkpoint "
+                          "plane")
+        with self.store_lock:
+            self.shard.store.load("%s.shard%03d" % (path_prefix, self.rank))
+
+    def store_view(self):
+        """The store CheckpointManager and run_day drive (reference
+        :1153-1171). It needs every shard in this process: at world 1,
+        where the key-mod policy routes every key to the one shard, it is
+        the owned shard's store itself (CheckpointManager drops the
+        table's residency at each stat rewrite and load); above world 1
+        it raises the reference's TypeError."""
+        if self.num_shards != 1:
+            raise TypeError(
+                "store_view needs every shard local (single process); "
+                "multi-process jobs checkpoint per owned shard via "
+                "table.save()")
+        return self.shard.store
+
+    @property
+    def store(self):
+        """``store_view()``: CheckpointManager reads a table's ``store``."""
+        return self.store_view()
+
+    # ------------------------------------------------ preload promote hooks
+    def promote_prefetch_ctx(self):
+        """The owned shard's (known_fn, store, lock) for train.preload's
+        PromotePrefetcher, its store behind a _ShardLookupFacade: keys of
+        other shards report not found and resolve at the pass boundary."""
+        ctx = self.shard.promote_prefetch_ctx()
+        if ctx is None:
+            return None
+        known, _, lock = ctx
+        return known, _ShardLookupFacade(self), lock
+
+    def accept_staged_rows(self, keys: np.ndarray, rows: np.ndarray) -> None:
+        self.shard.accept_staged_rows(keys, rows)
+
     # ---------------------------------------------------------- batch index
     def bucketize(self, keys: np.ndarray, valid: np.ndarray,
                   plain: bool = False) -> ShardedBatchIndex:
@@ -456,3 +647,22 @@ class ShardedPassTable:
                             "batch, their gradients lost; further overflows "
                             "this pass count in sharded_bucket_overflow only",
                             dropped=count, bucket_cap=self.bucket_cap)
+
+
+class _ShardLookupFacade:
+    """The owned shard's store as the preload prefetcher reads it
+    (reference :1174-1195): lookup_present over any keys, those the live
+    policy routes to other shards reported not found."""
+
+    def __init__(self, table: ShardedPassTable) -> None:
+        self._table = table
+
+    def lookup_present(self, keys: np.ndarray):
+        t = self._table
+        keys = np.asarray(keys, np.uint64)
+        out = np.zeros((keys.size, t.layout.width), np.float32)
+        found = np.zeros(keys.size, bool)
+        m = t.policy.shard_of(keys) == t.rank
+        if m.any():
+            out[m], found[m] = t.shard.store.lookup_present(keys[m])
+        return out, found

@@ -107,16 +107,20 @@ def _check_plain(obj, where: str) -> None:
 
 
 class CheckpointManager:
-    """Batch and xbox saves of one PassTable's store, and the touched-row
+    """Batch and xbox saves of one table's store, and the touched-row
     journal that rides its passes."""
 
     def __init__(self, cfg: CheckpointConfig, table,
                  flags: Optional[CkptFlags] = None) -> None:
-        """With ``flags.ckpt_journal`` (the default) a touched-row journal
-        is made under ``<batch_model_dir>/_journal/rank0`` and attached to
-        the table; where that directory cannot be made, a warning says so
-        and the manager goes on without it (touched saves then save in
-        full), as the reference does."""
+        """``table``: a PassTable, or a ShardedPassTable at world 1, whose
+        ``store`` is its store_view (reference checkpoint.py:72-84); above
+        world 1 that raises, and such a job checkpoints per owned shard
+        with table.save. With ``flags.ckpt_journal`` (the default) a
+        touched-row journal is made under
+        ``<batch_model_dir>/_journal/rank0`` and attached to the table;
+        where that directory cannot be made, a warning says so and the
+        manager goes on without it (touched saves then save in full), as
+        the reference does."""
         self.cfg = cfg
         self.table = table
         self.store = table.store
@@ -532,8 +536,15 @@ def run_day(trainer, datasets, cm: CheckpointManager, day: str,
     ``cm.cfg.save_delta_every_passes`` passes; at the day's end the base
     save and ``end_day(age=False)`` (save_base already aged the rows).
     ``preload``: run_preloaded_passes (pass N+1's reader runs while pass N
-    trains and while its delta is saved), else sequential passes. Returns
-    (per-pass stats, (batch_dir, xbox_dir) of the base save)."""
+    trains and while its delta is saved), else sequential passes.
+    ``trainer``: a BoxTrainer or a ShardedBoxTrainer at world 1 (its
+    merged dense state is saved); a multi-process sharded trainer raises
+    the reference's TypeError (checkpoint.py:537-540). Returns (per-pass
+    stats, (batch_dir, xbox_dir) of the base save)."""
+    if getattr(trainer, "multiprocess", False):
+        raise TypeError("multi-process jobs checkpoint per owned shard "
+                        "(table.save) — run_day's single-blob cadence "
+                        "drives single-process trainers (Box or Sharded)")
     every = max(1, cm.cfg.save_delta_every_passes)
     state = {"delta_id": 0}
 
@@ -550,7 +561,8 @@ def run_day(trainer, datasets, cm: CheckpointManager, day: str,
             stats.append(trainer.train_pass(ds))
             on_pass(i, stats[-1])
             ds.release_memory()
-    dirs = cm.save_base(trainer.params, trainer.opt_state, day)
+    dirs = cm.save_base(trainer.merged_params(),
+                        trainer.merged_opt_state(), day)
     trainer.table.end_day(age=False)
     cm.wait()
     return stats, dirs

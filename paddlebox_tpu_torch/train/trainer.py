@@ -1182,6 +1182,14 @@ class BoxTrainer(BatchOutputs):
         return opt_state_to_numpy(self.cfg.dense_optimizer, self.model,
                                   self.dense_opt)
 
+    # the single copy of the dense state, under the sharded trainer's names
+    # (run_day saves these from either trainer)
+    def merged_params(self) -> Dict[str, np.ndarray]:
+        return self.params
+
+    def merged_opt_state(self) -> Dict[str, object]:
+        return self.opt_state
+
     def restore_dense(self, params: Mapping[str, np.ndarray],
                       opt_state: Mapping) -> None:
         """Set the dense parameters (and the data_norm summaries) and the

@@ -34,29 +34,14 @@ build the oracle, so the spawned ranks load torch and the port only.
 """
 
 import dataclasses
-import functools
-import os
-import pickle
-import time
-import traceback
 
 import numpy as np
 import pytest
 import torch
 
-from paddlebox_tpu_torch.config.configs import (DataFeedConfig,
-                                                SparseOptimizerConfig,
-                                                TableConfig, TrainerConfig)
-from paddlebox_tpu_torch.config.flags import (DtypeFlags, HostFlags,
-                                              PushFlags, ShardFlags,
-                                              StageFlags)
-from paddlebox_tpu_torch.convert import params_from_jax
-from paddlebox_tpu_torch.data.dataset import BoxDataset
-from paddlebox_tpu_torch.data.generator import write_synthetic_ctr_files
-from paddlebox_tpu_torch.embedding import accessor as acc
+from paddlebox_tpu_torch.config.configs import TrainerConfig
+from paddlebox_tpu_torch.config.flags import PushFlags, ShardFlags
 from paddlebox_tpu_torch.embedding.pass_table import segment_offsets
-from paddlebox_tpu_torch.fleet.fleet import Fleet
-from paddlebox_tpu_torch.fleet.role_maker import RoleMaker
 from paddlebox_tpu_torch.models.base import ModelSpec
 from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.parallel.sharded_table import (ShardedPassTable,
@@ -66,21 +51,12 @@ from paddlebox_tpu_torch.parallel.sharded_trainer import ShardedBoxTrainer
 from paddlebox_tpu_torch.train import factory
 from paddlebox_tpu_torch.train.trainer import BoxTrainer
 from paddlebox_tpu_torch.utils.stats import stat_get
+from sharded_cluster import (D, HIDDEN, LR, NUM_SLOTS, assert_bits,
+                             assert_store, flat_leaves, jax_reference,
+                             jax_shard_seeds, jax_table_cfg, port_dataset,
+                             run_cluster, table_cfg, use_jax_pallas,
+                             world_one, worker_order, write_data)
 
-D = 4
-NUM_SLOTS = 4
-BATCH = 32
-MAX_LEN = 3
-HIDDEN = (32, 16)
-CAP = 1024
-LR = 5e-3
-NUM_FILES = 8
-LINES = 128
-OPT = dict(mf_create_thresholds=0.0, mf_initial_range=1e-3)
-INT_COLS = [acc.SLOT, acc.SHOW, acc.CLICK, acc.UNSEEN_DAYS, acc.MF_SIZE]
-# a spawned rank's process group timeout and the cluster's wall limit
-GROUP_TIMEOUT_S = 60.0
-CLUSTER_WALL_S = 150.0
 # the routing tests' shard capacity and bucket width (no overflow)
 ROUTE_SHARD_CAP = 4096
 KB = 4096
@@ -90,282 +66,12 @@ KB = 4096
 
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
-    out = tmp_path_factory.mktemp("torch_sharded_data")
-    files, feed = write_synthetic_ctr_files(
-        str(out), num_files=NUM_FILES, lines_per_file=LINES,
-        num_slots=NUM_SLOTS, vocab_per_slot=100, max_len=MAX_LEN, seed=7)
-    pfeed = DataFeedConfig(slots=feed.slots, batch_size=BATCH)
-    return files, pfeed
-
-
-def table_cfg():
-    return TableConfig(embedx_dim=D, pass_capacity=CAP,
-                       optimizer=SparseOptimizerConfig(**OPT))
-
-
-def port_model(jparams, name="deepfm"):
-    """The port's model (CtrDnn with data_norm for ``name`` 'ctr_dnn',
-    else DeepFM) with the reference's initial parameters."""
-    spec = ModelSpec(num_slots=NUM_SLOTS, slot_dim=3 + D)
-    if name == "ctr_dnn":
-        from paddlebox_tpu_torch.models.ctr_dnn import CtrDnn
-        model = CtrDnn(spec, hidden=HIDDEN, use_data_norm=True,
-                       dn_slot_dim=3 + D)
-    else:
-        model = DeepFM(spec, hidden=HIDDEN)
-    model.load_state_dict(params_from_jax(jparams))
-    return model
-
-
-def flat_leaves(params, prefix=""):
-    """{path: array} of a params dict, data_norm's nested summaries too."""
-    out = {}
-    for k, v in params.items():
-        if isinstance(v, dict):
-            out.update(flat_leaves(v, prefix + k + "/"))
-        else:
-            out[prefix + k] = np.asarray(v)
-    return out
-
-
-def port_dataset(feed, files):
-    return BoxDataset(feed, flags=HostFlags(dataset_disable_shuffle=True))
-
-
-def worker_order(files, P):
-    """The file list whose i % P == r files are the reference's worker r's
-    (a contiguous run of the file order: its instances)."""
-    per = len(files) // P
-    return [files[(i % P) * per + i // P] for i in range(len(files))]
-
-
-def jax_feed(pfeed):
-    from paddlebox_tpu.config.configs import DataFeedConfig as JFeed
-    from paddlebox_tpu.config.configs import SlotConfig as JSlot
-    return JFeed(slots=tuple(JSlot(s.name, s.type, s.is_used, s.max_len)
-                             for s in pfeed.slots),
-                 batch_size=pfeed.batch_size)
-
-
-def jax_table_cfg(P=None, cap=CAP):
-    from paddlebox_tpu.config.configs import SparseOptimizerConfig as JOpt
-    from paddlebox_tpu.config.configs import TableConfig as JTable
-    return JTable(embedx_dim=D, pass_capacity=cap, optimizer=JOpt(**OPT))
-
-
-def jax_shard_seeds(seed, n_steps, P):
-    """Each shard's push seeds of the reference's steps: the step's key is
-    the first half of split(prng), folded with the shard's index
-    (sharded_trainer.py:458-459), then randint (optimizers.py:235-240)."""
-    import jax
-    import jax.numpy as jnp
-    prng = jax.random.PRNGKey(seed + 17)
-    out = [[] for _ in range(P)]
-    for _ in range(n_steps):
-        prng, nxt = jax.random.split(prng)
-        for s in range(P):
-            k = jax.random.fold_in(prng, s)
-            out[s].append(int(jax.random.randint(k, (), 0,
-                                                 jnp.int32(2**31 - 1))))
-        prng = nxt
-    return out
+    return write_data(tmp_path_factory.mktemp("torch_sharded_data"))
 
 
 @pytest.fixture
 def jax_pallas(monkeypatch):
-    """use_pallas_push with its kernel interpreted on the CPU and
-    dataset_disable_shuffle, as the port's other parity tests run them."""
-    from paddlebox_tpu.config import flags as jflags
-    import paddlebox_tpu.embedding.pallas_push as pp
-    jflags.set_flag("use_pallas_push", True)
-    jflags.set_flag("dataset_disable_shuffle", True)
-    monkeypatch.setattr(pp, "pallas_apply_push",
-                        functools.partial(pp.pallas_apply_push,
-                                          interpret=True))
-
-
-def jax_reference(files, pfeed, P, predict=False, model_name="deepfm",
-                  slab="float32"):
-    """The JAX ShardedBoxTrainer on device_mesh_1d(P): two passes over all
-    files (worker r takes the r-th contiguous run), each pass's loss and
-    AUC, every shard's sorted store, the dense parameters, and with
-    ``predict`` predict_batches' preds after them."""
-    from paddlebox_tpu.data.dataset import BoxDataset as JDataset
-    from paddlebox_tpu.models.base import ModelSpec as JSpec
-    from paddlebox_tpu.models.deepfm import DeepFM as JDeepFM
-    from paddlebox_tpu.config.configs import TrainerConfig as JTC
-    from paddlebox_tpu.parallel.mesh import device_mesh_1d
-    from paddlebox_tpu.parallel.sharded_trainer import (
-        ShardedBoxTrainer as JSharded)
-    jfeed = jax_feed(pfeed)
-    spec = JSpec(num_slots=NUM_SLOTS, slot_dim=3 + D)
-    if model_name == "deepfm":
-        model = JDeepFM(spec, hidden=HIDDEN)
-    else:
-        from paddlebox_tpu.models.ctr_dnn import CtrDnn as JCtrDnn
-        model = JCtrDnn(spec, hidden=HIDDEN, use_data_norm=True,
-                        dn_slot_dim=3 + D)
-    from paddlebox_tpu.config import flags as jflags
-    jflags.set_flag("slab_embed_dtype", slab)
-    try:
-        jt = JSharded(model, jax_table_cfg(), jfeed,
-                      JTC(dense_lr=LR, scan_chunk=1),
-                      mesh=device_mesh_1d(P), seed=0)
-    finally:
-        jflags.set_flag("slab_embed_dtype", "float32")
-    params0 = jax_numpy(jt.params)
-    jt.metrics.init_metric("auc", "label", "pred", table_size=1 << 14)
-    passes = []
-    for _ in range(2):
-        ds = JDataset(jfeed, read_threads=1)
-        ds.set_filelist(files)
-        r = jt.train_pass(ds)
-        passes.append((r["loss"], jt.metrics.get_metric_msg("auc")["auc"],
-                       r["batches"]))
-    stores = []
-    for st in jt.table.stores:
-        k, v = st.state_items()
-        o = np.argsort(k)
-        stores.append((k[o], v[o]))
-    out = {"params0": params0, "passes": passes, "stores": stores,
-           "params": jax_numpy(jt.params)}
-    if predict:
-        ds = JDataset(jfeed, read_threads=1)
-        ds.set_filelist(files)
-        out["predict"] = jt.predict_batches(ds)
-    jt.close()
-    return out
-
-
-def jax_numpy(params):
-    return {k: (jax_numpy(v) if isinstance(v, dict) else np.asarray(v))
-            for k, v in params.items()}
-
-
-# ----------------------------------------------------------- the cluster
-
-def _run_rank(rank, world, port, spec):
-    """One spawned rank: the runs of ``spec`` in order, each a fresh
-    ShardedBoxTrainer over this rank's files."""
-    fl = Fleet().init(RoleMaker(rank, world, "127.0.0.1:%d" % port))
-    fl.init_distributed("cpu", timeout=GROUP_TIMEOUT_S)
-    feed, files = spec["feed"], spec["files"]
-    out, trainers = [], []
-    try:
-        for run in spec["runs"]:
-            model = run.get("model", "deepfm")
-            t = ShardedBoxTrainer(
-                port_model(spec["params0"][model], model), table_cfg(),
-                feed,
-                TrainerConfig(dense_lr=LR, scan_chunk=run["scan_chunk"]),
-                seed=0, fleet=fl, device="cpu",
-                dtype_flags=DtypeFlags(run.get("slab", "float32")))
-            trainers.append(t)
-            t.metrics.init_metric("auc", "label", "pred",
-                                  table_size=1 << 14)
-            t.seed_fn = iter(spec["seeds"][model][rank]).__next__
-            passes = []
-            for _ in range(2):
-                ds = port_dataset(feed, files)
-                ds.set_filelist(files)
-                ds.set_filelist(ds.my_shard_files(rank, world))
-                r = t.train_pass(ds)
-                auc = t.metrics.get_metric_msg(
-                    "auc", allreduce=fl.metric_allreduce())["auc"]
-                passes.append((r["loss"], auc, r["batches"]))
-            k, v = t.table.stores[rank].state_items()
-            o = np.argsort(k)
-            res = {"passes": passes, "store": (k[o], v[o]),
-                   "params": t.params,
-                   "slab_dtype": str(t.table.resident_slab.dtype),
-                   "collectives": dict(t.collective_counts),
-                   "exchanges": t.host_mesh.exchanges}
-            if run.get("predict"):
-                ds = port_dataset(feed, files)
-                ds.set_filelist(files)
-                ds.set_filelist(ds.my_shard_files(rank, world))
-                preds, labels = t.predict_batches(ds)
-                counts = [int(b.ins_valid.sum())
-                          for b in ds.split_batches(1)[0]]
-                res["predict"] = (preds, labels, counts)
-            out.append(res)
-    finally:
-        for t in trainers:
-            t.close()
-        fl.stop()
-    return out
-
-
-def _rank_main(rank, world, port, spec, out_dir):
-    torch.set_num_threads(1)
-    path = os.path.join(out_dir, "rank%d" % rank)
-    try:
-        res = _run_rank(rank, world, port, spec)
-        with open(path + ".pkl", "wb") as fh:
-            pickle.dump(res, fh)
-    except BaseException:
-        with open(path + ".err", "w") as fh:
-            fh.write(traceback.format_exc())
-        raise
-
-
-def run_cluster(world, spec, out_dir, target=_rank_main):
-    """Spawn ``world`` ranks around a TCPStore on an ephemeral port; every
-    rank must end within CLUSTER_WALL_S, or all are killed and the test
-    fails. Returns the ranks' results in rank order."""
-    import torch.distributed as dist
-    import torch.multiprocessing as tmp
-    store = dist.TCPStore("127.0.0.1", 0, None, is_master=True,
-                          wait_for_workers=False)
-    ctx = tmp.get_context("spawn")
-    procs = [ctx.Process(target=target,
-                         args=(r, world, store.port, spec, str(out_dir)))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + CLUSTER_WALL_S
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    errs = {}
-    for r in range(world):
-        err = os.path.join(str(out_dir), "rank%d.err" % r)
-        if os.path.exists(err):
-            errs[r] = open(err).read()
-    assert not hung, "ranks %s passed the %s s wall limit; errors %s" % (
-        hung, CLUSTER_WALL_S, errs)
-    assert all(p.exitcode == 0 for p in procs) and not errs, (
-        [p.exitcode for p in procs], errs)
-    out = []
-    for r in range(world):
-        with open(os.path.join(str(out_dir), "rank%d.pkl" % r), "rb") as fh:
-            out.append(pickle.load(fh))
-    return out
-
-
-def assert_store(got, want, slab="float32"):
-    """Integer columns bit-equal; float columns rtol 1e-4 / atol 1e-6, and
-    on the bf16 slab its 2-byte weight columns within one bf16 step
-    (2^-7 relative) as in tests/test_torch_bf16.py."""
-    (gk, gv), (wk, wv) = got, want
-    np.testing.assert_array_equal(gk, wk)
-    np.testing.assert_array_equal(gv[:, INT_COLS], wv[:, INT_COLS])
-    if slab == "float32":
-        np.testing.assert_allclose(gv, wv, rtol=1e-4, atol=1e-6)
-        return
-    bf = acc.slab_codec_plan(acc.ValueLayout(D, embed_dtype=slab)).bf16_cols
-    assert (np.abs(gv[:, bf] - wv[:, bf])
-            <= np.abs(wv[:, bf]) * 2.0 ** -7 + 1e-30).all()
-    np.testing.assert_allclose(gv[:, ~bf], wv[:, ~bf], rtol=1e-4, atol=1e-6)
-
-
-def assert_bits(a, b):
-    np.testing.assert_array_equal(np.asarray(a).view(np.uint32),
-                                  np.asarray(b).view(np.uint32))
+    use_jax_pallas(monkeypatch)
 
 
 @pytest.mark.parametrize("P", [2, 4])
@@ -373,12 +79,12 @@ def test_cluster_matches_the_jax_sharded_trainer(P, data, jax_pallas,
                                                  tmp_path):
     files, pfeed = data
     refs = {"deepfm": jax_reference(files, pfeed, P, predict=(P == 2))}
-    runs = [{"scan_chunk": 1, "predict": P == 2}]
+    runs = [{"predict": P == 2}]
     if P == 2:
         # chunks of 4; CtrDnn, whose data_norm summaries the ranks average;
         # DeepFM on the bf16 slab
-        runs += [{"scan_chunk": 4}, {"scan_chunk": 1, "model": "ctr_dnn"},
-                 {"scan_chunk": 1, "model": "bf16", "slab": "bfloat16"}]
+        runs += [{"cfg": {"scan_chunk": 4}}, {"model": "ctr_dnn"},
+                 {"model": "bf16", "slab": "bfloat16"}]
         refs["ctr_dnn"] = jax_reference(files, pfeed, P,
                                         model_name="ctr_dnn")
         refs["bf16"] = jax_reference(files, pfeed, P, slab="bfloat16")
@@ -644,12 +350,6 @@ def test_feed_pass_unions_and_splits_by_key_mod():
 
 # ------------------------------------------------------ world one, refusals
 
-def world_one():
-    fl = Fleet().init(RoleMaker(0, 1))
-    fl.init_distributed("cpu", timeout=GROUP_TIMEOUT_S)
-    return fl
-
-
 def test_world_one_equals_the_single_device_trainer(data):
     """At world 1 (gloo in process) the sharded trainer gives BoxTrainer's
     two passes bit for bit: losses, AUC, the store and the dense
@@ -716,17 +416,7 @@ def test_world_one_equals_the_single_device_trainer(data):
 
 
 REFUSED = [
-    (dict(cfg=TrainerConfig(sync_mode="k_step")), "K-step and ZeRO-1"),
-    (dict(cfg=TrainerConfig(sync_mode="sharding")), "K-step and ZeRO-1"),
-    (dict(cfg=TrainerConfig(sharding=True)), "K-step and ZeRO-1"),
-    (dict(cfg=TrainerConfig(sync_one_ring=True)), "2-D mesh"),
-    (dict(mesh=object()), "2-D mesh"),
-    (dict(cfg=TrainerConfig(a2a_dtype="bfloat16")), "bf16 a2a"),
-    (dict(expand=True), "expand block"),
     (dict(store_factory=lambda *a: None), "CPU PS"),
-    (dict(push_flags=PushFlags("blocked")), "blocked and rebuild"),
-    (dict(push_flags=PushFlags("rebuild")), "blocked and rebuild"),
-    (dict(stage_flags=StageFlags(h2d_lean=True)), "blocked and rebuild"),
 ]
 
 
@@ -755,24 +445,6 @@ def test_chunk_sync_and_async_raise_as_the_reference(cfg, data):
                    hidden=HIDDEN)
     with pytest.raises(ValueError, match="single-host"):
         ShardedBoxTrainer(model, table_cfg(), pfeed, cfg, device="cpu")
-
-
-def test_device_collect_metrics_refused(data):
-    files, pfeed = data
-    fl = world_one()
-    try:
-        t = ShardedBoxTrainer(
-            DeepFM(ModelSpec(num_slots=NUM_SLOTS, slot_dim=3 + D),
-                   hidden=HIDDEN), table_cfg(), pfeed, seed=0, fleet=fl,
-            device="cpu")
-        t.metrics.init_metric("auc", "label", "pred", table_size=64,
-                              mode_collect_in_device=True)
-        ds = port_dataset(pfeed, files)
-        ds.set_filelist(files[:1])
-        with pytest.raises(NotImplementedError, match="device-collect"):
-            t.train_pass(ds)
-    finally:
-        fl.stop()
 
 
 def test_other_policies_refused():
