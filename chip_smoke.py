@@ -366,6 +366,24 @@ Phases, each of which raises on a failed check (exit code != 0):
      [262144, 76] and gather_rows at width 82 over 262,144 ids, each
      bit-equal to its plain version (and blocked_write to index_copy_),
      with kernel, plain, library and bound times ("sharded23" lines);
+ 24. the other sharding policies, the hot tier and the shuffled feed, in
+     phase 22's child after phase 23, each policy on a world-1 NCCL fleet
+     of its own (an exchange serves one policy): table-wise
+     (PHASE24_TABLES) one pass bit-identical to phase 22's first, 16
+     push_adagrad and 17 gather_rows, every batch through
+     rt_bucketize_sharded; the 2-D grid with its hot tier (PHASE24_HOT)
+     on the uid wire, two passes bit-identical to phase 22's run, each
+     pass's frozen hot keys within PHASE24_HOT_RANGE and the hot ids kept
+     off the wire and added back a step; ReplicatedHotTier's lookup =
+     store.lookup bit for bit; the shuffled feed (two TcpShufflers on
+     threads, the block codec): each rank's records its hash partition
+     of the files, the load's seconds and frame bytes beside an
+     unshuffled load, rank 0's half trained one pass twice, bit-identical;
+     the world-1 trainers' aggregator None; gather_rows over the
+     table-wise run's staged incoming ids and the fused push_adagrad over
+     the hot run's widened uid vector (untouched hot rows unchanged),
+     bit-equal to their plain versions with kernel, plain, library and
+     bound times ("sharded24" lines);
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -5361,10 +5379,13 @@ def sharded_run(torch, files, feed, out_path):
         # 23. the remaining modes on the same mesh
         out["phase23"] = phase23_child(torch, files, feed, fl,
                                        os.path.dirname(out_path))
-        return out
     finally:
         trainer.close()
         fl.stop()
+    # 24. the other policies, the hot tier and the shuffled feed, each
+    # policy on a fleet of its own
+    out["phase24"] = phase24_child(torch, files, feed, store)
+    return out
 
 
 def sharded_bf16_run(torch, files, feed, fl):
@@ -5885,6 +5906,433 @@ def phase23_report(res, p22):
     log("sharded23 phase seconds in the child: %.3f" % res["child_s"])
 
 
+# phase 24: the table-wise and 2-D grid policies, the grid's replicated hot
+# tier and the cross-host shuffled feed, in phase 22's child after phase 23,
+# at FLAGSHIP's full width with the main path's seeds. A fleet's exchange
+# serves one sharding policy, so each policy runs on a world-1 NCCL fleet
+# of its own (phase 22's is stopped first), on the child's TCPStore under a
+# prefix of its own.
+PHASE24_TABLES = dict(sharding_num_tables=53, sharding_table_shift=0)
+# the hot tier over the main path's four files: a FreqSketch of 2^16
+# entries fed each file's keys in load order halves past its cap, so after
+# the first pass 2,539 keys have a count of 2 or more and 39 of 3 or more,
+# after the second 2,890 and 58 (the port's FreqSketch over the files on
+# the CPU, the same code the trainer runs). A threshold of 2 with a cap of
+# 4096 keeps both passes' frozen sets between 256 keys and the cap.
+PHASE24_HOT = dict(sharding_hot_threshold=2, sharding_hot_cap=4096)
+PHASE24_HOT_RANGE = (256, 4096)
+# the shuffled feed: two TcpShufflers (ranks 0 and 1) on threads of the
+# child, the block codec
+PHASE24_SHUFFLE_WORLD = 2
+
+
+def phase24_fleet(store, name):
+    """A world-1 NCCL fleet on cuda:0 over the child's TCPStore, its keys
+    under the prefix phase24-<name>."""
+    import torch.distributed as dist
+
+    from paddlebox_tpu_torch.fleet.fleet import Fleet
+    from paddlebox_tpu_torch.fleet.role_maker import RoleMaker
+    fl = Fleet().init(RoleMaker(0, 1),
+                      store=dist.PrefixStore("phase24-" + name, store))
+    fl.init_distributed("cuda", timeout=SHARDED_GROUP_S)
+    return fl
+
+
+def phase24_run(torch, files, feed, fl, label, shard, stage=None, passes=1):
+    """One phase 24 run on ``fl``: flagship.build_sharded_trainer under the
+    ShardFlags fields ``shard`` and the StageFlags fields ``stage``,
+    ``passes`` passes with the main path's seeds. (record, trainer,
+    dataset), the trainer open: each pass's digits, wall, frozen hot keys
+    and the hot ids kept off the wire and added back in it; the launches,
+    the router's calls by entry, the store's sha256, the policy's
+    identity."""
+    from paddlebox_tpu_torch.config.flags import ShardFlags, StageFlags
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.train import flagship
+
+    trainer, ds = flagship.build_sharded_trainer(
+        files, feed, flagship.FLAGSHIP, fleet=fl, seed=SHARDED_SEED,
+        stage_flags=StageFlags(**(stage or {})),
+        shard_flags=ShardFlags(**shard))
+    trainer.seed_fn = main_path_seeds(torch)
+    pk.reset_launch_counts()
+    rk.reset_launch_counts()
+    out = []
+    for i in range(passes):
+        before = dict(trainer.hot_counts)
+        t0 = time.perf_counter()
+        res = trainer.train_pass(ds)
+        torch.cuda.synchronize()
+        auc = trainer.metrics.get_metric_msg(
+            "auc", allreduce=fl.metric_allreduce())["auc"]
+        out.append({
+            "pass": i, "loss": res["loss"], "auc": auc,
+            "batches": res["batches"], "pass_s": time.perf_counter() - t0,
+            "phase_s": dict(trainer.pass_times),
+            "hot_frozen": trainer.table.hot_frozen,
+            "hot_dropped": trainer.hot_counts.get("dropped", 0)
+            - before.get("dropped", 0),
+            "hot_readded": trainer.hot_counts.get("readded", 0)
+            - before.get("readded", 0)})
+    rec = {"label": label, "passes": out,
+           "launches": {**pk.launch_counts(), **rk.launch_counts()},
+           "route_counts": dict(trainer.table.route_counts),
+           "store_sha": shard_store_sha(trainer),
+           "policy": trainer.policy.describe(),
+           "aggregator": trainer.aggregator is None,
+           "wire": trainer.stage_flags.wire}
+    return rec, trainer, ds
+
+
+def phase24_hot_tier(torch, trainer):
+    """ReplicatedHotTier over the hot run's owned store: refresh, then its
+    lookup of the frozen keys against store.lookup of the same keys, bit
+    for bit; the mirror's rows and seconds."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.parallel.sharding import ReplicatedHotTier
+    tier = ReplicatedHotTier(trainer.policy)
+    hot = trainer.policy.hot_keys_frozen()
+    t0 = time.perf_counter()
+    with trainer.table.store_lock:
+        n = tier.refresh(trainer.table.stores)
+        want = trainer.table.shard.store.lookup(hot)
+    refresh_s = time.perf_counter() - t0
+    rows, found = tier.lookup(hot)
+    check(n == hot.size and bool(found.all())
+          and np.array_equal(rows.view(np.uint32),
+                             np.asarray(want, np.float32).view(np.uint32)),
+          "phase 24 ReplicatedHotTier: %d rows of %d hot keys, lookup "
+          "differs from the store" % (n, hot.size))
+    return {"rows": n, "width": int(rows.shape[1]),
+            "refresh_s": refresh_s}
+
+
+def phase24_hot_push(torch, trainer, ds):
+    """The fused push over the hot run's widened uid vector: the first
+    batch staged on the uid wire (the owner's uids hold its whole hot set,
+    hot ids the batch did not touch among them), its received push rows,
+    the device maps from the a2a'd ids (push_sparse_uidwire's); push_adagrad
+    against its plain version bit for bit, scatter and rows out, the rows
+    of the untouched hot ids unchanged; kernel, plain and bound times."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.optimizers import device_push_maps
+    from paddlebox_tpu_torch.push_probe import SEED, fused_push_bytes
+    from paddlebox_tpu_torch.rate_probe import time_chain
+
+    layout, conf = trainer.layout, trainer.table.config.optimizer
+    st, g = shard_step_rows(torch, trainer, ds)
+    req = trainer._req(st)
+    slab = trainer.table.resident_slab
+    cap, W = slab.shape
+    u, n_uniq, n_valid = st["uids"], st["n_uniq"], st["push_n_valid"]
+    inv = torch.searchsorted(u, req, out_int32=True)
+    p, o = device_push_maps(inv, n_valid)
+    u_np = u[:n_uniq].cpu().numpy()
+    touched = np.unique(req.cpu().numpy())
+    hot = trainer.policy.hot_local_ids(trainer.rank)
+    idle = np.setdiff1d(hot, touched).astype(np.int64)
+    check(np.isin(hot, u_np).all() and idle.size > 0,
+          "phase 24 hot push: the uid vector holds %d of the %d hot ids, "
+          "%d untouched" % (int(np.isin(hot, u_np).sum()), hot.size,
+                            idle.size))
+    err = 0.0
+    idle_t = torch.from_numpy(idle).to(slab.device)
+    for rows_out in (False, True):
+        s_k, s_p = slab.clone(), slab.clone()
+        r_k = pk.push_adagrad(s_k, g, p, o, u, n_uniq, SEED, layout, conf,
+                              rows_out)
+        torch.cuda.synchronize()
+        r_p = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n_uniq, SEED,
+                                          layout, conf, rows_out)
+        check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+              and (not rows_out or torch.equal(r_k.view(torch.int32),
+                                               r_p.view(torch.int32))),
+              "push_adagrad (rows_out=%s) over the hot uid vector differs "
+              "from the plain version" % rows_out)
+        check(torch.equal(s_k.index_select(0, idle_t).view(torch.int32),
+                          slab.index_select(0, idle_t).view(torch.int32)),
+              "the push changed rows of hot ids the batch did not touch")
+        err = max(err, float((s_k - s_p).abs().max()))
+        del s_k, s_p, r_k, r_p
+    G = g.shape[1]
+    nbytes = fused_push_bytes(n_valid, n_uniq, W, G)
+    n_real = int((u_np < cap - 1).sum())
+    ops = n_valid * G + n_real * (20 + 6 * layout.embedx_dim)
+    args = (slab, g, p, o, u)
+    return {"slab": [cap, W], "rows": [int(g.shape[0]), G],
+            "occurrences": n_valid, "n_uniq": n_uniq,
+            "hot_ids": int(hot.size), "hot_untouched": int(idle.size),
+            "bytes": nbytes, "max_abs_err": err,
+            "ms": time_chain(lambda *a: pk.push_adagrad(
+                *a, n_uniq, SEED, layout, conf, rows_out=True), args, nbytes),
+            "plain_ms": time_chain(lambda *a: pk.push_adagrad_fused_plain(
+                *a, n_uniq, SEED, layout, conf, rows_out=True), args, nbytes),
+            "library_ms": None,
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / F32_FLOPS else "operations")}
+
+
+def block_records(block):
+    """The sorted per-record signatures (label, slots and keys as bytes) of
+    a ColumnarBlock: its records as a multiset."""
+    import numpy as np
+    off = block.rec_offsets
+    keys = block.keys.view(np.uint8).reshape(-1, 8)
+    slots = block.key_slot.view(np.uint8).reshape(-1, 4)
+    return sorted((int(block.labels[r]),
+                   slots[off[r]:off[r + 1]].tobytes(),
+                   keys[off[r]:off[r + 1]].tobytes())
+                  for r in range(block.n_recs))
+
+
+def phase24_shuffled_load(feed, files, add_keys_fn=None):
+    """The shuffled feed: two TcpShufflers on localhost (ranks 0 and 1, the
+    block codec), each rank's BoxDataset loading my_shard_files(rank, 2)
+    on a thread of its own (the flush waits for the peer), ``add_keys_fn``
+    on rank 0's. (datasets, the load's wall, each rank's frame bytes sent
+    and received)."""
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.data.shuffle import TcpShuffler
+
+    world = PHASE24_SHUFFLE_WORLD
+    shs = [TcpShuffler(r, world, [("127.0.0.1", 0)] * world)
+           for r in range(world)]
+    eps = [("127.0.0.1", sh.port) for sh in shs]
+    errs = []
+    try:
+        for sh in shs:
+            sh.endpoints = eps
+        dss = []
+        for r in range(world):
+            ds = BoxDataset(feed, shuffler=shs[r])
+            ds.set_filelist(files)
+            ds.set_filelist(ds.my_shard_files(r, world))
+            dss.append(ds)
+
+        def load(r):
+            try:
+                dss[r].load_into_memory(add_keys_fn if r == 0 else None)
+            except BaseException as e:   # checked below
+                errs.append(repr(e))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=load, args=(r,))
+                   for r in range(world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        wall = time.perf_counter() - t0
+        check(not errs and not any(t.is_alive() for t in threads),
+              "phase 24's shuffled load failed: %s" % errs)
+        return dss, wall, [(sh.bytes_sent, sh.bytes_received) for sh in shs]
+    finally:
+        for sh in shs:
+            sh.close()
+
+
+def phase24_shuffle(torch, files, feed, fl):
+    """The shuffled feed's checks: each rank's merged records, as a
+    multiset, the hash partition (block_shuffle_dests) of all the files;
+    the load's wall and frame bytes beside an unshuffled load of rank 0's
+    files; then rank 0's half trained one pass on a world-1 sharded
+    trainer, twice (a fresh load and trainer each time): bit-identical
+    digits and store sha256, with its launches."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.data import block_shuffle as bs
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.train import flagship
+
+    world = PHASE24_SHUFFLE_WORLD
+    dss, wall, frames = phase24_shuffled_load(feed, files)
+    whole = BoxDataset(feed)
+    whole.set_filelist(files)
+    whole.load_into_memory()
+    dests = bs.block_shuffle_dests(whole.block, world)
+    for r in range(world):
+        want = block_records(whole.block.select(np.flatnonzero(dests == r)))
+        check(block_records(dss[r].block) == want,
+              "phase 24: rank %d's shuffled records are not its hash "
+              "partition of the files" % r)
+    plain = BoxDataset(feed)
+    plain.set_filelist(files)
+    plain.set_filelist(plain.my_shard_files(0, world))
+    t0 = time.perf_counter()
+    plain.load_into_memory()
+    plain_wall = time.perf_counter() - t0
+    out = {"load_s": wall, "unshuffled_load_s": plain_wall,
+           "frame_bytes": frames,
+           "records": [len(d) for d in dss], "unshuffled_records": len(plain),
+           "runs": []}
+    for i in range(2):
+        trainer, _ = flagship.build_sharded_trainer(
+            files, feed, flagship.FLAGSHIP, fleet=fl, seed=SHARDED_SEED)
+        trainer.seed_fn = main_path_seeds(torch)
+        pk.reset_launch_counts()
+        rk.reset_launch_counts()
+        trainer.table.begin_feed_pass()
+        dss, _, _ = phase24_shuffled_load(feed, files,
+                                          add_keys_fn=trainer.table.add_keys)
+        trainer.table.end_feed_pass(allgather=fl.all_gather)
+        t0 = time.perf_counter()
+        res = trainer.train_pass(dss[0], preloaded=True)
+        torch.cuda.synchronize()
+        auc = trainer.metrics.get_metric_msg(
+            "auc", allreduce=fl.metric_allreduce())["auc"]
+        out["runs"].append({
+            "loss": res["loss"], "auc": auc, "batches": res["batches"],
+            "instances": res["instances"],
+            "pass_s": time.perf_counter() - t0,
+            "launches": {**pk.launch_counts(), **rk.launch_counts()},
+            "store_sha": shard_store_sha(trainer)})
+        trainer.close()
+    return out
+
+
+def phase24_child(torch, files, feed, store):
+    """Phase 24 in the child (phase 22's fleet stopped): the table-wise
+    run with the pull's kernel at its shape, the 2-D grid's hot run with
+    the replicated tier and the fused push over its uid vector, the
+    shuffled feed. A record of each and the phase's host seconds."""
+    t0 = time.perf_counter()
+    out = {"kernels": {}}
+    fl = phase24_fleet(store, "table-wise")
+    try:
+        rec, trainer, ds = phase24_run(
+            torch, files, feed, fl, "table-wise",
+            dict(PHASE24_TABLES, sharding_policy="table-wise"))
+        st = trainer._to_device(trainer.stage_host(
+            ds.split_batches(1)[0][0]))
+        trainer._wait_ready(st)
+        out["kernels"]["gather_rows"] = gather_record(
+            torch, trainer.table.resident_slab, st["req"],
+            "at the table-wise shard's pull")
+        trainer.close()
+        out["table_wise"] = rec
+    finally:
+        fl.stop()
+    fl = phase24_fleet(store, "2d-grid")
+    try:
+        rec, trainer, ds = phase24_run(
+            torch, files, feed, fl, "2d-grid hot",
+            dict(PHASE24_TABLES, sharding_policy="2d-grid", **PHASE24_HOT),
+            stage=dict(h2d_lean=True), passes=2)
+        rec["hot_tier"] = phase24_hot_tier(torch, trainer)
+        out["kernels"]["push_adagrad"] = phase24_hot_push(torch, trainer, ds)
+        trainer.close()
+        out["grid_hot"] = rec
+    finally:
+        fl.stop()
+    fl = phase24_fleet(store, "shuffle")
+    try:
+        out["shuffle"] = phase24_shuffle(torch, files, feed, fl)
+    finally:
+        fl.stop()
+    out["child_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase24_report(res, p22):
+    """Phase 24's checks and lines in the parent, against phase 22's run
+    ``p22`` (FLAGSHIP_DIGITS, its store sha256 after each pass)."""
+    def digits(r, n):
+        return {"loss": tuple("%.10f" % p["loss"] for p in r["passes"]),
+                "auc": tuple("%.10f" % p["auc"] for p in r["passes"])}, {
+                    k: v[:n] for k, v in FLAGSHIP_DIGITS.items()}
+
+    tw = res["table_wise"]
+    got, want = digits(tw, 1)
+    steps = tw["passes"][0]["batches"]
+    launches = {k: tw["launches"][k] for k in ("push_adagrad",
+                                               "gather_rows")}
+    check(got == want and tw["store_sha"] == p22["store_sha0"]
+          and launches == {"push_adagrad": steps, "gather_rows": steps + 1}
+          and tw["route_counts"] == {"rt_bucketize_sharded": steps}
+          and tw["aggregator"],
+          "phase 24 table-wise: digits %s (want %s), store %s (want %s), "
+          "launches %s, router %s" % (got, want, tw["store_sha"],
+                                      p22["store_sha0"], launches,
+                                      tw["route_counts"]))
+    log("sharded24 table-wise (%s, world 1): one pass bit-identical to "
+        "phase 22's first (digits %s, store sha256 %s); launches %s; "
+        "router %s (every batch through rt_bucketize_sharded); aggregator "
+        "None; wall %.3f s"
+        % (tw["policy"], json.dumps(got), tw["store_sha"],
+           json.dumps(tw["launches"]), json.dumps(tw["route_counts"]),
+           tw["passes"][0]["pass_s"]))
+    gh = res["grid_hot"]
+    got, want = digits(gh, 2)
+    steps = sum(p["batches"] for p in gh["passes"])
+    launches = {k: gh["launches"][k] for k in ("push_adagrad",
+                                               "gather_rows")}
+    lo, hi = PHASE24_HOT_RANGE
+    check(got == want and gh["store_sha"] == p22["store_sha"]
+          and launches == {"push_adagrad": steps, "gather_rows": steps + 3}
+          and gh["route_counts"] == {"rt_bucketize_sharded": steps}
+          and all(lo <= p["hot_frozen"] <= hi and p["hot_readded"]
+                  == p["hot_frozen"] * p["batches"] for p in gh["passes"])
+          and gh["aggregator"],
+          "phase 24 2d-grid hot: digits %s (want %s), store %s (want %s), "
+          "launches %s, passes %s" % (got, want, gh["store_sha"],
+                                      p22["store_sha"], launches,
+                                      gh["passes"]))
+    for p in gh["passes"]:
+        b = p["batches"]
+        log("sharded24 2d-grid hot pass %d (%s, uid wire, world 1): "
+            "hot_threshold %d froze %d keys; a step kept %.1f hot ids off "
+            "the wire and added %d back (%.1f of them untouched by the "
+            "step); loss %.10f auc %.10f; wall %.3f s"
+            % (p["pass"], gh["policy"],
+               PHASE24_HOT["sharding_hot_threshold"], p["hot_frozen"],
+               p["hot_dropped"] / b, p["hot_readded"] // b,
+               (p["hot_readded"] - p["hot_dropped"]) / b, p["loss"],
+               p["auc"], p["pass_s"]))
+    log("sharded24 feed seconds (the load, the sketch's observe on the "
+        "reader, end_feed_pass with the sketches' merge and the freeze): "
+        "hot tier on %s against off (table-wise) %s"
+        % ([p["phase_s"]["feed"] for p in gh["passes"]],
+           [p["phase_s"]["feed"] for p in tw["passes"]]))
+    log("sharded24 2d-grid hot: two passes bit-identical to phase 22's "
+        "(digits %s, store sha256 %s); launches %s; ReplicatedHotTier %s, "
+        "lookup = store.lookup bit for bit"
+        % (json.dumps(got), gh["store_sha"], json.dumps(gh["launches"]),
+           json.dumps(gh["hot_tier"])))
+    sh = res["shuffle"]
+    a, b = sh["runs"]
+    check({k: a[k] for k in ("loss", "auc", "store_sha")}
+          == {k: b[k] for k in ("loss", "auc", "store_sha")}
+          and a["launches"]["push_adagrad"] == a["batches"]
+          and a["launches"]["gather_rows"] == a["batches"] + 1
+          and a["launches"] == b["launches"],
+          "phase 24 shuffled passes differ: %s" % sh["runs"])
+    log("sharded24 shuffled feed (2 TcpShufflers on localhost, block "
+        "codec): each rank's records = its hash partition of the 4 files "
+        "(%s records); load %.3f s against %.3f s unshuffled (rank 0's %d "
+        "records); frame bytes (sent, received) by rank %s"
+        % (sh["records"], sh["load_s"], sh["unshuffled_load_s"],
+           sh["unshuffled_records"], sh["frame_bytes"]))
+    log("sharded24 shuffled pass (rank 0's half, world 1), twice: loss "
+        "%.10f auc %.10f, store sha256 %s, bit-identical; %d steps, %d "
+        "instances; launches %s; walls %s"
+        % (a["loss"], a["auc"], a["store_sha"], a["batches"],
+           a["instances"], json.dumps(a["launches"]),
+           [a["pass_s"], b["pass_s"]]))
+    for name, rec in res["kernels"].items():
+        log("sharded24 %s at the shard shape: bit-equal to the plain "
+            "version; %s" % (name, json.dumps(rec)))
+    log("sharded24 phase seconds in the child: %.3f" % res["child_s"])
+
+
 def sharded_child(files, feed, out_path):
     """Phase 22's spawned process: its NCCL and process-group state never
     touch phases 1-21. Writes its result (pickle) or its traceback."""
@@ -5977,6 +6425,8 @@ def sharded_phase(torch, files, feed, main, main_sha, tmp, spawn):
             "version; %s" % (name, json.dumps(rec)))
     # 23. the remaining modes, run in the same child
     phase23_report(res["phase23"], res)
+    # 24. the other policies, the hot tier and the shuffled feed
+    phase24_report(res["phase24"], res)
     return res
 
 
@@ -6302,6 +6752,16 @@ def main() -> int:
         for shape, rec, run in at23.get(k["name"], ()):
             k.setdefault("at_shapes", {})[shape] = dict(
                 rec, launches=run["launches"][k["name"]])
+    # phase 24's shard shapes, with its runs' launches
+    p24 = sharded["phase24"]
+    at24 = {"gather_rows": ("shard_tablewise_pull", p24["table_wise"]),
+            "push_adagrad": ("shard_hot_push", p24["grid_hot"])}
+    for k in kernels:
+        if k["name"] in at24:
+            shape, run = at24[k["name"]]
+            k.setdefault("at_shapes", {})[shape] = dict(
+                p24["kernels"][k["name"]],
+                launches=run["launches"][k["name"]])
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -6359,7 +6819,11 @@ def main() -> int:
                               **{"sharded23_" + n: p23[n]["launches"]
                                  for n in ("zero1", "bf16_a2a", "expand",
                                            "collect_host",
-                                           "collect_device")}},
+                                           "collect_device")},
+                              **{"sharded24_" + n: p24[n]["launches"]
+                                 for n in ("table_wise", "grid_hot")},
+                              "sharded24_shuffled":
+                                  p24["shuffle"]["runs"][0]["launches"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

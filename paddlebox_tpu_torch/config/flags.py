@@ -1,10 +1,10 @@
 """The switches the port reads: the push write, the pass lifecycle, the
 chunk driver's staging, the checkpoint plane, the dtype diet, the
 trainer's host planes (telemetry, quality, drift), the streaming runner
-and the single-process host switches (HostFlags: the feed's shuffle and
-key cap, the dump and archive rotation, the profiled pass, the AUC
-runner, the nan guard's default, the lock-order watch, the host hash
-table's load factor).
+and the single-process host switches (HostFlags: the feed's local and
+cross-host shuffle and key cap, the dump and archive rotation, the
+profiled pass, the AUC runner, the nan guard's default, the lock-order
+watch, the host hash table's load factor).
 
 The JAX package keeps these in a process-wide flag registry
 (paddlebox_tpu/config/flags.py), each read when the flag is defined. The
@@ -386,7 +386,12 @@ class HostFlags:
     dump writer's and the archive spill's files (:135). profile_per_op:
     BoxTrainer.train_pass runs train_pass_profiled (:188).
     debug_lock_order: the default of lockwatch's process-wide switch,
-    read once when utils/lockwatch.py is imported (:566)."""
+    read once when utils/lockwatch.py is imported (:566).
+    shuffle_block_codec: the cross-host instance shuffle moves whole
+    ColumnarBlocks (data/block_shuffle.py); off, the per-record codec,
+    which loads the shuffled dataset on the record path (:100).
+    shuffle_connect_secs: TcpShuffler's dial timeout; a peer it cannot
+    reach raises ShufflePeerUnreachable (:115)."""
 
     dataset_disable_shuffle: bool = _env("dataset_disable_shuffle", False)
     auc_runner_mode: bool = _env("auc_runner_mode", False)
@@ -396,6 +401,8 @@ class HostFlags:
     dump_file_max_bytes: int = _env("dump_file_max_bytes", 2 << 30)
     profile_per_op: bool = _env("profile_per_op", False)
     debug_lock_order: bool = _env("debug_lock_order", False)
+    shuffle_block_codec: bool = _env("shuffle_block_codec", True)
+    shuffle_connect_secs: float = _env("shuffle_connect_secs", 20.0)
 
 
 HOSTPLANES = ("p2p", "store")
@@ -404,7 +411,7 @@ HOSTPLANES = ("p2p", "store")
 @dataclasses.dataclass(frozen=True)
 class ShardFlags:
     """The sharded trainer's switches (paddlebox_tpu/config/flags.py:
-    178-186, 252-280), read when ShardedBoxTrainer is made.
+    178-186, 252-309), read when ShardedBoxTrainer is made.
 
     stager_threads: the routing pool's threads; each step's bucketize
     runs on it up to this many steps ahead of the stager thread, which
@@ -413,18 +420,30 @@ class ShardFlags:
     strict_bucket_overflow: a bucket overflow raises instead of dropping
     the overflowed keys' gradients with a warning (the
     sharded_bucket_overflow stat counts the drops either way).
-    sharding_policy: the key -> shard rule (parallel/sharding.py); the
-    port routes by 'key-mod' and raises NotImplementedError for the
-    reference's other policies. hostplane: the per-step host exchange.
+    sharding_policy: the key -> shard rule (parallel/sharding.py
+    resolve_sharding_policy): 'key-mod', 'table-wise' or '2d-grid'.
+    sharding_num_tables and sharding_table_shift: a key's table is
+    (key >> shift) % num_tables (table-wise and 2d-grid).
+    sharding_grid_rows: the 2-D grid's row axis R, dividing P (0: the
+    largest divisor of P not above sqrt(P)). sharding_hot_threshold: the
+    grid's hot tier freezes the keys whose summed sketch count reaches it
+    (0: off); sharding_hot_cap: the most hot keys a shard may hold (more
+    raise). hostplane: the per-step host exchange.
     Its two values, 'p2p' and 'store', both name the port's one host
     plane, all-to-all over a gloo group of its own
-    (fleet/mesh_comm.py MeshComm); the value is validated and otherwise
-    unread."""
+    (fleet/mesh_comm.py MeshComm), and both build the TcpShuffler for the
+    instance shuffle (Fleet.make_shuffler); the value is validated and
+    otherwise unread."""
 
     stager_threads: int = _env("stager_threads", 4)
     stream_depth: int = _env("stream_depth", 2)
     strict_bucket_overflow: bool = _env("strict_bucket_overflow", False)
     sharding_policy: str = _env("sharding_policy", "key-mod")
+    sharding_num_tables: int = _env("sharding_num_tables", 64)
+    sharding_table_shift: int = _env("sharding_table_shift", 48)
+    sharding_grid_rows: int = _env("sharding_grid_rows", 0)
+    sharding_hot_threshold: int = _env("sharding_hot_threshold", 0)
+    sharding_hot_cap: int = _env("sharding_hot_cap", 1024)
     hostplane: str = _env("hostplane", "p2p")
 
     def __post_init__(self):

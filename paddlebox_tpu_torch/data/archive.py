@@ -9,8 +9,8 @@ archive file in place of a text file (``is_archive`` sniffs the magic).
 
 The payload is the record codec ``serialize_records`` /
 ``deserialize_records``, a byte-equal copy of the reference's
-(paddlebox_tpu/data/shuffle.py:73-135, the cross-host shuffle's, which
-ROADMAP.md A10 will import from here): a ``<II`` header (magic "PBXR",
+(paddlebox_tpu/data/shuffle.py:73-135, the cross-host shuffle's record
+frames, which data/shuffle.py imports from here): a ``<II`` header (magic "PBXR",
 count), then a record's label, rank, 16 bits of cmatch, its ins_id's
 length, search_id, qvalue and sparse slot count (``<iiHHQfH``), the
 ins_id, each sparse slot (``<HI`` slot, count, then uint64 values), the

@@ -36,6 +36,19 @@ shards back with ``set_filelist(disk_files)`` to train). The reference's
 columnar load reads a file directly and so skips ``pipe_command``; the
 port does not copy that (ROADMAP.md C).
 
+``shuffler`` (data/shuffle.py, Fleet.make_shuffler's): the cross-host
+instance shuffle. Each file's block (columnar path) or each 512 records
+(record path) go through its ``scatter_block`` or ``scatter``: this
+rank's instances merge at once, the others travel to their ranks;
+``wait_preload_done`` flushes it, merging the frames this rank received
+after its own (by source rank, then frame), and finishes the load even
+when the flush fails (a dead peer), then raises. Under
+``shuffle_block_codec=False`` a shuffled dataset loads on the record
+path, as the reference's does. Received frames of the other codec (a
+peer on the other path) convert at the merge with a loud warning, once a
+load (stat ingest_codec_mix_converted). ``dataset_disable_shuffle``
+turns the cross-host shuffle off too.
+
 ``flags`` (HostFlags(), made at construction): under
 ``dataset_disable_shuffle`` ``local_shuffle`` keeps the load order.
 ``slots_shuffle`` permutes slots' feasign lists across the records (the
@@ -52,9 +65,9 @@ The host planes (under the reference's names): the counters
 ingest_ins_parsed, ingest_keys_parsed (columnar) and dataset_ins_merged, the
 spans ingest_parse (columnar), ingest_merge and ingest_quality, and the drift
 monitor's ``observe_block`` on the merged block (metrics/drift.py; it feeds
-the active monitor, if any). The reference's ingest_shuffle span times its
-cross-host shuffle, which the port does not have; here it times
-``local_shuffle``.
+the active monitor, if any). The span ingest_shuffle times
+``local_shuffle`` and each scatter of the cross-host shuffle,
+ingest_shuffle_flush its flush.
 """
 
 from __future__ import annotations
@@ -68,11 +81,14 @@ from paddlebox_tpu_torch.config.configs import DataFeedConfig
 from paddlebox_tpu_torch.config.flags import HostFlags
 from paddlebox_tpu_torch.data.archive import (BinaryArchiveWriter,
                                               is_archive, read_archive)
+from paddlebox_tpu_torch.data.block_shuffle import (block_to_records,
+                                                    records_to_block)
 from paddlebox_tpu_torch.data.columnar import ColumnarBlock, pack_columnar
 from paddlebox_tpu_torch.data.packer import BatchPacker, PackedBatch
 from paddlebox_tpu_torch.data.parser import MultiSlotParser
 from paddlebox_tpu_torch.data.slot_record import SlotRecord
 from paddlebox_tpu_torch.metrics import drift
+from paddlebox_tpu_torch.obs import log as obs_log
 from paddlebox_tpu_torch.obs.tracer import span
 from paddlebox_tpu_torch.utils.stats import stat_add
 
@@ -85,9 +101,11 @@ class BoxDataset:
     def __init__(self, feed: DataFeedConfig,
                  columnar: Optional[bool] = None,
                  input_table=None, use_cache_idx: bool = False,
-                 parser=None, flags: Optional[HostFlags] = None) -> None:
+                 parser=None, flags: Optional[HostFlags] = None,
+                 shuffler=None) -> None:
         """``columnar`` None: the columnar path unless ``parser`` is a
-        record parser."""
+        record parser. ``shuffler``: the cross-host instance shuffle
+        (module docstring)."""
         # a task label slot the feed lacks fails on both paths (the record
         # path would quietly train the task on the click label)
         names = {s.name for s in feed.slots}
@@ -98,6 +116,7 @@ class BoxDataset:
                     "config" % (slot_name, task))
         self.feed = feed
         self.flags = flags or HostFlags()
+        self.shuffler = shuffler
         block_parser = parser is not None and not hasattr(parser,
                                                           "parse_file")
         if columnar is None:
@@ -137,6 +156,9 @@ class BoxDataset:
         self._perm: Optional[np.ndarray] = None
         self._reader: Optional[threading.Thread] = None
         self._load_error: Optional[BaseException] = None
+        self._blocks: List[ColumnarBlock] = []
+        self._add_keys_fn: Optional[AddKeysFn] = None
+        self._mix_warned = False
 
     def set_filelist(self, files: Sequence[str]) -> None:
         self._files = list(files)
@@ -162,7 +184,11 @@ class BoxDataset:
         self._load_columnar = (
             self.columnar and self._disk_writer is None
             and not self.feed.pipe_command
-            and not any(f.endswith(".gz") or is_archive(f) for f in files))
+            and not any(f.endswith(".gz") or is_archive(f) for f in files)
+            and not (self._shuffling and not self.flags.shuffle_block_codec))
+        self._blocks = []
+        self._add_keys_fn = add_keys_fn
+        self._mix_warned = False
         self._reader = threading.Thread(
             target=self._read, args=(files, add_keys_fn, self._disk_writer),
             daemon=True, name="dataset-reader")
@@ -178,20 +204,65 @@ class BoxDataset:
         except BaseException as e:  # raised again by wait_preload_done
             self._load_error = e
 
+    @property
+    def _shuffling(self) -> bool:
+        return (self.shuffler is not None
+                and not self.flags.dataset_disable_shuffle)
+
+    # the merge: what the reader and the shuffle's flush hand over
+    def put(self, block: ColumnarBlock) -> None:
+        """Merge one block (the columnar path; a record-path load converts
+        it)."""
+        if not self._load_columnar:
+            self._warn_mix("columnar block frames in a record-path pass")
+            stat_add("ingest_codec_mix_converted", block.n_recs)
+            self._merge(block_to_records(block, self.feed),
+                        self._add_keys_fn, self._disk_writer)
+            return
+        with span("ingest_merge"):
+            if self._add_keys_fn is not None and block.n_keys:
+                self._add_keys_fn(block.keys)
+            self._blocks.append(block)
+        stat_add("dataset_ins_merged", block.n_recs)
+
+    def put_many(self, recs: List[SlotRecord]) -> None:
+        """Merge records (the record path; a columnar load converts
+        them)."""
+        if self._load_columnar:
+            self._warn_mix("record frames in a columnar pass")
+            stat_add("ingest_codec_mix_converted", len(recs))
+            self.put(records_to_block(recs, self.feed))
+            return
+        self._merge(list(recs), self._add_keys_fn, self._disk_writer)
+
+    def _warn_mix(self, kind: str) -> None:
+        if not self._mix_warned:
+            self._mix_warned = True
+            obs_log.warning(
+                "shuffle codec mix: " + kind + " — a peer runs the other "
+                "ingest mode (archive shard? split shuffle_block_codec "
+                "flag?); converting at the merge, throughput degraded")
+
     def _read_columnar(self, files: List[str],
                        add_keys_fn: Optional[AddKeysFn]) -> None:
-        blocks = []
         for path in files:
             with span("ingest_parse"):
                 block = self.parser.parse_file_columnar(path)
             stat_add("ingest_ins_parsed", block.n_recs)
             stat_add("ingest_keys_parsed", block.n_keys)
-            with span("ingest_merge"):
-                if add_keys_fn is not None and block.n_keys:
-                    add_keys_fn(block.keys)
-                blocks.append(block)
-            stat_add("dataset_ins_merged", block.n_recs)
-        self._block = ColumnarBlock.concat(blocks)
+            if self._shuffling:
+                with span("ingest_shuffle"):
+                    self.shuffler.scatter_block(block, self)
+            else:
+                self.put(block)
+        if not self._shuffling:
+            self._finish_columnar()
+
+    def _finish_columnar(self) -> None:
+        """The merged blocks as the pass's one block, and the drift
+        monitor's look at it."""
+        self._block = ColumnarBlock.concat(self._blocks)
+        self._blocks = []
         if self._block.n_recs:
             with span("ingest_quality"):
                 drift.observe_block(self._block)
@@ -202,21 +273,32 @@ class BoxDataset:
         for path in files:
             if is_archive(path):
                 for recs in read_archive(path):
-                    self._merge(recs, add_keys_fn, disk_writer)
+                    self._put_records(recs, add_keys_fn, disk_writer)
                 continue
             chunk: List[SlotRecord] = []
             for rec in self._record_parser.parse_file(path):
                 chunk.append(rec)
                 if len(chunk) >= _MERGE_CHUNK:
-                    self._merge(chunk, add_keys_fn, disk_writer)
+                    self._put_records(chunk, add_keys_fn, disk_writer)
                     chunk = []
             if chunk:
-                self._merge(chunk, add_keys_fn, disk_writer)
+                self._put_records(chunk, add_keys_fn, disk_writer)
+
+    def _put_records(self, recs: List[SlotRecord],
+                     add_keys_fn: Optional[AddKeysFn],
+                     disk_writer: Optional[BinaryArchiveWriter]) -> None:
+        """Parsed records to the merge, through the cross-host shuffle when
+        there is one."""
+        stat_add("ingest_ins_parsed", len(recs))
+        if self._shuffling:
+            with span("ingest_shuffle"):
+                self.shuffler.scatter(recs, self)
+        else:
+            self._merge(recs, add_keys_fn, disk_writer)
 
     def _merge(self, recs: List[SlotRecord],
                add_keys_fn: Optional[AddKeysFn],
                disk_writer: Optional[BinaryArchiveWriter] = None) -> None:
-        stat_add("ingest_ins_parsed", len(recs))
         if disk_writer is not None:
             # the spill registers no key: the shards' load does
             disk_writer.write_records(recs)
@@ -231,18 +313,35 @@ class BoxDataset:
         stat_add("dataset_ins_merged", len(recs))
 
     def wait_preload_done(self) -> None:
-        """Join the reader; raise RuntimeError from the error it hit, if
-        any (the reference's wait, paddlebox_tpu/data/dataset.py:355-358).
-        """
+        """Join the reader; with a shuffler, flush it (span
+        ingest_shuffle_flush) and merge what it received, then finish the
+        load even where the flush failed (reference :331-350). Raises
+        RuntimeError from the reader's error, which comes first, or from
+        the flush's."""
         reader, self._reader = self._reader, None
         if reader is not None:
             reader.join()
-        if self._disk_writer is not None:
-            self.disk_files = self._disk_writer.close()
-            self._disk_writer = None
+        flush_error: Optional[BaseException] = None
+        try:
+            if reader is not None and self._shuffling:
+                with span("ingest_shuffle_flush"):
+                    self.shuffler.flush(self)
+        except BaseException as e:
+            flush_error = e
+        finally:
+            if reader is not None and self._shuffling \
+                    and self._load_columnar:
+                self._finish_columnar()
+            self._add_keys_fn = None
+            if self._disk_writer is not None:
+                self.disk_files = self._disk_writer.close()
+                self._disk_writer = None
         err, self._load_error = self._load_error, None
         if err is not None:
             raise RuntimeError("dataset load failed") from err
+        if flush_error is not None:
+            raise RuntimeError(
+                "cross-host shuffle flush failed") from flush_error
 
     def preload_into_disk(self, out_prefix: str, max_bytes: int = 0) -> None:
         """Start a load that spills the pass's records to rotating archive
@@ -287,6 +386,7 @@ class BoxDataset:
     def release_memory(self) -> None:
         self._records = []
         self._block = None
+        self._blocks = []
         self._perm = None
 
     def local_shuffle(self, seed: Optional[int] = None) -> None:

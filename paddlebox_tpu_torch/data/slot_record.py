@@ -46,3 +46,12 @@ class SlotRecord:
         if not self.uint64_slots:
             return np.empty(0, dtype=np.uint64)
         return np.concatenate(list(self.uint64_slots.values()))
+
+    def shuffle_hash(self) -> int:
+        """The cross-host shuffle's hash (general_shuffle_func,
+        data_set.cc:2420-2436): the XOR of the record's feasigns mod
+        0x7FFFFFFF, its label where it has none."""
+        keys = self.all_keys()
+        if keys.size == 0:
+            return self.label
+        return int(np.bitwise_xor.reduce(keys) % np.uint64(0x7FFFFFFF))

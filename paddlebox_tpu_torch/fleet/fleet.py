@@ -14,13 +14,27 @@ first), ``all_reduce`` reduces those with numpy in rank order (sum, max,
 min), ``metric_allreduce`` and ``equalize_batches`` are the adapters the
 metrics and BoxDataset.split_batches take. Every rank calls the same
 collectives in the same order. A world of one still runs them through
-its group. make_shuffler, obs_namespace and store_client wait for the
-slices that use them (ROADMAP.md A10).
+its group.
+
+Above world 1 the fleet also runs the reference's KV store
+(fleet/store.py): at ``init_distributed`` rank 0 starts a KVStoreServer
+on a free port and publishes its endpoint through the torch.distributed
+store the ranks rendezvous at, and every rank keeps a TcpStoreClient
+(``store_client``; None at world 1, as in the reference). The cluster
+aggregator's store transport (obs/aggregate.py), elastic heartbeats
+(fleet/elastic.py) and the telemetry namespace (``obs_namespace``) ride
+it. ``make_shuffler`` builds the cross-host instance shuffle's
+TcpShuffler (data/shuffle.py), its endpoints exchanged by ``all_gather``:
+the reference's MeshShuffler rides its own socket mesh, which the port
+does not have (its MeshComm is gloo's all_to_all), so under both
+hostplane values the port builds the TcpShuffler (ROADMAP.md C).
 """
 
 from __future__ import annotations
 
 import datetime
+import os
+import socket
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -31,6 +45,7 @@ from paddlebox_tpu_torch.device import DeviceLike
 from paddlebox_tpu_torch.fleet.mesh_comm import (DTYPES, MeshComm,
                                                  MeshPolicyMismatch, header)
 from paddlebox_tpu_torch.fleet.role_maker import RoleMaker
+from paddlebox_tpu_torch.fleet.store import KVStoreServer, TcpStoreClient
 from paddlebox_tpu_torch.parallel.mesh import (DEFAULT_TIMEOUT_S, ShardMesh,
                                                connect_store,
                                                init_distributed)
@@ -50,6 +65,9 @@ class Fleet:
         self._comm: Optional[MeshComm] = None
         self._comm_policy: Optional[str] = None
         self._timeout = DEFAULT_TIMEOUT_S
+        self._kv_server: Optional[KVStoreServer] = None
+        self._kv_client: Optional[TcpStoreClient] = None
+        self._run_id = "0"
 
     # ----------------------------------------------------------------- init
     def init(self, role: Optional[RoleMaker] = None, store=None) -> "Fleet":
@@ -58,6 +76,7 @@ class Fleet:
         default: the role's endpoint)."""
         self.role = role or RoleMaker()
         self._store = store
+        self._run_id = os.environ.get("PBTPU_RUN_ID", "0")
         return self
 
     @property
@@ -77,7 +96,45 @@ class Fleet:
             self.mesh = init_distributed(device, self.role.rank,
                                          self.role.world, store=store,
                                          timeout=timeout)
+            if self.role.world > 1:
+                self._start_kv_store(store)
         return self.mesh
+
+    def _my_host(self) -> str:
+        """This rank's address as its peers dial it: PBTPU_HOST, else the
+        loopback for a rendezvous on this machine (or none), else the
+        host name."""
+        host = os.environ.get("PBTPU_HOST")
+        if host:
+            return host
+        store_host = (self.role.store_addr()[0] if self.role.store_endpoint
+                      else "127.0.0.1")
+        if store_host in ("127.0.0.1", "localhost", "::1"):
+            return "127.0.0.1"
+        return socket.gethostname()
+
+    def _start_kv_store(self, store) -> None:
+        """Rank 0 serves the KV store on a free port and publishes
+        host:port under ``pbtpu/kv_endpoint`` in the rendezvous store;
+        every rank connects a client."""
+        key = "pbtpu/kv_endpoint"
+        if self.role.rank == 0:
+            host = self._my_host()
+            bind = host if host in ("127.0.0.1", "localhost") else "0.0.0.0"
+            self._kv_server = KVStoreServer(bind, 0)
+            store.set(key, "%s:%d" % (host, self._kv_server.port))
+        host, port = store.get(key).decode().rsplit(":", 1)
+        self._kv_client = TcpStoreClient(host, int(port),
+                                         timeout=self._timeout)
+
+    def store_client(self) -> Optional[TcpStoreClient]:
+        """This rank's KV store client (None at world 1 and before
+        init_distributed)."""
+        return self._kv_client
+
+    def obs_namespace(self) -> str:
+        """The run-scoped key namespace of the telemetry reports."""
+        return "%s/obs" % self._run_id
 
     def worker_index(self) -> int:
         return self.role.rank
@@ -172,13 +229,44 @@ class Fleet:
         self._comm_policy = policy_id
         return self._comm
 
+    def make_shuffler(self, batch_records: int = 512,
+                      host: Optional[str] = None,
+                      timeout: float = DEFAULT_TIMEOUT_S):
+        """This rank's cross-host instance shuffle (data/shuffle.py
+        TcpShuffler, listening on ``host``, default this rank's address),
+        its endpoints exchanged by ``all_gather``; None at world 1.
+        Collective: every rank calls it in the same order. The dial
+        timeout is HostFlags().shuffle_connect_secs; ``timeout`` is the
+        shuffle's flush wait."""
+        from paddlebox_tpu_torch.data.shuffle import TcpShuffler
+        if self.role.world <= 1:
+            return None
+        host = host or self._my_host()
+        sh = TcpShuffler(self.role.rank, self.role.world,
+                         [(host, 0)] * self.role.world,
+                         batch_records=batch_records, flush_timeout=timeout)
+        ep = ("%s:%d" % (host, sh.port)).encode().ljust(64)
+        endpoints = []
+        for e in self.all_gather(np.frombuffer(ep, np.uint8).copy()):
+            h, p = bytes(e).rstrip(b" \x00").decode().rsplit(":", 1)
+            endpoints.append((h, int(p)))
+        sh.endpoints = endpoints
+        return sh
+
     # ------------------------------------------------------------- lifecycle
     def stop(self) -> None:
-        """Close the exchange and destroy the process group."""
+        """Close the exchange and the KV store, and destroy the process
+        group."""
         if self._comm is not None:
             self._comm.close()
             self._comm = None
             self._comm_policy = None
+        if self._kv_client is not None:
+            self._kv_client.close()
+            self._kv_client = None
+        if self._kv_server is not None:
+            self._kv_server.stop()
+            self._kv_server = None
         if self.mesh is not None:
             self.mesh.close()
             self.mesh = None

@@ -9,10 +9,12 @@ Served by stdlib ``http.server`` on 127.0.0.1 at ``ObsFlags.obs_http_port``
             series and p50/p90/p99 gauges), the quality plane's per-tag and
             per-slot series and the drift monitor's last window; every
             family ``pbtpu_<name>``, one TYPE line each
-  /report   the last StepReport (the reporter's ``peek``)
-  /health   this rank's liveness record, as the reference's single rank
-            serves it (the merged cluster_health record is the cluster
-            aggregator's and waits for ROADMAP A10)
+  /report   the last StepReport (the reporter's ``peek``), and on rank 0
+            of a multi-rank job the last merged cluster_report
+  /health   on rank 0 of a multi-rank job the health plane's last merged
+            cluster_health record (reached through the bound reporter's
+            aggregator); elsewhere this rank's liveness record. The
+            reference's serving-fleet section waits for the serving slice
   /stacks   every thread's stack, plain text
   /flight   the flight recorder's segments and the tail of the newest
   /quality  the quality plane's report and the drift monitor's snapshot
@@ -221,12 +223,19 @@ class ObsExporter:
 
     def _report(self, handler) -> None:
         rep = self._reporter_now()
-        self._send_json(handler, {
-            "rank": self.rank,
-            "report": rep.peek() if rep is not None else None})
+        out = {"rank": self.rank,
+               "report": rep.peek() if rep is not None else None}
+        agg = getattr(rep, "aggregator", None)
+        if agg is not None and agg.last_cluster_report is not None:
+            out["cluster_report"] = agg.last_cluster_report
+        self._send_json(handler, out)
 
     def _health(self, handler) -> None:
         rep = self._reporter_now()
+        agg = getattr(rep, "aggregator", None)
+        health = getattr(agg, "health", None) if agg is not None else None
+        if health is not None and health.last_health is not None:
+            return self._send_json(handler, health.last_health)
         last = rep.peek() if rep is not None else None
         self._send_json(handler, {
             "type": "rank_liveness", "v": SCHEMA_VERSION,

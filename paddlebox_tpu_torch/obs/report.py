@@ -16,9 +16,10 @@ in the reference).
 Each assembly also writes the stall watchdog's beat age (``beat_age_s``,
 obs/watchdog.py) and samples the device plane's HBM ledger
 (obs/device.py ``on_report``) into the gauges it reads, and hands the
-record to the active flight recorder (obs/flight.py). The reference's
-cluster aggregator, which would take it next, waits for ROADMAP A10:
-``aggregator`` stays None here.
+record to the active flight recorder (obs/flight.py), then to the
+reporter's ``aggregator`` when it has one (obs/aggregate.py: the sharded
+trainer's above world 1), which publishes it to rank 0 or, on rank 0,
+merges the ranks' records.
 """
 
 from __future__ import annotations
@@ -100,12 +101,13 @@ class StepReporter:
     def __init__(self, rank: int = 0, every: int = 20,
                  sink: Optional[MetricsSink] = None,
                  timers: Optional[Dict] = None,
-                 clock: Callable[[], float] = time.perf_counter) -> None:
+                 clock: Callable[[], float] = time.perf_counter,
+                 aggregator=None) -> None:
         self.rank = int(rank)
         self.every = int(every)
         self.sink = sink if sink is not None else NullSink()
         self.timers = timers or {}
-        self.aggregator = None
+        self.aggregator = aggregator
         self._clock = clock
         self._registry = StatRegistry.instance()
         self._prev_counters: Dict[str, int] = {}
@@ -207,7 +209,11 @@ class StepReporter:
         fr = flight.active()
         if fr is not None:
             fr.on_report(record)
+        if self.aggregator is not None:
+            self.aggregator.publish(record)
         return record
 
     def close(self) -> None:
         self.sink.close()
+        if self.aggregator is not None:
+            self.aggregator.close()

@@ -18,8 +18,9 @@ publish's watermark record (the runner reads it); the burn bounds are
 ``freshness_slo_secs`` and ``tier_hit_rate_warn``, passed in or taken from
 ``ObsFlags()`` (defaults and env overrides).
 
-The health plane that turns the burns into per-rank penalties
-(obs/health.py) reads them across ranks and waits for ROADMAP A10.
+The health plane turns the burns into per-rank penalties across ranks
+(obs/health.py: tier_hit_burn now; serving_freshness_burn once serving
+is ported).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The key-mod sharded pass table: one rank's shard, the global routing.
+"""The sharded pass table: one rank's shard, the global routing.
 
 Counterpart of paddlebox_tpu/parallel/sharded_table.py:69-1110 for the
 port's topology, one process a GPU and one shard a process (rank = shard
@@ -9,9 +9,12 @@ shard only (the reference's ``owned_shards`` with one entry):
 
   feed pass    each rank adds its own files' keys; ``end_feed_pass``
         unions them across ranks (``allgather``, fleet.all_gather) and
-        splits the union by the policy's ``shard_of``, so every rank holds
-        the same routing (the role the shared PS plays in the reference's
-        feed pass, box_wrapper.h:1201-1278)
+        splits the union by the policy's ``shard_of`` (key-mod,
+        table-wise or the 2-D grid, parallel/sharding.py), so every rank
+        holds the same routing (the role the shared PS plays in the
+        reference's feed pass, box_wrapper.h:1201-1278); the grid's hot
+        tier is fed the key stream (``add_keys``) and freezes here, its
+        ranks' sketches summed over the same collective
   build        ``build_owned_slabs``: the shard's slab of pass_capacity / P
         rows, with the single-device table's incremental lifecycle (the
         shard is an embedding/pass_table.py PassTable of that capacity
@@ -31,7 +34,8 @@ The host plane's per-step products (reference :155-417):
 buckets over the fleet's MeshComm, so this rank learns the ids every
 source sends its shard (the full wire); ``exchange_push_uids_p2p``
 dedups each column before the wire and the owner unions the vectors (the
-lean wires, whose ids ride the device a2a); ``stage_push_dedup`` turns
+lean wires, whose ids ride the device a2a), the frozen hot ids kept off
+the wire and added back by the owner; ``stage_push_dedup`` turns
 either into the push's products (the sorted dedup: uids, perm, offsets,
 n_uniq, and the rebuild write's position map; or the sorted uids alone)
 and marks the touched rows.
@@ -39,16 +43,18 @@ and marks the touched rows.
 The checkpoint plane (reference :498-520, 1131-1304): ``attach_journal``
 hands the owned shard's PassTable the touched-row journal; ``save`` and
 ``load`` write and read the owned shard at ``{prefix}.shard{s:03d}`` in
-the stores' own format; ``store_view`` (and ``store``) is what the
-CheckpointManager drives at world 1, where the one shard is every shard:
-the owned shard's store itself. Above world 1 it raises the reference's
-TypeError: every such job is multi-process in the port, and checkpoints
-per owned shard.
+the stores' own format; ``load_split`` reads any set of checkpoint files
+and keeps the keys the live policy routes to the owned shard;
+``store_view`` (and ``store``) is what the CheckpointManager drives at
+world 1, where the one shard is every shard: the owned shard's store
+itself. Above world 1 it raises the reference's TypeError: every such
+job is multi-process in the port, and checkpoints per owned shard.
 
-The router is native (native/route.cc rt_bucketize) and nothing falls
-back; ``bucketize_plain`` is its numpy twin, bit for bit (the same
-buckets, restore and overflow: first occurrences fill a shard's bucket in
-order, and the late ones overflow), which the tests hold it to. The SSD
+The router is native (native/route.cc rt_bucketize, and
+rt_bucketize_sharded under the other policies) and nothing falls back;
+``bucketize_plain`` is its numpy twin, bit for bit (the same buckets,
+restore and overflow: first occurrences fill a shard's bucket in order,
+and the late ones overflow), which the tests hold it to. The SSD
 tier under sharding and the PS store wait for their slice (ROADMAP.md
 A10).
 """
@@ -68,12 +74,14 @@ from paddlebox_tpu_torch.embedding.pass_table import (PassTable, dedup_ids,
                                                       dedup_uids_sorted,
                                                       pos_for_rebuild,
                                                       segment_offsets,
+                                                      sorted_member,
                                                       uniq_count)
 from paddlebox_tpu_torch.native import host_lib
 from paddlebox_tpu_torch.obs import log as obs_log
 from paddlebox_tpu_torch.obs.tracer import record_span
 from paddlebox_tpu_torch.parallel.sharding import (ShardingPolicy,
                                                    resolve_sharding_policy)
+from paddlebox_tpu_torch.utils.lockwatch import make_lock
 from paddlebox_tpu_torch.utils.stats import hist_observe, stat_add
 
 
@@ -218,7 +226,8 @@ def exchange_incoming_p2p(buckets_local: np.ndarray,
 def exchange_push_uids_p2p(buckets_local: np.ndarray,
                            local_positions: List[int], num_devices: int,
                            shard_cap: int, mesh,
-                           policy: Optional[ShardingPolicy] = None
+                           policy: Optional[ShardingPolicy] = None,
+                           hot_counts: Optional[Dict[str, int]] = None
                            ) -> Tuple[Dict[int, np.ndarray], Dict[int, int]]:
     """Dedup before the wire (reference :218-318): for every destination
     shard this rank sorts the uniques of its own column and ships the
@@ -232,7 +241,18 @@ def exchange_push_uids_p2p(buckets_local: np.ndarray,
     so its real occurrences are its uniques other than the trash id
     shard_cap - 1, and the header carries their count (the push's device
     maps take it as their n_valid). Counts the hostplane_exchange_*
-    stats."""
+    stats.
+
+    Under a policy with a frozen hot tier (the 2-D grid) the hot local ids
+    never travel: each sender drops ``policy.hot_local_ids(d)`` from its
+    vector for d, and the owner adds its whole hot set back, so the uid
+    vector may hold hot ids this step did not touch (the push leaves
+    their rows unchanged). The real-id counts are taken before the
+    filter: the device a2a still carries the hot ids in the buckets. A
+    union over num_devices * KB raises RuntimeError. The ids kept off the
+    wire and the ids added back count in the stats
+    sharding_hot_ids_dropped and sharding_hot_ids_readded, and in
+    ``hot_counts`` (keys 'dropped' and 'readded') when given."""
     bl = np.ascontiguousarray(buckets_local, np.int32)
     n_local, P, KB = bl.shape
     K = num_devices * KB
@@ -240,10 +260,19 @@ def exchange_push_uids_p2p(buckets_local: np.ndarray,
         raise ValueError("exchange_push_uids_p2p expects nonnegative int32 "
                          "pass-local ids")
     dest_of_rank = _dest_plan(mesh, local_positions, num_devices, policy)
+    hot_of = (policy.hot_local_ids if policy is not None
+              else (lambda d: None))
     t0 = time.perf_counter()
     uniq_of = [np.unique(bl[:, d, :]) for d in range(num_devices)]
     trash = shard_cap - 1
     real_of = [int(u.size - (u.size and u[-1] == trash)) for u in uniq_of]
+    dropped = 0
+    for d in range(num_devices):
+        hot = hot_of(d)
+        if hot is not None and hot.size and uniq_of[d].size:
+            keep = ~sorted_member(hot, uniq_of[d])[1]
+            dropped += int(keep.size - keep.sum())
+            uniq_of[d] = uniq_of[d][keep]
     parts = {}
     for r, dests in enumerate(dest_of_rank):
         header = np.array([KB, len(dests)] + list(dests)
@@ -268,12 +297,19 @@ def exchange_push_uids_p2p(buckets_local: np.ndarray,
             vecs[d].append(part[offs[j]:offs[j + 1]])
             n_valid[d] += int(reals[j])
     out = {}
+    readded = 0
     for d in mine:
+        hot = hot_of(d)
+        if hot is not None and hot.size:
+            vecs[d].append(np.asarray(hot, np.int32))
+            readded += int(hot.size)
         uniq = np.unique(np.concatenate(vecs[d]))
         n = uniq.size
         if n > K:
-            raise RuntimeError("uid exchange: %d ids for dest %d exceed the "
-                               "staged vector length %d" % (n, d, K))
+            raise RuntimeError(
+                "uid exchange: union of %d incoming and replicated ids "
+                "exceeds the staged vector length %d for dest %d — "
+                "sharding_hot_cap/bucket_cap are inconsistent" % (n, K, d))
         uids = np.empty(K, np.int32)
         uids[:n] = uniq
         uids[n:] = shard_cap + np.arange(K - n, dtype=np.int32)
@@ -286,6 +322,12 @@ def exchange_push_uids_p2p(buckets_local: np.ndarray,
     stat_add("hostplane_exchange_steps")
     hist_observe("hostplane_exchange_us", (t1 - t0) * 1e6)
     record_span("hostplane_uid_exchange", t0, t1)
+    if dropped or readded:
+        stat_add("sharding_hot_ids_dropped", dropped)
+        stat_add("sharding_hot_ids_readded", readded)
+        if hot_counts is not None:
+            hot_counts["dropped"] = hot_counts.get("dropped", 0) + dropped
+            hot_counts["readded"] = hot_counts.get("readded", 0) + readded
     return out, n_valid
 
 
@@ -364,13 +406,13 @@ class ShardedPassTable:
                  embed_dtype: str = "float32") -> None:
         """``owned_shards``: the one shard this process hosts (None: [0],
         for a table of one shard). ``policy``: the key -> shard rule
-        (default: resolve_sharding_policy, ShardFlags' sharding_policy).
+        (default: resolve_sharding_policy over ``shard_flags``).
         ``store``: the owned shard's host store (default: the native
         store, seeded seed + shard). ``device``: the shard slab's device
         (the card unless the caller asks for the CPU)."""
         self.shard_flags = shard_flags or ShardFlags()
         self.policy = policy or resolve_sharding_policy(
-            num_shards, self.shard_flags.sharding_policy)
+            num_shards, flags=self.shard_flags)
         if self.policy.num_shards != num_shards:
             raise ValueError("sharding policy built for %d shards, table has "
                              "%d" % (self.policy.num_shards, num_shards))
@@ -411,6 +453,11 @@ class ShardedPassTable:
         self._shard_keys: Optional[List[np.ndarray]] = None
         self._route_index: Optional[int] = None
         self._overflow_warned = False
+        # the hot keys the last feed pass froze, over every shard
+        self.hot_frozen = 0
+        # native router calls by entry (bucketize)
+        self._route_lock = make_lock("ShardedPassTable._route_lock")
+        self.route_counts: Dict[str, int] = {}  # guarded-by: _route_lock
 
     # ------------------------------------------------------------ feed pass
     def begin_feed_pass(self) -> None:
@@ -430,8 +477,10 @@ class ShardedPassTable:
     def end_feed_pass(self, allgather: Optional[Callable] = None) -> None:
         """Freeze the pass: this rank's keys, unioned across ranks by
         ``allgather`` (fleet.all_gather; None: this rank's alone), split
-        by the policy into each shard's sorted list; the route index over
-        all of them; the owned shard's pass key set."""
+        by the policy into each shard's sorted list; the policy's hot tier
+        (its sketches summed over ``allgather``, then frozen against those
+        lists; reference :581-587); the route index over all of them; the
+        owned shard's pass key set."""
         if not self._in_feed_pass:
             raise RuntimeError("end_feed_pass without begin_feed_pass")
         local = (np.unique(np.concatenate(self._feed_keys))
@@ -451,6 +500,16 @@ class ShardedPassTable:
                     "(raise TableConfig.pass_capacity)"
                     % (s, ks.size, self.shard_cap))
             shard_keys.append(ks)
+        # the hot tier (2d-grid) freezes here, where every rank holds the
+        # same key set; the ranks' sketches are summed first over the same
+        # collective, so every rank freezes the same set
+        if allgather is not None and self.policy.wants_observe:
+            self.policy.merge_observations(allgather)
+        self.policy.freeze_hot(shard_keys)
+        self.hot_frozen = sum(0 if h is None else int(h.size) for h in map(
+            self.policy.hot_local_ids, range(self.num_shards)))
+        if self.hot_frozen:
+            stat_add("sharding_hot_keys_frozen", self.hot_frozen)
         self._drop_route_index()
         self._shard_keys = shard_keys
         self._route_index = host_lib.create_route_index(shard_keys)
@@ -570,6 +629,31 @@ class ShardedPassTable:
         with self.store_lock:
             self.shard.store.load("%s.shard%03d" % (path_prefix, self.rank))
 
+    def load_split(self, paths: Sequence[str]) -> None:
+        """Read the checkpoints at ``paths`` (any format ckpt_store sniffs:
+        every shard file of a job, whatever policy wrote it, or one
+        store's) and keep in the owned shard's store, replacing its rows,
+        the keys the live policy routes to it, so a checkpoint written
+        under one policy loads under another (reference :1287-1304). The
+        residency drops, and an attached journal is tainted."""
+        from paddlebox_tpu_torch.embedding.ckpt_store import load_sparse_any
+        blobs = [load_sparse_any(p) for p in paths]
+        if not blobs:
+            raise ValueError("load_split needs at least one checkpoint")
+        keys = np.concatenate([np.asarray(b["keys"], np.uint64)
+                               for b in blobs])
+        values = np.concatenate([np.asarray(b["values"], np.float32)
+                                 for b in blobs])
+        m = self.policy.shard_of(keys) == self.rank
+        self.invalidate_residency()
+        journal = self.shard._journal
+        if journal is not None:
+            journal.taint("per-shard store load outside the checkpoint "
+                          "plane")
+        with self.store_lock:
+            self.shard.store.load_blob(dict(blobs[0], keys=keys[m],
+                                            values=values[m]))
+
     def store_view(self):
         """The store CheckpointManager and run_day drive (reference
         :1153-1171). It needs every shard in this process: at world 1,
@@ -608,9 +692,12 @@ class ShardedPassTable:
                   plain: bool = False) -> ShardedBatchIndex:
         """Route one batch's keys (shard = policy.shard_of(key), the local
         id its position in the shard's sorted keys, deduplicated into
-        bucket slots): the native router, or with ``plain`` its numpy
-        twin. Drops overflowed occurrences from ``valid`` (contiguous
-        bool) IN PLACE, and counts, warns or raises on overflow."""
+        bucket slots): the native router (rt_bucketize under key-mod,
+        rt_bucketize_sharded over ``shard_of`` under any other policy;
+        ``route_counts`` counts the calls of each), or with ``plain`` its
+        numpy twin. Drops overflowed occurrences from ``valid``
+        (contiguous bool) IN PLACE, and counts, warns or raises on
+        overflow."""
         if self._shard_keys is None:
             raise RuntimeError("no active pass key set")
         if valid.dtype != np.bool_ or not valid.flags.c_contiguous:
@@ -626,6 +713,10 @@ class ShardedPassTable:
                 self._route_index, keys, valid, self.num_shards,
                 self.bucket_cap, trash,
                 None if keymod else self.policy.shard_of(keys)))
+            entry = "rt_bucketize" if keymod else "rt_bucketize_sharded"
+            with self._route_lock:
+                self.route_counts[entry] = self.route_counts.get(entry,
+                                                                 0) + 1
         if idx.overflow:
             self._note_overflow(idx.overflow)
         return idx

@@ -1,8 +1,12 @@
-"""The sharded trainer: one process a GPU over a key-mod ShardedPassTable.
+"""The sharded trainer: one process a GPU over a ShardedPassTable.
 
 Counterpart of paddlebox_tpu/parallel/sharded_trainer.py (the BoxPS
-topology: one worker a GPU, a key-mod sharded embedding table pulled and
-pushed through an all-to-all, a data-parallel dense allreduce). The
+topology: one worker a GPU, a sharded embedding table pulled and pushed
+through an all-to-all, a data-parallel dense allreduce). The table's
+sharding policy comes from ShardFlags (parallel/sharding.py
+resolve_sharding_policy): key-mod, table-wise, or the 2-D grid with its
+replicated hot tier, whose frozen hot ids the uid exchange keeps off the
+wire (``hot_counts``: the ids dropped and added back). The
 reference runs one shard_map'd step over a P-device mesh; the port runs
 one process a rank over torch.distributed (parallel/mesh.py ShardMesh:
 NCCL on the card, gloo on the CPU), rank = shard = mesh position, and
@@ -103,6 +107,12 @@ syncs they diverge); ``params`` / ``opt_state`` (``merged_params`` /
 ``merged_opt_state``) are this rank's copy under the JAX package's names
 (convert.py); under ZeRO-1 ``opt_state`` is this rank's moment slice.
 
+The telemetry plane: a rank-tagged StepReporter; above world 1 a
+ClusterAggregator (``aggregator``, obs/aggregate.py) publishes every
+rank's reports to rank 0 over the fleet's KV store, where the merged
+cluster record and the health plane's record (obs/health.py) go to the
+sink; at world 1 ``aggregator`` is None, as in the reference.
+
 Refused, with NotImplementedError naming the ROADMAP.md item, as the
 reference refuses what it does not do: a store_factory (the CPU PS).
 sparse_chunk_sync and async dense raise ValueError as in the reference.
@@ -144,7 +154,8 @@ from paddlebox_tpu_torch.metrics import drift, quality
 from paddlebox_tpu_torch.metrics.auc import MetricMsg, MetricRegistry
 from paddlebox_tpu_torch.obs import device as device_obs
 from paddlebox_tpu_torch.obs import log as obs_log
-from paddlebox_tpu_torch.obs import make_step_reporter
+from paddlebox_tpu_torch.obs import (make_cluster_aggregator,
+                                     make_step_reporter, obs_rank_world)
 from paddlebox_tpu_torch.obs.tracer import set_trace, span, step_trace_id
 from paddlebox_tpu_torch.ops.seqpool import fused_seqpool_cvm, seqpool_sum
 from paddlebox_tpu_torch.ops.sparse import (build_push_grads,
@@ -271,8 +282,8 @@ class ShardedBoxTrainer(BatchOutputs):
             torch.backends.cudnn.allow_tf32 = False
         self.feed = feed
         self.use_cvm = use_cvm
-        self.policy = resolve_sharding_policy(
-            self.P, self.shard_flags.sharding_policy)
+        self.policy = resolve_sharding_policy(self.P,
+                                              flags=self.shard_flags)
         # the per-step host exchange; its bring-up checks that every rank
         # runs this policy
         self.host_mesh = self.fleet.make_mesh_comm(
@@ -342,9 +353,21 @@ class ShardedBoxTrainer(BatchOutputs):
         self.quality = quality.make_from_flags(self.obs_flags)
         self.drift = drift.make_from_flags(self.obs_flags)
         self.timers = {n: Timer() for n in ("step", "pass", "build")}
-        # tagged with the rank; no cluster aggregator (ROADMAP.md A10)
-        self.reporter = make_step_reporter(rank=self.rank, timers=self.timers,
-                                           flags=self.obs_flags)
+        # the telemetry plane (reference :222-234): the rank-tagged
+        # reporter; above world 1 the ranks publish their reports to rank
+        # 0 over the fleet's KV store, and rank 0 emits the merged cluster
+        # record and the health record (obs/aggregate.py, obs/health.py)
+        obs_rank, obs_world = (obs_rank_world(self.host_mesh, self.fleet)
+                               if self.multiprocess else (0, 1))
+        self.aggregator = (make_cluster_aggregator(
+            fleet=self.fleet, rank=obs_rank, world=obs_world,
+            flags=self.obs_flags) if self.multiprocess else None)
+        self.reporter = make_step_reporter(rank=obs_rank, timers=self.timers,
+                                           flags=self.obs_flags,
+                                           aggregator=self.aggregator)
+        # the hot tier's wire counts (exchange_push_uids_p2p): ids kept off
+        # the wire and ids added back by the owner
+        self.hot_counts: Dict[str, int] = {}
         self.dump_writer: Optional[DumpWriter] = None
         if cfg.dump_fields and cfg.dump_fields_path:
             self.dump_writer = DumpWriter(cfg.dump_fields_path,
@@ -463,7 +486,7 @@ class ShardedBoxTrainer(BatchOutputs):
             if train:
                 uids_by, n_real = exchange_push_uids_p2p(
                     idx.buckets[None], [r], P, cap, self.host_mesh,
-                    self.policy)
+                    self.policy, hot_counts=self.hot_counts)
                 prod = stage_push_dedup(
                     None, cap, note_touched=self.table.note_touched,
                     uid_only=True, uids_by_dest=uids_by)

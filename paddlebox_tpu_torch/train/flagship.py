@@ -101,7 +101,7 @@ from paddlebox_tpu_torch.config.configs import (DataFeedConfig,
                                                 TableConfig, TrainerConfig)
 from paddlebox_tpu_torch.config.flags import (DtypeFlags, ObsFlags,
                                               PassFlags, PushFlags,
-                                              StageFlags)
+                                              ShardFlags, StageFlags)
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.generator import write_synthetic_ctr_files
 from paddlebox_tpu_torch.device import DeviceLike
@@ -552,16 +552,19 @@ def build_sharded_trainer(files: List[str], feed: DataFeedConfig,
                           mesh=None, push_flags: Optional[PushFlags] = None,
                           stage_flags: Optional[StageFlags] = None,
                           metric: Optional[dict] = None,
-                          **trainer_fields):
+                          shard_flags: Optional[ShardFlags] = None,
+                          shuffler=None, **trainer_fields):
     """(parallel/sharded_trainer.py ShardedBoxTrainer with an 'auc' metric,
     dataset over this rank's files: ``files``' i % world == rank) of a
     configuration: ``build_model``'s weights from ``seed`` (every rank
     the same), its table sharded over the fleet's ranks (its slab
     dtype), its TrainerConfig with ``trainer_fields`` (by default chunks
     of 8). ``fleet``: the rank's initialized Fleet (default the
-    module's, from the environment's role); ``mesh``, ``push_flags`` and
-    ``stage_flags`` go to the trainer; ``metric``: the 'auc' metric's
-    init_metric keywords besides its table size."""
+    module's, from the environment's role); ``mesh``, ``push_flags``,
+    ``stage_flags`` and ``shard_flags`` (the sharding policy) go to the
+    trainer; ``shuffler`` (Fleet.make_shuffler's) to the dataset;
+    ``metric``: the 'auc' metric's init_metric keywords besides its table
+    size."""
     from paddlebox_tpu_torch.parallel.sharded_trainer import \
         ShardedBoxTrainer
     trainer = ShardedBoxTrainer(
@@ -570,10 +573,11 @@ def build_sharded_trainer(files: List[str], feed: DataFeedConfig,
                       dense_optimizer=cfg.dense_optimizer, **trainer_fields),
         seed=seed, fleet=fleet, device=device, mesh=mesh,
         push_flags=push_flags, stage_flags=stage_flags,
+        shard_flags=shard_flags,
         dtype_flags=DtypeFlags(cfg.slab_embed_dtype, cfg.matmul_dtype))
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20,
                                 **(metric or {}))
-    ds = BoxDataset(feed)
+    ds = BoxDataset(feed, shuffler=shuffler)
     ds.set_filelist(files)
     ds.set_filelist(ds.my_shard_files(trainer.rank, trainer.P))
     return trainer, ds

@@ -16,9 +16,10 @@ recovery.py:87-96, 140-143), so the resumed run is bit-identical to one
 that never stopped (in async mode, where the table's bursts repeat: each
 push drained before the next).
 
-``elastic`` is any object with ``check()``, called at every pass boundary
-(the reference's fleet.elastic.ElasticManager raises DeadRankError there);
-the port has no elastic manager of its own yet.
+``elastic`` is any object with ``check()``, called at every pass boundary:
+fleet/elastic.py ElasticManager raises DeadRankError there once a peer's
+heartbeat has stopped, and the error ends ``run`` (a restarted job
+resumes from the last completed pass).
 """
 
 from __future__ import annotations

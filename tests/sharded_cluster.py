@@ -32,7 +32,8 @@ from paddlebox_tpu_torch.config.configs import (DataFeedConfig,
                                                 SparseOptimizerConfig,
                                                 TableConfig, TrainerConfig)
 from paddlebox_tpu_torch.config.flags import (DtypeFlags, HostFlags,
-                                              PushFlags, StageFlags)
+                                              PushFlags, ShardFlags,
+                                              StageFlags)
 from paddlebox_tpu_torch.convert import params_from_jax
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.data.generator import write_synthetic_ctr_files
@@ -79,7 +80,8 @@ def table_cfg(expand=0):
 def port_model(jparams, name="deepfm"):
     """The port's model (CtrDnn with data_norm for ``name`` 'ctr_dnn',
     CtrDnnExpand for 'expand', else DeepFM) with the reference's initial
-    parameters."""
+    parameters (None: torch's initialization under seed 0)."""
+    torch.manual_seed(0)
     spec = ModelSpec(num_slots=NUM_SLOTS, slot_dim=3 + D)
     if name == "ctr_dnn":
         from paddlebox_tpu_torch.models.ctr_dnn import CtrDnn
@@ -90,7 +92,8 @@ def port_model(jparams, name="deepfm"):
         model = CtrDnnExpand(spec, E, hidden=HIDDEN)
     else:
         model = DeepFM(spec, hidden=HIDDEN)
-    model.load_state_dict(params_from_jax(jparams))
+    if jparams is not None:
+        model.load_state_dict(params_from_jax(jparams))
     return model
 
 
@@ -255,7 +258,11 @@ def jax_reference(files, pfeed, P, predict=False, model_name="deepfm",
             stores.append((k[o], v[o]))
         out = {"params0": params0, "passes": out_passes, "msgs": msgs,
                "stores": stores, "params": jax_numpy(jt.merged_params()),
-               "opt_state": jax.tree.map(np.asarray, jt.opt_state)}
+               "opt_state": jax.tree.map(np.asarray, jt.opt_state),
+               "policy": jt.table.policy.describe()}
+        frozen = getattr(jt.table.policy, "hot_keys_frozen", None)
+        if frozen is not None:
+            out["hot_keys"] = np.asarray(frozen())
         if predict:
             ds = JDataset(jfeed, read_threads=1)
             ds.set_filelist(files)
@@ -282,7 +289,8 @@ def build_run(run, spec, fl, rank, mesh=None):
     """A fresh ShardedBoxTrainer of one run dict: ``model`` (deepfm,
     ctr_dnn or expand), ``cfg`` (TrainerConfig fields; scan_chunk 1 by
     default), ``push`` and ``push_rows`` (push_write and its block
-    rows), ``stage`` (StageFlags fields),
+    rows), ``stage`` (StageFlags fields), ``shard`` (ShardFlags fields;
+    ``shard_rank`` {rank: fields} on top),
     ``slab``, ``metric`` (init_metric keywords), its push seeds
     spec["seeds"][run["seeds"] or the model][rank]."""
     model = run.get("model", "deepfm")
@@ -296,6 +304,9 @@ def build_run(run, spec, fl, rank, mesh=None):
         push_flags=PushFlags(run.get("push", "auto"),
                              run.get("push_rows", 1024)),
         stage_flags=StageFlags(**run.get("stage", {})),
+        shard_flags=ShardFlags(**dict(run.get("shard", {}),
+                                      **run.get("shard_rank", {}).get(
+                                          rank, {}))),
         dtype_flags=DtypeFlags(run.get("slab", "float32")))
     t.metrics.init_metric("auc", "label", "pred", table_size=1 << 14,
                           **run.get("metric", {}))
@@ -314,18 +325,42 @@ def _run_rank(rank, world, port, spec):
     build_run's keys a run may carry ``mesh2d`` (nodes, chips),
     ``passes`` (default 2), ``files``, ``load`` / ``save`` (a shard
     checkpoint prefix read before the passes / written after them),
-    ``predict`` and ``refusals`` (store_view and run_day's errors)."""
-    fl = Fleet().init(RoleMaker(rank, world, "127.0.0.1:%d" % port))
-    fl.init_distributed("cpu", timeout=GROUP_TIMEOUT_S)
+    ``predict`` and ``refusals`` (store_view and run_day's errors),
+    ``new_fleet`` (the rank leaves its fleet and joins a new one under a
+    new run id first: an exchange serves one sharding policy a fleet),
+    ``raises`` (the construction must raise: its type and message are the
+    run's result), ``shuffle`` (the files load through the fleet's
+    TcpShuffler, make_shuffler's), ``telemetry`` (after the passes rank 0
+    merges every rank's fresh report: the cluster and health records,
+    /health from an exporter on a free port)."""
+    def join(run_id):
+        os.environ["PBTPU_RUN_ID"] = run_id
+        fl = Fleet().init(RoleMaker(rank, world, "127.0.0.1:%d" % port))
+        fl.init_distributed("cpu", timeout=GROUP_TIMEOUT_S)
+        return fl
+
+    fl = join("0")
     out, trainers = [], []
     try:
-        for run in spec["runs"]:
+        for i, run in enumerate(spec["runs"]):
+            if run.get("new_fleet"):
+                # a fleet's exchange serves one sharding policy
+                fl.stop()
+                fl = join("run%d" % i)
             mesh = None
             if run.get("mesh2d"):
                 mesh = device_mesh_2d(fl.mesh, *run["mesh2d"],
                                       timeout=GROUP_TIMEOUT_S)
+            if run.get("raises"):
+                try:
+                    build_run(run, spec, fl, rank, mesh)
+                except Exception as e:  # the run's result
+                    out.append({"raised": type(e).__name__, "msg": str(e)})
+                    continue
+                raise AssertionError("the run did not raise")
             t = build_run(run, spec, fl, rank, mesh)
             trainers.append(t)
+            shuffler = fl.make_shuffler() if run.get("shuffle") else None
             loaded = None
             if run.get("load"):
                 t.table.load(run["load"])
@@ -333,15 +368,18 @@ def _run_rank(rank, world, port, spec):
                 o = np.argsort(k)
                 loaded = (k[o], v[o])
             files = rank_files(spec, run, rank, world)
-            passes, msgs = [], []
+            passes, msgs, instances = [], [], []
             for _ in range(run.get("passes", 2)):
-                ds = port_dataset(spec["feed"], files)
+                ds = (BoxDataset(spec["feed"], shuffler=shuffler)
+                      if shuffler is not None
+                      else port_dataset(spec["feed"], files))
                 ds.set_filelist(files)
                 r = t.train_pass(ds)
                 msg = t.metrics.get_metric_msg(
                     "auc", allreduce=fl.metric_allreduce())
                 msgs.append(dict(msg))
                 passes.append((r["loss"], msg["auc"], r["batches"]))
+                instances.append(r["instances"])
             k, v = t.table.stores[rank].state_items()
             o = np.argsort(k)
             res = {"passes": passes, "msgs": msgs, "store": (k[o], v[o]),
@@ -350,7 +388,23 @@ def _run_rank(rank, world, port, spec):
                    "collectives": dict(t.collective_counts),
                    "a2a_bytes": dict(t.a2a_bytes),
                    "d2h_reads": t.d2h_reads,
-                   "exchanges": t.host_mesh.exchanges, "loaded": loaded}
+                   "exchanges": t.host_mesh.exchanges, "loaded": loaded,
+                   "policy": t.policy.describe(), "instances": instances,
+                   "hot_counts": dict(t.hot_counts),
+                   "route_counts": dict(t.table.route_counts),
+                   "aggregator": type(t.aggregator).__name__}
+            frozen = getattr(t.policy, "hot_keys_frozen", None)
+            if frozen is not None:
+                res["hot_keys"] = np.asarray(frozen())
+                res["hot_local"] = {d: t.policy.hot_local_ids(d)
+                                    for d in range(world)}
+            if shuffler is not None:
+                res["shuffler"] = type(shuffler).__name__
+                res["shuffle_bytes"] = (shuffler.bytes_sent,
+                                        shuffler.bytes_received)
+                shuffler.close()
+            if run.get("telemetry"):
+                res["telemetry"] = telemetry(t, fl, rank)
             if run.get("save"):
                 t.table.save(run["save"])
             if run.get("predict"):
@@ -368,6 +422,33 @@ def _run_rank(rank, world, port, spec):
             t.close()
         fl.stop()
     return out
+
+
+def telemetry(t, fl, rank):
+    """Every rank other than 0 publishes a fresh report; then rank 0
+    reports and merges: (the merged cluster record, the health record,
+    /health as an exporter on a free port serves it) on rank 0, None
+    elsewhere."""
+    import json
+    import urllib.request
+    from paddlebox_tpu_torch.obs import exporter
+    fl.barrier_worker()
+    if rank:
+        t.reporter.maybe_report(t._step_count, force=True)
+    fl.barrier_worker()
+    if rank:
+        return None
+    t.reporter.maybe_report(t._step_count, force=True)
+    exp = exporter.ObsExporter(0).bind(t.reporter)
+    try:
+        with urllib.request.urlopen("http://127.0.0.1:%d/health" % exp.port,
+                                    timeout=10) as r:
+            served = json.loads(r.read().decode())
+    finally:
+        exp.close()
+    agg = t.aggregator
+    return {"cluster": agg.last_cluster_report,
+            "health": agg.last_cluster_health, "served": served}
 
 
 def refusals(t):
@@ -449,6 +530,46 @@ def cluster_spec(pfeed, files, P, refs, runs, n_steps):
     return {"feed": pfeed, "files": worker_order(files, P),
             "params0": {m: r["params0"] for m, r in refs.items()},
             "runs": runs, "seeds": {m: seeds for m in refs}}
+
+
+# ------------------------------------------------- the exchange in threads
+
+class FakeMesh:
+    """P ranks of MeshComm's exchange in threads of one process: each
+    rank's ``exchange(parts)`` returns {source: the part it sent here}."""
+
+    def __init__(self, world, rank, board, barrier):
+        self.world, self.rank = world, rank
+        self.positions_of = {r: [r] for r in range(world)}
+        self._board, self._barrier = board, barrier
+
+    def rank_of_position(self):
+        return {r: r for r in range(self.world)}
+
+    def exchange(self, parts):
+        for dst, part in parts.items():
+            self._board[(self.rank, dst)] = part
+        self._barrier.wait()
+        got = {src: self._board[(src, self.rank)] for src in range(self.world)}
+        self._barrier.wait()
+        return got
+
+
+def threaded_exchange(P, fn):
+    """fn(mesh) on P threads over one FakeMesh board: results by rank."""
+    import threading
+    board, barrier = {}, threading.Barrier(P)
+    out = [None] * P
+
+    def run(r):
+        out[r] = fn(FakeMesh(P, r, board, barrier))
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(P)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30.0)
+    return out
 
 
 # ------------------------------------------------------------ assertions

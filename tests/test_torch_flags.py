@@ -5,7 +5,7 @@ dataclasses (config/flags.py FLAG_CLASSES) under the same name, and takes
 the same PBTPU_<NAME> override: with every such variable set to a value
 off its default, each package runs in a subprocess of its own and the
 port's fields equal the reference's registry (exact). The reference flags
-the port leaves to A10, to serving or declines are pinned below; every
+the port leaves to serving or declines are pinned below; every
 other reference flag must be a port field. The config dataclasses have
 equal field sets, and the rules the flags feed (key_capacity's order,
 check_nan_inf's default, dataset_disable_shuffle, the explicit argument
@@ -36,10 +36,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the reference flags the port does not read, by where they go
 LEFT_TO = {
-    "A10": ("shuffle_block_codec", "shuffle_connect_secs",
-            "sharding_num_tables", "sharding_table_shift",
-            "sharding_grid_rows", "sharding_hot_threshold",
-            "sharding_hot_cap"),
     "serving": ("serving_cache_rows", "serving_cache_admit",
                 "serving_refresh_secs", "serving_pull_threads",
                 "serving_drain_secs", "serving_report_requests",

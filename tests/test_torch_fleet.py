@@ -241,9 +241,16 @@ fleet.stop()
 SCRIPT_FAIL = """
 import os, sys, time
 rank = int(os.environ["PBTPU_TRAINER_ID"])
-with open(os.path.join({out!r}, "pid%d" % rank), "w") as fh:
+path = os.path.join({out!r}, "pid%d" % rank)
+with open(path + ".tmp", "w") as fh:
     fh.write(str(os.getpid()))
+os.replace(path + ".tmp", path)
 if rank == 1:
+    # fail once rank 0 has written its pid (the test reads it)
+    t0 = time.monotonic()
+    while not os.path.exists(os.path.join({out!r}, "pid0")) \
+            and time.monotonic() - t0 < 30:
+        time.sleep(0.01)
     sys.exit(3)
 time.sleep(120)
 """

@@ -446,15 +446,3 @@ def test_chunk_sync_and_async_raise_as_the_reference(cfg, data):
     with pytest.raises(ValueError, match="single-host"):
         ShardedBoxTrainer(model, table_cfg(), pfeed, cfg, device="cpu")
 
-
-def test_other_policies_refused():
-    from paddlebox_tpu_torch.parallel.sharding import (
-        FreqSketch, ReplicatedHotTier, resolve_sharding_policy)
-    for name in ("table-wise", "2d-grid"):
-        with pytest.raises(NotImplementedError, match="other sharding"):
-            resolve_sharding_policy(4, name)
-    for cls in (FreqSketch, ReplicatedHotTier):
-        with pytest.raises(NotImplementedError, match="hot tier"):
-            cls()
-    with pytest.raises(ValueError, match="sharding_policy"):
-        resolve_sharding_policy(4, "nope")

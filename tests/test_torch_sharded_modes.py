@@ -43,8 +43,8 @@ from sharded_cluster import (D, E, HIDDEN, INT_COLS, LR, NUM_SLOTS,
                              assert_matches_jax, assert_params,
                              assert_same_run, cluster_spec, flat_leaves,
                              jax_reference, port_dataset, run_cluster,
-                             table_cfg, use_jax_pallas, world_one,
-                             write_data)
+                             table_cfg, threaded_exchange, use_jax_pallas,
+                             world_one, write_data)
 
 # the wires as StageFlags fields
 WIRES = {"full": {}, "uid": dict(h2d_lean=True),
@@ -225,44 +225,6 @@ def test_mode_errors(data):
 
 
 # ------------------------------------------------------------ host plane
-
-class FakeMesh:
-    """P ranks of MeshComm's exchange in threads of one process: each
-    rank's ``exchange(parts)`` returns {source: the part it sent here}."""
-
-    def __init__(self, world, rank, board, barrier):
-        self.world, self.rank = world, rank
-        self.positions_of = {r: [r] for r in range(world)}
-        self._board, self._barrier = board, barrier
-
-    def rank_of_position(self):
-        return {r: r for r in range(self.world)}
-
-    def exchange(self, parts):
-        for dst, part in parts.items():
-            self._board[(self.rank, dst)] = part
-        self._barrier.wait()
-        got = {src: self._board[(src, self.rank)] for src in range(self.world)}
-        self._barrier.wait()
-        return got
-
-
-def threaded_exchange(P, fn):
-    """fn(mesh) on P threads over one FakeMesh board: results by rank."""
-    import threading
-    board, barrier = {}, threading.Barrier(P)
-    out = [None] * P
-
-    def run(r):
-        out[r] = fn(FakeMesh(P, r, board, barrier))
-
-    threads = [threading.Thread(target=run, args=(r,)) for r in range(P)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(30.0)
-    return out
-
 
 def route_batches(P, kb=512):
     """Each rank's [P, KB] buckets of one batch (deduplicated per column,
