@@ -384,6 +384,30 @@ Phases, each of which raises on a failed check (exit code != 0):
      the hot run's widened uid vector (untouched hot rows unchanged),
      bit-equal to their plain versions with kernel, plain, library and
      bound times ("sharded24" lines);
+ 25. the sharded SSD tier, the CPU PS behind the sharded table, the
+     Downpour worker and the sequence trainer over an sp group, in phase
+     22's child after phase 24, each on a world-1 NCCL fleet of its own at
+     full width: (a) FLAGSHIP_SSD through ShardedBoxTrainer over phase
+     19's three windows, each pass's digits, store sha256 (resident and
+     tier rows) and rows spilled and faulted in equal to phase 19's
+     sequential run, its launches equal, then load_ssd_to_mem moving the
+     tier back; (b) create_trainer("PSGPUTrainer") over a PsLocalClient
+     and over a TcpPSClient to a PSServer on the child's threads, two
+     passes each: FLAGSHIP_DIGITS, the server's rows of the pass keys
+     hashing to phase 22's store sha256 (the first differing key and
+     column printed where not), the two runs bit-identical, store_view
+     refused; (c) DownpourTrainer at FLAGSHIP's table, batch and model
+     with sync_comm over a PsLocalClient, two passes, run twice: the runs
+     bit-identical (digits and a sha256 of the server's sparse rows and
+     dense vector), the loss falling, a gather_rows a step and no push
+     launch; (d) FLAGSHIP_BST through SeqCtrTrainer over the world-1 sp
+     group with ring attention, equal to BST_DIGITS (phase 17's), and
+     with Ulysses, equal to the one-shard Ulysses run (no group) bit for
+     bit (Ulysses' softmax rounds otherwise than the ring's block update,
+     so it is not held to the ring's digits); (e) gather_rows at
+     Downpour's per-batch slab [n_uniq + 1, 17] over a batch's 131,072
+     ids, bit-equal to its plain version and index_select, with kernel,
+     plain, library and bound times ("sharded25" lines);
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -1081,6 +1105,21 @@ def blocked_phase(torch, cfg, feed, files):
     log("%sblocked vs scatter rows bit-identical over %d rows"
         % (tag, rows["blocked"].shape[0]))
     return blocked
+
+
+def reset_counts():
+    """Sets every kernel wrapper's launch count to 0."""
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    pk.reset_launch_counts()
+    rk.reset_launch_counts()
+
+
+def counts():
+    """Every kernel wrapper's launch count since the last reset_counts."""
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    return {**pk.launch_counts(), **rk.launch_counts()}
 
 
 def f32_launches(**launches):
@@ -4067,6 +4106,8 @@ def tier_run(torch, mode, windows, feed, cfg, keep, reset_counts, counts):
         rec["wall_s"] = sum(rec["phase_s"].values())
         if keep:
             rec["store"] = union_of(trainer.table.store)
+            # phase 25 holds the sharded SSD run to it
+            rec["union_sha"] = sha_of(*rec["store"])
 
     reset_counts()
     with FaultInClock() as clock:
@@ -5159,7 +5200,7 @@ SHARDED_LAUNCHES = {"push_adagrad": 32, "gather_rows": 35,
 # its bf16 leg's (FLAGSHIP_BF16): the 2-byte forms, as phase 12's
 SHARDED_BF16_LAUNCHES = {"push_adagrad_bf16": 32, "gather_rows_decode": 32,
                          "gather_rows_2byte": 3}
-SHARDED_CHILD_S = 720.0       # the child's wall limit (phases 22 and 23)
+SHARDED_CHILD_S = 720.0       # the child's wall limit (phases 22-25)
 SHARDED_GROUP_S = 120.0       # its process groups' timeout
 SHARDED_SEED = 0              # the main path's trainer seed
 
@@ -5296,27 +5337,35 @@ def sharded_kernels(torch, trainer, ds, cfg):
     return out, colls
 
 
-def shard_store_sha(trainer):
-    """sha256 of the sharded trainer's owned store, sorted by key."""
+def sha_of(keys, rows):
     import hashlib
+    return hashlib.sha256(keys.tobytes() + rows.tobytes()).hexdigest()
+
+
+def shard_store_rows(trainer):
+    """The sharded trainer's owned store: its keys and rows, by key."""
     k, v = trainer.table.shard.store.state_items()
     order = k.argsort()
-    return hashlib.sha256(k[order].tobytes() + v[order].tobytes()).hexdigest()
+    return k[order], v[order]
 
 
-def sharded_run(torch, files, feed, out_path):
+def shard_store_sha(trainer):
+    """sha256 of the sharded trainer's owned store, sorted by key."""
+    return sha_of(*shard_store_rows(trainer))
+
+
+def sharded_run(torch, files, feed, out_path, windows, bst_files, bst_feed):
     """Phase 22's body in the child: world 1 on cuda:0 over NCCL (a port-0
     TCPStore of the child's own), the sharded trainer at FLAGSHIP's full
     width, two passes through the chunk driver, then the kernels and the
     collectives at the shard shapes; then phase 23 on the same mesh (its
-    files beside ``out_path``)."""
+    files beside ``out_path``); then phases 24 and 25 on fleets of their
+    own (25 over phase 19's ``windows`` and phase 17's BST files)."""
     import torch.distributed as dist
 
-    from paddlebox_tpu_torch.embedding import push_kernels as pk
     from paddlebox_tpu_torch.fleet.fleet import Fleet
     from paddlebox_tpu_torch.fleet.role_maker import RoleMaker
     from paddlebox_tpu_torch.native.build import build_kernels
-    from paddlebox_tpu_torch.ops import row_kernels as rk
     from paddlebox_tpu_torch.train import flagship
     from paddlebox_tpu_torch.utils.stats import stat_peek
 
@@ -5344,8 +5393,7 @@ def sharded_run(torch, files, feed, out_path):
         stats0 = {k: stat_peek(k) for k in (
             "hostplane_exchange_bytes", "hostplane_exchange_us",
             "hostplane_exchange_steps")}
-        pk.reset_launch_counts()
-        rk.reset_launch_counts()
+        reset_counts()
         passes = []
         for i in range(2):
             t0 = time.perf_counter()
@@ -5363,9 +5411,11 @@ def sharded_run(torch, files, feed, out_path):
             if i == 0:
                 # phase 23's one-pass runs are held to this store
                 sha0 = shard_store_sha(trainer)
-        launches = {**pk.launch_counts(), **rk.launch_counts()}
+        launches = counts()
         stats = {k: stat_peek(k) - v for k, v in stats0.items()}
-        sha = shard_store_sha(trainer)
+        # phase 25's PS-backed runs are held to these rows
+        want_rows = shard_store_rows(trainer)
+        sha = sha_of(*want_rows)
         out = {"passes": passes, "launches": launches, "store_sha0": sha0,
                "collectives": dict(trainer.collective_counts),
                "exchange": dict(stats, **trainer.host_mesh.stats()),
@@ -5385,6 +5435,11 @@ def sharded_run(torch, files, feed, out_path):
     # 24. the other policies, the hot tier and the shuffled feed, each
     # policy on a fleet of its own
     out["phase24"] = phase24_child(torch, files, feed, store)
+    # 25. the sharded SSD tier, the PS-backed table, Downpour and the
+    # sequence trainer over an sp group
+    out["phase25"] = phase25_child(torch, files, feed, windows, bst_files,
+                                   bst_feed, store,
+                                   os.path.dirname(out_path), want_rows)
     return out
 
 
@@ -5394,8 +5449,6 @@ def sharded_bf16_run(torch, files, feed, fl):
     digits (BF16_DIGITS, phase 12's) and its launches (the kernels' 2-byte
     forms: the fused push and the decoding pull once a step, the raw
     2-byte gather at the promote and the two write-backs)."""
-    from paddlebox_tpu_torch.embedding import push_kernels as pk
-    from paddlebox_tpu_torch.ops import row_kernels as rk
     from paddlebox_tpu_torch.train import flagship
 
     trainer, ds = flagship.build_sharded_trainer(
@@ -5406,8 +5459,7 @@ def sharded_bf16_run(torch, files, feed, fl):
     trainer.seed_fn = lambda: int(torch.randint(0, 2**31 - 1, (),
                                                 generator=gen))
     try:
-        pk.reset_launch_counts()
-        rk.reset_launch_counts()
+        reset_counts()
         passes = []
         for i in range(2):
             t0 = time.perf_counter()
@@ -5420,7 +5472,7 @@ def sharded_bf16_run(torch, files, feed, fl):
                            "slab_dtype": str(
                                trainer.table.resident_slab.dtype)})
         return {"passes": passes,
-                "launches": {**pk.launch_counts(), **rk.launch_counts()}}
+                "launches": counts()}
     finally:
         trainer.close()
 
@@ -5473,8 +5525,6 @@ def phase23_run(torch, files, feed, fl, label, cfg=None, push="scatter",
     the metric reads, the store's sha256. With ``keep`` also (trainer,
     dataset), left open."""
     from paddlebox_tpu_torch.config.flags import PushFlags, StageFlags
-    from paddlebox_tpu_torch.embedding import push_kernels as pk
-    from paddlebox_tpu_torch.ops import row_kernels as rk
     from paddlebox_tpu_torch.parallel.mesh import device_mesh_2d
     from paddlebox_tpu_torch.train import flagship
 
@@ -5486,8 +5536,7 @@ def phase23_run(torch, files, feed, fl, label, cfg=None, push="scatter",
         stage_flags=StageFlags(**(stage or {})), metric=metric,
         **(fields or {}))
     trainer.seed_fn = main_path_seeds(torch)
-    pk.reset_launch_counts()
-    rk.reset_launch_counts()
+    reset_counts()
     out = []
     for i in range(passes):
         t0 = time.perf_counter()
@@ -5500,7 +5549,7 @@ def phase23_run(torch, files, feed, fl, label, cfg=None, push="scatter",
                     "pass_s": time.perf_counter() - t0,
                     "msg": {k: float(msg[k]) for k in MSG_KEYS if k in msg}})
     rec = {"label": label, "passes": out,
-           "launches": {**pk.launch_counts(), **rk.launch_counts()},
+           "launches": counts(),
            "collectives": dict(trainer.collective_counts),
            "a2a_bytes": dict(trainer.a2a_bytes),
            "d2h_reads": trainer.d2h_reads, "store_sha": shard_store_sha(trainer),
@@ -5746,8 +5795,6 @@ def phase23_child(torch, files, feed, fl, tmp):
     expand block (sharded and single-GPU), device-collect AUC and its
     host-mode run, the kernels at the shard shapes, the day. A record of
     each, and the phase's host seconds."""
-    from paddlebox_tpu_torch.embedding import push_kernels as pk
-    from paddlebox_tpu_torch.ops import row_kernels as rk
     from paddlebox_tpu_torch.train import flagship
 
     t0 = time.perf_counter()
@@ -5775,14 +5822,13 @@ def phase23_child(torch, files, feed, fl, tmp):
     out["expand"] = rec
     single, sds = flagship.build_trainer(files, feed, flagship.FLAGSHIP_EXPAND,
                                          "scatter", "cuda", seed=SHARDED_SEED)
-    pk.reset_launch_counts()
-    rk.reset_launch_counts()
+    reset_counts()
     res = single.train_pass(sds)
     torch.cuda.synchronize()
     out["expand_single"] = {
         "loss": res["loss"],
         "auc": single.metrics.get_metric_msg("auc")["auc"],
-        "launches": {**pk.launch_counts(), **rk.launch_counts()},
+        "launches": counts(),
         "store_sha": store_sha(single.table)}
     single.close()
     del single, sds
@@ -5948,8 +5994,6 @@ def phase24_run(torch, files, feed, fl, label, shard, stage=None, passes=1):
     the router's calls by entry, the store's sha256, the policy's
     identity."""
     from paddlebox_tpu_torch.config.flags import ShardFlags, StageFlags
-    from paddlebox_tpu_torch.embedding import push_kernels as pk
-    from paddlebox_tpu_torch.ops import row_kernels as rk
     from paddlebox_tpu_torch.train import flagship
 
     trainer, ds = flagship.build_sharded_trainer(
@@ -5957,8 +6001,7 @@ def phase24_run(torch, files, feed, fl, label, shard, stage=None, passes=1):
         stage_flags=StageFlags(**(stage or {})),
         shard_flags=ShardFlags(**shard))
     trainer.seed_fn = main_path_seeds(torch)
-    pk.reset_launch_counts()
-    rk.reset_launch_counts()
+    reset_counts()
     out = []
     for i in range(passes):
         before = dict(trainer.hot_counts)
@@ -5977,7 +6020,7 @@ def phase24_run(torch, files, feed, fl, label, shard, stage=None, passes=1):
             "hot_readded": trainer.hot_counts.get("readded", 0)
             - before.get("readded", 0)})
     rec = {"label": label, "passes": out,
-           "launches": {**pk.launch_counts(), **rk.launch_counts()},
+           "launches": counts(),
            "route_counts": dict(trainer.table.route_counts),
            "store_sha": shard_store_sha(trainer),
            "policy": trainer.policy.describe(),
@@ -6149,8 +6192,6 @@ def phase24_shuffle(torch, files, feed, fl):
 
     from paddlebox_tpu_torch.data import block_shuffle as bs
     from paddlebox_tpu_torch.data.dataset import BoxDataset
-    from paddlebox_tpu_torch.embedding import push_kernels as pk
-    from paddlebox_tpu_torch.ops import row_kernels as rk
     from paddlebox_tpu_torch.train import flagship
 
     world = PHASE24_SHUFFLE_WORLD
@@ -6178,8 +6219,7 @@ def phase24_shuffle(torch, files, feed, fl):
         trainer, _ = flagship.build_sharded_trainer(
             files, feed, flagship.FLAGSHIP, fleet=fl, seed=SHARDED_SEED)
         trainer.seed_fn = main_path_seeds(torch)
-        pk.reset_launch_counts()
-        rk.reset_launch_counts()
+        reset_counts()
         trainer.table.begin_feed_pass()
         dss, _, _ = phase24_shuffled_load(feed, files,
                                           add_keys_fn=trainer.table.add_keys)
@@ -6193,7 +6233,7 @@ def phase24_shuffle(torch, files, feed, fl):
             "loss": res["loss"], "auc": auc, "batches": res["batches"],
             "instances": res["instances"],
             "pass_s": time.perf_counter() - t0,
-            "launches": {**pk.launch_counts(), **rk.launch_counts()},
+            "launches": counts(),
             "store_sha": shard_store_sha(trainer)})
         trainer.close()
     return out
@@ -6333,7 +6373,405 @@ def phase24_report(res, p22):
     log("sharded24 phase seconds in the child: %.3f" % res["child_s"])
 
 
-def sharded_child(files, feed, out_path):
+# phase 25: the sharded SSD tier, the CPU PS behind the sharded table
+# (PSGPUTrainer), the Downpour worker and the sequence trainer over an sp
+# group, at world 1 over NCCL in phase 22's child after phase 24, each at
+# full width on a fleet of its own
+PHASE25_TABLE_ID = 0       # the PS's sparse table of the PS-backed runs
+PHASE25_SHARD_NUM = 8      # the PS table's shards (the reference's default)
+# Ulysses at one shard against BST_DIGITS (the ring's): its attention is
+# softmax-then-matmul and the ring's a block update that divides after the
+# matmul, so the floats differ by rounding (3.3e-9 relative on the card);
+# the relative limit on each pass's loss and AUC
+ULYSSES_RTOL = 1e-7
+
+
+def phase25_ssd(torch, windows, feed, fl, tmp):
+    """(a) FLAGSHIP_SSD through ShardedBoxTrainer over phase 19's three
+    windows in sequence, the main path's seeds: each pass's digits, tier
+    stats and the store's sha256 (resident and tier rows, sorted), then
+    load_ssd_to_mem."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.utils.stats import stat_get
+
+    cfg = dataclasses.replace(flagship.FLAGSHIP_SSD,
+                              ssd_dir=os.path.join(tmp, "ssd_phase25"))
+    trainer, _ = flagship.build_sharded_trainer(windows[0], feed, cfg,
+                                                fleet=fl, seed=SHARDED_SEED)
+    trainer.seed_fn = main_path_seeds(torch)
+    store = trainer.table.shard.store
+    passes = []
+    try:
+        reset_counts()
+        last = {n: stat_get(n) for n in TIER_STATS}
+        for i, files in enumerate(windows):
+            ds = BoxDataset(feed)
+            ds.set_filelist(files)
+            t0 = time.perf_counter()
+            res = trainer.train_pass(ds)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            auc = trainer.metrics.get_metric_msg(
+                "auc", allreduce=fl.metric_allreduce())["auc"]
+            now = {n: stat_get(n) for n in TIER_STATS}
+            passes.append({"pass": i, "loss": res["loss"], "auc": auc,
+                           "batches": res["batches"], "pass_s": secs,
+                           "stats": {n: now[n] - last[n] for n in TIER_STATS},
+                           "union_sha": sha_of(*union_of(store)),
+                           "spilled": trainer.table.spilled_count(),
+                           "resident": len(store)})
+            last = now
+        launches = counts()
+        spilled = trainer.table.spilled_count()
+        k, _ = trainer.table.spilled_snapshot()
+        t0 = time.perf_counter()
+        loaded = trainer.table.load_ssd_to_mem()
+        load_s = time.perf_counter() - t0
+        return {"passes": passes, "launches": launches,
+                "budget": cfg.table().ssd_max_resident_rows(
+                    trainer.layout.width),
+                "host_ranks": trainer.table.shard.budget_split,
+                "spilled_before_load": spilled,
+                "snapshot_keys": int(np.unique(k).size), "loaded": loaded,
+                "spilled_after_load": trainer.table.spilled_count(),
+                "resident_after_load": len(store), "load_s": load_s}
+    finally:
+        trainer.close()
+
+
+def phase25_ps_run(torch, files, feed, fl, client, label, want_rows):
+    """(b) One PSGPUTrainer run over ``client``: create_trainer through
+    flagship.build_sharded_trainer, two passes with the main path's seeds;
+    then the server's rows of the pass keys against phase 22's store
+    (``want_rows``: its sorted keys and rows), the first difference kept."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.embedding.ps_store import PSBackedStore
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.utils.stats import stat_get
+
+    client.create_sparse_table(PHASE25_TABLE_ID, flagship.FLAGSHIP.table(),
+                               shard_num=PHASE25_SHARD_NUM, seed=0)
+    trainer, ds = flagship.build_sharded_trainer(
+        files, feed, flagship.FLAGSHIP, fleet=fl, seed=SHARDED_SEED,
+        ps_client=client, ps_table_id=PHASE25_TABLE_ID)
+    trainer.seed_fn = main_path_seeds(torch)
+    store = trainer.table.shard.store
+    check(isinstance(store, PSBackedStore) and store.primary,
+          "phase 25 %s: the shard's store %r" % (label, store))
+    stats = ("ps_build_keys_pulled", "ps_build_keys_dumped")
+    try:
+        reset_counts()
+        base = {n: stat_get(n) for n in stats}
+        passes = []
+        for i in range(2):
+            before = dict(trainer.table.counters)
+            t0 = time.perf_counter()
+            res = trainer.train_pass(ds)
+            torch.cuda.synchronize()
+            auc = trainer.metrics.get_metric_msg(
+                "auc", allreduce=fl.metric_allreduce())["auc"]
+            passes.append({"pass": i, "loss": res["loss"], "auc": auc,
+                           "batches": res["batches"],
+                           "pass_s": time.perf_counter() - t0,
+                           "counters": counter_delta(before, trainer.table)})
+        launches = counts()
+        keys = np.sort(trainer.table.shard_keys(0))
+        t0 = time.perf_counter()
+        rows = client.pull_sparse(PHASE25_TABLE_ID, keys, create=False)
+        fetch_s = time.perf_counter() - t0
+        rec = {"label": label, "passes": passes, "launches": launches,
+               "server_sha": sha_of(keys, rows), "keys": int(keys.size),
+               "server_rows": int(client.sparse_size(PHASE25_TABLE_ID)),
+               "fetch_s": fetch_s,
+               "stats": {n: stat_get(n) - base[n] for n in stats},
+               "prefetch": trainer.table.promote_prefetch_ctx() is None}
+        wk, wv = want_rows
+        if keys.size != wk.size or not np.array_equal(keys, wk):
+            rec["first_diff"] = "the key sets differ: %d against %d keys" % (
+                keys.size, wk.size)
+        else:
+            diff = np.argwhere(rows.view(np.uint32) != wv.view(np.uint32))
+            if diff.size:
+                i, c = diff[0]
+                rec["first_diff"] = ("key %d column %d: %r against %r"
+                                     % (keys[i], c, rows[i, c], wv[i, c]))
+        return rec, trainer
+    except BaseException:
+        trainer.close()
+        raise
+
+
+def phase25_downpour_run(torch, files, feed, kernel=False):
+    """(c) DownpourTrainer at FLAGSHIP's table, batch and model, sync_comm,
+    two passes over a PsLocalClient: each pass's digits and wall, the
+    launches, and a sha256 of the server's sparse rows (every key of the
+    files) and dense vector; with ``kernel`` (e) gather_rows at its
+    per-batch slab's shape, held to its plain version and timed."""
+    import hashlib
+
+    import numpy as np
+
+    from paddlebox_tpu_torch.config.configs import TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.ps import PsLocalClient
+    from paddlebox_tpu_torch.ps.worker import DownpourTrainer
+    from paddlebox_tpu_torch.train import flagship
+
+    cfg = flagship.FLAGSHIP
+    client = PsLocalClient()
+    trainer = DownpourTrainer(
+        flagship.build_model(cfg, SHARDED_SEED), cfg.table(), feed, client,
+        TrainerConfig(dense_lr=flagship.DENSE_LR), seed=SHARDED_SEED,
+        sync_comm=True, device="cuda")
+    trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
+    try:
+        reset_counts()
+        passes = []
+        for i in range(2):
+            ds = BoxDataset(feed)
+            ds.set_filelist(files)
+            t0 = time.perf_counter()
+            res = trainer.train_pass(ds)
+            torch.cuda.synchronize()
+            passes.append({"pass": i, "loss": res["loss"],
+                           "auc": trainer.metrics.get_metric_msg("auc")[
+                               "auc"],
+                           "batches": res["batches"],
+                           "pass_s": time.perf_counter() - t0})
+        launches = counts()
+        keys = np.unique(ds.all_keys())
+        rows = client.pull_sparse(trainer.SPARSE_TABLE, keys, create=False)
+        dense = client.pull_dense(trainer.DENSE_TABLE)
+        rec = {"passes": passes, "launches": launches,
+               "sha": hashlib.sha256(keys.tobytes() + rows.tobytes()
+                                     + dense.tobytes()).hexdigest(),
+               "keys": int(keys.size), "dense": int(dense.size)}
+        if kernel:
+            b = ds.split_batches(1)[0][0]
+            slab, batch = trainer._prepare_batch(b)
+            rec["kernel"] = gather_record(torch, slab, batch["ids"],
+                                          "at Downpour's per-batch slab")
+        return rec
+    finally:
+        trainer.close()
+
+
+def phase25_seq_run(torch, bst_files, bst_feed, attn, group):
+    """(d) FLAGSHIP_BST through SeqCtrTrainer with ``attn``, over the sp
+    process group ``group`` (None: one shard, no group): two passes."""
+    from paddlebox_tpu_torch.train import flagship
+
+    trainer, ds = flagship.build_seq_trainer(
+        bst_files, bst_feed, flagship.FLAGSHIP_BST, "cuda", group=group,
+        attn=attn)
+    reset_counts()
+    passes = main_passes(torch, trainer, ds)
+    return {"attn": attn, "group": group is not None, "P": trainer.P,
+            "passes": passes, "launches": counts()}
+
+
+def phase25_child(torch, files, feed, windows, bst_files, bst_feed, store,
+                  tmp, want_rows):
+    """Phase 25 in the child, each part on a world-1 NCCL fleet of its own
+    over the child's TCPStore: the sharded SSD tier, the PS-backed runs
+    (local client, then TCP to a PSServer on this process's threads), the
+    Downpour runs and the sequence runs. Its records and host seconds."""
+    from paddlebox_tpu_torch.ps import PSServer, PsLocalClient, TcpPSClient
+
+    t0 = time.perf_counter()
+    out = {}
+    fl = phase24_fleet(store, "phase25-ssd")
+    try:
+        out["ssd"] = phase25_ssd(torch, windows, feed, fl, tmp)
+    finally:
+        fl.stop()
+    out["ps"] = []
+    for label in ("local", "tcp"):
+        fl = phase24_fleet(store, "phase25-ps-" + label)
+        server = client = trainer = None
+        try:
+            if label == "local":
+                client = PsLocalClient()
+            else:
+                server = PSServer()
+                client = TcpPSClient("127.0.0.1", server.port)
+            rec, trainer = phase25_ps_run(torch, files, feed, fl, client,
+                                          label, want_rows)
+            if label == "local":
+                try:
+                    trainer.table.store_view()
+                except TypeError as e:
+                    rec["store_view"] = str(e)
+            out["ps"].append(rec)
+        finally:
+            if trainer is not None:
+                trainer.close()
+            if server is not None:
+                client.close()
+                server.stop()
+            fl.stop()
+    out["downpour"] = [phase25_downpour_run(torch, files, feed, kernel=i == 0)
+                       for i in range(2)]
+    fl = phase24_fleet(store, "phase25-seq")
+    try:
+        out["seq"] = [phase25_seq_run(torch, bst_files, bst_feed, attn,
+                                      fl.mesh.group)
+                      for attn in ("ring", "ulysses")]
+        out["seq"].append(phase25_seq_run(torch, bst_files, bst_feed,
+                                          "ulysses", None))
+    finally:
+        fl.stop()
+    out["child_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase25_report(res, p22, tier):
+    """Phase 25's checks and lines in the parent, against phase 22's run
+    ``p22`` (FLAGSHIP_DIGITS and its store sha256), phase 19's FLAGSHIP_SSD
+    sequential run in ``tier`` and phase 17's BST_DIGITS."""
+    def digits(passes):
+        return {"loss": tuple("%.10f" % p["loss"] for p in passes),
+                "auc": tuple("%.10f" % p["auc"] for p in passes)}
+
+    def launched(counts):
+        return json.dumps({k: v for k, v in counts.items() if v})
+
+    # (a) the sharded SSD tier = phase 19's single-GPU FLAGSHIP_SSD run
+    ssd = res["ssd"]
+    ref = next(r for r in tier["runs"] if r["mode"] == "b")
+    for p, q in zip(ssd["passes"], ref["passes"]):
+        moved = {n: p["stats"][n] for n in ("sparse_keys_spilled",
+                                            "sparse_keys_faulted_in")}
+        want = {n: q["stats"][n] for n in moved}
+        check((p["loss"], p["auc"]) == (q["loss"], q["auc"])
+              and p["union_sha"] == q["union_sha"] and moved == want,
+              "phase 25 sharded SSD pass %d: %s against phase 19's %s"
+              % (p["pass"], json.dumps(p), json.dumps(
+                  {k: q[k] for k in ("loss", "auc", "union_sha", "stats")})))
+        log("sharded25 ssd pass %d (FLAGSHIP_SSD, world 1): loss %.10f auc "
+            "%.10f = phase 19's; store (resident and tier) sha256 %s = phase "
+            "19's; spilled %d, faulted in %d = phase 19's; the tier holds %d "
+            "rows, %d resident; wall %.3f s (phase 19's %.3f)"
+            % (p["pass"], p["loss"], p["auc"], p["union_sha"],
+               moved["sparse_keys_spilled"], moved["sparse_keys_faulted_in"],
+               p["spilled"], p["resident"], p["pass_s"], q["wall_s"]))
+    steps = sum(p["batches"] for p in ssd["passes"])
+    check(ssd["launches"]["push_adagrad"] == steps
+          and ssd["launches"] == ref["launches"]
+          and ssd["host_ranks"] == 1
+          and ssd["loaded"] == ssd["spilled_before_load"]
+          == ssd["snapshot_keys"] > 0 and ssd["spilled_after_load"] == 0,
+          "phase 25 sharded SSD: launches %s (phase 19's %s), load %s"
+          % (ssd["launches"], ref["launches"],
+             {k: ssd[k] for k in ("loaded", "spilled_before_load",
+                                  "spilled_after_load")}))
+    log("sharded25 ssd: launches %s = phase 19's; budget %d rows over %d "
+        "rank on the host; load_ssd_to_mem moved %d rows back in %.3f s "
+        "(the tier then empty, %d resident)"
+        % (launched(ssd["launches"]), ssd["budget"], ssd["host_ranks"],
+           ssd["loaded"], ssd["load_s"], ssd["resident_after_load"]))
+
+    # (b) the PS-backed runs = phase 22's run and each other
+    local, tcp = res["ps"]
+    for r in res["ps"]:
+        got = digits(r["passes"])
+        steps = sum(p["batches"] for p in r["passes"])
+        check(got == FLAGSHIP_DIGITS and r["launches"]["push_adagrad"] == steps
+              and r["launches"]["gather_rows"] >= steps + 2
+              and r["prefetch"],
+              "phase 25 PS-backed (%s): digits %s (want %s), launches %s"
+              % (r["label"], got, FLAGSHIP_DIGITS, r["launches"]))
+        check(r["server_sha"] == p22["store_sha"] and "first_diff" not in r,
+              "phase 25 PS-backed (%s): the server's rows sha256 %s, phase "
+              "22's store %s; first difference: %s"
+              % (r["label"], r["server_sha"], p22["store_sha"],
+                 r.get("first_diff")))
+        log("sharded25 ps %s (PSGPUTrainer, world 1): digits %s = phase "
+            "22's; the server's rows of the %d pass keys sha256 %s = phase "
+            "22's store; launches %s (%d steps: a pull a step, the promote "
+            "and write-backs by the counters %s); PS keys pulled and "
+            "dumped %s; server rows %d; pass walls %s; the rows' fetch "
+            "%.3f s"
+            % (r["label"], json.dumps(got), r["keys"], r["server_sha"],
+               launched(r["launches"]), steps,
+               [p["counters"] for p in r["passes"]], json.dumps(r["stats"]),
+               r["server_rows"], [p["pass_s"] for p in r["passes"]],
+               r["fetch_s"]))
+    check([(p["loss"], p["auc"]) for p in local["passes"]]
+          == [(p["loss"], p["auc"]) for p in tcp["passes"]]
+          and local["server_sha"] == tcp["server_sha"]
+          and local["launches"] == tcp["launches"],
+          "phase 25: the local and TCP PS runs differ")
+    check("PS-backed shards checkpoint server-side" in local.get(
+        "store_view", ""), "phase 25: store_view over a PS-backed shard "
+          "gave %r" % local.get("store_view"))
+    log("sharded25 ps: the local and TCP runs bit-identical; store_view "
+        "refused: %s" % local["store_view"])
+
+    # (c) Downpour: deterministic twice, and learning
+    a, b = res["downpour"]
+    check([(p["loss"], p["auc"]) for p in a["passes"]]
+          == [(p["loss"], p["auc"]) for p in b["passes"]]
+          and a["sha"] == b["sha"] and a["launches"] == b["launches"]
+          and a["passes"][1]["loss"] < a["passes"][0]["loss"]
+          and a["launches"]["gather_rows"] == sum(
+              p["batches"] for p in a["passes"])
+          and a["launches"]["push_adagrad"] == 0,
+          "phase 25 Downpour runs: %s" % json.dumps(
+              [{k: r[k] for k in ("passes", "launches", "sha")}
+               for r in (a, b)]))
+    for r in (a, b):
+        log("sharded25 downpour run (FLAGSHIP table, batch and model, "
+            "sync_comm, PsLocalClient): digits %s; server sha256 %s (%d "
+            "keys, %d dense values); launches %s; pass walls %s"
+            % (json.dumps(digits(r["passes"])), r["sha"], r["keys"],
+               r["dense"], launched(r["launches"]),
+               [p["pass_s"] for p in r["passes"]]))
+    log("sharded25 downpour: the two runs bit-identical; the loss fell "
+        "%.10f -> %.10f" % (a["passes"][0]["loss"], a["passes"][1]["loss"]))
+    log("sharded25 gather_rows at Downpour's per-batch slab: bit-equal to "
+        "the plain version and index_select; %s" % json.dumps(a["kernel"]))
+
+    # (d) the sequence trainer over an sp group of one
+    ring, uly, uly_alone = res["seq"]
+    for r in res["seq"]:
+        steps = sum(p["batches"] for p in r["passes"])
+        extra = sum(gather_launches_of(p["counters"]) for p in r["passes"])
+        check(r["P"] == 1 and r["launches"] == f32_launches(
+            push_adagrad=steps, gather_rows=2 * steps + extra),
+              "phase 25 seq (%s, group %s): P %d, launches %s"
+              % (r["attn"], r["group"], r["P"], r["launches"]))
+    got = digits(ring["passes"])
+    check(got == BST_DIGITS, "phase 25 seq ring over the sp group: digits "
+          "%s, phase 17's %s" % (got, BST_DIGITS))
+    want = [float(x) for n in ("loss", "auc") for x in BST_DIGITS[n]]
+    gaps = [abs(g / w - 1.0) for g, w in zip(
+        [p[n] for n in ("loss", "auc") for p in uly["passes"]], want)]
+    check(max(gaps) <= ULYSSES_RTOL,
+          "phase 25 seq ulysses: digits %s, BST_DIGITS %s: relative gaps "
+          "%s over %g" % (digits(uly["passes"]), BST_DIGITS, gaps,
+                          ULYSSES_RTOL))
+    check(digits(uly["passes"]) == digits(uly_alone["passes"]),
+          "phase 25 seq ulysses: over the sp group %s, alone %s"
+          % (digits(uly["passes"]), digits(uly_alone["passes"])))
+    log("sharded25 seq ring (FLAGSHIP_BST, an sp group of one over NCCL): "
+        "digits %s = phase 17's BST_DIGITS; launches %s; pass walls %s"
+        % (json.dumps(got), launched(ring["launches"]),
+           [p["pass_s"] for p in ring["passes"]]))
+    log("sharded25 seq ulysses over the sp group: digits %s = the one-shard "
+        "Ulysses run's (no group) bit for bit; against BST_DIGITS' loss and "
+        "AUC relative gaps %s (limit %g); launches %s; pass walls %s"
+        % (json.dumps(digits(uly["passes"])), gaps, ULYSSES_RTOL,
+           launched(uly["launches"]),
+           [p["pass_s"] for p in uly["passes"]]))
+    log("sharded25 phase seconds in the child: %.3f" % res["child_s"])
+
+
+def sharded_child(files, feed, out_path, windows, bst_files, bst_feed):
     """Phase 22's spawned process: its NCCL and process-group state never
     touch phases 1-21. Writes its result (pickle) or its traceback."""
     import pickle
@@ -6341,7 +6779,8 @@ def sharded_child(files, feed, out_path):
 
     import torch
     try:
-        res = sharded_run(torch, files, feed, out_path)
+        res = sharded_run(torch, files, feed, out_path, windows, bst_files,
+                          bst_feed)
         with open(out_path, "wb") as fh:
             pickle.dump(res, fh)
     except BaseException:
@@ -6350,19 +6789,23 @@ def sharded_child(files, feed, out_path):
         raise
 
 
-def sharded_phase(torch, files, feed, main, main_sha, tmp, spawn):
+def sharded_phase(torch, files, feed, main, main_sha, tmp, spawn, windows,
+                  bst_files, bst_feed, tier):
     """Phase 22: ShardedBoxTrainer at world 1 over NCCL in a child, held to
     the main path's run (phase 5): the digits of both passes
     (FLAGSHIP_DIGITS), the written-back store's sha256, the launches
     (SHARDED_LAUNCHES) and three collectives a step; its pass walls beside
     the main path's; its bf16 leg held to phase 12's digits and the 2-byte
-    forms' launches. Returns the child's record."""
+    forms' launches; then phases 23-25 from the same child (phase 25 held
+    to phase 19's ``tier`` run and phase 17's digits). Returns the child's
+    record."""
     import pickle
 
     out_path = os.path.join(tmp, "phase22.pkl")
     t0 = time.perf_counter()
-    child = spawn.Process(target=sharded_child, args=(files, feed, out_path),
-                          name="phase22")
+    child = spawn.Process(target=sharded_child,
+                          args=(files, feed, out_path, windows, bst_files,
+                                bst_feed), name="phase22")
     child.start()
     child.join(SHARDED_CHILD_S)
     if child.is_alive():
@@ -6427,6 +6870,8 @@ def sharded_phase(torch, files, feed, main, main_sha, tmp, spawn):
     phase23_report(res["phase23"], res)
     # 24. the other policies, the hot tier and the shuffled feed
     phase24_report(res["phase24"], res)
+    # 25. the sharded SSD tier, the PS, Downpour, the sp group
+    phase25_report(res["phase25"], res, tier)
     return res
 
 
@@ -6439,20 +6884,11 @@ def main() -> int:
 
     from paddlebox_tpu_torch import rate_probe
     from paddlebox_tpu_torch.device import card_line
-    from paddlebox_tpu_torch.embedding import push_kernels as pk
     from paddlebox_tpu_torch.embedding.native_store import \
         NativeHostEmbeddingStore
     from paddlebox_tpu_torch.native import host_lib
     from paddlebox_tpu_torch.native.build import build_kernels
-    from paddlebox_tpu_torch.ops import row_kernels as rk
     from paddlebox_tpu_torch.train import flagship
-
-    def reset_counts():
-        pk.reset_launch_counts()
-        rk.reset_launch_counts()
-
-    def counts():
-        return {**pk.launch_counts(), **rk.launch_counts()}
 
     # 1. the card
     smi = card_line()
@@ -6692,7 +7128,7 @@ def main() -> int:
         # 22. the sharded trainer at world 1 over NCCL in a child process,
         # held to the main path's run
         sharded = sharded_phase(torch, files, feed, passes, main_sha, tmp,
-                                spawn)
+                                spawn, windows, bst_files, bst_feed, tier)
         clock.lap("sharded")
 
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
@@ -6762,6 +7198,14 @@ def main() -> int:
             k.setdefault("at_shapes", {})[shape] = dict(
                 p24["kernels"][k["name"]],
                 launches=run["launches"][k["name"]])
+    # phase 25's new shape: Downpour's per-batch slab, with its run's
+    # launches
+    p25 = sharded["phase25"]
+    for k in kernels:
+        if k["name"] == "gather_rows":
+            k["at_shapes"]["downpour_slab"] = dict(
+                p25["downpour"][0]["kernel"],
+                launches=p25["downpour"][0]["launches"]["gather_rows"])
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -6823,7 +7267,15 @@ def main() -> int:
                               **{"sharded24_" + n: p24[n]["launches"]
                                  for n in ("table_wise", "grid_hot")},
                               "sharded24_shuffled":
-                                  p24["shuffle"]["runs"][0]["launches"]},
+                                  p24["shuffle"]["runs"][0]["launches"],
+                              "sharded25_ssd": p25["ssd"]["launches"],
+                              **{"sharded25_ps_" + r["label"]: r["launches"]
+                                 for r in p25["ps"]},
+                              "sharded25_downpour":
+                                  p25["downpour"][0]["launches"],
+                              **{"sharded25_seq_%s%s" % (
+                                  r["attn"], "_sp" if r["group"] else ""):
+                                 r["launches"] for r in p25["seq"]}},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

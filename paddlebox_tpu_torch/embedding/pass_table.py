@@ -336,6 +336,9 @@ class PassTable:
                       else make_host_store(self.layout, table, seed,
                                            self.flags.host_store_stripes))
         self.store_lock = make_lock("PassTable.store_lock")
+        # the share of the SSD budget this table's store holds: 1, or the
+        # sharded table's ranks on a host (check_need_limit_mem)
+        self.budget_split = 1
         self.capacity = int(table.pass_capacity)
         self._feed_keys: List[np.ndarray] = []
         self._pass_keys: Optional[np.ndarray] = None
@@ -378,8 +381,11 @@ class PassTable:
         store's SSD-tier moves (spill, fault-in) their MOVE records
         through the sink installed here."""
         self._journal = journal
-        self.store.set_journal_sink(None if journal is None
-                                    else journal.append_move)
+        # a store without a sink (the PS-backed one: its tier is the
+        # server's) journals no moves, and its spills taint instead
+        set_sink = getattr(self.store, "set_journal_sink", None)
+        if set_sink is not None:
+            set_sink(None if journal is None else journal.append_move)
 
     def _journal_rows(self, keys: np.ndarray, rows: np.ndarray) -> None:
         if self._journal is not None and not self._test_mode:
@@ -611,19 +617,30 @@ class PassTable:
     def check_need_limit_mem(self) -> int:
         """The pass-end memory limiter (CheckNeedLimitMem /
         ShrinkResource, box_wrapper.h:627-629): where the host store holds
-        more rows than ``TableConfig.ssd_max_resident_rows`` allows, spill
-        the coldest down to it, under ``store_lock`` (the promote
-        prefetcher must not see a spill half done); a spill drops the
-        residency, so the next begin_pass builds in full. No-op without
-        ``ssd_dir`` and ``ssd_threshold_mb``. Returns the rows
-        spilled."""
-        max_resident = self.config.ssd_max_resident_rows(self.layout.width)
-        if max_resident is None:
+        more rows than its budget allows, spill the coldest down to it,
+        under ``store_lock`` (the promote prefetcher must not see a spill
+        half done); a spill drops the residency, so the next begin_pass
+        builds in full. The budget is ``TableConfig.ssd_max_resident_rows``
+        divided by ``budget_split`` (the sharded table's ranks on a host),
+        or whole for a store whose tier is table-wide (``spill_table_wide``:
+        the PS-backed one, whose primary spills on the server). A spill by
+        a store with no journal sink taints an attached journal (the
+        reference's sharded_table.py:1066-1101). No-op without ``ssd_dir``
+        and ``ssd_threshold_mb``. Returns the rows spilled."""
+        budget = self.config.ssd_max_resident_rows(self.layout.width)
+        if budget is None or not hasattr(self.store, "spill"):
             return 0
+        if not getattr(self.store, "spill_table_wide", False):
+            budget //= max(1, self.budget_split)
         with self.store_lock:
-            n = self.store.spill(max_resident)
+            n = self.store.spill(budget)
         if n:
             self.invalidate_residency()
+            if (self._journal is not None
+                    and not hasattr(self.store, "set_journal_sink")):
+                self._journal.taint(
+                    "%d rows spilled on a server-side tier (outside the "
+                    "journaled MOVE cadence)" % n)
         return n
 
     def invalidate_residency(self) -> None:
@@ -645,7 +662,8 @@ class PassTable:
             Tuple[Callable[[np.ndarray], np.ndarray], object,
                   threading.Lock]]:
         """(known_fn, store, lock) for train.preload.PromotePrefetcher, or
-        None when the prefetch cannot run (a flag off, or no pass key set to
+        None when the prefetch cannot run (a flag off, a store without
+        lookup_present such as the PS-backed one, or no pass key set to
         diff against). known_fn marks the keys of this pass's set: the set
         that will be resident when the next begin_pass diffs. It reads a
         numpy snapshot of the set, never the route index, which the main
@@ -653,6 +671,7 @@ class PassTable:
         eval pass leaves nothing resident to diff against."""
         if (not self.flags.incremental_pass
                 or not self.flags.preload_promote
+                or not hasattr(self.store, "lookup_present")
                 or self._test_mode
                 or self._pass_keys is None or self._pass_keys.size == 0):
             return None
@@ -812,5 +831,7 @@ class PassTable:
         warm-up after a load before the day's first pass. Drops the
         residency. Returns the rows moved."""
         self.invalidate_residency()
+        if not hasattr(self.store, "load_spilled"):
+            return 0
         with self.store_lock:
             return self.store.load_spilled()

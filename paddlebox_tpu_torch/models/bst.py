@@ -15,12 +15,15 @@ Masking, as the reference's: an invalid position becomes a ZERO token
 with the score q . 0 = 0 (it is not a key mask), and the mean over
 positions counts the valid ones, divided by max(count, 1).
 
-``seq_feature`` is the reference's ``seq_feature_local`` at one shard (no
-psum); the attention is ``parallel/ring_attention.py``'s, ring or Ulysses
-by ``attn``. Any n_shards other than 1 raises (ROADMAP A10). The model
-trains on ``parallel/seq_trainer.py`` SeqCtrTrainer, which pulls the
-history beside the pooled slots; BoxTrainer refuses it
-(``use_sequence``).
+``seq_feature_local`` is the reference's (:87-116): one rank's chunk of
+T / n_shards positions of the sequence, split over an ``sp`` process group
+of n_shards ranks, takes its slice of ``pos_emb``, attends through
+``parallel/ring_attention.py`` (ring or Ulysses by ``attn``, across the
+group), and the masked mean's numerator and denominator are summed over
+the group with autograd (the reference's psums); ``forward`` runs it at
+one shard with no collective. The model trains on
+``parallel/seq_trainer.py`` SeqCtrTrainer, which pulls the history beside
+the pooled slots; BoxTrainer refuses it (``use_sequence``).
 """
 
 from __future__ import annotations
@@ -32,15 +35,17 @@ from torch import nn
 
 from paddlebox_tpu_torch.models.base import ModelSpec
 from paddlebox_tpu_torch.models.layers import mlp_apply, mlp_init
-from paddlebox_tpu_torch.parallel.ring_attention import (check_one_shard,
-                                                         ring_attention,
+from paddlebox_tpu_torch.parallel.ring_attention import (ring_attention,
                                                          ulysses_attention)
+from paddlebox_tpu_torch.parallel.tensor_parallel import (LOCAL, group_rank,
+                                                          group_size, psum)
 
 
 class BstSeqCtr(nn.Module):
     """Pooled slots (seqpool + CVM) and an attended behavior sequence into
-    an MLP head. seq_len: the padded history length T; attn: "ring" or
-    "ulysses"."""
+    an MLP head. seq_len: the padded history length T (divisible by
+    n_shards, the ``sp`` group's ranks); attn: "ring" or "ulysses"
+    (Ulysses needs heads divisible by n_shards)."""
 
     name = "bst_seq_ctr"
     task_names = ("ctr",)
@@ -61,7 +66,6 @@ class BstSeqCtr(nn.Module):
         if attn == "ulysses" and heads % n_shards:
             raise ValueError("ulysses needs heads %d divisible by %d"
                              % (heads, n_shards))
-        check_one_shard(n_shards)
         self.spec = spec
         self.seq_len = seq_len
         self.n_shards = n_shards
@@ -85,29 +89,45 @@ class BstSeqCtr(nn.Module):
         mlp_init(self, [spec.total_in + d_seq, *self.hidden, 1], "dnn",
                  generator)
 
-    def _qkv(self, emb_seq: torch.Tensor, seq_valid: torch.Tensor):
+    def _qkv(self, emb_seq: torch.Tensor, seq_valid: torch.Tensor,
+             pos_emb: torch.Tensor):
         B, T, _ = emb_seq.shape
         H, Dh = self.heads, self.d_head
-        tok = torch.where(seq_valid[..., None], emb_seq + self.pos_emb[None],
+        tok = torch.where(seq_valid[..., None], emb_seq + pos_emb[None],
                           torch.zeros_like(emb_seq))
         return tuple((tok @ w).reshape(B, T, H, Dh)
                      for w in (self.wq, self.wk, self.wv))
 
-    def _masked_mean(self, o: torch.Tensor,
-                     seq_valid: torch.Tensor) -> torch.Tensor:
+    def _masked_mean(self, o: torch.Tensor, seq_valid: torch.Tensor,
+                     group=LOCAL) -> torch.Tensor:
         B, T = seq_valid.shape
         o = o.reshape(B, T, self.heads * self.d_head) @ self.wo + self.bo
         w = seq_valid.to(torch.float32)[..., None]
-        return (o * w).sum(dim=1) / torch.clamp(w.sum(dim=1), min=1.0)
+        # the mean over the full sequence: the chunks' sums over the group
+        num = psum((o * w).sum(dim=1), group)
+        den = psum(w.sum(dim=1), group)
+        return num / torch.clamp(den, min=1.0)
 
-    def seq_feature(self, emb_seq: torch.Tensor,
-                    seq_valid: torch.Tensor) -> torch.Tensor:
-        """[B, T, Din] pulled history and its [B, T] bool mask -> the
-        [B, d_seq] sequence feature (the reference's seq_feature_local at
-        one shard)."""
-        q, k, v = self._qkv(emb_seq, seq_valid)
+    def seq_feature_local(self, emb_chunk: torch.Tensor,
+                          valid_chunk: torch.Tensor,
+                          group=None) -> torch.Tensor:
+        """This rank's chunk -> the [B, d_seq] feature of the whole
+        sequence, the same on every rank of ``group`` (the sp group of
+        n_shards ranks; None: the world, or one shard without a process
+        group). emb_chunk: [B, T/P, Din] pulled history embeddings of the
+        rank's positions; valid_chunk: [B, T/P] bool. Masked positions
+        attend as zero tokens and are left out of the mean."""
+        P = group_size(group)
+        if P != self.n_shards:
+            raise ValueError("the sp group has %d ranks, the model n_shards "
+                             "%d" % (P, self.n_shards))
+        tl = emb_chunk.shape[1]
+        idx = group_rank(group)
+        pos = self.pos_emb[idx * tl:(idx + 1) * tl]
+        q, k, v = self._qkv(emb_chunk, valid_chunk, pos)
         attend = ring_attention if self.attn == "ring" else ulysses_attention
-        return self._masked_mean(attend(q, k, v, causal=False), seq_valid)
+        return self._masked_mean(attend(q, k, v, group, causal=False),
+                                 valid_chunk, group)
 
     def head_apply(self, pooled: torch.Tensor,
                    seq_feat: torch.Tensor) -> torch.Tensor:
@@ -119,13 +139,17 @@ class BstSeqCtr(nn.Module):
 
     def forward(self, pooled: torch.Tensor, emb_seq: torch.Tensor,
                 seq_valid: torch.Tensor) -> torch.Tensor:
-        return self.head_apply(pooled, self.seq_feature(emb_seq, seq_valid))
+        """The one-shard model's logits (seq_feature_local with no
+        collective)."""
+        return self.head_apply(pooled,
+                               self.seq_feature_local(emb_seq, seq_valid,
+                                                      LOCAL))
 
     def oracle_logits(self, pooled: torch.Tensor, emb_seq: torch.Tensor,
                       seq_valid: torch.Tensor) -> torch.Tensor:
         """The same math with the plain softmax attention (the reference's
         single-device oracle, for tests)."""
-        q, k, v = self._qkv(emb_seq, seq_valid)
+        q, k, v = self._qkv(emb_seq, seq_valid, self.pos_emb)
         s = torch.einsum("bqhd,bkhd->bhqk", q, k) / (self.d_head ** 0.5)
         o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
         return self.head_apply(pooled, self._masked_mean(o, seq_valid))

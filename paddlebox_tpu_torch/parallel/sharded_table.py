@@ -54,9 +54,19 @@ The router is native (native/route.cc rt_bucketize, and
 rt_bucketize_sharded under the other policies) and nothing falls back;
 ``bucketize_plain`` is its numpy twin, bit for bit (the same buckets,
 restore and overflow: first occurrences fill a shard's bucket in order,
-and the late ones overflow), which the tests hold it to. The SSD
-tier under sharding and the PS store wait for their slice (ROADMAP.md
-A10).
+and the late ones overflow), which the tests hold it to.
+
+The SSD tier (reference :1066-1151, 1199-1270): the owned shard's
+PassTable spills at every end_pass, its store keeping the host's budget
+divided by the ranks on the host (``host_ranks``, ShardMesh.chips: P
+ranks on a host hold what the reference's one process with P shards
+holds); ``load_ssd_to_mem`` and the tier queries (``spilled_snapshot``,
+``spilled_count``, ``spilled_keys``, ``rebase_spill_ages``) read the owned
+shard's tier. Each rank's SpillTier tags its block files with its pid,
+so ranks sharing one ssd_dir never touch each other's blocks. A
+PS-backed shard (``store_factory``, embedding/ps_store.py) spills on the
+server through its primary with the whole budget, and its store_view
+raises.
 """
 
 from __future__ import annotations
@@ -70,12 +80,14 @@ import numpy as np
 from paddlebox_tpu_torch.config.configs import TableConfig
 from paddlebox_tpu_torch.config.flags import PassFlags, ShardFlags
 from paddlebox_tpu_torch.device import DeviceLike
+from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 from paddlebox_tpu_torch.embedding.pass_table import (PassTable, dedup_ids,
                                                       dedup_uids_sorted,
                                                       pos_for_rebuild,
                                                       segment_offsets,
                                                       sorted_member,
                                                       uniq_count)
+from paddlebox_tpu_torch.embedding.ps_store import PSBackedStore
 from paddlebox_tpu_torch.native import host_lib
 from paddlebox_tpu_torch.obs import log as obs_log
 from paddlebox_tpu_torch.obs.tracer import record_span
@@ -403,13 +415,18 @@ class ShardedPassTable:
                  device: DeviceLike = None,
                  pass_flags: Optional[PassFlags] = None,
                  shard_flags: Optional[ShardFlags] = None, store=None,
-                 embed_dtype: str = "float32") -> None:
+                 embed_dtype: str = "float32", store_factory=None,
+                 host_ranks: int = 1) -> None:
         """``owned_shards``: the one shard this process hosts (None: [0],
         for a table of one shard). ``policy``: the key -> shard rule
         (default: resolve_sharding_policy over ``shard_flags``).
-        ``store``: the owned shard's host store (default: the native
-        store, seeded seed + shard). ``device``: the shard slab's device
-        (the card unless the caller asks for the CPU)."""
+        ``store``: the owned shard's host store, or ``store_factory``
+        (layout, table, seed) -> store makes it (embedding/ps_store.py
+        ps_store_factory puts the CPU PS behind the shard); default the
+        native store. Each is seeded seed + shard. ``host_ranks``: the
+        ranks on this process's host, which share the host's SSD budget
+        (ShardMesh.chips). ``device``: the shard slab's device (the card
+        unless the caller asks for the CPU)."""
         self.shard_flags = shard_flags or ShardFlags()
         self.policy = policy or resolve_sharding_policy(
             num_shards, flags=self.shard_flags)
@@ -438,12 +455,23 @@ class ShardedPassTable:
         self.num_shards = int(num_shards)
         self.bucket_cap = int(bucket_cap)
         self.shard_cap = table.pass_capacity // num_shards
+        if store is not None and store_factory is not None:
+            raise ValueError("pass store or store_factory, not both")
+        if store_factory is not None:
+            store = store_factory(
+                ValueLayout(table.embedx_dim, table.optimizer.optimizer,
+                            expand_dim=table.expand_embed_dim),
+                table, seed + self.rank)
         # the owned shard: a single-device table of shard_cap rows over the
         # shard's keys, its store seeded as the reference's shard store
         self.shard = PassTable(
             dataclasses.replace(table, pass_capacity=self.shard_cap),
             seed=seed + self.rank, device=device, flags=pass_flags,
             store=store, embed_dtype=embed_dtype)
+        # the reference divides the budget over a process's owned shards
+        # (:1075); the port's process is a rank, so the host's budget
+        # divides over the host's ranks
+        self.shard.budget_split = max(1, int(host_ranks))
         self.layout = self.shard.layout
         self.push_layout = self.shard.push_layout
         self.stores = [self.shard.store if s == self.rank else None
@@ -574,7 +602,54 @@ class ShardedPassTable:
     write_back_addressable = end_pass_write_back = end_pass
 
     def check_need_limit_mem(self) -> int:
+        """The owned shard's pass-end spill (reference :1066-1101): its
+        store keeps the host's budget divided by the host's ranks, or a
+        table-wide store (PS-backed) the whole budget through its
+        primary; a spill on a store with no journal sink taints an
+        attached journal. Returns the rows spilled."""
         return self.shard.check_need_limit_mem()
+
+    def load_ssd_to_mem(self) -> int:
+        """LoadSSD2Mem over the owned shard (box_wrapper.cc:1319, reference
+        :1147-1151): its SSD tier's rows back into its host store, the
+        residency dropped. Returns the rows moved (0 for a store without
+        a tier of its own)."""
+        return self.shard.load_ssd_to_mem()
+
+    # the owned shard's tier, as the reference's checkpoint view reads its
+    # owned shards' (:1222-1270); a store without a tier answers empty
+    def spilled_snapshot(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(keys, rows) of the owned shard's SSD tier, at their effective
+        values."""
+        snap = getattr(self.shard.store, "spilled_snapshot", None)
+        if snap is None:
+            return (np.empty(0, np.uint64),
+                    np.empty((0, self.layout.width), np.float32))
+        with self.store_lock:
+            return snap()
+
+    def spilled_count(self) -> int:
+        probe = getattr(self.shard.store, "spilled_count", None)
+        if probe is None:
+            return 0
+        with self.store_lock:
+            return int(probe())
+
+    def spilled_keys(self) -> np.ndarray:
+        """Every live tier key of the owned shard (save_base's anchor)."""
+        fn = getattr(self.shard.store, "spilled_keys", None)
+        if fn is None:
+            return np.empty(0, np.uint64)
+        with self.store_lock:
+            return fn()
+
+    def rebase_spill_ages(self) -> None:
+        """Pin the owned shard tier's lazy-aging span (the full save's
+        anchor; SpillTier.rebase)."""
+        fn = getattr(self.shard.store, "rebase_spill_ages", None)
+        if fn is not None:
+            with self.store_lock:
+                fn()
 
     def invalidate_residency(self) -> None:
         self.shard.invalidate_residency()
@@ -660,12 +735,16 @@ class ShardedPassTable:
         where the key-mod policy routes every key to the one shard, it is
         the owned shard's store itself (CheckpointManager drops the
         table's residency at each stat rewrite and load); above world 1
-        it raises the reference's TypeError."""
+        it raises the reference's TypeError, and so it does over a
+        PS-backed shard, which checkpoints on the server."""
         if self.num_shards != 1:
             raise TypeError(
                 "store_view needs every shard local (single process); "
                 "multi-process jobs checkpoint per owned shard via "
                 "table.save()")
+        if isinstance(self.shard.store, PSBackedStore):
+            raise TypeError("PS-backed shards checkpoint server-side "
+                            "(PSClient.save), not through store_view")
         return self.shard.store
 
     @property

@@ -113,9 +113,14 @@ rank's reports to rank 0 over the fleet's KV store, where the merged
 cluster record and the health plane's record (obs/health.py) go to the
 sink; at world 1 ``aggregator`` is None, as in the reference.
 
-Refused, with NotImplementedError naming the ROADMAP.md item, as the
-reference refuses what it does not do: a store_factory (the CPU PS).
-sparse_chunk_sync and async dense raise ValueError as in the reference.
+A ``store_factory`` puts another store behind the owned shard:
+embedding/ps_store.py ps_store_factory(client, table_id,
+process_primary=(rank == 0)) fronts the CPU PS (train/factory.py's
+PSGPUTrainer), whose rows the shard fetches at begin_pass and writes back
+at end_pass, with no preload prefetch (the store has no lookup_present).
+The SSD budget (TableConfig.ssd_dir, ssd_threshold_mb) divides over the
+ranks on a host (ShardMesh.chips). sparse_chunk_sync and async dense
+raise ValueError as in the reference.
 The bf16 slab (DtypeFlags.slab_embed_dtype) is the shard's, as the
 single-device table's: the pull decodes, the push decodes and encodes in
 its kernel.
@@ -181,8 +186,6 @@ from paddlebox_tpu_torch.train.trainer import (STAGER_GRACE_S, BatchOutputs,
 from paddlebox_tpu_torch.utils.profiler import timer_report
 from paddlebox_tpu_torch.utils.timer import Timer
 
-# the ROADMAP.md A10 item that ports what the trainer refuses
-TODO_PS = "ROADMAP.md A10: the CPU PS (ps/*, embedding/ps_store.py)"
 # ZeRO-1's Adam (reference sharded_trainer.py:525-531)
 ZERO_B1, ZERO_B2, ZERO_EPS = 0.9, 0.999, 1e-8
 
@@ -222,7 +225,8 @@ class ShardedBoxTrainer(BatchOutputs):
         fleet.init_distributed(device), which joins the process group).
         ``device``: the rank's device, the card unless the caller asks for
         the CPU. ``bucket_cap``: KB, default max(16, 2 * key_capacity //
-        P). ``store``: the owned shard's host store (default the native
+        P). ``store``: the owned shard's host store, or ``store_factory``
+        (layout, table, seed) -> store makes it (default the native
         one)."""
         self.cfg = trainer_cfg or TrainerConfig()
         cfg = self.cfg
@@ -245,8 +249,6 @@ class ShardedBoxTrainer(BatchOutputs):
         if self.sharding_mode and cfg.dense_optimizer != "adam":
             raise ValueError("ZeRO-1 sharding implements adam only; got "
                              "dense_optimizer=" + cfg.dense_optimizer)
-        if store_factory is not None:
-            raise NotImplementedError("store_factory (%s)" % TODO_PS)
         self.dtype_flags = dtype_flags or DtypeFlags()
         self.stage_flags = stage_flags or StageFlags()
         self.push_flags = push_flags or PushFlags()
@@ -295,7 +297,8 @@ class ShardedBoxTrainer(BatchOutputs):
             table_cfg, self.P, self.bucket_cap, seed=seed,
             owned_shards=[self.rank], policy=self.policy, device=self.device,
             pass_flags=pass_flags, shard_flags=self.shard_flags, store=store,
-            embed_dtype=self.dtype_flags.slab_embed_dtype)
+            embed_dtype=self.dtype_flags.slab_embed_dtype,
+            store_factory=store_factory, host_ranks=self.mesh.chips)
         self.layout = self.table.layout
         self.use_expand = uses_expand(model)
         check_expand_config(model, self.layout, self.use_expand)

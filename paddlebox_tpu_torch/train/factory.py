@@ -8,10 +8,13 @@ name, so a TrainerDesc written for the reference names its trainer here;
 
 BoxPSTrainer, MultiTrainer and DistMultiTrainer are the port's BoxTrainer;
 ShardedBoxTrainer is parallel/sharded_trainer.py's (one process a GPU).
-The other multi-device and parameter-server trainers (the PS, heter,
-Downpour, pipeline and mesh-tower ones) belong to ROADMAP.md A10: their
-names raise NotImplementedError saying so. An unknown name raises
-KeyError. ``register_trainer`` adds or overrides a name.
+The parameter-server trainers: PSGPUTrainer is the sharded trainer with
+its owned shard's store on the CPU PS (``ps_client=``, ``ps_table_id=``;
+embedding/ps_store.py), DownpourTrainer is ps/worker.py's. The other
+multi-device trainers (the heter, pipeline and mesh-tower ones) belong to
+ROADMAP.md A10: their names raise NotImplementedError saying so. An
+unknown name raises KeyError. ``register_trainer`` adds or overrides a
+name.
 """
 
 from __future__ import annotations
@@ -20,19 +23,42 @@ from typing import Any, Callable, Dict, Optional
 
 _REGISTRY: Dict[str, Callable] = {}
 
-# the reference's names whose trainers are multi-device or parameter-server
-# ones (reference factory.py:54-96)
-A10_TRAINERS = ("HeterXpuTrainer", "PSGPUTrainer",
-                "HeterTrainer", "HeterCpuWorker", "DownpourTrainer",
+# the reference's names whose multi-device trainers are not ported yet
+# (reference factory.py:54-96)
+A10_TRAINERS = ("HeterXpuTrainer",
+                "HeterTrainer", "HeterCpuWorker",
                 "PipelineTrainer", "CtrPipelineTrainer",
                 "HeterPipelineTrainer", "ShardedCtrPipelineTrainer",
                 "SectionPSTrainer", "MeshTowerTrainer")
 BOX_TRAINERS = ("BoxPSTrainer", "MultiTrainer", "DistMultiTrainer")
 SHARDED_TRAINERS = ("ShardedBoxTrainer",)
+PS_TRAINERS = ("PSGPUTrainer", "DownpourTrainer")
 
 
 def register_trainer(name: str, ctor: Callable) -> None:
     _REGISTRY[name] = ctor
+
+
+def _psgpu_trainer(*args, ps_client=None, ps_table_id=0, **kwargs):
+    """PSGPUTrainer (reference factory.py:26-38): the sharded trainer with
+    its owned shard's store on the CPU PS's sparse table ``ps_table_id``
+    (the BuildPull / EndPass composition, ps_gpu_wrapper.cc:337-760).
+    Every rank makes one store, and the store of rank 0 alone is the
+    primary (process_primary=(rank == 0)), so that a table-wide operation
+    reaches the server once a job."""
+    from paddlebox_tpu_torch.embedding.ps_store import ps_store_factory
+    from paddlebox_tpu_torch.parallel.sharded_trainer import \
+        ShardedBoxTrainer
+    if ps_client is None:
+        raise ValueError("PSGPUTrainer needs ps_client= (a PS client whose "
+                         "sparse table backs the pass slabs)")
+    # process_primary=(rank == 0), decided here: the rank is the trainer's
+    # mesh position, known once it joined the mesh, so the factory makes
+    # the store secondary and rank 0's is promoted
+    trainer = ShardedBoxTrainer(*args, store_factory=ps_store_factory(
+        ps_client, ps_table_id, process_primary=False), **kwargs)
+    trainer.table.shard.store.primary = trainer.rank == 0
+    return trainer
 
 
 def _builtin(name: str) -> Optional[Callable]:
@@ -43,6 +69,11 @@ def _builtin(name: str) -> Optional[Callable]:
         from paddlebox_tpu_torch.parallel.sharded_trainer import \
             ShardedBoxTrainer
         return ShardedBoxTrainer
+    if name == "PSGPUTrainer":
+        return _psgpu_trainer
+    if name == "DownpourTrainer":
+        from paddlebox_tpu_torch.ps.worker import DownpourTrainer
+        return DownpourTrainer
     if name in A10_TRAINERS:
         raise NotImplementedError(
             "trainer %r is multi-device or parameter-server work, not "

@@ -532,14 +532,22 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
 
 def build_seq_trainer(files: List[str], feed: DataFeedConfig,
                       cfg: Flagship = FLAGSHIP_BST,
-                      device: DeviceLike = None, seed: int = 0
+                      device: DeviceLike = None, seed: int = 0,
+                      group=None, attn: str = "ring"
                       ) -> Tuple[SeqCtrTrainer, BoxDataset]:
     """(SeqCtrTrainer with an 'auc' metric, dataset over ``files``) of a
     sequence configuration: ``build_model``'s BstSeqCtr with history slot
-    SEQ_SLOT, dense Adam at DENSE_LR, on the native host tier."""
-    trainer = SeqCtrTrainer(build_model(cfg, seed), cfg.table(), feed,
+    SEQ_SLOT and attention ``attn``, dense Adam at DENSE_LR, on the native
+    host tier; ``group``: the trainer's sp process group (None: one
+    shard, no group)."""
+    if attn not in ("ring", "ulysses"):
+        raise ValueError("attn must be ring|ulysses, got %r" % (attn,))
+    model = build_model(cfg, seed)
+    model.attn = attn
+    trainer = SeqCtrTrainer(model, cfg.table(), feed,
                             TrainerConfig(dense_lr=DENSE_LR),
-                            seq_slot=SEQ_SLOT, seed=seed, device=device)
+                            seq_slot=SEQ_SLOT, seed=seed, device=device,
+                            group=group)
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
     ds = BoxDataset(feed)
     ds.set_filelist(files)
@@ -553,7 +561,8 @@ def build_sharded_trainer(files: List[str], feed: DataFeedConfig,
                           stage_flags: Optional[StageFlags] = None,
                           metric: Optional[dict] = None,
                           shard_flags: Optional[ShardFlags] = None,
-                          shuffler=None, **trainer_fields):
+                          shuffler=None, ps_client=None, ps_table_id: int = 0,
+                          **trainer_fields):
     """(parallel/sharded_trainer.py ShardedBoxTrainer with an 'auc' metric,
     dataset over this rank's files: ``files``' i % world == rank) of a
     configuration: ``build_model``'s weights from ``seed`` (every rank
@@ -564,17 +573,20 @@ def build_sharded_trainer(files: List[str], feed: DataFeedConfig,
     ``stage_flags`` and ``shard_flags`` (the sharding policy) go to the
     trainer; ``shuffler`` (Fleet.make_shuffler's) to the dataset;
     ``metric``: the 'auc' metric's init_metric keywords besides its table
-    size."""
-    from paddlebox_tpu_torch.parallel.sharded_trainer import \
-        ShardedBoxTrainer
-    trainer = ShardedBoxTrainer(
+    size; ``ps_client``: the trainer is train/factory.py's PSGPUTrainer,
+    its shard store on that PS client's sparse table ``ps_table_id``."""
+    from paddlebox_tpu_torch.train.factory import create_trainer
+    ps = ({} if ps_client is None
+          else dict(ps_client=ps_client, ps_table_id=ps_table_id))
+    trainer = create_trainer(
+        "PSGPUTrainer" if ps else "ShardedBoxTrainer",
         build_model(cfg, seed), cfg.table(), feed,
         TrainerConfig(dense_lr=DENSE_LR, compute_dtype=cfg.compute_dtype,
                       dense_optimizer=cfg.dense_optimizer, **trainer_fields),
         seed=seed, fleet=fleet, device=device, mesh=mesh,
         push_flags=push_flags, stage_flags=stage_flags,
         shard_flags=shard_flags,
-        dtype_flags=DtypeFlags(cfg.slab_embed_dtype, cfg.matmul_dtype))
+        dtype_flags=DtypeFlags(cfg.slab_embed_dtype, cfg.matmul_dtype), **ps)
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20,
                                 **(metric or {}))
     ds = BoxDataset(feed, shuffler=shuffler)

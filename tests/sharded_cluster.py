@@ -19,6 +19,7 @@ carry: the model, TrainerConfig fields, the write, the wire, the slab, a
 to load before or save after).
 """
 
+import dataclasses
 import functools
 import os
 import pickle
@@ -43,7 +44,6 @@ from paddlebox_tpu_torch.fleet.role_maker import RoleMaker
 from paddlebox_tpu_torch.models.base import ModelSpec
 from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.parallel.mesh import device_mesh_2d
-from paddlebox_tpu_torch.parallel.sharded_trainer import ShardedBoxTrainer
 
 D = 4
 E = 8                   # the expand block's width
@@ -204,7 +204,8 @@ def jax_model(model_name):
 
 def jax_reference(files, pfeed, P, predict=False, model_name="deepfm",
                   slab="float32", fields=None, flags=None, mesh2d=None,
-                  passes=2, metric=None, save=None):
+                  passes=2, metric=None, save=None, table=None,
+                  store_factory=None, day=False):
     """The JAX ShardedBoxTrainer on device_mesh_1d(P), or
     device_mesh_2d(*mesh2d): ``passes`` passes over all files (worker r
     takes the r-th contiguous run), each pass's loss and AUC (and the
@@ -212,7 +213,12 @@ def jax_reference(files, pfeed, P, predict=False, model_name="deepfm",
     optimizer state, with ``predict`` predict_batches' preds after them.
     ``fields``: TrainerConfig fields besides dense_lr and scan_chunk=1;
     ``flags``: the reference's flags for the run; ``metric``: init_metric
-    keywords; ``save``: a prefix the table saves its shards at."""
+    keywords; ``save``: a prefix the table saves its shards at;
+    ``table``: TableConfig fields (the SSD tier's), the shards' tier
+    sizes after each pass kept (``tier``); ``store_factory``: the shards'
+    store (the reference's ps_store_factory; no store is read back);
+    ``day``: end_day(age=True) after the passes, then the stores
+    (``day_stores``) and LoadSSD2Mem's count and stores."""
     import jax
     from paddlebox_tpu.config import flags as jflags
     from paddlebox_tpu.config.configs import TrainerConfig as JTC
@@ -234,16 +240,17 @@ def jax_reference(files, pfeed, P, predict=False, model_name="deepfm",
         patch.setattr(jopt, "_fresh_uniform", hash_fresh(D))
     try:
         mesh = jmesh_2d(*mesh2d) if mesh2d else device_mesh_1d(P)
-        jt = JSharded(jax_model(model_name),
-                      jax_table_cfg(expand=E if model_name == "expand"
-                                    else 0), jfeed,
+        jtable = dataclasses.replace(
+            jax_table_cfg(expand=E if model_name == "expand" else 0),
+            **(table or {}))
+        jt = JSharded(jax_model(model_name), jtable, jfeed,
                       JTC(dense_lr=LR, scan_chunk=1, **(fields or {})),
-                      mesh=mesh, seed=0)
+                      mesh=mesh, seed=0, store_factory=store_factory)
         # (k_step holds P equal replicas: merged is their mean, exact)
         params0 = jax_numpy(jt.merged_params())
         jt.metrics.init_metric("auc", "label", "pred", table_size=1 << 14,
                                **(metric or {}))
-        out_passes, msgs = [], []
+        out_passes, msgs, tier = [], [], []
         for _ in range(passes):
             ds = JDataset(jfeed, read_threads=1)
             ds.set_filelist(files)
@@ -251,15 +258,26 @@ def jax_reference(files, pfeed, P, predict=False, model_name="deepfm",
             msg = jt.metrics.get_metric_msg("auc")
             msgs.append(dict(msg))
             out_passes.append((r["loss"], msg["auc"], r["batches"]))
-        stores = []
-        for st in jt.table.stores:
-            k, v = st.state_items()
-            o = np.argsort(k)
-            stores.append((k[o], v[o]))
+            if store_factory is None:
+                tier.append([st.spilled_count() for st in jt.table.stores])
+        stores = ([] if store_factory is not None
+                  else [union_store(st) for st in jt.table.stores])
         out = {"params0": params0, "passes": out_passes, "msgs": msgs,
                "stores": stores, "params": jax_numpy(jt.merged_params()),
                "opt_state": jax.tree.map(np.asarray, jt.opt_state),
-               "policy": jt.table.policy.describe()}
+               "policy": jt.table.policy.describe(), "tier": tier,
+               "pass_keys": [np.asarray(k)
+                             for k in jt.table._shard_keys or ()]}
+        if save:
+            jt.table.save(save)
+            out["saved"] = [union_store(st) for st in jt.table.stores]
+        if day:
+            out["shrunk"] = jt.table.end_day(age=True)
+            out["day_stores"] = [union_store(st) for st in jt.table.stores]
+            out["day_spilled"] = [st.spilled_count()
+                                  for st in jt.table.stores]
+            out["ssd_loaded"] = jt.table.load_ssd_to_mem()
+            out["after_load"] = [union_store(st) for st in jt.table.stores]
         frozen = getattr(jt.table.policy, "hot_keys_frozen", None)
         if frozen is not None:
             out["hot_keys"] = np.asarray(frozen())
@@ -267,8 +285,6 @@ def jax_reference(files, pfeed, P, predict=False, model_name="deepfm",
             ds = JDataset(jfeed, read_threads=1)
             ds.set_filelist(files)
             out["predict"] = jt.predict_batches(ds)
-        if save:
-            jt.table.save(save)
         jt.close()
     finally:
         for k, v in old.items():
@@ -288,19 +304,29 @@ def jax_numpy(params):
 def build_run(run, spec, fl, rank, mesh=None):
     """A fresh ShardedBoxTrainer of one run dict: ``model`` (deepfm,
     ctr_dnn or expand), ``cfg`` (TrainerConfig fields; scan_chunk 1 by
-    default), ``push`` and ``push_rows`` (push_write and its block
-    rows), ``stage`` (StageFlags fields), ``shard`` (ShardFlags fields;
-    ``shard_rank`` {rank: fields} on top),
+    default), ``table`` (TableConfig fields: the SSD tier's), ``ps`` (the
+    port and table id of a PSServer: the trainer is PSGPUTrainer over a
+    TcpPSClient, ``t.ps_client``), ``push`` and ``push_rows``
+    (push_write and its block rows), ``stage`` (StageFlags fields),
+    ``shard`` (ShardFlags fields; ``shard_rank`` {rank: fields} on top),
     ``slab``, ``metric`` (init_metric keywords), its push seeds
     spec["seeds"][run["seeds"] or the model][rank]."""
+    from paddlebox_tpu_torch.train import factory
     model = run.get("model", "deepfm")
     fields = dict(run.get("cfg", {}))
     fields.setdefault("scan_chunk", 1)
-    t = ShardedBoxTrainer(
-        port_model(spec["params0"][model], model),
-        table_cfg(E if model == "expand" else 0), spec["feed"],
-        TrainerConfig(dense_lr=LR, **fields), seed=0, fleet=fl,
-        device="cpu", mesh=mesh,
+    table = dataclasses.replace(table_cfg(E if model == "expand" else 0),
+                                **run.get("table", {}))
+    name, kw, client = "ShardedBoxTrainer", {}, None
+    if run.get("ps"):
+        from paddlebox_tpu_torch.ps import TcpPSClient
+        client = TcpPSClient("127.0.0.1", run["ps"][0])
+        name, kw = "PSGPUTrainer", dict(ps_client=client,
+                                        ps_table_id=run["ps"][1])
+    t = factory.create_trainer(
+        name, port_model(spec["params0"][model], model), table,
+        spec["feed"], TrainerConfig(dense_lr=LR, **fields), seed=0, fleet=fl,
+        device="cpu", mesh=mesh, **kw,
         push_flags=PushFlags(run.get("push", "auto"),
                              run.get("push_rows", 1024)),
         stage_flags=StageFlags(**run.get("stage", {})),
@@ -311,7 +337,64 @@ def build_run(run, spec, fl, rank, mesh=None):
     t.metrics.init_metric("auc", "label", "pred", table_size=1 << 14,
                           **run.get("metric", {}))
     t.seed_fn = iter(spec["seeds"][run.get("seeds", model)][rank]).__next__
+    t.ps_client = client
     return t
+
+
+def union_store(store):
+    """(keys, rows) of a store's resident and SSD-tier rows (the tier's at
+    their effective values), sorted by key."""
+    k, v = store.state_items()
+    snap = getattr(store, "spilled_snapshot", None)
+    if snap is not None:
+        sk, sv = snap()
+        k, v = np.concatenate([k, sk]), np.vstack([v, sv])
+    o = np.argsort(k)
+    return k[o], v[o]
+
+
+TIER_STATS = ("sparse_keys_spilled", "sparse_keys_faulted_in",
+              "ps_rows_spilled")
+
+
+def tier_day(t, fl, rank, run):
+    """The day after a run's passes (``day``: end_day(age=True) on every
+    rank between two barriers; over the PS, rank 0 reads 32 of its shard's
+    keys from the server before and after), then with ``load_ssd`` the
+    owned shard's LoadSSD2Mem, and with ``save_tier`` the shard's save
+    at that prefix. Returns the record."""
+    out = {}
+    ps = t.ps_client
+    probe = None
+    if ps is not None and rank == 0:
+        # the shard's 32 hottest keys: resident on the server, where the
+        # shrink's decay reaches them (the tier's sweep reads unseen days
+        # only)
+        keys = np.sort(t.table.shard_keys(0))
+        rows = ps.pull_sparse(run["ps"][1], keys, create=False)
+        probe = keys[np.argsort(-rows[:, acc.SHOW], kind="stable")[:32]]
+        out["probe_before"] = ps.pull_sparse(run["ps"][1], probe,
+                                             create=False)
+    if run.get("save_tier"):
+        t.table.save(run["save_tier"])
+        out["saved_union"] = union_store(t.table.stores[rank])
+    fl.barrier_worker()
+    if run.get("day"):
+        out["shrunk"] = t.table.end_day(age=True)
+    fl.barrier_worker()
+    if probe is not None:
+        out["probe_keys"] = probe
+        out["probe_after"] = ps.pull_sparse(run["ps"][1], probe,
+                                            create=False)
+    if ps is None:
+        out["day_union"] = union_store(t.table.stores[rank])
+        out["day_spilled"] = t.table.spilled_count()
+    if run.get("load_ssd"):
+        out["ssd_loaded"] = t.table.load_ssd_to_mem()
+        out["after_load"] = union_store(t.table.stores[rank])
+        out["after_load_spilled"] = t.table.spilled_count()
+        out["after_load_resident"] = len(t.table.stores[rank])
+    return out
 
 
 def rank_files(spec, run, rank, world):
@@ -368,7 +451,9 @@ def _run_rank(rank, world, port, spec):
                 o = np.argsort(k)
                 loaded = (k[o], v[o])
             files = rank_files(spec, run, rank, world)
-            passes, msgs, instances = [], [], []
+            passes, msgs, instances, tier = [], [], [], []
+            from paddlebox_tpu_torch.utils.stats import stat_get
+            last = {n: stat_get(n) for n in TIER_STATS}
             for _ in range(run.get("passes", 2)):
                 ds = (BoxDataset(spec["feed"], shuffler=shuffler)
                       if shuffler is not None
@@ -380,11 +465,18 @@ def _run_rank(rank, world, port, spec):
                 msgs.append(dict(msg))
                 passes.append((r["loss"], msg["auc"], r["batches"]))
                 instances.append(r["instances"])
-            k, v = t.table.stores[rank].state_items()
-            o = np.argsort(k)
-            res = {"passes": passes, "msgs": msgs, "store": (k[o], v[o]),
+                now = {n: stat_get(n) for n in TIER_STATS}
+                tier.append(dict({n: now[n] - last[n] for n in TIER_STATS},
+                                 spilled=t.table.spilled_count()))
+                last = now
+            store = (None if t.ps_client is not None
+                     else union_store(t.table.stores[rank]))
+            res = {"passes": passes, "msgs": msgs, "store": store,
+                   "tier": tier,
                    "params": t.params, "opt_state": t.opt_state,
-                   "slab_dtype": str(t.table.resident_slab.dtype),
+                   # (a spill drops the residency: no slab is kept)
+                   "slab_dtype": str(getattr(t.table.resident_slab,
+                                             "dtype", None)),
                    "collectives": dict(t.collective_counts),
                    "a2a_bytes": dict(t.a2a_bytes),
                    "d2h_reads": t.d2h_reads,
@@ -405,6 +497,8 @@ def _run_rank(rank, world, port, spec):
                 shuffler.close()
             if run.get("telemetry"):
                 res["telemetry"] = telemetry(t, fl, rank)
+            if run.get("day") or run.get("load_ssd") or run.get("save_tier"):
+                res["day"] = tier_day(t, fl, rank, run)
             if run.get("save"):
                 t.table.save(run["save"])
             if run.get("predict"):
@@ -420,6 +514,8 @@ def _run_rank(rank, world, port, spec):
     finally:
         for t in trainers:
             t.close()
+            if t.ps_client is not None:
+                t.ps_client.close()
         fl.stop()
     return out
 
@@ -471,11 +567,25 @@ def refusals(t):
     return out
 
 
+def join_group(rank, world, port, timeout=GROUP_TIMEOUT_S):
+    """A spawned rank's plain gloo process group over the test's TCPStore
+    (no fleet), ``timeout`` on every collective."""
+    import datetime
+    import torch.distributed as dist
+    td = datetime.timedelta(seconds=timeout)
+    store = dist.TCPStore("127.0.0.1", port, None, is_master=False,
+                          timeout=td)
+    dist.init_process_group("gloo", store=dist.PrefixStore("group", store),
+                            rank=rank, world_size=world, timeout=td)
+
+
 def _rank_main(rank, world, port, spec, out_dir):
+    """A spawned rank: ``spec["fn"](rank, world, port, spec)`` (default
+    _run_rank, the sharded trainer's runs), its result pickled."""
     torch.set_num_threads(1)
     path = os.path.join(out_dir, "rank%d" % rank)
     try:
-        res = _run_rank(rank, world, port, spec)
+        res = spec.get("fn", _run_rank)(rank, world, port, spec)
         with open(path + ".pkl", "wb") as fh:
             pickle.dump(res, fh)
     except BaseException:
@@ -484,10 +594,12 @@ def _rank_main(rank, world, port, spec, out_dir):
         raise
 
 
-def run_cluster(world, spec, out_dir, target=_rank_main):
+def run_cluster(world, spec, out_dir, target=_rank_main, meanwhile=None):
     """Spawn ``world`` ranks around a TCPStore on an ephemeral port; every
     rank must end within CLUSTER_WALL_S, or all are killed and the test
-    fails. Returns the ranks' results in rank order."""
+    fails. Returns the ranks' results in rank order, or with ``meanwhile``
+    (a callable run here while the ranks run, such as the oracle) the pair
+    (results, what it returned)."""
     import torch.distributed as dist
     import torch.multiprocessing as tmp
     store = dist.TCPStore("127.0.0.1", 0, None, is_master=True,
@@ -499,8 +611,13 @@ def run_cluster(world, spec, out_dir, target=_rank_main):
     for p in procs:
         p.start()
     deadline = time.monotonic() + CLUSTER_WALL_S
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
+    side = None
+    try:
+        if meanwhile is not None:
+            side = meanwhile()
+    finally:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
     for p in procs:
         if p.is_alive():
@@ -519,7 +636,7 @@ def run_cluster(world, spec, out_dir, target=_rank_main):
     for r in range(world):
         with open(os.path.join(str(out_dir), "rank%d.pkl" % r), "rb") as fh:
             out.append(pickle.load(fh))
-    return out
+    return out if meanwhile is None else (out, side)
 
 
 def cluster_spec(pfeed, files, P, refs, runs, n_steps):

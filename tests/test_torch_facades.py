@@ -295,10 +295,18 @@ def test_factory_names_resolve_as_the_reference(data):
     ref_names = set(re.findall(r'"([A-Za-z]+Trainer|HeterCpuWorker)"',
                                builtin))
     assert ref_names == (set(factory.A10_TRAINERS) | set(factory.BOX_TRAINERS)
-                         | set(factory.SHARDED_TRAINERS))
+                         | set(factory.SHARDED_TRAINERS)
+                         | set(factory.PS_TRAINERS))
     for name in factory.A10_TRAINERS:
         with pytest.raises(NotImplementedError, match="A10"):
             factory.create_trainer(name)
+    # the PS trainers resolve: PSGPUTrainer wants its client, as the
+    # reference's, and DownpourTrainer is ps/worker.py's
+    for mod in (factory, jfactory):
+        with pytest.raises(ValueError, match="ps_client"):
+            mod.create_trainer("PSGPUTrainer")
+    from paddlebox_tpu_torch.ps.worker import DownpourTrainer
+    assert factory._builtin("DownpourTrainer") is DownpourTrainer
     for mod in (factory, jfactory):
         with pytest.raises(KeyError, match="unknown trainer"):
             mod.create_trainer("NoSuchTrainer")

@@ -53,7 +53,9 @@ def test_import_loads_no_jax_and_no_reference_module():
               "models.bst", "train.dense_optim", "data.streaming",
               "train.streaming_runner", "obs.device", "obs.flight",
               "obs.watchdog", "obs.exporter", "obs.watermark",
-              "profile_pass"):
+              "profile_pass", "ps", "ps.sgd_rule", "ps.table",
+              "ps.service", "ps.worker", "embedding.ps_store",
+              "parallel.tensor_parallel", "parallel.sharded_table"):
         assert "paddlebox_tpu_torch." + m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad

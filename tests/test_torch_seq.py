@@ -51,6 +51,7 @@ from paddlebox_tpu_torch.models.base import ModelSpec
 from paddlebox_tpu_torch.models.bst import BstSeqCtr
 from paddlebox_tpu_torch.parallel import ring_attention as pring
 from paddlebox_tpu_torch.parallel.seq_trainer import SeqCtrTrainer
+from paddlebox_tpu_torch.parallel.tensor_parallel import LOCAL
 from paddlebox_tpu_torch.train.trainer import BoxTrainer
 
 D = 4
@@ -143,15 +144,6 @@ def test_one_shard_attention_matches_reference(name, causal):
         _close(got, want, msg="%s over %d devices" % (name, n))
 
 
-def test_attention_refuses_more_than_one_shard():
-    q, k, v = (torch.from_numpy(x) for x in _qkv(4))
-    for fn in (pring.ring_attention, pring.ulysses_attention):
-        with pytest.raises(NotImplementedError, match="A10"):
-            fn(q, k, v, n_shards=2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        BstSeqCtr(ModelSpec(NUM_SLOTS, 3 + D), seq_len=8, n_shards=2)
-
-
 # -------------------------------------------------------------- the model
 def _bst_pair(attn="ring", seed=3, spec=(NUM_SLOTS, 3 + D), T=SEQ_LEN):
     jm = JBst(JSpec(*spec), seq_len=T, n_shards=1, attn=attn, **BST)
@@ -211,7 +203,8 @@ def test_bst_forward_and_grads_match_oracle(attn):
         if fn == pm.forward:
             _close(logits.detach(), jlocal, msg="seq_feature_local")
     # a row with no valid position pools to zero: its feature is 0
-    feat = pm.seq_feature(torch.from_numpy(emb_seq), torch.from_numpy(valid))
+    feat = pm.seq_feature_local(torch.from_numpy(emb_seq),
+                                torch.from_numpy(valid), LOCAL)
     assert torch.equal(feat[0], torch.zeros_like(feat[0]))
 
 

@@ -415,26 +415,6 @@ def test_world_one_equals_the_single_device_trainer(data):
         fl.stop()
 
 
-REFUSED = [
-    (dict(store_factory=lambda *a: None), "CPU PS"),
-]
-
-
-@pytest.mark.parametrize("kw,item", REFUSED,
-                         ids=[i for i in range(len(REFUSED))])
-def test_refused_modes_name_their_roadmap_item(kw, item, data):
-    _, pfeed = data
-    kw = dict(kw)
-    cfg = kw.pop("cfg", None)
-    table = table_cfg()
-    model = DeepFM(ModelSpec(num_slots=NUM_SLOTS, slot_dim=3 + D),
-                   hidden=HIDDEN)
-    if kw.pop("expand", False):
-        table = dataclasses.replace(table, expand_embed_dim=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10.*" + item):
-        ShardedBoxTrainer(model, table, pfeed, cfg, device="cpu", **kw)
-
-
 @pytest.mark.parametrize("cfg", [TrainerConfig(sparse_chunk_sync=True),
                                  TrainerConfig(sync_mode="async"),
                                  TrainerConfig(async_mode=True)],
