@@ -408,6 +408,30 @@ Phases, each of which raises on a failed check (exit code != 0):
      Downpour's per-batch slab [n_uniq + 1, 17] over a batch's 131,072
      ids, bit-equal to its plain version and index_select, with kernel,
      plain, library and bound times ("sharded25" lines);
+ 26. the stream over the sharded trainer, the model-parallel towers and
+     heter offload, in phase 22's child after phase 25 on a world-1 NCCL
+     fleet of its own: (a) phase 20's stream (its files, poisoned window,
+     window size, base cadence and journal) through StreamingRunner over
+     ShardedBoxTrainer with the main path's seeds, equal to phase 20's
+     stream over BoxTrainer bit for bit (the windows admitted and refused,
+     every micro-pass's digits, the store's and slab's sha256 at every
+     boundary, the launches); (b) create_trainer("MeshTowerTrainer") over
+     an mp group of one at FLAGSHIP's table, feed and batch, TpDeepFM
+     (d_wide 4096, d_mid 128) and EpMMoE (8 experts, d_hidden 64, d_out
+     32), two passes twice: the runs bit-identical (digits and the store's
+     sha256 after each pass), the loss falling, a pull and a push a step
+     (and the promote and write-backs by the table's counters), the first
+     pass within TOWER_LOSS_RTOL and TOWER_AUC_ATOL of the same trainer on
+     the CPU with show and click equal; TpDeepFM's blocked and rebuild
+     passes equal to its scatter pass bit for bit; (c) a HeterDenseService
+     on the card (loopback TCP, an ephemeral port) driven by a
+     HeterTrainer over a PsLocalClient at FLAGSHIP's table, feed, batch
+     and DeepFM, two passes twice: bit-identical (digits, the server's
+     rows and the service's dense parameters by sha256), the loss falling,
+     the first pass within HETER_LOSS_RTOL of the same run with its
+     service on the CPU;
+     (d) gather_rows and push_adagrad at a tower batch bit-equal to their
+     plain versions (the main path's shapes: no new row);
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -4789,6 +4813,9 @@ def stream_phase(torch, files, feed, tmp, reset_counts, counts, cfg=None,
                                          "pass_s", "h2d_counted")}
                       for p in passes_a],
            "launches": launches, "ledger": ledger, "replay_s": replay_s,
+           # phase 26 holds the stream over the sharded trainer to these
+           "bounds": [{k: b[k] for k in ("window", "admitted", "store",
+                                         "slab")} for b in bounds_a],
            "transfers": kinds, "run_on": {k: v for k, v in run_a.items()
                                           if k != "passes"},
            "run_off": {k: v for k, v in run_c.items() if k != "passes"},
@@ -5200,7 +5227,7 @@ SHARDED_LAUNCHES = {"push_adagrad": 32, "gather_rows": 35,
 # its bf16 leg's (FLAGSHIP_BF16): the 2-byte forms, as phase 12's
 SHARDED_BF16_LAUNCHES = {"push_adagrad_bf16": 32, "gather_rows_decode": 32,
                          "gather_rows_2byte": 3}
-SHARDED_CHILD_S = 720.0       # the child's wall limit (phases 22-25)
+SHARDED_CHILD_S = 720.0       # the child's wall limit (phases 22-26)
 SHARDED_GROUP_S = 120.0       # its process groups' timeout
 SHARDED_SEED = 0              # the main path's trainer seed
 
@@ -5440,6 +5467,9 @@ def sharded_run(torch, files, feed, out_path, windows, bst_files, bst_feed):
     out["phase25"] = phase25_child(torch, files, feed, windows, bst_files,
                                    bst_feed, store,
                                    os.path.dirname(out_path), want_rows)
+    # 26. the stream over the shard, the model-parallel towers and heter
+    out["phase26"] = phase26_child(torch, files, feed, windows, store,
+                                   os.path.dirname(out_path))
     return out
 
 
@@ -6771,6 +6801,441 @@ def phase25_report(res, p22, tier):
     log("sharded25 phase seconds in the child: %.3f" % res["child_s"])
 
 
+# phase 26: the stream over the sharded trainer, the model-parallel towers
+# (MeshTowerTrainer over TpDeepFM and EpMMoE) and heter offload, at world 1
+# over NCCL in phase 22's child after phase 25, on a fleet of its own
+# the towers at the JAX package's default widths (models/wide_tower.py)
+TOWER_WIDTHS = {"tp_deepfm": dict(d_wide=4096, d_mid=128),
+                "ep_mmoe": dict(n_experts=8, d_hidden=64, d_out=32)}
+# the card's first tower pass against the same trainer's on the CPU (the
+# plain versions): relative on the loss, absolute on the AUC
+TOWER_LOSS_RTOL = 1e-4
+TOWER_AUC_ATOL = 1e-3
+# heter with its service on the card against its service on the CPU: the
+# first pass's loss, relative (as the towers' first pass). The second pass
+# is printed, not held: the CPU's float32 matmuls round otherwise than the
+# card's, and heter's loop carries that into its later steps (2.3e-3 apart
+# after two passes on an H100, PERF.md section 6)
+HETER_LOSS_RTOL = 1e-4
+
+
+def phase26_stream(torch, files, feed, fl, tmp):
+    """(a) Phase 20's stream (its eight files and poisoned window, its
+    window, base cadence and journal) through StreamingRunner over
+    ShardedBoxTrainer on the world-1 fleet, the main path's seeds: the
+    windows' sequence, each admitted micro-pass's digits and wall, the
+    store's and slab's sha256 at every boundary (before its save), the
+    launches."""
+    from paddlebox_tpu_torch.config.flags import StreamFlags
+    from paddlebox_tpu_torch.data.streaming import StreamingDataset
+    from paddlebox_tpu_torch.train import StreamingRunner, flagship
+
+    root = os.path.join(tmp, "stream26")
+    watch = os.path.join(root, "watch")
+    write_stream(files, feed, watch)
+    trainer, _ = flagship.build_sharded_trainer([], feed, flagship.FLAGSHIP,
+                                                fleet=fl, seed=SHARDED_SEED)
+    trainer.seed_fn = main_path_seeds(torch)
+    sf = StreamFlags(streaming_poll_secs=0.02)
+    runner = StreamingRunner(
+        trainer, StreamingDataset(feed, watch, ledger_dir=root,
+                                  micro_pass_instances=STREAM_WINDOW,
+                                  flags=sf),
+        cm=stream_cm(trainer, root), base_every=STREAM_BASE_EVERY, flags=sf)
+    bounds, passes = [], []
+    inner_pass, inner_boundary = trainer.train_pass, runner._boundary
+
+    def train_pass(ds, preloaded=False):
+        t0 = time.perf_counter()
+        res = inner_pass(ds, preloaded=preloaded)
+        torch.cuda.synchronize()
+        passes.append({"loss": res["loss"],
+                       "auc": trainer.metrics.get_metric_msg("auc")["auc"],
+                       "batches": res["batches"],
+                       "pass_s": time.perf_counter() - t0})
+        return res
+
+    def boundary(win, admitted):
+        bounds.append({"window": win.index, "admitted": admitted,
+                       "store": shard_store_sha(trainer),
+                       "slab": slab_sha_or_none(trainer.table)})
+        inner_boundary(win, admitted)
+
+    trainer.train_pass, runner._boundary = train_pass, boundary
+    try:
+        reset_counts()
+        run = runner.run(idle_timeout=0.5)
+        launches = counts()
+    finally:
+        del trainer.train_pass
+        trainer.close()
+    return {"sequence": [(p["window"], p["admitted"], p["instances"])
+                         for p in run["passes"]],
+            "passes": passes, "bounds": bounds, "launches": launches,
+            "wall_s": run["wall_secs"]}
+
+
+def phase26_tower(torch, files, feed, name, group, device="cuda", passes=2,
+                  push="scatter"):
+    """(b) create_trainer("MeshTowerTrainer") with the zoo's ``name`` at
+    TOWER_WIDTHS over the mp group ``group`` (None: one process alone), at
+    FLAGSHIP's table, feed and batch, on ``device`` with the write
+    ``push``: ``passes`` passes over the main path's files, each pass's
+    digits, wall, phases, table counters and the store's sha256 (and of
+    its keys with the show and click columns). Returns (the record, the
+    trainer)."""
+    import hashlib
+
+    import numpy as np
+
+    from paddlebox_tpu_torch.config.configs import TrainerConfig
+    from paddlebox_tpu_torch.config.flags import PushFlags
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    from paddlebox_tpu_torch.models import MODEL_ZOO
+    from paddlebox_tpu_torch.models.base import ModelSpec
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.train.factory import create_trainer
+
+    cfg = flagship.FLAGSHIP
+    model = MODEL_ZOO[name](ModelSpec(cfg.num_slots, 3 + cfg.embedx),
+                            n_shards=1, **TOWER_WIDTHS[name])
+    trainer = create_trainer(
+        "MeshTowerTrainer", model, cfg.table(), feed,
+        TrainerConfig(dense_lr=flagship.DENSE_LR), group=group,
+        seed=SHARDED_SEED, device=device,
+        push_flags=PushFlags(push, flagship.BLOCK_ROWS))
+    trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
+    check(trainer.push_write == push and trainer.P == 1
+          and str(trainer.device).startswith(device),
+          "phase 26 tower %s: write %s, P %d, device %s"
+          % (name, trainer.push_write, trainer.P, trainer.device))
+    reset_counts()
+    out = []
+    for i in range(passes):
+        ds = BoxDataset(feed)
+        ds.set_filelist(files)
+        before = dict(trainer.table.counters)
+        t0 = time.perf_counter()
+        res = trainer.train_pass(ds)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k, v = sorted_store(trainer.table)
+        out.append({"pass": i, "loss": res["loss"],
+                    "auc": trainer.metrics.get_metric_msg("auc")["auc"],
+                    "batches": res["batches"], "pass_s": secs,
+                    "phase_s": trainer.pass_times,
+                    "counters": counter_delta(before, trainer.table),
+                    "store_sha": sha_of(k, v),
+                    "show_click_sha": hashlib.sha256(
+                        k.tobytes() + np.ascontiguousarray(
+                            v[:, [acc.SHOW, acc.CLICK]]).tobytes()
+                    ).hexdigest()})
+    return ({"name": name, "device": device, "push": push, "passes": out,
+             "launches": counts()}, trainer)
+
+
+def phase26_tower_kernels(torch, trainer, files, feed):
+    """(d) gather_rows and the fused push_adagrad at a tower batch (the
+    first of a fresh pass of ``trainer``'s table over ``files``): the pull
+    of its ids and the push of its step's rows (the tower's forward and
+    backward, nothing applied), each bit-equal to its plain version (both
+    push writes); the shapes."""
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.ops.sparse import build_push_grads
+    from paddlebox_tpu_torch.push_probe import SEED
+    from paddlebox_tpu_torch.train.trainer import masked_bce
+
+    table = trainer.table
+    ds = BoxDataset(feed)
+    ds.set_filelist(files)
+    table.begin_feed_pass()
+    ds.load_into_memory(add_keys_fn=table.add_keys)
+    table.end_feed_pass()
+    table.begin_pass()
+    try:
+        batch = trainer.device_batch(ds.split_batches(1)[0][0])
+        slab, ids = table.slab, batch["ids"]
+        got = rk.gather_rows(slab, ids)
+        torch.cuda.synchronize()
+        want = rk.gather_rows_plain(slab, ids)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+              and torch.equal(got, slab.index_select(0, ids.long())),
+              "gather_rows at the tower batch differs from the plain "
+              "version")
+        err = float((got - want).abs().max())
+        del got, want
+        emb, pooled = trainer._pooled(slab, batch, True)
+        loss, _ = masked_bce(trainer.model.apply_local(
+            trainer.tensors, pooled, trainer.group), batch["labels"],
+            batch["ins_valid"])
+        loss.backward()
+        trainer.dense_opt.zero_grad(set_to_none=True)
+        S = trainer.num_slots
+        seg = batch["segments"]
+        g = build_push_grads(emb.grad, seg % S,
+                             batch["labels"].index_select(0, seg // S),
+                             ids != table.padding_id)
+        u, p, o, n_uniq = (batch["uids"], batch["perm"], batch["offsets"],
+                           batch["n_uniq"])
+        conf, layout = table.config.optimizer, trainer.layout
+        for rows_out in (False, True):
+            s_k, s_p = slab.clone(), slab.clone()
+            r_k = pk.push_adagrad(s_k, g, p, o, u, n_uniq, SEED, layout,
+                                  conf, rows_out)
+            torch.cuda.synchronize()
+            r_p = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n_uniq, SEED,
+                                              layout, conf, rows_out)
+            check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+                  and (not rows_out or torch.equal(r_k.view(torch.int32),
+                                                   r_p.view(torch.int32))),
+                  "push_adagrad (rows_out=%s) at the tower batch differs "
+                  "from the plain version" % rows_out)
+            err = max(err, float((s_k - s_p).abs().max()))
+            del s_k, s_p, r_k, r_p
+        return {"slab": list(slab.shape), "ids": int(ids.numel()),
+                "push_rows": list(g.shape), "n_uniq": int(n_uniq),
+                "occurrences": int(batch["n_valid"]), "max_abs_err": err}
+    finally:
+        table.end_pass()
+
+
+def phase26_heter(torch, files, feed, device):
+    """(c) A HeterDenseService on ``device`` (its FramedServer's threads in
+    this process, loopback TCP on an ephemeral port) with FLAGSHIP's
+    DeepFM, driven by a HeterTrainer over a PsLocalClient at FLAGSHIP's
+    table, feed and batch with sync_comm, two passes: each pass's digits
+    and wall, the launches, a sha256 of the server's rows of every key of
+    the files and of the service's dense parameters."""
+    import hashlib
+
+    import numpy as np
+
+    from paddlebox_tpu_torch.convert import flatten_params
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.fleet.heter import (HeterDenseClient,
+                                                 HeterDenseService,
+                                                 HeterTrainer)
+    from paddlebox_tpu_torch.ps import PsLocalClient
+    from paddlebox_tpu_torch.train import flagship
+
+    cfg = flagship.FLAGSHIP
+    service = HeterDenseService(flagship.build_model(cfg, SHARDED_SEED), feed,
+                                dense_lr=flagship.DENSE_LR, device=device)
+    heter = worker = None
+    try:
+        heter = HeterDenseClient("127.0.0.1", service.port)
+        client = PsLocalClient()
+        worker = HeterTrainer(client, heter, cfg.table(), feed,
+                              seed=SHARDED_SEED, sync_comm=True)
+        worker.metrics.init_metric("auc", "label", "pred",
+                                   table_size=1 << 20)
+        reset_counts()
+        passes = []
+        for i in range(2):
+            ds = BoxDataset(feed)
+            ds.set_filelist(files)
+            t0 = time.perf_counter()
+            res = worker.train_pass(ds)
+            passes.append({"pass": i, "loss": res["loss"],
+                           "auc": worker.metrics.get_metric_msg("auc")[
+                               "auc"],
+                           "batches": res["batches"],
+                           "pass_s": time.perf_counter() - t0})
+        launches = counts()
+        keys = np.unique(ds.all_keys())
+        rows = client.pull_sparse(worker.SPARSE_TABLE, keys, create=False)
+        return {"device": device, "passes": passes, "launches": launches,
+                "keys": int(keys.size),
+                "rows_sha": hashlib.sha256(keys.tobytes()
+                                           + rows.tobytes()).hexdigest(),
+                "dense_sha": hashlib.sha256(
+                    flatten_params(service.model).tobytes()).hexdigest()}
+    finally:
+        if worker is not None:
+            worker.close()
+        if heter is not None:
+            heter.close()
+        service.stop()
+
+
+def phase26_child(torch, files, feed, windows, store, tmp):
+    """Phase 26 in the child, on a world-1 NCCL fleet of its own over the
+    child's TCPStore: the stream over the shard, each tower twice on the
+    card (the first run's trainer then holds the kernels at a tower batch)
+    and its first pass on the CPU, TpDeepFM's blocked and rebuild passes;
+    then heter twice with its service on the card and once on the CPU. Its
+    records and host seconds."""
+    t0 = time.perf_counter()
+    out = {"towers": {}, "writes": {}}
+    fl = phase24_fleet(store, "phase26")
+    try:
+        out["stream"] = phase26_stream(torch, windows[0] + windows[2], feed,
+                                       fl, tmp)
+        group = fl.mesh.group
+        for name in TOWER_WIDTHS:
+            runs = []
+            for i in range(2):
+                rec, trainer = phase26_tower(torch, files, feed, name, group)
+                if name == "tp_deepfm" and i == 0:
+                    out["kernels"] = phase26_tower_kernels(torch, trainer,
+                                                           files, feed)
+                del trainer
+                runs.append(rec)
+            cpu, _ = phase26_tower(torch, files, feed, name, None,
+                                   device="cpu", passes=1)
+            out["towers"][name] = {"runs": runs, "cpu": cpu}
+        for push in ("blocked", "rebuild"):
+            out["writes"][push], _ = phase26_tower(
+                torch, files, feed, "tp_deepfm", group, passes=1, push=push)
+    finally:
+        fl.stop()
+    out["heter"] = [phase26_heter(torch, files, feed, "cuda")
+                    for _ in range(2)]
+    out["heter"].append(phase26_heter(torch, files, feed, "cpu"))
+    out["child_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase26_report(res, main, p20):
+    """Phase 26's checks and lines in the parent, against phase 20's stream
+    ``p20`` and phase 5's passes ``main``."""
+    def launched(c):
+        return json.dumps({k: v for k, v in c.items() if v})
+
+    def digits(passes):
+        return [(p["loss"], p["auc"]) for p in passes]
+
+    # (a) the stream over the shard = phase 20's stream over BoxTrainer
+    st = res["stream"]
+    check(st["sequence"] == [tuple(s) for s in p20["sequence"]]
+          and digits(st["passes"]) == digits(p20["passes"])
+          and st["bounds"] == p20["bounds"]
+          and st["launches"] == p20["launches"],
+          "phase 26 stream over the shard: windows %s, digits %s, "
+          "boundaries %s, launches %s; phase 20's %s, %s, %s, %s"
+          % (st["sequence"], digits(st["passes"]), st["bounds"],
+             st["launches"], p20["sequence"], digits(p20["passes"]),
+             p20["bounds"], p20["launches"]))
+    for p, q, b in zip(st["passes"], p20["passes"],
+                       [b for b in st["bounds"] if b["admitted"]]):
+        log("sharded26 stream micro-pass (ShardedBoxTrainer, world 1): loss "
+            "%.10f auc %.10f = phase 20's; store sha256 %s = phase 20's; "
+            "wall %.4f s (phase 20's %.4f)"
+            % (p["loss"], p["auc"], b["store"], p["pass_s"], q["pass_s"]))
+    log("sharded26 stream: windows %s = phase 20's (the poisoned one "
+        "refused, its boundary's store and slab those before it); "
+        "launches %s = phase 20's; run wall %.3f s"
+        % (st["sequence"], launched(st["launches"]), st["wall_s"]))
+
+    # (b) the towers
+    for name, t in res["towers"].items():
+        a, b = t["runs"]
+        check(digits(a["passes"]) == digits(b["passes"])
+              and [p["store_sha"] for p in a["passes"]]
+              == [p["store_sha"] for p in b["passes"]]
+              and a["launches"] == b["launches"],
+              "phase 26 tower %s: two runs differ: %s / %s" % (
+                  name, digits(a["passes"]), digits(b["passes"])))
+        check(a["passes"][1]["loss"] < a["passes"][0]["loss"],
+              "phase 26 tower %s did not learn: %s" % (name,
+                                                       digits(a["passes"])))
+        steps = sum(p["batches"] for p in a["passes"])
+        extra = sum(gather_launches_of(p["counters"]) for p in a["passes"])
+        check(a["launches"] == f32_launches(push_adagrad=steps,
+                                            gather_rows=steps + extra),
+              "phase 26 tower %s launches %s over %d steps, %d promotes and "
+              "write-backs" % (name, a["launches"], steps, extra))
+        c, g = t["cpu"]["passes"][0], a["passes"][0]
+        rel = abs(g["loss"] / c["loss"] - 1.0)
+        dauc = abs(g["auc"] - c["auc"])
+        check(rel <= TOWER_LOSS_RTOL and dauc <= TOWER_AUC_ATOL
+              and g["show_click_sha"] == c["show_click_sha"],
+              "phase 26 tower %s against its CPU run: loss %r / %r (rel "
+              "%g), AUC %r / %r; show and click %s" % (
+                  name, g["loss"], c["loss"], rel, g["auc"], c["auc"],
+                  g["show_click_sha"] == c["show_click_sha"]))
+        for p in a["passes"]:
+            log("tower26 %s pass %d (MeshTowerTrainer, an mp group of one "
+                "over NCCL): loss %.10f auc %.10f, store sha256 %s, twice; "
+                "wall %.4f s (phase 5's %.4f) phases %s"
+                % (name, p["pass"], p["loss"], p["auc"], p["store_sha"],
+                   p["pass_s"], main[p["pass"]]["pass_s"],
+                   json.dumps(p["phase_s"])))
+        log("tower26 %s: launches %s over %d steps: a pull (gather_rows) "
+            "and a fused push a step, and %d gather_rows at the delta "
+            "promote and the write-backs by the table's counters; the "
+            "card's first pass against the CPU's: loss rel %g (limit %g), "
+            "|dAUC| %g (limit %g), show and click equal; the CPU pass "
+            "%.3f s" % (name, launched(a["launches"]), steps, extra, rel,
+                        TOWER_LOSS_RTOL, dauc, TOWER_AUC_ATOL,
+                        c["pass_s"]))
+    scatter = res["towers"]["tp_deepfm"]["runs"][0]["passes"][0]
+    for push, w in res["writes"].items():
+        p = w["passes"][0]
+        steps = p["batches"]
+        extra = gather_launches_of(p["counters"])
+        want = (f32_launches(push_adagrad=steps, blocked_write=steps,
+                             gather_rows=steps + extra) if push == "blocked"
+                else f32_launches(push_adagrad=steps,
+                                  gather_rows=2 * steps + extra))
+        check((p["loss"], p["auc"], p["store_sha"])
+              == (scatter["loss"], scatter["auc"], scatter["store_sha"])
+              and w["launches"] == want,
+              "phase 26 tp_deepfm %s pass: %s, launches %s; scatter's %s, "
+              "launches wanted %s" % (push, json.dumps(p),
+                                      w["launches"], json.dumps(scatter),
+                                      want))
+        log("tower26 tp_deepfm push_write=%s: loss %.10f auc %.10f and "
+            "store sha256 %s = the scatter pass's; launches %s; wall %.4f s "
+            "(scatter's %.4f)" % (push, p["loss"], p["auc"], p["store_sha"],
+                                  launched(w["launches"]), p["pass_s"],
+                                  scatter["pass_s"]))
+
+    # (c) heter
+    a, b, cpu = res["heter"]
+    check(digits(a["passes"]) == digits(b["passes"])
+          and (a["rows_sha"], a["dense_sha"]) == (b["rows_sha"],
+                                                  b["dense_sha"]),
+          "phase 26 heter: two runs differ: %s / %s" % (
+              json.dumps(a), json.dumps(b)))
+    check(a["passes"][1]["loss"] < a["passes"][0]["loss"],
+          "phase 26 heter did not learn: %s" % digits(a["passes"]))
+    rels = [abs(p["loss"] / q["loss"] - 1.0)
+            for p, q in zip(a["passes"], cpu["passes"])]
+    check(rels[0] <= HETER_LOSS_RTOL,
+          "phase 26 heter against its CPU service: losses %s / %s" % (
+              digits(a["passes"]), digits(cpu["passes"])))
+    for r in res["heter"]:
+        log("heter26 service on %s (HeterDenseService on loopback TCP, a "
+            "HeterTrainer over a PsLocalClient, FLAGSHIP's DeepFM): digits "
+            "%s; server rows sha256 %s (%d keys); dense sha256 %s; "
+            "launches %s; pass walls %s" % (
+                r["device"], json.dumps(digits(r["passes"])), r["rows_sha"],
+                r["keys"], r["dense_sha"], launched(r["launches"]),
+                [p["pass_s"] for p in r["passes"]]))
+    log("heter26: the two card runs bit-identical, the loss fell %.10f -> "
+        "%.10f, the CPU service's losses %s relative apart (the first "
+        "pass's limit %g); "
+        "no kernel launches: the PS rule is numpy and the view is built "
+        "on the host" % (a["passes"][0]["loss"], a["passes"][1]["loss"],
+                         rels, HETER_LOSS_RTOL))
+
+    # (d) the kernels at the tower batch
+    k = res["kernels"]
+    same = k["slab"] == [1 << 20, 17] and k["ids"] == 131072
+    check(k["max_abs_err"] == 0.0 and same,
+          "phase 26 kernels at the tower batch: %s" % json.dumps(k))
+    log("tower26 kernels: gather_rows and push_adagrad (both writes) at a "
+        "tower batch bit-equal to their plain versions, %s: slab %s, %d "
+        "ids: the main path's shapes, so no new row"
+        % (json.dumps(k), k["slab"], k["ids"]))
+    log("sharded26 phase seconds in the child: %.3f" % res["child_s"])
+
+
 def sharded_child(files, feed, out_path, windows, bst_files, bst_feed):
     """Phase 22's spawned process: its NCCL and process-group state never
     touch phases 1-21. Writes its result (pickle) or its traceback."""
@@ -6790,15 +7255,15 @@ def sharded_child(files, feed, out_path, windows, bst_files, bst_feed):
 
 
 def sharded_phase(torch, files, feed, main, main_sha, tmp, spawn, windows,
-                  bst_files, bst_feed, tier):
+                  bst_files, bst_feed, tier, stream):
     """Phase 22: ShardedBoxTrainer at world 1 over NCCL in a child, held to
     the main path's run (phase 5): the digits of both passes
     (FLAGSHIP_DIGITS), the written-back store's sha256, the launches
     (SHARDED_LAUNCHES) and three collectives a step; its pass walls beside
     the main path's; its bf16 leg held to phase 12's digits and the 2-byte
-    forms' launches; then phases 23-25 from the same child (phase 25 held
-    to phase 19's ``tier`` run and phase 17's digits). Returns the child's
-    record."""
+    forms' launches; then phases 23-26 from the same child (phase 25 held
+    to phase 19's ``tier`` run and phase 17's digits, phase 26's stream to
+    phase 20's ``stream``). Returns the child's record."""
     import pickle
 
     out_path = os.path.join(tmp, "phase22.pkl")
@@ -6872,6 +7337,8 @@ def sharded_phase(torch, files, feed, main, main_sha, tmp, spawn, windows,
     phase24_report(res["phase24"], res)
     # 25. the sharded SSD tier, the PS, Downpour, the sp group
     phase25_report(res["phase25"], res, tier)
+    # 26. the stream over the shard (held to phase 20's), the towers, heter
+    phase26_report(res["phase26"], main, stream)
     return res
 
 
@@ -7128,7 +7595,8 @@ def main() -> int:
         # 22. the sharded trainer at world 1 over NCCL in a child process,
         # held to the main path's run
         sharded = sharded_phase(torch, files, feed, passes, main_sha, tmp,
-                                spawn, windows, bst_files, bst_feed, tier)
+                                spawn, windows, bst_files, bst_feed, tier,
+                                stream)
         clock.lap("sharded")
 
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
@@ -7275,7 +7743,17 @@ def main() -> int:
                                   p25["downpour"][0]["launches"],
                               **{"sharded25_seq_%s%s" % (
                                   r["attn"], "_sp" if r["group"] else ""):
-                                 r["launches"] for r in p25["seq"]}},
+                                 r["launches"] for r in p25["seq"]},
+                              "sharded26_stream":
+                                  sharded["phase26"]["stream"]["launches"],
+                              **{"tower26_" + n: t["runs"][0]["launches"]
+                                 for n, t in
+                                 sharded["phase26"]["towers"].items()},
+                              **{"tower26_tp_deepfm_" + w: r["launches"]
+                                 for w, r in
+                                 sharded["phase26"]["writes"].items()},
+                              "heter26":
+                                  sharded["phase26"]["heter"][0]["launches"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

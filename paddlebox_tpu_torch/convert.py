@@ -28,6 +28,11 @@ parameter (both start at zero with count 0); adagrad's
 every accumulator starting at ADAGRAD_INITIAL_ACC, 0.1, as optax's does);
 sgd's ``{}`` (optax.sgd keeps no state).
 
+A model-parallel tower (models/wide_tower.py) keeps its params outside a
+module, a dict of tensors a rank: ``tower_params_from_jax`` slices the
+reference's [P, ...] sharded leaves to one rank's, and
+``tower_params_to_jax`` stacks the ranks' back.
+
 The async dense table (train/async_dense.py) keeps the dense state as one
 flat f32 vector in the order of ``jax.flatten_util.ravel_pytree`` over the
 JAX params dict: keys sorted at every level (a nested dict, ``cross`` or
@@ -307,3 +312,32 @@ def adam_state_from_optax(opt_state, params: Mapping[str, object]
     return {"mu": _optax_tree(adam.mu, leaves),
             "nu": _optax_tree(adam.nu, leaves),
             "count": int(np.asarray(adam.count))}
+
+
+def tower_params_from_jax(host_params: Mapping[str, object],
+                          sharded: Mapping[str, bool],
+                          rank: int) -> Dict[str, torch.Tensor]:
+    """A model-parallel tower's reference params (models/wide_tower.py
+    ``host_init``: each sharded leaf stacks the shards on a leading [P]
+    axis) and its ``sharded`` mask -> rank ``rank``'s local tensors: a
+    sharded leaf's slice [rank], a replicated leaf whole; f32 copies on
+    the CPU."""
+    return {k: torch.from_numpy(np.array(
+        np.asarray(v)[rank] if sharded[k] else v, dtype=np.float32,
+        copy=True)) for k, v in host_params.items()}
+
+
+def tower_params_to_jax(rank_params: Sequence[Mapping[str, object]],
+                        sharded: Mapping[str, bool]
+                        ) -> Dict[str, np.ndarray]:
+    """The inverse of ``tower_params_from_jax`` over every rank: the ranks'
+    local leaves (tensors or numpy, in rank order) -> the reference's
+    layout, a sharded leaf stacked [P, ...], a replicated leaf rank 0's
+    (every rank holds the same)."""
+    def host(v) -> np.ndarray:
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        return np.asarray(v, dtype=np.float32)
+
+    return {k: (np.stack([host(p[k]) for p in rank_params]) if sharded[k]
+                else host(rank_params[0][k])) for k in sharded}

@@ -8,6 +8,7 @@ from paddlebox_tpu_torch.models.join_pv import JoinPvDnn
 from paddlebox_tpu_torch.models.mmoe import MMoE
 from paddlebox_tpu_torch.models.nn_cross import CtrDnnExpand
 from paddlebox_tpu_torch.models.wide_deep import WideDeep
+from paddlebox_tpu_torch.models.wide_tower import EpMMoE, TpDeepFM
 
 # the port's models by the JAX package's MODEL_ZOO names
 MODEL_ZOO = {
@@ -21,8 +22,10 @@ MODEL_ZOO = {
     "join_pv_dnn": JoinPvDnn,
     "ctr_dnn_aux": CtrDnnAux,
     "bst_seq_ctr": BstSeqCtr,
+    "tp_deepfm": TpDeepFM,
+    "ep_mmoe": EpMMoE,
 }
 
 __all__ = ["CtrDnn", "DeepFM", "WideDeep", "DLRM", "MMoE", "ESMM",
            "CtrDnnExpand", "JoinPvDnn", "CtrDnnAux", "BstSeqCtr",
-           "MODEL_ZOO"]
+           "TpDeepFM", "EpMMoE", "MODEL_ZOO"]

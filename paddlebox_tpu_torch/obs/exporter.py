@@ -13,8 +13,9 @@ Served by stdlib ``http.server`` on 127.0.0.1 at ``ObsFlags.obs_http_port``
             of a multi-rank job the last merged cluster_report
   /health   on rank 0 of a multi-rank job the health plane's last merged
             cluster_health record (reached through the bound reporter's
-            aggregator); elsewhere this rank's liveness record. The
-            reference's serving-fleet section waits for the serving slice
+            aggregator); elsewhere this rank's liveness record. Either
+            carries the serving fleet's record as ``serving_fleet`` while
+            a process-wide provider is set (``set_fleet_health_provider``)
   /stacks   every thread's stack, plain text
   /flight   the flight recorder's segments and the tail of the newest
   /quality  the quality plane's report and the drift monitor's snapshot
@@ -42,6 +43,35 @@ SCHEMA_VERSION = 1
 
 #: the Prometheus text exposition's content type
 PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+# the serving fleet's /health section (reference exporter.py:55-78): the
+# process that runs a serving fleet registers a zero-argument callable
+# giving its fleet-wide record; /health folds it in and still answers when
+# the provider raises
+_fleet_health_lock = make_lock("exporter._fleet_health_lock")
+_fleet_health_provider = None  # guarded-by: _fleet_health_lock
+
+
+def set_fleet_health_provider(provider) -> None:
+    """Register the serving fleet's /health section, or clear it with
+    None. One provider a process: the last registration wins."""
+    global _fleet_health_provider
+    with _fleet_health_lock:
+        _fleet_health_provider = provider
+
+
+def _fleet_health_section() -> Optional[dict]:
+    """The provider's record; ``{"type": "serving_fleet", "error": ...}``
+    where it raises; None without a provider."""
+    with _fleet_health_lock:
+        provider = _fleet_health_provider
+    if provider is None:
+        return None
+    try:
+        return provider()
+    except Exception as e:  # the endpoint answers through a fleet's error
+        return {"type": "serving_fleet", "error": repr(e)}
+
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
 
@@ -234,16 +264,23 @@ class ObsExporter:
         rep = self._reporter_now()
         agg = getattr(rep, "aggregator", None)
         health = getattr(agg, "health", None) if agg is not None else None
+        fleet = _fleet_health_section()
         if health is not None and health.last_health is not None:
-            return self._send_json(handler, health.last_health)
+            record = health.last_health
+            if fleet is not None:
+                record = dict(record, serving_fleet=fleet)
+            return self._send_json(handler, record)
         last = rep.peek() if rep is not None else None
-        self._send_json(handler, {
+        record = {
             "type": "rank_liveness", "v": SCHEMA_VERSION,
             "rank": self.rank, "ts": time.time(),
             "last_report_step": (last or {}).get("step"),
             "last_report_ts": (last or {}).get("ts"),
             "note": "per-rank view; the merged cluster_health record "
-                    "lives on rank 0's endpoint"})
+                    "lives on rank 0's endpoint"}
+        if fleet is not None:
+            record["serving_fleet"] = fleet
+        self._send_json(handler, record)
 
     def _stacks(self, handler) -> None:
         from paddlebox_tpu_torch.obs.flight import _thread_stacks

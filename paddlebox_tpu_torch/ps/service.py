@@ -28,20 +28,16 @@ import numpy as np
 from paddlebox_tpu_torch.config.configs import TableConfig
 from paddlebox_tpu_torch.embedding.ckpt_store import safe_load
 from paddlebox_tpu_torch.ps.table import DenseTable, SparseTable
-from paddlebox_tpu_torch.utils.rpc import (FramedClient, FramedServer,
+from paddlebox_tpu_torch.utils.rpc import (NDARRAY_GLOBALS, FramedClient,
+                                           FramedServer, allow_globals,
                                            make_loads)
 
 
 # the globals an ndarray, a numpy scalar and the two configs resolve when
-# unpickled (numpy 1.x names its core ``numpy.core``, 2.x ``numpy._core``)
-_ALLOWED = frozenset(
-    [("numpy", "ndarray"), ("numpy", "dtype")]
-    + [(core + ".multiarray", n) for core in ("numpy.core", "numpy._core")
-       for n in ("_reconstruct", "scalar")]
-    + [(core + ".numeric", "_frombuffer")
-       for core in ("numpy.core", "numpy._core")]
-    + [("paddlebox_tpu_torch.config.configs", n)
-       for n in ("TableConfig", "SparseOptimizerConfig")])
+# unpickled
+_ALLOWED = NDARRAY_GLOBALS | frozenset(
+    ("paddlebox_tpu_torch.config.configs", n)
+    for n in ("TableConfig", "SparseOptimizerConfig"))
 
 # what a request frame may call on the PSCore
 _METHODS = frozenset([
@@ -51,12 +47,7 @@ _METHODS = frozenset([
     "barrier"])
 
 
-def _allow(module: str, name: str) -> bool:
-    # a dotted name would let find_class walk attributes past the module
-    return "." not in name and (module, name) in _ALLOWED
-
-
-_loads = make_loads(_allow)
+_loads = make_loads(allow_globals(_ALLOWED))
 
 
 class PSCore:

@@ -69,6 +69,7 @@ class Communicator:
         self.interval = send_interval
         self._pending: List[Tuple[np.ndarray, np.ndarray]] = []  # guarded-by: _lock
         self._lock = make_lock("Communicator._lock")
+        self._send_lock = make_lock("Communicator._send_lock")
         self._stop = threading.Event()
         self._kick = threading.Event()
         self._thread = threading.Thread(target=self._send_loop, daemon=True,
@@ -97,18 +98,23 @@ class Communicator:
         merged[inv, PushLayout.SLOT] = grads[:, PushLayout.SLOT]
         return uniq, merged
 
-    def _send_loop(self) -> None:
-        while not self._stop.is_set():
-            self._kick.wait(self.interval)
-            self._kick.clear()
+    def _send(self) -> None:
+        # one send at a time: a flush returns only after a send the
+        # background thread had begun has reached the server too
+        with self._send_lock:
             item = self._drain()
             if item is not None:
                 self.client.push_sparse(self.table_id, item[0], item[1])
 
+    def _send_loop(self) -> None:
+        while not self._stop.is_set():
+            self._kick.wait(self.interval)
+            self._kick.clear()
+            self._send()
+
     def flush(self) -> None:
-        item = self._drain()
-        if item is not None:
-            self.client.push_sparse(self.table_id, item[0], item[1])
+        """Send every queued push; on return the server holds them all."""
+        self._send()
 
     def stop(self) -> None:
         self._stop.set()

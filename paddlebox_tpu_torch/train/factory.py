@@ -7,14 +7,17 @@ name, so a TrainerDesc written for the reference names its trainer here;
 ``Executor`` drives one pass of a trainer over a dataset.
 
 BoxPSTrainer, MultiTrainer and DistMultiTrainer are the port's BoxTrainer;
-ShardedBoxTrainer is parallel/sharded_trainer.py's (one process a GPU).
-The parameter-server trainers: PSGPUTrainer is the sharded trainer with
-its owned shard's store on the CPU PS (``ps_client=``, ``ps_table_id=``;
-embedding/ps_store.py), DownpourTrainer is ps/worker.py's. The other
-multi-device trainers (the heter, pipeline and mesh-tower ones) belong to
-ROADMAP.md A10: their names raise NotImplementedError saying so. An
-unknown name raises KeyError. ``register_trainer`` adds or overrides a
-name.
+ShardedBoxTrainer and HeterXpuTrainer (the reference's accelerator-side
+trainer) are parallel/sharded_trainer.py's (one process a GPU).
+MeshTowerTrainer is parallel/mesh_tower.py's (the model-parallel towers
+over an ``mp`` process group). The parameter-server trainers:
+PSGPUTrainer is the sharded trainer with its owned shard's store on the
+CPU PS (``ps_client=``, ``ps_table_id=``; embedding/ps_store.py),
+DownpourTrainer is ps/worker.py's, and HeterTrainer and HeterCpuWorker
+are fleet/heter.py's CPU worker, whose dense step runs on a
+HeterDenseService. The pipeline trainers belong to ROADMAP.md A10c: their
+names raise NotImplementedError saying so. An unknown name raises
+KeyError. ``register_trainer`` adds or overrides a name.
 """
 
 from __future__ import annotations
@@ -23,16 +26,18 @@ from typing import Any, Callable, Dict, Optional
 
 _REGISTRY: Dict[str, Callable] = {}
 
-# the reference's names whose multi-device trainers are not ported yet
-# (reference factory.py:54-96)
-A10_TRAINERS = ("HeterXpuTrainer",
-                "HeterTrainer", "HeterCpuWorker",
-                "PipelineTrainer", "CtrPipelineTrainer",
+# the reference's names whose pipeline trainers are not ported yet
+# (reference factory.py:73-90)
+A10_TRAINERS = ("PipelineTrainer", "CtrPipelineTrainer",
                 "HeterPipelineTrainer", "ShardedCtrPipelineTrainer",
-                "SectionPSTrainer", "MeshTowerTrainer")
+                "SectionPSTrainer")
 BOX_TRAINERS = ("BoxPSTrainer", "MultiTrainer", "DistMultiTrainer")
-SHARDED_TRAINERS = ("ShardedBoxTrainer",)
+# HeterXpuTrainer is the reference's accelerator-side trainer, which the
+# sharded trainer plays (reference factory.py:59-63)
+SHARDED_TRAINERS = ("ShardedBoxTrainer", "HeterXpuTrainer")
 PS_TRAINERS = ("PSGPUTrainer", "DownpourTrainer")
+HETER_TRAINERS = ("HeterTrainer", "HeterCpuWorker")
+MESH_TOWER_TRAINERS = ("MeshTowerTrainer",)
 
 
 def register_trainer(name: str, ctor: Callable) -> None:
@@ -74,10 +79,16 @@ def _builtin(name: str) -> Optional[Callable]:
     if name == "DownpourTrainer":
         from paddlebox_tpu_torch.ps.worker import DownpourTrainer
         return DownpourTrainer
+    if name in HETER_TRAINERS:
+        from paddlebox_tpu_torch.fleet.heter import HeterTrainer
+        return HeterTrainer
+    if name in MESH_TOWER_TRAINERS:
+        from paddlebox_tpu_torch.parallel.mesh_tower import MeshTowerTrainer
+        return MeshTowerTrainer
     if name in A10_TRAINERS:
         raise NotImplementedError(
-            "trainer %r is multi-device or parameter-server work, not "
-            "ported yet (ROADMAP.md A10)" % name)
+            "trainer %r is pipeline-parallel work, not ported yet "
+            "(ROADMAP.md A10c)" % name)
     return None
 
 

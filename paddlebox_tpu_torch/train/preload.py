@@ -163,12 +163,25 @@ class PassPreloader:
         self._buffer = None
         self._dataset = None
 
-    def wait(self, dataset) -> None:
+    def feed_pass(self, allgather=None) -> None:
+        """The table's feed pass over the buffered keys; ``allgather`` (the
+        fleet's all_gather, given only above one rank, where the table is
+        a ShardedPassTable) unions the ranks' keys, as the reference's wait
+        does (preload.py:199-209)."""
+        self.table.begin_feed_pass()
+        for ks in self._buffer or []:
+            self.table.add_keys(ks)
+        if allgather is None:
+            self.table.end_feed_pass()
+        else:
+            self.table.end_feed_pass(allgather=allgather)
+
+    def wait(self, dataset, allgather=None) -> None:
         """Join the load, hand the prefetched rows to the table and run its
-        feed pass over the buffered keys (WaitFeedPassDone), under the
-        spans ingest_wait_preload (what of the load the overlap did not
-        hide) and ingest_feed_pass. On any error the preloader resets, so a
-        caller may preload again."""
+        feed pass over the buffered keys (WaitFeedPassDone; ``feed_pass``),
+        under the spans ingest_wait_preload (what of the load the overlap
+        did not hide) and ingest_feed_pass. On any error the preloader
+        resets, so a caller may preload again."""
         if dataset is not self._dataset:
             raise RuntimeError("wait() for a dataset that was not preloaded")
         t0 = time.perf_counter()
@@ -180,10 +193,7 @@ class PassPreloader:
                 keys, rows = pre.finish()
                 self.table.accept_staged_rows(keys, rows)
             with span("ingest_feed_pass"):
-                self.table.begin_feed_pass()
-                for ks in self._buffer:
-                    self.table.add_keys(ks)
-                self.table.end_feed_pass()
+                self.feed_pass(allgather)
         except BaseException:
             self._reset()
             raise
@@ -203,7 +213,11 @@ def run_preloaded_passes(trainer, datasets: Iterable,
     the preloader's wait took, in place of ``feed``. after_pass(index,
     stats), when given, runs after each pass with the next pass's readers
     already started; each dataset's records are released after its pass.
+    Over a ShardedBoxTrainer above one rank each feed pass unions the
+    ranks' keys with the fleet's all_gather (reference preload.py:231-233).
     Returns the passes' stats."""
+    allgather = (trainer.fleet.all_gather
+                 if getattr(trainer, "multiprocess", False) else None)
     pre = PassPreloader(trainer.table)
     results: List[Dict[str, float]] = []
     it = iter(datasets)
@@ -212,7 +226,7 @@ def run_preloaded_passes(trainer, datasets: Iterable,
         return results
     pre.preload(cur)
     while cur is not None:
-        pre.wait(cur)
+        pre.wait(cur, allgather=allgather)
         wait_s = pre.wait_s
         nxt = next(it, None)
         if nxt is not None:

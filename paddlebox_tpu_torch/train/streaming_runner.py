@@ -2,8 +2,9 @@
 (paddlebox_tpu/train/streaming_runner.py, the same cadence, gauges and
 stats).
 
-``StreamingRunner`` drives a BoxTrainer from a StreamingDataset
-(data/streaming.py) as ``run_preloaded_passes`` drives a day's datasets:
+``StreamingRunner`` drives a BoxTrainer or a ShardedBoxTrainer from a
+StreamingDataset (data/streaming.py) as ``run_preloaded_passes`` drives a
+day's datasets:
 
   * a fetcher thread forms windows (watcher poll, line count, BoxDataset:
     no table or trainer state) into a bounded queue of 2 while the train
@@ -27,8 +28,17 @@ stats).
     streaming_admission_score and streaming_examples_per_sec, and the stats
     streaming_micro_passes and streaming_windows_refused.
 
-The reference's ``allgather`` (``wait_admit``'s key exchange of a
-multi-process feed pass) waits for ROADMAP A10; one process needs none.
+Over a ShardedBoxTrainer above one rank, ``run`` passes the fleet's
+``all_gather`` to ``wait_admit``, and the table's feed pass unions the
+ranks' keys with it (``end_feed_pass(allgather=)``), as the reference's
+runner does. Each rank's admission gate decides alone, as in the
+reference: the ranks must admit and refuse the same windows (a window
+every rank refuses leaves every store as it was). Where they disagree, an
+admitting rank's all_gather pairs with another rank's next window, the
+ranks fall out of step, and one of them raises in a collective its peer
+never makes: at the process group's timeout, or sooner where the peer's
+group has closed. A rank that ends first may return normally, having
+trained a window whose key set was unioned with another window's.
 """
 
 from __future__ import annotations
@@ -55,7 +65,11 @@ class _GatedPreloader(PassPreloader):
     as they were (the prefetcher's staged rows are dropped, not
     accepted)."""
 
-    def wait_admit(self, dataset, admit_fn=None) -> bool:
+    def wait_admit(self, dataset, admit_fn=None, allgather=None) -> bool:
+        """Wait for the preload of ``dataset``, then gate it: refused
+        (False) leaves the table as it was; admitted (True) runs the feed
+        pass (``feed_pass``), its key set unioned across the ranks by
+        ``allgather`` (the fleet's all_gather) where it is given."""
         if dataset is not self._dataset:
             raise RuntimeError("wait_admit() for a dataset that was not "
                                "preloaded")
@@ -72,10 +86,7 @@ class _GatedPreloader(PassPreloader):
                 if keys.size:
                     self.table.accept_staged_rows(keys, rows)
             with span("streaming_feed_pass"):
-                self.table.begin_feed_pass()
-                for ks in self._buffer or []:
-                    self.table.add_keys(ks)
-                self.table.end_feed_pass()
+                self.feed_pass(allgather)
         except BaseException:
             self._reset()
             raise
@@ -90,9 +101,9 @@ class _GatedPreloader(PassPreloader):
 class StreamingRunner:
     """Micro-pass training over a StreamingDataset.
 
-    trainer: a BoxTrainer; stream: a StreamingDataset; cm: a
-    CheckpointManager over the trainer's table, or None (then no publish
-    and no micro-checkpoint). ``base_every``, ``admission_max_drift``: the
+    trainer: a BoxTrainer or a ShardedBoxTrainer; stream: a
+    StreamingDataset; cm: a CheckpointManager over the trainer's table, or
+    None (then no publish and no micro-checkpoint). ``base_every``, ``admission_max_drift``: the
     StreamFlags values when None.
 
     run() owns the train thread; the one fetcher thread only forms windows;
@@ -238,6 +249,10 @@ class StreamingRunner:
         run's totals with each pass's record under "passes"."""
         if idle_timeout is None:
             idle_timeout = float(self.flags.streaming_idle_timeout_secs)
+        # the feed pass's key union across the ranks (reference :265-268)
+        allgather = (self.trainer.fleet.all_gather
+                     if getattr(self.trainer, "multiprocess", False)
+                     else None)
         self._stop.clear()
         self._eos = False
         self._fetch_err = None
@@ -265,7 +280,8 @@ class StreamingRunner:
                 # train thread; the watermark record carries it
                 set_trace(step_trace_id(obs_log.get_rank(), cur.index))
                 admitted = pre.wait_admit(
-                    cur.dataset, admit_fn=lambda _ds: self._admit(win))
+                    cur.dataset, admit_fn=lambda _ds: self._admit(win),
+                    allgather=allgather)
                 ingest_wait = cur_wait + (time.perf_counter() - t0)
                 # window N+1's reader starts before N trains
                 nxt = self._next(block=False)

@@ -10,8 +10,10 @@ client's stream never loses its place. ``FramedClient`` sends one request
 a call over one connection behind a lock, dialing within its timeout
 (TCP_NODELAY on both ends). Unpickling goes through ``make_loads``, whose
 class lookup an allow-predicate limits; ``plain_loads`` resolves no class
-at all (the fleet's KV store, fleet/store.py). The CPU PS will ride the
-same transport.
+at all (the fleet's KV store, fleet/store.py, and the fleet executor's
+message bus, fleet/executor.py); ``ndarray_loads`` resolves only the
+globals of an ndarray round trip (heter's dense service, fleet/heter.py;
+the CPU PS adds its two configs, ps/service.py).
 """
 
 from __future__ import annotations
@@ -58,6 +60,26 @@ def make_loads(allow: Callable[[str, str], bool]) -> Callable[[bytes], Any]:
 # plain containers and scalars only: no class resolution at all
 plain_loads = make_loads(lambda m, n: False)
 
+# the globals an ndarray and a numpy scalar resolve when unpickled (numpy
+# 1.x names its core ``numpy.core``, 2.x ``numpy._core``)
+NDARRAY_GLOBALS = frozenset(
+    [("numpy", "ndarray"), ("numpy", "dtype")]
+    + [(core + ".multiarray", n) for core in ("numpy.core", "numpy._core")
+       for n in ("_reconstruct", "scalar")]
+    + [(core + ".numeric", "_frombuffer")
+       for core in ("numpy.core", "numpy._core")])
+
+
+def allow_globals(allowed) -> Callable[[str, str], bool]:
+    """An allow-predicate for ``make_loads`` of exactly the (module, name)
+    pairs ``allowed``; a dotted name, which would let find_class walk
+    attributes past the module, never."""
+    allowed = frozenset(allowed)
+    return lambda module, name: "." not in name and (module, name) in allowed
+
+
+ndarray_loads = make_loads(allow_globals(NDARRAY_GLOBALS))
+
 
 class FramedServer:
     """Accepts connections, one thread each; every request frame gets
@@ -76,6 +98,8 @@ class FramedServer:
         self._loads = loads
         self._max_frame = max_frame_bytes
         self._stop = threading.Event()
+        self._conns_lock = make_lock("FramedServer._conns_lock")
+        self._conns: set = set()  # guarded-by: _conns_lock
         self._server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._server.bind((host, port))
@@ -95,6 +119,11 @@ class FramedServer:
                 return
             # small request/answer pairs: no Nagle delay on the answers
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            with self._conns_lock:
+                if self._stop.is_set():
+                    conn.close()
+                    return
+                self._conns.add(conn)
             threading.Thread(target=self._serve_conn, args=(conn,),
                              daemon=True).start()
 
@@ -127,15 +156,34 @@ class FramedServer:
                 payload = pickle.dumps(resp,
                                        protocol=pickle.HIGHEST_PROTOCOL)
                 conn.sendall(_LEN.pack(len(payload)) + payload)
+        except OSError:
+            return    # hung up by stop(hang_up=True), or the peer reset
         finally:
+            with self._conns_lock:
+                self._conns.discard(conn)
             conn.close()
 
-    def stop(self) -> None:
+    def stop(self, hang_up: bool = False) -> None:
+        """Stop accepting: the listener is shut down, which ends the accept
+        thread. A connection already served keeps its thread until its
+        peer closes, so a handler may stop its own server and still answer
+        the frame; ``hang_up`` also shuts every live connection down, and
+        their threads end."""
         self._stop.set()
-        try:
-            self._server.close()
-        except OSError:
-            pass
+        for close in (lambda: self._server.shutdown(socket.SHUT_RDWR),
+                      self._server.close):
+            try:
+                close()
+            except OSError:
+                pass
+        if hang_up:
+            with self._conns_lock:
+                conns = list(self._conns)
+            for conn in conns:
+                try:
+                    conn.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
 
 
 class FramedClient:

@@ -296,10 +296,30 @@ def test_factory_names_resolve_as_the_reference(data):
                                builtin))
     assert ref_names == (set(factory.A10_TRAINERS) | set(factory.BOX_TRAINERS)
                          | set(factory.SHARDED_TRAINERS)
-                         | set(factory.PS_TRAINERS))
+                         | set(factory.PS_TRAINERS)
+                         | set(factory.HETER_TRAINERS)
+                         | set(factory.MESH_TOWER_TRAINERS))
+    # only the pipeline's names still raise (ROADMAP.md A10c)
     for name in factory.A10_TRAINERS:
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match="A10c"):
             factory.create_trainer(name)
+    # the accelerator-side, heter and mesh-tower names resolve in both
+    # packages to their counterparts
+    from paddlebox_tpu.fleet.heter import HeterTrainer as JHeter
+    from paddlebox_tpu.parallel.mesh_tower import MeshTowerTrainer as JTower
+    from paddlebox_tpu.parallel.sharded_trainer import \
+        ShardedBoxTrainer as JSharded
+    from paddlebox_tpu_torch.fleet.heter import HeterTrainer
+    from paddlebox_tpu_torch.parallel.mesh_tower import MeshTowerTrainer
+    from paddlebox_tpu_torch.parallel.sharded_trainer import \
+        ShardedBoxTrainer
+    for name, mine, theirs in (
+            ("HeterXpuTrainer", ShardedBoxTrainer, JSharded),
+            ("MeshTowerTrainer", MeshTowerTrainer, JTower),
+            ("HeterTrainer", HeterTrainer, JHeter),
+            ("HeterCpuWorker", HeterTrainer, JHeter)):
+        assert factory._builtin(name) is mine, name
+        assert jfactory._builtin(name) is theirs, name
     # the PS trainers resolve: PSGPUTrainer wants its client, as the
     # reference's, and DownpourTrainer is ps/worker.py's
     for mod in (factory, jfactory):

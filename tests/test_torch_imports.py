@@ -55,7 +55,9 @@ def test_import_loads_no_jax_and_no_reference_module():
               "obs.watchdog", "obs.exporter", "obs.watermark",
               "profile_pass", "ps", "ps.sgd_rule", "ps.table",
               "ps.service", "ps.worker", "embedding.ps_store",
-              "parallel.tensor_parallel", "parallel.sharded_table"):
+              "parallel.tensor_parallel", "parallel.sharded_table",
+              "models.wide_tower", "parallel.mesh_tower", "fleet.heter",
+              "fleet.executor"):
         assert "paddlebox_tpu_torch." + m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad

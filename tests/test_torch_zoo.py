@@ -261,7 +261,8 @@ def test_model_forward_and_grads_match_jax(name, dense):
 def test_model_zoo_names():
     assert set(MODEL_ZOO) == {"deepfm", "ctr_dnn_expand", "ctr_dnn",
                               "wide_deep", "dlrm", "mmoe", "esmm",
-                              "join_pv_dnn", "ctr_dnn_aux", "bst_seq_ctr"}
+                              "join_pv_dnn", "ctr_dnn_aux", "bst_seq_ctr",
+                              "tp_deepfm", "ep_mmoe"}
     for name, cls in MODEL_ZOO.items():
         assert cls.name == name
 
