@@ -143,7 +143,7 @@ Phases, each of which raises on a failed check (exit code != 0):
      span tracer, the StepReporter, the tagged quality plane and the drift
      monitor, all on by default as in the reference, so phases 3-12 run
      with them): the main path's two passes with every plane on and every
-     plane off, in the order on, off, off, on, twice (PLANE_RUNS), each
+     plane off, in the order on, off, off, on (PLANE_RUNS), each
      run settled, each bit-identical to phase 5's run (losses, AUC, launches,
      sorted store); each on run's pass_end records (one a pass; the stats
      deltas of a pass's records equal to the table's counters of the
@@ -432,6 +432,28 @@ Phases, each of which raises on a failed check (exit code != 0):
      service on the CPU;
      (d) gather_rows and push_adagrad at a tower batch bit-equal to their
      plain versions (the main path's shapes: no new row);
+ 27. pipeline parallelism at one stage, in phase 22's child after phase
+     26 on a world-1 NCCL fleet of its own (NCCL refuses two ranks on one
+     device, so every group has one rank): (a)
+     create_trainer("CtrPipelineTrainer") at flagship.FLAGSHIP_PIPE
+     (FLAGSHIP's table, feed and batch; 8 micro-batches a step, d_model
+     512, 3 layers a stage), two passes twice: the runs bit-identical
+     (digits and the store's sha256 after each pass), the loss falling, a
+     gather_rows pull and one push_adagrad a step (and the promote and
+     write-backs by the table's counters), the first pass within
+     PIPE_LOSS_RTOL and PIPE_AUC_ATOL of the same runner on the CPU with
+     show and click equal; (b) the same through make_mesh(MeshConfig(
+     data=1, pipeline=1)), the (dp, stage) form, equal to (a) bit for bit;
+     (c) one pass on FLAGSHIP_EXPAND's expand-64 table twice, bit for bit,
+     push_adagrad_expand launched a step; (d)
+     create_trainer("PipelineTrainer") at FLAGSHIP_PIPE's widths: forward
+     = sequential_forward bit for bit, GPIPE_STEPS steps lowering the
+     loss; (e) gather_rows and push_adagrad at the pipeline step's shape
+     (the first group's 1,048,576 ids and its push rows), and gather_rows
+     and push_adagrad_expand at the expand table's (the same ids from the
+     2^20 x 82 slab, push rows of width 76), bit-equal to their plain
+     versions, with kernel, plain, library and bound times ("pipe27"
+     lines; the kernels line's pipeline_step and pipeline_expand shapes);
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -2429,7 +2451,7 @@ def bf16_phase(torch, feed, files, f32_passes, reset_counts, counts):
 # phase 13's runs of the main path's two passes: the trainer's host planes
 # all on (ObsFlags(), the default) and all off (ObsFlags.off()), in this
 # order, each from a settled process
-PLANE_RUNS = ("on", "off", "off", "on") * 2
+PLANE_RUNS = ("on", "off", "off", "on")
 # the spans a planes-on run of the main path records (the chunk driver's,
 # the table's, the ingest's)
 PLANE_SPANS = ("host_stage", "scan_dispatch", "chunk_drain", "pass_begin",
@@ -5227,7 +5249,7 @@ SHARDED_LAUNCHES = {"push_adagrad": 32, "gather_rows": 35,
 # its bf16 leg's (FLAGSHIP_BF16): the 2-byte forms, as phase 12's
 SHARDED_BF16_LAUNCHES = {"push_adagrad_bf16": 32, "gather_rows_decode": 32,
                          "gather_rows_2byte": 3}
-SHARDED_CHILD_S = 720.0       # the child's wall limit (phases 22-26)
+SHARDED_CHILD_S = 720.0       # the child's wall limit (phases 22-27)
 SHARDED_GROUP_S = 120.0       # its process groups' timeout
 SHARDED_SEED = 0              # the main path's trainer seed
 
@@ -5386,8 +5408,8 @@ def sharded_run(torch, files, feed, out_path, windows, bst_files, bst_feed):
     TCPStore of the child's own), the sharded trainer at FLAGSHIP's full
     width, two passes through the chunk driver, then the kernels and the
     collectives at the shard shapes; then phase 23 on the same mesh (its
-    files beside ``out_path``); then phases 24 and 25 on fleets of their
-    own (25 over phase 19's ``windows`` and phase 17's BST files)."""
+    files beside ``out_path``); then phases 24-27 on fleets of their own
+    (25 over phase 19's ``windows`` and phase 17's BST files)."""
     import torch.distributed as dist
 
     from paddlebox_tpu_torch.fleet.fleet import Fleet
@@ -5470,6 +5492,8 @@ def sharded_run(torch, files, feed, out_path, windows, bst_files, bst_feed):
     # 26. the stream over the shard, the model-parallel towers and heter
     out["phase26"] = phase26_child(torch, files, feed, windows, store,
                                    os.path.dirname(out_path))
+    # 27. pipeline parallelism at one stage
+    out["phase27"] = phase27_child(torch, files, feed, store)
     return out
 
 
@@ -7236,6 +7260,366 @@ def phase26_report(res, main, p20):
     log("sharded26 phase seconds in the child: %.3f" % res["child_s"])
 
 
+# phase 27: pipeline parallelism over a stage process group at one stage
+# (CtrPipelineRunner at FLAGSHIP_PIPE through create_trainer, its (dp,
+# stage) form through make_mesh, the expand-64 table, GPipeRunner), on a
+# world-1 NCCL fleet of its own in phase 22's child after phase 26
+# the card's first CtrPipelineRunner pass against the same runner's on the
+# CPU (the plain versions): relative on the loss, absolute on the AUC
+PIPE_LOSS_RTOL = 1e-4
+PIPE_AUC_ATOL = 1e-3
+GPIPE_STEPS = 50             # GPipeRunner's steps, which lower its loss
+
+
+def phase27_ctr(torch, files, feed, cfg, device="cuda", mesh=None,
+                passes=2):
+    """(a)-(c) create_trainer("CtrPipelineTrainer") at the pipeline
+    configuration ``cfg`` (flagship.build_pipeline_trainer) on ``device``,
+    its stages the world's (one stage: LOCAL) or ``mesh``'s: ``passes``
+    passes over the main path's files, each pass's digits, steps, wall,
+    table counters and the store's sha256 (and of its keys with the show
+    and click columns). Returns (the record, the runner)."""
+    import hashlib
+
+    import numpy as np
+
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    from paddlebox_tpu_torch.train import flagship
+
+    runner, _ = flagship.build_pipeline_trainer(
+        files, feed, cfg, device=None if mesh is not None else device,
+        seed=SHARDED_SEED, mesh=mesh)
+    check(runner.stage.size == 1 and runner.dp == 1
+          and runner.device.type == device
+          and runner.batches_per_step == cfg.n_micro,
+          "phase 27 pipeline: %d stages, dp %d, device %s"
+          % (runner.stage.size, runner.dp, runner.device))
+    reset_counts()
+    out = []
+    for i in range(passes):
+        ds = BoxDataset(feed)
+        ds.set_filelist(files)
+        before = dict(runner.table.counters)
+        t0 = time.perf_counter()
+        res = runner.train_pass(ds)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k, v = sorted_store(runner.table)
+        out.append({"pass": i, "loss": res["loss"],
+                    "auc": runner.metrics.get_metric_msg("auc")["auc"],
+                    "steps": res["steps"],
+                    "dropped": res["dropped_batches"], "pass_s": secs,
+                    "counters": counter_delta(before, runner.table),
+                    "store_sha": sha_of(k, v),
+                    "show_click_sha": hashlib.sha256(
+                        k.tobytes() + np.ascontiguousarray(
+                            v[:, [acc.SHOW, acc.CLICK]]).tobytes()
+                    ).hexdigest()})
+    return ({"device": device, "passes": out, "launches": counts(),
+             "axes": None if mesh is None else list(mesh.names)}, runner)
+
+
+def phase27_kernels(torch, runner, files, feed, cfg):
+    """(e) gather_rows and the fused push at the pipeline step's shape
+    (the first group of a fresh pass of ``runner``'s table: its M x K ids
+    and the step's push rows, from forward_backward, nothing applied),
+    each bit-equal to its plain version (the push in both writes);
+    kernel, plain, library and bound times, the push under its form's
+    name (push_adagrad, or push_adagrad_expand on an expand table, whose
+    slab and push rows are wider); whether the ids are the chunk batch of
+    flagship.first_chunk_ids (PR 8's shape)."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.ops import row_kernels as rk
+    from paddlebox_tpu_torch.push_probe import SEED, fused_push_bytes
+    from paddlebox_tpu_torch.rate_probe import gather_bytes, time_chain
+    from paddlebox_tpu_torch.train import flagship
+
+    table = runner.table
+    ds = BoxDataset(feed)
+    ds.set_filelist(files)
+    table.begin_feed_pass()
+    ds.load_into_memory(add_keys_fn=table.add_keys)
+    table.end_feed_pass()
+    table.begin_pass()
+    try:
+        group = ds.split_batches(1)[0][:runner.batches_per_step]
+        batch = runner.device_batch(group)
+        slab, ids = table.slab, batch["ids"].reshape(-1)
+        ids_np = ids.cpu().numpy()
+        chunk = flagship.first_chunk_ids(files, feed, cfg.base,
+                                         cfg.n_micro)
+        got = rk.gather_rows(slab, ids)
+        torch.cuda.synchronize()
+        want = rk.gather_rows_plain(slab, ids)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+              and torch.equal(got, slab.index_select(0, ids.long())),
+              "gather_rows at the pipeline step differs from the plain "
+              "version")
+        err_g = float((got - want).abs().max())
+        del got, want
+        W = table.layout.width
+        nbytes = gather_bytes(ids_np, table.capacity, W)
+        args = (slab, ids)
+        out = {"gather_rows": {
+            "slab": list(slab.shape), "ids": int(ids.numel()),
+            "distinct": int(np.unique(ids_np).size),
+            "bytes": nbytes, "max_abs_err": err_g,
+            "ms": time_chain(rk.gather_rows, args, nbytes),
+            "plain_ms": time_chain(rk.gather_rows_plain, args, nbytes),
+            "library_ms": time_chain(lambda a, b: a.index_select(0, b),
+                                     args, nbytes),
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "bound_by": "bytes"}}
+        r = runner.forward_backward(batch)
+        runner.dense_opt.zero_grad(set_to_none=True)
+        g = runner.push_grads(batch, r["demb"], r["dexp"])
+        u, p, o, n_uniq = (batch["uids"], batch["perm"], batch["offsets"],
+                           batch["n_uniq"])
+        conf, layout = table.config.optimizer, runner.layout
+        form = pk.push_form(layout)
+        err = 0.0
+        for rows_out in (False, True):
+            s_k, s_p = slab.clone(), slab.clone()
+            r_k = pk.push_adagrad(s_k, g, p, o, u, n_uniq, SEED, layout,
+                                  conf, rows_out)
+            torch.cuda.synchronize()
+            r_p = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n_uniq, SEED,
+                                              layout, conf, rows_out)
+            check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+                  and (not rows_out or torch.equal(r_k.view(torch.int32),
+                                                   r_p.view(torch.int32))),
+                  "%s (rows_out=%s) at the pipeline step differs from the "
+                  "plain version" % (form, rows_out))
+            err = max(err, float((s_k - s_p).abs().max()))
+            del s_k, s_p, r_k, r_p
+        n_valid = int(o[-1])
+        live = ids_np != table.padding_id
+        G, D = int(g.shape[1]), layout.embedx_dim + layout.expand_dim
+        nbytes = fused_push_bytes(n_valid, n_uniq, W, G)
+        ops = n_valid * G + int(np.unique(ids_np[live]).size) * (20 + 6 * D)
+        args = (slab, g, p, o, u)
+        out[form] = {
+            "slab": list(slab.shape), "push_rows": list(g.shape),
+            "occurrences": n_valid,
+            "n_uniq": int(n_uniq), "bytes": nbytes, "max_abs_err": err,
+            "embed_grad_rows": int((g[:, 3:].abs().sum(1) > 0).sum()),
+            "ms": time_chain(lambda *a: pk.push_adagrad(
+                *a, n_uniq, SEED, layout, conf, rows_out=True), args,
+                nbytes),
+            "plain_ms": time_chain(lambda *a: pk.push_adagrad_fused_plain(
+                *a, n_uniq, SEED, layout, conf, rows_out=True), args,
+                nbytes),
+            "library_ms": None,
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  ops / F32_FLOPS),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / F32_FLOPS else "operations")}
+        out["chunk_batch"] = bool(np.array_equal(ids_np, chunk))
+        return out
+    finally:
+        table.end_pass()
+
+
+def phase27_gpipe(torch):
+    """(d) create_trainer("PipelineTrainer") at FLAGSHIP_PIPE's widths (one
+    stage, 8 micro-batches of 1024 rows, d_model 512, 3 layers) on the
+    card: forward against sequential_forward bit for bit, then
+    GPIPE_STEPS steps toward tanh(x @ w): the losses and the step ms."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.parallel.pipeline import PipelineConfig
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.train.factory import create_trainer
+
+    c = flagship.FLAGSHIP_PIPE
+    runner = create_trainer(
+        "PipelineTrainer", PipelineConfig(
+            n_stages=1, n_micro=c.n_micro, d_model=c.d_model,
+            layers_per_stage=c.layers_per_stage, lr=c.lr),
+        seed=SHARDED_SEED, device="cuda")
+    rng = np.random.RandomState(2)
+    x = rng.randn(c.n_micro * c.base.batch, c.d_model).astype(np.float32)
+    w = (rng.randn(c.d_model, c.d_model) / np.sqrt(c.d_model)).astype(
+        np.float32)
+    y = np.tanh(x @ w).astype(np.float32)
+    fwd = runner.forward(x)
+    seq = runner.sequential_forward(x)
+    same = torch.equal(fwd.view(torch.int32), seq.view(torch.int32))
+    t0 = time.perf_counter()
+    losses = [runner.train_step(x, y) for _ in range(GPIPE_STEPS)]
+    torch.cuda.synchronize()
+    return {"forward_equals_sequential": bool(same),
+            "shape": list(fwd.shape), "losses": losses,
+            "step_ms": 1e3 * (time.perf_counter() - t0) / GPIPE_STEPS}
+
+
+def phase27_child(torch, files, feed, store):
+    """Phase 27 in the child, on a world-1 NCCL fleet of its own over the
+    child's TCPStore: (a) the CTR pipeline twice on the card (the first
+    run's runner then holds (e) the kernels at the step's shape) and its
+    first pass on the CPU, (b) through make_mesh's (data, pipeline) mesh,
+    (c) the expand-64 table's pass twice (the first run's runner then
+    holds (e) at the expand step's shape), (d) the GPipe runner. Its
+    records and host seconds."""
+    import dataclasses
+
+    from paddlebox_tpu_torch.config.configs import MeshConfig
+    from paddlebox_tpu_torch.parallel.mesh import make_mesh
+    from paddlebox_tpu_torch.train import flagship
+
+    t0 = time.perf_counter()
+    cfg = flagship.FLAGSHIP_PIPE
+    out = {"ctr": []}
+    fl = phase24_fleet(store, "phase27")
+    try:
+        for i in range(2):
+            rec, runner = phase27_ctr(torch, files, feed, cfg)
+            if i == 0:
+                out["kernels"] = phase27_kernels(torch, runner, files, feed,
+                                                 cfg)
+            runner.close()
+            out["ctr"].append(rec)
+        out["cpu"], runner = phase27_ctr(torch, files, feed, cfg,
+                                         device="cpu", passes=1)
+        runner.close()
+        mesh = make_mesh(MeshConfig(data=1, pipeline=1,
+                                    axis_names=("data", "pipeline")),
+                         fl.mesh)
+        out["mesh"], runner = phase27_ctr(torch, files, feed, cfg, mesh=mesh)
+        runner.close()
+        exp = dataclasses.replace(cfg, base=flagship.FLAGSHIP_EXPAND)
+        out["expand"] = []
+        for i in range(2):
+            rec, runner = phase27_ctr(torch, files, feed, exp, passes=1)
+            if i == 0:
+                out["kernels_expand"] = phase27_kernels(torch, runner, files,
+                                                        feed, exp)
+            runner.close()
+            out["expand"].append(rec)
+        out["gpipe"] = phase27_gpipe(torch)
+    finally:
+        fl.stop()
+    out["child_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase27_report(res, main):
+    """Phase 27's checks and lines in the parent, beside phase 5's passes
+    ``main``."""
+    def launched(c):
+        return json.dumps({k: v for k, v in c.items() if v})
+
+    def digits(passes):
+        return [(p["loss"], p["auc"]) for p in passes]
+
+    def same_run(a, b):
+        return (digits(a["passes"]) == digits(b["passes"])
+                and [p["store_sha"] for p in a["passes"]]
+                == [p["store_sha"] for p in b["passes"]]
+                and a["launches"] == b["launches"])
+
+    def want_launches(run, push="push_adagrad"):
+        steps = sum(p["steps"] for p in run["passes"])
+        extra = sum(gather_launches_of(p["counters"])
+                    for p in run["passes"])
+        return steps, extra, f32_launches(**{push: steps,
+                                             "gather_rows": steps + extra})
+
+    # (a) the CTR pipeline: twice bit for bit, learning, a pull and a push
+    # a step, the CPU's first pass
+    a, b = res["ctr"]
+    check(same_run(a, b), "phase 27 pipeline: two runs differ: %s / %s"
+          % (json.dumps(a), json.dumps(b)))
+    check(a["passes"][1]["loss"] < a["passes"][0]["loss"],
+          "phase 27 pipeline did not learn: %s" % digits(a["passes"]))
+    steps, extra, want = want_launches(a)
+    check(a["launches"] == want and steps == 4
+          and all(p["dropped"] == 0 for p in a["passes"]),
+          "phase 27 pipeline launches %s over %d steps, %d promotes and "
+          "write-backs; wanted %s" % (a["launches"], steps, extra, want))
+    c, g = res["cpu"]["passes"][0], a["passes"][0]
+    rel = abs(g["loss"] / c["loss"] - 1.0)
+    dauc = abs(g["auc"] - c["auc"])
+    check(rel <= PIPE_LOSS_RTOL and dauc <= PIPE_AUC_ATOL
+          and g["show_click_sha"] == c["show_click_sha"],
+          "phase 27 pipeline against its CPU run: loss %r / %r (rel %g), "
+          "AUC %r / %r; show and click %s" % (
+              g["loss"], c["loss"], rel, g["auc"], c["auc"],
+              g["show_click_sha"] == c["show_click_sha"]))
+    for p in a["passes"]:
+        log("pipe27 pass %d (CtrPipelineRunner at FLAGSHIP_PIPE, one stage "
+            "over NCCL): loss %.10f auc %.10f, %d steps of 8 micro-batches, "
+            "store sha256 %s, twice; wall %.4f s (phase 5's %.4f) counters "
+            "%s" % (p["pass"], p["loss"], p["auc"], p["steps"],
+                    p["store_sha"], p["pass_s"], main[p["pass"]]["pass_s"],
+                    json.dumps(p["counters"])))
+    log("pipe27: launches %s over %d steps: a pull (gather_rows) and one "
+        "fused push a step, and %d gather_rows at the delta promote and the "
+        "write-backs by the table's counters; the card's first pass against "
+        "the CPU's: loss rel %g (limit %g), |dAUC| %g (limit %g), show and "
+        "click equal; the CPU pass %.3f s"
+        % (launched(a["launches"]), steps, extra, rel, PIPE_LOSS_RTOL, dauc,
+           PIPE_AUC_ATOL, c["pass_s"]))
+
+    # (b) the (dp, stage) form through make_mesh = (a)
+    m = res["mesh"]
+    check(m["axes"] == ["data", "pipeline"] and same_run(m, a),
+          "phase 27 make_mesh run %s differs from (a) %s"
+          % (json.dumps(m), json.dumps(a)))
+    log("pipe27 make_mesh(data=1, pipeline=1): the (dp, stage) form = (a) "
+        "bit for bit (digits, store sha256 after each pass, launches %s); "
+        "walls %s" % (launched(m["launches"]),
+                      [p["pass_s"] for p in m["passes"]]))
+
+    # (c) the expand-64 table
+    e1, e2 = res["expand"]
+    steps, extra, want = want_launches(e1, "push_adagrad_expand")
+    check(same_run(e1, e2) and e1["launches"] == want,
+          "phase 27 expand: runs %s / %s, launches wanted %s"
+          % (json.dumps(e1), json.dumps(e2), want))
+    log("pipe27 expand-64 pass: loss %.10f auc %.10f, store sha256 %s, "
+        "twice; launches %s; wall %.4f s"
+        % (e1["passes"][0]["loss"], e1["passes"][0]["auc"],
+           e1["passes"][0]["store_sha"], launched(e1["launches"]),
+           e1["passes"][0]["pass_s"]))
+
+    # (d) GPipe
+    gp = res["gpipe"]
+    check(gp["forward_equals_sequential"]
+          and gp["losses"][-1] < gp["losses"][0],
+          "phase 27 GPipe: forward = sequential %s, losses %s"
+          % (gp["forward_equals_sequential"], gp["losses"]))
+    log("pipe27 GPipeRunner (one stage, 8 x 1024 rows, d_model 512, 3 "
+        "layers): forward = sequential_forward bit for bit %s; loss "
+        "%.10f -> %.10f over %d steps, %.3f ms a step"
+        % (gp["shape"], gp["losses"][0], gp["losses"][-1],
+           len(gp["losses"]), gp["step_ms"]))
+
+    # (e) the kernels at the step's shape, of the plain and expand tables
+    for key, push, what in (("kernels", "push_adagrad", "FLAGSHIP_PIPE"),
+                            ("kernels_expand", "push_adagrad_expand",
+                             "FLAGSHIP_PIPE over FLAGSHIP_EXPAND's table")):
+        k = res[key]
+        check(k["gather_rows"]["max_abs_err"] == 0.0
+              and k[push]["max_abs_err"] == 0.0
+              and k["gather_rows"]["ids"] == 8 * 131072
+              and k[push]["embed_grad_rows"] > 0,
+              "phase 27 kernels at the pipeline step (%s): %s"
+              % (what, json.dumps(k)))
+        for name in ("gather_rows", push):
+            log("%s at the pipeline step (%s, 8 micro-batches): bit-equal "
+                "to the plain version; %s; the ids %s PR 8's chunk batch"
+                % (name, what, json.dumps(k[name]),
+                   "are" if k["chunk_batch"] else "are not"))
+    log("pipe27 phase seconds in the child: %.3f" % res["child_s"])
+
+
 def sharded_child(files, feed, out_path, windows, bst_files, bst_feed):
     """Phase 22's spawned process: its NCCL and process-group state never
     touch phases 1-21. Writes its result (pickle) or its traceback."""
@@ -7261,7 +7645,7 @@ def sharded_phase(torch, files, feed, main, main_sha, tmp, spawn, windows,
     (FLAGSHIP_DIGITS), the written-back store's sha256, the launches
     (SHARDED_LAUNCHES) and three collectives a step; its pass walls beside
     the main path's; its bf16 leg held to phase 12's digits and the 2-byte
-    forms' launches; then phases 23-26 from the same child (phase 25 held
+    forms' launches; then phases 23-27 from the same child (phase 25 held
     to phase 19's ``tier`` run and phase 17's digits, phase 26's stream to
     phase 20's ``stream``). Returns the child's record."""
     import pickle
@@ -7339,6 +7723,8 @@ def sharded_phase(torch, files, feed, main, main_sha, tmp, spawn, windows,
     phase25_report(res["phase25"], res, tier)
     # 26. the stream over the shard (held to phase 20's), the towers, heter
     phase26_report(res["phase26"], main, stream)
+    # 27. the pipeline runners at one stage
+    phase27_report(res["phase27"], main)
     return res
 
 
@@ -7674,6 +8060,17 @@ def main() -> int:
             k["at_shapes"]["downpour_slab"] = dict(
                 p25["downpour"][0]["kernel"],
                 launches=p25["downpour"][0]["launches"]["gather_rows"])
+    # phase 27's step shape: the pipeline's group, with its runs' launches
+    p27 = sharded["phase27"]
+    for k in kernels:
+        if k["name"] in ("gather_rows", "push_adagrad"):
+            k.setdefault("at_shapes", {})["pipeline_step"] = dict(
+                p27["kernels"][k["name"]],
+                launches=p27["ctr"][0]["launches"][k["name"]])
+        if k["name"] in ("gather_rows", "push_adagrad_expand"):
+            k.setdefault("at_shapes", {})["pipeline_expand"] = dict(
+                p27["kernels_expand"][k["name"]],
+                launches=p27["expand"][0]["launches"][k["name"]])
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -7753,7 +8150,11 @@ def main() -> int:
                                  for w, r in
                                  sharded["phase26"]["writes"].items()},
                               "heter26":
-                                  sharded["phase26"]["heter"][0]["launches"]},
+                                  sharded["phase26"]["heter"][0]["launches"],
+                              "pipe27_ctr": p27["ctr"][0]["launches"],
+                              "pipe27_mesh": p27["mesh"]["launches"],
+                              "pipe27_expand":
+                                  p27["expand"][0]["launches"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

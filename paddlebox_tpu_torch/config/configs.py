@@ -5,9 +5,9 @@ dataclass there has the same field set here, so a config written for the
 JAX package constructs in the port by keyword. TrainerConfig's
 multi-device fields (sync_weight_step, sync_one_ring, a2a_dtype) are
 checked here and refused by the trainer that cannot run them, naming
-ROADMAP.md A10; MeshConfig's sizes are accepted at their defaults and
-refused otherwise, naming it too; a few are read by nothing here, as in
-the reference (each says so).
+ROADMAP.md A10; MeshConfig's sizes are validated (positive ints) and
+laid out by parallel/mesh.py make_mesh; a few are read by nothing here,
+as in the reference (each says so).
 """
 
 from __future__ import annotations
@@ -16,14 +16,6 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 from paddlebox_tpu_torch.config.flags import HostFlags
-
-
-def _a10(name: str, value, default) -> None:
-    """Refuse a multi-device field away from its default."""
-    if value != default:
-        raise ValueError("%s=%r needs the multi-device trainer (ROADMAP.md "
-                         "A10); the port takes %r only" % (name, value,
-                                                            default))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,8 +161,15 @@ class DataFeedConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The device mesh's layout (reference configs.py:136-143). The port
-    trains on one device: sizes above 1 are A10's."""
+    """The device mesh's layout (reference configs.py:136-143), one rank a
+    GPU: parallel/mesh.py ``make_mesh`` lays the ranks out row-major over
+    the axes of size above 1 and those ``axis_names`` names, and gives each
+    axis a process group. ``data`` is the data-parallel axis (the
+    pipeline's dp rows, each training its own micro-batch group, dense
+    gradients averaged over it); ``model`` the model-parallel one (an
+    ``mp`` group, as MeshTowerTrainer's); ``pipeline`` the stages of
+    parallel/pipeline.py (a stage a rank, activations sent rank to rank).
+    Each size is a positive int."""
 
     data: int = 1
     model: int = 1
@@ -179,7 +178,10 @@ class MeshConfig:
 
     def __post_init__(self):
         for name in ("data", "model", "pipeline"):
-            _a10("MeshConfig." + name, getattr(self, name), 1)
+            v = getattr(self, name)
+            if isinstance(v, bool) or not isinstance(v, int) or v < 1:
+                raise ValueError("MeshConfig.%s must be a positive int, got "
+                                 "%r" % (name, v))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,7 +31,11 @@ sgd's ``{}`` (optax.sgd keeps no state).
 A model-parallel tower (models/wide_tower.py) keeps its params outside a
 module, a dict of tensors a rank: ``tower_params_from_jax`` slices the
 reference's [P, ...] sharded leaves to one rank's, and
-``tower_params_to_jax`` stacks the ranks' back.
+``tower_params_to_jax`` stacks the ranks' back. The pipeline's stage
+params (parallel/pipeline.py) are stacked [S, ...] in the reference, every
+leaf: ``pipeline_params_from_jax`` takes stage s's slice of each (and of
+Adam's moments, the count shared), ``pipeline_params_to_jax`` stacks the
+stages' back.
 
 The async dense table (train/async_dense.py) keeps the dense state as one
 flat f32 vector in the order of ``jax.flatten_util.ravel_pytree`` over the
@@ -341,3 +345,39 @@ def tower_params_to_jax(rank_params: Sequence[Mapping[str, object]],
 
     return {k: (np.stack([host(p[k]) for p in rank_params]) if sharded[k]
                 else host(rank_params[0][k])) for k in sharded}
+
+
+def pipeline_params_from_jax(params: Mapping[str, object], stage: int,
+                             opt_state=None):
+    """The pipeline's stacked [S, ...] reference params -> (stage
+    ``stage``'s tensors, its Adam state or None): f32 copies on the CPU of
+    each leaf's slice [stage]. ``opt_state``: optax.adam's state over
+    ``params`` or ``adam_state_from_optax``'s form of it; the state comes
+    back as {"mu": {name: tensor}, "nu": {...}, "count": int}, the moments
+    sliced as the params."""
+    def cut(v) -> torch.Tensor:
+        return torch.from_numpy(np.array(np.asarray(v)[stage],
+                                         dtype=np.float32, copy=True))
+
+    tensors = {k: cut(v) for k, v in params.items()}
+    if opt_state is None:
+        return tensors, None
+    if not (isinstance(opt_state, Mapping) and "mu" in opt_state):
+        opt_state = adam_state_from_optax(opt_state, params)
+    return tensors, {"mu": {k: cut(v) for k, v in opt_state["mu"].items()},
+                     "nu": {k: cut(v) for k, v in opt_state["nu"].items()},
+                     "count": int(opt_state["count"])}
+
+
+def pipeline_params_to_jax(stage_params: Sequence[Mapping[str, object]]
+                           ) -> Dict[str, np.ndarray]:
+    """The inverse of ``pipeline_params_from_jax`` over every stage: the
+    stages' tensors (or numpy, in stage order) -> the reference's stacked
+    [S, ...] leaves."""
+    def host(v) -> np.ndarray:
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        return np.asarray(v, dtype=np.float32)
+
+    return {k: np.stack([host(p[k]) for p in stage_params])
+            for k in stage_params[0]}

@@ -11,19 +11,32 @@ names for one process a GPU. parallel/tensor_parallel.py (the TP and EP
 functions over a process group), ring_attention.py and seq_trainer.py
 split a behavior sequence over an ``sp`` process group: the ring's K/V
 hops and Ulysses' all-to-all across ranks. mesh_tower.py trains the
-models/wide_tower.py towers over an ``mp`` process group.
+models/wide_tower.py towers over an ``mp`` process group. pipeline.py
+runs micro-batch pipeline parallelism over a stage process group (the
+GPipe runner and the CTR program split, on a (stage,) or (dp, stage)
+mesh of mesh.py's make_mesh or device_mesh_1d).
 
 The reference's names the port has resolve lazily (PEP 562), as the
 reference's package does: the zoo's leaf modules import
 parallel/tensor_parallel.py and ring_attention.py, and an eager package
 would import the trainers, and the zoo again, through them. The
-pipeline's names (make_mesh, device_mesh_1d, GPipeRunner and the rest)
-come with ROADMAP.md A10c.
+pipeline over the sharded table (ShardedCtrPipelineRunner) is ROADMAP.md
+A10c's second part.
 """
 
 _EXPORTS = {
+    "device_mesh_1d": ("paddlebox_tpu_torch.parallel.mesh",
+                       "device_mesh_1d"),
     "device_mesh_2d": ("paddlebox_tpu_torch.parallel.mesh",
                        "device_mesh_2d"),
+    "make_mesh": ("paddlebox_tpu_torch.parallel.mesh", "make_mesh"),
+    "PipelineConfig": ("paddlebox_tpu_torch.parallel.pipeline",
+                       "PipelineConfig"),
+    "GPipeRunner": ("paddlebox_tpu_torch.parallel.pipeline", "GPipeRunner"),
+    "CtrPipelineRunner": ("paddlebox_tpu_torch.parallel.pipeline",
+                          "CtrPipelineRunner"),
+    "mlp_stage_apply": ("paddlebox_tpu_torch.parallel.pipeline",
+                        "mlp_stage_apply"),
     "ShardedPassTable": ("paddlebox_tpu_torch.parallel.sharded_table",
                          "ShardedPassTable"),
     "ShardedBatchIndex": ("paddlebox_tpu_torch.parallel.sharded_table",

@@ -15,9 +15,13 @@ PSGPUTrainer is the sharded trainer with its owned shard's store on the
 CPU PS (``ps_client=``, ``ps_table_id=``; embedding/ps_store.py),
 DownpourTrainer is ps/worker.py's, and HeterTrainer and HeterCpuWorker
 are fleet/heter.py's CPU worker, whose dense step runs on a
-HeterDenseService. The pipeline trainers belong to ROADMAP.md A10c: their
-names raise NotImplementedError saying so. An unknown name raises
-KeyError. ``register_trainer`` adds or overrides a name.
+HeterDenseService. PipelineTrainer is parallel/pipeline.py's GPipeRunner,
+CtrPipelineTrainer and HeterPipelineTrainer its CtrPipelineRunner (the
+CTR program split over a stage process group). The pipeline over the
+sharded table belongs to ROADMAP.md A10c's second part:
+ShardedCtrPipelineTrainer and SectionPSTrainer raise NotImplementedError
+saying so. An unknown name raises KeyError. ``register_trainer`` adds or
+overrides a name.
 """
 
 from __future__ import annotations
@@ -26,11 +30,14 @@ from typing import Any, Callable, Dict, Optional
 
 _REGISTRY: Dict[str, Callable] = {}
 
-# the reference's names whose pipeline trainers are not ported yet
-# (reference factory.py:73-90)
-A10_TRAINERS = ("PipelineTrainer", "CtrPipelineTrainer",
-                "HeterPipelineTrainer", "ShardedCtrPipelineTrainer",
-                "SectionPSTrainer")
+# the reference's names whose pipeline trainers over the sharded table
+# are not ported yet (reference factory.py:83-90)
+A10_TRAINERS = ("ShardedCtrPipelineTrainer", "SectionPSTrainer")
+# the pipeline runners over a stage process group (reference
+# factory.py:73-82): the GPipe runner and the CTR program split, which
+# the reference's HeterPipelineTrainer (trainer.h:341) names too
+PIPELINE_TRAINERS = ("PipelineTrainer", "CtrPipelineTrainer",
+                     "HeterPipelineTrainer")
 BOX_TRAINERS = ("BoxPSTrainer", "MultiTrainer", "DistMultiTrainer")
 # HeterXpuTrainer is the reference's accelerator-side trainer, which the
 # sharded trainer plays (reference factory.py:59-63)
@@ -85,10 +92,16 @@ def _builtin(name: str) -> Optional[Callable]:
     if name in MESH_TOWER_TRAINERS:
         from paddlebox_tpu_torch.parallel.mesh_tower import MeshTowerTrainer
         return MeshTowerTrainer
+    if name == "PipelineTrainer":
+        from paddlebox_tpu_torch.parallel.pipeline import GPipeRunner
+        return GPipeRunner
+    if name in PIPELINE_TRAINERS:
+        from paddlebox_tpu_torch.parallel.pipeline import CtrPipelineRunner
+        return CtrPipelineRunner
     if name in A10_TRAINERS:
         raise NotImplementedError(
-            "trainer %r is pipeline-parallel work, not ported yet "
-            "(ROADMAP.md A10c)" % name)
+            "trainer %r is the pipeline over the sharded table, not ported "
+            "yet (ROADMAP.md A10c, second part)" % name)
     return None
 
 

@@ -63,6 +63,22 @@ are FLAGSHIP's DeepFM main path with the dense optimizer sgd or adagrad
 (TrainerConfig.dense_optimizer), on the main path's files and chunk
 driver.
 
+The pipeline's configuration, ``FLAGSHIP_PIPE`` (a ``PipeFlagship``):
+parallel/pipeline.py CtrPipelineRunner over FLAGSHIP's table, feed and
+batch (32 slots, embedx 8, adagrad, a 2^20-row f32 slab; a micro-batch is
+one batch of 1024), 8 micro-batches a step, a tower of width 512 (the
+flagship DeepFM's widest layer) with 3 layers a stage, dense Adam at
+DENSE_LR, one stage (the card is one GPU): a step pulls 8 x 131,072 =
+1,048,576 ids, the first step's the chunk of ``first_chunk_ids``. Its
+projection input goes through data_norm at the pooled slot's width, as
+FLAGSHIP_CTR_DNN's does, and its weights are drawn at 1/sqrt(512): at
+the reference runner's 0.1 (sized for its d_model of 24-32) each relu
+layer of width 512 grows the activations' variance about 2.6-fold (512
+x 0.01 / 2), and on an H100 the second pass's loss rose far above the
+first's instead of falling, with data_norm (0.9555 -> 8.418) and
+without it (0.9555 -> 12.54). ``build_pipeline_trainer`` builds it through train/factory.py; a
+``base`` of FLAGSHIP_EXPAND gives its expand-64 table.
+
 ``FLAGSHIP_SSD`` is FLAGSHIP with the SSD tier: a 16 MiB host budget
 (``ssd_threshold_mb``; 246,723 rows of 68 B) against the cadence's 557,083
 pass keys, so every end_pass spills about 310,000 rows to block files in
@@ -264,6 +280,27 @@ DENSE_LR = 1e-3
 # ``hidden``
 _HIDDEN_ARG = {"dlrm": "top", "mmoe": "tower", "esmm": "tower"}
 BLOCK_ROWS = 1024  # push_block_rows of push_write='blocked'
+
+
+@dataclasses.dataclass(frozen=True)
+class PipeFlagship:
+    """A pipeline configuration: the table, feed and batch of ``base``, and
+    the CtrPipelineRunner's stages, micro-batches a step, tower width,
+    layers a stage, dense learning rate, data_norm (its show-skip block:
+    the pooled slot's 3 + embedx columns) and the weights' draws' scale."""
+
+    base: Flagship = FLAGSHIP
+    n_stages: int = 1
+    n_micro: int = 8
+    d_model: int = 512
+    layers_per_stage: int = 3
+    lr: float = DENSE_LR
+    use_data_norm: bool = True
+    dn_slot_dim: int = 3 + FLAGSHIP.embedx
+    init_scale: float = 512 ** -0.5
+
+
+FLAGSHIP_PIPE = PipeFlagship()
 
 
 def write_files(out_dir: str, cfg: Flagship = FLAGSHIP
@@ -593,3 +630,26 @@ def build_sharded_trainer(files: List[str], feed: DataFeedConfig,
     ds.set_filelist(files)
     ds.set_filelist(ds.my_shard_files(trainer.rank, trainer.P))
     return trainer, ds
+
+
+def build_pipeline_trainer(files: List[str], feed: DataFeedConfig,
+                           cfg: PipeFlagship = FLAGSHIP_PIPE,
+                           device: DeviceLike = None, seed: int = 0,
+                           mesh=None):
+    """(parallel/pipeline.py CtrPipelineRunner with an 'auc' metric,
+    dataset over ``files``) of a pipeline configuration, made by
+    train/factory.py's "CtrPipelineTrainer": ``cfg.base``'s table,
+    ``cfg``'s stages, micro-batches, width, layers, learning rate,
+    data_norm and init scale; ``mesh`` (a parallel/mesh.py AxisMesh;
+    None: the world's stages) goes to the runner."""
+    from paddlebox_tpu_torch.train.factory import create_trainer
+    runner = create_trainer(
+        "CtrPipelineTrainer", cfg.base.table(), feed, n_stages=cfg.n_stages,
+        d_model=cfg.d_model, layers_per_stage=cfg.layers_per_stage,
+        lr=cfg.lr, n_micro=cfg.n_micro, mesh=mesh, seed=seed,
+        device=device, use_data_norm=cfg.use_data_norm,
+        dn_slot_dim=cfg.dn_slot_dim, init_scale=cfg.init_scale)
+    runner.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
+    ds = BoxDataset(feed)
+    ds.set_filelist(files)
+    return runner, ds

@@ -298,8 +298,12 @@ def test_factory_names_resolve_as_the_reference(data):
                          | set(factory.SHARDED_TRAINERS)
                          | set(factory.PS_TRAINERS)
                          | set(factory.HETER_TRAINERS)
-                         | set(factory.MESH_TOWER_TRAINERS))
-    # only the pipeline's names still raise (ROADMAP.md A10c)
+                         | set(factory.MESH_TOWER_TRAINERS)
+                         | set(factory.PIPELINE_TRAINERS))
+    # only the pipeline over the sharded table still raises (ROADMAP.md
+    # A10c, second part)
+    assert set(factory.A10_TRAINERS) == {"ShardedCtrPipelineTrainer",
+                                         "SectionPSTrainer"}
     for name in factory.A10_TRAINERS:
         with pytest.raises(NotImplementedError, match="A10c"):
             factory.create_trainer(name)
@@ -313,11 +317,18 @@ def test_factory_names_resolve_as_the_reference(data):
     from paddlebox_tpu_torch.parallel.mesh_tower import MeshTowerTrainer
     from paddlebox_tpu_torch.parallel.sharded_trainer import \
         ShardedBoxTrainer
+    from paddlebox_tpu.parallel.pipeline import CtrPipelineRunner as JCtrPipe
+    from paddlebox_tpu.parallel.pipeline import GPipeRunner as JGPipe
+    from paddlebox_tpu_torch.parallel.pipeline import (CtrPipelineRunner,
+                                                       GPipeRunner)
     for name, mine, theirs in (
             ("HeterXpuTrainer", ShardedBoxTrainer, JSharded),
             ("MeshTowerTrainer", MeshTowerTrainer, JTower),
             ("HeterTrainer", HeterTrainer, JHeter),
-            ("HeterCpuWorker", HeterTrainer, JHeter)):
+            ("HeterCpuWorker", HeterTrainer, JHeter),
+            ("PipelineTrainer", GPipeRunner, JGPipe),
+            ("CtrPipelineTrainer", CtrPipelineRunner, JCtrPipe),
+            ("HeterPipelineTrainer", CtrPipelineRunner, JCtrPipe)):
         assert factory._builtin(name) is mine, name
         assert jfactory._builtin(name) is theirs, name
     # the PS trainers resolve: PSGPUTrainer wants its client, as the

@@ -192,9 +192,14 @@ def test_a10_trainer_fields_refused(field, value):
 
 
 def test_mesh_sizes_refused():
+    """Sizes above 1 are taken (parallel/mesh.py make_mesh lays them
+    out); a size that is not a positive int is refused."""
     configs.MeshConfig()
-    with pytest.raises(ValueError, match="A10"):
-        configs.MeshConfig(data=2)
+    assert configs.MeshConfig(data=2, pipeline=4).pipeline == 4
+    jconfigs.MeshConfig(data=2, pipeline=4)
+    for bad in (0, -2, 2.0):
+        with pytest.raises(ValueError, match="positive int"):
+            configs.MeshConfig(data=bad)
 
 
 SLOTS = (("s0", 4), ("s1", 2), ("s2", 20))

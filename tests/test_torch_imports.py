@@ -57,7 +57,7 @@ def test_import_loads_no_jax_and_no_reference_module():
               "ps.service", "ps.worker", "embedding.ps_store",
               "parallel.tensor_parallel", "parallel.sharded_table",
               "models.wide_tower", "parallel.mesh_tower", "fleet.heter",
-              "fleet.executor"):
+              "fleet.executor", "parallel.mesh", "parallel.pipeline"):
         assert "paddlebox_tpu_torch." + m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
