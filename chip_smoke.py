@@ -454,6 +454,31 @@ Phases, each of which raises on a failed check (exit code != 0):
      2^20 x 82 slab, push rows of width 76), bit-equal to their plain
      versions, with kernel, plain, library and bound times ("pipe27"
      lines; the kernels line's pipeline_step and pipeline_expand shapes);
+     then phase 28, the pipeline over the sharded table, after them on a
+     world-1 NCCL fleet of its own (P = S = dp = 1: NCCL refuses two ranks
+     on one device; the world group still carries both all-to-alls): (a)
+     create_trainer("ShardedCtrPipelineTrainer") through
+     flagship.build_sharded_pipeline at FLAGSHIP_PIPE, two passes twice
+     with phase 27's seeds: the runs bit-identical, the loss falling, both
+     passes equal to phase 27 (a)'s digits and store sha256 (the shard is
+     the whole table: the bucket merge and the owner's dedup keep the
+     replicated runner's numbers), a pull and a push a step by the
+     launch counts (and the promote and write-backs), the pull's and the
+     push's all-to-alls and one host exchange a step by collective_counts;
+     (b) a pass each under push_write blocked (blocked_write a step) and
+     rebuild (one more gather_rows a step), each = (a)'s first pass; (c)
+     one pass on the expand-64 table = phase 27 (c), push_adagrad_expand a
+     step; (d) create_trainer("SectionPSTrainer") over a PsLocalClient,
+     two passes = (a), the server's rows of the pass keys hashing to (a)'s
+     store sha256; (e) gather_rows over a staged step's 2,097,152 served
+     ids, the push over its 2,097,152 received rows, blocked_write of its
+     new rows and the rebuild write's gather of them at the step's
+     [2^20] position map, and on the expand-64 table's step gather_rows
+     at width 82 over its served ids and push_adagrad_expand over its
+     received rows of width 76, each bit-equal to its plain version, with
+     kernel, plain, library and bound times ("pipe28" lines; the kernels
+     line's pipeline_shard_step, pipeline_shard_rebuild and
+     pipeline_shard_expand shapes);
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -5249,7 +5274,7 @@ SHARDED_LAUNCHES = {"push_adagrad": 32, "gather_rows": 35,
 # its bf16 leg's (FLAGSHIP_BF16): the 2-byte forms, as phase 12's
 SHARDED_BF16_LAUNCHES = {"push_adagrad_bf16": 32, "gather_rows_decode": 32,
                          "gather_rows_2byte": 3}
-SHARDED_CHILD_S = 720.0       # the child's wall limit (phases 22-27)
+SHARDED_CHILD_S = 720.0       # the child's wall limit (phases 22-28)
 SHARDED_GROUP_S = 120.0       # its process groups' timeout
 SHARDED_SEED = 0              # the main path's trainer seed
 
@@ -5494,6 +5519,8 @@ def sharded_run(torch, files, feed, out_path, windows, bst_files, bst_feed):
                                    os.path.dirname(out_path))
     # 27. pipeline parallelism at one stage
     out["phase27"] = phase27_child(torch, files, feed, store)
+    # 28. the pipeline over the sharded table at world 1
+    out["phase28"] = phase28_child(torch, files, feed, store)
     return out
 
 
@@ -7620,6 +7647,411 @@ def phase27_report(res, main):
     log("pipe27 phase seconds in the child: %.3f" % res["child_s"])
 
 
+# phase 28: the pipeline over the sharded table at world 1
+# (ShardedCtrPipelineRunner at FLAGSHIP_PIPE through create_trainer, its
+# writes, the expand-64 table and SectionPSTrainer over a PsLocalClient),
+# on a world-1 NCCL fleet of its own in phase 22's child after phase 27
+PHASE28_TABLE_ID = 28      # the PS's sparse table of SectionPSTrainer's run
+
+
+def phase28_seeds(torch):
+    """Phase 27's push seeds (CtrPipelineRunner._draw_seed at
+    SHARDED_SEED)."""
+    gen = torch.Generator().manual_seed(SHARDED_SEED + 31)
+    return lambda: int(torch.randint(0, 2**31 - 1, (), generator=gen))
+
+
+def phase28_run(torch, files, feed, fl, cfg, push="scatter", passes=2,
+                client=None):
+    """One run of the pipeline over the sharded table on ``fl``
+    (flagship.build_sharded_pipeline: create_trainer's
+    "ShardedCtrPipelineTrainer", or with ``client`` its "SectionPSTrainer"
+    over that client's table PHASE28_TABLE_ID) at the pipeline
+    configuration ``cfg`` with the write ``push`` and phase 27's seeds:
+    ``passes`` passes over the main path's files, each pass's digits,
+    steps, wall, table counters and the store's sha256 (over the PS: the
+    server's rows of the pass keys). Returns (the record, the runner)."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.config.flags import PushFlags
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.train import flagship
+
+    runner = flagship.build_sharded_pipeline(
+        fl, feed, cfg, seed=SHARDED_SEED,
+        push_flags=PushFlags(push, flagship.BLOCK_ROWS), ps_client=client,
+        ps_table_id=PHASE28_TABLE_ID)
+    try:
+        check(runner.P == 1 and runner.stage.size == 1 and runner.dp == 1
+              and runner.device.type == "cuda"
+              and runner.batches_per_step == cfg.n_micro
+              and runner.bucket_cap == 2 * cfg.n_micro * feed.key_capacity()
+              and runner.push_write == push
+              and (client is None or runner.table.shard.store.primary),
+              "phase 28 runner: P %d, %d stages, dp %d, %s, KB %d, write %s"
+              % (runner.P, runner.stage.size, runner.dp, runner.device,
+                 runner.bucket_cap, runner.push_write))
+        runner.seed_fn = phase28_seeds(torch)
+        ex0 = runner.host_mesh.exchanges
+        reset_counts()
+        out = []
+        for i in range(passes):
+            ds = BoxDataset(feed)
+            ds.set_filelist(files)
+            before = dict(runner.table.counters)
+            t0 = time.perf_counter()
+            res = runner.train_pass(ds)
+            torch.cuda.synchronize()
+            rec = {"pass": i, "loss": res["loss"],
+                   "auc": runner.metrics.get_metric_msg(
+                       "auc", allreduce=fl.metric_allreduce())["auc"],
+                   "steps": res["steps"], "dropped": res["dropped_batches"],
+                   "pass_s": time.perf_counter() - t0,
+                   "counters": counter_delta(before, runner.table)}
+            if client is None:
+                rec["store_sha"] = shard_store_sha(runner)
+            else:
+                keys = np.sort(runner.table.shard_keys(0))
+                rec["store_sha"] = sha_of(keys, client.pull_sparse(
+                    PHASE28_TABLE_ID, keys, create=False))
+                rec["server_rows"] = int(client.sparse_size(
+                    PHASE28_TABLE_ID))
+            out.append(rec)
+        return ({"push_write": push, "passes": out, "launches": counts(),
+                 "collectives": dict(runner.collective_counts),
+                 "a2a_bytes": dict(runner.a2a_bytes),
+                 "exchanges": runner.host_mesh.exchanges - ex0,
+                 "bucket_cap": runner.bucket_cap,
+                 "shard_cap": runner.table.shard_cap}, runner)
+    except BaseException:
+        runner.close()
+        raise
+
+
+def phase28_kernels(torch, runner, files, feed):
+    """(e) the kernels at the sharded pipeline step's shape, from a run's
+    runner: a fresh pass's first group staged (its P x KB = 2,097,152
+    served ids), its block pulled, the step's forward and backward, the
+    push rows merged into the buckets and through their a2a, nothing
+    applied: gather_rows of the served ids from the shard slab (width 17,
+    or 82 under expand: the extended pull), the fused push's form
+    (push_adagrad, or push_adagrad_expand) over the 2,097,152 received
+    rows (scatter and rows out), and on the base table blocked_write of
+    the step's new rows in BLOCK_ROWS blocks and the rebuild write's
+    gather of them at the step's [shard_cap] position map
+    (pass_table.pos_for_rebuild, as the rebuild staging makes it), each
+    bit-equal to its plain version (and to index_select, index_copy_);
+    kernel, plain, library and bound times."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.optimizers import blocked_layout
+    from paddlebox_tpu_torch.embedding.pass_table import pos_for_rebuild
+    from paddlebox_tpu_torch.push_probe import SEED, fused_push_bytes
+    from paddlebox_tpu_torch.rate_probe import time_chain
+    from paddlebox_tpu_torch.train import flagship
+
+    table = runner.table
+    ds = BoxDataset(feed)
+    ds.set_filelist(files)
+    table.begin_feed_pass()
+    ds.load_into_memory(add_keys_fn=table.add_keys)
+    table.end_feed_pass(allgather=runner.fleet.all_gather)
+    table.build_owned_slabs()
+    try:
+        group = ds.split_batches(1)[0][:runner.batches_per_step]
+        st = runner.device_batch(group)
+        slab = table.slab
+        cap, W = slab.shape
+        layout, conf = runner.layout, table.shard.config.optimizer
+        form = pk.push_form(layout)
+        out = {"form": form, "gather_rows": gather_record(
+            torch, slab, st["req"], "at the sharded pipeline step (width "
+            "%d)" % W)}
+        r = runner.forward_backward(st)
+        runner.dense_opt.zero_grad(set_to_none=True)
+        pg = runner.push_grads(st, r["demb"], r["dexp"])
+        g = runner._a2a(pk.merge_push_grads(pg, st["bperm"],
+                                            st["boffsets"]), "a2a_push")
+        u, p, o, n_uniq = st["uids"], st["perm"], st["offsets"], st["n_uniq"]
+        err = 0.0
+        for rows_out in (False, True):
+            s_k, s_p = slab.clone(), slab.clone()
+            r_k = pk.push_adagrad(s_k, g, p, o, u, n_uniq, SEED, layout,
+                                  conf, rows_out)
+            torch.cuda.synchronize()
+            r_p = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n_uniq, SEED,
+                                              layout, conf, rows_out)
+            check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+                  and (not rows_out or torch.equal(r_k.view(torch.int32),
+                                                   r_p.view(torch.int32))),
+                  "%s (rows_out=%s) at the sharded pipeline step differs "
+                  "from the plain version" % (form, rows_out))
+            err = max(err, float((s_k - s_p).abs().max()))
+            del s_k, s_p, r_k, r_p
+        n_valid = int(o[-1])
+        G, D = int(g.shape[1]), layout.embedx_dim + layout.expand_dim
+        nbytes = fused_push_bytes(n_valid, n_uniq, W, G)
+        n_real = int((u[:n_uniq] < cap - 1).sum())
+        ops = n_valid * G + n_real * (20 + 6 * D)
+        args = (slab, g, p, o, u)
+        out[form] = {
+            "slab": [cap, W], "push_rows": [int(g.shape[0]), G],
+            "occurrences": n_valid, "n_uniq": int(n_uniq), "bytes": nbytes,
+            "max_abs_err": err,
+            "embed_grad_rows": int((pg[:, 3:].abs().sum(1) > 0).sum()),
+            "ms": time_chain(lambda *a: pk.push_adagrad(
+                *a, n_uniq, SEED, layout, conf, rows_out=True), args,
+                nbytes),
+            "plain_ms": time_chain(lambda *a: pk.push_adagrad_fused_plain(
+                *a, n_uniq, SEED, layout, conf, rows_out=True), args,
+                nbytes),
+            "library_ms": None,
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  ops / F32_FLOPS),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / F32_FLOPS else "operations")}
+        out["distinct_ids"] = int(np.unique(
+            st["req"].cpu().numpy()).size)
+        if layout.expand_dim:
+            return out
+        rows = pk.push_adagrad(slab.clone(), g, p, o, u, n_uniq, SEED,
+                               layout, conf, rows_out=True)
+        row_map, blk_idx = blocked_layout(u, cap, flagship.BLOCK_ROWS)
+        s_k, s_p, s_l = slab.clone(), slab.clone(), slab.clone()
+        pk.blocked_write(s_k, rows, row_map, blk_idx)
+        torch.cuda.synchronize()
+        pk.blocked_write_plain(s_p, rows, row_map, blk_idx)
+        idx = u[:n_uniq].long()
+        s_l.index_copy_(0, idx, rows)
+        check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+              and torch.equal(s_k.view(torch.int32), s_l.view(torch.int32)),
+              "blocked_write at the sharded pipeline step differs from its "
+              "plain version or index_copy_")
+        NB, B = row_map.shape
+        placed = int((row_map >= 0).sum())
+        nbytes = NB * B * 4 + NB * 4 + placed * W * 4 * 2
+        args = (s_k, rows, row_map, blk_idx)
+        out["blocked_write"] = {
+            "slab": [cap, W], "rows": [int(n_uniq), W], "NB": NB, "B": B,
+            "placed": placed, "bytes": nbytes,
+            "max_abs_err": float((s_k - s_p).abs().max()),
+            "ms": time_chain(pk.blocked_write, args, nbytes),
+            "plain_ms": time_chain(pk.blocked_write_plain, args, nbytes),
+            "library_ms": time_chain(
+                lambda s, i, rr: s.index_copy_(0, i, rr), (s_l, idx, rows),
+                nbytes),
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
+        del s_k, s_p, s_l
+        pos = torch.from_numpy(pos_for_rebuild(
+            u.cpu().numpy(), cap)).to(slab.device)
+        check(int((pos >= 0).sum()) == n_uniq,
+              "the sharded pipeline step's rebuild map names %d rows, the "
+              "push's n_uniq is %d" % (int((pos >= 0).sum()), n_uniq))
+        out["rebuild_gather"] = gather_record(
+            torch, rows, pos.clamp(0, n_uniq - 1),
+            "at the sharded pipeline step's rebuild map")
+        return out
+    finally:
+        table.end_pass()
+
+
+def phase28_child(torch, files, feed, store):
+    """Phase 28 in the child, on a world-1 NCCL fleet of its own over the
+    child's TCPStore: (a) the pipeline over the sharded table at
+    FLAGSHIP_PIPE twice (the first run's runner then holds (e) the
+    kernels at the step's shape), (b) a pass under the blocked and the
+    rebuild writes, (c) the expand-64 table's pass (its runner then holds
+    (e) the expand form's kernels), (d) SectionPSTrainer over a
+    PsLocalClient. Its records and host seconds."""
+    import dataclasses
+
+    from paddlebox_tpu_torch.ps import PsLocalClient
+    from paddlebox_tpu_torch.train import flagship
+
+    t0 = time.perf_counter()
+    cfg = flagship.FLAGSHIP_PIPE
+    out = {"runs": [], "writes": {}}
+    fl = phase24_fleet(store, "phase28")
+    try:
+        for i in range(2):
+            rec, runner = phase28_run(torch, files, feed, fl, cfg)
+            try:
+                if i == 0:
+                    out["kernels"] = phase28_kernels(torch, runner, files,
+                                                     feed)
+            finally:
+                runner.close()
+            out["runs"].append(rec)
+        for write in ("blocked", "rebuild"):
+            rec, runner = phase28_run(torch, files, feed, fl, cfg, write,
+                                      passes=1)
+            runner.close()
+            out["writes"][write] = rec
+        exp = dataclasses.replace(cfg, base=flagship.FLAGSHIP_EXPAND)
+        out["expand"], runner = phase28_run(torch, files, feed, fl, exp,
+                                            passes=1)
+        try:
+            out["kernels_expand"] = phase28_kernels(torch, runner, files,
+                                                    feed)
+        finally:
+            runner.close()
+        client = PsLocalClient()
+        client.create_sparse_table(PHASE28_TABLE_ID, cfg.base.table(),
+                                   shard_num=PHASE25_SHARD_NUM, seed=0)
+        out["ps"], runner = phase28_run(torch, files, feed, fl, cfg,
+                                        client=client)
+        runner.close()
+    finally:
+        fl.stop()
+    out["child_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase28_report(res, p27):
+    """Phase 28's checks and lines in the parent, against phase 27's runs
+    ``p27``."""
+    def launched(c):
+        return json.dumps({k: v for k, v in c.items() if v})
+
+    def digits(passes):
+        return [(p["loss"], p["auc"]) for p in passes]
+
+    def shas(passes):
+        return [p["store_sha"] for p in passes]
+
+    def want_launches(run, push="push_adagrad"):
+        steps = sum(p["steps"] for p in run["passes"])
+        extra = sum(gather_launches_of(p["counters"])
+                    for p in run["passes"])
+        write = run["push_write"]
+        return steps, extra, f32_launches(**{
+            push: steps,
+            "gather_rows": steps + extra + (steps if write == "rebuild"
+                                            else 0),
+            "blocked_write": steps if write == "blocked" else 0})
+
+    def check_run(run, what, push="push_adagrad"):
+        steps, extra, want = want_launches(run, push)
+        c = run["collectives"]
+        check(run["launches"] == want
+              and all(p["dropped"] == 0 for p in run["passes"])
+              and c == {"a2a_pull": steps, "a2a_push": steps}
+              and run["exchanges"] == steps,
+              "phase 28 %s: launches %s over %d steps and %d promotes and "
+              "write-backs (wanted %s), collectives %s, exchanges %d"
+              % (what, run["launches"], steps, extra, want, c,
+                 run["exchanges"]))
+        return steps, extra
+
+    # (a) twice bit for bit, learning, = phase 27 (a) at P = 1
+    a, b = res["runs"]
+    p27a = p27["ctr"][0]
+    check(digits(a["passes"]) == digits(b["passes"])
+          and shas(a["passes"]) == shas(b["passes"])
+          and a["launches"] == b["launches"],
+          "phase 28 (a): two runs differ: %s / %s"
+          % (json.dumps(a), json.dumps(b)))
+    check(a["passes"][1]["loss"] < a["passes"][0]["loss"],
+          "phase 28 (a) did not learn: %s" % digits(a["passes"]))
+    check(a["bucket_cap"] == 2097152 and a["shard_cap"] == 1 << 20,
+          "phase 28 (a) shapes: KB %d, shard_cap %d"
+          % (a["bucket_cap"], a["shard_cap"]))
+    steps, extra = check_run(a, "(a)")
+    check(digits(a["passes"]) == digits(p27a["passes"])
+          and shas(a["passes"]) == shas(p27a["passes"]),
+          "phase 28 (a) differs from phase 27 (a): %s / %s, sha256 %s / %s"
+          % (digits(a["passes"]), digits(p27a["passes"]),
+             shas(a["passes"]), shas(p27a["passes"])))
+    for p in a["passes"]:
+        log("pipe28 pass %d (ShardedCtrPipelineRunner at FLAGSHIP_PIPE, "
+            "world 1 over NCCL): loss %.10f auc %.10f = phase 27 (a), %d "
+            "steps, store sha256 %s, twice; wall %.4f s (phase 27's %.4f) "
+            "counters %s" % (p["pass"], p["loss"], p["auc"], p["steps"],
+                             p["store_sha"], p["pass_s"],
+                             p27a["passes"][p["pass"]]["pass_s"],
+                             json.dumps(p["counters"])))
+    log("pipe28: launches %s over %d steps (a pull and a push a step, %d "
+        "gather_rows at the promote and write-backs); collectives %s, %d "
+        "host exchanges, a2a bytes %s; KB %d"
+        % (launched(a["launches"]), steps, extra,
+           json.dumps(a["collectives"]), a["exchanges"],
+           json.dumps(a["a2a_bytes"]), a["bucket_cap"]))
+
+    # (b) the writes, each = (a)'s first pass
+    for write, run in res["writes"].items():
+        check(digits(run["passes"]) == digits(a["passes"][:1])
+              and shas(run["passes"]) == shas(a["passes"][:1]),
+              "phase 28 %s pass differs from (a)'s first: %s / %s"
+              % (write, json.dumps(run["passes"]),
+                 json.dumps(a["passes"][:1])))
+        check_run(run, "(b) " + write)
+        log("pipe28 %s pass: = (a)'s first bit for bit (digits, store "
+            "sha256); launches %s; wall %.4f s"
+            % (write, launched(run["launches"]),
+               run["passes"][0]["pass_s"]))
+
+    # (c) the expand-64 pass = phase 27 (c)
+    e, p27e = res["expand"], p27["expand"][0]
+    check(digits(e["passes"]) == digits(p27e["passes"])
+          and shas(e["passes"]) == shas(p27e["passes"]),
+          "phase 28 expand pass %s differs from phase 27 (c) %s"
+          % (json.dumps(e["passes"]), json.dumps(p27e["passes"])))
+    check_run(e, "(c) expand", "push_adagrad_expand")
+    log("pipe28 expand-64 pass: loss %.10f auc %.10f, store sha256 %s = "
+        "phase 27 (c); launches %s; wall %.4f s"
+        % (e["passes"][0]["loss"], e["passes"][0]["auc"],
+           e["passes"][0]["store_sha"], launched(e["launches"]),
+           e["passes"][0]["pass_s"]))
+
+    # (d) SectionPSTrainer = (a)
+    ps = res["ps"]
+    check(digits(ps["passes"]) == digits(a["passes"])
+          and shas(ps["passes"]) == shas(a["passes"]),
+          "phase 28 SectionPSTrainer %s differs from (a) %s"
+          % (json.dumps(ps["passes"]), json.dumps(a["passes"])))
+    check_run(ps, "(d) SectionPSTrainer")
+    log("pipe28 SectionPSTrainer (PsLocalClient): digits = (a), the "
+        "server's rows of the pass keys hash to (a)'s store sha256 after "
+        "each pass (%d rows on the server); launches %s; walls %s"
+        % (ps["passes"][-1]["server_rows"], launched(ps["launches"]),
+           [p["pass_s"] for p in ps["passes"]]))
+
+    # (e) the kernels at the step's shape: the base table's and the
+    # expand-64 table's
+    k, ke = res["kernels"], res["kernels_expand"]
+    check(all(r["max_abs_err"] == 0.0 for r in (
+              k["gather_rows"], k["push_adagrad"], k["blocked_write"],
+              k["rebuild_gather"], ke["gather_rows"],
+              ke["push_adagrad_expand"]))
+          and k["gather_rows"]["ids"] == ke["gather_rows"]["ids"] == 2097152
+          and k["gather_rows"]["src"] == [1 << 20, 17]
+          and ke["gather_rows"]["src"] == [1 << 20, 82]
+          and k["push_adagrad"]["push_rows"][0] == 2097152
+          and ke["push_adagrad_expand"]["push_rows"] == [
+              2097152, k["push_adagrad"]["push_rows"][1] + 64]
+          and k["push_adagrad"]["embed_grad_rows"] > 0
+          and ke["push_adagrad_expand"]["embed_grad_rows"] > 0
+          and k["blocked_write"]["placed"] > 0
+          and k["rebuild_gather"]["ids"] == 1 << 20
+          and k["rebuild_gather"]["src"] == [
+              k["push_adagrad"]["n_uniq"], 17],
+          "phase 28 kernels at the sharded pipeline step: %s / %s"
+          % (json.dumps(k), json.dumps(ke)))
+    for name in ("gather_rows", "push_adagrad", "blocked_write",
+                 "rebuild_gather"):
+        log("%s at the sharded pipeline step (world 1, KB 2,097,152, %d "
+            "distinct served ids): bit-equal to the plain version; %s"
+            % (name, k["distinct_ids"], json.dumps(k[name])))
+    for name in ("gather_rows", "push_adagrad_expand"):
+        log("%s at the sharded pipeline's expand-64 step (world 1, KB "
+            "2,097,152, %d distinct served ids): bit-equal to the plain "
+            "version; %s" % (name, ke["distinct_ids"], json.dumps(ke[name])))
+    log("pipe28 phase seconds in the child: %.3f" % res["child_s"])
+
+
 def sharded_child(files, feed, out_path, windows, bst_files, bst_feed):
     """Phase 22's spawned process: its NCCL and process-group state never
     touch phases 1-21. Writes its result (pickle) or its traceback."""
@@ -7725,6 +8157,8 @@ def sharded_phase(torch, files, feed, main, main_sha, tmp, spawn, windows,
     phase26_report(res["phase26"], main, stream)
     # 27. the pipeline runners at one stage
     phase27_report(res["phase27"], main)
+    # 28. the pipeline over the sharded table, held to phase 27's runs
+    phase28_report(res["phase28"], res["phase27"])
     return res
 
 
@@ -8071,6 +8505,29 @@ def main() -> int:
             k.setdefault("at_shapes", {})["pipeline_expand"] = dict(
                 p27["kernels_expand"][k["name"]],
                 launches=p27["expand"][0]["launches"][k["name"]])
+    # phase 28's step shapes: the sharded pipeline's served ids and
+    # received rows, the rebuild map, the expand-64 step, with their runs'
+    # launches ((a), the blocked and rebuild passes', (c)'s)
+    p28 = sharded["phase28"]
+    k28, w28 = p28["kernels"], p28["writes"]
+    at28 = {"gather_rows": [
+                ("pipeline_shard_step", k28["gather_rows"], p28["runs"][0]),
+                ("pipeline_shard_rebuild", k28["rebuild_gather"],
+                 w28["rebuild"]),
+                ("pipeline_shard_expand", p28["kernels_expand"]["gather_rows"],
+                 p28["expand"])],
+            "push_adagrad": [("pipeline_shard_step", k28["push_adagrad"],
+                              p28["runs"][0])],
+            "blocked_write": [("pipeline_shard_step", k28["blocked_write"],
+                               w28["blocked"])],
+            "push_adagrad_expand": [
+                ("pipeline_shard_expand",
+                 p28["kernels_expand"]["push_adagrad_expand"],
+                 p28["expand"])]}
+    for k in kernels:
+        for shape, rec, run in at28.get(k["name"], ()):
+            k.setdefault("at_shapes", {})[shape] = dict(
+                rec, launches=run["launches"][k["name"]])
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -8154,7 +8611,12 @@ def main() -> int:
                               "pipe27_ctr": p27["ctr"][0]["launches"],
                               "pipe27_mesh": p27["mesh"]["launches"],
                               "pipe27_expand":
-                                  p27["expand"][0]["launches"]},
+                                  p27["expand"][0]["launches"],
+                              "pipe28_sharded": p28["runs"][0]["launches"],
+                              **{"pipe28_" + w: r["launches"]
+                                 for w, r in p28["writes"].items()},
+                              "pipe28_expand": p28["expand"]["launches"],
+                              "pipe28_section_ps": p28["ps"]["launches"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

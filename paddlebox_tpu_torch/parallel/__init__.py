@@ -14,14 +14,14 @@ hops and Ulysses' all-to-all across ranks. mesh_tower.py trains the
 models/wide_tower.py towers over an ``mp`` process group. pipeline.py
 runs micro-batch pipeline parallelism over a stage process group (the
 GPipe runner and the CTR program split, on a (stage,) or (dp, stage)
-mesh of mesh.py's make_mesh or device_mesh_1d).
+mesh of mesh.py's make_mesh or device_mesh_1d), and the CTR program
+split over the sharded pass table (ShardedCtrPipelineRunner: rank =
+shard over the whole mesh).
 
 The reference's names the port has resolve lazily (PEP 562), as the
 reference's package does: the zoo's leaf modules import
 parallel/tensor_parallel.py and ring_attention.py, and an eager package
-would import the trainers, and the zoo again, through them. The
-pipeline over the sharded table (ShardedCtrPipelineRunner) is ROADMAP.md
-A10c's second part.
+would import the trainers, and the zoo again, through them.
 """
 
 _EXPORTS = {
@@ -35,6 +35,8 @@ _EXPORTS = {
     "GPipeRunner": ("paddlebox_tpu_torch.parallel.pipeline", "GPipeRunner"),
     "CtrPipelineRunner": ("paddlebox_tpu_torch.parallel.pipeline",
                           "CtrPipelineRunner"),
+    "ShardedCtrPipelineRunner": ("paddlebox_tpu_torch.parallel.pipeline",
+                                 "ShardedCtrPipelineRunner"),
     "mlp_stage_apply": ("paddlebox_tpu_torch.parallel.pipeline",
                         "mlp_stage_apply"),
     "ShardedPassTable": ("paddlebox_tpu_torch.parallel.sharded_table",

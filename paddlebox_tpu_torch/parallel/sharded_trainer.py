@@ -199,6 +199,71 @@ def rank_seed(seed: int, rank: int) -> int:
         1, np.uint64)[0] & np.uint64(2**63 - 1))
 
 
+def stage_routed(idx, valid: np.ndarray, rank: int, P: int, KB: int,
+                 table: ShardedPassTable, host_mesh, policy, wire: str,
+                 push_write: str, hot_counts: Dict[str, int]) -> Staged:
+    """The host exchange's and the push's products of one routed key set
+    (``idx``: the ShardedBatchIndex of its keys, ``valid`` its valid flags
+    after the routing) on rank ``rank`` of P, by the ``wire``
+    (StageFlags.wire; reference _step_host_arrays :753-805). On the full
+    wire the host exchange of the buckets gives the ids this shard serves
+    (``req``) and, in a train pass, their sorted dedup (which marks the
+    touched rows; the rebuild write's map too, where ``push_write`` is
+    'rebuild'); on the lean wires the buckets go to the device (its a2a
+    carries the ids) and, in a train pass, the uid exchange gives the
+    sorted uids (the uid wire stages them, the delta wire them coded, the
+    ids-only wire nothing) and the count of real ids the a2a brings
+    (``push_n_valid``). A train pass also stages the bucket merge's order:
+    ``bperm``, the live key positions by bucket slot, each slot's
+    occurrences ascending, and ``boffsets`` [P * KB + 1]. Collective (the
+    exchanges): every rank stages its steps in the same order. The sharded
+    trainer stages a batch through it, the sharded pipeline a stage
+    rank's micro slice."""
+    cap = table.shard_cap
+    train = not table.test_mode
+    host: Staged = {}
+    if wire == "full":
+        inc = exchange_incoming_p2p(idx.buckets[None], [rank], P, host_mesh,
+                                    policy)[rank]
+        host["req"] = inc.reshape(-1)
+        if train:
+            prod = stage_push_dedup(
+                {rank: inc}, cap, note_touched=table.note_touched,
+                rebuild=push_write == "rebuild")
+            host.update(uids=prod["push_uids"][0],
+                        perm=prod["push_perm"][0],
+                        offsets=prod["push_offsets"][0],
+                        n_uniq=prod["n_uniq"][0])
+            if "push_pos" in prod:
+                host["push_pos"] = prod["push_pos"][0]
+    else:
+        host["buckets"] = idx.buckets.reshape(-1)
+        if train:
+            uids_by, n_real = exchange_push_uids_p2p(
+                idx.buckets[None], [rank], P, cap, host_mesh, policy,
+                hot_counts=hot_counts)
+            prod = stage_push_dedup(
+                None, cap, note_touched=table.note_touched, uid_only=True,
+                uids_by_dest=uids_by)
+            uids = prod["push_uids"][0]
+            host.update(n_uniq=prod["n_uniq"][0], push_n_valid=n_real[rank])
+            if wire == "uid":
+                host["uids"] = uids
+            elif wire == "delta":
+                base, d16, cut = delta_encode_uids(uids, cap)
+                host.update(uid_base=int(base), uid_d16=d16,
+                            uid_cut=int(cut))
+    if train:
+        # the bucket merge: each slot's occurrences in ascending order
+        live = np.flatnonzero(valid)
+        slots = idx.restore[live]
+        order = np.argsort(slots, kind="stable")
+        host["bperm"] = live[order].astype(np.int32)
+        host["boffsets"] = np.searchsorted(
+            slots[order], np.arange(P * KB + 1)).astype(np.int32)
+    return host
+
+
 class ShardedBoxTrainer(BatchOutputs):
     """One rank of the sharded trainer (module docstring). Its batches feed
     this rank's metrics, quality and drift planes and dump writer
@@ -444,20 +509,11 @@ class ShardedBoxTrainer(BatchOutputs):
     def stage_host(self, b: PackedBatch, routed=None) -> Staged:
         """One step's host staging (reference _step_host_arrays :753-805)
         after its routing (``routed``: _route's (valid, index), made here
-        when None): the batch's leaves, the push's products by the wire,
-        and the bucket merge's order. On the full wire the host exchange
-        of the buckets gives the ids this shard serves (``req``) and, in a
-        train pass, their sorted dedup (which marks the touched rows; the
-        rebuild write's map too); on the lean wires the buckets go to the
-        device (its a2a carries the ids) and, in a train pass, the uid
-        exchange gives the sorted uids (the uid wire stages them, the
-        delta wire them coded, the ids-only wire nothing) and the count of
-        real ids the a2a brings (``push_n_valid``). Collective (the
-        exchanges): every rank stages its steps in the same order."""
+        when None): the batch's leaves, then ``stage_routed``'s products
+        (the exchange's, the push's by the wire, the bucket merge's
+        order). Collective (the exchanges): every rank stages its steps in
+        the same order."""
         valid, idx = routed if routed is not None else self._route(b)
-        P, KB, r = self.P, self.bucket_cap, self.rank
-        train = not self.table.test_mode
-        wire = self.stage_flags.wire
         host: Staged = {"restore": idx.restore, "segments": b.segments,
                         "valid": valid, "ins_valid": b.ins_valid,
                         "labels": b.labels, "n_valid": int(b.valid.sum())}
@@ -469,47 +525,10 @@ class ShardedBoxTrainer(BatchOutputs):
             for t in self.task_names:
                 if t in b.task_labels:
                     host["labels_" + t] = b.task_labels[t]
-        cap = self.table.shard_cap
-        if wire == "full":
-            inc = exchange_incoming_p2p(idx.buckets[None], [r], P,
-                                        self.host_mesh, self.policy)[r]
-            host["req"] = inc.reshape(-1)
-            if train:
-                prod = stage_push_dedup(
-                    {r: inc}, cap, note_touched=self.table.note_touched,
-                    rebuild=self.push_write == "rebuild")
-                host.update(uids=prod["push_uids"][0],
-                            perm=prod["push_perm"][0],
-                            offsets=prod["push_offsets"][0],
-                            n_uniq=prod["n_uniq"][0])
-                if "push_pos" in prod:
-                    host["push_pos"] = prod["push_pos"][0]
-        else:
-            host["buckets"] = idx.buckets.reshape(-1)
-            if train:
-                uids_by, n_real = exchange_push_uids_p2p(
-                    idx.buckets[None], [r], P, cap, self.host_mesh,
-                    self.policy, hot_counts=self.hot_counts)
-                prod = stage_push_dedup(
-                    None, cap, note_touched=self.table.note_touched,
-                    uid_only=True, uids_by_dest=uids_by)
-                uids = prod["push_uids"][0]
-                host.update(n_uniq=prod["n_uniq"][0],
-                            push_n_valid=n_real[r])
-                if wire == "uid":
-                    host["uids"] = uids
-                elif wire == "delta":
-                    base, d16, cut = delta_encode_uids(uids, cap)
-                    host.update(uid_base=int(base), uid_d16=d16,
-                                uid_cut=int(cut))
-        if train:
-            # the bucket merge: each slot's occurrences in ascending order
-            live = np.flatnonzero(valid)
-            slots = idx.restore[live]
-            order = np.argsort(slots, kind="stable")
-            host["bperm"] = live[order].astype(np.int32)
-            host["boffsets"] = np.searchsorted(
-                slots[order], np.arange(P * KB + 1)).astype(np.int32)
+        host.update(stage_routed(idx, valid, self.rank, self.P,
+                                 self.bucket_cap, self.table, self.host_mesh,
+                                 self.policy, self.stage_flags.wire,
+                                 self.push_write, self.hot_counts))
         return host
 
     def _to_device(self, host: Staged) -> Staged:

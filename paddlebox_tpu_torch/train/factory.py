@@ -17,11 +17,12 @@ DownpourTrainer is ps/worker.py's, and HeterTrainer and HeterCpuWorker
 are fleet/heter.py's CPU worker, whose dense step runs on a
 HeterDenseService. PipelineTrainer is parallel/pipeline.py's GPipeRunner,
 CtrPipelineTrainer and HeterPipelineTrainer its CtrPipelineRunner (the
-CTR program split over a stage process group). The pipeline over the
-sharded table belongs to ROADMAP.md A10c's second part:
-ShardedCtrPipelineTrainer and SectionPSTrainer raise NotImplementedError
-saying so. An unknown name raises KeyError. ``register_trainer`` adds or
-overrides a name.
+CTR program split over a stage process group). ShardedCtrPipelineTrainer
+is its ShardedCtrPipelineRunner (the program split over the sharded pass
+table, rank = shard on the (dp, stage) mesh), and SectionPSTrainer the
+same runner with its owned shard's store on the CPU PS (``ps_client=``,
+``ps_table_id=``), as PSGPUTrainer is to the sharded trainer. An unknown
+name raises KeyError. ``register_trainer`` adds or overrides a name.
 """
 
 from __future__ import annotations
@@ -30,14 +31,14 @@ from typing import Any, Callable, Dict, Optional
 
 _REGISTRY: Dict[str, Callable] = {}
 
-# the reference's names whose pipeline trainers over the sharded table
-# are not ported yet (reference factory.py:83-90)
-A10_TRAINERS = ("ShardedCtrPipelineTrainer", "SectionPSTrainer")
 # the pipeline runners over a stage process group (reference
 # factory.py:73-82): the GPipe runner and the CTR program split, which
 # the reference's HeterPipelineTrainer (trainer.h:341) names too
 PIPELINE_TRAINERS = ("PipelineTrainer", "CtrPipelineTrainer",
                      "HeterPipelineTrainer")
+# the CTR pipeline over the sharded pass table, and over the CPU PS
+# (reference factory.py:39-51, 83-90)
+SHARDED_PIPELINE_TRAINERS = ("ShardedCtrPipelineTrainer", "SectionPSTrainer")
 BOX_TRAINERS = ("BoxPSTrainer", "MultiTrainer", "DistMultiTrainer")
 # HeterXpuTrainer is the reference's accelerator-side trainer, which the
 # sharded trainer plays (reference factory.py:59-63)
@@ -73,6 +74,23 @@ def _psgpu_trainer(*args, ps_client=None, ps_table_id=0, **kwargs):
     return trainer
 
 
+def _section_ps_trainer(*args, ps_client=None, ps_table_id=0, **kwargs):
+    """SectionPSTrainer (reference factory.py:39-51): the sharded pipeline
+    with its owned shard's store on the CPU PS's sparse table
+    ``ps_table_id`` (section programs over the full PS), the store of rank
+    0 alone the primary, as _psgpu_trainer makes it."""
+    from paddlebox_tpu_torch.embedding.ps_store import ps_store_factory
+    from paddlebox_tpu_torch.parallel.pipeline import \
+        ShardedCtrPipelineRunner
+    if ps_client is None:
+        raise ValueError("SectionPSTrainer needs ps_client= (a PS client "
+                         "whose sparse table backs the pass slabs)")
+    runner = ShardedCtrPipelineRunner(*args, store_factory=ps_store_factory(
+        ps_client, ps_table_id, process_primary=False), **kwargs)
+    runner.table.shard.store.primary = runner.rank == 0
+    return runner
+
+
 def _builtin(name: str) -> Optional[Callable]:
     if name in BOX_TRAINERS:
         from paddlebox_tpu_torch.train.trainer import BoxTrainer
@@ -98,10 +116,12 @@ def _builtin(name: str) -> Optional[Callable]:
     if name in PIPELINE_TRAINERS:
         from paddlebox_tpu_torch.parallel.pipeline import CtrPipelineRunner
         return CtrPipelineRunner
-    if name in A10_TRAINERS:
-        raise NotImplementedError(
-            "trainer %r is the pipeline over the sharded table, not ported "
-            "yet (ROADMAP.md A10c, second part)" % name)
+    if name == "ShardedCtrPipelineTrainer":
+        from paddlebox_tpu_torch.parallel.pipeline import \
+            ShardedCtrPipelineRunner
+        return ShardedCtrPipelineRunner
+    if name == "SectionPSTrainer":
+        return _section_ps_trainer
     return None
 
 

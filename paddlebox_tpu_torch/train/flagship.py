@@ -78,6 +78,10 @@ x 0.01 / 2), and on an H100 the second pass's loss rose far above the
 first's instead of falling, with data_norm (0.9555 -> 8.418) and
 without it (0.9555 -> 12.54). ``build_pipeline_trainer`` builds it through train/factory.py; a
 ``base`` of FLAGSHIP_EXPAND gives its expand-64 table.
+``build_sharded_pipeline`` builds the same configuration as the pipeline
+over the sharded table (ShardedCtrPipelineTrainer, or SectionPSTrainer
+over a PS client): at world 1 the one shard is the whole 2^20-row slab,
+and a step's bucket cap is 2 x 8 x 131,072 = 2,097,152 ids.
 
 ``FLAGSHIP_SSD`` is FLAGSHIP with the SSD tier: a 16 MiB host budget
 (``ssd_threshold_mb``; 246,723 rows of 68 B) against the cadence's 557,083
@@ -630,6 +634,33 @@ def build_sharded_trainer(files: List[str], feed: DataFeedConfig,
     ds.set_filelist(files)
     ds.set_filelist(ds.my_shard_files(trainer.rank, trainer.P))
     return trainer, ds
+
+
+def build_sharded_pipeline(fleet, feed: DataFeedConfig,
+                           cfg: PipeFlagship = FLAGSHIP_PIPE, seed: int = 0,
+                           push_flags=None, ps_client=None,
+                           ps_table_id: int = 0):
+    """parallel/pipeline.py ShardedCtrPipelineRunner with an 'auc' metric
+    of a pipeline configuration on ``fleet`` (an initialized Fleet; its
+    mesh is the rank's device; the world is the stage axis), made by
+    train/factory.py's "ShardedCtrPipelineTrainer", or with ``ps_client``
+    its "SectionPSTrainer" over that client's sparse table
+    ``ps_table_id``: ``cfg.base``'s table sharded over the fleet's ranks,
+    ``cfg``'s stages, micro-batches, width, layers, learning rate,
+    data_norm and init scale; ``push_flags`` goes to the runner. The
+    caller feeds each pass a dataset of the rank's row's files."""
+    from paddlebox_tpu_torch.train.factory import create_trainer
+    ps = ({} if ps_client is None
+          else dict(ps_client=ps_client, ps_table_id=ps_table_id))
+    runner = create_trainer(
+        "SectionPSTrainer" if ps else "ShardedCtrPipelineTrainer",
+        cfg.base.table(), feed, n_stages=cfg.n_stages, d_model=cfg.d_model,
+        layers_per_stage=cfg.layers_per_stage, lr=cfg.lr,
+        n_micro=cfg.n_micro, seed=seed, fleet=fleet,
+        use_data_norm=cfg.use_data_norm, dn_slot_dim=cfg.dn_slot_dim,
+        init_scale=cfg.init_scale, push_flags=push_flags, **ps)
+    runner.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
+    return runner
 
 
 def build_pipeline_trainer(files: List[str], feed: DataFeedConfig,

@@ -12,8 +12,12 @@ CTR oracle runs with use_pallas_push, its kernel interpreted (the expand
 block's push runs apply_push, its creation replaced by the port's hash,
 sharded_cluster.hash_fresh); the port replays its push seeds
 (PRNGKey(seed + 31), one split a step, carried across passes:
-``replay_seeds``). The reference's imports stay inside the functions that
-build the oracle, so a spawned rank loads torch and the port only.
+``replay_seeds``). The pipeline over the sharded table (``sharded=`` in
+the port's runs, ``sharded=True`` in the oracle's) draws a third stream:
+the second half of each step's split, folded with the flat mesh index,
+one list a rank (``replay_shard_seeds``). The reference's imports stay
+inside the functions that build the oracle, so a spawned rank loads torch
+and the port only.
 """
 
 import dataclasses
@@ -25,15 +29,16 @@ import torch
 
 from paddlebox_tpu_torch.config.configs import (SparseOptimizerConfig,
                                                 TableConfig)
-from paddlebox_tpu_torch.config.flags import ObsFlags, ShardFlags
+from paddlebox_tpu_torch.config.flags import (ObsFlags, PushFlags,
+                                              ShardFlags, StageFlags)
 from paddlebox_tpu_torch.data.dataset import BoxDataset
 from paddlebox_tpu_torch.embedding import accessor as acc
-from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 from paddlebox_tpu_torch.ops.sparse import (gather_slab_rows,
                                             pull_view_from_rows)
 from paddlebox_tpu_torch.parallel.pipeline import (CtrPipelineRunner,
                                                    GPipeRunner,
                                                    PipelineConfig,
+                                                   ShardedCtrPipelineRunner,
                                                    ctr_pipeline_loss,
                                                    ctr_pipeline_sections,
                                                    mlp_stage_apply)
@@ -94,6 +99,23 @@ def replay_seeds(n=MAX_STEPS, seed=SEED):
     return out
 
 
+def replay_shard_seeds(P, n=MAX_STEPS, seed=SEED):
+    """The sharded pipeline's push seeds of each flat mesh index p < P:
+    PRNGKey(seed + 31), one split a step carried across passes, the split's
+    second half folded with p (reference pipeline.py:1265-1266), randint of
+    that (optimizers.py:238)."""
+    import jax
+    import jax.numpy as jnp
+    key, out = jax.random.PRNGKey(seed + 31), [[] for _ in range(P)]
+    for _ in range(n):
+        key, sub = jax.random.split(key)
+        for p in range(P):
+            k = jax.random.fold_in(sub, p)
+            out[p].append(int(jax.random.randint(k, (), 0,
+                                                 jnp.int32(2**31 - 1))))
+    return out
+
+
 def sorted_store(store):
     k, v = store.state_items()
     o = np.argsort(k)
@@ -110,18 +132,33 @@ def world_allreduce(v):
 
 # ------------------------------------------------------------------- port
 
-def port_runner(form, S, feed, seeds, mesh=None, depth=2, dump_path=None):
+def port_runner(form, S, feed, seeds, mesh=None, depth=2, dump_path=None,
+                sharded=None):
     """A CtrPipelineRunner of ``form`` at S stages on the CPU, replaying
-    ``seeds``, its per-step losses recorded in ``runner.step_losses``."""
+    ``seeds``, its per-step losses recorded in ``runner.step_losses``; with
+    ``sharded`` (the keyword arguments of a ShardedCtrPipelineRunner:
+    ``fleet`` and any of push_write, stage (StageFlags fields), and
+    ps_client with ps_table_id for SectionPSTrainer) the pipeline over the
+    sharded table on that fleet, built by train/factory.py."""
     kw = dict(FORMS[form])
     expand = kw.pop("expand", 0)
-    r = CtrPipelineRunner(table_cfg(expand), feed, n_stages=S,
-                          d_model=D_MODEL, lr=LR, n_micro=N_MICRO, mesh=mesh,
-                          seed=SEED, device="cpu",
-                          shard_flags=ShardFlags(stream_depth=depth),
-                          obs_flags=ObsFlags.off(),
-                          dump_fields=("label", "pred") if dump_path
-                          else None, dump_fields_path=dump_path, **kw)
+    common = dict(n_stages=S, d_model=D_MODEL, lr=LR, n_micro=N_MICRO,
+                  mesh=mesh, seed=SEED, device="cpu",
+                  shard_flags=ShardFlags(stream_depth=depth),
+                  obs_flags=ObsFlags.off(),
+                  dump_fields=("label", "pred") if dump_path else None,
+                  dump_fields_path=dump_path, **kw)
+    if sharded is None:
+        r = CtrPipelineRunner(table_cfg(expand), feed, **common)
+    else:
+        from paddlebox_tpu_torch.train.factory import create_trainer
+        sh = dict(sharded)
+        r = create_trainer(
+            "SectionPSTrainer" if "ps_client" in sh
+            else "ShardedCtrPipelineTrainer", table_cfg(expand), feed,
+            fleet=sh.pop("fleet"),
+            push_flags=PushFlags(sh.pop("push_write", "auto"), 64),
+            stage_flags=StageFlags(**sh.pop("stage", {})), **common, **sh)
     r.metrics.init_metric("auc", "label", "pred", table_size=1 << 14)
     r.seed_fn = iter(seeds).__next__
     r.step_losses = []
@@ -136,16 +173,22 @@ def port_runner(form, S, feed, seeds, mesh=None, depth=2, dump_path=None):
     return r
 
 
+def table_store(r):
+    """The runner's store: the replicated table's, or the owned shard's."""
+    return getattr(r.table, "shard", r.table).store
+
+
 def port_run(form, S, feed, files, seeds, mesh=None, passes=2, depth=2,
-             predict=False, allreduce=None, dump_path=None):
+             predict=False, allreduce=None, dump_path=None, sharded=None):
     """Two passes (``passes``) of a port runner over ``files``: each
-    pass's (loss, steps, world AUC), the store after it and its resident
-    slab's sha256, the last
+    pass's (loss, steps, world AUC), the store after it (the owned
+    shard's) and its resident slab's sha256, the last
     pass's metric message (``allreduce``: the world's), the step
     losses, the initial and final params (this rank's slice), the next
     step's gradients (``probe_step``) and with ``predict``
-    predict_batches' (preds, labels)."""
-    r = port_runner(form, S, feed, seeds, mesh, depth, dump_path)
+    predict_batches' (preds, labels). ``sharded``: port_runner's (over
+    the PS no store is kept: the server holds the rows)."""
+    r = port_runner(form, S, feed, seeds, mesh, depth, dump_path, sharded)
     out = {"params0": r.params, "passes": [], "stores": [], "slabs": [],
            "stage": r.stage.index, "dp_rank": r.dp_rank, "dp": r.dp}
     for _ in range(passes):
@@ -154,12 +197,17 @@ def port_run(form, S, feed, files, seeds, mesh=None, passes=2, depth=2,
         res = r.train_pass(ds)
         out["msg"] = r.metrics.get_metric_msg("auc", allreduce=allreduce)
         out["passes"].append((res["loss"], res["steps"], out["msg"]["auc"]))
-        out["stores"].append(sorted_store(r.table.store))
+        if not (sharded and "ps_client" in sharded):
+            out["stores"].append(sorted_store(table_store(r)))
         out["slabs"].append(hashlib.sha256(
             r.table.resident_slab.numpy().tobytes()).hexdigest())
     out["step_losses"] = list(r.step_losses)
     out["params"] = r.params
     out["probe"] = probe_step(r, feed, files)
+    if sharded is not None:
+        out["collectives"] = dict(r.collective_counts)
+        out["exchanges"] = r.host_mesh.exchanges
+        out["push_write"] = r.push_write
     if predict:
         ds = BoxDataset(feed)
         ds.set_filelist(files)
@@ -170,31 +218,83 @@ def port_run(form, S, feed, files, seeds, mesh=None, passes=2, depth=2,
 
 def probe_step(r, feed, files):
     """The next step's forward_backward of a trained runner, nothing
-    applied (its pass opened over ``files`` and closed): the row's staged
-    leaves, the slab, this rank's dparams, demb (and dexp) and the push
-    rows, as numpy. (A first step's push rows are zero: a fresh table's
-    pooled features are all zero, so every projection sits at relu's
-    kink.)"""
+    applied (its pass opened over ``files`` and closed; on the sharded
+    table the feed keys unioned over the world): the row's staged leaves,
+    its block and key flags as the test makes them from the pre-step slab
+    (``emb``, ``exp``, ``key_valid``: slab_block, asserted bit-equal to
+    the runner's pulled block), this rank's dparams, demb (and dexp) and
+    the push rows (the sharded runner's: its micro slice's), as numpy. (A
+    first step's push rows are zero: a fresh table's pooled features are
+    all zero, so every projection sits at relu's kink.)"""
+    sharded = isinstance(r, ShardedCtrPipelineRunner)
     ds = BoxDataset(feed)
     ds.set_filelist(files)
     r.table.begin_feed_pass()
     ds.load_into_memory(add_keys_fn=r.table.add_keys)
-    r.table.end_feed_pass()
-    r.table.begin_pass()
+    if sharded:
+        r.table.end_feed_pass(allgather=r.fleet.all_gather)
+        r.table.build_owned_slabs()
+    else:
+        r.table.end_feed_pass()
+        r.table.begin_pass()
     try:
         g = ds.split_batches(num_workers=1)[0][:r.batches_per_step]
         batch = r.device_batch(g)
-        slab = r.table.slab.clone()
+        want = slab_block(r, r.table.slab.clone(), g, batch)
+        with torch.no_grad():
+            emb, exp, _ = r._pull_block(batch)
+        np.testing.assert_array_equal(emb.numpy(), want["emb"])
+        if exp is not None:
+            np.testing.assert_array_equal(exp.numpy(), want["exp"])
         res = r.forward_backward(batch)
         pg = r.push_grads(batch, res["demb"], res["dexp"])
-        return {"batch": {k: (v.numpy() if isinstance(v, torch.Tensor)
-                              else v) for k, v in batch.items()},
-                "slab": slab.numpy(), "loss": float(res["loss"]),
-                "dparams": {k: v.numpy() for k, v in res["dparams"].items()},
-                "demb": res["demb"].numpy(), "pg": pg.numpy()}
+        return dict(want, batch={k: (v.numpy() if isinstance(v, torch.Tensor)
+                                     else v) for k, v in batch.items()},
+                    loss=float(res["loss"]),
+                    dparams={k: v.numpy() for k, v in res["dparams"].items()},
+                    demb=res["demb"].numpy(), pg=pg.numpy())
     finally:
         r.dense_opt.zero_grad(set_to_none=True)
         r.table.end_pass()
+
+
+def slab_block(r, slab, group, batch):
+    """The row's block of the pre-step ``slab`` as the sequential
+    composition reads it, made apart from the runner's pull: the replicated
+    runner's row ids gathered from its slab, the key flags ids != CAP - 1;
+    on the sharded table every rank's pass keys with their slab rows
+    (a shard's row i holds its i-th sorted pass key) all-gathered over the
+    world by the fleet, looked up at the row's keys (``group``'s M
+    batches), zero where a key is not valid, the flags the batches' own.
+    {"emb" [M, K, 3+D], "exp" [M, K, E] or None, "key_valid" [M, K]}."""
+    layout = r.layout
+    if isinstance(r, ShardedCtrPipelineRunner):
+        keys = np.stack([b.keys for b in group])
+        valid = np.stack([b.valid for b in group])
+        mine = r.table.shard.pass_keys
+        allk = np.concatenate(r.fleet.all_gather(mine))
+        allr = np.concatenate(r.fleet.all_gather(slab[:mine.size].numpy()))
+        o = np.argsort(allk)
+        allk, allr = allk[o], allr[o]
+        pos = np.searchsorted(allk, keys[valid])
+        assert np.array_equal(allk[pos], keys[valid])
+        rows = np.zeros(keys.shape + (allr.shape[1],), np.float32)
+        rows[valid] = allr[pos]
+        rows = torch.from_numpy(rows.reshape(-1, allr.shape[1]))
+    else:
+        ids = batch["ids"]
+        keys, valid = ids, (ids != CAP - 1).numpy()
+        rows = gather_slab_rows(slab, ids.reshape(-1), layout)
+    M, K = keys.shape
+    E_ = layout.expand_dim
+    emb = pull_view_from_rows(rows, layout).reshape(M, K, -1).numpy()
+    exp = (rows[:, layout.expand_w:layout.expand_w + E_].reshape(M, K, E_)
+           .numpy() if E_ else None)
+    if isinstance(r, ShardedCtrPipelineRunner):
+        emb = np.where(valid[..., None], emb, np.float32(0))
+        if E_:
+            exp = np.where(valid[..., None], exp, np.float32(0))
+    return {"emb": emb, "exp": exp, "key_valid": valid}
 
 
 # ------------------------------------------------- sequential compositions
@@ -202,31 +302,26 @@ def probe_step(r, feed, files):
 def sequential_ctr_grads(form, params, probe):
     """The sequential composition of the S stages on one process (stage
     0's projection, every stage's blocks in order, the last's head) of
-    the stacked [S, ...] ``params`` over a rank's staged row ``probe``
+    the stacked [S, ...] ``params`` over a rank's pulled row ``probe``
     (probe_step's): (loss, {leaf: [S, ...] grads}, demb)."""
     kw = dict(FORMS[form])
     E_ = kw.pop("expand", 0)
     names = kw.get("task_names", ("ctr",))
-    layout = ValueLayout(D, "adagrad", E_)
     S = params["blk_w"].shape[0]
     p = {k: torch.from_numpy(np.array(v)).requires_grad_(
         not k.startswith("dn_")) for k, v in params.items()}
     b = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
          for k, v in probe["batch"].items()}
-    M, K = b["ids"].shape
-    rows = gather_slab_rows(torch.from_numpy(probe["slab"]),
-                            b["ids"].reshape(-1), layout)
-    emb = pull_view_from_rows(rows, layout).reshape(M, K, -1)
-    emb.requires_grad_(True)
+    M = b["segments"].shape[0]
+    emb = torch.from_numpy(probe["emb"].copy()).requires_grad_(True)
     exp = None
     if E_:
-        exp = rows[:, layout.expand_w:layout.expand_w + E_].reshape(M, K, E_)
-        exp.requires_grad_(True)
+        exp = torch.from_numpy(probe["exp"].copy()).requires_grad_(True)
     blocks, embed, head, proj_all = ctr_pipeline_sections(
         BATCH, NUM_SLOTS, True, E_, kw.get("use_data_norm", False),
         kw.get("dn_slot_dim", 0))
-    x_all = proj_all(emb, exp, b["segments"], b["ids"] != CAP - 1,
-                     b["n_valid"])
+    x_all = proj_all(emb, exp, b["segments"],
+                     torch.from_numpy(probe["key_valid"]), b["n_valid"])
     logits = []
     for t in range(M):
         y = embed({k: v[0] for k, v in p.items()}, x_all, t)
@@ -321,13 +416,62 @@ def jax_feed(pfeed):
                  task_label_slots=pfeed.task_label_slots)
 
 
+def _jax_row_groups(jr, jfeed, halves, train):
+    """A pass of the reference's single-process (dp, stage) runner fed one
+    group at a time from the dp rows' files ``halves`` (reference
+    test_multihost.py:387-460): the feed keys of every row, the slab, and
+    the groups (row 0's M batches, then row 1's, ...), as many as the
+    shortest row fills."""
+    from paddlebox_tpu.data.dataset import BoxDataset as JDataset
+    jr.table.begin_feed_pass()
+    rows = []
+    for h in halves:
+        ds = JDataset(jfeed, read_threads=1, columnar=False)
+        ds.set_filelist(h)
+        if train:
+            ds.load_into_memory(add_keys_fn=jr.table.add_keys)
+        else:
+            ds.load_into_memory()
+            jr.table.add_keys(ds.all_keys())
+        rows.append(ds.split_batches(num_workers=1)[0])
+    jr.table.end_feed_pass()
+    jr.begin_pass()
+    n = min(len(b) for b in rows) // N_MICRO
+    return [sum((b[g * N_MICRO:(g + 1) * N_MICRO] for b in rows), [])
+            for g in range(n)]
+
+
+def _jax_rows_predict(jr, jfeed, halves):
+    """predict_batches of the single-process (dp, stage) runner over the
+    rows' files, grouped as _jax_row_groups groups them."""
+    jr.table.set_test_mode(True)
+    try:
+        preds_all, labels_all = [], []
+        for group in _jax_row_groups(jr, jfeed, halves, False):
+            preds = np.asarray(jr._eval(jr.params, jr._slabs,
+                                        jr.device_batch(group)))
+            if jr.multi_task:
+                preds = preds[..., 0]
+            mask = np.concatenate([b.ins_valid for b in group])
+            preds_all.append(preds.reshape(-1)[mask])
+            labels_all.append(np.concatenate([b.labels for b in group])[mask])
+        jr.end_pass()
+    finally:
+        jr.table.set_test_mode(False)
+    return np.concatenate(preds_all), np.concatenate(labels_all)
+
+
 def jax_run(form, S, pfeed, files, dp=1, passes=2, predict=False,
-            dump_path=None):
-    """The reference's CtrPipelineRunner of ``form`` on S (dp x S) virtual
-    CPU devices with use_pallas_push (its kernel interpreted; the expand
-    block's creation the port's hash): initial and final params (stacked),
-    each pass's (loss, steps, AUC) and sorted store, the step losses, and
-    with ``predict`` predict_batches'."""
+            dump_path=None, sharded=False, store_factory=None, halves=None):
+    """The reference's CtrPipelineRunner (``sharded``: its
+    ShardedCtrPipelineRunner, the store its shards' store_view, or with
+    ``store_factory`` over the CPU PS and no store) of ``form`` on S (dp x
+    S) virtual CPU devices with use_pallas_push (its kernel interpreted;
+    the expand block's creation the port's hash): initial and final params
+    (stacked), each pass's (loss, steps, AUC) and sorted store, the step
+    losses, and with ``predict`` predict_batches'. ``halves``: the dp
+    rows' files, fed one group at a time (_jax_row_groups) instead of
+    ``files``."""
     import jax
     import pytest
     from jax.sharding import Mesh
@@ -339,7 +483,8 @@ def jax_run(form, S, pfeed, files, dp=1, passes=2, predict=False,
     from paddlebox_tpu.config.configs import TableConfig as JTable
     from paddlebox_tpu.data.dataset import BoxDataset as JDataset
     from paddlebox_tpu.parallel.pipeline import STAGE_AXIS
-    from paddlebox_tpu.parallel.pipeline import CtrPipelineRunner as JRunner
+    from paddlebox_tpu.parallel.pipeline import CtrPipelineRunner
+    from paddlebox_tpu.parallel.pipeline import ShardedCtrPipelineRunner
     from sharded_cluster import hash_fresh
 
     kw = dict(FORMS[form])
@@ -355,6 +500,11 @@ def jax_run(form, S, pfeed, files, dp=1, passes=2, predict=False,
         devs = np.array(jax.devices()[:dp * S])
         mesh = (Mesh(devs, (STAGE_AXIS,)) if dp == 1
                 else Mesh(devs.reshape(dp, S), ("dp", STAGE_AXIS)))
+        if sharded:
+            JRunner = ShardedCtrPipelineRunner
+            kw["store_factory"] = store_factory
+        else:
+            JRunner = CtrPipelineRunner
         jr = JRunner(JTable(embedx_dim=D, pass_capacity=CAP,
                             expand_embed_dim=expand, optimizer=JOpt(**OPT)),
                      jfeed, n_stages=S, d_model=D_MODEL, lr=LR,
@@ -374,16 +524,26 @@ def jax_run(form, S, pfeed, files, dp=1, passes=2, predict=False,
         out = {"params0": {k: np.array(v) for k, v in jr.params.items()},
                "passes": [], "stores": []}
         for _ in range(passes):
-            ds = JDataset(jfeed, read_threads=1, columnar=False)
-            ds.set_filelist(files)
-            res = jr.train_pass(ds)
+            if halves is not None:
+                groups = _jax_row_groups(jr, jfeed, halves, True)
+                losses = [jr.train_step(g) for g in groups]
+                jr.end_pass()
+                res = {"loss": float(np.mean(losses)), "steps": len(groups)}
+            else:
+                ds = JDataset(jfeed, read_threads=1, columnar=False)
+                ds.set_filelist(files)
+                res = jr.train_pass(ds)
             out["msg"] = jr.metrics.get_metric_msg("auc")
             out["passes"].append((res["loss"], res["steps"],
                                   out["msg"]["auc"]))
-            out["stores"].append(sorted_store(jr.table.store))
+            if store_factory is None:
+                out["stores"].append(sorted_store(
+                    jr.table.store_view() if sharded else jr.table.store))
         out["step_losses"] = steps
         out["params"] = {k: np.array(v) for k, v in jr.params.items()}
-        if predict:
+        if predict and halves is not None:
+            out["predict"] = _jax_rows_predict(jr, jfeed, halves)
+        elif predict:
             ds = JDataset(jfeed, read_threads=1, columnar=False)
             ds.set_filelist(files)
             out["predict"] = jr.predict_batches(ds)
@@ -553,3 +713,131 @@ def assert_ctr_cluster(ranks, form, want, dp=1):
                                 r[form]["probe"]) for r in ranks])
     losses = [p[0] for p in first["passes"]]
     assert losses[1] < losses[0], losses
+
+
+# ------------------------------------------------- the pipeline over shards
+
+def sharded_pipeline_rank(rank, world, port, spec):
+    """A spawned rank of the pipeline over the sharded table
+    (sharded_cluster.run_cluster's ``fn``): a fleet over the test's
+    TCPStore, the world's mesh (``spec["dp"]`` rows: make_mesh's (data,
+    pipeline), each row loading its files ``spec["row_files"][row]``;
+    else device_mesh_1d's stage axis, every rank loading ``spec["files"]``),
+    then each run of ``spec["runs"]`` ({"form", and "ps": (port, table
+    id) for SectionPSTrainer over a TcpPSClient}): port_run with the
+    world's metric reduction and predict_batches, the rank's push seeds
+    ``spec["seeds"][rank]``. With ``spec["refusal"]`` first the error of
+    a runner over a mesh of half the world."""
+    from paddlebox_tpu_torch.config.configs import MeshConfig
+    from paddlebox_tpu_torch.fleet.fleet import Fleet
+    from paddlebox_tpu_torch.fleet.role_maker import RoleMaker
+    from paddlebox_tpu_torch.parallel.mesh import device_mesh_1d, make_mesh
+    from paddlebox_tpu_torch.parallel.pipeline import STAGE_AXIS
+    from paddlebox_tpu_torch.ps import TcpPSClient
+    from sharded_cluster import GROUP_TIMEOUT_S
+    fl = Fleet().init(RoleMaker(rank, world, "127.0.0.1:%d" % port))
+    fl.init_distributed("cpu", timeout=GROUP_TIMEOUT_S)
+    out = {}
+    try:
+        if spec.get("refusal"):
+            half = device_mesh_1d(world // 2, axis=STAGE_AXIS, mesh=fl.mesh,
+                                  timeout=GROUP_TIMEOUT_S)
+            try:
+                ShardedCtrPipelineRunner(table_cfg(), spec["feed"],
+                                         n_stages=world // 2, fleet=fl,
+                                         mesh=half, device="cpu")
+                out["refusal"] = None
+            except ValueError as e:
+                out["refusal"] = str(e)
+        dp = spec.get("dp", 1)
+        S = world // dp
+        mesh = (make_mesh(MeshConfig(data=dp, pipeline=S,
+                                     axis_names=("data", "pipeline")),
+                          fl.mesh, timeout=GROUP_TIMEOUT_S) if dp > 1
+                else device_mesh_1d(world, axis=STAGE_AXIS, mesh=fl.mesh,
+                                    timeout=GROUP_TIMEOUT_S))
+        out["coords"] = mesh.coords
+        files = (spec["row_files"][mesh.coords[0]] if dp > 1
+                 else spec["files"])
+        for name, run in spec["runs"].items():
+            sharded = {"fleet": fl}
+            client = None
+            if run.get("ps"):
+                client = TcpPSClient("127.0.0.1", run["ps"][0])
+                sharded.update(ps_client=client, ps_table_id=run["ps"][1])
+            try:
+                out[name] = port_run(run["form"], S, spec["feed"], files,
+                                     spec["seeds"][rank], mesh=mesh,
+                                     predict=True, allreduce=world_allreduce,
+                                     sharded=sharded)
+            finally:
+                if client is not None:
+                    client.close()
+    finally:
+        fl.stop()
+    return out
+
+
+def union_stores(ranks, name):
+    """The union of the ranks' shard stores after each pass of run
+    ``name``, sorted by key."""
+    out = []
+    for i in range(len(ranks[0][name]["stores"])):
+        k = np.concatenate([r[name]["stores"][i][0] for r in ranks])
+        v = np.vstack([r[name]["stores"][i][1] for r in ranks])
+        o = np.argsort(k)
+        out.append((k[o], v[o]))
+    return out
+
+
+def assert_sharded_cluster(ranks, name, form, want, dp=1, loss_rtol=1e-4,
+                           auc_atol=1e-4):
+    """Every rank's run of the pipeline over the sharded table against the
+    reference's: the step and pass losses (``loss_rtol``), the steps and
+    the world's AUC (within ``auc_atol``), its stage's dense slices (initial bit
+    for bit, final rtol 2e-4 / atol 1e-6), predict_batches (the same on
+    every rank); the ranks' losses and a stage's params across dp rows
+    bit-identical; the union of the shard stores after each pass the
+    reference's store_view (assert_store); the probe step's gradients S
+    times the sequential composition's and its push rows live on every
+    rank."""
+    from paddlebox_tpu_torch.convert import pipeline_params_to_jax
+    S = len(ranks) // dp
+    first = ranks[0][name]
+    by_stage = {}
+    for res in ranks:
+        got = res[name]
+        assert got["dp"] == dp
+        assert got["passes"] == first["passes"]
+        assert got["step_losses"] == first["step_losses"]
+        np.testing.assert_allclose(got["step_losses"][0],
+                                   want["step_losses"][0], rtol=1e-5)
+        np.testing.assert_allclose(got["step_losses"], want["step_losses"],
+                                   rtol=loss_rtol)
+        for (gl, gs, ga), (wl, ws, wa) in zip(got["passes"],
+                                              want["passes"]):
+            assert gs == ws
+            np.testing.assert_allclose(gl, wl, rtol=loss_rtol)
+            assert abs(ga - wa) <= auc_atol, (ga, wa)
+        s = got["stage"]
+        for k, v in want["params0"].items():
+            assert_bits(got["params0"][k], v[s])
+        for k, v in want["params"].items():
+            np.testing.assert_allclose(got["params"][k], v[s], rtol=2e-4,
+                                       atol=1e-6, err_msg=k)
+        (gp, gl), (wp, wl) = got["predict"], want["predict"]
+        np.testing.assert_array_equal(gl, wl)
+        np.testing.assert_allclose(gp, wp, rtol=1e-4, atol=1e-6)
+        prev = by_stage.setdefault(s, got["params"])
+        for k, v in prev.items():
+            assert_bits(got["params"][k], v)
+    assert sorted(by_stage) == list(range(S))
+    if want["stores"]:
+        union = union_stores(ranks, name)
+        assert len(union) == len(want["stores"])
+        for g, w in zip(union, want["stores"]):
+            assert_store(g, w)
+    params = pipeline_params_to_jax([by_stage[s] for s in range(S)])
+    assert_s_times_sequential(form, params,
+                              [(r[name]["stage"], r[name]["dp_rank"],
+                                r[name]["probe"]) for r in ranks])

@@ -294,19 +294,17 @@ def test_factory_names_resolve_as_the_reference(data):
     builtin = src[src.index("def _builtin"):src.index("def create_trainer")]
     ref_names = set(re.findall(r'"([A-Za-z]+Trainer|HeterCpuWorker)"',
                                builtin))
-    assert ref_names == (set(factory.A10_TRAINERS) | set(factory.BOX_TRAINERS)
+    assert ref_names == (set(factory.BOX_TRAINERS)
                          | set(factory.SHARDED_TRAINERS)
                          | set(factory.PS_TRAINERS)
                          | set(factory.HETER_TRAINERS)
                          | set(factory.MESH_TOWER_TRAINERS)
-                         | set(factory.PIPELINE_TRAINERS))
-    # only the pipeline over the sharded table still raises (ROADMAP.md
-    # A10c, second part)
-    assert set(factory.A10_TRAINERS) == {"ShardedCtrPipelineTrainer",
-                                         "SectionPSTrainer"}
-    for name in factory.A10_TRAINERS:
-        with pytest.raises(NotImplementedError, match="A10c"):
-            factory.create_trainer(name)
+                         | set(factory.PIPELINE_TRAINERS)
+                         | set(factory.SHARDED_PIPELINE_TRAINERS))
+    # no name of the reference's factory is left unported
+    assert not hasattr(factory, "A10_TRAINERS")
+    assert set(factory.SHARDED_PIPELINE_TRAINERS) == {
+        "ShardedCtrPipelineTrainer", "SectionPSTrainer"}
     # the accelerator-side, heter and mesh-tower names resolve in both
     # packages to their counterparts
     from paddlebox_tpu.fleet.heter import HeterTrainer as JHeter
@@ -319,8 +317,10 @@ def test_factory_names_resolve_as_the_reference(data):
         ShardedBoxTrainer
     from paddlebox_tpu.parallel.pipeline import CtrPipelineRunner as JCtrPipe
     from paddlebox_tpu.parallel.pipeline import GPipeRunner as JGPipe
-    from paddlebox_tpu_torch.parallel.pipeline import (CtrPipelineRunner,
-                                                       GPipeRunner)
+    from paddlebox_tpu.parallel.pipeline import \
+        ShardedCtrPipelineRunner as JShardedPipe
+    from paddlebox_tpu_torch.parallel.pipeline import (
+        CtrPipelineRunner, GPipeRunner, ShardedCtrPipelineRunner)
     for name, mine, theirs in (
             ("HeterXpuTrainer", ShardedBoxTrainer, JSharded),
             ("MeshTowerTrainer", MeshTowerTrainer, JTower),
@@ -328,14 +328,17 @@ def test_factory_names_resolve_as_the_reference(data):
             ("HeterCpuWorker", HeterTrainer, JHeter),
             ("PipelineTrainer", GPipeRunner, JGPipe),
             ("CtrPipelineTrainer", CtrPipelineRunner, JCtrPipe),
-            ("HeterPipelineTrainer", CtrPipelineRunner, JCtrPipe)):
+            ("HeterPipelineTrainer", CtrPipelineRunner, JCtrPipe),
+            ("ShardedCtrPipelineTrainer", ShardedCtrPipelineRunner,
+             JShardedPipe)):
         assert factory._builtin(name) is mine, name
         assert jfactory._builtin(name) is theirs, name
     # the PS trainers resolve: PSGPUTrainer wants its client, as the
     # reference's, and DownpourTrainer is ps/worker.py's
     for mod in (factory, jfactory):
-        with pytest.raises(ValueError, match="ps_client"):
-            mod.create_trainer("PSGPUTrainer")
+        for name in ("PSGPUTrainer", "SectionPSTrainer"):
+            with pytest.raises(ValueError, match="ps_client"):
+                mod.create_trainer(name)
     from paddlebox_tpu_torch.ps.worker import DownpourTrainer
     assert factory._builtin("DownpourTrainer") is DownpourTrainer
     for mod in (factory, jfactory):

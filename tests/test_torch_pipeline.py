@@ -15,9 +15,10 @@ rtol 2e-4 / atol 1e-6, the store's integer columns bit-equal and its
 rows rtol 1e-4 / atol 1e-6; the first step's gradients equal to the
 sequential composition's (S = 1). Then stream_depth 0 and 2 bit-identical,
 a failing stager or step stopping the stager, the dump_fields lines and
-predict_batches against the reference's, the
-factory's names, MeshConfig's sizes and make_mesh's refusal, and the Adam
-moments carried across by convert.pipeline_params_from_jax.
+predict_batches against the reference's, the factory's names (the
+pipeline over the sharded table among them), MeshConfig's sizes and
+make_mesh's refusal, and the Adam moments carried across by
+convert.pipeline_params_from_jax.
 """
 
 import os
@@ -317,9 +318,28 @@ def test_factory_names_resolve(data):
                             n_micro=4, seed=0, device="cpu")
         assert isinstance(r2, CtrPipelineRunner)
         r2.close()
-    for name in ("ShardedCtrPipelineTrainer", "SectionPSTrainer"):
-        with pytest.raises(NotImplementedError, match="second part"):
-            create_trainer(name)
+    # the pipeline over the sharded table builds on a world-1 fleet, and
+    # SectionPSTrainer wants its PS client
+    from paddlebox_tpu_torch.parallel.pipeline import \
+        ShardedCtrPipelineRunner
+    from paddlebox_tpu_torch.ps import PsLocalClient
+    from sharded_cluster import world_one
+    fl = world_one()
+    try:
+        client = PsLocalClient()
+        client.create_sparse_table(0, table_cfg(), shard_num=2)
+        for name, kw in (("ShardedCtrPipelineTrainer", {}),
+                         ("SectionPSTrainer", {"ps_client": client})):
+            r3 = create_trainer(name, table_cfg(), pfeed, n_stages=1,
+                                d_model=8, n_micro=4, seed=0, fleet=fl,
+                                device="cpu", **kw)
+            assert isinstance(r3, ShardedCtrPipelineRunner)
+            assert (r3.P, r3.stage.size, r3.batches_per_step) == (1, 1, 4)
+            r3.close()
+    finally:
+        fl.stop()
+    with pytest.raises(ValueError, match="ps_client"):
+        create_trainer("SectionPSTrainer", table_cfg(), pfeed)
 
 
 def test_mesh_config_takes_sizes_and_make_mesh_refuses_a_larger_mesh():
