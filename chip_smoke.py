@@ -479,6 +479,43 @@ Phases, each of which raises on a failed check (exit code != 0):
      kernel, plain, library and bound times ("pipe28" lines; the kernels
      line's pipeline_shard_step, pipeline_shard_rebuild and
      pipeline_shard_expand shapes);
+ 29. train to serve (paddlebox_tpu_torch/serving/: no kernel and no
+     device of its own; its kernels are the trainer's), in the parent after
+     phase 28's child: (a) a fresh interpreter imports the serving plane
+     and loads no torch, no JAX, no paddlebox_tpu and not the port's
+     trainer (its seconds printed); (b) phase 7's day (the base and three
+     deltas of day0): build_stack answers every key of its views and
+     SERVE_ABSENT absent keys bit-equal to XboxModelReader (the absent ones
+     zero rows), and a ServingServer through a ServingClient at
+     SERVE_BATCH keys a pull gives the same bits; (c) a fresh FLAGSHIP
+     trainer trains the main path's two passes while a ServingServer with
+     its refresh watcher (serving_refresh_secs SERVE_REFRESH_S) serves the
+     xbox root its CheckpointManager writes, a base of day0 before the
+     first pass and a delta of day1 after each: within SERVE_DEADLINE_S of
+     a delta's DONE the server answers its rows bit for bit one generation
+     up, and the pass's keys as XboxModelReader composes them (the seconds
+     from DONE to the first pull that saw it printed); the digits equal the
+     main path's and the store too but for the delta scores the saves
+     clear (trained_sha); push_adagrad once a step, gather_rows once a step
+     and at each promote and write-back (the save's stat rewrite drops the
+     residency, so the second pass builds in full where the main path
+     promotes: 34 launches, not 35); (d) a synthetic base of SERVE_KEYS x
+     SERVE_DIM (numpy, SERVE_SEED; tools/serving_load_probe.py's default)
+     served by MultiBoxFleet(boxes=2, replicas=2) under key-mod with
+     SERVE_HOT replicated keys: no replica maps libtorch; FleetClient pulls
+     of hits, hot keys and misses bit-equal to one MmapViewStack; keys/s
+     and the window's p50 and p99 of serving_lookup_us over SERVE_LOAD_S
+     of pulls (host measurements, printed with the card line); a delta of
+     day1 landing under pullers: no box's response mixes two generations,
+     no fleet row is of neither; one replica of box 0 killed, every pull
+     still answers bit-equal; an ObsExporter's /health carries the fleet's
+     serving_fleet section until close; (e) a two-window stream at phase
+     20's shape, its live journal tailed by a JournalDeltaSource: the
+     overlay equals the stream's store projected by xbox_embed_cols for
+     every touched key, its watermark the newest file's mtime, stamped
+     into a ServingServer's pull (phase 20's own journal directory holds
+     no rows by then: its journal-mode micro-checkpoint moved them into the
+     snapshot); each leg's seconds;
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -8162,6 +8199,603 @@ def sharded_phase(torch, files, feed, main, main_sha, tmp, spawn, windows,
     return res
 
 
+# phase 29: train to serve. The serving plane (paddlebox_tpu_torch/serving/)
+# runs on the host and holds no tensor; the kernels it serves the work of
+# are the trainer's, launched in its live leg.
+SERVE_BATCH = 4096            # a pull's keys in the server legs
+SERVE_ABSENT = 1000           # absent keys beside phase 7's store
+SERVE_DEADLINE_S = 10.0       # from a delta's DONE to its rows served
+SERVE_REFRESH_S = 0.1         # serving_refresh_secs of the live legs
+SERVE_KEYS = 4_000_000        # tools/serving_load_probe.py's base: keys
+SERVE_DIM = 9                 # and dim
+SERVE_HOT = 1 << 16           # its HOT_SET: the fleet's replicated keys
+SERVE_SEED = 29               # the synthetic base's numpy seed
+SERVE_DELTA_KEYS = 20000      # the fleet leg's delta
+SERVE_LOAD_S = 3.0            # the fleet leg's timed pulls
+SERVE_LOAD_THREADS = 4
+SERVE_FORBIDDEN = ("torch", "jax", "paddlebox_tpu",
+                   "paddlebox_tpu_torch.train")
+
+
+def trained_sha(table):
+    """sha256 of the sorted store with its delta-score column zeroed: a
+    delta save clears the covered rows' delta scores (the stat rewrite
+    SaveDelta makes), which trains nothing."""
+    import hashlib
+
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    k, v = sorted_store(table)
+    v = v.copy()
+    v[:, acc.DELTA_SCORE] = 0.0
+    return hashlib.sha256(k.tobytes() + v.tobytes()).hexdigest()
+
+
+def serve_import_leg():
+    """(a) A fresh interpreter imports the serving plane and loads no torch,
+    no JAX, no module of the JAX package and not the port's trainer.
+    Returns its seconds."""
+    import subprocess
+    code = ("import json, sys, time\n"
+            "t0 = time.perf_counter()\n"
+            "import paddlebox_tpu_torch.serving\n"
+            "print(json.dumps([time.perf_counter() - t0, "
+            "sorted(sys.modules)]))\n")
+    out = subprocess.run([sys.executable, "-c", code],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, "the serving import failed: %s" % out.stderr)
+    secs, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if any(m == f or m.startswith(f + ".")
+                                    for f in SERVE_FORBIDDEN)]
+    check(not bad, "the serving import loaded %s" % bad[:8])
+    return secs
+
+
+def serve_pull_all(client, keys):
+    """``keys`` pulled SERVE_BATCH at a time: their rows, in order."""
+    import numpy as np
+    return np.concatenate([client.pull(keys[i:i + SERVE_BATCH])
+                           for i in range(0, keys.size, SERVE_BATCH)])
+
+
+def absent_keys(rng, keys, n):
+    """``n`` uint64 keys that sorted ``keys`` lacks."""
+    import numpy as np
+    out = np.empty(0, np.uint64)
+    while out.size < n:
+        cand = rng.randint(1, 1 << 62, 2 * n, dtype=np.int64).astype(
+            np.uint64)
+        pos = np.minimum(np.searchsorted(keys, cand), keys.size - 1)
+        out = np.unique(np.concatenate([out, cand[keys[pos] != cand]]))
+    return rng.permutation(out)[:n]
+
+
+def serve_day_leg(tmp):
+    """(b) Phase 7's day (the base and three deltas of day0 under
+    <tmp>/day/xbox): build_stack over it answers every key of its views and
+    SERVE_ABSENT absent ones bit-equal to XboxModelReader's composed view
+    (the absent keys zero rows), and a ServingServer through a
+    ServingClient at SERVE_BATCH a pull answers them with the same bits."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.serving import (ServingClient, ServingServer,
+                                             build_stack)
+    from paddlebox_tpu_torch.serving.store import read_xbox_view
+    from paddlebox_tpu_torch.train.checkpoint import XboxModelReader
+
+    root = os.path.join(tmp, "day", "xbox")
+    t0 = time.perf_counter()
+    stack, sources = build_stack(root, ["day0"])
+    check([(s.is_base, s.delta_id) for s in sources]
+          == [(0, 1), (0, 2), (0, 3), (1, 0)],
+          "phase 7's sources %s" % [s.path for s in sources])
+    keys = np.unique(np.concatenate([read_xbox_view(s.path)[0]
+                                     for s in sources]))
+    absent = absent_keys(np.random.RandomState(SERVE_SEED), keys,
+                         SERVE_ABSENT)
+    probe = np.concatenate([keys, absent])
+    want = XboxModelReader(root, "day0").lookup(probe)
+    got = stack.lookup(probe)
+    check(bits_equal(got, want) and not got[keys.size:].any(),
+          "the stack over phase 7's day differs from XboxModelReader")
+    stack_s = time.perf_counter() - t0
+    server = ServingServer(root, days=["day0"], watch=False)
+    client = ServingClient([("127.0.0.1", server.port)])
+    try:
+        t0 = time.perf_counter()
+        got = serve_pull_all(client, probe)
+        rpc_s = time.perf_counter() - t0
+        check(bits_equal(got, want) and client.last_gen == 0,
+              "the served day differs from XboxModelReader")
+    finally:
+        client.close()
+        check(server.drain(timeout=10.0), "the day's server drained late")
+    return {"keys": int(keys.size), "absent": SERVE_ABSENT,
+            "stack_s": stack_s, "rpc_s": rpc_s,
+            "pulls": -(-probe.size // SERVE_BATCH)}
+
+
+def serve_live_leg(torch, cfg, feed, files, tmp, main, main_trained,
+                   reset_counts, counts, device="cuda"):
+    """(c) A fresh trainer of ``cfg`` on ``device`` trains the main path's
+    two passes while a ServingServer with its refresh watcher serves the
+    xbox root its CheckpointManager writes: a base of day0 before the
+    first pass (the watcher starts on it), a delta of day1 after each
+    pass. After a delta's DONE the server serves its rows bit for bit
+    within SERVE_DEADLINE_S, one generation up, and the pass's keys as
+    XboxModelReader composes them. The passes give ``main``'s digits and
+    its store but for the delta scores the saves clear (``main_trained``,
+    trained_sha); a pass launches push_adagrad once a step and gather_rows
+    once a step and once a promote and a write-back (the table's
+    counters): the save's stat rewrite drops the residency, so the second
+    pass builds in full where the main path promotes."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.config.configs import CheckpointConfig
+    from paddlebox_tpu_torch.config.flags import ServingFlags
+    from paddlebox_tpu_torch.serving import ServingClient, ServingServer
+    from paddlebox_tpu_torch.serving.store import read_xbox_view
+    from paddlebox_tpu_torch.train import flagship
+    from paddlebox_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                      XboxModelReader)
+
+    root = os.path.join(tmp, "serve_live")
+    xbox = os.path.join(root, "xbox")
+    trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter", device)
+    cm = CheckpointManager(CheckpointConfig(
+        batch_model_dir=os.path.join(root, "batch"), xbox_model_dir=xbox,
+        async_save=True), trainer.table)
+    cm.save_base(trainer.params, trainer.opt_state, "day0")
+    cm.wait()
+    server = ServingServer(xbox, flags=ServingFlags(
+        serving_refresh_secs=SERVE_REFRESH_S))
+    client = ServingClient([("127.0.0.1", server.port)])
+    deltas = []
+
+    def after_pass(rec):
+        rec["launches"] = counts()
+        reset_counts()
+        gen = client.ping()["gen"]
+        view = cm.save_delta("day1", rec["pass"] + 1)
+        cm.wait()
+        t_done = time.perf_counter()
+        vk, vrows = read_xbox_view(view)
+        check(vk.size > 0, "delta-%d is empty" % (rec["pass"] + 1))
+        while True:
+            client.pull(vk[:1])
+            if client.last_gen != gen:
+                break
+            check(time.perf_counter() - t_done < SERVE_DEADLINE_S,
+                  "delta-%d not served within %.0f s"
+                  % (rec["pass"] + 1, SERVE_DEADLINE_S))
+            time.sleep(0.005)
+        seen_s = time.perf_counter() - t_done
+        check(client.last_gen == gen + 1,
+              "delta-%d moved the generation %d -> %d"
+              % (rec["pass"] + 1, gen, client.last_gen))
+        got = client.pull(vk)
+        served = serve_pull_all(client, pass_keys)
+        reader = XboxModelReader(xbox, "day0", "day1")
+        check(bits_equal(got, vrows)
+              and bits_equal(served, reader.lookup(pass_keys))
+              and client.last_gen == gen + 1,
+              "delta-%d served rows differ from its view"
+              % (rec["pass"] + 1))
+        deltas.append({"delta": rec["pass"] + 1, "rows": int(vk.size),
+                       "gen": client.last_gen, "done_to_served_s": seen_s,
+                       "pass_keys": int(pass_keys.size)})
+
+    pass_keys = flagship.sorted_pass_keys(files, feed)
+    try:
+        reset_counts()
+        passes = main_passes(torch, trainer, ds, after_pass=after_pass)
+    finally:
+        client.close()
+        server.drain(timeout=10.0)
+    digits = {"loss": tuple("%.10f" % p["loss"] for p in passes),
+              "auc": tuple("%.10f" % p["auc"] for p in passes)}
+    want = {"loss": tuple("%.10f" % p["loss"] for p in main),
+            "auc": tuple("%.10f" % p["auc"] for p in main)}
+    check(digits == want, "train-to-serve digits %s, the main path's %s"
+          % (digits, want))
+    check(trained_sha(trainer.table) == main_trained,
+          "train-to-serve store differs from the main path's")
+    for p, m in zip(passes, main):
+        n = p["batches"]
+        check(p["launches"]["push_adagrad"] == n == m["batches"]
+              and p["launches"]["gather_rows"]
+              == n + gather_launches_of(p["counters"])
+              and p["launches"]["blocked_write"] == 0
+              and p["launches"]["scale_copy"] == 0,
+              "train-to-serve pass %d launches %s, counters %s"
+              % (p["pass"], p["launches"], p["counters"]))
+    check(passes[0]["counters"] == main[0]["counters"]
+          and passes[1]["counters"]["pass_rows_promote_hit"] == 0
+          and passes[1]["counters"]["pass_rows_written_back"]
+          == main[1]["counters"]["pass_rows_written_back"],
+          "train-to-serve counters %s, the main path's %s"
+          % ([p["counters"] for p in passes], [m["counters"] for m in main]))
+    launches = {}
+    for p in passes:
+        for k, v in p["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    trainer.close()
+    return {"passes": [{k: p[k] for k in ("loss", "auc", "batches",
+                                          "pass_s", "counters",
+                                          "launches")} for p in passes],
+            "deltas": deltas, "launches": launches}
+
+
+def serve_hist_counts(fleet):
+    """The fleet's serving_lookup_us counts, summed over its live
+    replicas (each replica's stats RPC)."""
+    total = None
+    for box in fleet.boxes:
+        c = box.client(timeout=10.0)
+        try:
+            for i in range(len(box.endpoints)):
+                try:
+                    h = c.stats(i)["lookup_us_counts"]
+                except (OSError, RuntimeError):
+                    continue
+                total = h if total is None else [a + b for a, b in
+                                                 zip(total, h)]
+        finally:
+            c.close()
+    return total
+
+
+def maps_libtorch(pid):
+    with open("/proc/%d/maps" % pid) as f:
+        return "libtorch" in f.read()
+
+
+def serve_fleet_leg(tmp, n_keys=SERVE_KEYS, n_hot=SERVE_HOT, card=""):
+    """(d) MultiBoxFleet(boxes=2, replicas=2) under key-mod over a synthetic
+    base of ``n_keys`` x SERVE_DIM (numpy, SERVE_SEED) with ``n_hot``
+    replicated keys: its replicas map no libtorch; FleetClient pulls of
+    hits, hot keys and misses equal the single-box MmapViewStack bit for
+    bit; SERVE_LOAD_S of pulls on SERVE_LOAD_THREADS threads give keys/s
+    and the window's p50 and p99 of serving_lookup_us; a delta of day1
+    landing under puller threads never gives one box's response rows of
+    two generations, nor any row that is neither; with one replica of
+    box 0 killed every pull still answers, bit-equal; an ObsExporter on
+    port 0 shows the serving_fleet section in /health while the fleet is
+    up and not after close."""
+    import urllib.request
+
+    import numpy as np
+
+    from paddlebox_tpu_torch.obs.exporter import ObsExporter
+    from paddlebox_tpu_torch.serving import (MmapViewStack, MultiBoxFleet,
+                                             ServingClient, write_hot_keys,
+                                             write_xbox_columnar)
+    from paddlebox_tpu_torch.utils.stats import hist_percentile
+
+    def health(port):
+        with urllib.request.urlopen("http://127.0.0.1:%d/health" % port,
+                                    timeout=10) as r:
+            return json.loads(r.read())
+
+    rng = np.random.RandomState(SERVE_SEED)
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "serve_fleet", "xbox")
+    day0 = os.path.join(root, "day0")
+    os.makedirs(day0)
+    draw = np.unique(rng.randint(1, 1 << 62, n_keys + n_keys // 32 + 16,
+                                 dtype=np.int64).astype(np.uint64))
+    keys = np.sort(draw[rng.permutation(draw.size)[:n_keys]])
+    check(keys.size == n_keys, "the synthetic base has %d keys" % keys.size)
+    rows = rng.standard_normal((n_keys, SERVE_DIM)).astype(np.float32)
+    base = write_xbox_columnar(os.path.join(day0, "view.xcol"), keys, rows)
+    with open(os.path.join(day0, "DONE"), "w") as f:
+        f.write(repr(time.time()))
+    hot_path = write_hot_keys(os.path.join(tmp, "serve_fleet", "hot.keys"),
+                              rng.choice(keys, n_hot, replace=False))
+    misses = absent_keys(rng, keys, SERVE_BATCH)
+    write_s = time.perf_counter() - t0
+    oracle = MmapViewStack.from_files([base])
+    exp = ObsExporter(0)
+    t0 = time.perf_counter()
+    fleet = MultiBoxFleet(root, boxes=2, replicas=2, policy_name="key-mod",
+                          hot_keys_path=hot_path, flag_overrides={
+                              "serving_refresh_secs": SERVE_REFRESH_S},
+                          start_timeout=120.0)
+    up_s = time.perf_counter() - t0
+    rec = {"keys": n_keys, "dim": SERVE_DIM, "hot": n_hot,
+           "write_s": write_s, "bring_up_s": up_s}
+    fc = None
+    try:
+        pids = [p for b in fleet.boxes for p in b.pids]
+        check(len(pids) == 4 and not any(maps_libtorch(p) for p in pids),
+              "a serving replica maps libtorch")
+        hot = fleet.hot_keys
+
+        def probe(r):
+            return r.permutation(np.concatenate([
+                r.choice(keys, SERVE_BATCH - 512),
+                r.choice(hot, 256), r.choice(misses, 256)]))
+
+        fc = fleet.client(timeout=30.0)
+        for _ in range(4):
+            p = probe(rng)
+            check(bits_equal(fc.pull(p), oracle.lookup(p)),
+                  "the fleet's pull differs from the single-box stack")
+        # the timed window: SERVE_LOAD_THREADS callers, batch SERVE_BATCH
+        probes = [probe(rng) for _ in range(32)]
+        before = serve_hist_counts(fleet)
+        done = []
+        stop_at = time.perf_counter() + SERVE_LOAD_S
+
+        def load(i):
+            n = 0
+            while time.perf_counter() < stop_at:
+                n += fc.pull(probes[(i + n) % len(probes)]).shape[0]
+            done.append(n)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=load, args=(i,))
+                   for i in range(SERVE_LOAD_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        load_s = time.perf_counter() - t0
+        after = serve_hist_counts(fleet)
+        window = [a - b for a, b in zip(after, before)]
+        check(sum(window) > 0, "the timed window served no pull")
+        rec["load"] = {"threads": SERVE_LOAD_THREADS, "batch": SERVE_BATCH,
+                       "secs": load_s, "keys": int(sum(done)),
+                       "keys_per_s": sum(done) / load_s,
+                       "lookups": int(sum(window)),
+                       "p50_us": hist_percentile(window, 0.50),
+                       "p99_us": hist_percentile(window, 0.99)}
+        log("serve fleet: %(keys_per_s).1f keys/s over %(secs).3f s "
+            "(%(threads)d threads, batch %(batch)d), serving_lookup_us "
+            "p50 %(p50_us).1f p99 %(p99_us).1f over %(lookups)d lookups"
+            % rec["load"] + "; host measurements on the machine with "
+            "the card (%s)" % card)
+        sec = health(exp.port).get("serving_fleet")
+        check(sec is not None and sec["type"] == "serving_fleet"
+              and sec["boxes"] == 2 and len(sec["replicas"]) == 4
+              and sec["hot_rows"] == n_hot,
+              "/health's serving_fleet section %s" % sec)
+        rec["health"] = {k: sec[k] for k in ("boxes", "requests", "qps",
+                                             "p50_us", "p99_us", "policy")}
+
+        # a delta of day1 lands under pullers
+        dk = np.unique(rng.choice(keys, SERVE_DELTA_KEYS, replace=False))
+        old = oracle.lookup(dk)
+        new = old + np.float32(1.0)
+        box_of = dk % np.uint64(2)
+        torn, counts = [], {"old": 0, "new": 0, "fleet": 0}
+        counts_lock = threading.Lock()
+        stop = threading.Event()
+
+        def seen(kind):
+            with counts_lock:
+                counts[kind] += 1
+
+        def box_puller(b):
+            c = ServingClient(fleet.boxes[b].endpoints, timeout=30.0)
+            mine = box_of == b
+            try:
+                while not stop.is_set():
+                    got = c.pull(dk[mine])
+                    if bits_equal(got, old[mine]):
+                        seen("old")
+                    elif bits_equal(got, new[mine]):
+                        seen("new")
+                    else:
+                        torn.append("box %d mixed generations" % b)
+            except Exception as e:  # noqa: BLE001 (checked below)
+                torn.append(repr(e))
+            finally:
+                c.close()
+
+        def fleet_puller():
+            try:
+                while not stop.is_set():
+                    got = fc.pull(dk).view(np.uint32)
+                    ok = ((got == old.view(np.uint32)).all(1)
+                          | (got == new.view(np.uint32)).all(1))
+                    seen("fleet")
+                    if not ok.all():
+                        torn.append("a fleet row of neither generation")
+            except Exception as e:  # noqa: BLE001 (checked below)
+                torn.append(repr(e))
+
+        pullers = [threading.Thread(target=box_puller, args=(b,))
+                   for b in range(2)] + [threading.Thread(
+                       target=fleet_puller)]
+        for t in pullers:
+            t.start()
+        d1 = os.path.join(root, "day1", "delta-1")
+        os.makedirs(d1)
+        delta = write_xbox_columnar(os.path.join(d1, "view.xcol"), dk, new)
+        with open(os.path.join(d1, "DONE"), "w") as f:
+            f.write(repr(time.time()))
+        t_done = time.perf_counter()
+        oracle2 = MmapViewStack.from_files([base, delta])
+        try:
+            # every replica of both boxes on the new generation
+            while True:
+                gens = [st["gen"] for st in fleet.health()["replicas"]]
+                if gens == [1, 1, 1, 1]:
+                    break
+                check(time.perf_counter() - t_done < SERVE_DEADLINE_S,
+                      "the fleet's delta not served within %.0f s (gens %s)"
+                      % (SERVE_DEADLINE_S, gens))
+                time.sleep(0.01)
+            rec["delta_s"] = time.perf_counter() - t_done
+            time.sleep(0.2)
+        finally:
+            stop.set()
+            for t in pullers:
+                t.join(timeout=30.0)
+        check(not torn, "delta under pullers: %s" % torn[:3])
+        check(counts["new"] > 0 and counts["fleet"] > 0,
+              "the pullers saw %s" % counts)
+        rec["delta"] = dict(counts, keys=int(dk.size))
+        for _ in range(4):
+            p = np.concatenate([probe(rng), rng.choice(dk, 512)])
+            check(bits_equal(fc.pull(p), oracle2.lookup(p)),
+                  "after the delta the fleet differs from the stack")
+        # one replica of box 0 dies: every pull still answers
+        fleet.boxes[0]._procs[0].kill()
+        fleet.boxes[0]._procs[0].join(timeout=10.0)
+        for _ in range(16):
+            p = probe(rng)
+            check(bits_equal(fc.pull(p), oracle2.lookup(p)),
+                  "with a replica killed the fleet differs")
+        rec["after_kill_pulls"] = 16
+    finally:
+        if fc is not None:
+            fc.close()
+        fleet.close()
+        after_close = health(exp.port)
+        exp.close()
+    check("serving_fleet" not in after_close,
+          "/health keeps serving_fleet after close")
+    return rec
+
+
+def serve_journal_leg(torch, cfg, feed, files, tmp, reset_counts, counts,
+                      device="cuda"):
+    """(e) Journal-fed freshness: a StreamingRunner at phase 20's shape
+    (its window, base cadence and journal) over the first two of phase
+    20's clean windows (four files), then a JournalDeltaSource over its
+    live journal directory: the overlay's every row is the stream's final
+    store's row projected by xbox_embed_cols, its applied watermark is
+    the newest file's mtime, and a ServingServer over the run's xbox root
+    with that journal stamps it into a pull's response, whose rows are the
+    overlay's. Phase 20's own directory holds no rows by then: its
+    journal-mode micro-checkpoint moved the epoch's segments into the
+    snapshot (journal.py rebase)."""
+    import shutil
+
+    import numpy as np
+
+    from paddlebox_tpu_torch.config.flags import ObsFlags, ServingFlags
+    from paddlebox_tpu_torch.serving import (JournalDeltaSource,
+                                             ServingClient, ServingServer)
+    from paddlebox_tpu_torch.serving.store import read_xbox_columnar
+
+    root = os.path.join(tmp, "serve_journal")
+    watch = os.path.join(root, "watch")
+    os.makedirs(watch)
+    t0 = time.time() - 1e-3 * 4
+    for i, src in enumerate(files[:4]):
+        dst = os.path.join(watch, STREAM_NAMES[i])
+        shutil.copy(src, dst + ".tmp")
+        os.replace(dst + ".tmp", dst)
+        os.utime(dst, (t0 + 1e-3 * i, t0 + 1e-3 * i))
+    newest = os.path.getmtime(os.path.join(watch, STREAM_NAMES[3]))
+    reset_counts()
+    trainer, _cm, res, _bounds, passes = stream_run(
+        torch, cfg, feed, watch, os.path.join(root, "run"), ObsFlags(),
+        device)
+    launches = counts()
+    steps = sum(p["batches"] for p in passes)
+    extra = sum(gather_launches_of(p["counters"]) for p in passes)
+    check(device != "cuda" or launches == f32_launches(
+              push_adagrad=steps, gather_rows=steps + extra),
+          "the two-window stream's launches %s over %d steps"
+          % (launches, steps))
+    check([(p["window"], p["admitted"]) for p in res["passes"]]
+          == [(0, True), (1, True)],
+          "the two-window stream: %s" % res["passes"])
+    sk, sv = sorted_store(trainer.table)
+    layout = trainer.table.layout
+    jdir = os.path.join(root, "run", "batch", "_journal", "rank0")
+    src = JournalDeltaSource([jdir])
+    try:
+        t1 = time.perf_counter()
+        check(src.poll(), "the journal gave the overlay nothing")
+        path = src.compile_overlay()
+        poll_s = time.perf_counter() - t1
+        ok, orows = (np.asarray(a) for a in read_xbox_columnar(path))
+        pos = np.minimum(np.searchsorted(sk, ok), sk.size - 1)
+        check(ok.size > 0 and np.array_equal(sk[pos], ok)
+              and bits_equal(orows, xbox_cols(sv[pos], layout)),
+              "the journal's overlay differs from the stream's store")
+        wm = src.applied_watermark()
+        check(wm == newest, "the journal's watermark %r, the newest file's "
+              "mtime %r" % (wm, newest))
+    finally:
+        src.close()
+    server = ServingServer(os.path.join(root, "run", "xbox"),
+                           flags=ServingFlags(
+                               serving_journal_dir=jdir,
+                               serving_refresh_secs=SERVE_REFRESH_S))
+    client = ServingClient([("127.0.0.1", server.port)])
+    try:
+        t1 = time.perf_counter()
+        probe = ok[:SERVE_BATCH]
+        # the watcher polls the journal (the watermark) before it swaps
+        # the overlay in: wait for both
+        while True:
+            got = client.pull(probe)
+            if client.last_watermark > 0.0 and client.last_gen >= 1:
+                break
+            check(time.perf_counter() - t1 < SERVE_DEADLINE_S,
+                  "no pull carried the overlay and the watermark within "
+                  "%.0f s" % SERVE_DEADLINE_S)
+            time.sleep(0.01)
+        served_s = time.perf_counter() - t1
+        check(client.last_watermark == wm
+              and bits_equal(got, orows[:SERVE_BATCH]),
+              "the served overlay: watermark %r (want %r) or rows differ"
+              % (client.last_watermark, wm))
+    finally:
+        client.close()
+        server.drain(timeout=10.0)
+    trainer.close()
+    return {"windows": len(passes), "overlay_rows": int(ok.size),
+            "store_rows": int(sk.size), "watermark": wm,
+            "poll_compile_s": poll_s, "served_s": served_s,
+            "losses": [p["loss"] for p in passes], "launches": launches}
+
+
+def serve_phase(torch, cfg, feed, files, tmp, main, main_trained,
+                reset_counts, counts, card):
+    """Phase 29: train to serve (see the module docstring). Returns its
+    record; every leg raises on a failed check."""
+    legs = {}
+    t0 = time.perf_counter()
+    rec = {"import_s": serve_import_leg()}
+    legs["import"] = time.perf_counter() - t0
+    log("serve: import paddlebox_tpu_torch.serving in %.3f s in a fresh "
+        "interpreter, no torch, jax, paddlebox_tpu or paddlebox_tpu_torch."
+        "train module loaded" % rec["import_s"])
+    t0 = time.perf_counter()
+    rec["day"] = serve_day_leg(tmp)
+    legs["day"] = time.perf_counter() - t0
+    log("serve day: %s" % json.dumps(rec["day"]))
+    t0 = time.perf_counter()
+    rec["live"] = serve_live_leg(torch, cfg, feed, files, tmp, main,
+                                 main_trained, reset_counts, counts)
+    legs["live"] = time.perf_counter() - t0
+    for d in rec["live"]["deltas"]:
+        log("serve live: delta-%(delta)d (%(rows)d rows) served %(gen)d "
+            "generations up %(done_to_served_s).4f s after its DONE; the "
+            "pass's %(pass_keys)d keys served as XboxModelReader composes "
+            "them" % d)
+    log("serve live: %s" % json.dumps(rec["live"]))
+    t0 = time.perf_counter()
+    rec["fleet"] = serve_fleet_leg(tmp, card=card)
+    legs["fleet"] = time.perf_counter() - t0
+    log("serve fleet: %s" % json.dumps(rec["fleet"]))
+    t0 = time.perf_counter()
+    rec["journal"] = serve_journal_leg(torch, cfg, feed, files, tmp,
+                                       reset_counts, counts)
+    legs["journal"] = time.perf_counter() - t0
+    log("serve journal: %s" % json.dumps(rec["journal"]))
+    rec["legs_s"] = legs
+    log("serve legs (s): %s; %s" % (json.dumps(legs), card))
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8316,6 +8950,9 @@ def main() -> int:
                     "store": sorted_store(trainer.table)}
         # phase 22 holds its world-1 sharded run to this store
         main_sha = store_sha(trainer.table)
+        # phase 29 holds its train-to-serve run to this one, delta scores
+        # aside
+        main_trained = trained_sha(trainer.table)
         main_trainer = trainer
         del trainer, ds
         plain_passes = plain_tier_phase(torch, cfg, feed, files, passes,
@@ -8418,6 +9055,13 @@ def main() -> int:
                                 spawn, windows, bst_files, bst_feed, tier,
                                 stream)
         clock.lap("sharded")
+
+        # 29. train to serve: the serving plane over phase 7's day, over a
+        # live trainer's deltas, as a 2 x 2 fleet and fed by phase 20's
+        # journal
+        serve = serve_phase(torch, cfg, feed, files, tmp, passes,
+                            main_trained, reset_counts, counts, smi)
+        clock.lap("serve")
 
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
@@ -8528,6 +9172,13 @@ def main() -> int:
         for shape, rec, run in at28.get(k["name"], ()):
             k.setdefault("at_shapes", {})[shape] = dict(
                 rec, launches=run["launches"][k["name"]])
+    # phase 29's live trainer: the main path's shapes, its passes' launches
+    for k in kernels:
+        if k["name"] in ("gather_rows", "push_adagrad"):
+            k["path_launches"] = {
+                "train_to_serve": serve["live"]["launches"][k["name"]],
+                "train_to_serve_stream":
+                    serve["journal"]["launches"][k["name"]]}
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -8616,7 +9267,10 @@ def main() -> int:
                               **{"pipe28_" + w: r["launches"]
                                  for w, r in p28["writes"].items()},
                               "pipe28_expand": p28["expand"]["launches"],
-                              "pipe28_section_ps": p28["ps"]["launches"]},
+                              "pipe28_section_ps": p28["ps"]["launches"],
+                              "serve29_live": serve["live"]["launches"],
+                              "serve29_stream":
+                                  serve["journal"]["launches"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

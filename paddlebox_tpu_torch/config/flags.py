@@ -1,10 +1,11 @@
 """The switches the port reads: the push write, the pass lifecycle, the
 chunk driver's staging, the checkpoint plane, the dtype diet, the
-trainer's host planes (telemetry, quality, drift), the streaming runner
-and the single-process host switches (HostFlags: the feed's local and
+trainer's host planes (telemetry, quality, drift), the streaming runner,
+the single-process host switches (HostFlags: the feed's local and
 cross-host shuffle and key cap, the dump and archive rotation, the
 profiled pass, the AUC runner, the nan guard's default, the lock-order
-watch, the host hash table's load factor).
+watch, the host hash table's load factor), the sharded trainer's
+(ShardFlags) and the serving plane's (ServingFlags).
 
 The JAX package keeps these in a process-wide flag registry
 (paddlebox_tpu/config/flags.py), each read when the flag is defined. The
@@ -456,7 +457,44 @@ class ShardFlags:
                              % (self.hostplane,))
 
 
+@dataclasses.dataclass(frozen=True)
+class ServingFlags:
+    """The serving plane's switches (paddlebox_tpu/config/flags.py:
+    377-452), read where a serving object is made (serving/refresh.py
+    make_manager and DeltaRefreshWatcher, serving/server.py
+    ServingServer); a spawned replica gets its copy from the fleet
+    (serving/fleet.py).
+
+    serving_cache_rows: the hot-key cache's rows a process (0: no cache);
+    serving_cache_admit: the misses a key needs to enter it.
+    serving_refresh_secs: the watcher's poll (floor 0.05 s).
+    serving_pull_threads: the bounded lookup pool a process.
+    serving_drain_secs: how long drain waits for pulls in flight.
+    serving_report_requests: a StepReport every this many pulls (<= 0:
+    off); serving_slo_us: the lookup SLO the gauge serving_slo_burn
+    divides the window's p99 by (<= 0: no gauge).
+    serving_num_shards, serving_shard_index (-1: the full view),
+    serving_shard_policy ('': ShardFlags.sharding_policy) and
+    serving_hot_keys (a write_hot_keys file, '': none): this box's slice
+    of a multi-box fleet. serving_journal_dir: comma-separated journal
+    directories whose touched rows are served one poll after they are
+    flushed ('': views only)."""
+
+    serving_cache_rows: int = _env("serving_cache_rows", 65536)
+    serving_cache_admit: int = _env("serving_cache_admit", 2)
+    serving_refresh_secs: float = _env("serving_refresh_secs", 0.5)
+    serving_pull_threads: int = _env("serving_pull_threads", 4)
+    serving_drain_secs: float = _env("serving_drain_secs", 10.0)
+    serving_report_requests: int = _env("serving_report_requests", 200)
+    serving_slo_us: float = _env("serving_slo_us", 15000.0)
+    serving_num_shards: int = _env("serving_num_shards", 1)
+    serving_shard_index: int = _env("serving_shard_index", -1)
+    serving_shard_policy: str = _env("serving_shard_policy", "")
+    serving_hot_keys: str = _env("serving_hot_keys", "")
+    serving_journal_dir: str = _env("serving_journal_dir", "")
+
+
 # every dataclass of switches; their fields are the reference flags the
 # port reads (tests/test_torch_flags.py holds them to the registry)
 FLAG_CLASSES = (DtypeFlags, PushFlags, PassFlags, StageFlags, CkptFlags,
-                ObsFlags, StreamFlags, HostFlags, ShardFlags)
+                ObsFlags, StreamFlags, HostFlags, ShardFlags, ServingFlags)

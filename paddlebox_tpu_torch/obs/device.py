@@ -54,7 +54,6 @@ from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from paddlebox_tpu_torch.config.flags import ObsFlags
 from paddlebox_tpu_torch.utils.lockwatch import make_lock, make_rlock
@@ -131,14 +130,22 @@ class _StepEntry:
         return d
 
 
+def _tensor_type():
+    """torch.Tensor, imported here: the serving plane imports the obs
+    package and must not load torch (nothing it holds is a tensor)."""
+    import torch
+    return torch.Tensor
+
+
 def _tensors(obj) -> List[torch.Tensor]:
     """The tensors of a tensor, a dict, a list or tuple of them, or any
     iterable of them (a parameter generator)."""
+    tensor = _tensor_type()
     out: List[torch.Tensor] = []
     stack = [obj]
     while stack:
         x = stack.pop()
-        if isinstance(x, torch.Tensor):
+        if isinstance(x, tensor):
             out.append(x)
         elif isinstance(x, dict):
             stack.extend(x.values())
@@ -223,6 +230,7 @@ class DeviceMonitor:
         owned = sum(buckets.values())
         peak = None
         if cuda_dev is not None:
+            import torch
             allocated = int(torch.cuda.memory_allocated(cuda_dev))
             buckets["other"] = max(0, allocated - owned)
             total = allocated if allocated > owned else owned
@@ -361,6 +369,7 @@ def account_d2h(nbytes: int, kind: str = "other") -> None:
 def tree_nbytes(tree) -> int:
     """The bytes of the numpy arrays and tensors in a dict / list / tuple
     tree (host ints count nothing)."""
+    tensor = _tensor_type()
     total = 0
     stack = [tree]
     while stack:
@@ -369,7 +378,7 @@ def tree_nbytes(tree) -> int:
             stack.extend(x.values())
         elif isinstance(x, (list, tuple)):
             stack.extend(x)
-        elif isinstance(x, torch.Tensor):
+        elif isinstance(x, tensor):
             total += _nbytes(x)
         elif isinstance(x, np.ndarray):
             total += int(x.nbytes)
@@ -382,7 +391,7 @@ def _sig(x):
     """The signature of one argument: tensors and arrays by shape, dtype
     (and a tensor's device type), containers by their structure, anything
     else by its type."""
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, _tensor_type()):
         return ("T", tuple(x.shape), x.dtype, x.device.type)
     if isinstance(x, np.ndarray):
         return ("N", x.shape, x.dtype.str)
@@ -474,7 +483,7 @@ class InstrumentedStep:
         audit = None
         if self._slab_of is not None and self._slab_argnum < len(args):
             slab = args[self._slab_argnum]
-            if isinstance(slab, torch.Tensor):
+            if isinstance(slab, _tensor_type()):
                 nb = _nbytes(slab)
                 if nb >= _SETTINGS.donation_min_bytes:
                     audit = (slab.data_ptr(), nb)

@@ -22,7 +22,9 @@ rings only.
 
 from __future__ import annotations
 
+import itertools
 import json
+import os
 import threading
 import time
 import weakref
@@ -46,11 +48,25 @@ def set_annotation(factory: Optional[Callable]) -> None:
 
 # ------------------------------------------------------------- trace ids
 _TRACE_CTX = threading.local()
+# request ids (the serving client's pulls): a counter under a 15-bit salt
+# of the pid mixed with random bytes, so two processes whose pids agree
+# mod 2^15 do not mint the same sequence
+_NEXT_REQ = itertools.count(1)
+_REQ_SALT = ((os.getpid() ^ (os.getpid() >> 15)
+              ^ int.from_bytes(os.urandom(2), "little")) & 0x7FFF)
 
 
 def step_trace_id(rank: int, step: int) -> int:
     """Per-step 64-bit id: the rank in the high 16 bits, the step below."""
     return ((int(rank) & 0xFFFF) << 48) | (int(step) & 0xFFFFFFFFFFFF)
+
+
+def next_trace_id() -> int:
+    """Per-request 64-bit id for planes without a step counter: bit 63
+    set (so it never equals a ``step_trace_id``), the process's salt in
+    bits 48-62 and a counter below."""
+    return ((1 << 63) | (_REQ_SALT << 48)
+            | (next(_NEXT_REQ) & 0xFFFFFFFFFFFF))
 
 
 def current_trace() -> Optional[int]:

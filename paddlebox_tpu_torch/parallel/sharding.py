@@ -44,7 +44,6 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from paddlebox_tpu_torch.fleet.mesh_comm import MeshPolicyMismatch
 from paddlebox_tpu_torch.utils.lockwatch import make_lock
 
 # the 2-D grid's axes, as the reference names them
@@ -399,6 +398,9 @@ class ReplicatedHotTier:
 def validate_policy_agreement(fleet, policy: ShardingPolicy) -> None:
     """Every rank runs the same policy: one all_gather of describe();
     raises MeshPolicyMismatch naming every identity seen. Collective."""
+    # here, not at the top: the serving plane imports this module and must
+    # not load fleet/ (and with it torch)
+    from paddlebox_tpu_torch.fleet.mesh_comm import MeshPolicyMismatch
     mine = policy.describe()
     parts = fleet.all_gather(
         np.frombuffer(mine.encode("utf-8"), np.uint8).copy())

@@ -5,11 +5,11 @@ dataclasses (config/flags.py FLAG_CLASSES) under the same name, and takes
 the same PBTPU_<NAME> override: with every such variable set to a value
 off its default, each package runs in a subprocess of its own and the
 port's fields equal the reference's registry (exact). The reference flags
-the port leaves to serving or declines are pinned below; every
-other reference flag must be a port field. The config dataclasses have
-equal field sets, and the rules the flags feed (key_capacity's order,
-check_nan_inf's default, dataset_disable_shuffle, the explicit argument
-over the environment, no half-applied environment) hold.
+the port declines are pinned below; every other reference flag must be a
+port field. The config dataclasses have equal field sets, and the rules
+the flags feed (key_capacity's order, check_nan_inf's default,
+dataset_disable_shuffle, the explicit argument over the environment, no
+half-applied environment) hold.
 """
 
 import dataclasses
@@ -36,12 +36,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the reference flags the port does not read, by where they go
 LEFT_TO = {
-    "serving": ("serving_cache_rows", "serving_cache_admit",
-                "serving_refresh_secs", "serving_pull_threads",
-                "serving_drain_secs", "serving_report_requests",
-                "serving_slo_us", "serving_num_shards", "serving_shard_index",
-                "serving_shard_policy", "serving_hot_keys",
-                "serving_journal_dir"),
     "declined": ("push_onehot_rows", "push_blocked_pallas",
                  "use_pallas_push", "flatten_dense_opt"),
 }
@@ -52,7 +46,10 @@ STR_VALUES = {"push_write": "blocked", "slab_embed_dtype": "bfloat16",
               "obs_watchdog_action": "raise",
               "obs_report_path": "/nonexistent/report.jsonl",
               "obs_flight_dir": "/nonexistent/flight",
-              "sharding_policy": "table-wise", "hostplane": "store"}
+              "sharding_policy": "table-wise", "hostplane": "store",
+              "serving_shard_policy": "2d-grid",
+              "serving_hot_keys": "/nonexistent/hot.keys",
+              "serving_journal_dir": "/nonexistent/journal"}
 
 
 def port_fields():

@@ -57,10 +57,34 @@ def test_import_loads_no_jax_and_no_reference_module():
               "ps.service", "ps.worker", "embedding.ps_store",
               "parallel.tensor_parallel", "parallel.sharded_table",
               "models.wide_tower", "parallel.mesh_tower", "fleet.heter",
-              "fleet.executor", "parallel.mesh", "parallel.pipeline"):
+              "fleet.executor", "parallel.mesh", "parallel.pipeline",
+              "serving", "serving.cache", "serving.codec",
+              "serving.refresh", "serving.server", "serving.client",
+              "serving.fleet"):
         assert "paddlebox_tpu_torch." + m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
+
+
+def test_serving_import_loads_no_torch():
+    """A serving replica's import: no torch, no JAX, no module of the JAX
+    package and not the port's trainer (serving/fleet.py spawns replicas
+    that must come up in about a second and hold no CUDA context)."""
+    code = ("import json, sys, time\n"
+            "t0 = time.perf_counter()\n"
+            "import paddlebox_tpu_torch.serving\n"
+            "print(json.dumps([time.perf_counter() - t0, "
+            "sorted(sys.modules)]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    _secs, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded
+           if m in ("torch", "jax", "paddlebox_tpu", "paddlebox_tpu_torch.train")
+           or m.startswith(("torch.", "jax.", "paddlebox_tpu.",
+                            "paddlebox_tpu_torch.train."))]
+    assert not bad, bad
+    assert "paddlebox_tpu_torch.serving.fleet" in loaded
 
 
 def test_reading_a_jax_checkpoint_loads_no_jax(tmp_path):
