@@ -516,6 +516,25 @@ Phases, each of which raises on a failed check (exit code != 0):
      into a ServingServer's pull (phase 20's own journal directory holds
      no rows by then: its journal-mode micro-checkpoint moved them into the
      snapshot); each leg's seconds;
+ 30. the user entry points (paddlebox_tpu_torch/examples/), in the parent
+     after phase 29, on the card with no CPU fallback: (a) train_ctr's demo
+     leg for DEMO_PASSES passes at its defaults and at --push-write
+     rebuild, each held to the same demo's CPU run (in the spawned writer
+     process meanwhile) under phase 3's limits (loss rtol 1e-4, AUC 1e-4
+     absolute), auto resolved to scatter on the card, push_adagrad once a
+     step and gather_rows once a step (twice under rebuild) and at each
+     write-back; (b) pull_sparse_differentiable at the flagship pull's
+     shape (a 2^20 x 17 slab, PULL_IDS ids drawn from [0, PULL_ID_RANGE)):
+     its forward bit-equal to slab[ids]'s pull view, one gather_rows
+     launch, its backward bit-equal to pull_view_grad on the CPU; (c) the
+     reader pool on the main path's files: read_threads=4 loads the
+     read_threads=1 load byte for byte (block, add_keys_fn calls), both
+     loads' seconds in cadence_probe.BALANCED's order of the two (no
+     claim); (d) the other seven demos once at world 1: train_aux_input,
+     train_downpour, serve_xbox and stream_train_serve in process,
+     train_sharded, train_pipeline and train_mesh_tower each through
+     fleet/launch.py --nproc 1 over NCCL (started at the phase's start,
+     DEMO_WALL_S each), every demo's printed lines checked;
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -8796,6 +8815,264 @@ def serve_phase(torch, cfg, feed, files, tmp, main, main_trained,
     return rec
 
 
+# phase 30: the user entry points, the demos of paddlebox_tpu_torch/
+# examples/ on the card as their users run them
+DEMO_PASSES = 2              # train_ctr's passes in (a)
+DEMO_WALL_S = 300.0          # a launched demo's wall limit
+DEMO_GROUP_S = 120.0         # its process groups' timeout
+PULL_IDS = 131072            # (b): the flagship pull's ids, drawn from
+PULL_ID_RANGE = 100000       # [0, 100000) (about 73,000 distinct)
+PULL_SEED = 30
+# (c): read_threads 1 (a) and 4 (b) in cadence_probe.BALANCED's order
+READ_ORDER = "baabba"
+LAUNCHED_DEMOS = (
+    ("train_sharded", ["--passes", "2"],
+     ("devices: 1 × cuda (nccl)", "pass 1: loss=", "streaming AUC:")),
+    ("train_pipeline", ["--passes", "2"],
+     ("pipeline: 1 stages × cuda", "pass 1: loss=", "features trained:")),
+    ("train_mesh_tower", ["--kind", "tp", "--passes", "2"],
+     ("TP DeepFM: 1024-wide layer split over 1 ranks", "pass 1: loss=",
+      "features trained:")),
+)
+
+
+def demo_quiet(fn, argv, **kw):
+    """(fn(argv, **kw), what it printed): a demo's main in process."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(argv, **kw)
+    return res, buf.getvalue()
+
+
+def demo_lines(name, printed, want):
+    for ln in printed.splitlines():
+        log("demo %s: %s" % (name, ln))
+    missing = [w for w in want if w not in printed]
+    check(not missing, "demo %s printed no %s" % (name, missing))
+
+
+def demo_ctr_cpu(workdir):
+    """Phase 30 (a)'s CPU run of train_ctr (in the spawned writer)."""
+    from paddlebox_tpu_torch.examples import train_ctr
+    res, printed = demo_quiet(train_ctr.main, [
+        "--passes", str(DEMO_PASSES), "--device", "cpu", "--workdir",
+        workdir])
+    return {"losses": [float(p["loss"]) for p in res["passes"]],
+            "auc": float(res["auc"]["auc"]), "push_write": res["push_write"],
+            "printed": printed}
+
+
+def launch_demo(name, args, out_dir):
+    """Start fleet/launch.py --nproc 1 over examples/<name>.py on the card;
+    (the process, its log's path)."""
+    import subprocess
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "paddlebox_tpu_torch", "examples", name + ".py")
+    path = os.path.join(out_dir, name + ".log")
+    env = dict(os.environ, TMPDIR=out_dir)
+    with open(path, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddlebox_tpu_torch.fleet.launch",
+             "--nproc", "1", script, *args, "--timeout", str(DEMO_GROUP_S)],
+            stdout=fh, stderr=subprocess.STDOUT, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, path
+
+
+def wait_demo(name, proc, path, t0):
+    """The launched demo's output, once it exited 0 within DEMO_WALL_S of
+    ``t0`` (killed past it)."""
+    import subprocess
+    try:
+        proc.wait(max(1.0, DEMO_WALL_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(path) as fh:
+        out = fh.read()
+    check(proc.returncode == 0, "launched demo %s exited %s:\n%s"
+          % (name, proc.returncode, out[-3000:]))
+    return out
+
+
+def demo_ctr_card(torch, workdir, push_write, reset_counts, counts):
+    """(a) on the card: train_ctr's demo leg at ``push_write``; its
+    losses, AUC and launches, checked against its steps."""
+    from paddlebox_tpu_torch.examples import train_ctr
+    argv = ["--passes", str(DEMO_PASSES), "--workdir", workdir]
+    if push_write != "auto":
+        argv += ["--push-write", push_write]
+    reset_counts()
+    res, printed = demo_quiet(train_ctr.main, argv)
+    launches = counts()
+    label = "train_ctr" + ("" if push_write == "auto" else "_" + push_write)
+    demo_lines(label, printed, ("push write: %s -> %s on cuda" % (
+        push_write, "scatter" if push_write == "auto" else push_write),
+        "pass 1: loss=", "streaming AUC:", "checkpoints under"))
+    steps = sum(int(p["batches"]) for p in res["passes"])
+    pulls = steps * (2 if push_write == "rebuild" else 1)
+    check(launches["push_adagrad"] == steps
+          and DEMO_PASSES <= launches["gather_rows"] - pulls
+          <= 2 * DEMO_PASSES
+          and launches["blocked_write"] == 0,
+          "demo %s launches %s over %d steps" % (label, launches, steps))
+    return {"label": label, "losses": [float(p["loss"])
+                                       for p in res["passes"]],
+            "auc": float(res["auc"]["auc"]), "steps": steps,
+            "launches": launches, "push_write": res["push_write"]}
+
+
+def demo_ctr_against_cpu(rec, cpu):
+    """(a)'s card run ``rec`` against the CPU run under phase 3's
+    limits."""
+    for got, want in zip(rec["losses"], cpu["losses"], strict=True):
+        check(abs(got - want) <= 1e-4 * abs(want), "demo %s loss %r on the "
+              "card, %r on the CPU" % (rec["label"], got, want))
+    check(abs(rec["auc"] - cpu["auc"]) <= 1e-4, "demo %s AUC %r on the "
+          "card, %r on the CPU" % (rec["label"], rec["auc"], cpu["auc"]))
+    rec.update(cpu_losses=cpu["losses"], cpu_auc=cpu["auc"])
+    log("demo %s on the card: %s" % (rec["label"], json.dumps(rec)))
+
+
+def demo_pull_check(torch, dev):
+    """(b) pull_sparse_differentiable at the flagship pull's shape."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+    from paddlebox_tpu_torch.ops.sparse import (pull_sparse_differentiable,
+                                                pull_view_from_rows,
+                                                pull_view_grad)
+    layout = ValueLayout(8)
+    rng = np.random.RandomState(PULL_SEED)
+    slab = torch.from_numpy(rng.rand(1 << 20, layout.width).astype(
+        np.float32)).to(dev).requires_grad_(True)
+    ids_np = rng.randint(0, PULL_ID_RANGE, PULL_IDS).astype(np.int32)
+    ids = torch.from_numpy(ids_np).to(dev)
+    d_out = torch.from_numpy(rng.randn(PULL_IDS, 3 + 8).astype(
+        np.float32)).to(dev)
+    reset_counts()
+    out = pull_sparse_differentiable(slab, ids, layout)
+    out.backward(d_out)
+    torch.cuda.synchronize()
+    launches = counts()
+    plain = pull_view_from_rows(slab.detach().index_select(
+        0, ids.to(torch.int64)), layout)
+    want = pull_view_grad(ids.cpu(), d_out.cpu(), tuple(slab.shape), layout)
+    check(bits_equal(out.detach().cpu().numpy(), plain.cpu().numpy())
+          and bits_equal(slab.grad.cpu().numpy(), want.numpy())
+          and launches["gather_rows"] == 1,
+          "pull_sparse_differentiable on the card: forward or backward "
+          "differs from its plain version, or launches %s" % launches)
+    idx = ids.to(torch.int64)
+    lib = torch.zeros_like(slab)
+    lib[:, acc.EMBED_W].index_add_(0, idx, d_out[:, 2])
+    lib[:, layout.embedx_w:layout.embedx_w + 8].index_add_(0, idx,
+                                                           d_out[:, 3:])
+    rec = {"ids": PULL_IDS, "distinct": int(np.unique(ids_np).size),
+           "slab": list(slab.shape), "launches": launches,
+           "index_add_max_abs_err": float((lib - slab.grad).abs().max())}
+    log("demo pull_sparse_differentiable: forward and backward bit-equal "
+        "to their plain versions; %s" % json.dumps(rec))
+    return rec
+
+
+def demo_reader_check(feed, files, smi):
+    """(c) the reader pool on the main path's files."""
+    import hashlib
+
+    from paddlebox_tpu_torch import cadence_probe
+    from paddlebox_tpu_torch.data.dataset import BoxDataset
+    digests, secs = {}, {1: [], 4: []}
+    for c in READ_ORDER:
+        n = 1 if c == "a" else 4
+        cadence_probe.settle()
+        calls = []
+        ds = BoxDataset(feed, read_threads=n)
+        ds.set_filelist(files)
+        t0 = time.perf_counter()
+        ds.load_into_memory(add_keys_fn=calls.append)
+        secs[n].append(time.perf_counter() - t0)
+        b = ds.block
+        h = hashlib.sha256()
+        for a in [b.keys, b.key_slot, b.labels, b.rec_offsets] + calls:
+            h.update(a.tobytes())
+        digests.setdefault(n, set()).add(h.hexdigest())
+        ds.release_memory()
+    check(len(digests[1] | digests[4]) == 1, "read_threads=4 loads "
+          "differ from read_threads=1: %s" % digests)
+    rec = {"files": len(files), "order": READ_ORDER,
+           "load_s": {str(k): v for k, v in secs.items()},
+           "sha256": sorted(digests[1])[0]}
+    log("demo reader pool on the main path's files: read_threads 4 = 1 "
+        "byte for byte; one call, no claim: %s; card %s"
+        % (json.dumps(rec), smi))
+    return rec
+
+
+def demos_phase(torch, feed, files, tmp, writer, smi):
+    """Phase 30 (module docstring). Returns the launches and records."""
+    root = os.path.join(tmp, "demos")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    launched = [(name, want) + launch_demo(name, args, root)
+                for name, args, want in LAUNCHED_DEMOS]
+    cpu_ctr = writer.submit(demo_ctr_cpu, os.path.join(root, "ctr_cpu"))
+    old_tmp = tempfile.tempdir
+    tempfile.tempdir = root
+    try:
+        from paddlebox_tpu_torch.examples import (serve_xbox,
+                                                  stream_train_serve,
+                                                  train_aux_input,
+                                                  train_downpour)
+        out = {"train_ctr": {}}
+        for write in ("auto", "rebuild"):
+            out["train_ctr"][write] = demo_ctr_card(
+                torch, os.path.join(root, "ctr_" + write), write,
+                reset_counts, counts)
+        cpu = cpu_ctr.result()
+        check(cpu["push_write"] == "scatter", "the CPU demo's write %s"
+              % cpu["push_write"])
+        for rec in out["train_ctr"].values():
+            demo_ctr_against_cpu(rec, cpu)
+        out["pull_sparse_differentiable"] = demo_pull_check(
+            torch, torch.device("cuda"))
+        out["reader"] = demo_reader_check(feed, files, smi)
+        launches = {}
+        for name, fn, argv, want in (
+                ("train_aux_input", train_aux_input.main, ["--passes", "2"],
+                 ("pass 1: loss=", "aux rows served: 17 items, dim 8")),
+                ("train_downpour", train_downpour.main, ["--passes", "2"],
+                 ("pass 1: loss=", "eval AUC:")),
+                ("serve_xbox", serve_xbox.main, ["--passes", "2"],
+                 ("serving view:", "feasign", "oracle parity OK",
+                  "delta refresh: day1 SaveDelta visible")),
+                ("stream_train_serve", stream_train_serve.main, [],
+                 ("seed micro-pass", "micro-pass",
+                  "ingest-to-serve freshness"))):
+            reset_counts()
+            _, printed = demo_quiet(fn, argv)
+            launches[name] = counts()
+            demo_lines(name, printed, want)
+            check(launches[name]["gather_rows"] > 0, "demo %s launched no "
+                  "gather_rows: %s" % (name, launches[name]))
+        for name, want, proc, path in launched:
+            demo_lines(name, wait_demo(name, proc, path, t0), want)
+    finally:
+        tempfile.tempdir = old_tmp
+        for _, _, proc, _ in launched:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["launches"] = launches
+    log("demos phase: %s" % json.dumps({"launches": launches,
+                                        "seconds": time.perf_counter()
+                                        - t0}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9063,6 +9340,10 @@ def main() -> int:
                             main_trained, reset_counts, counts, smi)
         clock.lap("serve")
 
+        # 30. the user entry points: the eight demos on the card
+        demos = demos_phase(torch, feed, files, tmp, writer, smi)
+        clock.lap("demos")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -9172,13 +9453,16 @@ def main() -> int:
         for shape, rec, run in at28.get(k["name"], ()):
             k.setdefault("at_shapes", {})[shape] = dict(
                 rec, launches=run["launches"][k["name"]])
-    # phase 29's live trainer: the main path's shapes, its passes' launches
+    # phase 29's live trainer: the main path's shapes, its passes' launches;
+    # phase 30's train_ctr demo at its defaults and at rebuild
     for k in kernels:
         if k["name"] in ("gather_rows", "push_adagrad"):
             k["path_launches"] = {
                 "train_to_serve": serve["live"]["launches"][k["name"]],
                 "train_to_serve_stream":
-                    serve["journal"]["launches"][k["name"]]}
+                    serve["journal"]["launches"][k["name"]],
+                **{"demo_train_ctr_" + w: r["launches"][k["name"]]
+                   for w, r in demos["train_ctr"].items()}}
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -9270,7 +9554,14 @@ def main() -> int:
                               "pipe28_section_ps": p28["ps"]["launches"],
                               "serve29_live": serve["live"]["launches"],
                               "serve29_stream":
-                                  serve["journal"]["launches"]},
+                                  serve["journal"]["launches"],
+                              **{"demo30_train_ctr_" + w: r["launches"]
+                                 for w, r in demos["train_ctr"].items()},
+                              **{"demo30_" + n: c for n, c in
+                                 demos["launches"].items()},
+                              "demo30_pull_sparse_differentiable":
+                                  demos["pull_sparse_differentiable"][
+                                      "launches"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

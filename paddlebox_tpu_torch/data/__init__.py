@@ -1,19 +1,32 @@
 """The feed: parsers, packers, the pass dataset and the streaming tailer.
 
-``StreamingDataset`` (data/streaming.py) is exported here, as the
-reference's data package exports it; it loads on first use, so importing a
-submodule never pulls in the others.
+The reference's package-level names (paddlebox_tpu/data/__init__.py),
+each loaded on first use, so importing a submodule never pulls in the
+others.
 """
 
-__all__ = ["BoxDataset", "DirectoryWatcher", "FileLedger", "MicroWindow",
-           "SocketFeedServer", "StreamingDataset"]
+_EXPORTS = {
+    "SlotRecord": "slot_record",
+    "MultiSlotParser": "parser",
+    "PackedBatch": "packer",
+    "BatchPacker": "packer",
+    "ColumnarBlock": "columnar",
+    "BoxDataset": "dataset",
+    "write_synthetic_ctr_files": "generator",
+    "DirectoryWatcher": "streaming",
+    "FileLedger": "streaming",
+    "MicroWindow": "streaming",
+    "SocketFeedServer": "streaming",
+    "StreamingDataset": "streaming",
+}
+
+__all__ = list(_EXPORTS)
 
 
 def __getattr__(name):
-    if name == "BoxDataset":
-        from paddlebox_tpu_torch.data.dataset import BoxDataset
-        return BoxDataset
-    if name in __all__:
-        from paddlebox_tpu_torch.data import streaming
-        return getattr(streaming, name)
-    raise AttributeError(name)
+    if name not in _EXPORTS:
+        raise AttributeError(name)
+    import importlib
+    mod = importlib.import_module("paddlebox_tpu_torch.data."
+                                  + _EXPORTS[name])
+    return getattr(mod, name)

@@ -1,7 +1,7 @@
 """Pass-scoped in-memory dataset.
 
-Counterpart of paddlebox_tpu/data/dataset.py with one reader thread. Two
-paths, which give byte-identical batches and the same key stream:
+Counterpart of paddlebox_tpu/data/dataset.py. Two paths, which give
+byte-identical batches and the same key stream:
 
   columnar (the default, as in the reference)  the native parser
         (data/native_parser.py) reads each file to one ColumnarBlock and
@@ -54,12 +54,22 @@ turns the cross-host shuffle off too.
 ``slots_shuffle`` permutes slots' feasign lists across the records (the
 AUC runner's probe), on the record path only.
 
-The reader reads the files in list order (``preload_into_memory``;
-``wait_preload_done`` joins it and raises ``RuntimeError("dataset load
-failed")`` from any error it hit, and ``load_into_memory`` is the two in a
-row), so a JAX dataset built with ``read_threads=1`` and the same
-``columnar`` yields the same records in the same order, whether or not the
-load overlaps a pass that trains (train/preload.py).
+The reader pool (``preload_into_memory``): ``read_threads`` threads (the
+reference's keyword and default, 4) parse the files concurrently, at most
+2 x read_threads files ahead of the merge (the native parser's ctypes
+call releases the interpreter lock), and one merge thread takes each
+file's output in FILE-LIST order: ``add_keys_fn``, the cross-host
+shuffle's scatter, the archive spill and the merged block or records see
+the files in list order whatever ``read_threads`` is, so a load at any
+``read_threads`` is the load at 1, byte for byte (records, block,
+``all_keys()``, the drift monitor's observation). The reference merges in
+arrival order, so its loads above one thread do not repeat; a JAX
+dataset built with ``read_threads=1`` and the same ``columnar`` yields
+the port's records in the port's order (ROADMAP.md C).
+``wait_preload_done`` joins the pool and raises ``RuntimeError("dataset
+load failed")`` from the first failed file (its readers stop; none
+outlives the call), and ``load_into_memory`` is the two in a row; the
+load may overlap a pass that trains (train/preload.py).
 
 The host planes (under the reference's names): the counters
 ingest_ins_parsed, ingest_keys_parsed (columnar) and dataset_ins_merged, the
@@ -90,6 +100,7 @@ from paddlebox_tpu_torch.data.slot_record import SlotRecord
 from paddlebox_tpu_torch.metrics import drift
 from paddlebox_tpu_torch.obs import log as obs_log
 from paddlebox_tpu_torch.obs.tracer import span
+from paddlebox_tpu_torch.utils.channel import Channel, ChannelClosed
 from paddlebox_tpu_torch.utils.stats import stat_add
 
 AddKeysFn = Callable[[np.ndarray], None]
@@ -97,15 +108,86 @@ AddKeysFn = Callable[[np.ndarray], None]
 _MERGE_CHUNK = 512
 
 
+class _ReaderPool:
+    """``n`` threads run ``parse(path)`` over ``files``, taking the file
+    indices from a Channel, at most ``2 * n`` files ahead of the consumer.
+    Iterating yields each file's output in list order and raises the
+    error of the first failed file it reaches. ``close`` stops the
+    workers (each ends its current file) and joins them."""
+
+    def __init__(self, files: Sequence[str], parse: Callable, n: int) -> None:
+        self._files = list(files)
+        self._parse = parse
+        self._window = 2 * max(1, int(n))
+        self._done: dict = {}        # file index -> (ok, output or error)
+        self._next = 0               # the index the consumer waits for
+        self._stop = False
+        self._cv = threading.Condition()
+        self._work: Channel = Channel()
+        self._work.put_many(range(len(self._files)))
+        self._work.close()
+        self._threads = [
+            threading.Thread(target=self._worker, daemon=True,
+                             name="dataset-reader-%d" % k)
+            for k in range(min(max(1, int(n)), len(self._files)))]
+        for t in self._threads:
+            t.start()
+
+    def _worker(self) -> None:
+        while True:
+            try:
+                i = self._work.get()
+            except ChannelClosed:
+                return
+            with self._cv:
+                while not self._stop and i >= self._next + self._window:
+                    self._cv.wait()
+                if self._stop:
+                    return
+            try:
+                out = (True, self._parse(self._files[i]))
+            except BaseException as e:  # raised on the consumer's thread
+                out = (False, e)
+            with self._cv:
+                self._done[i] = out
+                self._cv.notify_all()
+
+    def __iter__(self):
+        for i in range(len(self._files)):
+            with self._cv:
+                while i not in self._done:
+                    self._cv.wait()
+                ok, out = self._done.pop(i)
+                self._next = i + 1
+                self._cv.notify_all()
+            if not ok:
+                raise out
+            yield out
+
+    def close(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._done.clear()
+            self._cv.notify_all()
+        self._work.drain()
+        for t in self._threads:
+            t.join()
+
+
 class BoxDataset:
-    def __init__(self, feed: DataFeedConfig,
+    def __init__(self, feed: DataFeedConfig, read_threads: int = 4,
+                 parser=None, shuffler=None,
                  columnar: Optional[bool] = None,
                  input_table=None, use_cache_idx: bool = False,
-                 parser=None, flags: Optional[HostFlags] = None,
-                 shuffler=None) -> None:
-        """``columnar`` None: the columnar path unless ``parser`` is a
-        record parser. ``shuffler``: the cross-host instance shuffle
+                 flags: Optional[HostFlags] = None) -> None:
+        """``read_threads``: the reader pool's threads (module
+        docstring). ``columnar`` None: the columnar path unless ``parser``
+        is a record parser. ``shuffler``: the cross-host instance shuffle
         (module docstring)."""
+        if int(read_threads) < 1:
+            raise ValueError("read_threads must be at least 1, got %r"
+                             % (read_threads,))
+        self.read_threads = int(read_threads)
         # a task label slot the feed lacks fails on both paths (the record
         # path would quietly train the task on the click label)
         names = {s.name for s in feed.slots}
@@ -174,8 +256,9 @@ class BoxDataset:
 
     def preload_into_memory(self,
                             add_keys_fn: Optional[AddKeysFn] = None) -> None:
-        """Start the reader thread over the file list; returns at once.
-        ``add_keys_fn`` is called on that thread."""
+        """Start the reader pool and its merge thread over the file list;
+        returns at once. ``add_keys_fn`` is called on the merge thread, a
+        file at a time in list order."""
         if self._reader is not None:
             raise RuntimeError("preload already running")
         self.release_memory()
@@ -191,18 +274,48 @@ class BoxDataset:
         self._mix_warned = False
         self._reader = threading.Thread(
             target=self._read, args=(files, add_keys_fn, self._disk_writer),
-            daemon=True, name="dataset-reader")
+            daemon=True, name="dataset-merge")
         self._reader.start()
 
     def _read(self, files: List[str], add_keys_fn: Optional[AddKeysFn],
               disk_writer: Optional[BinaryArchiveWriter]) -> None:
+        """The merge thread: the pool's outputs in file-list order."""
         try:
-            if self._load_columnar:
-                self._read_columnar(files, add_keys_fn)
-            else:
-                self._read_records(files, add_keys_fn, disk_writer)
+            pool = _ReaderPool(files, self._parse_file, self.read_threads)
+            try:
+                for out in pool:
+                    if self._load_columnar:
+                        self._merge_block(out)
+                    else:
+                        for recs in out:
+                            self._put_records(recs, add_keys_fn,
+                                              disk_writer)
+            finally:
+                pool.close()
+            if self._load_columnar and not self._shuffling:
+                self._finish_columnar()
         except BaseException as e:  # raised again by wait_preload_done
             self._load_error = e
+
+    def _parse_file(self, path: str):
+        """A reader's work: one file's block (the columnar path), or its
+        records in chunks of _MERGE_CHUNK (the record path; an archive
+        shard's as its frames hold them)."""
+        if self._load_columnar:
+            with span("ingest_parse"):
+                return self.parser.parse_file_columnar(path)
+        if is_archive(path):
+            return list(read_archive(path))
+        chunks: List[List[SlotRecord]] = []
+        chunk: List[SlotRecord] = []
+        for rec in self._record_parser.parse_file(path):
+            chunk.append(rec)
+            if len(chunk) >= _MERGE_CHUNK:
+                chunks.append(chunk)
+                chunk = []
+        if chunk:
+            chunks.append(chunk)
+        return chunks
 
     @property
     def _shuffling(self) -> bool:
@@ -243,20 +356,16 @@ class BoxDataset:
                 "ingest mode (archive shard? split shuffle_block_codec "
                 "flag?); converting at the merge, throughput degraded")
 
-    def _read_columnar(self, files: List[str],
-                       add_keys_fn: Optional[AddKeysFn]) -> None:
-        for path in files:
-            with span("ingest_parse"):
-                block = self.parser.parse_file_columnar(path)
-            stat_add("ingest_ins_parsed", block.n_recs)
-            stat_add("ingest_keys_parsed", block.n_keys)
-            if self._shuffling:
-                with span("ingest_shuffle"):
-                    self.shuffler.scatter_block(block, self)
-            else:
-                self.put(block)
-        if not self._shuffling:
-            self._finish_columnar()
+    def _merge_block(self, block: ColumnarBlock) -> None:
+        """One file's block to the merge, through the cross-host shuffle
+        when there is one."""
+        stat_add("ingest_ins_parsed", block.n_recs)
+        stat_add("ingest_keys_parsed", block.n_keys)
+        if self._shuffling:
+            with span("ingest_shuffle"):
+                self.shuffler.scatter_block(block, self)
+        else:
+            self.put(block)
 
     def _finish_columnar(self) -> None:
         """The merged blocks as the pass's one block, and the drift
@@ -266,23 +375,6 @@ class BoxDataset:
         if self._block.n_recs:
             with span("ingest_quality"):
                 drift.observe_block(self._block)
-
-    def _read_records(self, files: List[str],
-                      add_keys_fn: Optional[AddKeysFn],
-                      disk_writer: Optional[BinaryArchiveWriter]) -> None:
-        for path in files:
-            if is_archive(path):
-                for recs in read_archive(path):
-                    self._put_records(recs, add_keys_fn, disk_writer)
-                continue
-            chunk: List[SlotRecord] = []
-            for rec in self._record_parser.parse_file(path):
-                chunk.append(rec)
-                if len(chunk) >= _MERGE_CHUNK:
-                    self._put_records(chunk, add_keys_fn, disk_writer)
-                    chunk = []
-            if chunk:
-                self._put_records(chunk, add_keys_fn, disk_writer)
 
     def _put_records(self, recs: List[SlotRecord],
                      add_keys_fn: Optional[AddKeysFn],

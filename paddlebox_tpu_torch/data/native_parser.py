@@ -15,6 +15,7 @@ call, which releases the interpreter lock.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 
@@ -48,6 +49,7 @@ class NativeMultiSlotParser:
         self._task_idx = np.array([index[n] for _, n in
                                    feed.task_label_slots], np.int32)
         self.bad_lines = 0
+        self._bad_lock = threading.Lock()
 
     def parse_file_columnar(self, path: str) -> ColumnarBlock:
         lib = self._lib
@@ -63,7 +65,8 @@ class NativeMultiSlotParser:
             n_keys = lib.psr_n_keys(handle)
             n_recs = lib.psr_n_recs(handle)
             dense_dim = lib.psr_dense_dim(handle)
-            self.bad_lines += int(lib.psr_n_bad(handle))
+            with self._bad_lock:    # the dataset's readers share a parser
+                self.bad_lines += int(lib.psr_n_bad(handle))
 
             def arr(p, shape, dt):
                 if int(np.prod(shape)) == 0:

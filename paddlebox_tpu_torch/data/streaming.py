@@ -19,9 +19,12 @@ What keeps a file out until it is whole:
     restarted tailer does not consume it twice. The runner commits at the
     micro-pass boundary, after the window trained or was refused.
 
-The port's BoxDataset reads with one thread and has no cross-host block
-shuffle, so the reference's ``read_threads`` and ``shuffler`` are not
-taken; ``dataset_kwargs`` go to each window's BoxDataset.
+``dataset_kwargs`` go to each window's BoxDataset: the reference's
+``read_threads`` (the dataset's default, 4, where it is not given) and
+``shuffler`` are passed there, ``dataset_kwargs={"read_threads": 2}``.
+Each window's load merges its files in file order at any
+``read_threads`` (data/dataset.py), so a window's block, and the
+admission gate's score of it, repeat from run to run.
 """
 
 from __future__ import annotations

@@ -43,6 +43,7 @@ import torch.distributed as dist
 
 from paddlebox_tpu_torch.device import DeviceLike
 from paddlebox_tpu_torch.fleet.mesh_comm import (DTYPES, MeshComm,
+                                                 MeshConnectError,
                                                  MeshPolicyMismatch, header)
 from paddlebox_tpu_torch.fleet.role_maker import RoleMaker
 from paddlebox_tpu_torch.fleet.store import KVStoreServer, TcpStoreClient
@@ -222,8 +223,12 @@ class Fleet:
                 "sharding-policy mismatch across ranks: the cluster "
                 "published %s — set sharding_policy identically on every "
                 "rank" % seen)
-        group = dist.new_group(
-            backend="gloo", timeout=datetime.timedelta(seconds=self._timeout))
+        try:
+            group = dist.new_group(backend="gloo", timeout=datetime.timedelta(
+                seconds=self._timeout))
+        except RuntimeError as e:
+            raise MeshConnectError("the host exchange's gloo group could "
+                                   "not be made: %s" % e) from e
         self._comm = MeshComm(self.role.rank, self.role.world, group,
                               {r: p.tolist() for r, p in enumerate(pos)})
         self._comm_policy = policy_id

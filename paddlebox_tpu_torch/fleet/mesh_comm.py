@@ -37,9 +37,26 @@ MAX_NDIM = 5
 HEADER = 3 + MAX_NDIM   # nbytes, dtype code, ndim, dims
 
 
+class MeshConnectError(ConnectionError):
+    """The exchange's gloo group could not be made at bring-up
+    (Fleet.make_mesh_comm). The reference raises it when a peer's socket
+    cannot be dialed and falls back to its store funnel; the port has one
+    host plane, so it is raised to the caller."""
+
+
 class MeshPolicyMismatch(RuntimeError):
     """Ranks built their meshes under different sharding policies: they
     would route the same key to different owners."""
+
+
+def resolve_hostplane(flags=None) -> str:
+    """The validated ``hostplane`` of a ShardFlags (None: ShardFlags(),
+    from the environment), lower-cased: 'p2p' or 'store'. Both mean the
+    one gloo exchange of this module (ROADMAP.md C, one host plane)."""
+    if flags is None:
+        from paddlebox_tpu_torch.config.flags import ShardFlags
+        flags = ShardFlags()
+    return str(flags.hostplane).strip().lower()
 
 
 def _dtype_code(dt: np.dtype) -> int:

@@ -340,6 +340,20 @@ def observe_block(block) -> None:
         obs_log.warning("data-quality observe failed", error=repr(e)[:200])
 
 
+def observe_preds(pred, mask=None) -> None:
+    """The pred histogram of the active monitor, if any."""
+    m = _ACTIVE
+    if m is not None:
+        m.observe_preds(pred, mask=mask)
+
+
+def set_active_new() -> SlotDriftMonitor:
+    """A fresh default monitor, made the active one."""
+    global _ACTIVE
+    _ACTIVE = SlotDriftMonitor()
+    return _ACTIVE
+
+
 def roll_gauges(monitor: Optional[SlotDriftMonitor]) -> Optional[dict]:
     """Pass end: roll ``monitor`` (None: nothing) and return its record.
     Never raises, as observe_block."""

@@ -5,6 +5,7 @@ from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.models.dlrm import DLRM
 from paddlebox_tpu_torch.models.esmm import ESMM
 from paddlebox_tpu_torch.models.join_pv import JoinPvDnn
+from paddlebox_tpu_torch.models.layers import mlp_apply, mlp_init
 from paddlebox_tpu_torch.models.mmoe import MMoE
 from paddlebox_tpu_torch.models.nn_cross import CtrDnnExpand
 from paddlebox_tpu_torch.models.wide_deep import WideDeep
@@ -26,6 +27,6 @@ MODEL_ZOO = {
     "ep_mmoe": EpMMoE,
 }
 
-__all__ = ["CtrDnn", "DeepFM", "WideDeep", "DLRM", "MMoE", "ESMM",
+__all__ = ["mlp_init", "mlp_apply", "CtrDnn", "DeepFM", "WideDeep", "DLRM", "MMoE", "ESMM",
            "CtrDnnExpand", "JoinPvDnn", "CtrDnnAux", "BstSeqCtr",
            "TpDeepFM", "EpMMoE", "MODEL_ZOO"]

@@ -64,6 +64,17 @@ def mlp_apply(module: nn.Module, x: torch.Tensor, name: str,
     return x
 
 
+def num_layers(params, name: str = "mlp") -> int:
+    """The dense layers of MLP ``name`` in ``params``: a module (its
+    parameters by name) or a dict (a state_dict, or a JAX params dict)."""
+    names = (dict(params.named_parameters())
+             if isinstance(params, nn.Module) else params)
+    i = 0
+    while f"{name}_w{i}" in names:
+        i += 1
+    return i
+
+
 def with_dense(x: torch.Tensor, dense: Optional[torch.Tensor]
                ) -> torch.Tensor:
     """x [B, F] with the dense columns appended, when there are any (in

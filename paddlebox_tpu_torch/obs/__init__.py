@@ -35,7 +35,8 @@ from paddlebox_tpu_torch.obs.report import (JsonlSink, ListSink,  # noqa: F401
                                             StderrSink, StepReporter,
                                             make_sink)
 from paddlebox_tpu_torch.obs.tracer import (SpanTracer,  # noqa: F401
-                                            current_trace, get_tracer, span,
+                                            current_trace, get_tracer,
+                                            next_trace_id, span,
                                             step_trace_id, trace_ctx)
 from paddlebox_tpu_torch.obs.watchdog import StallWatchdog  # noqa: F401
 from paddlebox_tpu_torch.obs.watchdog import beat  # noqa: F401
@@ -52,7 +53,7 @@ def make_step_reporter(rank: int = 0, timers: Optional[Dict] = None,
     watchdog (obs_watchdog_secs) on the reporter's last record, then the
     ops endpoint (obs_http_port) bound to it."""
     flags = flags or ObsFlags()
-    tracer.configure(flags.obs_trace, flags.obs_trace_capacity)
+    tracer.configure_from_flags(flags)
     device.configure(flags)
     flight.ensure_from_flags(flags, rank=rank)
     reporter = StepReporter(rank=rank, every=flags.obs_report_every,

@@ -18,11 +18,21 @@ from typing import Optional
 
 from paddlebox_tpu_torch.utils.stats import stat_add
 
+_RANK: Optional[int] = None
 _LOGGER: Optional[logging.Logger] = None
 
 
+def set_rank(rank: int) -> None:
+    """Pin the prefix's rank (a rank program calls it once its fleet rank
+    is known); before that PBTPU_RANK, else 0, applies."""
+    global _RANK
+    _RANK = int(rank)
+
+
 def get_rank() -> int:
-    """The rank of the prefix: PBTPU_RANK, else 0."""
+    """The rank of the prefix: set_rank's, else PBTPU_RANK, else 0."""
+    if _RANK is not None:
+        return _RANK
     try:
         return int(os.environ.get("PBTPU_RANK", "0"))
     except ValueError:
@@ -93,3 +103,7 @@ def info(msg: str, **fields) -> None:
 
 def warning(msg: str, **fields) -> None:
     get_logger().warning(_fmt(msg, fields))
+
+
+def error(msg: str, **fields) -> None:
+    get_logger().error(_fmt(msg, fields))

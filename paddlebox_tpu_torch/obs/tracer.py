@@ -299,3 +299,12 @@ def configure(enabled: bool, capacity: int) -> None:
     if cap > 0 and cap != _TRACER.capacity:
         _TRACER.capacity = cap
         _TRACER.clear()
+
+
+def configure_from_flags(flags=None) -> None:
+    """``configure`` from an ObsFlags (None: ObsFlags(), which reads the
+    PBTPU_ environment)."""
+    if flags is None:
+        from paddlebox_tpu_torch.config.flags import ObsFlags
+        flags = ObsFlags()
+    configure(flags.obs_trace, flags.obs_trace_capacity)

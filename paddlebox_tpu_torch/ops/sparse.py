@@ -1,10 +1,17 @@
 """Sparse pull/push building blocks of the train step.
 
-Counterpart of paddlebox_tpu/ops/sparse.py:30-121. The pull gathers full
-slab rows by id and cuts the per-key pull view [show, click, embed_w,
+Counterpart of paddlebox_tpu/ops/sparse.py. The pull gathers full slab
+rows by id and cuts the per-key pull view [show, click, embed_w,
 embedx...]; the extended pull (pull_box_extended_sparse) cuts the expand
 block's [expand_w...] beside it. The backward of the pull is not a slab
 gradient but the per-key push rows built here.
+
+``pull_sparse_differentiable`` is the reference's full-graph form (its
+custom_vjp, :123-149): the same pull, whose backward is a slab-shaped
+gradient, each key's embed_w and embedx cotangents summed into its row
+(show and click get none). The sum takes an id's occurrences in
+ascending order from zero (a sorted segment sum, no atomics), so the
+card's gradient is the CPU's bit for bit.
 """
 
 from __future__ import annotations
@@ -40,6 +47,70 @@ def pull_view_from_rows(rows: torch.Tensor,
     return torch.cat([rows[:, acc.SHOW:acc.CLICK + 1],
                       rows[:, acc.EMBED_W:acc.EMBED_W + 1],
                       rows[:, xw0:xw0 + D]], dim=1)
+
+
+def pull_sparse(slab: torch.Tensor, ids: torch.Tensor,
+                layout: ValueLayout) -> torch.Tensor:
+    """The per-key pull view [K, 3+D] (show, click, embed_w, embedx) of
+    slab[ids]: the gather_rows kernel on the card."""
+    return pull_view_from_rows(gather_slab_rows(slab, ids, layout), layout)
+
+
+def pull_view_grad(ids: torch.Tensor, d_out: torch.Tensor,
+                   slab_shape, layout: ValueLayout) -> torch.Tensor:
+    """The slab-shaped gradient of the pull view's cotangent d_out
+    [K, 3+D]: row i's embed_w gets the sum of d_out[k, 2] and its embedx
+    columns the sum of d_out[k, 3:] over the k with ids[k] == i, each sum
+    over the occurrences in ascending order from zero; every other entry
+    is zero. An id outside the slab adds nothing (JAX's scatter drops
+    it)."""
+    D = layout.embedx_dim
+    xw0 = layout.embedx_w
+    d_slab = torch.zeros(tuple(slab_shape), dtype=d_out.dtype,
+                         device=d_out.device)
+    ids = ids.to(torch.int64)
+    inside = (ids >= 0) & (ids < d_slab.shape[0])
+    if not bool(inside.all()):
+        ids, d_out = ids[inside], d_out[inside]
+    if ids.numel() == 0:
+        return d_slab
+    uids, inv = torch.unique(ids, sorted=True, return_inverse=True)
+    perm = torch.argsort(inv, stable=True)
+    lengths = torch.bincount(inv, minlength=uids.numel())
+    merged = torch.segment_reduce(d_out[:, 2:3 + D].index_select(0, perm),
+                                  "sum", lengths=lengths, axis=0,
+                                  unsafe=True)
+    d_slab[uids, acc.EMBED_W] = merged[:, 0]
+    d_slab[uids, xw0:xw0 + D] = merged[:, 1:]
+    return d_slab
+
+
+class _PullSparse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, slab, ids, layout):
+        ctx.save_for_backward(ids)
+        ctx.slab_shape = tuple(slab.shape)
+        ctx.layout = layout
+        return pull_sparse(slab, ids, layout)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        (ids,) = ctx.saved_tensors
+        return (pull_view_grad(ids, d_out, ctx.slab_shape, ctx.layout),
+                None, None)
+
+
+def pull_sparse_differentiable(slab: torch.Tensor, ids: torch.Tensor,
+                               layout: ValueLayout) -> torch.Tensor:
+    """pull_sparse whose autograd backward is ``pull_view_grad``: a slab
+    gradient, for a model that differentiates through the pull. An f32
+    layout only (a slab-shaped f32 gradient of an encoded bf16 slab means
+    nothing; the trainers' explicit pull and push take the bf16 slab)."""
+    if layout.bf16:
+        raise ValueError(
+            "pull_sparse_differentiable requires a float32 slab layout; "
+            "the bf16 slab diet (slab_embed_dtype) is explicit-path only")
+    return _PullSparse.apply(slab, ids, layout)
 
 
 def build_push_grads(d_emb: torch.Tensor, slots: torch.Tensor,

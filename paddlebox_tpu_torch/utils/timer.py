@@ -1,7 +1,7 @@
-"""Accumulating stopwatch (paddlebox_tpu/utils/timer.py:12-54, the
+"""Accumulating stopwatch (paddlebox_tpu/utils/timer.py, the
 platform::Timer role): start/pause add into a running total and count the
 closed intervals, which a StepReport's timer deltas read
-(``elapsed_ms``, ``count``)."""
+(``elapsed_ms``, ``count``); ``TimerScope`` times a ``with`` block."""
 
 from __future__ import annotations
 
@@ -31,6 +31,9 @@ class Timer:
             self._count += 1
             self._running = False
 
+    def resume(self) -> None:
+        self.start()
+
     @property
     def count(self) -> int:
         return self._count
@@ -42,6 +45,26 @@ class Timer:
     def elapsed_ms(self) -> float:
         return self.elapsed_sec() * 1e3
 
+    def elapsed_us(self) -> float:
+        return self.elapsed_sec() * 1e6
+
     def __repr__(self) -> str:
         return "Timer(elapsed=%.6fs, count=%d)" % (self.elapsed_sec(),
                                                    self._count)
+
+
+class TimerScope:
+    """``with TimerScope(t): ...`` starts ``t`` and pauses it at the
+    block's end."""
+
+    __slots__ = ("_timer",)
+
+    def __init__(self, timer: Timer) -> None:
+        self._timer = timer
+
+    def __enter__(self) -> Timer:
+        self._timer.start()
+        return self._timer
+
+    def __exit__(self, *exc) -> None:
+        self._timer.pause()
