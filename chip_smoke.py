@@ -526,7 +526,11 @@ Phases, each of which raises on a failed check (exit code != 0):
      write-back; (b) pull_sparse_differentiable at the flagship pull's
      shape (a 2^20 x 17 slab, PULL_IDS ids drawn from [0, PULL_ID_RANGE)):
      its forward bit-equal to slab[ids]'s pull view, one gather_rows
-     launch, its backward bit-equal to pull_view_grad on the CPU; (c) the
+     launch, its backward bit-equal to pull_view_grad on the CPU; then at
+     negative ids (a third of them moved into [-C, 0), a seventh below -C,
+     one the int32 minimum) its forward and slab gradient bit-equal to the
+     CPU's and gather_rows on the raw ids bit-equal to its plain version
+     (the kernel's lower clamp), two launches; (c) the
      reader pool on the main path's files: read_threads=4 loads the
      read_threads=1 load byte for byte (block, add_keys_fn calls), both
      loads' seconds in cadence_probe.BALANCED's order of the two (no
@@ -535,6 +539,18 @@ Phases, each of which raises on a failed check (exit code != 0):
      train_sharded, train_pipeline and train_mesh_tower each through
      fleet/launch.py --nproc 1 over NCCL (started at the phase's start,
      DEMO_WALL_S each), every demo's printed lines checked;
+ 31. the no-CVM main path (train/flagship.py FLAGSHIP_NO_CVM: CtrDnn
+     512-256-128 on the flagship's table, batch and files, BoxTrainer
+     use_cvm=False, no data_norm), in the parent after phase 30: its two
+     passes NO_CVM_RUNS times on the card, bit-identical run to run (loss,
+     AUC, launches, the sorted store's sha256), each run's launches
+     push_adagrad once a step and gather_rows once a step and at each
+     promote and write-back (32 and 35) and no other kernel; the first
+     run's loss within NO_CVM_LOSS_RTOL and AUC within NO_CVM_AUC_ATOL of
+     the same two passes on the CPU (in the spawned writer meanwhile); at
+     one step of the last run's trainer on a seeded 2^20 x 17 slab, its
+     pooled tensor [1024, 32, 9] bit-equal to columns 2: of the CVM pool of
+     the same pulled rows;
  10. (run after phase 3) the rate probe
      (paddlebox_tpu_torch/rate_probe.py): its cases on the
      kernels, their plain versions and the PyTorch ops, each line with ms,
@@ -2577,7 +2593,8 @@ def planes_cost(trainer, ds):
     t1 = time.perf_counter()
     m.observe_block(ds._block)
     t2 = time.perf_counter()
-    extra = quality.attach_pass_extras({"event": "pass_end"}, q, m)
+    extra = quality.attach_pass_extras({"event": "pass_end"}, q,
+                                       monitor=m)
     StepReporter(every=20, sink=ListSink()).maybe_report(16, extra, True)
     t3 = time.perf_counter()
     return {"feed_s": t1 - t0, "observe_block_s": t2 - t1,
@@ -5505,7 +5522,7 @@ def sharded_run(torch, files, feed, out_path, windows, bst_files, bst_feed):
                           wait_for_workers=False)
     fl = Fleet().init(RoleMaker(0, 1), store=dist.PrefixStore("phase22",
                                                               store))
-    mesh = fl.init_distributed("cuda", timeout=SHARDED_GROUP_S)
+    mesh = fl.init_distributed(SHARDED_GROUP_S, device="cuda")
     check(mesh.backend == "nccl" and mesh.device.type == "cuda"
           and mesh.world == 1, "phase 22's mesh: %s on %s, world %d"
           % (mesh.backend, mesh.device, mesh.world))
@@ -6118,7 +6135,7 @@ def phase24_fleet(store, name):
     from paddlebox_tpu_torch.fleet.role_maker import RoleMaker
     fl = Fleet().init(RoleMaker(0, 1),
                       store=dist.PrefixStore("phase24-" + name, store))
-    fl.init_distributed("cuda", timeout=SHARDED_GROUP_S)
+    fl.init_distributed(SHARDED_GROUP_S, device="cuda")
     return fl
 
 
@@ -8942,7 +8959,10 @@ def demo_pull_check(torch, dev):
 
     from paddlebox_tpu_torch.embedding import accessor as acc
     from paddlebox_tpu_torch.embedding.accessor import ValueLayout
-    from paddlebox_tpu_torch.ops.sparse import (pull_sparse_differentiable,
+    from paddlebox_tpu_torch.ops.row_kernels import (gather_rows,
+                                                     gather_rows_plain)
+    from paddlebox_tpu_torch.ops.sparse import (pull_sparse,
+                                                pull_sparse_differentiable,
                                                 pull_view_from_rows,
                                                 pull_view_grad)
     layout = ValueLayout(8)
@@ -8974,8 +8994,43 @@ def demo_pull_check(torch, dev):
     rec = {"ids": PULL_IDS, "distinct": int(np.unique(ids_np).size),
            "slab": list(slab.shape), "launches": launches,
            "index_add_max_abs_err": float((lib - slab.grad).abs().max())}
+    # negative ids (ROADMAP C3): every third id moved into [-C, 0) (row C
+    # + id, as JAX's indexing reads it), every seventh from the second on
+    # below -C, one at the int32 minimum; the forward and the slab
+    # gradient equal the CPU's, and the kernel on the raw ids (no wrap:
+    # its lower clamp) equals its plain version
+    C = slab.shape[0]
+    neg_np = ids_np.copy()
+    neg_np[::3] -= C
+    below = neg_np[1::7].size
+    neg_np[1::7] = -C - 1 - rng.randint(0, C, below)
+    neg_np[2] = np.iinfo(np.int32).min
+    neg = torch.from_numpy(neg_np).to(dev)
+    slab.grad = None
+    reset_counts()
+    out = pull_sparse_differentiable(slab, neg, layout)
+    out.backward(d_out)
+    raw = gather_rows(slab.detach(), neg)
+    torch.cuda.synchronize()
+    neg_launches = counts()
+    host = slab.detach().cpu()
+    check(bits_equal(out.detach().cpu().numpy(),
+                     pull_sparse(host, neg.cpu(), layout).numpy())
+          and bits_equal(slab.grad.cpu().numpy(), pull_view_grad(
+              neg.cpu(), d_out.cpu(), tuple(slab.shape), layout).numpy())
+          and bits_equal(raw.cpu().numpy(),
+                         gather_rows_plain(slab.detach(), neg).cpu().numpy())
+          and neg_launches["gather_rows"] == 2,
+          "pull_sparse_differentiable at negative ids on the card: forward, "
+          "backward or the raw gather differs from the CPU's, or launches "
+          "%s" % neg_launches)
+    rec["negative_ids"] = {"wrapped": int(((neg_np < 0)
+                                           & (neg_np >= -C)).sum()),
+                           "below": int((neg_np < -C).sum()),
+                           "launches": neg_launches}
     log("demo pull_sparse_differentiable: forward and backward bit-equal "
-        "to their plain versions; %s" % json.dumps(rec))
+        "to their plain versions, at negative ids to the CPU's; %s"
+        % json.dumps(rec))
     return rec
 
 
@@ -9071,6 +9126,117 @@ def demos_phase(torch, feed, files, tmp, writer, smi):
                                         "seconds": time.perf_counter()
                                         - t0}))
     return out
+
+
+# phase 31: the no-CVM main path (train/flagship.py FLAGSHIP_NO_CVM)
+NO_CVM_RUNS = 2              # its runs on the card, held bit-identical
+NO_CVM_LOSS_RTOL = 1e-4      # card against CPU, phase 3's limits
+NO_CVM_AUC_ATOL = 1e-4
+
+
+def no_cvm_cpu(files, feed):
+    """Phase 31's two passes on the CPU (in the spawned writer)."""
+    from paddlebox_tpu_torch.train import flagship
+    t0 = time.perf_counter()
+    trainer, ds = flagship.build_trainer(files, feed,
+                                         flagship.FLAGSHIP_NO_CVM,
+                                         "scatter", "cpu")
+    out = []
+    for _ in range(2):
+        res = trainer.train_pass(ds)
+        out.append({"loss": float(res["loss"]), "auc": float(
+            trainer.metrics.get_metric_msg("auc")["auc"])})
+    return {"passes": out, "seconds": time.perf_counter() - t0}
+
+
+def no_cvm_pool_check(torch, trainer, files, feed):
+    """At one step of the no-CVM trainer on a seeded flagship slab: the
+    step's pooled tensor (its pull and forward stages) equals columns 2:
+    of the CVM pool of the same pulled rows, bit for bit."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.ops.seqpool import fused_seqpool_cvm
+    from paddlebox_tpu_torch.train import flagship
+    cfg = flagship.FLAGSHIP_NO_CVM
+    b, ids = flagship.first_batch(files, feed, cfg)
+    layout = trainer.table.layout
+    rows = np.random.RandomState(31).rand(cfg.capacity, layout.width)
+    slab = device_slab(torch, rows.astype(np.float32), layout,
+                       trainer.device)
+    batch = trainer.device_batch(b, ids)
+    pull, fwd_bwd = trainer.step_stages[:2]
+    st = pull(slab, batch)
+    fwd_bwd(st, batch)
+    with torch.no_grad():
+        cvm = fused_seqpool_cvm(st["emb"], batch["segments"], st["valid"],
+                                cfg.batch, cfg.num_slots, True,
+                                sorted_segments=True,
+                                n_valid=batch["n_valid"])
+    torch.cuda.synchronize()
+    pooled = st["pooled"].detach()
+    check(tuple(pooled.shape) == (cfg.batch, cfg.num_slots, 1 + cfg.embedx)
+          and bits_equal(pooled.cpu().numpy(), cvm[..., 2:].cpu().numpy()),
+          "no-CVM pool %s differs from the CVM pool's columns 2:"
+          % (tuple(pooled.shape),))
+    return {"pooled": list(pooled.shape), "cvm_pooled": list(cvm.shape),
+            "n_valid": batch["n_valid"]}
+
+
+def no_cvm_phase(torch, feed, files, writer, smi):
+    """Phase 31 (module docstring). Returns its runs, launches and the
+    CPU's passes."""
+    from paddlebox_tpu_torch.train import flagship
+    cfg = flagship.FLAGSHIP_NO_CVM
+    t0 = time.perf_counter()
+    cpu_run = writer.submit(no_cvm_cpu, files, feed)
+    runs = []
+    for r in range(NO_CVM_RUNS):
+        trainer, ds = flagship.build_trainer(files, feed, cfg, "scatter",
+                                             "cuda")
+        check(trainer.use_cvm is False
+              and trainer.model.spec.slot_dim == 1 + cfg.embedx
+              and not trainer.model.use_data_norm,
+              "the no-CVM trainer pools with CVM or runs data_norm")
+        reset_counts()
+        passes = main_passes(torch, trainer, ds)
+        launches = counts()
+        steps = sum(p["batches"] for p in passes)
+        extra = sum(gather_launches_of(p["counters"]) for p in passes)
+        check(launches == f32_launches(push_adagrad=steps,
+                                       gather_rows=steps + extra),
+              "no-CVM run %d launches %s over %d steps, %d promotes and "
+              "write-backs" % (r, launches, steps, extra))
+        for p in passes:
+            log("no-CVM run %d pass %d: loss %.10f auc %.10f %s"
+                % (r, p["pass"], p["loss"], p["auc"], json.dumps(p)))
+        runs.append({"passes": passes, "launches": launches,
+                     "store": store_sha(trainer.table)})
+        if r == NO_CVM_RUNS - 1:
+            pool = no_cvm_pool_check(torch, trainer, files, feed)
+        del trainer, ds
+    first = runs[0]
+    for r, run in enumerate(runs[1:], start=1):
+        check([(p["loss"], p["auc"]) for p in run["passes"]]
+              == [(p["loss"], p["auc"]) for p in first["passes"]]
+              and run["store"] == first["store"]
+              and run["launches"] == first["launches"],
+              "no-CVM run %d differs from run 0" % r)
+    cpu = cpu_run.result()
+    for p, c in zip(first["passes"], cpu["passes"], strict=True):
+        check(abs(p["loss"] - c["loss"]) <= NO_CVM_LOSS_RTOL * abs(c["loss"])
+              and abs(p["auc"] - c["auc"]) <= NO_CVM_AUC_ATOL,
+              "no-CVM pass %d on the card loss %r auc %r, on the CPU %r %r"
+              % (p["pass"], p["loss"], p["auc"], c["loss"], c["auc"]))
+    rec = {"launches": first["launches"], "store_sha256": first["store"],
+           "card": [{"loss": p["loss"], "auc": p["auc"],
+                     "pass_s": p["pass_s"]} for p in first["passes"]],
+           "cpu": cpu["passes"], "cpu_s": cpu["seconds"], "pool": pool,
+           "seconds": time.perf_counter() - t0}
+    log("no-CVM main path: %d runs bit-identical, within loss rtol %g and "
+        "AUC %g of the CPU; %s; card %s" % (NO_CVM_RUNS, NO_CVM_LOSS_RTOL,
+                                             NO_CVM_AUC_ATOL,
+                                             json.dumps(rec), smi))
+    return rec
 
 
 def main() -> int:
@@ -9344,6 +9510,11 @@ def main() -> int:
         demos = demos_phase(torch, feed, files, tmp, writer, smi)
         clock.lap("demos")
 
+        # 31. the no-CVM main path: FLAGSHIP_NO_CVM's two passes, twice on
+        # the card and once on the CPU, and its pool against CVM's
+        no_cvm = no_cvm_phase(torch, feed, files, writer, smi)
+        clock.lap("no_cvm")
+
     kernels += row_kernel_records(probe, row_errs, gather_shapes,
                                   cfg)
 
@@ -9454,7 +9625,8 @@ def main() -> int:
             k.setdefault("at_shapes", {})[shape] = dict(
                 rec, launches=run["launches"][k["name"]])
     # phase 29's live trainer: the main path's shapes, its passes' launches;
-    # phase 30's train_ctr demo at its defaults and at rebuild
+    # phase 30's train_ctr demo at its defaults and at rebuild; phase 31's
+    # no-CVM main path
     for k in kernels:
         if k["name"] in ("gather_rows", "push_adagrad"):
             k["path_launches"] = {
@@ -9462,7 +9634,8 @@ def main() -> int:
                 "train_to_serve_stream":
                     serve["journal"]["launches"][k["name"]],
                 **{"demo_train_ctr_" + w: r["launches"][k["name"]]
-                   for w, r in demos["train_ctr"].items()}}
+                   for w, r in demos["train_ctr"].items()},
+                "no_cvm": no_cvm["launches"][k["name"]]}
     log(json.dumps({"paths": {"scatter": main_counts,
                               "blocked": blocked_counts,
                               "rate_probe": probe_counts,
@@ -9561,7 +9734,11 @@ def main() -> int:
                                  demos["launches"].items()},
                               "demo30_pull_sparse_differentiable":
                                   demos["pull_sparse_differentiable"][
-                                      "launches"]},
+                                      "launches"],
+                              "demo30_pull_negative_ids":
+                                  demos["pull_sparse_differentiable"][
+                                      "negative_ids"]["launches"],
+                              "no_cvm31": no_cvm["launches"]},
                     "h2d_copies_chunked_pass": chunks["profile"][
                         "h2d_copies"],
                     "passes": passes, "plain_host_passes": plain_passes}))

@@ -98,15 +98,14 @@ class TableConfig:
 @dataclasses.dataclass(frozen=True)
 class SlotConfig:
     """One feature slot of the MultiSlot text format. A used float slot is
-    a dense input of ``dim`` columns (the reference's fields, in another
-    order: ``dim`` comes last, so the port's positional calls keep their
-    meaning)."""
+    a dense input of ``dim`` columns (the reference's fields, in its
+    order)."""
 
     name: str
     type: str = "uint64"     # uint64 (sparse feasign) | float (dense)
+    dim: int = 1             # dense columns of a float slot
     is_used: bool = True
     max_len: int = 64        # per-instance key cap of the static packing
-    dim: int = 1             # dense columns of a float slot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,9 +132,9 @@ class DataFeedConfig:
     batch_size: int = 512
     pipe_command: str = ""
     parser: str = "multislot"
+    rank_offset: bool = False
     task_label_slots: Tuple[Tuple[str, str], ...] = ()
     batch_key_capacity: int = 0
-    rank_offset: bool = False
     parse_ins_id: bool = False
 
     def used_sparse_slots(self) -> List[SlotConfig]:
@@ -237,24 +236,24 @@ class TrainerConfig:
     sync_one_ring and a bf16 a2a (ROADMAP.md A10) and reads
     sync_weight_step only under sync_mode 'k_step', which it refuses."""
 
-    dense_lr: float = 1e-3
-    check_nan_inf: bool = dataclasses.field(
-        default_factory=lambda: bool(HostFlags().check_nan_inf))
-    scan_chunk: int = 8
-    sparse_chunk_sync: bool = False
-    compute_dtype: str = "float32"
-    dense_optimizer: str = "adam"
+    thread_num: int = 1
     sync_mode: str = "step"
     sync_weight_step: int = 1
     sync_one_ring: bool = False
     async_mode: bool = False
     sharding: bool = False
-    thread_num: int = 1
     dump_fields: Tuple[str, ...] = ()
     dump_fields_path: str = ""
     dump_thread_num: int = 1
+    dense_lr: float = 1e-3
+    dense_optimizer: str = "adam"
+    check_nan_inf: bool = dataclasses.field(
+        default_factory=lambda: bool(HostFlags().check_nan_inf))
     profile: bool = False
+    scan_chunk: int = 8
+    compute_dtype: str = "float32"
     a2a_dtype: str = "float32"
+    sparse_chunk_sync: bool = False
 
     def __post_init__(self):
         if self.sync_mode not in SYNC_MODES:

@@ -1,4 +1,4 @@
-// Row gather: out[k, :] = src[min(ids[k], C - 1), :].
+// Row gather: out[k, :] = src[clamp(ids[k], 0, C - 1), :].
 //
 // Replaces the TPU kernel tools/pallas_rate_probe.py: gather_kernel (called
 // through pgather), which copied 8 slab rows a grid step to ask whether a
@@ -8,9 +8,13 @@
 // (paddlebox_tpu/ops/sparse.py:gather_slab_rows).
 //
 // Ids: an id of C or more reads row C - 1, as the JAX gather on the main
-// path clamps (the trash row C - 1 and duplicate ids are ordinary inputs).
-// Negative ids are not handled: the pass table never produces them. The
-// probe's TPU kernel did no bounds handling at all.
+// path clamps (the trash row C - 1 and duplicate ids are ordinary inputs),
+// and a negative id reads row 0, so no int32 id reads outside the source.
+// The pass table never produces a negative id; the public pull
+// (ops/sparse.py pull_sparse) wraps ids in [-C, 0) to id + C before the
+// gather, as JAX's indexing does, and an id below -C then reads row 0, as
+// JAX's gather clamps. The probe's TPU kernel did no bounds handling at
+// all.
 //
 // Bound on an H100: memory. Each id is read once (4 B), each gathered row
 // read once and written once (2 * W * 4 B a row); at 3.35 TB/s, the pull's
@@ -61,7 +65,7 @@
 // f32 columns). The TPU gather is dtype-free, and the reference moves
 // resident rows through it as raw 2-byte bits (the promote and the
 // write-back) and decodes them at every pull. Two entries:
-//   pbt_gather_rows_2byte   out[k] = src[min(ids[k], C - 1)], raw bits;
+//   pbt_gather_rows_2byte   out[k] = src[clamp(ids[k], 0, C - 1)], raw bits;
 //   pbt_gather_rows_decode  the same rows decoded to f32 (the pull): out
 //                           [K, WL] f32, column c = (hi << 16 | lo) of the
 //                           row's device columns hi_pos[c] and lo_pos[c]
@@ -163,7 +167,7 @@ gather_rows_kernel(const T* __restrict__ src, T* __restrict__ out,
     int r = r0, c = c0;
     for (int f = t; f < n; f += THREADS) {
       int64_t id = si[r];
-      if (id > C - 1) id = C - 1;
+      id = id < 0 ? 0 : (id > C - 1 ? C - 1 : id);
       cp_async(s + f, src + id * Wt + c);
       r += q;
       c += m;
@@ -215,7 +219,7 @@ gather_rows_kernel_direct(const T* __restrict__ src, T* __restrict__ out,
       (int)(K - row0 < DIRECT_ROWS ? K - row0 : DIRECT_ROWS);
   if ((int)threadIdx.x < rows) {
     int64_t id = ids[row0 + threadIdx.x];
-    if (id > C - 1) id = C - 1;
+    id = id < 0 ? 0 : (id > C - 1 ? C - 1 : id);
     s_off[threadIdx.x] = id * Wt;
   }
   __syncthreads();
@@ -286,7 +290,7 @@ gather_rows_kernel_2byte(const uint16_t* __restrict__ src,
       for (int u = 0; u < UNROLL2; ++u) {
         if (f0 + u * THREADS < n) {
           int64_t id = si[r];
-          if (id > C - 1) id = C - 1;
+          id = id < 0 ? 0 : (id > C - 1 ? C - 1 : id);
           v[u] = __ldg(src + id * W + c);
         }
         r += q;
@@ -448,7 +452,7 @@ int launch_2byte(const uint16_t* src, const int* ids, void* out, int64_t C,
 
 }  // namespace
 
-// src [C, W] f32, ids [K] i32 (0 <= id; ids >= C read row C - 1), out
+// src [C, W] f32, ids [K] i32 (ids < 0 read row 0, ids >= C row C - 1), out
 // [K, W] f32; all contiguous on the current device, C >= 1. Launches on
 // `stream`; returns cudaGetLastError() (or the error of sizing the grid).
 extern "C" int pbt_gather_rows(const float* src, const int* ids, float* out,
@@ -463,10 +467,11 @@ extern "C" int pbt_gather_rows(const float* src, const int* ids, float* out,
   return launch<float>(src, ids, out, C, K, W, s);
 }
 
-// src [C, W] 2-byte elements (the bf16 slab's int16 bits), ids [K] i32 (0
-// <= id; ids >= C read row C - 1), out [K, W] 2-byte; all contiguous on the
-// current device, C >= 1. A pure copy of the bits. Launches on `stream`;
-// returns cudaGetLastError() (or the error of sizing the grid).
+// src [C, W] 2-byte elements (the bf16 slab's int16 bits), ids [K] i32
+// (ids < 0 read row 0, ids >= C row C - 1), out [K, W] 2-byte; all
+// contiguous on the current device, C >= 1. A pure copy of the bits.
+// Launches on `stream`; returns cudaGetLastError() (or the error of sizing
+// the grid).
 extern "C" int pbt_gather_rows_2byte(const uint16_t* src, const int* ids,
                                      uint16_t* out, int64_t C, int64_t K,
                                      int W, void* stream) {
@@ -477,7 +482,7 @@ extern "C" int pbt_gather_rows_2byte(const uint16_t* src, const int* ids,
 
 // The same gather decoded to f32 rows: out [K, WL] f32 with out[k, c] the
 // bits (src[id, hi_pos[c]] << 16) | (lo_pos[c] < 0 ? 0 : src[id,
-// lo_pos[c]]) for id = min(ids[k], C - 1). `plan_host` points at 2 * WL
+// lo_pos[c]]) for id = clamp(ids[k], 0, C - 1). `plan_host` points at 2 * WL
 // host ints, hi_pos then lo_pos, each below W; WL <= 128 (else
 // cudaErrorInvalidValue).
 extern "C" int pbt_gather_rows_decode(const uint16_t* src, const int* ids,

@@ -55,7 +55,8 @@ turns the cross-host shuffle off too.
 AUC runner's probe), on the record path only.
 
 The reader pool (``preload_into_memory``): ``read_threads`` threads (the
-reference's keyword and default, 4) parse the files concurrently, at most
+reference's keyword and default, 4; below 1 reads with one, as the
+reference's ``max(1, read_threads)``) parse the files concurrently, at most
 2 x read_threads files ahead of the merge (the native parser's ctypes
 call releases the interpreter lock), and one merge thread takes each
 file's output in FILE-LIST order: ``add_keys_fn``, the cross-host
@@ -184,9 +185,6 @@ class BoxDataset:
         docstring). ``columnar`` None: the columnar path unless ``parser``
         is a record parser. ``shuffler``: the cross-host instance shuffle
         (module docstring)."""
-        if int(read_threads) < 1:
-            raise ValueError("read_threads must be at least 1, got %r"
-                             % (read_threads,))
         self.read_threads = int(read_threads)
         # a task label slot the feed lacks fails on both paths (the record
         # path would quietly train the task on the click label)
@@ -281,7 +279,8 @@ class BoxDataset:
               disk_writer: Optional[BinaryArchiveWriter]) -> None:
         """The merge thread: the pool's outputs in file-list order."""
         try:
-            pool = _ReaderPool(files, self._parse_file, self.read_threads)
+            pool = _ReaderPool(files, self._parse_file,
+                               max(1, self.read_threads))
             try:
                 for out in pool:
                     if self._load_columnar:

@@ -26,11 +26,13 @@ from paddlebox_tpu_torch.native.host_lib import I32P, ptr
 
 
 class NativeMultiSlotParser:
-    label_slot = "click"
-
-    def __init__(self, feed: DataFeedConfig, lib_path: str = None) -> None:
-        """``lib_path``: a parser plugin's shared object with the psr_*
-        entries (data/plugin.py) instead of the port's host library."""
+    def __init__(self, feed: DataFeedConfig, label_slot: str = "click",
+                 lib_path: str = None) -> None:
+        """``label_slot``: the slot whose first value is the record's click
+        label, as MultiSlotParser's. ``lib_path``: a parser plugin's shared
+        object with the psr_* entries (data/plugin.py) instead of the
+        port's host library."""
+        self.label_slot = label_slot
         self._lib = (host_lib.bind_parser(ctypes.CDLL(lib_path))
                      if lib_path is not None else host_lib.host_lib())
         self.feed = feed

@@ -47,13 +47,13 @@ class PackedBatch:
     valid: np.ndarray      # [KCAP] bool
     labels: np.ndarray     # [B] int32 (padded instances = 0)
     ins_valid: np.ndarray  # [B] bool
+    dense: Optional[np.ndarray]  # [B, dense_dim] float32 or None
     n_ins: int
-    dense: Optional[np.ndarray] = None    # [B, dense_dim] float32
-    task_labels: Optional[Dict[str, np.ndarray]] = None  # task -> [B] int32
     rank_offset: Optional[np.ndarray] = None  # [B, 2*max_rank+1] int32
     qvalues: Optional[np.ndarray] = None      # [B] float32
     ins_ids: Optional[List[str]] = None       # [n_ins]
     cmatch_rank: Optional[np.ndarray] = None  # [B] uint64
+    task_labels: Optional[Dict[str, np.ndarray]] = None  # task -> [B] int32
     aux_offset: Optional[np.ndarray] = None   # [B] int32
 
     @property
@@ -79,7 +79,12 @@ class BatchPacker:
         self.batch_size = feed.batch_size
         self.kcap = feed.key_capacity()
 
-    def pack(self, records: Sequence[SlotRecord]) -> PackedBatch:
+    def pack(self, records: Sequence[SlotRecord],
+             with_rank_offset: Optional[bool] = None) -> PackedBatch:
+        """``with_rank_offset``: build the pv rank-offset matrix; None
+        (the default) follows ``feed.rank_offset``."""
+        if with_rank_offset is None:
+            with_rank_offset = self.feed.rank_offset
         B = self.batch_size
         n = min(len(records), B)
         keys = np.zeros(self.kcap, dtype=np.uint64)
@@ -140,7 +145,7 @@ class BatchPacker:
                             cmatch_rank=cmatch_rank)
         if self.input_table is not None or self.use_cache_idx:
             batch.aux_offset = self._aux_offset(records[:n], B)
-        if self.feed.rank_offset:
+        if with_rank_offset:
             batch.rank_offset = self._build_rank_offset(records[:n], B)
         return batch
 

@@ -29,10 +29,11 @@ from paddlebox_tpu_torch.data.slot_record import SlotRecord
 
 
 class MultiSlotParser:
-    label_slot = "click"
-
-    def __init__(self, feed: DataFeedConfig) -> None:
+    def __init__(self, feed: DataFeedConfig, label_slot: str = "click") -> None:
+        """``label_slot``: the slot whose first value is the record's click
+        label (read even where the slot is unused)."""
         self.feed = feed
+        self.label_slot = label_slot
         self._all_slots = list(feed.slots)
         self._task_by_slot = {slot: task
                               for task, slot in feed.task_label_slots}

@@ -300,6 +300,7 @@ class StreamingDataset:
 
     def __init__(self, feed, source_dir: str,
                  ledger_dir: Optional[str] = None,
+                 read_threads: int = 2, shuffler=None,
                  micro_pass_instances: Optional[int] = None,
                  flush_after: Optional[float] = None,
                  socket_port: Optional[int] = None,
@@ -308,6 +309,8 @@ class StreamingDataset:
         flags = flags or StreamFlags()
         self.feed = feed
         self.source_dir = source_dir
+        self.read_threads = int(read_threads)
+        self.shuffler = shuffler
         self.micro_pass_instances = int(
             micro_pass_instances if micro_pass_instances is not None
             else flags.streaming_micro_pass_instances)
@@ -346,7 +349,11 @@ class StreamingDataset:
             instances += n
             self._pending.pop(0)
         self._pending_since = time.time() if self._pending else None
-        ds = BoxDataset(self.feed, **self._dataset_kwargs)
+        # each window's BoxDataset reads with read_threads and shuffles
+        # through shuffler; the same keys in dataset_kwargs win
+        kw = {"read_threads": self.read_threads, "shuffler": self.shuffler}
+        kw.update(self._dataset_kwargs)
+        ds = BoxDataset(self.feed, **kw)
         ds.set_filelist(files)
         win = MicroWindow(self._windows, files, instances, ds)
         self._windows += 1

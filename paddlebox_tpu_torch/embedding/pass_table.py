@@ -191,10 +191,13 @@ def delta_promote(old_slab: torch.Tensor, old_pos: np.ndarray,
     return new
 
 
-def dedup_ids(ids: np.ndarray, pad_base: int):
+def dedup_ids(ids: np.ndarray, pad_base: int, sort: bool = False):
     """Host per-batch dedup (the numpy argsort tier of the JAX dedup_ids,
     pass_table.py:128-189), so uids always come back STRICTLY ASCENDING —
-    the blocked write relies on that.
+    the blocked write relies on that. ``sort`` is the reference's: True
+    asks for ascending uids, which this tier gives either way (the
+    reference's native hash tier, which it picks under False, returns
+    the same uids in probe order; the push merges them alike).
 
     Returns int32 [K] arrays (uids, perm, inv) and n_uniq:
       uids  unique ids, tail padded with pad_base+i (out of the slab)
@@ -316,10 +319,10 @@ def uniq_count(uids: np.ndarray, capacity: int) -> int:
 class PassTable:
     """Single-device sparse table with the BoxPS pass lifecycle."""
 
-    def __init__(self, table: TableConfig, seed: int = 0,
+    def __init__(self, table: TableConfig, seed: int = 0, store=None,
                  device: DeviceLike = None,
                  flags: Optional[PassFlags] = None,
-                 store=None, embed_dtype: str = "float32") -> None:
+                 embed_dtype: str = "float32") -> None:
         """``embed_dtype``: the device slab's storage (DtypeFlags.
         slab_embed_dtype), 'float32' or 'bfloat16'."""
         self.device = resolve_device(device)
@@ -754,9 +757,10 @@ class PassTable:
         self.note_touched(ids)
         return ids
 
-    def dedup_for_push(self, ids: np.ndarray):
-        """dedup_ids with padding uids starting at this table's capacity."""
-        return dedup_ids(ids, self.capacity)
+    def dedup_for_push(self, ids: np.ndarray, sort: bool = False):
+        """dedup_ids with padding uids starting at this table's capacity
+        (``sort`` as there: the uids are ascending either way)."""
+        return dedup_ids(ids, self.capacity, sort=sort)
 
     def uids_for_push(self, ids: np.ndarray) -> np.ndarray:
         """dedup_uids_sorted with padding uids starting at this table's

@@ -60,7 +60,7 @@ def main(argv=None) -> dict:
     from paddlebox_tpu_torch.train.factory import create_trainer
 
     fl = Fleet().init()
-    mesh = fl.init_distributed(args.device, timeout=args.timeout)
+    mesh = fl.init_distributed(args.timeout, device=args.device)
     P, rank = mesh.world, mesh.rank
     log.set_rank(rank)
     say = print if rank == 0 else (lambda *a, **k: None)

@@ -67,7 +67,7 @@ def main(argv=None) -> dict:
     from paddlebox_tpu_torch.train.factory import create_trainer
 
     fl = Fleet().init()
-    mesh = fl.init_distributed(args.device, timeout=args.timeout)
+    mesh = fl.init_distributed(args.timeout, device=args.device)
     rank = mesh.rank
     log.set_rank(rank)
     S = args.stages or mesh.world

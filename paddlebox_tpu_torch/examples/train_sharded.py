@@ -86,7 +86,7 @@ def main(argv=None) -> dict:
     from paddlebox_tpu_torch.train.preload import run_preloaded_passes
 
     fl = Fleet().init()
-    mesh = fl.init_distributed(args.device, timeout=args.timeout)
+    mesh = fl.init_distributed(args.timeout, device=args.device)
     P, rank = mesh.world, mesh.rank
     log.set_rank(rank)
     if args.mesh_2d:

@@ -84,11 +84,13 @@ class Fleet:
     def initialized(self) -> bool:
         return self.role is not None
 
-    def init_distributed(self, device: DeviceLike = None,
-                         timeout: float = DEFAULT_TIMEOUT_S) -> ShardMesh:
+    def init_distributed(self, timeout: float = DEFAULT_TIMEOUT_S,
+                         device: DeviceLike = None) -> ShardMesh:
         """Join the process group for ``device`` (parallel/mesh.py
         init_distributed: NCCL on CUDA, gloo on the CPU, a gloo host
-        group); once, the mesh is kept. Call after init()."""
+        group) within ``timeout`` seconds, the groups' and the
+        collectives' default timeout after it (the reference's first
+        argument); once, the mesh is kept. Call after init()."""
         if self.role is None:
             raise RuntimeError("Fleet.init_distributed before init()")
         if self.mesh is None:
@@ -153,26 +155,40 @@ class Fleet:
         return self.mesh.host_group
 
     # ---------------------------------------------------------- collectives
-    def barrier_worker(self) -> None:
-        """All ranks reach this point (GlooWrapper::Barrier)."""
-        dist.barrier(group=self._group())
+    def _wait(self, work, timeout: Optional[float]) -> None:
+        """Wait for a collective's ``work`` for ``timeout`` seconds (None:
+        the group's timeout, init_distributed's); past it, raise."""
+        if timeout is None:
+            work.wait()
+        else:
+            work.wait(timeout=datetime.timedelta(seconds=float(timeout)))
 
-    def all_gather(self, arr) -> List[np.ndarray]:
+    def barrier_worker(self, timeout: Optional[float] = None) -> None:
+        """All ranks reach this point (GlooWrapper::Barrier) within
+        ``timeout`` seconds (None: the group's timeout)."""
+        self._wait(dist.barrier(group=self._group(), async_op=True), timeout)
+
+    def all_gather(self, arr, timeout: Optional[float] = None
+                   ) -> List[np.ndarray]:
         """[rank0_arr, rank1_arr, ...] on every rank
         (GlooWrapper::AllGather): each rank's header (bytes, dtype, shape)
-        first, then the payloads padded to the largest."""
+        first, then the payloads padded to the largest; each of the two
+        exchanges within ``timeout`` seconds (None: the group's
+        timeout)."""
         group = self._group()
         world = self.role.world
         a = np.ascontiguousarray(np.asarray(arr))
         head = torch.tensor(header(a), dtype=torch.int64)
         heads = [torch.empty_like(head) for _ in range(world)]
-        dist.all_gather(heads, head, group=group)
+        self._wait(dist.all_gather(heads, head, group=group, async_op=True),
+                   timeout)
         heads = [h.numpy() for h in heads]
         width = max(int(h[0]) for h in heads)
         buf = np.zeros(width, np.uint8)
         buf[:a.nbytes] = a.reshape(-1).view(np.uint8)
         bufs = [torch.empty(width, dtype=torch.uint8) for _ in range(world)]
-        dist.all_gather(bufs, torch.from_numpy(buf), group=group)
+        self._wait(dist.all_gather(bufs, torch.from_numpy(buf), group=group,
+                                   async_op=True), timeout)
         out = []
         for h, b in zip(heads, bufs):
             n, code, ndim = int(h[0]), int(h[1]), int(h[2])
@@ -180,12 +196,14 @@ class Fleet:
             out.append(b.numpy()[:n].view(DTYPES[code]).reshape(shape))
         return out
 
-    def all_reduce(self, arr, op: str = "sum") -> np.ndarray:
+    def all_reduce(self, arr, op: str = "sum",
+                   timeout: Optional[float] = None) -> np.ndarray:
         """Elementwise reduce across ranks (GlooWrapper::AllReduce), in
-        rank order on every rank, so every rank gets the same bits."""
+        rank order on every rank, so every rank gets the same bits; the
+        gather within ``timeout`` seconds, as all_gather's."""
         if op not in _OPS:
             raise ValueError("allreduce op must be one of %s" % list(_OPS))
-        return _OPS[op](np.stack(self.all_gather(np.asarray(arr))))
+        return _OPS[op](np.stack(self.all_gather(np.asarray(arr), timeout)))
 
     def metric_allreduce(self) -> Callable[[np.ndarray], np.ndarray]:
         """Adapter matching MetricRegistry.get_metric_msg's
@@ -200,13 +218,14 @@ class Fleet:
             np.asarray([n], np.int64), "max")[0])
 
     # ------------------------------------------------------------ transports
-    def make_mesh_comm(self, positions=(), policy_id: Optional[str] = None
-                       ) -> MeshComm:
+    def make_mesh_comm(self, positions=(), timeout: Optional[float] = None,
+                       policy_id: Optional[str] = None) -> MeshComm:
         """This rank's per-step exchange (fleet/mesh_comm.py), made once
         and kept, on a gloo group of its own. Collective: every rank calls
         it in the same order. The ranks' mesh positions and sharding
-        policy identities are gathered first; different identities raise
-        MeshPolicyMismatch on every rank."""
+        policy identities are gathered first, each gather within
+        ``timeout`` seconds (None: the group's timeout); different
+        identities raise MeshPolicyMismatch on every rank."""
         if self._comm is not None:
             if policy_id is not None and policy_id != self._comm_policy:
                 raise ValueError(
@@ -214,10 +233,11 @@ class Fleet:
                     "%r; requested %r — one policy a fleet lifetime"
                     % (self._comm_policy, policy_id))
             return self._comm
-        pos = self.all_gather(np.asarray(list(positions), np.int64))
+        pos = self.all_gather(np.asarray(list(positions), np.int64),
+                              timeout)
         ident = (policy_id or "").encode("utf-8")
         seen = sorted({bytes(p).decode("utf-8") for p in self.all_gather(
-            np.frombuffer(ident, np.uint8).copy())})
+            np.frombuffer(ident, np.uint8).copy(), timeout)})
         if policy_id is not None and seen != [policy_id]:
             raise MeshPolicyMismatch(
                 "sharding-policy mismatch across ranks: the cluster "

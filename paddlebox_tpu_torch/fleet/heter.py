@@ -58,10 +58,12 @@ class HeterDenseService:
     """The accelerator-side dense executor (the HeterXpuTrainer service
     role). ``model``: a single-task zoo model with its weights; Adam at
     ``dense_lr``; listens on (host, port), port 0 any free port
-    (``self.port``)."""
+    (``self.port``). ``seed`` is the reference's weight seed, accepted and
+    read by nothing: the port's model arrives with its weights, drawn by
+    its own generator."""
 
     def __init__(self, model: torch.nn.Module, feed: DataFeedConfig,
-                 dense_lr: float = 1e-3, use_cvm: bool = True,
+                 dense_lr: float = 1e-3, use_cvm: bool = True, seed: int = 0,
                  host: str = "127.0.0.1", port: int = 0,
                  device: DeviceLike = None) -> None:
         if is_multi_task(model):
@@ -99,8 +101,8 @@ class HeterDenseService:
         live = np.flatnonzero(np.asarray(meta["valid"]))
         pooled = fused_seqpool_cvm(
             emb, batch["segments"], batch["valid"], self.batch_size,
-            self.num_slots, int(live[-1]) + 1 if live.size else 0,
-            self.use_cvm)
+            self.num_slots, self.use_cvm, sorted_segments=True,
+            n_valid=int(live[-1]) + 1 if live.size else 0)
         loss, preds = forward_loss(self.model, pooled, batch)
         return emb, loss, preds
 

@@ -354,8 +354,9 @@ def set_active(q: Optional[TaggedQuality]) -> Optional[TaggedQuality]:
 
 
 def attach_pass_extras(extra: dict, quality: Optional[TaggedQuality],
-                       monitor: Optional["_drift.SlotDriftMonitor"] = None,
-                       ship_state: bool = False) -> dict:
+                       ship_state: bool = False,
+                       monitor: Optional["_drift.SlotDriftMonitor"] = None
+                       ) -> dict:
     """The pass_end record's extras: the quality gauges published (before
     the record is assembled, so it carries them), the quality report (and
     with ``ship_state`` the raw state), and the drift ``monitor``'s window

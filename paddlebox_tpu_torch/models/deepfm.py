@@ -30,14 +30,18 @@ class DeepFM(nn.Module):
 
     def __init__(self, spec: ModelSpec,
                  hidden: Sequence[int] = (400, 400, 400),
+                 embedx_dim: Optional[int] = None,
                  generator: Optional[torch.Generator] = None) -> None:
-        """Parameters are drawn on the CPU from ``generator`` (seeded by the
-        caller for a reproducible init); move the module afterwards."""
+        """``embedx_dim``: the embedx columns the FM term reads after a
+        slot's embed_w (None: ``spec.slot_dim - 3``, every column after
+        it). Parameters are drawn on the CPU from ``generator`` (seeded by
+        the caller for a reproducible init); move the module afterwards."""
         super().__init__()
         self.spec = spec
         self.hidden = tuple(hidden)
         # pooled slot layout: [log_show, log_ctr, embed_w, embedx...(D)]
-        self.embedx_dim = spec.slot_dim - 3
+        self.embedx_dim = (embedx_dim if embedx_dim is not None
+                           else spec.slot_dim - 3)
         mlp_init(self, [spec.total_in, *self.hidden, 1], "deep", generator)
         self.fm_out_w = nn.Parameter(torch.randn(3, generator=generator) * 0.1)
         self.fm_out_b = nn.Parameter(torch.zeros(()))

@@ -50,8 +50,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
 
 def mlp_apply(module: nn.Module, x: torch.Tensor, name: str,
               act: Callable = torch.relu,
-              matmul_dtype: str = "float32",
-              final_act: bool = False) -> torch.Tensor:
+              final_act: bool = False,
+              matmul_dtype: str = "float32") -> torch.Tensor:
     """Dense layers in order, ``act`` between them, and after the last one
     too with ``final_act``."""
     i = 0

@@ -43,8 +43,8 @@ from paddlebox_tpu_torch.obs.watchdog import beat  # noqa: F401
 
 
 def make_step_reporter(rank: int = 0, timers: Optional[Dict] = None,
-                       flags: Optional[ObsFlags] = None,
-                       aggregator=None) -> StepReporter:
+                       aggregator=None,
+                       flags: Optional[ObsFlags] = None) -> StepReporter:
     """The tiers ``flags`` asks for, in the reference's order
     (paddlebox_tpu/obs/__init__.py:84-100): the tracer (obs_trace,
     obs_trace_capacity) and the device plane's switches, the flight
@@ -55,13 +55,13 @@ def make_step_reporter(rank: int = 0, timers: Optional[Dict] = None,
     flags = flags or ObsFlags()
     tracer.configure_from_flags(flags)
     device.configure(flags)
-    flight.ensure_from_flags(flags, rank=rank)
+    flight.ensure_from_flags(rank, flags=flags)
     reporter = StepReporter(rank=rank, every=flags.obs_report_every,
                             sink=make_sink(flags.obs_report_path),
                             timers=timers, aggregator=aggregator)
-    watchdog.ensure_from_flags(flags, tracer=get_tracer(),
+    watchdog.ensure_from_flags(get_tracer(), flags=flags,
                                report_fn=reporter.peek)
-    exp = exporter.ensure_from_flags(flags, rank=rank)
+    exp = exporter.ensure_from_flags(rank, flags=flags)
     if exp is not None:
         exp.bind(reporter=reporter)
     return reporter

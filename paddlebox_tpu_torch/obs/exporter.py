@@ -355,8 +355,8 @@ def close_active() -> None:
         _ACTIVE = None
 
 
-def ensure_from_flags(flags: Optional[ObsFlags] = None,
-                      rank: int = 0) -> Optional[ObsExporter]:
+def ensure_from_flags(rank: int = 0, flags: Optional[ObsFlags] = None
+                      ) -> Optional[ObsExporter]:
     """The endpoint ``flags.obs_http_port`` + rank asks for (0 closes and
     clears the active one); the same port and rank reuse it. A port that
     cannot be bound warns and returns None."""

@@ -386,8 +386,8 @@ def install_crash_hooks(fr: FlightRecorder) -> None:
     _HOOKS_INSTALLED = True
 
 
-def ensure_from_flags(flags: Optional[ObsFlags] = None,
-                      rank: int = 0) -> Optional[FlightRecorder]:
+def ensure_from_flags(rank: int = 0, flags: Optional[ObsFlags] = None
+                      ) -> Optional[FlightRecorder]:
     """The recorder ``flags.obs_flight_dir`` asks for ('' closes and clears
     the active one); the same directory and rank reuse it. An unusable
     directory warns and leaves the recorder off."""

@@ -101,8 +101,8 @@ class StepReporter:
     def __init__(self, rank: int = 0, every: int = 20,
                  sink: Optional[MetricsSink] = None,
                  timers: Optional[Dict] = None,
-                 clock: Callable[[], float] = time.perf_counter,
-                 aggregator=None) -> None:
+                 aggregator=None,
+                 clock: Callable[[], float] = time.perf_counter) -> None:
         self.rank = int(rank)
         self.every = int(every)
         self.sink = sink if sink is not None else NullSink()

@@ -155,8 +155,9 @@ def beat(label: str) -> None:
         fr.on_beat(label)
 
 
-def ensure_from_flags(flags: Optional[ObsFlags] = None, tracer=None,
-                      report_fn=None) -> Optional[StallWatchdog]:
+def ensure_from_flags(tracer=None, report_fn=None,
+                      flags: Optional[ObsFlags] = None
+                      ) -> Optional[StallWatchdog]:
     """Start, once, the watchdog ``flags.obs_watchdog_secs`` asks for
     (<= 0: none started; one already running stays). A later caller
     refreshes the report function, so the dump shows the live trainer's

@@ -94,9 +94,10 @@ def _check_gather(src: torch.Tensor, ids: torch.Tensor) -> None:
 
 def gather_rows(src: torch.Tensor, ids: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[K, W] rows src[min(ids, C - 1)] for src [C, W] f32, or int16 (the
-    bf16 slab's bits, moved as they are), and ids [K] int32 >= 0 (an id
-    of C or more reads the last row, as JAX's gather clamps). Returns a
+    """[K, W] rows src[clamp(ids, 0, C - 1)] for src [C, W] f32, or int16
+    (the bf16 slab's bits, moved as they are), and ids [K] int32 (an id
+    of C or more reads the last row, as JAX's gather clamps; a negative
+    id reads row 0, so no id reads outside ``src``). Returns a
     new tensor, or fills ``out`` (contiguous [K, W] of src's dtype on its
     device, in storage of its own) and returns it."""
     _check_gather(src, ids)
@@ -138,17 +139,17 @@ gather_rows.launches_2byte = 0
 
 def gather_rows_plain(src: torch.Tensor, ids: torch.Tensor,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel's function in PyTorch ops: clamp, then index_select
-    (into ``out`` when given)."""
-    return torch.index_select(src, 0, ids.clamp(max=src.shape[0] - 1),
+    """The kernel's function in PyTorch ops: clamp to [0, C - 1], then
+    index_select (into ``out`` when given)."""
+    return torch.index_select(src, 0, ids.clamp(0, src.shape[0] - 1),
                               out=out)
 
 
 def gather_rows_decode(src: torch.Tensor, ids: torch.Tensor,
                        layout: ValueLayout) -> torch.Tensor:
-    """[K, layout.width] f32 rows decode_slab_rows(src[min(ids, C - 1)])
-    for the bf16 slab ``src`` [C, layout.device_width] int16 and ids [K]
-    int32 >= 0: the 2-byte gather with the codec's decode fused into its
+    """[K, layout.width] f32 rows decode_slab_rows(src[clamp(ids, 0,
+    C - 1)]) for the bf16 slab ``src`` [C, layout.device_width] int16 and
+    ids [K] int32: the 2-byte gather with the codec's decode fused into its
     output."""
     _check_gather(src, ids)
     if not layout.bf16 or src.dtype != torch.int16 or \

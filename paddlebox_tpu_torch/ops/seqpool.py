@@ -36,15 +36,32 @@ def cvm_transform(pooled: torch.Tensor, use_cvm: bool = True) -> torch.Tensor:
 
 def fused_seqpool_cvm(emb: torch.Tensor, segments: torch.Tensor,
                       valid: torch.Tensor, batch_size: int, num_slots: int,
-                      n_valid: int, use_cvm: bool = True) -> torch.Tensor:
-    """emb [K, 2+E] per-key pull view, segments [K] NONDECREASING,
-    valid [K] bool -> [batch_size, num_slots, 2+E] (E without CVM). Empty
-    slots pool to zero. Differentiable in emb.
+                      use_cvm: bool = True, pad_empty_zero: bool = True,
+                      sorted_segments: bool = False,
+                      n_valid: Optional[int] = None) -> torch.Tensor:
+    """emb [K, 2+E] per-key pull view, segments [K] = instance * num_slots
+    + slot, valid [K] bool -> [batch_size, num_slots, 2+E] (E without
+    CVM), the reference's arguments in its order. Empty slots pool to
+    zero, whatever ``pad_empty_zero`` says (as in the reference, which
+    reads it nowhere). Differentiable in emb.
+
+    ``sorted_segments`` (the packers' segments, and every trainer's call):
+    the segments are nondecreasing and the pool is the sorted segment sum
+    as it is. Otherwise the keys are first put in segment order, stably,
+    so each segment still sums its keys in occurrence order.
 
     n_valid: keys from this index on are all padding (the packer's tail,
     pinned to the last segment) and are left out of the sum instead of
     being added as zeros — one sequential run of tens of thousands of
-    zeros would otherwise dominate the reduction's time on the card."""
+    zeros would otherwise dominate the reduction's time on the card.
+    None: every key."""
+    if n_valid is None:
+        n_valid = emb.shape[0]
+    if not sorted_segments:
+        emb, segments, valid = (emb[:n_valid], segments[:n_valid],
+                                valid[:n_valid])
+        order = torch.argsort(segments, stable=True)
+        emb, segments, valid = emb[order], segments[order], valid[order]
     pooled = seqpool_sum(emb, segments, valid, batch_size, num_slots,
                          n_valid)
     return cvm_transform(pooled, use_cvm)

@@ -12,6 +12,14 @@ gradient, each key's embed_w and embedx cotangents summed into its row
 (show and click get none). The sum takes an id's occurrences in
 ascending order from zero (a sorted segment sum, no atomics), so the
 card's gradient is the CPU's bit for bit.
+
+The public pulls take an id as JAX's indexing does (reference
+ops/sparse.py:57-60, 138-147): an id in [-C, 0) is row C + id, in the
+forward and in the slab gradient; an id still outside the slab then
+reads the nearest row (JAX's gather clamps) and adds nothing to the
+gradient (JAX's scatter drops it). The trainers' staged pulls
+(gather_slab_rows with pull_view_from_rows or extended_views_from_rows)
+take the route index's ids, which are never negative, as they are.
 """
 
 from __future__ import annotations
@@ -33,7 +41,9 @@ def gather_slab_rows(slab: torch.Tensor, ids: torch.Tensor,
     clamps), DECODED under a bf16 ``layout`` (reference ops/sparse.py:
     46-54; None or an f32 layout: the f32 slab's rows as they are). On
     the card this is the gather_rows kernel; on a bf16 slab its decoding
-    form, the raw gather and the codec's decode in one kernel."""
+    form, the raw gather and the codec's decode in one kernel. A negative
+    id reads row 0 (the kernel's lower clamp): the public pulls wrap ids
+    in [-C, 0) first (``wrap_negative_ids``)."""
     if layout is None or not layout.bf16:
         return gather_rows(slab, ids)
     return gather_rows_decode(slab, ids, layout)
@@ -49,10 +59,19 @@ def pull_view_from_rows(rows: torch.Tensor,
                       rows[:, xw0:xw0 + D]], dim=1)
 
 
+def wrap_negative_ids(ids: torch.Tensor, rows: int) -> torch.Tensor:
+    """``ids`` with each negative id raised by ``rows`` (JAX's index
+    normalization): an id in [-rows, 0) becomes its row, one below -rows
+    stays negative."""
+    return torch.where(ids < 0, ids + rows, ids)
+
+
 def pull_sparse(slab: torch.Tensor, ids: torch.Tensor,
                 layout: ValueLayout) -> torch.Tensor:
     """The per-key pull view [K, 3+D] (show, click, embed_w, embedx) of
-    slab[ids]: the gather_rows kernel on the card."""
+    slab[ids], an id taken as JAX's indexing takes it (module docstring):
+    the gather_rows kernel on the card."""
+    ids = wrap_negative_ids(ids, slab.shape[0])
     return pull_view_from_rows(gather_slab_rows(slab, ids, layout), layout)
 
 
@@ -62,13 +81,13 @@ def pull_view_grad(ids: torch.Tensor, d_out: torch.Tensor,
     [K, 3+D]: row i's embed_w gets the sum of d_out[k, 2] and its embedx
     columns the sum of d_out[k, 3:] over the k with ids[k] == i, each sum
     over the occurrences in ascending order from zero; every other entry
-    is zero. An id outside the slab adds nothing (JAX's scatter drops
-    it)."""
+    is zero. As JAX's scatter does: an id in [-C, 0) adds to row C + id,
+    and an id still outside the slab adds nothing."""
     D = layout.embedx_dim
     xw0 = layout.embedx_w
     d_slab = torch.zeros(tuple(slab_shape), dtype=d_out.dtype,
                          device=d_out.device)
-    ids = ids.to(torch.int64)
+    ids = wrap_negative_ids(ids.to(torch.int64), d_slab.shape[0])
     inside = (ids >= 0) & (ids < d_slab.shape[0])
     if not bool(inside.all()):
         ids, d_out = ids[inside], d_out[inside]
@@ -133,7 +152,14 @@ def pull_sparse_extended(slab: torch.Tensor, ids: torch.Tensor,
     gathered rows. The layout must have an expand block."""
     if not layout.expand_dim:
         raise ValueError("layout has no expand block (expand_dim == 0)")
-    rows = gather_slab_rows(slab, ids, layout)
+    ids = wrap_negative_ids(ids, slab.shape[0])
+    return extended_views_from_rows(gather_slab_rows(slab, ids, layout),
+                                    layout)
+
+
+def extended_views_from_rows(rows: torch.Tensor, layout: ValueLayout):
+    """(pull view [K, 3+D], expand embedding [K, E]) of already gathered
+    rows: the trainers' staged extended pull."""
     ew = layout.expand_w
     return (pull_view_from_rows(rows, layout),
             rows[:, ew:ew + layout.expand_dim])

@@ -187,7 +187,8 @@ class MeshTowerTrainer:
         pooled = fused_seqpool_cvm(emb, batch["segments"],
                                    ids != self.table.padding_id,
                                    self.feed.batch_size, self.num_slots,
-                                   batch["n_valid"], self.use_cvm)
+                                   self.use_cvm, sorted_segments=True,
+                                   n_valid=batch["n_valid"])
         return emb, pooled
 
     def step(self, batch: Batch, seed: int):

@@ -107,8 +107,8 @@ from paddlebox_tpu_torch.ops.data_norm import (DataNormState, data_norm,
 from paddlebox_tpu_torch.ops.seqpool import fused_seqpool_cvm, seqpool_sum
 from paddlebox_tpu_torch.ops.sparse import (build_push_grads,
                                             build_push_grads_extended,
+                                            extended_views_from_rows,
                                             gather_slab_rows,
-                                            pull_sparse_extended,
                                             pull_view_from_rows)
 from paddlebox_tpu_torch.parallel.mesh import device_mesh_1d
 from paddlebox_tpu_torch.parallel.sharded_table import ShardedPassTable
@@ -456,7 +456,8 @@ def ctr_pipeline_sections(mb: int, num_slots: int, use_cvm: bool, E: int,
         for t in range(M):
             nv = K if n_valid is None else int(n_valid[t])
             x = fused_seqpool_cvm(emb_all[t], segments[t], key_valid[t], mb,
-                                  num_slots, nv, use_cvm).reshape(mb, -1)
+                                  num_slots, use_cvm, sorted_segments=True,
+                                  n_valid=nv).reshape(mb, -1)
             if E:
                 pexp = seqpool_sum(exp_all[t], segments[t], key_valid[t], mb,
                                    num_slots, nv)
@@ -636,8 +637,9 @@ def _grouped_train_pass(runner, dataset, begin_pass: Callable,
     end_pass()
     mean = float(np.mean(losses)) if losses else 0.0
     extra = {"event": "pass_end", "loss": round(mean, 6)}
-    quality.attach_pass_extras(extra, runner.quality, runner.drift,
-                               ship_state=runner.world > 1)
+    quality.attach_pass_extras(extra, runner.quality,
+                               ship_state=runner.world > 1,
+                               monitor=runner.drift)
     runner.reporter.maybe_report(runner._step_count, force=True, extra=extra)
     return {"loss": mean, "steps": len(losses),
             "dropped_batches": len(batches) - n_groups * G}
@@ -1121,11 +1123,12 @@ class CtrPipelineRunner(_CtrPipeline):
         flat = ids.reshape(-1)
         E = self.layout.expand_dim
         slab = self.table.slab
+        rows = gather_slab_rows(slab, flat, self.layout)
         if E:
-            base, exp = pull_sparse_extended(slab, flat, self.layout)
+            base, exp = extended_views_from_rows(rows, self.layout)
             return base.reshape(M, K, -1), exp.reshape(M, K, E), ids
-        return pull_view_from_rows(gather_slab_rows(slab, flat, self.layout),
-                                   self.layout).reshape(M, K, -1), None, ids
+        return pull_view_from_rows(rows, self.layout).reshape(M, K, -1), \
+            None, ids
 
     def _key_valid(self, batch) -> torch.Tensor:
         return batch["ids"] != self.table.padding_id
@@ -1275,7 +1278,7 @@ class ShardedCtrPipelineRunner(_CtrPipeline):
         if self._owns_fleet:
             self.fleet.init()
         self.shard_mesh = self.fleet.mesh or self.fleet.init_distributed(
-            device)
+            device=device)
         self.P = self.world = self.shard_mesh.world
         self.rank = self.shard_mesh.rank
         self.device = self.shard_mesh.device

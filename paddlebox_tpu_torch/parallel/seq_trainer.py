@@ -141,8 +141,9 @@ def make_seq_step(model: torch.nn.Module, layout: ValueLayout,
         emb_pool = _pull(slab, ids, layout).requires_grad_(True)
         emb_seq = _pull(slab, seq_ids.reshape(-1), layout).reshape(
             B, tl, -1).requires_grad_(True)
-        pooled = fused_seqpool_cvm(emb_pool, segments, valid, B, S,
-                                   batch["n_valid"], use_cvm)
+        pooled = fused_seqpool_cvm(emb_pool, segments, valid, B, S, use_cvm,
+                                   sorted_segments=True,
+                                   n_valid=batch["n_valid"])
         logits = model.head_apply(
             pooled, model.seq_feature_local(emb_seq, seq_valid, group))
         loss, preds = masked_bce(logits, batch["labels"],
@@ -200,8 +201,9 @@ def make_seq_eval_step(model: torch.nn.Module, layout: ValueLayout,
             emb_seq = _pull(slab, seq_ids.reshape(-1), layout).reshape(
                 B, seq_ids.shape[1], -1)
             pooled = fused_seqpool_cvm(emb_pool, batch["segments"],
-                                       ids != pad, B, S, batch["n_valid"],
-                                       use_cvm)
+                                       ids != pad, B, S, use_cvm,
+                                       sorted_segments=True,
+                                       n_valid=batch["n_valid"])
             return torch.sigmoid(model.head_apply(
                 pooled, model.seq_feature_local(emb_seq, batch["seq_valid"],
                                                 group)))
@@ -223,8 +225,8 @@ class SeqCtrTrainer:
     def __init__(self, model: torch.nn.Module, table_cfg: TableConfig,
                  feed: DataFeedConfig,
                  trainer_cfg: Optional[TrainerConfig] = None,
-                 seq_slot: int = 0, use_cvm: bool = True, seed: int = 0,
-                 device: DeviceLike = None, group=None) -> None:
+                 seq_slot: int = 0, group=None, use_cvm: bool = True,
+                 seed: int = 0, device: DeviceLike = None) -> None:
         self.cfg = trainer_cfg or TrainerConfig()
         # the reference's trainer reads dense_lr alone (its dense optimizer
         # is adam, seq_trainer.py:83): any other field set is refused

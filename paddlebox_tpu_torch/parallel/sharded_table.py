@@ -411,11 +411,12 @@ class ShardedPassTable:
 
     def __init__(self, table: TableConfig, num_shards: int, bucket_cap: int,
                  seed: int = 0, owned_shards: Optional[Sequence[int]] = None,
+                 store_factory=None,
                  policy: Optional[ShardingPolicy] = None,
                  device: DeviceLike = None,
                  pass_flags: Optional[PassFlags] = None,
                  shard_flags: Optional[ShardFlags] = None, store=None,
-                 embed_dtype: str = "float32", store_factory=None,
+                 embed_dtype: str = "float32",
                  host_ranks: int = 1) -> None:
         """``owned_shards``: the one shard this process hosts (None: [0],
         for a table of one shard). ``policy``: the key -> shard rule

@@ -287,7 +287,7 @@ class ShardedBoxTrainer(BatchOutputs):
         ``fleet``, initialized from the environment's role when it is
         not). ``mesh``: the rank's ShardMesh, 1-D or 2-D (parallel/mesh.py
         device_mesh_2d) over the fleet's process group (default:
-        fleet.init_distributed(device), which joins the process group).
+        fleet.init_distributed(device=device), which joins the process group).
         ``device``: the rank's device, the card unless the caller asks for
         the CPU. ``bucket_cap``: KB, default max(16, 2 * key_capacity //
         P). ``store``: the owned shard's host store, or ``store_factory``
@@ -336,7 +336,7 @@ class ShardedBoxTrainer(BatchOutputs):
                 self.fleet.mesh = mesh
             elif self.fleet.mesh.group is not mesh.group:
                 raise ValueError("mesh is not over the fleet's process group")
-        self.mesh = mesh or self.fleet.init_distributed(device)
+        self.mesh = mesh or self.fleet.init_distributed(device=device)
         # device collectives called, by kind (the card's check that the
         # path ran through them)
         self.collective_counts = collections.Counter()
@@ -674,7 +674,8 @@ class ShardedBoxTrainer(BatchOutputs):
                  st: Staged):
         pooled = fused_seqpool_cvm(emb, st["segments"], st["valid"],
                                    self.feed.batch_size, self.num_slots,
-                                   st["n_valid"], self.use_cvm)
+                                   self.use_cvm, sorted_segments=True,
+                                   n_valid=st["n_valid"])
         pooled_exp = None
         if exp is not None:
             pooled_exp = seqpool_sum(exp, st["segments"], st["valid"],
@@ -1113,7 +1114,8 @@ class ShardedBoxTrainer(BatchOutputs):
         extra = {"event": "pass_end", "loss": round(mean_loss, 6),
                  "auc": {m.name: float(m.calculator.auc())
                          for m in self.metrics.messages()}}
-        quality.attach_pass_extras(extra, self.quality, self.drift)
+        quality.attach_pass_extras(extra, self.quality,
+                                   monitor=self.drift)
         self.reporter.maybe_report(self._step_count, force=True, extra=extra)
         if self.cfg.profile:
             obs_log.info(timer_report(self.timers,

@@ -220,7 +220,8 @@ class DownpourTrainer:
     def _pooled(self, emb: torch.Tensor, batch: Dict) -> torch.Tensor:
         return fused_seqpool_cvm(emb, batch["segments"], batch["valid"],
                                  self.feed.batch_size, self.num_slots,
-                                 batch["n_valid"], self.use_cvm)
+                                 self.use_cvm, sorted_segments=True,
+                                 n_valid=batch["n_valid"])
 
     def _step(self, slab: torch.Tensor, batch: Dict):
         """(flat dense grad, push rows [K, push width], loss, preds [B]),

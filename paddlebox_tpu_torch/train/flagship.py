@@ -90,6 +90,13 @@ the run's ``ssd_dir`` (``dataclasses.replace``); ``FLAGSHIP_ASYNC`` is
 FLAGSHIP with the host async dense table (``sync_mode="async"``), which
 steps one batch at a time.
 
+``FLAGSHIP_NO_CVM`` is the main path without the pool's CVM columns
+(``use_cvm=False``, the reference's BoxTrainer(use_cvm=False)): CtrDnn
+hidden 512-256-128 on FLAGSHIP's table, batch and files, each pooled slot
+its embed_w and embedx (1 + embedx = 9 columns, 288 a batch row), and no
+data_norm: its show-skip reads a slot's first pooled column as show, which
+is embed_w without CVM.
+
 chip_smoke.py drives
 its main path from here, profile_pass.py profiles the same pass, and
 rate_probe.py gathers at the pull's shape from one of its batches
@@ -179,6 +186,9 @@ class Flagship:
     ssd_threshold_mb: float = 0
     # the dense sync (TrainerConfig.sync_mode; "async": the host table)
     sync_mode: str = "step"
+    # the pool's CVM columns (BoxTrainer(use_cvm=)): a pooled slot is
+    # 3 + embedx wide with them, 1 + embedx without
+    use_cvm: bool = True
 
     def table(self) -> TableConfig:
         return TableConfig(embedx_dim=self.embedx,
@@ -265,6 +275,11 @@ FLAGSHIP_ASYNC = dataclasses.replace(FLAGSHIP, sync_mode="async")
 FLAGSHIP_JOIN_PV = dataclasses.replace(FLAGSHIP, model="join_pv_dnn")
 FLAGSHIP_AUX = dataclasses.replace(FLAGSHIP, model="ctr_dnn_aux",
                                    ins_id_vocab=4096, aux_dim=8)
+# the main path without the pool's CVM columns: CtrDnn (512, 256, 128) on
+# FLAGSHIP's table, batch and files, no data_norm (its show-skip reads a
+# slot's first pooled column as show, which is embed_w without CVM)
+FLAGSHIP_NO_CVM = dataclasses.replace(FLAGSHIP, model="ctr_dnn",
+                                      use_cvm=False)
 # their two full-width passes on the card (chip_smoke.py phase 16, seed 0,
 # push_write "scatter", chunks of 8; FLAGSHIP_AUX through input_table):
 # loss and AUC a pass, "%.10f"; the values later slices hold
@@ -364,16 +379,22 @@ def sorted_pass_keys(files: List[str], feed: DataFeedConfig) -> np.ndarray:
     return _load(files, feed)[1]
 
 
-def first_batch_ids(files: List[str], feed: DataFeedConfig,
-                    cfg: Flagship = FLAGSHIP) -> np.ndarray:
-    """int32 [batch * num_slots * max_len] slab ids of the first batch of
-    ``files[0]``, as the pass table of that file gives them: each key's
-    rank among the file's sorted unique keys, padding key slots on the
-    trash row (capacity - 1)."""
+def first_batch(files: List[str], feed: DataFeedConfig,
+                cfg: Flagship = FLAGSHIP):
+    """(the first packed batch of ``files[0]``, its int32 [batch *
+    num_slots * max_len] slab ids as the pass table of that file gives
+    them: each key's rank among the file's sorted unique keys, padding key
+    slots on the trash row (capacity - 1))."""
     ds, pass_keys = _load(files[:1], feed)
     b = ds.split_batches(1)[0][0]
-    return np.where(b.valid, np.searchsorted(pass_keys, b.keys),
-                    cfg.capacity - 1).astype(np.int32)
+    return b, np.where(b.valid, np.searchsorted(pass_keys, b.keys),
+                       cfg.capacity - 1).astype(np.int32)
+
+
+def first_batch_ids(files: List[str], feed: DataFeedConfig,
+                    cfg: Flagship = FLAGSHIP) -> np.ndarray:
+    """The slab ids of ``first_batch``."""
+    return first_batch(files, feed, cfg)[1]
 
 
 def first_seq_batch_ids(files: List[str], feed: DataFeedConfig,
@@ -490,15 +511,17 @@ def build_model(cfg: Flagship = FLAGSHIP, seed: int = 0) -> torch.nn.Module:
     on the CPU from ``torch.Generator().manual_seed(seed)``: ``hidden`` is
     the MLP, DLRM's top MLP or the towers, every other width is the
     constructor's default; CtrDnn runs data_norm at the pooled slot
-    width."""
+    width under CVM. A pooled slot is (3 if cfg.use_cvm else 1) + embedx
+    wide."""
     if cfg.model not in MODEL_ZOO:
         raise ValueError("unknown flagship model %r" % (cfg.model,))
-    spec = ModelSpec(num_slots=cfg.num_slots, slot_dim=3 + cfg.embedx,
+    spec = ModelSpec(num_slots=cfg.num_slots,
+                     slot_dim=(3 if cfg.use_cvm else 1) + cfg.embedx,
                      dense_dim=cfg.dense_dim)
     kw = {_HIDDEN_ARG.get(cfg.model, "hidden"): cfg.hidden}
     if cfg.model == "ctr_dnn_expand":
         kw["expand_dim"] = cfg.expand_dim
-    if cfg.model == "ctr_dnn":
+    if cfg.model == "ctr_dnn" and cfg.use_cvm:
         kw.update(use_data_norm=True, dn_slot_dim=spec.slot_dim)
     if cfg.model == "ctr_dnn_aux":
         kw["aux_dim"] = cfg.aux_dim
@@ -544,7 +567,7 @@ def build_trainer(files: List[str], feed: DataFeedConfig,
                                        dense_optimizer=cfg.dense_optimizer,
                                        sync_mode=cfg.sync_mode,
                                        **trainer_fields),
-                         seed=seed,
+                         seed=seed, use_cvm=cfg.use_cvm,
                          flags=push_flags or PushFlags(push_write,
                                                        BLOCK_ROWS),
                          device=device,
@@ -587,8 +610,8 @@ def build_seq_trainer(files: List[str], feed: DataFeedConfig,
     model.attn = attn
     trainer = SeqCtrTrainer(model, cfg.table(), feed,
                             TrainerConfig(dense_lr=DENSE_LR),
-                            seq_slot=SEQ_SLOT, seed=seed, device=device,
-                            group=group)
+                            seq_slot=SEQ_SLOT, use_cvm=cfg.use_cvm,
+                            seed=seed, device=device, group=group)
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20)
     ds = BoxDataset(feed)
     ds.set_filelist(files)
@@ -624,8 +647,8 @@ def build_sharded_trainer(files: List[str], feed: DataFeedConfig,
         build_model(cfg, seed), cfg.table(), feed,
         TrainerConfig(dense_lr=DENSE_LR, compute_dtype=cfg.compute_dtype,
                       dense_optimizer=cfg.dense_optimizer, **trainer_fields),
-        seed=seed, fleet=fleet, device=device, mesh=mesh,
-        push_flags=push_flags, stage_flags=stage_flags,
+        seed=seed, use_cvm=cfg.use_cvm, fleet=fleet, device=device,
+        mesh=mesh, push_flags=push_flags, stage_flags=stage_flags,
         shard_flags=shard_flags,
         dtype_flags=DtypeFlags(cfg.slab_embed_dtype, cfg.matmul_dtype), **ps)
     trainer.metrics.init_metric("auc", "label", "pred", table_size=1 << 20,

@@ -205,6 +205,7 @@ class PassPreloader:
 
 
 def run_preloaded_passes(trainer, datasets: Iterable,
+                         release: bool = True,
                          after_pass: Optional[Callable[[int, Dict], None]]
                          = None) -> List[Dict[str, float]]:
     """Train a sequence of datasets, loading pass N+1 while pass N trains.
@@ -212,7 +213,8 @@ def run_preloaded_passes(trainer, datasets: Iterable,
     Each pass's ``trainer.pass_times`` starts with ``wait``, the seconds
     the preloader's wait took, in place of ``feed``. after_pass(index,
     stats), when given, runs after each pass with the next pass's readers
-    already started; each dataset's records are released after its pass.
+    already started; with ``release`` (the default) each dataset's
+    records are released after its pass, else the caller keeps them.
     Over a ShardedBoxTrainer above one rank each feed pass unions the
     ranks' keys with the fleet's all_gather (reference preload.py:231-233).
     Returns the passes' stats."""
@@ -236,6 +238,7 @@ def run_preloaded_passes(trainer, datasets: Iterable,
         trainer.pass_times = {"wait": wait_s, **trainer.pass_times}
         if after_pass is not None:
             after_pass(len(results) - 1, results[-1])
-        cur.release_memory()
+        if release:
+            cur.release_memory()
         cur = nxt
     return results

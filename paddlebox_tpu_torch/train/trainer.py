@@ -174,8 +174,8 @@ from paddlebox_tpu_torch.obs.watchdog import beat
 from paddlebox_tpu_torch.ops.seqpool import fused_seqpool_cvm, seqpool_sum
 from paddlebox_tpu_torch.ops.sparse import (build_push_grads,
                                             build_push_grads_extended,
+                                            extended_views_from_rows,
                                             gather_slab_rows,
-                                            pull_sparse_extended,
                                             pull_view_from_rows)
 from paddlebox_tpu_torch.train.async_dense import AsyncDenseTable
 from paddlebox_tpu_torch.train.dense_optim import (check_opt_state,
@@ -394,10 +394,10 @@ def _pull(slab: torch.Tensor, ids: torch.Tensor, layout: ValueLayout,
           use_expand: bool):
     """(pull view [K, 3+D], expand embedding [K, E] or None) of ``ids``:
     the extended pull on the expand path (reference trainer.py:635-643)."""
+    rows = gather_slab_rows(slab, ids, layout)
     if use_expand:
-        return pull_sparse_extended(slab, ids, layout)
-    return pull_view_from_rows(gather_slab_rows(slab, ids, layout),
-                               layout), None
+        return extended_views_from_rows(rows, layout)
+    return pull_view_from_rows(rows, layout), None
 
 
 def sparse_push(slab: torch.Tensor, leaves: Mapping[str, object],
@@ -440,13 +440,18 @@ def sparse_push(slab: torch.Tensor, leaves: Mapping[str, object],
 def make_train_step(model: torch.nn.Module, layout: ValueLayout,
                     table: TableConfig, dense_opt: torch.optim.Optimizer,
                     batch_size: int, num_slots: int,
+                    use_cvm: bool = True,
+                    async_dense: bool = False,
+                    compute_dtype: str = "float32",
                     push_write: str = "scatter",
                     block_rows: int = 1024,
-                    compute_dtype: str = "float32",
-                    wire: Callable[[], str] = lambda: "full",
-                    async_dense: bool = False) -> Callable:
+                    wire: Callable[[], str] = lambda: "full") -> Callable:
     """step(slab, batch, seed) -> (loss, preds), device tensors. Updates
-    ``slab`` and the model's parameters IN PLACE. ``batch`` is a
+    ``slab`` and the model's parameters IN PLACE. ``use_cvm``: the pool's
+    CVM columns (fused_seqpool_cvm); without them each slot pools to its
+    embed_w and embedx columns alone, and data_norm's summaries move on
+    that pool. The push is the same either way: the show and click
+    columns of the pull view get no gradient. ``batch`` is a
     device_batch dict; its push products pick the push (``sparse_push``,
     ``wire()`` the trainer's current wire). A ``use_expand`` model
     (models/nn_cross.py) gets the extended pull: its expand block
@@ -501,7 +506,8 @@ def make_train_step(model: torch.nn.Module, layout: ValueLayout,
         emb, valid = st["emb"], st["valid"]
         emb.requires_grad_(True)
         pooled = fused_seqpool_cvm(emb, segments, valid, batch_size,
-                                   num_slots, batch["n_valid"])
+                                   num_slots, use_cvm, sorted_segments=True,
+                                   n_valid=batch["n_valid"])
         pooled_exp = None
         if use_expand:
             st["exp"] = exp = st["exp"].clone().requires_grad_(True)
@@ -581,11 +587,12 @@ def _detach(preds: Preds) -> Preds:
 
 def make_eval_step(model: torch.nn.Module, layout: ValueLayout,
                    table: TableConfig, batch_size: int,
-                   num_slots: int, compute_dtype: str = "float32"
-                   ) -> Callable:
+                   num_slots: int, compute_dtype: str = "float32",
+                   use_cvm: bool = True) -> Callable:
     """eval_step(slab, batch) -> the main task's preds [batch_size] on the
-    device: the pull, fused seqpool+CVM, the forward and the sigmoid of
-    its (main task's) logits, and nothing that writes."""
+    device: the pull, fused seqpool+CVM (the CVM columns under
+    ``use_cvm``), the forward and the sigmoid of its (main task's)
+    logits, and nothing that writes."""
     padding_id = table.pass_capacity - 1
     use_expand = uses_expand(model)
     check_expand_config(model, layout, use_expand)
@@ -598,7 +605,8 @@ def make_eval_step(model: torch.nn.Module, layout: ValueLayout,
         with torch.no_grad():
             emb, exp = _pull(slab, ids, layout, use_expand)
             pooled = fused_seqpool_cvm(emb, segments, valid, batch_size,
-                                       num_slots, n_valid)
+                                       num_slots, use_cvm,
+                                       sorted_segments=True, n_valid=n_valid)
             pooled_exp = (seqpool_sum(exp, segments, valid, batch_size,
                                       num_slots, n_valid)
                           if use_expand else None)
@@ -638,7 +646,8 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
                     push_write: str = "scatter",
                     block_rows: int = 1024,
                     compute_dtype: str = "float32",
-                    wire: Callable[[], str] = lambda: "full") -> Callable:
+                    wire: Callable[[], str] = lambda: "full",
+                    use_cvm: bool = True) -> Callable:
     """chunk_step(slab, stacked, cpush, seed) -> (losses [C], preds [C,
     batch]): the chunk-synchronous sparse megastep (scan_chunk_fn,
     paddlebox_tpu/train/trainer.py:755-845). ONE pull of the chunk's C*K
@@ -652,7 +661,8 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
     by the wire, as ``sparse_push`` reads them, and n_uniq) with one
     seed. Updates ``slab`` and the model IN PLACE. A multi-task model's
     predictions stack by task; the merged push's clicks are the main
-    task's labels."""
+    task's labels. ``use_cvm``: the pool's CVM columns, as
+    make_train_step's."""
     if uses_data_norm(model):
         # reference trainer.py:748-752: the summaries move per batch on
         # the batch's pooled input
@@ -690,7 +700,7 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
         pooled = fused_seqpool_cvm(
             emb_live, torch.cat([seg[s] for s in live]),
             torch.cat([valid[s] for s in live]), C * batch_size, num_slots,
-            emb_live.shape[0])
+            use_cvm, sorted_segments=True)
         pooled_c = pooled.detach().view((C, batch_size) + pooled.shape[1:])
         losses, preds, dpooled = [], [], []
         # the dense model's per-batch leaves
@@ -725,12 +735,12 @@ def make_chunk_step(model: torch.nn.Module, layout: ValueLayout,
 def run_scan_chunks(scan_call: Callable, items, chunk: int,
                     stack_fn: Callable, carry,
                     on_chunk: Callable,
+                    timer: Optional[Timer] = None,
                     n_items: Optional[int] = None,
                     chunk1_ok: bool = False,
                     prefetch_depth: int = 0,
                     transfer_group: int = 1,
-                    group_fn: Optional[Callable] = None,
-                    timer: Optional[Timer] = None):
+                    group_fn: Optional[Callable] = None):
     """Drive ``scan_call`` over the full chunks of ``items``, double
     buffered: chunk i+1 is staged and queued BEFORE chunk i's results come
     back to the host, so staging and the drain of results overlap device
@@ -951,7 +961,8 @@ class BoxTrainer(BatchOutputs):
     def __init__(self, model: torch.nn.Module, table_cfg: TableConfig,
                  feed: DataFeedConfig,
                  trainer_cfg: Optional[TrainerConfig] = None,
-                 seed: int = 0,
+                 seed: int = 0, use_cvm: bool = True,
+                 aux_source=None,
                  flags: Optional[PushFlags] = None,
                  device: DeviceLike = None,
                  pass_flags: Optional[PassFlags] = None,
@@ -959,9 +970,12 @@ class BoxTrainer(BatchOutputs):
                  stage_flags: Optional[StageFlags] = None,
                  dtype_flags: Optional[DtypeFlags] = None,
                  obs_flags: Optional[ObsFlags] = None,
-                 aux_source=None,
                  host_flags: Optional[HostFlags] = None) -> None:
-        """``store``: the table's host store (PassTable's default, the
+        """``use_cvm`` (the reference's, trainer.py:920): the pool's CVM
+        columns in the train step, the chunk step, eval and data_norm's
+        summaries; False pools each slot to its embed_w and embedx
+        columns, so the model's ``slot_dim`` is 1 + embedx. ``store``: the
+        table's host store (PassTable's default, the
         native one, when None). ``stage_flags``: the chunk driver's
         staging, read at the start of every pass (``self.stage_flags`` may
         be replaced between passes). ``dtype_flags``: the slab's storage
@@ -1056,11 +1070,13 @@ class BoxTrainer(BatchOutputs):
         def wire() -> str:
             return self.stage_flags.wire
 
+        self.use_cvm = bool(use_cvm)
         self.step_fn = make_train_step(
             self.model, self.table.layout, table_cfg, self.dense_opt,
-            feed.batch_size, self.num_slots, push_write=self.push_write,
-            block_rows=self.flags.push_block_rows, compute_dtype=cdtype,
-            wire=wire, async_dense=self.async_mode)
+            feed.batch_size, self.num_slots, self.use_cvm,
+            async_dense=self.async_mode, compute_dtype=cdtype,
+            push_write=self.push_write,
+            block_rows=self.flags.push_block_rows, wire=wire)
         self.step_stages = self.step_fn.stages
         # async mode: the dense state lives in the host table; each step
         # pulls the parameters and data_norm's summaries from it (the
@@ -1078,11 +1094,12 @@ class BoxTrainer(BatchOutputs):
             self.model, self.table.layout, table_cfg, self.dense_opt,
             feed.batch_size, self.num_slots, push_write=self.push_write,
             block_rows=self.flags.push_block_rows, compute_dtype=cdtype,
-            wire=wire)
+            wire=wire, use_cvm=self.use_cvm)
             if self.cfg.sparse_chunk_sync else None)
         self.eval_fn = make_eval_step(self.model, self.table.layout,
                                       table_cfg, feed.batch_size,
-                                      self.num_slots, compute_dtype=cdtype)
+                                      self.num_slots, compute_dtype=cdtype,
+                                      use_cvm=self.use_cvm)
         # the staging pool (threads, executor) and the pinned ring, made at
         # first use
         self._stage_pool: Tuple[int, Optional[ThreadPoolExecutor]] = (0,
@@ -1469,7 +1486,8 @@ class BoxTrainer(BatchOutputs):
         extra = {"event": "pass_end", "loss": round(mean_loss, 6),
                  "auc": {m.name: float(m.calculator.auc())
                          for m in self.metrics.messages()}}
-        quality.attach_pass_extras(extra, self.quality, self.drift)
+        quality.attach_pass_extras(extra, self.quality,
+                                   monitor=self.drift)
         self.reporter.maybe_report(self._step_count, force=True, extra=extra)
         if self.cfg.profile:
             obs_log.info(timer_report(self.timers, prefix="trainer."))

@@ -736,7 +736,7 @@ def sharded_pipeline_rank(rank, world, port, spec):
     from paddlebox_tpu_torch.ps import TcpPSClient
     from sharded_cluster import GROUP_TIMEOUT_S
     fl = Fleet().init(RoleMaker(rank, world, "127.0.0.1:%d" % port))
-    fl.init_distributed("cpu", timeout=GROUP_TIMEOUT_S)
+    fl.init_distributed(GROUP_TIMEOUT_S, device="cpu")
     out = {}
     try:
         if spec.get("refusal"):

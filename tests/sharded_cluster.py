@@ -419,7 +419,7 @@ def _run_rank(rank, world, port, spec):
     def join(run_id):
         os.environ["PBTPU_RUN_ID"] = run_id
         fl = Fleet().init(RoleMaker(rank, world, "127.0.0.1:%d" % port))
-        fl.init_distributed("cpu", timeout=GROUP_TIMEOUT_S)
+        fl.init_distributed(GROUP_TIMEOUT_S, device="cpu")
         return fl
 
     fl = join("0")
@@ -747,5 +747,5 @@ def assert_same_run(a, b):
 
 def world_one():
     fl = Fleet().init(RoleMaker(0, 1))
-    fl.init_distributed("cpu", timeout=GROUP_TIMEOUT_S)
+    fl.init_distributed(GROUP_TIMEOUT_S, device="cpu")
     return fl

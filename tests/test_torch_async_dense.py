@@ -238,7 +238,8 @@ def data(tmp_path_factory):
         vocab_per_slot=60, max_len=3, dense_dim=DENSE, seed=7)
     jfeed = dataclasses.replace(feed, batch_size=BATCH)
     pfeed = DataFeedConfig(
-        slots=tuple(SlotConfig(s.name, s.type, s.is_used, s.max_len, s.dim)
+        slots=tuple(SlotConfig(s.name, s.type, is_used=s.is_used,
+                               max_len=s.max_len, dim=s.dim)
                     for s in feed.slots), batch_size=BATCH)
     return files, jfeed, pfeed
 

@@ -382,7 +382,8 @@ def jdata(tmp_path_factory):
         vocab_per_slot=60, max_len=3, seed=7)
     jfeed = type(feed)(slots=feed.slots, batch_size=BATCH)
     pfeed = DataFeedConfig(
-        slots=tuple(SlotConfig(s.name, s.type, s.is_used, s.max_len)
+        slots=tuple(SlotConfig(s.name, s.type, is_used=s.is_used,
+                               max_len=s.max_len)
                     for s in feed.slots), batch_size=BATCH)
     return files, jfeed, pfeed
 

@@ -154,7 +154,8 @@ def data(tmp_path_factory):
         vocab_per_slot=60, max_len=MAX_LEN, seed=7)
     jfeed = type(feed)(slots=feed.slots, batch_size=BATCH)
     pfeed = DataFeedConfig(
-        slots=tuple(SlotConfig(s.name, s.type, s.is_used, s.max_len)
+        slots=tuple(SlotConfig(s.name, s.type, is_used=s.is_used,
+                               max_len=s.max_len)
                     for s in feed.slots), batch_size=BATCH)
     return files, jfeed, pfeed
 
@@ -274,7 +275,8 @@ def flagship_cut(tmp_path_factory):
         seed=f.data_seed, **FLAGSHIP_CUT)
     jfeed = type(feed)(slots=feed.slots, batch_size=f.batch)
     pfeed = DataFeedConfig(
-        slots=tuple(SlotConfig(s.name, s.type, s.is_used, s.max_len)
+        slots=tuple(SlotConfig(s.name, s.type, is_used=s.is_used,
+                               max_len=s.max_len)
                     for s in feed.slots), batch_size=f.batch)
     return files, jfeed, pfeed
 

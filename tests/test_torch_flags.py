@@ -237,7 +237,9 @@ def small_files(tmp_path_factory):
         str(out), num_files=1, lines_per_file=40, num_slots=3,
         vocab_per_slot=30, max_len=2, seed=5)
     pfeed = configs.DataFeedConfig(
-        slots=tuple(configs.SlotConfig(s.name, s.type, s.is_used, s.max_len)
+        slots=tuple(configs.SlotConfig(s.name, s.type,
+                                       is_used=s.is_used,
+                                       max_len=s.max_len)
                     for s in feed.slots), batch_size=8)
     return files, feed, pfeed
 

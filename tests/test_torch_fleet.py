@@ -54,7 +54,7 @@ def _rank_main(rank, world, port, out_dir):
     path = os.path.join(out_dir, "rank%d" % rank)
     try:
         fl = Fleet().init(RoleMaker(rank, world, "127.0.0.1:%d" % port))
-        mesh = fl.init_distributed("cpu", timeout=GROUP_TIMEOUT_S)
+        mesh = fl.init_distributed(GROUP_TIMEOUT_S, device="cpu")
         out = {"world": mesh.world, "rank": mesh.rank,
                "backend": mesh.backend}
         out["gather"] = fl.all_gather(gather_part(rank))
@@ -196,7 +196,7 @@ def test_world_one_in_process_and_no_cpu_fallback(monkeypatch):
     fl = Fleet().init(RoleMaker(0, 1))
     with pytest.raises(RuntimeError, match="init_distributed"):
         fl.all_gather(np.zeros(1))
-    mesh = fl.init_distributed("cpu", timeout=GROUP_TIMEOUT_S)
+    mesh = fl.init_distributed(GROUP_TIMEOUT_S, device="cpu")
     try:
         assert (mesh.world, mesh.rank, mesh.backend) == (1, 0, "gloo")
         parts = fl.all_gather(np.array([3, 4], np.int16))
@@ -230,7 +230,7 @@ import torch
 torch.set_num_threads(1)
 from paddlebox_tpu_torch.fleet.fleet import fleet
 fleet.init()
-fleet.init_distributed("cpu", timeout=30)
+fleet.init_distributed(30, device="cpu")
 total = fleet.all_reduce(np.array([fleet.worker_index() + 1]), "sum")
 with open(os.path.join({out!r}, "r%d" % fleet.worker_index()), "w") as fh:
     fh.write("%d %d %s" % (fleet.worker_num(), int(total[0]),

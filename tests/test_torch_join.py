@@ -158,7 +158,9 @@ def test_preprocess_instance_and_pack_pv_batch_match_jax(merge_by_sid):
 def _feed_pair(rank_offset=True, batch=BATCH):
     slots = tuple((f"s{i}", "uint64", True, MAX_LEN)
                   for i in range(NUM_SLOTS))
-    ours = DataFeedConfig(slots=tuple(SlotConfig(*s) for s in slots),
+    ours = DataFeedConfig(slots=tuple(SlotConfig(n, t, is_used=u,
+                                                 max_len=m)
+                                      for n, t, u, m in slots),
                           batch_size=batch, rank_offset=rank_offset)
     theirs = JFeed(slots=tuple(JSlot(name=n, type=t, is_used=u, max_len=m)
                                for n, t, u, m in slots),

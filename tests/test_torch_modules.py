@@ -57,7 +57,8 @@ MAX_LEN = 3
 
 def _port_feed(jfeed, batch_size=BATCH):
     return DataFeedConfig(
-        slots=tuple(SlotConfig(s.name, s.type, s.is_used, s.max_len)
+        slots=tuple(SlotConfig(s.name, s.type, is_used=s.is_used,
+                               max_len=s.max_len)
                     for s in jfeed.slots), batch_size=batch_size)
 
 
@@ -250,7 +251,7 @@ def test_fused_seqpool_cvm_forward_and_grad(use_cvm, tail):
     e = torch.from_numpy(emb).requires_grad_(True)
     out = seqpool.fused_seqpool_cvm(
         e, torch.from_numpy(segments), torch.from_numpy(valid), B, S,
-        int(valid.sum()), use_cvm=use_cvm)
+        use_cvm=use_cvm, sorted_segments=True, n_valid=int(valid.sum()))
     (out * torch.from_numpy(cot)).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
                                rtol=1e-6, atol=1e-7)

@@ -151,8 +151,8 @@ def _jax_feed(pfeed):
 
 def _with_max_len(feed, max_len, batch=BATCH):
     return DataFeedConfig(slots=tuple(
-        SlotConfig(s.name, s.type, s.is_used,
-                   max_len if s.type == "uint64" else s.max_len)
+        SlotConfig(s.name, s.type, is_used=s.is_used,
+                   max_len=max_len if s.type == "uint64" else s.max_len)
         for s in feed.slots), batch_size=batch)
 
 

@@ -111,7 +111,8 @@ def files(tmp_path_factory):
         str(out), num_files=2, lines_per_file=96, num_slots=NUM_SLOTS,
         vocab_per_slot=60, max_len=3, seed=7)
     pfeed = DataFeedConfig(
-        slots=tuple(SlotConfig(s.name, s.type, s.is_used, s.max_len)
+        slots=tuple(SlotConfig(s.name, s.type, is_used=s.is_used,
+                               max_len=s.max_len)
                     for s in feed.slots), batch_size=BATCH)
     return paths, dataclasses.replace(feed, batch_size=BATCH), pfeed
 
@@ -610,7 +611,7 @@ def test_exporter_endpoints_and_schemas_as_reference(files, tmp_path):
     held.listen(1)
     try:
         port = held.getsockname()[1]
-        assert exporter.ensure_from_flags(ObsFlags(obs_http_port=port)) \
+        assert exporter.ensure_from_flags(flags=ObsFlags(obs_http_port=port)) \
             is None
         assert stats.stat_get("log_warning_lines") >= 1
     finally:

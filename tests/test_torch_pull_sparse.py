@@ -9,7 +9,10 @@ from zero, which is the order of XLA's scatter-add on the CPU: exact at
 tests/test_ops.py:82-114's cases and at a batch with many duplicates,
 and exact against index_add_ (the plain scatter-add) on the same
 cotangent; an id past the slab adds nothing, as the reference's scatter
-drops it. A bf16 layout is refused, as the reference's :124-130.
+drops it. A negative id follows JAX's indexing in both directions: one
+in [-C, 0) reads and adds to row C + id, one below -C reads row 0 (the
+gather's clamp) and adds nothing (the scatter's drop). A bf16 layout is
+refused, as the reference's :124-130.
 """
 
 import jax
@@ -103,6 +106,44 @@ def test_gradient_at_a_batch_with_duplicates():
     empty = pull_view_grad(torch.zeros(0, dtype=torch.int32),
                            torch.zeros(0, 3 + D), slab.shape, LAYOUT)
     assert not empty.any()
+
+
+NEGATIVE_IDS = {
+    # slab [8, 13]: the reference reads row C + id for id in [-C, 0)
+    "wrap": np.array([1, -1, 3, 1], np.int32),
+    # below -C: JAX's gather clamps to row 0, its scatter drops the id
+    "below": np.array([1, -1, 3, 1, -8, -9, -100, 8, 100, -2 ** 31,
+                       2 ** 31 - 1], np.int32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NEGATIVE_IDS))
+def test_negative_ids_follow_the_reference(case):
+    """pull_sparse and pull_sparse_differentiable at negative ids against
+    the reference's pull_sparse and its custom VJP: the forward and the
+    slab gradient bit for bit, and pull_view_grad against the reference's
+    backward for a random cotangent."""
+    rng = np.random.RandomState(5)
+    slab = rng.rand(8, LAYOUT.width).astype(np.float32)
+    assert slab.shape == (8, 13)
+    ids = NEGATIVE_IDS[case]
+    want = np.asarray(jsparse.pull_sparse(jnp.asarray(slab),
+                                          jnp.asarray(ids), JLAYOUT))
+    s, i = torch.from_numpy(slab), torch.from_numpy(ids)
+    np.testing.assert_array_equal(pull_sparse(s, i, LAYOUT).numpy(), want)
+    np.testing.assert_array_equal(
+        pull_sparse_differentiable(s, i, LAYOUT).detach().numpy(), want)
+    np.testing.assert_array_equal(want[1], pull_sparse(
+        s, torch.tensor([7], dtype=torch.int32), LAYOUT).numpy()[0])
+    g, jg = _grads(slab, ids)
+    np.testing.assert_array_equal(g, jg)
+    assert g[7, acc.EMBED_W] != 0       # id -1 adds to row 7
+    d_out = rng.randn(ids.shape[0], 3 + D).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: jsparse.pull_sparse_differentiable(
+        t, jnp.asarray(ids), JLAYOUT), jnp.asarray(slab))
+    (jd,) = vjp(jnp.asarray(d_out))
+    got = pull_view_grad(i, torch.from_numpy(d_out), slab.shape, LAYOUT)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jd))
 
 
 def test_bf16_layout_is_refused():

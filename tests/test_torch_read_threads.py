@@ -8,7 +8,7 @@ cross-host shuffle's partition. A slow first file (its parse delayed) is
 still merged first. One failing file raises RuntimeError("dataset load
 failed") and leaves no reader thread running. The JAX dataset at
 read_threads=1 loads what the port's does at 4. The default is the
-reference's, 4.
+reference's, 4, and 0 or -1 read with one thread, as in the reference.
 """
 
 import gzip
@@ -97,10 +97,15 @@ def no_reader_threads():
 
 
 def test_default_is_four_and_zero_is_refused(files):
-    _, feed = files
+    """The default is the reference's 4; read_threads 0 and -1 read with
+    one thread, as the reference's max(1, read_threads) does: each loads
+    byte for byte what read_threads=1 loads."""
+    paths, feed = files
     assert BoxDataset(feed).read_threads == 4
-    with pytest.raises(ValueError, match="read_threads"):
-        BoxDataset(feed, read_threads=0)
+    want = signature(*load(feed, paths, 1))
+    for n in (0, -1):
+        assert signature(*load(feed, paths, n)) == want, n
+    assert no_reader_threads()
 
 
 @pytest.mark.parametrize("kind", ["columnar", "record", "gz"])

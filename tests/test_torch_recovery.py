@@ -97,7 +97,8 @@ def data(tmp_path_factory):
         vocab_per_slot=50, max_len=3, seed=23)
     jfeed = type(feed)(slots=feed.slots, batch_size=32)
     pfeed = DataFeedConfig(
-        slots=tuple(SlotConfig(s.name, s.type, s.is_used, s.max_len)
+        slots=tuple(SlotConfig(s.name, s.type, is_used=s.is_used,
+                               max_len=s.max_len)
                     for s in feed.slots), batch_size=32)
     return [files[2 * p:2 * p + 2] for p in range(3)], jfeed, pfeed
 

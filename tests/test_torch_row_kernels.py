@@ -24,6 +24,7 @@ from paddlebox_tpu.embedding.accessor import ValueLayout as JLayout
 from paddlebox_tpu.ops import sparse as jsparse
 
 from paddlebox_tpu_torch import edge_cases, rate_probe
+from paddlebox_tpu_torch.embedding.accessor import ValueLayout
 from paddlebox_tpu_torch.native.kernel_args import use_kernel
 from paddlebox_tpu_torch.ops import row_kernels as rk
 from paddlebox_tpu_torch.ops import sparse
@@ -168,6 +169,26 @@ def test_plain_gather_matches_jax_pull_with_clamp():
     np.testing.assert_array_equal(_bits(sparse.gather_slab_rows(s, i)
                                         .numpy()), _bits(want))
     np.testing.assert_array_equal(np.asarray(want)[3], slab[C - 1])
+    # a negative id reads row 0, so no int32 id reads outside the slab:
+    # JAX's clamped gather of the ids clamped below; the public pull
+    # first wraps [-C, 0) to C + id, as JAX's indexing does
+    neg = ids.copy()
+    neg[1], neg[2], neg[4] = -1, -C, -C - 1
+    neg[5], neg[6] = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    want = jsparse.gather_slab_rows(jnp.asarray(slab),
+                                    jnp.asarray(np.maximum(neg, 0)), layout)
+    i = torch.from_numpy(neg)
+    np.testing.assert_array_equal(_bits(rk.gather_rows_plain(s, i).numpy()),
+                                  _bits(want))
+    np.testing.assert_array_equal(_bits(rk.gather_rows(s, i).numpy()),
+                                  _bits(want))
+    np.testing.assert_array_equal(np.asarray(want)[[1, 2, 4, 5]],
+                                  slab[[0, 0, 0, 0]])
+    tl = ValueLayout(D, "adagrad")
+    np.testing.assert_array_equal(
+        _bits(sparse.pull_sparse(s, i, tl).numpy()),
+        _bits(jsparse.pull_sparse(jnp.asarray(slab), jnp.asarray(neg),
+                                  layout)))
 
 
 GATHER_CASES = edge_cases.gather_edge_cases()
@@ -337,6 +358,27 @@ def test_cuda_scale_copy_matches_plain(cuda_device, case):
     assert rk.scale_copy.launches == before + 1
     assert torch.equal(got.view(torch.int32),
                        rk.scale_copy_plain(x).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_gather_rows_negative_ids_match_plain(cuda_device):
+    """Negative ids ([-C, 0), below -C, the int32 extremes) on the f32 and
+    2-byte kernels: row 0 for every negative id, bit-equal to the plain
+    version."""
+    rng = np.random.RandomState(31)
+    C = 3000
+    ids = rng.randint(-2 * C, C + 40, 4097).astype(np.int32)
+    ids[:2] = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    i = torch.from_numpy(ids).to(cuda_device)
+    for src in (torch.from_numpy(rng.rand(C, 17).astype(np.float32)),
+                torch.from_numpy(rng.randint(-2 ** 15, 2 ** 15, (C, 25))
+                                 .astype(np.int16))):
+        src = src.to(cuda_device)
+        got = rk.gather_rows(src, i)
+        torch.cuda.synchronize()
+        assert torch.equal(got, rk.gather_rows_plain(src, i))
+        assert torch.equal(got[i < 0], src[0].expand(int((i < 0).sum()),
+                                                     -1))
 
 
 @pytest.mark.cuda

@@ -228,7 +228,7 @@ def test_world_one_stream_equals_the_single_device_stream(data, tmp_path):
 def join(rank, world, port, timeout=GROUP_TIMEOUT_S):
     os.environ["PBTPU_RUN_ID"] = "0"
     fl = Fleet().init(RoleMaker(rank, world, "127.0.0.1:%d" % port))
-    fl.init_distributed("cpu", timeout=timeout)
+    fl.init_distributed(timeout, device="cpu")
     return fl
 
 

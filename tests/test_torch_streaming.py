@@ -120,7 +120,8 @@ def data(tmp_path_factory):
                 fh.write(_poison_line(line) + "\n")
     jfeed = dataclasses.replace(feed, batch_size=BATCH)
     pfeed = DataFeedConfig(
-        slots=tuple(SlotConfig(s.name, s.type, s.is_used, s.max_len)
+        slots=tuple(SlotConfig(s.name, s.type, is_used=s.is_used,
+                               max_len=s.max_len)
                     for s in feed.slots), batch_size=BATCH)
     return files, poison, jfeed, pfeed
 

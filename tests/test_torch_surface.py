@@ -11,6 +11,17 @@ case until it is ported or declined; a declined name the port has since
 ported, or the reference no longer has, fails too. ROADMAP.md A lists
 the same declined names.
 
+Then the parameters: for every public function, every public class's
+__init__ (a dataclass's fields) and every public method of the
+reference that the port defines under the same path (or imports there
+from another port module), each reference parameter has a counterpart
+of the same name, a positional one at the reference's position (so a
+positional call means the same in both), or stands in DECLINED_PARAMS
+with the reason, keyed "module path:qualified name:parameter". Extra
+parameters of the port after the reference's are free. A declined
+parameter the port has since put in place, or the reference no longer
+takes, fails its module's case too.
+
 Then the package-level names resolve at run time, the lazy packages
 (data, embedding, train) and serving import no torch, and the fenced
 block under "Quickstart (port)" in README.md runs as written on the CPU
@@ -155,6 +166,124 @@ DECLINED = {
 }
 
 
+_PUSH_ARGS = ("the push's arguments of the fused kernel: an int ``seed`` "
+              "(the kernel's creation hash) for the JAX PRNG key, the host "
+              "dedup's n_valid, segment offsets and n_uniq in the places of "
+              "inv_sorted and first_idx, and no pulled rows (the kernel "
+              "reads each unique's slab row itself); the other arguments "
+              "keep their names after them")
+_MODULE_PARAMS = ("a JAX params pytree or PRNG key: a port model is a "
+                  "torch.nn.Module that holds its parameters (drawn from a "
+                  "torch.Generator), so its methods take none and an "
+                  "initializer takes the module or an int seed")
+_GROUP = ("a jax mesh or mesh axis name: the port's collectives run over a "
+          "torch.distributed process group passed in its place (group=, "
+          "dp_group=; ShardMesh, AxisMesh)")
+_SOCKET_MESH = ("the reference's p2p socket mesh: the port has none; its "
+                "host plane is the gloo group of Fleet.make_mesh_comm and "
+                "its reports ride the KV store's StoreObsTransport "
+                "(ROADMAP.md C)")
+
+
+def _each(callable_key, params, reason):
+    return {"%s:%s" % (callable_key, p): reason for p in params}
+
+
+# "module path:qualified name:parameter" -> why the port's counterpart has
+# no such parameter at the reference's position
+DECLINED_PARAMS = {
+    **_each("embedding/optimizers.py:push_sparse_dedup",
+            ["grads", "prng", "layout", "conf"], _PUSH_ARGS),
+    **_each("embedding/optimizers.py:push_sparse_hostdedup",
+            ["inv_sorted", "grads", "prng", "layout", "conf", "pulled_rows",
+             "first_idx", "write"], _PUSH_ARGS),
+    **_each("embedding/optimizers.py:push_sparse_uidwire",
+            ["grads", "prng", "layout", "conf", "pulled_rows", "write"],
+            _PUSH_ARGS),
+    **_each("embedding/optimizers.py:push_sparse_rebuild",
+            ["inv_sorted", "grads", "prng", "layout", "conf", "pulled_rows",
+             "first_idx"], _PUSH_ARGS),
+    **_each("fleet/fleet.py:Fleet.init", ["server", "client"],
+            "the reference's own KV store server and client: the port's "
+            "fleet rendezvouses through a torch.distributed store "
+            "(Fleet.init(store=), a FileStore or TCPStore; default the "
+            "role's endpoint)"),
+    **_each("fleet/fleet.py:Fleet.make_shuffler", ["mesh"], _SOCKET_MESH),
+    **_each("fleet/mesh_comm.py:MeshComm.__init__", ["host", "op_timeout"],
+            "the reference's socket mesh listens on ``host`` and times each "
+            "op: the port's exchange is a gloo group (group=, its timeout "
+            "the fleet's, Fleet.init_distributed(timeout))"),
+    **_each("models/bst.py:BstSeqCtr.seq_feature_local",
+            ["p", "emb_chunk", "valid_chunk", "axis"],
+            _MODULE_PARAMS + "; " + _GROUP),
+    **_each("models/bst.py:BstSeqCtr.head_apply", ["p", "pooled", "seq_feat"],
+            _MODULE_PARAMS),
+    **_each("models/bst.py:BstSeqCtr.oracle_logits",
+            ["p", "pooled", "emb_seq", "seq_valid"], _MODULE_PARAMS),
+    **_each("models/ctr_dnn.py:CtrDnn.update_summary",
+            ["params", "pooled", "dense"], _MODULE_PARAMS),
+    **_each("models/layers.py:mlp_init", ["rng"], _MODULE_PARAMS),
+    **_each("models/layers.py:mlp_apply", ["params"], _MODULE_PARAMS),
+    **_each("models/wide_tower.py:TpDeepFM.apply_local", ["axis"], _GROUP),
+    **_each("models/wide_tower.py:EpMMoE.apply_local", ["axis"], _GROUP),
+    **_each("obs/__init__.py:make_cluster_aggregator",
+            ["mesh", "fleet", "rank", "world"], _SOCKET_MESH),
+    **_each("obs/aggregate.py:make_transport", ["mesh", "fleet"],
+            _SOCKET_MESH),
+    **_each("parallel/mesh.py:init_distributed",
+            ["coordinator", "world", "rank"],
+            "jax.distributed's coordinator address: the port's process "
+            "group is for a device (its first argument) and rendezvouses "
+            "through a torch store (store=)"),
+    **_each("parallel/mesh.py:device_mesh_2d",
+            ["n_nodes", "chips_per_node", "node_axis", "chip_axis"],
+            "a jax device mesh with named axes: the port's (node, chip) "
+            "view is made from the rank's ShardMesh (its first argument), "
+            "the node axis its node_group"),
+    **_each("parallel/mesh_tower.py:MeshTowerTrainer.__init__", ["mesh"],
+            _GROUP),
+    **_each("parallel/pipeline.py:init_stage_params", ["rng"],
+            _MODULE_PARAMS),
+    **_each("parallel/pipeline.py:dn_summary_apply", ["dp_axis"], _GROUP),
+    **_each("parallel/ring_attention.py:ring_attention", ["axis_name"],
+            _GROUP),
+    **_each("parallel/ring_attention.py:ulysses_attention", ["axis_name"],
+            _GROUP),
+    **_each("parallel/seq_trainer.py:SeqCtrTrainer.__init__", ["mesh"],
+            _GROUP),
+    **_each("parallel/sharded_table.py:exchange_push_uids_p2p",
+            ["pool", "policy"],
+            "the reference's staging thread pool: the port's exchange "
+            "routes on the calling thread, so ``policy`` follows ``mesh``"),
+    **_each("parallel/sharded_table.py:stage_push_dedup",
+            ["buckets", "local_positions", "num_devices", "shard_cap",
+             "multiprocess", "all_gather", "rebuild", "pool", "note_touched",
+             "uid_only", "mesh", "sort_uids", "policy"],
+            "the reference bucketizes, exchanges and dedups a step's push "
+            "in one call over every source's buckets; the port's exchange "
+            "(exchange_incoming_p2p) gives each rank its incoming ids, "
+            "which this function dedups (ROADMAP.md C)"),
+    **_each("parallel/sharded_trainer.py:ShardedBoxTrainer.shard_batches",
+            ["per_worker"],
+            "the per-worker batch lists of the reference's one-process "
+            "mesh: a port process stages its own rank's batches"),
+    **_each("parallel/tensor_parallel.py:tp_mlp_apply", ["axis"], _GROUP),
+    **_each("parallel/tensor_parallel.py:tp_loss_scale", ["axis"], _GROUP),
+    **_each("parallel/tensor_parallel.py:tp_fix_grads", ["axis"], _GROUP),
+    **_each("parallel/tensor_parallel.py:ep_gate_psum", ["axis"], _GROUP),
+    **_each("parallel/tensor_parallel.py:ep_experts_apply", ["axis"],
+            _GROUP),
+    **_each("train/trainer.py:make_scan", ["extra_carry"],
+            "lax.scan's extra carried state: the port's scan is a loop "
+            "over the step function, whose state lives in the trainer"),
+    **_each("train/trainer.py:make_train_step", ["sparse_chunk"],
+            "the chunk-synchronous step is make_chunk_step of its own"),
+    **_each("train/trainer.py:make_train_step", ["uid_write"],
+            "the uid wire's write: the port's step takes push_write and "
+            "wire() (StageFlags.wire)"),
+}
+
+
 def _targets(node):
     targets = node.targets if isinstance(node, ast.Assign) else [node.target]
     return [n.id for t in targets for n in ast.walk(t)
@@ -235,6 +364,128 @@ def test_declined_modules_exist_and_roadmap_lists_them():
         assert mod in MODULES, key
         assert "`%s`" % name in roadmap, ("ROADMAP.md A does not list the "
                                           "declined %s" % key)
+
+
+def _is_dataclass(node):
+    for d in node.decorator_list:
+        f = d.func if isinstance(d, ast.Call) else d
+        if getattr(f, "id", getattr(f, "attr", None)) == "dataclass":
+            return True
+    return False
+
+
+def _params(fn, method):
+    """(positional parameter names, keyword-only names) of a def; a
+    method's self or cls left out."""
+    a = fn.args
+    pos = [x.arg for x in a.posonlyargs + a.args]
+    static = any(getattr(d, "id", None) == "staticmethod"
+                 for d in fn.decorator_list)
+    if method and not static and pos and pos[0] in ("self", "cls"):
+        pos = pos[1:]
+    return pos, [x.arg for x in a.kwonlyargs]
+
+
+def _is_property(fn):
+    return any(getattr(d, "id", None) == "property"
+               or getattr(d, "attr", None) in ("setter", "getter", "deleter")
+               for d in fn.decorator_list)
+
+
+def signatures(path):
+    """name -> (positional names, keyword-only names) of a source file's
+    public functions, public classes' ``Class.__init__`` (a dataclass's
+    init fields when it defines none) and public methods
+    (``Class.method``), by AST; with its ``from paddlebox_tpu_torch...``
+    imports as a second dict, name -> (module, name)."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out, imports = {}, {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            if not node.name.startswith("_"):
+                out[node.name] = _params(node, False)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            for b in node.body:
+                if not isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    continue
+                if b.name == "__init__" or (not b.name.startswith("_")
+                                            and not _is_property(b)):
+                    out["%s.%s" % (node.name, b.name)] = _params(b, True)
+            if "%s.__init__" % node.name not in out and _is_dataclass(node):
+                out["%s.__init__" % node.name] = ([
+                    b.target.id for b in node.body
+                    if isinstance(b, ast.AnnAssign)
+                    and isinstance(b.target, ast.Name)
+                    and "ClassVar" not in ast.dump(b.annotation)
+                    and not (isinstance(b.value, ast.Call) and any(
+                        k.arg == "init" and getattr(k.value, "value", True)
+                        is False for k in b.value.keywords))], [])
+        elif isinstance(node, ast.ImportFrom) and (node.module or "") \
+                .startswith("paddlebox_tpu_torch"):
+            for a in node.names:
+                imports[a.asname or a.name] = (node.module, a.name)
+    return out, imports
+
+
+def port_signature(rel, key, hops=3):
+    """The port's counterpart of the reference's ``key`` in module
+    ``rel``: defined there, or imported there from another port module
+    (followed up to ``hops`` times); None where the port has none."""
+    path = os.path.join(PORT, rel)
+    if not os.path.exists(path):
+        return None
+    sigs, imports = signatures(path)
+    if key in sigs:
+        return sigs[key]
+    head, _, rest = key.partition(".")
+    if head not in imports or not hops:
+        return None
+    module, name = imports[head]
+    base = os.path.join(REPO, *module.split("."))
+    target = (base + ".py" if os.path.exists(base + ".py")
+              else os.path.join(base, "__init__.py"))
+    return port_signature(os.path.relpath(target, PORT),
+                          name + ("." + rest if rest else ""), hops - 1)
+
+
+@pytest.mark.parametrize("rel", MODULES)
+def test_every_reference_parameter_is_ported_or_declined(rel):
+    """Each reference parameter of a callable the port has: a positional
+    one at the reference's position in the port, a keyword-only one
+    under its name; or declined with a reason."""
+    ref, _ = signatures(os.path.join(REF, rel))
+    missing, placed, seen = [], [], set()
+    for key, (rpos, rkw) in sorted(ref.items()):
+        port = port_signature(rel, key)
+        if port is None:
+            continue
+        ppos, pkw = port
+        checks = [(p, i < len(ppos) and ppos[i] == p)
+                  for i, p in enumerate(rpos)]
+        checks += [(p, p in ppos or p in pkw) for p in rkw]
+        for p, ok in checks:
+            k = "%s:%s:%s" % (rel, key, p)
+            seen.add(k)
+            if k in DECLINED_PARAMS:
+                if ok:
+                    placed.append(k)
+            elif not ok:
+                missing.append("%s(%s) port %s" % (key, p, ppos + pkw))
+    assert not missing, ("%s: parameters with no counterpart at the "
+                         "reference's position and no reason: %s"
+                         % (rel, missing))
+    assert not placed, "%s: declines parameters the port has: %s" % (
+        rel, placed)
+    stale = sorted(k for k in DECLINED_PARAMS
+                   if k.split(":")[0] == rel and k not in seen)
+    assert not stale, ("%s: declines parameters the reference does not "
+                       "take: %s" % (rel, stale))
+
+
+def test_declined_params_name_reference_modules():
+    for key, reason in DECLINED_PARAMS.items():
+        assert key.split(":")[0] in MODULES and reason, key
 
 
 PACKAGES = sorted(rel for rel in MODULES if rel.endswith("__init__.py"))

@@ -323,7 +323,8 @@ def data(tmp_path_factory):
         conversion=True)
     jfeed = dataclasses.replace(feed, batch_size=BATCH)
     pfeed = DataFeedConfig(
-        slots=tuple(SlotConfig(s.name, s.type, s.is_used, s.max_len, s.dim)
+        slots=tuple(SlotConfig(s.name, s.type, is_used=s.is_used,
+                               max_len=s.max_len, dim=s.dim)
                     for s in feed.slots), batch_size=BATCH,
         task_label_slots=feed.task_label_slots)
     return files, jfeed, pfeed
