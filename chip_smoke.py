@@ -34,10 +34,14 @@ Phases, each of which raises on a failed check (exit code != 0):
      for W 1, 17, 32, 33 and 128 from aligned and unaligned sources,
      blocked_write with permuted sources, sentinel slots, a full slot, B
      100 to 4096, NB 1, an unaligned row map, in either slot order) and
-     over many tiles a persistent block (2^20 ids; 6,000 slots of 512
-     lanes); the push kernels' kernel, plain, library and bound times (the
-     fused push timed rows out, so that repeated launches do not compound
-     the update), and gather_rows' at the promote and write-back shapes;
+     over many tiles (2^20 ids; 6,000 slots of 512 lanes; 410,407 rows of
+     a 2^20 x 17 slab in 1024 slots, a step of 8 flagship batches'
+     density, one run of sources a tile and permuted); the push kernels'
+     kernel, plain, library and bound times (the fused push timed rows
+     out, so that repeated launches do not compound the update;
+     blocked_write against index_copy_ of the same rows in BLOCKED_ROUNDS
+     rounds of A, B, B, A, medians), and gather_rows' at the promote and
+     write-back shapes;
   5. the main path at full width: two BoxTrainer.train_pass calls of the
      flagship configuration (paddlebox_tpu_torch/train/flagship.py: DeepFM
      hidden 512-256-128, 32 slots, batch 1024, max_len 4, embedx 8, 2^20-row
@@ -159,8 +163,10 @@ Phases, each of which raises on a failed check (exit code != 0):
      slab, and of adam and adagrad + expand on the bf16 slab (RULE_FORMS),
      each bit-equal to its plain version in both write modes at the
      flagship batch (phase 4's dedup on a 2^20-row slab of the form's
-     width), with kernel, in-place, plain and bound times; every other
-     instantiation of those rules on a small batch with a hot key; the
+     width), with kernel, in-place, plain and bound times, the expand
+     forms also with a 1,000-occurrence hot key (more occurrences than a
+     tile stages); every other instantiation of those rules on a small
+     batch with a hot key; the
      pull's gather_rows at 37 and 82 f32 columns against index_select,
      bit-equal, with kernel, plain, index_select and bound times; then two
      full-width passes of FLAGSHIP_ADAM, FLAGSHIP_ADAM_SHARED,
@@ -365,7 +371,8 @@ Phases, each of which raises on a failed check (exit code != 0):
      the rebuild gather at the shard's position map, the expand push over
      [262144, 76] and gather_rows at width 82 over 262,144 ids, each
      bit-equal to its plain version (and blocked_write to index_copy_),
-     with kernel, plain, library and bound times ("sharded23" lines);
+     with kernel, plain, library and bound times (blocked_write against
+     index_copy_ balanced, as in phase 4) ("sharded23" lines);
  24. the other sharding policies, the hot tier and the shuffled feed, in
      phase 22's child after phase 23, each policy on a world-1 NCCL fleet
      of its own (an exchange serves one policy): table-wise
@@ -476,7 +483,8 @@ Phases, each of which raises on a failed check (exit code != 0):
      [2^20] position map, and on the expand-64 table's step gather_rows
      at width 82 over its served ids and push_adagrad_expand over its
      received rows of width 76, each bit-equal to its plain version, with
-     kernel, plain, library and bound times ("pipe28" lines; the kernels
+     kernel, plain, library and bound times (blocked_write against
+     index_copy_ balanced, as in phase 4) ("pipe28" lines; the kernels
      line's pipeline_shard_step, pipeline_shard_rebuild and
      pipeline_shard_expand shapes);
  29. train to serve (paddlebox_tpu_torch/serving/: no kernel and no
@@ -711,6 +719,30 @@ def device_slab(torch, rows, layout, dev):
     return torch.from_numpy(slab_rows_np(rows, layout)).to(dev)
 
 
+BLOCKED_ROUNDS = 5   # rounds of the f32 blocked_write against index_copy_
+
+
+def blocked_balanced(kernel_args, library_args, nbytes):
+    """The f32 blocked_write (A) against index_copy_ of the same rows at
+    their uids (B), BLOCKED_ROUNDS rounds of A, B, B, A
+    (rate_probe.balanced_rounds, its lines kept out of the log): (the
+    kernel's median ms, index_copy_'s, the per-round ratios A / B)."""
+    import contextlib
+    import io
+
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.rate_probe import balanced_rounds, quartiles
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = balanced_rounds({"blocked_write": (
+            ("blocked_write", pk.blocked_write, kernel_args, nbytes),
+            ("index_copy_", lambda s, i, r: s.index_copy_(0, i, r),
+             library_args, nbytes))}, BLOCKED_ROUNDS,
+            "case")["blocked_write"]
+    return (quartiles(got["A"])["median"], quartiles(got["B"])["median"],
+            got["ratios"])
+
+
 def kernel_phase(torch, cfg, feed, files, dev):
     """Phase 4, the push kernels against their plain versions at the main
     path's shapes; returns their records (launches filled later)."""
@@ -806,13 +838,16 @@ def kernel_phase(torch, cfg, feed, files, dev):
                   blocked_edge_phase(torch, dev))
     blk_bytes = blk["bytes"]
     blk_args = (s_k, new_rows, row_map, blk_idx)
-    blk_ms = time_chain(pk.blocked_write, blk_args, blk_bytes)
+    blk_ms, blk_lib_ms, blk_ratios = blocked_balanced(
+        blk_args, blk["library_args"], blk_bytes)
     blk_plain_ms = time_chain(pk.blocked_write_plain, blk_args, blk_bytes)
-    blk_lib_ms = time_chain(blk["library"], blk["library_args"], blk_bytes)
     blk_bound = 1e3 * blk_bytes / HBM_BYTES_PER_S
     log("blocked_write NB=%(NB)d B=%(B)d placed=%(placed)d: " % blk["info"]
-        + "kernel %.4f ms, plain %.4f ms, index_copy_ %.4f ms, bound %.4f ms "
-        "(%d B)" % (blk_ms, blk_plain_ms, blk_lib_ms, blk_bound, blk_bytes))
+        + "kernel %.5f ms, index_copy_ %.5f ms (medians of %d rounds A, B, "
+        "B, A; kernel / index_copy_ a round: %s), plain %.4f ms, bound "
+        "%.5f ms (%d B)" % (blk_ms, blk_lib_ms, BLOCKED_ROUNDS,
+                            ", ".join("%.4f" % r for r in blk_ratios),
+                            blk_plain_ms, blk_bound, blk_bytes))
     return [
         {"name": "push_adagrad", "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/push_adagrad.cu",
@@ -827,7 +862,8 @@ def kernel_phase(torch, cfg, feed, files, dev):
          "replaces": "paddlebox_tpu/embedding/pallas_push.py:111",
          "launches": None, "max_abs_err": blk_err, "ms": blk_ms,
          "plain_ms": blk_plain_ms, "bound_ms": blk_bound,
-         "bound_by": "bytes", "library_ms": blk_lib_ms},
+         "bound_by": "bytes", "library_ms": blk_lib_ms,
+         "library_ratios": blk_ratios},
     ]
 
 
@@ -844,10 +880,12 @@ def on_card(torch, a, offset, dev):
 def blocked_edge_phase(torch, dev):
     """Phase 4, blocked_write on its edge cases (edge_cases.
     blocked_edge_cases), in the cases' slot order and reversed (sentinel
-    slots after the real write of their block): bit-equal to the plain
+    slots after the real write of their block), over many sparse tiles
+    and at a step of 8 flagship batches' density: bit-equal to the plain
     version. Returns the largest difference."""
     from paddlebox_tpu_torch.edge_cases import blocked_edge_cases
     from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.optimizers import blocked_layout
 
     err = 0.0
     cases = blocked_edge_cases()
@@ -885,9 +923,33 @@ def blocked_edge_phase(torch, dev):
     pk.blocked_write_plain(s_p, nr, row_map, blk_idx)
     check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32)),
           "blocked_write differs from the plain version over many tiles")
+    # a step of 8 flagship batches' density: 410,407 sorted rows of a 2^20
+    # x 17 slab in 1024 slots (blocked_layout: one run of sources a tile,
+    # the padding tail left out), and the same lanes' sources permuted
+    C = 1 << 20
+    uids = torch.sort(torch.randperm(C - 1, generator=gen, device=dev)[
+        :410407]).values.to(torch.int32)
+    uids = torch.cat([uids, torch.arange(C, C + 64, dtype=torch.int32,
+                                         device=dev)])
+    row_map, blk_idx = blocked_layout(uids, C, 1024)
+    placed = row_map >= 0
+    permuted = row_map.clone()
+    permuted[placed] = row_map[placed][torch.randperm(
+        int(placed.sum()), generator=gen, device=dev)]
+    slab = torch.rand((C, 17), generator=gen, device=dev)
+    nr = torch.rand((uids.shape[0], 17), generator=gen, device=dev)
+    for label, rm in (("one run a tile", row_map), ("permuted", permuted)):
+        s_k, s_p = slab.clone(), slab.clone()
+        pk.blocked_write(s_k, nr, rm, blk_idx)
+        torch.cuda.synchronize()
+        pk.blocked_write_plain(s_p, nr, rm, blk_idx)
+        check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32)),
+              "blocked_write differs from the plain version at 410,407 "
+              "rows (%s)" % label)
     log("blocked_write: bit-equal to the plain version on %d edge cases "
-        "%s, slots as given and reversed, and over %d slots of %d lanes"
-        % (len(cases), sorted(cases), NB, B))
+        "%s, slots as given and reversed, over %d slots of %d lanes, and at "
+        "410,407 rows of 2^20 in 1024 slots, one run of sources a tile and "
+        "permuted" % (len(cases), sorted(cases), NB, B))
     return err
 
 
@@ -2769,61 +2831,6 @@ RULE_FORMS = (("adam", 0, "float32"), ("adam_shared", 0, "float32"),
 RULE_PULL_WIDTHS = (37, 82)
 
 
-def rule_rows(layout, base, conf):
-    """f32 rows [C, width] of ``layout`` over the adagrad rows ``base``
-    (push_probe.push_inputs' slab): the header columns, embed_w and embedx
-    of ``base``, every state column set (g2sums positive, adam moments
-    small, beta powers one to five steps in) and the expand block on the
-    rows that have embedx."""
-    import numpy as np
-
-    from paddlebox_tpu_torch.embedding import accessor as acc
-    from paddlebox_tpu_torch.embedding.accessor import ValueLayout
-
-    C, D, E = base.shape[0], layout.embedx_dim, layout.expand_dim
-    rng = np.random.RandomState(13)
-    rows = layout.new_rows(C, rng, conf)
-    for c in (acc.SLOT, acc.SHOW, acc.CLICK, acc.EMBED_W, acc.MF_SIZE):
-        rows[:, c] = base[:, c]
-    bw = ValueLayout(D).embedx_w
-    xw, es, xs = layout.embedx_w, layout.embed_state, layout.embedx_state
-    rows[:, xw:xw + D] = base[:, bw:bw + D]
-
-    def adam_state(at, moments):
-        rows[:, at:at + moments] = rng.randn(C, moments) * 0.01
-        rows[:, at + moments:at + 2 * moments] = rng.rand(C, moments) * 0.01
-        rows[:, at + 2 * moments] = 0.9 ** rng.randint(1, 6, C)
-        rows[:, at + 2 * moments + 1] = 0.999 ** rng.randint(1, 6, C)
-
-    if layout.optimizer == "adagrad":
-        rows[:, es] = rng.rand(C)
-        rows[:, xs] = rng.rand(C)
-    elif layout.optimizer != "naive":
-        adam_state(es, 1)
-        adam_state(xs, D if layout.optimizer == "adam" else 1)
-    if E:
-        has_mf = rows[:, acc.MF_SIZE] > 0
-        rows[has_mf, layout.expand_w:layout.expand_w + E] = \
-            rng.randn(int(has_mf.sum()), E) * 0.01
-        if layout.expand_state_dim:
-            rows[:, layout.expand_state] = rng.rand(C)
-    return rows.astype(np.float32)
-
-
-def rule_push_ops(layout, n_valid, n_active):
-    """f32 operations of the fused push of ``layout``: the merge's adds,
-    then per active unique the bookkeeping and its rule's update."""
-    D, E = layout.embedx_dim, layout.expand_dim
-    per_col = {"adagrad": 6, "adam": 12, "adam_shared": 4, "naive": 3}
-    row = 20 + per_col[layout.optimizer] * D + (12 if layout.optimizer
-                                                in ("adam",
-                                                    "adam_shared") else 8)
-    row += (6 if layout.optimizer == "adagrad" else 3) * E
-    if layout.bf16:
-        row += 4 * layout.width   # the decode and the encode
-    return n_valid * (4 + D + E) + n_active * row
-
-
 def rules_kernel_phase(torch, cfg, feed, files, dev):
     """Phase 14, the fused push's forms of the other in-table rules and
     of the expand block (RULE_FORMS) against their plain versions at the
@@ -2836,10 +2843,12 @@ def rules_kernel_phase(torch, cfg, feed, files, dev):
     from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
     from paddlebox_tpu_torch.embedding import push_kernels as pk
     from paddlebox_tpu_torch.embedding.accessor import PushLayout, ValueLayout
-    from paddlebox_tpu_torch.embedding.pass_table import segment_offsets
+    from paddlebox_tpu_torch.embedding.pass_table import (dedup_ids,
+                                                          segment_offsets)
     from paddlebox_tpu_torch.ops import row_kernels as rk
     from paddlebox_tpu_torch.push_probe import (SEED, fused_push_bytes,
-                                                push_inputs)
+                                                push_inputs, rule_push_ops,
+                                                rule_rows)
     from paddlebox_tpu_torch.rate_probe import gather_bytes, time_chain
 
     D, C = cfg.embedx, cfg.capacity
@@ -2852,6 +2861,11 @@ def rules_kernel_phase(torch, cfg, feed, files, dev):
         inp["perm"], segment_offsets(inp["inv"], n_valid), inp["uids"]))
     created = torch.from_numpy(
         np.unique(ids[live & (kind[ids] == 0)]).astype(np.int32)).to(dev)
+    hot_ids = ids.copy()
+    hot_ids[:1000] = hot_ids[0]
+    h_uids, h_perm, h_inv, h_n = dedup_ids(hot_ids, C)
+    hot = tuple(torch.from_numpy(x).to(dev) for x in (
+        h_uids, h_perm, segment_offsets(h_inv, n_valid))) + (h_n,)
     rng = np.random.RandomState(14)
     records = []
     for rule, e, dt in RULE_FORMS:
@@ -2865,6 +2879,11 @@ def rules_kernel_phase(torch, cfg, feed, files, dev):
                            layout, dev)
         err = push_check(torch, slab, g, u, p, o, n_uniq, created, layout,
                          conf, SEED)
+        if e:
+            # a hot key: phase 4's 1,000-occurrence run, more than a tile
+            # of the lane-group design stages
+            err = max(err, push_check(torch, slab, g, *hot, created[:0],
+                                      layout, conf, SEED))
         nbytes = fused_push_bytes(n_valid, n_uniq, layout.device_width,
                                   push.width, 2 if layout.bf16 else 4)
         ops = rule_push_ops(layout, n_valid, n_active)
@@ -2908,7 +2927,7 @@ def rules_kernel_phase(torch, cfg, feed, files, dev):
         % (forms,))
     for r in records:
         r["max_abs_err"] = max(r["max_abs_err"], err)
-    del p, o, u, created
+    del p, o, u, created, hot
 
     # the pull at the new row widths: gather_rows against index_select
     pull = {}
@@ -5818,13 +5837,13 @@ def phase23_write_kernels(torch, trainer, ds):
     placed = int((row_map >= 0).sum())
     nbytes = NB * B * 4 + NB * 4 + placed * W * 4 * 2
     args = (s_k, rows, row_map, blk_idx)
+    ms, lib_ms, ratios = blocked_balanced(args, (s_l, idx, rows), nbytes)
     blocked = {"slab": [cap, W], "rows": [n_uniq, W], "NB": NB, "B": B,
                "placed": placed, "bytes": nbytes,
                "max_abs_err": float((s_k - s_p).abs().max()),
-               "ms": time_chain(pk.blocked_write, args, nbytes),
+               "ms": ms,
                "plain_ms": time_chain(pk.blocked_write_plain, args, nbytes),
-               "library_ms": time_chain(lambda s, i, r: s.index_copy_(0, i, r),
-                                        (s_l, idx, rows), nbytes),
+               "library_ms": lib_ms, "library_ratios": ratios,
                "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
                "bound_by": "bytes"}
     del s_k, s_p, s_l
@@ -7907,15 +7926,14 @@ def phase28_kernels(torch, runner, files, feed):
         placed = int((row_map >= 0).sum())
         nbytes = NB * B * 4 + NB * 4 + placed * W * 4 * 2
         args = (s_k, rows, row_map, blk_idx)
+        ms, lib_ms, ratios = blocked_balanced(args, (s_l, idx, rows), nbytes)
         out["blocked_write"] = {
             "slab": [cap, W], "rows": [int(n_uniq), W], "NB": NB, "B": B,
             "placed": placed, "bytes": nbytes,
             "max_abs_err": float((s_k - s_p).abs().max()),
-            "ms": time_chain(pk.blocked_write, args, nbytes),
+            "ms": ms,
             "plain_ms": time_chain(pk.blocked_write_plain, args, nbytes),
-            "library_ms": time_chain(
-                lambda s, i, rr: s.index_copy_(0, i, rr), (s_l, idx, rows),
-                nbytes),
+            "library_ms": lib_ms, "library_ratios": ratios,
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
         del s_k, s_p, s_l
         pos = torch.from_numpy(pos_for_rebuild(

@@ -16,6 +16,15 @@ Cases (inputs made from seeds, the same on every tree):
   blocked_write_2byte    the same placement on the bf16 slab: a 2^20 x 25
                  int16 slab (flagship.FLAGSHIP_BF16's device width), random
                  int16 rows; library call: index_copy_ of the int16 rows
+  blocked_write_chunk    the f32 placement at the density of a step of 8
+                 flagship batches (``chunk_ids``: the first 8 batches'
+                 1,048,576 ids, 410,407 distinct): 410,407 rows in 1024
+                 slots; library call: index_copy_
+  blocked_write_step     the f32 placement as the sharded pipeline step
+                 makes it (``step_ids``): 410,406 of the pass's 557,083
+                 slab rows and the trash row, so 545 slots of rows 74% of
+                 them placed and 479 sentinel slots; library call:
+                 index_copy_
   gather_pull    the pull (``rate_probe.pull_inputs``): the first flagship
                  batch's 131,072 ids (77,128 distinct, padding on the trash
                  row) into a 2^20 x 17 slab; library call: index_select
@@ -42,7 +51,7 @@ what the card gives at these sizes (``floors``, those of the cases run).
 ``--tree DIR`` imports ``paddlebox_tpu_torch`` from DIR (``probe_tree``),
 so the port's parent commit can be measured in the same call.
 
-``--balanced N`` times only the two placements, each kernel (A) against
+``--balanced N`` times only the four placements, each kernel (A) against
 its ``index_copy_`` (B), N rounds of A, B, B, A in one process
 (``rate_probe.balanced_rounds``, which the tree must have): one JSON
 line a timing, then for each form each side's median and quartiles, the
@@ -68,8 +77,32 @@ def bit_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def chunk_ids() -> np.ndarray:
+    """The first 8 flagship batches' ids, flat (flagship.first_chunk_ids
+    over two synthetic files)."""
+    import dataclasses
+    import tempfile
+
+    from paddlebox_tpu_torch.train import flagship
+
+    cfg = flagship.FLAGSHIP
+    with tempfile.TemporaryDirectory(prefix="copy_probe_") as tmp:
+        files, feed = flagship.write_files(
+            tmp, dataclasses.replace(cfg, num_files=2))
+        return flagship.first_chunk_ids(files, feed, cfg, 8)
+
+
+def step_ids(C: int = 1 << 20) -> np.ndarray:
+    """Slab ids as a sharded pipeline step's push places them: a step's
+    410,406 distinct served keys among a pass's 557,083 (their slab rows,
+    which the pass table gives from 0 up, drawn from seed 28) and the trash
+    row C - 1."""
+    rows = np.random.RandomState(28).choice(557083, 410406, replace=False)
+    return np.append(np.sort(rows), C - 1).astype(np.int32)
+
+
 def blocked_case(ids: np.ndarray, C: int, W: int, dev,
-                 two_byte: bool = False) -> dict:
+                 two_byte: bool = False, name: str = None) -> dict:
     """blocked_write at one step of the blocked path on ``dev``: the
     sorted uids of ``ids`` (``pass_table.dedup_ids``) bucketized in blocks
     of flagship.BLOCK_ROWS lanes (``optimizers.blocked_layout``) over a
@@ -108,7 +141,8 @@ def blocked_case(ids: np.ndarray, C: int, W: int, dev,
                            "same rows")
     placed = int((row_map >= 0).sum())
     NB, B = row_map.shape
-    return dict(name="blocked_write_2byte" if two_byte else "blocked_write",
+    return dict(name=name or ("blocked_write_2byte" if two_byte
+                              else "blocked_write"),
                 kernel=pk.blocked_write,
                 library=lambda s, i, r: s.index_copy_(0, i, r),
                 args=(slab, new_rows, row_map, blk_idx),
@@ -119,10 +153,12 @@ def blocked_case(ids: np.ndarray, C: int, W: int, dev,
 
 
 def placement_cases(dev, pull=None) -> list:
-    """The two placements at the flagship shapes on ``dev`` (f32, and
-    ``blocked_write_2byte`` at the bf16 slab's device width), each a dict
-    as ``blocked_case`` gives; ``pull``: ``rate_probe.pull_inputs()``,
-    made here when not given."""
+    """The placements on ``dev``: the two at the flagship shapes (f32, and
+    ``blocked_write_2byte`` at the bf16 slab's device width) and the f32
+    one at the chunk's density and at the sharded pipeline step's
+    (``blocked_write_chunk``, ``blocked_write_step``), each a dict as
+    ``blocked_case`` gives; ``pull``: ``rate_probe.pull_inputs()``, made
+    here when not given."""
     from paddlebox_tpu_torch.embedding.accessor import ValueLayout
     from paddlebox_tpu_torch.rate_probe import pull_inputs
     from paddlebox_tpu_torch.train import flagship
@@ -133,7 +169,11 @@ def placement_cases(dev, pull=None) -> list:
                       embed_dtype=cfg.slab_embed_dtype).device_width
     return [blocked_case(pull_ids, *pull_slab.shape, dev),
             blocked_case(pull_ids, pull_slab.shape[0], W16, dev,
-                         two_byte=True)]
+                         two_byte=True),
+            blocked_case(chunk_ids(), *pull_slab.shape, dev,
+                         name="blocked_write_chunk"),
+            blocked_case(step_ids(pull_slab.shape[0]), *pull_slab.shape,
+                         dev, name="blocked_write_step")]
 
 
 def flagship_cases(dev, names=None) -> list:
@@ -240,7 +280,9 @@ def floors(cases: list) -> dict:
                                          (x, torch.empty_like(x)),
                                          x.numel() * 8)})
     for name, suffix in (("blocked_write", ""),
-                         ("blocked_write_2byte", "_2byte")):
+                         ("blocked_write_2byte", "_2byte"),
+                         ("blocked_write_chunk", "_chunk"),
+                         ("blocked_write_step", "_step")):
         if name not in by:
             continue
         slab, new_rows, row_map, blk_idx = by[name]["args"]
@@ -263,7 +305,7 @@ def floors(cases: list) -> dict:
 
 
 def balanced(rounds: int) -> dict:
-    """The two placements against their index_copy_, ``rounds`` rounds of
+    """The four placements against their index_copy_, ``rounds`` rounds of
     A, B, B, A (``rate_probe.balanced_rounds``); prints one line a timing
     and the summary, and returns the summary, by form."""
     import torch

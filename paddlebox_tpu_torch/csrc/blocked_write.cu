@@ -9,73 +9,86 @@
 // Bound on an H100: memory. row_map is read once (4 B a lane) and each
 // placed row is read from new_rows and written to the slab once (2 * W * 4 B
 // a placed row): 14.7 MB at NB = B = 1024 with 77,128 rows of 17 floats
-// placed, 4.4 us at 3.35 TB/s. Counted by the 32-byte sectors the accesses
-// touch it is about 16.8 MB (4.2 MB of row_map, 5.2 MB of contiguous
-// new_rows, 3 sectors for each 68-byte slab row), 5.0 us. What costs more
-// is that the first and last sector of each written row are written in
-// part: the same rows written to whole sectors (each slot's placed lanes
-// moved to its first lanes) take a sixth less time, and index_copy_ of
-// the same rows to consecutive rows a third less (copy_probe.py floors,
-// PERF.md).
+// placed, 4.4 us at 3.35 TB/s; 60.0 MB, 17.9 us, with the 410,407 rows of
+// a step of 8 flagship batches. The first and last sector of each written
+// row are written in part.
 //
-// Design: the flat row map (NB * B entries) is cut into tiles of TILE
-// entries; persistent blocks, as many as fit on the card, walk the tiles
-// (at the flagship, 1,024 tiles and 4 blocks an SM: two tiles a block). (1) A tile's row
-// map entries and the blk_idx of the slots it covers are staged in shared
-// memory with cp.async (16 bytes a thread where the row map is 16-byte
-// aligned). There are two stage buffers: the next tile's entries are in
-// flight while this tile's rows are copied. (2) The block compacts the
-// tile's placed lanes into (source row, slab row) pairs in shared memory,
-// in lane order: each thread counts its PER_THREAD entries, a warp scan
-// (shuffles) and the warps' totals in shared memory give each thread its
-// rank. As it places a pair, the thread prefetches the slab row's first and
-// last sectors into L2, so the partial writes find them there. (3) The
-// block copies the p placed rows as one flattened run of p * W floats,
-// thread l taking floats l, l + THREADS, ..., UNROLL loads in flight before
-// their stores. With sorted uids a slot's sources are consecutive rows of
-// new_rows and these reads coalesce; any row_map gives the same result. A
-// tile with no placed lane (a sentinel slot) costs its row map read and
-// writes nothing. B and W are run-time values; a tile may straddle slots.
-//
-// On an H100 80GB HBM3 at 700 W (copy_probe.py, the earlier design and this
-// one in one call, PERF.md §6): 0.0144 ms against 0.0158 for the port's
-// first design (a warp per 32 lanes, its placed rows copied through
-// registers after a ballot, two dependent trips to memory a warp) and
-// 0.0156 for index_copy_ of the same rows. The same design without the L2
-// prefetch was slower, and so were prefetching every sector of the row,
-// loading the old value before each store, 128 threads a block, 4 or 16
-// loads in flight, or two blocks an SM.
-//
-// The 2-byte form (the bf16 slab diet's int16 slab; the TPU kernel takes a
-// slab of any dtype, pallas_push.py:137) has a kernel of its own,
-// blocked_write_kernel_2byte. Bound on an H100: memory. At the flagship
-// shape (device width 25, 77,128 rows placed) it moves 11,911,200 B (4.2
-// MB of row_map, 3.86 MB of rows read and as many written), 3.56 us at
-// 3.35 TB/s. A 50-byte row starts 4-byte aligned only on even rows, and
-// the slab and new_rows need only be 2-byte aligned.
-// Design: tiles of TILE2 = 512 lanes, one a block of 128 threads, the
-// blocks (2,048 at the flagship) left to the hardware's scheduler; the 12
-// KB run buffer holds the residents to 13 blocks an SM. (1) A thread loads
-// its 4 row map entries (one int4 where aligned) and their slots' block
-// ids straight to registers. (2) A warp scan and the warps' totals in
-// shared memory rank the placed lanes, and the same pass tells whether
-// their sources form one consecutive run: source - rank is then one value.
+// Design (the 2-byte form's, blocked_write_kernel, carried to 4-byte
+// elements): tiles of TILE = 512 lanes, one a block of 128 threads,
+// the blocks left to the hardware's scheduler. (1) A thread loads its 4
+// row map entries (one int4 where aligned) and their slots' block ids
+// straight to registers. (2) A warp scan and the warps' totals in shared
+// memory rank the placed lanes, and the same pass tells whether their
+// sources form one consecutive run: source - rank is then one value.
 // blocked_layout writes row_map[tgt] = arange(U) with tgt ascending
 // (optimizers.py), so every tile of the blocked path is one run. (3) The
 // run is staged in shared memory by 16-byte cp.async from the 16-byte
 // boundary at or before its first element (chunks of the buffer where it
 // is longer), while the threads write the placed lanes' slab rows in rank
 // order. (4) The threads copy the tile's rows as one flattened run of
-// 2-byte elements, thread l taking elements l, l + 128, ...: a warp's
-// stores cover 64 contiguous bytes of one or two rows. A tile whose
-// sources are not one run, or rows too wide to stage, read each element
-// from new_rows. The slab is never read and the L2 is not prefetched.
+// elements, thread l taking elements l, l + 128, ...: a warp's stores
+// cover 128 (f32) or 64 (2-byte) contiguous bytes of one to three rows. A
+// tile whose sources are not one run, or rows too wide to stage, read each
+// element from new_rows. The slab is never read and the L2 is not
+// prefetched. The f32 form's run buffer is 16 KB (F32_RUN_BYTES: where
+// 410,407 rows spread over all 1024 slots a tile places about 200 rows of
+// 68 bytes, one chunk), 10 blocks an SM; the 2-byte form's 12 KB, 13
+// blocks an SM.
 //
-// On an H100 80GB HBM3 at 700 W (copy_probe.py --tree, each design beside
-// the earlier 2-byte form or this one in one call, ms; PERF.md §6):
-// 0.0122-0.0125, against 0.0148-0.0152 for the earlier 2-byte form (the
-// f32 kernel over 2-byte elements) and 0.0138-0.0142 for index_copy_ of
-// the same rows. Designs tried:
+// The f32 form on an H100 80GB HBM3 at 700 W (copy_probe.py --tree
+// --balanced, the earlier design and this one in one call, medians of
+// rounds of A, B, B, A against index_copy_ of the same rows; PERF.md
+// §6): at the flagship (77,128 rows) 0.01303-0.01305 ms against
+// 0.01547-0.01554 for index_copy_ (0.840-0.842 of it), where the earlier
+// design took 0.01425-0.01428 (0.922); at 410,407 rows over all 1024
+// slots (blocked_write_chunk) 0.02886-0.02898 against 0.03336-0.03343
+// (0.866-0.869), where it took 0.03627-0.03634 (1.087, slower than
+// index_copy_). Where the same rows fill 546 slots three quarters full, as
+// the sharded pipeline step's do (blocked_write_step), it still loses:
+// 0.04419-0.04428 against 0.04093-0.04094 (1.078-1.082), where the earlier
+// design took 0.05561 (1.357). A tile there places about 376 rows (25.6
+// KB, two chunks of the buffer) and the loaded tiles are half as many.
+// Designs tried for the f32 form:
+// - The earlier design: the flat row map cut into tiles of 1,024
+//   entries, persistent blocks of 256 threads walking them with the next
+//   tile's entries in flight in a second stage buffer, the placed lanes
+//   compacted into (source, slab row) pairs, the first and last sector of
+//   each slab row prefetched into L2, the rows copied with 8 loads in
+//   flight a thread; tuned at the flagship's 1,024 tiles: 0.0144 there
+//   (0.0158 for the first design, a warp per 32 lanes; without the
+//   prefetch, with
+//   every sector prefetched, loading the old value before each store, 128
+//   threads a block, 4 or 16 loads in flight, two blocks an SM: slower).
+// - This design with the earlier one's L2 prefetch of each placed row's
+//   first and last sector: 0.01455-0.01464 at the flagship,
+//   0.04238-0.04248 at 410,407 rows (this design without it in the same
+//   call 0.01316-0.0132, 0.02904-0.02914).
+// - Its block and buffer (flagship, 410,407 rows over 1024 slots and over
+//   546, each beside this design in one call: 0.01303-0.01340,
+//   0.02886-0.02930, 0.04419-0.04470): a 32 KB buffer, 6 blocks an SM,
+//   0.01437-0.01475, 0.02730-0.02810, 0.04152-0.04214 (1.013-1.017 of
+//   index_copy_ there); 256-lane tiles of 64 threads, 12 blocks an SM,
+//   0.01463-0.01470, 0.02739-0.02745, 0.04186-0.04191; 1,024-lane tiles of
+//   256 threads with 32 KB, 5 blocks an SM, 0.01296, 0.03182-0.03200,
+//   0.04321-0.04344; the buffer's halves taking alternate chunks (the
+//   next loading while one is written), 16 KB and 24 KB, 0.01368-0.01415,
+//   0.02668-0.02776, 0.04438-0.04533; no staging, the run read straight
+//   from new_rows with 8 loads in flight a thread before their stores,
+//   12 blocks an SM: 0.02462, 0.05267, 0.06648-0.06652.
+//
+// The 2-byte form (the bf16 slab diet's int16 slab; the TPU kernel takes a
+// slab of any dtype, pallas_push.py:137) is the same kernel on 2-byte
+// elements. At the flagship shape (device width 25, 77,128 rows
+// placed) it moves 11,911,200 B (4.2 MB of row_map, 3.86 MB of rows read
+// and as many written), 3.56 us at 3.35 TB/s. A 50-byte row starts 4-byte
+// aligned only on even rows, and the slab and new_rows need only be
+// 2-byte aligned.
+//
+// The 2-byte form on an H100 80GB HBM3 at 700 W (copy_probe.py --tree,
+// each design beside the earlier 2-byte form or this one in one call, ms;
+// PERF.md §6): 0.0122-0.0125, against 0.0148-0.0152 for the earlier 2-byte
+// form (the f32 kernel over 2-byte elements) and 0.0138-0.0142 for
+// index_copy_ of the same rows. Designs tried:
 // - 4-byte word stores, a row as 12 or 13 aligned words and a 2-byte head
 //   or tail by its parity, over 1,024-lane tiles of 256 threads: 0.0157-
 //   0.0161; persistent blocks with the next tile's entries in registers
@@ -111,224 +124,18 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include <map>
-#include <mutex>
-
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int PER_THREAD = 4;                 // row map entries a thread
-constexpr int TILE = THREADS * PER_THREAD;    // row map entries a tile
-constexpr int UNROLL = 8;                     // loads before their stores
-static_assert(PER_THREAD == 4, "a thread reads its entries as one int4");
+constexpr int PER_THREAD = 4;                // row map entries a thread
+// the f32 form's staged run (a tile of 200 placed 68-byte rows, the sharded
+// pipeline step's density, in one chunk) and its blocks an SM
+constexpr int F32_THREADS = 128;
+constexpr int F32_RUN_BYTES = 16384;
+constexpr int F32_MIN_BLOCKS = 10;
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
-
-__device__ __forceinline__ void cp_async4(int* s, const int* g) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(s)),
-               "l"(g)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(int* s, const int* g) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(s)),
-               "l"(g)
-               : "memory");
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* g) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(g));
-}
-
-struct Stage {
-  int map[TILE];   // the tile's row map entries (-1 past the last lane)
-  int blk[TILE];   // blk_idx of the slots the tile covers, from its first
-};
-
-// Tile `tile`'s row map entries and slot block ids into `st` (cp.async,
-// committed by the caller).
-__device__ __forceinline__ void stage_tile(Stage& st, const int* row_map,
-                                           const int* blk_idx,
-                                           int64_t n_lanes, int B,
-                                           int64_t tile, bool vec_map) {
-  const int64_t e0 = tile * TILE;
-  const int n = (int)(n_lanes - e0 < TILE ? n_lanes - e0 : TILE);
-  const int j = threadIdx.x * PER_THREAD;
-  if (vec_map && j + PER_THREAD <= n) {
-    cp_async16(st.map + j, row_map + e0 + j);
-  } else {
-#pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k) {
-      if (j + k < n)
-        cp_async4(st.map + j + k, row_map + e0 + j + k);
-      else
-        st.map[j + k] = -1;
-    }
-  }
-  const int64_t first = e0 / B;
-  const int slots = (int)((e0 + n - 1) / B - first + 1);
-  for (int s = threadIdx.x; s < slots; s += THREADS)
-    cp_async4(st.blk + s, blk_idx + first + s);
-}
-
-// T: float, the f32 slab (the 2-byte slab has its own kernel below).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-blocked_write_kernel(T* __restrict__ slab,
-                     const T* __restrict__ new_rows,
-                     const int* __restrict__ row_map,
-                     const int* __restrict__ blk_idx, int64_t n_lanes, int B,
-                     int W, int64_t n_tiles, bool vec_map) {
-  __shared__ __align__(16) Stage st[2];
-  __shared__ int s_src[TILE];        // placed lanes' source rows, in order
-  __shared__ int64_t s_dst[TILE];    // and their slab rows
-  __shared__ int s_warp[WARPS];
-  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  // a thread's copy floats step by THREADS = q rows and m columns
-  const int q = THREADS / W, m = THREADS - q * W;
-  const int r0 = t / W, c0 = t - r0 * W;
-
-  int64_t tile = blockIdx.x;
-  stage_tile(st[0], row_map, blk_idx, n_lanes, B, tile, vec_map);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  for (int b = 0; tile < n_tiles; tile += gridDim.x, b ^= 1) {
-    // (1) the next tile's entries in flight; wait for this tile's
-    const int64_t next = tile + gridDim.x;
-    if (next < n_tiles)
-      stage_tile(st[b ^ 1], row_map, blk_idx, n_lanes, B, next, vec_map);
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;\n" ::
-                     : "memory");
-    __syncthreads();
-
-    // (2) compact the placed lanes: thread t holds entries t * PER_THREAD..
-    const int4 mv = *reinterpret_cast<const int4*>(st[b].map + t * PER_THREAD);
-    const int mk[PER_THREAD] = {mv.x, mv.y, mv.z, mv.w};
-    int cnt = 0;
-#pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k) cnt += mk[k] >= 0;
-    int incl = cnt;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += v;
-    }
-    if (lane == 31) s_warp[w] = incl;
-    __syncthreads();
-    int pos = incl - cnt, p = 0;
-#pragma unroll
-    for (int k = 0; k < WARPS; ++k) {
-      const int v = s_warp[k];
-      pos += k < w ? v : 0;
-      p += v;
-    }
-    if (cnt) {
-      const int64_t e = tile * TILE + t * PER_THREAD;
-      const int64_t first = tile * TILE / B;
-      int64_t slot = e / B;
-      int r = (int)(e - slot * B);
-#pragma unroll
-      for (int k = 0; k < PER_THREAD; ++k) {
-        if (mk[k] >= 0) {
-          const int64_t dst = (int64_t)st[b].blk[slot - first] * B + r;
-          s_src[pos] = mk[k];
-          s_dst[pos] = dst;
-          ++pos;
-          // the row's first and last sectors are written in part: bring
-          // them into L2 now, while the block waits for its source rows
-          prefetch_l2(slab + dst * W);
-          prefetch_l2(slab + dst * W + W - 1);
-        }
-        if (++r == B) {
-          r = 0;
-          ++slot;
-        }
-      }
-    }
-    __syncthreads();
-
-    // (3) the p placed rows as one run of p * W floats
-    const int total = p * W;
-    int r = r0, c = c0;
-    for (int f0 = t; f0 < total; f0 += UNROLL * THREADS) {
-      T v[UNROLL];
-      int64_t at[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        if (f0 + u * THREADS < total) {
-          v[u] = new_rows[(int64_t)s_src[r] * W + c];
-          at[u] = s_dst[r] * W + c;
-        }
-        r += q;
-        c += m;
-        if (c >= W) {
-          c -= W;
-          ++r;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-        if (f0 + u * THREADS < total) slab[at[u]] = v[u];
-    }
-    // this tile's pairs and stage buffer are rewritten by the next tiles
-    __syncthreads();
-  }
-}
-
-// Blocks of blocked_write_kernel<T> that fit on device `dev` at once (SM
-// count times blocks an SM), into *fit: worked out on the device's first
-// launch and kept, so a launch then costs no query.
-template <typename T>
-cudaError_t kernel_fit(int dev, int64_t* fit) {
-  static std::mutex mu;
-  static std::map<int, int64_t> known;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = known.find(dev);
-  if (it != known.end()) {
-    *fit = it->second;
-    return cudaSuccess;
-  }
-  int sms = 0, per_sm = 0;
-  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                         dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, blocked_write_kernel<T>, THREADS, 0);
-  if (e != cudaSuccess) return e;
-  *fit = known[dev] = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  return cudaSuccess;
-}
-
-template <typename T>
-int launch(T* slab, const T* new_rows, const int* row_map, const int* blk_idx,
-           int NB, int B, int W, cudaStream_t stream) {
-  const int64_t n_lanes = (int64_t)NB * B;
-  if (n_lanes <= 0 || W <= 0) return 0;
-  const int64_t n_tiles = (n_lanes + TILE - 1) / TILE;
-  int dev = 0;
-  int64_t fit = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = kernel_fit<T>(dev, &fit);
-  if (e != cudaSuccess) return (int)e;
-  const int64_t grid = n_tiles < fit ? n_tiles : fit;
-  const bool vec_map = (reinterpret_cast<uintptr_t>(row_map) & 15) == 0;
-  blocked_write_kernel<T><<<(unsigned)grid, THREADS, 0, stream>>>(
-      slab, new_rows, row_map, blk_idx, n_lanes, B, W, n_tiles, vec_map);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------- the 2-byte form
-
-constexpr int THREADS2 = 128;                  // threads of the 2-byte kernel
-constexpr int WARPS2 = THREADS2 / 32;
-constexpr int TILE2 = THREADS2 * PER_THREAD;   // row map entries a tile
-constexpr int RUN_BYTES = 12288;   // a staged chunk of a consecutive run
-// 2-byte elements a staged chunk holds: its first element may sit up to 14
-// bytes past the 16-byte boundary its load starts at
-constexpr int RUN_ELEMS = (RUN_BYTES - 16) / 2;
 
 __device__ __forceinline__ int warp_incl_scan(int v, int lane) {
 #pragma unroll
@@ -339,31 +146,38 @@ __device__ __forceinline__ int warp_incl_scan(int v, int lane) {
   return v;
 }
 
-// slab[blk_idx[i] * B + r, :] = new_rows[row_map[i, r], :] on 2-byte
-// elements, a tile of TILE2 lanes a block (see the header).
-__global__ void __launch_bounds__(THREADS2, 16)
-blocked_write_kernel_2byte(uint16_t* __restrict__ slab,
-                           const uint16_t* __restrict__ new_rows,
-                           const int* __restrict__ row_map,
-                           const int* __restrict__ blk_idx, int64_t n_lanes,
-                           int NB, int B, int W, int64_t n_tiles,
-                           bool vec_map) {
-  __shared__ int64_t s_dst[TILE2];   // placed lanes' slab rows, in order
+// slab[blk_idx[i] * B + r, :] = new_rows[row_map[i, r], :] on elements of
+// type T (uint16_t: the 2-byte slab; float: the f32 slab), a tile of
+// THREADS * PER_THREAD lanes a block (see the header). RUN_BYTES: the
+// staged run's buffer; MIN_BLOCKS: the blocks an SM the registers are
+// held to.
+template <typename T, int THREADS, int RUN_BYTES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+blocked_write_kernel(T* __restrict__ slab, const T* __restrict__ new_rows,
+                   const int* __restrict__ row_map,
+                   const int* __restrict__ blk_idx, int64_t n_lanes, int NB,
+                   int B, int W, int64_t n_tiles, bool vec_map) {
+  constexpr int WARPS = THREADS / 32;
+  constexpr int TILE = THREADS * PER_THREAD;   // row map entries a tile
+  // elements a staged chunk holds: its first element may sit up to 16 -
+  // sizeof(T) bytes past the 16-byte boundary its load starts at
+  constexpr int RUN_ELEMS = (RUN_BYTES - 16) / (int)sizeof(T);
+  __shared__ int64_t s_dst[TILE];   // placed lanes' slab rows, in order
   __shared__ __align__(16) union {
-    uint16_t run[RUN_BYTES / 2];     // a consecutive run's chunk, staged
-    int src[TILE2];                  // or the placed lanes' source rows
+    T run[RUN_BYTES / sizeof(T)];   // a consecutive run's chunk, staged
+    int src[TILE];                  // or the placed lanes' source rows
   } s_u;
-  __shared__ int s_cnt[WARPS2], s_dmin[WARPS2], s_dmax[WARPS2];
+  __shared__ int s_cnt[WARPS], s_dmin[WARPS], s_dmax[WARPS];
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  // a thread's copy elements step by THREADS2 = q rows and m columns
-  const int q = THREADS2 / W, m = THREADS2 - q * W;
+  // a thread's copy elements step by THREADS = q rows and m columns
+  const int q = THREADS / W, m = THREADS - q * W;
   const int r0 = t / W, c0 = t - r0 * W;
   const int chunk_rows = RUN_ELEMS / W;   // 0: rows too wide to stage
 
   for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     // (1) the thread's row map entries and their slots' block ids, all
     // loads in flight at once
-    const int64_t e = tile * TILE2 + t * PER_THREAD;
+    const int64_t e = tile * TILE + t * PER_THREAD;
     int mk[PER_THREAD], bk[PER_THREAD];
     if (vec_map && e + PER_THREAD <= n_lanes) {
       const int4 v = __ldg(reinterpret_cast<const int4*>(row_map + e));
@@ -420,7 +234,7 @@ blocked_write_kernel_2byte(uint16_t* __restrict__ slab,
     int pos = incl - cnt, p = 0, first = 0;
     bool run = true, seen = false;
 #pragma unroll
-    for (int k = 0; k < WARPS2; ++k) {
+    for (int k = 0; k < WARPS; ++k) {
       const int v = s_cnt[k];
       if (v) {
         const int d = s_dmin[k] - p;
@@ -444,14 +258,16 @@ blocked_write_kernel_2byte(uint16_t* __restrict__ slab,
       const uintptr_t a = reinterpret_cast<uintptr_t>(
           new_rows + ((int64_t)first + cb) * W);
       const uintptr_t a0 = a & ~(uintptr_t)15;
-      const int chunks = (int)((a + (uintptr_t)n * W * 2 - a0 + 15) >> 4);
-      for (int c = t; c < chunks; c += THREADS2)
+      const int chunks =
+          (int)((a + (uintptr_t)n * W * sizeof(T) - a0 + 15) >> 4);
+      for (int c = t; c < chunks; c += THREADS)
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                         smem_u32(s_u.run + c * 8)),
+                         smem_u32(reinterpret_cast<unsigned char*>(
+                                      s_u.run) + c * 16)),
                      "l"(a0 + (uintptr_t)c * 16)
                      : "memory");
       asm volatile("cp.async.commit_group;\n" ::: "memory");
-      return (int)((a - a0) >> 1);
+      return (int)((a - a0) / sizeof(T));
     };
     int head = 0;
     if (run) head = stage(0, min(p, chunk_rows));
@@ -472,7 +288,7 @@ blocked_write_kernel_2byte(uint16_t* __restrict__ slab,
     }
 
     // (4) the rows as one run of n * W elements a chunk, thread l taking
-    // elements l, l + THREADS2, ...: from the staged run, or straight from
+    // elements l, l + THREADS, ...: from the staged run, or straight from
     // new_rows (any other row map, or rows too wide to stage)
     for (int cb = 0; cb < p; cb += run ? chunk_rows : p) {
       const int n = run ? min(p - cb, chunk_rows) : p;
@@ -483,7 +299,7 @@ blocked_write_kernel_2byte(uint16_t* __restrict__ slab,
       __syncthreads();
       const int total = n * W;
       int i = r0, c = c0;
-      for (int f = t; f < total; f += THREADS2) {
+      for (int f = t; f < total; f += THREADS) {
         slab[s_dst[cb + i] * W + c] =
             run ? s_u.run[head + f]
                 : __ldg(new_rows + (int64_t)s_u.src[cb + i] * W + c);
@@ -500,16 +316,19 @@ blocked_write_kernel_2byte(uint16_t* __restrict__ slab,
   }
 }
 
-int launch_2byte(uint16_t* slab, const uint16_t* new_rows, const int* row_map,
-                 const int* blk_idx, int NB, int B, int W,
-                 cudaStream_t stream) {
+template <typename T, int THREADS, int RUN_BYTES, int MIN_BLOCKS>
+int launch(T* slab, const T* new_rows, const int* row_map, const int* blk_idx,
+           int NB, int B, int W, cudaStream_t stream) {
+  constexpr int TILE = THREADS * PER_THREAD;
   const int64_t n_lanes = (int64_t)NB * B;
   if (n_lanes <= 0 || W <= 0) return 0;
-  const int64_t n_tiles = (n_lanes + TILE2 - 1) / TILE2;
+  const int64_t n_tiles = (n_lanes + TILE - 1) / TILE;
   const int64_t grid = n_tiles < INT_MAX ? n_tiles : INT_MAX;
   const bool vec_map = (reinterpret_cast<uintptr_t>(row_map) & 15) == 0;
-  blocked_write_kernel_2byte<<<(unsigned)grid, THREADS2, 0, stream>>>(
-      slab, new_rows, row_map, blk_idx, n_lanes, NB, B, W, n_tiles, vec_map);
+  blocked_write_kernel<T, THREADS, RUN_BYTES, MIN_BLOCKS>
+      <<<(unsigned)grid, THREADS, 0, stream>>>(slab, new_rows, row_map,
+                                               blk_idx, n_lanes, NB, B, W,
+                                               n_tiles, vec_map);
   return (int)cudaGetLastError();
 }
 
@@ -522,8 +341,8 @@ int launch_2byte(uint16_t* slab, const uint16_t* new_rows, const int* row_map,
 extern "C" int pbt_blocked_write(float* slab, const float* new_rows,
                                  const int* row_map, const int* blk_idx,
                                  int NB, int B, int W, void* stream) {
-  return launch<float>(slab, new_rows, row_map, blk_idx, NB, B, W,
-                       (cudaStream_t)stream);
+  return launch<float, F32_THREADS, F32_RUN_BYTES, F32_MIN_BLOCKS>(
+      slab, new_rows, row_map, blk_idx, NB, B, W, (cudaStream_t)stream);
 }
 
 // The same placement on a slab of 2-byte elements (the bf16 slab's int16
@@ -533,6 +352,6 @@ extern "C" int pbt_blocked_write_2byte(uint16_t* slab,
                                        const int* row_map,
                                        const int* blk_idx, int NB, int B,
                                        int W, void* stream) {
-  return launch_2byte(slab, new_rows, row_map, blk_idx, NB, B, W,
-                      (cudaStream_t)stream);
+  return launch<uint16_t, 128, 12288, 16>(slab, new_rows, row_map, blk_idx,
+                                          NB, B, W, (cudaStream_t)stream);
 }

@@ -14,14 +14,16 @@
 ``push_adagrad`` is the name of the fused push; it carries every in-table
 rule of the reference's ``apply_push`` (optimizers.py:73-225): adagrad
 (the TPU kernel's), adam, adam_shared and naive, and the expand block with
-adagrad or naive, each a template instantiation of the one kernel. The
-rules other than adagrad run in XLA in the reference, so the fused kernel
-and push_adagrad_plain are their only counterparts here. Two rules of the
-TPU kernel hold for every layout (ROADMAP, deliberate differences):
-created columns come from its integer hash of (row id, column, seed),
-embedx column c hashing c and expand column e hashing D + e, not from
-apply_push's threefry draws; and adagrad's embed_w learning rate is picked
-by the UPDATED slot, where apply_push reads the row's old one.
+adagrad or naive, each a template instantiation of csrc/push_adagrad.cu
+(a thread a unique, or a warp a unique for the rows wider than 48
+columns: the expand block). The rules other than adagrad run in XLA in
+the reference, so the fused kernel and push_adagrad_plain are their only
+counterparts here. Two rules of the TPU kernel hold for every layout
+(ROADMAP, deliberate differences): created columns come from its integer
+hash of (row id, column, seed), embedx column c hashing c and expand
+column e hashing D + e, not from apply_push's threefry draws; and
+adagrad's embed_w learning rate is picked by the UPDATED slot, where
+apply_push reads the row's old one.
 
 Both take the f32 slab or the bf16 slab diet's int16 one
 (embedding/accessor.py): push_adagrad then decodes each row on read and

@@ -1,7 +1,7 @@
 """Device time of one train step's push at the flagship batch, on this tree
 or on another checkout of the port.
 
-    python3 paddlebox_tpu_torch/push_probe.py [--tree DIR]
+    python3 paddlebox_tpu_torch/push_probe.py [--tree DIR] [--forms]
 
 Builds one step's push inputs from seeds (``push_inputs``: the first
 flagship batch's ids and their host dedup, a 2^20 x 17 slab whose touched
@@ -27,6 +27,16 @@ so the port's parent commit can be measured in the same call. Both designs of th
 unfused one of the port's first slices (the pull's rows, first_idx,
 n_valid) and the fused one (segment offsets).
 
+``--forms`` times the fused kernel alone instead, at every form
+(``FORMS``: each rule, the expand block, f32 and bf16 slab) on the first
+flagship batch, and at the chunk shape (``CHUNK_FORMS``: the first 8
+flagship batches' dedup, 410,407 uniques, the pipeline step's), each held
+bit-equal to its plain version on the card in both write modes: one JSON
+line with, for each form, rows out and in-place ms (``time_chain``), the
+bytes and operations its function needs and the bound they give, and the
+sha256 of its rows out (two trees that print the same digest wrote the same
+bits).
+
 ``balanced_write_times`` times the three writes against each other in
 rounds of BALANCED_WRITES (each ordered pair of distinct writes follows
 once, as cadence_probe.BALANCED orders its four modes): chip_smoke.py's
@@ -49,6 +59,12 @@ WRITES = ("scatter", "rebuild", "blocked")
 # scatter (a), rebuild (b), blocked (c): each ordered pair of distinct
 # writes follows once
 BALANCED_WRITES = "abcacba"
+# the fused kernel's forms --forms times: (rule, expand, slab dtype) at the
+# flagship batch's embedx width, and the forms it times at the chunk shape
+FORMS = tuple((rule, e, dt) for dt in ("float32", "bfloat16")
+              for rule, e in (("adagrad", 0), ("adam", 0), ("adam_shared", 0),
+                              ("naive", 0), ("adagrad", 64), ("naive", 64)))
+CHUNK_FORMS = (("adagrad", 0, "float32"), ("adagrad", 64, "float32"))
 
 
 def push_inputs(cfg, files, feed, ids=None):
@@ -95,6 +111,61 @@ def push_inputs(cfg, files, feed, ids=None):
     return dict(ids=ids, slab=slab, grads=grads, uids=uids, perm=perm,
                 inv=inv, n_uniq=n_uniq, n_valid=int((ids != C - 1).sum()),
                 live=live, kind=kind)
+
+
+def rule_rows(layout, base, conf):
+    """f32 rows [C, width] of ``layout`` over the adagrad rows ``base``
+    (push_inputs' slab): the header columns, embed_w and embedx
+    of ``base``, every state column set (g2sums positive, adam moments
+    small, beta powers one to five steps in) and the expand block on the
+    rows that have embedx."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.embedding import accessor as acc
+    from paddlebox_tpu_torch.embedding.accessor import ValueLayout
+
+    C, D, E = base.shape[0], layout.embedx_dim, layout.expand_dim
+    rng = np.random.RandomState(13)
+    rows = layout.new_rows(C, rng, conf)
+    for c in (acc.SLOT, acc.SHOW, acc.CLICK, acc.EMBED_W, acc.MF_SIZE):
+        rows[:, c] = base[:, c]
+    bw = ValueLayout(D).embedx_w
+    xw, es, xs = layout.embedx_w, layout.embed_state, layout.embedx_state
+    rows[:, xw:xw + D] = base[:, bw:bw + D]
+
+    def adam_state(at, moments):
+        rows[:, at:at + moments] = rng.randn(C, moments) * 0.01
+        rows[:, at + moments:at + 2 * moments] = rng.rand(C, moments) * 0.01
+        rows[:, at + 2 * moments] = 0.9 ** rng.randint(1, 6, C)
+        rows[:, at + 2 * moments + 1] = 0.999 ** rng.randint(1, 6, C)
+
+    if layout.optimizer == "adagrad":
+        rows[:, es] = rng.rand(C)
+        rows[:, xs] = rng.rand(C)
+    elif layout.optimizer != "naive":
+        adam_state(es, 1)
+        adam_state(xs, D if layout.optimizer == "adam" else 1)
+    if E:
+        has_mf = rows[:, acc.MF_SIZE] > 0
+        rows[has_mf, layout.expand_w:layout.expand_w + E] = \
+            rng.randn(int(has_mf.sum()), E) * 0.01
+        if layout.expand_state_dim:
+            rows[:, layout.expand_state] = rng.rand(C)
+    return rows.astype(np.float32)
+
+
+def rule_push_ops(layout, n_valid, n_active):
+    """f32 operations of the fused push of ``layout``: the merge's adds,
+    then per active unique the bookkeeping and its rule's update."""
+    D, E = layout.embedx_dim, layout.expand_dim
+    per_col = {"adagrad": 6, "adam": 12, "adam_shared": 4, "naive": 3}
+    row = 20 + per_col[layout.optimizer] * D + (12 if layout.optimizer
+                                                in ("adam",
+                                                    "adam_shared") else 8)
+    row += (6 if layout.optimizer == "adagrad" else 3) * E
+    if layout.bf16:
+        row += 4 * layout.width   # the decode and the encode
+    return n_valid * (4 + D + E) + n_active * row
 
 
 def fused_push_bytes(n_valid: int, n_uniq: int, W: int, G: int,
@@ -241,7 +312,111 @@ def main(tree: str) -> int:
     return 0
 
 
+def form_records(cfg, files, feed, dev, forms, chunk=False):
+    """{form name: record} of the fused kernel at each of ``forms`` on
+    ``dev``, over the first flagship batch's push inputs (``chunk``: the
+    first 8 batches'), every form held bit-equal to its plain version in
+    both write modes (raises if not)."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.device import F32_FLOPS, HBM_BYTES_PER_S
+    from paddlebox_tpu_torch.embedding import push_kernels as pk
+    from paddlebox_tpu_torch.embedding.accessor import (PushLayout,
+                                                        ValueLayout,
+                                                        slab_rows_np)
+    from paddlebox_tpu_torch.embedding.pass_table import segment_offsets
+    from paddlebox_tpu_torch.rate_probe import time_chain
+    from paddlebox_tpu_torch.train import flagship
+
+    D = cfg.embedx
+    conf = cfg.table().optimizer
+    ids = flagship.first_chunk_ids(files, feed, cfg, 8) if chunk else None
+    inp = push_inputs(cfg, files, feed, ids=ids)
+    ids, live = inp["ids"], inp["live"]
+    n_uniq, n_valid = inp["n_uniq"], inp["n_valid"]
+    n_active = int(np.unique(ids[live]).size)
+    p, o, u = (torch.from_numpy(x).to(dev) for x in (
+        inp["perm"], segment_offsets(inp["inv"], n_valid), inp["uids"]))
+    rng = np.random.RandomState(14)
+    out = {}
+    for rule, e, dt in forms:
+        layout = ValueLayout(D, rule, e, dt)
+        push = PushLayout.of(layout)
+        grads = np.zeros((ids.shape[0], push.width), np.float32)
+        grads[:, :4 + D] = inp["grads"]
+        grads[:, push.expand_g:] = rng.randn(ids.shape[0], e) * 0.2 \
+            * live[:, None]
+        g = torch.from_numpy(grads).to(dev)
+        slab = torch.from_numpy(slab_rows_np(
+            rule_rows(layout, inp["slab"], conf), layout)).to(dev)
+        rows = None
+        for rows_out in (False, True):
+            s_k, s_p = slab.clone(), slab.clone()
+            got = pk.push_adagrad(s_k, g, p, o, u, n_uniq, SEED, layout,
+                                  conf, rows_out)
+            want = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n_uniq, SEED,
+                                               layout, conf, rows_out)
+            same = torch.equal(s_k, s_p) if s_k.dtype == torch.int16 else \
+                torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+            if rows_out:
+                same = same and torch.equal(got.view(torch.int16),
+                                            want.view(torch.int16))
+                rows = got
+            if not same:
+                raise RuntimeError("%s (rows_out=%s) differs from the plain "
+                                   "version" % (pk.push_form(layout),
+                                                rows_out))
+            del s_k, s_p, got, want
+        nbytes = fused_push_bytes(n_valid, n_uniq, layout.device_width,
+                                  push.width, 2 if layout.bf16 else 4)
+        ops = rule_push_ops(layout, n_valid, n_active)
+        args = (slab, g, p, o, u)
+        out[pk.push_form(layout)] = {
+            "W": layout.width, "device_width": layout.device_width,
+            "G": push.width, "n_valid": n_valid, "n_uniq": n_uniq,
+            "bytes": nbytes, "ops": ops,
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS),
+            "ms": time_chain(lambda *a: pk.push_adagrad(
+                *a, n_uniq, SEED, layout, conf, rows_out=True), args,
+                nbytes),
+            "in_place_ms": time_chain(lambda *a: pk.push_adagrad(
+                *a, n_uniq, SEED, layout, conf), args, nbytes),
+            "rows_sha256": hashlib.sha256(
+                rows.cpu().numpy().tobytes()).hexdigest()}
+        del slab, g, args, rows
+    return out
+
+
+def forms_main(tree: str) -> int:
+    """--forms: the fused kernel at every form of the ``paddlebox_tpu_torch``
+    on sys.path, which ``tree`` names."""
+    import torch
+
+    from paddlebox_tpu_torch.device import card_line
+    from paddlebox_tpu_torch.train import flagship
+
+    if not torch.cuda.is_available():
+        raise SystemExit("push_probe needs a CUDA device")
+    dev = torch.device("cuda")
+    cfg = flagship.FLAGSHIP
+    print(card_line(), flush=True)
+    with tempfile.TemporaryDirectory(prefix="push_probe_") as tmp:
+        # two files: the chunk's 8 batches
+        files, feed = flagship.write_files(
+            tmp, dataclasses.replace(cfg, num_files=2))
+        out = {"tree": tree,
+               "flagship": form_records(cfg, files, feed, dev, FORMS),
+               "chunk": form_records(cfg, files, feed, dev, CHUNK_FORMS,
+                                     chunk=True)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     import probe_tree   # run by path: from this file's directory
-    sys.exit(main(probe_tree.parse_args(argparse.ArgumentParser(
-        description=__doc__.split("\n")[0])).tree))
+    _ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    _ap.add_argument("--forms", action="store_true",
+                     help="time the fused kernel at every form")
+    _args = probe_tree.parse_args(_ap)
+    sys.exit((forms_main if _args.forms else main)(_args.tree))

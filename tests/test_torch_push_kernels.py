@@ -11,6 +11,8 @@ column-0-up loop); the blocked write is pure placement and bit-exact. The
 fused push against the JAX push is tests/test_torch_push_fused.py.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,6 +183,66 @@ def test_blocked_layout_drops_padding_and_refuses_bad_blocks():
         blocked_layout(torch.from_numpy(uids), 512, 48)
 
 
+def _layout_uids(case):
+    """(uids, capacity) of a blocked-layout case: the first flagship
+    batch's sorted uids on the 2^20-row slab (77,128 in range and the
+    padding tail), or a dense draw of 410,407 of 2^20 rows, the density of
+    a step of 8 flagship batches, with a padding tail."""
+    C = 1 << 20
+    if case == "flagship":
+        import tempfile
+
+        from paddlebox_tpu_torch.train import flagship
+        cfg = flagship.FLAGSHIP
+        with tempfile.TemporaryDirectory() as tmp:
+            files, feed = flagship.write_files(
+                tmp, dataclasses.replace(cfg, num_files=1))
+            ids = flagship.first_batch_ids(files, feed, cfg)
+        uids, _, _, n_uniq = dedup_ids(ids, cfg.capacity)
+        assert (cfg.capacity, n_uniq) == (C, 77128)
+        return uids, C
+    rng = np.random.RandomState(32)
+    drawn = np.sort(rng.choice(C - 1, 410407, replace=False))
+    return np.concatenate([drawn, C + np.arange(64)]).astype(np.int32), C
+
+
+@pytest.mark.parametrize("case", ["flagship", "dense"])
+def test_blocked_layout_is_the_reference_layout_in_one_run(case,
+                                                           monkeypatch):
+    """blocked_layout's row map and block ids are the reference's
+    (push_blocked_write's row_map and blk_of_slot, optimizers.py:409-426,
+    as it hands them to its Pallas kernel, slots reversed there), and its
+    placed lanes read new_rows 0, 1, 2, ... in lane order: every tile of
+    the f32 kernel's lanes takes one consecutive run of source rows."""
+    from paddlebox_tpu.config import flags
+    from paddlebox_tpu.embedding import pallas_push
+
+    uids, C = _layout_uids(case)
+    B = 1024
+    seen = {}
+
+    def capture(slab, tiles, row_map, blk, interpret=False):
+        seen["row_map"] = np.asarray(row_map)[::-1]
+        seen["blk_idx"] = np.asarray(blk)[::-1]
+        return slab
+
+    monkeypatch.setattr(pallas_push, "pallas_blocked_write", capture)
+    flags.set_flag("push_blocked_pallas", True)
+    try:
+        jax_push_blocked_write(jnp.zeros((C, 1), jnp.float32),
+                               jnp.asarray(uids),
+                               jnp.zeros((len(uids), 1), jnp.float32), B)
+    finally:
+        flags.set_flag("push_blocked_pallas", False)
+    row_map, blk_idx = blocked_layout(torch.from_numpy(uids), C, B)
+    np.testing.assert_array_equal(row_map.numpy(), seen["row_map"])
+    np.testing.assert_array_equal(blk_idx.numpy(), seen["blk_idx"])
+    flat = row_map.numpy().reshape(-1)
+    placed = flat[flat >= 0]
+    assert placed.size == int((uids < C).sum())
+    np.testing.assert_array_equal(placed, np.arange(placed.size))
+
+
 def _push_args(seed=1, K=120, n_pad=20, hot=1, n_keys=60, cap=256):
     """Fused push arguments (slab, grads, perm, offsets, uids) and n_uniq:
     a slab of _rows_and_grads rows, one step's ids with ``hot`` repeats of
@@ -266,36 +328,91 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# push forms on the card: (rule, expand, slab dtype); the expand rows take
+# the lane-group design, the others the thread design (push_adagrad.cu)
+CUDA_PUSH_FORMS = [("adagrad", 0, "float32"), ("adagrad", 0, "bfloat16"),
+                   ("adam", 0, "bfloat16"), ("adagrad", 64, "float32"),
+                   ("adagrad", 64, "bfloat16"), ("naive", 64, "bfloat16")]
+
+
+def _form_push_args(rule, expand, dtype, seed, K, n_pad, hot, n_keys, cap):
+    """_push_args' ids and rows for the push form (rule, expand, dtype) at
+    embedx D: the rule's state columns and the expand block set by
+    push_probe.rule_rows, expand push columns random, the slab encoded
+    under bf16."""
+    from paddlebox_tpu_torch.embedding.accessor import slab_rows_np
+    from paddlebox_tpu_torch.push_probe import rule_rows
+
+    base_layout, (slab, occ, p, o, u), n = _push_args(seed, K, n_pad, hot,
+                                                      n_keys, cap)
+    layout = ValueLayout(D, rule, expand, dtype)
+    conf = SparseOptimizerConfig(**_conf_kwargs(3.0))
+    rows = rule_rows(layout, slab.numpy(), conf)
+    grads = np.zeros((K, PushLayout.of(layout).width), np.float32)
+    grads[:, :occ.shape[1]] = occ.numpy()
+    grads[:K - n_pad, occ.shape[1]:] = np.random.RandomState(seed).randn(
+        K - n_pad, expand) * 0.2
+    return layout, [torch.from_numpy(slab_rows_np(rows, layout)),
+                    torch.from_numpy(grads), p, o, u], n
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", CUDA_PUSH_FORMS,
+                         ids=["-".join(map(str, f)) for f in CUDA_PUSH_FORMS])
 @pytest.mark.parametrize("rows_out", [False, True])
-def test_cuda_push_adagrad_matches_plain(cuda_device, rows_out):
-    """The fused kernel over several tiles of uniques, one key's run
-    longer than a tile's staged occurrences, in both write modes:
-    bit-equal to its plain version."""
-    layout, args, n = _push_args(seed=5, K=3000, n_pad=200, hot=700,
-                                 n_keys=900, cap=1024)
+def test_cuda_push_adagrad_matches_plain(cuda_device, form, rows_out):
+    """The fused kernel over several tiles of uniques, one key's run of 700
+    occurrences (past the occurrences either design stages a tile), in both
+    write modes, at each of CUDA_PUSH_FORMS: bit-equal to its plain
+    version."""
+    layout, args, n = _form_push_args(*form, seed=5, K=3000, n_pad=200,
+                                      hot=700, n_keys=900, cap=1024)
     conf = SparseOptimizerConfig(**_conf_kwargs(3.0))
     s, g, p, o, u = [a.to(cuda_device) for a in args]
     s_k, s_p = s.clone(), s.clone()
-    before = pk.launch_counts()["push_adagrad"]
+    name = pk.push_form(layout)
+    before = pk.launch_counts()[name]
     got = pk.push_adagrad(s_k, g, p, o, u, n, 99, layout, conf, rows_out)
     torch.cuda.synchronize()
-    assert pk.launch_counts()["push_adagrad"] == before + 1
+    assert pk.launch_counts()[name] == before + 1
     want = pk.push_adagrad_fused_plain(s_p, g, p, o, u, n, 99, layout, conf,
                                        rows_out)
-    assert torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+    assert torch.equal(s_k.view(torch.int16), s_p.view(torch.int16))
     if rows_out:
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def _dense_blocked_case(permuted):
+    """blocked_write at a step of 8 flagship batches' density: 410,407
+    sorted rows of a 2^20 x 17 slab bucketized in 1024 slots of 1024 lanes
+    (blocked_layout: one consecutive run of sources a tile), or the same
+    lanes with their sources permuted (no run)."""
+    rng = np.random.RandomState(41)
+    C, W, B = 1 << 20, ValueLayout(D).width, 1024
+    uids = np.sort(rng.choice(C - 1, 410407, replace=False)).astype(np.int32)
+    row_map, blk_idx = blocked_layout(torch.from_numpy(uids), C, B)
+    row_map = row_map.numpy()
+    if permuted:
+        placed = row_map >= 0
+        row_map[placed] = rng.permutation(row_map[placed])
+    return (rng.rand(C, W).astype(np.float32),
+            rng.rand(len(uids), W).astype(np.float32), row_map,
+            blk_idx.numpy(), 0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["blocked_layout"] + sorted(BLOCKED_CASES))
+@pytest.mark.parametrize("case", ["blocked_layout", "dense", "dense_permuted"]
+                         + sorted(BLOCKED_CASES))
 def test_cuda_blocked_write_matches_plain(cuda_device, case):
-    """The kernel on a bucketized batch and on the edge cases, the row map
-    one entry into its buffer where the case asks (not 16-byte aligned),
-    in the case's slot order and reversed: bit-equal to its plain
-    version."""
-    if case == "blocked_layout":
+    """The kernel on a bucketized batch, at the density of a step of 8
+    flagship batches (sources one run a tile, and permuted) and on the edge
+    cases, the row map one entry into its buffer where the case asks (not
+    16-byte aligned), in the case's slot order and reversed: bit-equal to
+    its plain version."""
+    if case.startswith("dense"):
+        slab, new_rows, row_map, blk_idx, offset = _dense_blocked_case(
+            case == "dense_permuted")
+    elif case == "blocked_layout":
         slab, uids, new_rows, B = _blocked_case()
         row_map, blk_idx = blocked_layout(torch.from_numpy(uids),
                                           slab.shape[0], B)
